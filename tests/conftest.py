@@ -86,3 +86,9 @@ def skewed_lengths():
     lens = np.clip(rng.lognormal(7.5, 1.1, 48).astype(int), 64, 65536)
     lens[0] = 65536
     return [int(x) for x in lens]
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one "
+        "(run on the card: python -m pytest -m gpu tests/test_torch_*.py)")
