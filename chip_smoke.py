@@ -20,6 +20,8 @@ exit and no result line):
            engine (n_items=4, cap_t=512, page_sz=16, k=1); every request
            must complete, the kernel must launch 26 times per engine step
            and the plain attention never;
+  profile  the same trace again under torch.profiler: device time by
+           kernel and kernel group, and the device's busy share;
   verify   the same engine in float32 on the first 2 requests (8 new
            tokens) against the port's one_shot_generate;
   kernels  every kernel of the port with its launch count in ``serve``.
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -54,6 +57,23 @@ def _nvidia_smi() -> str:
     if r.returncode != 0:
         raise PhaseError(f"nvidia-smi failed: {r.stderr.strip()}")
     return r.stdout.strip().splitlines()[0]
+
+
+def _ptxas_summary(log: str):
+    """One line per compiled kernel: name, dtype, head dim, registers,
+    shared memory, stack and spills (from ``nvcc -Xptxas -v``)."""
+    out, name, spill = [], "?", ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            kind = "combine" if "combine" in ln else "fwd"
+            dt = "bf16" if "bfloat16" in ln else "f32"
+            m = re.search(r"Li(\d+)E", ln)
+            name = f"{kind}<{dt},{m.group(1) if m else '?'}>"
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "ptxas info" in ln and "Used" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
+    return out
 
 
 def _cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -232,6 +252,55 @@ def phase_serve(dev, cfg, params32, trace):
     return rec
 
 
+def phase_profile(dev, cfg, params32, trace):
+    """The serve phase's trace once more under ``torch.profiler``: device
+    time by kernel, summed per group, and the device's busy share of the
+    run's wall time (the profiler's own overhead inflates the wall time, so
+    the busy share is a lower bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.model import tree_map
+    from repro_torch.serve.engine import ServeEngine
+    params = tree_map(lambda a: a.to(torch.bfloat16), params32)
+    eng = ServeEngine(cfg, _econf(trace, 32), params=params,
+                      param_dtype=torch.bfloat16, device=dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(_requests(trace))
+        wall = time.perf_counter() - t0
+    per_kernel = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us > 0:
+            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us
+    total_us = sum(per_kernel.values())
+    if total_us == 0:
+        return {"device_time": "not measured (no device events)"}
+
+    def group(name):
+        n = name.lower()
+        if "flash_fwd" in n or "flash_combine" in n:
+            return "attention kernel"
+        if any(s in n for s in ("gemm", "xmma", "cutlass", "cublas",
+                                "nvjet")):
+            return "matmul"
+        if "index" in n or "gather" in n or "scatter" in n or "cat" in n:
+            return "gather/scatter/cat"
+        return "other"
+    groups = {}
+    for name, us in per_kernel.items():
+        g = group(name)
+        groups[g] = groups.get(g, 0.0) + us
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_s": wall, "device_ms": total_us / 1e3,
+            "busy_share": total_us / 1e6 / wall, "steps": eng.step_count,
+            "groups_ms": {g: us / 1e3 for g, us in
+                          sorted(groups.items(), key=lambda kv: -kv[1])},
+            "top_kernels_ms": [(n[:70], us / 1e3) for n, us in top]}
+
+
 def phase_verify(dev, cfg, params32, trace):
     import torch
 
@@ -288,10 +357,7 @@ def main() -> int:
 
     smi, _ = run("build", _nvidia_smi)
     lib, dt = run("build", load_library)
-    ptxas = [ln.strip() for ln in lib.build_log.splitlines()
-             if "ptxas info" in ln and ("Used" in ln or "spill" in ln
-                                        or "Compiling" in ln)]
-    for ln in ptxas:
+    for ln in _ptxas_summary(lib.build_log):
         print(f"[build] {ln}")
     print(f"[build] ok sm_90a {lib.path.name} in {dt:.1f}s; card: {smi}",
           flush=True)
@@ -307,6 +373,10 @@ def main() -> int:
     params32 = DecoderLM(cfg).init(gen, dtype=torch.float32, device=dev)
     srv, dt = run("serve", lambda: phase_serve(dev, cfg, params32, trace))
     print(f"[serve] {json.dumps(srv)} in {dt:.1f}s", flush=True)
+
+    prof, dt = run("profile", lambda: phase_profile(dev, cfg, params32,
+                                                    trace))
+    print(f"[profile] {json.dumps(prof)} in {dt:.1f}s", flush=True)
 
     lines, dt = run("verify", lambda: phase_verify(dev, cfg, params32,
                                                    trace))

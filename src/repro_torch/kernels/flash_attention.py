@@ -10,12 +10,15 @@ use into a shared library with a plain C interface under
 current stream.
 
 What bounds it: at the serving shapes every K/V row is met by up to
-``cap_t`` queries times the GQA group, so the floor is the tensor-core
-rate, not memory. This first kernel computes with float32 FMAs from shared
-memory (one block per (32-query tile, query head), a loop over 32-row KV
-tiles with an online softmax, whole tiles skipped when they fall outside
-the query tile's segments, causal range or window); moving its products
-onto tensor cores is the next step (``PERF.md``).
+``cap_t`` queries times the GQA group, and the roofline bound of a whole
+engine step's attention is a few hundredths of a ms (``PERF.md``). This
+kernel computes with float32 FMAs from shared memory: one block per
+(32-query tile, query head, KV split), a loop over its share of the
+32-row KV tiles with an online softmax, tiles with no live (query, key)
+pair skipped before they are loaded, and the splits' partial states
+merged by a second pass (so decode rows, which each attend a whole
+context, are spread over up to ``MAX_SPLIT`` blocks). Moving its products
+onto tensor cores is the next step.
 
 :class:`FlashAttentionKernel` only launches: it takes CUDA tensors,
 checks them and raises on anything the kernel does not take. Padding to
@@ -36,12 +39,14 @@ from typing import Optional
 
 import torch
 
-__all__ = ["BLOCK_Q", "BLOCK_KV", "HEAD_DIMS", "FlashAttentionKernel",
-           "flash_attention_cuda", "load_library", "NVCC_FLAGS"]
+__all__ = ["BLOCK_Q", "BLOCK_KV", "HEAD_DIMS", "MAX_SPLIT",
+           "FlashAttentionKernel", "default_split", "flash_attention_cuda",
+           "load_library", "NVCC_FLAGS"]
 
 BLOCK_Q = 32                  # query rows per block (csrc: BQ)
 BLOCK_KV = 32                 # KV rows per tile (csrc: BK)
 HEAD_DIMS = (64, 128, 256)    # template instantiations in the library
+MAX_SPLIT = 16                # KV splits per query tile (csrc: MAX_SPLIT)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -87,47 +92,70 @@ def load_library() -> KernelLibrary:
     log = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(so))
     for name, want in (("flash_attention_block_q", BLOCK_Q),
-                       ("flash_attention_block_kv", BLOCK_KV)):
+                       ("flash_attention_block_kv", BLOCK_KV),
+                       ("flash_attention_max_split", MAX_SPLIT)):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = [], ctypes.c_int
         if fn() != want:
             raise RuntimeError(f"{so.name}: {name}() = {fn()} but the "
-                               f"wrapper pads to {want}")
+                               f"wrapper expects {want}")
     fwd = lib.flash_attention_fwd
-    fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + \
-        [ctypes.c_float, ctypes.c_void_p]
+    fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + \
+        [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fwd.restype = ctypes.c_int
     return KernelLibrary(path=so, build_log=log, fwd=fwd)
 
 
 class FlashAttentionKernel:
-    """Launch wrapper; ``launches`` counts kernel launches (nothing else)."""
+    """Launch wrapper; ``launches`` counts its calls that launch the kernel
+    (one per attention op: the split pass and, with ``n_split > 1``, the
+    merge pass it issues together)."""
 
     def __init__(self) -> None:
         self.launches = 0
 
     def __call__(self, q, k, v, seg_q, seg_kv, pos_q, pos_kv, *,
                  causal: bool = True, window: int = 0,
-                 scale: Optional[float] = None) -> torch.Tensor:
+                 scale: Optional[float] = None,
+                 n_split: Optional[int] = None) -> torch.Tensor:
         T, Hq, D = _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
         S, Hkv = k.shape[0], k.shape[1]
         scale = float(scale if scale is not None else D ** -0.5)
+        if n_split is None:
+            n_split = default_split(S)
+        if not 1 <= n_split <= MAX_SPLIT:
+            raise ValueError(f"n_split={n_split} not in [1, {MAX_SPLIT}]")
         lib = load_library()
         out = torch.empty_like(q)
+        ws_ml = ws_acc = None
+        if n_split > 1:
+            ws_ml = torch.empty((n_split, T, Hq, 2), dtype=torch.float32,
+                                device=q.device)
+            ws_acc = torch.empty((n_split, T, Hq, D), dtype=torch.float32,
+                                 device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         with torch.cuda.device(q.device):
             rc = lib.fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          seg_q.data_ptr(), pos_q.data_ptr(),
                          seg_kv.data_ptr(), pos_kv.data_ptr(),
-                         out.data_ptr(), T, S, Hq, Hkv, D,
-                         _DTYPE_CODE[q.dtype], int(bool(causal)),
-                         int(window), scale, stream)
+                         out.data_ptr(),
+                         ws_ml.data_ptr() if ws_ml is not None else None,
+                         ws_acc.data_ptr() if ws_acc is not None else None,
+                         T, S, Hq, Hkv, D, _DTYPE_CODE[q.dtype],
+                         int(bool(causal)), int(window), scale, n_split,
+                         stream)
         if rc != 0:
             raise RuntimeError(
                 f"flash_attention_fwd launch failed with cudaError {rc} "
-                f"(T={T}, S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, {q.dtype})")
+                f"(T={T}, S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, {q.dtype}, "
+                f"n_split={n_split})")
         self.launches += 1
         return out
+
+
+def default_split(S: int) -> int:
+    """KV splits per query tile: one per 64 KV tiles, at most MAX_SPLIT."""
+    return max(1, min(MAX_SPLIT, -(-(S // BLOCK_KV) // 64)))
 
 
 def _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv):
@@ -162,6 +190,9 @@ def _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv):
                              f"{tuple(t.shape)}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("flash_attention_cuda takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must start on a 16-byte boundary (the "
+                         "kernel loads 16 bytes at a time)")
     return T, Hq, D
 
 

@@ -32,13 +32,19 @@ def pad_rows(x: torch.Tensor, mult: int, fill=0) -> torch.Tensor:
     return torch.cat([x, tail], dim=0)
 
 
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous and starting on a 16-byte boundary (copied if not)."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def pad_for_kernel(q, k, v, seg_q, seg_kv, pos_q, pos_kv):
     """Pad queries to ``BLOCK_Q`` and keys to ``BLOCK_KV`` rows; pad rows get
     ``seg = -2`` and position 0. Returns int32, contiguous tensors."""
     i32 = torch.int32
-    return (pad_rows(q, BLOCK_Q).contiguous(),
-            pad_rows(k, BLOCK_KV).contiguous(),
-            pad_rows(v, BLOCK_KV).contiguous(),
+    return (_dense(pad_rows(q, BLOCK_Q)),
+            _dense(pad_rows(k, BLOCK_KV)),
+            _dense(pad_rows(v, BLOCK_KV)),
             pad_rows(seg_q.to(i32), BLOCK_Q, PAD_SEG).contiguous(),
             pad_rows(seg_kv.to(i32), BLOCK_KV, PAD_SEG).contiguous(),
             pad_rows(pos_q.to(i32), BLOCK_Q).contiguous(),

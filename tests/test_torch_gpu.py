@@ -41,6 +41,7 @@ def _packed(rng, T, n_seq, ctx):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_split", [None, 1, 5])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,Dh,window", [
     (4, 1, 256, 512),       # gemma3-1b local layer
@@ -48,7 +49,9 @@ def _packed(rng, T, n_seq, ctx):
     (24, 8, 128, 0),        # llama3.2-3b
     (8, 2, 64, 16),
 ])
-def test_kernel_matches_plain(dtype, Hq, Hkv, Dh, window):
+def test_kernel_matches_plain(dtype, Hq, Hkv, Dh, window, n_split):
+    """``n_split=None`` goes through ``ops.flash_attention`` (padding and
+    the default split); explicit splits exercise the merge pass."""
     dev = _cuda()
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     rng = np.random.default_rng(Hq * Dh + window)
@@ -65,7 +68,12 @@ def test_kernel_matches_plain(dtype, Hq, Hkv, Dh, window):
     meta = [torch.from_numpy(a).to(dev) for a in
             (seg_q, seg_kv, pos_q, pos_kv)]
     before = flash_attention_cuda.launches
-    got = ops.flash_attention(q, k, v, *meta, window=window)
+    if n_split is None:
+        got = ops.flash_attention(q, k, v, *meta, window=window)
+    else:
+        got = flash_attention_cuda(
+            *ops.pad_for_kernel(q, k, v, *meta), window=window,
+            n_split=n_split)[:T]
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
