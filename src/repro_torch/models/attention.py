@@ -40,9 +40,10 @@ def init_attention(cfg: ArchConfig, gen: torch.Generator, *,
 
 
 def project_qkv(cfg: ArchConfig, p: Dict, x: torch.Tensor,
-                pos: torch.Tensor
+                pos: torch.Tensor, rope: Optional[Tuple] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: [T, D] -> q [T, Hq, Dh], k [T, Hkv, Dh], v [T, Hkv, Dh]."""
+    """x: [T, D] -> q [T, Hq, Dh], k [T, Hkv, Dh], v [T, Hkv, Dh].
+    ``rope``: precomputed ``layers.rope_tables(pos, ...)``, if any."""
     s = cfg.spec
     if s.kv_lora_rank > 0 or cfg.rope_kind == "mrope":
         raise NotImplementedError("MLA and M-RoPE are not ported yet")
@@ -54,8 +55,8 @@ def project_qkv(cfg: ArchConfig, p: Dict, x: torch.Tensor,
         q = rms_norm(q, p["q_norm"], cfg.rms_eps)
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
     if cfg.rope_kind == "rope":
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
+        q = apply_rope(q, pos, cfg.rope_theta, rope)
+        k = apply_rope(k, pos, cfg.rope_theta, rope)
     return q, k, v
 
 

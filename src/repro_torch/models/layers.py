@@ -9,14 +9,16 @@ stored ``[d_out, d_in]`` (``F.linear``'s layout); the weight bridge
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 __all__ = ["dense_init", "embed_init", "rms_norm", "swiglu_init",
-           "swiglu_apply", "rope_freqs", "apply_rope", "linear"]
+           "swiglu_apply", "rope_freqs", "rope_tables", "apply_rope",
+           "linear"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -67,22 +69,38 @@ def swiglu_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     return linear(h, p["w_down"])
 
 
+@functools.lru_cache(maxsize=32)
 def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
-    """Inverse frequencies for half the head dim (float32)."""
+    """Inverse frequencies for half the head dim (float32), computed once
+    on the CPU per (head_dim, theta, device) and shared by every caller —
+    read-only. Computing them on the CPU keeps CPU and GPU runs on the same
+    frequencies and keeps a host-to-device copy (which waits for the
+    device) out of every layer."""
     half = head_dim // 2
-    exps = torch.arange(half, dtype=torch.float32, device=device) / half
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    exps = torch.arange(half, dtype=torch.float32) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
+    return freqs.to(device)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
-               ) -> torch.Tensor:
-    """x: [T, H, Dh]; positions: [T] int. Rotates the two halves of Dh."""
-    half = x.shape[-1] // 2
-    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of the rotation angles, ``[T, 1, head_dim/2]`` float32.
+    Every layer rotates with the same tables, so a caller running many
+    layers over one batch computes them once."""
+    freqs = rope_freqs(head_dim, theta, device=positions.device)
     angles = positions.float()[:, None] * freqs[None, :]
-    cos = torch.cos(angles)[:, None, :]
-    sin = torch.sin(angles)[:, None, :]
+    return torch.cos(angles)[:, None, :], torch.sin(angles)[:, None, :]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> torch.Tensor:
+    """x: [T, H, Dh]; positions: [T] int. Rotates the two halves of Dh;
+    ``tables`` are :func:`rope_tables` of these positions, if the caller
+    has them."""
+    half = x.shape[-1] // 2
+    cos, sin = tables if tables is not None else \
+        rope_tables(positions, x.shape[-1], theta)
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)

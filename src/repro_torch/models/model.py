@@ -89,8 +89,10 @@ class DecoderLM:
         x = params["embed"][tokens].to(compute_dtype)
         if self.cfg.embed_scale:
             # the scale is rounded to the compute dtype, as the reference
-            x = x * torch.tensor(self.cfg.spec.d_model ** 0.5,
-                                 dtype=compute_dtype, device=x.device)
+            # rounds it; a host scalar keeps a device copy out of the step
+            scale = torch.tensor(self.cfg.spec.d_model ** 0.5,
+                                 dtype=compute_dtype).item()
+            x = x * scale
         return x
 
     def layer_apply(self, lparams: Dict, x: torch.Tensor, *,

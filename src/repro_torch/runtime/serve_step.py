@@ -47,7 +47,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import BLOCK_KV
 from repro_torch.models.attention import project_qkv
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import linear, rms_norm, swiglu_apply
+from repro_torch.models.layers import (linear, rms_norm, rope_tables,
+                                       swiglu_apply)
 from repro_torch.models.model import DecoderLM, layer_params
 
 __all__ = ["EngineGeometry", "make_engine_geometry", "init_pool",
@@ -225,10 +226,11 @@ def engine_step(model: DecoderLM, geom: EngineGeometry, params: Dict,
     scale = 1.0 / math.sqrt(s.head_dim)
     x = model.embed(params, batch.tokens, dt)
     T = x.shape[0]
+    rope = rope_tables(batch.pos, s.head_dim, cfg.rope_theta)
     for i, w in enumerate(cfg.layer_windows()):
         lp = layer_params(params, i)
         h = rms_norm(x, lp["ln1"], cfg.rms_eps)
-        q, k, v = project_qkv(cfg, lp["attn"], h, batch.pos)
+        q, k, v = project_qkv(cfg, lp["attn"], h, batch.pos, rope)
         ck = pool["cache_k"][i].view(-1, s.n_kv_heads, s.head_dim)
         cv = pool["cache_v"][i].view(-1, s.n_kv_heads, s.head_dim)
         k, v = k.to(ck.dtype), v.to(cv.dtype)
