@@ -20,8 +20,9 @@ exit and no result line):
            engine (n_items=4, cap_t=512, page_sz=16, k=1); every request
            must complete, the kernel must launch 26 times per engine step
            and the plain attention never;
-  profile  the same trace again under torch.profiler: device time by
-           kernel and kernel group, and the device's busy share;
+  profile  the trace's first 8 requests again under torch.profiler:
+           device time by kernel and kernel group, the host's busiest
+           operators, kernel launches per step, the device's busy share;
   verify   the same engine in float32 on the first 2 requests (8 new
            tokens) against the port's one_shot_generate;
   kernels  every kernel of the port with its launch count in ``serve``.
@@ -252,30 +253,40 @@ def phase_serve(dev, cfg, params32, trace):
     return rec
 
 
+PROFILE_REQUESTS = 8     # the serve trace's first 8: 73 engine steps
+
+
 def phase_profile(dev, cfg, params32, trace):
-    """The serve phase's trace once more under ``torch.profiler``: device
-    time by kernel, summed per group, and the device's busy share of the
-    run's wall time (the profiler's own overhead inflates the wall time, so
-    the busy share is a lower bound)."""
+    """The serve phase's first ``PROFILE_REQUESTS`` requests again under
+    ``torch.profiler``: device time by kernel and kernel group, the host's
+    busiest operators, kernel launches, and the device's busy share of the
+    run's wall time (the profiler's overhead inflates the wall time, so the
+    busy share is a lower bound)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.model import tree_map
     from repro_torch.serve.engine import ServeEngine
     params = tree_map(lambda a: a.to(torch.bfloat16), params32)
+    sub = trace[:PROFILE_REQUESTS]
     eng = ServeEngine(cfg, _econf(trace, 32), params=params,
                       param_dtype=torch.bfloat16, device=dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run(_requests(trace))
+        eng.run(_requests(sub))
         wall = time.perf_counter() - t0
-    per_kernel = {}
+    kernels, host, launches = {}, {}, 0
     for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0.0)
-        if us > 0:
-            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us
-    total_us = sum(per_kernel.values())
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total
+        else:
+            host[e.key] = e.self_cpu_time_total
+            if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                         "cuLaunchKernel", "cuLaunchKernelEx"):
+                launches += e.count
+    total_us = sum(kernels.values())
     if total_us == 0:
         return {"device_time": "not measured (no device events)"}
 
@@ -286,19 +297,24 @@ def phase_profile(dev, cfg, params32, trace):
         if any(s in n for s in ("gemm", "xmma", "cutlass", "cublas",
                                 "nvjet")):
             return "matmul"
-        if "index" in n or "gather" in n or "scatter" in n or "cat" in n:
-            return "gather/scatter/cat"
+        if "copy" in n or "index" in n or "cat" in n or "gather" in n:
+            return "copy/index/cat"
         return "other"
     groups = {}
-    for name, us in per_kernel.items():
-        g = group(name)
-        groups[g] = groups.get(g, 0.0) + us
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_s": wall, "device_ms": total_us / 1e3,
-            "busy_share": total_us / 1e6 / wall, "steps": eng.step_count,
-            "groups_ms": {g: us / 1e3 for g, us in
-                          sorted(groups.items(), key=lambda kv: -kv[1])},
-            "top_kernels_ms": [(n[:70], us / 1e3) for n, us in top]}
+    for name, us in kernels.items():
+        groups[group(name)] = groups.get(group(name), 0.0) + us
+    steps = max(eng.step_count, 1)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    top_host = sorted(host.items(), key=lambda kv: -kv[1])[:6]
+    return {"requests": len(sub), "steps": eng.step_count, "wall_s": wall,
+            "device_ms": total_us / 1e3, "busy_share": total_us / 1e6 / wall,
+            "device_ms_per_step": total_us / 1e3 / steps,
+            "wall_ms_per_step": wall * 1e3 / steps,
+            "kernel_launches_per_step": launches / steps,
+            "groups_ms_per_step": {g: us / 1e3 / steps for g, us in sorted(
+                groups.items(), key=lambda kv: -kv[1])},
+            "top_kernels_ms": [(n[:60], us / 1e3) for n, us in top],
+            "top_host_ops_ms": [(n[:60], us / 1e3) for n, us in top_host]}
 
 
 def phase_verify(dev, cfg, params32, trace):

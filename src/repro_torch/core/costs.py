@@ -71,7 +71,7 @@ def analytic_coefficients(m: ModelSpec, c: ClusterSpec) -> Coefficients:
     lin = _linear_flops_per_token(m) + _local_attn_flops_per_token(m)
     quad = _attn_flops_per_token_pair(m)
     return Coefficients(alpha1=quad / c.effective_flops,
-                        alpha2=lin / c.effective_flops, beta1=5e-6)
+                        alpha2=lin / c.effective_flops)
 
 
 @dataclass

@@ -8,9 +8,7 @@ of an architecture), :class:`ClusterSpec` (the target hardware) and
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
-from typing import Any
 
 __all__ = ["ModelSpec", "ClusterSpec", "Coefficients"]
 
@@ -51,18 +49,6 @@ class ModelSpec:
     tie_embeddings: bool = True
     bytes_per_act: int = 2        # e: bf16 activations
 
-    @property
-    def d_kv(self) -> int:
-        if self.kv_lora_rank > 0:
-            return (self.kv_lora_rank + self.qk_rope_dim) // 2 or 1
-        if self.attn_free:
-            return 0
-        return self.n_kv_heads * self.head_dim
-
-    @property
-    def d_head_total(self) -> int:
-        return self.n_heads * self.head_dim
-
     def n_global_layers(self) -> int:
         """Number of full-attention (global) layers."""
         if self.attn_free:
@@ -80,35 +66,18 @@ class ModelSpec:
 
 @dataclass(frozen=True)
 class ClusterSpec:
-    """Target hardware. Defaults: one NVIDIA H100 SXM (NVIDIA's data sheet:
-    989 TFLOP/s dense bf16, 80 GB HBM3 at 3.35 TB/s). ``split_balanced`` —
-    the only cost-model entry the serving slice calls — depends on the
-    ratio of the model's quadratic and linear FLOP terms alone, so these
-    rates do not move its output."""
+    """Target hardware: one NVIDIA H100 SXM (989 TFLOP/s dense bf16,
+    NVIDIA's data sheet). The mesh and memory terms join with the planner.
+    ``split_balanced``, the only cost-model entry the serving slice calls,
+    depends on the ratio of the model's quadratic and linear FLOP terms
+    alone, so these rates do not move its output."""
 
-    d_p: int = 1                 # pipeline stages
-    d_s: int = 1                 # sequence-parallel degree
-    n_pods: int = 1
     flops_per_chip: float = 989e12
-    hbm_bytes: float = 80e9
-    hbm_bw: float = 3.35e12
     mfu: float = 0.5
-    mem_fraction: float = 0.92
-
-    @property
-    def n_devices(self) -> int:
-        return self.d_p * self.d_s
 
     @property
     def effective_flops(self) -> float:
         return self.flops_per_chip * self.mfu
-
-    @property
-    def capacity_bytes(self) -> float:
-        return self.hbm_bytes * self.mem_fraction
-
-    def with_(self, **kw: Any) -> "ClusterSpec":
-        return dataclasses.replace(self, **kw)
 
 
 @dataclass
@@ -117,9 +86,7 @@ class Coefficients:
 
     alpha1: seconds per (token-pair) of causal attention  [quadratic term]
     alpha2: seconds per token of position-independent work [linear term]
-    beta1:  fixed per-chunk overhead per stage
     """
 
     alpha1: float
     alpha2: float
-    beta1: float

@@ -40,7 +40,7 @@ from typing import Optional
 import torch
 
 __all__ = ["BLOCK_Q", "BLOCK_KV", "HEAD_DIMS", "MAX_SPLIT",
-           "FlashAttentionKernel", "default_split", "flash_attention_cuda",
+           "FlashAttentionKernel", "kv_splits", "flash_attention_cuda",
            "load_library", "NVCC_FLAGS"]
 
 BLOCK_Q = 32                  # query rows per block (csrc: BQ)
@@ -108,23 +108,19 @@ def load_library() -> KernelLibrary:
 
 class FlashAttentionKernel:
     """Launch wrapper; ``launches`` counts its calls that launch the kernel
-    (one per attention op: the split pass and, with ``n_split > 1``, the
-    merge pass it issues together)."""
+    (one per attention op: the split pass and, when the keys are split over
+    several blocks, the merge pass it issues with it)."""
 
     def __init__(self) -> None:
         self.launches = 0
 
     def __call__(self, q, k, v, seg_q, seg_kv, pos_q, pos_kv, *,
                  causal: bool = True, window: int = 0,
-                 scale: Optional[float] = None,
-                 n_split: Optional[int] = None) -> torch.Tensor:
+                 scale: Optional[float] = None) -> torch.Tensor:
         T, Hq, D = _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
         S, Hkv = k.shape[0], k.shape[1]
         scale = float(scale if scale is not None else D ** -0.5)
-        if n_split is None:
-            n_split = default_split(S)
-        if not 1 <= n_split <= MAX_SPLIT:
-            raise ValueError(f"n_split={n_split} not in [1, {MAX_SPLIT}]")
+        n_split = kv_splits(S)
         lib = load_library()
         out = torch.empty_like(q)
         ws_ml = ws_acc = None
@@ -153,8 +149,9 @@ class FlashAttentionKernel:
         return out
 
 
-def default_split(S: int) -> int:
-    """KV splits per query tile: one per 64 KV tiles, at most MAX_SPLIT."""
+def kv_splits(S: int) -> int:
+    """KV splits per query tile: one per 64 KV tiles, at most MAX_SPLIT
+    (a query tile then walks at most ~64 tiles in series)."""
     return max(1, min(MAX_SPLIT, -(-(S // BLOCK_KV) // 64)))
 
 

@@ -115,7 +115,7 @@ def main(argv=None) -> int:
     try:
         engine = ServeEngine(cfg, econf, param_dtype=dtype,
                              compute_dtype=dtype, device=device,
-                             seed=args.seed, log=print)
+                             seed=args.seed)
     except NotImplementedError as e:
         print(f"error: arch {args.arch!r} is not servable: {e}",
               file=sys.stderr)

@@ -70,14 +70,12 @@ def _append(buf: torch.Tensor, rows: torch.Tensor, offset: int
     return out
 
 
-def make_local_attention_policy(flash_impl: Optional[Callable] = None
-                                ) -> Callable:
+def make_local_attention_policy() -> Callable:
     """Single-device attention policy: concatenates the context carry in
-    front of the chunk's KV rows, attends, and appends the chunk's rows to
-    the carry at ``ctx_len``. ``flash_impl`` defaults to the kernel
-    dispatch :func:`repro_torch.kernels.ops.flash_attention`."""
-    if flash_impl is None:
-        from repro_torch.kernels.ops import flash_attention as flash_impl
+    front of the chunk's KV rows, attends through the kernel dispatch
+    :func:`repro_torch.kernels.ops.flash_attention`, and appends the
+    chunk's rows to the carry at ``ctx_len``."""
+    from repro_torch.kernels.ops import flash_attention
 
     def policy(q, k_cur, v_cur, *, seg, pos, ctx_k, ctx_v, ctx_len,
                causal, window, scale):
@@ -94,8 +92,8 @@ def make_local_attention_policy(flash_impl: Optional[Callable] = None
         else:
             kk, vv, kv_seg, kv_pos = k_cur, v_cur, seg, pos
             new_k = new_v = None
-        out = flash_impl(q, kk, vv, seg, kv_seg, pos, kv_pos,
-                         causal=causal, window=window, scale=scale)
+        out = flash_attention(q, kk, vv, seg, kv_seg, pos, kv_pos,
+                              causal=causal, window=window, scale=scale)
         return out, new_k, new_v
 
     return policy

@@ -41,7 +41,8 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int, *,
 
 
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w.T`` in x's dtype (the reference's ``einsum(x, w.astype(dt))``)."""
+    """``x @ w.T`` in x's dtype (the reference's
+    ``einsum(x, w.astype(dt))``)."""
     return F.linear(x, w.to(x.dtype))
 
 

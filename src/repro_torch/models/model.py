@@ -23,11 +23,11 @@ __all__ = ["DecoderLM", "LayerCtx", "layer_params", "tree_map"]
 
 
 class LayerCtx(NamedTuple):
-    """Per-layer split-chunk context carry (None where inapplicable)."""
-    k: Optional[torch.Tensor]          # [C_cap, Hkv, Dh] (or [L, ...])
+    """Split-chunk context carry: KV buffers ``[C_cap, Hkv, Dh]`` per layer
+    (``[L, ...]`` stacked), None for a context-free run. The reference's
+    SSM fields join with the SSM family."""
+    k: Optional[torch.Tensor]
     v: Optional[torch.Tensor]
-    ssm_h: Optional[torch.Tensor] = None
-    ssm_tail: Optional[torch.Tensor] = None
 
 
 def tree_map(fn: Callable, tree):
@@ -44,15 +44,14 @@ def layer_params(params: Dict, idx: int) -> Dict:
 class DecoderLM:
     """init/apply-style decoder LM parameterized by ArchConfig."""
 
-    def __init__(self, cfg: ArchConfig, *,
-                 attn_fn: Optional[Callable] = None):
+    def __init__(self, cfg: ArchConfig):
         s = cfg.spec
         if (cfg.layer_kind != LayerKind.ATTN or s.n_experts or s.ssm_state
                 or s.kv_lora_rank or s.attn_free or s.is_encoder_decoder):
             raise NotImplementedError(
                 f"{cfg.name}: only dense attention decoders are ported")
         self.cfg = cfg
-        self.attn_fn = attn_fn or make_local_attention_policy()
+        self.attn_fn = make_local_attention_policy()
 
     # ------------------------------------------------------------------
     def init(self, gen: torch.Generator, *, dtype=torch.float32,

@@ -65,7 +65,6 @@ class EngineGeometry:
     page_sz: int             # cache rows per page
     pages_per_seq: int       # page-table entries per request (max context)
     k: int                   # decode tokens per stream per step (1 = greedy)
-    copy_cap: int = 4        # COW page copies per copy call
     compute_dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -82,7 +81,6 @@ class EngineGeometry:
 def make_engine_geometry(cfg: ArchConfig, *, n_items: int, cap_t: int,
                          n_pages: int, page_sz: int,
                          pages_per_seq: Optional[int] = None, k: int = 1,
-                         copy_cap: int = 4,
                          compute_dtype=torch.bfloat16) -> EngineGeometry:
     s = cfg.spec
     if s.attn_free or s.ssm_state > 0:
@@ -93,9 +91,8 @@ def make_engine_geometry(cfg: ArchConfig, *, n_items: int, cap_t: int,
     if s.kv_lora_rank > 0:
         raise NotImplementedError("MLA latent cache rows are not wired "
                                   "into the page pool")
-    if min(n_items, cap_t, n_pages, page_sz, k, copy_cap) < 1:
-        raise ValueError(
-            "n_items/cap_t/n_pages/page_sz/k/copy_cap must all be >= 1")
+    if min(n_items, cap_t, n_pages, page_sz, k) < 1:
+        raise ValueError("n_items/cap_t/n_pages/page_sz/k must all be >= 1")
     pp = n_pages if pages_per_seq is None else pages_per_seq
     if not (1 <= pp <= n_pages):
         raise ValueError(f"pages_per_seq={pp} must be in [1, n_pages="
@@ -104,7 +101,7 @@ def make_engine_geometry(cfg: ArchConfig, *, n_items: int, cap_t: int,
         raise ValueError(f"k={k} cannot exceed cap_t={cap_t}")
     return EngineGeometry(n_items=n_items, cap_t=cap_t, n_pages=n_pages,
                           page_sz=page_sz, pages_per_seq=pp, k=k,
-                          copy_cap=copy_cap, compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype)
 
 
 def init_pool(cfg: ArchConfig, geom: EngineGeometry,
@@ -181,8 +178,7 @@ def pack_step(geom: EngineGeometry, segments: Sequence[PackedSegment],
         seg[a:a + ln] = sid[sg.req_id]
         entry = p // ps
         mapped = (p < pp * ps) & (entry < len(table))
-        page = np.where(mapped, table[np.minimum(entry, len(table) - 1)]
-                        if len(table) else geom.trash_page, geom.trash_page)
+        page = table[np.minimum(entry, len(table) - 1)]
         write[a:a + ln] = np.where(mapped, page * ps + p % ps,
                                    trash0 + p % ps)
         head.extend(range(a, a + ln) if sg.read_all else [a + ln - 1])
@@ -262,23 +258,25 @@ def copy_pages(pool: Dict[str, torch.Tensor], pairs) -> None:
             buf[:, dst].copy_(buf[:, src])
 
 
+HEAD_BLOCK_V = 16384     # vocabulary rows per greedy-head tile
+
+
 @torch.no_grad()
 def greedy_ids(hidden: torch.Tensor, w: torch.Tensor, *,
-               vocab_true: Optional[int] = None,
-               block_v: int = 16384) -> torch.Tensor:
+               vocab_true: Optional[int] = None) -> torch.Tensor:
     """Argmax of ``hidden @ w.T`` over the vocabulary without holding the
-    ``[N, V]`` logits: float32 logits per ``block_v``-row tile of ``w``, a
-    running (max, index) with strict ``>`` across tiles and the first
-    index within a tile. The result is the lowest index of the global
-    maximum for any ``block_v``."""
+    ``[N, V]`` logits: float32 logits per ``HEAD_BLOCK_V``-row tile of
+    ``w``, a running (max, index) with strict ``>`` across tiles and the
+    first index within a tile. The result is the lowest index of the
+    global maximum for any tile size."""
     N = hidden.shape[0]
     V = w.shape[0] if vocab_true is None else min(vocab_true, w.shape[0])
     best_v = torch.full((N,), -math.inf, dtype=torch.float32,
                         device=hidden.device)
     best_i = torch.zeros((N,), dtype=torch.int64, device=hidden.device)
     hf = hidden.float()
-    for v0 in range(0, V, block_v):
-        logits = hf @ w[v0:min(v0 + block_v, V)].float().T
+    for v0 in range(0, V, HEAD_BLOCK_V):
+        logits = hf @ w[v0:min(v0 + HEAD_BLOCK_V, V)].float().T
         m, am = logits.max(dim=1)
         take = m > best_v
         best_v = torch.where(take, m, best_v)

@@ -29,7 +29,7 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,19 +50,20 @@ from .speculative import SpecStats, propose_draft, verify_greedy
 __all__ = ["EngineConfig", "Request", "RequestResult", "ServeEngine",
            "one_shot_generate", "verify_against_one_shot"]
 
+NEAR_TIE = 1e-4      # relative top-1/top-2 logit margin a verify tolerates
+
 
 @dataclass
 class EngineConfig:
-    """Engine knobs: (n_items, cap_t, n_pages, page_sz, pages_per_seq, k,
-    copy_cap) are the step geometry; budgets, the prefill mode and the
-    prefix cache are host policy."""
+    """Engine knobs: (n_items, cap_t, n_pages, page_sz, pages_per_seq, k)
+    are the step geometry; budgets, the prefill mode and the prefix cache
+    are host policy."""
     n_items: int = 4
     cap_t: int = 64
     n_pages: int = 16
     page_sz: int = 16
     pages_per_seq: Optional[int] = None   # None = n_pages
     k: int = 1
-    copy_cap: int = 4
     prefix_cache: bool = True
     prefill_chunk: Optional[int] = None   # max prefill chunk (default cap_t)
     decode_token_budget: Optional[int] = None
@@ -127,19 +128,17 @@ class ServeEngine:
                  params: Optional[Dict] = None,
                  param_dtype: Optional[torch.dtype] = None,
                  compute_dtype: Optional[torch.dtype] = None,
-                 device=None, seed: int = 0,
-                 log: Optional[Callable] = None):
+                 device=None, seed: int = 0):
         self.device = resolve_device(device)
         self.cfg_arch = cfg_arch
         self.config = config
-        self.log = log
         param_dtype = param_dtype or torch.float32
         compute_dtype = compute_dtype or param_dtype
         self.geom = make_engine_geometry(
             cfg_arch, n_items=config.n_items, cap_t=config.cap_t,
             n_pages=config.n_pages, page_sz=config.page_sz,
             pages_per_seq=config.pages_per_seq, k=config.k,
-            copy_cap=config.copy_cap, compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype)
         self.model = DecoderLM(cfg_arch)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -156,7 +155,7 @@ class ServeEngine:
             prefill_mode=config.prefill_mode))
         # prompt slicing reuses the trainer's workload-balanced capacity
         # logic (Alg. 1 line 1) on one device
-        self._cm = CostModel(cfg_arch.spec, ClusterSpec(d_p=1, d_s=1))
+        self._cm = CostModel(cfg_arch.spec, ClusterSpec())
         self.spec_stats = SpecStats()
         self._waiting: "deque[_ReqState]" = deque()
         self._running: List[_ReqState] = []
@@ -509,8 +508,8 @@ def _last_hidden(model: DecoderLM, params: Dict, seq: Sequence[int],
 
 def one_shot_generate(cfg_arch, params: Dict,
                       prompts: Sequence[Sequence[int]], max_new: int, *,
-                      compute_dtype=torch.float32, device=None,
-                      eos_id: Optional[int] = None) -> List[List[int]]:
+                      compute_dtype=torch.float32,
+                      device=None) -> List[List[int]]:
     """Each output token from a FULL teacher-forced forward of (prompt +
     generated-so-far) — no KV reuse, one request at a time. Quadratically
     slow and exactly right: the oracle of the engine's paged incremental
@@ -527,8 +526,6 @@ def one_shot_generate(cfg_arch, params: Dict,
             nxt = int(greedy_ids(h, head, vocab_true=cfg_arch.spec.vocab)[0])
             gen.append(nxt)
             seq.append(nxt)
-            if eos_id is not None and nxt == eos_id:
-                break
         outs.append(gen)
     return outs
 
@@ -551,13 +548,13 @@ def top2_margin(cfg_arch, params: Dict, seq: Sequence[int], *,
 def verify_against_one_shot(cfg_arch, params: Dict,
                             prompts: Sequence[Sequence[int]],
                             outputs: Sequence[Sequence[int]], max_new: int,
-                            *, compute_dtype=torch.float32, device=None,
-                            rel_margin: float = 1e-4
+                            *, compute_dtype=torch.float32, device=None
                             ) -> Tuple[bool, List[str]]:
     """Compare engine output ids with :func:`one_shot_generate`. A mismatch
     is tolerated only where the one-shot's top-1/top-2 logit margin is
-    below ``rel_margin * max|logit|`` (a near-tie that summation order may
-    flip); comparison of that request stops there. Returns (ok, lines)."""
+    below ``NEAR_TIE * max|logit|`` (random weights at a 262,144-entry
+    vocabulary give near-ties that summation order may flip); comparison of
+    that request stops there. Returns (ok, report lines)."""
     ref = one_shot_generate(cfg_arch, params, prompts, max_new,
                             compute_dtype=compute_dtype, device=device)
     ok, lines = True, []
@@ -578,10 +575,10 @@ def verify_against_one_shot(cfg_arch, params: Dict,
         margin, scale = top2_margin(cfg_arch, params, seq,
                                     compute_dtype=compute_dtype,
                                     device=device)
-        tolerated = margin < rel_margin * scale
+        tolerated = margin < NEAR_TIE * scale
         ok &= tolerated
         lines.append(f"request {i}: ids differ at {j} ({got[j]} vs "
                      f"{want[j]}); one-shot margin {margin:.3e} vs "
-                     f"{rel_margin:g} * max|logit| {scale:.3e} -> "
+                     f"{NEAR_TIE:g} * max|logit| {scale:.3e} -> "
                      f"{'tolerated near-tie' if tolerated else 'MISMATCH'}")
     return ok, lines

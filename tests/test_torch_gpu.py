@@ -41,7 +41,7 @@ def _packed(rng, T, n_seq, ctx):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_split", [None, 1, 5])
+@pytest.mark.parametrize("C", [700, 4000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,Dh,window", [
     (4, 1, 256, 512),       # gemma3-1b local layer
@@ -49,13 +49,15 @@ def _packed(rng, T, n_seq, ctx):
     (24, 8, 128, 0),        # llama3.2-3b
     (8, 2, 64, 16),
 ])
-def test_kernel_matches_plain(dtype, Hq, Hkv, Dh, window, n_split):
-    """``n_split=None`` goes through ``ops.flash_attention`` (padding and
-    the default split); explicit splits exercise the merge pass."""
+def test_kernel_matches_plain(dtype, Hq, Hkv, Dh, window, C):
+    """``C`` context rows of segment 0, then a 300-row chunk: at C=700 one
+    block walks all KV tiles of its query tile; at C=4000 they are split
+    over blocks and merged (``kv_splits``)."""
     dev = _cuda()
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    rng = np.random.default_rng(Hq * Dh + window)
-    C, T = 700, 300                  # context rows of segment 0, then chunk
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     kv_splits)
+    rng = np.random.default_rng(Hq * Dh + window + C)
+    T = 300
     seg_q, pos_q = _packed(rng, T, 3, ctx=C)
     seg_q[-5:] = -1                  # padding rows -> exact zeros
     seg_kv = np.concatenate([np.zeros(C, np.int32), seg_q])
@@ -67,13 +69,10 @@ def test_kernel_matches_plain(dtype, Hq, Hkv, Dh, window, n_split):
     q, k, v = mk(T, Hq, Dh), mk(C + T, Hkv, Dh), mk(C + T, Hkv, Dh)
     meta = [torch.from_numpy(a).to(dev) for a in
             (seg_q, seg_kv, pos_q, pos_kv)]
+    S = -(-(C + T) // 32) * 32       # rows after ops pads the keys
+    assert (kv_splits(S) > 1) == (C > 2048)
     before = flash_attention_cuda.launches
-    if n_split is None:
-        got = ops.flash_attention(q, k, v, *meta, window=window)
-    else:
-        got = flash_attention_cuda(
-            *ops.pad_for_kernel(q, k, v, *meta), window=window,
-            n_split=n_split)[:T]
+    got = ops.flash_attention(q, k, v, *meta, window=window)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape

@@ -6,8 +6,8 @@ both engines serve the same trace. Output ids must be equal for every
 request, on reduced gemma3-1b (6 layers: window-8 locals and one global
 layer) and reduced llama3.2-3b. The port must also agree with itself
 across k=2 / k=1, prefix cache on / off, chunked / whole-prompt prefill,
-and with its own ``one_shot_generate``; and its ``prompt_slices`` must
-equal the JAX package's.
+preemption under page pressure, and with its own ``one_shot_generate``;
+and its ``prompt_slices`` must equal the JAX package's.
 """
 
 import jax
@@ -113,8 +113,18 @@ def test_prompt_slices_equal_jax():
     for name in ARCHS:
         jcm = JaxCostModel(jax_get_arch(name).spec,
                            JaxClusterSpec(d_p=1, d_s=1))
-        cm = CostModel(get_arch(name).spec, ClusterSpec(d_p=1, d_s=1))
+        cm = CostModel(get_arch(name).spec, ClusterSpec())
         for cap in (8, 16, 64, 512):
             for ln in list(range(1, 80)) + [513, 1000, 2047, 4096, 9999]:
                 assert prompt_slices(cm, ln, cap) == \
                     jax_prompt_slices(jcm, ln, cap), (name, cap, ln)
+
+
+def test_preemption_keeps_outputs(served):
+    """Page pressure with preemption on: streams lose their pages and
+    resume-prefill, and every request still emits the JAX engine's ids."""
+    cfg, params, jax_ids = served
+    eng, got = _run(cfg, params, _trace(Request, cfg.spec.vocab),
+                    n_pages=12, preempt_waiting_steps=1)
+    assert got == jax_ids
+    assert sum(r.preempted for r in eng.results.values()) > 0
