@@ -128,3 +128,25 @@ def test_preemption_keeps_outputs(served):
                     n_pages=12, preempt_waiting_steps=1)
     assert got == jax_ids
     assert sum(r.preempted for r in eng.results.values()) > 0
+
+
+def test_greedy_head_tie_rule():
+    """Vocabulary-tiled greedy head: the lowest id of the maximum wins,
+    within a tile and across tiles, as ``np.argmax`` over full logits."""
+    import torch
+
+    from repro_torch.runtime.serve_step import HEAD_BLOCK_V, greedy_ids
+    V, D = 2 * HEAD_BLOCK_V + 10, 8
+    w = torch.zeros(V, D)
+    h = torch.ones(2, D)
+    for i in (HEAD_BLOCK_V + 3, 2 * HEAD_BLOCK_V + 1, 7, 9):
+        w[i] = 1.0
+    assert greedy_ids(h, w).tolist() == [7, 7]
+    w[7] = w[9] = 0.5
+    assert greedy_ids(h, w).tolist() == [HEAD_BLOCK_V + 3] * 2
+    assert greedy_ids(h, w, vocab_true=HEAD_BLOCK_V).tolist() == [7, 7]
+    rng = np.random.default_rng(0)
+    hr = rng.standard_normal((5, D)).astype(np.float32)
+    wr = rng.standard_normal((V, D)).astype(np.float32)
+    assert greedy_ids(torch.from_numpy(hr), torch.from_numpy(wr)).tolist() \
+        == np.argmax(hr @ wr.T, axis=1).tolist()
