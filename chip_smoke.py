@@ -280,7 +280,8 @@ def phase_profile(dev, cfg, params32, trace):
     kernels, host, launches = {}, {}, 0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
-            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total
+            us = e.self_device_time_total
+            kernels[e.key] = kernels.get(e.key, 0.0) + us
         else:
             host[e.key] = e.self_cpu_time_total
             if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
