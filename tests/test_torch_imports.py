@@ -81,8 +81,8 @@ def test_cli_without_card_exits_nonzero():
 def test_cli_on_cpu_when_asked():
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
-         "--arch", "llama3.2-3b", "--reduced", "--requests", "3",
-         "--max-new", "3", "--verify", "2"],
+         "--arch", "llama3.2-3b", "--reduced", "--requests", "2",
+         "--max-new", "2", "--verify", "1"],
         capture_output=True, text=True, timeout=120, env=_env())
     assert r.returncode == 0, r.stderr[-3000:]
     assert "serve OK" in r.stdout and "[verify]" in r.stdout
