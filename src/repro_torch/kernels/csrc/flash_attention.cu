@@ -24,9 +24,9 @@
 //   attends its whole context, so one block per query tile would walk
 //   thousands of tiles in series. The KV tiles are dealt round-robin to
 //   ``n_split`` blocks per query tile; each writes its partial
-//   (m, l, unnormalised acc) to a float32 workspace and a second kernel
-//   merges them (flash-decoding). ``n_split == 1`` writes the output
-//   directly.
+//   (m, l, unnormalised acc) to a float32 workspace and a second kernel,
+//   launched through its own entry point, merges them (flash-decoding).
+//   ``n_split == 1`` writes the output directly.
 //
 // Bound. At the serving shapes (gemma3-1b: Hq=4, Hkv=1, D=256) the work
 // per byte is high (a K/V row meets up to 512 queries x 4 heads), and the
@@ -334,10 +334,10 @@ __global__ void flash_combine_kernel(const float2* __restrict__ ws_ml,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* seg_q,
-           const void* pos_q, const void* seg_kv, const void* pos_kv, void* out,
-           void* ws_ml, void* ws_acc, int T_, int S, int Hq, int Hkv, int causal,
-           int window, float scale, int n_split, cudaStream_t stream) {
+int launch_fwd(const void* q, const void* k, const void* v, const void* seg_q,
+               const void* pos_q, const void* seg_kv, const void* pos_kv, void* out,
+               void* ws_ml, void* ws_acc, int T_, int S, int Hq, int Hkv, int causal,
+               int window, float scale, int n_split, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   static bool attr_set = false;
   if (!attr_set) {
@@ -352,8 +352,12 @@ int launch(const void* q, const void* k, const void* v, const void* seg_q,
       (const T*)q, (const T*)k, (const T*)v, (const int*)seg_q, (const int*)pos_q,
       (const int*)seg_kv, (const int*)pos_kv, (T*)out, (float2*)ws_ml,
       (float*)ws_acc, T_, S, Hq, Hkv, causal, window, scale, n_split);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || n_split == 1) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_combine(const void* ws_ml, const void* ws_acc, void* out, int T_, int Hq,
+                   int n_split, cudaStream_t stream) {
   flash_combine_kernel<T, D><<<T_ * Hq, 64, 0, stream>>>(
       (const float2*)ws_ml, (const float*)ws_acc, (T*)out, T_ * Hq, n_split);
   return (int)cudaGetLastError();
@@ -369,10 +373,13 @@ int flash_attention_block_q() { return BQ; }
 int flash_attention_block_kv() { return BK; }
 int flash_attention_max_split() { return MAX_SPLIT; }
 
-// dtype: 0 = float32, 1 = bfloat16. With n_split > 1, ws_ml must hold
-// n_split * T * Hq float2 and ws_acc n_split * T * Hq * D floats
-// (uninitialised is fine). Returns a cudaError_t code (0 = ok);
-// cudaErrorInvalidValue for a shape or dtype this library does not take.
+// The split pass. dtype: 0 = float32, 1 = bfloat16. With n_split == 1 it
+// writes ``out``; with n_split > 1 it writes only the partial states: ws_ml
+// must hold n_split * T * Hq float2 (m, l) and ws_acc n_split * T * Hq * D
+// floats (uninitialised is fine; acc is written only where l > 0), and
+// flash_attention_combine merges them into ``out``. Returns a cudaError_t
+// code (0 = ok); cudaErrorInvalidValue for a shape or dtype this library
+// does not take.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* seg_q, const void* pos_q, const void* seg_kv,
                         const void* pos_kv, void* out, void* ws_ml, void* ws_acc,
@@ -384,10 +391,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
       (n_split > 1 && (ws_ml == nullptr || ws_acc == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define FA_CASE(TYPE, DIM)                                                      \
-  return launch<TYPE, DIM>(q, k, v, seg_q, pos_q, seg_kv, pos_kv, out, ws_ml,    \
-                           ws_acc, T, S, Hq, Hkv, causal, window, scale, n_split, \
-                           st)
+#define FA_CASE(TYPE, DIM)                                                          \
+  return launch_fwd<TYPE, DIM>(q, k, v, seg_q, pos_q, seg_kv, pos_kv, out, ws_ml,    \
+                               ws_acc, T, S, Hq, Hkv, causal, window, scale, n_split, \
+                               st)
   if (dtype == 0) {
     if (D == 64) FA_CASE(float, 64);
     if (D == 128) FA_CASE(float, 128);
@@ -398,6 +405,28 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
     if (D == 256) FA_CASE(__nv_bfloat16, 256);
   }
 #undef FA_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The merge pass: out [T, Hq, D] (dtype as above) from the n_split partial
+// states that flash_attention_fwd wrote. Returns a cudaError_t code.
+int flash_attention_combine(const void* ws_ml, const void* ws_acc, void* out, int T,
+                            int Hq, int D, int dtype, int n_split, void* stream) {
+  if (T <= 0 || Hq <= 0 || n_split < 2 || n_split > MAX_SPLIT)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define FC_CASE(TYPE, DIM) \
+  return launch_combine<TYPE, DIM>(ws_ml, ws_acc, out, T, Hq, n_split, st)
+  if (dtype == 0) {
+    if (D == 64) FC_CASE(float, 64);
+    if (D == 128) FC_CASE(float, 128);
+    if (D == 256) FC_CASE(float, 256);
+  } else if (dtype == 1) {
+    if (D == 64) FC_CASE(__nv_bfloat16, 64);
+    if (D == 128) FC_CASE(__nv_bfloat16, 128);
+    if (D == 256) FC_CASE(__nv_bfloat16, 256);
+  }
+#undef FC_CASE
   return (int)cudaErrorInvalidValue;
 }
 

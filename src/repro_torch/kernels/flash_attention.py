@@ -16,13 +16,17 @@ kernel computes with float32 FMAs from shared memory: one block per
 (32-query tile, query head, KV split), a loop over its share of the
 32-row KV tiles with an online softmax, tiles with no live (query, key)
 pair skipped before they are loaded, and the splits' partial states
-merged by a second pass (so decode rows, which each attend a whole
+merged by a second kernel (so decode rows, which each attend a whole
 context, are spread over up to ``MAX_SPLIT`` blocks). Moving its products
 onto tensor cores is the next step.
 
-:class:`FlashAttentionKernel` only launches: it takes CUDA tensors,
-checks them and raises on anything the kernel does not take. Padding to
-the tile sizes and the CPU dispatch live in :mod:`repro_torch.kernels.ops`.
+Two wrappers, one per ``__global__`` kernel, each counting its own
+launches: :data:`flash_attention_cuda` (``flash_fwd_kernel``, the split
+pass, once per attention op) and :data:`flash_combine_cuda`
+(``flash_combine_kernel``, the merge pass, once per op whose keys are
+split over several blocks). Both only launch: they take CUDA tensors,
+check them and raise on anything the kernel does not take. Padding to the
+tile sizes and the CPU dispatch live in :mod:`repro_torch.kernels.ops`.
 """
 
 from __future__ import annotations
@@ -40,8 +44,9 @@ from typing import Optional
 import torch
 
 __all__ = ["BLOCK_Q", "BLOCK_KV", "HEAD_DIMS", "MAX_SPLIT",
-           "FlashAttentionKernel", "kv_splits", "flash_attention_cuda",
-           "load_library", "NVCC_FLAGS"]
+           "FlashAttentionKernel", "FlashCombineKernel", "kv_splits",
+           "flash_attention_cuda", "flash_combine_cuda", "load_library",
+           "NVCC_FLAGS"]
 
 BLOCK_Q = 32                  # query rows per block (csrc: BQ)
 BLOCK_KV = 32                 # KV rows per tile (csrc: BK)
@@ -70,6 +75,7 @@ class KernelLibrary:
     path: Path
     build_log: str            # nvcc/ptxas output (registers, smem, spills)
     fwd: ctypes._CFuncPtr
+    combine: ctypes._CFuncPtr
 
 
 @functools.lru_cache(maxsize=None)
@@ -103,13 +109,18 @@ def load_library() -> KernelLibrary:
     fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + \
         [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fwd.restype = ctypes.c_int
-    return KernelLibrary(path=so, build_log=log, fwd=fwd)
+    combine = lib.flash_attention_combine
+    combine.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + \
+        [ctypes.c_void_p]
+    combine.restype = ctypes.c_int
+    return KernelLibrary(path=so, build_log=log, fwd=fwd, combine=combine)
 
 
 class FlashAttentionKernel:
-    """Launch wrapper; ``launches`` counts its calls that launch the kernel
-    (one per attention op: the split pass and, when the keys are split over
-    several blocks, the merge pass it issues with it)."""
+    """Launch wrapper of ``flash_fwd_kernel``; ``launches`` counts its
+    launches (one per attention op). When the keys are split over several
+    blocks per query tile, the op's merge pass goes through
+    :data:`flash_combine_cuda`."""
 
     def __init__(self) -> None:
         self.launches = 0
@@ -117,24 +128,48 @@ class FlashAttentionKernel:
     def __call__(self, q, k, v, seg_q, seg_kv, pos_q, pos_kv, *,
                  causal: bool = True, window: int = 0,
                  scale: Optional[float] = None) -> torch.Tensor:
+        n_split = kv_splits(k.shape[0])
+        if n_split == 1:
+            out = torch.empty_like(q)
+            self._launch(q, k, v, seg_q, seg_kv, pos_q, pos_kv, out, None,
+                         None, 1, causal, window, scale)
+            return out
+        ws_ml, ws_acc = self.partials(q, k, v, seg_q, seg_kv, pos_q, pos_kv,
+                                      n_split=n_split, causal=causal,
+                                      window=window, scale=scale)
+        return flash_combine_cuda(ws_ml, ws_acc, q.dtype)
+
+    def partials(self, q, k, v, seg_q, seg_kv, pos_q, pos_kv, *,
+                 n_split: int, causal: bool = True, window: int = 0,
+                 scale: Optional[float] = None):
+        """The split pass alone, over ``n_split >= 2`` blocks per query
+        tile. Returns the float32 partial states ``ws_ml [n_split, T, Hq,
+        2]`` (each split's running max and sum) and ``ws_acc [n_split, T,
+        Hq, D]`` (its unnormalised output, written only where the sum is
+        > 0 and uninitialised elsewhere)."""
+        if not 2 <= n_split <= MAX_SPLIT:
+            raise ValueError(f"n_split={n_split} not in [2, {MAX_SPLIT}]")
+        T, Hq, D = q.shape
+        ws_ml = torch.empty((n_split, T, Hq, 2), dtype=torch.float32,
+                            device=q.device)
+        ws_acc = torch.empty((n_split, T, Hq, D), dtype=torch.float32,
+                             device=q.device)
+        self._launch(q, k, v, seg_q, seg_kv, pos_q, pos_kv, None, ws_ml,
+                     ws_acc, n_split, causal, window, scale)
+        return ws_ml, ws_acc
+
+    def _launch(self, q, k, v, seg_q, seg_kv, pos_q, pos_kv, out, ws_ml,
+                ws_acc, n_split, causal, window, scale) -> None:
         T, Hq, D = _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
         S, Hkv = k.shape[0], k.shape[1]
         scale = float(scale if scale is not None else D ** -0.5)
-        n_split = kv_splits(S)
         lib = load_library()
-        out = torch.empty_like(q)
-        ws_ml = ws_acc = None
-        if n_split > 1:
-            ws_ml = torch.empty((n_split, T, Hq, 2), dtype=torch.float32,
-                                device=q.device)
-            ws_acc = torch.empty((n_split, T, Hq, D), dtype=torch.float32,
-                                 device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         with torch.cuda.device(q.device):
             rc = lib.fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          seg_q.data_ptr(), pos_q.data_ptr(),
                          seg_kv.data_ptr(), pos_kv.data_ptr(),
-                         out.data_ptr(),
+                         out.data_ptr() if out is not None else None,
                          ws_ml.data_ptr() if ws_ml is not None else None,
                          ws_acc.data_ptr() if ws_acc is not None else None,
                          T, S, Hq, Hkv, D, _DTYPE_CODE[q.dtype],
@@ -142,17 +177,63 @@ class FlashAttentionKernel:
                          stream)
         if rc != 0:
             raise RuntimeError(
-                f"flash_attention_fwd launch failed with cudaError {rc} "
+                f"flash_fwd_kernel launch failed with cudaError {rc} "
                 f"(T={T}, S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, {q.dtype}, "
                 f"n_split={n_split})")
+        self.launches += 1
+
+
+class FlashCombineKernel:
+    """Launch wrapper of ``flash_combine_kernel``: merges the partial
+    states of :meth:`FlashAttentionKernel.partials` into ``[T, Hq, D]`` of
+    ``dtype``. Its plain version is :func:`repro_torch.kernels.ref.
+    combine_partials`; ``launches`` counts its launches."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def __call__(self, ws_ml: torch.Tensor, ws_acc: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+        if not all(isinstance(t, torch.Tensor) and t.is_cuda
+                   for t in (ws_ml, ws_acc)) or ws_ml.device != ws_acc.device:
+            raise ValueError("flash_combine_cuda takes CUDA tensors on one "
+                             "device")
+        if ws_acc.dim() != 4:
+            raise ValueError("ws_acc must be [n_split, T, Hq, D]")
+        n_split, T, Hq, D = ws_acc.shape
+        if tuple(ws_ml.shape) != (n_split, T, Hq, 2):
+            raise ValueError(f"ws_ml {tuple(ws_ml.shape)} does not match "
+                             f"ws_acc {tuple(ws_acc.shape)}")
+        if ws_ml.dtype != torch.float32 or ws_acc.dtype != torch.float32:
+            raise ValueError("the partial states must be float32")
+        if not (ws_ml.is_contiguous() and ws_acc.is_contiguous()):
+            raise ValueError("flash_combine_cuda takes contiguous tensors")
+        if not 2 <= n_split <= MAX_SPLIT:
+            raise ValueError(f"n_split={n_split} not in [2, {MAX_SPLIT}]")
+        if D not in HEAD_DIMS or dtype not in _DTYPE_CODE or T == 0:
+            raise ValueError(f"head_dim {D}, dtype {dtype} or T={T} not "
+                             f"taken")
+        out = torch.empty((T, Hq, D), dtype=dtype, device=ws_acc.device)
+        lib = load_library()
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        with torch.cuda.device(out.device):
+            rc = lib.combine(ws_ml.data_ptr(), ws_acc.data_ptr(),
+                             out.data_ptr(), T, Hq, D, _DTYPE_CODE[dtype],
+                             n_split, stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"flash_combine_kernel launch failed with cudaError {rc} "
+                f"(T={T}, Hq={Hq}, D={D}, {dtype}, n_split={n_split})")
         self.launches += 1
         return out
 
 
 def kv_splits(S: int) -> int:
-    """KV splits per query tile: one per 64 KV tiles, at most MAX_SPLIT
-    (a query tile then walks at most ~64 tiles in series)."""
-    return max(1, min(MAX_SPLIT, -(-(S // BLOCK_KV) // 64)))
+    """KV splits per query tile: one per 16 KV tiles, at most MAX_SPLIT.
+    A query tile of decode rows has live tiles in every one of their
+    contexts (or windows), so its work is dealt over many blocks even when
+    the buffer is short, as on a sliding-window layer."""
+    return max(1, min(MAX_SPLIT, (S // BLOCK_KV) // 16))
 
 
 def _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv):
@@ -194,3 +275,4 @@ def _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv):
 
 
 flash_attention_cuda = FlashAttentionKernel()
+flash_combine_cuda = FlashCombineKernel()

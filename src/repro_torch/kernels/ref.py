@@ -5,6 +5,8 @@ tests and what :mod:`repro_torch.kernels.ops` runs on CPU tensors.
   materialization; bitwise-simple, the oracle.
 * :func:`blocked_flash_attention` — online softmax over KV tiles, memory
   ``O(T * block_kv)``; the plain version the dispatcher runs on the CPU.
+* :func:`combine_partials` — the merge of split-KV partial states, the
+  plain version of the kernel's second pass.
 
 Packed-varlen mask rule (shared by every implementation):
   attend(qi, kj)  iff  seg_q[i] == seg_kv[j]  and  seg_q[i] >= 0
@@ -20,7 +22,7 @@ from typing import Optional
 import torch
 
 __all__ = ["flash_attention_reference", "blocked_flash_attention",
-           "attention_mask"]
+           "attention_mask", "combine_partials"]
 
 NEG_INF = -1e30
 
@@ -92,3 +94,24 @@ def blocked_flash_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv, *,
     out = acc / torch.clamp(l_run[..., None], min=1e-30)
     out = torch.where(l_run[..., None] > 0, out, torch.zeros_like(out))
     return out.permute(2, 0, 1, 3).reshape(T, Hq, Dv).to(q.dtype)
+
+
+def combine_partials(ws_ml: torch.Tensor, ws_acc: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Merge split-KV partial states (the kernel's second pass):
+    ``ws_ml [n, T, H, 2]`` holds each split's running max ``m`` and sum
+    ``l``, ``ws_acc [n, T, H, D]`` its unnormalised output, meaningful only
+    where ``l > 0``. Returns ``sum_z acc_z e^(m_z - M) / sum_z l_z
+    e^(m_z - M)`` over the splits with ``l > 0`` (``M`` their largest
+    ``m``), and zeros where no split has ``l > 0``."""
+    m, l = ws_ml[..., 0], ws_ml[..., 1]
+    live = l > 0
+    big = torch.where(live, m, torch.full_like(m, NEG_INF)).amax(dim=0)
+    w = torch.where(live, torch.exp(m - big), torch.zeros_like(m))
+    den = (l * w).sum(dim=0)
+    num = torch.where(live[..., None], ws_acc * w[..., None],
+                      torch.zeros_like(ws_acc)).sum(dim=0)
+    out = torch.where(den[..., None] > 0,
+                      num / torch.clamp(den[..., None], min=1e-30),
+                      torch.zeros_like(num))
+    return out.to(dtype)

@@ -11,6 +11,12 @@ On the CPU, at a reduced size:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch gemma3-1b --reduced --requests 6 --verify 2
+
+``--profile PATH`` serves the trace under ``torch.profiler`` (after a
+one-request warm-up) and writes a JSON summary: device time by kernel and
+kernel group per engine step, kernel launches per step, the host's
+busiest operators, and the device's busy share of the run's wall time (a
+lower bound: the profiler's own overhead inflates the wall time).
 """
 
 from __future__ import annotations
@@ -67,6 +73,9 @@ def main(argv=None) -> int:
     ap.add_argument("--verify", type=int, default=0,
                     help="cross-check the first N requests' ids against "
                          "the one-shot reference path")
+    ap.add_argument("--profile", default="",
+                    help="serve under torch.profiler and write its summary "
+                         "here as JSON")
     args = ap.parse_args(argv)
 
     import torch
@@ -120,10 +129,27 @@ def main(argv=None) -> int:
         print(f"error: arch {args.arch!r} is not servable: {e}",
               file=sys.stderr)
         return 5
-    results = engine.run([
-        Request(req_id=i, prompt=t["prompt"],
-                max_new_tokens=t["max_new_tokens"], arrival=t["arrival"])
-        for i, t in enumerate(trace)])
+    requests = [Request(req_id=i, prompt=t["prompt"],
+                        max_new_tokens=t["max_new_tokens"],
+                        arrival=t["arrival"]) for i, t in enumerate(trace)]
+    if args.profile:
+        # first launches (kernel build, cuBLAS handles) stay out of the trace
+        warm = ServeEngine(cfg, econf, params=engine.params,
+                           compute_dtype=dtype, device=device)
+        warm.run([Request(req_id=0, prompt=trace[0]["prompt"],
+                          max_new_tokens=2)])
+        del warm
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            results = engine.run(requests)
+        summary = profile_summary(prof, engine.stats()["wall_s"],
+                                  engine.step_count)
+        with open(args.profile, "w") as f:
+            json.dump(summary, f, indent=1)
+        print(f"[profile] {json.dumps(summary)}")
+    else:
+        results = engine.run(requests)
     st = engine.stats()
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
@@ -154,6 +180,52 @@ def main(argv=None) -> int:
         return rc
     print("serve OK")
     return 0
+
+
+def profile_summary(prof, wall_s: float, steps: int) -> dict:
+    """Device time by kernel and kernel group per engine step, kernel
+    launches per step, the host's busiest operators and the device's busy
+    share of ``wall_s``, from a finished ``torch.profiler`` run."""
+    from torch.autograd import DeviceType
+    kernels, host, launches = {}, {}, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total
+        else:
+            host[e.key] = e.self_cpu_time_total
+            if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                         "cuLaunchKernel", "cuLaunchKernelEx"):
+                launches += e.count
+    total_us = sum(kernels.values())
+    if total_us == 0:
+        return {"device_time": "not measured (no device events)"}
+
+    def group(name):
+        n = name.lower()
+        if "flash_fwd" in n or "flash_combine" in n:
+            return "attention kernels"
+        if any(s in n for s in ("gemm", "xmma", "cutlass", "cublas",
+                                "nvjet")):
+            return "matmul"
+        if "copy" in n or "index" in n or "cat" in n or "gather" in n:
+            return "copy/index/cat"
+        return "other"
+    groups = {}
+    for name, us in kernels.items():
+        groups[group(name)] = groups.get(group(name), 0.0) + us
+    steps = max(steps, 1)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    top_host = sorted(host.items(), key=lambda kv: -kv[1])[:6]
+    return {"steps": steps, "wall_s": wall_s,
+            "device_ms": total_us / 1e3, "busy_share": total_us / 1e6 / wall_s,
+            "device_ms_per_step": total_us / 1e3 / steps,
+            "wall_ms_per_step": wall_s * 1e3 / steps,
+            "kernel_launches_per_step": launches / steps,
+            "groups_ms_per_step": {g: us / 1e3 / steps for g, us in sorted(
+                groups.items(), key=lambda kv: -kv[1])},
+            "top_kernels_ms_per_step": [(n[:60], us / 1e3 / steps)
+                                        for n, us in top],
+            "top_host_ops_ms": [(n[:60], us / 1e3) for n, us in top_host]}
 
 
 if __name__ == "__main__":

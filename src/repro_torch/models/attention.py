@@ -24,8 +24,8 @@ __all__ = ["init_attention", "project_qkv", "attention_block",
            "make_local_attention_policy"]
 
 
-def init_attention(cfg: ArchConfig, gen: torch.Generator, *,
-                   dtype=torch.float32, device="cpu") -> Dict:
+def init_attention(cfg: ArchConfig, gen: torch.Generator, *, device,
+                   dtype=torch.float32) -> Dict:
     s = cfg.spec
     D, Dh, Hq, Hkv = s.d_model, s.head_dim, s.n_heads, s.n_kv_heads
     kw = dict(dtype=dtype, device=device)

@@ -23,8 +23,8 @@ __all__ = ["dense_init", "embed_init", "rms_norm", "swiglu_init",
 Params = Dict[str, torch.Tensor]
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
-               dtype=torch.float32, device="cpu",
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, device,
+               dtype=torch.float32,
                scale: Optional[float] = None) -> torch.Tensor:
     """Truncated-normal (±3σ) fan-in init, stored ``[d_out, d_in]``."""
     s = scale if scale is not None else 1.0 / math.sqrt(d_in)
@@ -33,8 +33,8 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
     return (w * s).to(dtype)
 
 
-def embed_init(gen: torch.Generator, vocab: int, d_model: int, *,
-               dtype=torch.float32, device="cpu") -> torch.Tensor:
+def embed_init(gen: torch.Generator, vocab: int, d_model: int, *, device,
+               dtype=torch.float32) -> torch.Tensor:
     w = torch.randn((vocab, d_model), generator=gen, dtype=torch.float32,
                     device=device) * 0.02
     return w.to(dtype)
@@ -55,8 +55,8 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
     return (out * (1.0 + gamma.float())).to(x.dtype)
 
 
-def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int, *,
-                dtype=torch.float32, device="cpu") -> Params:
+def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int, *, device,
+                dtype=torch.float32) -> Params:
     kw = dict(dtype=dtype, device=device)
     return {"w_gate": dense_init(gen, d_model, d_ff, **kw),
             "w_up": dense_init(gen, d_model, d_ff, **kw),
@@ -71,7 +71,7 @@ def swiglu_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=32)
-def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     """Inverse frequencies for half the head dim (float32), computed once
     on the CPU per (head_dim, theta, device) and shared by every caller —
     read-only. Computing them on the CPU keeps CPU and GPU runs on the same

@@ -54,13 +54,13 @@ class DecoderLM:
         self.attn_fn = make_local_attention_policy()
 
     # ------------------------------------------------------------------
-    def init(self, gen: torch.Generator, *, dtype=torch.float32,
-             device="cpu") -> Dict:
+    def init(self, gen: torch.Generator, *, device,
+             dtype=torch.float32) -> Dict:
         """Random parameters with the reference's distributions (truncated
         fan-in normal for dense weights, N(0, 0.02) embeddings, zero norm
-        offsets), drawn from ``gen`` — the numbers differ from
-        ``jax.random``'s; :mod:`repro_torch.weights` imports the
-        reference's own."""
+        offsets), drawn from ``gen`` on ``device`` (which the caller names:
+        there is no default) — the numbers differ from ``jax.random``'s;
+        :mod:`repro_torch.weights` imports the reference's own."""
         s = self.cfg.spec
         kw = dict(dtype=dtype, device=device)
         embed = embed_init(gen, s.vocab, s.d_model, **kw)
@@ -112,7 +112,7 @@ class DecoderLM:
 
     # ------------------------------------------------------------------
     def init_ctx(self, cap: int, compute_dtype=torch.bfloat16,
-                 n_layers: Optional[int] = None, device="cpu") -> LayerCtx:
+                 n_layers: Optional[int] = None, *, device) -> LayerCtx:
         """Stacked context carry ``[L, cap, Hkv, Dh]`` (zeros)."""
         s = self.cfg.spec
         L = n_layers if n_layers is not None else s.n_layers

@@ -12,14 +12,18 @@ The pool is ``[L, n_pages + 1, page_sz, Hkv, Dh]`` for K and for V; page
 
 Attention: per layer the step builds ONE packed KV buffer —
 
-* for every request in the step, its committed cache rows ``0..base-1``
-  (``base`` = its committed length at step start), gathered once per
-  request from its page table, with the request's segment id and
-  positions ``0..base-1``;
+* for every request in the step, its committed cache rows the layer can
+  see, gathered once per request from its page table, with the request's
+  segment id and their positions: rows ``0..base-1`` (``base`` = its
+  committed length at step start) on a global layer, and only the last
+  ``window - 1`` of them on a layer with a sliding window (the step's
+  queries of the request sit at positions ``>= base``, so older rows are
+  masked for all of them);
 * then the step's own rows, all ``n_items * cap_t`` of them;
 
 — and calls :func:`repro_torch.kernels.ops.flash_attention` once over all
-queries. Several chunks of one request in one step (later items) share the
+queries. The host builds the gather list once per step for each distinct
+window of the model's layers (:attr:`EngineGeometry.windows`). Several chunks of one request in one step (later items) share the
 request's segment id, so a later chunk sees the earlier one's rows exactly
 as the reference's item-by-item pipeline order does. The packed-varlen
 mask (same segment, causal, window) then selects, for each token, the
@@ -38,7 +42,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,8 +56,8 @@ from repro_torch.models.layers import (linear, rms_norm, rope_tables,
 from repro_torch.models.model import DecoderLM, layer_params
 
 __all__ = ["EngineGeometry", "make_engine_geometry", "init_pool",
-           "PackedSegment", "EngineBatch", "pack_step", "engine_step",
-           "copy_pages", "greedy_ids"]
+           "PackedSegment", "KVRows", "EngineBatch", "pack_step",
+           "engine_step", "copy_pages", "greedy_ids"]
 
 
 @dataclass(frozen=True)
@@ -66,6 +70,7 @@ class EngineGeometry:
     pages_per_seq: int       # page-table entries per request (max context)
     k: int                   # decode tokens per stream per step (1 = greedy)
     compute_dtype: torch.dtype = torch.bfloat16
+    windows: Tuple[int, ...] = (0,)   # the layers' distinct windows, 0 = none
 
     @property
     def trash_page(self) -> int:
@@ -101,7 +106,8 @@ def make_engine_geometry(cfg: ArchConfig, *, n_items: int, cap_t: int,
         raise ValueError(f"k={k} cannot exceed cap_t={cap_t}")
     return EngineGeometry(n_items=n_items, cap_t=cap_t, n_pages=n_pages,
                           page_sz=page_sz, pages_per_seq=pp, k=k,
-                          compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype,
+                          windows=tuple(sorted(set(cfg.layer_windows()))))
 
 
 def init_pool(cfg: ArchConfig, geom: EngineGeometry,
@@ -131,15 +137,21 @@ class PackedSegment:
 
 
 @dataclass
+class KVRows:
+    """The key rows of one window's layers: ``S - T`` gathered pool rows
+    (padded to the kernel's KV tile), then the step's own ``T`` rows."""
+    ctx_rows: torch.Tensor   # [S - T] int64 flat pool rows to gather
+    seg: torch.Tensor        # [S] int32: gathered rows' segments, then seg
+    pos: torch.Tensor        # [S] int32
+
+
+@dataclass
 class EngineBatch:
-    """Device tensors of one step (``T = n_items * cap_t`` query rows,
-    ``S = ctx rows + T`` key rows)."""
+    """Device tensors of one step (``T = n_items * cap_t`` query rows)."""
     tokens: torch.Tensor     # [T] int64
     pos: torch.Tensor        # [T] int32
     seg: torch.Tensor        # [T] int32, request's step segment id, -1 pad
-    kv_seg: torch.Tensor     # [S] int32: gathered ctx rows, then seg
-    kv_pos: torch.Tensor     # [S] int32
-    ctx_rows: torch.Tensor   # [S - T] int64 flat pool rows to gather
+    kv: Dict[int, KVRows]    # key rows per window of geom.windows
     write_rows: torch.Tensor  # [T] int64 flat pool rows to write
     head_rows: torch.Tensor  # [N] int64 rows whose greedy id is read
 
@@ -155,8 +167,7 @@ def pack_step(geom: EngineGeometry, segments: Sequence[PackedSegment],
     # padding writes spread over the trash page's rows
     write = trash0 + (np.arange(T) % ps)
     sid: Dict[int, int] = {}
-    ctx_rows: List[np.ndarray] = []
-    ctx_seg: List[np.ndarray] = []
+    firsts: List[PackedSegment] = []
     head: List[int] = []
     for sg in segments:
         ln = len(sg.tokens)
@@ -165,13 +176,11 @@ def pack_step(geom: EngineGeometry, segments: Sequence[PackedSegment],
         if sg.req_id not in sid:
             # first (earliest-item) segment of the request this step: its
             # committed rows come from the pool
-            sid[sg.req_id] = g = len(sid)
-            r = np.arange(sg.base)
+            sid[sg.req_id] = len(sid)
+            firsts.append(sg)
             if sg.base > len(table) * ps:
                 raise ValueError(f"request {sg.req_id}: {sg.base} committed "
                                  f"rows but {len(table)} pages")
-            ctx_rows.append(table[r // ps] * ps + r % ps)
-            ctx_seg.append(np.full(sg.base, g, np.int32))
         p = np.arange(sg.base, sg.base + ln)
         tokens[a:a + ln] = sg.tokens
         pos[a:a + ln] = p
@@ -182,27 +191,35 @@ def pack_step(geom: EngineGeometry, segments: Sequence[PackedSegment],
         write[a:a + ln] = np.where(mapped, page * ps + p % ps,
                                    trash0 + p % ps)
         head.extend(range(a, a + ln) if sg.read_all else [a + ln - 1])
-    rows = np.concatenate(ctx_rows) if ctx_rows else np.zeros(0, np.int64)
-    kseg = np.concatenate(ctx_seg) if ctx_seg else np.zeros(0, np.int32)
-    kpos = np.concatenate([np.arange(len(x), dtype=np.int32)
-                           for x in ctx_rows]) if ctx_rows \
-        else np.zeros(0, np.int32)
-    # pad the gathered part to the kernel's KV tile (seg -2 rows read the
-    # trash page) so the concatenated buffer needs no second padding copy
-    pad = (-len(rows)) % BLOCK_KV
-    rows = np.concatenate([rows, np.full(pad, trash0, np.int64)])
-    kseg = np.concatenate([kseg, np.full(pad, ops.PAD_SEG, np.int32)])
-    kpos = np.concatenate([kpos, np.zeros(pad, np.int32)])
 
     def dev(a, dt):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
                                                             dtype=dt)
     i32, i64 = torch.int32, torch.int64
+    kv = {}
+    for w in geom.windows:
+        rows, kseg, kpos = [np.zeros(0, np.int64)], [], []
+        for sg in firsts:
+            # a query at position >= base sees rows > base - w
+            lo = max(0, sg.base - w + 1) if w > 0 else 0
+            r = np.arange(lo, sg.base)
+            table = np.asarray(sg.table, np.int64)
+            rows.append(table[r // ps] * ps + r % ps)
+            kseg.append(np.full(len(r), sid[sg.req_id], np.int32))
+            kpos.append(r.astype(np.int32))
+        # pad the gathered part to the kernel's KV tile (seg -2 rows read
+        # the trash page) so the concatenated buffer needs no second
+        # padding copy
+        pad = (-sum(map(len, rows))) % BLOCK_KV
+        rows.append(np.full(pad, trash0, np.int64))
+        kseg += [np.full(pad, ops.PAD_SEG, np.int32), seg]
+        kpos += [np.zeros(pad, np.int32), pos]
+        kv[w] = KVRows(ctx_rows=dev(np.concatenate(rows), i64),
+                       seg=dev(np.concatenate(kseg), i32),
+                       pos=dev(np.concatenate(kpos), i32))
     return EngineBatch(
-        tokens=dev(tokens, i64), pos=dev(pos, i32), seg=dev(seg, i32),
-        kv_seg=dev(np.concatenate([kseg, seg]), i32),
-        kv_pos=dev(np.concatenate([kpos, pos]), i32),
-        ctx_rows=dev(rows, i64), write_rows=dev(write, i64),
+        tokens=dev(tokens, i64), pos=dev(pos, i32), seg=dev(seg, i32), kv=kv,
+        write_rows=dev(write, i64),
         head_rows=dev(np.asarray(head, np.int64), i64))
 
 
@@ -230,11 +247,11 @@ def engine_step(model: DecoderLM, geom: EngineGeometry, params: Dict,
         ck = pool["cache_k"][i].view(-1, s.n_kv_heads, s.head_dim)
         cv = pool["cache_v"][i].view(-1, s.n_kv_heads, s.head_dim)
         k, v = k.to(ck.dtype), v.to(cv.dtype)
-        kk = torch.cat([ck.index_select(0, batch.ctx_rows), k])
-        vv = torch.cat([cv.index_select(0, batch.ctx_rows), v])
-        out = ops.flash_attention(q, kk, vv, batch.seg, batch.kv_seg,
-                                  batch.pos, batch.kv_pos, window=w,
-                                  scale=scale)
+        kv = batch.kv[w]
+        kk = torch.cat([ck.index_select(0, kv.ctx_rows), k])
+        vv = torch.cat([cv.index_select(0, kv.ctx_rows), v])
+        out = ops.flash_attention(q, kk, vv, batch.seg, kv.seg, batch.pos,
+                                  kv.pos, window=w, scale=scale)
         y = linear(out.reshape(T, -1), lp["attn"]["wo"])
         ck.index_copy_(0, batch.write_rows, k)
         cv.index_copy_(0, batch.write_rows, v)

@@ -37,11 +37,11 @@ def _convert(tree: Mapping[str, Any], fn, name: str = ""):
     return fn(name, np.asarray(tree))
 
 
-def from_jax(cfg: ArchConfig, params: Mapping[str, Any], *,
-             dtype: torch.dtype = torch.float32,
-             device="cpu") -> Dict[str, Any]:
+def from_jax(cfg: ArchConfig, params: Mapping[str, Any], *, device,
+             dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
     """Convert reference parameters (numpy arrays, or anything
-    ``np.asarray`` takes) in either layout into the port's layout."""
+    ``np.asarray`` takes) in either layout into the port's layout, on
+    ``device`` (which the caller names: there is no default)."""
     s = cfg.spec
     if "layers" in params:
         layers = params["layers"]

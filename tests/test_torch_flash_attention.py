@@ -155,6 +155,56 @@ def test_padding_rule_and_masked_rows_are_zero():
         assert torch.count_nonzero(full[:7]) > 0
 
 
+def _split_partials(q, k, v, seg_q, seg_kv, pos_q, pos_kv, n_split, window):
+    """The kernel's split pass in plain numpy: KV tiles of 32 rows dealt
+    round-robin to ``n_split`` splits; per split the max ``m``, sum ``l``
+    and unnormalised output ``acc`` (NaN where ``l == 0``, standing in for
+    the kernel's uninitialised workspace)."""
+    T, Hq, D = q.shape
+    G = Hq // k.shape[1]
+    s = np.einsum("thd,shd->hts", q, np.repeat(k, G, axis=1)) / np.sqrt(D)
+    live = (seg_q[:, None] == seg_kv[None]) & (seg_q[:, None] >= 0) & \
+        (pos_kv[None] <= pos_q[:, None]) & \
+        ((window <= 0) | (pos_q[:, None] - pos_kv[None] < window))
+    tile = np.arange(k.shape[0]) // 32
+    ws_ml = np.zeros((n_split, T, Hq, 2), np.float32)
+    ws_ml[..., 0] = -1e30
+    ws_acc = np.full((n_split, T, Hq, D), np.nan, np.float32)
+    for z in range(n_split):
+        mz = live & (tile % n_split == z)[None]
+        for h in range(Hq):
+            for t in np.nonzero(mz.any(axis=1))[0]:
+                sc = s[h, t, mz[t]]
+                p = np.exp(sc - sc.max())
+                ws_ml[z, t, h] = sc.max(), p.sum()
+                ws_acc[z, t, h] = p @ v[mz[t], h // G]
+    return ws_ml, ws_acc
+
+
+@pytest.mark.parametrize("n_split,window", [(2, 0), (5, 40)])
+def test_combine_partials_matches_jax_oracle(n_split, window):
+    """Merging the split pass's partial states (``ref.combine_partials``,
+    the plain version of the kernel's merge pass) gives the JAX oracle's
+    attention; a row with no live split is exactly 0."""
+    rng = np.random.default_rng(n_split)
+    T, C, Hq, Hkv, D = 64, 200, 4, 2, 32
+    q = rng.standard_normal((T, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((C + T, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((C + T, Hkv, D)).astype(np.float32)
+    seg_q, pos_q = _varlen_meta(rng, T, 3, ctx=C)
+    seg_q[-3:] = -1
+    seg_kv = np.concatenate([np.zeros(C, np.int32), seg_q])
+    pos_kv = np.concatenate([np.arange(C, dtype=np.int32), pos_q])
+    args = (q, k, v, seg_q, seg_kv, pos_q, pos_kv)
+    ws_ml, ws_acc = _split_partials(*args, n_split, window)
+    got = tref.combine_partials(torch.from_numpy(ws_ml),
+                                torch.from_numpy(ws_acc), torch.float32)
+    want = jref.flash_attention_reference(*map(jnp.asarray, args),
+                                          window=window)
+    np.testing.assert_allclose(got.numpy(), _f32(want), rtol=2e-5, atol=2e-5)
+    assert torch.count_nonzero(got[-3:]) == 0
+
+
 def test_dispatch_counts_plain_calls_on_cpu():
     q = torch.zeros((8, 2, 64))
     seg = torch.zeros(8, dtype=torch.int32)

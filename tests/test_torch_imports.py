@@ -65,6 +65,20 @@ def test_sources_name_neither_jax_nor_the_jax_package():
         assert m is None, f"{path} names the JAX package: {m.group(0)!r}"
 
 
+def test_model_builders_name_their_device():
+    """The builders have no default device, so nothing in the port builds
+    on the CPU unless its caller asks for it."""
+    import inspect
+
+    from repro_torch.models import DecoderLM, attention, layers
+    from repro_torch.weights import from_jax
+    for fn in (DecoderLM.init, DecoderLM.init_ctx, from_jax,
+               attention.init_attention, layers.dense_init,
+               layers.embed_init, layers.swiglu_init, layers.rope_freqs):
+        param = inspect.signature(fn).parameters["device"]
+        assert param.default is inspect.Parameter.empty, fn.__qualname__
+
+
 def test_cli_without_card_exits_nonzero():
     """No --device means cuda; with no usable card the CLI says so and
     exits non-zero instead of running on the CPU."""
@@ -78,11 +92,15 @@ def test_cli_without_card_exits_nonzero():
     assert "serve OK" not in r.stdout
 
 
-def test_cli_on_cpu_when_asked():
+def test_cli_on_cpu_when_asked(tmp_path):
+    """On the CPU the CLI serves and verifies; under ``--profile`` it says
+    that no device time was measured (there are no device events)."""
+    prof = tmp_path / "profile.json"
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
          "--arch", "llama3.2-3b", "--reduced", "--requests", "2",
-         "--max-new", "2", "--verify", "1"],
+         "--max-new", "2", "--verify", "1", "--profile", str(prof)],
         capture_output=True, text=True, timeout=120, env=_env())
     assert r.returncode == 0, r.stderr[-3000:]
     assert "serve OK" in r.stdout and "[verify]" in r.stdout
+    assert "not measured" in prof.read_text()

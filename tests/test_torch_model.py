@@ -48,7 +48,7 @@ def _np_tree(tree):
 def arch(request):
     jcfg, tcfg = _cfgs(request.param)
     raw = _np_tree(JaxDecoderLM(jcfg).init(jax.random.PRNGKey(5)))
-    return jcfg, tcfg, raw, from_jax(tcfg, raw)
+    return jcfg, tcfg, raw, from_jax(tcfg, raw, device="cpu")
 
 
 def _close(a, b, **tol):
@@ -153,7 +153,7 @@ def test_forward_chunk_with_context_carry(arch):
     tokens = rng.integers(0, jcfg.spec.vocab, T1 + T2).astype(np.int32)
     jl, tl = JaxDecoderLM(jcfg), DecoderLM(tcfg)
     jctx = jl.init_ctx(cap, jnp.float32)
-    tctx = tl.init_ctx(cap, torch.float32)
+    tctx = tl.init_ctx(cap, torch.float32, device="cpu")
     off = 0
     for T in (T1, T2):
         tok = tokens[off:off + T]
@@ -198,7 +198,7 @@ def test_bridge_stage_layout(arch, d_p, d_s):
     }
     lead = jax.tree.leaves(staged["stages"])[0].shape[:2]
     assert lead == (d_p, -(-jcfg.spec.n_layers // d_p))
-    got = from_jax(tcfg, staged)
+    got = from_jax(tcfg, staged, device="cpu")
     flat_a = jax.tree.leaves(got)
     flat_b = jax.tree.leaves(tparams)
     assert len(flat_a) == len(flat_b)

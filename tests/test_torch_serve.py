@@ -62,7 +62,8 @@ def served(request):
     jeng = JaxServeEngine(jcfg, mesh, JaxEngineConfig(**GEOM, k=1),
                           param_dtype=jnp.float32, seed=3)
     jres = jeng.run(_trace(JaxRequest, cfg.spec.vocab))
-    params = from_jax(cfg, jax.tree.map(np.asarray, jeng.params))
+    params = from_jax(cfg, jax.tree.map(np.asarray, jeng.params),
+                      device="cpu")
     return cfg, params, {r: jres[r].output_ids for r in jres}
 
 
@@ -128,6 +129,43 @@ def test_preemption_keeps_outputs(served):
                     n_pages=12, preempt_waiting_steps=1)
     assert got == jax_ids
     assert sum(r.preempted for r in eng.results.values()) > 0
+
+
+def test_windowed_layers_gather_only_their_window():
+    """``pack_step`` gathers, for a layer with window ``w``, exactly the
+    whole-context key rows that a query at position ``>= base`` can see
+    (position ``> base - w``), in the same order; the step's own rows
+    follow unchanged."""
+    from repro_torch.kernels.flash_attention import BLOCK_KV
+    from repro_torch.runtime.serve_step import (PackedSegment,
+                                                make_engine_geometry,
+                                                pack_step)
+    cfg = get_arch("gemma3-1b").reduced(n_layers=6)
+    geom = make_engine_geometry(cfg, n_items=2, cap_t=16, n_pages=20,
+                                page_sz=8)
+    assert geom.windows == (0, 8)
+    table = [4, 2, 9, 7, 1]
+    segs = [PackedSegment(0, 0, 3, [1] * 5, 30, table, False),
+            PackedSegment(0, 5, 5, [2], 6, [11], True),
+            PackedSegment(1, 0, 3, [1] * 4, 35, table, False)]
+    b = pack_step(geom, segs, "cpu")
+    T, full, win = 32, b.kv[0], b.kv[8]
+    base = np.array([30, 6])                  # step segment ids 0 and 1
+    for kv in (full, win):
+        assert len(kv.ctx_rows) % BLOCK_KV == 0
+        assert len(kv.seg) == len(kv.pos) == len(kv.ctx_rows) + T
+        assert kv.seg[-T:].tolist() == b.seg.tolist()
+        assert kv.pos[-T:].tolist() == b.pos.tolist()
+    fseg, fpos = full.seg[:-T].numpy(), full.pos[:-T].numpy()
+    assert sorted(fseg[fseg >= 0].tolist()) == [0] * 30 + [1] * 6
+    keep = (fseg >= 0) & (fpos > base[np.maximum(fseg, 0)] - 8)
+    wseg = win.seg[:-T].numpy()
+    live = wseg >= 0
+    assert wseg[live].tolist() == fseg[keep].tolist()
+    assert win.pos[:-T].numpy()[live].tolist() == fpos[keep].tolist()
+    assert win.ctx_rows.numpy()[live].tolist() == \
+        full.ctx_rows.numpy()[keep].tolist()
+    assert fpos[keep].tolist() == list(range(23, 30)) + list(range(6))
 
 
 def test_greedy_head_tie_rule():
