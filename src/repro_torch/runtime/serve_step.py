@@ -23,7 +23,8 @@ Attention: per layer the step builds ONE packed KV buffer —
 
 — and calls :func:`repro_torch.kernels.ops.flash_attention` once over all
 queries. The host builds the gather list once per step for each distinct
-window of the model's layers (:attr:`EngineGeometry.windows`). Several chunks of one request in one step (later items) share the
+window of the model's layers (:attr:`EngineGeometry.windows`). Several
+chunks of one request in one step (later items) share the
 request's segment id, so a later chunk sees the earlier one's rows exactly
 as the reference's item-by-item pipeline order does. The packed-varlen
 mask (same segment, causal, window) then selects, for each token, the
