@@ -1,4 +1,4 @@
-"""Chip smoke test of the PyTorch port: drives its main path on one card.
+"""Chip smoke test of the PyTorch port: drives its main paths on one card.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -7,21 +7,30 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases, one line each (a failed phase stops the script with a non-zero
 exit and no result line):
 
-  build    compile the CUDA kernels for sm_90a (nvcc -Xptxas -v lines),
-           and the card's name and power limit from nvidia-smi;
-  kernel   the flash-attention op (split pass ``flash_fwd_kernel`` and
-           merge pass ``flash_combine_kernel``) against its plain PyTorch
-           version on the card, at engine-step shapes of gemma3-1b (Hq=4,
-           Hkv=1, Dh=256; window 512 and 0) in bf16 and float32, and of
-           llama3.2-3b (Hq=24, Hkv=8, Dh=128) in bf16; the merge pass alone
-           against its plain version on the split pass's own partial
-           states. Each case prints its max error against the tolerance
-           (bf16: the output's own rounding, atol 4e-3 + rtol 1e-2;
-           float32: 2e-5), exact zeros on masked rows, kernel_ms /
+  build    compile the CUDA kernels for sm_90a, one nvcc per source, side
+           by side (nvcc -Xptxas -v lines), and the card's name and power
+           limit from nvidia-smi;
+  kernel   every kernel against its plain PyTorch version on the card,
+           each case with its max error against the tolerance, kernel_ms /
            plain_ms / library_ms (CUDA events) and the roofline bound, and
-           shows that the tolerance catches a wrong kernel: the kernel fed
-           a window or causal limit one off, or with one live KV tile or one
-           KV split dropped, must fall outside it;
+           proof that the tolerance catches a wrong kernel (the kernel fed
+           a fault must fall outside it):
+           * the flash-attention op (split pass ``flash_fwd_kernel``,
+             merge pass ``flash_combine_kernel``) at engine-step shapes of
+             gemma3-1b (window 512 and 0, bf16 and float32) and
+             llama3.2-3b (bf16), and the merge pass alone (faults: a
+             window or causal limit one off, a live KV tile or a KV split
+             dropped);
+           * the attention backward (``flash_bwd_dkdv_kernel``,
+             ``flash_bwd_dq_kernel``) and the forward's log-sum-exp on a
+             training chunk with context rows, for gemma3-1b global and
+             window-512 layers and llama3.2-3b (faults: a window or
+             causal limit one off, a live KV tile dropped);
+           * the cross-entropy kernels B (``ce_fwd_kernel``), C1 and C2
+             (``ce_bwd_kernel``) at T = 8192 tokens on gemma3-1b's
+             (D 1152, V 262144) and llama3.2-3b's (D 3072, V 128256) head,
+             bf16 and float32 (faults: a target shifted by one, one vocab
+             tile dropped);
   serve    gemma3-1b at full width, bf16, random weights from --seed, 16
            requests of the "github" trace served by the continuous-batching
            engine (n_items=4, cap_t=512, page_sz=16, k=1); every request
@@ -30,7 +39,21 @@ exit and no result line):
            never;
   verify   the same engine in float32 on the first 2 requests (8 new
            tokens) against the port's one_shot_generate;
-  kernels  every kernel of the port with its launch count in ``serve``.
+  train    gemma3-1b at full width, bf16 with a float32 AdamW master, 3
+           steps of ``launch/train.train`` on github batches of
+           ``--train-batch`` x 16384 tokens planned for one H100: per step
+           loss, tokens, wall time, tokens/s, peak device memory and the
+           plan's own estimate; every loss finite, every kernel launched
+           exactly as the plan predicts (attention forward 26 x chunks +
+           remat depths, each backward pass 26 x chunks, B, C1, C2 once
+           per chunk) and no plain call;
+  train_verify  float32 at full width on a short batch (one sequence
+           split over 3 chunks, one packed chunk, a non-zero remat table):
+           the chunked step with the plan's remat table, the same step
+           with the table zeroed, and one unchunked forward and backward
+           per sequence agree (loss and gradients within 1e-5 relative);
+  kernels  every kernel of the port with its launch counts in serve and
+           train.
 
 The last two lines are the kernels JSON and the device JSON.
 """
@@ -70,16 +93,23 @@ def _nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+KERNEL_NAMES = ("flash_fwd_kernel", "flash_combine_kernel",
+                "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                "ce_fwd_kernel", "ce_bwd_kernel")
+
+
 def _ptxas_summary(log: str):
-    """One line per compiled kernel: name, dtype, head dim, registers,
-    shared memory, stack and spills (from ``nvcc -Xptxas -v``)."""
+    """One line per compiled kernel: name, dtype, head dim or variant,
+    registers, shared memory, stack and spills (from ``nvcc -Xptxas -v``)."""
     out, name, spill = [], "?", ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            kind = "combine" if "combine" in ln else "fwd"
+            kind = next((k for k in KERNEL_NAMES if k in ln), "?")
             dt = "bf16" if "bfloat16" in ln else "f32"
             m = re.search(r"Li(\d+)E", ln)
-            name = f"{kind}<{dt},{m.group(1) if m else '?'}>"
+            var = m.group(1) if m else ("dw" if "Lb1E" in ln else
+                                        "dh" if "Lb0E" in ln else "")
+            name = f"{kind}<{dt}{',' + var if var else ''}>"
         elif "spill" in ln:
             spill = ln.strip()
         elif "ptxas info" in ln and "Used" in ln:
@@ -299,6 +329,270 @@ def phase_kernel(dev):
     return attn, merge
 
 
+def _close_scaled(got, want, dtype) -> tuple:
+    """(max |got - want|, within TOL[dtype] with atol scaled by max |want|):
+    for gradients and cross-entropy outputs, sums of many terms of both
+    signs whose size varies by case."""
+    tol = TOL[_dtype_name(dtype)]
+    got, want = got.detach().float(), want.detach().float()
+    scale = float(want.abs().max()) or 1.0
+    err = (got - want).abs()
+    ok = bool((err <= tol["atol"] * scale + tol["rtol"] * want.abs()).all())
+    return float(err.max()), ok
+
+
+def _train_chunk(gen, C, pieces, Hq, Hkv, D, dtype, dev):
+    """Inputs shaped like one training chunk: ``C`` context rows of
+    segment 0 (the carry), 64 stale carry rows beyond the context length
+    (seg -1), then the chunk: ``pieces[0]`` rows continuing segment 0 at
+    position C, the other pieces packed short sequences, padding to a
+    multiple of 64."""
+    import numpy as np
+    import torch
+    T = -(-sum(pieces) // 64) * 64
+    seg = np.full(T, -1, np.int32)
+    pos = np.zeros(T, np.int32)
+    a = 0
+    for g, n in enumerate(pieces):
+        seg[a:a + n] = g
+        pos[a:a + n] = np.arange(n) + (C if g == 0 else 0)
+        a += n
+    stale = 64
+    kseg = np.concatenate([np.zeros(C, np.int32),
+                           np.full(stale, -1, np.int32), seg])
+    kpos = np.concatenate([np.arange(C + stale, dtype=np.int32), pos])
+
+    def mk(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+    S = len(kseg)
+    meta = [torch.from_numpy(x).to(dev) for x in (seg, kseg, pos, kpos)]
+    return mk(T, Hq, D), mk(S, Hkv, D), mk(S, Hkv, D), mk(T, Hq, D), meta
+
+
+def _attn_bwd_case(name, C, pieces, Hq, Hkv, D, window, dtype, dev, seed):
+    """The attention backward (both passes) and the forward's lse on one
+    training chunk, against autograd of the plain attention in float32."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_bwd_dkdv_cuda,
+                                                     flash_bwd_dq_cuda)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dout, meta = _train_chunk(gen, C, pieces, Hq, Hkv, D, dtype,
+                                       dev)
+    seg_q, seg_kv, pos_q, pos_kv = meta
+
+    def grads(seg_kv=seg_kv, pos_q=pos_q, window=window):
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        out = ops.flash_attention(qq, kk, vv, seg_q, seg_kv, pos_q, pos_kv,
+                                  window=window)
+        out.backward(dout)
+        return qq.grad, kk.grad, vv.grad
+
+    def err_of(got):
+        errs = [_close_scaled(g, w, dtype) for g, w in zip(got, want)]
+        return max(e for e, _ in errs), all(ok for _, ok in errs)
+    want = ref.flash_attention_grad(q.float(), k.float(), v.float(), *meta,
+                                    dout.float(), window=window)
+    max_err, ok = err_of(grads())
+    padded = ops.pad_for_kernel(q, k, v, *meta)
+    out, lse = flash_attention_cuda(*padded, window=window, with_lse=True)
+    want_lse = ref.flash_attention_lse(*padded[:2], *padded[3:],
+                                       window=window)
+    live = torch.isfinite(want_lse)
+    lse_err = float((lse[live] - want_lse[live]).abs().max())
+    lse_ok = bool(torch.equal(torch.isfinite(lse), live)) and lse_err <= \
+        TOL["float32"]["atol"] + TOL["float32"]["rtol"] * float(
+            want_lse[live].abs().max())
+    # faults: a causal limit one off, a live KV tile (the last context
+    # tile before the chunk) dropped, a window one off
+    seg_drop = seg_kv.clone()
+    seg_drop[C - 32:C] = -2
+    faults = {"causal off by one": dict(pos_q=pos_q - 1),
+              "one KV tile dropped": dict(seg_kv=seg_drop)}
+    if window > 0:
+        faults["window + 1"] = dict(window=window + 1)
+        faults["window - 1"] = dict(window=window - 1)
+    caught, missed = {}, []
+    for fault, change in faults.items():
+        caught[fault], inside = err_of(grads(**change))
+        if inside:
+            missed.append(fault)
+    pm = [t.contiguous() for t in padded[3:]]
+    do = ops.pad_rows(dout, 32).contiguous()
+
+    ms = {"dkdv": _cuda_ms(lambda: flash_bwd_dkdv_cuda(
+              *padded[:3], out, do, lse, *pm, window=window), iters=3,
+              warmup=1),
+          "dq": _cuda_ms(lambda: flash_bwd_dq_cuda(
+              *padded[:3], out, do, lse, *pm, window=window), iters=3,
+              warmup=1)}
+    plain_ms = _cuda_ms(lambda: ref.flash_attention_grad(
+        q, k, v, *meta, dout, window=window), iters=2, warmup=1)
+    mask = ref.attention_mask(seg_q, seg_kv, pos_q, pos_kv, True, window)
+    pairs = int(mask.sum()) * Hq
+    del mask
+    # per live (query, key, head), products of 2 D flops: the backward as a
+    # whole needs 5 (S = Q K^T recomputed, dP = dO V^T, dV = P^T dO,
+    # dQ = dS K, dK = dS^T Q); the dk/dv pass alone 4 (S, dP, dV, dK), the
+    # dq pass alone 3 (S, dP, dQ). Bytes: q, k, v, out, dout, lse and the
+    # metadata read once, the pass's gradients written once.
+    size = {n: t.numel() * t.element_size() for n, t in
+            (("q", q), ("k", k), ("v", v))}
+    common = 3 * size["q"] + size["k"] + size["v"] + lse.numel() * 4 + \
+        sum(t.numel() * 4 for t in meta)
+    bounds = {"all": _bound(10.0 * D * pairs, common + size["q"] + size["k"]
+                            + size["v"], dtype),
+              "dkdv": _bound(8.0 * D * pairs, common + size["k"] + size["v"],
+                             dtype),
+              "dq": _bound(6.0 * D * pairs, common + size["q"], dtype)}
+    bound_ms, bound_by = bounds["all"]
+    kernel_ms = ms["dkdv"] + ms["dq"]
+    rec = dict(case=name, dtype=_dtype_name(dtype), T=q.shape[0],
+               S=k.shape[0], Hq=Hq, Hkv=Hkv, D=D, window=window,
+               live_pairs=pairs, max_abs_err=max_err, lse_max_abs_err=lse_err,
+               tol=TOL[_dtype_name(dtype)], within_tol=ok and lse_ok,
+               faults_max_abs_err=caught, faults_within_tol=missed,
+               kernel_ms=kernel_ms, kernel_ms_covers="dk/dv pass + dq pass",
+               kernel_ms_dkdv=ms["dkdv"], kernel_ms_dq=ms["dq"],
+               bound_ms_dkdv=bounds["dkdv"][0],
+               bound_by_dkdv=bounds["dkdv"][1], bound_ms_dq=bounds["dq"][0],
+               bound_by_dq=bounds["dq"][1], plain_ms=plain_ms,
+               plain_is="autograd of the plain attention: dq, dk, dv at once",
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+    if not (ok and lse_ok):
+        raise PhaseError(f"attention backward disagrees with the plain "
+                         f"version: {rec}")
+    if missed:
+        raise PhaseError(f"the tolerance does not catch {missed}: {rec}")
+    return rec
+
+
+CE_HEADS = {"gemma3-1b": (1152, 262144), "llama3.2-3b": (3072, 128256)}
+CE_T = 8192
+
+
+def _ce_case(arch, dtype, dev, seed):
+    """Kernels B, C1 and C2 on one 8,192-token chunk against their plain
+    versions (materialised logits in float32)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cross_entropy import (VOCAB_TILE,
+                                                   ce_bwd_dh_cuda,
+                                                   ce_bwd_dw_cuda,
+                                                   ce_fwd_cuda, d_slices)
+    D, V = CE_HEADS[arch]
+    T = CE_T
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn((T, D), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((V, D), generator=gen, device=dev) * 0.02).to(dtype)
+    tgt = torch.randint(0, V, (T,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    tgt[0], tgt[1] = V - 1, V - 2        # targets in the last vocab tile
+    g = torch.full((T,), 1.0 / T, device=dev)
+    lse_p, tl_p = ref.cross_entropy_fwd_plain(h, w, tgt)
+    f32 = torch.float32
+    recs = {}
+    # faults: a target shifted by one; the last vocab tile dropped
+    shifted = tgt + 1
+    w_cut = w[:V - VOCAB_TILE]
+
+    # lse is held to an absolute limit (its values are ~log V; a dropped
+    # tile moves it by ~1e-4)
+    lse_tol = TOL["float32"]["atol"]
+
+    def fwd_check(out):
+        lse, tl = out
+        e_tl, ok_tl = _close_scaled(tl, tl_p, f32)
+        e_lse = float((lse - lse_p).abs().max())
+        return max(e_tl, e_lse), ok_tl and e_lse <= lse_tol
+    plain = {"B": lambda: ref.cross_entropy_fwd_plain(h, w, tgt),
+             "C1": lambda: ref.cross_entropy_bwd_dh_plain(h, w, tgt, lse_p,
+                                                          g),
+             "C2": lambda: ref.cross_entropy_bwd_dw_plain(h, w, tgt, lse_p,
+                                                          g)}
+    kern = {"B": lambda t=tgt, ww=w: ce_fwd_cuda(h, ww, t),
+            "C1": lambda t=tgt, ww=w: ce_bwd_dh_cuda(h, ww, t, lse_p, g),
+            "C2": lambda t=tgt, ww=w: ce_bwd_dw_cuda(h, ww, t, lse_p, g)}
+    names = {"B": "ce_fwd_kernel", "C1": "ce_bwd_kernel<dh>",
+             "C2": "ce_bwd_kernel<dw>"}
+    eb = 2 if dtype == torch.bfloat16 else 4
+    in_bytes = (T * D + V * D) * eb + T * 4
+    for key in ("B", "C1", "C2"):
+        want = plain[key]()
+
+        def check(out, want=want, key=key):
+            if key == "B":
+                return fwd_check(out)
+            if key == "C2" and out.shape[0] != want.shape[0]:
+                out = torch.cat([out, torch.zeros_like(want[out.shape[0]:])])
+            return _close_scaled(out, want, dtype)
+        max_err, ok = check(kern[key]())
+        caught, missed = {}, []
+        for fault, out in (("target shifted by one", kern[key](t=shifted)),
+                           ("one vocab tile dropped", kern[key](ww=w_cut))):
+            caught[fault], inside = check(out)
+            if inside:
+                missed.append(fault)
+        kernel_ms = _cuda_ms(kern[key], iters=2, warmup=1)
+        plain_ms = _cuda_ms(plain[key], iters=1, warmup=1)
+        library_ms = None
+        if key == "B":      # the materialised-logits yardstick
+            library_ms = _cuda_ms(lambda: torch.logsumexp(
+                h.float() @ w.float().T, dim=-1), iters=1, warmup=1)
+        products = 1 if key == "B" else 2     # C1/C2: logits, contraction
+        out_bytes = {"B": 8 * T, "C1": T * D * eb, "C2": V * D * eb}[key]
+        extra = 0 if key == "B" else 8 * T    # lse, g
+        bound_ms, bound_by = _bound(2.0 * T * V * D * products,
+                                    in_bytes + extra + out_bytes, dtype)
+        rec = dict(name=names[key], kernel=key, case=arch,
+                   dtype=_dtype_name(dtype), T=T, D=D, V=V,
+                   d_slices=d_slices(D) if key != "B" else None,
+                   max_abs_err=max_err, tol=TOL[_dtype_name(dtype)],
+                   within_tol=ok, faults_max_abs_err=caught,
+                   faults_within_tol=missed, kernel_ms=kernel_ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   library_is=("h @ W.T + logsumexp, logits materialised"
+                               if key == "B" else None),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        del want
+        if not ok:
+            raise PhaseError(f"{key} disagrees with the plain version: {rec}")
+        if missed:
+            raise PhaseError(f"the tolerance does not catch {missed}: {rec}")
+        recs[key] = rec
+    return recs
+
+
+def phase_kernel_training(dev):
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    gemma = (12288, (3072, 600, 400))
+    llama = (4096, (1536, 300, 200))
+    bwd = []
+    for args in (("gemma3-1b global", *gemma, 4, 1, 256, 0, bf16),
+                 ("gemma3-1b local", *gemma, 4, 1, 256, 512, bf16),
+                 ("llama3.2-3b", *llama, 24, 8, 128, 0, bf16),
+                 ("gemma3-1b global", *gemma, 4, 1, 256, 0, f32)):
+        bwd.append(_attn_bwd_case(*args, dev, 11 + len(bwd)))
+        print(f"[kernel] attention backward {json.dumps(bwd[-1])}",
+              flush=True)
+        torch.cuda.empty_cache()
+    ce = []
+    for i, (arch, dt) in enumerate([("gemma3-1b", bf16), ("gemma3-1b", f32),
+                                    ("llama3.2-3b", bf16),
+                                    ("llama3.2-3b", f32)]):
+        ce.append(_ce_case(arch, dt, dev, 20 + i))
+        for rec in ce[-1].values():
+            print(f"[kernel] cross-entropy {json.dumps(rec)}", flush=True)
+        torch.cuda.empty_cache()
+    return bwd, ce
+
+
 # ---------------------------------------------------------------------------
 # serve / verify phases
 # ---------------------------------------------------------------------------
@@ -384,10 +678,157 @@ def phase_verify(dev, cfg, params32, trace):
 
 
 # ---------------------------------------------------------------------------
+# train / train_verify phases
+# ---------------------------------------------------------------------------
+
+def _train_counters():
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cross_entropy import (ce_bwd_dh_cuda,
+                                                   ce_bwd_dw_cuda,
+                                                   ce_fwd_cuda)
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_bwd_dkdv_cuda,
+                                                     flash_bwd_dq_cuda,
+                                                     flash_combine_cuda)
+    return {"flash_fwd_kernel": flash_attention_cuda,
+            "flash_combine_kernel": flash_combine_cuda,
+            "flash_bwd_dkdv_kernel": flash_bwd_dkdv_cuda,
+            "flash_bwd_dq_kernel": flash_bwd_dq_cuda,
+            "ce_fwd_kernel": ce_fwd_cuda,
+            "ce_bwd_kernel<dh>": ce_bwd_dh_cuda,
+            "ce_bwd_kernel<dw>": ce_bwd_dw_cuda,
+            "plain_attention": ops.flash_attention,
+            "plain_cross_entropy": ops.fused_cross_entropy}
+
+
+def _read_counts(ctr):
+    return {k: (c.plain_calls if k.startswith("plain") else c.launches)
+            for k, c in ctr.items()}
+
+
+def _zero_counts(ctr):
+    for k, c in ctr.items():
+        if k.startswith("plain"):
+            c.plain_calls = 0
+        else:
+            c.launches = 0
+
+
+def phase_train(dev, seed, batch, context=16384, steps=3):
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import TrainConfig, train
+    from repro_torch.runtime.train_step import remat_depths
+    cfg = get_arch("gemma3-1b")
+    L = cfg.spec.n_layers
+    ctr = _train_counters()
+    steps_out, expected = [], {}
+
+    def on_step(step, plan, corpus):
+        if expected:
+            steps_out[-1]["launches"] = _read_counts(ctr)
+        n = plan.n_chunks
+        depth = sum(remat_depths(plan, L))
+        expected.clear()
+        expected.update({"flash_fwd_kernel": L * n + depth,
+                         "flash_bwd_dkdv_kernel": L * n,
+                         "flash_bwd_dq_kernel": L * n,
+                         "ce_fwd_kernel": n, "ce_bwd_kernel<dh>": n,
+                         "ce_bwd_kernel<dw>": n, "plain_attention": 0,
+                         "plain_cross_entropy": 0})
+        steps_out.append({"expected": dict(expected), "remat_depths": depth,
+                          "chunks": n,
+                          "chunk_tokens": [c.tokens for p in plan.pipelines
+                                           for c in p.chunks]})
+        _zero_counts(ctr)
+    lines = []
+    _, hist = train(cfg, TrainConfig(steps=steps, global_batch=batch,
+                                     context=context, seed=seed,
+                                     compute_dtype="bfloat16"),
+                    device=dev, on_step=on_step, log=lines.append)
+    steps_out[-1]["launches"] = _read_counts(ctr)
+    recs = []
+    for h, st, ln in zip(hist, steps_out, lines):
+        rec = dict(h, **st)
+        recs.append(rec)
+        print(f"[train] {ln}", flush=True)
+        if not math.isfinite(h["loss"]):
+            raise PhaseError(f"non-finite loss: {rec}")
+        bad = {k: (st["launches"][k], v) for k, v in st["expected"].items()
+               if st["launches"][k] != v}
+        if bad:
+            raise PhaseError(f"launch counts differ from the plan's "
+                             f"(got, expected): {bad}; {rec}")
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_train_verify(dev, seed):
+    """float32, full width: the chunked step with the plan's remat table ==
+    the same step with the table zeroed == one unchunked forward/backward
+    per sequence (loss and every gradient within 1e-5 relative)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
+                                  plan_batch)
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.runtime.train_step import ChunkedTrainer
+    cfg = get_arch("gemma3-1b")
+    rng = np.random.default_rng(seed)
+    lens = [3000, 900, 500, 300]
+    corpus = {i: rng.integers(0, cfg.spec.vocab, n).astype(np.int32)
+              for i, n in enumerate(lens)}
+    cm = CostModel(cfg.spec, ClusterSpec())
+    # a 2 GB activation budget: the ILP checkpoints layers of some chunks
+    plan = plan_batch(cm, lens, PlannerConfig(
+        fixed_k=3, bucket_rounding=64, remat_mode="stage_aware",
+        capacity_bytes=cm.m_model_states(1) + 2e9))
+    chunks = [c for p in plan.pipelines for c in p.chunks]
+    if max(s.n_chunks for s in plan.sequences) < 3 or not any(
+            c.kind.value == "hybrid" for c in chunks) or not any(
+            plan.ckpt_table()[0]):
+        raise PhaseError(f"the verify plan lacks a 3-chunk split, a packed "
+                         f"chunk or remat: {plan.ckpt_table()}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tr = ChunkedTrainer(cfg, DecoderLM(cfg).init(gen, device=dev), device=dev,
+                        compute_dtype=torch.float32)
+    runs = {"plan table": tr.loss_and_grads(plan, corpus),
+            "table zeroed": tr.loss_and_grads(plan, corpus,
+                                              remat_policy="none"),
+            "unchunked": tr.sequence_loss_and_grads(corpus)}
+    base = runs["plan table"]
+    out = {"chunks": [(c.kind.value, c.context, c.tokens) for c in chunks],
+           "remat_table": plan.ckpt_table()[0], "loss": base.loss}
+    for name, r in runs.items():
+        if name == "plan table":
+            continue
+        worst = 0.0
+        for a, b in zip(tree_leaves(r.grads), tree_leaves(base.grads)):
+            worst = max(worst, float((a - b).abs().max()) /
+                        max(float(b.abs().max()), 1e-30))
+        rel_loss = abs(r.loss - base.loss) / abs(base.loss)
+        out[name] = {"loss": r.loss, "loss_rel_diff": rel_loss,
+                     "grad_max_rel_diff": worst}
+        if rel_loss > 1e-5 or worst > 1e-5 or r.n_valid != base.n_valid:
+            raise PhaseError(f"{name} differs from the chunked step: {out}")
+    del runs, base, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train-batch", type=int, default=8,
+                    help="sequences per training step (context 16384)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -398,7 +839,7 @@ def main() -> int:
     try:
         from repro_torch.configs import get_arch
         from repro_torch.data import sample_request_trace
-        from repro_torch.kernels.flash_attention import load_library
+        from repro_torch.kernels.build import load_libraries
         from repro_torch.models import DecoderLM
     except ImportError as e:
         print(f"error: the port is not importable from {ROOT / 'src'}: {e}",
@@ -421,49 +862,84 @@ def main() -> int:
         return out, time.perf_counter() - t0
 
     smi, _ = run("build", _nvidia_smi)
-    lib, dt = run("build", load_library)
-    for ln in _ptxas_summary(lib.build_log):
-        print(f"[build] {ln}")
-    print(f"[build] ok sm_90a {lib.path.name} in {dt:.1f}s; card: {smi}",
-          flush=True)
+    libs, dt = run("build", load_libraries)
+    for b in libs.values():
+        for ln in _ptxas_summary(b.build_log):
+            print(f"[build] {ln}")
+    print(f"[build] ok sm_90a {', '.join(b.path.name for b in libs.values())}"
+          f" in {dt:.1f}s; card: {smi}", flush=True)
 
     (cases, merges), dt = run("kernel", lambda: phase_kernel(dev))
     for rec in cases:
         print(f"[kernel] {json.dumps(rec)}", flush=True)
     for rec in merges:
         print(f"[kernel] merge pass {json.dumps(rec)}", flush=True)
+    (bwd, ce), dt2 = run("kernel", lambda: phase_kernel_training(dev))
+    print(f"[kernel] ok in {dt + dt2:.1f}s", flush=True)
 
     cfg = get_arch("gemma3-1b")
     trace = sample_request_trace("github", 16, 4096, cfg.spec.vocab,
                                  seed=0, max_new_tokens=32)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params32 = DecoderLM(cfg).init(gen, dtype=torch.float32, device=dev)
+    ctr = _train_counters()
+    _zero_counts(ctr)
     srv, dt = run("serve", lambda: phase_serve(dev, cfg, params32, trace))
+    serve_counts = _read_counts(ctr)
     print(f"[serve] {json.dumps(srv)} in {dt:.1f}s", flush=True)
 
     lines, dt = run("verify", lambda: phase_verify(dev, cfg, params32,
                                                    trace))
     print(f"[verify] ok in {dt:.1f}s: " + "; ".join(lines), flush=True)
+    del params32
+    torch.cuda.empty_cache()
 
-    print(f"[kernels] flash_fwd_kernel: {srv['flash_launches']} launches "
-          f"in serve ({cfg.spec.n_layers} x {srv['steps']} steps); "
-          f"flash_combine_kernel: {srv['combine_launches']} launches; "
-          f"total {time.perf_counter() - t_start:.1f}s", flush=True)
-    src = "src/repro_torch/kernels/csrc/flash_attention.cu"
-    tpu = "src/repro/kernels/flash_attention.py:89"
+    trn, dt = run("train", lambda: phase_train(dev, args.seed,
+                                               args.train_batch))
+    for rec in trn:
+        print(f"[train] {json.dumps(rec)}", flush=True)
+    print(f"[train] ok in {dt:.1f}s", flush=True)
+    train_counts = {k: sum(r["launches"][k] for r in trn) for k in ctr}
+
+    ver, dt = run("train_verify", lambda: phase_train_verify(dev, args.seed))
+    print(f"[train_verify] ok in {dt:.1f}s: {json.dumps(ver)}", flush=True)
+
+    print(f"[kernels] serve: {json.dumps(serve_counts)}; train "
+          f"({len(trn)} steps): {json.dumps(train_counts)}; total "
+          f"{time.perf_counter() - t_start:.1f}s", flush=True)
+    fa = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    cs = "src/repro_torch/kernels/csrc/cross_entropy.cu"
+    tpu_fa = "src/repro/kernels/flash_attention.py:89"
     g, m = cases[0], merges[0]          # gemma3-1b global layer, bf16
+    gb = bwd[0]                         # gemma3-1b global, training, bf16
+    gce = ce[0]                         # gemma3-1b head, bf16
+
+    def entry(name, src, tpu, rec, **kw):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": tpu,
+                "launches": serve_counts[name] + train_counts[name],
+                "launches_serve": serve_counts[name],
+                "launches_train": train_counts[name],
+                "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"]} | kw
     kernels = {"kernels": [
-        {"name": "flash_fwd_kernel", "route": "cuda", "source": src,
-         "replaces": tpu, "launches": srv["flash_launches"],
-         "max_abs_err": g["max_abs_err"], "ms": g["kernel_ms"],
-         "ms_covers": "the attention op: split pass and merge pass",
-         "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
-         "bound_by": g["bound_by"], "library_ms": g["library_ms"]},
-        {"name": "flash_combine_kernel", "route": "cuda", "source": src,
-         "replaces": tpu, "launches": srv["combine_launches"],
-         "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
-         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-         "bound_by": m["bound_by"], "library_ms": None}]}
+        entry("flash_fwd_kernel", fa, tpu_fa, g,
+              ms_covers="the attention op: split pass and merge pass"),
+        entry("flash_combine_kernel", fa, tpu_fa, m),
+        entry("flash_bwd_dkdv_kernel", fa, tpu_fa + " (its gradient)", gb,
+              ms=gb["kernel_ms_dkdv"], bound_ms=gb["bound_ms_dkdv"],
+              bound_by=gb["bound_by_dkdv"], plain_is=gb["plain_is"]),
+        entry("flash_bwd_dq_kernel", fa, tpu_fa + " (its gradient)", gb,
+              ms=gb["kernel_ms_dq"], bound_ms=gb["bound_ms_dq"],
+              bound_by=gb["bound_by_dq"], plain_is=gb["plain_is"]),
+        entry("ce_fwd_kernel", cs, "src/repro/kernels/cross_entropy.py:79",
+              gce["B"], library_is=gce["B"]["library_is"]),
+        entry("ce_bwd_kernel<dh>", cs,
+              "src/repro/kernels/cross_entropy.py:159", gce["C1"]),
+        entry("ce_bwd_kernel<dw>", cs,
+              "src/repro/kernels/cross_entropy.py:222", gce["C2"])]}
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Hopper flash-attention kernel: build, load and launch wrapper.
+"""Hopper flash-attention kernels: load and launch wrappers.
 
 Replaces the JAX package's Pallas TPU kernel
 ``kernels/flash_attention.py::flash_attention_pallas`` (packed-varlen
@@ -6,8 +6,8 @@ causal attention with context rows and sliding windows; the mask rule is
 in :mod:`repro_torch.kernels.ref`). The kernel is CUDA C++ for
 ``sm_90a`` in ``csrc/flash_attention.cu``, compiled by ``nvcc`` at first
 use into a shared library with a plain C interface under
-``<repo>/build/kernels/`` and called through ``ctypes`` on PyTorch's
-current stream.
+``<repo>/build/kernels/`` (:mod:`.build`) and called through ``ctypes`` on
+PyTorch's current stream.
 
 What bounds it: at the serving shapes every K/V row is met by up to
 ``cap_t`` queries times the GQA group, and the roofline bound of a whole
@@ -20,33 +20,35 @@ merged by a second kernel (so decode rows, which each attend a whole
 context, are spread over up to ``MAX_SPLIT`` blocks). Moving its products
 onto tensor cores is the next step.
 
-Two wrappers, one per ``__global__`` kernel, each counting its own
-launches: :data:`flash_attention_cuda` (``flash_fwd_kernel``, the split
-pass, once per attention op) and :data:`flash_combine_cuda`
-(``flash_combine_kernel``, the merge pass, once per op whose keys are
-split over several blocks). Both only launch: they take CUDA tensors,
+One wrapper per ``__global__`` kernel, each counting its own launches:
+:data:`flash_attention_cuda` (``flash_fwd_kernel``, the split pass, once
+per attention op; for training it also writes each row's log-sum-exp),
+:data:`flash_combine_cuda` (``flash_combine_kernel``, the merge pass, once
+per op whose keys are split over several blocks), and the backward's two
+passes :data:`flash_bwd_dkdv_cuda` (``flash_bwd_dkdv_kernel``) and
+:data:`flash_bwd_dq_cuda` (``flash_bwd_dq_kernel``), each once per
+attention op in a backward. They only launch: they take CUDA tensors,
 check them and raise on anything the kernel does not take. Padding to the
-tile sizes and the CPU dispatch live in :mod:`repro_torch.kernels.ops`.
+tile sizes, the autograd function and the CPU dispatch live in
+:mod:`repro_torch.kernels.ops`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from .build import load_libraries
+
 __all__ = ["BLOCK_Q", "BLOCK_KV", "HEAD_DIMS", "MAX_SPLIT",
-           "FlashAttentionKernel", "FlashCombineKernel", "kv_splits",
-           "flash_attention_cuda", "flash_combine_cuda", "load_library",
-           "NVCC_FLAGS"]
+           "FlashAttentionKernel", "FlashCombineKernel", "FlashBwdKernel",
+           "kv_splits", "flash_attention_cuda", "flash_combine_cuda",
+           "flash_bwd_dkdv_cuda", "flash_bwd_dq_cuda", "load_library"]
 
 BLOCK_Q = 32                  # query rows per block (csrc: BQ)
 BLOCK_KV = 32                 # KV rows per tile (csrc: BK)
@@ -54,20 +56,7 @@ HEAD_DIMS = (64, 128, 256)    # template instantiations in the library
 MAX_SPLIT = 16                # KV splits per query tile (csrc: MAX_SPLIT)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(cand):
-        raise RuntimeError("nvcc not found (looked on PATH and in "
-                           f"{cuda_home}/bin): the flash-attention kernel "
-                           "cannot be built")
-    return cand
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 @dataclass(frozen=True)
@@ -76,44 +65,37 @@ class KernelLibrary:
     build_log: str            # nvcc/ptxas output (registers, smem, spills)
     fwd: ctypes._CFuncPtr
     combine: ctypes._CFuncPtr
+    bwd_dkdv: ctypes._CFuncPtr
+    bwd_dq: ctypes._CFuncPtr
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> KernelLibrary:
-    """Build (once per source digest) and load the kernel library."""
-    src = _SRC.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"libflash_attention_{digest[:12]}.so"
-    log_path = so.with_suffix(".log")
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                           capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {r.returncode}:\n"
-                               f"{r.stdout}\n{r.stderr}")
-        log_path.write_text(r.stdout + r.stderr)
-        os.replace(tmp, so)
-    log = log_path.read_text() if log_path.exists() else ""
-    lib = ctypes.CDLL(str(so))
+    """The flash-attention library (built with the others at first use)."""
+    built = load_libraries()["flash_attention"]
+    lib = built.lib
     for name, want in (("flash_attention_block_q", BLOCK_Q),
                        ("flash_attention_block_kv", BLOCK_KV),
                        ("flash_attention_max_split", MAX_SPLIT)):
         fn = getattr(lib, name)
-        fn.argtypes, fn.restype = [], ctypes.c_int
+        fn.argtypes, fn.restype = [], _I
         if fn() != want:
-            raise RuntimeError(f"{so.name}: {name}() = {fn()} but the "
-                               f"wrapper expects {want}")
-    fwd = lib.flash_attention_fwd
-    fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + \
-        [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fwd.restype = ctypes.c_int
-    combine = lib.flash_attention_combine
-    combine.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
-    combine.restype = ctypes.c_int
-    return KernelLibrary(path=so, build_log=log, fwd=fwd, combine=combine)
+            raise RuntimeError(f"{built.path.name}: {name}() = {fn()} but "
+                               f"the wrapper expects {want}")
+    fns = {}
+    for name, argtypes in (
+            ("flash_attention_fwd", [_P] * 11 + [_I] * 8 + [_F, _I, _P]),
+            ("flash_attention_combine", [_P] * 4 + [_I] * 5 + [_P]),
+            ("flash_attention_bwd_dkdv", [_P] * 12 + [_I] * 8 + [_F, _P]),
+            ("flash_attention_bwd_dq", [_P] * 11 + [_I] * 8 + [_F, _P])):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, _I
+        fns[name] = fn
+    return KernelLibrary(path=built.path, build_log=built.build_log,
+                         fwd=fns["flash_attention_fwd"],
+                         combine=fns["flash_attention_combine"],
+                         bwd_dkdv=fns["flash_attention_bwd_dkdv"],
+                         bwd_dq=fns["flash_attention_bwd_dq"])
 
 
 class FlashAttentionKernel:
@@ -127,17 +109,24 @@ class FlashAttentionKernel:
 
     def __call__(self, q, k, v, seg_q, seg_kv, pos_q, pos_kv, *,
                  causal: bool = True, window: int = 0,
-                 scale: Optional[float] = None) -> torch.Tensor:
+                 scale: Optional[float] = None, with_lse: bool = False):
+        """``out [T, Hq, D]``; with ``with_lse`` also each row's
+        log-sum-exp ``lse [Hq, T]`` (float32, ``-inf`` on rows with no
+        attended key), which the backward reads."""
+        lse = torch.empty((q.shape[1], q.shape[0]), dtype=torch.float32,
+                          device=q.device) if with_lse else None
         n_split = kv_splits(k.shape[0])
         if n_split == 1:
             out = torch.empty_like(q)
             self._launch(q, k, v, seg_q, seg_kv, pos_q, pos_kv, out, None,
-                         None, 1, causal, window, scale)
-            return out
-        ws_ml, ws_acc = self.partials(q, k, v, seg_q, seg_kv, pos_q, pos_kv,
-                                      n_split=n_split, causal=causal,
-                                      window=window, scale=scale)
-        return flash_combine_cuda(ws_ml, ws_acc, q.dtype)
+                         None, lse, 1, causal, window, scale)
+        else:
+            ws_ml, ws_acc = self.partials(q, k, v, seg_q, seg_kv, pos_q,
+                                          pos_kv, n_split=n_split,
+                                          causal=causal, window=window,
+                                          scale=scale)
+            out = flash_combine_cuda(ws_ml, ws_acc, q.dtype, lse=lse)
+        return (out, lse) if with_lse else out
 
     def partials(self, q, k, v, seg_q, seg_kv, pos_q, pos_kv, *,
                  n_split: int, causal: bool = True, window: int = 0,
@@ -155,11 +144,11 @@ class FlashAttentionKernel:
         ws_acc = torch.empty((n_split, T, Hq, D), dtype=torch.float32,
                              device=q.device)
         self._launch(q, k, v, seg_q, seg_kv, pos_q, pos_kv, None, ws_ml,
-                     ws_acc, n_split, causal, window, scale)
+                     ws_acc, None, n_split, causal, window, scale)
         return ws_ml, ws_acc
 
     def _launch(self, q, k, v, seg_q, seg_kv, pos_q, pos_kv, out, ws_ml,
-                ws_acc, n_split, causal, window, scale) -> None:
+                ws_acc, lse, n_split, causal, window, scale) -> None:
         T, Hq, D = _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
         S, Hkv = k.shape[0], k.shape[1]
         scale = float(scale if scale is not None else D ** -0.5)
@@ -172,6 +161,7 @@ class FlashAttentionKernel:
                          out.data_ptr() if out is not None else None,
                          ws_ml.data_ptr() if ws_ml is not None else None,
                          ws_acc.data_ptr() if ws_acc is not None else None,
+                         lse.data_ptr() if lse is not None else None,
                          T, S, Hq, Hkv, D, _DTYPE_CODE[q.dtype],
                          int(bool(causal)), int(window), scale, n_split,
                          stream)
@@ -193,7 +183,10 @@ class FlashCombineKernel:
         self.launches = 0
 
     def __call__(self, ws_ml: torch.Tensor, ws_acc: torch.Tensor,
-                 dtype: torch.dtype) -> torch.Tensor:
+                 dtype: torch.dtype,
+                 lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``lse``, if given, a float32 ``[Hq, T]`` tensor the merge pass
+        fills with each row's log-sum-exp."""
         if not all(isinstance(t, torch.Tensor) and t.is_cuda
                    for t in (ws_ml, ws_acc)) or ws_ml.device != ws_acc.device:
             raise ValueError("flash_combine_cuda takes CUDA tensors on one "
@@ -213,19 +206,84 @@ class FlashCombineKernel:
         if D not in HEAD_DIMS or dtype not in _DTYPE_CODE or T == 0:
             raise ValueError(f"head_dim {D}, dtype {dtype} or T={T} not "
                              f"taken")
+        if lse is not None and (lse.dtype != torch.float32
+                                or tuple(lse.shape) != (Hq, T)
+                                or not lse.is_contiguous()
+                                or lse.device != ws_acc.device):
+            raise ValueError("lse must be a contiguous float32 [Hq, T] "
+                             "tensor on the partial states' device")
         out = torch.empty((T, Hq, D), dtype=dtype, device=ws_acc.device)
         lib = load_library()
         stream = torch.cuda.current_stream(out.device).cuda_stream
         with torch.cuda.device(out.device):
             rc = lib.combine(ws_ml.data_ptr(), ws_acc.data_ptr(),
-                             out.data_ptr(), T, Hq, D, _DTYPE_CODE[dtype],
-                             n_split, stream)
+                             out.data_ptr(),
+                             lse.data_ptr() if lse is not None else None,
+                             T, Hq, D, _DTYPE_CODE[dtype], n_split, stream)
         if rc != 0:
             raise RuntimeError(
                 f"flash_combine_kernel launch failed with cudaError {rc} "
                 f"(T={T}, Hq={Hq}, D={D}, {dtype}, n_split={n_split})")
         self.launches += 1
         return out
+
+
+class FlashBwdKernel:
+    """Launch wrapper of one backward pass: ``flash_bwd_dkdv_kernel``
+    (``which="dkdv"``, returns ``(dk, dv)``) or ``flash_bwd_dq_kernel``
+    (``which="dq"``, returns ``dq``). Inputs: the forward's padded
+    ``q, k, v``, metadata, output ``out``, its ``lse [Hq, T]`` and the
+    output's gradient ``dout`` (same shape and dtype as ``out``). The plain
+    version is :func:`repro_torch.kernels.ref.flash_attention_grad`;
+    ``launches`` counts this pass's launches."""
+
+    def __init__(self, which: str) -> None:
+        if which not in ("dkdv", "dq"):
+            raise ValueError(f"which must be 'dkdv' or 'dq', not {which!r}")
+        self.which = which
+        self.launches = 0
+
+    def __call__(self, q, k, v, out, dout, lse, seg_q, seg_kv, pos_q, pos_kv,
+                 *, causal: bool = True, window: int = 0,
+                 scale: Optional[float] = None):
+        T, Hq, D = _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
+        S, Hkv = k.shape[0], k.shape[1]
+        for name, t in (("out", out), ("dout", dout)):
+            if (not isinstance(t, torch.Tensor) or not t.is_cuda
+                    or t.device != q.device or t.dtype != q.dtype
+                    or t.shape != q.shape or not t.is_contiguous()):
+                raise ValueError(f"{name} must be a contiguous CUDA tensor "
+                                 f"like q {tuple(q.shape)} {q.dtype}")
+        if (not isinstance(lse, torch.Tensor) or lse.device != q.device
+                or lse.dtype != torch.float32
+                or tuple(lse.shape) != (Hq, T) or not lse.is_contiguous()):
+            raise ValueError(f"lse must be a contiguous float32 [{Hq}, {T}] "
+                             f"tensor on {q.device}")
+        scale = float(scale if scale is not None else D ** -0.5)
+        lib = load_library()
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  dout.data_ptr(), lse.data_ptr(), seg_q.data_ptr(),
+                  pos_q.data_ptr(), seg_kv.data_ptr(), pos_kv.data_ptr())
+        tail = (_DTYPE_CODE[q.dtype], int(bool(causal)), int(window), scale,
+                stream)
+        with torch.cuda.device(q.device):
+            if self.which == "dkdv":
+                dk, dv = torch.empty_like(k), torch.empty_like(v)
+                rc = lib.bwd_dkdv(*common, dk.data_ptr(), dv.data_ptr(), T, S,
+                                  Hq, Hkv, D, *tail)
+                res = (dk, dv)
+            else:
+                dq = torch.empty_like(q)
+                rc = lib.bwd_dq(*common, dq.data_ptr(), T, S, Hq, Hkv, D,
+                                *tail)
+                res = dq
+        if rc != 0:
+            raise RuntimeError(
+                f"flash_bwd_{self.which}_kernel launch failed with cudaError "
+                f"{rc} (T={T}, S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, {q.dtype})")
+        self.launches += 1
+        return res
 
 
 def kv_splits(S: int) -> int:
@@ -276,3 +334,5 @@ def _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv):
 
 flash_attention_cuda = FlashAttentionKernel()
 flash_combine_cuda = FlashCombineKernel()
+flash_bwd_dkdv_cuda = FlashBwdKernel("dkdv")
+flash_bwd_dq_cuda = FlashBwdKernel("dq")

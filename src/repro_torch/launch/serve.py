@@ -202,8 +202,10 @@ def profile_summary(prof, wall_s: float, steps: int) -> dict:
 
     def group(name):
         n = name.lower()
-        if "flash_fwd" in n or "flash_combine" in n:
+        if "flash_fwd" in n or "flash_combine" in n or "flash_bwd" in n:
             return "attention kernels"
+        if "ce_fwd" in n or "ce_bwd" in n:
+            return "cross-entropy kernels"
         if any(s in n for s in ("gemm", "xmma", "cutlass", "cublas",
                                 "nvjet")):
             return "matmul"

@@ -3,29 +3,39 @@
 Counterpart of the JAX package's ``models/model.py``. Parameters are plain
 nested dicts of tensors in the reference's layout: layer leaves stacked
 along a leading ``L`` axis, plus ``embed``, ``final_norm`` and an optional
-``unembed``; dense weights are ``[d_out, d_in]``. Every layer exposes a
-context carry (:class:`LayerCtx`) so a later chunk of a sequence attends
-to the KV rows of the earlier ones.
+``unembed``; dense weights are ``[d_out, d_in]``. For training,
+``params["layers"]`` may instead be a list of per-layer dicts
+(:func:`unstack_layers`): each layer's weights are then their own autograd
+leaves, and a layer's gradient is not scattered into a zeroed ``[L, ...]``
+buffer. Every layer exposes a context carry (:class:`LayerCtx`) so a later
+chunk of a sequence attends to the KV rows of the earlier ones; the carry's
+gradient is the paper's dKV term (Eq. 5).
+
+The loss head (:meth:`DecoderLM.chunk_loss`) runs the final norm and the
+fused streaming cross-entropy (kernels B, C1, C2 on the card).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (attention_block, init_attention,
                         make_local_attention_policy)
 from .config import ArchConfig, LayerKind
 from .layers import embed_init, rms_norm, swiglu_apply, swiglu_init
 
-__all__ = ["DecoderLM", "LayerCtx", "layer_params", "tree_map"]
+__all__ = ["DecoderLM", "LayerCtx", "layer_params", "tree_map",
+           "tree_leaves", "tree_unflatten", "unstack_layers"]
 
 
 class LayerCtx(NamedTuple):
     """Split-chunk context carry: KV buffers ``[C_cap, Hkv, Dh]`` per layer
-    (``[L, ...]`` stacked), None for a context-free run. The reference's
-    SSM fields join with the SSM family."""
+    (``[L, ...]`` stacked, or a list of ``L`` buffers), None for a
+    context-free run. The reference's SSM fields join with the SSM
+    family."""
     k: Optional[torch.Tensor]
     v: Optional[torch.Tensor]
 
@@ -33,12 +43,55 @@ class LayerCtx(NamedTuple):
 def tree_map(fn: Callable, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """Leaves in a fixed order (dict keys sorted, lists in order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(template, leaves):
+    """A tree shaped like ``template`` holding ``leaves`` in the order of
+    :func:`tree_leaves`."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+    return build(template)
+
+
 def layer_params(params: Dict, idx: int) -> Dict:
-    """Views of layer ``idx``'s parameters out of the stacked ``layers``."""
-    return tree_map(lambda a: a[idx], params["layers"])
+    """Layer ``idx``'s parameters: views out of the stacked ``layers``, or
+    the dict itself when ``layers`` is a per-layer list."""
+    layers = params["layers"]
+    if isinstance(layers, (list, tuple)):
+        return layers[idx]
+    return tree_map(lambda a: a[idx], layers)
+
+
+def unstack_layers(params: Dict) -> Dict:
+    """A copy of ``params`` whose ``layers`` is a list of per-layer dicts
+    (fresh tensors, not views)."""
+    layers = params["layers"]
+    if isinstance(layers, (list, tuple)):
+        return dict(params)
+    n = len(tree_leaves(layers)[0])
+    out = dict(params)
+    out["layers"] = [tree_map(lambda a: a[i].clone(), layers)
+                     for i in range(n)]
+    return out
 
 
 class DecoderLM:
@@ -82,6 +135,26 @@ class DecoderLM:
     def head_weights(params: Dict) -> torch.Tensor:
         return params.get("unembed", params["embed"])
 
+    def chunk_loss(self, params: Dict, hidden: torch.Tensor,
+                   targets: torch.Tensor, seg: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(sum_loss, n_valid) of one chunk: final norm, then the fused
+        streaming cross-entropy against the head weights (the reference's
+        ``streaming_cross_entropy``; kernels B, C1, C2 on the card)."""
+        from repro_torch.kernels.ops import fused_cross_entropy
+        h = rms_norm(hidden, params["final_norm"], self.cfg.rms_eps)
+        valid = (seg >= 0) & (targets >= 0)
+        return fused_cross_entropy(h, self.head_weights(params).to(h.dtype),
+                                   targets.clamp(min=0), valid)
+
+    def loss(self, params: Dict, tokens, targets, seg, pos, *,
+             compute_dtype=torch.bfloat16
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(sum_loss, n_valid) of one context-free chunk."""
+        hidden, _ = self.forward_chunk(params, tokens, seg, pos,
+                                       compute_dtype=compute_dtype)
+        return self.chunk_loss(params, hidden, targets, seg)
+
     # ------------------------------------------------------------------
     def embed(self, params: Dict, tokens: torch.Tensor,
               compute_dtype=torch.bfloat16) -> torch.Tensor:
@@ -123,23 +196,41 @@ class DecoderLM:
     def forward_chunk(self, params: Dict, tokens: torch.Tensor,
                       seg: torch.Tensor, pos: torch.Tensor, *,
                       ctx: Optional[LayerCtx] = None, ctx_len: int = 0,
-                      compute_dtype=torch.bfloat16
+                      compute_dtype=torch.bfloat16, remat: int = 0
                       ) -> Tuple[torch.Tensor, Optional[LayerCtx]]:
         """Run all layers over one packed chunk. Returns (hidden, new ctx);
-        the new ctx is None when ``ctx`` is None (context-free run)."""
+        the new ctx is None when ``ctx`` is None (context-free run), and
+        stacked or a list as ``ctx`` is.
+
+        ``remat``: the leading ``remat`` layers run under non-reentrant
+        ``torch.utils.checkpoint`` (their activations are recomputed in the
+        backward), as the reference executor remats the leading
+        ``l_ckpt`` layers of a stage; remat never changes the math."""
         x = self.embed(params, tokens, compute_dtype)
         new_k, new_v = [], []
         for i, w in enumerate(self.cfg.layer_windows()):
-            lctx = LayerCtx(None, None) if ctx is None \
-                else LayerCtx(ctx.k[i], ctx.v[i])
-            x, out_ctx = self.layer_apply(
-                layer_params(params, i), x, pos=pos, seg=seg, ctx=lctx,
-                ctx_len=ctx_len, window=w)
-            new_k.append(out_ctx.k)
-            new_v.append(out_ctx.v)
+            ck = None if ctx is None else ctx.k[i]
+            cv = None if ctx is None else ctx.v[i]
+            args = (layer_params(params, i), x, pos, seg, ck, cv,
+                    int(ctx_len), w)
+            if i < remat:
+                x, nk, nv = checkpoint(self._layer, *args,
+                                       use_reentrant=False)
+            else:
+                x, nk, nv = self._layer(*args)
+            new_k.append(nk)
+            new_v.append(nv)
         if ctx is None:
             return x, None
+        if isinstance(ctx.k, (list, tuple)):
+            return x, LayerCtx(new_k, new_v)
         return x, LayerCtx(torch.stack(new_k), torch.stack(new_v))
+
+    def _layer(self, lparams, x, pos, seg, ctx_k, ctx_v, ctx_len, window):
+        x, out = self.layer_apply(lparams, x, pos=pos, seg=seg,
+                                  ctx=LayerCtx(ctx_k, ctx_v),
+                                  ctx_len=ctx_len, window=window)
+        return x, out.k, out.v
 
 
 def _stack(layers):

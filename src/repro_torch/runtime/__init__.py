@@ -1,1 +1,2 @@
-"""Single-device runtime of the port (the serving engine step)."""
+"""Single-device runtime of the port: the serving engine step and the
+chunked training step."""

@@ -15,6 +15,8 @@ The CUDA kernel itself is held against the plain version on the card in
 ``tests/test_torch_gpu.py``.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -211,3 +213,91 @@ def test_dispatch_counts_plain_calls_on_cpu():
     before = ops.flash_attention.plain_calls
     ops.flash_attention(q, q[:, :1], q[:, :1], seg, seg, seg, seg)
     assert ops.flash_attention.plain_calls == before + 1
+
+
+def _jax_grads_and_lse(args, dout, fn, **kw):
+    """jax.grad of sum(dout * fn(...)) w.r.t. q, k, v, for ``fn`` one of
+    the JAX package's attention oracles, and the rows' log-sum-exp from
+    its mask rule (-inf on a row with no live key)."""
+    import jax
+    q, k, v, seg_q, seg_kv, pos_q, pos_kv = map(jnp.asarray, args)
+
+    def f(q, k, v):
+        out = fn(q, k, v, seg_q, seg_kv, pos_q, pos_kv, **kw)
+        return (out * jnp.asarray(dout)).sum()
+    grads = jax.grad(f, argnums=(0, 1, 2))(q, k, v)
+    Hq, D = q.shape[1], q.shape[2]
+    ke = jref._expand_kv(k, Hq)
+    s = jnp.einsum("thd,shd->hts", q, ke) * D ** -0.5
+    m = jref._mask(seg_q, seg_kv, pos_q, pos_kv, kw.get("causal", True),
+                   jnp.asarray(kw.get("window", 0)))
+    lse = jax.nn.logsumexp(jnp.where(m[None], s, -jnp.inf), axis=-1)
+    return [np.asarray(g) for g in grads], np.asarray(lse)
+
+
+@pytest.mark.parametrize("Hq,Hkv,window,ctx", [
+    (4, 4, 0, 0),           # MHA, packed, no context
+    (8, 2, 0, 48),          # GQA with context rows
+    (4, 1, 8, 48),          # MQA, sliding window, context
+    (4, 2, 1, 0),           # window 1: only the diagonal
+])
+def test_attention_gradient_and_lse_match_jax(Hq, Hkv, window, ctx):
+    """The plain attention gradient (``ref.flash_attention_grad``, and the
+    autograd function ``ops.flash_attention`` backward on the CPU) and the
+    plain log-sum-exp against ``jax.grad`` of the JAX package's
+    ``blocked_flash_attention`` and ``flash_attention_reference``, float32
+    ``2e-5``: packed segments,
+    context rows (plus stale carry rows of segment -1), windows, GQA and
+    fully masked rows (padding, a segment without keys), whose gradient
+    is exactly zero and whose lse is -inf."""
+    rng = np.random.default_rng(Hq * 10 + window + ctx)
+    T, D, stale = 96, 32, 16
+    seg_q, pos_q = _varlen_meta(rng, T, 3, ctx=ctx)
+    seg_q[-4:] = -1
+    seg_q[10] = 7                    # a segment absent from the keys
+    seg_kv = np.concatenate([np.zeros(ctx, np.int32),
+                             np.full(stale, -1, np.int32), seg_q])
+    seg_kv[ctx + stale + 10] = -1
+    pos_kv = np.concatenate([np.arange(ctx + stale, dtype=np.int32), pos_q])
+    S = len(seg_kv)
+    q = rng.standard_normal((T, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((S, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((S, Hkv, D)).astype(np.float32)
+    dout = rng.standard_normal((T, Hq, D)).astype(np.float32)
+    args = (q, k, v, seg_q, seg_kv, pos_q, pos_kv)
+    want, want_lse = _jax_grads_and_lse(args, dout,
+                                        jref.flash_attention_reference,
+                                        window=window)
+    # the JAX package's blocked attention returns the mean of V on a fully
+    # masked row where the port (and the JAX oracle) returns zeros; in a
+    # training step nothing reads such a row (padding, or a token with no
+    # key), so its output gradient is zero: compare on that footing
+    dead = np.asarray(jnp.logical_not(np.isfinite(want_lse)).all(axis=0))
+    dout_live = np.where(dead[:, None, None], 0.0, dout).astype(np.float32)
+    want_blk, _ = _jax_grads_and_lse(
+        args, dout_live, functools.partial(jref.blocked_flash_attention,
+                                           block_kv=32), window=window)
+    targs = [torch.from_numpy(a) for a in args]
+    td = torch.from_numpy(dout)
+    got = tref.flash_attention_grad(*targs, td, window=window)
+    got_live = tref.flash_attention_grad(*targs, torch.from_numpy(dout_live),
+                                         window=window)
+    qq, kk, vv = (t.clone().requires_grad_(True) for t in targs[:3])
+    before = ops.flash_attention.plain_calls
+    out = ops.flash_attention(qq, kk, vv, *targs[3:], window=window)
+    out.backward(td)
+    assert ops.flash_attention.plain_calls == before + 2  # fwd + bwd
+    for g, a, gl, w, wb in zip(got, (qq.grad, kk.grad, vv.grad), got_live,
+                               want, want_blk):
+        np.testing.assert_allclose(g.numpy(), w, rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(a.numpy(), w, rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(gl.numpy(), wb, rtol=2e-5, atol=2e-5)
+    for rows in ((kk.grad, slice(ctx, ctx + stale)), (qq.grad, [10]),
+                 (qq.grad, slice(T - 4, T))):
+        assert torch.count_nonzero(rows[0][rows[1]]) == 0
+    lse = tref.flash_attention_lse(*targs[:2], *targs[3:], window=window)
+    assert np.array_equal(np.isfinite(lse.numpy()), np.isfinite(want_lse))
+    live = np.isfinite(want_lse)
+    assert not live[:, 10].any() and not live[:, -4:].any()
+    np.testing.assert_allclose(lse.numpy()[live], want_lse[live], rtol=2e-5,
+                               atol=2e-5)

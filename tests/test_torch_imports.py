@@ -1,7 +1,7 @@
 """The port stands alone: no module under ``src/repro_torch`` (nor
 ``chip_smoke.py``) imports jax or the JAX package, every module imports
-with jax made unimportable, and the serving CLI refuses to run without a
-card unless the CPU is asked for.
+with jax made unimportable, and the serving and training CLIs refuse to
+run without a card unless the CPU is asked for.
 """
 
 import os
@@ -103,4 +103,49 @@ def test_cli_on_cpu_when_asked(tmp_path):
         capture_output=True, text=True, timeout=120, env=_env())
     assert r.returncode == 0, r.stderr[-3000:]
     assert "serve OK" in r.stdout and "[verify]" in r.stdout
+    assert "not measured" in prof.read_text()
+
+
+def test_training_modules_are_in_the_import_sweep():
+    """The training slice's modules are among those the sweep above
+    imports with jax unimportable."""
+    mods = set(_modules())
+    for m in ("repro_torch.core.planner", "repro_torch.core.checkpointing",
+              "repro_torch.core.ilp", "repro_torch.core.schedule",
+              "repro_torch.core.grouping", "repro_torch.data.batching",
+              "repro_torch.kernels.cross_entropy", "repro_torch.kernels.build",
+              "repro_torch.optim.adamw", "repro_torch.runtime.train_step",
+              "repro_torch.launch.train"):
+        assert m in mods, m
+
+
+def test_train_cli_without_card_exits_nonzero():
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+         "--steps", "1"],
+        capture_output=True, text=True, timeout=120,
+        env=_env(CUDA_VISIBLE_DEVICES=""))
+    assert r.returncode != 0
+    assert "cuda" in r.stderr.lower()
+    assert "train OK" not in r.stdout
+
+
+def test_train_cli_on_cpu_when_asked(tmp_path):
+    """Two reduced float32 steps on the CPU: one line per step with loss,
+    tokens, wall time, tokens/s and memory; under ``--profile`` the summary
+    says that no device time was measured."""
+    prof = tmp_path / "profile.json"
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--arch", "gemma3-1b", "--reduced", "--steps", "2", "--batch", "4",
+         "--context", "256", "--profile", str(prof)],
+        capture_output=True, text=True, timeout=300, env=_env())
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "train OK" in r.stdout
+    steps = [ln for ln in r.stdout.splitlines() if ln.startswith("step ")]
+    assert [ln.split()[1] for ln in steps] == ["0", "1"]
+    for ln in steps:
+        for word in ("loss", "tokens", "wall", "tok/s", "peak_mem",
+                     "plan estimate"):
+            assert word in ln, ln
     assert "not measured" in prof.read_text()
