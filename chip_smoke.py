@@ -49,9 +49,11 @@ exit and no result line):
            per chunk) and no plain call;
   train_verify  float32 at full width on a short batch (one sequence
            split over 3 chunks, one packed chunk, a non-zero remat table):
-           the chunked step with the plan's remat table, the same step
-           with the table zeroed, and one unchunked forward and backward
-           per sequence agree (loss and gradients within 1e-5 relative);
+           the chunked step with the plan's remat table launches the
+           attention forward 26 x chunks + the remat depths times, and
+           it, the same step with the table zeroed, and one unchunked
+           forward and backward per sequence agree (loss and gradients
+           within 1e-5 relative);
   kernels  every kernel of the port with its launch counts in serve and
            train.
 
@@ -778,7 +780,7 @@ def phase_train_verify(dev, seed):
                                   plan_batch)
     from repro_torch.models import DecoderLM
     from repro_torch.models.model import tree_leaves
-    from repro_torch.runtime.train_step import ChunkedTrainer
+    from repro_torch.runtime.train_step import ChunkedTrainer, remat_depths
     cfg = get_arch("gemma3-1b")
     rng = np.random.default_rng(seed)
     lens = [3000, 900, 500, 300]
@@ -798,13 +800,28 @@ def phase_train_verify(dev, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     tr = ChunkedTrainer(cfg, DecoderLM(cfg).init(gen, device=dev), device=dev,
                         compute_dtype=torch.float32)
-    runs = {"plan table": tr.loss_and_grads(plan, corpus),
-            "table zeroed": tr.loss_and_grads(plan, corpus,
-                                              remat_policy="none"),
-            "unchunked": tr.sequence_loss_and_grads(corpus)}
+    # the remat'd layers' forwards run again in the backward: the attention
+    # forward launches 26 x chunks + the sum of the remat depths
+    ctr = _train_counters()
+    L, n = cfg.spec.n_layers, len(chunks)
+    expected = {"flash_fwd_kernel": L * n + sum(remat_depths(plan, L)),
+                "flash_bwd_dkdv_kernel": L * n, "flash_bwd_dq_kernel": L * n,
+                "ce_fwd_kernel": n, "ce_bwd_kernel<dh>": n,
+                "ce_bwd_kernel<dw>": n, "plain_attention": 0,
+                "plain_cross_entropy": 0}
+    _zero_counts(ctr)
+    runs = {"plan table": tr.loss_and_grads(plan, corpus)}
+    launches = {k: v for k, v in _read_counts(ctr).items() if k in expected}
+    if launches != expected:
+        raise PhaseError(f"launch counts with remat (got, expected): "
+                         f"{launches}, {expected}")
+    runs["table zeroed"] = tr.loss_and_grads(plan, corpus,
+                                             remat_policy="none")
+    runs["unchunked"] = tr.sequence_loss_and_grads(corpus)
     base = runs["plan table"]
     out = {"chunks": [(c.kind.value, c.context, c.tokens) for c in chunks],
-           "remat_table": plan.ckpt_table()[0], "loss": base.loss}
+           "remat_table": plan.ckpt_table()[0], "launches": launches,
+           "loss": base.loss}
     for name, r in runs.items():
         if name == "plan table":
             continue
