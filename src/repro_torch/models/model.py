@@ -41,10 +41,12 @@ class LayerCtx(NamedTuple):
 
 
 def tree_map(fn: Callable, tree):
+    """``fn`` over the leaves of nested dicts and lists (anything else,
+    tuples included, is a leaf)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -52,7 +54,7 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     """Leaves in a fixed order (dict keys sorted, lists in order)."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, list):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
@@ -66,8 +68,8 @@ def tree_unflatten(template, leaves):
         if isinstance(t, dict):
             built = {k: build(t[k]) for k in sorted(t)}
             return {k: built[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
+        if isinstance(t, list):
+            return [build(v) for v in t]
         return next(it)
     return build(template)
 
@@ -76,7 +78,7 @@ def layer_params(params: Dict, idx: int) -> Dict:
     """Layer ``idx``'s parameters: views out of the stacked ``layers``, or
     the dict itself when ``layers`` is a per-layer list."""
     layers = params["layers"]
-    if isinstance(layers, (list, tuple)):
+    if isinstance(layers, list):
         return layers[idx]
     return tree_map(lambda a: a[idx], layers)
 
@@ -85,7 +87,7 @@ def unstack_layers(params: Dict) -> Dict:
     """A copy of ``params`` whose ``layers`` is a list of per-layer dicts
     (fresh tensors, not views)."""
     layers = params["layers"]
-    if isinstance(layers, (list, tuple)):
+    if isinstance(layers, list):
         return dict(params)
     n = len(tree_leaves(layers)[0])
     out = dict(params)
