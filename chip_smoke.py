@@ -22,15 +22,22 @@ exit and no result line):
              window or causal limit one off, a live KV tile or a KV split
              dropped);
            * the attention backward (``flash_bwd_dkdv_kernel``,
-             ``flash_bwd_dq_kernel``) and the forward's log-sum-exp on a
-             training chunk with context rows, for gemma3-1b global and
-             window-512 layers and llama3.2-3b (faults: a window or
-             causal limit one off, a live KV tile dropped);
+             ``flash_bwd_dq_kernel``), the forward's output and its
+             log-sum-exp on the train phase's largest chunk of step 0 (its
+             own segments and positions, no context; gemma3-1b global and
+             window-512 layers, bf16), then on a training chunk with
+             context rows, for gemma3-1b global and window-512 layers and
+             llama3.2-3b (faults: a window or causal limit one off, a live
+             KV tile dropped);
            * the cross-entropy kernels B (``ce_fwd_kernel``), C1 and C2
-             (``ce_bwd_kernel``) at T = 8192 tokens on gemma3-1b's
-             (D 1152, V 262144) and llama3.2-3b's (D 3072, V 128256) head,
-             bf16 and float32 (faults: a target shifted by one, one vocab
-             tile dropped);
+             (``ce_bwd_kernel``) on that chunk's targets (gemma3-1b head,
+             bf16), then at T = 8192 tokens on gemma3-1b's (D 1152,
+             V 262144) and llama3.2-3b's (D 3072, V 128256) head, bf16 and
+             float32 (faults: a target shifted by one, one vocab tile
+             dropped);
+           the plain versions run over blocks of rows, so that their
+           materialised scores or logits fit the card; the kernels line
+           reports the train-chunk cases of the training kernels;
   serve    gemma3-1b at full width, bf16, random weights from --seed, 16
            requests of the "github" trace served by the continuous-batching
            engine (n_items=4, cap_t=512, page_sz=16, k=1); every request
@@ -40,8 +47,8 @@ exit and no result line):
   verify   the same engine in float32 on the first 2 requests (8 new
            tokens) against the port's one_shot_generate;
   train    gemma3-1b at full width, bf16 with a float32 AdamW master, 3
-           steps of ``launch/train.train`` on github batches of
-           ``--train-batch`` x 16384 tokens planned for one H100: per step
+           steps of ``launch/train.train`` on github batches of 8 x 16384
+           tokens planned for one H100: per step
            loss, tokens, wall time, tokens/s, peak device memory and the
            plan's own estimate; every loss finite, every kernel launched
            exactly as the plan predicts (attention forward 26 x chunks +
@@ -63,6 +70,7 @@ The last two lines are the kernels JSON and the device JSON.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import re
 import subprocess
@@ -372,9 +380,55 @@ def _train_chunk(gen, C, pieces, Hq, Hkv, D, dtype, dev):
     return mk(T, Hq, D), mk(S, Hkv, D), mk(S, Hkv, D), mk(T, Hq, D), meta
 
 
-def _attn_bwd_case(name, C, pieces, Hq, Hkv, D, window, dtype, dev, seed):
-    """The attention backward (both passes) and the forward's lse on one
-    training chunk, against autograd of the plain attention in float32."""
+def _plan_chunk(gen, seg, pos, Hq, Hkv, D, dtype, dev):
+    """Inputs shaped like one of the train phase's context-free chunks:
+    its own seg and pos rows as queries and keys, random q, k, v and
+    output gradient."""
+    import torch
+
+    def mk(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+    T = len(seg)
+    meta = [torch.from_numpy(x).to(dev) for x in (seg, seg, pos, pos)]
+    return mk(T, Hq, D), mk(T, Hkv, D), mk(T, Hkv, D), mk(T, Hq, D), meta
+
+
+# the plain versions run over blocks of this many rows, so that their
+# materialised [Hq, rows, S] scores or [rows, V] logits fit the card at a
+# training chunk's length; a case of at most this many rows is one block
+ATTN_ROW_BLOCK = 4096
+CE_ROW_BLOCK = 8192
+
+
+def _plain_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv, dout, window):
+    """(out, lse, dq, dk, dv) of the plain attention, over blocks of query
+    rows: ``ref.flash_attention_reference``, ``ref.flash_attention_lse``
+    and ``ref.flash_attention_grad`` of each block (rows are independent;
+    dk and dv are the blocks' sum, in float32)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    outs, lses, dqs, dk, dv = [], [], [], 0.0, 0.0
+    for a in range(0, q.shape[0], ATTN_ROW_BLOCK):
+        b = slice(a, a + ATTN_ROW_BLOCK)
+        rows = (seg_q[b], seg_kv, pos_q[b], pos_kv)
+        outs.append(ref.flash_attention_reference(q[b], k, v, *rows,
+                                                  window=window))
+        lses.append(ref.flash_attention_lse(q[b], k, *rows, window=window))
+        gq, gk, gv = ref.flash_attention_grad(q[b], k, v, *rows, dout[b],
+                                              window=window)
+        dqs.append(gq)
+        dk, dv = dk + gk.float(), dv + gv.float()
+    return (torch.cat(outs), torch.cat(lses, dim=1), torch.cat(dqs),
+            dk.to(k.dtype), dv.to(v.dtype))
+
+
+def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed):
+    """The attention backward (both passes), the forward's output and its
+    lse on one training chunk made by ``inputs(gen, dtype)``, against
+    autograd of the plain attention in float32. ``drop``: the KV rows of
+    one live tile, for the dropped-tile fault."""
     import torch
 
     from repro_torch.kernels import ops
@@ -383,8 +437,8 @@ def _attn_bwd_case(name, C, pieces, Hq, Hkv, D, window, dtype, dev, seed):
                                                      flash_bwd_dkdv_cuda,
                                                      flash_bwd_dq_cuda)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v, dout, meta = _train_chunk(gen, C, pieces, Hq, Hkv, D, dtype,
-                                       dev)
+    q, k, v, dout, meta = inputs(gen, dtype)
+    (T, Hq, D), Hkv = q.shape, k.shape[1]
     seg_q, seg_kv, pos_q, pos_kv = meta
 
     def grads(seg_kv=seg_kv, pos_q=pos_q, window=window):
@@ -397,22 +451,22 @@ def _attn_bwd_case(name, C, pieces, Hq, Hkv, D, window, dtype, dev, seed):
     def err_of(got):
         errs = [_close_scaled(g, w, dtype) for g, w in zip(got, want)]
         return max(e for e, _ in errs), all(ok for _, ok in errs)
-    want = ref.flash_attention_grad(q.float(), k.float(), v.float(), *meta,
-                                    dout.float(), window=window)
+    want_out, want_lse, *want = _plain_attention(
+        q.float(), k.float(), v.float(), *meta, dout.float(), window)
     max_err, ok = err_of(grads())
     padded = ops.pad_for_kernel(q, k, v, *meta)
     out, lse = flash_attention_cuda(*padded, window=window, with_lse=True)
-    want_lse = ref.flash_attention_lse(*padded[:2], *padded[3:],
-                                       window=window)
-    live = torch.isfinite(want_lse)
-    lse_err = float((lse[live] - want_lse[live]).abs().max())
-    lse_ok = bool(torch.equal(torch.isfinite(lse), live)) and lse_err <= \
-        TOL["float32"]["atol"] + TOL["float32"]["rtol"] * float(
+    out_err, out_ok = _within(out[:T], want_out, dtype)
+    live, got_lse = torch.isfinite(want_lse), lse[:, :T]
+    lse_err = float((got_lse[live] - want_lse[live]).abs().max())
+    lse_ok = bool(torch.equal(torch.isfinite(got_lse), live)) and \
+        lse_err <= TOL["float32"]["atol"] + TOL["float32"]["rtol"] * float(
             want_lse[live].abs().max())
-    # faults: a causal limit one off, a live KV tile (the last context
-    # tile before the chunk) dropped, a window one off
+    del want_out, want_lse, got_lse
+    # faults: a causal limit one off, a live KV tile dropped, a window one
+    # off
     seg_drop = seg_kv.clone()
-    seg_drop[C - 32:C] = -2
+    seg_drop[drop] = -2
     faults = {"causal off by one": dict(pos_q=pos_q - 1),
               "one KV tile dropped": dict(seg_kv=seg_drop)}
     if window > 0:
@@ -432,8 +486,11 @@ def _attn_bwd_case(name, C, pieces, Hq, Hkv, D, window, dtype, dev, seed):
           "dq": _cuda_ms(lambda: flash_bwd_dq_cuda(
               *padded[:3], out, do, lse, *pm, window=window), iters=3,
               warmup=1)}
-    plain_ms = _cuda_ms(lambda: ref.flash_attention_grad(
-        q, k, v, *meta, dout, window=window), iters=2, warmup=1)
+    plain_ms = _cuda_ms(lambda: [ref.flash_attention_grad(
+        q[b], k, v, seg_q[b], seg_kv, pos_q[b], pos_kv, dout[b],
+        window=window) for b in (slice(a, a + ATTN_ROW_BLOCK) for a in
+                                 range(0, T, ATTN_ROW_BLOCK))],
+        iters=2, warmup=1)
     mask = ref.attention_mask(seg_q, seg_kv, pos_q, pos_kv, True, window)
     pairs = int(mask.sum()) * Hq
     del mask
@@ -456,16 +513,18 @@ def _attn_bwd_case(name, C, pieces, Hq, Hkv, D, window, dtype, dev, seed):
     rec = dict(case=name, dtype=_dtype_name(dtype), T=q.shape[0],
                S=k.shape[0], Hq=Hq, Hkv=Hkv, D=D, window=window,
                live_pairs=pairs, max_abs_err=max_err, lse_max_abs_err=lse_err,
-               tol=TOL[_dtype_name(dtype)], within_tol=ok and lse_ok,
+               out_max_abs_err=out_err, tol=TOL[_dtype_name(dtype)],
+               within_tol=ok and lse_ok and out_ok,
                faults_max_abs_err=caught, faults_within_tol=missed,
                kernel_ms=kernel_ms, kernel_ms_covers="dk/dv pass + dq pass",
                kernel_ms_dkdv=ms["dkdv"], kernel_ms_dq=ms["dq"],
                bound_ms_dkdv=bounds["dkdv"][0],
                bound_by_dkdv=bounds["dkdv"][1], bound_ms_dq=bounds["dq"][0],
                bound_by_dq=bounds["dq"][1], plain_ms=plain_ms,
-               plain_is="autograd of the plain attention: dq, dk, dv at once",
+               plain_is=f"autograd of the plain attention: dq, dk, dv at "
+                        f"once, over blocks of {ATTN_ROW_BLOCK} query rows",
                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
-    if not (ok and lse_ok):
+    if not (ok and lse_ok and out_ok):
         raise PhaseError(f"attention backward disagrees with the plain "
                          f"version: {rec}")
     if missed:
@@ -475,28 +534,59 @@ def _attn_bwd_case(name, C, pieces, Hq, Hkv, D, window, dtype, dev, seed):
 
 CE_HEADS = {"gemma3-1b": (1152, 262144), "llama3.2-3b": (3072, 128256)}
 CE_T = 8192
+# the train phase: github batches of 8 sequences of up to 16,384 tokens
+TRAIN_BATCH, TRAIN_CONTEXT, TRAIN_STEPS = 8, 16384, 3
 
 
-def _ce_case(arch, dtype, dev, seed):
-    """Kernels B, C1 and C2 on one 8,192-token chunk against their plain
-    versions (materialised logits in float32)."""
+def _plain_ce(key, h, w, tgt, lse, g):
+    """The plain version of B, C1 or C2 (``ref``) over blocks of
+    CE_ROW_BLOCK tokens: rows are independent in B and C1; C2 is the sum
+    of its blocks in float32 (the plain version upcasts its inputs and
+    casts its result to w's dtype)."""
     import torch
 
     from repro_torch.kernels import ref
+    blocks = [slice(a, a + CE_ROW_BLOCK)
+              for a in range(0, h.shape[0], CE_ROW_BLOCK)]
+    if key == "B":
+        parts = [ref.cross_entropy_fwd_plain(h[b], w, tgt[b])
+                 for b in blocks]
+        return tuple(torch.cat(x) for x in zip(*parts))
+    if key == "C1":
+        return torch.cat([ref.cross_entropy_bwd_dh_plain(
+            h[b], w, tgt[b], lse[b], g[b]) for b in blocks])
+    wf = w.float()
+    return sum(ref.cross_entropy_bwd_dw_plain(h[b].float(), wf, tgt[b],
+                                              lse[b], g[b])
+               for b in blocks).to(w.dtype)
+
+
+def _ce_case(arch, dtype, dev, seed, targets=None, case=None):
+    """Kernels B, C1 and C2 on one chunk against their plain versions
+    (materialised logits in float32): ``targets`` (int32, -1 on rows
+    without a target) as the train step feeds them, each valid row's loss
+    weighted 1 / n_valid; else CE_T random targets weighted 1 / CE_T. Two
+    targets are moved into the last vocab tile."""
+    import torch
+
     from repro_torch.kernels.cross_entropy import (VOCAB_TILE,
                                                    ce_bwd_dh_cuda,
                                                    ce_bwd_dw_cuda,
                                                    ce_fwd_cuda, d_slices)
     D, V = CE_HEADS[arch]
-    T = CE_T
     gen = torch.Generator(device=dev).manual_seed(seed)
+    if targets is None:
+        tgt = torch.randint(0, V, (CE_T,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    else:
+        tgt = targets.to(dev, torch.int32).clone()
+    T = tgt.shape[0]
     h = torch.randn((T, D), generator=gen, device=dev).to(dtype)
     w = (torch.randn((V, D), generator=gen, device=dev) * 0.02).to(dtype)
-    tgt = torch.randint(0, V, (T,), generator=gen, device=dev,
-                        dtype=torch.int32)
     tgt[0], tgt[1] = V - 1, V - 2        # targets in the last vocab tile
-    g = torch.full((T,), 1.0 / T, device=dev)
-    lse_p, tl_p = ref.cross_entropy_fwd_plain(h, w, tgt)
+    valid = (tgt >= 0).float()
+    g = valid / valid.sum()
+    lse_p, tl_p = _plain_ce("B", h, w, tgt, None, None)
     f32 = torch.float32
     recs = {}
     # faults: a target shifted by one; the last vocab tile dropped
@@ -512,11 +602,8 @@ def _ce_case(arch, dtype, dev, seed):
         e_tl, ok_tl = _close_scaled(tl, tl_p, f32)
         e_lse = float((lse - lse_p).abs().max())
         return max(e_tl, e_lse), ok_tl and e_lse <= lse_tol
-    plain = {"B": lambda: ref.cross_entropy_fwd_plain(h, w, tgt),
-             "C1": lambda: ref.cross_entropy_bwd_dh_plain(h, w, tgt, lse_p,
-                                                          g),
-             "C2": lambda: ref.cross_entropy_bwd_dw_plain(h, w, tgt, lse_p,
-                                                          g)}
+    plain = {key: functools.partial(_plain_ce, key, h, w, tgt, lse_p, g)
+             for key in ("B", "C1", "C2")}
     kern = {"B": lambda t=tgt, ww=w: ce_fwd_cuda(h, ww, t),
             "C1": lambda t=tgt, ww=w: ce_bwd_dh_cuda(h, ww, t, lse_p, g),
             "C2": lambda t=tgt, ww=w: ce_bwd_dw_cuda(h, ww, t, lse_p, g)}
@@ -551,13 +638,16 @@ def _ce_case(arch, dtype, dev, seed):
         extra = 0 if key == "B" else 8 * T    # lse, g
         bound_ms, bound_by = _bound(2.0 * T * V * D * products,
                                     in_bytes + extra + out_bytes, dtype)
-        rec = dict(name=names[key], kernel=key, case=arch,
+        rec = dict(name=names[key], kernel=key, case=case or arch,
                    dtype=_dtype_name(dtype), T=T, D=D, V=V,
                    d_slices=d_slices(D) if key != "B" else None,
                    max_abs_err=max_err, tol=TOL[_dtype_name(dtype)],
                    within_tol=ok, faults_max_abs_err=caught,
                    faults_within_tol=missed, kernel_ms=kernel_ms,
-                   plain_ms=plain_ms, library_ms=library_ms,
+                   plain_ms=plain_ms,
+                   plain_is=f"ref's plain version over blocks of "
+                            f"{CE_ROW_BLOCK} tokens",
+                   library_ms=library_ms,
                    library_is=("h @ W.T + logsumexp, logits materialised"
                                if key == "B" else None),
                    bound_ms=bound_ms, bound_by=bound_by)
@@ -570,21 +660,68 @@ def _ce_case(arch, dtype, dev, seed):
     return recs
 
 
-def phase_kernel_training(dev):
+def _largest_train_chunk(seed):
+    """Step 0's largest chunk in the train phase, as the step feeds it to
+    the model: ``(chunk, targets, seg, pos)`` (numpy rows)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import ClusterSpec, CostModel
+    from repro_torch.data.batching import materialize_plan
+    from repro_torch.launch.train import plan_step
+    from repro_torch.runtime.train_step import chunk_arrays
+    cfg = get_arch("gemma3-1b")
+    corpus, plan = plan_step(CostModel(cfg.spec, ClusterSpec()),
+                             _train_loop(seed), 0)
+    chunks = [c for p in plan.pipelines for c in p.chunks]
+    k = max(range(len(chunks)), key=lambda i: chunks[i].tokens)
+    if chunks[k].context:
+        raise PhaseError(f"step 0's largest chunk continues a sequence; "
+                         f"its kernel cases need the carry rows: {chunks[k]}")
+    _, tgt, seg, pos = chunk_arrays(materialize_plan(plan, corpus), k,
+                                    chunks[k].tokens)
+    return chunks[k], tgt, seg, pos
+
+
+def phase_kernel_training(dev, seed):
+    """The attention backward and B, C1, C2: first at the shapes of the
+    train phase's largest chunk of step 0 (gemma3-1b, bf16, the chunk's
+    own segments, positions and targets), then on chunks with context rows
+    and on both archs' heads at CE_T tokens, bf16 and float32."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
-    gemma = (12288, (3072, 600, 400))
-    llama = (4096, (1536, 300, 200))
+    chunk, tgt, seg, pos = _largest_train_chunk(seed)
+    name = f"gemma3-1b train chunk ({chunk.tokens} tokens)"
+    a0 = int((seg >= 0).argmax())           # a live tile inside segment 0
+    plan_rows = slice(a0 + 1024, a0 + 1056)
+
+    def from_plan(gen, dtype):
+        return _plan_chunk(gen, seg, pos, 4, 1, 256, dtype, dev)
+
+    def with_context(C, pieces, Hq, Hkv, D):
+        return lambda gen, dtype: _train_chunk(gen, C, pieces, Hq, Hkv, D,
+                                               dtype, dev)
+    gemma = with_context(12288, (3072, 600, 400), 4, 1, 256)
+    llama = with_context(4096, (1536, 300, 200), 24, 8, 128)
+    # the dropped tile: 32 rows inside segment 0, or with context rows the
+    # last context tile before the chunk
     bwd = []
-    for args in (("gemma3-1b global", *gemma, 4, 1, 256, 0, bf16),
-                 ("gemma3-1b local", *gemma, 4, 1, 256, 512, bf16),
-                 ("llama3.2-3b", *llama, 24, 8, 128, 0, bf16),
-                 ("gemma3-1b global", *gemma, 4, 1, 256, 0, f32)):
+    for args in ((f"{name} global", from_plan, plan_rows, 0, bf16),
+                 (f"{name} local", from_plan, plan_rows, 512, bf16),
+                 ("gemma3-1b global", gemma, slice(12288 - 32, 12288), 0,
+                  bf16),
+                 ("gemma3-1b local", gemma, slice(12288 - 32, 12288), 512,
+                  bf16),
+                 ("llama3.2-3b", llama, slice(4096 - 32, 4096), 0, bf16),
+                 ("gemma3-1b global", gemma, slice(12288 - 32, 12288), 0,
+                  f32)):
         bwd.append(_attn_bwd_case(*args, dev, 11 + len(bwd)))
         print(f"[kernel] attention backward {json.dumps(bwd[-1])}",
               flush=True)
         torch.cuda.empty_cache()
-    ce = []
+    ce = [_ce_case("gemma3-1b", bf16, dev, 19, targets=torch.from_numpy(tgt),
+                   case=name)]
+    for rec in ce[-1].values():
+        print(f"[kernel] cross-entropy {json.dumps(rec)}", flush=True)
+    torch.cuda.empty_cache()
     for i, (arch, dt) in enumerate([("gemma3-1b", bf16), ("gemma3-1b", f32),
                                     ("llama3.2-3b", bf16),
                                     ("llama3.2-3b", f32)]):
@@ -716,13 +853,20 @@ def _zero_counts(ctr):
             c.launches = 0
 
 
-def phase_train(dev, seed, batch, context=16384, steps=3):
+def _train_loop(seed):
+    from repro_torch.launch.train import TrainConfig
+    return TrainConfig(steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                       context=TRAIN_CONTEXT, seed=seed,
+                       compute_dtype="bfloat16")
+
+
+def phase_train(dev, seed):
     import math
 
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.launch.train import TrainConfig, train
+    from repro_torch.launch.train import train
     from repro_torch.runtime.train_step import remat_depths
     cfg = get_arch("gemma3-1b")
     L = cfg.spec.n_layers
@@ -747,10 +891,8 @@ def phase_train(dev, seed, batch, context=16384, steps=3):
                                            for c in p.chunks]})
         _zero_counts(ctr)
     lines = []
-    _, hist = train(cfg, TrainConfig(steps=steps, global_batch=batch,
-                                     context=context, seed=seed,
-                                     compute_dtype="bfloat16"),
-                    device=dev, on_step=on_step, log=lines.append)
+    _, hist = train(cfg, _train_loop(seed), device=dev, on_step=on_step,
+                    log=lines.append)
     steps_out[-1]["launches"] = _read_counts(ctr)
     recs = []
     for h, st, ln in zip(hist, steps_out, lines):
@@ -844,8 +986,6 @@ def phase_train_verify(dev, seed):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--train-batch", type=int, default=8,
-                    help="sequences per training step (context 16384)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -891,7 +1031,8 @@ def main() -> int:
         print(f"[kernel] {json.dumps(rec)}", flush=True)
     for rec in merges:
         print(f"[kernel] merge pass {json.dumps(rec)}", flush=True)
-    (bwd, ce), dt2 = run("kernel", lambda: phase_kernel_training(dev))
+    (bwd, ce), dt2 = run("kernel", lambda: phase_kernel_training(
+        dev, args.seed))
     print(f"[kernel] ok in {dt + dt2:.1f}s", flush=True)
 
     cfg = get_arch("gemma3-1b")
@@ -911,8 +1052,7 @@ def main() -> int:
     del params32
     torch.cuda.empty_cache()
 
-    trn, dt = run("train", lambda: phase_train(dev, args.seed,
-                                               args.train_batch))
+    trn, dt = run("train", lambda: phase_train(dev, args.seed))
     for rec in trn:
         print(f"[train] {json.dumps(rec)}", flush=True)
     print(f"[train] ok in {dt:.1f}s", flush=True)
@@ -928,8 +1068,8 @@ def main() -> int:
     cs = "src/repro_torch/kernels/csrc/cross_entropy.cu"
     tpu_fa = "src/repro/kernels/flash_attention.py:89"
     g, m = cases[0], merges[0]          # gemma3-1b global layer, bf16
-    gb = bwd[0]                         # gemma3-1b global, training, bf16
-    gce = ce[0]                         # gemma3-1b head, bf16
+    gb = bwd[0]             # step 0's largest train chunk, global, bf16
+    gce = ce[0]             # the gemma3-1b head on that chunk, bf16
 
     def entry(name, src, tpu, rec, **kw):
         return {"name": name, "route": "cuda", "source": src,
@@ -937,7 +1077,8 @@ def main() -> int:
                 "launches": serve_counts[name] + train_counts[name],
                 "launches_serve": serve_counts[name],
                 "launches_train": train_counts[name],
-                "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
+                "case": rec["case"], "max_abs_err": rec["max_abs_err"],
+                "ms": rec["kernel_ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"]} | kw

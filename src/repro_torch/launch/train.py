@@ -35,7 +35,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
-__all__ = ["TrainConfig", "train", "main", "BUCKET_ROUNDING"]
+__all__ = ["TrainConfig", "train", "plan_step", "main", "BUCKET_ROUNDING"]
 
 
 @dataclass
@@ -55,6 +55,21 @@ class TrainConfig:
 BUCKET_ROUNDING = 256     # chunk-capacity granularity, as the JAX trainer
 
 
+def plan_step(cm, loop: TrainConfig, step: int):
+    """Step ``step``'s batch and its plan under the cost model ``cm``, as
+    :func:`train` runs them: ``(corpus, plan)``."""
+    from repro_torch.core import PlannerConfig, plan_batch
+    from repro_torch.data import sample_corpus_batch
+    corpus = sample_corpus_batch(loop.dataset, loop.global_batch,
+                                 loop.context, cm.model.vocab,
+                                 seed=loop.seed + step)
+    remat_mode = ("stage_aware" if loop.ckpt_policy == "stage-aware"
+                  else "uniform")
+    pconf = PlannerConfig(bucket_rounding=BUCKET_ROUNDING,
+                          remat_mode=remat_mode)
+    return corpus, plan_batch(cm, [len(v) for v in corpus.values()], pconf)
+
+
 def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
           cluster=None, log: Callable = print,
           on_step: Optional[Callable] = None) -> Tuple[object, List[Dict]]:
@@ -66,9 +81,7 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
     caller may reset counters there)."""
     import torch
 
-    from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
-                                  plan_batch)
-    from repro_torch.data import sample_corpus_batch
+    from repro_torch.core import ClusterSpec, CostModel
     from repro_torch.device import dtype_of
     from repro_torch.models import DecoderLM
     from repro_torch.runtime.train_step import ChunkedTrainer
@@ -81,16 +94,9 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
     trainer = ChunkedTrainer(cfg, params, device=device, compute_dtype=dtype)
     del params
     cm = CostModel(cfg.spec, cluster or ClusterSpec())
-    remat_mode = ("stage_aware" if loop.ckpt_policy == "stage-aware"
-                  else "uniform")
-    pconf = PlannerConfig(bucket_rounding=BUCKET_ROUNDING,
-                          remat_mode=remat_mode)
     history = []
     for step in range(loop.steps):
-        corpus = sample_corpus_batch(loop.dataset, loop.global_batch,
-                                     loop.context, cfg.spec.vocab,
-                                     seed=loop.seed + step)
-        plan = plan_batch(cm, [len(v) for v in corpus.values()], pconf)
+        corpus, plan = plan_step(cm, loop, step)
         if on_step is not None:
             on_step(step, plan, corpus)
         if device.type == "cuda":
@@ -184,7 +190,7 @@ def main(argv=None) -> int:
         if prof is not None:
             prof.__exit__(None, None, None)
     if prof is not None:
-        from repro_torch.launch.serve import profile_summary
+        from repro_torch.runtime.profile import profile_summary
         summary = profile_summary(prof, history[-1]["wall_s"], 1)
         with open(args.profile, "w") as f:
             json.dump(summary, f, indent=1)

@@ -1,2 +1,2 @@
-"""Single-device runtime of the port: the serving engine step and the
-chunked training step."""
+"""Single-device runtime of the port: the serving engine step, the
+chunked training step and the profiler summary both launchers print."""

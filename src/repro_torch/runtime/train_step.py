@@ -45,7 +45,8 @@ from repro_torch.models.model import (DecoderLM, LayerCtx, tree_leaves,
                                       unstack_layers)
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 
-__all__ = ["ChunkedTrainer", "StepResult", "remat_depths", "ROW_MULTIPLE"]
+__all__ = ["ChunkedTrainer", "StepResult", "remat_depths", "chunk_arrays",
+           "ROW_MULTIPLE"]
 
 ROW_MULTIPLE = 64      # chunk rows are cut to a multiple of this
 
@@ -80,6 +81,24 @@ def _rows(n: int) -> int:
     return -(-max(n, 1) // ROW_MULTIPLE) * ROW_MULTIPLE
 
 
+def chunk_arrays(batch: ChunkBatch, k: int, tokens: int):
+    """What the step feeds the model for chunk ``k`` of ``tokens`` used
+    tokens: its rows cut to a multiple of ROW_MULTIPLE (padded past the
+    buffer's width with seg = -1, target = -1) as int64 tokens and
+    targets, int32 seg and pos. Padding rows read token 0 at position 0,
+    as the reference's step feeds them."""
+    n = _rows(tokens)
+
+    def row(a, fill):
+        r = a[k, :n]
+        return np.pad(r, (0, n - len(r)), constant_values=fill)
+    seg = row(batch.seg, -1)
+    live = seg >= 0
+    return (np.where(live, row(batch.tokens, 0), 0).astype(np.int64),
+            row(batch.targets, -1).astype(np.int64),
+            seg, np.where(live, row(batch.pos, 0), 0).astype(np.int32))
+
+
 class ChunkedTrainer:
     """Parameters, optimizer state and the chunked step of one model.
 
@@ -104,18 +123,9 @@ class ChunkedTrainer:
         self.opt = init_opt_state(self.params)
 
     # ------------------------------------------------------------------
-    def _chunk(self, batch: ChunkBatch, k: int, n: int):
-        """Chunk ``k``'s first ``n`` rows (padded past the buffer's width
-        with seg = -1, target = -1): tokens, targets, seg, pos."""
-        def t(a, fill):
-            row = a[k, :n]
-            row = np.pad(row, (0, n - len(row)), constant_values=fill)
-            return torch.from_numpy(row).to(self.device)
-        seg = t(batch.seg, -1)
-        # padding rows: token 0, position 0 (as the reference's step feeds)
-        tokens = torch.where(seg >= 0, t(batch.tokens, 0), 0).long()
-        pos = torch.where(seg >= 0, t(batch.pos, 0), 0)
-        return tokens, t(batch.targets, -1).long(), seg, pos
+    def _chunk(self, batch: ChunkBatch, k: int, tokens: int):
+        return tuple(torch.from_numpy(a).to(self.device)
+                     for a in chunk_arrays(batch, k, tokens))
 
     def _zero_grads(self) -> List[torch.Tensor]:
         return [torch.zeros(p.shape, dtype=torch.float32, device=self.device)
@@ -180,7 +190,7 @@ class ChunkedTrainer:
                 else:
                     ctx = None
                 tokens, targets, seg, pos = self._chunk(batch, base + k,
-                                                        rows[k])
+                                                        ch.tokens)
                 hidden, ctx_out = model.forward_chunk(
                     params, tokens, seg, pos, ctx=ctx, ctx_len=ch.context,
                     compute_dtype=self.dtype, remat=remat[base + k])
@@ -219,17 +229,14 @@ class ChunkedTrainer:
     # ------------------------------------------------------------------
     def loss_and_grads(self, plan: ExecutionPlan,
                        corpus: Dict[int, np.ndarray], *,
-                       remat: Optional[Sequence[int]] = None,
                        remat_policy: str = "stage-aware") -> StepResult:
         """Loss of the mean over valid tokens and float32 gradients of the
-        live parameters (in ``params``' structure). ``remat``: an explicit
-        depth per chunk (all pipelines' chunks in order), else the plan's
-        table under ``remat_policy``."""
+        live parameters (in ``params``' structure); each chunk's remat
+        depth is the plan's table under ``remat_policy``."""
         batch = materialize_plan(plan, corpus)
         n_valid = int(((batch.seg >= 0) & (batch.targets >= 0)).sum())
         n_chunks = sum(len(p.chunks) for p in plan.pipelines)
-        depths = list(remat) if remat is not None else \
-            remat_depths(plan, self.cfg.spec.n_layers, remat_policy)
+        depths = remat_depths(plan, self.cfg.spec.n_layers, remat_policy)
         if len(depths) != n_chunks:
             raise ValueError(f"{len(depths)} remat depths for {n_chunks} "
                              f"chunks")
@@ -283,12 +290,10 @@ class ChunkedTrainer:
                           grads=tree_unflatten(self.params, acc))
 
     def step(self, plan: ExecutionPlan, corpus: Dict[int, np.ndarray], *,
-             remat: Optional[Sequence[int]] = None,
              remat_policy: str = "stage-aware") -> StepResult:
         """One training step: :meth:`loss_and_grads`, then AdamW on the
         mean-loss gradients (clipped by their global norm)."""
-        res = self.loss_and_grads(plan, corpus, remat=remat,
-                                  remat_policy=remat_policy)
+        res = self.loss_and_grads(plan, corpus, remat_policy=remat_policy)
         _, _, m = adamw_update(self.adamw, self.params, res.grads, self.opt)
         res.grads = None
         res.grad_norm = float(m["grad_norm"])
