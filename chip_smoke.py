@@ -35,9 +35,25 @@ exit and no result line):
              V 262144) and llama3.2-3b's (D 3072, V 128256) head, bf16 and
              float32 (faults: a target shifted by one, one vocab tile
              dropped);
+           * at hymba-1.5b's train shapes (step 0's largest chunk: 16,384
+             rows): the selective scan D (``mamba_scan_fwd_kernel``) and
+             its gradient D' (``mamba_scan_bwd_kernel`` and the fixed-order
+             sum of its partials, ``mamba_scan_reduce_kernel``) at DI 3200,
+             DS 16, with float32 delta, B, C and bf16 xs (as the bf16 mixer
+             feeds them) and all float32; on step 0's most packed chunk
+             with row 0 continuing a non-zero h0; at falcon-mamba-7b's
+             width (DI 8192, 8,192 rows, bf16) (faults: the resets shifted
+             by one row, h0 dropped, the last time tile dropped, each
+             outside the tolerance in D and in D'); the attention forward
+             and backward at hymba's heads (25 query heads, 5 KV heads of
+             64) and B, C1, C2 with its head (D 1600, V 32001, one target
+             in the last, ragged vocab tile);
            the plain versions run over blocks of rows, so that their
-           materialised scores or logits fit the card; the kernels line
-           reports the train-chunk cases of the training kernels;
+           materialised scores or logits fit the card; the attention
+           backward's library yardstick (scaled_dot_product_attention with
+           the boolean mask under autograd) runs where the scores fit; the
+           kernels line reports the train-chunk cases of the training
+           kernels;
   serve    gemma3-1b at full width, bf16, random weights from --seed, 16
            requests of the "github" trace served by the continuous-batching
            engine (n_items=4, cap_t=512, page_sz=16, k=1); every request
@@ -61,8 +77,26 @@ exit and no result line):
            it, the same step with the table zeroed, and one unchunked
            forward and backward per sequence agree (loss and gradients
            within 1e-5 relative);
-  kernels  every kernel of the port with its launch counts in serve and
-           train.
+  train_hymba  hymba-1.5b at full width (32 hybrid layers: attention and a
+           mamba mixer side by side), bf16 with a float32 AdamW master, 3
+           steps of the same github batches of 8 x 16384 planned for one
+           H100 (one chunk per sequence group, stage-aware remat): per step
+           loss, tokens, wall time, tokens/s, peak memory beside the plan's
+           estimate, solve seconds; every loss finite, every kernel
+           launched exactly as the plan predicts (attention forward and
+           selective scan D 32 x chunks + remat depths, each attention
+           backward pass, D' and its reduction 32 x chunks, B, C1, C2 once
+           per chunk) and no plain call;
+  train_verify_hymba  float32 at full width: one 3,000-token sequence in 3
+           chunks whose split slices (1,060 and 997 tokens) leave pad rows
+           in front of the KV and SSM carries, a non-zero remat table: the
+           step with the table zeroed equals it bit for bit, and it equals
+           one unchunked forward and backward per sequence (loss 1e-5
+           relative; gradients within 1e-5 or twice the float32 noise
+           floor measured beside it, the same corpus packed without a
+           split, at most 1e-4);
+  kernels  every kernel of the port with its launch counts in serve,
+           train and train_hymba.
 
 The last two lines are the kernels JSON and the device JSON.
 """
@@ -105,7 +139,8 @@ def _nvidia_smi() -> str:
 
 KERNEL_NAMES = ("flash_fwd_kernel", "flash_combine_kernel",
                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
-                "ce_fwd_kernel", "ce_bwd_kernel")
+                "ce_fwd_kernel", "ce_bwd_kernel", "mamba_scan_fwd_kernel",
+                "mamba_scan_bwd_kernel", "mamba_scan_reduce_kernel")
 
 
 def _ptxas_summary(log: str):
@@ -399,9 +434,14 @@ def _plan_chunk(gen, seg, pos, Hq, Hkv, D, dtype, dev):
 # training chunk's length; a case of at most this many rows is one block
 ATTN_ROW_BLOCK = 4096
 CE_ROW_BLOCK = 8192
+# the library yardstick of the attention backward (scaled_dot_product_attention
+# with the boolean mask, under autograd) runs where Hq x T x S scores fit in
+# 2^30 elements; the train chunks' exceed that
+LIB_MAX_SCORES = 2 ** 30
 
 
-def _plain_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv, dout, window):
+def _plain_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv, dout, window,
+                     row_block=ATTN_ROW_BLOCK):
     """(out, lse, dq, dk, dv) of the plain attention, over blocks of query
     rows: ``ref.flash_attention_reference``, ``ref.flash_attention_lse``
     and ``ref.flash_attention_grad`` of each block (rows are independent;
@@ -410,8 +450,8 @@ def _plain_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv, dout, window):
 
     from repro_torch.kernels import ref
     outs, lses, dqs, dk, dv = [], [], [], 0.0, 0.0
-    for a in range(0, q.shape[0], ATTN_ROW_BLOCK):
-        b = slice(a, a + ATTN_ROW_BLOCK)
+    for a in range(0, q.shape[0], row_block):
+        b = slice(a, a + row_block)
         rows = (seg_q[b], seg_kv, pos_q[b], pos_kv)
         outs.append(ref.flash_attention_reference(q[b], k, v, *rows,
                                                   window=window))
@@ -424,11 +464,13 @@ def _plain_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv, dout, window):
             dk.to(k.dtype), dv.to(v.dtype))
 
 
-def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed):
+def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
+                   row_block=ATTN_ROW_BLOCK):
     """The attention backward (both passes), the forward's output and its
     lse on one training chunk made by ``inputs(gen, dtype)``, against
-    autograd of the plain attention in float32. ``drop``: the KV rows of
-    one live tile, for the dropped-tile fault."""
+    autograd of the plain attention in float32 (over blocks of
+    ``row_block`` query rows). ``drop``: the KV rows of one live tile, for
+    the dropped-tile fault."""
     import torch
 
     from repro_torch.kernels import ops
@@ -452,7 +494,8 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed):
         errs = [_close_scaled(g, w, dtype) for g, w in zip(got, want)]
         return max(e for e, _ in errs), all(ok for _, ok in errs)
     want_out, want_lse, *want = _plain_attention(
-        q.float(), k.float(), v.float(), *meta, dout.float(), window)
+        q.float(), k.float(), v.float(), *meta, dout.float(), window,
+        row_block)
     max_err, ok = err_of(grads())
     padded = ops.pad_for_kernel(q, k, v, *meta)
     out, lse = flash_attention_cuda(*padded, window=window, with_lse=True)
@@ -488,8 +531,8 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed):
               warmup=1)}
     plain_ms = _cuda_ms(lambda: [ref.flash_attention_grad(
         q[b], k, v, seg_q[b], seg_kv, pos_q[b], pos_kv, dout[b],
-        window=window) for b in (slice(a, a + ATTN_ROW_BLOCK) for a in
-                                 range(0, T, ATTN_ROW_BLOCK))],
+        window=window) for b in (slice(a, a + row_block) for a in
+                                 range(0, T, row_block))],
         iters=2, warmup=1)
     mask = ref.attention_mask(seg_q, seg_kv, pos_q, pos_kv, True, window)
     pairs = int(mask.sum()) * Hq
@@ -510,6 +553,21 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed):
               "dq": _bound(6.0 * D * pairs, common + size["q"], dtype)}
     bound_ms, bound_by = bounds["all"]
     kernel_ms = ms["dkdv"] + ms["dq"]
+    library_ms = None
+    if Hq * T * k.shape[0] <= LIB_MAX_SCORES:
+        G = Hq // Hkv
+        mask = ref.attention_mask(seg_q, seg_kv, pos_q, pos_kv, True, window)
+        qe = q.transpose(0, 1)[None].detach().requires_grad_(True)
+        ke, ve = (t.repeat_interleave(G, dim=1).transpose(0, 1)[None]
+                  .detach().requires_grad_(True) for t in (k, v))
+        de = dout.transpose(0, 1)[None]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def library():
+            out = sdpa(qe, ke, ve, attn_mask=mask)
+            torch.autograd.grad(out, (qe, ke, ve), de)
+        library_ms = _cuda_ms(library, iters=2, warmup=1)
+        del mask, qe, ke, ve, de
     rec = dict(case=name, dtype=_dtype_name(dtype), T=q.shape[0],
                S=k.shape[0], Hq=Hq, Hkv=Hkv, D=D, window=window,
                live_pairs=pairs, max_abs_err=max_err, lse_max_abs_err=lse_err,
@@ -522,8 +580,15 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed):
                bound_by_dkdv=bounds["dkdv"][1], bound_ms_dq=bounds["dq"][0],
                bound_by_dq=bounds["dq"][1], plain_ms=plain_ms,
                plain_is=f"autograd of the plain attention: dq, dk, dv at "
-                        f"once, over blocks of {ATTN_ROW_BLOCK} query rows",
-               library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+                        f"once, over blocks of {row_block} query rows",
+               library_ms=library_ms,
+               library_is=("scaled_dot_product_attention with the boolean "
+                           "mask, forward and backward under autograd "
+                           "(K, V repeated over the GQA group)"
+                           if library_ms is not None else
+                           f"not timed: {Hq} x {T} x {k.shape[0]} scores "
+                           f"exceed {LIB_MAX_SCORES}"),
+               bound_ms=bound_ms, bound_by=bound_by)
     if not (ok and lse_ok and out_ok):
         raise PhaseError(f"attention backward disagrees with the plain "
                          f"version: {rec}")
@@ -532,9 +597,10 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed):
     return rec
 
 
-CE_HEADS = {"gemma3-1b": (1152, 262144), "llama3.2-3b": (3072, 128256)}
+CE_HEADS = {"gemma3-1b": (1152, 262144), "llama3.2-3b": (3072, 128256),
+            "hymba-1.5b": (1600, 32001)}
 CE_T = 8192
-# the train phase: github batches of 8 sequences of up to 16,384 tokens
+# the train phases: github batches of 8 sequences of up to 16,384 tokens
 TRAIN_BATCH, TRAIN_CONTEXT, TRAIN_STEPS = 8, 16384, 3
 
 
@@ -584,6 +650,7 @@ def _ce_case(arch, dtype, dev, seed, targets=None, case=None):
     h = torch.randn((T, D), generator=gen, device=dev).to(dtype)
     w = (torch.randn((V, D), generator=gen, device=dev) * 0.02).to(dtype)
     tgt[0], tgt[1] = V - 1, V - 2        # targets in the last vocab tile
+    #                                      (V - 1 alone there at V = 32001)
     valid = (tgt >= 0).float()
     g = valid / valid.sum()
     lse_p, tl_p = _plain_ce("B", h, w, tgt, None, None)
@@ -660,25 +727,28 @@ def _ce_case(arch, dtype, dev, seed, targets=None, case=None):
     return recs
 
 
-def _largest_train_chunk(seed):
-    """Step 0's largest chunk in the train phase, as the step feeds it to
-    the model: ``(chunk, targets, seg, pos)`` (numpy rows)."""
+def _train_chunks(seed, arch="gemma3-1b"):
+    """Step 0's chunks in ``arch``'s train phase, as the step feeds them to
+    the model: ``[(chunk, targets, seg, pos)]`` (numpy rows), the largest
+    first."""
     from repro_torch.configs import get_arch
     from repro_torch.core import ClusterSpec, CostModel
     from repro_torch.data.batching import materialize_plan
     from repro_torch.launch.train import plan_step
     from repro_torch.runtime.train_step import chunk_arrays
-    cfg = get_arch("gemma3-1b")
+    cfg = get_arch(arch)
     corpus, plan = plan_step(CostModel(cfg.spec, ClusterSpec()),
                              _train_loop(seed), 0)
     chunks = [c for p in plan.pipelines for c in p.chunks]
-    k = max(range(len(chunks)), key=lambda i: chunks[i].tokens)
-    if chunks[k].context:
+    batch = materialize_plan(plan, corpus)
+    order = sorted(range(len(chunks)), key=lambda i: -chunks[i].tokens)
+    if chunks[order[0]].context:
         raise PhaseError(f"step 0's largest chunk continues a sequence; "
-                         f"its kernel cases need the carry rows: {chunks[k]}")
-    _, tgt, seg, pos = chunk_arrays(materialize_plan(plan, corpus), k,
-                                    chunks[k].tokens)
-    return chunks[k], tgt, seg, pos
+                         f"its kernel cases need the carry rows: "
+                         f"{chunks[order[0]]}")
+    return [(chunks[k], *chunk_arrays(batch, k, chunks[k].tokens)[1:])
+            for k in order]
+
 
 
 def phase_kernel_training(dev, seed):
@@ -688,7 +758,7 @@ def phase_kernel_training(dev, seed):
     and on both archs' heads at CE_T tokens, bf16 and float32."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
-    chunk, tgt, seg, pos = _largest_train_chunk(seed)
+    chunk, tgt, seg, pos = _train_chunks(seed)[0]
     name = f"gemma3-1b train chunk ({chunk.tokens} tokens)"
     a0 = int((seg >= 0).argmax())           # a live tile inside segment 0
     plan_rows = slice(a0 + 1024, a0 + 1056)
@@ -730,6 +800,196 @@ def phase_kernel_training(dev, seed):
             print(f"[kernel] cross-entropy {json.dumps(rec)}", flush=True)
         torch.cuda.empty_cache()
     return bwd, ce
+
+
+def _timed(fn):
+    """(fn(), its ms by CUDA events): one cold run, for the plain
+    versions that take seconds."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _scan_case(name, T, DI, DS, reset_rows, dtypes, dev, seed):
+    """Kernels D (``mamba_scan_fwd_kernel``) and D' (``mamba_scan_bwd_kernel``
+    and ``mamba_scan_reduce_kernel``) on one chunk against the plain scan
+    and its autograd (``ref``), on the same inputs: delta, B, C and xs in
+    the ``dtypes`` pair, a sequence start at each of ``reset_rows``, a
+    non-zero h0, random output gradients on y and h_last. Both sides
+    compute in float32 from the same values, so every case is held to the
+    float32 tolerance. Faults fed to the kernels, each of which must fall
+    outside it in D and in D': the resets shifted by one row, h0 dropped
+    (where row 0 continues the carry), the last time tile dropped."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mamba_scan import (CHANNELS_PER_BLOCK,
+                                                SCAN_TILE,
+                                                mamba_scan_bwd_cuda,
+                                                mamba_scan_fwd_cuda,
+                                                mamba_scan_reduce_cuda)
+    if T % SCAN_TILE:
+        raise PhaseError(f"{name}: {T} rows, not a multiple of {SCAN_TILE}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f32 = torch.float32
+    td, tx = dtypes
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=f32)
+    delta = torch.nn.functional.softplus(rnd(T, DI)).to(td)
+    xs = rnd(T, DI).to(tx)
+    B, C = rnd(T, DS).to(td), rnd(T, DS).to(td)
+    A = -torch.exp(rnd(DI, DS) * 0.3)
+    h0, dy, dh = rnd(DI, DS), rnd(T, DI), rnd(DI, DS)
+    reset_np = np.zeros(T, np.int32)
+    reset_np[np.asarray(reset_rows, np.int64)] = 1
+    reset = torch.from_numpy(reset_np).to(dev)
+
+    def kernels(reset=reset, h0=h0, rows=T):
+        sl = slice(0, rows)
+        y, hl, ck = ops.mamba_scan_fwd(delta[sl], xs[sl], B[sl], C[sl], A,
+                                       reset[sl], h0)
+        _, dd, dx, dB, dC, dA, dh0 = ops.mamba_scan_bwd(
+            delta[sl], xs[sl], B[sl], C[sl], A, reset[sl], h0, ck, dy[sl],
+            dh)
+
+        def full(t):            # rows a faulty kernel never wrote: zeros
+            return torch.cat([t, t.new_zeros((T - rows, t.shape[1]))])
+        return [full(y), hl], [full(dd), full(dx), full(dB), full(dC), dA,
+                               dh0]
+
+    def err_of(got, want):
+        errs = [_close_scaled(g, w, f32) for g, w in zip(got, want)]
+        return max(e for e, _ in errs), all(ok for _, ok in errs)
+    want_f, plain_ms = _timed(lambda: list(ref.mamba_scan_reference(
+        delta, xs, B, C, A, reset, h0)))
+    (_, *want_g), plain_ms_bwd = _timed(lambda: ref.mamba_scan_grad(
+        delta, xs, B, C, A, reset, h0, dy, dh))
+    got_f, got_g = kernels()
+    f_err, f_ok = err_of(got_f, want_f)
+    g_err, g_ok = err_of(got_g, want_g)
+    faults = {"resets shifted by one row": dict(reset=torch.roll(reset, 1)),
+              "last time tile dropped": dict(rows=T - SCAN_TILE)}
+    if reset_np[0] == 0:
+        faults["h0 dropped"] = dict(h0=torch.zeros_like(h0))
+    caught, missed = {}, []
+    for fault, change in faults.items():
+        ff, gg = kernels(**change)
+        (ef, in_f), (eg, in_g) = err_of(ff, want_f), err_of(gg, want_g)
+        caught[fault] = {"D": ef, "D'": eg}
+        if in_f or in_g:
+            missed.append(fault)
+    del got_f, got_g, want_f, want_g
+    # the kernels alone (T is tile-aligned: the ops pad nothing)
+    ins = (delta, xs, B.contiguous(), C.contiguous(), A, reset)
+    _, _, ck = mamba_scan_fwd_cuda(*ins, h0)
+    ms = _cuda_ms(lambda: mamba_scan_fwd_cuda(*ins, h0), iters=5, warmup=1)
+    ms_bwd = _cuda_ms(lambda: mamba_scan_bwd_cuda(*ins, ck, dy, dh),
+                      iters=3, warmup=1)
+    ws = mamba_scan_bwd_cuda(*ins, ck, dy, dh)[2]
+    ms_red = _cuda_ms(lambda: mamba_scan_reduce_cuda(ws), iters=5, warmup=1)
+    # bytes: each input read once, each output written once (y, the
+    # gradients, the partials float32); operations per (row, channel,
+    # state): the forward 8 (delta A, exp, delta x, * B, a h + input, h C
+    # and its sum), the backward 24 (the state recomputed, then dh, the
+    # decay's and the input's gradients and their sums); the reduction one
+    # add per partial
+    size = lambda t: t.numel() * t.element_size()  # noqa: E731
+    cells = T * DI * DS
+    n_cb = -(-DI // CHANNELS_PER_BLOCK)
+    part = n_cb * T * 2 * DS * 4
+    common = sum(size(t) for t in ins)
+    bounds = {
+        "fwd": _bound(8.0 * cells, common + size(h0) + 4 * (T * DI + DI * DS)
+                      + size(ck), f32),
+        "bwd": _bound(24.0 * cells, common + size(ck) + size(dy) + size(dh)
+                      + 4 * (2 * T * DI + 2 * DI * DS) + part, f32),
+        "reduce": _bound(n_cb * T * 2.0 * DS, part + 4 * 2 * T * DS, f32)}
+    rec = dict(case=name, dtype=f"delta/B/C {_dtype_name(td)}, xs "
+               f"{_dtype_name(tx)}", T=T, DI=DI, DS=DS,
+               resets=int(reset_np.sum()), row0_continues=bool(
+                   reset_np[0] == 0),
+               max_abs_err=f_err, bwd_max_abs_err=g_err, tol=TOL["float32"],
+               within_tol=f_ok and g_ok, faults_max_abs_err=caught,
+               faults_within_tol=missed, kernel_ms=ms, kernel_ms_bwd=ms_bwd,
+               kernel_ms_reduce=ms_red, plain_ms=plain_ms,
+               plain_ms_bwd=plain_ms_bwd,
+               plain_is="ref.mamba_scan_reference (one step at a time) and "
+                        "autograd through it (ref.mamba_scan_grad), one run",
+               library_ms=None, library_is="no single call",
+               bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1],
+               bound_ms_bwd=bounds["bwd"][0], bound_by_bwd=bounds["bwd"][1],
+               bound_ms_reduce=bounds["reduce"][0],
+               bound_by_reduce=bounds["reduce"][1])
+    if not (f_ok and g_ok):
+        raise PhaseError(f"the scan kernels disagree with the plain "
+                         f"version: {rec}")
+    if missed:
+        raise PhaseError(f"the tolerance does not catch {missed}: {rec}")
+    return rec
+
+
+def phase_kernel_ssm(dev, seed):
+    """hymba-1.5b's kernels at its train phase's shapes (step 0's largest
+    chunk: 16,384 rows, its own sequence starts): D and D' (DI 3200, DS 16)
+    with float32 delta, B, C and bf16 xs (as the bf16 mixer feeds them)
+    and all in float32; D and D' on step 0's most packed chunk with row 0
+    continuing a carry (so h0 counts); D and D' at falcon-mamba-7b's width
+    (DI 8192, DS 16, 8,192 rows, bf16); the attention forward and backward
+    at hymba's heads (25 query heads, 5 KV heads of 64) and B, C1, C2 with
+    its head (D 1600, V 32001: one target in the last, ragged vocab tile)
+    on the largest chunk, bf16."""
+    import numpy as np
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    chunks = _train_chunks(seed, "hymba-1.5b")
+    big, tgt, seg, pos = chunks[0]
+    name = f"hymba-1.5b train chunk ({big.tokens} tokens)"
+
+    def starts(seg, pos):
+        return np.flatnonzero((pos == 0) & (seg >= 0))
+    packed = max(chunks, key=lambda c: len(starts(c[2], c[3])))
+    p_seg, p_pos = packed[2], packed[3]
+    p_starts = starts(p_seg, p_pos)
+    carried = p_starts[p_starts > 0]
+    scan = []
+    for args in (
+            (f"{name}, its sequence starts", len(seg), 3200, 16,
+             starts(seg, pos), (f32, bf16)),
+            (f"{name}, its sequence starts", len(seg), 3200, 16,
+             starts(seg, pos), (f32, f32)),
+            (f"hymba-1.5b packed chunk ({packed[0].tokens} tokens, "
+             f"{len(p_starts)} sequences), row 0 continuing a carry",
+             len(p_seg), 3200, 16, carried, (f32, f32)),
+            ("falcon-mamba-7b width, 8,192 rows of that packed chunk, row 0 "
+             "continuing a carry", 8192, 8192, 16, carried[carried < 8192],
+             (bf16, bf16))):
+        scan.append(_scan_case(*args, dev, 31 + len(scan)))
+        print(f"[kernel] selective scan {json.dumps(scan[-1])}", flush=True)
+        torch.cuda.empty_cache()
+    a0 = int((seg >= 0).argmax())
+
+    def from_plan(gen, dtype):
+        return _plan_chunk(gen, seg, pos, 25, 5, 64, dtype, dev)
+    attn = _attn_bwd_case(f"{name} global", from_plan,
+                          slice(a0 + 1024, a0 + 1056), 0, bf16, dev, 41,
+                          row_block=1024)
+    print(f"[kernel] attention backward {json.dumps(attn)}", flush=True)
+    torch.cuda.empty_cache()
+    ce = _ce_case("hymba-1.5b", bf16, dev, 42, targets=torch.from_numpy(tgt),
+                  case=name)
+    for rec in ce.values():
+        print(f"[kernel] cross-entropy {json.dumps(rec)}", flush=True)
+    torch.cuda.empty_cache()
+    return scan, attn, ce
 
 
 # ---------------------------------------------------------------------------
@@ -829,6 +1089,9 @@ def _train_counters():
                                                      flash_bwd_dkdv_cuda,
                                                      flash_bwd_dq_cuda,
                                                      flash_combine_cuda)
+    from repro_torch.kernels.mamba_scan import (mamba_scan_bwd_cuda,
+                                                mamba_scan_fwd_cuda,
+                                                mamba_scan_reduce_cuda)
     return {"flash_fwd_kernel": flash_attention_cuda,
             "flash_combine_kernel": flash_combine_cuda,
             "flash_bwd_dkdv_kernel": flash_bwd_dkdv_cuda,
@@ -836,8 +1099,35 @@ def _train_counters():
             "ce_fwd_kernel": ce_fwd_cuda,
             "ce_bwd_kernel<dh>": ce_bwd_dh_cuda,
             "ce_bwd_kernel<dw>": ce_bwd_dw_cuda,
+            "mamba_scan_fwd_kernel": mamba_scan_fwd_cuda,
+            "mamba_scan_bwd_kernel": mamba_scan_bwd_cuda,
+            "mamba_scan_reduce_kernel": mamba_scan_reduce_cuda,
             "plain_attention": ops.flash_attention,
-            "plain_cross_entropy": ops.fused_cross_entropy}
+            "plain_cross_entropy": ops.fused_cross_entropy,
+            "plain_mamba_scan": ops.mamba_scan}
+
+
+def _expected_launches(cfg, n_chunks, depth):
+    """Launches of one chunked step as its plan predicts: per layer and
+    chunk one attention forward (and one more per remat'd layer, whose
+    forward runs again in the backward), one of each attention backward
+    pass, the same for the selective scan (forward; backward and its
+    reduction) on mamba layers; B, C1, C2 once per chunk; no plain
+    call."""
+    from repro_torch.models.config import LayerKind
+    L = cfg.spec.n_layers
+    attn = cfg.layer_kind != LayerKind.MAMBA
+    ssm = cfg.spec.ssm_state > 0
+    fwd, bwd = L * n_chunks + depth, L * n_chunks
+    return {"flash_fwd_kernel": fwd if attn else 0,
+            "flash_bwd_dkdv_kernel": bwd if attn else 0,
+            "flash_bwd_dq_kernel": bwd if attn else 0,
+            "mamba_scan_fwd_kernel": fwd if ssm else 0,
+            "mamba_scan_bwd_kernel": bwd if ssm else 0,
+            "mamba_scan_reduce_kernel": bwd if ssm else 0,
+            "ce_fwd_kernel": n_chunks, "ce_bwd_kernel<dh>": n_chunks,
+            "ce_bwd_kernel<dw>": n_chunks, "plain_attention": 0,
+            "plain_cross_entropy": 0, "plain_mamba_scan": 0}
 
 
 def _read_counts(ctr):
@@ -860,7 +1150,7 @@ def _train_loop(seed):
                        compute_dtype="bfloat16")
 
 
-def phase_train(dev, seed):
+def phase_train(dev, seed, arch="gemma3-1b"):
     import math
 
     import torch
@@ -868,7 +1158,7 @@ def phase_train(dev, seed):
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import train
     from repro_torch.runtime.train_step import remat_depths
-    cfg = get_arch("gemma3-1b")
+    cfg = get_arch(arch)
     L = cfg.spec.n_layers
     ctr = _train_counters()
     steps_out, expected = [], {}
@@ -877,15 +1167,11 @@ def phase_train(dev, seed):
         if expected:
             steps_out[-1]["launches"] = _read_counts(ctr)
         n = plan.n_chunks
-        depth = sum(remat_depths(plan, L))
+        depths = remat_depths(plan, L)
         expected.clear()
-        expected.update({"flash_fwd_kernel": L * n + depth,
-                         "flash_bwd_dkdv_kernel": L * n,
-                         "flash_bwd_dq_kernel": L * n,
-                         "ce_fwd_kernel": n, "ce_bwd_kernel<dh>": n,
-                         "ce_bwd_kernel<dw>": n, "plain_attention": 0,
-                         "plain_cross_entropy": 0})
-        steps_out.append({"expected": dict(expected), "remat_depths": depth,
+        expected.update(_expected_launches(cfg, n, sum(depths)))
+        steps_out.append({"expected": dict(expected),
+                          "remat_depths": sum(depths), "remat_table": depths,
                           "chunks": n,
                           "chunk_tokens": [c.tokens for p in plan.pipelines
                                            for c in p.chunks]})
@@ -946,11 +1232,7 @@ def phase_train_verify(dev, seed):
     # forward launches 26 x chunks + the sum of the remat depths
     ctr = _train_counters()
     L, n = cfg.spec.n_layers, len(chunks)
-    expected = {"flash_fwd_kernel": L * n + sum(remat_depths(plan, L)),
-                "flash_bwd_dkdv_kernel": L * n, "flash_bwd_dq_kernel": L * n,
-                "ce_fwd_kernel": n, "ce_bwd_kernel<dh>": n,
-                "ce_bwd_kernel<dw>": n, "plain_attention": 0,
-                "plain_cross_entropy": 0}
+    expected = _expected_launches(cfg, n, sum(remat_depths(plan, L)))
     _zero_counts(ctr)
     runs = {"plan table": tr.loss_and_grads(plan, corpus)}
     launches = {k: v for k, v in _read_counts(ctr).items() if k in expected}
@@ -979,6 +1261,129 @@ def phase_train_verify(dev, seed):
     del runs, base, tr
     torch.cuda.empty_cache()
     return out
+
+
+def phase_train_verify_hymba(dev, seed):
+    """hymba-1.5b in float32 at full width: one sequence of 3,000 tokens
+    split over 3 chunks whose split slices (1,060 and 997 tokens) are not
+    multiples of 64 rows, so pad rows sit in front of the KV and
+    ``(h, conv_tail)`` carries, and a non-zero remat table.
+
+    * The step with the table zeroed equals it bit for bit (every kernel
+      is deterministic).
+    * It equals one unchunked forward and backward per sequence: the loss
+      within 1e-5 relative; every gradient leaf within ``limit`` relative
+      to its largest value, where ``limit`` is 1e-5 or, if larger, twice
+      the float32 noise floor of this comparison, and at most 1e-4. The
+      floor is measured in the same run: the same corpus planned with no
+      split (K = 1: no carry, no pad rows in front of one) against the
+      same unchunked pass. At this depth and width the floor is above 1e-5
+      (repacking alone moves the gradients by ~3e-5 of their largest
+      values), while a carry fault moves them by orders of magnitude
+      more (the reference's pad-row reset misses by 0.3-1.4 on hidden
+      states)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
+                                  plan_batch)
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.runtime.train_step import ChunkedTrainer, remat_depths
+    cfg = get_arch("hymba-1.5b")
+    rng = np.random.default_rng(seed)
+    lens = [3000, 900, 500, 300]
+    corpus = {i: rng.integers(0, cfg.spec.vocab, n).astype(np.int32)
+              for i, n in enumerate(lens)}
+    cm = CostModel(cfg.spec, ClusterSpec())
+    plan = plan_batch(cm, lens, PlannerConfig(
+        fixed_k=3, bucket_rounding=64, remat_mode="stage_aware",
+        capacity_bytes=cm.m_model_states(1) + 2e9))
+    chunks = [c for p in plan.pipelines for c in p.chunks]
+    if max(s.n_chunks for s in plan.sequences) < 3 or not any(
+            c.has_dependents and c.tokens % 64 for c in chunks) or not any(
+            plan.ckpt_table()[0]):
+        raise PhaseError(f"the verify plan lacks a 3-chunk split with pad "
+                         f"rows before a carry, or remat: "
+                         f"{[(c.context, c.tokens) for c in chunks]} "
+                         f"{plan.ckpt_table()}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tr = ChunkedTrainer(cfg, DecoderLM(cfg).init(gen, device=dev), device=dev,
+                        compute_dtype=torch.float32)
+    ctr = _train_counters()
+    L, n = cfg.spec.n_layers, len(chunks)
+    expected = _expected_launches(cfg, n, sum(remat_depths(plan, L)))
+    _zero_counts(ctr)
+    base = tr.loss_and_grads(plan, corpus)
+    base_n_valid = base.n_valid
+    launches = {k: v for k, v in _read_counts(ctr).items() if k in expected}
+    if launches != expected:
+        raise PhaseError(f"launch counts with remat (got, expected): "
+                         f"{launches}, {expected}")
+    out = {"chunks": [(c.kind.value, c.context, c.tokens) for c in chunks],
+           "remat_table": plan.ckpt_table()[0], "launches": launches,
+           "loss": base.loss}
+    zeroed = tr.loss_and_grads(plan, corpus, remat_policy="none")
+    same = zeroed.loss == base.loss and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(zeroed.grads),
+                                          tree_leaves(base.grads)))
+    out["table zeroed"] = {"loss": zeroed.loss, "bitwise_equal": same}
+    del zeroed
+    if not same:
+        raise PhaseError(f"the remat-zeroed step is not bitwise equal: {out}")
+    whole = tr.sequence_loss_and_grads(corpus)
+
+    def rel_diff(run):
+        """(the loss's relative difference, the largest over leaves of
+        max |g - g_whole| / max |g_whole|, that leaf) against ``whole``."""
+        worst, leaf = 0.0, None
+        for i, (a, b) in enumerate(zip(tree_leaves(run.grads),
+                                       tree_leaves(whole.grads))):
+            r = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                 1e-30)
+            if r > worst:
+                worst, leaf = r, i
+        return abs(run.loss - whole.loss) / abs(whole.loss), worst, leaf
+    names = _leaf_names(tr.params)
+    rel_loss, worst, leaf = rel_diff(base)
+    del base
+    packed = plan_batch(cm, lens, PlannerConfig(
+        fixed_k=1, bucket_rounding=64, remat_mode="stage_aware"))
+    if any(c.has_dependents or c.context
+           for p in packed.pipelines for c in p.chunks):
+        raise PhaseError("the K = 1 plan splits a sequence")
+    floor_loss, floor, floor_leaf = rel_diff(tr.loss_and_grads(packed,
+                                                               corpus))
+    limit = max(1e-5, 2.0 * floor)
+    out["unchunked"] = {
+        "loss": whole.loss, "loss_rel_diff": rel_loss,
+        "grad_max_rel_diff": worst, "grad_max_rel_diff_leaf": names[leaf],
+        "noise_floor": {"plan": [[c.tokens for c in p.chunks]
+                                 for p in packed.pipelines],
+                        "loss_rel_diff": floor_loss,
+                        "grad_max_rel_diff": floor,
+                        "grad_max_rel_diff_leaf": names[floor_leaf]},
+        "grad_limit": limit}
+    if rel_loss > 1e-5 or worst > limit or limit > 1e-4 or \
+            whole.n_valid != base_n_valid:
+        raise PhaseError(f"the unchunked step differs from the chunked "
+                         f"step: {out}")
+    del whole, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_names(tree, prefix=""):
+    """Dotted names of a parameter tree's leaves in ``tree_leaves``
+    order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}.{k}")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}[{i}]")]
+    return [prefix]
 
 
 # ---------------------------------------------------------------------------
@@ -1033,7 +1438,9 @@ def main() -> int:
         print(f"[kernel] merge pass {json.dumps(rec)}", flush=True)
     (bwd, ce), dt2 = run("kernel", lambda: phase_kernel_training(
         dev, args.seed))
-    print(f"[kernel] ok in {dt + dt2:.1f}s", flush=True)
+    (scan, h_attn, h_ce), dt3 = run("kernel", lambda: phase_kernel_ssm(
+        dev, args.seed))
+    print(f"[kernel] ok in {dt + dt2 + dt3:.1f}s", flush=True)
 
     cfg = get_arch("gemma3-1b")
     trace = sample_request_trace("github", 16, 4096, cfg.spec.vocab,
@@ -1061,22 +1468,43 @@ def main() -> int:
     ver, dt = run("train_verify", lambda: phase_train_verify(dev, args.seed))
     print(f"[train_verify] ok in {dt:.1f}s: {json.dumps(ver)}", flush=True)
 
+    hym, dt = run("train_hymba", lambda: phase_train(dev, args.seed,
+                                                     "hymba-1.5b"))
+    for rec in hym:
+        print(f"[train_hymba] {json.dumps(rec)}", flush=True)
+    print(f"[train_hymba] ok in {dt:.1f}s", flush=True)
+    hymba_counts = {k: sum(r["launches"][k] for r in hym) for k in ctr}
+
+    ver, dt = run("train_verify_hymba", lambda: phase_train_verify_hymba(
+        dev, args.seed))
+    print(f"[train_verify_hymba] ok in {dt:.1f}s: {json.dumps(ver)}",
+          flush=True)
+
     print(f"[kernels] serve: {json.dumps(serve_counts)}; train "
-          f"({len(trn)} steps): {json.dumps(train_counts)}; total "
+          f"({len(trn)} steps): {json.dumps(train_counts)}; train_hymba "
+          f"({len(hym)} steps): {json.dumps(hymba_counts)}; total "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
     fa = "src/repro_torch/kernels/csrc/flash_attention.cu"
     cs = "src/repro_torch/kernels/csrc/cross_entropy.cu"
+    ms_src = "src/repro_torch/kernels/csrc/mamba_scan.cu"
     tpu_fa = "src/repro/kernels/flash_attention.py:89"
+    tpu_ms = "src/repro/kernels/mamba_scan.py:77"
     g, m = cases[0], merges[0]          # gemma3-1b global layer, bf16
     gb = bwd[0]             # step 0's largest train chunk, global, bf16
     gce = ce[0]             # the gemma3-1b head on that chunk, bf16
+    sc = scan[0]            # hymba's largest train chunk, bf16 xs
+    # the attention backward's library yardstick: the first case where the
+    # scores fit
+    lib = next(r for r in bwd if r["library_ms"] is not None)
 
     def entry(name, src, tpu, rec, **kw):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": tpu,
-                "launches": serve_counts[name] + train_counts[name],
+                "launches": serve_counts[name] + train_counts[name]
+                + hymba_counts[name],
                 "launches_serve": serve_counts[name],
                 "launches_train": train_counts[name],
+                "launches_train_hymba": hymba_counts[name],
                 "case": rec["case"], "max_abs_err": rec["max_abs_err"],
                 "ms": rec["kernel_ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
@@ -1088,16 +1516,37 @@ def main() -> int:
         entry("flash_combine_kernel", fa, tpu_fa, m),
         entry("flash_bwd_dkdv_kernel", fa, tpu_fa + " (its gradient)", gb,
               ms=gb["kernel_ms_dkdv"], bound_ms=gb["bound_ms_dkdv"],
-              bound_by=gb["bound_by_dkdv"], plain_is=gb["plain_is"]),
+              bound_by=gb["bound_by_dkdv"], plain_is=gb["plain_is"],
+              library_ms=lib["library_ms"], library_case=lib["case"],
+              library_case_ms=lib["kernel_ms"],
+              library_is=lib["library_is"] + "; kernel and yardstick both "
+              "on library_case (library_case_ms: both backward passes)"),
         entry("flash_bwd_dq_kernel", fa, tpu_fa + " (its gradient)", gb,
               ms=gb["kernel_ms_dq"], bound_ms=gb["bound_ms_dq"],
-              bound_by=gb["bound_by_dq"], plain_is=gb["plain_is"]),
+              bound_by=gb["bound_by_dq"], plain_is=gb["plain_is"],
+              library_ms=lib["library_ms"], library_case=lib["case"],
+              library_case_ms=lib["kernel_ms"],
+              library_is=lib["library_is"] + "; kernel and yardstick both "
+              "on library_case (library_case_ms: both backward passes)"),
         entry("ce_fwd_kernel", cs, "src/repro/kernels/cross_entropy.py:79",
               gce["B"], library_is=gce["B"]["library_is"]),
         entry("ce_bwd_kernel<dh>", cs,
               "src/repro/kernels/cross_entropy.py:159", gce["C1"]),
         entry("ce_bwd_kernel<dw>", cs,
-              "src/repro/kernels/cross_entropy.py:222", gce["C2"])]}
+              "src/repro/kernels/cross_entropy.py:222", gce["C2"]),
+        entry("mamba_scan_fwd_kernel", ms_src, tpu_ms, sc,
+              library_is=sc["library_is"]),
+        entry("mamba_scan_bwd_kernel", ms_src, tpu_ms + " (its gradient)",
+              sc, max_abs_err=sc["bwd_max_abs_err"], ms=sc["kernel_ms_bwd"],
+              plain_ms=sc["plain_ms_bwd"], bound_ms=sc["bound_ms_bwd"],
+              bound_by=sc["bound_by_bwd"], library_is=sc["library_is"],
+              plain_covers="the whole gradient (D' and its reduction)"),
+        entry("mamba_scan_reduce_kernel", ms_src,
+              tpu_ms + " (its gradient)", sc,
+              max_abs_err=sc["bwd_max_abs_err"], ms=sc["kernel_ms_reduce"],
+              plain_ms=sc["plain_ms_bwd"], bound_ms=sc["bound_ms_reduce"],
+              bound_by=sc["bound_by_reduce"], library_is=sc["library_is"],
+              plain_covers="the whole gradient (D' and its reduction)")]}
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,8 @@ __all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "BuiltLibrary",
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"flash_attention": _CSRC / "flash_attention.cu",
-           "cross_entropy": _CSRC / "cross_entropy.cu"}
+           "cross_entropy": _CSRC / "cross_entropy.cu",
+           "mamba_scan": _CSRC / "mamba_scan.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,20 +1,28 @@
-"""Kernel dispatch: the port's public attention and cross-entropy ops.
+"""Kernel dispatch: the port's public attention, cross-entropy and
+selective-scan ops.
 
 CUDA tensors go to the Hopper kernels (:mod:`.flash_attention`,
-:mod:`.cross_entropy`) after the padding rules of the JAX package's
-``kernels/ops.py``: attention rows are padded to the kernel's tile sizes
-(pad rows get ``seg = -2``, which matches nothing and is never a live
-query) and cross-entropy tokens to :data:`~.cross_entropy.TOKEN_MULTIPLE`
-(target -1, not valid); outputs are sliced back. CPU tensors go to the
-plain versions (:mod:`.ref`). There is no fallback: a CUDA tensor
-launches the kernels or raises.
+:mod:`.cross_entropy`, :mod:`.mamba_scan`) after the padding rules of the
+JAX package's ``kernels/ops.py``: attention rows are padded to the
+kernel's tile sizes (pad rows get ``seg = -2``, which matches nothing and
+is never a live query), cross-entropy tokens to
+:data:`~.cross_entropy.TOKEN_MULTIPLE` (target -1, not valid) and scan
+rows to :data:`~.mamba_scan.SCAN_TILE` with state-neutral steps (delta 0,
+reset 0); outputs are sliced back. CPU tensors go to the plain versions
+(:mod:`.ref`). There is no fallback: a CUDA tensor launches the kernels
+or raises.
 
-Both ops are ``torch.autograd.Function``\\ s when a gradient is wanted:
+The ops are ``torch.autograd.Function``\\ s when a gradient is wanted:
 
 * :func:`flash_attention` — forward: kernel A with the rows' log-sum-exp;
   backward: the two backward kernels (dk/dv pass, dq pass);
 * :func:`fused_cross_entropy` — forward: kernel B; backward: C1 (d hidden)
-  and C2 (d W), the counterpart of the JAX package's ``_fused_ce``.
+  and C2 (d W), the counterpart of the JAX package's ``_fused_ce``;
+* :func:`mamba_scan` — forward: kernel D, which also checkpoints the state
+  every :data:`~.mamba_scan.SCAN_TILE` rows; backward: kernel D' and the
+  fixed-order sum of its dB/dC partials. :func:`mamba_scan_fwd` and
+  :func:`mamba_scan_bwd` are the two halves, for a caller with its own
+  autograd function (the mamba mixer).
 """
 
 from __future__ import annotations
@@ -28,9 +36,11 @@ from .cross_entropy import (TOKEN_MULTIPLE, ce_bwd_dh_cuda, ce_bwd_dw_cuda,
                             ce_fwd_cuda)
 from .flash_attention import (BLOCK_KV, BLOCK_Q, flash_attention_cuda,
                               flash_bwd_dkdv_cuda, flash_bwd_dq_cuda)
+from .mamba_scan import (SCAN_TILE, mamba_scan_bwd_cuda, mamba_scan_fwd_cuda,
+                         mamba_scan_reduce_cuda)
 
-__all__ = ["flash_attention", "fused_cross_entropy", "pad_rows",
-           "pad_for_kernel"]
+__all__ = ["flash_attention", "fused_cross_entropy", "mamba_scan",
+           "mamba_scan_fwd", "mamba_scan_bwd", "pad_rows", "pad_for_kernel"]
 
 PAD_SEG = -2
 
@@ -192,3 +202,98 @@ def fused_cross_entropy(hidden: torch.Tensor, w_vocab: torch.Tensor,
 
 
 fused_cross_entropy.plain_calls = 0
+
+
+def _scan_inputs(delta, xs, B, C, A, reset):
+    """The scan kernels' inputs: rows padded to SCAN_TILE with
+    state-neutral steps (delta 0 makes a = 1 and the input 0; reset 0 lets
+    the state through to h_last), B and C in delta's dtype, A float32,
+    reset int32, all contiguous."""
+    i32 = torch.int32
+    return (pad_rows(delta, SCAN_TILE).contiguous(),
+            pad_rows(xs, SCAN_TILE).contiguous(),
+            pad_rows(B.to(delta.dtype), SCAN_TILE).contiguous(),
+            pad_rows(C.to(delta.dtype), SCAN_TILE).contiguous(),
+            A.float().contiguous(),
+            pad_rows((reset.reshape(-1) != 0).to(i32), SCAN_TILE).contiguous())
+
+
+def mamba_scan_fwd(delta, xs, B, C, A, reset, h0):
+    """Kernel D (or its plain version on the CPU): ``(y [T, DI], h_last
+    [DI, DS], ckpt)``, y and h_last float32; ``ckpt`` is what
+    :func:`mamba_scan_bwd` needs besides the inputs (the state entering
+    every time tile on the card, None on the CPU)."""
+    T = delta.shape[0]
+    if delta.is_cuda:
+        y, h_last, ckpt = mamba_scan_fwd_cuda(
+            *_scan_inputs(delta, xs, B, C, A, reset), h0.float().contiguous())
+        return y[:T], h_last, ckpt
+    _known_device(delta, "mamba_scan")
+    mamba_scan.plain_calls += 1
+    y, h_last = ref.mamba_scan_reference(delta, xs, B, C, A, reset, h0)
+    return y, h_last, None
+
+
+def mamba_scan_bwd(delta, xs, B, C, A, reset, h0, ckpt, dy, dh_last=None,
+                   want_y: bool = False):
+    """Kernel D' and the sum of its partials (or the plain gradient on the
+    CPU) for the forward's inputs and ``ckpt``, the output gradient ``dy
+    [T, DI]`` and ``dh_last [DI, DS]`` (None: zero). Returns ``(y, d_delta,
+    d_xs, dB, dC, dA, dh0)``, float32; ``y`` is the forward's output
+    recomputed, or None unless ``want_y``."""
+    T = delta.shape[0]
+    if delta.is_cuda:
+        ins = _scan_inputs(delta, xs, B, C, A, reset)
+        dyp = pad_rows(dy.float(), SCAN_TILE).contiguous()
+        dhl = None if dh_last is None else dh_last.float().contiguous()
+        dd, dx, ws, dA, dh0, y = mamba_scan_bwd_cuda(*ins, ckpt, dyp, dhl,
+                                                     want_y)
+        dB, dC = mamba_scan_reduce_cuda(ws)
+        return (None if y is None else y[:T], dd[:T], dx[:T], dB[:T],
+                dC[:T], dA, dh0)
+    _known_device(delta, "mamba_scan")
+    mamba_scan.plain_calls += 1
+    y, *grads = ref.mamba_scan_grad(delta, xs, B, C, A, reset, h0, dy,
+                                    dh_last)
+    return (y if want_y else None, *grads)
+
+
+class _MambaScan(torch.autograd.Function):
+    """The selective scan with a kernel backward: the forward keeps its
+    inputs and the state checkpoints; the backward runs D'."""
+
+    @staticmethod
+    def forward(ctx, delta, xs, B, C, A, h0, reset):
+        y, h_last, ckpt = mamba_scan_fwd(delta, xs, B, C, A, reset, h0)
+        ctx.save_for_backward(delta, xs, B, C, A, h0, reset,
+                              *([] if ckpt is None else [ckpt]))
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        delta, xs, B, C, A, h0, reset, *ckpt = ctx.saved_tensors
+        _, dd, dx, dB, dC, dA, dh0 = mamba_scan_bwd(
+            delta, xs, B, C, A, reset, h0, ckpt[0] if ckpt else None, dy,
+            dh_last)
+        return (dd.to(delta.dtype), dx.to(xs.dtype), dB.to(B.dtype),
+                dC.to(C.dtype), dA.to(A.dtype), dh0.to(h0.dtype), None)
+
+
+def mamba_scan(delta, xs, B, C, A, reset, h0
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-1 selective scan (the JAX package's ``ops.mamba_scan``):
+    delta, xs ``[T, DI]``, B, C ``[T, DS]``, A, h0 ``[DI, DS]``, reset
+    ``[T]`` (non-zero where a sequence starts) -> ``(y [T, DI], h_last [DI,
+    DS])``, both float32 (y before the D skip and the gating).
+    Differentiable in delta, xs, B, C, A and h0.
+    ``mamba_scan.plain_calls`` counts the forward and backward calls served
+    by the plain versions (CPU tensors)."""
+    _known_device(delta, "mamba_scan")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (delta, xs, B, C, A, h0)):
+        return _MambaScan.apply(delta, xs, B, C, A, h0, reset)
+    y, h_last, _ = mamba_scan_fwd(delta, xs, B, C, A, reset, h0)
+    return y, h_last
+
+
+mamba_scan.plain_calls = 0

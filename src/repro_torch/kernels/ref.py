@@ -16,6 +16,10 @@ tests and what :mod:`repro_torch.kernels.ops` runs on CPU tensors.
   cross-entropy kernels B, C1 and C2 (materialised logits);
   :func:`cross_entropy_reference` and :func:`streaming_cross_entropy` — the
   JAX package's two loss oracles.
+* :func:`mamba_scan_reference` — the plain version of the selective-scan
+  kernel D (a sequential scan in float32, differentiable by autograd);
+  :func:`mamba_scan_grad` — its gradient by autograd (the plain version of
+  the backward kernel D').
 
 Packed-varlen mask rule (shared by every implementation):
   attend(qi, kj)  iff  seg_q[i] == seg_kv[j]  and  seg_q[i] >= 0
@@ -34,7 +38,8 @@ __all__ = ["flash_attention_reference", "blocked_flash_attention",
            "attention_mask", "combine_partials", "flash_attention_lse",
            "flash_attention_grad", "cross_entropy_reference",
            "streaming_cross_entropy", "cross_entropy_fwd_plain",
-           "cross_entropy_bwd_dh_plain", "cross_entropy_bwd_dw_plain"]
+           "cross_entropy_bwd_dh_plain", "cross_entropy_bwd_dw_plain",
+           "mamba_scan_reference", "mamba_scan_grad"]
 
 NEG_INF = -1e30
 
@@ -238,3 +243,81 @@ def streaming_cross_entropy(hidden, w_vocab, targets, valid, *,
     lse = m + torch.log(torch.clamp(l, min=1e-30))
     loss = torch.where(valid, lse - t_run, 0.0)
     return loss.sum(), valid.float().sum()
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 selective scan.
+# ---------------------------------------------------------------------------
+
+def _scan_terms(delta, xs, B, C, A, reset):
+    """float32 views of the inputs and the per-step decay ``a [T, DI, DS]``
+    (0 where a sequence starts) and input ``bx = (delta x) B``."""
+    d, x = delta.float(), xs.float()
+    Bf, Cf, Af = B.float(), C.float(), A.float()
+    keep = (reset.reshape(-1) == 0)[:, None, None]
+    a = torch.where(keep, torch.exp(d[:, :, None] * Af), 0.0)
+    bx = (d * x)[:, :, None] * Bf[:, None, :]
+    return d, x, Bf, Cf, Af, a, bx
+
+
+def _states(a, bx, h):
+    """``h_t = a_t h_{t-1} + bx_t`` one step after another: ``[T, DI,
+    DS]``."""
+    hs = torch.empty_like(bx)
+    for t in range(a.shape[0]):
+        h = torch.addcmul(bx[t], a[t], h)
+        hs[t] = h
+    return hs
+
+
+def mamba_scan_reference(delta, xs, B, C, A, reset, h0
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D's function, one time step after another in float32:
+    ``a_t = exp(delta_t A)`` (0 where ``reset_t``), ``h_t = a_t h_{t-1} +
+    (delta_t x_t) B_t`` from ``h_{-1} = h0``, ``y_t = h_t . C_t``.
+    delta, xs ``[T, DI]``; B, C ``[T, DS]``; A, h0 ``[DI, DS]``; reset
+    ``[T]`` (non-zero: a sequence starts). Returns ``(y [T, DI], h_last
+    [DI, DS])``, float32. It holds the ``[T, DI, DS]`` decays, inputs and
+    states (the kernel holds none)."""
+    _, _, _, Cf, _, a, bx = _scan_terms(delta, xs, B, C, A, reset)
+    hs = _states(a, bx, h0.float())
+    h_last = hs[-1] if hs.shape[0] else h0.float()
+    return torch.einsum("tds,ts->td", hs, Cf), h_last
+
+
+def mamba_scan_grad(delta, xs, B, C, A, reset, h0, dy, dh_last=None):
+    """Kernel D''s function: ``y`` and the gradients of ``sum(dy * y) +
+    sum(dh_last * h_last)`` in every input, in float32: the states forward,
+    then ``dh_t = dh_{t+1} a_{t+1} + dy_t C_t`` backward one step after
+    another, the rest as sums over the ``[T, DI, DS]`` terms (checked
+    against ``jax.grad`` by the CPU tests). Returns ``(y, d_delta, d_xs,
+    dB, dC, dA, dh0)``."""
+    d, x, Bf, Cf, Af, a, bx = _scan_terms(delta, xs, B, C, A, reset)
+    h0f = h0.float()
+    hs = _states(a, bx, h0f)
+    del bx
+    dyf = dy.float()
+    y = torch.einsum("tds,ts->td", hs, Cf)
+    dh = (torch.zeros_like(h0f) if dh_last is None
+          else dh_last.float().clone())
+    dhs = torch.empty_like(hs)
+    for t in range(a.shape[0] - 1, -1, -1):
+        dh = torch.addr(dh, dyf[t], Cf[t])
+        dhs[t] = dh
+        dh = dh * a[t]
+    dC = torch.einsum("td,tds->ts", dyf, hs)
+    # d(loss)/d(delta_t A): dh_t h_{t-1} a_t
+    dadt = dhs * a
+    del a
+    if hs.shape[0]:
+        dadt[1:] *= hs[:-1]
+        dadt[0] *= h0f
+    del hs
+    dA = torch.einsum("tds,td->ds", dadt, d)
+    d_delta = torch.einsum("tds,ds->td", dadt, Af)
+    del dadt
+    dhB = torch.einsum("tds,ts->td", dhs, Bf)
+    d_delta += dhB * x
+    d_xs = dhB * d
+    dB = torch.einsum("tds,td->ts", dhs, d * x)
+    return y, d_delta, d_xs, dB, dC, dA, dh

@@ -8,10 +8,17 @@ stage-aware checkpointing ILP) for one card (``ClusterSpec``: an H100 with
 between a sequence's chunks, the dKV hand-off, remat from the plan's
 table, attention and the loss in the CUDA kernels, then AdamW.
 
-On the card (the default device), gemma3-1b at full width in bfloat16:
+On the card (the default device), gemma3-1b or hymba-1.5b at full width
+in bfloat16:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
       --steps 3 --batch 8 --context 16384
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
+      --steps 3 --batch 8 --context 16384
+
+A model whose states alone exceed the card (falcon-mamba-7b: 126 GB of
+parameters, master, moments and gradient sums on an 80 GB H100) stops at
+the planner with its message, before any parameter is allocated.
 
 On the CPU, at a reduced size (float32):
 
@@ -35,7 +42,12 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
-__all__ = ["TrainConfig", "train", "plan_step", "main", "BUCKET_ROUNDING"]
+__all__ = ["TrainConfig", "train", "plan_step", "main", "BUCKET_ROUNDING",
+           "PlanError"]
+
+
+class PlanError(RuntimeError):
+    """The planner finds no plan: the model does not fit the cluster."""
 
 
 @dataclass
@@ -88,12 +100,16 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
 
     device = torch.device(device)
     dtype = dtype_of(loop.compute_dtype)
+    cm = CostModel(cfg.spec, cluster or ClusterSpec())
+    try:
+        cm.token_capacity()
+    except ValueError as e:
+        raise PlanError(f"{cfg.name}: no plan for this cluster: {e}") from e
     if params is None:
         gen = torch.Generator(device=device).manual_seed(loop.seed)
         params = DecoderLM(cfg).init(gen, device=device)
     trainer = ChunkedTrainer(cfg, params, device=device, compute_dtype=dtype)
     del params
-    cm = CostModel(cfg.spec, cluster or ClusterSpec())
     history = []
     for step in range(loop.steps):
         corpus, plan = plan_step(cm, loop, step)
@@ -186,6 +202,9 @@ def main(argv=None) -> int:
             prof.__enter__()
     try:
         _, history = train(cfg, loop, device=device, on_step=on_step)
+    except PlanError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 5
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)

@@ -1,4 +1,5 @@
-"""Decoder language model (dense attention family).
+"""Decoder language model: dense attention, SSM (mamba) and hybrid
+families.
 
 Counterpart of the JAX package's ``models/model.py``. Parameters are plain
 nested dicts of tensors in the reference's layout: layer leaves stacked
@@ -8,8 +9,15 @@ along a leading ``L`` axis, plus ``embed``, ``final_norm`` and an optional
 (:func:`unstack_layers`): each layer's weights are then their own autograd
 leaves, and a layer's gradient is not scattered into a zeroed ``[L, ...]``
 buffer. Every layer exposes a context carry (:class:`LayerCtx`) so a later
-chunk of a sequence attends to the KV rows of the earlier ones; the carry's
-gradient is the paper's dKV term (Eq. 5).
+chunk of a sequence continues the earlier ones: attention reads their KV
+rows, the mamba mixer starts from their state ``(h, conv_tail)``; the
+carry's gradient is the paper's dKV term (Eq. 5) and its SSM counterpart.
+
+Layer kinds (as the reference's ``layer_apply``): ``ATTN`` (attention,
+then the SwiGLU MLP), ``MAMBA`` (the mamba mixer alone, falcon-mamba) and
+``HYBRID`` (attention and the mamba mixer in parallel on the same normed
+input, averaged, then the MLP; hymba). MoE, MLA and encoder-decoder models
+are not ported.
 
 The loss head (:meth:`DecoderLM.chunk_loss`) runs the final norm and the
 fused streaming cross-entropy (kernels B, C1, C2 on the card).
@@ -26,18 +34,27 @@ from .attention import (attention_block, init_attention,
                         make_local_attention_policy)
 from .config import ArchConfig, LayerKind
 from .layers import embed_init, rms_norm, swiglu_apply, swiglu_init
+from .ssm import init_mamba, mamba_apply, ssm_state_shape
 
 __all__ = ["DecoderLM", "LayerCtx", "layer_params", "tree_map",
            "tree_leaves", "tree_unflatten", "unstack_layers"]
 
 
 class LayerCtx(NamedTuple):
-    """Split-chunk context carry: KV buffers ``[C_cap, Hkv, Dh]`` per layer
-    (``[L, ...]`` stacked, or a list of ``L`` buffers), None for a
-    context-free run. The reference's SSM fields join with the SSM
-    family."""
+    """Split-chunk context carry, per layer (``[L, ...]`` stacked, or a list
+    of ``L`` tensors); a field is None where the family has no such state,
+    and the whole carry is None for a context-free run.
+
+    * ``k``, ``v``: KV buffers ``[C_cap, Hkv, Dh]`` (attention layers), in
+      the compute dtype; a chunk appends its rows at its context length;
+    * ``ssm_h``: the mamba state ``[d_inner, d_state]``, float32;
+    * ``ssm_tail``: the last ``d_conv - 1`` conv inputs ``[d_conv - 1,
+      d_inner]``, in the compute dtype.
+    """
     k: Optional[torch.Tensor]
     v: Optional[torch.Tensor]
+    ssm_h: Optional[torch.Tensor] = None
+    ssm_tail: Optional[torch.Tensor] = None
 
 
 def tree_map(fn: Callable, tree):
@@ -101,11 +118,18 @@ class DecoderLM:
 
     def __init__(self, cfg: ArchConfig):
         s = cfg.spec
-        if (cfg.layer_kind != LayerKind.ATTN or s.n_experts or s.ssm_state
-                or s.kv_lora_rank or s.attn_free or s.is_encoder_decoder):
+        kind = cfg.layer_kind
+        ssm = kind in (LayerKind.MAMBA, LayerKind.HYBRID)
+        if (kind not in (LayerKind.ATTN, LayerKind.MAMBA, LayerKind.HYBRID)
+                or s.n_experts or s.kv_lora_rank or s.is_encoder_decoder
+                or ssm != (s.ssm_state > 0)
+                or s.attn_free != (kind == LayerKind.MAMBA)):
             raise NotImplementedError(
-                f"{cfg.name}: only dense attention decoders are ported")
+                f"{cfg.name}: only dense attention, mamba and hybrid "
+                f"decoders are ported (not MoE, MLA or encoder-decoder)")
         self.cfg = cfg
+        self.has_attn = kind != LayerKind.MAMBA
+        self.has_ssm = ssm
         self.attn_fn = make_local_attention_policy()
 
     # ------------------------------------------------------------------
@@ -121,12 +145,15 @@ class DecoderLM:
         embed = embed_init(gen, s.vocab, s.d_model, **kw)
         layers = []
         for _ in range(s.n_layers):
-            layers.append({
-                "ln1": torch.zeros((s.d_model,), **kw),
-                "attn": init_attention(self.cfg, gen, **kw),
-                "ln2": torch.zeros((s.d_model,), **kw),
-                "mlp": swiglu_init(gen, s.d_model, s.d_ff, **kw),
-            })
+            lp = {"ln1": torch.zeros((s.d_model,), **kw)}
+            if self.has_attn:
+                lp["attn"] = init_attention(self.cfg, gen, **kw)
+            if self.has_ssm:
+                lp["mamba"] = init_mamba(self.cfg, gen, **kw)
+            if self.cfg.layer_kind != LayerKind.MAMBA:
+                lp["ln2"] = torch.zeros((s.d_model,), **kw)
+                lp["mlp"] = swiglu_init(gen, s.d_model, s.d_ff, **kw)
+            layers.append(lp)
         params = {"embed": embed, "layers": _stack(layers),
                   "final_norm": torch.zeros((s.d_model,), **kw)}
         if not self.cfg.tie_embeddings:
@@ -173,27 +200,48 @@ class DecoderLM:
                     pos: torch.Tensor, seg: torch.Tensor, ctx: LayerCtx,
                     ctx_len: int, window: int
                     ) -> Tuple[torch.Tensor, LayerCtx]:
-        """x: [T, D] -> (x', updated context carry)."""
+        """x: [T, D] -> (x', updated context carry): the KV rows appended
+        at ``ctx_len``, the SSM state advanced to the chunk's last live
+        row."""
         cfg = self.cfg
+        kind = cfg.layer_kind
         h = rms_norm(x, lparams["ln1"], cfg.rms_eps)
-        attn_out, nk, nv = attention_block(
-            cfg, lparams["attn"], h, pos=pos, seg=seg, ctx_k=ctx.k,
-            ctx_v=ctx.v, ctx_len=ctx_len, window=window,
-            attn_fn=self.attn_fn)
-        x = x + attn_out
-        h2 = rms_norm(x, lparams["ln2"], cfg.rms_eps)
-        x = x + swiglu_apply(lparams["mlp"], h2)
-        return x, LayerCtx(nk, nv)
+        nk, nv, nh, ntail = ctx
+        mixer = None
+        if self.has_attn:
+            mixer, nk, nv = attention_block(
+                cfg, lparams["attn"], h, pos=pos, seg=seg, ctx_k=ctx.k,
+                ctx_v=ctx.v, ctx_len=ctx_len, window=window,
+                attn_fn=self.attn_fn)
+        if self.has_ssm:
+            m_out, nh, ntail = mamba_apply(
+                cfg, lparams["mamba"], h, pos=pos, seg=seg,
+                state=ctx.ssm_h, conv_tail=ctx.ssm_tail)
+            mixer = m_out if mixer is None else 0.5 * (mixer + m_out)
+        x = x + mixer
+        if kind != LayerKind.MAMBA:
+            h2 = rms_norm(x, lparams["ln2"], cfg.rms_eps)
+            x = x + swiglu_apply(lparams["mlp"], h2)
+        return x, LayerCtx(nk, nv, nh, ntail)
 
     # ------------------------------------------------------------------
     def init_ctx(self, cap: int, compute_dtype=torch.bfloat16,
                  n_layers: Optional[int] = None, *, device) -> LayerCtx:
-        """Stacked context carry ``[L, cap, Hkv, Dh]`` (zeros)."""
+        """Stacked context carry (zeros): KV ``[L, cap, Hkv, Dh]`` for
+        attention layers, ``ssm_h [L, d_inner, d_state]`` (float32) and
+        ``ssm_tail [L, d_conv - 1, d_inner]`` for mamba layers."""
         s = self.cfg.spec
         L = n_layers if n_layers is not None else s.n_layers
-        shape = (L, cap, s.n_kv_heads, s.head_dim)
-        return LayerCtx(torch.zeros(shape, dtype=compute_dtype, device=device),
-                        torch.zeros(shape, dtype=compute_dtype, device=device))
+        k = v = hh = tail = None
+        if self.has_attn:
+            shape = (L, cap, s.n_kv_heads, s.head_dim)
+            k = torch.zeros(shape, dtype=compute_dtype, device=device)
+            v = torch.zeros(shape, dtype=compute_dtype, device=device)
+        if self.has_ssm:
+            hs, ts = ssm_state_shape(self.cfg)
+            hh = torch.zeros((L, *hs), dtype=torch.float32, device=device)
+            tail = torch.zeros((L, *ts), dtype=compute_dtype, device=device)
+        return LayerCtx(k, v, hh, tail)
 
     def forward_chunk(self, params: Dict, tokens: torch.Tensor,
                       seg: torch.Tensor, pos: torch.Tensor, *,
@@ -209,30 +257,37 @@ class DecoderLM:
         backward), as the reference executor remats the leading
         ``l_ckpt`` layers of a stage; remat never changes the math."""
         x = self.embed(params, tokens, compute_dtype)
-        new_k, new_v = [], []
+        new = [[], [], [], []]
         for i, w in enumerate(self.cfg.layer_windows()):
-            ck = None if ctx is None else ctx.k[i]
-            cv = None if ctx is None else ctx.v[i]
-            args = (layer_params(params, i), x, pos, seg, ck, cv,
+            lctx = [None if f is None else f[i]
+                    for f in (ctx if ctx is not None else (None,) * 4)]
+            args = (layer_params(params, i), x, pos, seg, *lctx,
                     int(ctx_len), w)
             if i < remat:
-                x, nk, nv = checkpoint(self._layer, *args,
-                                       use_reentrant=False)
+                x, *out = checkpoint(self._layer, *args,
+                                     use_reentrant=False)
             else:
-                x, nk, nv = self._layer(*args)
-            new_k.append(nk)
-            new_v.append(nv)
+                x, *out = self._layer(*args)
+            for acc, o in zip(new, out):
+                acc.append(o)
         if ctx is None:
             return x, None
-        if isinstance(ctx.k, (list, tuple)):
-            return x, LayerCtx(new_k, new_v)
-        return x, LayerCtx(torch.stack(new_k), torch.stack(new_v))
+        fields = []
+        for f, vals in zip(ctx, new):
+            if f is None:
+                fields.append(None)
+            elif isinstance(f, (list, tuple)):
+                fields.append(vals)
+            else:
+                fields.append(torch.stack(vals))
+        return x, LayerCtx(*fields)
 
-    def _layer(self, lparams, x, pos, seg, ctx_k, ctx_v, ctx_len, window):
+    def _layer(self, lparams, x, pos, seg, ctx_k, ctx_v, ctx_h, ctx_tail,
+               ctx_len, window):
         x, out = self.layer_apply(lparams, x, pos=pos, seg=seg,
-                                  ctx=LayerCtx(ctx_k, ctx_v),
+                                  ctx=LayerCtx(ctx_k, ctx_v, ctx_h, ctx_tail),
                                   ctx_len=ctx_len, window=window)
-        return x, out.k, out.v
+        return (x, *out)
 
 
 def _stack(layers):

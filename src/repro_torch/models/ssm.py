@@ -1,0 +1,240 @@
+"""Mamba-1 selective-scan mixer with packed-segment resets and the O(1)
+split-chunk carry ``(h, conv_tail)``.
+
+Counterpart of the JAX package's ``models/ssm.py``, with the same
+parameters (dense weights stored ``[d_out, d_in]``, as everywhere in the
+port) and the same casts. Two differences:
+
+* **The scan's seam.** The reference materialises the ``[T, d_inner,
+  d_state]`` decay and input tensors and scans them; here the raw
+  per-token ``delta, xs, B, C`` go to kernel D (:func:`ops.mamba_scan_fwd`),
+  which forms the outer products in registers, and the gradient is kernel
+  D'. At hymba-1.5b's width one such float32 tensor of a 16,384-token chunk
+  would take 3.4 GB per layer.
+* **Pad rows are state-neutral.** A row with ``seg < 0`` does not reset
+  the state, leaves it unchanged (``delta = 0``: decay 1, no input) and
+  does not enter the conv tail, so ``h_last`` and the tail handed to the
+  next chunk of a sequence are those of the chunk's last live row. The
+  reference resets on ``pos == 0``, which pad rows carry, and takes both
+  after the pad rows: its carry out of a padded split chunk is wrong
+  (``ROADMAP.md``, reference caveats).
+
+Memory. The mixer keeps what the planner's per-token model charges it and
+no float32 ``[T, d_inner]`` tensor: the conv (with its SiLU) and the scan
+with its gating are autograd functions that keep their inputs (bf16 in
+training) and recompute ``delta = softplus(dt_in dt_proj + bias)``, the
+conv output and the float32 gating terms in their backward; the scan
+keeps only its state checkpoints (``d_inner * d_state`` floats every 64
+rows).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ArchConfig
+from .layers import dense_init, linear
+
+__all__ = ["init_mamba", "mamba_apply", "ssm_state_shape", "dt_rank_of"]
+
+
+def ssm_state_shape(cfg: ArchConfig) -> Tuple[Tuple[int, int],
+                                              Tuple[int, int]]:
+    """((d_inner, d_state), (d_conv - 1, d_inner)): h and the conv tail."""
+    s = cfg.spec
+    return ((s.inner, s.ssm_state), (s.ssm_conv - 1, s.inner))
+
+
+def dt_rank_of(cfg: ArchConfig) -> int:
+    return max(1, math.ceil(cfg.spec.d_model / 16))
+
+
+def init_mamba(cfg: ArchConfig, gen: torch.Generator, *, device,
+               dtype=torch.float32) -> Dict:
+    """The reference's distributions (drawn from ``gen``; the numbers
+    differ from ``jax.random``'s)."""
+    s = cfg.spec
+    D, di, ds = s.d_model, s.inner, s.ssm_state
+    R = dt_rank_of(cfg)
+    kw = dict(dtype=dtype, device=device)
+    a_init = torch.arange(1, ds + 1, dtype=torch.float32,
+                          device=device)[None, :].repeat(di, 1)
+    conv_w = torch.randn((s.ssm_conv, di), generator=gen,
+                         dtype=torch.float32, device=device) * 0.1
+    return {
+        "in_proj": dense_init(gen, D, 2 * di, **kw),
+        "conv_w": conv_w.to(dtype),
+        "conv_b": torch.zeros((di,), **kw),
+        "x_proj": dense_init(gen, di, R + 2 * ds, **kw),
+        "dt_proj": dense_init(gen, R, di, **kw),
+        "dt_bias": torch.full((di,), -4.6, **kw),     # softplus^-1(0.01)
+        "a_log": torch.log(a_init).to(dtype),
+        "d_skip": torch.ones((di,), **kw),
+        "out_proj": dense_init(gen, di, D, **kw),
+    }
+
+
+def _conv_pre(xs, w, b, tail, reset):
+    """The depthwise causal conv before its SiLU, rounded to xs's dtype as
+    the reference rounds it: ``xs [T, di]``, ``w [K, di]``, ``tail [K-1,
+    di]`` (the inputs before row 0), ``reset [T]`` bool. A window element
+    contributes to row t only if no reset lies in ``(j, t]``; the tail
+    belongs to the block before the first reset."""
+    K, T = w.shape[0], xs.shape[0]
+    xp = torch.cat([tail.to(xs.dtype), xs], dim=0)
+    blk = torch.cumsum(reset.to(torch.int32), 0)
+    blk_p = torch.cat([blk.new_zeros(K - 1), blk])
+    out = torch.zeros(xs.shape, dtype=torch.float32, device=xs.device)
+    for j in range(K):
+        ok = (blk_p[j:j + T] == blk)[:, None]
+        out += torch.where(ok, xp[j:j + T].float() * w[j].float(), 0.0)
+    return (out + b.float()).to(xs.dtype), xp, blk, blk_p
+
+
+class _ConvSilu(torch.autograd.Function):
+    """``silu(conv(xs))`` (each rounded to xs's dtype, as the reference
+    rounds), keeping only its inputs: the float32 window products autograd
+    would keep (``K`` copies of ``[T, di]``) are recomputed."""
+
+    @staticmethod
+    def forward(ctx, xs, w, b, tail, reset):
+        pre = _conv_pre(xs, w, b, tail, reset)[0]
+        ctx.save_for_backward(xs, w, b, tail, reset)
+        return F.silu(pre.float()).to(xs.dtype)
+
+    @staticmethod
+    def backward(ctx, dxc):
+        xs, w, b, tail, reset = ctx.saved_tensors
+        pre, xp, blk, blk_p = _conv_pre(xs, w, b, tail, reset)
+        p32 = pre.float()
+        sig = torch.sigmoid(p32)
+        dpre = (dxc.float() * sig * (1.0 + p32 * (1.0 - sig))).to(
+            xs.dtype).float()
+        K, T = w.shape[0], xs.shape[0]
+        dxp = torch.zeros(xp.shape, dtype=torch.float32, device=xs.device)
+        dw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+        for j in range(K):
+            g = torch.where((blk_p[j:j + T] == blk)[:, None], dpre, 0.0)
+            dw[j] = (xp[j:j + T].float() * g).sum(0)
+            dxp[j:j + T] += g * w[j].float()
+        return (dxp[K - 1:].to(xs.dtype), dw.to(w.dtype),
+                dpre.sum(0).to(b.dtype), dxp[:K - 1].to(tail.dtype), None)
+
+
+class _ScanGate(torch.autograd.Function):
+    """The selective scan and its gating, ``(y_scan + D xc) * silu(z)``,
+    from the x-projection's outputs: ``delta = softplus(dt_in dt_proj^T +
+    dt_bias)`` (0 on pad rows), ``A = -exp(a_log)``, kernel D, the skip
+    and the gate. Keeps its inputs and the scan's state checkpoints; the
+    backward recomputes delta and the float32 gating terms and runs D'
+    (which recomputes y). Returns ``(out [T, di] in xc's dtype, h_last
+    [di, ds] float32)``."""
+
+    @staticmethod
+    def forward(ctx, xc, dt_in, B, C, z, dt_proj, dt_bias, a_log, d_skip,
+                live, reset, h0):
+        from repro_torch.kernels.ops import mamba_scan_fwd
+        delta = _delta(dt_in, dt_proj, dt_bias, live)
+        A = -torch.exp(a_log.float())
+        y, h_last, ckpt = mamba_scan_fwd(delta, xc, B.float(), C.float(), A,
+                                         reset, h0)
+        del delta
+        y += xc.float() * d_skip.float()
+        out = (y * F.silu(z.float())).to(xc.dtype)
+        ctx.save_for_backward(xc, dt_in, B, C, z, dt_proj, dt_bias, a_log,
+                              d_skip, live, reset, h0,
+                              *([] if ckpt is None else [ckpt]))
+        return out, h_last
+
+    @staticmethod
+    def backward(ctx, dout, dh_last):
+        from repro_torch.kernels.ops import mamba_scan_bwd
+        (xc, dt_in, B, C, z, dt_proj, dt_bias, a_log, d_skip, live, reset,
+         h0, *ckpt) = ctx.saved_tensors
+        dt = xc.dtype
+        delta = _delta(dt_in, dt_proj, dt_bias, live)
+        A = -torch.exp(a_log.float())
+        g = dout.float()
+        z32 = z.float()
+        sig = torch.sigmoid(z32)
+        dy = g * (z32 * sig)
+        y, d_delta, d_xs, dB, dC, dA, dh0 = mamba_scan_bwd(
+            delta, xc, B.float(), C.float(), A, reset, h0,
+            ckpt[0] if ckpt else None, dy, dh_last, want_y=True)
+        xc32, dsk = xc.float(), d_skip.float()
+        d_dskip = (dy * xc32).sum(0)
+        d_xs += dy * dsk                      # d xc: the scan and the skip
+        del dy
+        y += xc32 * dsk                       # the gate's input
+        del xc32
+        dz = (g * y * sig * (1.0 + z32 * (1.0 - sig))).to(z.dtype)
+        del y, g, sig, z32
+        # softplus' = sigmoid(pre) = 1 - exp(-softplus(pre))
+        d_pre = torch.where(live[:, None], d_delta * -torch.expm1(-delta),
+                            0.0)
+        del delta, d_delta
+        d_bias = d_pre.sum(0)
+        d_pre = d_pre.to(dt)
+        d_dt_in = d_pre @ dt_proj.to(dt)
+        d_dt_proj = d_pre.T @ dt_in
+        return (d_xs.to(dt), d_dt_in, dB.to(B.dtype), dC.to(C.dtype), dz,
+                d_dt_proj.to(dt_proj.dtype), d_bias.to(dt_bias.dtype),
+                (dA * A).to(a_log.dtype), d_dskip.to(d_skip.dtype), None,
+                None, dh0.to(h0.dtype))
+
+
+def _delta(dt_in, dt_proj, dt_bias, live):
+    """softplus(dt_in dt_proj^T (in dt_in's dtype) + dt_bias) in float32,
+    0 on pad rows (a state-neutral step)."""
+    pre = linear(dt_in, dt_proj).float() + dt_bias.float()
+    return torch.where(live[:, None], F.softplus(pre), 0.0)
+
+
+def _conv_tail(conv_tail, xs, live):
+    """The ``K-1`` conv inputs ending at the chunk's last live row (the
+    incoming tail's rows where the chunk has fewer live rows), gathered
+    without a host sync."""
+    K1, T = conv_tail.shape[0], xs.shape[0]
+    rows = torch.arange(T, device=xs.device)
+    last = (torch.where(live, rows, -1)).max() if T else rows.new_tensor(-1)
+    p = last + 1 + torch.arange(K1, device=xs.device)   # in [tail; xs] rows
+    from_tail = conv_tail.to(xs.dtype)[p.clamp(max=K1 - 1)]
+    from_xs = xs[(p - K1).clamp(min=0)]
+    return torch.where((p < K1)[:, None], from_tail, from_xs)
+
+
+def mamba_apply(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
+                pos: torch.Tensor, seg: torch.Tensor,
+                state: Optional[torch.Tensor] = None,
+                conv_tail: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: ``[T, D]`` packed tokens -> ``(out [T, D], h_last [di, ds]
+    float32, conv_tail [K-1, di])``. A live row with ``pos == 0`` starts a
+    sequence (the state and the conv window restart); ``state`` and
+    ``conv_tail`` (default zeros) carry a split sequence in from its
+    previous chunk."""
+    s = cfg.spec
+    di, ds = s.inner, s.ssm_state
+    R = dt_rank_of(cfg)
+    dt = x.dtype
+    if state is None:
+        state = torch.zeros((di, ds), dtype=torch.float32, device=x.device)
+    if conv_tail is None:
+        conv_tail = torch.zeros((s.ssm_conv - 1, di), dtype=dt,
+                                device=x.device)
+    live = seg >= 0
+    reset = (pos == 0) & live
+    xz = linear(x, p["in_proj"])
+    xs, z = xz[:, :di], xz[:, di:]
+    xc = _ConvSilu.apply(xs, p["conv_w"], p["conv_b"], conv_tail, reset)
+    proj = linear(xc, p["x_proj"])
+    y, h_last = _ScanGate.apply(
+        xc, proj[:, :R], proj[:, R:R + ds], proj[:, R + ds:R + 2 * ds], z,
+        p["dt_proj"], p["dt_bias"], p["a_log"], p["d_skip"], live, reset,
+        state)
+    out = linear(y, p["out_proj"])
+    return out, h_last, _conv_tail(conv_tail, xs, live)

@@ -32,6 +32,8 @@ def profile_summary(prof, wall_s: float, steps: int) -> dict:
             return "attention kernels"
         if "ce_fwd" in n or "ce_bwd" in n:
             return "cross-entropy kernels"
+        if "mamba_scan" in n:
+            return "mamba scan kernels"
         if any(s in n for s in ("gemm", "xmma", "cutlass", "cublas",
                                 "nvjet")):
             return "matmul"

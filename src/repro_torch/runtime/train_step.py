@@ -12,11 +12,16 @@ as the planner laid it out:
   so at most one window of the pipeline's residuals is alive — the memory
   model the checkpointing ILP solved against;
 * a chunk with context ``C > 0`` continues its sequence: it attends to the
-  KV carry that the sequence's previous chunk wrote. The carry is cut out
-  of the autograd graph between the two chunks (a fresh leaf), so the
-  later chunk's backward, which runs first, leaves the carry's gradient —
-  the paper's dKV term — on that leaf, and the earlier chunk's backward
-  starts from ``torch.autograd.backward([loss_k, carry_k], [scale, dKV])``;
+  KV carry that the sequence's previous chunk wrote, and its mamba layers
+  start from that chunk's state ``(h, conv_tail)``. The carry (every
+  field of :class:`~repro_torch.models.LayerCtx`) is cut out of the
+  autograd graph between the two chunks (fresh leaves), so the later
+  chunk's backward, which runs first, leaves the carry's gradient — the
+  paper's dKV term, and ``dh``, ``d tail`` for the SSM state — on those
+  leaves, and the earlier chunk's backward starts from
+  ``torch.autograd.backward([loss_k, carry_k], [scale, d carry])``. A
+  chunk with dependents holds its sequence's slice alone, from row 0, so
+  its last live row — where the SSM state is taken — is the slice's;
 * chunk ``k`` recomputes the leading ``plan.ckpt_table()[0][k]`` layers in
   its backward (stage-aware remat, Eq. 9-11);
 * every chunk's loss is seeded with ``1 / max(n_valid, 1)`` — the step's
@@ -143,12 +148,11 @@ class ChunkedTrainer:
                     p.grad = None
 
     def _zero_carry(self, cap: int) -> LayerCtx:
-        s = self.cfg.spec
-        shape = (cap, s.n_kv_heads, s.head_dim)
-        mk = lambda: torch.zeros(shape, dtype=self.dtype,  # noqa: E731
-                                 device=self.device)
-        return LayerCtx([mk() for _ in range(s.n_layers)],
-                        [mk() for _ in range(s.n_layers)])
+        """Zero carry as per-layer lists (None for fields the family lacks:
+        KV for attention layers, ``(h, tail)`` for mamba layers)."""
+        ctx = self.model.init_ctx(cap, self.dtype, device=self.device)
+        return LayerCtx(*[None if f is None else list(f.unbind(0))
+                          for f in ctx])
 
     def _run_pipeline(self, pipe: PipelinePlan, batch: ChunkBatch, base: int,
                       remat: Sequence[int], scale: torch.Tensor,
@@ -167,7 +171,7 @@ class ChunkedTrainer:
             len(chunks), 1, pipe.n_split, pipe.f2b))[0]
         carries: Dict[int, Tuple[int, LayerCtx]] = {}   # seq -> (k, carry)
         live: Dict[int, Dict] = {}                      # k -> residuals
-        dkv: Dict[int, LayerCtx] = {}                   # k -> carry grad
+        dkv: Dict[int, LayerCtx] = {}       # k -> the carry's gradient
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for tick in order:
             k = tick.chunk
@@ -181,14 +185,20 @@ class ChunkedTrainer:
                             f"{ch.seq_id}, whose previous chunk is not in "
                             f"this pipeline")
                     rec["prev"], out = carries.pop(ch.seq_id)
-                    ctx = LayerCtx(
-                        [a.detach().requires_grad_(True) for a in out.k],
-                        [a.detach().requires_grad_(True) for a in out.v])
+                    ctx = LayerCtx(*[
+                        None if f is None else
+                        [a.detach().requires_grad_(True) for a in f]
+                        for f in out])
                     rec["ctx_in"] = ctx
                 elif ch.has_dependents:
                     ctx = self._zero_carry(cap)
                 else:
                     ctx = None
+                if ch.has_dependents and len(ch.slices) != 1:
+                    raise RuntimeError(
+                        f"chunk {base + k} has dependents but holds "
+                        f"{len(ch.slices)} slices: the carry it hands on "
+                        f"must be its sequence's alone")
                 tokens, targets, seg, pos = self._chunk(batch, base + k,
                                                         ch.tokens)
                 hidden, ctx_out = model.forward_chunk(
@@ -210,16 +220,16 @@ class ChunkedTrainer:
                             f"backward of chunk {base + k} before the "
                             f"backward of the chunk that continues it")
                     g = dkv.pop(k)
-                    for t, gt in zip(rec["ctx_out"].k + rec["ctx_out"].v,
-                                     g.k + g.v):
-                        if gt is not None:
-                            outs.append(t)
-                            grads.append(gt)
+                    for f, gf in zip(rec["ctx_out"], g):
+                        for t, gt in zip(f or (), gf or ()):
+                            if gt is not None:
+                                outs.append(t)
+                                grads.append(gt)
                 self._backward(outs, grads, acc)
                 if rec["ctx_in"] is not None:
-                    dkv[rec["prev"]] = LayerCtx(
-                        [a.grad for a in rec["ctx_in"].k],
-                        [a.grad for a in rec["ctx_in"].v])
+                    dkv[rec["prev"]] = LayerCtx(*[
+                        None if f is None else [a.grad for a in f]
+                        for f in rec["ctx_in"]])
                 del rec, outs, grads
         if live or dkv:
             raise RuntimeError("pipeline schedule left chunks without a "

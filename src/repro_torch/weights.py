@@ -26,9 +26,11 @@ from repro_torch.models.config import ArchConfig
 
 __all__ = ["DENSE_LEAVES", "from_jax"]
 
-# leaves stored [d_in, d_out] by the reference
+# leaves stored [d_in, d_out] by the reference (the mamba mixer's conv_w
+# [d_conv, d_inner] is not a dense weight and keeps its layout)
 DENSE_LEAVES = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up",
-                          "w_down"})
+                          "w_down", "in_proj", "x_proj", "dt_proj",
+                          "out_proj"})
 
 
 def _convert(tree: Mapping[str, Any], fn, name: str = ""):

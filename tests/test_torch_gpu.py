@@ -1,7 +1,9 @@
 """The port on the card: the CUDA kernels against their plain versions
 (flash attention forward, its log-sum-exp and backward; cross-entropy
-B, C1, C2), the engine on CUDA against the engine on the CPU, and one
-reduced training step on CUDA against the same step on the CPU.
+B, C1, C2; the selective scan D, its gradient D' and the sum of D''s
+partials), the engine on CUDA against the engine on the CPU, and one
+reduced training step on CUDA against the same step on the CPU (dense,
+hybrid and mamba families).
 
 Every test here is marked ``gpu`` and skips without a CUDA card. This
 file imports torch only (no jax), so it runs where the card is:
@@ -351,6 +353,143 @@ def test_train_step_on_card_matches_cpu(arch):
                      ops.fused_cross_entropy.plain_calls)
             assert after[0] > before[0] and after[1] > before[1]
             assert after[2:] == before[2:]
+    a, b = res["cpu"], res[str(dev)]
+    assert a.n_valid == b.n_valid
+    assert abs(a.loss - b.loss) <= 1e-5 * abs(a.loss)
+    for x, y in zip(tree_leaves(b.grads), tree_leaves(a.grads)):
+        _close(x, y, torch.float32)
+
+
+def _scan_case(T, DI, DS, dtypes, dev, seed):
+    """Selective-scan inputs on ``dev``: delta (with B, C) and xs in the
+    ``dtypes`` pair, resets at a few rows but not row 0 (so the carried
+    h0 counts), non-zero h0."""
+    g = torch.Generator().manual_seed(seed)
+    td, tx = dtypes
+    delta = torch.nn.functional.softplus(torch.randn((T, DI), generator=g))
+    xs = torch.randn((T, DI), generator=g)
+    B = torch.randn((T, DS), generator=g)
+    C = torch.randn((T, DS), generator=g)
+    A = -torch.exp(torch.randn((DI, DS), generator=g) * 0.3)
+    reset = (torch.rand(T, generator=g) < 0.05).to(torch.int32)
+    reset[0] = 0
+    h0 = torch.randn((DI, DS), generator=g)
+    return (delta.to(dev, td), xs.to(dev, tx), B.to(dev, td), C.to(dev, td),
+            A.to(dev), reset.to(dev), h0.to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("T,DI,DS", [(100, 40, 4), (64, 16, 16),
+                                     (300, 48, 16), (130, 3200, 16)])
+def test_mamba_scan_kernels_match_plain(dtypes, T, DI, DS):
+    """D (y, h_last) and D' (every input's gradient, for output gradients
+    on y and h_last) against the plain scan and its autograd, on the same
+    inputs: rows not a multiple of the 64-row tile, channels not a
+    multiple of 16, a mixed pair (float32 delta, bf16 xs) as the mixer
+    feeds them. Both compute in float32 from the same values, so every
+    case is held to the float32 tolerance."""
+    dev = _cuda()
+    from repro_torch.kernels.mamba_scan import (mamba_scan_bwd_cuda,
+                                                mamba_scan_fwd_cuda,
+                                                mamba_scan_reduce_cuda)
+    ins = _scan_case(T, DI, DS, dtypes, dev, seed=T + DI + DS)
+    delta, xs, B, C, A, reset, h0 = ins
+    before = (mamba_scan_fwd_cuda.launches, mamba_scan_bwd_cuda.launches,
+              mamba_scan_reduce_cuda.launches, ops.mamba_scan.plain_calls)
+    leaves = [t.clone().requires_grad_(True) for t in (delta, xs, B, C, A,
+                                                       h0)]
+    y, h = ops.mamba_scan(*leaves[:5], reset, leaves[5])
+    g = torch.Generator().manual_seed(1)
+    dy = torch.randn((T, DI), generator=g).to(dev)
+    dh = torch.randn((DI, DS), generator=g).to(dev)
+    torch.autograd.backward([y, h], [dy, dh])
+    torch.cuda.synchronize()
+    after = (mamba_scan_fwd_cuda.launches, mamba_scan_bwd_cuda.launches,
+             mamba_scan_reduce_cuda.launches, ops.mamba_scan.plain_calls)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 0]
+    y_r, h_r = ref.mamba_scan_reference(delta, xs, B, C, A, reset, h0)
+    _close(y, y_r, torch.float32)
+    _close(h, h_r, torch.float32)
+    _, *grads = ref.mamba_scan_grad(delta, xs, B, C, A, reset, h0, dy, dh)
+    for leaf, want in zip(leaves, grads):
+        assert leaf.grad.dtype == leaf.dtype
+        _close(leaf.grad.float(), want.to(leaf.dtype).float(),
+               torch.float32 if leaf.dtype == torch.float32
+               else torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_mamba_scan_rejects_what_it_does_not_take():
+    dev = _cuda()
+    from repro_torch.kernels.mamba_scan import mamba_scan_fwd_cuda
+    delta, xs, B, C, A, reset, h0 = _scan_case(64, 32, 16, (
+        torch.float32, torch.float32), dev, 0)
+    with pytest.raises(ValueError):                   # T not tile-aligned
+        mamba_scan_fwd_cuda(delta[:60], xs[:60], B[:60], C[:60], A,
+                            reset[:60], h0)
+    with pytest.raises(ValueError):                   # DS = 32
+        mamba_scan_fwd_cuda(delta, xs, B.repeat(1, 2), C.repeat(1, 2),
+                            A.repeat(1, 2), reset, h0.repeat(1, 2))
+    with pytest.raises(ValueError):                   # B not in delta's type
+        mamba_scan_fwd_cuda(delta, xs, B.bfloat16(), C, A, reset, h0)
+    with pytest.raises(ValueError):                   # bf16 delta, f32 xs
+        mamba_scan_fwd_cuda(delta.bfloat16(), xs, B.bfloat16(),
+                            C.bfloat16(), A, reset, h0)
+    with pytest.raises(ValueError):                   # CPU tensors
+        mamba_scan_fwd_cuda(*(t.cpu() for t in (delta, xs, B, C, A, reset,
+                                                h0)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "falcon-mamba-7b"])
+def test_ssm_train_step_on_card_matches_cpu(arch):
+    """One reduced float32 chunked step of the SSM families (a sequence
+    split over 3 chunks with the ``(h, conv_tail)`` carry, and KV on
+    hymba; pad rows in front of the carry; the planner's non-zero remat
+    table) on the card, through the kernels, against the same step on the
+    CPU through the plain versions: loss ``rtol 1e-5``, gradients within
+    ``2e-5`` scaled by each leaf's largest value."""
+    dev = _cuda()
+    from repro_torch.configs import get_arch
+    from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
+                                  plan_batch)
+    from repro_torch.kernels.mamba_scan import (mamba_scan_bwd_cuda,
+                                                mamba_scan_fwd_cuda)
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.runtime.train_step import ChunkedTrainer
+    cfg = get_arch(arch).reduced(n_layers=4, d_model=128, n_heads=4,
+                                 head_dim=64, vocab=512)
+    rng = np.random.default_rng(2)
+    lens = [400] + [int(x) for x in rng.integers(30, 150, 5)]
+    corpus = {i: rng.integers(0, 512, n).astype(np.int32)
+              for i, n in enumerate(lens)}
+    cm = CostModel(cfg.spec, ClusterSpec())
+    plan = plan_batch(cm, lens, PlannerConfig(
+        fixed_k=3, bucket_rounding=16, remat_mode="stage_aware",
+        capacity_bytes=cm.m_model_states(1) + 4e6))
+    chunks = [c for p in plan.pipelines for c in p.chunks]
+    assert max(s.n_chunks for s in plan.sequences) >= 3
+    assert any(c.has_dependents and c.tokens % 64 for c in chunks)
+    params = DecoderLM(cfg).init(torch.Generator().manual_seed(0),
+                                 device="cpu")
+    res = {}
+    for d in ("cpu", dev):
+        before = (mamba_scan_fwd_cuda.launches, mamba_scan_bwd_cuda.launches,
+                  ops.mamba_scan.plain_calls)
+        tr = ChunkedTrainer(cfg, params, device=d,
+                            compute_dtype=torch.float32)
+        res[str(d)] = tr.loss_and_grads(plan, corpus)
+        if d is dev:
+            torch.cuda.synchronize()
+            after = (mamba_scan_fwd_cuda.launches,
+                     mamba_scan_bwd_cuda.launches,
+                     ops.mamba_scan.plain_calls)
+            assert after[0] > before[0] and after[1] > before[1]
+            assert after[2] == before[2]
     a, b = res["cpu"], res[str(dev)]
     assert a.n_valid == b.n_valid
     assert abs(a.loss - b.loss) <= 1e-5 * abs(a.loss)
