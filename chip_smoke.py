@@ -42,7 +42,7 @@ exit and no result line):
              DS 16, with float32 delta, B, C and bf16 xs (as the bf16 mixer
              feeds them) and all float32; on step 0's most packed chunk
              with row 0 continuing a non-zero h0; at falcon-mamba-7b's
-             width (DI 8192, 8,192 rows, bf16) (faults: the resets shifted
+             width (DI 8192, 8,192 rows, bf16 xs) (faults: the resets shifted
              by one row, h0 dropped, the last time tile dropped, each
              outside the tolerance in D and in D'); the attention forward
              and backward at hymba's heads (25 query heads, 5 KV heads of
@@ -92,9 +92,10 @@ exit and no result line):
            in front of the KV and SSM carries, a non-zero remat table: the
            step with the table zeroed equals it bit for bit, and it equals
            one unchunked forward and backward per sequence (loss 1e-5
-           relative; gradients within 1e-5 or twice the float32 noise
-           floor measured beside it, the same corpus packed without a
-           split, at most 1e-4);
+           relative; each gradient leaf within 1e-4 of its largest value,
+           as is the same corpus packed without a split); two planted
+           carry faults (pad rows resetting the SSM state, the state's
+           gradient dropped at the hand-off) must exceed those limits;
   kernels  every kernel of the port with its launch counts in serve,
            train and train_hymba.
 
@@ -104,6 +105,7 @@ The last two lines are the kernels JSON and the device JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import re
@@ -816,11 +818,12 @@ def _timed(fn):
     return out, a.elapsed_time(b)
 
 
-def _scan_case(name, T, DI, DS, reset_rows, dtypes, dev, seed):
+def _scan_case(name, T, DI, DS, reset_rows, xs_dtype, dev, seed):
     """Kernels D (``mamba_scan_fwd_kernel``) and D' (``mamba_scan_bwd_kernel``
     and ``mamba_scan_reduce_kernel``) on one chunk against the plain scan
-    and its autograd (``ref``), on the same inputs: delta, B, C and xs in
-    the ``dtypes`` pair, a sequence start at each of ``reset_rows``, a
+    and its stepwise reverse pass (``ref``), on the same inputs: delta, B
+    and C float32 and xs in ``xs_dtype`` (as the mixer feeds them), a
+    sequence start at each of ``reset_rows``, a
     non-zero h0, random output gradients on y and h_last. Both sides
     compute in float32 from the same values, so every case is held to the
     float32 tolerance. Faults fed to the kernels, each of which must fall
@@ -840,13 +843,12 @@ def _scan_case(name, T, DI, DS, reset_rows, dtypes, dev, seed):
         raise PhaseError(f"{name}: {T} rows, not a multiple of {SCAN_TILE}")
     gen = torch.Generator(device=dev).manual_seed(seed)
     f32 = torch.float32
-    td, tx = dtypes
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=f32)
-    delta = torch.nn.functional.softplus(rnd(T, DI)).to(td)
-    xs = rnd(T, DI).to(tx)
-    B, C = rnd(T, DS).to(td), rnd(T, DS).to(td)
+    delta = torch.nn.functional.softplus(rnd(T, DI))
+    xs = rnd(T, DI).to(xs_dtype)
+    B, C = rnd(T, DS), rnd(T, DS)
     A = -torch.exp(rnd(DI, DS) * 0.3)
     h0, dy, dh = rnd(DI, DS), rnd(T, DI), rnd(DI, DS)
     reset_np = np.zeros(T, np.int32)
@@ -889,32 +891,35 @@ def _scan_case(name, T, DI, DS, reset_rows, dtypes, dev, seed):
             missed.append(fault)
     del got_f, got_g, want_f, want_g
     # the kernels alone (T is tile-aligned: the ops pad nothing)
-    ins = (delta, xs, B.contiguous(), C.contiguous(), A, reset)
+    ins = (delta, xs, B, C, A, reset)
     _, _, ck = mamba_scan_fwd_cuda(*ins, h0)
     ms = _cuda_ms(lambda: mamba_scan_fwd_cuda(*ins, h0), iters=5, warmup=1)
     ms_bwd = _cuda_ms(lambda: mamba_scan_bwd_cuda(*ins, ck, dy, dh),
                       iters=3, warmup=1)
     ws = mamba_scan_bwd_cuda(*ins, ck, dy, dh)[2]
     ms_red = _cuda_ms(lambda: mamba_scan_reduce_cuda(ws), iters=5, warmup=1)
-    # bytes: each input read once, each output written once (y, the
-    # gradients, the partials float32); operations per (row, channel,
-    # state): the forward 8 (delta A, exp, delta x, * B, a h + input, h C
-    # and its sum), the backward 24 (the state recomputed, then dh, the
-    # decay's and the input's gradients and their sums); the reduction one
-    # add per partial
+    # Bounds of the functions, not of this design: bytes are each of the
+    # function's inputs read once and each output written once (D: delta,
+    # xs, B, C, A, reset, h0 in, y and h_last out; D': those inputs with
+    # dy and dh_last in, the gradients of delta, xs, B, C, A and h0 out),
+    # so neither the state checkpoints nor the dB/dC partials count there;
+    # the partials are the reduction's own inputs. Operations per (row,
+    # channel, state): the forward 8 (delta A, exp, delta x, * B, a h +
+    # input, h C and its sum), the backward 16 (dh, the decay's and the
+    # input's gradients and their sums; not the states' recompute, which
+    # is this design's choice); the reduction one add per partial.
     size = lambda t: t.numel() * t.element_size()  # noqa: E731
     cells = T * DI * DS
     n_cb = -(-DI // CHANNELS_PER_BLOCK)
     part = n_cb * T * 2 * DS * 4
-    common = sum(size(t) for t in ins)
+    ins_bytes = sum(size(t) for t in ins) + size(h0)
     bounds = {
-        "fwd": _bound(8.0 * cells, common + size(h0) + 4 * (T * DI + DI * DS)
-                      + size(ck), f32),
-        "bwd": _bound(24.0 * cells, common + size(ck) + size(dy) + size(dh)
-                      + 4 * (2 * T * DI + 2 * DI * DS) + part, f32),
+        "fwd": _bound(8.0 * cells, ins_bytes + 4 * (T * DI + DI * DS), f32),
+        "bwd": _bound(16.0 * cells, ins_bytes + size(dy) + size(dh)
+                      + 4 * (2 * T * DI + 2 * T * DS + 2 * DI * DS), f32),
         "reduce": _bound(n_cb * T * 2.0 * DS, part + 4 * 2 * T * DS, f32)}
-    rec = dict(case=name, dtype=f"delta/B/C {_dtype_name(td)}, xs "
-               f"{_dtype_name(tx)}", T=T, DI=DI, DS=DS,
+    rec = dict(case=name, dtype=f"delta/B/C float32, xs "
+               f"{_dtype_name(xs_dtype)}", T=T, DI=DI, DS=DS,
                resets=int(reset_np.sum()), row0_continues=bool(
                    reset_np[0] == 0),
                max_abs_err=f_err, bwd_max_abs_err=g_err, tol=TOL["float32"],
@@ -923,7 +928,12 @@ def _scan_case(name, T, DI, DS, reset_rows, dtypes, dev, seed):
                kernel_ms_reduce=ms_red, plain_ms=plain_ms,
                plain_ms_bwd=plain_ms_bwd,
                plain_is="ref.mamba_scan_reference (one step at a time) and "
-                        "autograd through it (ref.mamba_scan_grad), one run",
+                        "ref.mamba_scan_grad (a stepwise reverse pass, "
+                        "checked against jax.grad in tests/test_torch_ssm.py)"
+                        ", one run",
+               bound_covers="the function's own inputs and outputs (no "
+                            "state checkpoints, no dB/dC partials; D' "
+                            "without the states' recompute)",
                library_ms=None, library_is="no single call",
                bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1],
                bound_ms_bwd=bounds["bwd"][0], bound_by_bwd=bounds["bwd"][1],
@@ -943,7 +953,8 @@ def phase_kernel_ssm(dev, seed):
     with float32 delta, B, C and bf16 xs (as the bf16 mixer feeds them)
     and all in float32; D and D' on step 0's most packed chunk with row 0
     continuing a carry (so h0 counts); D and D' at falcon-mamba-7b's width
-    (DI 8192, DS 16, 8,192 rows, bf16); the attention forward and backward
+    (DI 8192, DS 16, 8,192 rows, bf16 xs as its bf16 mixer would feed
+    them); the attention forward and backward
     at hymba's heads (25 query heads, 5 KV heads of 64) and B, C1, C2 with
     its head (D 1600, V 32001: one target in the last, ragged vocab tile)
     on the largest chunk, bf16."""
@@ -963,15 +974,15 @@ def phase_kernel_ssm(dev, seed):
     scan = []
     for args in (
             (f"{name}, its sequence starts", len(seg), 3200, 16,
-             starts(seg, pos), (f32, bf16)),
+             starts(seg, pos), bf16),
             (f"{name}, its sequence starts", len(seg), 3200, 16,
-             starts(seg, pos), (f32, f32)),
+             starts(seg, pos), f32),
             (f"hymba-1.5b packed chunk ({packed[0].tokens} tokens, "
              f"{len(p_starts)} sequences), row 0 continuing a carry",
-             len(p_seg), 3200, 16, carried, (f32, f32)),
+             len(p_seg), 3200, 16, carried, f32),
             ("falcon-mamba-7b width, 8,192 rows of that packed chunk, row 0 "
              "continuing a carry", 8192, 8192, 16, carried[carried < 8192],
-             (bf16, bf16))):
+             bf16)):
         scan.append(_scan_case(*args, dev, 31 + len(scan)))
         print(f"[kernel] selective scan {json.dumps(scan[-1])}", flush=True)
         torch.cuda.empty_cache()
@@ -1263,6 +1274,53 @@ def phase_train_verify(dev, seed):
     return out
 
 
+# train_verify_hymba's gradient limit, relative to each leaf's largest
+# value. Fixed between the sound readings on the H100 (3.9e-5 for the
+# 3-chunk step, 4.2e-5 for the same corpus packed with no split: float32
+# rounding of repacked rows through 32 layers) and the planted carry
+# faults', which the phase measures and requires above it. It is not the
+# 1e-5 that gemma3-1b's float32 step meets (7.7e-6).
+HYMBA_GRAD_LIMIT = 1e-4
+
+
+@contextlib.contextmanager
+def _carry_fault(trainer, fault):
+    """The trainer with one carry fault planted (undone on exit):
+    ``"pad rows reset the state"`` runs the mixer with pad rows taken as
+    live rows (position 0: they reset the state and enter the conv tail,
+    as the reference's mixer does); ``"dh dropped at the hand-off"``
+    detaches the SSM state each chunk hands on, so its gradient never
+    reaches the chunk that produced it."""
+    from repro_torch.models import model as model_mod
+    patched = []
+    if fault == "pad rows reset the state":
+        mixer = model_mod.mamba_apply
+
+        def faulty(cfg, p, x, *, seg, **kw):
+            return mixer(cfg, p, x, seg=seg.clamp(min=0), **kw)
+        patched.append((model_mod, "mamba_apply", mixer))
+        model_mod.mamba_apply = faulty
+    elif fault == "dh dropped at the hand-off":
+        fwd = trainer.model.forward_chunk
+
+        def faulty(*a, **kw):
+            hidden, out = fwd(*a, **kw)
+            if out is not None and out.ssm_h is not None:
+                out = out._replace(ssm_h=[
+                    None if h is None else h.detach().requires_grad_(True)
+                    for h in out.ssm_h])
+            return hidden, out
+        trainer.model.forward_chunk = faulty
+    else:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        for obj, attr, orig in patched:
+            setattr(obj, attr, orig)
+        trainer.model.__dict__.pop("forward_chunk", None)
+
+
 def phase_train_verify_hymba(dev, seed):
     """hymba-1.5b in float32 at full width: one sequence of 3,000 tokens
     split over 3 chunks whose split slices (1,060 and 997 tokens) are not
@@ -1272,16 +1330,13 @@ def phase_train_verify_hymba(dev, seed):
     * The step with the table zeroed equals it bit for bit (every kernel
       is deterministic).
     * It equals one unchunked forward and backward per sequence: the loss
-      within 1e-5 relative; every gradient leaf within ``limit`` relative
-      to its largest value, where ``limit`` is 1e-5 or, if larger, twice
-      the float32 noise floor of this comparison, and at most 1e-4. The
-      floor is measured in the same run: the same corpus planned with no
-      split (K = 1: no carry, no pad rows in front of one) against the
-      same unchunked pass. At this depth and width the floor is above 1e-5
-      (repacking alone moves the gradients by ~3e-5 of their largest
-      values), while a carry fault moves them by orders of magnitude
-      more (the reference's pad-row reset misses by 0.3-1.4 on hidden
-      states)."""
+      within 1e-5 relative; every gradient leaf within
+      :data:`HYMBA_GRAD_LIMIT` relative to its largest value. The same
+      corpus planned with no split (K = 1: no carry, no pad rows in front
+      of one) is held to the same limits, and its reading shows the
+      float32 floor of the comparison.
+    * Each planted carry fault (:func:`_carry_fault`) moves the loss or a
+      gradient leaf beyond those limits."""
     import numpy as np
     import torch
 
@@ -1333,42 +1388,50 @@ def phase_train_verify_hymba(dev, seed):
     if not same:
         raise PhaseError(f"the remat-zeroed step is not bitwise equal: {out}")
     whole = tr.sequence_loss_and_grads(corpus)
+    names = _leaf_names(tr.params)
 
-    def rel_diff(run):
-        """(the loss's relative difference, the largest over leaves of
-        max |g - g_whole| / max |g_whole|, that leaf) against ``whole``."""
-        worst, leaf = 0.0, None
+    def against_whole(run):
+        """The loss's relative difference from ``whole``, the largest over
+        leaves of max |g - g_whole| / max |g_whole|, that leaf, and
+        whether both are within the limits."""
+        worst, leaf = 0.0, 0
         for i, (a, b) in enumerate(zip(tree_leaves(run.grads),
                                        tree_leaves(whole.grads))):
             r = float((a - b).abs().max()) / max(float(b.abs().max()),
                                                  1e-30)
             if r > worst:
                 worst, leaf = r, i
-        return abs(run.loss - whole.loss) / abs(whole.loss), worst, leaf
-    names = _leaf_names(tr.params)
-    rel_loss, worst, leaf = rel_diff(base)
-    del base
+        rel = abs(run.loss - whole.loss) / abs(whole.loss)
+        return {"loss": run.loss, "loss_rel_diff": rel,
+                "grad_max_rel_diff": worst,
+                "grad_max_rel_diff_leaf": names[leaf],
+                "within": rel <= 1e-5 and worst <= HYMBA_GRAD_LIMIT}
     packed = plan_batch(cm, lens, PlannerConfig(
         fixed_k=1, bucket_rounding=64, remat_mode="stage_aware"))
     if any(c.has_dependents or c.context
            for p in packed.pipelines for c in p.chunks):
         raise PhaseError("the K = 1 plan splits a sequence")
-    floor_loss, floor, floor_leaf = rel_diff(tr.loss_and_grads(packed,
-                                                               corpus))
-    limit = max(1e-5, 2.0 * floor)
-    out["unchunked"] = {
-        "loss": whole.loss, "loss_rel_diff": rel_loss,
-        "grad_max_rel_diff": worst, "grad_max_rel_diff_leaf": names[leaf],
-        "noise_floor": {"plan": [[c.tokens for c in p.chunks]
-                                 for p in packed.pipelines],
-                        "loss_rel_diff": floor_loss,
-                        "grad_max_rel_diff": floor,
-                        "grad_max_rel_diff_leaf": names[floor_leaf]},
-        "grad_limit": limit}
-    if rel_loss > 1e-5 or worst > limit or limit > 1e-4 or \
+    out["unchunked"] = {"loss": whole.loss,
+                        "grad_limit": HYMBA_GRAD_LIMIT,
+                        "chunked": against_whole(base)}
+    del base
+    out["unchunked"]["K = 1, no split"] = dict(
+        against_whole(tr.loss_and_grads(packed, corpus)),
+        plan=[[c.tokens for c in p.chunks] for p in packed.pipelines])
+    faults = {}
+    for fault in ("pad rows reset the state", "dh dropped at the hand-off"):
+        with _carry_fault(tr, fault):
+            faults[fault] = against_whole(tr.loss_and_grads(plan, corpus))
+    out["planted carry faults"] = faults
+    sound = [out["unchunked"]["chunked"],
+             out["unchunked"]["K = 1, no split"]]
+    if not all(r["within"] for r in sound) or \
             whole.n_valid != base_n_valid:
         raise PhaseError(f"the unchunked step differs from the chunked "
                          f"step: {out}")
+    missed = [f for f, r in faults.items() if r["within"]]
+    if missed:
+        raise PhaseError(f"the limits do not catch {missed}: {out}")
     del whole, tr
     torch.cuda.empty_cache()
     return out

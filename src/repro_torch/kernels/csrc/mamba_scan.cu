@@ -12,10 +12,8 @@
 // [T, DI, DS] outer products are formed in registers and never stored. The
 // caller pads T to a multiple of BT with state-neutral steps (delta = 0,
 // reset = 0: a = 1, no input) and DS is 4 (the reduced test models) or 16
-// (hymba-1.5b, falcon-mamba-7b). Inputs are float32 or bf16: delta, B and
-// C share one type and xs has the same or bf16 beside float32 delta (as
-// the bf16 mixer feeds them); they are upcast to float32 and every sum is
-// float32.
+// (hymba-1.5b, falcon-mamba-7b). delta, B and C are float32; xs is float32
+// or bf16 (the bf16 mixer's), upcast to float32; every sum is float32.
 //
 // Design. One thread owns one (channel, state) pair and walks all of time,
 // holding its h in a register; a block holds CPB = 16 channels (16 * DS
@@ -85,9 +83,9 @@ __device__ __forceinline__ float sum_channels(float v) {  // over the warp's cha
 
 // Stages rows [t0, t0 + BT) of delta and xs (the block's CPB channels), B, C
 // and reset in shared memory. Channels beyond DI read 0.
-template <int DS, typename TD, typename TX>
-__device__ __forceinline__ void stage_tile(const TD* delta, const TX* xs, const TD* Bm,
-                                           const TD* Cm, const int* reset, int t0, int c0,
+template <int DS, typename TX>
+__device__ __forceinline__ void stage_tile(const float* delta, const TX* xs, const float* Bm,
+                                           const float* Cm, const int* reset, int t0, int c0,
                                            int DI, float (*s_d)[CPB], float (*s_x)[CPB],
                                            float (*s_b)[DS], float (*s_c)[DS], int* s_r) {
   constexpr int NT = CPB * DS;
@@ -97,7 +95,7 @@ __device__ __forceinline__ void stage_tile(const TD* delta, const TX* xs, const 
     float dv = 0.f, xv = 0.f;
     if (ch < DI) {
       const size_t o = (size_t)(t0 + r) * DI + ch;
-      dv = to_f(delta[o]);
+      dv = delta[o];
       xv = to_f(xs[o]);
     }
     s_d[r][cc] = dv;
@@ -106,16 +104,16 @@ __device__ __forceinline__ void stage_tile(const TD* delta, const TX* xs, const 
   for (int i = tid; i < BT * DS; i += NT) {
     const int r = i / DS, s = i % DS;
     const size_t o = (size_t)(t0 + r) * DS + s;
-    s_b[r][s] = to_f(Bm[o]);
-    s_c[r][s] = to_f(Cm[o]);
+    s_b[r][s] = Bm[o];
+    s_c[r][s] = Cm[o];
   }
   for (int i = tid; i < BT; i += NT) s_r[i] = reset[t0 + i];
 }
 
-template <int DS, typename TD, typename TX>
+template <int DS, typename TX>
 __global__ void __launch_bounds__(CPB * DS)
-    mamba_scan_fwd_kernel(const TD* __restrict__ delta, const TX* __restrict__ xs,
-                          const TD* __restrict__ Bm, const TD* __restrict__ Cm,
+    mamba_scan_fwd_kernel(const float* __restrict__ delta, const TX* __restrict__ xs,
+                          const float* __restrict__ Bm, const float* __restrict__ Cm,
                           const float* __restrict__ A, const int* __restrict__ reset,
                           const float* __restrict__ h0, float* __restrict__ y,
                           float* __restrict__ h_last, float* __restrict__ ckpt, int T, int DI) {
@@ -166,10 +164,10 @@ struct BwdSmem {
   int r[BT];
 };
 
-template <int DS, typename TD, typename TX>
+template <int DS, typename TX>
 __global__ void __launch_bounds__(CPB * DS)
-    mamba_scan_bwd_kernel(const TD* __restrict__ delta, const TX* __restrict__ xs,
-                          const TD* __restrict__ Bm, const TD* __restrict__ Cm,
+    mamba_scan_bwd_kernel(const float* __restrict__ delta, const TX* __restrict__ xs,
+                          const float* __restrict__ Bm, const float* __restrict__ Cm,
                           const float* __restrict__ A, const int* __restrict__ reset,
                           const float* __restrict__ ckpt, const float* __restrict__ dy,
                           const float* __restrict__ dh_last, float* __restrict__ d_delta,
@@ -283,62 +281,58 @@ __global__ void mamba_scan_reduce_kernel(const float* __restrict__ ws, float* __
     dC[(size_t)t * DS + (j - DS)] = v;
 }
 
-template <int DS, typename TD, typename TX>
+template <int DS, typename TX>
 int launch_fwd(const void* delta, const void* xs, const void* B, const void* C,
                const void* A, const void* reset, const void* h0, void* y, void* h_last,
                void* ckpt, int T, int DI, cudaStream_t st) {
   const int grid = (DI + CPB - 1) / CPB;
-  mamba_scan_fwd_kernel<DS, TD, TX><<<grid, CPB * DS, 0, st>>>(
-      (const TD*)delta, (const TX*)xs, (const TD*)B, (const TD*)C, (const float*)A,
+  mamba_scan_fwd_kernel<DS, TX><<<grid, CPB * DS, 0, st>>>(
+      (const float*)delta, (const TX*)xs, (const float*)B, (const float*)C, (const float*)A,
       (const int*)reset, (const float*)h0, (float*)y, (float*)h_last, (float*)ckpt, T, DI);
   return (int)cudaGetLastError();
 }
 
-template <int DS, typename TD, typename TX>
+template <int DS, typename TX>
 int launch_bwd(const void* delta, const void* xs, const void* B, const void* C,
                const void* A, const void* reset, const void* ckpt, const void* dy,
                const void* dh_last, void* d_delta, void* d_xs, void* y_out, void* dA,
                void* dh0, void* ws, int T, int DI, cudaStream_t st) {
   const int grid = (DI + CPB - 1) / CPB;
   const int smem = (int)sizeof(BwdSmem<DS>);
-  auto kern = mamba_scan_bwd_kernel<DS, TD, TX>;
+  auto kern = mamba_scan_bwd_kernel<DS, TX>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<grid, CPB * DS, smem, st>>>(
-      (const TD*)delta, (const TX*)xs, (const TD*)B, (const TD*)C, (const float*)A,
+      (const float*)delta, (const TX*)xs, (const float*)B, (const float*)C, (const float*)A,
       (const int*)reset, (const float*)ckpt, (const float*)dy, (const float*)dh_last,
       (float*)d_delta, (float*)d_xs, (float*)y_out, (float*)dA, (float*)dh0, (float*)ws, T,
       DI);
   return (int)cudaGetLastError();
 }
 
-// Dispatch on (DS, delta/B/C type, xs type); dtype 0 = float32, 1 = bf16.
-template <template <int, typename, typename> class F, typename... Args>
-int dispatch(int DS, int td, int tx, Args... args) {
-  using bf = __nv_bfloat16;
-#define MAMBA_CASE(ds, TD, TX, cd, cx) \
-  if (DS == ds && td == cd && tx == cx) return F<ds, TD, TX>::run(args...);
-#define MAMBA_DS(ds)                    \
-  MAMBA_CASE(ds, float, float, 0, 0)    \
-  MAMBA_CASE(ds, float, bf, 0, 1)       \
-  MAMBA_CASE(ds, bf, bf, 1, 1)
-  MAMBA_DS(4)
-  MAMBA_DS(16)
-#undef MAMBA_DS
+// Dispatch on (DS, xs type); dtype 0 = float32, 1 = bf16.
+template <template <int, typename> class F, typename... Args>
+int dispatch(int DS, int tx, Args... args) {
+#define MAMBA_CASE(ds, TX, cx) \
+  if (DS == ds && tx == cx) return F<ds, TX>::run(args...);
+  MAMBA_CASE(4, float, 0)
+  MAMBA_CASE(4, __nv_bfloat16, 1)
+  MAMBA_CASE(16, float, 0)
+  MAMBA_CASE(16, __nv_bfloat16, 1)
 #undef MAMBA_CASE
   return (int)cudaErrorInvalidValue;
 }
 
-template <int DS, typename TD, typename TX>
+template <int DS, typename TX>
 struct Fwd {
   template <typename... Args>
-  static int run(Args... args) { return launch_fwd<DS, TD, TX>(args...); }
+  static int run(Args... args) { return launch_fwd<DS, TX>(args...); }
 };
 
-template <int DS, typename TD, typename TX>
+template <int DS, typename TX>
 struct Bwd {
   template <typename... Args>
-  static int run(Args... args) { return launch_bwd<DS, TD, TX>(args...); }
+  static int run(Args... args) { return launch_bwd<DS, TX>(args...); }
 };
 
 }  // namespace
@@ -350,14 +344,15 @@ extern "C" {
 int mamba_scan_tile() { return BT; }
 int mamba_scan_channels_per_block() { return CPB; }
 
-// D. delta, B, C (dtype td), xs (dtype tx) -> y [T, DI], h_last [DI, DS],
-// ckpt [T / BT, DI, DS] (float32); A, h0 [DI, DS] float32, reset [T] int32.
+// D. delta [T, DI], B, C [T, DS] float32, xs [T, DI] (dtype tx) -> y [T, DI],
+// h_last [DI, DS], ckpt [T / BT, DI, DS] (float32); A, h0 [DI, DS] float32,
+// reset [T] int32.
 // Returns a cudaError_t code.
 int mamba_scan_fwd(const void* delta, const void* xs, const void* B, const void* C,
                    const void* A, const void* reset, const void* h0, void* y, void* h_last,
-                   void* ckpt, int T, int DI, int DS, int td, int tx, void* stream) {
+                   void* ckpt, int T, int DI, int DS, int tx, void* stream) {
   if (T <= 0 || T % BT || DI <= 0) return (int)cudaErrorInvalidValue;
-  return dispatch<Fwd>(DS, td, tx, delta, xs, B, C, A, reset, h0, y, h_last, ckpt, T, DI,
+  return dispatch<Fwd>(DS, tx, delta, xs, B, C, A, reset, h0, y, h_last, ckpt, T, DI,
                        (cudaStream_t)stream);
 }
 
@@ -368,9 +363,9 @@ int mamba_scan_fwd(const void* delta, const void* xs, const void* B, const void*
 int mamba_scan_bwd(const void* delta, const void* xs, const void* B, const void* C,
                    const void* A, const void* reset, const void* ckpt, const void* dy,
                    const void* dh_last, void* d_delta, void* d_xs, void* y_out, void* dA,
-                   void* dh0, void* ws, int T, int DI, int DS, int td, int tx, void* stream) {
+                   void* dh0, void* ws, int T, int DI, int DS, int tx, void* stream) {
   if (T <= 0 || T % BT || DI <= 0) return (int)cudaErrorInvalidValue;
-  return dispatch<Bwd>(DS, td, tx, delta, xs, B, C, A, reset, ckpt, dy, dh_last, d_delta,
+  return dispatch<Bwd>(DS, tx, delta, xs, B, C, A, reset, ckpt, dy, dh_last, d_delta,
                        d_xs, y_out, dA, dh0, ws, T, DI, (cudaStream_t)stream);
 }
 

@@ -36,12 +36,9 @@ __all__ = ["SCAN_TILE", "CHANNELS_PER_BLOCK", "STATE_SIZES",
 SCAN_TILE = 64              # time rows per tile and checkpoint (csrc: BT)
 CHANNELS_PER_BLOCK = 16     # csrc: CPB
 STATE_SIZES = (4, 16)       # the DS the kernels are built for
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# (delta/B/C, xs) pairs built: all float32, all bf16, and float32 delta
-# beside bf16 xs (the bf16 mixer's)
-_DTYPE_PAIRS = ((torch.float32, torch.float32),
-                (torch.float32, torch.bfloat16),
-                (torch.bfloat16, torch.bfloat16))
+# xs types built (delta, B and C are float32): float32, and bf16 (the bf16
+# mixer's)
+_XS_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -68,9 +65,9 @@ def load_library() -> MambaScanLibrary:
             raise RuntimeError(f"{built.path.name}: {name}() = {fn()} but "
                                f"the wrapper expects {want}")
     fwd = lib.mamba_scan_fwd
-    fwd.argtypes, fwd.restype = [_P] * 10 + [_I] * 5 + [_P], _I
+    fwd.argtypes, fwd.restype = [_P] * 10 + [_I] * 4 + [_P], _I
     bwd = lib.mamba_scan_bwd
-    bwd.argtypes, bwd.restype = [_P] * 15 + [_I] * 5 + [_P], _I
+    bwd.argtypes, bwd.restype = [_P] * 15 + [_I] * 4 + [_P], _I
     red = lib.mamba_scan_reduce
     red.argtypes, red.restype = [_P] * 3 + [_I] * 3 + [_P], _I
     return MambaScanLibrary(path=built.path, build_log=built.build_log,
@@ -96,18 +93,15 @@ def _check(delta, xs, B, C, A, reset, *f32):
     if tuple(B.shape) != (T, DS) or tuple(C.shape) != (T, DS):
         raise ValueError(f"B {tuple(B.shape)} and C {tuple(C.shape)} must be "
                          f"[{T}, {DS}]")
-    if (delta.dtype, xs.dtype) not in _DTYPE_PAIRS or \
-            B.dtype != delta.dtype or C.dtype != delta.dtype:
-        raise ValueError(f"delta, B and C must share one dtype, and (delta, "
-                         f"xs) be one of {_DTYPE_PAIRS}: {delta.dtype}, "
-                         f"{B.dtype}, {C.dtype}, {xs.dtype}")
-    if A.dtype != torch.float32 or tuple(A.shape) != (DI, DS):
-        raise ValueError(f"A must be float32 [{DI}, {DS}]")
+    if xs.dtype not in _XS_CODE:
+        raise ValueError(f"xs must be one of {tuple(_XS_CODE)}: {xs.dtype}")
+    if tuple(A.shape) != (DI, DS):
+        raise ValueError(f"A must be [{DI}, {DS}]")
     if reset.dtype != torch.int32 or tuple(reset.shape) != (T,):
         raise ValueError(f"reset must be int32 [{T}]")
-    for t in f32:
-        if t.dtype != torch.float32:
-            raise ValueError("h0, ckpt, dy and dh_last must be float32")
+    if any(t.dtype != torch.float32 for t in (delta, B, C, A, *f32)):
+        raise ValueError("delta, B, C, A, h0, ckpt, dy and dh_last must be "
+                         "float32")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("the selective-scan kernels take contiguous tensors")
     return T, DI, DS
@@ -141,13 +135,12 @@ class MambaScanFwd:
             rc = lib.fwd(delta.data_ptr(), xs.data_ptr(), B.data_ptr(),
                          C.data_ptr(), A.data_ptr(), reset.data_ptr(),
                          h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-                         ckpt.data_ptr(), T, DI, DS,
-                         _DTYPE_CODE[delta.dtype], _DTYPE_CODE[xs.dtype],
+                         ckpt.data_ptr(), T, DI, DS, _XS_CODE[xs.dtype],
                          stream)
         if rc != 0:
             raise RuntimeError(f"mamba_scan_fwd_kernel launch failed with "
                                f"cudaError {rc} (T={T}, DI={DI}, DS={DS}, "
-                               f"{delta.dtype}, {xs.dtype})")
+                               f"xs {xs.dtype})")
         self.launches += 1
         return y, h_last, ckpt
 
@@ -190,12 +183,11 @@ class MambaScanBwd:
                          d_delta.data_ptr(), d_xs.data_ptr(),
                          y.data_ptr() if y is not None else None,
                          dA.data_ptr(), dh0.data_ptr(), ws.data_ptr(), T, DI,
-                         DS, _DTYPE_CODE[delta.dtype], _DTYPE_CODE[xs.dtype],
-                         stream)
+                         DS, _XS_CODE[xs.dtype], stream)
         if rc != 0:
             raise RuntimeError(f"mamba_scan_bwd_kernel launch failed with "
                                f"cudaError {rc} (T={T}, DI={DI}, DS={DS}, "
-                               f"{delta.dtype}, {xs.dtype})")
+                               f"xs {xs.dtype})")
         self.launches += 1
         return d_delta, d_xs, ws, dA, dh0, y
 

@@ -207,13 +207,13 @@ fused_cross_entropy.plain_calls = 0
 def _scan_inputs(delta, xs, B, C, A, reset):
     """The scan kernels' inputs: rows padded to SCAN_TILE with
     state-neutral steps (delta 0 makes a = 1 and the input 0; reset 0 lets
-    the state through to h_last), B and C in delta's dtype, A float32,
+    the state through to h_last), delta, B, C and A float32, xs as given,
     reset int32, all contiguous."""
-    i32 = torch.int32
-    return (pad_rows(delta, SCAN_TILE).contiguous(),
+    i32, f32 = torch.int32, torch.float32
+    return (pad_rows(delta.to(f32), SCAN_TILE).contiguous(),
             pad_rows(xs, SCAN_TILE).contiguous(),
-            pad_rows(B.to(delta.dtype), SCAN_TILE).contiguous(),
-            pad_rows(C.to(delta.dtype), SCAN_TILE).contiguous(),
+            pad_rows(B.to(f32), SCAN_TILE).contiguous(),
+            pad_rows(C.to(f32), SCAN_TILE).contiguous(),
             A.float().contiguous(),
             pad_rows((reset.reshape(-1) != 0).to(i32), SCAN_TILE).contiguous())
 

@@ -18,8 +18,10 @@ tests and what :mod:`repro_torch.kernels.ops` runs on CPU tensors.
   JAX package's two loss oracles.
 * :func:`mamba_scan_reference` — the plain version of the selective-scan
   kernel D (a sequential scan in float32, differentiable by autograd);
-  :func:`mamba_scan_grad` — its gradient by autograd (the plain version of
-  the backward kernel D').
+  :func:`mamba_scan_grad` — its gradient by a stepwise reverse pass over
+  the materialised ``[T, DI, DS]`` terms (the plain version of the
+  backward kernel D'), checked against ``jax.grad`` in
+  ``tests/test_torch_ssm.py``.
 
 Packed-varlen mask rule (shared by every implementation):
   attend(qi, kj)  iff  seg_q[i] == seg_kv[j]  and  seg_q[i] >= 0
@@ -290,7 +292,7 @@ def mamba_scan_grad(delta, xs, B, C, A, reset, h0, dy, dh_last=None):
     sum(dh_last * h_last)`` in every input, in float32: the states forward,
     then ``dh_t = dh_{t+1} a_{t+1} + dy_t C_t`` backward one step after
     another, the rest as sums over the ``[T, DI, DS]`` terms (checked
-    against ``jax.grad`` by the CPU tests). Returns ``(y, d_delta, d_xs,
+    against ``jax.grad`` in ``tests/test_torch_ssm.py``). Returns ``(y, d_delta, d_xs,
     dB, dC, dA, dh0)``."""
     d, x, Bf, Cf, Af, a, bx = _scan_terms(delta, xs, B, C, A, reset)
     h0f = h0.float()

@@ -380,45 +380,44 @@ def _scan_case(T, DI, DS, dtypes, dev, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
-                                    (torch.bfloat16, torch.bfloat16),
                                     (torch.float32, torch.bfloat16)])
 @pytest.mark.parametrize("T,DI,DS", [(100, 40, 4), (64, 16, 16),
                                      (300, 48, 16), (130, 3200, 16)])
 def test_mamba_scan_kernels_match_plain(dtypes, T, DI, DS):
-    """D (y, h_last) and D' (every input's gradient, for output gradients
-    on y and h_last) against the plain scan and its autograd, on the same
-    inputs: rows not a multiple of the 64-row tile, channels not a
-    multiple of 16, a mixed pair (float32 delta, bf16 xs) as the mixer
-    feeds them. Both compute in float32 from the same values, so every
-    case is held to the float32 tolerance."""
+    """D (y, h_last) and D' (every input's gradient and the recomputed y,
+    for output gradients on y and h_last) through the two halves the mixer
+    calls (``ops.mamba_scan_fwd``, ``ops.mamba_scan_bwd`` with ``want_y``)
+    against the plain scan and its gradient, on the same inputs: rows not
+    a multiple of the 64-row tile, channels not a multiple of 16, float32
+    delta, B and C beside float32 or bf16 xs, as the mixer feeds them.
+    Both compute in float32 from the same values, so every case is held to
+    the float32 tolerance."""
     dev = _cuda()
     from repro_torch.kernels.mamba_scan import (mamba_scan_bwd_cuda,
                                                 mamba_scan_fwd_cuda,
                                                 mamba_scan_reduce_cuda)
     ins = _scan_case(T, DI, DS, dtypes, dev, seed=T + DI + DS)
     delta, xs, B, C, A, reset, h0 = ins
-    before = (mamba_scan_fwd_cuda.launches, mamba_scan_bwd_cuda.launches,
-              mamba_scan_reduce_cuda.launches, ops.mamba_scan.plain_calls)
-    leaves = [t.clone().requires_grad_(True) for t in (delta, xs, B, C, A,
-                                                       h0)]
-    y, h = ops.mamba_scan(*leaves[:5], reset, leaves[5])
     g = torch.Generator().manual_seed(1)
     dy = torch.randn((T, DI), generator=g).to(dev)
     dh = torch.randn((DI, DS), generator=g).to(dev)
-    torch.autograd.backward([y, h], [dy, dh])
+    before = (mamba_scan_fwd_cuda.launches, mamba_scan_bwd_cuda.launches,
+              mamba_scan_reduce_cuda.launches, ops.mamba_scan.plain_calls)
+    y, h, ckpt = ops.mamba_scan_fwd(delta, xs, B, C, A, reset, h0)
+    y_again, *grads = ops.mamba_scan_bwd(delta, xs, B, C, A, reset, h0,
+                                         ckpt, dy, dh, want_y=True)
     torch.cuda.synchronize()
     after = (mamba_scan_fwd_cuda.launches, mamba_scan_bwd_cuda.launches,
              mamba_scan_reduce_cuda.launches, ops.mamba_scan.plain_calls)
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 0]
     y_r, h_r = ref.mamba_scan_reference(delta, xs, B, C, A, reset, h0)
     _close(y, y_r, torch.float32)
+    _close(y_again, y_r, torch.float32)
     _close(h, h_r, torch.float32)
-    _, *grads = ref.mamba_scan_grad(delta, xs, B, C, A, reset, h0, dy, dh)
-    for leaf, want in zip(leaves, grads):
-        assert leaf.grad.dtype == leaf.dtype
-        _close(leaf.grad.float(), want.to(leaf.dtype).float(),
-               torch.float32 if leaf.dtype == torch.float32
-               else torch.bfloat16)
+    _, *want = ref.mamba_scan_grad(delta, xs, B, C, A, reset, h0, dy, dh)
+    for got, w in zip(grads, want):
+        assert got.dtype == torch.float32
+        _close(got, w, torch.float32)
 
 
 @pytest.mark.gpu
@@ -433,11 +432,10 @@ def test_mamba_scan_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):                   # DS = 32
         mamba_scan_fwd_cuda(delta, xs, B.repeat(1, 2), C.repeat(1, 2),
                             A.repeat(1, 2), reset, h0.repeat(1, 2))
-    with pytest.raises(ValueError):                   # B not in delta's type
+    with pytest.raises(ValueError):                   # bf16 B
         mamba_scan_fwd_cuda(delta, xs, B.bfloat16(), C, A, reset, h0)
-    with pytest.raises(ValueError):                   # bf16 delta, f32 xs
-        mamba_scan_fwd_cuda(delta.bfloat16(), xs, B.bfloat16(),
-                            C.bfloat16(), A, reset, h0)
+    with pytest.raises(ValueError):                   # bf16 delta
+        mamba_scan_fwd_cuda(delta.bfloat16(), xs, B, C, A, reset, h0)
     with pytest.raises(ValueError):                   # CPU tensors
         mamba_scan_fwd_cuda(*(t.cpu() for t in (delta, xs, B, C, A, reset,
                                                 h0)))
