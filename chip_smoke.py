@@ -8,7 +8,8 @@ Phases, one line each (a failed phase stops the script with a non-zero
 exit and no result line):
 
   build    compile the CUDA kernels for sm_90a, one nvcc per source, side
-           by side (nvcc -Xptxas -v lines), and the card's name and power
+           by side (nvcc -Xptxas -v lines; a bf16 attention backward pass
+           that spills fails the phase), and the card's name and power
            limit from nvidia-smi;
   kernel   every kernel against its plain PyTorch version on the card,
            each case with its max error against the tolerance, kernel_ms /
@@ -21,8 +22,9 @@ exit and no result line):
              llama3.2-3b (bf16), and the merge pass alone (faults: a
              window or causal limit one off, a live KV tile or a KV split
              dropped);
-           * the attention backward (``flash_bwd_dkdv_kernel``,
-             ``flash_bwd_dq_kernel``), the forward's output and its
+           * the attention backward (its tile ranges
+             ``flash_bwd_tiles_kernel``, ``flash_bwd_dq_kernel``,
+             ``flash_bwd_dkdv_kernel``), the forward's output and its
              log-sum-exp on the train phase's largest chunk of step 0 (its
              own segments and positions, no context; gemma3-1b global and
              window-512 layers, bf16), then on a training chunk with
@@ -49,9 +51,13 @@ exit and no result line):
              64) and B, C1, C2 with its head (D 1600, V 32001, one target
              in the last, ragged vocab tile);
            the plain versions run over blocks of rows, so that their
-           materialised scores or logits fit the card; the attention
-           backward's library yardstick (scaled_dot_product_attention with
-           the boolean mask under autograd) runs where the scores fit; the
+           materialised scores or logits fit the card; each attention
+           backward case also times the tile ranges (``bwd_tiles``), counts
+           each pass's tile pairs in range, visited and live, launches both
+           passes twice more (the results must be bitwise equal) and times
+           the library yardstick, scaled_dot_product_attention with the
+           boolean mask on the EFFICIENT_ATTENTION backend under autograd
+           (where that backend refuses a case, the record says why); the
            kernels line reports the train-chunk cases of the training
            kernels;
   serve    gemma3-1b at full width, bf16, random weights from --seed, 16
@@ -68,8 +74,8 @@ exit and no result line):
            loss, tokens, wall time, tokens/s, peak device memory and the
            plan's own estimate; every loss finite, every kernel launched
            exactly as the plan predicts (attention forward 26 x chunks +
-           remat depths, each backward pass 26 x chunks, B, C1, C2 once
-           per chunk) and no plain call;
+           remat depths, each backward pass and its tile ranges 26 x
+           chunks, B, C1, C2 once per chunk) and no plain call;
   train_verify  float32 at full width on a short batch (one sequence
            split over 3 chunks, one packed chunk, a non-zero remat table):
            the chunked step with the plan's remat table launches the
@@ -85,8 +91,8 @@ exit and no result line):
            estimate, solve seconds; every loss finite, every kernel
            launched exactly as the plan predicts (attention forward and
            selective scan D 32 x chunks + remat depths, each attention
-           backward pass, D' and its reduction 32 x chunks, B, C1, C2 once
-           per chunk) and no plain call;
+           backward pass, their tile ranges, D' and its reduction 32 x
+           chunks, B, C1, C2 once per chunk) and no plain call;
   train_verify_hymba  float32 at full width: one 3,000-token sequence in 3
            chunks whose split slices (1,060 and 997 tokens) leave pad rows
            in front of the KV and SSM carries, a non-zero remat table: the
@@ -141,6 +147,7 @@ def _nvidia_smi() -> str:
 
 KERNEL_NAMES = ("flash_fwd_kernel", "flash_combine_kernel",
                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_tiles_kernel",
                 "ce_fwd_kernel", "ce_bwd_kernel", "mamba_scan_fwd_kernel",
                 "mamba_scan_bwd_kernel", "mamba_scan_reduce_kernel")
 
@@ -156,7 +163,9 @@ def _ptxas_summary(log: str):
             m = re.search(r"Li(\d+)E", ln)
             var = m.group(1) if m else ("dw" if "Lb1E" in ln else
                                         "dh" if "Lb0E" in ln else "")
-            name = f"{kind}<{dt}{',' + var if var else ''}>"
+            # a template's mangled name goes on with "I" (its arguments)
+            name = (f"{kind}<{dt}{',' + var if var else ''}>"
+                    if kind + "I" in ln else kind)
         elif "spill" in ln:
             spill = ln.strip()
         elif "ptxas info" in ln and "Used" in ln:
@@ -436,10 +445,6 @@ def _plan_chunk(gen, seg, pos, Hq, Hkv, D, dtype, dev):
 # training chunk's length; a case of at most this many rows is one block
 ATTN_ROW_BLOCK = 4096
 CE_ROW_BLOCK = 8192
-# the library yardstick of the attention backward (scaled_dot_product_attention
-# with the boolean mask, under autograd) runs where Hq x T x S scores fit in
-# 2^30 elements; the train chunks' exceed that
-LIB_MAX_SCORES = 2 ** 30
 
 
 def _plain_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv, dout, window,
@@ -477,9 +482,14 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
 
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import (BWD_BLOCK,
+                                                     flash_attention_cuda,
                                                      flash_bwd_dkdv_cuda,
-                                                     flash_bwd_dq_cuda)
+                                                     flash_bwd_dq_cuda,
+                                                     flash_bwd_tiles_cuda,
+                                                     tile_counts)
     gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, dout, meta = inputs(gen, dtype)
     (T, Hq, D), Hkv = q.shape, k.shape[1]
@@ -524,21 +534,57 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
             missed.append(fault)
     pm = [t.contiguous() for t in padded[3:]]
     do = ops.pad_rows(dout, 32).contiguous()
-
-    ms = {"dkdv": _cuda_ms(lambda: flash_bwd_dkdv_cuda(
-              *padded[:3], out, do, lse, *pm, window=window), iters=3,
-              warmup=1),
-          "dq": _cuda_ms(lambda: flash_bwd_dq_cuda(
-              *padded[:3], out, do, lse, *pm, window=window), iters=3,
-              warmup=1)}
+    # the passes as the op runs them: the tile ranges, the dq pass (it
+    # writes Delta), then the dk/dv pass; each timed alone, then both passes
+    # launched twice more for the bitwise repeat check. The ranges and
+    # summaries must equal their plain version's.
+    block = BWD_BLOCK[dtype]
+    tiles_ms = _cuda_ms(lambda: flash_bwd_tiles_cuda(
+        *pm, window=window, block=block), iters=5, warmup=1)
+    tiles = flash_bwd_tiles_cuda(*pm, window=window, block=block)
+    plain_tiles, tiles_plain_ms = _timed(lambda: ref.flash_attention_tiles(
+        *pm, window=window, block=block))
+    tiles_err = max(int((getattr(tiles, n).long() - w.long()).abs().max())
+                    for n, w in zip(("kv_range", "q_range", "q_summary",
+                                     "kv_summary"), plain_tiles))
+    del plain_tiles
+    bwd_args = (*padded[:3], out, do, lse, *pm)
+    bwd_kw = dict(window=window, delta=torch.empty_like(lse), tiles=tiles)
+    ms = {"dq": _cuda_ms(lambda: flash_bwd_dq_cuda(*bwd_args, **bwd_kw),
+                         iters=3, warmup=1),
+          "dkdv": _cuda_ms(lambda: flash_bwd_dkdv_cuda(*bwd_args, **bwd_kw),
+                           iters=3, warmup=1)}
+    runs = []
+    for _ in range(2):
+        kw = dict(bwd_kw, delta=torch.empty_like(lse))
+        runs.append((flash_bwd_dq_cuda(*bwd_args, **kw),
+                     *flash_bwd_dkdv_cuda(*bwd_args, **kw), kw["delta"]))
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(*runs))
+    del runs
     plain_ms = _cuda_ms(lambda: [ref.flash_attention_grad(
         q[b], k, v, seg_q[b], seg_kv, pos_q[b], pos_kv, dout[b],
         window=window) for b in (slice(a, a + row_block) for a in
                                  range(0, T, row_block))],
         iters=2, warmup=1)
-    mask = ref.attention_mask(seg_q, seg_kv, pos_q, pos_kv, True, window)
-    pairs = int(mask.sum()) * Hq
-    del mask
+    # live pairs, and the tile pairs (per head) that hold one at the passes'
+    # tile size, over blocks of query rows
+    S = k.shape[0]
+    n_kv = -(-S // block)
+    pairs, live_tiles = 0, 0
+    for a in range(0, T, 64 * block):
+        b = slice(a, a + 64 * block)
+        mask = ref.attention_mask(seg_q[b], seg_kv, pos_q[b], pos_kv, True,
+                                  window)
+        pairs += int(mask.sum()) * Hq
+        rows = mask.shape[0]
+        mask = torch.nn.functional.pad(
+            mask, (0, n_kv * block - S, 0, -(-rows // block) * block - rows))
+        live_tiles += int(mask.view(-1, block, n_kv, block).any(3).any(1)
+                          .sum())
+        del mask
+    tiles_walked = {p: dict(c, live=live_tiles) for p, c in
+                    tile_counts(tiles, window=window).items()}
     # per live (query, key, head), products of 2 D flops: the backward as a
     # whole needs 5 (S = Q K^T recomputed, dP = dO V^T, dV = P^T dO,
     # dQ = dS K, dK = dS^T Q); the dk/dv pass alone 4 (S, dP, dV, dK), the
@@ -553,23 +599,35 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
               "dkdv": _bound(8.0 * D * pairs, common + size["k"] + size["v"],
                              dtype),
               "dq": _bound(6.0 * D * pairs, common + size["q"], dtype)}
+    # the ranges' kernel: the four metadata vectors read once, the ranges
+    # and summaries written once (its pair tests are a few per tile)
+    n_tiles = -(-T // block) + -(-S // block)
+    bounds["tiles"] = _bound(0.0, sum(t.numel() * 4 for t in pm)
+                             + 24 * n_tiles, dtype)
     bound_ms, bound_by = bounds["all"]
     kernel_ms = ms["dkdv"] + ms["dq"]
-    library_ms = None
-    if Hq * T * k.shape[0] <= LIB_MAX_SCORES:
-        G = Hq // Hkv
-        mask = ref.attention_mask(seg_q, seg_kv, pos_q, pos_kv, True, window)
-        qe = q.transpose(0, 1)[None].detach().requires_grad_(True)
-        ke, ve = (t.repeat_interleave(G, dim=1).transpose(0, 1)[None]
-                  .detach().requires_grad_(True) for t in (k, v))
-        de = dout.transpose(0, 1)[None]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
+    # the library yardstick: scaled_dot_product_attention with the boolean
+    # mask on its memory-efficient backend (no materialised scores), forward
+    # and backward, K and V repeated over the GQA group
+    library_ms, library_why = None, None
+    G = Hq // Hkv
+    mask = ref.attention_mask(seg_q, seg_kv, pos_q, pos_kv, True, window)
+    qe = q.transpose(0, 1)[None].detach().requires_grad_(True)
+    ke, ve = (t.repeat_interleave(G, dim=1).transpose(0, 1)[None]
+              .detach().requires_grad_(True) for t in (k, v))
+    de = dout.transpose(0, 1)[None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
 
-        def library():
-            out = sdpa(qe, ke, ve, attn_mask=mask)
-            torch.autograd.grad(out, (qe, ke, ve), de)
+    def library():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            o = sdpa(qe, ke, ve, attn_mask=mask)
+        torch.autograd.grad(o, (qe, ke, ve), de)
+    try:
         library_ms = _cuda_ms(library, iters=2, warmup=1)
-        del mask, qe, ke, ve, de
+    except (RuntimeError, torch.OutOfMemoryError) as e:
+        library_why = f"{type(e).__name__}: {str(e).splitlines()[0][:240]}"
+    del mask, qe, ke, ve, de
+    torch.cuda.empty_cache()
     rec = dict(case=name, dtype=_dtype_name(dtype), T=q.shape[0],
                S=k.shape[0], Hq=Hq, Hkv=Hkv, D=D, window=window,
                live_pairs=pairs, max_abs_err=max_err, lse_max_abs_err=lse_err,
@@ -585,14 +643,28 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
                         f"once, over blocks of {row_block} query rows",
                library_ms=library_ms,
                library_is=("scaled_dot_product_attention with the boolean "
-                           "mask, forward and backward under autograd "
-                           "(K, V repeated over the GQA group)"
-                           if library_ms is not None else
-                           f"not timed: {Hq} x {T} x {k.shape[0]} scores "
-                           f"exceed {LIB_MAX_SCORES}"),
+                           "mask on the EFFICIENT_ATTENTION backend, forward "
+                           "and backward under autograd (K, V repeated over "
+                           "the GQA group)" if library_ms is not None else
+                           f"not timed: the EFFICIENT_ATTENTION backend "
+                           f"refused the case ({library_why})"),
+               tiles_ms=tiles_ms, tiles_plain_ms=tiles_plain_ms,
+               tiles_max_abs_err=tiles_err, tiles_bound_ms=bounds["tiles"][0],
+               tiles_bound_by=bounds["tiles"][1],
+               tiles_ms_is="flash_bwd_tiles_kernel: both passes' tile "
+                           "ranges and summaries, once per backward op; "
+                           "plain: ref.flash_attention_tiles (the mask, one "
+                           "cold run)",
+               tiles=tiles_walked, bwd_block=block, bitwise_repeat=bitwise,
                bound_ms=bound_ms, bound_by=bound_by)
     if not (ok and lse_ok and out_ok):
         raise PhaseError(f"attention backward disagrees with the plain "
+                         f"version: {rec}")
+    if not bitwise:
+        raise PhaseError(f"two launches of the backward passes differ: "
+                         f"{rec}")
+    if tiles_err:
+        raise PhaseError(f"flash_bwd_tiles_kernel disagrees with its plain "
                          f"version: {rec}")
     if missed:
         raise PhaseError(f"the tolerance does not catch {missed}: {rec}")
@@ -1099,6 +1171,7 @@ def _train_counters():
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_bwd_dkdv_cuda,
                                                      flash_bwd_dq_cuda,
+                                                     flash_bwd_tiles_cuda,
                                                      flash_combine_cuda)
     from repro_torch.kernels.mamba_scan import (mamba_scan_bwd_cuda,
                                                 mamba_scan_fwd_cuda,
@@ -1107,6 +1180,7 @@ def _train_counters():
             "flash_combine_kernel": flash_combine_cuda,
             "flash_bwd_dkdv_kernel": flash_bwd_dkdv_cuda,
             "flash_bwd_dq_kernel": flash_bwd_dq_cuda,
+            "flash_bwd_tiles_kernel": flash_bwd_tiles_cuda,
             "ce_fwd_kernel": ce_fwd_cuda,
             "ce_bwd_kernel<dh>": ce_bwd_dh_cuda,
             "ce_bwd_kernel<dw>": ce_bwd_dw_cuda,
@@ -1122,9 +1196,9 @@ def _expected_launches(cfg, n_chunks, depth):
     """Launches of one chunked step as its plan predicts: per layer and
     chunk one attention forward (and one more per remat'd layer, whose
     forward runs again in the backward), one of each attention backward
-    pass, the same for the selective scan (forward; backward and its
-    reduction) on mamba layers; B, C1, C2 once per chunk; no plain
-    call."""
+    pass and of their tile ranges, the same for the selective scan
+    (forward; backward and its reduction) on mamba layers; B, C1, C2 once
+    per chunk; no plain call."""
     from repro_torch.models.config import LayerKind
     L = cfg.spec.n_layers
     attn = cfg.layer_kind != LayerKind.MAMBA
@@ -1133,6 +1207,7 @@ def _expected_launches(cfg, n_chunks, depth):
     return {"flash_fwd_kernel": fwd if attn else 0,
             "flash_bwd_dkdv_kernel": bwd if attn else 0,
             "flash_bwd_dq_kernel": bwd if attn else 0,
+            "flash_bwd_tiles_kernel": bwd if attn else 0,
             "mamba_scan_fwd_kernel": fwd if ssm else 0,
             "mamba_scan_bwd_kernel": bwd if ssm else 0,
             "mamba_scan_reduce_kernel": bwd if ssm else 0,
@@ -1491,6 +1566,13 @@ def main() -> int:
     for b in libs.values():
         for ln in _ptxas_summary(b.build_log):
             print(f"[build] {ln}")
+    spills = [ln for ln in _ptxas_summary(libs["flash_attention"].build_log)
+              if ln.startswith("flash_bwd_") and "<bf16," in ln
+              and not ln.endswith("0 bytes spill stores, 0 bytes spill loads")]
+    if spills:
+        print(f"[build] FAILED: the bf16 backward passes spill: {spills}",
+              flush=True)
+        return 1
     print(f"[build] ok sm_90a {', '.join(b.path.name for b in libs.values())}"
           f" in {dt:.1f}s; card: {smi}", flush=True)
 
@@ -1556,9 +1638,9 @@ def main() -> int:
     gb = bwd[0]             # step 0's largest train chunk, global, bf16
     gce = ce[0]             # the gemma3-1b head on that chunk, bf16
     sc = scan[0]            # hymba's largest train chunk, bf16 xs
-    # the attention backward's library yardstick: the first case where the
-    # scores fit
-    lib = next(r for r in bwd if r["library_ms"] is not None)
+    # the attention backward's library yardstick on the kernel's own case
+    # (step 0's largest train chunk), else on the first case it takes
+    lib = next((r for r in [gb] + bwd if r["library_ms"] is not None), gb)
 
     def entry(name, src, tpu, rec, **kw):
         return {"name": name, "route": "cuda", "source": src,
@@ -1591,6 +1673,12 @@ def main() -> int:
               library_case_ms=lib["kernel_ms"],
               library_is=lib["library_is"] + "; kernel and yardstick both "
               "on library_case (library_case_ms: both backward passes)"),
+        entry("flash_bwd_tiles_kernel", fa, tpu_fa + " (its gradient)", gb,
+              max_abs_err=gb["tiles_max_abs_err"], ms=gb["tiles_ms"],
+              plain_ms=gb["tiles_plain_ms"], bound_ms=gb["tiles_bound_ms"],
+              bound_by=gb["tiles_bound_by"], library_ms=None,
+              ms_covers="the backward passes' tile ranges and summaries",
+              plain_is="ref.flash_attention_tiles (from the mask)"),
         entry("ce_fwd_kernel", cs, "src/repro/kernels/cross_entropy.py:79",
               gce["B"], library_is=gce["B"]["library_is"]),
         entry("ce_bwd_kernel<dh>", cs,

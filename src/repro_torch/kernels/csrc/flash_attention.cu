@@ -46,6 +46,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int BQ = 32;        // query rows per block
@@ -59,9 +61,6 @@ template <> __device__ __forceinline__ float from_f<float>(float x) { return x; 
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // the mask rule above for one (query row, key row) pair
 __device__ __forceinline__ bool attends(int sq, int pq, int sk, int pk, int causal,
@@ -351,75 +350,111 @@ __global__ void flash_combine_kernel(const float2* __restrict__ ws_ml,
 }
 
 // ---------------------------------------------------------------------------
-// Backward. The JAX package has no backward kernel: it differentiates its
-// plain jnp flash attention. Here the forward is a CUDA kernel, so its
-// gradient is one too, in two passes with no atomics (each output element
-// is written by exactly one block, so results are deterministic):
+// Backward (kernel A', the gradient of the TPU kernel
+// src/repro/kernels/flash_attention.py:89 flash_attention_pallas; the JAX
+// package has no backward kernel and differentiates its jnp attention).
+// Two passes with no atomics: each output element is written by exactly one
+// block, in a fixed order, so two launches give the same bits.
 //
-// * flash_bwd_dkdv_kernel: one block per (KV tile of BK rows, KV head). It
-//   loops over the query tiles that can see its tile (the forward's exact
-//   live-pair test) and, for each, over the query heads of its GQA group,
-//   accumulating dK and dV of its rows in registers.
-// * flash_bwd_dq_kernel: one block per (query tile, query head); it loops
-//   over the live KV tiles, accumulating dQ.
+//   P = exp(S * scale - lse)   (the forward's per-row lse; P = 0 outside the
+//                               mask, so a row with lse = -inf adds nothing)
+//   Delta = rowsum(dO * O),  dP = dO V^T,  dS = P * (dP - Delta),
+//   dV = P^T dO,  dQ = scale * dS K,  dK = scale * dS^T Q.
 //
-// Both recompute P = exp(S * scale - lse) from the forward's per-row lse
-// (P = 0 outside the mask, so a fully masked row, lse = -inf, contributes
-// nothing) and take Delta = rowsum(dO * O) per query row themselves:
-//   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - Delta),
-//   dQ = scale * dS K,  dK = scale * dS^T Q.
-// Bound: like the forward, operations (7 products of 2 Dh flops per live
-// (query, key, head) triple against the forward's 2) at the training
-// shapes. Tiles are float32 in shared memory (four [32][D + 1] tiles: 137 KB
-// at D = 256) and the products run on float32 FMAs; 256 threads, 16 row
-// groups (ty) x 16 columns (tx): a thread owns rows ty and ty + 16 and the
-// columns tx + 16 j of its accumulators.
-constexpr int NTB = 256;
+// * flash_bwd_dq_kernel runs first: one block per (query tile, query head).
+//   It computes Delta of its rows once, writes it to a float32 [Hq, T]
+//   buffer, and walks the KV tiles that can hold a live pair, accumulating
+//   dQ.
+// * flash_bwd_dkdv_kernel: one block per (KV tile, KV head). For each query
+//   head of its GQA group it walks the query tiles that can hold a live
+//   pair, reading lse and Delta of their rows, accumulating dK and dV.
+//
+// Which tiles a block walks. A third small kernel, flash_bwd_tiles_kernel
+// (below the passes), launched first, hands each block a range of tiles
+// (per query tile its KV tiles, per KV tile its query tiles: the first and
+// the last tile holding a pair that attends, whatever the rows' order) and
+// a summary of every tile (segment min / max, position min / max of its
+// live rows). Inside the range a tile is skipped on one O(1) test of the
+// two summaries; every element computed still gets the exact per-pair mask,
+// but for tiles where one test per tile shows that every pair attends (both
+// tiles' rows live and of one segment, inside the causal limit and the
+// window).
+//
+// What bounds it: operations. Per live (query, key, head) the backward does
+// five products of 2 Dh flops (S recomputed, dP, dV, dK in the dk/dv pass;
+// S, dP, dQ in the dq pass), against bytes read about once, so at the
+// training shapes the bound is the bf16 tensor-core rate.
+//
+// bf16 inputs (the train paths): 64-row tiles, 8 warps. Q, dO, K and V stay
+// bf16 in shared memory with rows padded by 8 elements (16 bytes), so the
+// eight row addresses of every ldmatrix fall in distinct bank groups. All
+// five products are mma.sync m16n8k16 bf16 -> float32. The streamed tiles
+// (Q, dO and their rows' lse and Delta in the dk/dv pass; K, V in the dq
+// pass) come in by cp.async into a double buffer, the next tile's copy in
+// flight while the current one computes. In each tile a warp takes 16 rows
+// x 32 columns of S and dP; P and dS are formed in float32 and rounded to
+// bf16 only into shared memory, as the operand of the next product; then a
+// warp takes 16 rows x Dh/2 columns of the accumulators (dK and dV, or dQ),
+// which stay float32 in registers (at Dh 256: 128 per thread for dK + dV).
+// Rows at or past T or S in the last 64-row tile are dead here (zero-filled
+// copies, masked pairs); nothing is padded again.
+//
+// float32 inputs (the float32 verify phases, held to 1e-5) keep float32
+// arithmetic with no TF32: 32-row tiles widened in shared memory and
+// float32 FMAs, walking the same kind of ranges with the exact per-tile
+// live test, Delta written by the dq pass and read by the dk/dv pass.
+constexpr int NTB = 256;    // threads of a backward block (8 warps)
+constexpr int BB = 64;      // bf16 backward: rows per tile, both sides
+
+struct BwdArgs {
+  const void *q, *k, *v, *o, *dout;  // q, o, dout [T, Hq, D]; k, v [S, Hkv, D]
+  const float* lse;                  // [Hq, T] from the forward
+  float* delta;                      // [Hq, T]: written by dq, read by dk/dv
+  const int *seg_q, *pos_q, *seg_kv, *pos_kv;
+  const int2* range;                 // per block tile: [lo, hi] of the other side
+  const int4* q_sum;                 // per query tile: seg min/max, pos min/max
+  const int4* kv_sum;                // per KV tile: the same
+  void *dq, *dk, *dv;
+  int T, S, Hq, Hkv, causal, window;
+  float scale;
+};
+
+// Can a query tile with summary a and a KV tile with summary b hold a live
+// pair? (A tile with no live row has seg min > seg max.)
+__device__ __forceinline__ bool may_attend(int4 a, int4 b, int causal, int window) {
+  return max(a.x, b.x) <= min(a.y, b.y) && (!causal || b.z <= a.w) &&
+         (window <= 0 || a.z - b.w < window);
+}
+
+// --- float32: FMA bodies on 32-row tiles ------------------------------------
 
 template <int D>
-constexpr size_t bwd_smem_bytes() {
+constexpr size_t bwd_f32_smem_bytes() {
   return sizeof(float) * (size_t)(4 * 32 * (D + 1) + 2 * 32 * 33);
 }
 
 // Delta_r = sum_d dO[r, d] * O[r, d] for the BQ rows of a query tile: warp w
 // takes rows 4w .. 4w + 3 (dO from shared memory, O from global memory).
-template <typename T, int D, int LD>
-__device__ __forceinline__ void row_delta(float* s_delta, const float* sdO, const T* o,
+template <int D, int LD>
+__device__ __forceinline__ void row_delta(float* s_delta, const float* sdO, const float* o,
                                           size_t q0, int h, int Hq, int tid) {
   static_assert(NTB / 32 * 4 == BQ, "8 warps x 4 rows");
   const int warp = tid >> 5, lane = tid & 31;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = warp * 4 + i;
-    const T* orow = o + ((q0 + r) * Hq + h) * D;
+    const float* orow = o + ((q0 + r) * Hq + h) * D;
     float a = 0.f;
-    for (int d = lane; d < D; d += 32) a = fmaf(to_f(orow[d]), sdO[r * LD + d], a);
+    for (int d = lane; d < D; d += 32) a = fmaf(orow[d], sdO[r * LD + d], a);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
     if (lane == 0) s_delta[r] = a;
   }
 }
 
-// segment range of the live rows among BQ == BK == 32 rows (warp 0 only)
-__device__ __forceinline__ void seg_range(int sg, int* s_rng, int tid) {
-  int smin = sg >= 0 ? sg : INT_MAX, smax = sg >= 0 ? sg : INT_MIN;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    smin = min(smin, __shfl_xor_sync(0xffffffffu, smin, off));
-    smax = max(smax, __shfl_xor_sync(0xffffffffu, smax, off));
-  }
-  if (tid == 0) { s_rng[0] = smin; s_rng[1] = smax; }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NTB)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ o,
-                      const T* __restrict__ dout, const float* __restrict__ lse,
-                      const int* __restrict__ seg_q, const int* __restrict__ pos_q,
-                      const int* __restrict__ seg_kv, const int* __restrict__ pos_kv,
-                      T* __restrict__ dk, T* __restrict__ dv, int T_, int Hq, int Hkv,
-                      int causal, int window, float scale) {
+template <int D>
+__device__ void dkdv_f32(const BwdArgs& a) {
+  using T = float;
   constexpr int LD = D + 1, LP = BQ + 1, DJ = D / 16;
   extern __shared__ float smem[];
   float* sK = smem;
@@ -430,23 +465,21 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sdS = sP + BK * LP;        // [BK][BQ + 1]: dS^T
   __shared__ int s_segq[BQ], s_posq[BQ], s_segk[BK], s_posk[BK];
   __shared__ float s_lse[BQ], s_delta[BQ];
-  __shared__ int s_rng[2];
 
+  const T *q = (const T*)a.q, *k = (const T*)a.k, *v = (const T*)a.v,
+          *dout = (const T*)a.dout;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int hk = blockIdx.y, G = Hq / Hkv;
+  const int hk = blockIdx.y, G = a.Hq / a.Hkv, T_ = a.T;
   const size_t k0 = (size_t)blockIdx.x * BK;
-  const size_t kv_stride = (size_t)Hkv * D, q_stride = (size_t)Hq * D;
+  const size_t kv_stride = (size_t)a.Hkv * D, q_stride = (size_t)a.Hq * D;
 
   load_tile<T, D, LD, NTB>(sK, k + k0 * kv_stride + (size_t)hk * D, kv_stride, BK, tid);
   load_tile<T, D, LD, NTB>(sV, v + k0 * kv_stride + (size_t)hk * D, kv_stride, BK, tid);
   if (tid < BK) {
-    const int sg = seg_kv[k0 + tid];
-    s_segk[tid] = sg;
-    s_posk[tid] = pos_kv[k0 + tid];
-    seg_range(sg, s_rng, tid);
+    s_segk[tid] = a.seg_kv[k0 + tid];
+    s_posk[tid] = a.pos_kv[k0 + tid];
   }
   __syncthreads();
-  const int ksmin = s_rng[0], ksmax = s_rng[1];
 
   float dK[2][DJ], dV[2][DJ];
 #pragma unroll
@@ -454,101 +487,86 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dK[i][j] = dV[i][j] = 0.f;
 
-  const int n_q = T_ / BQ;
-  if (ksmax >= 0) {                 // else: no live key row in this tile
-    // the next query tile's metadata is prefetched one iteration ahead
-    int nsg = 0, nps = 0;
-    if (tid < BQ) { nsg = seg_q[tid]; nps = pos_q[tid]; }
-    for (int qt = 0; qt < n_q; ++qt) {
-      const int sg = nsg, ps = nps;
-      if (tid < BQ && qt + 1 < n_q) {
-        nsg = seg_q[(qt + 1) * BQ + tid];
-        nps = pos_q[(qt + 1) * BQ + tid];
-      }
-      int live = 0;
+  const int2 rg = a.range[blockIdx.x];
+  for (int qt = rg.x; qt <= rg.y; ++qt) {
+    int live = 0;
+    if (tid < BQ) {
+      const int sg = a.seg_q[qt * BQ + tid], ps = a.pos_q[qt * BQ + tid];
+      s_segq[tid] = sg;
+      s_posq[tid] = ps;
+      for (int c = 0; c < BK && !live; ++c)
+        live = attends(sg, ps, s_segk[c], s_posk[c], a.causal, a.window);
+    }
+    if (!__syncthreads_or(live)) continue;   // no live pair: skip the tile
+    const size_t q0 = (size_t)qt * BQ;
+    for (int g = 0; g < G; ++g) {
+      const int h = hk * G + g;
+      load_tile<T, D, LD, NTB>(sQ, q + q0 * q_stride + (size_t)h * D, q_stride, BQ, tid);
+      load_tile<T, D, LD, NTB>(sdO, dout + q0 * q_stride + (size_t)h * D, q_stride, BQ, tid);
       if (tid < BQ) {
-        s_segq[tid] = sg;
-        s_posq[tid] = ps;
-        if (sg >= ksmin && sg <= ksmax)
-          for (int c = 0; c < BK && !live; ++c)
-            live = attends(sg, ps, s_segk[c], s_posk[c], causal, window);
+        s_lse[tid] = a.lse[(size_t)h * T_ + q0 + tid];
+        s_delta[tid] = a.delta[(size_t)h * T_ + q0 + tid];
       }
-      if (!__syncthreads_or(live)) continue;   // no live pair: skip the tile
-      const size_t q0 = (size_t)qt * BQ;
-      for (int g = 0; g < G; ++g) {
-        const int h = hk * G + g;
-        load_tile<T, D, LD, NTB>(sQ, q + q0 * q_stride + (size_t)h * D, q_stride, BQ, tid);
-        load_tile<T, D, LD, NTB>(sdO, dout + q0 * q_stride + (size_t)h * D, q_stride, BQ,
-                                 tid);
-        if (tid < BQ) s_lse[tid] = lse[(size_t)h * T_ + q0 + tid];
-        __syncthreads();
-        row_delta<T, D, LD>(s_delta, sdO, o, q0, h, Hq, tid);
-        // S^T and dP^T: key rows ty + 16 i, query columns tx + 16 j
-        float st[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dpt[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+      __syncthreads();
+      // S^T and dP^T: key rows ty + 16 i, query columns tx + 16 j
+      float st[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dpt[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll 4
-        for (int d = 0; d < D; ++d) {
-          const float ka = sK[ty * LD + d], kb = sK[(ty + 16) * LD + d];
-          const float va = sV[ty * LD + d], vb = sV[(ty + 16) * LD + d];
-          const float qa = sQ[tx * LD + d], qb = sQ[(tx + 16) * LD + d];
-          const float oa = sdO[tx * LD + d], ob = sdO[(tx + 16) * LD + d];
-          st[0][0] = fmaf(ka, qa, st[0][0]);
-          st[0][1] = fmaf(ka, qb, st[0][1]);
-          st[1][0] = fmaf(kb, qa, st[1][0]);
-          st[1][1] = fmaf(kb, qb, st[1][1]);
-          dpt[0][0] = fmaf(va, oa, dpt[0][0]);
-          dpt[0][1] = fmaf(va, ob, dpt[0][1]);
-          dpt[1][0] = fmaf(vb, oa, dpt[1][0]);
-          dpt[1][1] = fmaf(vb, ob, dpt[1][1]);
-        }
-        __syncthreads();            // s_delta is written
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int c = ty + 16 * i, r = tx + 16 * j;
-            const bool ok = attends(s_segq[r], s_posq[r], s_segk[c], s_posk[c], causal,
-                                    window);
-            const float p = ok ? expf(st[i][j] * scale - s_lse[r]) : 0.f;
-            sP[c * LP + r] = p;
-            sdS[c * LP + r] = p * (dpt[i][j] - s_delta[r]);
-          }
-        __syncthreads();
-        for (int r = 0; r < BQ; ++r) {
-          const float pa = sP[ty * LP + r], pb = sP[(ty + 16) * LP + r];
-          const float ga = sdS[ty * LP + r], gb = sdS[(ty + 16) * LP + r];
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) {
-            const float dov = sdO[r * LD + tx + 16 * j], qv = sQ[r * LD + tx + 16 * j];
-            dV[0][j] = fmaf(pa, dov, dV[0][j]);
-            dV[1][j] = fmaf(pb, dov, dV[1][j]);
-            dK[0][j] = fmaf(ga, qv, dK[0][j]);
-            dK[1][j] = fmaf(gb, qv, dK[1][j]);
-          }
-        }
-        __syncthreads();            // sQ, sdO, sP, sdS, s_lse, s_delta rewritten next
+      for (int d = 0; d < D; ++d) {
+        const float ka = sK[ty * LD + d], kb = sK[(ty + 16) * LD + d];
+        const float va = sV[ty * LD + d], vb = sV[(ty + 16) * LD + d];
+        const float qa = sQ[tx * LD + d], qb = sQ[(tx + 16) * LD + d];
+        const float oa = sdO[tx * LD + d], ob = sdO[(tx + 16) * LD + d];
+        st[0][0] = fmaf(ka, qa, st[0][0]);
+        st[0][1] = fmaf(ka, qb, st[0][1]);
+        st[1][0] = fmaf(kb, qa, st[1][0]);
+        st[1][1] = fmaf(kb, qb, st[1][1]);
+        dpt[0][0] = fmaf(va, oa, dpt[0][0]);
+        dpt[0][1] = fmaf(va, ob, dpt[0][1]);
+        dpt[1][0] = fmaf(vb, oa, dpt[1][0]);
+        dpt[1][1] = fmaf(vb, ob, dpt[1][1]);
       }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = ty + 16 * i, r = tx + 16 * j;
+          const bool ok = attends(s_segq[r], s_posq[r], s_segk[c], s_posk[c], a.causal,
+                                  a.window);
+          const float p = ok ? expf(st[i][j] * a.scale - s_lse[r]) : 0.f;
+          sP[c * LP + r] = p;
+          sdS[c * LP + r] = p * (dpt[i][j] - s_delta[r]);
+        }
+      __syncthreads();
+      for (int r = 0; r < BQ; ++r) {
+        const float pa = sP[ty * LP + r], pb = sP[(ty + 16) * LP + r];
+        const float ga = sdS[ty * LP + r], gb = sdS[(ty + 16) * LP + r];
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          const float dov = sdO[r * LD + tx + 16 * j], qv = sQ[r * LD + tx + 16 * j];
+          dV[0][j] = fmaf(pa, dov, dV[0][j]);
+          dV[1][j] = fmaf(pb, dov, dV[1][j]);
+          dK[0][j] = fmaf(ga, qv, dK[0][j]);
+          dK[1][j] = fmaf(gb, qv, dK[1][j]);
+        }
+      }
+      __syncthreads();              // sQ, sdO, sP, sdS, s_lse, s_delta rewritten next
     }
   }
+  T *dk = (T*)a.dk, *dv = (T*)a.dv;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const size_t base = ((k0 + ty + 16 * i) * Hkv + hk) * D + tx;
+    const size_t base = ((k0 + ty + 16 * i) * a.Hkv + hk) * D + tx;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      dk[base + 16 * j] = from_f<T>(dK[i][j] * scale);
-      dv[base + 16 * j] = from_f<T>(dV[i][j]);
+      dk[base + 16 * j] = dK[i][j] * a.scale;
+      dv[base + 16 * j] = dV[i][j];
     }
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NTB)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const int* __restrict__ seg_q, const int* __restrict__ pos_q,
-                    const int* __restrict__ seg_kv, const int* __restrict__ pos_kv,
-                    T* __restrict__ dq, int T_, int S, int Hq, int Hkv, int causal,
-                    int window, float scale) {
+template <int D>
+__device__ void dq_f32(const BwdArgs& a) {
+  using T = float;
   constexpr int LD = D + 1, LP = BK + 1, DJ = D / 16;
   extern __shared__ float smem[];
   float* sQ = smem;
@@ -558,25 +576,25 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sdS = sV + BK * LD;        // [BQ][BK + 1]
   __shared__ int s_segq[BQ], s_posq[BQ], s_segk[BK], s_posk[BK];
   __shared__ float s_lse[BQ], s_delta[BQ];
-  __shared__ int s_rng[2];
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int h = blockIdx.y, hk = h / (Hq / Hkv);
+  const T *q = (const T*)a.q, *k = (const T*)a.k, *v = (const T*)a.v,
+          *dout = (const T*)a.dout;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, T_ = a.T;
+  const int h = blockIdx.y, hk = h / (a.Hq / a.Hkv);
   const size_t q0 = (size_t)blockIdx.x * BQ;
-  const size_t kv_stride = (size_t)Hkv * D, q_stride = (size_t)Hq * D;
+  const size_t kv_stride = (size_t)a.Hkv * D, q_stride = (size_t)a.Hq * D;
 
   load_tile<T, D, LD, NTB>(sQ, q + q0 * q_stride + (size_t)h * D, q_stride, BQ, tid);
   load_tile<T, D, LD, NTB>(sdO, dout + q0 * q_stride + (size_t)h * D, q_stride, BQ, tid);
   if (tid < BQ) {
-    const int sg = seg_q[q0 + tid];
-    s_segq[tid] = sg;
-    s_posq[tid] = pos_q[q0 + tid];
-    s_lse[tid] = lse[(size_t)h * T_ + q0 + tid];
-    seg_range(sg, s_rng, tid);
+    s_segq[tid] = a.seg_q[q0 + tid];
+    s_posq[tid] = a.pos_q[q0 + tid];
+    s_lse[tid] = a.lse[(size_t)h * T_ + q0 + tid];
   }
   __syncthreads();
-  row_delta<T, D, LD>(s_delta, sdO, o, q0, h, Hq, tid);
-  const int qsmin = s_rng[0], qsmax = s_rng[1];
+  row_delta<D, LD>(s_delta, sdO, (const T*)a.o, q0, h, a.Hq, tid);
+  __syncthreads();
+  if (tid < BQ) a.delta[(size_t)h * T_ + q0 + tid] = s_delta[tid];
 
   float dQ[2][DJ];
 #pragma unroll
@@ -584,77 +602,645 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dQ[i][j] = 0.f;
 
-  const int n_kv = S / BK;
-  if (qsmax >= 0) {                 // else: no live query row in this tile
-    int nsg = 0, nps = 0;
-    if (tid < BK) { nsg = seg_kv[tid]; nps = pos_kv[tid]; }
-    for (int kt = 0; kt < n_kv; ++kt) {
-      const int sg = nsg, ps = nps;
-      if (tid < BK && kt + 1 < n_kv) {
-        nsg = seg_kv[(kt + 1) * BK + tid];
-        nps = pos_kv[(kt + 1) * BK + tid];
-      }
-      int live = 0;
-      if (tid < BK) {
-        s_segk[tid] = sg;
-        s_posk[tid] = ps;
-        if (sg >= qsmin && sg <= qsmax)
-          for (int r = 0; r < BQ && !live; ++r)
-            live = attends(s_segq[r], s_posq[r], sg, ps, causal, window);
-      }
-      if (!__syncthreads_or(live)) continue;   // no live pair: skip the tile
-      const size_t k0 = (size_t)kt * BK;
-      load_tile<T, D, LD, NTB>(sK, k + k0 * kv_stride + (size_t)hk * D, kv_stride, BK, tid);
-      load_tile<T, D, LD, NTB>(sV, v + k0 * kv_stride + (size_t)hk * D, kv_stride, BK, tid);
-      __syncthreads();
-      // S and dP: query rows ty + 16 i, key columns tx + 16 j
-      float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        const float qa = sQ[ty * LD + d], qb = sQ[(ty + 16) * LD + d];
-        const float oa = sdO[ty * LD + d], ob = sdO[(ty + 16) * LD + d];
-        const float ka = sK[tx * LD + d], kb = sK[(tx + 16) * LD + d];
-        const float va = sV[tx * LD + d], vb = sV[(tx + 16) * LD + d];
-        s[0][0] = fmaf(qa, ka, s[0][0]);
-        s[0][1] = fmaf(qa, kb, s[0][1]);
-        s[1][0] = fmaf(qb, ka, s[1][0]);
-        s[1][1] = fmaf(qb, kb, s[1][1]);
-        dp[0][0] = fmaf(oa, va, dp[0][0]);
-        dp[0][1] = fmaf(oa, vb, dp[0][1]);
-        dp[1][0] = fmaf(ob, va, dp[1][0]);
-        dp[1][1] = fmaf(ob, vb, dp[1][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int r = ty + 16 * i, c = tx + 16 * j;
-          const bool ok = attends(s_segq[r], s_posq[r], s_segk[c], s_posk[c], causal,
-                                  window);
-          const float p = ok ? expf(s[i][j] * scale - s_lse[r]) : 0.f;
-          sdS[r * LP + c] = p * (dp[i][j] - s_delta[r]);
-        }
-      __syncthreads();
-      for (int c = 0; c < BK; ++c) {
-        const float ga = sdS[ty * LP + c], gb = sdS[(ty + 16) * LP + c];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          const float kv = sK[c * LD + tx + 16 * j];
-          dQ[0][j] = fmaf(ga, kv, dQ[0][j]);
-          dQ[1][j] = fmaf(gb, kv, dQ[1][j]);
-        }
-      }
-      __syncthreads();              // sK, sV, sdS, s_segk rewritten next tile
+  const int2 rg = a.range[blockIdx.x];
+  for (int kt = rg.x; kt <= rg.y; ++kt) {
+    int live = 0;
+    if (tid < BK) {
+      const int sg = a.seg_kv[kt * BK + tid], ps = a.pos_kv[kt * BK + tid];
+      s_segk[tid] = sg;
+      s_posk[tid] = ps;
+      for (int r = 0; r < BQ && !live; ++r)
+        live = attends(s_segq[r], s_posq[r], sg, ps, a.causal, a.window);
     }
+    if (!__syncthreads_or(live)) continue;   // no live pair: skip the tile
+    const size_t k0 = (size_t)kt * BK;
+    load_tile<T, D, LD, NTB>(sK, k + k0 * kv_stride + (size_t)hk * D, kv_stride, BK, tid);
+    load_tile<T, D, LD, NTB>(sV, v + k0 * kv_stride + (size_t)hk * D, kv_stride, BK, tid);
+    __syncthreads();
+    // S and dP: query rows ty + 16 i, key columns tx + 16 j
+    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const float qa = sQ[ty * LD + d], qb = sQ[(ty + 16) * LD + d];
+      const float oa = sdO[ty * LD + d], ob = sdO[(ty + 16) * LD + d];
+      const float ka = sK[tx * LD + d], kb = sK[(tx + 16) * LD + d];
+      const float va = sV[tx * LD + d], vb = sV[(tx + 16) * LD + d];
+      s[0][0] = fmaf(qa, ka, s[0][0]);
+      s[0][1] = fmaf(qa, kb, s[0][1]);
+      s[1][0] = fmaf(qb, ka, s[1][0]);
+      s[1][1] = fmaf(qb, kb, s[1][1]);
+      dp[0][0] = fmaf(oa, va, dp[0][0]);
+      dp[0][1] = fmaf(oa, vb, dp[0][1]);
+      dp[1][0] = fmaf(ob, va, dp[1][0]);
+      dp[1][1] = fmaf(ob, vb, dp[1][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = ty + 16 * i, c = tx + 16 * j;
+        const bool ok = attends(s_segq[r], s_posq[r], s_segk[c], s_posk[c], a.causal,
+                                a.window);
+        const float p = ok ? expf(s[i][j] * a.scale - s_lse[r]) : 0.f;
+        sdS[r * LP + c] = p * (dp[i][j] - s_delta[r]);
+      }
+    __syncthreads();
+    for (int c = 0; c < BK; ++c) {
+      const float ga = sdS[ty * LP + c], gb = sdS[(ty + 16) * LP + c];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) {
+        const float kv = sK[c * LD + tx + 16 * j];
+        dQ[0][j] = fmaf(ga, kv, dQ[0][j]);
+        dQ[1][j] = fmaf(gb, kv, dQ[1][j]);
+      }
+    }
+    __syncthreads();                // sK, sV, sdS, s_segk rewritten next tile
   }
+  T* dq = (T*)a.dq;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const size_t base = ((q0 + ty + 16 * i) * Hq + h) * D + tx;
+    const size_t base = ((q0 + ty + 16 * i) * a.Hq + h) * D + tx;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) dq[base + 16 * j] = from_f<T>(dQ[i][j] * scale);
+    for (int j = 0; j < DJ; ++j) dq[base + 16 * j] = dQ[i][j] * a.scale;
   }
 }
 
+// --- bf16: tensor-core bodies on 64-row tiles --------------------------------
+
+constexpr int LDB_PAD = 8;          // bf16 elements of padding per shared row
+constexpr int LDPS = BB + LDB_PAD;  // row stride of the P / dS tiles
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t bwd_bf16_smem_bytes() {
+  // six [BB][D + 8] tiles (two resident, two streamed and double-buffered)
+  // and two [BB][BB + 8] tiles (P^T and dS^T, or dS)
+  return sizeof(__nv_bfloat16) * (size_t)(6 * BB * (D + LDB_PAD) + 2 * BB * LDPS);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte (or 4-byte) asynchronous copy global -> shared; zero-fills the
+// destination when ``ok`` is false (nothing is read then)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory (one row address per lane)
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, float32 sums
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Issue the copy of BB rows (row0 .. row0 + BB - 1 of ``src``, row r at
+// src + r * stride; rows at or past ``n_rows`` zero-filled) into dst [BB][D + 8].
+template <int D>
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          size_t stride, int row0, int n_rows, int tid) {
+  constexpr int CH = D / 8;         // 16-byte chunks per row
+#pragma unroll
+  for (int c = tid; c < BB * CH; c += NTB) {
+    const int r = c / CH, ch = c % CH;
+    const bool ok = row0 + r < n_rows;
+    cp_async16(dst + r * (D + LDB_PAD) + ch * 8,
+               src + (size_t)(ok ? row0 + r : 0) * stride + ch * 8, ok);
+  }
+}
+
+// Two products on one 16-row strip: acc0 += A0 B^T and acc1 += A1 C^T over
+// the full depth D, A0/A1 [16][D] (rows a0 / a1 of their tiles), B/C the 32
+// rows n0 .. n0 + 31 of [BB][D] tiles (the product's columns). This is
+// S = A0 B^T and dP = A1 C^T for a warp's 16 x 32 piece.
+template <int D>
+__device__ __forceinline__ void strip_products(float (&acc0)[4][4], float (&acc1)[4][4],
+                                               const __nv_bfloat16* A0,
+                                               const __nv_bfloat16* A1,
+                                               const __nv_bfloat16* B,
+                                               const __nv_bfloat16* C, int lane) {
+  constexpr int LD = D + LDB_PAD;
+  const int a_off = (lane & 15) * LD + (lane >> 4) * 8;
+  const int b_off = (((lane >> 4) << 3) + (lane & 7)) * LD + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc0[j][e] = acc1[j][e] = 0.f;
+#pragma unroll 4
+  for (int kk = 0; kk < D; kk += 16) {
+    uint32_t a0[4], a1[4], b[4];
+    ldsm4(a0, A0 + a_off + kk);
+    ldsm4(a1, A1 + a_off + kk);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      ldsm4(b, B + np * 16 * LD + b_off + kk);
+      mma16816(acc0[2 * np], a0, b[0], b[1]);
+      mma16816(acc0[2 * np + 1], a0, b[2], b[3]);
+      ldsm4(b, C + np * 16 * LD + b_off + kk);
+      mma16816(acc1[2 * np], a1, b[0], b[1]);
+      mma16816(acc1[2 * np + 1], a1, b[2], b[3]);
+    }
+  }
+}
+
+// acc += A X over k = 0 .. BB: A [16][BB] bf16 (a warp's rows of P^T, dS^T
+// or dS, row stride LDPS), X [BB][D] (row stride D + 8), the warp's NJ x 8
+// columns from column n0.
+template <int D, int NJ>
+__device__ __forceinline__ void accumulate(float (&acc)[NJ][4], const __nv_bfloat16* A,
+                                           const __nv_bfloat16* X, int n0, int lane) {
+  constexpr int LD = D + LDB_PAD;
+  const int a_off = (lane & 15) * LDPS + (lane >> 4) * 8;
+  const int x_off = (((lane >> 3) & 1) * 8 + (lane & 7)) * LD + n0 + (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < BB; kk += 16) {
+    uint32_t a[4];
+    ldsm4(a, A + a_off + kk);
+#pragma unroll
+    for (int np = 0; np < NJ / 2; ++np) {
+      uint32_t b[4];
+      ldsm4_t(b, X + x_off + kk * LD + np * 16);
+      mma16816(acc[2 * np], a, b[0], b[1]);
+      mma16816(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The next tile index after ``t`` up to ``hi`` whose summary may meet
+// ``own``'s (``own_q``: own is the query tile), or -1.
+__device__ __forceinline__ int next_live(int t, int hi, int4 own, const int4* other, bool own_q,
+                                         int causal, int window) {
+  for (; t <= hi; ++t) {
+    const int4 o = __ldg(other + t);
+    if (own_q ? may_attend(own, o, causal, window) : may_attend(o, own, causal, window))
+      return t;
+  }
+  return -1;
+}
+
+template <int D>
+__device__ void dkdv_bf16(const BwdArgs& a) {
+  using bf = __nv_bfloat16;
+  constexpr int LD = D + LDB_PAD, NJ = D / 16;   // NJ: 8-column tiles of a warp's D / 2
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf* sK = reinterpret_cast<bf*>(smem_raw);
+  bf* sV = sK + BB * LD;
+  bf* sQ = sV + BB * LD;            // [2][BB][LD]
+  bf* sdO = sQ + 2 * BB * LD;       // [2][BB][LD]
+  bf* sP = sdO + 2 * BB * LD;       // [BB][LDPS]: P^T (key rows, query columns)
+  bf* sdS = sP + BB * LDPS;         // [BB][LDPS]: dS^T
+  __shared__ int s_segk[BB], s_posk[BB];
+  __shared__ int s_segq[2][BB], s_posq[2][BB];
+  __shared__ float s_lse[2][BB], s_dlt[2][BB];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wr = warp & 3, wc = warp >> 2;      // 16-row strip, column half
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int hk = blockIdx.y, G = a.Hq / a.Hkv, T_ = a.T, S = a.S;
+  const int k0 = blockIdx.x * BB;
+  const int n_q = (T_ + BB - 1) / BB;
+  const size_t kv_stride = (size_t)a.Hkv * D, q_stride = (size_t)a.Hq * D;
+  const bf *q = (const bf*)a.q, *dout = (const bf*)a.dout;
+
+  copy_rows<D>(sK, (const bf*)a.k + (size_t)hk * D, kv_stride, k0, S, tid);
+  copy_rows<D>(sV, (const bf*)a.v + (size_t)hk * D, kv_stride, k0, S, tid);
+  cp_async_commit();
+  if (tid < BB) {
+    const bool ok = k0 + tid < S;
+    s_segk[tid] = ok ? a.seg_kv[k0 + tid] : -2;
+    s_posk[tid] = ok ? a.pos_kv[k0 + tid] : 0;
+  }
+  const int4 own = a.kv_sum[blockIdx.x];
+  const int2 rg = a.range[blockIdx.x];
+  // every key row live and of one segment: then a query tile whose rows
+  // all meet every key row (one test per tile, below) needs no pair test
+  const bool k_full = __syncthreads_and(tid >= BB || (k0 + tid < S && s_segk[tid] >= 0)) &&
+                      own.x == own.y;
+
+  // the streamed tile of step (g, qt): Q and dO rows of head h, their
+  // segments, positions, lse and Delta
+  auto issue = [&](int buf, int step) {
+    const int h = hk * G + step / n_q, q0 = (step % n_q) * BB;
+    copy_rows<D>(sQ + buf * BB * LD, q + (size_t)h * D, q_stride, q0, T_, tid);
+    copy_rows<D>(sdO + buf * BB * LD, dout + (size_t)h * D, q_stride, q0, T_, tid);
+    const int which = tid / BB, r = tid % BB;   // NTB == 4 * BB: one word each
+    const bool ok = q0 + r < T_;
+    const size_t row = ok ? (size_t)(q0 + r) : 0;
+    const void* src = which == 0 ? (const void*)(a.seg_q + row)
+                    : which == 1 ? (const void*)(a.pos_q + row)
+                    : which == 2 ? (const void*)(a.lse + (size_t)h * T_ + row)
+                                 : (const void*)(a.delta + (size_t)h * T_ + row);
+    void* dst = which == 0 ? (void*)&s_segq[buf][r] : which == 1 ? (void*)&s_posq[buf][r]
+              : which == 2 ? (void*)&s_lse[buf][r] : (void*)&s_dlt[buf][r];
+    cp_async4(dst, src, ok);
+  };
+  // steps are g * n_q + qt over the live query tiles of the range
+  auto advance = [&](int step) {
+    int g = step < 0 ? 0 : step / n_q, qt = step < 0 ? rg.x : step % n_q + 1;
+    for (; g < G; ++g, qt = rg.x) {
+      const int t = next_live(qt, rg.y, own, a.q_sum, false, a.causal, a.window);
+      if (t >= 0) return g * n_q + t;
+    }
+    return -1;
+  };
+
+  float dK[NJ][4], dV[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dK[j][e] = dV[j][e] = 0.f;
+
+  int step = advance(-1), buf = 0;
+  if (step >= 0) issue(0, step);
+  cp_async_commit();
+  const float sl2 = a.scale * LOG2E;
+  while (step >= 0) {
+    const int nxt = advance(step);
+    if (nxt >= 0) issue(buf ^ 1, nxt);
+    cp_async_commit();
+    cp_async_wait<1>();             // K, V and this step's tile have landed
+    const int n_valid = T_ - (step % n_q) * BB;   // query rows of this tile
+    bool pred = true;               // on the rows whose seg / pos this thread copied
+    if (k_full && tid < 2 * BB) {
+      const int r = tid % BB;
+      if (tid < BB) {
+        pred = r < n_valid && s_segq[buf][r] == own.x;
+      } else {
+        const int ps = s_posq[buf][r];
+        pred = (!a.causal || ps >= own.w) && (a.window <= 0 || ps - own.z < a.window);
+      }
+    }
+    const bool full = __syncthreads_and(k_full && pred);   // every pair live
+    const bf* Qb = sQ + buf * BB * LD;
+    const bf* dOb = sdO + buf * BB * LD;
+    {
+      // S^T = K Q^T and dP^T = V dO^T: key rows 16 wr .., query columns 32 wc ..
+      float st[4][4], dpt[4][4];
+      strip_products<D>(st, dpt, sK + 16 * wr * LD, sV + 16 * wr * LD, Qb + 32 * wc * LD,
+                        dOb + 32 * wc * LD, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int kr = 16 * wr + g8 + 8 * hh;
+          const int qc = 32 * wc + 8 * j + 2 * t4;
+          float p[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = qc + e;
+            const bool ok = full || (c < n_valid && attends(s_segq[buf][c], s_posq[buf][c],
+                                                            s_segk[kr], s_posk[kr], a.causal,
+                                                            a.window));
+            p[e] = ok ? exp2f(st[j][2 * hh + e] * sl2 - s_lse[buf][c] * LOG2E) : 0.f;
+            ds[e] = p[e] * (dpt[j][2 * hh + e] - s_dlt[buf][c]);
+          }
+          *reinterpret_cast<uint32_t*>(sP + kr * LDPS + qc) = pack_bf16(p[0], p[1]);
+          *reinterpret_cast<uint32_t*>(sdS + kr * LDPS + qc) = pack_bf16(ds[0], ds[1]);
+        }
+    }
+    __syncthreads();
+    // dV += P^T dO, dK += dS^T Q: key rows 16 wr .., columns wc * D / 2 ..
+    accumulate<D, NJ>(dV, sP + 16 * wr * LDPS, dOb, wc * (D / 2), lane);
+    accumulate<D, NJ>(dK, sdS + 16 * wr * LDPS, Qb, wc * (D / 2), lane);
+    __syncthreads();                // buf and sP / sdS are rewritten next
+    buf ^= 1;
+    step = nxt;
+  }
+  cp_async_wait<0>();
+
+  bf *dk = (bf*)a.dk, *dv = (bf*)a.dv;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = k0 + 16 * wr + g8 + 8 * hh;
+      const int col = wc * (D / 2) + 8 * j + 2 * t4;
+      if (row < S) {
+        const size_t off = ((size_t)row * a.Hkv + hk) * D + col;
+        *reinterpret_cast<uint32_t*>(dk + off) =
+            pack_bf16(dK[j][2 * hh] * a.scale, dK[j][2 * hh + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(dV[j][2 * hh], dV[j][2 * hh + 1]);
+      }
+    }
+}
+
+template <int D>
+__device__ void dq_bf16(const BwdArgs& a) {
+  using bf = __nv_bfloat16;
+  constexpr int LD = D + LDB_PAD, NJ = D / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf* sQ = reinterpret_cast<bf*>(smem_raw);
+  bf* sdO = sQ + BB * LD;
+  bf* sK = sdO + BB * LD;           // [2][BB][LD]
+  bf* sV = sK + 2 * BB * LD;        // [2][BB][LD]
+  bf* sdS = sV + 2 * BB * LD;       // [BB][LDPS]: dS (query rows, key columns)
+  __shared__ int s_segq[BB], s_posq[BB];
+  __shared__ float s_lse[BB], s_dlt[BB];
+  __shared__ int s_segk[2][BB], s_posk[2][BB];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wr = warp & 3, wc = warp >> 2;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int h = blockIdx.y, hk = h / (a.Hq / a.Hkv), T_ = a.T, S = a.S;
+  const int q0 = blockIdx.x * BB;
+  const size_t kv_stride = (size_t)a.Hkv * D, q_stride = (size_t)a.Hq * D;
+  const bf *k = (const bf*)a.k + (size_t)hk * D, *v = (const bf*)a.v + (size_t)hk * D;
+
+  copy_rows<D>(sQ, (const bf*)a.q + (size_t)h * D, q_stride, q0, T_, tid);
+  copy_rows<D>(sdO, (const bf*)a.dout + (size_t)h * D, q_stride, q0, T_, tid);
+  cp_async_commit();
+  if (tid < BB) {
+    const bool ok = q0 + tid < T_;
+    s_segq[tid] = ok ? a.seg_q[q0 + tid] : -2;
+    s_posq[tid] = ok ? a.pos_q[q0 + tid] : 0;
+    s_lse[tid] = ok ? a.lse[(size_t)h * T_ + q0 + tid] : 0.f;
+  }
+  const int4 own = a.q_sum[blockIdx.x];
+  const int2 rg = a.range[blockIdx.x];
+
+  auto issue = [&](int buf, int kt) {
+    const int r0 = kt * BB;
+    copy_rows<D>(sK + buf * BB * LD, k, kv_stride, r0, S, tid);
+    copy_rows<D>(sV + buf * BB * LD, v, kv_stride, r0, S, tid);
+    if (tid < 2 * BB) {
+      const int r = tid % BB;
+      const bool ok = r0 + r < S;
+      const int* src = (tid < BB ? a.seg_kv : a.pos_kv) + (ok ? r0 + r : 0);
+      cp_async4(tid < BB ? &s_segk[buf][r] : &s_posk[buf][r], src, ok);
+    }
+  };
+
+  int kt = next_live(rg.x, rg.y, own, a.kv_sum, true, a.causal, a.window), buf = 0;
+  if (kt >= 0) issue(0, kt);
+  cp_async_commit();
+
+  // Delta = rowsum(dO * O) of this tile's rows, once: warp w takes rows
+  // 8w .. 8w + 7, dO from shared memory, O from global memory. And: every
+  // query row live and of one segment? (as k_full in the dk/dv pass)
+  cp_async_wait<1>();
+  const bool q_full = __syncthreads_and(tid >= BB || s_segq[tid] >= 0) && own.x == own.y;
+#pragma unroll
+  for (int i = 0; i < BB / 8; ++i) {
+    const int r = warp * (BB / 8) + i;
+    float acc = 0.f;
+    if (q0 + r < T_) {
+      const bf* orow = (const bf*)a.o + ((size_t)(q0 + r) * a.Hq + h) * D;
+      for (int c = lane; c < D / 8; c += 32) {
+        const uint4 ov = __ldg(reinterpret_cast<const uint4*>(orow + c * 8));
+        const uint4 dv = *reinterpret_cast<const uint4*>(sdO + r * LD + c * 8);
+        const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w}, dw[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc = fmaf(__uint_as_float(ow[e] << 16), __uint_as_float(dw[e] << 16), acc);
+          acc = fmaf(__uint_as_float(ow[e] & 0xffff0000u), __uint_as_float(dw[e] & 0xffff0000u),
+                     acc);
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) {
+      s_dlt[r] = acc;
+      if (q0 + r < T_) a.delta[(size_t)h * T_ + q0 + r] = acc;
+    }
+  }
+
+  float dQ[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dQ[j][e] = 0.f;
+
+  const float sl2 = a.scale * LOG2E;
+  while (kt >= 0) {
+    const int nxt = next_live(kt + 1, rg.y, own, a.kv_sum, true, a.causal, a.window);
+    if (nxt >= 0) issue(buf ^ 1, nxt);
+    cp_async_commit();
+    cp_async_wait<1>();             // this tile has landed
+    const int n_valid = S - kt * BB;  // key rows of this tile
+    bool pred = true;               // on the rows whose seg / pos this thread copied
+    if (q_full && tid < 2 * BB) {
+      const int r = tid % BB;
+      if (tid < BB) {
+        pred = r < n_valid && s_segk[buf][r] == own.x;
+      } else {
+        const int ps = s_posk[buf][r];
+        pred = (!a.causal || ps <= own.z) && (a.window <= 0 || own.w - ps < a.window);
+      }
+    }
+    // every pair live? (the first time, the barrier also publishes s_dlt)
+    const bool full = __syncthreads_and(q_full && pred);
+    const bf* Kb = sK + buf * BB * LD;
+    const bf* Vb = sV + buf * BB * LD;
+    {
+      // S = Q K^T and dP = dO V^T: query rows 16 wr .., key columns 32 wc ..
+      float s[4][4], dp[4][4];
+      strip_products<D>(s, dp, sQ + 16 * wr * LD, sdO + 16 * wr * LD, Kb + 32 * wc * LD,
+                        Vb + 32 * wc * LD, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int qr = 16 * wr + g8 + 8 * hh;
+          const int kc = 32 * wc + 8 * j + 2 * t4;
+          float ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = kc + e;
+            const bool ok = full || (c < n_valid && attends(s_segq[qr], s_posq[qr],
+                                                            s_segk[buf][c], s_posk[buf][c],
+                                                            a.causal, a.window));
+            const float p = ok ? exp2f(s[j][2 * hh + e] * sl2 - s_lse[qr] * LOG2E) : 0.f;
+            ds[e] = p * (dp[j][2 * hh + e] - s_dlt[qr]);
+          }
+          *reinterpret_cast<uint32_t*>(sdS + qr * LDPS + kc) = pack_bf16(ds[0], ds[1]);
+        }
+    }
+    __syncthreads();
+    // dQ += dS K: query rows 16 wr .., columns wc * D / 2 ..
+    accumulate<D, NJ>(dQ, sdS + 16 * wr * LDPS, Kb, wc * (D / 2), lane);
+    __syncthreads();                // buf and sdS are rewritten next
+    buf ^= 1;
+    kt = nxt;
+  }
+  cp_async_wait<0>();
+
+  bf* dq = (bf*)a.dq;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + 16 * wr + g8 + 8 * hh;
+      const int col = wc * (D / 2) + 8 * j + 2 * t4;
+      if (row < T_)
+        *reinterpret_cast<uint32_t*>(dq + ((size_t)row * a.Hq + h) * D + col) =
+            pack_bf16(dQ[j][2 * hh] * a.scale, dQ[j][2 * hh + 1] * a.scale);
+    }
+}
+
+// The tile ranges and summaries both passes walk, for tiles of R <= 64
+// rows (R = BB for bf16, BQ for float32). One block per tile, query tiles
+// first: it writes its tile's summary (segment min, max, position min, max
+// of its live rows; [INT_MAX, -1, INT_MAX, INT_MIN] if none) and its range
+// of the other side's tiles: the first and the last tile holding a pair
+// that attends, [n_other, -1] if none. The scans run from both ends, eight
+// candidate tiles at a time (one per warp): a warp reduces its candidate's
+// summary, and only a candidate whose summary can meet this tile's is
+// tested pair by pair, so a scan mostly stops at its first live tile.
+// Deterministic: every output element is written by one block.
+__device__ __forceinline__ int4 warp_summary(int sg0, int ps0, int sg1, int ps1) {
+  int4 r = make_int4(sg0 >= 0 ? sg0 : INT_MAX, sg0 >= 0 ? sg0 : -1,
+                     sg0 >= 0 ? ps0 : INT_MAX, sg0 >= 0 ? ps0 : INT_MIN);
+  if (sg1 >= 0) {
+    r.x = min(r.x, sg1); r.y = max(r.y, sg1);
+    r.z = min(r.z, ps1); r.w = max(r.w, ps1);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    r.x = min(r.x, __shfl_xor_sync(0xffffffffu, r.x, off));
+    r.y = max(r.y, __shfl_xor_sync(0xffffffffu, r.y, off));
+    r.z = min(r.z, __shfl_xor_sync(0xffffffffu, r.z, off));
+    r.w = max(r.w, __shfl_xor_sync(0xffffffffu, r.w, off));
+  }
+  return r;
+}
+
+__global__ void __launch_bounds__(NTB)
+flash_bwd_tiles_kernel(const int* __restrict__ seg_q, const int* __restrict__ pos_q,
+                       const int* __restrict__ seg_kv, const int* __restrict__ pos_kv,
+                       int2* __restrict__ kv_range, int2* __restrict__ q_range,
+                       int4* __restrict__ q_sum, int4* __restrict__ kv_sum, int T_, int S,
+                       int R, int causal, int window) {
+  __shared__ int s_seg[64], s_pos[64];
+  __shared__ int4 s_own;
+  __shared__ int s_hit[NTB / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_q = (T_ + R - 1) / R, n_kv = (S + R - 1) / R;
+  const bool own_q = blockIdx.x < n_q;
+  const int t = own_q ? blockIdx.x : blockIdx.x - n_q;
+  const int *seg = own_q ? seg_q : seg_kv, *pos = own_q ? pos_q : pos_kv;
+  const int *oseg = own_q ? seg_kv : seg_q, *opos = own_q ? pos_kv : pos_q;
+  const int n_rows = own_q ? T_ : S, n_orows = own_q ? S : T_;
+  const int n_other = own_q ? n_kv : n_q;
+
+  // this tile's rows (dead past n_rows) and summary
+  if (tid < 64) {
+    const int row = t * R + tid;
+    const bool ok = tid < R && row < n_rows;
+    s_seg[tid] = ok ? seg[row] : -2;
+    s_pos[tid] = ok ? pos[row] : 0;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int4 own = warp_summary(s_seg[lane], s_pos[lane], s_seg[lane + 32], s_pos[lane + 32]);
+    if (lane == 0) {
+      s_own = own;
+      (own_q ? q_sum : kv_sum)[t] = own;
+    }
+  }
+  __syncthreads();
+  const int4 own = s_own;
+  int2 rg = make_int2(n_other, -1);
+  if (own.x <= own.y) {
+    // dir 0: the first live tile from the start; dir 1: from the end
+    for (int dir = 0; dir < 2; ++dir) {
+      for (int base = 0; base < n_other; base += NTB / 32) {
+        const int j = dir == 0 ? base + warp : n_other - 1 - base - warp;
+        bool live = false;
+        if (j >= 0 && j < n_other) {
+          int sg[2], ps[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = lane + 32 * h, row = j * R + r;
+            const bool ok = r < R && row < n_orows;
+            sg[h] = ok ? oseg[row] : -2;
+            ps[h] = ok ? opos[row] : 0;
+          }
+          const int4 other = warp_summary(sg[0], ps[0], sg[1], ps[1]);
+          if (own_q ? may_attend(own, other, causal, window)
+                    : may_attend(other, own, causal, window)) {
+            for (int k = 0; k < R && !live; ++k) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                live |= own_q ? attends(s_seg[k], s_pos[k], sg[h], ps[h], causal, window)
+                              : attends(sg[h], ps[h], s_seg[k], s_pos[k], causal, window);
+              live = __any_sync(0xffffffffu, live);
+            }
+          }
+        }
+        if (lane == 0) s_hit[warp] = live;
+        __syncthreads();
+        int hit = -1;               // the first candidate of this round that is live
+        for (int w = NTB / 32 - 1; w >= 0; --w)
+          if (s_hit[w]) hit = dir == 0 ? base + w : n_other - 1 - base - w;
+        __syncthreads();
+        if (hit >= 0) {
+          if (dir == 0) rg.x = hit; else rg.y = hit;
+          break;
+        }
+      }
+    }
+  }
+  if (tid == 0) (own_q ? kv_range : q_range)[t] = rg;
+}
+
+// Blocks per SM the compiler must leave registers for: two at Dh 64 in
+// bf16 (the tiles take 75 KB of shared memory), else one.
+template <typename T, int D>
+constexpr int bwd_min_blocks() {
+  return std::is_same<T, __nv_bfloat16>::value && D == 64 ? 2 : 1;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NTB, bwd_min_blocks<T, D>())
+    flash_bwd_dkdv_kernel(const BwdArgs a) {
+  if constexpr (std::is_same<T, float>::value) dkdv_f32<D>(a);
+  else dkdv_bf16<D>(a);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NTB, bwd_min_blocks<T, D>())
+    flash_bwd_dq_kernel(const BwdArgs a) {
+  if constexpr (std::is_same<T, float>::value) dq_f32<D>(a);
+  else dq_bf16<D>(a);
+}
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* seg_q,
                const void* pos_q, const void* seg_kv, const void* pos_kv, void* out,
@@ -687,47 +1273,21 @@ int launch_combine(const void* ws_ml, const void* ws_acc, void* out, void* lse, 
 }
 
 template <typename T, int D>
-int launch_bwd_dkdv(const void* q, const void* k, const void* v, const void* o,
-                    const void* dout, const void* lse, const void* seg_q, const void* pos_q,
-                    const void* seg_kv, const void* pos_kv, void* dk, void* dv, int T_,
-                    int S, int Hq, int Hkv, int causal, int window, float scale,
-                    cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<D>();
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+int launch_bwd(bool dq_pass, const BwdArgs& a, cudaStream_t stream) {
+  constexpr bool f32 = std::is_same<T, float>::value;
+  constexpr size_t smem = f32 ? bwd_f32_smem_bytes<D>() : bwd_bf16_smem_bytes<D>();
+  constexpr int B = f32 ? BQ : BB;
+  static bool attr_set[2] = {false, false};
+  void (*kernel)(const BwdArgs) =
+      dq_pass ? flash_bwd_dq_kernel<T, D> : flash_bwd_dkdv_kernel<T, D>;
+  if (!attr_set[dq_pass]) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
+    attr_set[dq_pass] = true;
   }
-  dim3 grid(S / BK, Hkv);
-  flash_bwd_dkdv_kernel<T, D><<<grid, NTB, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout,
-      (const float*)lse, (const int*)seg_q, (const int*)pos_q, (const int*)seg_kv,
-      (const int*)pos_kv, (T*)dk, (T*)dv, T_, Hq, Hkv, causal, window, scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
-int launch_bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                  const void* dout, const void* lse, const void* seg_q, const void* pos_q,
-                  const void* seg_kv, const void* pos_kv, void* dq, int T_, int S, int Hq,
-                  int Hkv, int causal, int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<D>();
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  dim3 grid(T_ / BQ, Hq);
-  flash_bwd_dq_kernel<T, D><<<grid, NTB, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout,
-      (const float*)lse, (const int*)seg_q, (const int*)pos_q, (const int*)seg_kv,
-      (const int*)pos_kv, (T*)dq, T_, S, Hq, Hkv, causal, window, scale);
+  dim3 grid = dq_pass ? dim3((a.T + B - 1) / B, a.Hq) : dim3((a.S + B - 1) / B, a.Hkv);
+  kernel<<<grid, NTB, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -794,42 +1354,76 @@ int flash_attention_combine(const void* ws_ml, const void* ws_acc, void* out, vo
 #undef FC_CASE
 }
 
-// Backward, dK/dV pass: dk, dv [S, Hkv, D] from q, o, dout [T, Hq, D],
-// k, v [S, Hkv, D] and the forward's lse [Hq, T] (all contiguous, T and S
-// padded as for the forward). Returns a cudaError_t code.
-int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const void* o,
-                             const void* dout, const void* lse, const void* seg_q,
-                             const void* pos_q, const void* seg_kv, const void* pos_kv,
-                             void* dk, void* dv, int T, int S, int Hq, int Hkv, int D,
-                             int dtype, int causal, int window, float scale,
-                             void* stream) {
-  if (T <= 0 || S <= 0 || T % BQ || S % BK || Hkv <= 0 || Hq % Hkv)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-#define FB_CASE(TYPE, DIM)                                                             \
-  return launch_bwd_dkdv<TYPE, DIM>(q, k, v, o, dout, lse, seg_q, pos_q, seg_kv, pos_kv, \
-                                    dk, dv, T, S, Hq, Hkv, causal, window, scale, st)
-  FA_DISPATCH(FB_CASE);
-#undef FB_CASE
+// Rows per tile of the backward passes for a dtype (0 = float32,
+// 1 = bfloat16): the tiles of the ranges and summaries the wrapper passes.
+int flash_attention_bwd_block(int dtype) { return dtype == 1 ? BB : BQ; }
+
+// The ranges and summaries of tiles of ``R`` rows (32 or 64) that both
+// passes read (see flash_bwd_tiles_kernel): kv_range [n_q, 2], q_range
+// [n_kv, 2], q_sum [n_q, 4], kv_sum [n_kv, 4], int32, n_q = ceil(T / R),
+// n_kv = ceil(S / R). Returns a cudaError_t code.
+int flash_attention_bwd_tiles(const void* seg_q, const void* pos_q, const void* seg_kv,
+                              const void* pos_kv, void* kv_range, void* q_range, void* q_sum,
+                              void* kv_sum, int T, int S, int R, int causal, int window,
+                              void* stream) {
+  if (T <= 0 || S <= 0 || (R != BQ && R != BB)) return (int)cudaErrorInvalidValue;
+  const int n = (T + R - 1) / R + (S + R - 1) / R;
+  flash_bwd_tiles_kernel<<<n, NTB, 0, (cudaStream_t)stream>>>(
+      (const int*)seg_q, (const int*)pos_q, (const int*)seg_kv, (const int*)pos_kv,
+      (int2*)kv_range, (int2*)q_range, (int4*)q_sum, (int4*)kv_sum, T, S, R, causal, window);
+  return (int)cudaGetLastError();
 }
 
-// Backward, dQ pass: dq [T, Hq, D] from the same inputs. Returns a
-// cudaError_t code.
+// The two backward passes. Inputs: q, o, dout [T, Hq, D], k, v [S, Hkv, D],
+// the forward's lse [Hq, T] (all contiguous, T and S padded as for the
+// forward), the rows' int32 seg and pos; per tile of the tile size above,
+// ``range`` (int32 [n, 2]: for the dq pass per query tile its KV tiles
+// [lo, hi], for the dk/dv pass per KV tile its query tiles) and the
+// summaries ``q_sum`` / ``kv_sum`` (int32 [n, 4]: segment min, max and
+// position min, max of the tile's live rows). ``delta`` (float32 [Hq, T]) is
+// written by the dq pass, which runs first, and read by the dk/dv pass.
+// Returns a cudaError_t code.
+#define FB_ARGS(DQ, DK, DV)                                                               \
+  BwdArgs a{q, k, v, o, dout, (const float*)lse, (float*)delta, (const int*)seg_q,         \
+            (const int*)pos_q, (const int*)seg_kv, (const int*)pos_kv, (const int2*)range, \
+            (const int4*)q_sum, (const int4*)kv_sum, DQ, DK, DV, T, S, Hq, Hkv, causal,   \
+            window, scale}
+#define FB_CHECK                                                                      \
+  if (T <= 0 || S <= 0 || T % BQ || S % BK || Hkv <= 0 || Hq % Hkv || delta == nullptr || \
+      range == nullptr || q_sum == nullptr || kv_sum == nullptr)                       \
+    return (int)cudaErrorInvalidValue
+
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                           const void* dout, const void* lse, const void* seg_q,
+                           const void* dout, const void* lse, void* delta, const void* seg_q,
                            const void* pos_q, const void* seg_kv, const void* pos_kv,
-                           void* dq, int T, int S, int Hq, int Hkv, int D, int dtype,
-                           int causal, int window, float scale, void* stream) {
-  if (T <= 0 || S <= 0 || T % BQ || S % BK || Hkv <= 0 || Hq % Hkv)
-    return (int)cudaErrorInvalidValue;
+                           const void* range, const void* q_sum, const void* kv_sum, void* dq,
+                           int T, int S, int Hq, int Hkv, int D, int dtype, int causal,
+                           int window, float scale, void* stream) {
+  FB_CHECK;
+  FB_ARGS(dq, nullptr, nullptr);
   cudaStream_t st = (cudaStream_t)stream;
-#define FQ_CASE(TYPE, DIM)                                                             \
-  return launch_bwd_dq<TYPE, DIM>(q, k, v, o, dout, lse, seg_q, pos_q, seg_kv, pos_kv,   \
-                                  dq, T, S, Hq, Hkv, causal, window, scale, st)
+#define FQ_CASE(TYPE, DIM) return launch_bwd<TYPE, DIM>(true, a, st)
   FA_DISPATCH(FQ_CASE);
 #undef FQ_CASE
 }
 
+int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const void* o,
+                             const void* dout, const void* lse, const void* delta,
+                             const void* seg_q, const void* pos_q, const void* seg_kv,
+                             const void* pos_kv, const void* range, const void* q_sum,
+                             const void* kv_sum, void* dk, void* dv, int T, int S, int Hq,
+                             int Hkv, int D, int dtype, int causal, int window, float scale,
+                             void* stream) {
+  FB_CHECK;
+  FB_ARGS(nullptr, dk, dv);
+  cudaStream_t st = (cudaStream_t)stream;
+#define FK_CASE(TYPE, DIM) return launch_bwd<TYPE, DIM>(false, a, st)
+  FA_DISPATCH(FK_CASE);
+#undef FK_CASE
+}
+
+#undef FB_ARGS
+#undef FB_CHECK
 #undef FA_DISPATCH
 
 }  // extern "C"

@@ -20,17 +20,26 @@ merged by a second kernel (so decode rows, which each attend a whole
 context, are spread over up to ``MAX_SPLIT`` blocks). Moving its products
 onto tensor cores is the next step.
 
+Kernel A's backward runs its products on tensor cores for bf16
+(``mma.sync`` on 64-row tiles, ``cp.async`` double buffering) and walks
+only the tiles that can hold a live pair: ``flash_bwd_tiles_kernel`` finds,
+per tile, the first and last tile of the other side holding a live pair
+and summarises every tile (the source note in ``csrc/flash_attention.cu``
+says more).
+
 One wrapper per ``__global__`` kernel, each counting its own launches:
 :data:`flash_attention_cuda` (``flash_fwd_kernel``, the split pass, once
 per attention op; for training it also writes each row's log-sum-exp),
 :data:`flash_combine_cuda` (``flash_combine_kernel``, the merge pass, once
 per op whose keys are split over several blocks), and the backward's two
 passes :data:`flash_bwd_dkdv_cuda` (``flash_bwd_dkdv_kernel``) and
-:data:`flash_bwd_dq_cuda` (``flash_bwd_dq_kernel``), each once per
-attention op in a backward. They only launch: they take CUDA tensors,
-check them and raise on anything the kernel does not take. Padding to the
-tile sizes, the autograd function and the CPU dispatch live in
-:mod:`repro_torch.kernels.ops`.
+:data:`flash_bwd_dq_cuda` (``flash_bwd_dq_kernel``) with their tile ranges
+:data:`flash_bwd_tiles_cuda` (``flash_bwd_tiles_kernel``), each once per
+attention op in a backward (the ranges first, then the dq pass: it writes
+the rows' Delta that the dk/dv pass reads). They only launch: they take
+CUDA tensors, check them and raise on anything the kernel does not take.
+Padding to the tile sizes, the autograd function and the CPU dispatch live
+in :mod:`repro_torch.kernels.ops`.
 """
 
 from __future__ import annotations
@@ -45,15 +54,20 @@ import torch
 
 from .build import load_libraries
 
-__all__ = ["BLOCK_Q", "BLOCK_KV", "HEAD_DIMS", "MAX_SPLIT",
+__all__ = ["BLOCK_Q", "BLOCK_KV", "HEAD_DIMS", "MAX_SPLIT", "BWD_BLOCK",
            "FlashAttentionKernel", "FlashCombineKernel", "FlashBwdKernel",
-           "kv_splits", "flash_attention_cuda", "flash_combine_cuda",
-           "flash_bwd_dkdv_cuda", "flash_bwd_dq_cuda", "load_library"]
+           "FlashBwdTilesKernel", "BwdTiles", "tile_counts", "kv_splits",
+           "flash_attention_cuda", "flash_combine_cuda",
+           "flash_bwd_dkdv_cuda", "flash_bwd_dq_cuda",
+           "flash_bwd_tiles_cuda", "load_library"]
 
 BLOCK_Q = 32                  # query rows per block (csrc: BQ)
 BLOCK_KV = 32                 # KV rows per tile (csrc: BK)
 HEAD_DIMS = (64, 128, 256)    # template instantiations in the library
 MAX_SPLIT = 16                # KV splits per query tile (csrc: MAX_SPLIT)
+# rows per tile of the backward passes, both sides (csrc: BB for bf16; the
+# float32 passes keep BQ = BK)
+BWD_BLOCK = {torch.bfloat16: 64, torch.float32: 32}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -67,6 +81,7 @@ class KernelLibrary:
     combine: ctypes._CFuncPtr
     bwd_dkdv: ctypes._CFuncPtr
     bwd_dq: ctypes._CFuncPtr
+    bwd_tiles: ctypes._CFuncPtr
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,20 +89,24 @@ def load_library() -> KernelLibrary:
     """The flash-attention library (built with the others at first use)."""
     built = load_libraries()["flash_attention"]
     lib = built.lib
-    for name, want in (("flash_attention_block_q", BLOCK_Q),
-                       ("flash_attention_block_kv", BLOCK_KV),
-                       ("flash_attention_max_split", MAX_SPLIT)):
+    checks = [("flash_attention_block_q", (), BLOCK_Q),
+              ("flash_attention_block_kv", (), BLOCK_KV),
+              ("flash_attention_max_split", (), MAX_SPLIT)]
+    checks += [("flash_attention_bwd_block", (_DTYPE_CODE[dt],), rows)
+               for dt, rows in BWD_BLOCK.items()]
+    for name, args, want in checks:
         fn = getattr(lib, name)
-        fn.argtypes, fn.restype = [], _I
-        if fn() != want:
-            raise RuntimeError(f"{built.path.name}: {name}() = {fn()} but "
-                               f"the wrapper expects {want}")
+        fn.argtypes, fn.restype = [_I] * len(args), _I
+        if fn(*args) != want:
+            raise RuntimeError(f"{built.path.name}: {name}{args} = "
+                               f"{fn(*args)} but the wrapper expects {want}")
     fns = {}
     for name, argtypes in (
             ("flash_attention_fwd", [_P] * 11 + [_I] * 8 + [_F, _I, _P]),
             ("flash_attention_combine", [_P] * 4 + [_I] * 5 + [_P]),
-            ("flash_attention_bwd_dkdv", [_P] * 12 + [_I] * 8 + [_F, _P]),
-            ("flash_attention_bwd_dq", [_P] * 11 + [_I] * 8 + [_F, _P])):
+            ("flash_attention_bwd_dkdv", [_P] * 16 + [_I] * 8 + [_F, _P]),
+            ("flash_attention_bwd_dq", [_P] * 15 + [_I] * 8 + [_F, _P]),
+            ("flash_attention_bwd_tiles", [_P] * 8 + [_I] * 5 + [_P])):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, _I
         fns[name] = fn
@@ -95,7 +114,8 @@ def load_library() -> KernelLibrary:
                          fwd=fns["flash_attention_fwd"],
                          combine=fns["flash_attention_combine"],
                          bwd_dkdv=fns["flash_attention_bwd_dkdv"],
-                         bwd_dq=fns["flash_attention_bwd_dq"])
+                         bwd_dq=fns["flash_attention_bwd_dq"],
+                         bwd_tiles=fns["flash_attention_bwd_tiles"])
 
 
 class FlashAttentionKernel:
@@ -229,13 +249,19 @@ class FlashCombineKernel:
 
 
 class FlashBwdKernel:
-    """Launch wrapper of one backward pass: ``flash_bwd_dkdv_kernel``
-    (``which="dkdv"``, returns ``(dk, dv)``) or ``flash_bwd_dq_kernel``
-    (``which="dq"``, returns ``dq``). Inputs: the forward's padded
+    """Launch wrapper of one backward pass: ``flash_bwd_dq_kernel``
+    (``which="dq"``, returns ``dq``) or ``flash_bwd_dkdv_kernel``
+    (``which="dkdv"``, returns ``(dk, dv)``). Inputs: the forward's padded
     ``q, k, v``, metadata, output ``out``, its ``lse [Hq, T]`` and the
-    output's gradient ``dout`` (same shape and dtype as ``out``). The plain
-    version is :func:`repro_torch.kernels.ref.flash_attention_grad`;
-    ``launches`` counts this pass's launches."""
+    output's gradient ``dout`` (same shape and dtype as ``out``).
+
+    ``delta`` is a float32 ``[Hq, T]`` buffer of the rows' Delta =
+    rowsum(dout * out): the dq pass, which runs first, writes it, the dk/dv
+    pass reads it and so needs the one the dq pass wrote. ``tiles``: the
+    metadata's :class:`BwdTiles` (:data:`flash_bwd_tiles_cuda`) for tiles
+    of ``BWD_BLOCK[dtype]`` rows. The plain version is
+    :func:`repro_torch.kernels.ref.flash_attention_grad`; ``launches``
+    counts this pass's launches."""
 
     def __init__(self, which: str) -> None:
         if which not in ("dkdv", "dq"):
@@ -245,7 +271,8 @@ class FlashBwdKernel:
 
     def __call__(self, q, k, v, out, dout, lse, seg_q, seg_kv, pos_q, pos_kv,
                  *, causal: bool = True, window: int = 0,
-                 scale: Optional[float] = None):
+                 scale: Optional[float] = None, delta: torch.Tensor,
+                 tiles: "BwdTiles"):
         T, Hq, D = _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
         S, Hkv = k.shape[0], k.shape[1]
         for name, t in (("out", out), ("dout", dout)):
@@ -254,29 +281,34 @@ class FlashBwdKernel:
                     or t.shape != q.shape or not t.is_contiguous()):
                 raise ValueError(f"{name} must be a contiguous CUDA tensor "
                                  f"like q {tuple(q.shape)} {q.dtype}")
-        if (not isinstance(lse, torch.Tensor) or lse.device != q.device
-                or lse.dtype != torch.float32
-                or tuple(lse.shape) != (Hq, T) or not lse.is_contiguous()):
-            raise ValueError(f"lse must be a contiguous float32 [{Hq}, {T}] "
-                             f"tensor on {q.device}")
+        for name, t in (("lse", lse), ("delta", delta)):
+            if (not isinstance(t, torch.Tensor) or t.device != q.device
+                    or t.dtype != torch.float32
+                    or tuple(t.shape) != (Hq, T) or not t.is_contiguous()):
+                raise ValueError(f"{name} must be a contiguous float32 "
+                                 f"[{Hq}, {T}] tensor on {q.device}")
+        window = int(window)
+        tiles.check(T, S, BWD_BLOCK[q.dtype], q.device)
         scale = float(scale if scale is not None else D ** -0.5)
         lib = load_library()
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  dout.data_ptr(), lse.data_ptr(), seg_q.data_ptr(),
-                  pos_q.data_ptr(), seg_kv.data_ptr(), pos_kv.data_ptr())
-        tail = (_DTYPE_CODE[q.dtype], int(bool(causal)), int(window), scale,
-                stream)
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                seg_q.data_ptr(), pos_q.data_ptr(), seg_kv.data_ptr(),
+                pos_kv.data_ptr())
+        summaries = (tiles.q_summary.data_ptr(), tiles.kv_summary.data_ptr())
+        tail = (T, S, Hq, Hkv, D, _DTYPE_CODE[q.dtype], int(bool(causal)),
+                window, scale, stream)
         with torch.cuda.device(q.device):
             if self.which == "dkdv":
                 dk, dv = torch.empty_like(k), torch.empty_like(v)
-                rc = lib.bwd_dkdv(*common, dk.data_ptr(), dv.data_ptr(), T, S,
-                                  Hq, Hkv, D, *tail)
+                rc = lib.bwd_dkdv(*head, tiles.q_range.data_ptr(), *summaries,
+                                  dk.data_ptr(), dv.data_ptr(), *tail)
                 res = (dk, dv)
             else:
                 dq = torch.empty_like(q)
-                rc = lib.bwd_dq(*common, dq.data_ptr(), T, S, Hq, Hkv, D,
-                                *tail)
+                rc = lib.bwd_dq(*head, tiles.kv_range.data_ptr(), *summaries,
+                                dq.data_ptr(), *tail)
                 res = dq
         if rc != 0:
             raise RuntimeError(
@@ -284,6 +316,117 @@ class FlashBwdKernel:
                 f"{rc} (T={T}, S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, {q.dtype})")
         self.launches += 1
         return res
+
+
+@dataclass(frozen=True)
+class BwdTiles:
+    """What the backward passes walk, per tile of ``block`` rows (int32,
+    contiguous, on the metadata's device): ``kv_range [n_q, 2]``, for each
+    query tile the first and last KV tile holding a live pair with it (the
+    dq pass); ``q_range [n_kv, 2]``, for each KV tile its first and last
+    such query tile (the dk/dv pass); an empty range is ``[n, -1]``.
+    ``q_summary [n_q, 4]`` and ``kv_summary [n_kv, 4]``: segment min,
+    segment max, position min, position max over the tile's live rows
+    (``[2^31 - 1, -1, 2^31 - 1, -2^31]`` for a tile with none). Inside its
+    range a pass skips a tile whose summary cannot meet its own
+    (:func:`tile_counts` says how)."""
+    block: int
+    kv_range: torch.Tensor
+    q_range: torch.Tensor
+    q_summary: torch.Tensor
+    kv_summary: torch.Tensor
+
+    def check(self, T: int, S: int, block: int, device) -> None:
+        n_q, n_kv = -(-T // block), -(-S // block)
+        want = (("kv_range", (n_q, 2)), ("q_range", (n_kv, 2)),
+                ("q_summary", (n_q, 4)), ("kv_summary", (n_kv, 4)))
+        for name, shape in want:
+            t = getattr(self, name)
+            if (tuple(t.shape) != shape or t.dtype != torch.int32
+                    or not t.is_contiguous() or t.device != device
+                    or t.data_ptr() % (4 * shape[1])):
+                raise ValueError(f"tiles.{name} must be contiguous int32 "
+                                 f"{shape} on {device}, its rows aligned "
+                                 f"(the kernels load them whole)")
+        if self.block != block:
+            raise ValueError(f"tiles of {self.block} rows, the pass takes "
+                             f"{block}")
+
+
+class FlashBwdTilesKernel:
+    """Launch wrapper of ``flash_bwd_tiles_kernel``: the :class:`BwdTiles`
+    of the padded metadata for tiles of ``block`` rows (one launch per
+    attention op in a backward). Its plain version is
+    :func:`repro_torch.kernels.ref.flash_attention_tiles`; ``launches``
+    counts its launches."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def __call__(self, seg_q, seg_kv, pos_q, pos_kv, *, causal: bool = True,
+                 window: int = 0, block: int = 64) -> BwdTiles:
+        ts = (seg_q, seg_kv, pos_q, pos_kv)
+        if not all(isinstance(t, torch.Tensor) and t.is_cuda
+                   and t.dtype == torch.int32 and t.dim() == 1
+                   and t.is_contiguous() for t in ts) \
+                or len({t.device for t in ts}) != 1:
+            raise ValueError("flash_bwd_tiles_cuda takes contiguous int32 "
+                             "CUDA vectors on one device")
+        T, S = seg_q.shape[0], seg_kv.shape[0]
+        if pos_q.shape[0] != T or pos_kv.shape[0] != S or T == 0 or S == 0:
+            raise ValueError(f"seg/pos lengths {[t.shape[0] for t in ts]}")
+        if block not in set(BWD_BLOCK.values()):
+            raise ValueError(f"block={block} not in {set(BWD_BLOCK.values())}")
+        n_q, n_kv = -(-T // block), -(-S // block)
+        buf = torch.empty(6 * (n_q + n_kv), dtype=torch.int32,
+                          device=seg_q.device)
+        # the summaries first: the kernel stores them 16 bytes at a time
+        q_sum, kv_sum, kv_range, q_range = (
+            t.view(-1, w) for t, w in zip(buf.split(
+                [4 * n_q, 4 * n_kv, 2 * n_q, 2 * n_kv]), (4, 4, 2, 2)))
+        lib = load_library()
+        stream = torch.cuda.current_stream(seg_q.device).cuda_stream
+        with torch.cuda.device(seg_q.device):
+            rc = lib.bwd_tiles(seg_q.data_ptr(), pos_q.data_ptr(),
+                               seg_kv.data_ptr(), pos_kv.data_ptr(),
+                               kv_range.data_ptr(), q_range.data_ptr(),
+                               q_sum.data_ptr(), kv_sum.data_ptr(), T, S,
+                               block, int(bool(causal)), int(window), stream)
+        if rc != 0:
+            raise RuntimeError(f"flash_bwd_tiles_kernel launch failed with "
+                               f"cudaError {rc} (T={T}, S={S}, "
+                               f"block={block})")
+        self.launches += 1
+        return BwdTiles(block=block, kv_range=kv_range, q_range=q_range,
+                        q_summary=q_sum, kv_summary=kv_sum)
+
+
+def tile_counts(tiles: BwdTiles, *, causal: bool = True,
+                window: int = 0) -> dict:
+    """Tile pairs of each pass (per head): ``in_range``, the pairs inside
+    the blocks' ranges, and ``visited``, those whose summaries pass the
+    kernels' O(1) test (the tiles a pass computes). The same for both
+    passes' counts when the ranges are tight; the dk/dv pass visits each
+    pair once per query head of its group, the dq pass once per query
+    head."""
+    qs, ks = tiles.q_summary.long(), tiles.kv_summary.long()
+    out = {}
+    for name, rng, own_q in (("dq", tiles.kv_range, True),
+                             ("dkdv", tiles.q_range, False)):
+        other = ks if own_q else qs
+        idx = torch.arange(other.shape[0], device=other.device)
+        inside = (idx[None, :] >= rng[:, :1]) & (idx[None, :] <= rng[:, 1:])
+        a = (qs[:, None, :] if own_q else qs[None, :, :])
+        b = (ks[None, :, :] if own_q else ks[:, None, :])
+        ok = (torch.maximum(a[..., 0], b[..., 0])
+              <= torch.minimum(a[..., 1], b[..., 1]))
+        if causal:
+            ok &= b[..., 2] <= a[..., 3]
+        if window > 0:
+            ok &= a[..., 2] - b[..., 3] < window
+        out[name] = {"in_range": int(inside.sum()),
+                     "visited": int((inside & ok).sum())}
+    return out
 
 
 def kv_splits(S: int) -> int:
@@ -336,3 +479,4 @@ flash_attention_cuda = FlashAttentionKernel()
 flash_combine_cuda = FlashCombineKernel()
 flash_bwd_dkdv_cuda = FlashBwdKernel("dkdv")
 flash_bwd_dq_cuda = FlashBwdKernel("dq")
+flash_bwd_tiles_cuda = FlashBwdTilesKernel()

@@ -15,7 +15,8 @@ or raises.
 The ops are ``torch.autograd.Function``\\ s when a gradient is wanted:
 
 * :func:`flash_attention` — forward: kernel A with the rows' log-sum-exp;
-  backward: the two backward kernels (dk/dv pass, dq pass);
+  backward: the tile ranges (:func:`bwd_tiles`: ``flash_bwd_tiles_kernel``),
+  then the two backward kernels (dq pass, then dk/dv pass);
 * :func:`fused_cross_entropy` — forward: kernel B; backward: C1 (d hidden)
   and C2 (d W), the counterpart of the JAX package's ``_fused_ce``;
 * :func:`mamba_scan` — forward: kernel D, which also checkpoints the state
@@ -34,13 +35,15 @@ import torch
 from . import ref
 from .cross_entropy import (TOKEN_MULTIPLE, ce_bwd_dh_cuda, ce_bwd_dw_cuda,
                             ce_fwd_cuda)
-from .flash_attention import (BLOCK_KV, BLOCK_Q, flash_attention_cuda,
-                              flash_bwd_dkdv_cuda, flash_bwd_dq_cuda)
+from .flash_attention import (BLOCK_KV, BLOCK_Q, BWD_BLOCK, BwdTiles,
+                              flash_attention_cuda, flash_bwd_dkdv_cuda,
+                              flash_bwd_dq_cuda, flash_bwd_tiles_cuda)
 from .mamba_scan import (SCAN_TILE, mamba_scan_bwd_cuda, mamba_scan_fwd_cuda,
                          mamba_scan_reduce_cuda)
 
-__all__ = ["flash_attention", "fused_cross_entropy", "mamba_scan",
-           "mamba_scan_fwd", "mamba_scan_bwd", "pad_rows", "pad_for_kernel"]
+__all__ = ["flash_attention", "bwd_tiles", "fused_cross_entropy",
+           "mamba_scan", "mamba_scan_fwd", "mamba_scan_bwd", "pad_rows",
+           "pad_for_kernel"]
 
 PAD_SEG = -2
 
@@ -108,9 +111,17 @@ class _FlashAttention(torch.autograd.Function):
                 ctx.saved_tensors
             do = _dense(pad_rows(dout.to(q.dtype), BLOCK_Q))
             meta = (seg_q, seg_kv, pos_q, pos_kv)
+            # the tile ranges, then the dq pass: it writes the rows' Delta
+            # for the dk/dv pass
+            tiles = bwd_tiles(*meta, causal=ctx.opts["causal"],
+                              window=ctx.opts["window"],
+                              block=BWD_BLOCK[q.dtype])
+            delta = torch.empty_like(lse)
+            dq = flash_bwd_dq_cuda(q, k, v, out, do, lse, *meta, delta=delta,
+                                   tiles=tiles, **ctx.opts)
             dk, dv = flash_bwd_dkdv_cuda(q, k, v, out, do, lse, *meta,
+                                         delta=delta, tiles=tiles,
                                          **ctx.opts)
-            dq = flash_bwd_dq_cuda(q, k, v, out, do, lse, *meta, **ctx.opts)
             dq, dk, dv = dq[:T], dk[:S], dv[:S]
         else:
             flash_attention.plain_calls += 1
@@ -147,6 +158,24 @@ def flash_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv, *,
 
 
 flash_attention.plain_calls = 0
+
+
+def bwd_tiles(seg_q, seg_kv, pos_q, pos_kv, *, causal: bool = True,
+              window: int = 0, block: int = 64) -> BwdTiles:
+    """The tile ranges and summaries the attention backward walks
+    (:class:`~.flash_attention.BwdTiles`) for tiles of ``block`` rows:
+    ``flash_bwd_tiles_kernel`` on CUDA metadata (int32, contiguous, padded
+    as the kernels take it), its plain version on the CPU."""
+    if seg_q.is_cuda:
+        return flash_bwd_tiles_cuda(seg_q, seg_kv, pos_q, pos_kv,
+                                    causal=causal, window=int(window),
+                                    block=block)
+    _known_device(seg_q, "bwd_tiles")
+    kv_range, q_range, q_sum, kv_sum = ref.flash_attention_tiles(
+        seg_q, seg_kv, pos_q, pos_kv, causal=causal, window=int(window),
+        block=block)
+    return BwdTiles(block=block, kv_range=kv_range, q_range=q_range,
+                    q_summary=q_sum, kv_summary=kv_sum)
 
 
 class _FusedCrossEntropy(torch.autograd.Function):

@@ -10,7 +10,9 @@ tests and what :mod:`repro_torch.kernels.ops` runs on CPU tensors.
 * :func:`flash_attention_lse` — each query row's log-sum-exp (what the
   forward writes for training); :func:`flash_attention_grad` — dq, dk, dv
   by autograd through :func:`flash_attention_reference` (the plain version
-  of the two backward passes).
+  of the two backward passes); :func:`flash_attention_tiles` — the tile
+  ranges and summaries the backward passes walk, from the mask (the plain
+  version of ``flash_bwd_tiles_kernel``).
 * :func:`cross_entropy_fwd_plain`, :func:`cross_entropy_bwd_dh_plain`,
   :func:`cross_entropy_bwd_dw_plain` — the plain versions of the streaming
   cross-entropy kernels B, C1 and C2 (materialised logits);
@@ -38,9 +40,10 @@ import torch
 
 __all__ = ["flash_attention_reference", "blocked_flash_attention",
            "attention_mask", "combine_partials", "flash_attention_lse",
-           "flash_attention_grad", "cross_entropy_reference",
-           "streaming_cross_entropy", "cross_entropy_fwd_plain",
-           "cross_entropy_bwd_dh_plain", "cross_entropy_bwd_dw_plain",
+           "flash_attention_grad", "flash_attention_tiles",
+           "cross_entropy_reference", "streaming_cross_entropy",
+           "cross_entropy_fwd_plain", "cross_entropy_bwd_dh_plain",
+           "cross_entropy_bwd_dw_plain",
            "mamba_scan_reference", "mamba_scan_grad"]
 
 NEG_INF = -1e30
@@ -163,6 +166,66 @@ def flash_attention_grad(q, k, v, seg_q, seg_kv, pos_q, pos_kv, dout, *,
                                         pos_kv, causal=causal, window=window,
                                         scale=scale)
         return torch.autograd.grad(out, (qq, kk, vv), dout.to(out.dtype))
+
+
+_I32_MAX, _I32_MIN = 2 ** 31 - 1, -2 ** 31
+
+
+def _tile_summaries(seg, pos, block):
+    """[n, 4] int32 per tile of ``block`` rows: segment min, max, position
+    min, max of its live rows (``[2^31 - 1, -1, 2^31 - 1, -2^31]`` if
+    none)."""
+    n = -(-seg.shape[0] // block)
+    pad = n * block - seg.shape[0]
+    seg = torch.nn.functional.pad(seg, (0, pad), value=-2)
+    pos = torch.nn.functional.pad(pos, (0, pad), value=0)
+    live = seg >= 0
+
+    def red(x, fill, op):
+        return getattr(torch.where(live, x, fill).view(n, block), op)(dim=1)
+    return torch.stack([red(seg, _I32_MAX, "amin"), red(seg, -1, "amax"),
+                        red(pos, _I32_MAX, "amin"),
+                        red(pos, _I32_MIN, "amax")],
+                       dim=1).to(torch.int32).contiguous()
+
+
+def _first_last(live: torch.Tensor) -> torch.Tensor:
+    """[n, 2] int32: per row of ``live [n, m]`` its first and last True
+    column, ``[m, -1]`` where none."""
+    m = live.shape[1]
+    any_ = live.any(dim=1)
+    first = live.int().argmax(dim=1)
+    last = m - 1 - live.flip(1).int().argmax(dim=1)
+    return torch.stack([torch.where(any_, first, m),
+                        torch.where(any_, last, -1)],
+                       dim=1).to(torch.int32).contiguous()
+
+
+def flash_attention_tiles(seg_q, seg_kv, pos_q, pos_kv, *,
+                          causal: bool = True, window: int = 0,
+                          block: int = 64, row_block: int = 4096):
+    """What the backward passes walk, for tiles of ``block`` rows (the
+    plain version of ``flash_bwd_tiles_kernel``): ``(kv_range [n_q, 2],
+    q_range [n_kv, 2], q_summary [n_q, 4], kv_summary [n_kv, 4])``, int32.
+    A range is the first and the last tile of the other side that holds a
+    pair the mask rule lets attend (``[n, -1]`` if none); a summary is the
+    tile's live rows' segment min, max and position min, max. The mask is
+    formed over ``row_block`` query rows at a time."""
+    T, S = seg_q.shape[0], seg_kv.shape[0]
+    n_q, n_kv = -(-T // block), -(-S // block)
+    live = torch.zeros((n_q, n_kv), dtype=torch.bool, device=seg_q.device)
+    row_block = -(-row_block // block) * block
+    for a in range(0, T, row_block):
+        m = attention_mask(seg_q[a:a + row_block], seg_kv,
+                           pos_q[a:a + row_block], pos_kv, causal, window)
+        rows = m.shape[0]
+        m = torch.nn.functional.pad(m, (0, n_kv * block - S,
+                                        0, -(-rows // block) * block - rows))
+        live[a // block:a // block + m.shape[0] // block] = \
+            m.view(-1, block, n_kv, block).any(dim=3).any(dim=1)
+    return (_first_last(live), _first_last(live.T),
+            _tile_summaries(seg_q, pos_q, block),
+            _tile_summaries(seg_kv, pos_kv, block))
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,14 @@ Inputs are numpy arrays from a seed, rounded to bf16 identically in both
 frameworks. Plus the dispatcher's padding rule (pad rows ``seg = -2``,
 output sliced back) and exact zeros for fully masked rows.
 
+The backward passes' tile ranges and summaries (``ops.bwd_tiles``, on the
+CPU the plain ``ref.flash_attention_tiles``) are held against the JAX
+package's mask: on random metadata (hypothesis; non-monotone positions,
+context rows, windows, pad rows) and on chunks made by the port's planner
+and ``data/batching.py`` (with and without context rows) every range
+starts at its first live tile and ends at its last, and every live tile
+pair passes the summaries' test.
+
 The CUDA kernel itself is held against the plain version on the card in
 ``tests/test_torch_gpu.py``.
 """
@@ -21,11 +29,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import tile_counts
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -301,3 +312,179 @@ def test_attention_gradient_and_lse_match_jax(Hq, Hkv, window, ctx):
     assert not live[:, 10].any() and not live[:, -4:].any()
     np.testing.assert_allclose(lse.numpy()[live], want_lse[live], rtol=2e-5,
                                atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the backward passes' tile ranges
+# ---------------------------------------------------------------------------
+
+def _live_tiles(seg_q, seg_kv, pos_q, pos_kv, causal, window, block):
+    """[n_q, n_kv] bool: tile pairs holding a live pair of the JAX
+    package's mask (``ref._mask``), which equals the port's
+    ``ref.attention_mask`` here."""
+    m = np.asarray(jref._mask(jnp.asarray(seg_q), jnp.asarray(seg_kv),
+                              jnp.asarray(pos_q), jnp.asarray(pos_kv),
+                              causal, jnp.asarray(window)))
+    mt = tref.attention_mask(*(torch.from_numpy(np.asarray(a)) for a in
+                               (seg_q, seg_kv, pos_q, pos_kv)),
+                             causal, window).numpy()
+    assert np.array_equal(m, mt)
+    T, S = m.shape
+    n_q, n_kv = -(-T // block), -(-S // block)
+    m = np.pad(m, ((0, n_q * block - T), (0, n_kv * block - S)))
+    return m.reshape(n_q, block, n_kv, block).any(axis=(1, 3))
+
+
+def _tiles_np(seg_q, seg_kv, pos_q, pos_kv, causal, window, block):
+    t = ops.bwd_tiles(*(torch.from_numpy(np.asarray(a, np.int32)) for a in
+                        (seg_q, seg_kv, pos_q, pos_kv)), causal=causal,
+                      window=window, block=block)
+    return t, t.kv_range.numpy(), t.q_range.numpy()
+
+
+def _assert_tight(live, kv_rng, q_rng):
+    """Each range is [first live tile, last live tile], [n, -1] if none."""
+    for rng_, rows in ((kv_rng, live), (q_rng, live.T)):
+        for (lo, hi), row in zip(rng_, rows):
+            nz = np.flatnonzero(row)
+            want = (nz[0], nz[-1]) if len(nz) else (len(row), -1)
+            assert (lo, hi) == want
+
+
+def _summaries_np(seg, pos, block):
+    """Per tile: live rows' segment min, max, position min, max (a loop
+    over tiles, independent of the op's)."""
+    out = []
+    for a in range(0, len(seg), block):
+        s, p = np.asarray(seg[a:a + block]), np.asarray(pos[a:a + block])
+        s, p = s[s >= 0], p[s >= 0]
+        out.append((s.min(), s.max(), p.min(), p.max()) if len(s) else
+                   (2 ** 31 - 1, -1, 2 ** 31 - 1, -2 ** 31))
+    return np.array(out, np.int64)
+
+
+def _summaries_meet(t, causal, window):
+    """[n_q, n_kv] bool: the kernels' O(1) test of two tiles' summaries."""
+    a = t.q_summary.numpy().astype(np.int64)[:, None, :]
+    b = t.kv_summary.numpy().astype(np.int64)[None, :, :]
+    ok = np.maximum(a[..., 0], b[..., 0]) <= np.minimum(a[..., 1], b[..., 1])
+    if causal:
+        ok &= b[..., 2] <= a[..., 3]
+    if window > 0:
+        ok &= a[..., 2] - b[..., 3] < window
+    return ok
+
+
+def _random_meta(rng, T, C, n_seg, order):
+    """Query rows of ``n_seg`` segments (pad rows -2 and -1 among them),
+    then KV rows: ``C`` context rows of segment 0, 8 stale rows (seg -1)
+    and the query rows. ``order``: "rising" positions inside each segment,
+    "shuffled" (the same positions, rows permuted) or "random" ints."""
+    seg = rng.integers(-2, n_seg, T).astype(np.int32)
+    if order != "random":
+        seg = np.sort(seg)
+    pos = np.zeros(T, np.int32)
+    for s in range(n_seg):
+        rows = np.flatnonzero(seg == s)
+        pos[rows] = np.cumsum(rng.integers(0, 3, len(rows))) + \
+            (C if s == 0 else 0)
+    if order == "shuffled":
+        perm = rng.permutation(T)
+        seg, pos = seg[perm], pos[perm]
+    elif order == "random":
+        pos = rng.integers(0, 3 * T + C, T).astype(np.int32)
+    seg_kv = np.concatenate([np.zeros(C, np.int32), np.full(8, -1, np.int32),
+                             seg])
+    pos_kv = np.concatenate([np.arange(C + 8, dtype=np.int32), pos])
+    return seg, seg_kv, pos, pos_kv
+
+
+@settings(max_examples=80, deadline=None)
+@given(seed=st.integers(0, 2 ** 31 - 1), T=st.integers(1, 260),
+       C=st.sampled_from([0, 5, 70]), n_seg=st.integers(1, 5),
+       order=st.sampled_from(["rising", "shuffled", "random"]),
+       causal=st.booleans(), window=st.sampled_from([0, 1, 7, 40]),
+       block=st.sampled_from([32, 64]))
+def test_bwd_tile_ranges_hold_every_live_tile(seed, T, C, n_seg, order,
+                                              causal, window, block):
+    """Every range starts at the first tile holding a live pair and ends
+    at the last, every tile's summary is its live rows' extremes, and every
+    live tile pair passes the summaries' test; ``tile_counts`` counts at
+    least the live pairs, and exactly them inside the ranges when the
+    positions rise."""
+    rng = np.random.default_rng(seed)
+    meta = _random_meta(rng, T, C, n_seg, order)
+    live = _live_tiles(*meta, causal, window, block)
+    t, kv_rng, q_rng = _tiles_np(*meta, causal, window, block)
+    _assert_tight(live, kv_rng, q_rng)
+    seg_q, seg_kv, pos_q, pos_kv = meta
+    assert np.array_equal(t.q_summary.numpy(),
+                          _summaries_np(seg_q, pos_q, block))
+    assert np.array_equal(t.kv_summary.numpy(),
+                          _summaries_np(seg_kv, pos_kv, block))
+    qi, kj = np.nonzero(live)
+    assert _summaries_meet(t, causal, window)[qi, kj].all()
+    counts = tile_counts(t, causal=causal, window=window)
+    for name in ("dq", "dkdv"):
+        assert counts[name]["in_range"] >= counts[name]["visited"] \
+            >= int(live.sum())
+
+
+def _planner_chunks(with_context):
+    """Chunks of a reduced gemma3-1b batch as the port's planner and
+    ``data/batching.py`` make them, with each chunk's KV rows as the
+    attention op sees them: the carry (``ctx_len`` rows of segment 0, the
+    rest of its capacity seg -1) before the chunk's rows."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import ClusterSpec, CostModel, PlannerConfig
+    from repro_torch.core import plan_batch
+    from repro_torch.data.batching import materialize_plan
+    from repro_torch.runtime.train_step import chunk_arrays
+    cfg = get_arch("gemma3-1b").reduced(n_layers=4, d_model=64, n_heads=4,
+                                        head_dim=16, vocab=256)
+    rng = np.random.default_rng(3)
+    lens = ([700] if with_context else []) + \
+        [int(x) for x in rng.integers(24, 200, 9)]
+    corpus = {i: rng.integers(0, 256, n).astype(np.int32)
+              for i, n in enumerate(lens)}
+    conf = dict(fixed_k=3 if with_context else 1, bucket_rounding=16)
+    plan = plan_batch(CostModel(cfg.spec, ClusterSpec()), lens,
+                      PlannerConfig(**conf))
+    chunks = [c for p in plan.pipelines for c in p.chunks]
+    batch = materialize_plan(plan, corpus)
+    cap = max(c.context for c in chunks) + 8
+    out = []
+    for k, ch in enumerate(chunks):
+        _, _, seg, pos = chunk_arrays(batch, k, ch.tokens)
+        n = int(batch.ctx_len[k])
+        if with_context:
+            rows = np.arange(cap, dtype=np.int32)
+            seg_kv = np.concatenate([np.where(rows < n, 0, -1).astype(
+                np.int32), seg])
+            pos_kv = np.concatenate([rows, pos])
+        else:
+            seg_kv, pos_kv = seg, pos
+        out.append((n, (seg, seg_kv, pos, pos_kv)))
+    return out
+
+
+@pytest.mark.parametrize("with_context", [False, True])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 16),
+                                           (False, 0)])
+@pytest.mark.parametrize("block", [32, 64])
+def test_bwd_tile_ranges_are_tight_on_planner_chunks(with_context, causal,
+                                                     window, block):
+    """On the planner's packed chunks each range starts at the first live
+    tile and ends at the last (a tile with no live pair has an empty
+    range), and the summaries' test passes no tile inside a range that
+    holds no live pair."""
+    chunks = _planner_chunks(with_context)
+    if with_context:
+        assert any(n > 0 for n, _ in chunks)
+    for _, meta in chunks:
+        live = _live_tiles(*meta, causal, window, block)
+        t, kv_rng, q_rng = _tiles_np(*meta, causal, window, block)
+        _assert_tight(live, kv_rng, q_rng)
+        counts = tile_counts(t, causal=causal, window=window)
+        assert counts["dq"]["visited"] == counts["dkdv"]["visited"] == \
+            int(live.sum())

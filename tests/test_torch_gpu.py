@@ -1,7 +1,7 @@
 """The port on the card: the CUDA kernels against their plain versions
-(flash attention forward, its log-sum-exp and backward; cross-entropy
-B, C1, C2; the selective scan D, its gradient D' and the sum of D''s
-partials), the engine on CUDA against the engine on the CPU, and one
+(flash attention forward, its log-sum-exp, backward and tile ranges;
+cross-entropy B, C1, C2; the selective scan D, its gradient D' and the sum
+of D''s partials), the engine on CUDA against the engine on the CPU, and one
 reduced training step on CUDA against the same step on the CPU (dense,
 hybrid and mamba families).
 
@@ -188,26 +188,11 @@ def _close(got, want, dtype):
     return float(err.max())
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Hq,Hkv,Dh,window", [
-    (4, 1, 256, 512),       # gemma3-1b local layer
-    (4, 1, 256, 0),         # gemma3-1b global layer
-    (24, 8, 128, 0),        # llama3.2-3b
-    (8, 2, 64, 16),
-])
-def test_attention_backward_matches_plain(dtype, Hq, Hkv, Dh, window):
+def _bwd_chunk(rng, dev, dtype, Hq, Hkv, Dh, C, T=333, stale=40):
     """A training chunk with context rows: ``C`` valid context rows of
-    segment 0, 40 stale carry rows beyond ``ctx_len`` (seg -1), then a
-    packed chunk of 3 sequences and padding. The op's forward (kernel A
-    with lse) and backward (dk/dv and dq passes) against the plain
-    versions; stale and padding rows get exact zero gradients."""
-    dev = _cuda()
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_bwd_dkdv_cuda,
-                                                     flash_bwd_dq_cuda)
-    rng = np.random.default_rng(Hq + Dh + window)
-    C, stale, T = 700, 40, 300
+    segment 0, ``stale`` carry rows beyond ``ctx_len`` (seg -1), then a
+    packed chunk of ``T`` rows in 3 sequences whose last 5 rows are
+    padding. Returns q, k, v, dout and the metadata, on ``dev``."""
     seg_q, pos_q = _packed(rng, T, 3, ctx=C)
     seg_q[-5:] = -1
     seg_kv = np.concatenate([np.zeros(C, np.int32),
@@ -219,17 +204,49 @@ def test_attention_backward_matches_plain(dtype, Hq, Hkv, Dh, window):
             np.float32)).to(dev, dtype)
     S = C + stale + T
     q, k, v = mk(T, Hq, Dh), mk(S, Hkv, Dh), mk(S, Hkv, Dh)
-    dout = mk(T, Hq, Dh)
     meta = [torch.from_numpy(a).to(dev) for a in
             (seg_q, seg_kv, pos_q, pos_kv)]
+    return q, k, v, mk(T, Hq, Dh), meta
+
+
+# (Hq, Hkv, Dh, window, C): GQA groups 1, 3, 4 and 5 at Dh 64, 128 and 256;
+# T = 333 and S = C + 40 + 333 rows, padded to 352 and to 1120 or 416: not
+# multiples of the bf16 passes' 64-row tiles
+BWD_CASES = [
+    (4, 1, 256, 512, 720),      # gemma3-1b local layer
+    (4, 1, 256, 0, 720),        # gemma3-1b global layer
+    (24, 8, 128, 0, 720),       # llama3.2-3b
+    (25, 5, 64, 0, 720),        # hymba-1.5b
+    (8, 2, 64, 16, 24),
+    (4, 4, 128, 37, 24),        # group 1, a window
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,Dh,window,C", BWD_CASES)
+def test_attention_backward_matches_plain(dtype, Hq, Hkv, Dh, window, C):
+    """The op's forward (kernel A with lse) and backward (dq pass, then
+    dk/dv pass) on a training chunk with context rows (``_bwd_chunk``)
+    against the plain versions; stale and padding rows get exact zero
+    gradients."""
+    dev = _cuda()
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_bwd_dkdv_cuda,
+                                                     flash_bwd_dq_cuda,
+                                                     flash_bwd_tiles_cuda)
+    rng = np.random.default_rng(Hq + Dh + window + C)
+    stale = 40
+    q, k, v, dout, meta = _bwd_chunk(rng, dev, dtype, Hq, Hkv, Dh, C,
+                                     stale=stale)
     qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
-    before = (flash_attention_cuda.launches, flash_bwd_dkdv_cuda.launches,
-              flash_bwd_dq_cuda.launches)
+    wrappers = (flash_attention_cuda, flash_bwd_dkdv_cuda, flash_bwd_dq_cuda,
+                flash_bwd_tiles_cuda)
+    before = [w.launches for w in wrappers]
     out = ops.flash_attention(qq, kk, vv, *meta, window=window)
     out.backward(dout)
     torch.cuda.synchronize()
-    assert (flash_attention_cuda.launches, flash_bwd_dkdv_cuda.launches,
-            flash_bwd_dq_cuda.launches) == tuple(b + 1 for b in before)
+    assert [w.launches for w in wrappers] == [b + 1 for b in before]
     want = ref.flash_attention_reference(q, k, v, *meta, window=window)
     _close(out, want, dtype)
     grads = ref.flash_attention_grad(q.float(), k.float(), v.float(), *meta,
@@ -247,6 +264,43 @@ def test_attention_backward_matches_plain(dtype, Hq, Hkv, Dh, window):
     live = torch.isfinite(want_lse)
     assert torch.equal(torch.isfinite(lse), live)
     _close(lse[live], want_lse[live], torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,Dh,window,C", [BWD_CASES[1], BWD_CASES[3],
+                                                BWD_CASES[4]])
+def test_attention_backward_is_deterministic(dtype, Hq, Hkv, Dh, window, C):
+    """Two launches of each backward pass give the same bits, and the tile
+    ranges and summaries of ``flash_bwd_tiles_kernel`` equal the plain
+    version's on the CPU."""
+    dev = _cuda()
+    from repro_torch.kernels.flash_attention import (BWD_BLOCK,
+                                                     flash_attention_cuda,
+                                                     flash_bwd_dkdv_cuda,
+                                                     flash_bwd_dq_cuda)
+    rng = np.random.default_rng(7 + Dh + C)
+    q, k, v, dout, meta = _bwd_chunk(rng, dev, dtype, Hq, Hkv, Dh, C)
+    padded = ops.pad_for_kernel(q, k, v, *meta)
+    out, lse = flash_attention_cuda(*padded, window=window, with_lse=True)
+    do = ops.pad_rows(dout, 32).contiguous()
+    pm = padded[3:]
+    tiles = ops.bwd_tiles(*pm, window=window, block=BWD_BLOCK[dtype])
+    on_cpu = ops.bwd_tiles(*(t.cpu() for t in pm), window=window,
+                           block=BWD_BLOCK[dtype])
+    for name in ("kv_range", "q_range", "q_summary", "kv_summary"):
+        assert torch.equal(getattr(tiles, name).cpu(), getattr(on_cpu, name))
+    runs = []
+    for _ in range(2):
+        delta = torch.empty_like(lse)
+        dq = flash_bwd_dq_cuda(*padded[:3], out, do, lse, *pm, window=window,
+                               delta=delta, tiles=tiles)
+        dk, dv = flash_bwd_dkdv_cuda(*padded[:3], out, do, lse, *pm,
+                                     window=window, delta=delta, tiles=tiles)
+        runs.append((dq, dk, dv, delta))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
