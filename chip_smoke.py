@@ -8,8 +8,9 @@ Phases, one line each (a failed phase stops the script with a non-zero
 exit and no result line):
 
   build    compile the CUDA kernels for sm_90a, one nvcc per source, side
-           by side (nvcc -Xptxas -v lines; a bf16 attention backward pass
-           that spills fails the phase), and the card's name and power
+           by side (nvcc -Xptxas -v lines; a tensor-core kernel that
+           spills fails the phase: the bf16 attention backward passes and
+           the bf16 cross-entropy kernels), and the card's name and power
            limit from nvidia-smi;
   kernel   every kernel against its plain PyTorch version on the card,
            each case with its max error against the tolerance, kernel_ms /
@@ -31,12 +32,16 @@ exit and no result line):
              context rows, for gemma3-1b global and window-512 layers and
              llama3.2-3b (faults: a window or causal limit one off, a live
              KV tile dropped);
-           * the cross-entropy kernels B (``ce_fwd_kernel``), C1 and C2
-             (``ce_bwd_kernel``) on that chunk's targets (gemma3-1b head,
-             bf16), then at T = 8192 tokens on gemma3-1b's (D 1152,
+           * the cross-entropy kernels B, C1 (bf16: ``ce_fwd_mma_kernel``,
+             ``ce_bwd_dh_mma_kernel`` on the tensor cores; float32:
+             ``ce_fwd_kernel``, ``ce_bwd_kernel<dh>``) and C2
+             (``ce_bwd_kernel<dw>``) on that chunk's targets (gemma3-1b
+             head, bf16), then at T = 8192 tokens on gemma3-1b's (D 1152,
              V 262144) and llama3.2-3b's (D 3072, V 128256) head, bf16 and
              float32 (faults: a target shifted by one, one vocab tile
-             dropped);
+             dropped; B and C1 launched twice more must give the same
+             bits); B's yardsticks: h @ W.T + logsumexp in float32 and on
+             cuBLAS's bf16 path (torch.mm with out_dtype float32);
            * at hymba-1.5b's train shapes (step 0's largest chunk: 16,384
              rows): the selective scan D (``mamba_scan_fwd_kernel``) and
              its gradient D' (``mamba_scan_bwd_kernel`` and the fixed-order
@@ -52,7 +57,10 @@ exit and no result line):
              in the last, ragged vocab tile);
            the plain versions run over blocks of rows, so that their
            materialised scores or logits fit the card; each attention
-           backward case also times the tile ranges (``bwd_tiles``), counts
+           backward case also times the forward as the train step runs it
+           (split and merge pass, with lse) beside its bound and SDPA's
+           forward on the EFFICIENT_ATTENTION backend, the tile ranges
+           (``bwd_tiles``), counts
            each pass's tile pairs in range, visited and live, launches both
            passes twice more (the results must be bitwise equal) and times
            the library yardstick, scaled_dot_product_attention with the
@@ -103,7 +111,8 @@ exit and no result line):
            carry faults (pad rows resetting the SSM state, the state's
            gradient dropped at the hand-off) must exceed those limits;
   kernels  every kernel of the port with its launch counts in serve,
-           train and train_hymba.
+           train, train_hymba and the verify phases' chunked step (the
+           float32 B and C1 run only there).
 
 The last two lines are the kernels JSON and the device JSON.
 """
@@ -147,9 +156,14 @@ def _nvidia_smi() -> str:
 
 KERNEL_NAMES = ("flash_fwd_kernel", "flash_combine_kernel",
                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
-                "flash_bwd_tiles_kernel",
-                "ce_fwd_kernel", "ce_bwd_kernel", "mamba_scan_fwd_kernel",
-                "mamba_scan_bwd_kernel", "mamba_scan_reduce_kernel")
+                "flash_bwd_tiles_kernel", "ce_fwd_mma_kernel",
+                "ce_bwd_dh_mma_kernel", "ce_fwd_kernel", "ce_bwd_kernel",
+                "mamba_scan_fwd_kernel", "mamba_scan_bwd_kernel",
+                "mamba_scan_reduce_kernel")
+# the tensor-core kernels: a spill in any of their instantiations fails
+# the build phase
+NO_SPILL = ("flash_bwd_dkdv_kernel<bf16", "flash_bwd_dq_kernel<bf16",
+            "ce_fwd_mma_kernel", "ce_bwd_dh_mma_kernel")
 
 
 def _ptxas_summary(log: str):
@@ -604,6 +618,14 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
     n_tiles = -(-T // block) + -(-S // block)
     bounds["tiles"] = _bound(0.0, sum(t.numel() * 4 for t in pm)
                              + 24 * n_tiles, dtype)
+    # the forward as the train step runs it (split pass and merge pass,
+    # writing lse): 2 products of 2 D flops per live pair; q, k, v and the
+    # metadata read once, out and lse written once
+    bounds["fwd"] = _bound(4.0 * D * pairs, 2 * size["q"] + size["k"]
+                           + size["v"] + lse.numel() * 4
+                           + sum(t.numel() * 4 for t in meta), dtype)
+    fwd_ms = _cuda_ms(lambda: flash_attention_cuda(
+        *padded, window=window, with_lse=True), iters=3, warmup=1)
     bound_ms, bound_by = bounds["all"]
     kernel_ms = ms["dkdv"] + ms["dq"]
     # the library yardstick: scaled_dot_product_attention with the boolean
@@ -622,10 +644,16 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
             o = sdpa(qe, ke, ve, attn_mask=mask)
         torch.autograd.grad(o, (qe, ke, ve), de)
+    def library_fwd():
+        with torch.no_grad(), sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            sdpa(qe, ke, ve, attn_mask=mask)
     try:
         library_ms = _cuda_ms(library, iters=2, warmup=1)
     except (RuntimeError, torch.OutOfMemoryError) as e:
         library_why = f"{type(e).__name__}: {str(e).splitlines()[0][:240]}"
+    library_fwd_ms = None
+    if library_why is None:
+        library_fwd_ms = _cuda_ms(library_fwd, iters=3, warmup=1)
     del mask, qe, ke, ve, de
     torch.cuda.empty_cache()
     rec = dict(case=name, dtype=_dtype_name(dtype), T=q.shape[0],
@@ -656,6 +684,14 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
                            "plain: ref.flash_attention_tiles (the mask, one "
                            "cold run)",
                tiles=tiles_walked, bwd_block=block, bitwise_repeat=bitwise,
+               fwd_ms=fwd_ms, fwd_bound_ms=bounds["fwd"][0],
+               fwd_bound_by=bounds["fwd"][1], fwd_library_ms=library_fwd_ms,
+               fwd_ms_is="the attention forward as the train step runs it: "
+                         "flash_fwd_kernel (split pass, with lse) and "
+                         "flash_combine_kernel where the keys are split; "
+                         "fwd_library_ms: scaled_dot_product_attention "
+                         "forward on the EFFICIENT_ATTENTION backend with "
+                         "the same boolean mask",
                bound_ms=bound_ms, bound_by=bound_by)
     if not (ok and lse_ok and out_ok):
         raise PhaseError(f"attention backward disagrees with the plain "
@@ -673,6 +709,9 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
 
 CE_HEADS = {"gemma3-1b": (1152, 262144), "llama3.2-3b": (3072, 128256),
             "hymba-1.5b": (1600, 32001)}
+# the cross-entropy wrapper of each function (cross_entropy.KERNELS names
+# the kernel it launches by dtype)
+CE_WRAPPER = {"B": "fwd", "C1": "dh", "C2": "dw"}
 CE_T = 8192
 # the train phases: github batches of 8 sequences of up to 16,384 tokens
 TRAIN_BATCH, TRAIN_CONTEXT, TRAIN_STEPS = 8, 16384, 3
@@ -705,14 +744,16 @@ def _ce_case(arch, dtype, dev, seed, targets=None, case=None):
     """Kernels B, C1 and C2 on one chunk against their plain versions
     (materialised logits in float32): ``targets`` (int32, -1 on rows
     without a target) as the train step feeds them, each valid row's loss
-    weighted 1 / n_valid; else CE_T random targets weighted 1 / CE_T. Two
-    targets are moved into the last vocab tile."""
+    weighted 1 / n_valid, named ``case``; else CE_T random targets
+    weighted 1 / CE_T. Two targets are moved into the last vocab tile."""
     import torch
 
-    from repro_torch.kernels.cross_entropy import (VOCAB_TILE,
+    from repro_torch.kernels.cross_entropy import (KERNELS, VOCAB_TILE,
                                                    ce_bwd_dh_cuda,
                                                    ce_bwd_dw_cuda,
-                                                   ce_fwd_cuda, d_slices)
+                                                   ce_fwd_cuda,
+                                                   d_slice_width,
+                                                   vocab_splits)
     D, V = CE_HEADS[arch]
     gen = torch.Generator(device=dev).manual_seed(seed)
     if targets is None:
@@ -721,6 +762,7 @@ def _ce_case(arch, dtype, dev, seed, targets=None, case=None):
     else:
         tgt = targets.to(dev, torch.int32).clone()
     T = tgt.shape[0]
+    case = case or f"{arch} head, {T} random targets"
     h = torch.randn((T, D), generator=gen, device=dev).to(dtype)
     w = (torch.randn((V, D), generator=gen, device=dev) * 0.02).to(dtype)
     tgt[0], tgt[1] = V - 1, V - 2        # targets in the last vocab tile
@@ -748,8 +790,8 @@ def _ce_case(arch, dtype, dev, seed, targets=None, case=None):
     kern = {"B": lambda t=tgt, ww=w: ce_fwd_cuda(h, ww, t),
             "C1": lambda t=tgt, ww=w: ce_bwd_dh_cuda(h, ww, t, lse_p, g),
             "C2": lambda t=tgt, ww=w: ce_bwd_dw_cuda(h, ww, t, lse_p, g)}
-    names = {"B": "ce_fwd_kernel", "C1": "ce_bwd_kernel<dh>",
-             "C2": "ce_bwd_kernel<dw>"}
+    names = {key: KERNELS[which][dtype] for key, which in CE_WRAPPER.items()}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     eb = 2 if dtype == torch.bfloat16 else 4
     in_bytes = (T * D + V * D) * eb + T * 4
     for key in ("B", "C1", "C2"):
@@ -761,7 +803,15 @@ def _ce_case(arch, dtype, dev, seed, targets=None, case=None):
             if key == "C2" and out.shape[0] != want.shape[0]:
                 out = torch.cat([out, torch.zeros_like(want[out.shape[0]:])])
             return _close_scaled(out, want, dtype)
-        max_err, ok = check(kern[key]())
+        got = kern[key]()
+        max_err, ok = check(got)
+        # the same launch again must give the same bits (B and C1 have no
+        # atomics on their outputs; B's split merge runs in split order)
+        again = kern[key]()
+        bitwise = all(torch.equal(a, b) for a, b in
+                      zip(got if key == "B" else (got,),
+                          again if key == "B" else (again,)))
+        del got, again
         caught, missed = {}, []
         for fault, out in (("target shifted by one", kern[key](t=shifted)),
                            ("one vocab tile dropped", kern[key](ww=w_cut))):
@@ -770,58 +820,106 @@ def _ce_case(arch, dtype, dev, seed, targets=None, case=None):
                 missed.append(fault)
         kernel_ms = _cuda_ms(kern[key], iters=2, warmup=1)
         plain_ms = _cuda_ms(plain[key], iters=1, warmup=1)
-        library_ms = None
-        if key == "B":      # the materialised-logits yardstick
+        library_ms = library_bf16_ms = library_bf16_why = None
+        if key == "B":      # the materialised-logits yardsticks
             library_ms = _cuda_ms(lambda: torch.logsumexp(
                 h.float() @ w.float().T, dim=-1), iters=1, warmup=1)
+            if dtype == torch.bfloat16:
+                # cuBLAS's bf16 tensor-core path with float32 output
+                # (aten::mm.dtype, CUDA only)
+                try:
+                    library_bf16_ms = _cuda_ms(lambda: torch.logsumexp(
+                        torch.mm(h, w.T, out_dtype=torch.float32), -1),
+                        iters=1, warmup=1)
+                except (TypeError, RuntimeError, NotImplementedError) as e:
+                    library_bf16_why = (f"{type(e).__name__}: "
+                                        f"{str(e).splitlines()[0][:200]}")
         products = 1 if key == "B" else 2     # C1/C2: logits, contraction
         out_bytes = {"B": 8 * T, "C1": T * D * eb, "C2": V * D * eb}[key]
         extra = 0 if key == "B" else 8 * T    # lse, g
         bound_ms, bound_by = _bound(2.0 * T * V * D * products,
                                     in_bytes + extra + out_bytes, dtype)
-        rec = dict(name=names[key], kernel=key, case=case or arch,
+        rec = dict(name=names[key], kernel=key, case=case,
                    dtype=_dtype_name(dtype), T=T, D=D, V=V,
-                   d_slices=d_slices(D) if key != "B" else None,
+                   d_slices=(-(-D // d_slice_width(
+                       D, torch.float32 if key == "C2" else dtype))
+                             if key != "B" else None),
+                   vocab_splits=(vocab_splits(T, V, n_sm, dtype)
+                                 if key == "B" else None),
                    max_abs_err=max_err, tol=TOL[_dtype_name(dtype)],
                    within_tol=ok, faults_max_abs_err=caught,
-                   faults_within_tol=missed, kernel_ms=kernel_ms,
-                   plain_ms=plain_ms,
+                   faults_within_tol=missed, bitwise_repeat=bitwise,
+                   kernel_ms=kernel_ms, plain_ms=plain_ms,
                    plain_is=f"ref's plain version over blocks of "
                             f"{CE_ROW_BLOCK} tokens",
                    library_ms=library_ms,
-                   library_is=("h @ W.T + logsumexp, logits materialised"
-                               if key == "B" else None),
+                   library_is=("h.float() @ W.float().T + logsumexp, "
+                               "logits materialised" if key == "B" else None),
+                   library_bf16_ms=library_bf16_ms,
+                   library_bf16_is=(
+                       None if key != "B" or dtype != torch.bfloat16 else
+                       "logsumexp(torch.mm(h, W.T, out_dtype=float32))"
+                       if library_bf16_why is None else
+                       f"not timed: {library_bf16_why}"),
                    bound_ms=bound_ms, bound_by=bound_by)
         del want
         if not ok:
             raise PhaseError(f"{key} disagrees with the plain version: {rec}")
+        if key != "C2" and not bitwise:
+            raise PhaseError(f"two launches of {key} differ: {rec}")
         if missed:
             raise PhaseError(f"the tolerance does not catch {missed}: {rec}")
         recs[key] = rec
     return recs
 
 
-def _train_chunks(seed, arch="gemma3-1b"):
-    """Step 0's chunks in ``arch``'s train phase, as the step feeds them to
-    the model: ``[(chunk, targets, seg, pos)]`` (numpy rows), the largest
-    first."""
-    from repro_torch.configs import get_arch
-    from repro_torch.core import ClusterSpec, CostModel
+def _plan_chunks(corpus, plan):
+    """The plan's chunks as the step feeds them to the model:
+    ``[(chunk, targets, seg, pos)]`` (numpy rows), the largest first."""
     from repro_torch.data.batching import materialize_plan
-    from repro_torch.launch.train import plan_step
     from repro_torch.runtime.train_step import chunk_arrays
-    cfg = get_arch(arch)
-    corpus, plan = plan_step(CostModel(cfg.spec, ClusterSpec()),
-                             _train_loop(seed), 0)
     chunks = [c for p in plan.pipelines for c in p.chunks]
     batch = materialize_plan(plan, corpus)
     order = sorted(range(len(chunks)), key=lambda i: -chunks[i].tokens)
-    if chunks[order[0]].context:
-        raise PhaseError(f"step 0's largest chunk continues a sequence; "
-                         f"its kernel cases need the carry rows: "
-                         f"{chunks[order[0]]}")
     return [(chunks[k], *chunk_arrays(batch, k, chunks[k].tokens)[1:])
             for k in order]
+
+
+def _train_chunks(seed, arch="gemma3-1b"):
+    """Step 0's chunks in ``arch``'s train phase (:func:`_plan_chunks`)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import ClusterSpec, CostModel
+    from repro_torch.launch.train import plan_step
+    cfg = get_arch(arch)
+    chunks = _plan_chunks(*plan_step(CostModel(cfg.spec, ClusterSpec()),
+                                     _train_loop(seed), 0))
+    if chunks[0][0].context:
+        raise PhaseError(f"step 0's largest chunk continues a sequence; "
+                         f"its kernel cases need the carry rows: "
+                         f"{chunks[0][0]}")
+    return chunks
+
+
+def _verify_plan(arch, seed):
+    """The float32 verify phases' batch for ``arch``: ``(cfg, corpus,
+    plan)``, four sequences of 3,000, 900, 500 and 300 random tokens split
+    over K = 3 chunks, under a 2 GB activation budget so that the ILP
+    checkpoints layers of some chunks."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
+                                  plan_batch)
+    cfg = get_arch(arch)
+    rng = np.random.default_rng(seed)
+    lens = [3000, 900, 500, 300]
+    corpus = {i: rng.integers(0, cfg.spec.vocab, n).astype(np.int32)
+              for i, n in enumerate(lens)}
+    cm = CostModel(cfg.spec, ClusterSpec())
+    plan = plan_batch(cm, lens, PlannerConfig(
+        fixed_k=3, bucket_rounding=64, remat_mode="stage_aware",
+        capacity_bytes=cm.m_model_states(1) + 2e9))
+    return cfg, corpus, plan
 
 
 
@@ -829,7 +927,10 @@ def phase_kernel_training(dev, seed):
     """The attention backward and B, C1, C2: first at the shapes of the
     train phase's largest chunk of step 0 (gemma3-1b, bf16, the chunk's
     own segments, positions and targets), then on chunks with context rows
-    and on both archs' heads at CE_T tokens, bf16 and float32."""
+    and on both archs' heads at CE_T tokens, bf16 and float32; B, C1, C2
+    in float32 at the largest chunk of each float32 verify phase
+    (gemma3-1b's and hymba-1.5b's heads, the chunk's own targets), the
+    only paths that launch the float32 B and C1."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
     chunk, tgt, seg, pos = _train_chunks(seed)[0]
@@ -870,6 +971,15 @@ def phase_kernel_training(dev, seed):
                                     ("llama3.2-3b", bf16),
                                     ("llama3.2-3b", f32)]):
         ce.append(_ce_case(arch, dt, dev, 20 + i))
+        for rec in ce[-1].values():
+            print(f"[kernel] cross-entropy {json.dumps(rec)}", flush=True)
+        torch.cuda.empty_cache()
+    for i, (arch, phase) in enumerate((("gemma3-1b", "train_verify"),
+                                       ("hymba-1.5b", "train_verify_hymba"))):
+        v_chunk, v_tgt = _plan_chunks(*_verify_plan(arch, seed)[1:])[0][:2]
+        ce.append(_ce_case(arch, f32, dev, 24 + i,
+                           targets=torch.from_numpy(v_tgt),
+                           case=f"{phase} chunk ({v_chunk.tokens} tokens)"))
         for rec in ce[-1].values():
             print(f"[kernel] cross-entropy {json.dumps(rec)}", flush=True)
         torch.cuda.empty_cache()
@@ -1163,9 +1273,26 @@ def phase_verify(dev, cfg, params32, trace):
 # train / train_verify phases
 # ---------------------------------------------------------------------------
 
+class _KernelCount:
+    """The launches of one ``__global__`` kernel behind a cross-entropy
+    wrapper, which launches one kernel per dtype (its ``by_kernel``), read
+    and zeroed as a wrapper's ``launches``."""
+
+    def __init__(self, wrapper, kernel):
+        self.wrapper, self.kernel = wrapper, kernel
+
+    @property
+    def launches(self):
+        return self.wrapper.by_kernel[self.kernel]
+
+    @launches.setter
+    def launches(self, n):
+        self.wrapper.by_kernel[self.kernel] = n
+
+
 def _train_counters():
     from repro_torch.kernels import ops
-    from repro_torch.kernels.cross_entropy import (ce_bwd_dh_cuda,
+    from repro_torch.kernels.cross_entropy import (KERNELS, ce_bwd_dh_cuda,
                                                    ce_bwd_dw_cuda,
                                                    ce_fwd_cuda)
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
@@ -1176,14 +1303,15 @@ def _train_counters():
     from repro_torch.kernels.mamba_scan import (mamba_scan_bwd_cuda,
                                                 mamba_scan_fwd_cuda,
                                                 mamba_scan_reduce_cuda)
+    ce = {name: _KernelCount(w, name)
+          for w in (ce_fwd_cuda, ce_bwd_dh_cuda, ce_bwd_dw_cuda)
+          for name in KERNELS[w.which].values()}
     return {"flash_fwd_kernel": flash_attention_cuda,
             "flash_combine_kernel": flash_combine_cuda,
             "flash_bwd_dkdv_kernel": flash_bwd_dkdv_cuda,
             "flash_bwd_dq_kernel": flash_bwd_dq_cuda,
             "flash_bwd_tiles_kernel": flash_bwd_tiles_cuda,
-            "ce_fwd_kernel": ce_fwd_cuda,
-            "ce_bwd_kernel<dh>": ce_bwd_dh_cuda,
-            "ce_bwd_kernel<dw>": ce_bwd_dw_cuda,
+            **ce,
             "mamba_scan_fwd_kernel": mamba_scan_fwd_cuda,
             "mamba_scan_bwd_kernel": mamba_scan_bwd_cuda,
             "mamba_scan_reduce_kernel": mamba_scan_reduce_cuda,
@@ -1192,18 +1320,25 @@ def _train_counters():
             "plain_mamba_scan": ops.mamba_scan}
 
 
-def _expected_launches(cfg, n_chunks, depth):
+def _expected_launches(cfg, n_chunks, depth, dtype=None):
     """Launches of one chunked step as its plan predicts: per layer and
     chunk one attention forward (and one more per remat'd layer, whose
     forward runs again in the backward), one of each attention backward
     pass and of their tile ranges, the same for the selective scan
     (forward; backward and its reduction) on mamba layers; B, C1, C2 once
-    per chunk; no plain call."""
+    per chunk, through the kernels of the step's ``dtype`` (default bf16);
+    no plain call."""
+    import torch
+
+    from repro_torch.kernels.cross_entropy import KERNELS
     from repro_torch.models.config import LayerKind
     L = cfg.spec.n_layers
     attn = cfg.layer_kind != LayerKind.MAMBA
     ssm = cfg.spec.ssm_state > 0
     fwd, bwd = L * n_chunks + depth, L * n_chunks
+    ce = {name: 0 for names in KERNELS.values() for name in names.values()}
+    for names in KERNELS.values():
+        ce[names[dtype or torch.bfloat16]] += n_chunks
     return {"flash_fwd_kernel": fwd if attn else 0,
             "flash_bwd_dkdv_kernel": bwd if attn else 0,
             "flash_bwd_dq_kernel": bwd if attn else 0,
@@ -1211,8 +1346,7 @@ def _expected_launches(cfg, n_chunks, depth):
             "mamba_scan_fwd_kernel": fwd if ssm else 0,
             "mamba_scan_bwd_kernel": bwd if ssm else 0,
             "mamba_scan_reduce_kernel": bwd if ssm else 0,
-            "ce_fwd_kernel": n_chunks, "ce_bwd_kernel<dh>": n_chunks,
-            "ce_bwd_kernel<dw>": n_chunks, "plain_attention": 0,
+            **ce, "plain_attention": 0,
             "plain_cross_entropy": 0, "plain_mamba_scan": 0}
 
 
@@ -1286,25 +1420,12 @@ def phase_train_verify(dev, seed):
     """float32, full width: the chunked step with the plan's remat table ==
     the same step with the table zeroed == one unchunked forward/backward
     per sequence (loss and every gradient within 1e-5 relative)."""
-    import numpy as np
     import torch
 
-    from repro_torch.configs import get_arch
-    from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
-                                  plan_batch)
     from repro_torch.models import DecoderLM
     from repro_torch.models.model import tree_leaves
     from repro_torch.runtime.train_step import ChunkedTrainer, remat_depths
-    cfg = get_arch("gemma3-1b")
-    rng = np.random.default_rng(seed)
-    lens = [3000, 900, 500, 300]
-    corpus = {i: rng.integers(0, cfg.spec.vocab, n).astype(np.int32)
-              for i, n in enumerate(lens)}
-    cm = CostModel(cfg.spec, ClusterSpec())
-    # a 2 GB activation budget: the ILP checkpoints layers of some chunks
-    plan = plan_batch(cm, lens, PlannerConfig(
-        fixed_k=3, bucket_rounding=64, remat_mode="stage_aware",
-        capacity_bytes=cm.m_model_states(1) + 2e9))
+    cfg, corpus, plan = _verify_plan("gemma3-1b", seed)
     chunks = [c for p in plan.pipelines for c in p.chunks]
     if max(s.n_chunks for s in plan.sequences) < 3 or not any(
             c.kind.value == "hybrid" for c in chunks) or not any(
@@ -1318,7 +1439,8 @@ def phase_train_verify(dev, seed):
     # forward launches 26 x chunks + the sum of the remat depths
     ctr = _train_counters()
     L, n = cfg.spec.n_layers, len(chunks)
-    expected = _expected_launches(cfg, n, sum(remat_depths(plan, L)))
+    expected = _expected_launches(cfg, n, sum(remat_depths(plan, L)),
+                                  torch.float32)
     _zero_counts(ctr)
     runs = {"plan table": tr.loss_and_grads(plan, corpus)}
     launches = {k: v for k, v in _read_counts(ctr).items() if k in expected}
@@ -1412,24 +1534,14 @@ def phase_train_verify_hymba(dev, seed):
       float32 floor of the comparison.
     * Each planted carry fault (:func:`_carry_fault`) moves the loss or a
       gradient leaf beyond those limits."""
-    import numpy as np
     import torch
 
-    from repro_torch.configs import get_arch
     from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
                                   plan_batch)
     from repro_torch.models import DecoderLM
     from repro_torch.models.model import tree_leaves
     from repro_torch.runtime.train_step import ChunkedTrainer, remat_depths
-    cfg = get_arch("hymba-1.5b")
-    rng = np.random.default_rng(seed)
-    lens = [3000, 900, 500, 300]
-    corpus = {i: rng.integers(0, cfg.spec.vocab, n).astype(np.int32)
-              for i, n in enumerate(lens)}
-    cm = CostModel(cfg.spec, ClusterSpec())
-    plan = plan_batch(cm, lens, PlannerConfig(
-        fixed_k=3, bucket_rounding=64, remat_mode="stage_aware",
-        capacity_bytes=cm.m_model_states(1) + 2e9))
+    cfg, corpus, plan = _verify_plan("hymba-1.5b", seed)
     chunks = [c for p in plan.pipelines for c in p.chunks]
     if max(s.n_chunks for s in plan.sequences) < 3 or not any(
             c.has_dependents and c.tokens % 64 for c in chunks) or not any(
@@ -1443,7 +1555,8 @@ def phase_train_verify_hymba(dev, seed):
                         compute_dtype=torch.float32)
     ctr = _train_counters()
     L, n = cfg.spec.n_layers, len(chunks)
-    expected = _expected_launches(cfg, n, sum(remat_depths(plan, L)))
+    expected = _expected_launches(cfg, n, sum(remat_depths(plan, L)),
+                                  torch.float32)
     _zero_counts(ctr)
     base = tr.loss_and_grads(plan, corpus)
     base_n_valid = base.n_valid
@@ -1481,8 +1594,10 @@ def phase_train_verify_hymba(dev, seed):
                 "grad_max_rel_diff": worst,
                 "grad_max_rel_diff_leaf": names[leaf],
                 "within": rel <= 1e-5 and worst <= HYMBA_GRAD_LIMIT}
-    packed = plan_batch(cm, lens, PlannerConfig(
-        fixed_k=1, bucket_rounding=64, remat_mode="stage_aware"))
+    packed = plan_batch(CostModel(cfg.spec, ClusterSpec()),
+                        [len(v) for v in corpus.values()], PlannerConfig(
+                            fixed_k=1, bucket_rounding=64,
+                            remat_mode="stage_aware"))
     if any(c.has_dependents or c.context
            for p in packed.pipelines for c in p.chunks):
         raise PhaseError("the K = 1 plan splits a sequence")
@@ -1566,11 +1681,11 @@ def main() -> int:
     for b in libs.values():
         for ln in _ptxas_summary(b.build_log):
             print(f"[build] {ln}")
-    spills = [ln for ln in _ptxas_summary(libs["flash_attention"].build_log)
-              if ln.startswith("flash_bwd_") and "<bf16," in ln
+    spills = [ln for b in libs.values() for ln in _ptxas_summary(b.build_log)
+              if ln.startswith(NO_SPILL)
               and not ln.endswith("0 bytes spill stores, 0 bytes spill loads")]
     if spills:
-        print(f"[build] FAILED: the bf16 backward passes spill: {spills}",
+        print(f"[build] FAILED: tensor-core kernels spill: {spills}",
               flush=True)
         return 1
     print(f"[build] ok sm_90a {', '.join(b.path.name for b in libs.values())}"
@@ -1612,6 +1727,7 @@ def main() -> int:
 
     ver, dt = run("train_verify", lambda: phase_train_verify(dev, args.seed))
     print(f"[train_verify] ok in {dt:.1f}s: {json.dumps(ver)}", flush=True)
+    verify_counts = ver["launches"]
 
     hym, dt = run("train_hymba", lambda: phase_train(dev, args.seed,
                                                      "hymba-1.5b"))
@@ -1624,33 +1740,46 @@ def main() -> int:
         dev, args.seed))
     print(f"[train_verify_hymba] ok in {dt:.1f}s: {json.dumps(ver)}",
           flush=True)
+    verify_hymba_counts = ver["launches"]
 
+    # launches per path: serve, the bf16 train steps, and the float32
+    # verify phases' chunked step (the float32 B and C1 run only there)
+    paths = {"serve": serve_counts, "train": train_counts,
+             "train_hymba": hymba_counts, "train_verify": verify_counts,
+             "train_verify_hymba": verify_hymba_counts}
     print(f"[kernels] serve: {json.dumps(serve_counts)}; train "
           f"({len(trn)} steps): {json.dumps(train_counts)}; train_hymba "
-          f"({len(hym)} steps): {json.dumps(hymba_counts)}; total "
+          f"({len(hym)} steps): {json.dumps(hymba_counts)}; train_verify: "
+          f"{json.dumps(verify_counts)}; train_verify_hymba: "
+          f"{json.dumps(verify_hymba_counts)}; total "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
     fa = "src/repro_torch/kernels/csrc/flash_attention.cu"
     cs = "src/repro_torch/kernels/csrc/cross_entropy.cu"
     ms_src = "src/repro_torch/kernels/csrc/mamba_scan.cu"
     tpu_fa = "src/repro/kernels/flash_attention.py:89"
     tpu_ms = "src/repro/kernels/mamba_scan.py:77"
+    tpu_ce = "src/repro/kernels/cross_entropy.py"
     g, m = cases[0], merges[0]          # gemma3-1b global layer, bf16
     gb = bwd[0]             # step 0's largest train chunk, global, bf16
     gce = ce[0]             # the gemma3-1b head on that chunk, bf16
+    vce, vce_h = ce[-2], ce[-1]     # the verify phases' chunks, float32
     sc = scan[0]            # hymba's largest train chunk, bf16 xs
     # the attention backward's library yardstick on the kernel's own case
     # (step 0's largest train chunk), else on the first case it takes
     lib = next((r for r in [gb] + bwd if r["library_ms"] is not None), gb)
 
+    def _also(rec):         # a second case of the same kernel
+        return [{k: rec[k] for k in ("case", "dtype", "T", "D", "V",
+                                     "kernel_ms", "bound_ms", "plain_ms",
+                                     "library_ms", "max_abs_err")}]
+
     def entry(name, src, tpu, rec, **kw):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": tpu,
-                "launches": serve_counts[name] + train_counts[name]
-                + hymba_counts[name],
-                "launches_serve": serve_counts[name],
-                "launches_train": train_counts[name],
-                "launches_train_hymba": hymba_counts[name],
-                "case": rec["case"], "max_abs_err": rec["max_abs_err"],
+                "launches": sum(c.get(name, 0) for c in paths.values()),
+                **{f"launches_{p}": c.get(name, 0) for p, c in paths.items()},
+                "case": rec["case"], "dtype": rec["dtype"], "T": rec["T"],
+                "max_abs_err": rec["max_abs_err"],
                 "ms": rec["kernel_ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
@@ -1679,12 +1808,16 @@ def main() -> int:
               bound_by=gb["tiles_bound_by"], library_ms=None,
               ms_covers="the backward passes' tile ranges and summaries",
               plain_is="ref.flash_attention_tiles (from the mask)"),
-        entry("ce_fwd_kernel", cs, "src/repro/kernels/cross_entropy.py:79",
-              gce["B"], library_is=gce["B"]["library_is"]),
-        entry("ce_bwd_kernel<dh>", cs,
-              "src/repro/kernels/cross_entropy.py:159", gce["C1"]),
-        entry("ce_bwd_kernel<dw>", cs,
-              "src/repro/kernels/cross_entropy.py:222", gce["C2"]),
+        entry("ce_fwd_mma_kernel", cs, tpu_ce + ":79", gce["B"],
+              library_is=gce["B"]["library_is"],
+              library_bf16_ms=gce["B"]["library_bf16_ms"],
+              library_bf16_is=gce["B"]["library_bf16_is"]),
+        entry("ce_bwd_dh_mma_kernel", cs, tpu_ce + ":159", gce["C1"]),
+        entry("ce_fwd_kernel", cs, tpu_ce + ":79", vce["B"],
+              library_is=vce["B"]["library_is"], also=_also(vce_h["B"])),
+        entry("ce_bwd_kernel<dh>", cs, tpu_ce + ":159", vce["C1"],
+              also=_also(vce_h["C1"])),
+        entry("ce_bwd_kernel<dw>", cs, tpu_ce + ":222", gce["C2"]),
         entry("mamba_scan_fwd_kernel", ms_src, tpu_ms, sc,
               library_is=sc["library_is"]),
         entry("mamba_scan_bwd_kernel", ms_src, tpu_ms + " (its gradient)",

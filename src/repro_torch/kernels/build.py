@@ -3,7 +3,8 @@
 Each source in ``csrc/`` becomes one shared library with a plain C
 interface, compiled by ``nvcc`` for ``sm_90a`` at first use into
 ``<repo>/build/kernels/`` and loaded with ``ctypes``. The libraries are
-named by one digest of every source and the flags, so a change to any of
+named by one digest of every file under ``csrc/`` (the sources and the
+headers they share, ``sm90_mma.cuh``) and the flags, so a change to any of
 them rebuilds all; the ``nvcc`` processes of one build run side by side.
 A failed build raises: there is no fallback.
 """
@@ -51,9 +52,11 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
+    """Of the flags and every file under ``csrc/`` (sources and the
+    headers they include)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(SOURCES):
-        h.update(name.encode() + SOURCES[name].read_bytes())
+    for path in sorted(p for p in _CSRC.rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(_CSRC)).encode() + path.read_bytes())
     return h.hexdigest()[:12]
 
 

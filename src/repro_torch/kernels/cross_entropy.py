@@ -10,18 +10,30 @@ stream. The ``[T, V]`` logits are never stored: B folds each vocab tile
 into per-token ``(lse, target logit)``, C1 and C2 recompute the tile and
 contract ``(softmax - onehot) * g`` at once.
 
-One wrapper and one launch count per kernel: :data:`ce_fwd_cuda`,
-:data:`ce_bwd_dh_cuda`, :data:`ce_bwd_dw_cuda`. They take CUDA tensors with
+bf16 inputs run B and C1 on the tensor cores (``ce_fwd_mma_kernel``,
+``ce_bwd_dh_mma_kernel``: bf16 ``mma.sync`` with float32 sums; C1 rounds
+its coefficient to bf16 as the second product's operand); float32 inputs
+and C2 run the float32 FMA kernels (``ce_fwd_kernel``,
+``ce_bwd_kernel<dh>``, ``ce_bwd_kernel<dw>``).
+
+One wrapper and one launch count per function: :data:`ce_fwd_cuda`,
+:data:`ce_bwd_dh_cuda`, :data:`ce_bwd_dw_cuda`; ``by_kernel`` splits each
+count by the ``__global__`` kernel launched. They take CUDA tensors with
 ``T`` a multiple of :data:`TOKEN_MULTIPLE` and ``D`` of 32 and raise on
 anything else; padding, the autograd function and the CPU dispatch live in
 :mod:`repro_torch.kernels.ops`, the plain versions in
-:mod:`repro_torch.kernels.ref`.
+:mod:`repro_torch.kernels.ref`. The wrappers hand the kernels the
+number of vocab splits of B (:func:`vocab_splits`) and the D slice width
+of C1 and C2 (:func:`d_slice_width`); each kernel derives its own vocab
+and D ranges from them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from collections import Counter
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Tuple
@@ -31,13 +43,29 @@ import torch
 from .build import load_libraries
 
 __all__ = ["TOKEN_MULTIPLE", "VOCAB_TILE", "MAX_VSPLIT", "DS_MAX",
+           "FWD_TOKEN_TILE", "MMA_VOCAB_TILE", "DH_SLICE_MULTIPLE",
+           "DH_SLICE_MAX", "DH_MAX_SLICES",
            "CrossEntropyKernel", "ce_fwd_cuda", "ce_bwd_dh_cuda",
-           "ce_bwd_dw_cuda", "load_library", "vocab_splits", "d_slices"]
+           "ce_bwd_dw_cuda", "KERNELS", "load_library", "vocab_splits",
+           "d_slice_width"]
 
 TOKEN_MULTIPLE = 64     # tokens are padded to this (csrc: 2 * R)
-VOCAB_TILE = 64         # vocab entries per logits tile (csrc: C)
+VOCAB_TILE = 64         # vocab entries per logits tile, float32 (csrc: C)
 MAX_VSPLIT = 64         # vocab splits per token tile in B (csrc: MAX_VSPLIT)
 DS_MAX = 1152           # accumulator columns per block in C1/C2 (csrc)
+# tokens per block of B: float32 32 (csrc: R), bf16 128 (csrc: FB_T)
+FWD_TOKEN_TILE = {torch.float32: 32, torch.bfloat16: 128}
+MMA_VOCAB_TILE = 128    # vocab entries per tile of the bf16 B
+# bf16 C1: one CTA of a cluster per D slice of at most DH_SLICE_MAX columns
+# (a multiple of DH_SLICE_MULTIPLE), at most DH_MAX_SLICES a cluster
+DH_SLICE_MULTIPLE, DH_SLICE_MAX, DH_MAX_SLICES = 64, 384, 16
+# the ``__global__`` kernel each wrapper launches, by the inputs' dtype
+KERNELS = {"fwd": {torch.float32: "ce_fwd_kernel",
+                   torch.bfloat16: "ce_fwd_mma_kernel"},
+           "dh": {torch.float32: "ce_bwd_kernel<dh>",
+                  torch.bfloat16: "ce_bwd_dh_mma_kernel"},
+           "dw": {torch.float32: "ce_bwd_kernel<dw>",
+                  torch.bfloat16: "ce_bwd_kernel<dw>"}}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -58,7 +86,14 @@ def load_library() -> CrossEntropyLibrary:
     for name, want in (("cross_entropy_token_multiple", TOKEN_MULTIPLE),
                        ("cross_entropy_vocab_tile", VOCAB_TILE),
                        ("cross_entropy_max_vsplit", MAX_VSPLIT),
-                       ("cross_entropy_ds_max", DS_MAX)):
+                       ("cross_entropy_ds_max", DS_MAX),
+                       ("cross_entropy_fwd_mma_token_tile",
+                        FWD_TOKEN_TILE[torch.bfloat16]),
+                       ("cross_entropy_mma_vocab_tile", MMA_VOCAB_TILE),
+                       ("cross_entropy_dh_mma_slice_multiple",
+                        DH_SLICE_MULTIPLE),
+                       ("cross_entropy_dh_mma_slice_max", DH_SLICE_MAX),
+                       ("cross_entropy_dh_mma_max_slices", DH_MAX_SLICES)):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = [], _I
         if fn() != want:
@@ -72,17 +107,45 @@ def load_library() -> CrossEntropyLibrary:
                                fwd=fwd, bwd=bwd)
 
 
-def vocab_splits(T: int, V: int, n_sm: int) -> int:
-    """Vocab splits per token tile of B: enough blocks for two per SM,
-    at most one split per vocab tile and at most MAX_VSPLIT."""
-    tiles = T // 32
-    n_vt = -(-V // VOCAB_TILE)
-    return max(1, min(MAX_VSPLIT, n_vt, -(-2 * n_sm // tiles)))
+def _vocab_tile(dtype) -> int:
+    return MMA_VOCAB_TILE if dtype == torch.bfloat16 else VOCAB_TILE
 
 
-def d_slices(D: int) -> int:
-    """D slices of C1/C2 (the logits recompute factor): ceil(D / DS_MAX)."""
-    return -(-D // DS_MAX)
+def vocab_splits(T: int, V: int, n_sm: int,
+                 dtype=torch.bfloat16) -> int:
+    """Vocab splits per token tile of B.
+
+    float32 (32-token tiles, one block per SM at a time): enough blocks
+    for two per SM. bf16 (128-token tiles, two blocks per SM): at least
+    ``ceil(sqrt(2 n_sm))`` as well, so that the blocks resident at once
+    (token tile ``b // S``, split ``b % S``) hold few h tiles and few W
+    ranges, which then stay in L2. At most one split per vocab tile and at
+    most MAX_VSPLIT."""
+    slots = 2 * n_sm
+    tiles = -(-T // FWD_TOKEN_TILE[dtype])
+    n_vt = -(-V // _vocab_tile(dtype))
+    want = -(-slots // tiles)
+    if dtype == torch.bfloat16:
+        want = max(want, math.isqrt(slots - 1) + 1)
+    return max(1, min(MAX_VSPLIT, n_vt, want))
+
+
+def d_slice_width(D: int, dtype=torch.bfloat16) -> int:
+    """Columns per D slice of C1/C2.
+
+    float32 (and C2 in both dtypes): ``ceil(D / DS_MAX)`` slices of equal
+    width rounded up to 32; each block recomputes the logits over all of D
+    (the recompute factor is the number of slices). bf16 C1: slices of at
+    most DH_SLICE_MAX columns, equal widths rounded up to
+    DH_SLICE_MULTIPLE; the slices of a token tile are the CTAs of one
+    cluster, each computing the logits over its own columns only."""
+    if dtype == torch.bfloat16:
+        n = -(-D // DH_SLICE_MAX)
+        mult = DH_SLICE_MULTIPLE
+    else:
+        n = -(-D // DS_MAX)
+        mult = 32
+    return -(-(-(-D // n)) // mult) * mult
 
 
 def _check(hidden, w, targets, *extra) -> Tuple[int, int, int]:
@@ -115,13 +178,15 @@ def _check(hidden, w, targets, *extra) -> Tuple[int, int, int]:
 
 
 class CrossEntropyKernel:
-    """Launch wrapper of one cross-entropy kernel; ``launches`` counts its
-    launches.
+    """Launch wrapper of one cross-entropy function; ``launches`` counts its
+    launches, ``by_kernel`` the same launches by ``__global__`` kernel.
 
-    * ``"fwd"`` (B): ``(hidden, w, targets) -> (lse, tgt_logit)``;
+    * ``"fwd"`` (B): ``(hidden, w, targets) -> (lse, tgt_logit)``
+      (``ce_fwd_mma_kernel`` for bf16, ``ce_fwd_kernel`` for float32);
     * ``"dh"`` (C1): ``(hidden, w, targets, lse, g) -> dh [T, D]`` in
-      hidden's dtype;
-    * ``"dw"`` (C2): the same inputs ``-> dW [V, D]`` in w's dtype.
+      hidden's dtype (``ce_bwd_dh_mma_kernel`` / ``ce_bwd_kernel<dh>``);
+    * ``"dw"`` (C2): the same inputs ``-> dW [V, D]`` in w's dtype
+      (``ce_bwd_kernel<dw>``).
     """
 
     def __init__(self, which: str) -> None:
@@ -129,6 +194,11 @@ class CrossEntropyKernel:
             raise ValueError(f"unknown cross-entropy kernel {which!r}")
         self.which = which
         self.launches = 0
+        self.by_kernel: Counter = Counter()
+
+    def _count(self, kernel: str) -> None:
+        self.launches += 1
+        self.by_kernel[kernel] += 1
 
     def __call__(self, hidden, w, targets, *lse_g):
         if self.which == "fwd":
@@ -139,13 +209,14 @@ class CrossEntropyKernel:
         T, V, D = _check(hidden, w, targets)
         dev = hidden.device
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        n_split = vocab_splits(T, V, n_sm)
+        n_split = vocab_splits(T, V, n_sm, hidden.dtype)
         lse = torch.empty(T, dtype=torch.float32, device=dev)
         tl = torch.empty(T, dtype=torch.float32, device=dev)
         ws = arrivals = None
         if n_split > 1:
             ws = torch.empty((n_split, T, 3), dtype=torch.float32, device=dev)
-            arrivals = torch.zeros(T // 32, dtype=torch.int32, device=dev)
+            arrivals = torch.zeros(-(-T // FWD_TOKEN_TILE[hidden.dtype]),
+                                   dtype=torch.int32, device=dev)
         lib = load_library()
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
@@ -154,29 +225,36 @@ class CrossEntropyKernel:
                          ws.data_ptr() if ws is not None else None,
                          arrivals.data_ptr() if arrivals is not None else None,
                          T, V, D, _DTYPE_CODE[hidden.dtype], n_split, stream)
+        kernel = KERNELS[self.which][hidden.dtype]
         if rc != 0:
-            raise RuntimeError(f"ce_fwd_kernel launch failed with cudaError "
-                               f"{rc} (T={T}, V={V}, D={D}, {hidden.dtype}, "
+            raise RuntimeError(f"{kernel} launch failed with cudaError {rc} "
+                               f"(T={T}, V={V}, D={D}, {hidden.dtype}, "
                                f"n_split={n_split})")
-        self.launches += 1
+        self._count(kernel)
         return lse, tl
 
     def _bwd(self, hidden, w, targets, lse, g):
         T, V, D = _check(hidden, w, targets, lse, g)
         dw = self.which == "dw"
         out = torch.empty_like(w if dw else hidden)
+        # C2 keeps the float32-granular slices in both dtypes
+        ds = d_slice_width(D, torch.float32 if dw else hidden.dtype)
+        if not dw and hidden.dtype == torch.bfloat16 and \
+                -(-D // ds) > DH_MAX_SLICES:
+            raise ValueError(f"D={D}: more than {DH_MAX_SLICES} slices of "
+                             f"{ds} columns in one cluster")
         lib = load_library()
         stream = torch.cuda.current_stream(hidden.device).cuda_stream
         with torch.cuda.device(hidden.device):
             rc = lib.bwd(hidden.data_ptr(), w.data_ptr(), targets.data_ptr(),
                          lse.data_ptr(), g.data_ptr(), out.data_ptr(), T, V, D,
-                         _DTYPE_CODE[hidden.dtype], int(dw), d_slices(D),
-                         stream)
+                         _DTYPE_CODE[hidden.dtype], int(dw), ds, stream)
+        kernel = KERNELS[self.which][hidden.dtype]
         if rc != 0:
-            raise RuntimeError(f"ce_bwd_kernel<{self.which}> launch failed "
-                               f"with cudaError {rc} (T={T}, V={V}, D={D}, "
-                               f"{hidden.dtype})")
-        self.launches += 1
+            raise RuntimeError(f"{kernel} launch failed with cudaError {rc} "
+                               f"(T={T}, V={V}, D={D}, {hidden.dtype}, "
+                               f"ds={ds})")
+        self._count(kernel)
         return out
 
 

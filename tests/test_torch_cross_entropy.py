@@ -132,3 +132,163 @@ def test_targets_outside_the_vocabulary_never_match():
     p = torch.softmax(th @ tw.T, dim=-1)
     np.testing.assert_allclose(dh[1].numpy(), (p[1] @ tw).numpy(),
                                rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core kernels (bf16 B and C1) and their launch geometry
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's bf16 limit (its TOL["bfloat16"]), with atol scaled by the
+# largest |want| as it scales it for gradients
+BF16_TOL = dict(rtol=1e-2, atol=4e-3)
+
+
+def _close_scaled(got, want, tol):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    scale = float(np.abs(want).max()) or 1.0
+    err = np.abs(got - want)
+    assert (err <= tol["atol"] * scale + tol["rtol"] * np.abs(want)).all(), \
+        (float(err.max()), scale)
+    return float(err.max())
+
+
+def _dh_rounded_coef(hidden, w, targets, lse, g_rows):
+    """C1 as the bf16 kernel computes it: the coefficient formed in float32,
+    rounded to bf16 as the second product's operand, products with W's
+    bf16 values summed in float32, the result in hidden's dtype."""
+    t, ok = tref._target_hits(targets, w.shape[0])
+    coef = (hidden.float() @ w.float().T - lse.float()[:, None]).exp()
+    coef.scatter_add_(1, t[:, None], -ok.float()[:, None])
+    coef = (coef * g_rows.float()[:, None]).to(torch.bfloat16).float()
+    return (coef @ w.float()).to(hidden.dtype)
+
+
+@pytest.mark.parametrize("T,D,V", [(64, 32, 300), (128, 64, 1000),
+                                   (192, 96, 517)])
+def test_bf16_dh_rounding_matches_pallas(T, D, V):
+    """The one new rounding of the tensor-core C1 (the coefficient meets
+    bf16 before the second product) stays within the bf16 tolerance of the
+    JAX package's C1 (``cross_entropy_bwd_dh_pallas``, interpret mode), on
+    vocabularies that are not a multiple of the tile, with targets outside
+    [0, V) (padding -1 and past V) and rows with g = 0."""
+    (jh, jw, jt), (th, tw, tt) = _inputs(T, D, V, 3 * T + V, 0.5, "bfloat16")
+    tgt = np.asarray(jt).copy()
+    tgt[::7], tgt[3] = -1, V + 3
+    tgt[1] = V - 1
+    jt, tt = jnp.asarray(tgt), torch.from_numpy(tgt)
+    valid = np.ones(T, bool)
+    lse, _ = cross_entropy_fwd_pallas(jh, jw, jt, jnp.asarray(valid),
+                                      block_t=16, block_v=64, interpret=True)
+    g = np.random.default_rng(T).uniform(0.5, 1.5, T).astype(np.float32)
+    g[::5] = 0.0
+    want = cross_entropy_bwd_dh_pallas(jh, jw, jt, lse, jnp.asarray(g),
+                                       block_t=16, block_v=64,
+                                       interpret=True)
+    t_lse, t_g = torch.from_numpy(np.asarray(lse)), torch.from_numpy(g)
+    got = _dh_rounded_coef(th, tw, tt, t_lse, t_g)
+    assert got.dtype == torch.bfloat16
+    want32 = np.asarray(want.astype(jnp.float32))
+    _close_scaled(got.float().numpy(), want32, BF16_TOL)
+    # and the plain version (no rounding of the coefficient) too
+    plain = tref.cross_entropy_bwd_dh_plain(th, tw, tt, t_lse, t_g)
+    _close_scaled(plain.float().numpy(), want32, BF16_TOL)
+
+
+def test_plain_versions_stay_the_plain_function():
+    """``ref``'s B, C1 and C2 compute the exact function in float32 (no
+    bf16 rounding of the coefficient): against float64 arithmetic on the
+    same bf16 inputs, to float32 rounding."""
+    (_, _, _), (th, tw, tt) = _inputs(48, 64, 333, 11, 0.5, "bfloat16")
+    g = torch.linspace(0.5, 1.5, 48)
+    h64, w64 = th.double(), tw.double()
+    logits = h64 @ w64.T
+    lse64 = torch.logsumexp(logits, -1)
+    p = (logits - lse64[:, None]).exp()
+    p[torch.arange(48), tt.long()] -= 1.0
+    coef = p * g.double()[:, None]
+    lse, tl = tref.cross_entropy_fwd_plain(th, tw, tt)
+    np.testing.assert_allclose(lse.numpy(), lse64.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(
+        tl.numpy(), logits[torch.arange(48), tt.long()].numpy(), rtol=1e-5,
+        atol=1e-6)
+    dh = tref.cross_entropy_bwd_dh_plain(th.float(), tw.float(), tt, lse, g)
+    dw = tref.cross_entropy_bwd_dw_plain(th.float(), tw.float(), tt, lse, g)
+    np.testing.assert_allclose(dh.numpy(), (coef @ w64).numpy(), rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_allclose(dw.numpy(), (coef.T @ h64).numpy(),
+                               rtol=1e-4, atol=1e-6)
+    # the rounded coefficient is a different function: it moves dh by more
+    # than float32 rounding
+    rounded = _dh_rounded_coef(th.float(), tw.float(), tt, lse, g)
+    assert float((rounded - dh).abs().max()) > 1e-5 * float(dh.abs().max())
+
+
+def _heads():
+    from repro_torch.configs import arch_names, get_arch
+    return [(n, get_arch(n).spec.d_model, get_arch(n).spec.vocab)
+            for n in arch_names()]
+
+
+def _vocab_ranges(V, n_split, dtype):
+    """The vocabulary entries ``[lo, hi)`` of each split of B as the
+    kernels in ``csrc/cross_entropy.cu`` derive them from the number of
+    splits: float32 (``ce_fwd_kernel``) ``ceil(n_vt / S)`` tiles a split,
+    bf16 (``ce_fwd_mma_kernel``) tiles ``[z n_vt // S, (z + 1) n_vt // S)``."""
+    from repro_torch.kernels import cross_entropy as ce
+    tile = ce.MMA_VOCAB_TILE if dtype == torch.bfloat16 else ce.VOCAB_TILE
+    n_vt = -(-V // tile)
+    if dtype == torch.bfloat16:
+        bounds = [z * n_vt // n_split for z in range(n_split + 1)]
+    else:
+        per = -(-n_vt // n_split)
+        bounds = [min(n_vt, z * per) for z in range(n_split + 1)]
+    return [(min(V, a * tile), min(V, b * tile))
+            for a, b in zip(bounds, bounds[1:])]
+
+
+def _d_slices(D, width):
+    """The D columns ``[d0, d1)`` of each slice as the kernels derive them
+    from the slice width: slice ``i`` starts at ``i * width``."""
+    return [(d0, min(D, d0 + width)) for d0 in range(0, D, width)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name,D,V", _heads())
+def test_launch_geometry_covers_each_entry_once(name, D, V, dtype):
+    """B's vocab splits (for the token tile of the dtype's kernel) and
+    C1's D slices cover each vocabulary entry and each column of D
+    exactly once, for every head in the registry, at the chunk lengths of
+    the train phases and at short chunks; bf16 slices fit one cluster.
+    The wrappers pass the kernels the split count and the slice width;
+    the ranges here follow the kernels' own formulas, and
+    ``tests/test_torch_gpu.py`` holds the kernels themselves to the plain
+    versions (targets in the last, ragged vocab tile; D of 1,600)."""
+    from repro_torch.kernels import cross_entropy as ce
+    for T in (64, 192, 8192, 16384, 28032, 41216):
+        for n_sm in (132, 114):
+            S = ce.vocab_splits(T, V, n_sm, dtype)
+            assert 1 <= S <= ce.MAX_VSPLIT
+            ranges = _vocab_ranges(V, S, dtype)
+            assert len(ranges) == S
+            hits = np.zeros(V, np.int32)
+            for lo, hi in ranges:
+                hits[lo:hi] += 1
+            assert (hits == 1).all(), (T, S)
+            if dtype == torch.bfloat16:
+                assert all(hi > lo for lo, hi in ranges)
+                tile = ce.MMA_VOCAB_TILE
+                assert all(lo % tile == 0 for lo, _ in ranges)
+    width = ce.d_slice_width(D, dtype)
+    slices = _d_slices(D, width)
+    cols = np.zeros(D, np.int32)
+    for d0, d1 in slices:
+        cols[d0:d1] += 1
+    assert (cols == 1).all()
+    assert all(d1 - d0 <= width for d0, d1 in slices)
+    if dtype == torch.bfloat16:
+        assert width % ce.DH_SLICE_MULTIPLE == 0
+        assert width <= ce.DH_SLICE_MAX
+        assert len(slices) <= ce.DH_MAX_SLICES
+    else:
+        assert width % 32 == 0 and width <= ce.DS_MAX
+        assert len(slices) == -(-D // ce.DS_MAX)

@@ -306,12 +306,16 @@ def test_attention_backward_is_deterministic(dtype, Hq, Hkv, Dh, window, C):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,D,V", [(64, 64, 1000), (256, 128, 517),
-                                   (640, 1152, 4099), (128, 3072, 1000)])
+                                   (640, 1152, 4099), (128, 3072, 1000),
+                                   (192, 1600, 32001), (320, 1152, 262144)])
 def test_cross_entropy_kernels_match_plain(dtype, T, D, V):
     """B (lse, target logit), C1 (dh) and C2 (dW) against their plain
     versions: short chunks (vocab split over blocks and merged), a vocab
-    that is not a multiple of the tile, D sliced (3072 -> 3 slices),
-    targets outside the vocabulary and rows with g = 0."""
+    that is not a multiple of the tile, D sliced (3072 -> 3 slices; bf16 C1:
+    a cluster of 8), hymba-1.5b's head (D 1600, V 32001), T not a multiple
+    of bf16 B's 128-token tile (64, 192, 320), targets outside the
+    vocabulary and rows with g = 0; then all-zero g (dh and dW exactly 0)
+    and a second launch of each kernel (the same bits)."""
     dev = _cuda()
     from repro_torch.kernels.cross_entropy import (ce_bwd_dh_cuda,
                                                    ce_bwd_dw_cuda,
@@ -325,6 +329,7 @@ def test_cross_entropy_kernels_match_plain(dtype, T, D, V):
     tgt = torch.from_numpy(rng.integers(0, V, T).astype(np.int32)).to(dev)
     tgt[::7] = -1
     tgt[1] = V - 1
+    tgt[2] = V + 5
     g = torch.from_numpy(rng.uniform(0.5, 1.5, T).astype(np.float32)).to(dev)
     g[::5] = 0.0
     lse, tl = ce_fwd_cuda(h, w, tgt)
@@ -336,6 +341,15 @@ def test_cross_entropy_kernels_match_plain(dtype, T, D, V):
     assert dh.dtype == dtype and dw.dtype == dtype
     _close(dh, ref.cross_entropy_bwd_dh_plain(h, w, tgt, want_lse, g), dtype)
     _close(dw, ref.cross_entropy_bwd_dw_plain(h, w, tgt, want_lse, g), dtype)
+    zero = torch.zeros_like(g)
+    assert not ce_bwd_dh_cuda(h, w, tgt, want_lse, zero).any()
+    assert not ce_bwd_dw_cuda(h, w, tgt, want_lse, zero).any()
+    lse2, tl2 = ce_fwd_cuda(h, w, tgt)
+    dh2 = ce_bwd_dh_cuda(h, w, tgt, want_lse, g)
+    dw2 = ce_bwd_dw_cuda(h, w, tgt, want_lse, g)
+    torch.cuda.synchronize()
+    for a, b in ((lse, lse2), (tl, tl2), (dh, dh2), (dw, dw2)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
