@@ -9,19 +9,22 @@ exit and no result line):
 
   build    compile the CUDA kernels for sm_90a, one nvcc per source, side
            by side (nvcc -Xptxas -v lines; a tensor-core kernel that
-           spills fails the phase: the bf16 attention backward passes and
-           the bf16 cross-entropy kernels), and the card's name and power
-           limit from nvidia-smi;
+           spills fails the phase: the bf16 attention forward and backward
+           passes and the bf16 cross-entropy kernels), and the card's name
+           and power limit from nvidia-smi;
   kernel   every kernel against its plain PyTorch version on the card,
            each case with its max error against the tolerance, kernel_ms /
            plain_ms / library_ms (CUDA events) and the roofline bound, and
            proof that the tolerance catches a wrong kernel (the kernel fed
            a fault must fall outside it):
-           * the flash-attention op (split pass ``flash_fwd_kernel``,
-             merge pass ``flash_combine_kernel``) at engine-step shapes of
-             gemma3-1b (window 512 and 0, bf16 and float32) and
-             llama3.2-3b (bf16), and the merge pass alone (faults: a
-             window or causal limit one off, a live KV tile or a KV split
+           * the flash-attention op at engine-step shapes of gemma3-1b
+             (window 512 and 0, bf16 and float32) and llama3.2-3b (bf16):
+             bf16 its tile ranges, the tensor-core forward
+             ``flash_fwd_mma_kernel`` split over blocks and the merge pass
+             ``flash_combine_kernel``; float32 the split pass
+             ``flash_fwd_kernel`` and the merge pass; launched twice more
+             (the same bits); and the merge pass alone (faults: a window
+             or causal limit one off, a live KV tile or a KV split
              dropped);
            * the attention backward (its tile ranges
              ``flash_bwd_tiles_kernel``, ``flash_bwd_dq_kernel``,
@@ -30,16 +33,20 @@ exit and no result line):
              own segments and positions, no context; gemma3-1b global and
              window-512 layers, bf16), then on a training chunk with
              context rows, for gemma3-1b global and window-512 layers and
-             llama3.2-3b (faults: a window or causal limit one off, a live
-             KV tile dropped);
-           * the cross-entropy kernels B, C1 (bf16: ``ce_fwd_mma_kernel``,
-             ``ce_bwd_dh_mma_kernel`` on the tensor cores; float32:
-             ``ce_fwd_kernel``, ``ce_bwd_kernel<dh>``) and C2
-             (``ce_bwd_kernel<dw>``) on that chunk's targets (gemma3-1b
+             llama3.2-3b, then in float32 (``flash_fwd_kernel`` and the
+             float32 passes) at the largest chunk of each float32 verify
+             phase with its carry in front, as the step feeds it (gemma3-1b
+             global layer; hymba-1.5b, 25 query heads, 5 KV heads of 64)
+             (faults: a window or causal limit one off, a live KV tile
+             dropped);
+           * the cross-entropy kernels B, C1, C2 (bf16: ``ce_fwd_mma_kernel``,
+             ``ce_bwd_dh_mma_kernel``, ``ce_bwd_dw_mma_kernel`` on the
+             tensor cores; float32: ``ce_fwd_kernel``, ``ce_bwd_kernel<dh>``,
+             ``ce_bwd_kernel<dw>``) on that chunk's targets (gemma3-1b
              head, bf16), then at T = 8192 tokens on gemma3-1b's (D 1152,
              V 262144) and llama3.2-3b's (D 3072, V 128256) head, bf16 and
              float32 (faults: a target shifted by one, one vocab tile
-             dropped; B and C1 launched twice more must give the same
+             dropped; each kernel launched twice more must give the same
              bits); B's yardsticks: h @ W.T + logsumexp in float32 and on
              cuBLAS's bf16 path (torch.mm with out_dtype float32);
            * at hymba-1.5b's train shapes (step 0's largest chunk: 16,384
@@ -57,10 +64,13 @@ exit and no result line):
              in the last, ragged vocab tile);
            the plain versions run over blocks of rows, so that their
            materialised scores or logits fit the card; each attention
-           backward case also times the forward as the train step runs it
-           (split and merge pass, with lse) beside its bound and SDPA's
-           forward on the EFFICIENT_ATTENTION backend, the tile ranges
-           (``bwd_tiles``), counts
+           backward case also holds the forward as the train step runs it
+           (bf16: ``flash_fwd_mma_kernel`` on the op's tile ranges, with
+           lse, unsplit on a train chunk) to the plain output, catches the
+           same faults in its output, launches it twice more (the same
+           bits) and times it beside its bound, its plain version and
+           SDPA's forward on the EFFICIENT_ATTENTION backend; it times the
+           tile ranges (``bwd_tiles``), counts
            each pass's tile pairs in range, visited and live, launches both
            passes twice more (the results must be bitwise equal) and times
            the library yardstick, scaled_dot_product_attention with the
@@ -71,19 +81,21 @@ exit and no result line):
   serve    gemma3-1b at full width, bf16, random weights from --seed, 16
            requests of the "github" trace served by the continuous-batching
            engine (n_items=4, cap_t=512, page_sz=16, k=1); every request
-           must complete, the split pass must launch 26 times per engine
-           step, the merge pass at least once, and the plain attention
-           never;
+           must complete, the tile ranges and the tensor-core forward must
+           launch 26 times per engine step, the merge pass at least once,
+           and the plain attention never;
   verify   the same engine in float32 on the first 2 requests (8 new
            tokens) against the port's one_shot_generate;
   train    gemma3-1b at full width, bf16 with a float32 AdamW master, 3
            steps of ``launch/train.train`` on github batches of 8 x 16384
            tokens planned for one H100: per step
            loss, tokens, wall time, tokens/s, peak device memory and the
-           plan's own estimate; every loss finite, every kernel launched
-           exactly as the plan predicts (attention forward 26 x chunks +
-           remat depths, each backward pass and its tile ranges 26 x
-           chunks, B, C1, C2 once per chunk) and no plain call;
+           plan's own estimate; every loss finite, every step's peak at or
+           under the plan's estimate, every kernel launched exactly as the
+           plan predicts (the attention forward and its tile ranges 26 x
+           chunks + remat depths, the merge pass only where a chunk's grid
+           does not fill the card (none), each backward pass 26 x chunks,
+           B, C1, C2 once per chunk) and no plain call;
   train_verify  float32 at full width on a short batch (one sequence
            split over 3 chunks, one packed chunk, a non-zero remat table):
            the chunked step with the plan's remat table launches the
@@ -96,11 +108,12 @@ exit and no result line):
            steps of the same github batches of 8 x 16384 planned for one
            H100 (one chunk per sequence group, stage-aware remat): per step
            loss, tokens, wall time, tokens/s, peak memory beside the plan's
-           estimate, solve seconds; every loss finite, every kernel
-           launched exactly as the plan predicts (attention forward and
-           selective scan D 32 x chunks + remat depths, each attention
-           backward pass, their tile ranges, D' and its reduction 32 x
-           chunks, B, C1, C2 once per chunk) and no plain call;
+           estimate, solve seconds; every loss finite, every step's peak
+           at or under the estimate, every kernel launched exactly as the
+           plan predicts (attention forward, its tile ranges and selective
+           scan D 32 x chunks + remat depths, no merge pass, each
+           attention backward pass, D' and its reduction 32 x chunks, B,
+           C1, C2 once per chunk) and no plain call;
   train_verify_hymba  float32 at full width: one 3,000-token sequence in 3
            chunks whose split slices (1,060 and 997 tokens) leave pad rows
            in front of the KV and SSM carries, a non-zero remat table: the
@@ -112,7 +125,7 @@ exit and no result line):
            gradient dropped at the hand-off) must exceed those limits;
   kernels  every kernel of the port with its launch counts in serve,
            train, train_hymba and the verify phases' chunked step (the
-           float32 B and C1 run only there).
+           float32 forward, B, C1 and C2 run only there).
 
 The last two lines are the kernels JSON and the device JSON.
 """
@@ -154,16 +167,18 @@ def _nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-KERNEL_NAMES = ("flash_fwd_kernel", "flash_combine_kernel",
-                "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
-                "flash_bwd_tiles_kernel", "ce_fwd_mma_kernel",
-                "ce_bwd_dh_mma_kernel", "ce_fwd_kernel", "ce_bwd_kernel",
+KERNEL_NAMES = ("flash_fwd_kernel", "flash_fwd_mma_kernel",
+                "flash_combine_kernel", "flash_bwd_dkdv_kernel",
+                "flash_bwd_dq_kernel", "flash_bwd_tiles_kernel",
+                "ce_fwd_mma_kernel", "ce_bwd_dh_mma_kernel",
+                "ce_bwd_dw_mma_kernel", "ce_fwd_kernel", "ce_bwd_kernel",
                 "mamba_scan_fwd_kernel", "mamba_scan_bwd_kernel",
                 "mamba_scan_reduce_kernel")
 # the tensor-core kernels: a spill in any of their instantiations fails
 # the build phase
-NO_SPILL = ("flash_bwd_dkdv_kernel<bf16", "flash_bwd_dq_kernel<bf16",
-            "ce_fwd_mma_kernel", "ce_bwd_dh_mma_kernel")
+NO_SPILL = ("flash_fwd_mma_kernel", "flash_bwd_dkdv_kernel<bf16",
+            "flash_bwd_dq_kernel<bf16", "ce_fwd_mma_kernel",
+            "ce_bwd_dh_mma_kernel", "ce_bwd_dw_mma_kernel")
 
 
 def _ptxas_summary(log: str):
@@ -173,7 +188,8 @@ def _ptxas_summary(log: str):
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             kind = next((k for k in KERNEL_NAMES if k in ln), "?")
-            dt = "bf16" if "bfloat16" in ln else "f32"
+            # the tensor-core kernels take bf16 only
+            dt = "bf16" if "bfloat16" in ln or "_mma_" in kind else "f32"
             m = re.search(r"Li(\d+)E", ln)
             var = m.group(1) if m else ("dw" if "Lb1E" in ln else
                                         "dh" if "Lb0E" in ln else "")
@@ -282,6 +298,7 @@ def _kernel_case(name, segments, Hq, Hkv, D, window, dtype, dev, seed):
 
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import kv_splits
     gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, meta = _engine_like(gen, segments, 4, 512, Hq, Hkv, D, dtype,
                                  dev, window)
@@ -292,6 +309,14 @@ def _kernel_case(name, segments, Hq, Hkv, D, window, dtype, dev, seed):
     want = ref.flash_attention_reference(**args)
     max_err, ok = _within(got, want, dtype)
     zeros_ok = int(torch.count_nonzero(got[seg_q < 0])) == 0
+    # the op launched twice more must give the same bits
+    again = [ops.flash_attention(**args) for _ in range(2)]
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, got) for a in again)
+    del again
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split = kv_splits(-(-q.shape[0] // 32) * 32, -(-k.shape[0] // 32) * 32,
+                        Hq, n_sm, dtype)
     caught, missed = {}, []
     for fault, change in _mutants(window, seg_kv, pos_q).items():
         caught[fault], inside = _within(
@@ -315,15 +340,20 @@ def _kernel_case(name, segments, Hq, Hkv, D, window, dtype, dev, seed):
     bound_ms, bound_by = _bound(4.0 * D * pairs, nbytes, dtype)  # QK^T, PV
     rec = dict(case=name, dtype=_dtype_name(dtype), T=q.shape[0],
                S=k.shape[0], Hq=Hq, Hkv=Hkv, D=D, window=window,
-               live_pairs=pairs, max_abs_err=max_err,
+               live_pairs=pairs, n_split=n_split, max_abs_err=max_err,
                tol=TOL[_dtype_name(dtype)], within_tol=ok,
-               masked_rows_zero=zeros_ok, faults_max_abs_err=caught,
+               masked_rows_zero=zeros_ok, bitwise_repeat=bitwise,
+               faults_max_abs_err=caught,
                faults_within_tol=missed, kernel_ms=kernel_ms,
+               kernel_ms_is="the op: pad, tile ranges (bf16), forward "
+                            "kernel, merge pass where n_split > 1",
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                bound_by=bound_by)
     del ke, ve, mask
     if not (ok and zeros_ok):
         raise PhaseError(f"kernel disagrees with the plain version: {rec}")
+    if not bitwise:
+        raise PhaseError(f"two launches of the forward differ: {rec}")
     if missed:
         raise PhaseError(f"the tolerance does not catch {missed}: {rec}")
     return rec
@@ -343,9 +373,12 @@ def _combine_case(name, segments, Hq, Hkv, D, window, dtype, dev, seed):
     q, k, v, meta = _engine_like(gen, segments, 4, 512, Hq, Hkv, D, dtype,
                                  dev, window)
     padded = ops.pad_for_kernel(q, k, v, *meta)
-    n_split = kv_splits(padded[1].shape[0])
-    ws_ml, ws_acc = flash_attention_cuda.partials(*padded, n_split=n_split,
-                                                  window=window)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split = kv_splits(padded[0].shape[0], padded[1].shape[0], Hq, n_sm,
+                        dtype)
+    ws_ml, ws_acc = flash_attention_cuda.partials(
+        *padded, n_split=n_split, window=window,
+        tiles=ops._fwd_tiles(padded, True, window))
     got = flash_combine_cuda(ws_ml, ws_acc, dtype)
     want = ref.combine_partials(ws_ml, ws_acc, dtype)
     max_err, ok = _within(got, want, dtype)
@@ -440,18 +473,26 @@ def _train_chunk(gen, C, pieces, Hq, Hkv, D, dtype, dev):
     return mk(T, Hq, D), mk(S, Hkv, D), mk(S, Hkv, D), mk(T, Hq, D), meta
 
 
-def _plan_chunk(gen, seg, pos, Hq, Hkv, D, dtype, dev):
-    """Inputs shaped like one of the train phase's context-free chunks:
-    its own seg and pos rows as queries and keys, random q, k, v and
-    output gradient."""
+def _plan_chunk(gen, seg, pos, Hq, Hkv, D, dtype, dev, ctx_len=0, cap=0):
+    """Inputs shaped like one of a plan's chunks: its own seg and pos rows
+    as queries and keys, random q, k, v and output gradient. With a carry
+    of ``cap`` rows its keys are laid out as the model's attention lays
+    them out: the carry in front (rows at positions 0..cap-1, the first
+    ``ctx_len`` of segment 0, the rest dead), then the chunk's rows."""
+    import numpy as np
     import torch
 
     def mk(*shape):
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.float32).to(dtype)
     T = len(seg)
-    meta = [torch.from_numpy(x).to(dev) for x in (seg, seg, pos, pos)]
-    return mk(T, Hq, D), mk(T, Hkv, D), mk(T, Hkv, D), mk(T, Hq, D), meta
+    rows = np.arange(cap, dtype=np.int32)
+    kseg = np.concatenate([np.where(rows < ctx_len, 0, -1).astype(np.int32),
+                           seg])
+    kpos = np.concatenate([rows, pos])
+    S = len(kseg)
+    meta = [torch.from_numpy(x).to(dev) for x in (seg, kseg, pos, kpos)]
+    return mk(T, Hq, D), mk(S, Hkv, D), mk(S, Hkv, D), mk(T, Hq, D), meta
 
 
 # the plain versions run over blocks of this many rows, so that their
@@ -503,6 +544,7 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
                                                      flash_bwd_dkdv_cuda,
                                                      flash_bwd_dq_cuda,
                                                      flash_bwd_tiles_cuda,
+                                                     FWD_KERNELS, kv_splits,
                                                      tile_counts)
     gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, dout, meta = inputs(gen, dtype)
@@ -524,16 +566,33 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
         row_block)
     max_err, ok = err_of(grads())
     padded = ops.pad_for_kernel(q, k, v, *meta)
-    out, lse = flash_attention_cuda(*padded, window=window, with_lse=True)
+    # the forward as the train step runs it: the tile ranges (bf16), then
+    # the forward kernel with lse (and the merge pass where the keys split)
+    fwd_tiles = ops._fwd_tiles(padded, True, window)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    fwd_split = kv_splits(padded[0].shape[0], padded[1].shape[0], Hq, n_sm,
+                          dtype)
+
+    def forward():
+        return flash_attention_cuda(*padded, window=window, with_lse=True,
+                                    tiles=fwd_tiles)
+    out, lse = forward()
     out_err, out_ok = _within(out[:T], want_out, dtype)
     live, got_lse = torch.isfinite(want_lse), lse[:, :T]
     lse_err = float((got_lse[live] - want_lse[live]).abs().max())
     lse_ok = bool(torch.equal(torch.isfinite(got_lse), live)) and \
         lse_err <= TOL["float32"]["atol"] + TOL["float32"]["rtol"] * float(
             want_lse[live].abs().max())
-    del want_out, want_lse, got_lse
+    del got_lse
+    # the forward launched twice more must give the same bits
+    fwd_runs = [forward() for _ in range(2)]
+    torch.cuda.synchronize()
+    fwd_bitwise = all(torch.equal(o2, out) and torch.equal(l2, lse)
+                      for o2, l2 in fwd_runs)
+    del fwd_runs
     # faults: a causal limit one off, a live KV tile dropped, a window one
-    # off
+    # off; each must take the gradients and the forward's output outside
+    # the tolerance
     seg_drop = seg_kv.clone()
     seg_drop[drop] = -2
     faults = {"causal off by one": dict(pos_q=pos_q - 1),
@@ -541,11 +600,16 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
     if window > 0:
         faults["window + 1"] = dict(window=window + 1)
         faults["window - 1"] = dict(window=window - 1)
-    caught, missed = {}, []
+    caught, missed, fwd_caught = {}, [], {}
     for fault, change in faults.items():
         caught[fault], inside = err_of(grads(**change))
-        if inside:
+        fargs = dict(seg_kv=seg_kv, pos_q=pos_q, window=window) | change
+        fwd_caught[fault], fwd_inside = _within(ops.flash_attention(
+            q, k, v, seg_q, fargs["seg_kv"], fargs["pos_q"], pos_kv,
+            window=fargs["window"]), want_out, dtype)
+        if inside or fwd_inside:
             missed.append(fault)
+    del want_out, want_lse
     pm = [t.contiguous() for t in padded[3:]]
     do = ops.pad_rows(dout, 32).contiguous()
     # the passes as the op runs them: the tile ranges, the dq pass (it
@@ -624,8 +688,14 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
     bounds["fwd"] = _bound(4.0 * D * pairs, 2 * size["q"] + size["k"]
                            + size["v"] + lse.numel() * 4
                            + sum(t.numel() * 4 for t in meta), dtype)
-    fwd_ms = _cuda_ms(lambda: flash_attention_cuda(
-        *padded, window=window, with_lse=True), iters=3, warmup=1)
+    fwd_ms = _cuda_ms(forward, iters=3, warmup=1)
+    fwd_plain_ms = _cuda_ms(lambda: [
+        (ref.flash_attention_reference(q[b], k, v, seg_q[b], seg_kv,
+                                       pos_q[b], pos_kv, window=window),
+         ref.flash_attention_lse(q[b], k, seg_q[b], seg_kv, pos_q[b],
+                                 pos_kv, window=window))
+        for b in (slice(a, a + row_block) for a in range(0, T, row_block))],
+        iters=1, warmup=1)
     bound_ms, bound_by = bounds["all"]
     kernel_ms = ms["dkdv"] + ms["dq"]
     # the library yardstick: scaled_dot_product_attention with the boolean
@@ -684,26 +754,35 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
                            "plain: ref.flash_attention_tiles (the mask, one "
                            "cold run)",
                tiles=tiles_walked, bwd_block=block, bitwise_repeat=bitwise,
-               fwd_ms=fwd_ms, fwd_bound_ms=bounds["fwd"][0],
+               fwd_kernel=FWD_KERNELS[dtype], fwd_ms=fwd_ms,
+               fwd_n_split=fwd_split, fwd_bitwise_repeat=fwd_bitwise,
+               fwd_faults_max_abs_err=fwd_caught, fwd_plain_ms=fwd_plain_ms,
+               fwd_bound_ms=bounds["fwd"][0],
                fwd_bound_by=bounds["fwd"][1], fwd_library_ms=library_fwd_ms,
-               fwd_ms_is="the attention forward as the train step runs it: "
-                         "flash_fwd_kernel (split pass, with lse) and "
-                         "flash_combine_kernel where the keys are split; "
-                         "fwd_library_ms: scaled_dot_product_attention "
-                         "forward on the EFFICIENT_ATTENTION backend with "
-                         "the same boolean mask",
+               fwd_ms_is="the attention forward as the train step runs it, "
+                         "with lse, on the op's tile ranges (bf16; their "
+                         "kernel is tiles_ms): the forward kernel, and "
+                         "flash_combine_kernel where the keys are split "
+                         "(fwd_n_split > 1); fwd_plain_ms: ref's output and "
+                         "lse over blocks of query rows; fwd_library_ms: "
+                         "scaled_dot_product_attention forward on the "
+                         "EFFICIENT_ATTENTION backend with the same boolean "
+                         "mask",
                bound_ms=bound_ms, bound_by=bound_by)
     if not (ok and lse_ok and out_ok):
         raise PhaseError(f"attention backward disagrees with the plain "
                          f"version: {rec}")
-    if not bitwise:
-        raise PhaseError(f"two launches of the backward passes differ: "
-                         f"{rec}")
+    if not (bitwise and fwd_bitwise):
+        raise PhaseError(f"two launches of the forward or the backward "
+                         f"passes differ: {rec}")
     if tiles_err:
         raise PhaseError(f"flash_bwd_tiles_kernel disagrees with its plain "
                          f"version: {rec}")
     if missed:
         raise PhaseError(f"the tolerance does not catch {missed}: {rec}")
+    if "train chunk" in name and dtype == torch.bfloat16 and fwd_split != 1:
+        raise PhaseError(f"the forward splits the keys of a train chunk "
+                         f"(a workspace and a merge pass): {rec}")
     return rec
 
 
@@ -805,8 +884,8 @@ def _ce_case(arch, dtype, dev, seed, targets=None, case=None):
             return _close_scaled(out, want, dtype)
         got = kern[key]()
         max_err, ok = check(got)
-        # the same launch again must give the same bits (B and C1 have no
-        # atomics on their outputs; B's split merge runs in split order)
+        # the same launch again must give the same bits (no kernel has
+        # atomics on its outputs; B's split merge runs in split order)
         again = kern[key]()
         bitwise = all(torch.equal(a, b) for a, b in
                       zip(got if key == "B" else (got,),
@@ -841,8 +920,7 @@ def _ce_case(arch, dtype, dev, seed, targets=None, case=None):
                                     in_bytes + extra + out_bytes, dtype)
         rec = dict(name=names[key], kernel=key, case=case,
                    dtype=_dtype_name(dtype), T=T, D=D, V=V,
-                   d_slices=(-(-D // d_slice_width(
-                       D, torch.float32 if key == "C2" else dtype))
+                   d_slices=(-(-D // d_slice_width(D, dtype))
                              if key != "B" else None),
                    vocab_splits=(vocab_splits(T, V, n_sm, dtype)
                                  if key == "B" else None),
@@ -865,7 +943,7 @@ def _ce_case(arch, dtype, dev, seed, targets=None, case=None):
         del want
         if not ok:
             raise PhaseError(f"{key} disagrees with the plain version: {rec}")
-        if key != "C2" and not bitwise:
+        if not bitwise:
             raise PhaseError(f"two launches of {key} differ: {rec}")
         if missed:
             raise PhaseError(f"the tolerance does not catch {missed}: {rec}")
@@ -923,14 +1001,42 @@ def _verify_plan(arch, seed):
 
 
 
+def _verify_attn_case(arch, phase, seed, dev):
+    """``_attn_bwd_case``'s arguments for the largest chunk of ``arch``'s
+    float32 verify plan as the step feeds it to a global attention layer:
+    the chunk's seg and pos, its carry in front of its keys (the capacity
+    the step gives its pipeline: every chunk that reads or writes the
+    carry, its context plus its rows, in rows of ROW_MULTIPLE), and the
+    last context tile as the dropped tile."""
+    from repro_torch.runtime.train_step import ROW_MULTIPLE
+    cfg, corpus, plan = _verify_plan(arch, seed)
+    chunk, _, seg, pos = _plan_chunks(corpus, plan)[0]
+    if not chunk.context:
+        raise PhaseError(f"{phase}'s largest chunk has no carry: {chunk}")
+
+    def rows(n):
+        return -(-n // ROW_MULTIPLE) * ROW_MULTIPLE
+    pipe = next(p for p in plan.pipelines if chunk in p.chunks)
+    cap = rows(max(c.context + rows(c.tokens) for c in pipe.chunks
+                   if c.has_dependents or c.context > 0))
+    s = cfg.spec
+
+    def inputs(gen, dtype):
+        return _plan_chunk(gen, seg, pos, s.n_heads, s.n_kv_heads,
+                           s.head_dim, dtype, dev, chunk.context, cap)
+    name = f"{phase} chunk ({chunk.tokens} tokens, carry {chunk.context})"
+    return name, inputs, slice(chunk.context - 32, chunk.context)
+
+
 def phase_kernel_training(dev, seed):
     """The attention backward and B, C1, C2: first at the shapes of the
     train phase's largest chunk of step 0 (gemma3-1b, bf16, the chunk's
     own segments, positions and targets), then on chunks with context rows
-    and on both archs' heads at CE_T tokens, bf16 and float32; B, C1, C2
-    in float32 at the largest chunk of each float32 verify phase
-    (gemma3-1b's and hymba-1.5b's heads, the chunk's own targets), the
-    only paths that launch the float32 B and C1."""
+    and on both archs' heads at CE_T tokens, bf16 and float32; the
+    attention and B, C1, C2 in float32 at the largest chunk of each
+    float32 verify phase (gemma3-1b's and hymba-1.5b's, the chunk's own
+    metadata with its carry and its own targets), the only train paths
+    that launch the float32 kernels."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
     chunk, tgt, seg, pos = _train_chunks(seed)[0]
@@ -957,7 +1063,13 @@ def phase_kernel_training(dev, seed):
                   bf16),
                  ("llama3.2-3b", llama, slice(4096 - 32, 4096), 0, bf16),
                  ("gemma3-1b global", gemma, slice(12288 - 32, 12288), 0,
-                  f32)):
+                  f32),
+                 # the float32 forward and backward at the verify phases'
+                 # chunks, the train paths that launch them
+                 (*_verify_attn_case("gemma3-1b", "train_verify", seed, dev),
+                  0, f32),
+                 (*_verify_attn_case("hymba-1.5b", "train_verify_hymba",
+                                     seed, dev), 0, f32)):
         bwd.append(_attn_bwd_case(*args, dev, 11 + len(bwd)))
         print(f"[kernel] attention backward {json.dumps(bwd[-1])}",
               flush=True)
@@ -1209,7 +1321,9 @@ def phase_serve(dev, cfg, params32, trace):
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+    from repro_torch.kernels.flash_attention import (FWD_KERNELS,
+                                                     flash_attention_cuda,
+                                                     flash_bwd_tiles_cuda,
                                                      flash_combine_cuda)
     from repro_torch.models.model import tree_map
     from repro_torch.serve.engine import ServeEngine
@@ -1224,12 +1338,17 @@ def phase_serve(dev, cfg, params32, trace):
                       device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    mma = FWD_KERNELS[torch.bfloat16]
     flash_attention_cuda.launches = 0
+    flash_attention_cuda.by_kernel[mma] = 0
     flash_combine_cuda.launches = 0
+    flash_bwd_tiles_cuda.launches = 0
     ops.flash_attention.plain_calls = 0
     results = eng.run(_requests(trace))
     launches = flash_attention_cuda.launches
+    mma_launches = flash_attention_cuda.by_kernel[mma]
     merges = flash_combine_cuda.launches
+    ranges = flash_bwd_tiles_cuda.launches
     plain = ops.flash_attention.plain_calls
     st = eng.stats()
     rec = dict(completed=st["completed"], requests=len(trace),
@@ -1240,14 +1359,16 @@ def phase_serve(dev, cfg, params32, trace):
                prefill_tokens_fed=st["prefill_tokens_fed"],
                emitted_tokens=st["emitted_tokens"],
                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
-               flash_launches=launches,
+               flash_launches=launches, flash_mma_launches=mma_launches,
                flash_launches_expected=cfg.spec.n_layers * st["steps"],
-               combine_launches=merges, plain_attention_calls=plain)
+               tile_range_launches=ranges, combine_launches=merges,
+               plain_attention_calls=plain)
     bad = [r for r in results.values() if len(r.output_ids) != 32]
     if st["completed"] != len(trace) or bad:
         raise PhaseError(f"not every request completed: {rec}")
-    if launches != cfg.spec.n_layers * st["steps"] or merges == 0 \
-            or plain != 0:
+    want = cfg.spec.n_layers * st["steps"]
+    if launches != want or mma_launches != want or ranges != want \
+            or merges == 0 or plain != 0:
         raise PhaseError(f"serve path did not run on the kernel: {rec}")
     return rec
 
@@ -1295,7 +1416,8 @@ def _train_counters():
     from repro_torch.kernels.cross_entropy import (KERNELS, ce_bwd_dh_cuda,
                                                    ce_bwd_dw_cuda,
                                                    ce_fwd_cuda)
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+    from repro_torch.kernels.flash_attention import (FWD_KERNELS,
+                                                     flash_attention_cuda,
                                                      flash_bwd_dkdv_cuda,
                                                      flash_bwd_dq_cuda,
                                                      flash_bwd_tiles_cuda,
@@ -1306,8 +1428,9 @@ def _train_counters():
     ce = {name: _KernelCount(w, name)
           for w in (ce_fwd_cuda, ce_bwd_dh_cuda, ce_bwd_dw_cuda)
           for name in KERNELS[w.which].values()}
-    return {"flash_fwd_kernel": flash_attention_cuda,
-            "flash_combine_kernel": flash_combine_cuda,
+    fwd = {name: _KernelCount(flash_attention_cuda, name)
+           for name in FWD_KERNELS.values()}
+    return {**fwd, "flash_combine_kernel": flash_combine_cuda,
             "flash_bwd_dkdv_kernel": flash_bwd_dkdv_cuda,
             "flash_bwd_dq_kernel": flash_bwd_dq_cuda,
             "flash_bwd_tiles_kernel": flash_bwd_tiles_cuda,
@@ -1320,34 +1443,43 @@ def _train_counters():
             "plain_mamba_scan": ops.mamba_scan}
 
 
-def _expected_launches(cfg, n_chunks, depth, dtype=None):
-    """Launches of one chunked step as its plan predicts: per layer and
-    chunk one attention forward (and one more per remat'd layer, whose
-    forward runs again in the backward), one of each attention backward
-    pass and of their tile ranges, the same for the selective scan
-    (forward; backward and its reduction) on mamba layers; B, C1, C2 once
-    per chunk, through the kernels of the step's ``dtype`` (default bf16);
-    no plain call."""
+def _expected_launches(cfg, plan, depths, dtype=None):
+    """Launches of one chunked step as its ``plan`` predicts (``depths``:
+    each chunk's remat depth): per layer and chunk one attention forward
+    (and one more per remat'd layer, whose forward runs again in the
+    backward) with its tile-range launch (the forward computes the ranges
+    and hands them to the backward), one of each attention backward pass;
+    for bf16 no merge pass (a training chunk's forward runs unsplit); the
+    same for the selective scan (forward; backward and its reduction) on
+    mamba layers; B, C1, C2 once per chunk, through the kernels of the
+    step's ``dtype`` (default bf16); no plain call."""
     import torch
 
     from repro_torch.kernels.cross_entropy import KERNELS
+    from repro_torch.kernels.flash_attention import FWD_KERNELS
     from repro_torch.models.config import LayerKind
-    L = cfg.spec.n_layers
+    dtype = dtype or torch.bfloat16
+    L, n_chunks, depth = cfg.spec.n_layers, len(depths), sum(depths)
     attn = cfg.layer_kind != LayerKind.MAMBA
     ssm = cfg.spec.ssm_state > 0
     fwd, bwd = L * n_chunks + depth, L * n_chunks
     ce = {name: 0 for names in KERNELS.values() for name in names.values()}
     for names in KERNELS.values():
-        ce[names[dtype or torch.bfloat16]] += n_chunks
-    return {"flash_fwd_kernel": fwd if attn else 0,
-            "flash_bwd_dkdv_kernel": bwd if attn else 0,
-            "flash_bwd_dq_kernel": bwd if attn else 0,
-            "flash_bwd_tiles_kernel": bwd if attn else 0,
-            "mamba_scan_fwd_kernel": fwd if ssm else 0,
-            "mamba_scan_bwd_kernel": bwd if ssm else 0,
-            "mamba_scan_reduce_kernel": bwd if ssm else 0,
-            **ce, "plain_attention": 0,
-            "plain_cross_entropy": 0, "plain_mamba_scan": 0}
+        ce[names[dtype]] += n_chunks
+    attn_fwd = {name: 0 for name in FWD_KERNELS.values()}
+    attn_fwd[FWD_KERNELS[dtype]] = fwd if attn else 0
+    out = {**attn_fwd,
+           "flash_bwd_dkdv_kernel": bwd if attn else 0,
+           "flash_bwd_dq_kernel": bwd if attn else 0,
+           "flash_bwd_tiles_kernel": fwd if attn else 0,
+           "mamba_scan_fwd_kernel": fwd if ssm else 0,
+           "mamba_scan_bwd_kernel": bwd if ssm else 0,
+           "mamba_scan_reduce_kernel": bwd if ssm else 0,
+           **ce, "plain_attention": 0,
+           "plain_cross_entropy": 0, "plain_mamba_scan": 0}
+    if dtype == torch.bfloat16:
+        out["flash_combine_kernel"] = 0
+    return out
 
 
 def _read_counts(ctr):
@@ -1389,7 +1521,7 @@ def phase_train(dev, seed, arch="gemma3-1b"):
         n = plan.n_chunks
         depths = remat_depths(plan, L)
         expected.clear()
-        expected.update(_expected_launches(cfg, n, sum(depths)))
+        expected.update(_expected_launches(cfg, plan, depths))
         steps_out.append({"expected": dict(expected),
                           "remat_depths": sum(depths), "remat_table": depths,
                           "chunks": n,
@@ -1407,6 +1539,11 @@ def phase_train(dev, seed, arch="gemma3-1b"):
         print(f"[train] {ln}", flush=True)
         if not math.isfinite(h["loss"]):
             raise PhaseError(f"non-finite loss: {rec}")
+        # a peak above the plan's own estimate is a wrong plan
+        if h["peak_mem_gb"] > h["plan_peak_mem_gb"]:
+            raise PhaseError(f"peak memory {h['peak_mem_gb']:.2f} GB above "
+                             f"the plan's estimate "
+                             f"{h['plan_peak_mem_gb']:.2f} GB: {rec}")
         bad = {k: (st["launches"][k], v) for k, v in st["expected"].items()
                if st["launches"][k] != v}
         if bad:
@@ -1439,7 +1576,7 @@ def phase_train_verify(dev, seed):
     # forward launches 26 x chunks + the sum of the remat depths
     ctr = _train_counters()
     L, n = cfg.spec.n_layers, len(chunks)
-    expected = _expected_launches(cfg, n, sum(remat_depths(plan, L)),
+    expected = _expected_launches(cfg, plan, remat_depths(plan, L),
                                   torch.float32)
     _zero_counts(ctr)
     runs = {"plan table": tr.loss_and_grads(plan, corpus)}
@@ -1555,7 +1692,7 @@ def phase_train_verify_hymba(dev, seed):
                         compute_dtype=torch.float32)
     ctr = _train_counters()
     L, n = cfg.spec.n_layers, len(chunks)
-    expected = _expected_launches(cfg, n, sum(remat_depths(plan, L)),
+    expected = _expected_launches(cfg, plan, remat_depths(plan, L),
                                   torch.float32)
     _zero_counts(ctr)
     base = tr.loss_and_grads(plan, corpus)
@@ -1760,7 +1897,10 @@ def main() -> int:
     tpu_ms = "src/repro/kernels/mamba_scan.py:77"
     tpu_ce = "src/repro/kernels/cross_entropy.py"
     g, m = cases[0], merges[0]          # gemma3-1b global layer, bf16
+    g32 = cases[3]                      # the same, float32
     gb = bwd[0]             # step 0's largest train chunk, global, bf16
+    gb_local = bwd[1]       # the same chunk, window-512 layer
+    vb, vb_h = bwd[-2], bwd[-1]     # the verify phases' chunks, float32
     gce = ce[0]             # the gemma3-1b head on that chunk, bf16
     vce, vce_h = ce[-2], ce[-1]     # the verify phases' chunks, float32
     sc = scan[0]            # hymba's largest train chunk, bf16 xs
@@ -1772,6 +1912,22 @@ def main() -> int:
         return [{k: rec[k] for k in ("case", "dtype", "T", "D", "V",
                                      "kernel_ms", "bound_ms", "plain_ms",
                                      "library_ms", "max_abs_err")}]
+
+    def _fwd(rec):          # the attention forward of one case
+        keys = ("case", "dtype", "T", "S", "Hq", "D", "window")
+        if "fwd_ms" not in rec:             # an engine-step case: the op
+            return {**{k: rec[k] for k in keys}, "n_split": rec["n_split"],
+                    "ms": rec["kernel_ms"], "ms_is": rec["kernel_ms_is"],
+                    "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                    "plain_ms": rec["plain_ms"],
+                    "library_ms": rec["library_ms"],
+                    "max_abs_err": rec["max_abs_err"]}
+        return {**{k: rec[k] for k in keys}, "n_split": rec["fwd_n_split"],
+                "ms": rec["fwd_ms"], "bound_ms": rec["fwd_bound_ms"],
+                "bound_by": rec["fwd_bound_by"],
+                "plain_ms": rec["fwd_plain_ms"],
+                "library_ms": rec["fwd_library_ms"],
+                "max_abs_err": rec["out_max_abs_err"]}
 
     def entry(name, src, tpu, rec, **kw):
         return {"name": name, "route": "cuda", "source": src,
@@ -1785,8 +1941,20 @@ def main() -> int:
                 "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"]} | kw
     kernels = {"kernels": [
-        entry("flash_fwd_kernel", fa, tpu_fa, g,
-              ms_covers="the attention op: split pass and merge pass"),
+        entry("flash_fwd_mma_kernel", fa, tpu_fa, gb, **_fwd(gb),
+              ms_covers="the forward kernel as the train step runs it, with "
+                        "lse, unsplit (n_split 1) on the train chunks; the "
+                        "tile ranges are flash_bwd_tiles_kernel's",
+              library_is="scaled_dot_product_attention forward, "
+                         "EFFICIENT_ATTENTION backend, the same boolean mask",
+              also=[_fwd(r) for r in (gb_local, h_attn, g, cases[1],
+                                      cases[2])]),
+        entry("flash_fwd_kernel", fa, tpu_fa, vb, **_fwd(vb),
+              ms_covers="the forward as the train step runs it, with lse: "
+                        "split pass and merge pass",
+              library_is="scaled_dot_product_attention forward, "
+                         "EFFICIENT_ATTENTION backend, the same boolean mask",
+              also=[_fwd(r) for r in (vb_h, g32, cases[4])]),
         entry("flash_combine_kernel", fa, tpu_fa, m),
         entry("flash_bwd_dkdv_kernel", fa, tpu_fa + " (its gradient)", gb,
               ms=gb["kernel_ms_dkdv"], bound_ms=gb["bound_ms_dkdv"],
@@ -1817,7 +1985,10 @@ def main() -> int:
               library_is=vce["B"]["library_is"], also=_also(vce_h["B"])),
         entry("ce_bwd_kernel<dh>", cs, tpu_ce + ":159", vce["C1"],
               also=_also(vce_h["C1"])),
-        entry("ce_bwd_kernel<dw>", cs, tpu_ce + ":222", gce["C2"]),
+        entry("ce_bwd_dw_mma_kernel", cs, tpu_ce + ":222", gce["C2"],
+              also=_also(h_ce["C2"])),
+        entry("ce_bwd_kernel<dw>", cs, tpu_ce + ":222", vce["C2"],
+              also=_also(vce_h["C2"])),
         entry("mamba_scan_fwd_kernel", ms_src, tpu_ms, sc,
               library_is=sc["library_is"]),
         entry("mamba_scan_bwd_kernel", ms_src, tpu_ms + " (its gradient)",

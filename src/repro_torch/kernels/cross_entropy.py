@@ -10,11 +10,13 @@ stream. The ``[T, V]`` logits are never stored: B folds each vocab tile
 into per-token ``(lse, target logit)``, C1 and C2 recompute the tile and
 contract ``(softmax - onehot) * g`` at once.
 
-bf16 inputs run B and C1 on the tensor cores (``ce_fwd_mma_kernel``,
-``ce_bwd_dh_mma_kernel``: bf16 ``mma.sync`` with float32 sums; C1 rounds
-its coefficient to bf16 as the second product's operand); float32 inputs
-and C2 run the float32 FMA kernels (``ce_fwd_kernel``,
-``ce_bwd_kernel<dh>``, ``ce_bwd_kernel<dw>``).
+bf16 inputs run B, C1 and C2 on the tensor cores (``ce_fwd_mma_kernel``,
+``ce_bwd_dh_mma_kernel``, ``ce_bwd_dw_mma_kernel``: bf16 ``mma.sync`` with
+float32 sums; C1 and C2 are one cluster design with the roles of h and W
+swapped, and round their coefficient to bf16 as the second product's
+operand); float32 inputs run the float32 FMA kernels (``ce_fwd_kernel``,
+``ce_bwd_kernel<dh>``, ``ce_bwd_kernel<dw>``), which serve the float32
+verify phases.
 
 One wrapper and one launch count per function: :data:`ce_fwd_cuda`,
 :data:`ce_bwd_dh_cuda`, :data:`ce_bwd_dw_cuda`; ``by_kernel`` splits each
@@ -56,8 +58,9 @@ DS_MAX = 1152           # accumulator columns per block in C1/C2 (csrc)
 # tokens per block of B: float32 32 (csrc: R), bf16 128 (csrc: FB_T)
 FWD_TOKEN_TILE = {torch.float32: 32, torch.bfloat16: 128}
 MMA_VOCAB_TILE = 128    # vocab entries per tile of the bf16 B
-# bf16 C1: one CTA of a cluster per D slice of at most DH_SLICE_MAX columns
-# (a multiple of DH_SLICE_MULTIPLE), at most DH_MAX_SLICES a cluster
+# bf16 C1 and C2: one CTA of a cluster per D slice of at most DH_SLICE_MAX
+# columns (a multiple of DH_SLICE_MULTIPLE), at most DH_MAX_SLICES a
+# cluster: D <= 6,144
 DH_SLICE_MULTIPLE, DH_SLICE_MAX, DH_MAX_SLICES = 64, 384, 16
 # the ``__global__`` kernel each wrapper launches, by the inputs' dtype
 KERNELS = {"fwd": {torch.float32: "ce_fwd_kernel",
@@ -65,7 +68,7 @@ KERNELS = {"fwd": {torch.float32: "ce_fwd_kernel",
            "dh": {torch.float32: "ce_bwd_kernel<dh>",
                   torch.bfloat16: "ce_bwd_dh_mma_kernel"},
            "dw": {torch.float32: "ce_bwd_kernel<dw>",
-                  torch.bfloat16: "ce_bwd_kernel<dw>"}}
+                  torch.bfloat16: "ce_bwd_dw_mma_kernel"}}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -133,12 +136,12 @@ def vocab_splits(T: int, V: int, n_sm: int,
 def d_slice_width(D: int, dtype=torch.bfloat16) -> int:
     """Columns per D slice of C1/C2.
 
-    float32 (and C2 in both dtypes): ``ceil(D / DS_MAX)`` slices of equal
-    width rounded up to 32; each block recomputes the logits over all of D
-    (the recompute factor is the number of slices). bf16 C1: slices of at
-    most DH_SLICE_MAX columns, equal widths rounded up to
-    DH_SLICE_MULTIPLE; the slices of a token tile are the CTAs of one
-    cluster, each computing the logits over its own columns only."""
+    float32: ``ceil(D / DS_MAX)`` slices of equal width rounded up to 32;
+    each block recomputes the logits over all of D (the recompute factor is
+    the number of slices). bf16 C1 and C2: slices of at most DH_SLICE_MAX
+    columns, equal widths rounded up to DH_SLICE_MULTIPLE; the slices of a
+    token tile (C1) or of a tile of 64 vocabulary entries (C2) are the CTAs
+    of one cluster, each computing the logits over its own columns only."""
     if dtype == torch.bfloat16:
         n = -(-D // DH_SLICE_MAX)
         mult = DH_SLICE_MULTIPLE
@@ -186,7 +189,10 @@ class CrossEntropyKernel:
     * ``"dh"`` (C1): ``(hidden, w, targets, lse, g) -> dh [T, D]`` in
       hidden's dtype (``ce_bwd_dh_mma_kernel`` / ``ce_bwd_kernel<dh>``);
     * ``"dw"`` (C2): the same inputs ``-> dW [V, D]`` in w's dtype
-      (``ce_bwd_kernel<dw>``).
+      (``ce_bwd_dw_mma_kernel`` / ``ce_bwd_kernel<dw>``).
+
+    bf16 C1 and C2 take D <= DH_SLICE_MAX * DH_MAX_SLICES (6,144) and raise
+    above it.
     """
 
     def __init__(self, which: str) -> None:
@@ -236,13 +242,12 @@ class CrossEntropyKernel:
     def _bwd(self, hidden, w, targets, lse, g):
         T, V, D = _check(hidden, w, targets, lse, g)
         dw = self.which == "dw"
-        out = torch.empty_like(w if dw else hidden)
-        # C2 keeps the float32-granular slices in both dtypes
-        ds = d_slice_width(D, torch.float32 if dw else hidden.dtype)
-        if not dw and hidden.dtype == torch.bfloat16 and \
-                -(-D // ds) > DH_MAX_SLICES:
+        ds = d_slice_width(D, hidden.dtype)
+        if hidden.dtype == torch.bfloat16 and -(-D // ds) > DH_MAX_SLICES:
             raise ValueError(f"D={D}: more than {DH_MAX_SLICES} slices of "
-                             f"{ds} columns in one cluster")
+                             f"{ds} columns in one cluster (bf16 C1 and C2 "
+                             f"take D <= {DH_SLICE_MAX * DH_MAX_SLICES})")
+        out = torch.empty_like(w if dw else hidden)
         lib = load_library()
         stream = torch.cuda.current_stream(hidden.device).cuda_stream
         with torch.cuda.device(hidden.device):

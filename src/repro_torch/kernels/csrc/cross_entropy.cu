@@ -21,9 +21,9 @@
 // and a 28,032-token train chunk, 16.9 TFLOP per product, 17.1 ms at the
 // H100's 989 TFLOP/s for bf16, against ~0.67 GB of inputs (0.2 ms).
 //
-// bf16 (the train paths): two kernels on mma.sync m16n8k16 (bf16 operands,
-// float32 sums), 8 warps, tiles brought into shared memory by cp.async
-// and read into fragments by ldmatrix (helpers in sm90_mma.cuh).
+// bf16 (the train paths): three kernels on mma.sync m16n8k16 (bf16
+// operands, float32 sums), 8 warps, tiles brought into shared memory by
+// cp.async and read into fragments by ldmatrix (helpers in sm90_mma.cuh).
 //
 // * B, ce_fwd_mma_kernel: a block owns 128 tokens and walks a contiguous
 //   range of 128-entry vocab tiles; each tile's logits [128, 128] come from
@@ -80,6 +80,22 @@
 //   Precision: dh sums up to 262,144 vocab terms of ~1e-10 into totals of
 //   ~1e-6; mma.sync adds 16 terms at a time into the float32 accumulator,
 //   16,384 adds at most.
+// * C2, ce_bwd_dw_mma_kernel<NP>: C1's design with the roles of h and W
+//   swapped (one body, ce_bwd_mma_body<NP, DW>): a cluster owns 64
+//   vocabulary entries, its CTAs keep their W slice [64, slice] resident
+//   and walk all token tiles of 64, the next h tile [64, slice] (and its
+//   tokens' lse, g and target, into shared memory) loading while this one
+//   serves both products. P1 gives the partial logits [64 vocab, 64
+//   tokens], summed over the cluster in rank order; the coefficient (0 for
+//   an entry past V: hymba's V of 32,001 leaves a ragged last tile; pad
+//   tokens carry g = 0) is rounded to bf16 as P2's operand, as in C1; P2
+//   accumulates dW [64, slice] += coef @ h [64 tokens, slice] in registers
+//   over all token tiles, and the one owner writes it once, in w's dtype:
+//   no atomics. Traffic: each h element leaves L2 once per 64 vocabulary
+//   entries (T V D 2 / 64 bytes, 265 GB on the gemma chunk, as for C1);
+//   clusters run in vocab order, so a wave walks the tokens in step and
+//   reads h from device memory about once per wave. dW sums up to ~28k
+//   token terms per element, 16 per mma.sync.
 //
 // float32 (train_verify and its exact checks) keeps FMA bodies on one 32 x
 // 64 logits tile over the full D, streamed through shared memory in
@@ -92,8 +108,8 @@
 //   last, padded tile).
 // * C1 (ce_bwd_kernel<dh>): rows are 32 tokens, columns walk the
 //   vocabulary; a float32 accumulator [32, DS] in shared memory.
-// * C2 (ce_bwd_kernel<dw>, both dtypes): rows are 32 vocab entries,
-//   columns walk the tokens; accumulator [32, DS] += coef^T @ h[., DS].
+// * C2 (ce_bwd_kernel<dw>): rows are 32 vocab entries, columns walk the
+//   tokens; accumulator [32, DS] += coef^T @ h[., DS].
 //   A Hopper block has at most 227 KB of shared memory, so D is split into
 //   DS <= 1152 columns per block and each block recomputes its logits.
 // No atomics on outputs: every output element has one writer that sums
@@ -123,7 +139,8 @@ constexpr int DS_MAX = 1152;   // accumulator columns per block (C1, C2)
 constexpr int MAX_VSPLIT = 64; // vocab splits per token tile (B)
 constexpr float NEG = -1e30f;
 
-// Four consecutive elements of T, loaded raw (converted when stored).
+// Four consecutive elements of T, loaded raw (converted when stored); the
+// FMA kernels run float32 only (bf16 runs the tensor-core kernels below).
 template <typename T> struct Vec4;
 template <> struct Vec4<float> {
   float4 v;
@@ -135,27 +152,10 @@ template <> struct Vec4<float> {
     f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
   }
 };
-template <> struct Vec4<__nv_bfloat16> {
-  uint2 v;
-  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
-    v = __ldg(reinterpret_cast<const uint2*>(p));
-  }
-  __device__ __forceinline__ void zero() { v = make_uint2(0u, 0u); }
-  __device__ __forceinline__ void get(float* f) const {
-    f[0] = __uint_as_float(v.x << 16);
-    f[1] = __uint_as_float(v.x & 0xffff0000u);
-    f[2] = __uint_as_float(v.y << 16);
-    f[3] = __uint_as_float(v.y & 0xffff0000u);
-  }
-};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // The logits tile L[r][c] = sum_d A[a0 + r][d] * B[b0 + c][d] (rows past
 // na / nb read as zeros). Thread (ty = tid / 16, tx = tid % 16) returns
@@ -713,40 +713,56 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// C1, bf16. A cluster of G CTAs owns DH_T tokens; CTA c of it owns the D
-// columns [c dg, min((c + 1) dg, D)) of them, dg = 64 NP (G = ceil(D / dg);
-// 1-D grid of (Tp / DH_T) * G blocks). Per vocab tile of DH_V entries: the
+// C1 and C2, bf16: one body, two kernels. A cluster of G CTAs owns 64
+// resident rows; CTA c of it owns the D columns [c dg, min((c + 1) dg, D))
+// of them, dg = 64 NP (G = ceil(D / dg); 1-D grid of n_res_tiles * G
+// blocks). The CTA walks every tile of 64 streamed rows; per tile: the
 // partial logits over the CTA's columns (P1), summed over the cluster
 // through distributed shared memory in rank order (so every CTA holds the
-// same logits), the coefficient, then dh[., columns] += coef @ W[tile,
-// columns] (P2). The W tile [DH_V][dg] serves both products and the next
-// one loads while this one is in use; h [DH_T][dg] stays resident.
-template <int NP>
-__global__ void __launch_bounds__(NTM, 1)
-ce_bwd_dh_mma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                     const int* __restrict__ tgt, const float* __restrict__ lse,
-                     const float* __restrict__ g, bf16* __restrict__ dh, int Tp, int V,
-                     int D) {
+// same logits), the coefficient, then out[resident rows, columns] += coef
+// @ streamed tile[., columns] (P2). The streamed tile [64][dg] serves both
+// products and the next one loads while this one is in use; the resident
+// rows [64][dg] stay in shared memory.
+//   C1 (DW false): resident = 64 tokens of h, streamed = vocab tiles of W,
+//                  out = dh; the per-token lse, g, target are the rows'.
+//   C2 (DW true):  resident = 64 vocabulary entries of W (rows at or past V
+//                  zero-filled, coefficient 0), streamed = token tiles of h
+//                  (Tp is a multiple of 64: every tile is whole), out = dW;
+//                  the per-token lse, g, target are the columns', loaded
+//                  with each tile.
+template <int NP, bool DW>
+__device__ __forceinline__ void ce_bwd_mma_body(const bf16* __restrict__ h,
+                                                const bf16* __restrict__ w,
+                                                const int* __restrict__ tgt,
+                                                const float* __restrict__ lse,
+                                                const float* __restrict__ g,
+                                                bf16* __restrict__ out, int Tp, int V, int D) {
+  static_assert(DH_T == DH_V, "resident and streamed tiles share one size");
+  constexpr int R64 = DH_T;
   constexpr int DG = 64 * NP, QW = 16 * NP;   // columns of the CTA, of a warp in P2
   constexpr int CHR = DG / 8;                 // 16-byte chunks of a row
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sH = reinterpret_cast<bf16*>(smem_raw);        // [DH_T][DH_LDG]
-  bf16* sW = sH + DH_T * DH_LDG;                       // [2][DH_V][DH_LDG]
-  float4* xS = reinterpret_cast<float4*>(sW + 2 * DH_V * DH_LDG);  // [2][4][NTM]
-  bf16* sC = reinterpret_cast<bf16*>(xS + 2 * 4 * NTM);            // [DH_T][DH_LDC]
+  bf16* sR = reinterpret_cast<bf16*>(smem_raw);        // [R64][DH_LDG] resident
+  bf16* sS = sR + R64 * DH_LDG;                        // [2][R64][DH_LDG] streamed
+  float4* xS = reinterpret_cast<float4*>(sS + 2 * R64 * DH_LDG);  // [2][4][NTM]
+  bf16* sC = reinterpret_cast<bf16*>(xS + 2 * 4 * NTM);           // [R64][DH_LDC]
+  __shared__ float s_lse[2][R64], s_g[2][R64];   // C2: the streamed tokens'
+  __shared__ int s_tg[2][R64];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g8 = lane >> 2, t4 = lane & 3;
   const int G = (D + DG - 1) / DG, rank = (int)cluster.block_rank();
-  const int r0 = (blockIdx.x / G) * DH_T, d0 = rank * DG, dn = min(DG, D - d0);
-  const int n_vt = (V + DH_V - 1) / DH_V;
+  const int r0 = (blockIdx.x / G) * R64, d0 = rank * DG, dn = min(DG, D - d0);
+  const bf16* res = DW ? w : h;
+  const bf16* str = DW ? h : w;
+  const int n_res = DW ? V : Tp, n_str = DW ? Tp : V;
+  const int n_st = (n_str + R64 - 1) / R64;
 
   // copies: warp w takes rows w, w + 8, ..; lane l chunks l, l + 32 of a
   // row (columns at or past D zero-filled, rows at or past n_rows too)
   constexpr int CPL = (CHR + 31) / 32;
-  auto load_rows = [&](bf16* dst, const bf16* __restrict__ src, int row0, int n_rows,
-                       int rows) {
-    for (int r = warp; r < rows; r += NTM / 32) {
+  auto load_rows = [&](bf16* dst, const bf16* __restrict__ src, int row0, int n_rows) {
+    for (int r = warp; r < R64; r += NTM / 32) {
 #pragma unroll
       for (int j = 0; j < CPL; ++j) {
         const int ch = lane + 32 * j;
@@ -758,23 +774,41 @@ ce_bwd_dh_mma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
       }
     }
   };
-  load_rows(sH, h, r0, Tp, DH_T);
-  load_rows(sW, w, 0, V, DH_V);
+  // C2: the per-token values of streamed tile st (lse, g, target; one word
+  // a thread)
+  auto load_tokens = [&](int buf, int st) {
+    if (DW && tid < 3 * R64) {
+      const int which = tid / R64, r = tid % R64, row = st * R64 + r;
+      const void* src = which == 0 ? (const void*)(lse + row)
+                      : which == 1 ? (const void*)(g + row) : (const void*)(tgt + row);
+      void* dst = which == 0 ? (void*)&s_lse[buf][r]
+                : which == 1 ? (void*)&s_g[buf][r] : (void*)&s_tg[buf][r];
+      cp_async4(dst, src, true);
+    }
+  };
+  load_rows(sR, res, r0, n_res);
+  load_rows(sS, str, 0, n_str);
+  load_tokens(0, 0);
   cp_async_commit();
 
-  // P1: 16 rows x 32 vocab columns a warp; P2: 32 rows x QW columns
+  // P1: 16 rows x 32 streamed columns a warp; P2: 32 rows x QW columns
   const int wm = warp & 3, wn = warp >> 2;
   const int pm = warp & 1, pq = warp >> 1;
-  // this thread's logits rows 16 wm + 8 hh + g8: lse (log2 units), g, target
-  float lse2[2], gr[2];
-  int tg[2];
+  // this thread's logits rows 16 wm + 8 hh + g8: C1 their tokens' lse (log2
+  // units), g and target; C2 their vocabulary entries
+  float lse2[2] = {0.f, 0.f}, gr[2] = {0.f, 0.f};
+  int tg[2] = {-1, -1}, vid_r[2] = {0, 0};
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = r0 + 16 * wm + 8 * hh + g8;
-    lse2[hh] = lse[row] * LOG2E;
-    gr[hh] = g[row];
-    const int x = tgt[row];
-    tg[hh] = x >= 0 && x < V ? x : -1;
+    if (DW) {
+      vid_r[hh] = row;
+    } else {
+      lse2[hh] = lse[row] * LOG2E;
+      gr[hh] = g[row];
+      const int x = tgt[row];
+      tg[hh] = x >= 0 && x < V ? x : -1;
+    }
   }
   const int a1_off = (16 * wm + (lane & 15)) * DH_LDG + (lane >> 4) * 8;
   const int b1_off = (32 * wn + ((lane >> 4) << 3) + (lane & 7)) * DH_LDG + ((lane >> 3) & 1) * 8;
@@ -788,11 +822,11 @@ ce_bwd_dh_mma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
 
-  for (int vt = 0; vt < n_vt; ++vt) {
-    const int buf = vt & 1;
-    const bf16* Wt = sW + buf * DH_V * DH_LDG;
-    cp_async_wait<0>();               // W tile vt has landed (this thread's copies)
-    __syncthreads();                  // ... everyone's; P2 of tile vt - 1 is done
+  for (int st = 0; st < n_st; ++st) {
+    const int buf = st & 1;
+    const bf16* St = sS + buf * R64 * DH_LDG;
+    cp_async_wait<0>();               // tile st has landed (this thread's copies)
+    __syncthreads();                  // ... everyone's; P2 of tile st - 1 is done
 
     // P1: partial logits over this CTA's columns, two sets of sums (even
     // and odd 16-column steps) for twice the independent products
@@ -804,17 +838,17 @@ ce_bwd_dh_mma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
 #pragma unroll 2
     for (int kk = 0; kk < dn; kk += 32) {
       uint32_t a[4], b[4];
-      ldsm4(a, sH + a1_off + kk);
+      ldsm4(a, sR + a1_off + kk);
 #pragma unroll
       for (int np = 0; np < 2; ++np) {
-        ldsm4(b, Wt + b1_off + np * 16 * DH_LDG + kk);
+        ldsm4(b, St + b1_off + np * 16 * DH_LDG + kk);
         mma16816(s0[2 * np], a, b[0], b[1]);
         mma16816(s0[2 * np + 1], a, b[2], b[3]);
       }
-      ldsm4(a, sH + a1_off + kk + 16);    // dn is a multiple of 32
+      ldsm4(a, sR + a1_off + kk + 16);    // dn is a multiple of 32
 #pragma unroll
       for (int np = 0; np < 2; ++np) {
-        ldsm4(b, Wt + b1_off + np * 16 * DH_LDG + kk + 16);
+        ldsm4(b, St + b1_off + np * 16 * DH_LDG + kk + 16);
         mma16816(s1[2 * np], a, b[0], b[1]);
         mma16816(s1[2 * np + 1], a, b[2], b[3]);
       }
@@ -826,7 +860,10 @@ ce_bwd_dh_mma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
       xs[nj * NTM + tid] = make_float4(s0[nj][0] + s1[nj][0], s0[nj][1] + s1[nj][1],
                                        s0[nj][2] + s1[nj][2], s0[nj][3] + s1[nj][3]);
     cluster_arrive();                 // this CTA's partials are written
-    if (vt + 1 < n_vt) load_rows(sW + (buf ^ 1) * DH_V * DH_LDG, w, (vt + 1) * DH_V, V, DH_V);
+    if (st + 1 < n_st) {
+      load_rows(sS + (buf ^ 1) * R64 * DH_LDG, str, (st + 1) * R64, n_str);
+      load_tokens(buf ^ 1, st + 1);
+    }
     cp_async_commit();
     cluster_wait();                   // ... and every other CTA's
     // the logits: the partials summed in rank order
@@ -849,9 +886,10 @@ ce_bwd_dh_mma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
         }
       }
     }
-    // coef = (exp(S - lse) - [v == target]) g, 0 past V, as bf16
+    // coef = (exp(S - lse) - [v == target]) g, 0 for a vocabulary entry
+    // past V, as bf16
     {
-      const int cl = 32 * wn + 2 * t4, v0 = vt * DH_V;
+      const int cl = 32 * wn + 2 * t4, c0 = st * R64;
 #pragma unroll
       for (int nj = 0; nj < 4; ++nj)
 #pragma unroll
@@ -860,25 +898,33 @@ ce_bwd_dh_mma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
           float cf[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int vid = v0 + cl + 8 * nj + e;
-            const float p = fast_exp2(fmaf(sv[e], LOG2E, -lse2[hh]));
-            cf[e] = vid < V ? (p - (vid == tg[hh] ? 1.f : 0.f)) * gr[hh] : 0.f;
+            const int c = cl + 8 * nj + e;
+            if (DW) {                 // row: vocabulary entry; column: token c
+              const float p = fast_exp2(fmaf(sv[e], LOG2E, -s_lse[buf][c] * LOG2E));
+              cf[e] = vid_r[hh] < V
+                          ? (p - (vid_r[hh] == s_tg[buf][c] ? 1.f : 0.f)) * s_g[buf][c]
+                          : 0.f;
+            } else {                  // row: token; column: vocabulary entry
+              const int vid = c0 + c;
+              const float p = fast_exp2(fmaf(sv[e], LOG2E, -lse2[hh]));
+              cf[e] = vid < V ? (p - (vid == tg[hh] ? 1.f : 0.f)) * gr[hh] : 0.f;
+            }
           }
           *reinterpret_cast<uint32_t*>(sC + (16 * wm + 8 * hh + g8) * DH_LDC + cl + 8 * nj) =
               pack_bf16(cf[0], cf[1]);
         }
     }
     __syncthreads();
-    // P2: dh [32 rows, QW columns] += coef [., DH_V] W [DH_V, columns]
+    // P2: out [32 rows, QW columns] += coef [., 64] tile [64, columns]
 #pragma unroll
-    for (int kk = 0; kk < DH_V; kk += 16) {
+    for (int kk = 0; kk < R64; kk += 16) {
       uint32_t a0[4], a1[4];
       ldsm4(a0, sC + c_off + kk);
       ldsm4(a1, sC + c_off + 16 * DH_LDC + kk);
 #pragma unroll
       for (int np = 0; np < NP; ++np) {
         uint32_t b[4];
-        ldsm4_t(b, Wt + x_off + kk * DH_LDG + 16 * np);
+        ldsm4_t(b, St + x_off + kk * DH_LDG + 16 * np);
         mma16816(acc[0][2 * np], a0, b[0], b[1]);
         mma16816(acc[0][2 * np + 1], a0, b[2], b[3]);
         mma16816(acc[1][2 * np], a1, b[0], b[1]);
@@ -897,28 +943,49 @@ ce_bwd_dh_mma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
       for (int hh = 0; hh < 2; ++hh) {
         const int row = r0 + 32 * pm + 16 * mi + 8 * hh + g8;
         const int c = pq * QW + 8 * nj + 2 * t4;
-        if (c < dn)
-          *reinterpret_cast<uint32_t*>(dh + (size_t)row * D + d0 + c) =
+        if (c < dn && row < n_res)
+          *reinterpret_cast<uint32_t*>(out + (size_t)row * D + d0 + c) =
               pack_bf16(acc[mi][nj][2 * hh], acc[mi][nj][2 * hh + 1]);
       }
 }
 
 template <int NP>
-int launch_dh_mma(const void* h, const void* w, const void* tgt, const void* lse,
-                  const void* g, void* out, int Tp, int V, int D, cudaStream_t st) {
+__global__ void __launch_bounds__(NTM, 1)
+ce_bwd_dh_mma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
+                     const int* __restrict__ tgt, const float* __restrict__ lse,
+                     const float* __restrict__ g, bf16* __restrict__ dh, int Tp, int V,
+                     int D) {
+  ce_bwd_mma_body<NP, false>(h, w, tgt, lse, g, dh, Tp, V, D);
+}
+
+template <int NP>
+__global__ void __launch_bounds__(NTM, 1)
+ce_bwd_dw_mma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
+                     const int* __restrict__ tgt, const float* __restrict__ lse,
+                     const float* __restrict__ g, bf16* __restrict__ dw, int Tp, int V,
+                     int D) {
+  ce_bwd_mma_body<NP, true>(h, w, tgt, lse, g, dw, Tp, V, D);
+}
+
+// C1 (DW false) or C2 (DW true) on the tensor cores, as a cluster launch.
+template <int NP, bool DW>
+int launch_bwd_mma(const void* h, const void* w, const void* tgt, const void* lse,
+                   const void* g, void* out, int Tp, int V, int D, cudaStream_t st) {
+  void (*kernel)(const bf16*, const bf16*, const int*, const float*, const float*, bf16*, int,
+                 int, int) = DW ? ce_bwd_dw_mma_kernel<NP> : ce_bwd_dh_mma_kernel<NP>;
   static bool attr = false;
   if (!attr) {
     bool smem_set = false;
-    int e = allow_smem(ce_bwd_dh_mma_kernel<NP>, DH_SMEM, smem_set);
+    int e = allow_smem(kernel, DH_SMEM, smem_set);
     if (e) return e;
-    e = (int)cudaFuncSetAttribute(ce_bwd_dh_mma_kernel<NP>,
-                                  cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e) return e;
     attr = true;
   }
   const int G = (D + 64 * NP - 1) / (64 * NP);
+  const int n_res = DW ? V : Tp;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((Tp / DH_T) * G);
+  cfg.gridDim = dim3(((n_res + DH_T - 1) / DH_T) * G);
   cfg.blockDim = dim3(NTM);
   cfg.dynamicSmemBytes = DH_SMEM;
   cfg.stream = st;
@@ -929,9 +996,9 @@ int launch_dh_mma(const void* h, const void* w, const void* tgt, const void* lse
   cl[0].val.clusterDim.z = 1;
   cfg.attrs = cl;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, ce_bwd_dh_mma_kernel<NP>, (const bf16*)h, (const bf16*)w, (const int*)tgt,
-      (const float*)lse, (const float*)g, (bf16*)out, Tp, V, D);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, (const bf16*)h, (const bf16*)w,
+                                           (const int*)tgt, (const float*)lse,
+                                           (const float*)g, (bf16*)out, Tp, V, D);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
@@ -984,9 +1051,9 @@ int cross_entropy_fwd(const void* h, const void* w, const void* tgt, void* lse, 
 
 // C1 (which == 0): out = dh [Tp, D] in h's dtype; C2 (which == 1): out = dW
 // [V, D] in w's dtype. lse and g [Tp] float32 (g = 0 on rows that carry no
-// loss). ds = width of a D slice (ceil(D / ds) slices): for float32 and C2
-// a multiple of 32, at most DS_MAX; for bf16 C1 the columns of one CTA of
-// the cluster, a multiple of 64, at most DG_MAX, at most 16 slices.
+// loss). ds = width of a D slice (ceil(D / ds) slices): for float32 a
+// multiple of 32, at most DS_MAX; for bf16 C1 and C2 the columns of one CTA
+// of the cluster, a multiple of 64, at most DG_MAX, at most 16 slices.
 // Returns a cudaError_t code.
 int cross_entropy_bwd(const void* h, const void* w, const void* tgt, const void* lse,
                       const void* g, void* out, int Tp, int V, int D, int dtype,
@@ -999,19 +1066,21 @@ int cross_entropy_bwd(const void* h, const void* w, const void* tgt, const void*
     return launch_bwd<float, false>(h, w, tgt, lse, g, out, Tp, V, D, ds, st);
   if (dtype == 0 && which == 1)
     return launch_bwd<float, true>(h, w, tgt, lse, g, out, Tp, V, D, ds, st);
-  if (dtype == 1 && which == 1)
-    return launch_bwd<bf16, true>(h, w, tgt, lse, g, out, Tp, V, D, ds, st);
-  if (dtype == 1 && which == 0) {
+  if (dtype == 1) {
     if (Tp % DH_T || ds % DH_GRAN || ds > DG_MAX || (D + ds - 1) / ds > DH_MAX_CLUSTER)
       return (int)cudaErrorInvalidValue;
+#define CE_MMA(NP)                                                                      \
+  return which ? launch_bwd_mma<NP, true>(h, w, tgt, lse, g, out, Tp, V, D, st)          \
+               : launch_bwd_mma<NP, false>(h, w, tgt, lse, g, out, Tp, V, D, st)
     switch (ds / DH_GRAN) {
-      case 1: return launch_dh_mma<1>(h, w, tgt, lse, g, out, Tp, V, D, st);
-      case 2: return launch_dh_mma<2>(h, w, tgt, lse, g, out, Tp, V, D, st);
-      case 3: return launch_dh_mma<3>(h, w, tgt, lse, g, out, Tp, V, D, st);
-      case 4: return launch_dh_mma<4>(h, w, tgt, lse, g, out, Tp, V, D, st);
-      case 5: return launch_dh_mma<5>(h, w, tgt, lse, g, out, Tp, V, D, st);
-      case 6: return launch_dh_mma<6>(h, w, tgt, lse, g, out, Tp, V, D, st);
+      case 1: CE_MMA(1);
+      case 2: CE_MMA(2);
+      case 3: CE_MMA(3);
+      case 4: CE_MMA(4);
+      case 5: CE_MMA(5);
+      case 6: CE_MMA(6);
     }
+#undef CE_MMA
   }
   return (int)cudaErrorInvalidValue;
 }

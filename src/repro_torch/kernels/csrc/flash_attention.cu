@@ -14,31 +14,58 @@
 //
 // Design. The TPU kernel carries (m, l, acc) across a sequential grid
 // axis over KV tiles; blocks on the card run in no order, so here a block
-// owns one (query tile of BQ rows, query head, KV split) triple and loops
-// over its share of the KV tiles itself, with the running state in
-// registers and shared memory:
+// owns one (query tile, query head, KV split) triple and loops over its
+// share of the KV tiles itself, with the running state on chip.
 //
-// * Tile skipping. Before loading a KV tile the block tests every key row
-//   of it against every query row of its tile (segment, causal, window)
-//   and skips tiles with no live pair. The serving engine's packed KV
-//   buffer is mostly other requests' context rows, and local layers see a
-//   512-row window of contexts up to 4k, so most tiles are skipped.
-// * Split KV. Decode tokens (one per request) share query tiles and each
-//   attends its whole context, so one block per query tile would walk
-//   thousands of tiles in series. The KV tiles are dealt round-robin to
-//   ``n_split`` blocks per query tile; each writes its partial
-//   (m, l, unnormalised acc) to a float32 workspace and a second kernel,
-//   launched through its own entry point, merges them (flash-decoding).
-//   ``n_split == 1`` writes the output directly.
+// bf16 (the train and serving paths): flash_fwd_mma_kernel<D>.
+// * What bounds it: operations on the train chunks (two products of 2 Dh
+//   flops per live (query, key, head): 0.84 ms at the H100's bf16 rate on
+//   a 28k-row gemma3-1b chunk against a few ms of bytes), bytes in serving
+//   (a mixed engine step reads a long packed KV buffer for a few queries
+//   each: a few hundredths of a ms).
+// * Products on the tensor cores: S = Q K^T and O += P V as bf16 mma.sync
+//   m16n8k16 with float32 sums, fragments by ldmatrix (.trans for V).
+//   A product of two bf16 values is exact in float32, so S is the TPU
+//   kernel's S up to the order of the sums. The one new rounding: P is
+//   formed in float32 (the row sums l use it so) and rounded to bf16 as P
+//   V's A operand, where the TPU kernel keeps P in float32.
+// * 64-row tiles, 4 warps; a warp owns 16 whole query rows, so the online
+//   softmax runs in registers: a row's max and sum need only the shuffles
+//   of the 4 lanes of an m16n8 quad. The S accumulator is P V's A operand
+//   in place (register to register, no shared memory). O stays float32 in
+//   registers (Dh / 2 a thread: 128 at Dh 256); Q's fragments are read
+//   from shared memory at every k-step rather than held.
+// * Exact KV ranges instead of a scan: each query tile walks only [lo, hi]
+//   of the KV tiles holding a live pair with it (flash_bwd_tiles_kernel's
+//   ranges, which the op computes once and hands to the backward), skips a
+//   tile inside the range on one O(1) test of the two tiles' summaries, and
+//   applies the per-element mask only on tiles that one test per tile
+//   cannot prove fully live.
+// * Copies: Q once; K and V of 64 rows by cp.async. V of tile t is in
+//   flight while S = Q K_t^T computes, K of the next live tile while the
+//   softmax and P V run (one buffer each: 101 KB at Dh 256, two blocks an
+//   SM).
+// * Split KV only where the grid does not fill the card (the serving
+//   engine's short query sets: a decode row shares a query tile with
+//   others and attends its whole context): split z takes a contiguous
+//   piece of the query tile's range and writes a float32 partial (m, l,
+//   unnormalised acc), which flash_combine_kernel merges (flash-decoding).
+//   A training chunk runs unsplit and writes o and lse directly. The grid
+//   is 1-D with the query head fastest, so the heads of a GQA group read
+//   each K/V tile from L2 side by side.
+// * Rows past T or S in the last tile are dead (zero-filled copies,
+//   masked pairs); a row with no live key is written as 0, lse -inf. No
+//   atomics: two launches give the same bits.
 //
-// Bound. At the serving shapes (gemma3-1b: Hq=4, Hkv=1, D=256) the work
-// per byte is high (a K/V row meets up to 512 queries x 4 heads), and the
-// roofline bound of a mixed engine step is a few hundredths of a ms. This
-// version does its products with plain float32 FMAs from shared memory
-// (register-blocked 4x2 score and 4x(D/16) output tiles per thread), which
-// keeps it well above that bound; mma/wgmma tiles are the next step.
-// Inputs are converted to float32 once, when a tile lands in shared
-// memory, with 16-byte global loads issued in batches.
+// float32 (the float32 serving verify and the train_verify phases, held to
+// 1e-5): flash_fwd_kernel<float, D> keeps float32 FMAs from shared memory
+// on 32 x 32 tiles (register-blocked 4x2 score and 4x(D/16) output tiles
+// per thread), one thread per row for the online softmax, every KV tile
+// tested pair by pair before it is loaded, and the KV tiles dealt
+// round-robin to up to MAX_SPLIT blocks per query tile (merged by
+// flash_combine_kernel, launched through its own entry point). Inputs are
+// converted to float32 once, when a tile lands in shared memory, with
+// 16-byte global loads issued in batches.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -76,14 +103,6 @@ __device__ __forceinline__ void unpack(const uint4& u, float* dst, float) {
   dst[1] = __uint_as_float(u.y);
   dst[2] = __uint_as_float(u.z);
   dst[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float* dst, __nv_bfloat16) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    dst[2 * i] = __uint_as_float(w[i] << 16);            // low half first
-    dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
 }
 
 // Copy ``rows`` rows of D elements (row r at src + r * stride elements)
@@ -682,12 +701,12 @@ constexpr size_t bwd_bf16_smem_bytes() {
 
 // Issue the copy of BB rows (row0 .. row0 + BB - 1 of ``src``, row r at
 // src + r * stride; rows at or past ``n_rows`` zero-filled) into dst [BB][D + 8].
-template <int D>
+template <int D, int NTH = NTB>
 __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           size_t stride, int row0, int n_rows, int tid) {
   constexpr int CH = D / 8;         // 16-byte chunks per row
 #pragma unroll
-  for (int c = tid; c < BB * CH; c += NTB) {
+  for (int c = tid; c < BB * CH; c += NTH) {
     const int r = c / CH, ch = c % CH;
     const bool ok = row0 + r < n_rows;
     cp_async16(dst + r * (D + LDB_PAD) + ch * 8,
@@ -1170,6 +1189,250 @@ flash_bwd_tiles_kernel(const int* __restrict__ seg_q, const int* __restrict__ po
   if (tid == 0) (own_q ? kv_range : q_range)[t] = rg;
 }
 
+
+// --- forward, bf16: tensor-core body on 64-row tiles (the source note at the
+// top of this file sets out the design) ---------------------------------------
+constexpr int NTF = 128;            // threads of a bf16 forward block: 4 warps
+constexpr float LN2 = 0.6931471805599453f;
+
+struct FwdArgs {
+  const __nv_bfloat16 *q, *k, *v;    // q [T, Hq, D]; k, v [S, Hkv, D]
+  const int *seg_q, *pos_q, *seg_kv, *pos_kv;
+  const int2* range;                 // per query tile: [lo, hi] of its KV tiles
+  const int4* q_sum;                 // per query tile: seg min/max, pos min/max
+  const int4* kv_sum;                // per KV tile: the same
+  __nv_bfloat16* out;                // [T, Hq, D] (n_split == 1)
+  float2* ws_ml;                     // [n_split, T, Hq] (m, l) (n_split > 1)
+  float* ws_acc;                     // [n_split, T, Hq, D] (n_split > 1)
+  float* lse;                        // [Hq, T] or null (n_split == 1)
+  int T, S, Hq, Hkv, causal, window, n_split;
+  float scale;
+};
+
+template <int D>
+constexpr size_t fwd_bf16_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (size_t)(3 * BB * (D + LDB_PAD));   // Q, K, V tiles
+}
+
+// Blocks per SM the registers must leave room for (the shared memory fits
+// them: 101 KB a block at Dh 256, 52 KB at 128, 28 KB at 64); four at Dh 64
+// would cap a thread at 128 registers, which spills.
+template <int D>
+constexpr int fwd_min_blocks() {
+  return D == 256 ? 2 : 3;
+}
+
+// One block per (64-row query tile, query head, KV split): 1-D grid, the
+// query head fastest, so that the heads of a GQA group (and of one query
+// tile) run side by side and read each K/V tile from L2. Warp w owns query
+// rows 16 w .. 16 w + 15 of the tile.
+template <int D>
+__global__ void __launch_bounds__(NTF, fwd_min_blocks<D>())
+    flash_fwd_mma_kernel(const FwdArgs a) {
+  using bf = __nv_bfloat16;
+  constexpr int LD = D + LDB_PAD, NJ = D / 8;   // NJ: 8-column tiles of a warp's output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf* sQ = reinterpret_cast<bf*>(smem_raw);
+  bf* sK = sQ + BB * LD;
+  bf* sV = sK + BB * LD;
+  __shared__ int s_segk[2][BB], s_posk[2][BB];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int T_ = a.T, S = a.S, n_q = (T_ + BB - 1) / BB;
+  const int h = blockIdx.x % a.Hq, qt = (blockIdx.x / a.Hq) % n_q;
+  const int z = blockIdx.x / (a.Hq * n_q);
+  const int hk = h / (a.Hq / a.Hkv), q0 = qt * BB;
+  const size_t kv_stride = (size_t)a.Hkv * D, q_stride = (size_t)a.Hq * D;
+  const bf *k = a.k + (size_t)hk * D, *v = a.v + (size_t)hk * D;
+
+  // this thread's query rows 16 warp + g8 + 8 hh (dead at or past T)
+  int sq[2], pq[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + 16 * warp + g8 + 8 * hh;
+    sq[hh] = row < T_ ? a.seg_q[row] : -2;
+    pq[hh] = row < T_ ? a.pos_q[row] : 0;
+  }
+  const int4 own = a.q_sum[qt];
+  // split z walks a contiguous piece of the query tile's range
+  int lo = a.range[qt].x, hi = a.range[qt].y;
+  if (a.n_split > 1 && hi >= lo) {
+    const long long len = hi - lo + 1;
+    const int base = lo;
+    lo = base + (int)(z * len / a.n_split);
+    hi = base + (int)((z + 1) * len / a.n_split) - 1;
+  }
+
+  // K and the seg / pos of its rows (thread tid copies seg (tid < BB) or
+  // pos of row tid % BB)
+  auto issue_k = [&](int buf, int kt) {
+    const int r0 = kt * BB, r = tid % BB;
+    copy_rows<D, NTF>(sK, k, kv_stride, r0, S, tid);
+    const bool ok = r0 + r < S;
+    const int* src = (tid < BB ? a.seg_kv : a.pos_kv) + (ok ? r0 + r : 0);
+    cp_async4(tid < BB ? &s_segk[buf][r] : &s_posk[buf][r], src, ok);
+  };
+  copy_rows<D, NTF>(sQ, a.q + (size_t)h * D, q_stride, q0, T_, tid);
+  int kt = next_live(lo, hi, own, a.kv_sum, true, a.causal, a.window), buf = 0;
+  if (kt >= 0) issue_k(0, kt);
+  cp_async_commit();
+  // every query row live and of one segment: then a KV tile whose rows all
+  // meet every query row (one test per tile, below) needs no pair test
+  const bool q_full =
+      __syncthreads_and(tid >= BB || (q0 + tid < T_ && a.seg_q[q0 + tid] >= 0)) &&
+      own.x == own.y;
+
+  float o[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};   // log2 units; l per thread
+  const float sl2 = a.scale * LOG2E;
+  const int a_off = (16 * warp + (lane & 15)) * LD + (lane >> 4) * 8;
+  const int b_off = (((lane >> 4) << 3) + (lane & 7)) * LD + ((lane >> 3) & 1) * 8;
+  const int x_off = (((lane >> 3) & 1) * 8 + (lane & 7)) * LD + (lane >> 4) * 8;
+
+  while (kt >= 0) {
+    const int nxt = next_live(kt + 1, hi, own, a.kv_sum, true, a.causal, a.window);
+    cp_async_wait<0>();             // Q, K and this tile's seg / pos have landed
+    const int n_valid = S - kt * BB;  // key rows of this tile
+    bool pred = true;               // on the row whose seg / pos this thread copied
+    if (q_full) {
+      const int r = tid % BB;
+      if (tid < BB) {
+        pred = r < n_valid && s_segk[buf][r] == own.x;
+      } else {
+        const int ps = s_posk[buf][r];
+        pred = (!a.causal || ps <= own.z) && (a.window <= 0 || own.w - ps < a.window);
+      }
+    }
+    // every pair live? The barrier also publishes every thread's copies and
+    // ends the last tile's P V (sV is free)
+    const bool full = __syncthreads_and(q_full && pred);
+    copy_rows<D, NTF>(sV, v, kv_stride, kt * BB, S, tid);   // in flight during S
+    cp_async_commit();
+
+    // S = Q K^T: the warp's 16 rows x 64 keys, Q's fragments from shared memory
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < D; kk += 16) {
+      uint32_t qa[4];
+      ldsm4(qa, sQ + a_off + kk);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldsm4(b, sK + np * 16 * LD + b_off + kk);
+        mma16816(s[2 * np], qa, b[0], b[1]);
+        mma16816(s[2 * np + 1], qa, b[2], b[3]);
+      }
+    }
+    __syncthreads();                // every warp is done with sK
+    if (nxt >= 0) issue_k(buf ^ 1, nxt);
+    cp_async_commit();
+
+    // mask and online softmax in registers: row g8 + 8 hh of the strip is
+    // held by the 4 lanes of a quad, 16 keys each
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * t4 + e;
+          const bool ok = full || (c < n_valid && attends(sq[hh], pq[hh], s_segk[buf][c],
+                                                          s_posk[buf][c], a.causal, a.window));
+          const float x = ok ? s[j][2 * hh + e] * sl2 : -INFINITY;
+          s[j][2 * hh + e] = x;
+          mx[hh] = fmaxf(mx[hh], x);
+        }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh]);
+      const float base = m_new == -INFINITY ? 0.f : m_new;   // a row with no live key yet
+      const float alpha = exp2f(m[hh] - base);
+      m[hh] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(s[j][2 * hh + e] - base);
+          s[j][2 * hh + e] = p;
+          sum += p;
+        }
+      l[hh] = l[hh] * alpha + sum;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        o[j][2 * hh] *= alpha;
+        o[j][2 * hh + 1] *= alpha;
+      }
+    }
+    cp_async_wait<1>();             // this tile's V has landed (the next K may not)
+    __syncthreads();
+    // O += P V: P rounded to bf16 as the A operand, straight from the S
+    // fragments (the m16n8 accumulator layout is the m16k16 A layout)
+#pragma unroll
+    for (int k2 = 0; k2 < 4; ++k2) {
+      uint32_t pa[4] = {pack_bf16(s[2 * k2][0], s[2 * k2][1]),
+                        pack_bf16(s[2 * k2][2], s[2 * k2][3]),
+                        pack_bf16(s[2 * k2 + 1][0], s[2 * k2 + 1][1]),
+                        pack_bf16(s[2 * k2 + 1][2], s[2 * k2 + 1][3])};
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t b[4];
+        ldsm4_t(b, sV + x_off + k2 * 16 * LD + np * 16);
+        mma16816(o[2 * np], pa, b[0], b[1]);
+        mma16816(o[2 * np + 1], pa, b[2], b[3]);
+      }
+    }
+    buf ^= 1;
+    kt = nxt;
+  }
+  cp_async_wait<0>();
+
+  // the row sums over the quad; then the output (or the split's partial)
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + 16 * warp + g8 + 8 * hh;
+    if (row >= T_) continue;
+    const float lv = l[hh];
+    if (a.n_split == 1) {
+      const float inv = lv > 0.f ? 1.f / lv : 0.f;
+      bf* dst = a.out + ((size_t)row * a.Hq + h) * D + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+            pack_bf16(o[j][2 * hh] * inv, o[j][2 * hh + 1] * inv);
+      if (a.lse != nullptr && t4 == 0)
+        a.lse[(size_t)h * T_ + row] = lv > 0.f ? (m[hh] + log2f(lv)) * LN2 : -INFINITY;
+    } else {
+      // partial state of split z in natural-log units, acc only where l > 0
+      const size_t idx = (size_t)z * T_ * a.Hq + (size_t)row * a.Hq + h;
+      if (t4 == 0) a.ws_ml[idx] = make_float2(lv > 0.f ? m[hh] * LN2 : NEG, lv);
+      if (lv > 0.f) {
+        float* dst = a.ws_acc + idx * D + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(o[j][2 * hh], o[j][2 * hh + 1]);
+      }
+    }
+  }
+}
+
 // Blocks per SM the compiler must leave registers for: two at Dh 64 in
 // bf16 (the tiles take 75 KB of shared memory), else one.
 template <typename T, int D>
@@ -1209,6 +1472,22 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* seg_q,
       (const T*)q, (const T*)k, (const T*)v, (const int*)seg_q, (const int*)pos_q,
       (const int*)seg_kv, (const int*)pos_kv, (T*)out, (float2*)ws_ml,
       (float*)ws_acc, (float*)lse, T_, S, Hq, Hkv, causal, window, scale, n_split);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_fwd_mma(const FwdArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = fwd_bf16_smem_bytes<D>();
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_mma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int n_q = (a.T + BB - 1) / BB;
+  flash_fwd_mma_kernel<D><<<n_q * a.Hq * a.n_split, NTF, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1262,7 +1541,8 @@ int flash_attention_max_split() { return MAX_SPLIT; }
   }                                                        \
   return (int)cudaErrorInvalidValue
 
-// The split pass. dtype: 0 = float32, 1 = bfloat16. With n_split == 1 it
+// The float32 split pass (bf16 runs flash_attention_fwd_mma). dtype must be
+// 0 (float32), the one this entry takes. With n_split == 1 it
 // writes ``out`` (and, if ``lse`` is not null, the rows' log-sum-exp into
 // lse [Hq, T] float32); with n_split > 1 it writes only the partial states:
 // ws_ml must hold n_split * T * Hq float2 (m, l) and ws_acc n_split * T * Hq
@@ -1281,12 +1561,49 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
       (n_split > 1 && (ws_ml == nullptr || ws_acc == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define FA_CASE(TYPE, DIM)                                                          \
-  return launch_fwd<TYPE, DIM>(q, k, v, seg_q, pos_q, seg_kv, pos_kv, out, ws_ml,    \
-                               ws_acc, lse, T, S, Hq, Hkv, causal, window, scale,    \
-                               n_split, st)
-  FA_DISPATCH(FA_CASE);
+#define FA_CASE(DIM)                                                                  \
+  return launch_fwd<float, DIM>(q, k, v, seg_q, pos_q, seg_kv, pos_kv, out, ws_ml,     \
+                                ws_acc, lse, T, S, Hq, Hkv, causal, window, scale,     \
+                                n_split, st)
+  if (dtype == 0) {
+    if (D == 64) FA_CASE(64);
+    if (D == 128) FA_CASE(128);
+    if (D == 256) FA_CASE(256);
+  }
 #undef FA_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 forward on the tensor cores (flash_fwd_mma_kernel). q, k, v
+// bfloat16 as for flash_attention_fwd; ``range``, ``q_sum`` and ``kv_sum``
+// are the metadata's tile ranges and summaries for tiles of BB = 64 rows
+// (flash_attention_bwd_tiles with R = 64; only ``range`` per query tile and
+// the summaries are read). n_split == 1 writes ``out`` (and ``lse`` if not
+// null); n_split > 1 writes the partial states for flash_attention_combine
+// (ws_ml, ws_acc as for flash_attention_fwd): split z of a query tile walks
+// [lo + z len / n_split, lo + (z + 1) len / n_split) of its range [lo, hi],
+// len = hi - lo + 1. Returns a cudaError_t code.
+int flash_attention_fwd_mma(const void* q, const void* k, const void* v, const void* seg_q,
+                            const void* pos_q, const void* seg_kv, const void* pos_kv,
+                            const void* range, const void* q_sum, const void* kv_sum,
+                            void* out, void* ws_ml, void* ws_acc, void* lse, int T, int S,
+                            int Hq, int Hkv, int D, int causal, int window, float scale,
+                            int n_split, void* stream) {
+  if (T <= 0 || S <= 0 || T % BQ || S % BK || Hkv <= 0 || Hq % Hkv || n_split < 1 ||
+      n_split > MAX_SPLIT || range == nullptr || q_sum == nullptr || kv_sum == nullptr ||
+      (n_split == 1 && out == nullptr) ||
+      (n_split > 1 && (ws_ml == nullptr || ws_acc == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  FwdArgs a{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+            (const int*)seg_q, (const int*)pos_q, (const int*)seg_kv, (const int*)pos_kv,
+            (const int2*)range, (const int4*)q_sum, (const int4*)kv_sum,
+            (__nv_bfloat16*)out, (float2*)ws_ml, (float*)ws_acc, (float*)lse,
+            T, S, Hq, Hkv, causal, window, n_split, scale};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D == 64) return launch_fwd_mma<64>(a, st);
+  if (D == 128) return launch_fwd_mma<128>(a, st);
+  if (D == 256) return launch_fwd_mma<256>(a, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The merge pass: out [T, Hq, D] (dtype as above) and, if ``lse`` is not

@@ -9,43 +9,48 @@ use into a shared library with a plain C interface under
 ``<repo>/build/kernels/`` (:mod:`.build`) and called through ``ctypes`` on
 PyTorch's current stream.
 
-What bounds it: at the serving shapes every K/V row is met by up to
-``cap_t`` queries times the GQA group, and the roofline bound of a whole
-engine step's attention is a few hundredths of a ms (``PERF.md``). This
-kernel computes with float32 FMAs from shared memory: one block per
-(32-query tile, query head, KV split), a loop over its share of the
-32-row KV tiles with an online softmax, tiles with no live (query, key)
-pair skipped before they are loaded, and the splits' partial states
-merged by a second kernel (so decode rows, which each attend a whole
-context, are spread over up to ``MAX_SPLIT`` blocks). Moving its products
-onto tensor cores is the next step.
+What bounds it: operations on the train chunks (two products of 2 Dh
+flops per live (query, key, head)), bytes in serving (a mixed engine step
+reads a long packed KV buffer for a few queries each). bf16 inputs (the
+train and serving paths) run ``flash_fwd_mma_kernel``: both products on
+the tensor cores (``mma.sync`` on 64-row tiles, P rounded to bf16 as P V's
+operand), the online softmax in registers, and only the KV tiles of each
+query tile's exact live range (``flash_bwd_tiles_kernel``'s, which the op
+computes once and hands to the backward); the keys are split over blocks
+(:func:`kv_splits`, each split a contiguous piece of the range) only
+where the grid does not fill the card, as for the serving engine's short
+query sets, and the merge pass then combines the pieces. float32 inputs (the verify phases) run ``flash_fwd_kernel``:
+float32 FMAs from shared memory on 32-row tiles, every KV tile tested pair
+by pair before it is loaded, the tiles dealt round-robin to up to
+``MAX_SPLIT`` blocks and merged.
 
 Kernel A's backward runs its products on tensor cores for bf16
 (``mma.sync`` on 64-row tiles, ``cp.async`` double buffering) and walks
-only the tiles that can hold a live pair: ``flash_bwd_tiles_kernel`` finds,
-per tile, the first and last tile of the other side holding a live pair
-and summarises every tile (the source note in ``csrc/flash_attention.cu``
-says more).
+only the tiles that can hold a live pair (the source note in
+``csrc/flash_attention.cu`` says more).
 
-One wrapper per ``__global__`` kernel, each counting its own launches:
-:data:`flash_attention_cuda` (``flash_fwd_kernel``, the split pass, once
-per attention op; for training it also writes each row's log-sum-exp),
-:data:`flash_combine_cuda` (``flash_combine_kernel``, the merge pass, once
-per op whose keys are split over several blocks), and the backward's two
-passes :data:`flash_bwd_dkdv_cuda` (``flash_bwd_dkdv_kernel``) and
-:data:`flash_bwd_dq_cuda` (``flash_bwd_dq_kernel``) with their tile ranges
-:data:`flash_bwd_tiles_cuda` (``flash_bwd_tiles_kernel``), each once per
-attention op in a backward (the ranges first, then the dq pass: it writes
-the rows' Delta that the dk/dv pass reads). They only launch: they take
-CUDA tensors, check them and raise on anything the kernel does not take.
-Padding to the tile sizes, the autograd function and the CPU dispatch live
-in :mod:`repro_torch.kernels.ops`.
+One wrapper per function, each counting its own launches:
+:data:`flash_attention_cuda` (the forward, once per attention op;
+``by_kernel`` splits its count by kernel, :data:`FWD_KERNELS`; for
+training it also writes each row's log-sum-exp), :data:`flash_combine_cuda`
+(``flash_combine_kernel``, the merge pass, once per op whose keys are split
+over several blocks), the tile ranges :data:`flash_bwd_tiles_cuda`
+(``flash_bwd_tiles_kernel``: once per differentiable op, in its forward,
+and once per bf16 op without a gradient) and the backward's two passes
+:data:`flash_bwd_dkdv_cuda` (``flash_bwd_dkdv_kernel``) and
+:data:`flash_bwd_dq_cuda` (``flash_bwd_dq_kernel``), each once per
+attention op in a backward (the dq pass first: it writes the rows' Delta
+that the dk/dv pass reads). They only launch: they take CUDA tensors,
+check them and raise on anything the kernel does not take. Padding to the
+tile sizes, the autograd function and the CPU dispatch live in
+:mod:`repro_torch.kernels.ops`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
@@ -55,6 +60,7 @@ import torch
 from .build import load_libraries
 
 __all__ = ["BLOCK_Q", "BLOCK_KV", "HEAD_DIMS", "MAX_SPLIT", "BWD_BLOCK",
+           "FWD_BLOCK", "FWD_KERNELS", "SPLIT_FILL",
            "FlashAttentionKernel", "FlashCombineKernel", "FlashBwdKernel",
            "FlashBwdTilesKernel", "BwdTiles", "tile_counts", "kv_splits",
            "flash_attention_cuda", "flash_combine_cuda",
@@ -68,6 +74,14 @@ MAX_SPLIT = 16                # KV splits per query tile (csrc: MAX_SPLIT)
 # rows per tile of the backward passes, both sides (csrc: BB for bf16; the
 # float32 passes keep BQ = BK)
 BWD_BLOCK = {torch.bfloat16: 64, torch.float32: 32}
+# the forward's kernel by dtype, and the rows per tile of the bf16 one
+# (both sides; it walks the tile ranges of ``BwdTiles`` for such tiles)
+FWD_KERNELS = {torch.float32: "flash_fwd_kernel",
+               torch.bfloat16: "flash_fwd_mma_kernel"}
+FWD_BLOCK = 64
+# blocks per SM the bf16 forward's grid should give (two fit an SM at Dh
+# 256) before it splits the keys
+SPLIT_FILL = 2
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -78,6 +92,7 @@ class KernelLibrary:
     path: Path
     build_log: str            # nvcc/ptxas output (registers, smem, spills)
     fwd: ctypes._CFuncPtr
+    fwd_mma: ctypes._CFuncPtr
     combine: ctypes._CFuncPtr
     bwd_dkdv: ctypes._CFuncPtr
     bwd_dq: ctypes._CFuncPtr
@@ -103,6 +118,7 @@ def load_library() -> KernelLibrary:
     fns = {}
     for name, argtypes in (
             ("flash_attention_fwd", [_P] * 11 + [_I] * 8 + [_F, _I, _P]),
+            ("flash_attention_fwd_mma", [_P] * 14 + [_I] * 7 + [_F, _I, _P]),
             ("flash_attention_combine", [_P] * 4 + [_I] * 5 + [_P]),
             ("flash_attention_bwd_dkdv", [_P] * 16 + [_I] * 8 + [_F, _P]),
             ("flash_attention_bwd_dq", [_P] * 15 + [_I] * 8 + [_F, _P]),
@@ -112,6 +128,7 @@ def load_library() -> KernelLibrary:
         fns[name] = fn
     return KernelLibrary(path=built.path, build_log=built.build_log,
                          fwd=fns["flash_attention_fwd"],
+                         fwd_mma=fns["flash_attention_fwd_mma"],
                          combine=fns["flash_attention_combine"],
                          bwd_dkdv=fns["flash_attention_bwd_dkdv"],
                          bwd_dq=fns["flash_attention_bwd_dq"],
@@ -119,38 +136,49 @@ def load_library() -> KernelLibrary:
 
 
 class FlashAttentionKernel:
-    """Launch wrapper of ``flash_fwd_kernel``; ``launches`` counts its
-    launches (one per attention op). When the keys are split over several
-    blocks per query tile, the op's merge pass goes through
-    :data:`flash_combine_cuda`."""
+    """Launch wrapper of the forward: ``flash_fwd_mma_kernel`` for bf16
+    (tensor cores; it walks the metadata's tile ranges, ``tiles``),
+    ``flash_fwd_kernel`` for float32. ``launches`` counts its launches (one
+    per attention op), ``by_kernel`` the same launches by ``__global__``
+    kernel (:data:`FWD_KERNELS`). When the keys are split over several
+    blocks per query tile (:func:`kv_splits`), the op's merge pass goes
+    through :data:`flash_combine_cuda`."""
 
     def __init__(self) -> None:
         self.launches = 0
+        self.by_kernel: Counter = Counter()
 
     def __call__(self, q, k, v, seg_q, seg_kv, pos_q, pos_kv, *,
                  causal: bool = True, window: int = 0,
-                 scale: Optional[float] = None, with_lse: bool = False):
+                 scale: Optional[float] = None, with_lse: bool = False,
+                 tiles: Optional["BwdTiles"] = None):
         """``out [T, Hq, D]``; with ``with_lse`` also each row's
         log-sum-exp ``lse [Hq, T]`` (float32, ``-inf`` on rows with no
-        attended key), which the backward reads."""
+        attended key), which the backward reads. bf16 takes ``tiles``, the
+        metadata's :class:`BwdTiles` for tiles of :data:`FWD_BLOCK` rows
+        (:data:`flash_bwd_tiles_cuda`); the split workspace is allocated
+        only where the keys are split."""
+        _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
         lse = torch.empty((q.shape[1], q.shape[0]), dtype=torch.float32,
                           device=q.device) if with_lse else None
-        n_split = kv_splits(k.shape[0])
+        n_split = kv_splits(q.shape[0], k.shape[0], q.shape[1],
+                            _sm_count(q.device), q.dtype)
         if n_split == 1:
             out = torch.empty_like(q)
             self._launch(q, k, v, seg_q, seg_kv, pos_q, pos_kv, out, None,
-                         None, lse, 1, causal, window, scale)
+                         None, lse, 1, causal, window, scale, tiles)
         else:
             ws_ml, ws_acc = self.partials(q, k, v, seg_q, seg_kv, pos_q,
                                           pos_kv, n_split=n_split,
                                           causal=causal, window=window,
-                                          scale=scale)
+                                          scale=scale, tiles=tiles)
             out = flash_combine_cuda(ws_ml, ws_acc, q.dtype, lse=lse)
         return (out, lse) if with_lse else out
 
     def partials(self, q, k, v, seg_q, seg_kv, pos_q, pos_kv, *,
                  n_split: int, causal: bool = True, window: int = 0,
-                 scale: Optional[float] = None):
+                 scale: Optional[float] = None,
+                 tiles: Optional["BwdTiles"] = None):
         """The split pass alone, over ``n_split >= 2`` blocks per query
         tile. Returns the float32 partial states ``ws_ml [n_split, T, Hq,
         2]`` (each split's running max and sum) and ``ws_acc [n_split, T,
@@ -164,33 +192,43 @@ class FlashAttentionKernel:
         ws_acc = torch.empty((n_split, T, Hq, D), dtype=torch.float32,
                              device=q.device)
         self._launch(q, k, v, seg_q, seg_kv, pos_q, pos_kv, None, ws_ml,
-                     ws_acc, None, n_split, causal, window, scale)
+                     ws_acc, None, n_split, causal, window, scale, tiles)
         return ws_ml, ws_acc
 
     def _launch(self, q, k, v, seg_q, seg_kv, pos_q, pos_kv, out, ws_ml,
-                ws_acc, lse, n_split, causal, window, scale) -> None:
+                ws_acc, lse, n_split, causal, window, scale, tiles) -> None:
         T, Hq, D = _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
         S, Hkv = k.shape[0], k.shape[1]
         scale = float(scale if scale is not None else D ** -0.5)
+        kernel = FWD_KERNELS[q.dtype]
         lib = load_library()
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(),
+                pos_q.data_ptr(), seg_kv.data_ptr(), pos_kv.data_ptr())
+        outs = (ptr(out), ptr(ws_ml), ptr(ws_acc), ptr(lse))
         with torch.cuda.device(q.device):
-            rc = lib.fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         seg_q.data_ptr(), pos_q.data_ptr(),
-                         seg_kv.data_ptr(), pos_kv.data_ptr(),
-                         out.data_ptr() if out is not None else None,
-                         ws_ml.data_ptr() if ws_ml is not None else None,
-                         ws_acc.data_ptr() if ws_acc is not None else None,
-                         lse.data_ptr() if lse is not None else None,
-                         T, S, Hq, Hkv, D, _DTYPE_CODE[q.dtype],
-                         int(bool(causal)), int(window), scale, n_split,
-                         stream)
+            if q.dtype == torch.bfloat16:
+                if tiles is None:
+                    raise ValueError(f"{kernel} walks the metadata's tile "
+                                     f"ranges: pass tiles (ops.bwd_tiles, "
+                                     f"block={FWD_BLOCK})")
+                tiles.check(T, S, FWD_BLOCK, q.device)
+                rc = lib.fwd_mma(*head, tiles.kv_range.data_ptr(),
+                                 tiles.q_summary.data_ptr(),
+                                 tiles.kv_summary.data_ptr(), *outs, T, S,
+                                 Hq, Hkv, D, int(bool(causal)), int(window),
+                                 scale, n_split, stream)
+            else:
+                rc = lib.fwd(*head, *outs, T, S, Hq, Hkv, D,
+                             _DTYPE_CODE[q.dtype], int(bool(causal)),
+                             int(window), scale, n_split, stream)
         if rc != 0:
             raise RuntimeError(
-                f"flash_fwd_kernel launch failed with cudaError {rc} "
-                f"(T={T}, S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, {q.dtype}, "
-                f"n_split={n_split})")
+                f"{kernel} launch failed with cudaError {rc} (T={T}, S={S}, "
+                f"Hq={Hq}, Hkv={Hkv}, D={D}, {q.dtype}, n_split={n_split})")
         self.launches += 1
+        self.by_kernel[kernel] += 1
 
 
 class FlashCombineKernel:
@@ -429,12 +467,33 @@ def tile_counts(tiles: BwdTiles, *, causal: bool = True,
     return out
 
 
-def kv_splits(S: int) -> int:
-    """KV splits per query tile: one per 16 KV tiles, at most MAX_SPLIT.
-    A query tile of decode rows has live tiles in every one of their
-    contexts (or windows), so its work is dealt over many blocks even when
-    the buffer is short, as on a sliding-window layer."""
-    return max(1, min(MAX_SPLIT, (S // BLOCK_KV) // 16))
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def kv_splits(T: int, S: int, Hq: int, n_sm: int,
+              dtype=torch.bfloat16) -> int:
+    """KV splits per query tile of the forward, for ``T`` query rows,
+    ``S`` KV rows and ``Hq`` query heads on a card of ``n_sm`` SMs.
+
+    bf16 (``flash_fwd_mma_kernel``): 1 where the grid of query tiles x
+    heads gives at least SPLIT_FILL blocks per SM (every training chunk
+    of the train phases); else enough splits for that many, at most
+    MAX_SPLIT and at most the KV tiles, which bound every query tile's
+    live range (the serving engine's short query sets, whose decode rows
+    each attend a whole context). Split ``z`` of ``n`` walks KV tiles
+    ``[lo + z len // n, lo + (z + 1) len // n)`` of its query tile's range
+    ``[lo, hi]``, ``len = hi - lo + 1`` (``csrc/flash_attention.cu``).
+
+    float32 (``flash_fwd_kernel``): one per 16 KV tiles of 32 rows, at
+    most MAX_SPLIT, the tiles dealt round-robin."""
+    if dtype != torch.bfloat16:
+        return max(1, min(MAX_SPLIT, (S // BLOCK_KV) // 16))
+    blocks = -(-T // FWD_BLOCK) * Hq
+    n_kv = -(-S // FWD_BLOCK)
+    want = -(-SPLIT_FILL * n_sm // blocks)
+    return max(1, min(MAX_SPLIT, n_kv, want))
 
 
 def _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv):

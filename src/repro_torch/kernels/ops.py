@@ -14,9 +14,11 @@ or raises.
 
 The ops are ``torch.autograd.Function``\\ s when a gradient is wanted:
 
-* :func:`flash_attention` — forward: kernel A with the rows' log-sum-exp;
-  backward: the tile ranges (:func:`bwd_tiles`: ``flash_bwd_tiles_kernel``),
-  then the two backward kernels (dq pass, then dk/dv pass);
+* :func:`flash_attention` — forward: the tile ranges (:func:`bwd_tiles`:
+  ``flash_bwd_tiles_kernel``, tiles of ``BWD_BLOCK[dtype]`` rows; the bf16
+  forward walks them, float32's ignores them), then kernel A with the
+  rows' log-sum-exp; backward: the two backward kernels (dq pass, then
+  dk/dv pass) on the forward's tile ranges;
 * :func:`fused_cross_entropy` — forward: kernel B; backward: C1 (d hidden)
   and C2 (d W), the counterpart of the JAX package's ``_fused_ce``;
 * :func:`mamba_scan` — forward: kernel D, which also checkpoints the state
@@ -35,9 +37,10 @@ import torch
 from . import ref
 from .cross_entropy import (TOKEN_MULTIPLE, ce_bwd_dh_cuda, ce_bwd_dw_cuda,
                             ce_fwd_cuda)
-from .flash_attention import (BLOCK_KV, BLOCK_Q, BWD_BLOCK, BwdTiles,
-                              flash_attention_cuda, flash_bwd_dkdv_cuda,
-                              flash_bwd_dq_cuda, flash_bwd_tiles_cuda)
+from .flash_attention import (BLOCK_KV, BLOCK_Q, BWD_BLOCK,
+                              BwdTiles, flash_attention_cuda,
+                              flash_bwd_dkdv_cuda, flash_bwd_dq_cuda,
+                              flash_bwd_tiles_cuda)
 from .mamba_scan import (SCAN_TILE, mamba_scan_bwd_cuda, mamba_scan_fwd_cuda,
                          mamba_scan_reduce_cuda)
 
@@ -82,10 +85,19 @@ def _known_device(t: torch.Tensor, op: str):
         raise ValueError(f"{op}: no kernel for device {t.device}")
 
 
+def _fwd_tiles(padded, causal, window) -> BwdTiles:
+    """The tile ranges of the padded inputs for tiles of the backward's
+    ``BWD_BLOCK[dtype]`` rows: the bf16 forward walks them (its
+    ``FWD_BLOCK`` is the same 64 rows), the float32 forward ignores them,
+    and the backward of either reuses them."""
+    return bwd_tiles(*padded[3:], causal=causal, window=window,
+                     block=BWD_BLOCK[padded[0].dtype])
+
+
 class _FlashAttention(torch.autograd.Function):
     """Attention with a kernel backward. CUDA: the forward saves the padded
-    inputs, the output and the rows' log-sum-exp for the two backward
-    passes. CPU: plain forward, plain gradient."""
+    inputs, the output, the rows' log-sum-exp and the tile ranges for the
+    two backward passes. CPU: plain forward, plain gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg_q, seg_kv, pos_q, pos_kv, causal, window,
@@ -94,8 +106,9 @@ class _FlashAttention(torch.autograd.Function):
         ctx.rows = (q.shape[0], k.shape[0])
         if q.is_cuda:
             padded = pad_for_kernel(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
+            ctx.tiles = _fwd_tiles(padded, causal, window)
             out, lse = flash_attention_cuda(*padded, with_lse=True,
-                                            **ctx.opts)
+                                            tiles=ctx.tiles, **ctx.opts)
             ctx.save_for_backward(*padded, out, lse)
             return out[:q.shape[0]]
         flash_attention.plain_calls += 1
@@ -111,16 +124,13 @@ class _FlashAttention(torch.autograd.Function):
                 ctx.saved_tensors
             do = _dense(pad_rows(dout.to(q.dtype), BLOCK_Q))
             meta = (seg_q, seg_kv, pos_q, pos_kv)
-            # the tile ranges, then the dq pass: it writes the rows' Delta
-            # for the dk/dv pass
-            tiles = bwd_tiles(*meta, causal=ctx.opts["causal"],
-                              window=ctx.opts["window"],
-                              block=BWD_BLOCK[q.dtype])
+            # the dq pass on the forward's tile ranges: it writes the rows'
+            # Delta for the dk/dv pass
             delta = torch.empty_like(lse)
             dq = flash_bwd_dq_cuda(q, k, v, out, do, lse, *meta, delta=delta,
-                                   tiles=tiles, **ctx.opts)
+                                   tiles=ctx.tiles, **ctx.opts)
             dk, dv = flash_bwd_dkdv_cuda(q, k, v, out, do, lse, *meta,
-                                         delta=delta, tiles=tiles,
+                                         delta=delta, tiles=ctx.tiles,
                                          **ctx.opts)
             dq, dk, dv = dq[:T], dk[:S], dv[:S]
         else:
@@ -146,9 +156,11 @@ def flash_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv, *,
                                      causal, window, scale)
     if q.is_cuda:
         T = q.shape[0]
-        out = flash_attention_cuda(
-            *pad_for_kernel(q, k, v, seg_q, seg_kv, pos_q, pos_kv),
-            causal=causal, window=window, scale=scale)
+        padded = pad_for_kernel(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
+        tiles = (_fwd_tiles(padded, causal, window)
+                 if q.dtype == torch.bfloat16 else None)
+        out = flash_attention_cuda(*padded, causal=causal, window=window,
+                                   scale=scale, tiles=tiles)
         return out[:T]
     _known_device(q, "flash_attention")
     flash_attention.plain_calls += 1

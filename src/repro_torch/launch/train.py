@@ -29,7 +29,10 @@ Each step prints one line: loss, valid tokens, wall time, tokens per
 second, the card's peak allocated memory and the plan's own peak-memory
 estimate. ``--profile PATH`` runs the last step under ``torch.profiler``
 and writes a JSON summary (device time by kernel group, launches, the
-device's busy share of the step).
+device's busy share of the step). ``--memory-snapshot PATH`` records the
+last step's allocation history, writes the snapshot (a pickle that
+PyTorch's memory viz reads) and prints what is live at the step's peak
+(:func:`repro_torch.runtime.profile.memory_peak_summary`).
 """
 
 from __future__ import annotations
@@ -166,6 +169,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", default="",
                     help="run the last step under torch.profiler and write "
                          "its summary (JSON) here")
+    ap.add_argument("--memory-snapshot", default="",
+                    help="record the last step's allocation history, write "
+                         "the snapshot (pickle) here and print what is "
+                         "live at its peak")
     args = ap.parse_args(argv)
 
     import torch
@@ -177,6 +184,10 @@ def main(argv=None) -> int:
         device = resolve_device(args.device)
     except DeviceUnavailableError as e:
         print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.memory_snapshot and device.type != "cuda":
+        print("error: --memory-snapshot records the CUDA allocator's "
+              "history: it needs --device cuda", file=sys.stderr)
         return 2
     cfg = get_arch(args.arch)
     if args.reduced:
@@ -191,9 +202,15 @@ def main(argv=None) -> int:
     print(f"[train] arch={cfg.name} device={name} dtype={loop.compute_dtype} "
           f"batch={loop.global_batch}x{loop.context} {loop.dataset}")
     prof = None
+    mem_base = None
 
     def on_step(step, plan, corpus):
-        nonlocal prof
+        nonlocal prof, mem_base
+        if args.memory_snapshot and step == loop.steps - 1:
+            torch.cuda.synchronize(device)
+            mem_base = torch.cuda.memory_allocated(device)
+            torch.cuda.memory._record_memory_history(
+                max_entries=2_000_000, stacks="python")
         if args.profile and step == loop.steps - 1:
             from torch.profiler import ProfilerActivity, profile
             acts = [ProfilerActivity.CPU] + (
@@ -208,6 +225,18 @@ def main(argv=None) -> int:
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)
+    if mem_base is not None:
+        import pickle
+
+        from repro_torch.runtime.profile import memory_peak_summary
+        snap = torch.cuda.memory._snapshot()
+        torch.cuda.memory._record_memory_history(enabled=None)
+        with open(args.memory_snapshot, "wb") as f:
+            pickle.dump(snap, f)
+        summary = memory_peak_summary(snap, mem_base)
+        summary["step_peak_gb"] = history[-1]["peak_mem_gb"]
+        summary["plan_peak_mem_gb"] = history[-1]["plan_peak_mem_gb"]
+        print(f"[memory] {json.dumps(summary)}")
     if prof is not None:
         from repro_torch.runtime.profile import profile_summary
         summary = profile_summary(prof, history[-1]["wall_s"], 1)

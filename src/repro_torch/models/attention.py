@@ -103,12 +103,14 @@ def attention_block(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
                     pos: torch.Tensor, seg: torch.Tensor,
                     ctx_k: Optional[torch.Tensor],
                     ctx_v: Optional[torch.Tensor], ctx_len: int,
-                    window: int, attn_fn: Callable, causal: bool = True
+                    window: int, attn_fn: Callable, causal: bool = True,
+                    rope: Optional[Tuple] = None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                Optional[torch.Tensor]]:
-    """Returns (block_out [T, D], new_ctx_k, new_ctx_v)."""
+    """Returns (block_out [T, D], new_ctx_k, new_ctx_v). ``rope``: the
+    chunk's ``layers.rope_tables``, if the caller has them."""
     T = x.shape[0]
-    q, k_cur, v_cur = project_qkv(cfg, p, x, pos)
+    q, k_cur, v_cur = project_qkv(cfg, p, x, pos, rope)
     scale = 1.0 / math.sqrt(cfg.spec.head_dim)
     out, new_k, new_v = attn_fn(
         q, k_cur, v_cur, seg=seg, pos=pos, ctx_k=ctx_k, ctx_v=ctx_v,

@@ -86,26 +86,48 @@ def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int, *, device,
             "w_down": dense_init(gen, d_ff, d_model, **kw)}
 
 
+# bytes of one float32 [rows, d_ff] temporary of _SiluGate, which sets its
+# blocks' rows: over a whole chunk its ~6 temporaries would take 5.2 GB at
+# gemma3-1b's d_ff and a 31k-row chunk, which the planner's memory model
+# does not charge; blocks of 2^28 bytes (9,709 rows at gemma's d_ff, 12,192
+# at hymba's) keep them under 1.7 GB in 2-4 blocks per chunk, each block
+# ~15 more elementwise launches
+SILU_BLOCK_BYTES = 2 ** 28
+
+
+def _silu_rows(g: torch.Tensor) -> int:
+    return max(1, SILU_BLOCK_BYTES // (4 * g[0].numel()))
+
+
 class _SiluGate(torch.autograd.Function):
     """``silu(g) * u`` (silu in float32, rounded to g's dtype, as the
     reference rounds) keeping only ``g`` and ``u``: the float32 copies
     autograd would keep are recomputed in the backward (27.6 KB instead of
-    ~55 KB per token at gemma3-1b's d_ff)."""
+    ~55 KB per token at gemma3-1b's d_ff). Both directions run over blocks
+    of rows (elementwise, so the result is the same bits) whose float32
+    temporaries take SILU_BLOCK_BYTES each."""
 
     @staticmethod
     def forward(ctx, g, u):
         ctx.save_for_backward(g, u)
-        return F.silu(g.float()).to(g.dtype) * u
+        out, n = torch.empty_like(u), _silu_rows(g)
+        for a in range(0, g.shape[0], n):
+            b = slice(a, a + n)
+            out[b] = F.silu(g[b].float()).to(g.dtype) * u[b]
+        return out
 
     @staticmethod
     def backward(ctx, dh):
         g, u = ctx.saved_tensors
-        g32 = g.float()
-        sig = torch.sigmoid(g32)
-        du = dh * (g32 * sig).to(g.dtype)
-        da = (dh * u).float()
-        dg = da * sig * (1.0 + g32 * (1.0 - sig))
-        return dg.to(g.dtype), du
+        dg, du, n = torch.empty_like(g), torch.empty_like(u), _silu_rows(g)
+        for a in range(0, g.shape[0], n):
+            b = slice(a, a + n)
+            g32 = g[b].float()
+            sig = torch.sigmoid(g32)
+            du[b] = dh[b] * (g32 * sig).to(g.dtype)
+            da = (dh[b] * u[b]).float()
+            dg[b] = da * sig * (1.0 + g32 * (1.0 - sig))
+        return dg, du
 
 
 def swiglu_apply(p: Params, x: torch.Tensor) -> torch.Tensor:

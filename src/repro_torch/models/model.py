@@ -33,7 +33,8 @@ from torch.utils.checkpoint import checkpoint
 from .attention import (attention_block, init_attention,
                         make_local_attention_policy)
 from .config import ArchConfig, LayerKind
-from .layers import embed_init, rms_norm, swiglu_apply, swiglu_init
+from .layers import (embed_init, rms_norm, rope_tables, swiglu_apply,
+                     swiglu_init)
 from .ssm import init_mamba, mamba_apply, ssm_state_shape
 
 __all__ = ["DecoderLM", "LayerCtx", "layer_params", "tree_map",
@@ -198,11 +199,12 @@ class DecoderLM:
 
     def layer_apply(self, lparams: Dict, x: torch.Tensor, *,
                     pos: torch.Tensor, seg: torch.Tensor, ctx: LayerCtx,
-                    ctx_len: int, window: int
+                    ctx_len: int, window: int, rope: Optional[Tuple] = None
                     ) -> Tuple[torch.Tensor, LayerCtx]:
         """x: [T, D] -> (x', updated context carry): the KV rows appended
         at ``ctx_len``, the SSM state advanced to the chunk's last live
-        row."""
+        row. ``rope``: the chunk's ``layers.rope_tables`` (computed here if
+        None)."""
         cfg = self.cfg
         kind = cfg.layer_kind
         h = rms_norm(x, lparams["ln1"], cfg.rms_eps)
@@ -212,7 +214,7 @@ class DecoderLM:
             mixer, nk, nv = attention_block(
                 cfg, lparams["attn"], h, pos=pos, seg=seg, ctx_k=ctx.k,
                 ctx_v=ctx.v, ctx_len=ctx_len, window=window,
-                attn_fn=self.attn_fn)
+                attn_fn=self.attn_fn, rope=rope)
         if self.has_ssm:
             m_out, nh, ntail = mamba_apply(
                 cfg, lparams["mamba"], h, pos=pos, seg=seg,
@@ -257,12 +259,17 @@ class DecoderLM:
         backward), as the reference executor remats the leading
         ``l_ckpt`` layers of a stage; remat never changes the math."""
         x = self.embed(params, tokens, compute_dtype)
+        # one pair of rotation tables for every layer, so that the layers'
+        # saved activations share it (16 MB a table on a 31k-row gemma3-1b
+        # chunk)
+        rope = (rope_tables(pos, self.cfg.spec.head_dim, self.cfg.rope_theta)
+                if self.has_attn and self.cfg.rope_kind == "rope" else None)
         new = [[], [], [], []]
         for i, w in enumerate(self.cfg.layer_windows()):
             lctx = [None if f is None else f[i]
                     for f in (ctx if ctx is not None else (None,) * 4)]
             args = (layer_params(params, i), x, pos, seg, *lctx,
-                    int(ctx_len), w)
+                    int(ctx_len), w, rope)
             if i < remat:
                 x, *out = checkpoint(self._layer, *args,
                                      use_reentrant=False)
@@ -283,10 +290,10 @@ class DecoderLM:
         return x, LayerCtx(*fields)
 
     def _layer(self, lparams, x, pos, seg, ctx_k, ctx_v, ctx_h, ctx_tail,
-               ctx_len, window):
+               ctx_len, window, rope):
         x, out = self.layer_apply(lparams, x, pos=pos, seg=seg,
                                   ctx=LayerCtx(ctx_k, ctx_v, ctx_h, ctx_tail),
-                                  ctx_len=ctx_len, window=window)
+                                  ctx_len=ctx_len, window=window, rope=rope)
         return (x, *out)
 
 

@@ -1,10 +1,12 @@
 """Summary of a finished ``torch.profiler`` run, shared by the serving
 and training launchers: device time by kernel and by kernel group, kernel
-launches and the device's busy share of the wall time."""
+launches and the device's busy share of the wall time; and what is live
+at the peak of a recorded allocation history
+(``torch.cuda.memory._record_memory_history``)."""
 
 from __future__ import annotations
 
-__all__ = ["profile_summary"]
+__all__ = ["profile_summary", "memory_peak_summary"]
 
 
 def profile_summary(prof, wall_s: float, steps: int) -> dict:
@@ -56,3 +58,57 @@ def profile_summary(prof, wall_s: float, steps: int) -> dict:
             "top_kernels_ms_per_step": [(n[:60], us / 1e3 / steps)
                                         for n, us in top],
             "top_host_ops_ms": [(n[:60], us / 1e3) for n, us in top_host]}
+
+
+def _site(frames) -> str:
+    """The innermost frame of the port (else of any Python file) of an
+    allocation's stack: ``file:line name``."""
+    frames = frames or []
+    own = [f for f in frames if "repro_torch" in f.get("filename", "")]
+    f = (own or [f for f in frames if f.get("filename", "").endswith(".py")]
+         or [None])[0]
+    if f is None:
+        return "no Python frame (autograd engine or C++)"
+    name = f["filename"].split("repro_torch/")[-1]
+    return f"{name}:{f['line']} {f['name']}"
+
+
+def memory_peak_summary(snapshot: dict, baseline_bytes: int,
+                        top: int = 30) -> dict:
+    """What is allocated at the peak of a recorded allocation history.
+
+    ``snapshot``: ``torch.cuda.memory._snapshot()`` taken after the
+    recorded window; ``baseline_bytes``: ``torch.cuda.memory_allocated()``
+    when recording started (blocks allocated before it have no event).
+    Replays the device's trace (``alloc`` adds a block, ``free_completed``
+    removes it, as the allocator's own count does) and returns the peak
+    (GB), the baseline, and the blocks live at the peak that were
+    allocated in the window, grouped by their allocation site (the
+    innermost frame of the port) and by size, largest first."""
+    trace = [e for dev in snapshot.get("device_traces", []) for e in dev]
+    live, cur, peak, at_peak = {}, baseline_bytes, baseline_bytes, {}
+    for e in trace:
+        act, addr, size = e.get("action"), e.get("addr"), e.get("size", 0)
+        if act == "alloc":
+            live[addr] = (size, _site(e.get("frames")))
+            cur += size
+            if cur > peak:
+                peak, at_peak = cur, dict(live)
+        elif act == "free_completed":
+            if addr in live:
+                cur -= live.pop(addr)[0]
+            else:                       # allocated before the window
+                cur -= size
+    groups = {}
+    for size, site in at_peak.values():
+        key = (site, size)
+        n, total = groups.get(key, (0, 0))
+        groups[key] = (n + 1, total + size)
+    rows = sorted(groups.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"peak_gb": peak / 1e9, "baseline_gb": baseline_bytes / 1e9,
+            "window_live_at_peak_gb": sum(s for s, _ in at_peak.values())
+            / 1e9,
+            "events": len(trace),
+            "live_at_peak": [{"site": site, "block_mb": size / 1e6,
+                              "count": n, "total_gb": total / 1e9}
+                             for (site, size), (n, total) in rows]}

@@ -194,6 +194,55 @@ def test_bf16_dh_rounding_matches_pallas(T, D, V):
     _close_scaled(plain.float().numpy(), want32, BF16_TOL)
 
 
+def _dw_rounded_coef(hidden, w, targets, lse, g_rows):
+    """C2 as the bf16 kernel computes it: the coefficient formed in float32,
+    rounded to bf16 as the second product's operand, products with h's
+    bf16 values summed in float32, the result in w's dtype."""
+    t, ok = tref._target_hits(targets, w.shape[0])
+    coef = (hidden.float() @ w.float().T - lse.float()[:, None]).exp()
+    coef.scatter_add_(1, t[:, None], -ok.float()[:, None])
+    coef = (coef * g_rows.float()[:, None]).to(torch.bfloat16).float()
+    return (coef.T @ hidden.float()).to(w.dtype)
+
+
+@pytest.mark.parametrize("T,D,V", [(64, 32, 300), (128, 64, 1000),
+                                   (192, 96, 517)])
+def test_bf16_dw_rounding_matches_pallas(T, D, V):
+    """The one new rounding of the tensor-core C2 (the coefficient meets
+    bf16 before the second product, as in C1) stays within the bf16
+    tolerance of the JAX package's C2 (``cross_entropy_bwd_dw_pallas``,
+    interpret mode), on vocabularies that are not a multiple of the tile
+    (C2's vocabulary tiles are its rows: the last one ragged), with targets
+    outside [0, V) (padding -1 and past V) and rows with g = 0."""
+    (jh, jw, jt), (th, tw, tt) = _inputs(T, D, V, 5 * T + V, 0.5, "bfloat16")
+    tgt = np.asarray(jt).copy()
+    tgt[::7], tgt[3] = -1, V + 3
+    tgt[1] = V - 1
+    jt, tt = jnp.asarray(tgt), torch.from_numpy(tgt)
+    valid = np.ones(T, bool)
+    lse, _ = cross_entropy_fwd_pallas(jh, jw, jt, jnp.asarray(valid),
+                                      block_t=16, block_v=64, interpret=True)
+    g = np.random.default_rng(T + 1).uniform(0.5, 1.5, T).astype(np.float32)
+    g[::5] = 0.0
+    want = cross_entropy_bwd_dw_pallas(jh, jw, jt, lse, jnp.asarray(g),
+                                       block_t=16, block_v=64,
+                                       interpret=True)
+    t_lse, t_g = torch.from_numpy(np.asarray(lse)), torch.from_numpy(g)
+    got = _dw_rounded_coef(th, tw, tt, t_lse, t_g)
+    assert got.dtype == torch.bfloat16 and got.shape == (V, D)
+    want32 = np.asarray(want.astype(jnp.float32))
+    _close_scaled(got.float().numpy(), want32, BF16_TOL)
+    # and the plain version (no rounding of the coefficient) too
+    plain = tref.cross_entropy_bwd_dw_plain(th, tw, tt, t_lse, t_g)
+    _close_scaled(plain.float().numpy(), want32, BF16_TOL)
+    # the rounding moves dW by more than float32 rounding
+    exact = tref.cross_entropy_bwd_dw_plain(th.float(), tw.float(), tt,
+                                            t_lse, t_g)
+    rounded = _dw_rounded_coef(th.float(), tw.float(), tt, t_lse, t_g)
+    assert float((rounded - exact).abs().max()) > \
+        1e-5 * float(exact.abs().max())
+
+
 def test_plain_versions_stay_the_plain_function():
     """``ref``'s B, C1 and C2 compute the exact function in float32 (no
     bf16 rounding of the coefficient): against float64 arithmetic on the
@@ -255,10 +304,11 @@ def _d_slices(D, width):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("name,D,V", _heads())
 def test_launch_geometry_covers_each_entry_once(name, D, V, dtype):
-    """B's vocab splits (for the token tile of the dtype's kernel) and
-    C1's D slices cover each vocabulary entry and each column of D
-    exactly once, for every head in the registry, at the chunk lengths of
-    the train phases and at short chunks; bf16 slices fit one cluster.
+    """B's vocab splits (for the token tile of the dtype's kernel), C1's
+    and C2's D slices and C2's vocabulary clusters cover each vocabulary
+    entry and each column of D exactly once, for every head in the
+    registry, at the chunk lengths of the train phases and at short
+    chunks; bf16 slices fit one cluster.
     The wrappers pass the kernels the split count and the slice width;
     the ranges here follow the kernels' own formulas, and
     ``tests/test_torch_gpu.py`` holds the kernels themselves to the plain
@@ -289,6 +339,16 @@ def test_launch_geometry_covers_each_entry_once(name, D, V, dtype):
         assert width % ce.DH_SLICE_MULTIPLE == 0
         assert width <= ce.DH_SLICE_MAX
         assert len(slices) <= ce.DH_MAX_SLICES
+        # C2's clusters: cluster c owns the 64 vocabulary entries [64 c,
+        # min(64 c + 64, V)) (the last ragged), one CTA per D slice above;
+        # each (entry, column) has one owner, which writes it once
+        tile = ce.TOKEN_MULTIPLE
+        n_cl = -(-V // tile)
+        rows = np.zeros(V, np.int32)
+        for c in range(n_cl):
+            rows[c * tile:min(V, (c + 1) * tile)] += 1
+        assert (rows == 1).all()
+        assert n_cl * tile - V < tile
     else:
         assert width % 32 == 0 and width <= ce.DS_MAX
         assert len(slices) == -(-D // ce.DS_MAX)

@@ -19,6 +19,13 @@ and ``data/batching.py`` (with and without context rows) every range
 starts at its first live tile and ends at its last, and every live tile
 pair passes the summaries' test.
 
+The bf16 forward on the tensor cores rounds P to bf16 as P V's operand
+(its one rounding the TPU kernel does not make): that function, computed
+plainly, is held against the Pallas kernel at ``chip_smoke.py``'s bf16
+limit. Its split pieces over each query tile's range (the kernel's
+formula, ``_fwd_pieces``) visit every live tile exactly once, on random
+and planner-made metadata.
+
 The CUDA kernel itself is held against the plain version on the card in
 ``tests/test_torch_gpu.py``.
 """
@@ -36,7 +43,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import tile_counts
+from repro_torch.kernels.flash_attention import FWD_BLOCK, tile_counts
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -488,3 +495,130 @@ def test_bwd_tile_ranges_are_tight_on_planner_chunks(with_context, causal,
         counts = tile_counts(t, causal=causal, window=window)
         assert counts["dq"]["visited"] == counts["dkdv"]["visited"] == \
             int(live.sum())
+
+
+# chip_smoke.py's bf16 limit for the attention output (its TOL["bfloat16"])
+BF16_OUT_TOL = dict(rtol=1e-2, atol=4e-3)
+
+
+def _fwd_rounded_p(q, k, v, seg_q, seg_kv, pos_q, pos_kv, window=0):
+    """Kernel A's forward as the bf16 tensor-core kernel computes it: S of
+    the bf16 inputs in float32, P = exp(S - max) in float32 (its row sums
+    too), P rounded to bf16 before P V, V's bf16 values, sums in float32,
+    the output in q's dtype; 0 on rows with no live key."""
+    T, Hq, D = q.shape
+    G = Hq // k.shape[1]
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    s = torch.einsum("thd,shd->hts", q.float(), kf) * D ** -0.5
+    live = tref.attention_mask(seg_q, seg_kv, pos_q, pos_kv, True, window)
+    s = s.masked_fill(~live[None], float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("hts,shd->thd", p.to(torch.bfloat16).float(), vf)
+    l = l.permute(1, 0, 2)
+    return torch.where(l > 0, o / l.clamp_min(1e-30), 0.0).to(q.dtype)
+
+
+@pytest.mark.parametrize("Hq,Hkv,Dh,window,ctx", [
+    (4, 1, 64, 0, 0),       # gemma3-style MQA
+    (4, 1, 64, 24, 64),     # a window, context rows
+    (10, 2, 32, 0, 32),     # hymba-style group of 5
+    (4, 4, 32, 0, 0),       # group 1
+])
+def test_bf16_p_rounding_matches_pallas(Hq, Hkv, Dh, window, ctx):
+    """The tensor-core forward's one new rounding (P meets bf16 before P
+    V) stays within the bf16 limit of the JAX package's kernel
+    (``flash_attention_pallas``, interpret mode) on packed segments with
+    context rows and padding rows; rows with no live key are 0."""
+    rng = np.random.default_rng(Hq * Dh + window + ctx)
+    T = 96
+    q = rng.standard_normal((T, Hq, Dh)).astype(np.float32)
+    k = rng.standard_normal((ctx + T, Hkv, Dh)).astype(np.float32)
+    v = rng.standard_normal((ctx + T, Hkv, Dh)).astype(np.float32)
+    seg_q, pos_q = _varlen_meta(rng, T, 3, ctx=ctx)
+    seg_q[-5:] = -1
+    seg_kv = np.concatenate([np.zeros(ctx, np.int32), seg_q])
+    pos_kv = np.concatenate([np.arange(ctx, dtype=np.int32), pos_q])
+    jargs, targs = _both((q, k, v, seg_q, seg_kv, pos_q, pos_kv),
+                         "bfloat16")
+    want = _f32(flash_attention_pallas(*jargs, window=window, block_q=32,
+                                       block_kv=32, interpret=True))
+    got = _fwd_rounded_p(*targs, window=window)
+    assert got.dtype == torch.bfloat16
+    # rows with a live key (each live row attends itself); a row with none
+    # is 0 in the port, where the JAX kernel leaves a value of its own
+    # (ROADMAP.md: the port's convention)
+    np.testing.assert_allclose(_f32(got)[:-5], want[:-5], **BF16_OUT_TOL)
+    assert torch.count_nonzero(got[-5:]) == 0
+    # the rounding is a different function from the plain version's
+    plain = tref.flash_attention_reference(
+        *(t.float() for t in targs[:3]), *targs[3:], window=window)
+    rounded = _fwd_rounded_p(*(t.float() for t in targs[:3]), *targs[3:],
+                             window=window)
+    assert float((rounded - plain).abs().max()) > 1e-5
+
+
+def _fwd_pieces(kv_range, n_split):
+    """``[n_q, n_split, 2]``: the KV tiles ``[lo, hi]`` that split ``z`` of
+    each query tile walks in ``flash_fwd_mma_kernel`` (its formula):
+    ``[lo + z len // n, lo + (z + 1) len // n - 1]`` of the tile's range
+    ``[lo, hi]``, ``len = hi - lo + 1``; the whole range unsplit, empty
+    where the range is."""
+    out = []
+    for lo, hi in np.asarray(kv_range, np.int64):
+        if n_split == 1 or hi < lo:
+            out.append([(lo, hi)] * n_split)
+            continue
+        n = hi - lo + 1
+        cut = [lo + z * n // n_split for z in range(n_split + 1)]
+        out.append([(a, b - 1) for a, b in zip(cut, cut[1:])])
+    return np.array(out, np.int64).reshape(-1, n_split, 2)
+
+
+def _assert_pieces_visit_live_tiles_once(meta, causal, window):
+    """Each split of the bf16 forward walks a contiguous piece of its
+    query tile's range; for every split count the pieces are disjoint,
+    cover the range, and every live tile pair lies in exactly one piece
+    and passes the summaries' test there."""
+    live = _live_tiles(*meta, causal, window, FWD_BLOCK)
+    t, kv_rng, _ = _tiles_np(*meta, causal, window, FWD_BLOCK)
+    meet = _summaries_meet(t, causal, window)
+    n_kv = live.shape[1]
+    for n_split in (1, 2, 3, 7, 16):
+        pieces = _fwd_pieces(t.kv_range.numpy(), n_split)
+        assert pieces.shape == (len(kv_rng), n_split, 2)
+        for qt, ((lo, hi), row) in enumerate(zip(kv_rng, pieces)):
+            hits = np.zeros(n_kv, np.int32)
+            for a, b in row:
+                if b >= a:
+                    hits[a:b + 1] += 1
+            in_range = np.zeros(n_kv, np.int32)
+            if hi >= lo:
+                in_range[lo:hi + 1] = 1
+            assert np.array_equal(hits, in_range), (qt, n_split)
+            visited = (hits == 1) & meet[qt]
+            assert (visited[live[qt]]).all(), (qt, n_split)
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("window", [0, 7, 40])
+def test_fwd_pieces_visit_each_live_tile_once(seed, window):
+    """On random metadata (rising, shuffled and random positions, context
+    rows, stale and padding rows, up to 5 segments)."""
+    rng = np.random.default_rng(seed)
+    order = ("rising", "shuffled", "random")[seed % 3]
+    meta = _random_meta(rng, int(rng.integers(1, 400)),
+                        int(rng.choice([0, 5, 70])),
+                        int(rng.integers(1, 6)), order)
+    _assert_pieces_visit_live_tiles_once(meta, True, window)
+
+
+@pytest.mark.parametrize("with_context", [False, True])
+@pytest.mark.parametrize("window", [0, 16])
+def test_fwd_pieces_visit_each_live_tile_once_on_planner_chunks(
+        with_context, window):
+    """On the port's planner-made chunks, with and without the carry."""
+    for _, meta in _planner_chunks(with_context):
+        _assert_pieces_visit_live_tiles_once(meta, True, window)

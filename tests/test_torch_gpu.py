@@ -57,11 +57,13 @@ def _packed(rng, T, n_seq, ctx):
     (8, 2, 64, 16),
 ])
 def test_kernel_matches_plain(dtype, Hq, Hkv, Dh, window, C):
-    """``C`` context rows of segment 0, then a 300-row chunk: at C=150 one
-    block walks all KV tiles of its query tile; at C=4000 they are split
-    over blocks and merged (``kv_splits``)."""
+    """``C`` context rows of segment 0, then a 300-row chunk: float32 at
+    C=150 one block walks all KV tiles of its query tile, at C=4000 they
+    are split over blocks and merged (``kv_splits``); bf16 splits both (a
+    grid of 5 query tiles x Hq heads does not fill the card)."""
     dev = _cuda()
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+    from repro_torch.kernels.flash_attention import (FWD_KERNELS,
+                                                     flash_attention_cuda,
                                                      flash_combine_cuda,
                                                      kv_splits)
     rng = np.random.default_rng(Hq * Dh + window + C)
@@ -78,13 +80,17 @@ def test_kernel_matches_plain(dtype, Hq, Hkv, Dh, window, C):
     meta = [torch.from_numpy(a).to(dev) for a in
             (seg_q, seg_kv, pos_q, pos_kv)]
     S = -(-(C + T) // 32) * 32       # rows after ops pads the keys
-    split = kv_splits(S) > 1
-    assert split == (C > 400)
-    before = flash_attention_cuda.launches, flash_combine_cuda.launches
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = kv_splits(320, S, Hq, n_sm, dtype) > 1
+    assert split == (C > 400 or dtype == torch.bfloat16)
+    kernel = FWD_KERNELS[dtype]
+    before = (flash_attention_cuda.launches, flash_combine_cuda.launches,
+              flash_attention_cuda.by_kernel[kernel])
     got = ops.flash_attention(q, k, v, *meta, window=window)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == before[0] + 1
     assert flash_combine_cuda.launches == before[1] + split
+    assert flash_attention_cuda.by_kernel[kernel] == before[2] + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = ref.flash_attention_reference(q, k, v, *meta, window=window)
     np.testing.assert_allclose(got.float().cpu().numpy(),
@@ -114,7 +120,8 @@ def test_combine_matches_plain(dtype, n_split):
     q, k, v = mk(T, Hq, Dh), mk(C + T, Hkv, Dh), mk(C + T, Hkv, Dh)
     args = ops.pad_for_kernel(q, k, v, *[torch.from_numpy(a).to(dev) for a
                                          in (seg_q, seg_kv, pos_q, pos_kv)])
-    ws_ml, ws_acc = flash_attention_cuda.partials(*args, n_split=n_split)
+    ws_ml, ws_acc = flash_attention_cuda.partials(
+        *args, n_split=n_split, tiles=ops._fwd_tiles(args, True, 0))
     got = flash_combine_cuda(ws_ml, ws_acc, dtype)
     want = ref.combine_partials(ws_ml, ws_acc, dtype)
     np.testing.assert_allclose(got.float().cpu().numpy(),
@@ -123,6 +130,87 @@ def test_combine_matches_plain(dtype, n_split):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                full.float().cpu().numpy(), **TOL[dtype])
     assert torch.count_nonzero(got[T - 5:]) == 0
+
+
+# (Hq, Hkv, Dh, window, C): the bf16 forward at Dh 64, 128 and 256, GQA
+# groups 1, 4 and 5, windows 0 and 512, with and without context rows
+FWD_CASES = [
+    (4, 1, 256, 512, 720),      # gemma3-1b local layer
+    (4, 1, 256, 0, 720),        # gemma3-1b global layer
+    (25, 5, 64, 0, 0),          # hymba-1.5b, no context
+    (24, 8, 128, 0, 150),       # llama3.2-3b
+    (4, 4, 128, 512, 0),        # group 1, a window, no context
+    (8, 2, 64, 16, 24),
+]
+
+
+def _fwd_mma(q, k, v, meta, window, n_split, with_lse=True):
+    """The bf16 forward as the op runs it, at ``n_split`` KV splits
+    (n_split 1: written directly; else the split pass and the merge)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_combine_cuda)
+    padded = ops.pad_for_kernel(q, k, v, *meta)
+    tiles = ops._fwd_tiles(padded, True, window)
+    if n_split == 1:
+        T = padded[0].shape[0]
+        out = torch.empty_like(padded[0])
+        lse = torch.empty((q.shape[1], T), dtype=torch.float32,
+                          device=q.device)
+        flash_attention_cuda._launch(*padded, out, None, None, lse, 1, True,
+                                     window, None, tiles)
+        return padded, out, lse
+    ws_ml, ws_acc = flash_attention_cuda.partials(
+        *padded, n_split=n_split, window=window, tiles=tiles)
+    lse = torch.empty((q.shape[1], ws_ml.shape[1]), dtype=torch.float32,
+                      device=q.device)
+    return padded, flash_combine_cuda(ws_ml, ws_acc, q.dtype, lse=lse), lse
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_split", [1, 3, 16])
+@pytest.mark.parametrize("Hq,Hkv,Dh,window,C", FWD_CASES)
+def test_fwd_mma_matches_plain(Hq, Hkv, Dh, window, C, n_split):
+    """``flash_fwd_mma_kernel`` (bf16, tensor cores) on a training chunk
+    (``_bwd_chunk``: T = 333 rows padded to 352, S = C + 40 + 333, neither
+    a multiple of its 64-row tiles; stale and padding rows) unsplit and
+    split into 3 and 16 pieces of each query tile's range, against the
+    plain output and lse; padding rows are exact zeros with lse -inf; two
+    more launches give the same bits."""
+    dev = _cuda()
+    dtype = torch.bfloat16
+    rng = np.random.default_rng(Hq + Dh + window + C + n_split)
+    q, k, v, _, meta = _bwd_chunk(rng, dev, dtype, Hq, Hkv, Dh, C)
+    padded, out, lse = _fwd_mma(q, k, v, meta, window, n_split)
+    T = q.shape[0]
+    want = ref.flash_attention_reference(q, k, v, *meta, window=window)
+    np.testing.assert_allclose(out[:T].float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+    assert torch.count_nonzero(out[T - 5:]) == 0
+    want_lse = ref.flash_attention_lse(*padded[:2], *padded[3:],
+                                       window=window)
+    live = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), live)
+    _close(lse[live], want_lse[live], torch.float32)
+    again = [_fwd_mma(q, k, v, meta, window, n_split)[1:] for _ in range(2)]
+    torch.cuda.synchronize()
+    for o2, l2 in again:
+        assert torch.equal(o2, out) and torch.equal(l2, lse)
+
+
+@pytest.mark.gpu
+def test_fwd_mma_needs_the_tile_ranges():
+    """The bf16 forward raises without the tile ranges, or with ranges of
+    another tile size."""
+    dev = _cuda()
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    seg = torch.zeros(64, dtype=torch.int32, device=dev)
+    q = torch.zeros((64, 4, 64), device=dev, dtype=torch.bfloat16)
+    kv = torch.zeros((64, 1, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="tiles"):
+        flash_attention_cuda(q, kv, kv, seg, seg, seg, seg)
+    tiles = ops.bwd_tiles(seg, seg, seg, seg, block=32)
+    with pytest.raises(ValueError, match="tiles"):
+        flash_attention_cuda(q, kv, kv, seg, seg, seg, seg, tiles=tiles)
 
 
 @pytest.mark.gpu
@@ -258,7 +346,8 @@ def test_attention_backward_matches_plain(dtype, Hq, Hkv, Dh, window, C):
         assert torch.count_nonzero(g[C:C + stale]) == 0
     assert torch.count_nonzero(qq.grad[-5:]) == 0
     padded = ops.pad_for_kernel(q, k, v, *meta)
-    _, lse = flash_attention_cuda(*padded, window=window, with_lse=True)
+    _, lse = flash_attention_cuda(*padded, window=window, with_lse=True,
+                                  tiles=ops._fwd_tiles(padded, True, window))
     want_lse = ref.flash_attention_lse(*padded[:2], *padded[3:],
                                        window=window)
     live = torch.isfinite(want_lse)
@@ -282,7 +371,8 @@ def test_attention_backward_is_deterministic(dtype, Hq, Hkv, Dh, window, C):
     rng = np.random.default_rng(7 + Dh + C)
     q, k, v, dout, meta = _bwd_chunk(rng, dev, dtype, Hq, Hkv, Dh, C)
     padded = ops.pad_for_kernel(q, k, v, *meta)
-    out, lse = flash_attention_cuda(*padded, window=window, with_lse=True)
+    out, lse = flash_attention_cuda(*padded, window=window, with_lse=True,
+                                    tiles=ops._fwd_tiles(padded, True, window))
     do = ops.pad_rows(dout, 32).contiguous()
     pm = padded[3:]
     tiles = ops.bwd_tiles(*pm, window=window, block=BWD_BLOCK[dtype])
@@ -350,6 +440,35 @@ def test_cross_entropy_kernels_match_plain(dtype, T, D, V):
     torch.cuda.synchronize()
     for a, b in ((lse, lse2), (tl, tl2), (dh, dh2), (dw, dw2)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["dh", "dw"])
+def test_cross_entropy_bf16_backward_takes_d_up_to_6144(which):
+    """bf16 C1 and C2 run one cluster of at most 16 CTAs of at most 384
+    columns: D = 6,144 runs (against the plain version), D = 6,656 raises
+    with a message."""
+    dev = _cuda()
+    from repro_torch.kernels.cross_entropy import CrossEntropyKernel
+    kern = CrossEntropyKernel(which)
+    rng = np.random.default_rng(6144)
+    plain = (ref.cross_entropy_bwd_dh_plain if which == "dh"
+             else ref.cross_entropy_bwd_dw_plain)
+    for D in (6144, 6656):
+        h = torch.from_numpy(rng.standard_normal((64, D)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        w = torch.from_numpy((rng.standard_normal((200, D)) * D ** -0.5)
+                             .astype(np.float32)).to(dev, torch.bfloat16)
+        tgt = torch.from_numpy(rng.integers(0, 200, 64).astype(
+            np.int32)).to(dev)
+        g = torch.full((64,), 1 / 64, device=dev)
+        lse, _ = ref.cross_entropy_fwd_plain(h, w, tgt)
+        if D > 6144:
+            with pytest.raises(ValueError, match="6144"):
+                kern(h, w, tgt, lse, g)
+            continue
+        _close(kern(h, w, tgt, lse, g), plain(h, w, tgt, lse, g),
+               torch.bfloat16)
 
 
 @pytest.mark.gpu
@@ -507,6 +626,34 @@ def test_mamba_scan_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):                   # CPU tensors
         mamba_scan_fwd_cuda(*(t.cpu() for t in (delta, xs, B, C, A, reset,
                                                 h0)))
+
+
+@pytest.mark.gpu
+def test_train_memory_snapshot_on_card(tmp_path, capsys):
+    """``launch/train.py --memory-snapshot``: the last step's allocation
+    history is written as a snapshot and its peak is summarised by site;
+    the replayed peak lies above the recording's baseline and within 5% of
+    the step's ``max_memory_allocated`` (the replay frees a block when its
+    free completes), and blocks of the window are live there. The CLI's
+    reduced falcon-mamba-7b: its reduced attention archs have a head dim of
+    16, which kernel A does not take."""
+    import json
+    import pickle
+
+    from repro_torch.launch.train import main
+    _cuda()
+    path = tmp_path / "snap.pickle"
+    assert main(["--arch", "falcon-mamba-7b", "--reduced", "--steps", "2",
+                 "--batch", "2", "--context", "256", "--memory-snapshot",
+                 str(path)]) == 0
+    with open(path, "rb") as f:
+        assert pickle.load(f)["device_traces"]
+    line = next(ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("[memory] "))
+    summary = json.loads(line[len("[memory] "):])
+    assert summary["events"] > 0 and summary["live_at_peak"]
+    assert summary["baseline_gb"] < summary["peak_gb"] \
+        <= 1.05 * summary["step_peak_gb"]
 
 
 @pytest.mark.gpu

@@ -204,3 +204,34 @@ def test_bridge_stage_layout(arch, d_p, d_s):
     assert len(flat_a) == len(flat_b)
     for a, b in zip(flat_a, flat_b):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_silu_gate_row_blocks_give_the_same_bits(monkeypatch, dtype):
+    """``silu(g) * u`` and its gradient, computed over blocks of rows to
+    bound the float32 temporaries, give the same bits as over the whole
+    tensor (elementwise; blocks of whole 64-element vectors, so that the
+    CPU's vectorised loops have no scalar tail), and the gradient is JAX's
+    (float32)."""
+    rng = np.random.default_rng(9)
+    g0 = rng.standard_normal((37, 64)).astype(np.float32)
+    u0 = rng.standard_normal((37, 64)).astype(np.float32)
+    dy = torch.from_numpy(rng.standard_normal((37, 64)).astype(
+        np.float32)).to(dtype)
+
+    def run(rows):
+        monkeypatch.setattr(tlayers, "SILU_BLOCK_BYTES", rows * 64 * 4)
+        g, u = (torch.from_numpy(a).to(dtype).requires_grad_(True)
+                for a in (g0, u0))
+        out = tlayers._SiluGate.apply(g, u)
+        out.backward(dy)
+        return out.detach(), g.grad, u.grad
+    whole, blocked = run(10 ** 6), run(5)
+    for a, b in zip(whole, blocked):
+        assert a.dtype == dtype and torch.equal(a, b)
+    if dtype == torch.float32:
+        def f(g, u):
+            return jnp.sum(jax.nn.silu(g) * u * jnp.asarray(dy.numpy()))
+        jg, ju = jax.grad(f, argnums=(0, 1))(jnp.asarray(g0), jnp.asarray(u0))
+        _close(jg, whole[1])
+        _close(ju, whole[2])

@@ -355,3 +355,49 @@ def test_hymba_two_steps_match_jax_trainer():
     for a, b in zip(tree_leaves(trainer.params), tree_leaves(want)):
         np.testing.assert_allclose(a.detach().numpy(), b.numpy(), atol=1e-6,
                                    rtol=0)
+
+
+def test_memory_peak_summary_replays_the_trace():
+    """``memory_peak_summary`` replays an allocation history: the peak
+    counts the blocks allocated before the window (the baseline), a block
+    counts from its ``alloc`` to its ``free_completed``, and the blocks
+    live at the peak are grouped by their innermost frame of the port."""
+    from repro_torch.runtime.profile import memory_peak_summary
+
+    def frame(name, line):
+        return {"filename": f"/x/src/repro_torch/{name}", "line": line,
+                "name": "f"}
+    trace = [
+        {"action": "alloc", "addr": 1, "size": 300,
+         "frames": [frame("models/layers.py", 7)]},
+        {"action": "alloc", "addr": 2, "size": 100,
+         "frames": [{"filename": "/lib/torch/x.py", "line": 1, "name": "g"},
+                    frame("models/layers.py", 9)]},
+        {"action": "alloc", "addr": 3, "size": 100,
+         "frames": [frame("models/layers.py", 9)]},
+        {"action": "free_requested", "addr": 1, "size": 300},
+        {"action": "free_completed", "addr": 1, "size": 300},
+        {"action": "free_completed", "addr": 99, "size": 50},  # pre-window
+        {"action": "alloc", "addr": 4, "size": 200, "frames": []},
+    ]
+    out = memory_peak_summary({"device_traces": [trace]}, 1000)
+    assert out["peak_gb"] == 1500 / 1e9
+    assert out["baseline_gb"] == 1000 / 1e9
+    assert out["window_live_at_peak_gb"] == 500 / 1e9
+    sites = {(r["site"], r["count"]): r["total_gb"]
+             for r in out["live_at_peak"]}
+    assert sites == {("models/layers.py:7 f", 1): 300 / 1e9,
+                     ("models/layers.py:9 f", 2): 200 / 1e9}
+
+
+def test_memory_snapshot_needs_the_card(tmp_path, capsys):
+    """``launch/train.py --memory-snapshot`` records the CUDA allocator's
+    history: on the CPU it refuses before training, writes nothing and
+    says why (tests/test_torch_gpu.py drives it on the card)."""
+    from repro_torch.launch.train import main
+    path = tmp_path / "snap.pickle"
+    rc = main(["--device", "cpu", "--reduced", "--steps", "1", "--batch",
+               "2", "--context", "64", "--memory-snapshot", str(path)])
+    assert rc == 2 and not path.exists()
+    assert "--memory-snapshot" in capsys.readouterr().err
+
