@@ -50,15 +50,22 @@ exit and no result line):
              bits); B's yardsticks: h @ W.T + logsumexp in float32 and on
              cuBLAS's bf16 path (torch.mm with out_dtype float32);
            * at hymba-1.5b's train shapes (step 0's largest chunk: 16,384
-             rows): the selective scan D (``mamba_scan_fwd_kernel``) and
-             its gradient D' (``mamba_scan_bwd_kernel`` and the fixed-order
-             sum of its partials, ``mamba_scan_reduce_kernel``) at DI 3200,
-             DS 16, with float32 delta, B, C and bf16 xs (as the bf16 mixer
-             feeds them) and all float32; on step 0's most packed chunk
-             with row 0 continuing a non-zero h0; at falcon-mamba-7b's
-             width (DI 8192, 8,192 rows, bf16 xs) (faults: the resets shifted
-             by one row, h0 dropped, the last time tile dropped, each
-             outside the tolerance in D and in D'); the attention forward
+             rows): the selective scan D (three passes:
+             ``mamba_scan_fwd_summary_kernel``, ``_carry_``, ``_emit_``) and
+             its gradient D' (``mamba_scan_bwd_summary_kernel``,
+             ``_carry_``, ``_tile_`` and the fixed-order sums of its
+             partials, ``mamba_scan_reduce_kernel``), each pass timed, at DI
+             3200, DS 16: ungated with float32 delta, B, C and bf16 xs and
+             all float32; on step 0's most packed chunk with row 0
+             continuing a non-zero h0; at falcon-mamba-7b's width (DI 8192,
+             8,192 rows, bf16 xs) (faults: the resets shifted by one row, h0
+             dropped, the last time tile dropped, each outside the float32
+             tolerance in D and in D'); gated (the mixer's fused scan with
+             its softplus, skip and gate, as the train step runs it) in
+             bf16 on the largest chunk with pad rows, and in float32 on
+             train_verify_hymba's largest chunk (faults: the skip dropped,
+             pad rows not made neutral); each case launched again must give
+             the same bits; the attention forward
              and backward at hymba's heads (25 query heads, 5 KV heads of
              64) and B, C1, C2 with its head (D 1600, V 32001, one target
              in the last, ragged vocab tile);
@@ -110,10 +117,10 @@ exit and no result line):
            loss, tokens, wall time, tokens/s, peak memory beside the plan's
            estimate, solve seconds; every loss finite, every step's peak
            at or under the estimate, every kernel launched exactly as the
-           plan predicts (attention forward, its tile ranges and selective
-           scan D 32 x chunks + remat depths, no merge pass, each
-           attention backward pass, D' and its reduction 32 x chunks, B,
-           C1, C2 once per chunk) and no plain call;
+           plan predicts (attention forward, its tile ranges and each of
+           the selective scan D's three passes 32 x chunks + remat depths,
+           no merge pass, each attention backward pass and each of D''s
+           four 32 x chunks, B, C1, C2 once per chunk) and no plain call;
   train_verify_hymba  float32 at full width: one 3,000-token sequence in 3
            chunks whose split slices (1,060 and 997 tokens) leave pad rows
            in front of the KV and SSM carries, a non-zero remat table: the
@@ -167,18 +174,22 @@ def _nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+# D's kernels, then D''s (the wrappers' KERNELS; main() checks they agree)
+SCAN_KERNELS = ("mamba_scan_fwd_summary_kernel", "mamba_scan_fwd_carry_kernel",
+                "mamba_scan_fwd_emit_kernel", "mamba_scan_bwd_summary_kernel",
+                "mamba_scan_bwd_carry_kernel", "mamba_scan_bwd_tile_kernel",
+                "mamba_scan_reduce_kernel")
 KERNEL_NAMES = ("flash_fwd_kernel", "flash_fwd_mma_kernel",
                 "flash_combine_kernel", "flash_bwd_dkdv_kernel",
                 "flash_bwd_dq_kernel", "flash_bwd_tiles_kernel",
                 "ce_fwd_mma_kernel", "ce_bwd_dh_mma_kernel",
                 "ce_bwd_dw_mma_kernel", "ce_fwd_kernel", "ce_bwd_kernel",
-                "mamba_scan_fwd_kernel", "mamba_scan_bwd_kernel",
-                "mamba_scan_reduce_kernel")
-# the tensor-core kernels: a spill in any of their instantiations fails
-# the build phase
+                *SCAN_KERNELS)
+# the tensor-core kernels and the selective scan's: a spill in any of
+# their instantiations fails the build phase
 NO_SPILL = ("flash_fwd_mma_kernel", "flash_bwd_dkdv_kernel<bf16",
             "flash_bwd_dq_kernel<bf16", "ce_fwd_mma_kernel",
-            "ce_bwd_dh_mma_kernel", "ce_bwd_dw_mma_kernel")
+            "ce_bwd_dh_mma_kernel", "ce_bwd_dw_mma_kernel", *SCAN_KERNELS)
 
 
 def _ptxas_summary(log: str):
@@ -193,6 +204,8 @@ def _ptxas_summary(log: str):
             m = re.search(r"Li(\d+)E", ln)
             var = m.group(1) if m else ("dw" if "Lb1E" in ln else
                                         "dh" if "Lb0E" in ln else "")
+            if kind in SCAN_KERNELS and "Lb1E" in ln:
+                var += ",gated"
             # a template's mangled name goes on with "I" (its arguments)
             name = (f"{kind}<{dt}{',' + var if var else ''}>"
                     if kind + "I" in ln else kind)
@@ -1112,29 +1125,116 @@ def _timed(fn):
     return out, a.elapsed_time(b)
 
 
+def _scan_stage_ms(fwd, bwd):
+    """ms of each selective-scan kernel on one call's arguments (``fwd``,
+    ``bwd``: the wrappers' prepared calls, D's outputs feeding D'), by CUDA
+    events, and of D and D' whole. The summary, emit, per-tile and
+    reduction passes run alone (each rewrites only its own outputs); a
+    carry pass turns the summaries into its output in place, so each of
+    its runs follows a summary pass and its own events bracket it alone.
+    D runs whole last, so that D' reads its carried checkpoints."""
+    import torch
+
+    def ms(call, *names):
+        return _cuda_ms(lambda: [call.launch(n) for n in names], iters=10,
+                        warmup=2)
+
+    def after(call, first, name, iters=10, warmup=2):
+        for _ in range(warmup):
+            call.launch(first)
+            call.launch(name)
+        evs = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+               for _ in range(iters)]
+        for a, b in evs:
+            call.launch(first)
+            a.record()
+            call.launch(name)
+            b.record()
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in evs) / iters
+    out = {}
+    for call, names in ((fwd, SCAN_KERNELS[:3]), (bwd, SCAN_KERNELS[3:])):
+        out[names[0]] = ms(call, names[0])
+        out[names[1]] = after(call, names[0], names[1])
+        for n in names[2:]:
+            out[n] = ms(call, n)
+    out["D'"] = ms(bwd, *SCAN_KERNELS[3:])
+    out["D"] = ms(fwd, *SCAN_KERNELS[:3])
+    return out
+
+
+def _scan_bounds(T, DI, DS, e, gated):
+    """``{kernel or function: (bound_ms, bound_by)}`` of the selective
+    scan at ``T x DI x DS``; ``e`` gives the bytes per element of delta
+    (gated: dt_pre), xs, z (0 ungated), y (gated: out), dy (gated: dout),
+    D''s ``[T, DI]`` gradients together, and B (as of C).
+
+    The functions' bounds (``D``, ``D'``), which the kernels line gives
+    each of their kernels as ``bound_ms``, count only their own inputs and
+    outputs (no checkpoints, no partials) and 8 and 16 operations per
+    cell, plus the prologue's and the epilogue's about 15 and 20 per (row,
+    channel) when gated. Each kernel's entry here is this design's bound
+    for that pass (``design_bound_ms``), not the function's: what the pass
+    itself reads and writes (the summaries, checkpoints and partials
+    between the passes too) and its own float32 operations per (row,
+    channel, state): summary 5 (d A, exp, the input, the update), emit 7
+    (and y), the reverse summary 5, the per-tile pass 21 (the states
+    recomputed once, and 16 for the gradient), a carry 4 per tile and
+    state, the reduction one add per partial."""
+    import torch
+    d, x, z, y, dy, grads, bc = (e[k] for k in ("delta", "xs", "z", "y",
+                                                 "dy", "grads", "B"))
+    nT, groups = -(-T // 64), -(-DI // 128)
+    cells, rc, st, tds = T * DI * DS, T * DI, nT * DI * DS, T * DS
+    small = 4 * DI * DS + 2 * T + (8 * DI if gated else 0)  # A, flags, ...
+    g_f, g_b = (15 * rc, 20 * rc) if gated else (0, 0)
+    carry = (4 * st, 4 * (2 * st + nT * DI + 2 * DI * DS))
+    work = {
+        "mamba_scan_fwd_summary_kernel": (
+            5 * cells, (d + x) * rc + tds * bc + small + 4 * (st + nT * DI)),
+        "mamba_scan_fwd_carry_kernel": carry,
+        "mamba_scan_fwd_emit_kernel": (
+            7 * cells + g_f, (d + x + z + y) * rc + 2 * tds * bc + small
+            + 4 * st),
+        "mamba_scan_bwd_summary_kernel": (
+            5 * cells, (d + z + dy) * rc + tds * bc + small
+            + 4 * (st + nT * DI)),
+        "mamba_scan_bwd_carry_kernel": carry,
+        "mamba_scan_bwd_tile_kernel": (
+            21 * cells + g_b, (d + x + z + dy + grads) * rc + 2 * tds * bc
+            + small + 4 * (3 * st + groups * 2 * tds
+                           + (2 * nT * DI if gated else 0))),
+        "mamba_scan_reduce_kernel": (
+            groups * 2 * tds + st, 4 * (groups * 2 * tds + st + 2 * tds
+                                        + DI * DS)),
+        "D": (8 * cells + g_f, (d + x + z + y) * rc + 2 * tds * bc + small
+              + 4 * DI * DS),
+        "D'": (16 * cells + g_b, (d + x + z + dy + grads) * rc
+               + 2 * tds * bc + 4 * 2 * tds + small + 4 * 3 * DI * DS)}
+    return {k: _bound(ops, nbytes, torch.float32)
+            for k, (ops, nbytes) in work.items()}
+
+
 def _scan_case(name, T, DI, DS, reset_rows, xs_dtype, dev, seed):
-    """Kernels D (``mamba_scan_fwd_kernel``) and D' (``mamba_scan_bwd_kernel``
-    and ``mamba_scan_reduce_kernel``) on one chunk against the plain scan
-    and its stepwise reverse pass (``ref``), on the same inputs: delta, B
-    and C float32 and xs in ``xs_dtype`` (as the mixer feeds them), a
-    sequence start at each of ``reset_rows``, a
+    """Kernel D (``mamba_scan_fwd_*_kernel``) and D'
+    (``mamba_scan_bwd_*_kernel``, ``mamba_scan_reduce_kernel``) of the
+    ungated scan on one chunk against the plain scan and its stepwise
+    reverse pass (``ref``), on the same inputs: delta, B and C float32 and
+    xs in ``xs_dtype``, a sequence start at each of ``reset_rows``, a
     non-zero h0, random output gradients on y and h_last. Both sides
     compute in float32 from the same values, so every case is held to the
     float32 tolerance. Faults fed to the kernels, each of which must fall
     outside it in D and in D': the resets shifted by one row, h0 dropped
-    (where row 0 continues the carry), the last time tile dropped."""
+    (where row 0 continues the carry), the last time tile dropped. D and
+    D' launched again give the same bits."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref
-    from repro_torch.kernels.mamba_scan import (CHANNELS_PER_BLOCK,
-                                                SCAN_TILE,
+    from repro_torch.kernels.mamba_scan import (SCAN_TILE,
                                                 mamba_scan_bwd_cuda,
-                                                mamba_scan_fwd_cuda,
-                                                mamba_scan_reduce_cuda)
-    if T % SCAN_TILE:
-        raise PhaseError(f"{name}: {T} rows, not a multiple of {SCAN_TILE}")
+                                                mamba_scan_fwd_cuda)
     gen = torch.Generator(device=dev).manual_seed(seed)
     f32 = torch.float32
 
@@ -1153,7 +1253,7 @@ def _scan_case(name, T, DI, DS, reset_rows, xs_dtype, dev, seed):
         sl = slice(0, rows)
         y, hl, ck = ops.mamba_scan_fwd(delta[sl], xs[sl], B[sl], C[sl], A,
                                        reset[sl], h0)
-        _, dd, dx, dB, dC, dA, dh0 = ops.mamba_scan_bwd(
+        dd, dx, dB, dC, dA, dh0 = ops.mamba_scan_bwd(
             delta[sl], xs[sl], B[sl], C[sl], A, reset[sl], h0, ck, dy[sl],
             dh)
 
@@ -1172,6 +1272,10 @@ def _scan_case(name, T, DI, DS, reset_rows, xs_dtype, dev, seed):
     got_f, got_g = kernels()
     f_err, f_ok = err_of(got_f, want_f)
     g_err, g_ok = err_of(got_g, want_g)
+    again_f, again_g = kernels()
+    bitwise = all(torch.equal(a, b) for a, b in zip(got_f + got_g,
+                                                    again_f + again_g))
+    del again_f, again_g
     faults = {"resets shifted by one row": dict(reset=torch.roll(reset, 1)),
               "last time tile dropped": dict(rows=T - SCAN_TILE)}
     if reset_np[0] == 0:
@@ -1184,74 +1288,176 @@ def _scan_case(name, T, DI, DS, reset_rows, xs_dtype, dev, seed):
         if in_f or in_g:
             missed.append(fault)
     del got_f, got_g, want_f, want_g
-    # the kernels alone (T is tile-aligned: the ops pad nothing)
-    ins = (delta, xs, B, C, A, reset)
-    _, _, ck = mamba_scan_fwd_cuda(*ins, h0)
-    ms = _cuda_ms(lambda: mamba_scan_fwd_cuda(*ins, h0), iters=5, warmup=1)
-    ms_bwd = _cuda_ms(lambda: mamba_scan_bwd_cuda(*ins, ck, dy, dh),
-                      iters=3, warmup=1)
-    ws = mamba_scan_bwd_cuda(*ins, ck, dy, dh)[2]
-    ms_red = _cuda_ms(lambda: mamba_scan_reduce_cuda(ws), iters=5, warmup=1)
-    # Bounds of the functions, not of this design: bytes are each of the
-    # function's inputs read once and each output written once (D: delta,
-    # xs, B, C, A, reset, h0 in, y and h_last out; D': those inputs with
-    # dy and dh_last in, the gradients of delta, xs, B, C, A and h0 out),
-    # so neither the state checkpoints nor the dB/dC partials count there;
-    # the partials are the reduction's own inputs. Operations per (row,
-    # channel, state): the forward 8 (delta A, exp, delta x, * B, a h +
-    # input, h C and its sum), the backward 16 (dh, the decay's and the
-    # input's gradients and their sums; not the states' recompute, which
-    # is this design's choice); the reduction one add per partial.
-    size = lambda t: t.numel() * t.element_size()  # noqa: E731
-    cells = T * DI * DS
-    n_cb = -(-DI // CHANNELS_PER_BLOCK)
-    part = n_cb * T * 2 * DS * 4
-    ins_bytes = sum(size(t) for t in ins) + size(h0)
-    bounds = {
-        "fwd": _bound(8.0 * cells, ins_bytes + 4 * (T * DI + DI * DS), f32),
-        "bwd": _bound(16.0 * cells, ins_bytes + size(dy) + size(dh)
-                      + 4 * (2 * T * DI + 2 * T * DS + 2 * DI * DS), f32),
-        "reduce": _bound(n_cb * T * 2.0 * DS, part + 4 * 2 * T * DS, f32)}
+    # the kernels alone, pass by pass
+    ins = (delta, xs, B, C, A, reset != 0)
+    fwd, (_, _, ck) = mamba_scan_fwd_cuda.prepare(*ins, h0)
+    fwd.run()
+    bwd, _ = mamba_scan_bwd_cuda.prepare(*ins, ck, dy, dh)
+    ms = _scan_stage_ms(fwd, bwd)
+    del fwd, bwd, ck
+    bounds = _scan_bounds(T, DI, DS, dict(
+        delta=4, xs=xs.element_size(), z=0, y=4, dy=4, grads=8, B=4),
+        gated=False)
     rec = dict(case=name, dtype=f"delta/B/C float32, xs "
                f"{_dtype_name(xs_dtype)}", T=T, DI=DI, DS=DS,
                resets=int(reset_np.sum()), row0_continues=bool(
                    reset_np[0] == 0),
                max_abs_err=f_err, bwd_max_abs_err=g_err, tol=TOL["float32"],
-               within_tol=f_ok and g_ok, faults_max_abs_err=caught,
-               faults_within_tol=missed, kernel_ms=ms, kernel_ms_bwd=ms_bwd,
-               kernel_ms_reduce=ms_red, plain_ms=plain_ms,
-               plain_ms_bwd=plain_ms_bwd,
+               within_tol=f_ok and g_ok, bitwise_repeat=bitwise,
+               faults_max_abs_err=caught, faults_within_tol=missed,
+               kernel_ms=ms["D"], kernel_ms_bwd=ms["D'"], kernel_ms_by=ms,
+               plain_ms=plain_ms, plain_ms_bwd=plain_ms_bwd,
                plain_is="ref.mamba_scan_reference (one step at a time) and "
                         "ref.mamba_scan_grad (a stepwise reverse pass, "
                         "checked against jax.grad in tests/test_torch_ssm.py)"
                         ", one run",
-               bound_covers="the function's own inputs and outputs (no "
-                            "state checkpoints, no dB/dC partials; D' "
-                            "without the states' recompute)",
+               bound_covers="D, D' (and each of their kernels): the "
+                            "function's own inputs and outputs (no "
+                            "checkpoints, no partials); design_bound_ms_by: "
+                            "what each pass of this design reads and writes",
                library_ms=None, library_is="no single call",
-               bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1],
-               bound_ms_bwd=bounds["bwd"][0], bound_by_bwd=bounds["bwd"][1],
-               bound_ms_reduce=bounds["reduce"][0],
-               bound_by_reduce=bounds["reduce"][1])
+               bound_ms=bounds["D"][0], bound_by=bounds["D"][1],
+               bound_ms_bwd=bounds["D'"][0], bound_by_bwd=bounds["D'"][1],
+               design_bound_ms_by={k: v[0] for k, v in bounds.items()},
+               design_bound_by_by={k: v[1] for k, v in bounds.items()})
     if not (f_ok and g_ok):
         raise PhaseError(f"the scan kernels disagree with the plain "
                          f"version: {rec}")
     if missed:
         raise PhaseError(f"the tolerance does not catch {missed}: {rec}")
+    if not bitwise:
+        raise PhaseError(f"the scan kernels differ on a repeat: {rec}")
+    return rec
+
+
+def _gated_scan_case(name, seg, pos, DI, DS, dtype, dev, seed):
+    """The mixer's fused scan (D and D' gated: softplus prologue, skip and
+    gate epilogue) on one chunk against its plain version
+    (``ref.mamba_scan_gated`` and ``_grad``, float32 math rounded where
+    the mixer rounds), on the same inputs in ``dtype``: the chunk's own
+    live rows (``seg >= 0``) and sequence starts, and its last 37 rows as
+    pad rows (as a split slice leaves them before the carry), ``dt_pre``
+    around the mixer's softplus bias, B, C and z as row slices of their
+    projections (as the mixer passes them), a non-zero h0, random output
+    gradients. Outputs in ``dtype`` (out, d_pre, d_xc, dz) are held to
+    its tolerance (a float32 difference can flip a bf16 rounding), the
+    float32 ones (h_last, dB, dC, dA, d_bias, d_dskip, dh0) to the float32
+    tolerance. Faults fed to the kernels, each of which must fall outside
+    those: the skip dropped (d_skip 0), pad rows not made neutral (live
+    ignored). D and D' launched again give the same bits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mamba_scan import (Gate, mamba_scan_bwd_cuda,
+                                                mamba_scan_fwd_cuda)
+    T = len(seg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f32 = torch.float32
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=f32)
+    live_np = np.asarray(seg) >= 0
+    live_np[-37:] = False
+    reset_np = (np.asarray(pos) == 0) & live_np
+    case = dict(dt_pre=(rnd(T, DI) - 2.0).to(dtype), xc=rnd(T, DI).to(dtype),
+                B=rnd(T, 4 + 2 * DS).to(dtype)[:, 4:4 + DS],
+                C=rnd(T, 4 + 2 * DS).to(dtype)[:, 4 + DS:],
+                z=rnd(T, 2 * DI).to(dtype)[:, DI:], dt_bias=rnd(DI) * 0.5,
+                A=-torch.exp(rnd(DI, DS) * 0.3), d_skip=rnd(DI),
+                live=torch.from_numpy(live_np).to(dev),
+                reset=torch.from_numpy(reset_np).to(dev), h0=rnd(DI, DS))
+    dout, dh = rnd(T, DI).to(dtype), rnd(DI, DS)
+
+    def kernels(**change):
+        c = {**case, **change}
+        out, hl, ck = ops.mamba_scan_gated_fwd(**c)
+        grads = ops.mamba_scan_gated_bwd(**c, ckpt=ck, dout=dout, dh_last=dh)
+        return [out, hl], list(grads)
+
+    def err_of(got, want):
+        errs = [_close_scaled(g, w, dtype if g.dtype == dtype else f32)
+                for g, w in zip(got, want)]
+        return max(e for e, _ in errs), all(ok for _, ok in errs)
+    want_f, plain_ms = _timed(lambda: list(ref.mamba_scan_gated(**case)))
+    want_g, plain_ms_bwd = _timed(lambda: list(ref.mamba_scan_gated_grad(
+        **case, dout=dout, dh_last=dh)))
+    got_f, got_g = kernels()
+    f_err, f_ok = err_of(got_f, want_f)
+    g_err, g_ok = err_of(got_g, want_g)
+    again_f, again_g = kernels()
+    bitwise = all(torch.equal(a, b) for a, b in zip(got_f + got_g,
+                                                    again_f + again_g))
+    del got_f, got_g, again_f, again_g
+    faults = {"skip dropped": dict(d_skip=torch.zeros_like(case["d_skip"])),
+              "pad rows not made neutral": dict(
+                  live=torch.ones_like(case["live"]))}
+    caught, missed = {}, []
+    for fault, change in faults.items():
+        ff, gg = kernels(**change)
+        (ef, in_f), (eg, in_g) = err_of(ff, want_f), err_of(gg, want_g)
+        caught[fault] = {"D": ef, "D'": eg}
+        if in_f or in_g:
+            missed.append(fault)
+    del want_f, want_g
+    gate = Gate(bias=case["dt_bias"], live=case["live"], z=case["z"],
+                d_skip=case["d_skip"])
+    ins = [case[k] for k in ("dt_pre", "xc", "B", "C", "A", "reset")]
+    fwd, (_, _, ck) = mamba_scan_fwd_cuda.prepare(*ins, case["h0"], gate=gate)
+    fwd.run()
+    bwd, _ = mamba_scan_bwd_cuda.prepare(*ins, ck, dout, dh, gate=gate)
+    ms = _scan_stage_ms(fwd, bwd)
+    del fwd, bwd, ck
+    e = case["xc"].element_size()
+    bounds = _scan_bounds(T, DI, DS, dict(
+        delta=e, xs=e, z=e, y=e, dy=e, grads=3 * e, B=e), gated=True)
+    rec = dict(case=name, dtype=f"gated, every [T, *] input "
+               f"{_dtype_name(dtype)}", T=T, DI=DI, DS=DS,
+               pad_rows=int((~live_np).sum()), resets=int(reset_np.sum()),
+               max_abs_err=f_err, bwd_max_abs_err=g_err,
+               tol={"rounded outputs": TOL[_dtype_name(dtype)],
+                    "float32 outputs": TOL["float32"]},
+               within_tol=f_ok and g_ok, bitwise_repeat=bitwise,
+               faults_max_abs_err=caught, faults_within_tol=missed,
+               kernel_ms=ms["D"], kernel_ms_bwd=ms["D'"], kernel_ms_by=ms,
+               plain_ms=plain_ms, plain_ms_bwd=plain_ms_bwd,
+               plain_is="ref.mamba_scan_gated and ref.mamba_scan_gated_grad "
+                        "(the plain scan and its stepwise reverse pass with "
+                        "the prologue and epilogue in float32), one run",
+               bound_covers="D, D' (and each of their kernels): dt_pre, "
+                            "xc, z, B, C (and dout) read once in their "
+                            "dtype, out (and the gradients) written once; "
+                            "design_bound_ms_by: what each pass of this "
+                            "design reads and writes",
+               library_ms=None, library_is="no single call",
+               bound_ms=bounds["D"][0], bound_by=bounds["D"][1],
+               bound_ms_bwd=bounds["D'"][0], bound_by_bwd=bounds["D'"][1],
+               design_bound_ms_by={k: v[0] for k, v in bounds.items()},
+               design_bound_by_by={k: v[1] for k, v in bounds.items()})
+    if not (f_ok and g_ok):
+        raise PhaseError(f"the gated scan kernels disagree with the plain "
+                         f"version: {rec}")
+    if missed:
+        raise PhaseError(f"the tolerance does not catch {missed}: {rec}")
+    if not bitwise:
+        raise PhaseError(f"the gated scan kernels differ on a repeat: {rec}")
     return rec
 
 
 def phase_kernel_ssm(dev, seed):
     """hymba-1.5b's kernels at its train phase's shapes (step 0's largest
-    chunk: 16,384 rows, its own sequence starts): D and D' (DI 3200, DS 16)
-    with float32 delta, B, C and bf16 xs (as the bf16 mixer feeds them)
-    and all in float32; D and D' on step 0's most packed chunk with row 0
-    continuing a carry (so h0 counts); D and D' at falcon-mamba-7b's width
-    (DI 8192, DS 16, 8,192 rows, bf16 xs as its bf16 mixer would feed
-    them); the attention forward and backward
-    at hymba's heads (25 query heads, 5 KV heads of 64) and B, C1, C2 with
-    its head (D 1600, V 32001: one target in the last, ragged vocab tile)
-    on the largest chunk, bf16."""
+    chunk: 16,384 rows, its own sequence starts): the ungated D and D' (DI
+    3200, DS 16) with float32 delta, B, C and bf16 xs and all in float32;
+    D and D' on step 0's most packed chunk with row 0 continuing a carry
+    (so h0 counts); D and D' at falcon-mamba-7b's width (DI 8192, DS 16,
+    8,192 rows, bf16 xs as its bf16 mixer would feed them); the gated D
+    and D' (the mixer's fused scan, as the train step runs it) on the
+    largest chunk in bf16 and on train_verify_hymba's largest chunk in
+    float32; the attention forward and backward at hymba's heads (25 query
+    heads, 5 KV heads of 64) and B, C1, C2 with its head (D 1600, V 32001:
+    one target in the last, ragged vocab tile) on the largest chunk,
+    bf16."""
     import numpy as np
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1280,6 +1486,15 @@ def phase_kernel_ssm(dev, seed):
         scan.append(_scan_case(*args, dev, 31 + len(scan)))
         print(f"[kernel] selective scan {json.dumps(scan[-1])}", flush=True)
         torch.cuda.empty_cache()
+    _, v_corpus, v_plan = _verify_plan("hymba-1.5b", seed)
+    v_chunk, _, v_seg, v_pos = _plan_chunks(v_corpus, v_plan)[0]
+    gated = []
+    for args in ((f"{name}, its sequences, gated", seg, pos, 3200, 16, bf16),
+                 (f"train_verify_hymba chunk ({v_chunk.tokens} tokens), "
+                  f"gated", v_seg, v_pos, 3200, 16, f32)):
+        gated.append(_gated_scan_case(*args, dev, 37 + len(gated)))
+        print(f"[kernel] selective scan {json.dumps(gated[-1])}", flush=True)
+        torch.cuda.empty_cache()
     a0 = int((seg >= 0).argmax())
 
     def from_plan(gen, dtype):
@@ -1294,7 +1509,7 @@ def phase_kernel_ssm(dev, seed):
     for rec in ce.values():
         print(f"[kernel] cross-entropy {json.dumps(rec)}", flush=True)
     torch.cuda.empty_cache()
-    return scan, attn, ce
+    return scan, gated, attn, ce
 
 
 # ---------------------------------------------------------------------------
@@ -1395,9 +1610,10 @@ def phase_verify(dev, cfg, params32, trace):
 # ---------------------------------------------------------------------------
 
 class _KernelCount:
-    """The launches of one ``__global__`` kernel behind a cross-entropy
-    wrapper, which launches one kernel per dtype (its ``by_kernel``), read
-    and zeroed as a wrapper's ``launches``."""
+    """The launches of one ``__global__`` kernel behind a wrapper that
+    launches several (a cross-entropy wrapper, one kernel per dtype; a
+    selective-scan wrapper, one kernel per pass), from its ``by_kernel``,
+    read and zeroed as a wrapper's ``launches``."""
 
     def __init__(self, wrapper, kernel):
         self.wrapper, self.kernel = wrapper, kernel
@@ -1423,21 +1639,20 @@ def _train_counters():
                                                      flash_bwd_tiles_cuda,
                                                      flash_combine_cuda)
     from repro_torch.kernels.mamba_scan import (mamba_scan_bwd_cuda,
-                                                mamba_scan_fwd_cuda,
-                                                mamba_scan_reduce_cuda)
+                                                mamba_scan_fwd_cuda)
     ce = {name: _KernelCount(w, name)
           for w in (ce_fwd_cuda, ce_bwd_dh_cuda, ce_bwd_dw_cuda)
           for name in KERNELS[w.which].values()}
+    scan = {name: _KernelCount(w, name)
+            for w in (mamba_scan_fwd_cuda, mamba_scan_bwd_cuda)
+            for name in w.KERNELS}
     fwd = {name: _KernelCount(flash_attention_cuda, name)
            for name in FWD_KERNELS.values()}
     return {**fwd, "flash_combine_kernel": flash_combine_cuda,
             "flash_bwd_dkdv_kernel": flash_bwd_dkdv_cuda,
             "flash_bwd_dq_kernel": flash_bwd_dq_cuda,
             "flash_bwd_tiles_kernel": flash_bwd_tiles_cuda,
-            **ce,
-            "mamba_scan_fwd_kernel": mamba_scan_fwd_cuda,
-            "mamba_scan_bwd_kernel": mamba_scan_bwd_cuda,
-            "mamba_scan_reduce_kernel": mamba_scan_reduce_cuda,
+            **ce, **scan,
             "plain_attention": ops.flash_attention,
             "plain_cross_entropy": ops.fused_cross_entropy,
             "plain_mamba_scan": ops.mamba_scan}
@@ -1450,13 +1665,16 @@ def _expected_launches(cfg, plan, depths, dtype=None):
     backward) with its tile-range launch (the forward computes the ranges
     and hands them to the backward), one of each attention backward pass;
     for bf16 no merge pass (a training chunk's forward runs unsplit); the
-    same for the selective scan (forward; backward and its reduction) on
-    mamba layers; B, C1, C2 once per chunk, through the kernels of the
-    step's ``dtype`` (default bf16); no plain call."""
+    same for the selective scan on mamba layers (each of D's three passes
+    as the forward, each of D''s four as the backward); B, C1, C2 once
+    per chunk, through the kernels of the step's ``dtype`` (default bf16);
+    no plain call."""
     import torch
 
     from repro_torch.kernels.cross_entropy import KERNELS
     from repro_torch.kernels.flash_attention import FWD_KERNELS
+    from repro_torch.kernels.mamba_scan import (mamba_scan_bwd_cuda,
+                                                mamba_scan_fwd_cuda)
     from repro_torch.models.config import LayerKind
     dtype = dtype or torch.bfloat16
     L, n_chunks, depth = cfg.spec.n_layers, len(depths), sum(depths)
@@ -1472,9 +1690,8 @@ def _expected_launches(cfg, plan, depths, dtype=None):
            "flash_bwd_dkdv_kernel": bwd if attn else 0,
            "flash_bwd_dq_kernel": bwd if attn else 0,
            "flash_bwd_tiles_kernel": fwd if attn else 0,
-           "mamba_scan_fwd_kernel": fwd if ssm else 0,
-           "mamba_scan_bwd_kernel": bwd if ssm else 0,
-           "mamba_scan_reduce_kernel": bwd if ssm else 0,
+           **{n: fwd if ssm else 0 for n in mamba_scan_fwd_cuda.KERNELS},
+           **{n: bwd if ssm else 0 for n in mamba_scan_bwd_cuda.KERNELS},
            **ce, "plain_attention": 0,
            "plain_cross_entropy": 0, "plain_mamba_scan": 0}
     if dtype == torch.bfloat16:
@@ -1792,10 +2009,17 @@ def main() -> int:
         from repro_torch.configs import get_arch
         from repro_torch.data import sample_request_trace
         from repro_torch.kernels.build import load_libraries
+        from repro_torch.kernels.mamba_scan import (mamba_scan_bwd_cuda,
+                                                    mamba_scan_fwd_cuda)
         from repro_torch.models import DecoderLM
     except ImportError as e:
         print(f"error: the port is not importable from {ROOT / 'src'}: {e}",
               file=sys.stderr)
+        return 3
+    scan = mamba_scan_fwd_cuda.KERNELS + mamba_scan_bwd_cuda.KERNELS
+    if SCAN_KERNELS != scan:
+        print(f"error: SCAN_KERNELS {SCAN_KERNELS} are not the scan wrappers' "
+              "KERNELS", file=sys.stderr)
         return 3
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1835,7 +2059,7 @@ def main() -> int:
         print(f"[kernel] merge pass {json.dumps(rec)}", flush=True)
     (bwd, ce), dt2 = run("kernel", lambda: phase_kernel_training(
         dev, args.seed))
-    (scan, h_attn, h_ce), dt3 = run("kernel", lambda: phase_kernel_ssm(
+    (scan, gated, h_attn, h_ce), dt3 = run("kernel", lambda: phase_kernel_ssm(
         dev, args.seed))
     print(f"[kernel] ok in {dt + dt2 + dt3:.1f}s", flush=True)
 
@@ -1903,7 +2127,11 @@ def main() -> int:
     vb, vb_h = bwd[-2], bwd[-1]     # the verify phases' chunks, float32
     gce = ce[0]             # the gemma3-1b head on that chunk, bf16
     vce, vce_h = ce[-2], ce[-1]     # the verify phases' chunks, float32
-    sc = scan[0]            # hymba's largest train chunk, bf16 xs
+    # the selective scan: the gated bf16 case on hymba's largest train
+    # chunk (the train step's), then the float32 gated case (the verify
+    # phase's) and the ungated cases with bf16 xs at hymba's and
+    # falcon-mamba-7b's widths
+    scan_also = [gated[1], scan[0], scan[3]]
     # the attention backward's library yardstick on the kernel's own case
     # (step 0's largest train chunk), else on the first case it takes
     lib = next((r for r in [gb] + bwd if r["library_ms"] is not None), gb)
@@ -1940,6 +2168,37 @@ def main() -> int:
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"]} | kw
+    def scan_entry(name, rec):
+        bwd_pass = name in mamba_scan_bwd_cuda.KERNELS
+        fn = "D'" if bwd_pass else "D"
+
+        def numbers(r):
+            sfx = "_bwd" if bwd_pass else ""
+            return {"case": r["case"], "dtype": r["dtype"], "T": r["T"],
+                    "ms": r["kernel_ms_by"][name],
+                    "bound_ms": r["bound_ms" + sfx],
+                    "bound_by": r["bound_by" + sfx],
+                    "design_bound_ms": r["design_bound_ms_by"][name],
+                    "design_bound_by": r["design_bound_by_by"][name],
+                    "max_abs_err": r["bwd_max_abs_err" if bwd_pass
+                                     else "max_abs_err"],
+                    "function_ms": r["kernel_ms_by"][fn],
+                    "function_plain_ms": r["plain_ms" + sfx]}
+        return entry(name, ms_src, tpu_ms + (" (its gradient)" if bwd_pass
+                                             else ""), rec, **numbers(rec),
+                     plain_ms=rec["plain_ms_bwd" if bwd_pass
+                                  else "plain_ms"],
+                     plain_covers=f"the whole of {fn} ({rec['plain_is']})",
+                     ms_covers="this kernel alone; function_ms: all of "
+                               f"{fn}'s kernels",
+                     bound_covers=f"bound_ms: the whole of {fn}, its own "
+                                  "inputs and outputs; design_bound_ms: "
+                                  "what this pass reads and writes, this "
+                                  "design's summaries, checkpoints and "
+                                  "partials included",
+                     library_is=rec["library_is"],
+                     also=[numbers(r) for r in scan_also])
+
     kernels = {"kernels": [
         entry("flash_fwd_mma_kernel", fa, tpu_fa, gb, **_fwd(gb),
               ms_covers="the forward kernel as the train step runs it, with "
@@ -1989,19 +2248,8 @@ def main() -> int:
               also=_also(h_ce["C2"])),
         entry("ce_bwd_kernel<dw>", cs, tpu_ce + ":222", vce["C2"],
               also=_also(vce_h["C2"])),
-        entry("mamba_scan_fwd_kernel", ms_src, tpu_ms, sc,
-              library_is=sc["library_is"]),
-        entry("mamba_scan_bwd_kernel", ms_src, tpu_ms + " (its gradient)",
-              sc, max_abs_err=sc["bwd_max_abs_err"], ms=sc["kernel_ms_bwd"],
-              plain_ms=sc["plain_ms_bwd"], bound_ms=sc["bound_ms_bwd"],
-              bound_by=sc["bound_by_bwd"], library_is=sc["library_is"],
-              plain_covers="the whole gradient (D' and its reduction)"),
-        entry("mamba_scan_reduce_kernel", ms_src,
-              tpu_ms + " (its gradient)", sc,
-              max_abs_err=sc["bwd_max_abs_err"], ms=sc["kernel_ms_reduce"],
-              plain_ms=sc["plain_ms_bwd"], bound_ms=sc["bound_ms_reduce"],
-              bound_by=sc["bound_by_reduce"], library_is=sc["library_is"],
-              plain_covers="the whole gradient (D' and its reduction)")]}
+        *[scan_entry(name, rec) for name in SCAN_KERNELS
+          for rec in gated[:1]]]}
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

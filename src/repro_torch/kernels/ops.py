@@ -5,10 +5,10 @@ CUDA tensors go to the Hopper kernels (:mod:`.flash_attention`,
 :mod:`.cross_entropy`, :mod:`.mamba_scan`) after the padding rules of the
 JAX package's ``kernels/ops.py``: attention rows are padded to the
 kernel's tile sizes (pad rows get ``seg = -2``, which matches nothing and
-is never a live query), cross-entropy tokens to
-:data:`~.cross_entropy.TOKEN_MULTIPLE` (target -1, not valid) and scan
-rows to :data:`~.mamba_scan.SCAN_TILE` with state-neutral steps (delta 0,
-reset 0); outputs are sliced back. CPU tensors go to the plain versions
+is never a live query) and cross-entropy tokens to
+:data:`~.cross_entropy.TOKEN_MULTIPLE` (target -1, not valid); outputs are
+sliced back. The scan kernels mask their ragged last time tile
+themselves: their inputs go unpadded. CPU tensors go to the plain versions
 (:mod:`.ref`). There is no fallback: a CUDA tensor launches the kernels
 or raises.
 
@@ -22,10 +22,12 @@ The ops are ``torch.autograd.Function``\\ s when a gradient is wanted:
 * :func:`fused_cross_entropy` — forward: kernel B; backward: C1 (d hidden)
   and C2 (d W), the counterpart of the JAX package's ``_fused_ce``;
 * :func:`mamba_scan` — forward: kernel D, which also checkpoints the state
-  every :data:`~.mamba_scan.SCAN_TILE` rows; backward: kernel D' and the
-  fixed-order sum of its dB/dC partials. :func:`mamba_scan_fwd` and
-  :func:`mamba_scan_bwd` are the two halves, for a caller with its own
-  autograd function (the mamba mixer).
+  every :data:`~.mamba_scan.SCAN_TILE` rows; backward: kernel D' (with the
+  fixed-order sums of its partials). :func:`mamba_scan_fwd` and
+  :func:`mamba_scan_bwd` are its two halves; :func:`mamba_scan_gated_fwd`
+  and :func:`mamba_scan_gated_bwd` the halves of the mamba mixer's scan
+  with its softplus prologue and skip-and-gate epilogue folded into D and
+  D', for the mixer's own autograd function.
 """
 
 from __future__ import annotations
@@ -41,11 +43,11 @@ from .flash_attention import (BLOCK_KV, BLOCK_Q, BWD_BLOCK,
                               BwdTiles, flash_attention_cuda,
                               flash_bwd_dkdv_cuda, flash_bwd_dq_cuda,
                               flash_bwd_tiles_cuda)
-from .mamba_scan import (SCAN_TILE, mamba_scan_bwd_cuda, mamba_scan_fwd_cuda,
-                         mamba_scan_reduce_cuda)
+from .mamba_scan import Gate, mamba_scan_bwd_cuda, mamba_scan_fwd_cuda
 
 __all__ = ["flash_attention", "bwd_tiles", "fused_cross_entropy",
-           "mamba_scan", "mamba_scan_fwd", "mamba_scan_bwd", "pad_rows",
+           "mamba_scan", "mamba_scan_fwd", "mamba_scan_bwd",
+           "mamba_scan_gated_fwd", "mamba_scan_gated_bwd", "pad_rows",
            "pad_for_kernel"]
 
 PAD_SEG = -2
@@ -245,18 +247,21 @@ def fused_cross_entropy(hidden: torch.Tensor, w_vocab: torch.Tensor,
 fused_cross_entropy.plain_calls = 0
 
 
-def _scan_inputs(delta, xs, B, C, A, reset):
-    """The scan kernels' inputs: rows padded to SCAN_TILE with
-    state-neutral steps (delta 0 makes a = 1 and the input 0; reset 0 lets
-    the state through to h_last), delta, B, C and A float32, xs as given,
-    reset int32, all contiguous."""
-    i32, f32 = torch.int32, torch.float32
-    return (pad_rows(delta.to(f32), SCAN_TILE).contiguous(),
-            pad_rows(xs, SCAN_TILE).contiguous(),
-            pad_rows(B.to(f32), SCAN_TILE).contiguous(),
-            pad_rows(C.to(f32), SCAN_TILE).contiguous(),
-            A.float().contiguous(),
-            pad_rows((reset.reshape(-1) != 0).to(i32), SCAN_TILE).contiguous())
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if its columns are contiguous (a row slice is fine), else a
+    contiguous copy."""
+    return t if t.dim() == 2 and (t.shape[1] <= 1 or t.stride(1) == 1) \
+        else t.contiguous()
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.float().contiguous()
+
+
+def _flags(x: torch.Tensor) -> torch.Tensor:
+    """A ``[T]`` mask as the kernels take it: contiguous bool."""
+    x = x.reshape(-1)
+    return (x if x.dtype == torch.bool else x != 0).contiguous()
 
 
 def mamba_scan_fwd(delta, xs, B, C, A, reset, h0):
@@ -264,39 +269,75 @@ def mamba_scan_fwd(delta, xs, B, C, A, reset, h0):
     [DI, DS], ckpt)``, y and h_last float32; ``ckpt`` is what
     :func:`mamba_scan_bwd` needs besides the inputs (the state entering
     every time tile on the card, None on the CPU)."""
-    T = delta.shape[0]
     if delta.is_cuda:
-        y, h_last, ckpt = mamba_scan_fwd_cuda(
-            *_scan_inputs(delta, xs, B, C, A, reset), h0.float().contiguous())
-        return y[:T], h_last, ckpt
+        return mamba_scan_fwd_cuda(_rows(delta.float()), _rows(xs),
+                                   _rows(B.float()), _rows(C.float()),
+                                   _f32(A), _flags(reset), _f32(h0))
     _known_device(delta, "mamba_scan")
     mamba_scan.plain_calls += 1
     y, h_last = ref.mamba_scan_reference(delta, xs, B, C, A, reset, h0)
     return y, h_last, None
 
 
-def mamba_scan_bwd(delta, xs, B, C, A, reset, h0, ckpt, dy, dh_last=None,
-                   want_y: bool = False):
-    """Kernel D' and the sum of its partials (or the plain gradient on the
-    CPU) for the forward's inputs and ``ckpt``, the output gradient ``dy
-    [T, DI]`` and ``dh_last [DI, DS]`` (None: zero). Returns ``(y, d_delta,
-    d_xs, dB, dC, dA, dh0)``, float32; ``y`` is the forward's output
-    recomputed, or None unless ``want_y``."""
-    T = delta.shape[0]
+def mamba_scan_bwd(delta, xs, B, C, A, reset, h0, ckpt, dy, dh_last=None):
+    """Kernel D' (or the plain gradient on the CPU) for the forward's
+    inputs and ``ckpt``, the output gradient ``dy [T, DI]`` and ``dh_last
+    [DI, DS]`` (None: zero). Returns ``(d_delta, d_xs, dB, dC, dA, dh0)``,
+    float32."""
     if delta.is_cuda:
-        ins = _scan_inputs(delta, xs, B, C, A, reset)
-        dyp = pad_rows(dy.float(), SCAN_TILE).contiguous()
-        dhl = None if dh_last is None else dh_last.float().contiguous()
-        dd, dx, ws, dA, dh0, y = mamba_scan_bwd_cuda(*ins, ckpt, dyp, dhl,
-                                                     want_y)
-        dB, dC = mamba_scan_reduce_cuda(ws)
-        return (None if y is None else y[:T], dd[:T], dx[:T], dB[:T],
-                dC[:T], dA, dh0)
+        return mamba_scan_bwd_cuda(
+            _rows(delta.float()), _rows(xs), _rows(B.float()),
+            _rows(C.float()), _f32(A), _flags(reset), ckpt,
+            _rows(dy.float()), None if dh_last is None else _f32(dh_last))
     _known_device(delta, "mamba_scan")
     mamba_scan.plain_calls += 1
-    y, *grads = ref.mamba_scan_grad(delta, xs, B, C, A, reset, h0, dy,
-                                    dh_last)
-    return (y if want_y else None, *grads)
+    return ref.mamba_scan_grad(delta, xs, B, C, A, reset, h0, dy,
+                               dh_last)[1:]
+
+
+def _gate(z, dt_bias, d_skip, live) -> Gate:
+    return Gate(bias=_f32(dt_bias), live=_flags(live), z=_rows(z),
+                d_skip=_f32(d_skip))
+
+
+def mamba_scan_gated_fwd(dt_pre, xc, B, C, z, dt_bias, A, d_skip, live,
+                         reset, h0):
+    """The mamba mixer's scan with its prologue and epilogue (kernel D
+    gated, or its plain version on the CPU): ``delta = softplus(dt_pre +
+    dt_bias)`` in float32, 0 where ``live`` is False (a state-neutral pad
+    row), the scan, and ``out = (y + d_skip xc) silu(z)`` rounded to xc's
+    dtype. ``dt_pre``, ``xc``, ``z`` ``[T, DI]`` and ``B``, ``C`` ``[T,
+    DS]`` all in one dtype (row slices are fine), ``A``, ``h0`` ``[DI, DS]``,
+    ``live``, ``reset`` ``[T]``. Returns ``(out, h_last, ckpt)``: h_last
+    float32, ckpt for :func:`mamba_scan_gated_bwd` (None on the CPU)."""
+    if dt_pre.is_cuda:
+        return mamba_scan_fwd_cuda(
+            _rows(dt_pre), _rows(xc), _rows(B), _rows(C), _f32(A),
+            _flags(reset), _f32(h0), gate=_gate(z, dt_bias, d_skip, live))
+    _known_device(dt_pre, "mamba_scan")
+    mamba_scan.plain_calls += 1
+    out, h_last = ref.mamba_scan_gated(dt_pre, xc, B, C, z, dt_bias, A,
+                                       d_skip, live, reset, h0)
+    return out, h_last, None
+
+
+def mamba_scan_gated_bwd(dt_pre, xc, B, C, z, dt_bias, A, d_skip, live,
+                         reset, h0, ckpt, dout, dh_last=None):
+    """The gradient of :func:`mamba_scan_gated_fwd` (kernel D' gated, or
+    the plain gradient on the CPU) for the output gradient ``dout [T,
+    DI]`` and ``dh_last [DI, DS]`` (None: zero): ``(d_pre, d_xc, dz, dB,
+    dC, dA, d_bias, d_dskip, dh0)``, the first three in xc's dtype (d_pre
+    0 on pad rows), the rest float32."""
+    if dt_pre.is_cuda:
+        return mamba_scan_bwd_cuda(
+            _rows(dt_pre), _rows(xc), _rows(B), _rows(C), _f32(A),
+            _flags(reset), ckpt, _rows(dout),
+            None if dh_last is None else _f32(dh_last),
+            gate=_gate(z, dt_bias, d_skip, live))
+    _known_device(dt_pre, "mamba_scan")
+    mamba_scan.plain_calls += 1
+    return ref.mamba_scan_gated_grad(dt_pre, xc, B, C, z, dt_bias, A, d_skip,
+                                     live, reset, h0, dout, dh_last)
 
 
 class _MambaScan(torch.autograd.Function):
@@ -313,7 +354,7 @@ class _MambaScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dh_last):
         delta, xs, B, C, A, h0, reset, *ckpt = ctx.saved_tensors
-        _, dd, dx, dB, dC, dA, dh0 = mamba_scan_bwd(
+        dd, dx, dB, dC, dA, dh0 = mamba_scan_bwd(
             delta, xs, B, C, A, reset, h0, ckpt[0] if ckpt else None, dy,
             dh_last)
         return (dd.to(delta.dtype), dx.to(xs.dtype), dB.to(B.dtype),
@@ -328,7 +369,8 @@ def mamba_scan(delta, xs, B, C, A, reset, h0
     DS])``, both float32 (y before the D skip and the gating).
     Differentiable in delta, xs, B, C, A and h0.
     ``mamba_scan.plain_calls`` counts the forward and backward calls served
-    by the plain versions (CPU tensors)."""
+    by the plain versions (CPU tensors), of this function and of the gated
+    pair."""
     _known_device(delta, "mamba_scan")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (delta, xs, B, C, A, h0)):

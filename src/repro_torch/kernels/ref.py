@@ -23,7 +23,10 @@ tests and what :mod:`repro_torch.kernels.ops` runs on CPU tensors.
   :func:`mamba_scan_grad` — its gradient by a stepwise reverse pass over
   the materialised ``[T, DI, DS]`` terms (the plain version of the
   backward kernel D'), checked against ``jax.grad`` in
-  ``tests/test_torch_ssm.py``.
+  ``tests/test_torch_ssm.py``; :func:`mamba_scan_gated` and
+  :func:`mamba_scan_gated_grad` — the same composed with the mamba mixer's
+  softplus prologue and skip-and-gate epilogue in float32 (the plain
+  versions of the gated D and D').
 
 Packed-varlen mask rule (shared by every implementation):
   attend(qi, kj)  iff  seg_q[i] == seg_kv[j]  and  seg_q[i] >= 0
@@ -44,7 +47,8 @@ __all__ = ["flash_attention_reference", "blocked_flash_attention",
            "cross_entropy_reference", "streaming_cross_entropy",
            "cross_entropy_fwd_plain", "cross_entropy_bwd_dh_plain",
            "cross_entropy_bwd_dw_plain",
-           "mamba_scan_reference", "mamba_scan_grad"]
+           "mamba_scan_reference", "mamba_scan_grad", "mamba_scan_gated",
+           "mamba_scan_gated_grad"]
 
 NEG_INF = -1e30
 
@@ -386,3 +390,51 @@ def mamba_scan_grad(delta, xs, B, C, A, reset, h0, dy, dh_last=None):
     d_xs = dhB * d
     dB = torch.einsum("tds,td->ts", dhs, d * x)
     return y, d_delta, d_xs, dB, dC, dA, dh
+
+
+def _gate_terms(dt_pre, z, dt_bias, live):
+    """The mixer's prologue and gate in float32: ``pre = dt_pre +
+    dt_bias``, ``delta = softplus(pre)`` (0 where ``live`` is False),
+    ``z`` and ``sigmoid(z)``."""
+    pre = dt_pre.float() + dt_bias.float()
+    delta = torch.where(live.reshape(-1)[:, None],
+                        torch.nn.functional.softplus(pre), 0.0)
+    z32 = z.float()
+    return pre, delta, z32, torch.sigmoid(z32)
+
+
+def mamba_scan_gated(dt_pre, xc, B, C, z, dt_bias, A, d_skip, live, reset,
+                     h0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gated kernel D's function (the mamba mixer's scan): ``delta =
+    softplus(dt_pre + dt_bias)`` in float32, 0 on a row where ``live`` is
+    False, the scan of :func:`mamba_scan_reference` on ``(delta, xc, B,
+    C)``, then ``out = (y + d_skip xc) silu(z)`` rounded to xc's dtype.
+    Returns ``(out [T, DI], h_last [DI, DS] float32)``."""
+    _, delta, z32, _ = _gate_terms(dt_pre, z, dt_bias, live)
+    y, h_last = mamba_scan_reference(delta, xc, B, C, A, reset, h0)
+    y += xc.float() * d_skip.float()
+    return (y * torch.nn.functional.silu(z32)).to(xc.dtype), h_last
+
+
+def mamba_scan_gated_grad(dt_pre, xc, B, C, z, dt_bias, A, d_skip, live,
+                          reset, h0, dout, dh_last=None):
+    """The gated kernel D''s function: the gradients of ``sum(dout * out)
+    + sum(dh_last * h_last)`` for :func:`mamba_scan_gated`, through
+    :func:`mamba_scan_grad` and the prologue and epilogue in float32.
+    Returns ``(d_pre, d_xc, dz, dB, dC, dA, d_bias, d_dskip, dh0)``: d_pre
+    (0 on pad rows), d_xc and dz in xc's, dt_pre's and z's dtypes, the rest
+    float32 (dA is the gradient in A, d_bias the float32 sum of d_pre)."""
+    pre, delta, z32, sig = _gate_terms(dt_pre, z, dt_bias, live)
+    g = dout.float()
+    dy = g * (z32 * sig)
+    y, d_delta, d_xs, dB, dC, dA, dh0 = mamba_scan_grad(
+        delta, xc, B, C, A, reset, h0, dy, dh_last)
+    xc32, dsk = xc.float(), d_skip.float()
+    d_dskip = (dy * xc32).sum(0)
+    d_xs += dy * dsk                      # d xc: the scan and the skip
+    y += xc32 * dsk                       # the gate's input
+    dz = (g * y * sig * (1.0 + z32 * (1.0 - sig))).to(z.dtype)
+    d_pre = torch.where(live.reshape(-1)[:, None],
+                        d_delta * torch.sigmoid(pre), 0.0)
+    return (d_pre.to(dt_pre.dtype), d_xs.to(xc.dtype), dz, dB, dC, dA,
+            d_pre.sum(0), d_dskip, dh0)

@@ -7,10 +7,11 @@ port) and the same casts. Two differences:
 
 * **The scan's seam.** The reference materialises the ``[T, d_inner,
   d_state]`` decay and input tensors and scans them; here the raw
-  per-token ``delta, xs, B, C`` go to kernel D (:func:`ops.mamba_scan_fwd`),
-  which forms the outer products in registers, and the gradient is kernel
-  D'. At hymba-1.5b's width one such float32 tensor of a 16,384-token chunk
-  would take 3.4 GB per layer.
+  per-token ``dt_pre, xc, B, C, z`` go to the gated kernel D
+  (:func:`ops.mamba_scan_gated_fwd`), which forms the outer products in
+  registers and folds in the softplus, the skip and the gate, and the
+  gradient is the gated kernel D'. At hymba-1.5b's width one such float32
+  tensor of a 16,384-token chunk would take 3.4 GB per layer.
 * **Pad rows are state-neutral.** A row with ``seg < 0`` does not reset
   the state, leaves it unchanged (``delta = 0``: decay 1, no input) and
   does not enter the conv tail, so ``h_last`` and the tail handed to the
@@ -22,10 +23,10 @@ port) and the same casts. Two differences:
 Memory. The mixer keeps what the planner's per-token model charges it and
 no float32 ``[T, d_inner]`` tensor: the conv (with its SiLU) and the scan
 with its gating are autograd functions that keep their inputs (bf16 in
-training) and recompute ``delta = softplus(dt_in dt_proj + bias)``, the
-conv output and the float32 gating terms in their backward; the scan
-keeps only its state checkpoints (``d_inner * d_state`` floats every 64
-rows).
+training) and recompute ``dt_in dt_proj`` and the conv output in their
+backward (the gated kernels recompute delta and the gating terms inside);
+the scan keeps only its state checkpoints (``d_inner * d_state`` floats
+every 64 rows).
 """
 
 from __future__ import annotations
@@ -126,25 +127,24 @@ class _ConvSilu(torch.autograd.Function):
 
 
 class _ScanGate(torch.autograd.Function):
-    """The selective scan and its gating, ``(y_scan + D xc) * silu(z)``,
-    from the x-projection's outputs: ``delta = softplus(dt_in dt_proj^T +
-    dt_bias)`` (0 on pad rows), ``A = -exp(a_log)``, kernel D, the skip
-    and the gate. Keeps its inputs and the scan's state checkpoints; the
-    backward recomputes delta and the float32 gating terms and runs D'
-    (which recomputes y). Returns ``(out [T, di] in xc's dtype, h_last
-    [di, ds] float32)``."""
+    """The selective scan with the mixer's prologue and gating, ``(y_scan
+    + D xc) * silu(z)``, from the x-projection's outputs: ``dt_pre = dt_in
+    dt_proj^T`` (a matmul, as the reference leaves it to XLA), then the
+    gated kernel pair (:func:`ops.mamba_scan_gated_fwd` / ``_bwd``), which
+    computes ``delta = softplus(dt_pre + dt_bias)`` (0 on pad rows), the
+    scan, the skip and the gate in its prologue and epilogue, and their
+    gradients in D'. Keeps its inputs (``dt_in``, not ``dt_pre``) and the
+    scan's state checkpoints; the backward recomputes ``dt_pre``. Returns
+    ``(out [T, di] in xc's dtype, h_last [di, ds] float32)``."""
 
     @staticmethod
     def forward(ctx, xc, dt_in, B, C, z, dt_proj, dt_bias, a_log, d_skip,
                 live, reset, h0):
-        from repro_torch.kernels.ops import mamba_scan_fwd
-        delta = _delta(dt_in, dt_proj, dt_bias, live)
+        from repro_torch.kernels.ops import mamba_scan_gated_fwd
         A = -torch.exp(a_log.float())
-        y, h_last, ckpt = mamba_scan_fwd(delta, xc, B.float(), C.float(), A,
-                                         reset, h0)
-        del delta
-        y += xc.float() * d_skip.float()
-        out = (y * F.silu(z.float())).to(xc.dtype)
+        out, h_last, ckpt = mamba_scan_gated_fwd(
+            linear(dt_in, dt_proj), xc, B, C, z, dt_bias, A, d_skip, live,
+            reset, h0)
         ctx.save_for_backward(xc, dt_in, B, C, z, dt_proj, dt_bias, a_log,
                               d_skip, live, reset, h0,
                               *([] if ckpt is None else [ckpt]))
@@ -152,46 +152,21 @@ class _ScanGate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, dh_last):
-        from repro_torch.kernels.ops import mamba_scan_bwd
+        from repro_torch.kernels.ops import mamba_scan_gated_bwd
         (xc, dt_in, B, C, z, dt_proj, dt_bias, a_log, d_skip, live, reset,
          h0, *ckpt) = ctx.saved_tensors
         dt = xc.dtype
-        delta = _delta(dt_in, dt_proj, dt_bias, live)
         A = -torch.exp(a_log.float())
-        g = dout.float()
-        z32 = z.float()
-        sig = torch.sigmoid(z32)
-        dy = g * (z32 * sig)
-        y, d_delta, d_xs, dB, dC, dA, dh0 = mamba_scan_bwd(
-            delta, xc, B.float(), C.float(), A, reset, h0,
-            ckpt[0] if ckpt else None, dy, dh_last, want_y=True)
-        xc32, dsk = xc.float(), d_skip.float()
-        d_dskip = (dy * xc32).sum(0)
-        d_xs += dy * dsk                      # d xc: the scan and the skip
-        del dy
-        y += xc32 * dsk                       # the gate's input
-        del xc32
-        dz = (g * y * sig * (1.0 + z32 * (1.0 - sig))).to(z.dtype)
-        del y, g, sig, z32
-        # softplus' = sigmoid(pre) = 1 - exp(-softplus(pre))
-        d_pre = torch.where(live[:, None], d_delta * -torch.expm1(-delta),
-                            0.0)
-        del delta, d_delta
-        d_bias = d_pre.sum(0)
-        d_pre = d_pre.to(dt)
+        d_pre, d_xc, dz, dB, dC, dA, d_bias, d_dskip, dh0 = \
+            mamba_scan_gated_bwd(linear(dt_in, dt_proj), xc, B, C, z,
+                                 dt_bias, A, d_skip, live, reset, h0,
+                                 ckpt[0] if ckpt else None, dout, dh_last)
         d_dt_in = d_pre @ dt_proj.to(dt)
         d_dt_proj = d_pre.T @ dt_in
-        return (d_xs.to(dt), d_dt_in, dB.to(B.dtype), dC.to(C.dtype), dz,
+        return (d_xc, d_dt_in, dB.to(B.dtype), dC.to(C.dtype), dz,
                 d_dt_proj.to(dt_proj.dtype), d_bias.to(dt_bias.dtype),
                 (dA * A).to(a_log.dtype), d_dskip.to(d_skip.dtype), None,
                 None, dh0.to(h0.dtype))
-
-
-def _delta(dt_in, dt_proj, dt_bias, live):
-    """softplus(dt_in dt_proj^T (in dt_in's dtype) + dt_bias) in float32,
-    0 on pad rows (a state-neutral step)."""
-    pre = linear(dt_in, dt_proj).float() + dt_bias.float()
-    return torch.where(live[:, None], F.softplus(pre), 0.0)
 
 
 def _conv_tail(conv_tail, xs, live):

@@ -1,9 +1,9 @@
 """The port on the card: the CUDA kernels against their plain versions
 (flash attention forward, its log-sum-exp, backward and tile ranges;
-cross-entropy B, C1, C2; the selective scan D, its gradient D' and the sum
-of D''s partials), the engine on CUDA against the engine on the CPU, and one
-reduced training step on CUDA against the same step on the CPU (dense,
-hybrid and mamba families).
+cross-entropy B, C1, C2; the selective scan D and its gradient D', ungated
+and with the mamba mixer's prologue and gate), the engine on CUDA against
+the engine on the CPU, and one reduced training step on CUDA against the
+same step on the CPU (dense, hybrid and mamba families).
 
 Every test here is marked ``gpu`` and skips without a CUDA card. This
 file imports torch only (no jax), so it runs where the card is:
@@ -549,8 +549,9 @@ def test_train_step_on_card_matches_cpu(arch):
 
 def _scan_case(T, DI, DS, dtypes, dev, seed):
     """Selective-scan inputs on ``dev``: delta (with B, C) and xs in the
-    ``dtypes`` pair, resets at a few rows but not row 0 (so the carried
-    h0 counts), non-zero h0."""
+    ``dtypes`` pair, resets at a few rows and on both sides of every tile
+    edge (rows 63, 64, 127, ...), but not row 0 (so the carried h0 counts),
+    non-zero h0."""
     g = torch.Generator().manual_seed(seed)
     td, tx = dtypes
     delta = torch.nn.functional.softplus(torch.randn((T, DI), generator=g))
@@ -559,73 +560,296 @@ def _scan_case(T, DI, DS, dtypes, dev, seed):
     C = torch.randn((T, DS), generator=g)
     A = -torch.exp(torch.randn((DI, DS), generator=g) * 0.3)
     reset = (torch.rand(T, generator=g) < 0.05).to(torch.int32)
+    reset[63::64] = 1
+    reset[64::64] = 1
     reset[0] = 0
     h0 = torch.randn((DI, DS), generator=g)
     return (delta.to(dev, td), xs.to(dev, tx), B.to(dev, td), C.to(dev, td),
             A.to(dev), reset.to(dev), h0.to(dev))
 
 
+def _gated_case(T, DI, DS, dtype, dev, seed):
+    """The gated scan's inputs on ``dev`` in ``dtype``: ``dt_pre`` around
+    the mixer's softplus bias, B and C as row slices of one projection (as
+    the mixer passes them), z a row slice, pad rows (live False) in the
+    middle and at the end, resets as in :func:`_scan_case`."""
+    g = torch.Generator().manual_seed(seed)
+    _, xs, _, _, A, reset, h0 = _scan_case(T, DI, DS, (torch.float32,
+                                                       dtype), dev, seed)
+    proj = torch.randn((T, 3 + 2 * DS), generator=g).to(dev, dtype)
+    xz = torch.randn((T, 2 * DI), generator=g).to(dev, dtype)
+    dt_pre = (torch.randn((T, DI), generator=g) - 2.0).to(dev, dtype)
+    live = torch.ones(T, dtype=torch.bool)
+    live[T // 3:T // 3 + 5] = False
+    live[-7:] = False
+    live = live.to(dev)
+    reset = (reset != 0) & live
+    bias = torch.randn((DI,), generator=g).to(dev) * 0.5
+    d_skip = torch.randn((DI,), generator=g).to(dev)
+    return dict(dt_pre=dt_pre, xc=xs, B=proj[:, 3:3 + DS],
+                C=proj[:, 3 + DS:], z=xz[:, DI:], dt_bias=bias, A=A,
+                d_skip=d_skip, live=live, reset=reset, h0=h0)
+
+
+def _launch_counts():
+    from repro_torch.kernels.mamba_scan import (mamba_scan_bwd_cuda,
+                                                mamba_scan_fwd_cuda)
+    return {**mamba_scan_fwd_cuda.by_kernel, **mamba_scan_bwd_cuda.by_kernel,
+            "plain": ops.mamba_scan.plain_calls}
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("gated", [False, True])
 @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
                                     (torch.float32, torch.bfloat16)])
 @pytest.mark.parametrize("T,DI,DS", [(100, 40, 4), (64, 16, 16),
-                                     (300, 48, 16), (130, 3200, 16)])
-def test_mamba_scan_kernels_match_plain(dtypes, T, DI, DS):
-    """D (y, h_last) and D' (every input's gradient and the recomputed y,
-    for output gradients on y and h_last) through the two halves the mixer
-    calls (``ops.mamba_scan_fwd``, ``ops.mamba_scan_bwd`` with ``want_y``)
-    against the plain scan and its gradient, on the same inputs: rows not
-    a multiple of the 64-row tile, channels not a multiple of 16, float32
-    delta, B and C beside float32 or bf16 xs, as the mixer feeds them.
-    Both compute in float32 from the same values, so every case is held to
-    the float32 tolerance."""
+                                     (300, 48, 16), (300, 40, 16),
+                                     (257, 200, 16), (130, 3200, 16)])
+def test_mamba_scan_kernels_match_plain(dtypes, T, DI, DS, gated):
+    """D and D' against their plain versions on the same inputs, each
+    kernel launched once (``by_kernel``) and no plain call: rows not a
+    multiple of the 64-row tile (the ragged tile masked in the kernels,
+    nothing padded by the caller), channels fewer than one block or with a
+    partial last one (D's passes take 128 channels a block, D''s per-tile
+    pass a group of 64: DI 16, 40, 48 and 200), resets on both sides of
+    tile edges.
+
+    Ungated (the two halves ``ops.mamba_scan_fwd`` and ``ops.mamba_scan_bwd``):
+    y, h_last and every input's gradient, float32 delta,
+    B and C beside float32 or bf16 xs; both sides compute in float32 from
+    the same values, so every output is held to the float32 tolerance.
+    Gated (``ops.mamba_scan_gated_fwd`` / ``_bwd``, every ``[T, *]`` input
+    in xs's dtype, pad rows inside and at the end): outputs rounded to
+    that dtype (out, d_pre, d_xc, dz) are held to its tolerance (bf16: a
+    float32 difference can flip the last bit), the float32 ones (h_last,
+    dB, dC, dA, d_bias, d_dskip, dh0) to the float32 tolerance."""
     dev = _cuda()
-    from repro_torch.kernels.mamba_scan import (mamba_scan_bwd_cuda,
-                                                mamba_scan_fwd_cuda,
-                                                mamba_scan_reduce_cuda)
-    ins = _scan_case(T, DI, DS, dtypes, dev, seed=T + DI + DS)
-    delta, xs, B, C, A, reset, h0 = ins
+    f32 = torch.float32
     g = torch.Generator().manual_seed(1)
-    dy = torch.randn((T, DI), generator=g).to(dev)
     dh = torch.randn((DI, DS), generator=g).to(dev)
-    before = (mamba_scan_fwd_cuda.launches, mamba_scan_bwd_cuda.launches,
-              mamba_scan_reduce_cuda.launches, ops.mamba_scan.plain_calls)
-    y, h, ckpt = ops.mamba_scan_fwd(delta, xs, B, C, A, reset, h0)
-    y_again, *grads = ops.mamba_scan_bwd(delta, xs, B, C, A, reset, h0,
-                                         ckpt, dy, dh, want_y=True)
-    torch.cuda.synchronize()
-    after = (mamba_scan_fwd_cuda.launches, mamba_scan_bwd_cuda.launches,
-             mamba_scan_reduce_cuda.launches, ops.mamba_scan.plain_calls)
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 0]
-    y_r, h_r = ref.mamba_scan_reference(delta, xs, B, C, A, reset, h0)
-    _close(y, y_r, torch.float32)
-    _close(y_again, y_r, torch.float32)
-    _close(h, h_r, torch.float32)
-    _, *want = ref.mamba_scan_grad(delta, xs, B, C, A, reset, h0, dy, dh)
-    for got, w in zip(grads, want):
-        assert got.dtype == torch.float32
-        _close(got, w, torch.float32)
+    before = _launch_counts()
+    if gated:
+        dt = dtypes[1]
+        case = _gated_case(T, DI, DS, dt, dev, T + DI + DS)
+        dout = torch.randn((T, DI), generator=g).to(dev, dt)
+        out, h, ckpt = ops.mamba_scan_gated_fwd(**case)
+        grads = ops.mamba_scan_gated_bwd(**case, ckpt=ckpt, dout=dout,
+                                         dh_last=dh)
+        torch.cuda.synchronize()
+        out_r, h_r = ref.mamba_scan_gated(**case)
+        want = ref.mamba_scan_gated_grad(**case, dout=dout, dh_last=dh)
+        _close(out, out_r, dt)
+        _close(h, h_r, f32)
+        for i, (got, w) in enumerate(zip(grads, want)):
+            assert got.dtype == w.dtype, i
+            _close(got, w, dt if i < 3 else f32)
+    else:
+        ins = _scan_case(T, DI, DS, dtypes, dev, seed=T + DI + DS)
+        delta, xs, B, C, A, reset, h0 = ins
+        dy = torch.randn((T, DI), generator=g).to(dev)
+        y, h, ckpt = ops.mamba_scan_fwd(delta, xs, B, C, A, reset, h0)
+        grads = ops.mamba_scan_bwd(delta, xs, B, C, A, reset, h0, ckpt, dy,
+                                   dh)
+        torch.cuda.synchronize()
+        y_r, h_r = ref.mamba_scan_reference(delta, xs, B, C, A, reset, h0)
+        _close(y, y_r, f32)
+        _close(h, h_r, f32)
+        _, *want = ref.mamba_scan_grad(delta, xs, B, C, A, reset, h0, dy, dh)
+        for got, w in zip(grads, want):
+            assert got.dtype == f32
+            _close(got, w, f32)
+    after = _launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        **{k: 1 for k in after}, "plain": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gated", [False, True])
+def test_mamba_scan_is_deterministic(gated):
+    """D and D' launched twice on the same inputs give the same bits (no
+    atomics; every sum in a fixed order), at a ragged hymba-width chunk."""
+    dev = _cuda()
+    T, DI, DS = 1000, 3200, 16
+    g = torch.Generator().manual_seed(2)
+    dh = torch.randn((DI, DS), generator=g).to(dev)
+    runs = []
+    for _ in range(2):
+        if gated:
+            case = _gated_case(T, DI, DS, torch.bfloat16, dev, 5)
+            dout = torch.randn((T, DI), generator=torch.Generator(
+            ).manual_seed(3)).to(dev, torch.bfloat16)
+            out, h, ckpt = ops.mamba_scan_gated_fwd(**case)
+            grads = ops.mamba_scan_gated_bwd(**case, ckpt=ckpt, dout=dout,
+                                             dh_last=dh)
+        else:
+            delta, xs, B, C, A, reset, h0 = _scan_case(
+                T, DI, DS, (torch.float32, torch.bfloat16), dev, 5)
+            dy = torch.randn((T, DI), generator=torch.Generator(
+            ).manual_seed(3)).to(dev)
+            out, h, ckpt = ops.mamba_scan_fwd(delta, xs, B, C, A, reset, h0)
+            grads = ops.mamba_scan_bwd(delta, xs, B, C, A, reset, h0, ckpt,
+                                       dy, dh)
+        runs.append([out, h, ckpt, *grads])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+_GUARD = 1024                # sentinel elements on either side of a buffer
+
+
+def _rows_guarded(t, fill):
+    """A copy of a ``[T, W]`` tensor as rows ``[64, 64 + T)`` and columns
+    ``[0, W)`` of a ``[T + 128, W + 8]`` buffer of ``fill``."""
+    T, W = t.shape
+    buf = torch.full((T + 128, W + 8), fill, dtype=t.dtype, device=t.device)
+    view = buf[64:64 + T, :W]
+    view.copy_(t)
+    return view
+
+
+def _flat_guarded(t, fill):
+    """A contiguous copy of ``t`` with ``_GUARD`` elements of ``fill`` on
+    either side."""
+    n = t.numel()
+    buf = torch.full((n + 2 * _GUARD,), fill, dtype=t.dtype, device=t.device)
+    view = buf[_GUARD:_GUARD + n].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _redirect(call, names):
+    """Point the outputs and workspaces ``names`` of a prepared scan call
+    into buffers with ``_GUARD`` sentinel elements on either side:
+    ``{name: (tensor, buffer, sentinel)}``."""
+    by_ptr = {t.data_ptr(): t for t in call.keep
+              if isinstance(t, torch.Tensor)}
+    out = {}
+    for name in names:
+        t = by_ptr[getattr(call.args, name)]
+        fill = -7 if t.dtype == torch.int32 else 12345.0
+        buf = torch.full((t.numel() + 2 * _GUARD,), fill, dtype=t.dtype,
+                         device=t.device)
+        view = buf[_GUARD:_GUARD + t.numel()].view(t.shape)
+        setattr(call.args, name, view.data_ptr())
+        out[name] = (view, buf, fill)
+    call.keep += tuple(b for _, b, _ in out.values())
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("T,DI,DS", [(100, 40, 4), (257, 200, 16)])
+def test_mamba_scan_stays_inside_its_buffers(T, DI, DS, gated):
+    """D and D' on a ragged T and DI write nothing outside their outputs
+    and workspaces, and read nothing of their inputs beyond their rows and
+    columns. Every output and workspace lies between ``_GUARD`` sentinel
+    elements, which must be intact after the call; every input lies in a
+    buffer of NaN (flags: True) around its rows and columns and, for a
+    ``[T, *]`` input, after each row, so that a read past them would change
+    a result. The results must equal the same call on plain tensors bit for
+    bit (the sentinels also stand where a workspace is written before it is
+    read)."""
+    dev = _cuda()
+    from repro_torch.kernels.mamba_scan import (Gate, mamba_scan_bwd_cuda,
+                                                mamba_scan_fwd_cuda)
+    g = torch.Generator().manual_seed(4)
+    dh = torch.randn((DI, DS), generator=g).to(dev)
+    if gated:
+        dt = torch.bfloat16
+        c = _gated_case(T, DI, DS, dt, dev, 7)
+        ins = dict(pre=c["dt_pre"], xs=c["xc"], B=c["B"], C=c["C"], A=c["A"],
+                   reset=c["reset"], h0=c["h0"], z=c["z"], bias=c["dt_bias"],
+                   live=c["live"], d_skip=c["d_skip"])
+        b_names = ("d_pre", "d_x", "dz", "dB", "dC", "dA", "d_bias",
+                   "d_dskip", "dh0")
+        work = ("uin", "dsum", "tile_reset", "ws_bc", "ws_da", "ws_ch")
+    else:
+        dt = torch.float32
+        delta, xs, B, C, A, reset, h0 = _scan_case(
+            T, DI, DS, (torch.float32, torch.bfloat16), dev, 7)
+        ins = dict(pre=delta, xs=xs, B=B, C=C, A=A, reset=reset != 0, h0=h0)
+        b_names = ("d_pre", "d_x", "dB", "dC", "dA", "dh0")
+        work = ("uin", "dsum", "tile_reset", "ws_bc", "ws_da")
+    ins["dout"] = torch.randn((T, DI), generator=g).to(dev, dt)
+    ins["dh"] = dh
+    f_names = ("out", "h_last", "ckpt")
+
+    def run(a, guard):
+        gate = Gate(bias=a["bias"], live=a["live"], z=a["z"],
+                    d_skip=a["d_skip"]) if gated else None
+        order = [a[k] for k in ("pre", "xs", "B", "C", "A", "reset")]
+        fwd, f_out = mamba_scan_fwd_cuda.prepare(*order, a["h0"], gate=gate)
+        fw = _redirect(fwd, f_names + ("dsum", "tile_reset")) if guard \
+            else {}
+        fwd.run()
+        if guard:
+            f_out = tuple(fw[n][0] for n in f_names)
+        bwd, b_out = mamba_scan_bwd_cuda.prepare(*order, f_out[2], a["dout"],
+                                                 a["dh"], gate=gate)
+        bw = _redirect(bwd, b_names + work) if guard else {}
+        bwd.run()
+        if guard:
+            b_out = tuple(bw[n][0] for n in b_names)
+        torch.cuda.synchronize()
+        return list(f_out) + list(b_out), {**{f"D {k}": v for k, v in
+                                              fw.items()},
+                                           **{f"D' {k}": v for k, v in
+                                              bw.items()}}
+
+    want, _ = run(ins, guard=False)
+    rows = ("pre", "xs", "B", "C", "z", "dout")          # the [T, *] inputs
+    boxed = {k: _rows_guarded(v, float("nan")) if k in rows else
+             _flat_guarded(v, True if v.dtype == torch.bool else float("nan"))
+             for k, v in ins.items()}
+    got, guards = run(boxed, guard=True)
+    for name, a, b in zip(f_names + b_names, got, want):
+        assert torch.equal(a, b), name
+    for name, (_, buf, fill) in guards.items():
+        edge = torch.full((_GUARD,), fill, dtype=buf.dtype, device=buf.device)
+        assert torch.equal(buf[:_GUARD], edge), f"{name}: written before it"
+        assert torch.equal(buf[-_GUARD:], edge), f"{name}: written after it"
 
 
 @pytest.mark.gpu
 def test_mamba_scan_rejects_what_it_does_not_take():
     dev = _cuda()
-    from repro_torch.kernels.mamba_scan import mamba_scan_fwd_cuda
+    from repro_torch.kernels.mamba_scan import (Gate, mamba_scan_bwd_cuda,
+                                                mamba_scan_fwd_cuda)
     delta, xs, B, C, A, reset, h0 = _scan_case(64, 32, 16, (
         torch.float32, torch.float32), dev, 0)
-    with pytest.raises(ValueError):                   # T not tile-aligned
-        mamba_scan_fwd_cuda(delta[:60], xs[:60], B[:60], C[:60], A,
-                            reset[:60], h0)
+    reset = reset != 0
     with pytest.raises(ValueError):                   # DS = 32
         mamba_scan_fwd_cuda(delta, xs, B.repeat(1, 2), C.repeat(1, 2),
                             A.repeat(1, 2), reset, h0.repeat(1, 2))
-    with pytest.raises(ValueError):                   # bf16 B
+    with pytest.raises(ValueError):                   # bf16 B, ungated
         mamba_scan_fwd_cuda(delta, xs, B.bfloat16(), C, A, reset, h0)
-    with pytest.raises(ValueError):                   # bf16 delta
+    with pytest.raises(ValueError):                   # bf16 delta, ungated
         mamba_scan_fwd_cuda(delta.bfloat16(), xs, B, C, A, reset, h0)
+    with pytest.raises(ValueError):                   # int32 reset
+        mamba_scan_fwd_cuda(delta, xs, B, C, A, reset.int(), h0)
+    with pytest.raises(ValueError):                   # strided columns
+        mamba_scan_fwd_cuda(delta, xs, B, C.T.contiguous().T, A, reset, h0)
     with pytest.raises(ValueError):                   # CPU tensors
         mamba_scan_fwd_cuda(*(t.cpu() for t in (delta, xs, B, C, A, reset,
                                                 h0)))
+    case = _gated_case(64, 32, 16, torch.bfloat16, dev, 0)
+    gate = Gate(bias=case["dt_bias"], live=case["live"], z=case["z"],
+                d_skip=case["d_skip"])
+    args = [case[k] for k in ("dt_pre", "xc", "B", "C", "A", "reset")]
+    out, _, ckpt = mamba_scan_fwd_cuda(*args, case["h0"], gate=gate)
+    with pytest.raises(ValueError):                   # float32 dt_pre, gated
+        mamba_scan_fwd_cuda(args[0].float(), *args[1:], case["h0"],
+                            gate=gate)
+    with pytest.raises(ValueError):                   # float32 z, bf16 xc
+        mamba_scan_fwd_cuda(*args, case["h0"], gate=gate._replace(
+            z=gate.z.float()))
+    with pytest.raises(ValueError):                   # bf16 dt_bias
+        mamba_scan_fwd_cuda(*args, case["h0"], gate=gate._replace(
+            bias=gate.bias.bfloat16()))
+    with pytest.raises(ValueError):                   # ckpt of 2 tiles
+        mamba_scan_bwd_cuda(*args, ckpt.repeat(2, 1, 1), out, gate=gate)
+    with pytest.raises(ValueError):                   # float32 dout, gated
+        mamba_scan_bwd_cuda(*args, ckpt, out.float(), gate=gate)
 
 
 @pytest.mark.gpu
@@ -669,8 +893,6 @@ def test_ssm_train_step_on_card_matches_cpu(arch):
     from repro_torch.configs import get_arch
     from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
                                   plan_batch)
-    from repro_torch.kernels.mamba_scan import (mamba_scan_bwd_cuda,
-                                                mamba_scan_fwd_cuda)
     from repro_torch.models import DecoderLM
     from repro_torch.models.model import tree_leaves
     from repro_torch.runtime.train_step import ChunkedTrainer
@@ -691,18 +913,15 @@ def test_ssm_train_step_on_card_matches_cpu(arch):
                                  device="cpu")
     res = {}
     for d in ("cpu", dev):
-        before = (mamba_scan_fwd_cuda.launches, mamba_scan_bwd_cuda.launches,
-                  ops.mamba_scan.plain_calls)
+        before = _launch_counts()
         tr = ChunkedTrainer(cfg, params, device=d,
                             compute_dtype=torch.float32)
         res[str(d)] = tr.loss_and_grads(plan, corpus)
         if d is dev:
             torch.cuda.synchronize()
-            after = (mamba_scan_fwd_cuda.launches,
-                     mamba_scan_bwd_cuda.launches,
-                     ops.mamba_scan.plain_calls)
-            assert after[0] > before[0] and after[1] > before[1]
-            assert after[2] == before[2]
+            after = _launch_counts()
+            assert all(after[k] > before[k] for k in after if k != "plain")
+            assert after["plain"] == before["plain"]
     a, b = res["cpu"], res[str(dev)]
     assert a.n_valid == b.n_valid
     assert abs(a.loss - b.loss) <= 1e-5 * abs(a.loss)

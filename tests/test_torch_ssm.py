@@ -136,6 +136,217 @@ def test_scan_gradients_match_jax_grad(T, DI, DS):
                                    atol=1e-5)
 
 
+def _gated_inputs(T, DI, DS, seed):
+    """The gated scan's float32 inputs: ``dt_pre`` around the mixer's
+    softplus bias, pad rows (live False) in the middle and at the end,
+    resets inside a tile and on both edges of tile 1 (rows 64 and 127,
+    where T allows), none on row 0 (the non-zero h0 counts)."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    dt_pre = (rng.standard_normal((T, DI)) - 2.0).astype(f)
+    xc = rng.standard_normal((T, DI)).astype(f)
+    B = rng.standard_normal((T, DS)).astype(f)
+    C = rng.standard_normal((T, DS)).astype(f)
+    z = rng.standard_normal((T, DI)).astype(f)
+    bias = (rng.standard_normal(DI) * 0.5).astype(f)
+    A = -np.exp(rng.standard_normal((DI, DS)) * 0.3).astype(f)
+    d_skip = rng.standard_normal(DI).astype(f)
+    h0 = rng.standard_normal((DI, DS)).astype(f)
+    live = np.ones(T, bool)
+    live[T // 3:T // 3 + 5] = False
+    live[-7:] = False
+    reset = np.zeros(T, bool)
+    reset[[r for r in (10, 64, 127) if r < T]] = True
+    reset &= live
+    return dict(dt_pre=dt_pre, xc=xc, B=B, C=C, z=z, dt_bias=bias, A=A,
+                d_skip=d_skip, live=live, reset=reset, h0=h0)
+
+
+_GATED_DIFF = ("dt_pre", "xc", "B", "C", "z", "dt_bias", "A", "d_skip",
+               "h0")
+
+
+@pytest.mark.parametrize("T,DI,DS", [(150, 8, 4), (100, 6, 16)])
+def test_gated_scan_matches_jax(T, DI, DS):
+    """The plain gated scan (``ref.mamba_scan_gated``, what
+    ``ops.mamba_scan_gated_fwd`` runs on the CPU) and its gradient
+    (``ref.mamba_scan_gated_grad``) against the JAX package's mixer math
+    (``models/ssm.py``: softplus of ``dt_pre + dt_bias``, the scan through
+    ``repro.kernels.ops.mamba_scan``, the skip and the gate), with the
+    port's pad rows (delta 0 where live is False) and ``jax.grad`` for
+    every input, for ``sum(w_out * out) + sum(w_h * h_last)``. float32,
+    within 1e-5 relative: ``rtol = 1e-5`` and ``atol = 1e-5`` times the
+    largest magnitude of the JAX result."""
+    case = _gated_inputs(T, DI, DS, T + DI)
+    rng = np.random.default_rng(3)
+    w_out = rng.standard_normal((T, DI)).astype(np.float32)
+    w_h = rng.standard_normal((DI, DS)).astype(np.float32)
+    live, reset = jnp.asarray(case["live"]), jnp.asarray(case["reset"])
+
+    def jgated(dt_pre, xc, B, C, z, dt_bias, A, d_skip, h0):
+        delta = jnp.where(live[:, None], jax.nn.softplus(dt_pre + dt_bias),
+                          0.0)
+        y, h = jops.mamba_scan(delta, xc, B, C, A, reset, h0,
+                               use_pallas=False)
+        y = y + d_skip[None] * xc
+        return y * jax.nn.silu(z), h
+
+    def jloss(*a):
+        out, h = jgated(*a)
+        return jnp.sum(out * w_out) + jnp.sum(h * w_h)
+    jin = [jnp.asarray(case[k]) for k in _GATED_DIFF]
+    j_out, j_h = jgated(*jin)
+    jg = jax.grad(jloss, argnums=tuple(range(len(jin))))(*jin)
+    tin = {k: _t(v) for k, v in case.items()}
+    before = ops.mamba_scan.plain_calls
+    out, h, ckpt = ops.mamba_scan_gated_fwd(**tin)
+    assert ckpt is None and ops.mamba_scan.plain_calls == before + 1
+
+    def close(got, want, name):
+        want = np.asarray(want)
+        scale = float(np.abs(want).max()) or 1.0
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                   atol=1e-5 * scale, err_msg=name)
+    close(out, j_out, "out")
+    close(h, j_h, "h_last")
+    grads = ops.mamba_scan_gated_bwd(**tin, ckpt=None, dout=_t(w_out),
+                                     dh_last=_t(w_h))
+    got = dict(zip(("dt_pre", "xc", "z", "B", "C", "A", "dt_bias", "d_skip",
+                    "h0"), grads))
+    for name, g in zip(_GATED_DIFF, jg):
+        close(got[name], g, name)
+    assert float(got["dt_pre"][~tin["live"]].abs().max()) == 0.0
+
+
+def _tile_rows(T, L):
+    return [slice(k * L, min(T, (k + 1) * L)) for k in range(-(-T // L))]
+
+
+def _decay(d_t, A, rst):
+    return torch.where(rst, torch.zeros_like(A), torch.exp(d_t[:, None] * A))
+
+
+def _tiled_scan(delta, xs, B, C, A, reset, h0, L=64):
+    """A model of kernel D's three passes: (a) per tile the summary ``Q``
+    (the end state from 0), its sum of delta and whether a row resets; (b)
+    the carry ``h_in[k+1] = P_k h_in[k] + Q_k`` with ``P_k = 0`` after a
+    reset, else ``exp(A sum delta)``; (c) each tile re-expanded from its
+    ``h_in``. Returns ``(y, h_last, ckpt)``."""
+    d, x, Bf, Cf = delta.float(), xs.float(), B.float(), C.float()
+    rst = reset != 0
+    tiles = _tile_rows(d.shape[0], L)
+    summ = []
+    for rows in tiles:
+        q = torch.zeros_like(h0)
+        for t in range(rows.start, rows.stop):
+            q = _decay(d[t], A, rst[t]) * q + (d[t] * x[t])[:, None] * Bf[t]
+        summ.append((q, d[rows].sum(0), bool(rst[rows].any())))
+    ckpt, h = [], h0.clone()
+    for q, dsum, hit in summ:
+        ckpt.append(h)
+        P = torch.zeros_like(A) if hit else torch.exp(A * dsum[:, None])
+        h = P * h + q
+    y = torch.empty_like(d)
+    for rows, hk in zip(tiles, ckpt):
+        for t in range(rows.start, rows.stop):
+            hk = _decay(d[t], A, rst[t]) * hk + (d[t] * x[t])[:, None] * Bf[t]
+            y[t] = (hk * Cf[t]).sum(-1)
+    return y, h, ckpt
+
+
+def _tiled_scan_grad(delta, xs, B, C, A, reset, ckpt, dy, dh_last, L=64,
+                     sub=8):
+    """A model of kernel D''s passes: (a') per tile the reverse summary
+    ``R`` (the gradient leaving the tile leftwards from 0); (b') the
+    reverse carry ``u_in[k-1] = P_k u_in[k] + R_k`` from ``dh_last``, which
+    ends at dh0; (c') per tile, the states recomputed from ``ckpt`` in
+    sub-tiles of ``sub`` rows and walked back from ``u_in``; dA summed per
+    tile, then over tiles in order. Returns ``(d_delta, d_xs, dB, dC, dA,
+    dh0)``."""
+    d, x, Bf, Cf, g = (t.float() for t in (delta, xs, B, C, dy))
+    rst = reset != 0
+    tiles = _tile_rows(d.shape[0], L)
+    summ = []
+    for rows in tiles:
+        u = torch.zeros_like(A)
+        for t in range(rows.stop - 1, rows.start - 1, -1):
+            u = _decay(d[t], A, rst[t]) * (u + g[t][:, None] * Cf[t])
+        summ.append((u, d[rows].sum(0), bool(rst[rows].any())))
+    u_in = [None] * len(tiles)
+    u = dh_last.clone()
+    for k in range(len(tiles) - 1, -1, -1):
+        r, dsum, hit = summ[k]
+        u_in[k] = u
+        P = torch.zeros_like(A) if hit else torch.exp(A * dsum[:, None])
+        u = P * u + r
+    dh0 = u
+    dd, dx = torch.zeros_like(d), torch.zeros_like(d)
+    dB, dC = torch.zeros_like(Bf), torch.zeros_like(Cf)
+    dA_tiles = []
+    for rows, h_in, u in zip(tiles, ckpt, u_in):
+        starts, h = [], h_in
+        for t in range(rows.start, rows.stop):      # walk 1
+            if (t - rows.start) % sub == 0:
+                starts.append(h)
+            h = _decay(d[t], A, rst[t]) * h + (d[t] * x[t])[:, None] * Bf[t]
+        da = torch.zeros_like(A)
+        for j in range(len(starts) - 1, -1, -1):
+            a0 = rows.start + j * sub
+            seg = range(a0, min(rows.stop, a0 + sub))
+            hs, h = [], starts[j]
+            for t in seg:                          # recompute the sub-tile
+                h = _decay(d[t], A, rst[t]) * h + \
+                    (d[t] * x[t])[:, None] * Bf[t]
+                hs.append(h)
+            for i in range(len(hs) - 1, -1, -1):   # walk it back
+                t = seg[i]
+                h_p = hs[i - 1] if i else starts[j]
+                a = _decay(d[t], A, rst[t])
+                dh = u + g[t][:, None] * Cf[t]
+                dadt = dh * h_p * a
+                da += dadt * d[t][:, None]
+                dd[t] = (dadt * A + dh * x[t][:, None] * Bf[t]).sum(-1)
+                dx[t] = (dh * d[t][:, None] * Bf[t]).sum(-1)
+                dB[t] = (dh * (d[t] * x[t])[:, None]).sum(0)
+                dC[t] = (g[t][:, None] * hs[i]).sum(0)
+                u = a * dh
+        dA_tiles.append(da)
+    return dd, dx, dB, dC, torch.stack(dA_tiles).sum(0), dh0
+
+
+@pytest.mark.parametrize("resets", ["tile edges", "every row", "none"])
+@pytest.mark.parametrize("T,DI,DS", [(150, 8, 4), (300, 6, 16)])
+def test_tile_decomposition_matches_plain_scan(T, DI, DS, resets):
+    """The algebra of the chunked scan (:func:`_tiled_scan`,
+    :func:`_tiled_scan_grad`: 64-row tiles, the last one ragged) against
+    the plain scan and its stepwise gradient (``ref.mamba_scan_reference``
+    / ``ref.mamba_scan_grad``), within 1e-5 (``rtol``, and ``atol`` times
+    the largest magnitude): resets on a tile's first and last row (64,
+    127) and inside one, on every row, or none; a non-zero h0."""
+    delta, xs, B, C, A, _, h0 = map(_t, _scan_inputs(T, DI, DS, T + DS))
+    reset = torch.zeros(T, dtype=torch.int32)
+    if resets == "tile edges":
+        reset[[10, 64, 127]] = 1
+    elif resets == "every row":
+        reset[:] = 1
+    rng = np.random.default_rng(T)
+    dy = _t(rng.standard_normal((T, DI)).astype(np.float32))
+    dh = _t(rng.standard_normal((DI, DS)).astype(np.float32))
+
+    def close(got, want):
+        scale = float(want.abs().max()) or 1.0
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5 * scale)
+    y, h_last, ckpt = _tiled_scan(delta, xs, B, C, A, reset, h0)
+    y_r, h_r = ref.mamba_scan_reference(delta, xs, B, C, A, reset, h0)
+    close(y, y_r)
+    close(h_last, h_r)
+    got = _tiled_scan_grad(delta, xs, B, C, A, reset, ckpt, dy, dh)
+    _, *want = ref.mamba_scan_grad(delta, xs, B, C, A, reset, h0, dy, dh)
+    for a, b in zip(got, want):
+        close(a, b)
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def arch(request):
     jcfg = jget(request.param).reduced(n_layers=3)
