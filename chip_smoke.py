@@ -130,9 +130,37 @@ exit and no result line):
            as is the same corpus packed without a split); two planted
            carry faults (pad rows resetting the SSM state, the state's
            gradient dropped at the hand-off) must exceed those limits;
+  train_pipeline  the pipelined step (``launch/train.train`` with
+           ``d_p`` stages, every stage on this card, each planned with the
+           card's memory over the stages), bf16 at full width, on the train
+           phase's github batches: (a) gemma3-1b at 2x1 under the planner's
+           own schedule (interleaved-1f1b, v pinned from step 0), 2 steps;
+           (b) gemma3-1b at 4x1 (zero-bubble-h1, split backward), 1 step;
+           (c) hymba-1.5b at 2x1, 1 step under its own schedule and 1 with
+           gpipe-1f1b forced. Per step: loss, tokens, wall time, tokens/s,
+           each stage's estimate, the card's peak, the hand-offs and their
+           bytes, the bubble share; every loss finite, the card's peak at
+           or under the sum of its stages' estimates, each stage's kernel
+           launches as the plan predicts (its layers x chunks + its remat
+           depths; the merge pass where a chunk's keys split; B, C1, C2
+           once per chunk on the last stage; the split's W launches none
+           of the port's kernels) and no plain call;
+  train_pipeline_verify  float32 hymba-1.5b at full width at 2x1: the
+           verify phases' sequences (one of 3,000 tokens over 3 chunks,
+           pad rows in front of the KV and SSM carries), a remat table
+           non-zero on both stages; gpipe-1f1b, interleaved-1f1b (the
+           planner's v) and zero-bubble-h1 (split backward) each against
+           one unchunked forward and backward per sequence at
+           train_verify_hymba's limits; the split equals the fused
+           backward and the remat table a zeroed one, bit for bit; three
+           planted faults (the stream gradient stage 1 hands stage 0
+           dropped for one chunk, the last stage's tied-embedding gradient
+           dropped, a stream run through the wrong virtual stage) must fall
+           outside the limits;
   kernels  every kernel of the port with its launch counts in serve,
-           train, train_hymba and the verify phases' chunked step (the
-           float32 forward, B, C1 and C2 run only there).
+           train, train_hymba, the verify phases' chunked step (the
+           float32 forward, B, C1 and C2 run only there) and the two
+           pipeline phases.
 
 The last two lines are the kernels JSON and the device JSON.
 """
@@ -1017,26 +1045,19 @@ def _verify_plan(arch, seed):
 def _verify_attn_case(arch, phase, seed, dev):
     """``_attn_bwd_case``'s arguments for the largest chunk of ``arch``'s
     float32 verify plan as the step feeds it to a global attention layer:
-    the chunk's seg and pos, its carry in front of its keys (the capacity
-    the step gives its pipeline: every chunk that reads or writes the
-    carry, its context plus its rows, in rows of ROW_MULTIPLE), and the
-    last context tile as the dropped tile."""
-    from repro_torch.runtime.train_step import ROW_MULTIPLE
+    the chunk's seg and pos, its carry's live rows in front of its keys
+    (``models/attention``: the carry holds its sequence's rows so far),
+    and the last context tile as the dropped tile."""
     cfg, corpus, plan = _verify_plan(arch, seed)
     chunk, _, seg, pos = _plan_chunks(corpus, plan)[0]
     if not chunk.context:
         raise PhaseError(f"{phase}'s largest chunk has no carry: {chunk}")
-
-    def rows(n):
-        return -(-n // ROW_MULTIPLE) * ROW_MULTIPLE
-    pipe = next(p for p in plan.pipelines if chunk in p.chunks)
-    cap = rows(max(c.context + rows(c.tokens) for c in pipe.chunks
-                   if c.has_dependents or c.context > 0))
     s = cfg.spec
 
     def inputs(gen, dtype):
         return _plan_chunk(gen, seg, pos, s.n_heads, s.n_kv_heads,
-                           s.head_dim, dtype, dev, chunk.context, cap)
+                           s.head_dim, dtype, dev, chunk.context,
+                           chunk.context)
     name = f"{phase} chunk ({chunk.tokens} tokens, carry {chunk.context})"
     return name, inputs, slice(chunk.context - 32, chunk.context)
 
@@ -1981,6 +2002,381 @@ def phase_train_verify_hymba(dev, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the pipeline executor: train_pipeline, train_pipeline_verify
+
+# (tag, arch, stages, schedule pinned or None for the planner's, steps)
+PIPE_RUNS = (("a", "gemma3-1b", 2, None, 2),
+             ("b", "gemma3-1b", 4, None, 1),
+             ("c", "hymba-1.5b", 2, None, 1),
+             ("c", "hymba-1.5b", 2, "gpipe-1f1b", 1))
+
+
+@contextlib.contextmanager
+def _per_stage(ctr, tally):
+    """Attributes every launch counted in ``ctr`` to the stage whose
+    action made it: ``tally[p][name]``."""
+    from repro_torch.runtime.executor import PipelineExecutor
+    run = PipelineExecutor._run
+
+    def counted(self, p, a):
+        before = _read_counts(ctr)
+        run(self, p, a)
+        t = tally.setdefault(p, dict.fromkeys(before, 0))
+        for k, n in _read_counts(ctr).items():
+            t[k] += n - before[k]
+    PipelineExecutor._run = counted
+    try:
+        yield
+    finally:
+        PipelineExecutor._run = run
+
+
+def _expected_stage_launches(cfg, plan, d_p, dtype, n_sm, cm,
+                             policy="stage-aware"):
+    """Each stage's launches in one pipelined step of ``plan`` (its
+    schedule and ``v``; the cost model ``cm`` the trainer orders
+    interleaved stages by): per virtual stage and chunk one attention
+    forward with its tile ranges per layer and per remat'd layer (the
+    plan's depth, or all of the block's layers where the order remats a
+    forward past the stage's budget: ``program.stage_programs``), a merge
+    pass
+    where the bf16 forward splits the chunk's keys
+    (``flash_attention.kv_splits``), one of each backward pass per layer;
+    the same for the selective scan's passes on mamba layers; B, C1, C2
+    once per chunk on the last stage; the split's W runs cuBLAS products
+    only (no kernel of the port); no plain call."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import BLOCK_KV, kv_splits
+    from repro_torch.models.config import LayerKind
+    from repro_torch.runtime.sharding import stage_blocks
+    from repro_torch.runtime.train_step import _rows, stage_remat
+    from repro_torch.core.schedule import get_schedule
+    from repro_torch.runtime.program import stage_programs
+    from repro_torch.runtime.train_step import _table
+    v = plan.v_stages
+    blocks = stage_blocks(d_p, cfg.spec.n_layers, v)
+    depths = stage_remat(plan, cfg.spec.n_layers, d_p, v, policy)
+    table, base = _table(plan, d_p, policy), 0
+    for pipe in plan.pipelines:
+        n = pipe.n_chunks
+        programs = stage_programs(
+            pipe, d_p, v=v, cm=cm, depths=[r[base:base + n] for r in table],
+            split=get_schedule(plan.schedule, v).split_bwd)
+        for p, prog in enumerate(programs):
+            for a in prog:
+                if a.remat:
+                    depths[p][a.vstage][base + a.chunk] = \
+                        len(blocks[p][a.vstage])
+        base += n
+    split = []              # per chunk: does its bf16 forward split?
+    for c in (c for pipe in plan.pipelines for c in pipe.chunks):
+        T = _rows(c.tokens)     # keys: the carry's live rows, then T
+        S = -(-(c.context + T) // BLOCK_KV) * BLOCK_KV
+        split.append(dtype == torch.bfloat16 and kv_splits(
+            T, S, cfg.spec.n_heads, n_sm) > 1)
+    n = plan.n_chunks
+    out = []
+    for p in range(d_p):
+        one = {}
+        for kind in ("fwd", "bwd", "combine"):
+            one[kind] = sum(
+                len(blocks[p][j]) + (depths[p][j][k] if kind != "bwd"
+                                     else 0)
+                for j in range(v) for k in range(n)
+                if kind != "combine" or split[k])
+        exp = _expected_launches(cfg, plan, [0] * n, dtype)
+        attn = cfg.layer_kind != LayerKind.MAMBA
+        ssm = cfg.spec.ssm_state > 0
+        for k in exp:
+            if k.startswith("plain"):
+                continue
+            if k.startswith("ce_"):
+                exp[k] = exp[k] if p == d_p - 1 else 0
+            elif k.startswith("mamba_scan"):
+                bwd = k.startswith("mamba_scan_bwd") or \
+                    k == "mamba_scan_reduce_kernel"
+                exp[k] = (one["bwd"] if bwd else one["fwd"]) if ssm else 0
+            elif k in ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"):
+                exp[k] = one["bwd"] if attn else 0
+            elif k == "flash_combine_kernel":
+                exp[k] = one["combine"] if attn else 0
+            elif exp[k]:                    # the forward and its ranges
+                exp[k] = one["fwd"] if attn else 0
+        out.append(exp)
+    return out
+
+
+def _check_stage_launches(tally, expected, what):
+    for p, exp in enumerate(expected):
+        got = tally.get(p, {})
+        bad = {k: (got.get(k, 0), n) for k, n in exp.items()
+               if got.get(k, 0) != n}
+        if bad:
+            raise PhaseError(f"{what}: stage {p} launch counts differ from "
+                             f"the plan's (got, expected): {bad}")
+
+
+def trainer_cm(d_p, cfg):
+    """The cost model ``launch/train.train`` plans ``d_p`` stages on this
+    card with (the card's memory over the stages)."""
+    from repro_torch.core import ClusterSpec, CostModel
+    cl = ClusterSpec()
+    return CostModel(cfg.spec, cl.with_(d_p=d_p, hbm_bytes=cl.hbm_bytes /
+                                        d_p))
+
+
+def phase_train_pipeline(dev, seed):
+    """The pipelined step at full width in bf16, every stage on this card:
+    :data:`PIPE_RUNS` through ``launch/train.train`` (``--mesh Px1``)."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    recs, totals = [], {}
+    for tag, arch, d_p, sched, steps in PIPE_RUNS:
+        cfg = get_arch(arch)
+        loop = _train_loop(seed)
+        loop.steps, loop.d_p, loop.schedule = steps, d_p, sched
+        ctr = _train_counters()
+        tally, expected, lines = {}, [], []
+
+        def on_step(step, plan, corpus):
+            if expected:
+                _check_stage_launches(tally, expected[-1],
+                                      f"({tag}) step {step - 1}")
+            expected.append(_expected_stage_launches(
+                cfg, plan, d_p, torch.bfloat16, n_sm, trainer_cm(d_p, cfg)))
+            for t in tally.values():
+                for k, n in t.items():
+                    totals[k] = totals.get(k, 0) + n
+            tally.clear()
+            _zero_counts(ctr)
+        with _per_stage(ctr, tally):
+            trainer, hist = train(cfg, loop, device=dev, on_step=on_step,
+                                  log=lines.append)
+        _check_stage_launches(tally, expected[-1], f"({tag}) last step")
+        for t in tally.values():
+            for k, n in t.items():
+                totals[k] = totals.get(k, 0) + n
+        for ln in lines:
+            print(f"[train_pipeline] ({tag}) {arch} {ln}", flush=True)
+        for h, exp in zip(hist, expected):
+            rec = dict(h, run=tag, arch=arch, mesh=f"{d_p}x1",
+                       stage_launches=exp)
+            recs.append(rec)
+            if not math.isfinite(h["loss"]):
+                raise PhaseError(f"non-finite loss: {rec}")
+            if h["card_peak_mem_gb"][0] > h["card_plan_mem_gb"][0]:
+                raise PhaseError(
+                    f"the card's peak {h['card_peak_mem_gb'][0]} GB is above "
+                    f"the sum of its stages' estimates "
+                    f"{h['card_plan_mem_gb'][0]} GB: {rec}")
+        del trainer
+        torch.cuda.empty_cache()
+    return recs, totals
+
+
+def _pipeline_fault(fault):
+    """A planted pipeline fault (undone on exit): ``"stream gradient
+    dropped"`` zeroes the first gradient stage 1 hands to stage 0;
+    ``"tied gradient dropped"`` drops the last stage's tied-embedding
+    gradient before the sum; ``"wrong virtual stage"`` runs the stream
+    meant for stage 0's virtual stage 1 through its virtual stage 0
+    (chunk 0 only)."""
+    import torch
+
+    from repro_torch.runtime.executor import PipelineExecutor
+    from repro_torch.runtime.pipeline import PipelineStage
+    from repro_torch.runtime.train_step import PipelineTrainer
+    if fault == "stream gradient dropped":
+        obj, name = PipelineExecutor, "_send_grad"
+        orig, sent = obj._send_grad, []
+
+        def faulty(self, s, k, g):
+            if s % self.d_p == 1 and not sent:
+                sent.append(k)
+                g = torch.zeros_like(g)
+            orig(self, s, k, g)
+    elif fault == "tied gradient dropped":
+        obj, name = PipelineTrainer, "_sum_tied"
+        orig = obj._sum_tied
+
+        def faulty(self, accs):
+            accs[-1][self.tied[1]].zero_()
+            orig(self, accs)
+    elif fault == "wrong virtual stage":
+        obj, name = PipelineStage, "forward"
+        orig = obj.forward
+
+        def faulty(self, k, j, x):
+            if self.p == 0 and j == 1 and k == 0:
+                blocks = self.blocks
+                self.blocks = [blocks[0], blocks[0]] + blocks[2:]
+                try:
+                    return orig(self, k, j, x)
+                finally:
+                    self.blocks = blocks
+            return orig(self, k, j, x)
+    else:
+        raise ValueError(fault)
+
+    @contextlib.contextmanager
+    def planted():
+        setattr(obj, name, faulty)
+        try:
+            yield
+        finally:
+            setattr(obj, name, orig)
+    return planted()
+
+
+def _pipeline_verify_plans(cfg, seed):
+    """train_pipeline_verify's corpus (the verify phases' four sequences)
+    and its ``2x1`` plans, ``(corpus, cm, {schedule: plan})``: the planner's
+    own pick and each backend pinned, K = 3, a 2 GB activation budget per
+    stage, so that the ILP remats layers on both stages."""
+    import numpy as np
+
+    from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
+                                  plan_batch)
+    rng = np.random.default_rng(seed)
+    lens = [3000, 900, 500, 300]
+    corpus = {i: rng.integers(0, cfg.spec.vocab, n).astype(np.int32)
+              for i, n in enumerate(lens)}
+    cm = CostModel(cfg.spec, ClusterSpec(d_p=2, hbm_bytes=40e9))
+    budget = max(cm.m_model_states(p) for p in (1, 2)) + 2e9
+    plans = {s: plan_batch(cm, lens, PlannerConfig(
+        fixed_k=3, bucket_rounding=64, remat_mode="stage_aware",
+        capacity_bytes=budget, schedule=s))
+        for s in ("gpipe-1f1b", "interleaved-1f1b", "zero-bubble-h1")}
+    return corpus, cm, plans
+
+
+def phase_train_pipeline_verify(dev, seed):
+    """hymba-1.5b in float32 at full width on ``2x1``: one sequence of
+    3,000 tokens over 3 chunks with pad rows in front of the KV and SSM
+    carries, a non-zero remat table on both stages. Each schedule
+    (gpipe-1f1b; interleaved-1f1b at the planner's v; zero-bubble-h1 with
+    the split backward) against one unchunked forward and backward per
+    sequence at train_verify_hymba's limits (loss 1e-5 relative, each
+    gradient leaf within 1e-4 of its largest value); the split backward
+    equals the fused one and the remat table a zeroed one bit for bit;
+    three planted faults must fall outside the limits."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.runtime.pipeline import PipelineGeometry
+    from repro_torch.runtime.train_step import ChunkedTrainer, PipelineTrainer
+    cfg = get_arch("hymba-1.5b")
+    corpus, cm, plans = _pipeline_verify_plans(cfg, seed)
+    base = plans["zero-bubble-h1"]
+    chunks = [c for p in base.pipelines for c in p.chunks]
+    if max(s.n_chunks for s in base.sequences) < 3 or not any(
+            c.has_dependents and c.tokens % 64 for c in chunks) or not all(
+            any(row) for row in base.ckpt_table()):
+        raise PhaseError(f"the verify plan lacks a 3-chunk split with pad "
+                         f"rows before a carry, or remat on both stages: "
+                         f"{[(c.context, c.tokens) for c in chunks]} "
+                         f"{base.ckpt_table()}")
+    if any([(c.context, c.tokens) for q in p.pipelines for c in q.chunks]
+           != [(c.context, c.tokens) for c in chunks] or p.ckpt_table() !=
+           base.ckpt_table() for p in plans.values()):
+        raise PhaseError("the pinned schedules change the verify plan")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = DecoderLM(cfg).init(gen, device=dev)
+    tr = ChunkedTrainer(cfg, params, device=dev, compute_dtype=torch.float32)
+    whole = tr.sequence_loss_and_grads(corpus)
+    names = _leaf_names(tr.params)
+    del tr
+    torch.cuda.empty_cache()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    ctr = _train_counters()
+
+    def against_whole(run):
+        worst, leaf = 0.0, 0
+        for i, (a, b) in enumerate(zip(tree_leaves(run.grads),
+                                       tree_leaves(whole.grads))):
+            r = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                 1e-30)
+            if r > worst:
+                worst, leaf = r, i
+        rel = abs(run.loss - whole.loss) / abs(whole.loss)
+        return {"loss": run.loss, "loss_rel_diff": rel,
+                "grad_max_rel_diff": worst,
+                "grad_max_rel_diff_leaf": names[leaf],
+                "within": rel <= 1e-5 and worst <= HYMBA_GRAD_LIMIT
+                and run.n_valid == whole.n_valid}
+
+    def run(sched, split, policy="stage-aware", fault=None, count=False):
+        plan = plans[sched]
+        tr = PipelineTrainer(cfg, params, geometry=PipelineGeometry(
+            d_p=2, schedule=sched, v_stages=plan.v_stages, split_bwd=split),
+            cards=[dev], compute_dtype=torch.float32, cost_model=cm)
+        tally = {}
+        _zero_counts(ctr)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_per_stage(ctr, tally))
+            if fault:
+                stack.enter_context(_pipeline_fault(fault))
+            res = tr.loss_and_grads(plan, corpus, remat_policy=policy)
+        if count:
+            _check_stage_launches(tally, _expected_stage_launches(
+                cfg, plan, 2, torch.float32, n_sm, cm, policy),
+                f"{sched} split={split}")
+        del tr
+        return res, tally
+
+    out = {"chunks": [(c.kind.value, c.context, c.tokens) for c in chunks],
+           "remat_table": base.ckpt_table(), "loss": whole.loss,
+           "grad_limit": HYMBA_GRAD_LIMIT,
+           "v": plans["interleaved-1f1b"].v_stages}
+    results, launches = {}, {}
+    for sched, split in (("gpipe-1f1b", False), ("interleaved-1f1b", False),
+                         ("zero-bubble-h1", True)):
+        res, tally = run(sched, split, count=True)
+        results[sched] = res
+        for t in tally.values():
+            for k, n in t.items():
+                launches[k] = launches.get(k, 0) + n
+        out[sched] = dict(against_whole(res), **res.pipeline)
+    out["launches"] = launches
+    split = results["zero-bubble-h1"]
+    fused, _ = run("zero-bubble-h1", False)
+    zeroed, _ = run("zero-bubble-h1", True, policy="none")
+
+    def bitwise(a, b):
+        return a.loss == b.loss and all(
+            torch.equal(x, y) for x, y in zip(tree_leaves(a.grads),
+                                              tree_leaves(b.grads)))
+    out["split equals fused"] = bitwise(split, fused)
+    out["remat table equals zeroed"] = bitwise(split, zeroed)
+    del fused, zeroed
+    faults = {}
+    for fault, sched in (("stream gradient dropped", "zero-bubble-h1"),
+                         ("tied gradient dropped", "zero-bubble-h1"),
+                         ("wrong virtual stage", "interleaved-1f1b")):
+        res, _ = run(sched, sched == "zero-bubble-h1", fault=fault)
+        faults[fault] = against_whole(res)
+    out["planted faults"] = faults
+    bad = [s for s in results if not out[s]["within"]]
+    if bad or not out["split equals fused"] or \
+            not out["remat table equals zeroed"]:
+        raise PhaseError(f"the pipelined step differs ({bad}): {out}")
+    missed = [f for f, r in faults.items() if r["within"]]
+    if missed:
+        raise PhaseError(f"the limits do not catch {missed}: {out}")
+    del results, split, whole, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def _leaf_names(tree, prefix=""):
     """Dotted names of a parameter tree's leaves in ``tree_leaves``
     order."""
@@ -2103,16 +2499,32 @@ def main() -> int:
           flush=True)
     verify_hymba_counts = ver["launches"]
 
+    (pip, pipe_counts), dt = run("train_pipeline", lambda:
+                                 phase_train_pipeline(dev, args.seed))
+    for rec in pip:
+        print(f"[train_pipeline] {json.dumps(rec)}", flush=True)
+    print(f"[train_pipeline] ok in {dt:.1f}s", flush=True)
+
+    ver, dt = run("train_pipeline_verify", lambda:
+                  phase_train_pipeline_verify(dev, args.seed))
+    print(f"[train_pipeline_verify] ok in {dt:.1f}s: {json.dumps(ver)}",
+          flush=True)
+    pipe_verify_counts = ver["launches"]
+
     # launches per path: serve, the bf16 train steps, and the float32
     # verify phases' chunked step (the float32 B and C1 run only there)
     paths = {"serve": serve_counts, "train": train_counts,
              "train_hymba": hymba_counts, "train_verify": verify_counts,
-             "train_verify_hymba": verify_hymba_counts}
+             "train_verify_hymba": verify_hymba_counts,
+             "train_pipeline": pipe_counts,
+             "train_pipeline_verify": pipe_verify_counts}
     print(f"[kernels] serve: {json.dumps(serve_counts)}; train "
           f"({len(trn)} steps): {json.dumps(train_counts)}; train_hymba "
           f"({len(hym)} steps): {json.dumps(hymba_counts)}; train_verify: "
           f"{json.dumps(verify_counts)}; train_verify_hymba: "
-          f"{json.dumps(verify_hymba_counts)}; total "
+          f"{json.dumps(verify_hymba_counts)}; train_pipeline "
+          f"({len(pip)} steps): {json.dumps(pipe_counts)}; "
+          f"train_pipeline_verify: {json.dumps(pipe_verify_counts)}; total "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
     fa = "src/repro_torch/kernels/csrc/flash_attention.cu"
     cs = "src/repro_torch/kernels/csrc/cross_entropy.cu"

@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of the InfiniPipe reproduction (serving and
-single-GPU training).
+"""PyTorch/CUDA port of the InfiniPipe reproduction (serving, and
+training on one card or pipelined over stages).
 
 Mirrors the JAX package's module names (``configs``, ``core``, ``models``,
 ``kernels``, ``optim``, ``runtime``, ``serve``, ``data``, ``launch``). Imports

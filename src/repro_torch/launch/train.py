@@ -1,4 +1,5 @@
-"""Training driver of the port on one card: the planner's chunked step.
+"""Training driver of the port: the planner's chunked step, on one card
+or pipelined over ``--mesh Px1`` stages.
 
 Each step samples a global batch (``data/synth.sample_corpus_batch``),
 plans it with the host planner (Alg. 1 chunking, the grouping DP, the
@@ -25,9 +26,26 @@ On the CPU, at a reduced size (float32):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch gemma3-1b --reduced --steps 2 --batch 4 --context 256
 
+``--mesh PxS`` with ``P > 1`` plans for ``P`` pipeline stages (each
+planned with the memory of its card divided by the stages on that card)
+and runs :class:`repro_torch.runtime.train_step.PipelineTrainer`: stage
+``p`` on card ``p mod --cards``, the schedule backend the planner picks for
+step 0 (or ``--schedule``, ``--v-stages``) pinned for the run, the
+zero-bubble split backward as ``--split-bwd`` says. ``S`` must be 1 (the
+sequence-parallel axis is not ported). On the card, gemma3-1b on two
+stages of one H100:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \
+      --steps 2 --batch 8 --context 16384 --mesh 2x1
+
 Each step prints one line: loss, valid tokens, wall time, tokens per
 second, the card's peak allocated memory and the plan's own peak-memory
-estimate. ``--profile PATH`` runs the last step under ``torch.profiler``
+estimate; pipelined, also each stage's estimate (and the planner's memory
+model on the order the stage ran, ``program.residual_peaks``), each
+card's peak, the hand-offs and their bytes, and the schedule's bubble
+share
+(``core/schedule.ScheduleSpec.bubble_fraction`` on the plan's mean stage
+times). ``--profile PATH`` runs the last step under ``torch.profiler``
 and writes a JSON summary (device time by kernel group, launches, the
 device's busy share of the step). ``--memory-snapshot PATH`` records the
 last step's allocation history, writes the snapshot (a pickle that
@@ -43,10 +61,10 @@ import math
 import sys
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 __all__ = ["TrainConfig", "train", "plan_step", "main", "BUCKET_ROUNDING",
-           "PlanError"]
+           "PlanError", "parse_mesh"]
 
 
 class PlanError(RuntimeError):
@@ -65,14 +83,38 @@ class TrainConfig:
     # "stage-aware": the ILP's per-chunk remat depths; "uniform": the
     # largest depth on every chunk (both as in the JAX trainer)
     ckpt_policy: str = "stage-aware"
+    # pipeline stages; the schedule backend and its virtual stages (None
+    # and 0: the planner's pick for step 0, then pinned); the zero-bubble
+    # split backward: "auto" (the backend's), "on" or "off"
+    d_p: int = 1
+    schedule: Optional[str] = None
+    v_stages: int = 0
+    split_bwd: str = "auto"
 
 
 BUCKET_ROUNDING = 256     # chunk-capacity granularity, as the JAX trainer
 
 
-def plan_step(cm, loop: TrainConfig, step: int):
+def parse_mesh(text: str) -> Tuple[int, int]:
+    """``"PxS"`` -> ``(P, S)``; ``S`` must be 1."""
+    try:
+        p, s = (int(x) for x in text.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh takes PxS, got {text!r}") from None
+    if p < 1 or s < 1:
+        raise ValueError(f"--mesh {text}: sizes must be >= 1")
+    if s != 1:
+        raise NotImplementedError(
+            f"--mesh {text}: the sequence-parallel axis (S > 1) is not "
+            f"ported (ROADMAP.md queue 1, item 4; ZeRO-3 over it: item 3)")
+    return p, s
+
+
+def plan_step(cm, loop: TrainConfig, step: int, *,
+              schedule: Optional[str] = None, v_stages: int = 0):
     """Step ``step``'s batch and its plan under the cost model ``cm``, as
-    :func:`train` runs them: ``(corpus, plan)``."""
+    :func:`train` runs them: ``(corpus, plan)``; ``schedule`` and
+    ``v_stages`` pin the planner's schedule backend."""
     from repro_torch.core import PlannerConfig, plan_batch
     from repro_torch.data import sample_corpus_batch
     corpus = sample_corpus_batch(loop.dataset, loop.global_batch,
@@ -81,19 +123,24 @@ def plan_step(cm, loop: TrainConfig, step: int):
     remat_mode = ("stage_aware" if loop.ckpt_policy == "stage-aware"
                   else "uniform")
     pconf = PlannerConfig(bucket_rounding=BUCKET_ROUNDING,
-                          remat_mode=remat_mode)
+                          remat_mode=remat_mode, schedule=schedule,
+                          v_stages=v_stages)
     return corpus, plan_batch(cm, [len(v) for v in corpus.values()], pconf)
 
 
 def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
           cluster=None, log: Callable = print,
-          on_step: Optional[Callable] = None) -> Tuple[object, List[Dict]]:
+          on_step: Optional[Callable] = None,
+          cards: Optional[Sequence] = None) -> Tuple[object, List[Dict]]:
     """Run ``loop.steps`` steps; returns ``(trainer, history)``.
 
     ``params``: starting parameters in the port's layout (default: random
     from ``loop.seed``). ``cluster``: the planner's hardware (default: one
-    H100). ``on_step(step, plan, corpus)`` is called before each step (the
-    caller may reset counters there)."""
+    H100; with ``loop.d_p > 1`` its ``d_p`` is set and each stage gets its
+    card's memory divided by the stages on that card). ``cards``: the
+    pipeline's cards (default: ``device``). ``on_step(step, plan,
+    corpus)`` is called before each step (the caller may reset counters
+    there)."""
     import torch
 
     from repro_torch.core import ClusterSpec, CostModel
@@ -103,7 +150,14 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
 
     device = torch.device(device)
     dtype = dtype_of(loop.compute_dtype)
-    cm = CostModel(cfg.spec, cluster or ClusterSpec())
+    d_p = loop.d_p
+    cards = [torch.device(c) for c in (cards or [device])]
+    cluster = cluster or ClusterSpec()
+    if d_p > 1:
+        per_card = -(-d_p // len(cards))
+        cluster = cluster.with_(d_p=d_p,
+                                hbm_bytes=cluster.hbm_bytes / per_card)
+    cm = CostModel(cfg.spec, cluster)
     try:
         cm.token_capacity()
     except ValueError as e:
@@ -111,20 +165,38 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
     if params is None:
         gen = torch.Generator(device=device).manual_seed(loop.seed)
         params = DecoderLM(cfg).init(gen, device=device)
-    trainer = ChunkedTrainer(cfg, params, device=device, compute_dtype=dtype)
-    del params
+    trainer = None
+    if d_p == 1:
+        trainer = ChunkedTrainer(cfg, params, device=device,
+                                 compute_dtype=dtype)
+        del params
+    pinned = (loop.schedule, loop.v_stages)
     history = []
     for step in range(loop.steps):
-        corpus, plan = plan_step(cm, loop, step)
+        corpus, plan = plan_step(cm, loop, step, schedule=pinned[0],
+                                 v_stages=pinned[1])
+        if trainer is None:
+            # the schedule and v place the layers: pinned for the run
+            pinned = (plan.schedule, plan.v_stages)
+            trainer = _pipeline_trainer(cfg, loop, plan, params, cards,
+                                        dtype, cm)
+            del params
+            g = trainer.geom
+            log(f"[pipeline] d_p={d_p} schedule={g.schedule} "
+                f"v={g.v_stages} split_bwd={g.split_bwd} cards="
+                f"{[str(c) for c in cards]} stage_devices="
+                f"{[str(d) for d in trainer.devices]}")
         if on_step is not None:
             on_step(step, plan, corpus)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-            torch.cuda.reset_peak_memory_stats(device)
+        for c in cards:
+            if c.type == "cuda":
+                torch.cuda.synchronize(c)
+                torch.cuda.reset_peak_memory_stats(c)
         t0 = time.perf_counter()
         res = trainer.step(plan, corpus, remat_policy=loop.ckpt_policy)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        for c in cards:
+            if c.type == "cuda":
+                torch.cuda.synchronize(c)
         wall = time.perf_counter() - t0
         rec = {"step": step, "loss": res.loss, "tokens": res.n_valid,
                "wall_s": wall, "tokens_per_s": res.n_valid / wall,
@@ -137,6 +209,15 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
                                        default=0.0) / 1e9,
                "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
                                if device.type == "cuda" else None)}
+        extra = ""
+        if d_p > 1:
+            rec.update(_pipeline_record(cm, plan, trainer, cards, res))
+            extra = (f" stages_est {rec['stage_plan_mem_gb']} GB (in the"
+                     f" order run {rec['stage_order_mem_gb']})"
+                     f" card_peak {rec['card_peak_mem_gb']} GB (est "
+                     f"{rec['card_plan_mem_gb']}) handoffs "
+                     f"{rec['handoffs']} ({rec['handoff_bytes'] / 1e6:.1f} "
+                     f"MB) bubble {rec['bubble_share']:.4f}")
         history.append(rec)
         mem = (f"{rec['peak_mem_gb']:.2f} GB" if rec["peak_mem_gb"]
                is not None else "n/a (cpu)")
@@ -144,8 +225,55 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
             f"wall {wall:.2f}s tok/s {rec['tokens_per_s']:.1f} "
             f"peak_mem {mem} (plan estimate "
             f"{rec['plan_peak_mem_gb']:.2f} GB) chunks {res.chunks} "
-            f"remat_layers {res.remat_layers}")
+            f"remat_layers {res.remat_layers}" + extra)
     return trainer, history
+
+
+def _pipeline_trainer(cfg, loop: TrainConfig, plan, params, cards, dtype,
+                      cm):
+    """The run's :class:`PipelineTrainer` for step 0's ``plan``."""
+    from repro_torch.core.schedule import get_schedule
+    from repro_torch.runtime.pipeline import PipelineGeometry
+    from repro_torch.runtime.train_step import PipelineTrainer
+    split = {"auto": get_schedule(plan.schedule, plan.v_stages).split_bwd,
+             "on": True, "off": False}[loop.split_bwd]
+    geom = PipelineGeometry(d_p=loop.d_p, schedule=plan.schedule,
+                            v_stages=plan.v_stages, split_bwd=split)
+    return PipelineTrainer(cfg, params, geometry=geom, cards=cards,
+                           compute_dtype=dtype, cost_model=cm)
+
+
+def _pipeline_record(cm, plan, trainer, cards, res) -> Dict:
+    """A pipelined step's line: each stage's estimate, each card's peak
+    beside the sum of its stages' estimates, the hand-offs, and the
+    schedule's bubble share on the plan's mean stage times."""
+    import torch
+
+    from repro_torch.core.schedule import get_schedule
+    g = trainer.geom
+    est = [max(p.est_peak_mem[s] for p in plan.pipelines)
+           for s in range(g.d_p)]
+    card_est = [sum(est[c::len(cards)]) for c in range(len(cards))]
+    spec = get_schedule(g.schedule, g.v_stages)
+    bub = work = 0.0
+    for pipe in plan.pipelines:
+        t_f, t_b = cm.avg_stage_times(pipe.chunks)
+        bub += spec.bubble_time(pipe.n_chunks, g.d_p, t_f, t_b)
+        work += pipe.n_chunks * (t_f + t_b)
+    peaks = [torch.cuda.max_memory_allocated(c) / 1e9
+             if c.type == "cuda" else None for c in cards]
+    return {"schedule": g.schedule, "v_stages": g.v_stages,
+            "split_bwd": g.split_bwd,
+            "stage_plan_mem_gb": [round(e / 1e9, 3) for e in est],
+            "stage_order_mem_gb": [round(e / 1e9, 3)
+                                   for e in res.pipeline["order_peak_mem"]],
+            "card_plan_mem_gb": [round(e / 1e9, 3) for e in card_est],
+            "card_peak_mem_gb": [None if p is None else round(p, 3)
+                                 for p in peaks],
+            "plan_peak_mem_gb": max(card_est) / 1e9,
+            "bubble_share": bub / (bub + work) if work else 0.0,
+            **{k: res.pipeline[k] for k in ("handoffs", "handoff_bytes",
+                                            "copied_bytes")}}
 
 
 def main(argv=None) -> int:
@@ -160,6 +288,23 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-policy", default="stage-aware",
                     choices=["stage-aware", "uniform"])
+    ap.add_argument("--mesh", default="1x1",
+                    help="PxS: P pipeline stages (S must be 1)")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="cards the stages are placed on (stage p on "
+                         "card p mod cards)")
+    ap.add_argument("--schedule", default=None,
+                    choices=["gpipe-1f1b", "interleaved-1f1b",
+                             "zero-bubble-h1"],
+                    help="pipeline schedule backend (default: the "
+                         "planner's pick for step 0, pinned for the run)")
+    ap.add_argument("--v-stages", type=int, default=0,
+                    help="virtual stages per stage for interleaved-1f1b "
+                         "(0: the planner's pick, pinned for the run)")
+    ap.add_argument("--split-bwd", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="zero-bubble B/W backward split: 'auto' follows "
+                         "the schedule backend (split for zero-bubble-h1)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; never falls back")
     ap.add_argument("--dtype", default=None,
@@ -189,6 +334,7 @@ def main(argv=None) -> int:
         print("error: --memory-snapshot records the CUDA allocator's "
               "history: it needs --device cuda", file=sys.stderr)
         return 2
+    d_p, _ = parse_mesh(args.mesh)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -196,7 +342,11 @@ def main(argv=None) -> int:
                        context=args.context, dataset=args.dataset,
                        seed=args.seed, ckpt_policy=args.ckpt_policy,
                        compute_dtype=args.dtype or (
-                           "float32" if args.reduced else "bfloat16"))
+                           "float32" if args.reduced else "bfloat16"),
+                       d_p=d_p, schedule=args.schedule,
+                       v_stages=args.v_stages, split_bwd=args.split_bwd)
+    cards = ([torch.device(device.type, i) for i in range(args.cards)]
+             if device.type == "cuda" else [device] * args.cards)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"[train] arch={cfg.name} device={name} dtype={loop.compute_dtype} "
@@ -218,7 +368,8 @@ def main(argv=None) -> int:
             prof = profile(activities=acts)
             prof.__enter__()
     try:
-        _, history = train(cfg, loop, device=device, on_step=on_step)
+        _, history = train(cfg, loop, device=device, on_step=on_step,
+                           cards=cards)
     except PlanError as e:
         print(f"error: {e}", file=sys.stderr)
         return 5

@@ -5,9 +5,8 @@ Counterpart of the JAX package's ``models/attention.py`` (the GQA path;
 MLA and M-RoPE come with their families). Packed-varlen semantics: a chunk
 is a flat token buffer ``[T]`` with ``seg`` (segment id per token, -1 =
 padding) and ``pos`` (position within the owning sequence). Split-chunk
-context arrives as KV buffers of capacity ``C_cap`` whose first
-``ctx_len`` entries are valid; context rows belong to segment 0 and carry
-positions ``0..ctx_len-1``.
+context arrives as KV buffers whose first ``ctx_len`` entries are valid;
+context rows belong to segment 0 and carry positions ``0..ctx_len-1``.
 """
 
 from __future__ import annotations
@@ -62,33 +61,46 @@ def project_qkv(cfg: ArchConfig, p: Dict, x: torch.Tensor,
 
 def _append(buf: torch.Tensor, rows: torch.Tensor, offset: int
             ) -> torch.Tensor:
-    """Copy of ``buf`` with ``rows`` written at ``offset`` (clamped so the
-    rows fit, as ``dynamic_update_slice`` clamps)."""
-    off = max(0, min(int(offset), buf.shape[0] - rows.shape[0]))
+    """Copy of ``buf`` with ``rows`` written at ``offset`` (where they
+    fit)."""
     out = buf.clone()
-    out[off:off + rows.shape[0]] = rows.to(buf.dtype)
+    out[offset:offset + rows.shape[0]] = rows.to(buf.dtype)
     return out
 
 
 def make_local_attention_policy() -> Callable:
-    """Single-device attention policy: concatenates the context carry in
-    front of the chunk's KV rows, attends through the kernel dispatch
-    :func:`repro_torch.kernels.ops.flash_attention`, and appends the
-    chunk's rows to the carry at ``ctx_len``."""
+    """Single-device attention policy: the carry's ``ctx_len`` live rows in
+    front of the chunk's KV rows (dead rows after them up to a multiple of
+    the kernel's KV tile), attended through the kernel dispatch
+    :func:`repro_torch.kernels.ops.flash_attention`. The new carry is the
+    old one with the chunk's rows at ``ctx_len``: a copy when the old one
+    has room for them, else that very concatenation (a carry that grows
+    with its sequence, as the training steps' do: they start each one
+    empty, so each chunk keeps its context once, in the keys its
+    attention saves)."""
+    from repro_torch.kernels.flash_attention import BLOCK_KV
     from repro_torch.kernels.ops import flash_attention
 
     def policy(q, k_cur, v_cur, *, seg, pos, ctx_k, ctx_v, ctx_len,
                causal, window, scale):
         if ctx_k is not None:
-            C_cap = ctx_k.shape[0]
-            kk = torch.cat([ctx_k, k_cur.to(ctx_k.dtype)], dim=0)
-            vv = torch.cat([ctx_v, v_cur.to(ctx_v.dtype)], dim=0)
-            rows = torch.arange(C_cap, device=q.device)
-            kv_seg = torch.cat([torch.where(rows < int(ctx_len), 0, -1).to(
-                seg.dtype), seg])
-            kv_pos = torch.cat([rows.to(pos.dtype), pos])
-            new_k = _append(ctx_k, k_cur, ctx_len)
-            new_v = _append(ctx_v, v_cur, ctx_len)
+            C, T = int(ctx_len), k_cur.shape[0]
+            pad = -(C + T) % BLOCK_KV
+
+            def keys(ctx, cur):
+                return torch.cat([ctx[:C], cur.to(ctx.dtype),
+                                  ctx.new_zeros((pad, *ctx.shape[1:]))])
+            kk, vv = keys(ctx_k, k_cur), keys(ctx_v, v_cur)
+            kv_seg = torch.cat([seg.new_zeros(C), seg, seg.new_full((pad,),
+                                                                    -1)])
+            kv_pos = torch.cat([torch.arange(C, dtype=pos.dtype,
+                                             device=pos.device), pos,
+                                pos.new_zeros(pad)])
+            if C + T > ctx_k.shape[0]:
+                new_k, new_v = kk, vv
+            else:
+                new_k = _append(ctx_k, k_cur, C)
+                new_v = _append(ctx_v, v_cur, C)
         else:
             kk, vv, kv_seg, kv_pos = k_cur, v_cur, seg, pos
             new_k = new_v = None

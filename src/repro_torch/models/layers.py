@@ -9,16 +9,17 @@ stored ``[d_out, d_in]`` (``F.linear``'s layout); the weight bridge
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 __all__ = ["dense_init", "embed_init", "rms_norm", "swiglu_init",
            "swiglu_apply", "rope_freqs", "rope_tables", "apply_rope",
-           "linear"]
+           "linear", "deferred_weight_grads", "weight_grad_store"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -40,9 +41,69 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int, *, device,
     return w.to(dtype)
 
 
+# the zero-bubble split backward's weight-gradient store: while a list is
+# set here (deferred_weight_grads), linear layers leave their weight
+# gradient out of the backward and append ``(weight, product)`` to it,
+# ``product()`` being that gradient; a pipeline's W action runs them later
+_WEIGHT_GRADS: Optional[List] = None
+
+
+@contextlib.contextmanager
+def deferred_weight_grads(store: Optional[List]):
+    """Within the block (a forward, and the backward it feeds, which may
+    recompute remat'd layers), linear layers defer their weight gradients
+    to ``store``; None leaves them in the backward."""
+    global _WEIGHT_GRADS
+    prev, _WEIGHT_GRADS = _WEIGHT_GRADS, store
+    try:
+        yield
+    finally:
+        _WEIGHT_GRADS = prev
+
+
+def weight_grad_store() -> Optional[List]:
+    """The store linear layers defer their weight gradients to, if any."""
+    return _WEIGHT_GRADS
+
+
+class _DeferredLinear(torch.autograd.Function):
+    """``F.linear(x, w)`` whose backward computes only ``dx`` and appends
+    ``(w, product)`` to its store. Both products are the ones autograd's
+    ``mm`` backward computes for ``x @ w.T`` (``dy @ w`` and ``dy.T @ x``
+    for a row-major ``x``), so the split backward has the fused one's
+    bits."""
+
+    @staticmethod
+    def forward(ctx, x, w, store):
+        if x.dim() != 2 or w.dtype != x.dtype or not w.is_contiguous():
+            raise ValueError("a deferred linear takes a 2-D input and a "
+                             "contiguous weight of its dtype")
+        ctx.save_for_backward(x, w)
+        # the leaf itself: under remat the saved ``w`` comes back as an
+        # alias of it
+        ctx.store, ctx.weight = store, w
+        return F.linear(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = (w.t().mm(dy.t()).t() if x.stride(0) == 1
+                  and x.stride(1) == x.shape[0] else dy.mm(w))
+        # detached: a closure over x itself would hold its graph, and
+        # through it this node and its store (a cycle the GC cannot see)
+        x = x.detach()
+        ctx.store.append((ctx.weight, lambda: dy.t().mm(x)))
+        return dx, None, None
+
+
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w.T`` in x's dtype (the reference's
-    ``einsum(x, w.astype(dt))``)."""
+    ``einsum(x, w.astype(dt))``); under :func:`deferred_weight_grads` the
+    weight's gradient goes to the store."""
+    if _WEIGHT_GRADS is not None and torch.is_grad_enabled():
+        return _DeferredLinear.apply(x, w, _WEIGHT_GRADS)
     return F.linear(x, w.to(x.dtype))
 
 
@@ -86,12 +147,13 @@ def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int, *, device,
             "w_down": dense_init(gen, d_ff, d_model, **kw)}
 
 
-# bytes of one float32 [rows, d_ff] temporary of _SiluGate, which sets its
-# blocks' rows: over a whole chunk its ~6 temporaries would take 5.2 GB at
-# gemma3-1b's d_ff and a 31k-row chunk, which the planner's memory model
-# does not charge; blocks of 2^28 bytes (9,709 rows at gemma's d_ff, 12,192
-# at hymba's) keep them under 1.7 GB in 2-4 blocks per chunk, each block
-# ~15 more elementwise launches
+# bytes of one float32 [rows, d_ff] temporary of the gated activation's
+# silu (forward and backward), which sets its blocks' rows: over a whole
+# chunk its ~6 temporaries would take 5.2 GB at gemma3-1b's d_ff and a
+# 31k-row chunk, which the planner's memory model does not charge; blocks
+# of 2^28 bytes (9,709 rows at gemma's d_ff, 12,192 at hymba's) keep them
+# under 1.7 GB in 2-4 blocks per chunk, each block ~15 more elementwise
+# launches
 SILU_BLOCK_BYTES = 2 ** 28
 
 
@@ -99,41 +161,56 @@ def _silu_rows(g: torch.Tensor) -> int:
     return max(1, SILU_BLOCK_BYTES // (4 * g[0].numel()))
 
 
-class _SiluGate(torch.autograd.Function):
-    """``silu(g) * u`` (silu in float32, rounded to g's dtype, as the
-    reference rounds) keeping only ``g`` and ``u``: the float32 copies
-    autograd would keep are recomputed in the backward (27.6 KB instead of
-    ~55 KB per token at gemma3-1b's d_ff). Both directions run over blocks
-    of rows (elementwise, so the result is the same bits) whose float32
-    temporaries take SILU_BLOCK_BYTES each."""
+class _SwiGLUDown(torch.autograd.Function):
+    """``(silu(g) * u) @ w_down.T`` keeping only ``g``, ``u`` and the
+    weight. The gated activation ``h`` (``[T, d_ff]``, with ``g`` and ``u``
+    the largest tensors of a layer) is recomputed in the backward, in the
+    pass that computes ``dg`` and ``du`` from the same silu, so a layer
+    keeps 2 ``d_ff`` values a token where the planner's memory model
+    charges 3. silu in float32 and rounded to g's dtype, as the reference
+    rounds; both directions run over blocks of rows whose float32
+    temporaries take SILU_BLOCK_BYTES each (elementwise: the same bits).
+    The products are autograd's for ``h @ w.T`` (``dy @ w``, ``dy.T @
+    h``); under :func:`deferred_weight_grads` the weight's goes to the
+    store."""
 
     @staticmethod
-    def forward(ctx, g, u):
-        ctx.save_for_backward(g, u)
-        out, n = torch.empty_like(u), _silu_rows(g)
+    def forward(ctx, g, u, w):
+        ctx.save_for_backward(g, u, w)
+        ctx.store, ctx.weight = _WEIGHT_GRADS, w
+        h, n = torch.empty_like(u), _silu_rows(g)
         for a in range(0, g.shape[0], n):
             b = slice(a, a + n)
-            out[b] = F.silu(g[b].float()).to(g.dtype) * u[b]
-        return out
+            g32 = g[b].float()
+            h[b] = (g32 * torch.sigmoid(g32)).to(g.dtype) * u[b]
+        return F.linear(h, w.to(g.dtype))
 
     @staticmethod
-    def backward(ctx, dh):
-        g, u = ctx.saved_tensors
-        dg, du, n = torch.empty_like(g), torch.empty_like(u), _silu_rows(g)
+    def backward(ctx, dy):
+        g, u, w = ctx.saved_tensors
+        dh = dy.mm(w.to(g.dtype))
+        h, dg, du = (torch.empty_like(u) for _ in range(3))
+        n = _silu_rows(g)
         for a in range(0, g.shape[0], n):
             b = slice(a, a + n)
             g32 = g[b].float()
             sig = torch.sigmoid(g32)
-            du[b] = dh[b] * (g32 * sig).to(g.dtype)
+            s = (g32 * sig).to(g.dtype)
+            h[b] = s * u[b]
+            du[b] = dh[b] * s
             da = (dh[b] * u[b]).float()
             dg[b] = da * sig * (1.0 + g32 * (1.0 - sig))
-        return dg, du
+        if ctx.store is not None:
+            ctx.store.append((ctx.weight,
+                              lambda: dy.t().mm(h).to(w.dtype)))
+            return dg, du, None
+        return dg, du, dy.t().mm(h).to(w.dtype)
 
 
 def swiglu_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     g = linear(x, p["w_gate"])
     u = linear(x, p["w_up"])
-    return linear(_SiluGate.apply(g, u), p["w_down"])
+    return _SwiGLUDown.apply(g, u, p["w_down"])
 
 
 @functools.lru_cache(maxsize=32)

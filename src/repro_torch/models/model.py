@@ -259,17 +259,39 @@ class DecoderLM:
         backward), as the reference executor remats the leading
         ``l_ckpt`` layers of a stage; remat never changes the math."""
         x = self.embed(params, tokens, compute_dtype)
+        layers = [(layer_params(params, i), w)
+                  for i, w in enumerate(self.cfg.layer_windows())]
+        return self.run_layers(layers, x, seg, pos, ctx=ctx,
+                               ctx_len=ctx_len, remat=remat)
+
+    def rope_tables(self, pos: torch.Tensor) -> Optional[Tuple]:
+        """The rotation tables of a chunk's positions, None without rope."""
+        if self.has_attn and self.cfg.rope_kind == "rope":
+            return rope_tables(pos, self.cfg.spec.head_dim,
+                               self.cfg.rope_theta)
+        return None
+
+    def run_layers(self, layers, x: torch.Tensor, seg: torch.Tensor,
+                   pos: torch.Tensor, *, ctx: Optional[LayerCtx] = None,
+                   ctx_len: int = 0, remat: int = 0,
+                   rope: Optional[Tuple] = None
+                   ) -> Tuple[torch.Tensor, Optional[LayerCtx]]:
+        """Run ``layers`` (a sequence of ``(layer params, window)``) over
+        the hidden rows ``x``: the body of :meth:`forward_chunk`, and of a
+        pipeline stage, which runs its own layers. ``ctx`` holds one carry
+        entry per layer of ``layers``; the leading ``remat`` layers run
+        under checkpoint; ``rope``: the chunk's :meth:`rope_tables`
+        (computed here if None)."""
         # one pair of rotation tables for every layer, so that the layers'
         # saved activations share it (16 MB a table on a 31k-row gemma3-1b
         # chunk)
-        rope = (rope_tables(pos, self.cfg.spec.head_dim, self.cfg.rope_theta)
-                if self.has_attn and self.cfg.rope_kind == "rope" else None)
+        if rope is None:
+            rope = self.rope_tables(pos)
         new = [[], [], [], []]
-        for i, w in enumerate(self.cfg.layer_windows()):
+        for i, (lp, w) in enumerate(layers):
             lctx = [None if f is None else f[i]
                     for f in (ctx if ctx is not None else (None,) * 4)]
-            args = (layer_params(params, i), x, pos, seg, *lctx,
-                    int(ctx_len), w, rope)
+            args = (lp, x, pos, seg, *lctx, int(ctx_len), w, rope)
             if i < remat:
                 x, *out = checkpoint(self._layer, *args,
                                      use_reentrant=False)

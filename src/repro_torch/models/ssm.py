@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ArchConfig
-from .layers import dense_init, linear
+from .layers import dense_init, linear, weight_grad_store
 
 __all__ = ["init_mamba", "mamba_apply", "ssm_state_shape", "dt_rank_of"]
 
@@ -148,6 +148,7 @@ class _ScanGate(torch.autograd.Function):
         ctx.save_for_backward(xc, dt_in, B, C, z, dt_proj, dt_bias, a_log,
                               d_skip, live, reset, h0,
                               *([] if ckpt is None else [ckpt]))
+        ctx.store, ctx.dt_proj = weight_grad_store(), dt_proj
         return out, h_last
 
     @staticmethod
@@ -162,9 +163,15 @@ class _ScanGate(torch.autograd.Function):
                                  dt_bias, A, d_skip, live, reset, h0,
                                  ckpt[0] if ckpt else None, dout, dh_last)
         d_dt_in = d_pre @ dt_proj.to(dt)
-        d_dt_proj = d_pre.T @ dt_in
+        if ctx.store is not None:       # dt_proj's product deferred to W
+            x = dt_in.detach()          # no reference back to the graph
+            ctx.store.append((ctx.dt_proj, lambda: (d_pre.T @ x).to(
+                dt_proj.dtype)))
+            d_dt_proj = None
+        else:
+            d_dt_proj = (d_pre.T @ dt_in).to(dt_proj.dtype)
         return (d_xc, d_dt_in, dB.to(B.dtype), dC.to(C.dtype), dz,
-                d_dt_proj.to(dt_proj.dtype), d_bias.to(dt_bias.dtype),
+                d_dt_proj, d_bias.to(dt_bias.dtype),
                 (dA * A).to(a_log.dtype), d_dskip.to(d_skip.dtype), None,
                 None, dh0.to(h0.dtype))
 

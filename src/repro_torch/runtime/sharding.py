@@ -1,0 +1,79 @@
+"""Layer placement of the pipeline: which global layers each stage, and
+each virtual stage of it, runs, and which card each stage lives on.
+
+Counterpart of the placement half of the JAX package's
+``runtime/sharding.py`` (``stack_stages``, ``interleaved_layer_order``,
+``stage_active_mask``) and of ``layers_per_stage`` in its
+``runtime/train_step.py``. The reference stacks every stage's layers into
+``[d_p, L_s, ...]`` arrays with inert padded slots, which its executor runs
+as identity; here a stage keeps a map from its (virtual stage, slot) to the
+global layer ids and skips the padded slots. ZeRO-3's gather functions are
+not ported (``ROADMAP.md``, queue 1, item 3).
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+__all__ = ["layers_per_stage", "interleaved_layer_order", "stage_layers",
+           "stage_active_mask", "stage_blocks", "stage_devices"]
+
+
+def layers_per_stage(n_layers: int, d_p: int) -> int:
+    """Layer slots per stage: ``ceil(L / d_p)`` (the last stages may hold
+    padded slots)."""
+    return -(-n_layers // d_p)
+
+
+def interleaved_layer_order(d_p: int, layers_per_stage: int, v: int
+                            ) -> np.ndarray:
+    """Padded-layer permutation for ``interleaved-1f1b``: global virtual
+    stage ``s = j * d_p + p`` (stage ``p``'s local virtual stage ``j``)
+    owns the padded layers ``[s * L_v, (s + 1) * L_v)``, ``L_v =
+    layers_per_stage / v``; ``order[p * L_s + j * L_v + l]`` is the padded
+    layer in stage ``p``'s slot ``j * L_v + l``. Identity at ``v == 1``."""
+    if layers_per_stage % v:
+        raise ValueError(
+            f"v={v} must divide layers_per_stage={layers_per_stage}")
+    L_v = layers_per_stage // v
+    p_idx, j, l = np.meshgrid(np.arange(d_p), np.arange(v), np.arange(L_v),
+                              indexing="ij")
+    return ((j * d_p + p_idx) * L_v + l).reshape(-1)
+
+
+def stage_layers(d_p: int, n_layers: int, v: int = 1) -> np.ndarray:
+    """``[d_p, L_s]`` padded global layer ids of each stage's slots (the
+    reference's ``stack_stages`` of ``arange(L)``); ids ``>= n_layers``
+    are padded slots."""
+    L_s = layers_per_stage(n_layers, d_p)
+    flat = np.arange(d_p * L_s)
+    if v > 1:
+        flat = flat[interleaved_layer_order(d_p, L_s, v)]
+    return flat.reshape(d_p, L_s)
+
+
+def stage_active_mask(d_p: int, n_layers: int, v: int = 1) -> np.ndarray:
+    """``[d_p, L_s]`` bool: True where a real layer lives."""
+    return stage_layers(d_p, n_layers, v) < n_layers
+
+
+def stage_blocks(d_p: int, n_layers: int, v: int = 1
+                 ) -> List[List[List[int]]]:
+    """``blocks[p][j]``: the global layer ids that stage ``p``'s virtual
+    stage ``j`` runs, in order, padded slots skipped (they sit at the end
+    of the layer order, so a block's real layers lead it)."""
+    ids = stage_layers(d_p, n_layers, v)
+    L_v = ids.shape[1] // v
+    return [[[int(i) for i in ids[p, j * L_v:(j + 1) * L_v] if i < n_layers]
+             for j in range(v)] for p in range(d_p)]
+
+
+def stage_devices(d_p: int, cards: Sequence) -> List[torch.device]:
+    """Stage ``p`` lives on card ``p mod len(cards)``: every stage on one
+    card when one is given, one stage per card when there are ``d_p``."""
+    if not cards:
+        raise ValueError("stage_devices needs at least one card")
+    return [torch.device(cards[p % len(cards)]) for p in range(d_p)]

@@ -1,4 +1,6 @@
-"""The chunked training step on one card (``d_p = d_s = 1``).
+"""The chunked training step: on one card (``d_p = d_s = 1``,
+:class:`ChunkedTrainer`) and pipelined over ``d_p`` stages
+(:class:`PipelineTrainer`).
 
 Single-GPU counterpart of the JAX package's ``runtime/{train_step,
 pipeline,executor}.py``. It runs an :class:`~repro_torch.core.ExecutionPlan`
@@ -12,7 +14,9 @@ as the planner laid it out:
   so at most one window of the pipeline's residuals is alive — the memory
   model the checkpointing ILP solved against;
 * a chunk with context ``C > 0`` continues its sequence: it attends to the
-  KV carry that the sequence's previous chunk wrote, and its mamba layers
+  KV carry that the sequence's previous chunk wrote (a carry starts empty
+  and grows by each chunk's rows: ``models/attention``), and its mamba
+  layers
   start from that chunk's state ``(h, conv_tail)``. The carry (every
   field of :class:`~repro_torch.models.LayerCtx`) is cut out of the
   autograd graph between the two chunks (fresh leaves), so the later
@@ -31,6 +35,17 @@ as the planner laid it out:
 Chunks are cut to their used tokens (rounded up to 64 rows) instead of the
 plan's bucket capacity: on one card nothing is compiled per shape, and
 padding rows carry no loss and attend to nothing.
+
+:class:`PipelineTrainer` runs the same step over ``d_p`` stages
+(``runtime/{sharding,program,executor,pipeline}.py``): each stage's layers,
+AdamW master and moments on its own device (``runtime/sharding.
+stage_devices``), each pipeline through the executor under the run's
+schedule backend, the remat table's row per stage. Tied embeddings keep
+a copy on the first stage's device and one on the last's: their
+gradients are summed, both copies take the same update, and the step
+checks they hold the same bits after it. The gradients' global norm spans
+every stage and counts the tied weight once. On one stage its loss and
+gradients are :class:`ChunkedTrainer`'s, bit for bit.
 """
 
 from __future__ import annotations
@@ -49,9 +64,15 @@ from repro_torch.models.model import (DecoderLM, LayerCtx, tree_leaves,
                                       tree_map, tree_unflatten,
                                       unstack_layers)
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.weights import from_stages, to_stages
 
-__all__ = ["ChunkedTrainer", "StepResult", "remat_depths", "chunk_arrays",
-           "ROW_MULTIPLE"]
+from .executor import PipelineExecutor, remat_tick_count
+from .pipeline import PipelineGeometry, PipelineStage
+from .program import residual_peaks, stage_programs
+from .sharding import layers_per_stage, stage_blocks, stage_devices
+
+__all__ = ["ChunkedTrainer", "PipelineTrainer", "StepResult",
+           "remat_depths", "stage_remat", "chunk_arrays", "ROW_MULTIPLE"]
 
 ROW_MULTIPLE = 64      # chunk rows are cut to a multiple of this
 
@@ -72,6 +93,40 @@ def remat_depths(plan: ExecutionPlan, n_layers: int,
     return [min(max(int(d), 0), n_layers) for d in row]
 
 
+def _table(plan: ExecutionPlan, d_p: int, policy: str) -> List[List[int]]:
+    """The plan's ``[d_p][chunks]`` remat table under ``policy``."""
+    table = plan.ckpt_table()
+    n = plan.n_chunks
+    if not table:
+        table = [[0] * n for _ in range(d_p)]
+    if len(table) != d_p:
+        raise ValueError(f"the plan's remat table has {len(table)} stage "
+                         f"rows, the pipeline {d_p} stages")
+    if policy == "uniform":
+        return [[plan.uniform_ckpt()] * n for _ in range(d_p)]
+    if policy == "none":
+        return [[0] * n for _ in range(d_p)]
+    if policy != "stage-aware":
+        raise ValueError(f"unknown remat policy {policy!r}")
+    return [[int(d) for d in row] for row in table]
+
+
+def stage_remat(plan: ExecutionPlan, n_layers: int, d_p: int, v: int = 1,
+                policy: str = "stage-aware") -> List[List[List[int]]]:
+    """``depths[p][j][k]``: how many layers of stage ``p``'s virtual stage
+    ``j`` chunk ``k`` (all pipelines' chunks in order) recomputes in its
+    backward: the plan's table entry split ``ceil(l / v)`` over the
+    virtual stages (``executor.remat_tick_count``), at most the block's
+    real layers. (The step remats every layer of the forwards its
+    interleaved order marks, ``program.Action.remat``.)"""
+    table = _table(plan, d_p, policy)
+    blocks = stage_blocks(d_p, n_layers, v)
+    l_v = layers_per_stage(n_layers, d_p) // v
+    return [[[min(remat_tick_count(table, p, k, v=v, l_max=l_v),
+                  len(blocks[p][j])) for k in range(plan.n_chunks)]
+             for j in range(v)] for p in range(d_p)]
+
+
 @dataclass
 class StepResult:
     loss: float                 # mean loss over the step's valid tokens
@@ -79,11 +134,17 @@ class StepResult:
     chunks: int
     remat_layers: int           # sum of the chunks' remat depths
     grads: Optional[Dict] = None        # float32, mean-loss gradients
-    grad_norm: Optional[float] = None   # set by ChunkedTrainer.step
+    grad_norm: Optional[float] = None   # set by the trainers' step
+    # PipelineTrainer: hand-offs and their bytes, bytes copied between
+    # cards, the schedule backend and v, whether the backward was split,
+    # and each stage's peak under the order run in the planner's memory
+    # model (program.residual_peaks; bytes, 0 without a cost model)
+    pipeline: Optional[Dict] = None
 
 
 def _rows(n: int) -> int:
     return -(-max(n, 1) // ROW_MULTIPLE) * ROW_MULTIPLE
+
 
 
 def chunk_arrays(batch: ChunkBatch, k: int, tokens: int):
@@ -147,10 +208,11 @@ class ChunkedTrainer:
                     a.add_(p.grad)
                     p.grad = None
 
-    def _zero_carry(self, cap: int) -> LayerCtx:
-        """Zero carry as per-layer lists (None for fields the family lacks:
-        KV for attention layers, ``(h, tail)`` for mamba layers)."""
-        ctx = self.model.init_ctx(cap, self.dtype, device=self.device)
+    def _zero_carry(self) -> LayerCtx:
+        """Empty carry as per-layer lists (None for fields the family
+        lacks: KV of no rows for attention layers, zero ``(h, tail)`` for
+        mamba layers)."""
+        ctx = self.model.init_ctx(0, self.dtype, device=self.device)
         return LayerCtx(*[None if f is None else list(f.unbind(0))
                           for f in ctx])
 
@@ -162,11 +224,6 @@ class ChunkedTrainer:
         the pipeline's summed loss."""
         model, params = self.model, self.params
         chunks = pipe.chunks
-        rows = [_rows(c.tokens) for c in chunks]
-        # carry capacity: every chunk that reads or writes the carry
-        # appends its rows at its context length, and they must fit
-        cap = _rows(max([c.context + r for c, r in zip(chunks, rows)
-                         if c.has_dependents or c.context > 0] or [0]))
         order = (pipe.schedule or build_schedule(
             len(chunks), 1, pipe.n_split, pipe.f2b))[0]
         carries: Dict[int, Tuple[int, LayerCtx]] = {}   # seq -> (k, carry)
@@ -191,7 +248,7 @@ class ChunkedTrainer:
                         for f in out])
                     rec["ctx_in"] = ctx
                 elif ch.has_dependents:
-                    ctx = self._zero_carry(cap)
+                    ctx = self._zero_carry()
                 else:
                     ctx = None
                 if ch.has_dependents and len(ch.slices) != 1:
@@ -307,4 +364,169 @@ class ChunkedTrainer:
         _, _, m = adamw_update(self.adamw, self.params, res.grads, self.opt)
         res.grads = None
         res.grad_norm = float(m["grad_norm"])
+        return res
+
+
+class PipelineTrainer:
+    """Parameters, optimizer state and the pipelined step of one model on
+    ``geometry.d_p`` stages, stage ``p`` on card ``p mod len(cards)``.
+
+    ``params``: the port's parameter dict (any dtype), copied per stage
+    (``weights.to_stages``) to live parameters of ``compute_dtype``;
+    ``cost_model``, if given, lets interleaved schedules keep each
+    stage's residuals within the plan's estimate
+    (``program.stage_programs``). The AdamW state is made at the first
+    :meth:`step`."""
+
+    def __init__(self, cfg: ArchConfig, params: Dict, *,
+                 geometry: PipelineGeometry, cards: Sequence,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 cost_model=None):
+        g = geometry
+        self.cfg, self.geom, self.dtype, self.cm = cfg, g, compute_dtype, \
+            cost_model
+        self.model = DecoderLM(cfg)
+        self.adamw = AdamWConfig()
+        self.devices = stage_devices(g.d_p, cards)
+        self.blocks = stage_blocks(g.d_p, cfg.spec.n_layers, g.v_stages)
+        self.params = [
+            tree_map(lambda a, d=dev: a.detach().to(
+                d, compute_dtype, copy=True).requires_grad_(True), sp)
+            for dev, sp in zip(self.devices,
+                               to_stages(cfg, params, g.d_p, g.v_stages))]
+        self.stages = [PipelineStage(self.model, p, g, self.blocks[p],
+                                     self.params[p], self.devices[p],
+                                     compute_dtype)
+                       for p in range(g.d_p)]
+        # the tied embedding's copies, as leaf indices of stage 0 and d_p-1
+        self.tied = None
+        if "embed" in self.params[-1] and g.d_p > 1:
+            self.tied = (self._leaf_index(0, "embed"),
+                         self._leaf_index(g.d_p - 1, "embed"))
+        self.opt = None
+
+    def _leaf_index(self, p: int, key: str) -> int:
+        target = self.params[p][key]
+        return next(i for i, a in enumerate(tree_leaves(self.params[p]))
+                    if a is target)
+
+    def _sum_tied(self, accs: List[List[torch.Tensor]]) -> None:
+        """The tied embedding's gradient, the sum of its two copies', in
+        both stages' sums (each copy's summed in its own stage's order, so
+        the bits do not depend on how the stages interleave)."""
+        if self.tied is None:
+            return
+        i0, i1 = self.tied
+        first, last = accs[0][i0], accs[-1][i1]
+        first.add_(last.to(first.device))
+        last.copy_(first)
+
+    # ------------------------------------------------------------------
+    def loss_and_grads(self, plan: ExecutionPlan,
+                       corpus: Dict[int, np.ndarray], *,
+                       remat_policy: str = "stage-aware") -> StepResult:
+        """Loss of the mean over valid tokens and float32 gradients in the
+        model's structure (``weights.from_stages``; tensors on their
+        stages' devices), the plan's pipelines one after another, each
+        through the executor."""
+        g = self.geom
+        batch = materialize_plan(plan, corpus)
+        n_valid = int(((batch.seg >= 0) & (batch.targets >= 0)).sum())
+        table = _table(plan, g.d_p, remat_policy)
+        depths = stage_remat(plan, self.cfg.spec.n_layers, g.d_p,
+                             g.v_stages, remat_policy)
+        accs = [[torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in tree_leaves(sp)] for sp in self.params]
+        scales = [torch.tensor(1.0 / max(n_valid, 1), dtype=torch.float32,
+                               device=d) for d in self.devices]
+        stats = {"handoffs": 0, "handoff_bytes": 0, "copied_bytes": 0}
+        order_peaks = [0.0] * g.d_p
+        total = torch.zeros((), dtype=torch.float32,
+                            device=self.devices[-1])
+        base = 0
+        for pipe in plan.pipelines:
+            n = pipe.n_chunks
+            programs = stage_programs(
+                pipe, g.d_p, v=g.v_stages, split=g.split_bwd, cm=self.cm,
+                depths=[row[base:base + n] for row in table])
+            if self.cm is not None and pipe.est_peak_mem:
+                order_peaks = [max(a, b) for a, b in zip(
+                    order_peaks, residual_peaks(
+                        self.cm, pipe, programs,
+                        [row[base:base + n] for row in table], g.v_stages))]
+            for p, prog in enumerate(programs):     # forwards the order
+                for a in prog:                      # remats past budget
+                    if a.remat:
+                        depths[p][a.vstage][base + a.chunk] = \
+                            len(self.blocks[p][a.vstage])
+            for p, st in enumerate(self.stages):
+                st.begin(pipe.chunks, self._inputs(batch, pipe, base,
+                                                   st.device),
+                         [[row[base + k] for k in range(n)]
+                          for row in depths[p]], scales[p], accs[p])
+            ex = PipelineExecutor(self.stages, programs, v=g.v_stages)
+            ex.run()
+            for k in stats:
+                stats[k] += ex.stats[k]
+            for st in self.stages:
+                loss = st.finish()
+            total = total + loss        # the last stage's
+            base += n
+        self._sum_tied(accs)
+        grads = from_stages(self.cfg, [tree_unflatten(sp, a) for sp, a in
+                                       zip(self.params, accs)])
+        self._accs = accs
+        return StepResult(
+            loss=float(total) / max(n_valid, 1), n_valid=n_valid,
+            chunks=plan.n_chunks,
+            remat_layers=int(sum(d for p in depths for j in p for d in j)),
+            grads=grads,
+            pipeline=dict(stats, schedule=g.schedule, v=g.v_stages,
+                          order_peak_mem=order_peaks,
+                          split_bwd=g.split_bwd))
+
+    def _inputs(self, batch: ChunkBatch, pipe: PipelinePlan, base: int,
+                device):
+        """``inputs(k)``: chunk ``k``'s rows on ``device`` and its rotation
+        tables, made once per stage (its virtual stages share them)."""
+        cache: Dict[int, tuple] = {}
+
+        def inputs(k: int):
+            if k not in cache:
+                rows = [torch.from_numpy(a).to(device) for a in chunk_arrays(
+                    batch, base + k, pipe.chunks[k].tokens)]
+                cache[k] = (*rows, self.model.rope_tables(rows[3]))
+            return cache[k]
+        return inputs
+
+    def step(self, plan: ExecutionPlan, corpus: Dict[int, np.ndarray], *,
+             remat_policy: str = "stage-aware") -> StepResult:
+        """One training step: :meth:`loss_and_grads`, then AdamW on every
+        stage with the global norm of all stages' gradients (the tied
+        weight once); raises if the tied copies differ after it."""
+        res = self.loss_and_grads(plan, corpus, remat_policy=remat_policy)
+        accs, self._accs = self._accs, None
+        if self.opt is None:
+            self.opt = [init_opt_state(sp) for sp in self.params]
+        dev0 = self.devices[0]
+        sq = torch.zeros((), dtype=torch.float32, device=dev0)
+        for p, acc in enumerate(accs):
+            skip = self.tied[1] if self.tied and p == len(accs) - 1 else -1
+            part = torch.zeros((), dtype=torch.float32, device=acc[0].device)
+            for i, a in enumerate(acc):
+                if i != skip:
+                    part = part + a.square().sum()
+            sq = sq + part.to(dev0)
+        gnorm = sq.sqrt()
+        for p, (sp, acc, st) in enumerate(zip(self.params, accs, self.opt)):
+            adamw_update(self.adamw, sp, tree_unflatten(sp, acc), st,
+                         gnorm=gnorm.to(self.devices[p]))
+        if self.tied is not None:
+            a = self.params[0]["embed"]
+            b = self.params[-1]["embed"].to(a.device)
+            if not torch.equal(a, b):
+                raise RuntimeError("the tied embedding's copies differ "
+                                   "after the update")
+        res.grads = None
+        res.grad_norm = float(gnorm)
         return res

@@ -17,14 +17,16 @@ transposes.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.model import unstack_layers
+from repro_torch.runtime.sharding import stage_blocks
 
-__all__ = ["DENSE_LEAVES", "from_jax"]
+__all__ = ["DENSE_LEAVES", "from_jax", "to_stages", "from_stages"]
 
 # leaves stored [d_in, d_out] by the reference (the mamba mixer's conv_w
 # [d_conv, d_inner] is not a dense weight and keeps its layout)
@@ -80,3 +82,42 @@ def _tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
     # a fresh writable float32 copy: jax hands out read-only buffers
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C")).to(
         device=device, dtype=dtype)
+
+
+def to_stages(cfg: ArchConfig, params: Mapping[str, Any], d_p: int,
+              v: int = 1) -> List[Dict[str, Any]]:
+    """The port's parameter dict -> one dict per pipeline stage (the same
+    tensors, layers unstacked): ``layers`` maps each global layer id the
+    stage runs (``runtime/sharding.stage_blocks``) to its parameters; the
+    first stage holds ``embed``, the last ``final_norm`` and the head:
+    ``unembed``, or with tied embeddings ``embed`` again (the trainer
+    keeps a copy on each of the two stages' devices)."""
+    layers = unstack_layers(dict(params))["layers"]
+    out = []
+    for p, blocks in enumerate(stage_blocks(d_p, cfg.spec.n_layers, v)):
+        sp: Dict[str, Any] = {"layers": {i: layers[i] for b in blocks
+                                         for i in b}}
+        if p == 0:
+            sp["embed"] = params["embed"]
+        if p == d_p - 1:
+            sp["final_norm"] = params["final_norm"]
+            head = "unembed" if "unembed" in params else "embed"
+            sp[head] = params[head]
+        out.append(sp)
+    return out
+
+
+def from_stages(cfg: ArchConfig, stages: Sequence[Mapping[str, Any]]
+                ) -> Dict[str, Any]:
+    """Per-stage dicts (parameters, or gradients in their structure) ->
+    the model's structure, ``layers`` a per-layer list; a tied embedding
+    is the first stage's."""
+    layers: Dict[int, Any] = {}
+    for sp in stages:
+        layers.update(sp["layers"])
+    out = {"embed": stages[0]["embed"],
+           "final_norm": stages[-1]["final_norm"],
+           "layers": [layers[i] for i in range(cfg.spec.n_layers)]}
+    if "unembed" in stages[-1]:
+        out["unembed"] = stages[-1]["unembed"]
+    return out

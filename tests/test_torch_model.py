@@ -212,7 +212,8 @@ def test_silu_gate_row_blocks_give_the_same_bits(monkeypatch, dtype):
     bound the float32 temporaries, give the same bits as over the whole
     tensor (elementwise; blocks of whole 64-element vectors, so that the
     CPU's vectorised loops have no scalar tail), and the gradient is JAX's
-    (float32)."""
+    (float32). Through the fused down projection with an identity weight
+    (a product with 1 and 0s: the gate's own bits)."""
     rng = np.random.default_rng(9)
     g0 = rng.standard_normal((37, 64)).astype(np.float32)
     u0 = rng.standard_normal((37, 64)).astype(np.float32)
@@ -223,7 +224,7 @@ def test_silu_gate_row_blocks_give_the_same_bits(monkeypatch, dtype):
         monkeypatch.setattr(tlayers, "SILU_BLOCK_BYTES", rows * 64 * 4)
         g, u = (torch.from_numpy(a).to(dtype).requires_grad_(True)
                 for a in (g0, u0))
-        out = tlayers._SiluGate.apply(g, u)
+        out = tlayers._SwiGLUDown.apply(g, u, torch.eye(64, dtype=dtype))
         out.backward(dy)
         return out.detach(), g.grad, u.grad
     whole, blocked = run(10 ** 6), run(5)
