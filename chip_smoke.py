@@ -69,6 +69,13 @@ exit and no result line):
              and backward at hymba's heads (25 query heads, 5 KV heads of
              64) and B, C1, C2 with its head (D 1600, V 32001, one target
              in the last, ragged vocab tile);
+           * at olmoe-1b-7b's shapes (16 query and 16 KV heads of 128; head
+             D 2048, V 50304): the attention forward and backward on
+             train_moe's largest chunk of step 0 (bf16, 47,231 tokens, its
+             own segments; the plain version over blocks of 1,024 query
+             rows) and on train_verify_moe's largest chunk (float32, its
+             carry in front); B, C1, C2 on those chunks' targets and at
+             CE_T random targets (bf16);
            the plain versions run over blocks of rows, so that their
            materialised scores or logits fit the card; each attention
            backward case also holds the forward as the train step runs it
@@ -157,10 +164,36 @@ exit and no result line):
            dropped for one chunk, the last stage's tied-embedding gradient
            dropped, a stream run through the wrong virtual stage) must fall
            outside the limits;
+  serve_moe  olmoe-1b-7b at full width and depth (16 layers of attention
+           and a 64-expert top-8 MoE block), bf16, random weights from
+           --seed, served as serve serves gemma3-1b (the same trace and
+           engine): every request completes, A's forward and its tile
+           ranges launch 16 times per engine step, the merge pass never
+           (32 query tiles x 16 heads fill the card), the plain attention
+           never. With each MoE phase a "moe" line: the expert products
+           issued, the host syncs that read the group sizes, the non-empty
+           experts of each layer (fewest, most), the smallest top-k margin
+           (the k-th router logit less the (k+1)-th) over every routed row;
+  verify_moe  that engine in float32 on the first 2 requests against
+           one_shot_generate;
+  train_moe  olmoe-1b-7b at full width cut to 4 layers (TRAIN_LAYERS: 16
+           layers' states take 125 GB), bf16 with a float32 AdamW master,
+           3 steps on the train phase's batches: every loss finite, every
+           step's peak at or under the plan's estimate, every kernel
+           launched as the plan predicts, no plain call;
+  train_verify_moe  float32, the same 4 layers, the verify sequences (K =
+           3; a 0.7 GB budget, under which the ILP remats [2, 0, 4]
+           layers): the chunked step's launches as planned; the
+           step with the table zeroed and one unchunked forward and
+           backward per sequence within train_verify's 1e-5 (loss and
+           each gradient leaf, relative), with the (token, layer) picks
+           that differ from the chunked step's and each run's smallest
+           margin; a planted router fault (the (k+1)-th pick in place of
+           the k-th) must fall outside the limit;
   kernels  every kernel of the port with its launch counts in serve,
            train, train_hymba, the verify phases' chunked step (the
-           float32 forward, B, C1 and C2 run only there) and the two
-           pipeline phases.
+           float32 forward, B, C1 and C2 run only there), the two
+           pipeline phases and serve_moe, train_moe, train_verify_moe.
 
 The last two lines are the kernels JSON and the device JSON.
 """
@@ -828,13 +861,25 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
 
 
 CE_HEADS = {"gemma3-1b": (1152, 262144), "llama3.2-3b": (3072, 128256),
-            "hymba-1.5b": (1600, 32001)}
+            "hymba-1.5b": (1600, 32001), "olmoe-1b-7b": (2048, 50304)}
 # the cross-entropy wrapper of each function (cross_entropy.KERNELS names
 # the kernel it launches by dtype)
 CE_WRAPPER = {"B": "fwd", "C1": "dh", "C2": "dw"}
 CE_T = 8192
 # the train phases: github batches of 8 sequences of up to 16,384 tokens
 TRAIN_BATCH, TRAIN_CONTEXT, TRAIN_STEPS = 8, 16384, 3
+# the train phases cut olmoe-1b-7b to 4 of its 16 layers, every width
+# kept: 16 layers' states take 125 GB, 4 take 34 GB of the card's 80
+TRAIN_LAYERS = {"olmoe-1b-7b": 4}
+
+
+def _arch(name):
+    """``name``'s config as the train phases run it (:data:`TRAIN_LAYERS`
+    cuts the depth)."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(name)
+    return cfg.with_layers(TRAIN_LAYERS[name]) if name in TRAIN_LAYERS \
+        else cfg
 
 
 def _plain_ce(key, h, w, tgt, lse, g):
@@ -1006,10 +1051,9 @@ def _plan_chunks(corpus, plan):
 
 def _train_chunks(seed, arch="gemma3-1b"):
     """Step 0's chunks in ``arch``'s train phase (:func:`_plan_chunks`)."""
-    from repro_torch.configs import get_arch
     from repro_torch.core import ClusterSpec, CostModel
     from repro_torch.launch.train import plan_step
-    cfg = get_arch(arch)
+    cfg = _arch(arch)
     chunks = _plan_chunks(*plan_step(CostModel(cfg.spec, ClusterSpec()),
                                      _train_loop(seed), 0))
     if chunks[0][0].context:
@@ -1019,17 +1063,23 @@ def _train_chunks(seed, arch="gemma3-1b"):
     return chunks
 
 
+# the verify phases' activation budget beside the model states: 2 GB,
+# under which the ILP checkpoints layers of some chunks (gemma3-1b: [23,
+# 0, 26]); olmoe-1b-7b's 4 layers hold the whole batch's activations in
+# 1.6 GB, so its budget is 0.7 GB (table [2, 0, 4])
+VERIFY_BUDGET = {"olmoe-1b-7b": 0.7e9}
+
+
 def _verify_plan(arch, seed):
     """The float32 verify phases' batch for ``arch``: ``(cfg, corpus,
     plan)``, four sequences of 3,000, 900, 500 and 300 random tokens split
-    over K = 3 chunks, under a 2 GB activation budget so that the ILP
-    checkpoints layers of some chunks."""
+    over K = 3 chunks, under an activation budget (VERIFY_BUDGET, else 2
+    GB) so that the ILP checkpoints layers of some chunks."""
     import numpy as np
 
-    from repro_torch.configs import get_arch
     from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
                                   plan_batch)
-    cfg = get_arch(arch)
+    cfg = _arch(arch)
     rng = np.random.default_rng(seed)
     lens = [3000, 900, 500, 300]
     corpus = {i: rng.integers(0, cfg.spec.vocab, n).astype(np.int32)
@@ -1037,7 +1087,7 @@ def _verify_plan(arch, seed):
     cm = CostModel(cfg.spec, ClusterSpec())
     plan = plan_batch(cm, lens, PlannerConfig(
         fixed_k=3, bucket_rounding=64, remat_mode="stage_aware",
-        capacity_bytes=cm.m_model_states(1) + 2e9))
+        capacity_bytes=cm.m_model_states(1) + VERIFY_BUDGET.get(arch, 2e9)))
     return cfg, corpus, plan
 
 
@@ -1560,11 +1610,18 @@ def phase_serve(dev, cfg, params32, trace):
     from repro_torch.kernels.flash_attention import (FWD_KERNELS,
                                                      flash_attention_cuda,
                                                      flash_bwd_tiles_cuda,
-                                                     flash_combine_cuda)
+                                                     flash_combine_cuda,
+                                                     kv_splits)
     from repro_torch.models.model import tree_map
     from repro_torch.serve.engine import ServeEngine
     params = tree_map(lambda a: a.to(torch.bfloat16), params32)
     econf = _econf(trace, 32)
+    # the engine's steps split their keys (the merge pass) where their
+    # query tiles x heads do not fill the card: gemma3-1b's 4 heads, not
+    # olmoe-1b-7b's 16
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = kv_splits(econf.n_items * econf.cap_t, econf.n_pages *
+                      econf.page_sz, cfg.spec.n_heads, n_sm) > 1
     # warm-up (cuBLAS handles, the kernel's first launch): one request
     warm = ServeEngine(cfg, econf, params=params,
                        param_dtype=torch.bfloat16, device=dev)
@@ -1598,13 +1655,13 @@ def phase_serve(dev, cfg, params32, trace):
                flash_launches=launches, flash_mma_launches=mma_launches,
                flash_launches_expected=cfg.spec.n_layers * st["steps"],
                tile_range_launches=ranges, combine_launches=merges,
-               plain_attention_calls=plain)
+               merge_pass_expected=split, plain_attention_calls=plain)
     bad = [r for r in results.values() if len(r.output_ids) != 32]
     if st["completed"] != len(trace) or bad:
         raise PhaseError(f"not every request completed: {rec}")
     want = cfg.spec.n_layers * st["steps"]
     if launches != want or mma_launches != want or ranges != want \
-            or merges == 0 or plain != 0:
+            or (merges > 0) != split or plain != 0:
         raise PhaseError(f"serve path did not run on the kernel: {rec}")
     return rec
 
@@ -1745,10 +1802,9 @@ def phase_train(dev, seed, arch="gemma3-1b"):
 
     import torch
 
-    from repro_torch.configs import get_arch
     from repro_torch.launch.train import train
     from repro_torch.runtime.train_step import remat_depths
-    cfg = get_arch(arch)
+    cfg = _arch(arch)
     L = cfg.spec.n_layers
     ctr = _train_counters()
     steps_out, expected = [], {}
@@ -1791,10 +1847,15 @@ def phase_train(dev, seed, arch="gemma3-1b"):
     return recs
 
 
+# the float32 verify phases' limit on the loss's and each gradient leaf's
+# relative difference (train_verify's and train_verify_moe's)
+VERIFY_LIMIT = 1e-5
+
+
 def phase_train_verify(dev, seed):
     """float32, full width: the chunked step with the plan's remat table ==
     the same step with the table zeroed == one unchunked forward/backward
-    per sequence (loss and every gradient within 1e-5 relative)."""
+    per sequence (loss and every gradient within VERIFY_LIMIT relative)."""
     import torch
 
     from repro_torch.models import DecoderLM
@@ -1839,7 +1900,8 @@ def phase_train_verify(dev, seed):
         rel_loss = abs(r.loss - base.loss) / abs(base.loss)
         out[name] = {"loss": r.loss, "loss_rel_diff": rel_loss,
                      "grad_max_rel_diff": worst}
-        if rel_loss > 1e-5 or worst > 1e-5 or r.n_valid != base.n_valid:
+        if rel_loss > VERIFY_LIMIT or worst > VERIFY_LIMIT or \
+                r.n_valid != base.n_valid:
             raise PhaseError(f"{name} differs from the chunked step: {out}")
     del runs, base, tr
     torch.cuda.empty_cache()
@@ -2377,6 +2439,266 @@ def phase_train_pipeline_verify(dev, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the MoE family (olmoe-1b-7b): kernel cases at its shapes, serve_moe,
+# verify_moe, train_moe, train_verify_moe
+
+MOE = "olmoe-1b-7b"
+# the plain attention's query rows per block at olmoe's 16 heads: its
+# [16, rows, S] float32 scores on a 47k-row train chunk take 3 GB a tensor
+MOE_ROW_BLOCK = 1024
+def phase_kernel_moe(dev, seed):
+    """Kernels A, A′, B, C1 and C2 at olmoe-1b-7b's shapes (16 query and
+    16 KV heads of 128; head D 2,048, V 50,304): the attention backward
+    and forward on train_moe's largest chunk of step 0 (bf16, its own
+    segments and positions) and on train_verify_moe's largest chunk
+    (float32, its carry in front); B, C1, C2 on those two chunks' targets
+    and at CE_T random targets (bf16)."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    s = _arch(MOE).spec
+    chunk, tgt, seg, pos = _train_chunks(seed, MOE)[0]
+    name = f"{MOE} train chunk ({chunk.tokens} tokens)"
+    # the dropped tile: 32 rows inside segment 0, past its first 32
+    a0 = int((seg >= 0).argmax())
+    n0 = int((seg == seg[a0]).sum())
+    r = a0 + min(1024, n0 // 2 // 32 * 32)
+    if n0 < 128:
+        raise PhaseError(f"{name}: segment 0 has {n0} rows")
+
+    def from_plan(gen, dtype):
+        return _plan_chunk(gen, seg, pos, s.n_heads, s.n_kv_heads,
+                           s.head_dim, dtype, dev)
+    bwd = []
+    for args in ((f"{name} global", from_plan, slice(r, r + 32), 0, bf16),
+                 (*_verify_attn_case(MOE, "train_verify_moe", seed, dev),
+                  0, f32)):
+        bwd.append(_attn_bwd_case(*args, dev, 31 + len(bwd),
+                                  row_block=MOE_ROW_BLOCK))
+        print(f"[kernel] attention backward {json.dumps(bwd[-1])}",
+              flush=True)
+        torch.cuda.empty_cache()
+    v_chunk, v_tgt = _plan_chunks(*_verify_plan(MOE, seed)[1:])[0][:2]
+    ce = []
+    for dtype, seed_, targets, case in (
+            (bf16, 33, torch.from_numpy(tgt), name), (bf16, 34, None, None),
+            (f32, 35, torch.from_numpy(v_tgt),
+             f"train_verify_moe chunk ({v_chunk.tokens} tokens)")):
+        ce.append(_ce_case(MOE, dtype, dev, seed_, targets=targets,
+                           case=case))
+        for rec in ce[-1].values():
+            print(f"[kernel] cross-entropy {json.dumps(rec)}", flush=True)
+        torch.cuda.empty_cache()
+    return bwd, ce
+
+
+@contextlib.contextmanager
+def _moe_watch(picks=None):
+    """The routed path over one phase. Yields a dict that holds, after the
+    block: the expert products issued and the host syncs that read the
+    group sizes (``moe.COUNTS``), the non-empty experts of each layer (the
+    fewest and the most over its calls, in layer order), and the smallest
+    top-k margin over every routed row (the k-th logit less the (k+1)-th).
+    ``picks(router, ids)``, if given, sees every call's picks."""
+    import torch
+
+    from repro_torch.models import moe
+    layers, low = {}, []
+
+    def observe(router, logits, ids, sizes):
+        k = ids.shape[1]
+        top = torch.topk(logits, k + 1, dim=-1).values
+        m = (top[:, k - 1] - top[:, k]).min()
+        low[:] = [m if not low else torch.minimum(low[0], m)]
+        n = sum(1 for x in sizes if x)
+        lo, hi = layers.get(router.data_ptr(), (n, n))
+        layers[router.data_ptr()] = (min(lo, n), max(hi, n))
+        if picks is not None:
+            picks(router, ids)
+    before, out = dict(moe.COUNTS), {}
+    with moe.observe_router(observe):
+        yield out
+    out.update({k: moe.COUNTS[k] - before[k] for k in before})
+    out["nonempty_experts_per_layer"] = list(layers.values())
+    out["min_topk_margin"] = float(low[0]) if low else None
+
+
+@contextlib.contextmanager
+def _recorded_picks(corpus, layer_of, out):
+    """Every live row's expert picks while the block runs: ``out`` gets
+    ``(layer, sequence ids, positions, picks sorted)`` per routed call
+    (``layer_of``: router data pointer -> layer). A chunk's rows are
+    matched to their sequences by their tokens at their positions;
+    ``DecoderLM._layer`` (which a remat'd layer's recompute calls again)
+    names the rows each call routes. Yields :func:`_moe_watch`'s dict."""
+    import numpy as np
+
+    from repro_torch.models import DecoderLM
+    rows, cur = {}, [None]
+    fwd, lay = DecoderLM.forward_chunk, DecoderLM._layer
+
+    def forward_chunk(self, params, tokens, seg, pos, **kw):
+        tok, sg, ps = (t.cpu().numpy() for t in (tokens, seg, pos))
+        sid = np.full(len(sg), -1, np.int64)
+        for g in np.unique(sg[sg >= 0]):
+            r = sg == g
+            hit = [i for i, t in corpus.items() if ps[r].max() < len(t)
+                   and np.array_equal(t[ps[r]], tok[r])]
+            if len(hit) != 1:
+                raise PhaseError(f"segment {g}'s rows match sequences {hit}")
+            sid[r] = hit[0]
+        rows[id(seg)] = (seg, sid, ps)      # seg kept: its id stays unique
+        return fwd(self, params, tokens, seg, pos, **kw)
+
+    def layer(self, lparams, x, pos, seg, *rest):
+        cur[0] = rows[id(seg)]
+        return lay(self, lparams, x, pos, seg, *rest)
+
+    def picks(router, ids):
+        _, sid, ps = cur[0]
+        live = sid >= 0
+        out.append((layer_of[router.data_ptr()], sid[live], ps[live],
+                    np.sort(ids.cpu().numpy(), axis=1)[live]))
+    DecoderLM.forward_chunk, DecoderLM._layer = forward_chunk, layer
+    try:
+        with _moe_watch(picks) as watch:
+            yield watch
+    finally:
+        DecoderLM.forward_chunk, DecoderLM._layer = fwd, lay
+
+
+def _pick_table(records):
+    """(keys, picks) of one run's records, one entry per (layer, sequence,
+    position), keys sorted."""
+    import numpy as np
+    keys = np.concatenate([(la * 2 ** 20 + s) * 2 ** 24 + p
+                           for la, s, p, _ in records])
+    picks = np.concatenate([k for *_, k in records])
+    keys, first = np.unique(keys, return_index=True)
+    return keys, picks[first]
+
+
+def _flips(a, b):
+    """(token, layer) picks that differ between two runs' tables, and the
+    pairs both hold."""
+    import numpy as np
+    _, ia, ib = np.intersect1d(a[0], b[0], assume_unique=True,
+                               return_indices=True)
+    return int((a[1][ia] != b[1][ib]).any(1).sum()), len(ia)
+
+
+@contextlib.contextmanager
+def _router_fault():
+    """The router takes its (k+1)-th pick in place of its k-th (undone on
+    exit)."""
+    import torch
+
+    from repro_torch.models import moe
+    good = moe.route
+
+    def shifted(logits, k):
+        top, ids = torch.topk(logits, k + 1, dim=-1)
+        keep = [*range(k - 1), k]
+        return torch.softmax(top[:, keep], dim=-1), ids[:, keep]
+    moe.route = shifted
+    try:
+        yield
+    finally:
+        moe.route = good
+
+
+def phase_train_verify_moe(dev, seed):
+    """olmoe-1b-7b in float32 at full width, 4 layers, on the verify
+    sequences (K = 3, VERIFY_BUDGET: a split over 3 chunks, a packed
+    chunk, a non-zero remat table): the chunked step launches the kernels
+    as its plan predicts; the same step with the table zeroed and one
+    unchunked forward and backward per sequence agree with it within
+    VERIFY_LIMIT (loss and each gradient leaf, relative); the router's
+    (k+1)-th pick in place of its k-th must fall outside it. Each run's
+    smallest top-k margin and the (token, layer) picks that differ from
+    the chunked step's are reported."""
+    import torch
+
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.runtime.train_step import ChunkedTrainer, remat_depths
+    cfg, corpus, plan = _verify_plan(MOE, seed)
+    chunks = [c for p in plan.pipelines for c in p.chunks]
+    if max(s.n_chunks for s in plan.sequences) < 3 or not any(
+            c.kind.value == "hybrid" for c in chunks) or not any(
+            plan.ckpt_table()[0]):
+        raise PhaseError(f"the verify plan lacks a 3-chunk split, a packed "
+                         f"chunk or remat: {plan.ckpt_table()}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tr = ChunkedTrainer(cfg, DecoderLM(cfg).init(gen, device=dev), device=dev,
+                        compute_dtype=torch.float32)
+    L = cfg.spec.n_layers
+    layer_of = {lp["moe"]["router"].data_ptr(): i
+                for i, lp in enumerate(tr.params["layers"])}
+    ctr = _train_counters()
+    expected = _expected_launches(cfg, plan, remat_depths(plan, L),
+                                  torch.float32)
+    _zero_counts(ctr)
+    runs, tables, watch, launches = {}, {}, {}, None
+    for name, fn in (("plan table", lambda: tr.loss_and_grads(plan, corpus)),
+                     ("table zeroed", lambda: tr.loss_and_grads(
+                         plan, corpus, remat_policy="none")),
+                     ("unchunked", lambda: tr.sequence_loss_and_grads(
+                         corpus))):
+        records = []
+        with _recorded_picks(corpus, layer_of, records) as w:
+            runs[name] = fn()
+        if launches is None:
+            launches = {k: v for k, v in _read_counts(ctr).items()
+                        if k in expected}
+        tables[name], watch[name] = _pick_table(records), w
+    names = _leaf_names(tr.params)
+    base = runs["plan table"]
+
+    def against_base(r):
+        worst, leaf = 0.0, 0
+        for i, (a, b) in enumerate(zip(tree_leaves(r.grads),
+                                       tree_leaves(base.grads))):
+            x = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                 1e-30)
+            if x > worst:
+                worst, leaf = x, i
+        rel = abs(r.loss - base.loss) / abs(base.loss)
+        return {"loss": r.loss, "loss_rel_diff": rel,
+                "grad_max_rel_diff": worst,
+                "grad_max_rel_diff_leaf": names[leaf],
+                "within": rel <= VERIFY_LIMIT and worst <= VERIFY_LIMIT
+                and r.n_valid == base.n_valid}
+    n_tokens = sum(len(t) for t in corpus.values())
+    out = {"chunks": [(c.kind.value, c.context, c.tokens) for c in chunks],
+           "remat_table": plan.ckpt_table()[0], "launches": launches,
+           "loss": base.loss, "limit": VERIFY_LIMIT,
+           "moe": watch["plan table"]}
+    for name in ("table zeroed", "unchunked"):
+        flips, pairs = _flips(tables["plan table"], tables[name])
+        out[name] = dict(against_base(runs[name]), flipped_picks=flips,
+                         token_layers=pairs,
+                         min_topk_margin=watch[name]["min_topk_margin"])
+        if pairs != n_tokens * L:
+            raise PhaseError(f"{name}: picks recorded for {pairs} (token, "
+                             f"layer) pairs of {n_tokens * L}: {out}")
+    del runs
+    with _router_fault():
+        out["planted router fault"] = against_base(
+            tr.loss_and_grads(plan, corpus))
+    if launches != expected:
+        raise PhaseError(f"launch counts with remat (got, expected): "
+                         f"{launches}, {expected}")
+    bad = [n for n in ("table zeroed", "unchunked") if not out[n]["within"]]
+    if bad:
+        raise PhaseError(f"{bad} differ from the chunked step: {out}")
+    if out["planted router fault"]["within"]:
+        raise PhaseError(f"the limit does not catch the router fault: {out}")
+    del base, tr
+    torch.cuda.empty_cache()
+    return out
+
+
 def _leaf_names(tree, prefix=""):
     """Dotted names of a parameter tree's leaves in ``tree_leaves``
     order."""
@@ -2457,7 +2779,9 @@ def main() -> int:
         dev, args.seed))
     (scan, gated, h_attn, h_ce), dt3 = run("kernel", lambda: phase_kernel_ssm(
         dev, args.seed))
-    print(f"[kernel] ok in {dt + dt2 + dt3:.1f}s", flush=True)
+    (moe_bwd, moe_ce), dt4 = run("kernel", lambda: phase_kernel_moe(
+        dev, args.seed))
+    print(f"[kernel] ok in {dt + dt2 + dt3 + dt4:.1f}s", flush=True)
 
     cfg = get_arch("gemma3-1b")
     trace = sample_request_trace("github", 16, 4096, cfg.spec.vocab,
@@ -2510,6 +2834,47 @@ def main() -> int:
     print(f"[train_pipeline_verify] ok in {dt:.1f}s: {json.dumps(ver)}",
           flush=True)
     pipe_verify_counts = ver["launches"]
+    torch.cuda.empty_cache()
+
+    # the MoE family: olmoe-1b-7b served at full width and depth, trained
+    # at full width on TRAIN_LAYERS' depth
+    moe_cfg = get_arch(MOE)
+    moe_trace = sample_request_trace("github", 16, 4096, moe_cfg.spec.vocab,
+                                     seed=0, max_new_tokens=32)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    moe32 = DecoderLM(moe_cfg).init(gen, dtype=torch.float32, device=dev)
+    torch.cuda.empty_cache()
+    _zero_counts(ctr)
+    with _moe_watch() as watch:
+        srv, dt = run("serve_moe", lambda: phase_serve(dev, moe_cfg, moe32,
+                                                       moe_trace))
+    serve_moe_counts = _read_counts(ctr)
+    print(f"[serve_moe] {json.dumps(srv)} in {dt:.1f}s", flush=True)
+    print(f"[serve_moe] moe {json.dumps(watch)}", flush=True)
+    torch.cuda.empty_cache()
+    with _moe_watch() as watch:
+        lines, dt = run("verify_moe", lambda: phase_verify(
+            dev, moe_cfg, moe32, moe_trace))
+    print(f"[verify_moe] ok in {dt:.1f}s: " + "; ".join(lines), flush=True)
+    print(f"[verify_moe] moe {json.dumps(watch)}", flush=True)
+    del moe32
+    torch.cuda.empty_cache()
+
+    with _moe_watch() as watch:
+        trn_moe, dt = run("train_moe", lambda: phase_train(dev, args.seed,
+                                                           MOE))
+    for rec in trn_moe:
+        print(f"[train_moe] {json.dumps(rec)}", flush=True)
+    print(f"[train_moe] moe {json.dumps(watch)}", flush=True)
+    print(f"[train_moe] ok in {dt:.1f}s", flush=True)
+    train_moe_counts = {k: sum(r["launches"][k] for r in trn_moe)
+                        for k in ctr}
+
+    ver, dt = run("train_verify_moe", lambda: phase_train_verify_moe(
+        dev, args.seed))
+    print(f"[train_verify_moe] ok in {dt:.1f}s: {json.dumps(ver)}",
+          flush=True)
+    verify_moe_counts = ver["launches"]
 
     # launches per path: serve, the bf16 train steps, and the float32
     # verify phases' chunked step (the float32 B and C1 run only there)
@@ -2517,14 +2882,19 @@ def main() -> int:
              "train_hymba": hymba_counts, "train_verify": verify_counts,
              "train_verify_hymba": verify_hymba_counts,
              "train_pipeline": pipe_counts,
-             "train_pipeline_verify": pipe_verify_counts}
+             "train_pipeline_verify": pipe_verify_counts,
+             "serve_moe": serve_moe_counts, "train_moe": train_moe_counts,
+             "train_verify_moe": verify_moe_counts}
     print(f"[kernels] serve: {json.dumps(serve_counts)}; train "
           f"({len(trn)} steps): {json.dumps(train_counts)}; train_hymba "
           f"({len(hym)} steps): {json.dumps(hymba_counts)}; train_verify: "
           f"{json.dumps(verify_counts)}; train_verify_hymba: "
           f"{json.dumps(verify_hymba_counts)}; train_pipeline "
           f"({len(pip)} steps): {json.dumps(pipe_counts)}; "
-          f"train_pipeline_verify: {json.dumps(pipe_verify_counts)}; total "
+          f"train_pipeline_verify: {json.dumps(pipe_verify_counts)}; "
+          f"serve_moe: {json.dumps(serve_moe_counts)}; train_moe "
+          f"({len(trn_moe)} steps): {json.dumps(train_moe_counts)}; "
+          f"train_verify_moe: {json.dumps(verify_moe_counts)}; total "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
     fa = "src/repro_torch/kernels/csrc/flash_attention.cu"
     cs = "src/repro_torch/kernels/csrc/cross_entropy.cu"
@@ -2552,6 +2922,16 @@ def main() -> int:
         return [{k: rec[k] for k in ("case", "dtype", "T", "D", "V",
                                      "kernel_ms", "bound_ms", "plain_ms",
                                      "library_ms", "max_abs_err")}]
+
+    def _bwd_also(rec, p):  # an attention backward pass of another case
+        return {"case": rec["case"], "dtype": rec["dtype"], "T": rec["T"],
+                "S": rec["S"], "Hq": rec["Hq"], "D": rec["D"],
+                "ms": rec[f"kernel_ms_{p}"], "bound_ms": rec[f"bound_ms_{p}"],
+                "bound_by": rec[f"bound_by_{p}"],
+                "plain_ms": rec["plain_ms"], "library_ms": rec["library_ms"],
+                "max_abs_err": rec["max_abs_err"]}
+    moe_gb, moe_vb = moe_bwd            # olmoe's train chunk, verify chunk
+    moe_gce, moe_tce, moe_vce = moe_ce  # train chunk, CE_T, verify chunk
 
     def _fwd(rec):          # the attention forward of one case
         keys = ("case", "dtype", "T", "S", "Hq", "D", "window")
@@ -2618,14 +2998,14 @@ def main() -> int:
                         "tile ranges are flash_bwd_tiles_kernel's",
               library_is="scaled_dot_product_attention forward, "
                          "EFFICIENT_ATTENTION backend, the same boolean mask",
-              also=[_fwd(r) for r in (gb_local, h_attn, g, cases[1],
+              also=[_fwd(r) for r in (gb_local, h_attn, moe_gb, g, cases[1],
                                       cases[2])]),
         entry("flash_fwd_kernel", fa, tpu_fa, vb, **_fwd(vb),
               ms_covers="the forward as the train step runs it, with lse: "
                         "split pass and merge pass",
               library_is="scaled_dot_product_attention forward, "
                          "EFFICIENT_ATTENTION backend, the same boolean mask",
-              also=[_fwd(r) for r in (vb_h, g32, cases[4])]),
+              also=[_fwd(r) for r in (vb_h, moe_vb, g32, cases[4])]),
         entry("flash_combine_kernel", fa, tpu_fa, m),
         entry("flash_bwd_dkdv_kernel", fa, tpu_fa + " (its gradient)", gb,
               ms=gb["kernel_ms_dkdv"], bound_ms=gb["bound_ms_dkdv"],
@@ -2633,14 +3013,16 @@ def main() -> int:
               library_ms=lib["library_ms"], library_case=lib["case"],
               library_case_ms=lib["kernel_ms"],
               library_is=lib["library_is"] + "; kernel and yardstick both "
-              "on library_case (library_case_ms: both backward passes)"),
+              "on library_case (library_case_ms: both backward passes)",
+              also=[_bwd_also(r, "dkdv") for r in (moe_gb, moe_vb)]),
         entry("flash_bwd_dq_kernel", fa, tpu_fa + " (its gradient)", gb,
               ms=gb["kernel_ms_dq"], bound_ms=gb["bound_ms_dq"],
               bound_by=gb["bound_by_dq"], plain_is=gb["plain_is"],
               library_ms=lib["library_ms"], library_case=lib["case"],
               library_case_ms=lib["kernel_ms"],
               library_is=lib["library_is"] + "; kernel and yardstick both "
-              "on library_case (library_case_ms: both backward passes)"),
+              "on library_case (library_case_ms: both backward passes)",
+              also=[_bwd_also(r, "dq") for r in (moe_gb, moe_vb)]),
         entry("flash_bwd_tiles_kernel", fa, tpu_fa + " (its gradient)", gb,
               max_abs_err=gb["tiles_max_abs_err"], ms=gb["tiles_ms"],
               plain_ms=gb["tiles_plain_ms"], bound_ms=gb["tiles_bound_ms"],
@@ -2650,16 +3032,20 @@ def main() -> int:
         entry("ce_fwd_mma_kernel", cs, tpu_ce + ":79", gce["B"],
               library_is=gce["B"]["library_is"],
               library_bf16_ms=gce["B"]["library_bf16_ms"],
-              library_bf16_is=gce["B"]["library_bf16_is"]),
-        entry("ce_bwd_dh_mma_kernel", cs, tpu_ce + ":159", gce["C1"]),
+              library_bf16_is=gce["B"]["library_bf16_is"],
+              also=_also(moe_gce["B"]) + _also(moe_tce["B"])),
+        entry("ce_bwd_dh_mma_kernel", cs, tpu_ce + ":159", gce["C1"],
+              also=_also(moe_gce["C1"]) + _also(moe_tce["C1"])),
         entry("ce_fwd_kernel", cs, tpu_ce + ":79", vce["B"],
-              library_is=vce["B"]["library_is"], also=_also(vce_h["B"])),
+              library_is=vce["B"]["library_is"],
+              also=_also(vce_h["B"]) + _also(moe_vce["B"])),
         entry("ce_bwd_kernel<dh>", cs, tpu_ce + ":159", vce["C1"],
-              also=_also(vce_h["C1"])),
+              also=_also(vce_h["C1"]) + _also(moe_vce["C1"])),
         entry("ce_bwd_dw_mma_kernel", cs, tpu_ce + ":222", gce["C2"],
-              also=_also(h_ce["C2"])),
+              also=_also(h_ce["C2"]) + _also(moe_gce["C2"])
+              + _also(moe_tce["C2"])),
         entry("ce_bwd_kernel<dw>", cs, tpu_ce + ":222", vce["C2"],
-              also=_also(vce_h["C2"])),
+              also=_also(vce_h["C2"]) + _also(moe_vce["C2"])),
         *[scan_entry(name, rec) for name in SCAN_KERNELS
           for rec in gated[:1]]]}
     print(smi)

@@ -18,8 +18,13 @@ in bfloat16:
       --steps 3 --batch 8 --context 16384
 
 A model whose states alone exceed the card (falcon-mamba-7b: 126 GB of
-parameters, master, moments and gradient sums on an 80 GB H100) stops at
-the planner with its message, before any parameter is allocated.
+parameters, master, moments and gradient sums on an 80 GB H100; olmoe-1b-7b
+at its 16 layers: 125 GB) stops at the planner with its message, before
+any parameter is allocated. ``--layers N`` cuts the depth and keeps every
+width: olmoe-1b-7b at 4 layers (34 GB of states) trains on one H100:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
+      --layers 4 --steps 3 --batch 8 --context 16384
 
 On the CPU, at a reduced size (float32):
 
@@ -280,6 +285,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma3-1b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers, every width "
+                         "kept (0: the arch's own)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--context", type=int, default=2048)
@@ -338,6 +346,8 @@ def main(argv=None) -> int:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = cfg.with_layers(args.layers)
     loop = TrainConfig(steps=args.steps, global_batch=args.batch,
                        context=args.context, dataset=args.dataset,
                        seed=args.seed, ckpt_policy=args.ckpt_policy,

@@ -62,6 +62,13 @@ class ArchConfig:
     def layer_windows(self) -> List[int]:
         return [self.layer_window(i) for i in range(self.spec.n_layers)]
 
+    def with_layers(self, n_layers: int) -> "ArchConfig":
+        """The same model cut to ``n_layers`` layers, every width kept."""
+        if n_layers < 1:
+            raise ValueError(f"n_layers must be >= 1, got {n_layers}")
+        return dataclasses.replace(self, spec=dataclasses.replace(
+            self.spec, n_layers=n_layers))
+
     def reduced(self, *, n_layers: int = 4, d_model: int = 64,
                 n_heads: int = 4, head_dim: int = 16, vocab: int = 512
                 ) -> "ArchConfig":

@@ -14,10 +14,11 @@ rows, the mamba mixer starts from their state ``(h, conv_tail)``; the
 carry's gradient is the paper's dKV term (Eq. 5) and its SSM counterpart.
 
 Layer kinds (as the reference's ``layer_apply``): ``ATTN`` (attention,
-then the SwiGLU MLP), ``MAMBA`` (the mamba mixer alone, falcon-mamba) and
+then the SwiGLU MLP), ``MOE`` (attention, then the MoE block of
+:mod:`.moe`; olmoe), ``MAMBA`` (the mamba mixer alone, falcon-mamba) and
 ``HYBRID`` (attention and the mamba mixer in parallel on the same normed
-input, averaged, then the MLP; hymba). MoE, MLA and encoder-decoder models
-are not ported.
+input, averaged, then the MLP; hymba). MLA and encoder-decoder models are
+not ported.
 
 The loss head (:meth:`DecoderLM.chunk_loss`) runs the final norm and the
 fused streaming cross-entropy (kernels B, C1, C2 on the card).
@@ -35,6 +36,7 @@ from .attention import (attention_block, init_attention,
 from .config import ArchConfig, LayerKind
 from .layers import (embed_init, rms_norm, rope_tables, swiglu_apply,
                      swiglu_init)
+from .moe import init_moe, moe_apply
 from .ssm import init_mamba, mamba_apply, ssm_state_shape
 
 __all__ = ["DecoderLM", "LayerCtx", "layer_params", "tree_map",
@@ -80,16 +82,19 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 def tree_unflatten(template, leaves):
     """A tree shaped like ``template`` holding ``leaves`` in the order of
     :func:`tree_leaves`."""
-    it = iter(leaves)
+    return _build(template, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}
-        if isinstance(t, list):
-            return [build(v) for v in t]
-        return next(it)
-    return build(template)
+
+def _build(t, it):
+    # a module-level function: a nested one that calls itself is a
+    # reference cycle, which would keep ``leaves`` (a step's gradient
+    # sums) alive until the garbage collector runs
+    if isinstance(t, dict):
+        built = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: built[k] for k in t}
+    if isinstance(t, list):
+        return [_build(v, it) for v in t]
+    return next(it)
 
 
 def layer_params(params: Dict, idx: int) -> Dict:
@@ -121,13 +126,15 @@ class DecoderLM:
         s = cfg.spec
         kind = cfg.layer_kind
         ssm = kind in (LayerKind.MAMBA, LayerKind.HYBRID)
-        if (kind not in (LayerKind.ATTN, LayerKind.MAMBA, LayerKind.HYBRID)
-                or s.n_experts or s.kv_lora_rank or s.is_encoder_decoder
+        if (kind not in (LayerKind.ATTN, LayerKind.MOE, LayerKind.MAMBA,
+                         LayerKind.HYBRID)
+                or s.kv_lora_rank or s.is_encoder_decoder
                 or ssm != (s.ssm_state > 0)
-                or s.attn_free != (kind == LayerKind.MAMBA)):
+                or s.attn_free != (kind == LayerKind.MAMBA)
+                or (kind == LayerKind.MOE) != (s.n_experts > 0)):
             raise NotImplementedError(
-                f"{cfg.name}: only dense attention, mamba and hybrid "
-                f"decoders are ported (not MoE, MLA or encoder-decoder)")
+                f"{cfg.name}: only dense attention, MoE, mamba and hybrid "
+                f"decoders are ported (not MLA or encoder-decoder)")
         self.cfg = cfg
         self.has_attn = kind != LayerKind.MAMBA
         self.has_ssm = ssm
@@ -153,7 +160,10 @@ class DecoderLM:
                 lp["mamba"] = init_mamba(self.cfg, gen, **kw)
             if self.cfg.layer_kind != LayerKind.MAMBA:
                 lp["ln2"] = torch.zeros((s.d_model,), **kw)
-                lp["mlp"] = swiglu_init(gen, s.d_model, s.d_ff, **kw)
+                if s.n_experts > 0:
+                    lp["moe"] = init_moe(self.cfg, gen, **kw)
+                else:
+                    lp["mlp"] = swiglu_init(gen, s.d_model, s.d_ff, **kw)
             layers.append(lp)
         params = {"embed": embed, "layers": _stack(layers),
                   "final_norm": torch.zeros((s.d_model,), **kw)}
@@ -163,7 +173,8 @@ class DecoderLM:
 
     @staticmethod
     def head_weights(params: Dict) -> torch.Tensor:
-        return params.get("unembed", params["embed"])
+        # (a pipeline's last stage holds no embed when the head is untied)
+        return params["unembed"] if "unembed" in params else params["embed"]
 
     def chunk_loss(self, params: Dict, hidden: torch.Tensor,
                    targets: torch.Tensor, seg: torch.Tensor
@@ -223,8 +234,15 @@ class DecoderLM:
         x = x + mixer
         if kind != LayerKind.MAMBA:
             h2 = rms_norm(x, lparams["ln2"], cfg.rms_eps)
-            x = x + swiglu_apply(lparams["mlp"], h2)
+            x = x + self.ffn(lparams, h2)
         return x, LayerCtx(nk, nv, nh, ntail)
+
+    def ffn(self, lparams: Dict, h: torch.Tensor) -> torch.Tensor:
+        """The layer's feed-forward block on its normed rows ``h``: the
+        MoE block, or the SwiGLU MLP."""
+        if "moe" in lparams:
+            return moe_apply(self.cfg, lparams["moe"], h)
+        return swiglu_apply(lparams["mlp"], h)
 
     # ------------------------------------------------------------------
     def init_ctx(self, cap: int, compute_dtype=torch.bfloat16,

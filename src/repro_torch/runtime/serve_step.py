@@ -52,8 +52,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import BLOCK_KV
 from repro_torch.models.attention import project_qkv
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import (linear, rms_norm, rope_tables,
-                                       swiglu_apply)
+from repro_torch.models.layers import linear, rms_norm, rope_tables
 from repro_torch.models.model import DecoderLM, layer_params
 
 __all__ = ["EngineGeometry", "make_engine_geometry", "init_pool",
@@ -258,7 +257,7 @@ def engine_step(model: DecoderLM, geom: EngineGeometry, params: Dict,
         cv.index_copy_(0, batch.write_rows, v)
         x = x + y
         h2 = rms_norm(x, lp["ln2"], cfg.rms_eps)
-        x = x + swiglu_apply(lp["mlp"], h2)
+        x = x + model.ffn(lp, h2)
     h_last = rms_norm(x.index_select(0, batch.head_rows),
                       params["final_norm"], cfg.rms_eps)
     ids = greedy_ids(h_last, model.head_weights(params), vocab_true=s.vocab)

@@ -29,10 +29,11 @@ from repro_torch.runtime.sharding import stage_blocks
 __all__ = ["DENSE_LEAVES", "from_jax", "to_stages", "from_stages"]
 
 # leaves stored [d_in, d_out] by the reference (the mamba mixer's conv_w
-# [d_conv, d_inner] is not a dense weight and keeps its layout)
+# [d_conv, d_inner] is not a dense weight and keeps its layout; stacked
+# experts [E, d_in, d_out] swap their last two axes as one weight does)
 DENSE_LEAVES = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up",
-                          "w_down", "in_proj", "x_proj", "dt_proj",
-                          "out_proj"})
+                          "w_down", "router", "in_proj", "x_proj",
+                          "dt_proj", "out_proj"})
 
 
 def _convert(tree: Mapping[str, Any], fn, name: str = ""):

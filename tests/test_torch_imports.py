@@ -70,11 +70,12 @@ def test_model_builders_name_their_device():
     on the CPU unless its caller asks for it."""
     import inspect
 
-    from repro_torch.models import DecoderLM, attention, layers
+    from repro_torch.models import DecoderLM, attention, layers, moe
     from repro_torch.weights import from_jax
     for fn in (DecoderLM.init, DecoderLM.init_ctx, from_jax,
                attention.init_attention, layers.dense_init,
-               layers.embed_init, layers.swiglu_init, layers.rope_freqs):
+               layers.embed_init, layers.swiglu_init, layers.rope_freqs,
+               moe.init_moe):
         param = inspect.signature(fn).parameters["device"]
         assert param.default is inspect.Parameter.empty, fn.__qualname__
 

@@ -4,8 +4,12 @@ Same parameters (the JAX init, bridged through ``repro_torch.weights``),
 same numpy inputs, float32, ``rtol = atol = 1e-5``: ``rms_norm``, rope,
 ``swiglu``, ``project_qkv``, ``layer_apply`` and ``forward_chunk`` with
 and without a split-chunk context carry, on reduced gemma3-1b (6 layers,
-so layer 5 is a global layer among window-8 locals) and reduced
-llama3.2-3b. Plus the weight bridge for both reference layouts.
+so layer 5 is a global layer among window-8 locals), reduced llama3.2-3b
+and reduced olmoe-1b-7b (4 experts, top-2: the MoE block by dispatch
+against the reference's dense one). Plus the weight bridge for both
+reference layouts (the stacked experts and the router included), and
+its round trip through the pipeline's stage dicts (``to_stages``, then
+``from_stages``).
 """
 
 import jax
@@ -24,14 +28,15 @@ from repro_torch.configs import get_arch
 from repro_torch.models import DecoderLM, layer_params
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
-from repro_torch.models.model import LayerCtx
-from repro_torch.weights import DENSE_LEAVES, from_jax
+from repro_torch.models.model import LayerCtx, unstack_layers
+from repro_torch.weights import DENSE_LEAVES, from_jax, from_stages, to_stages
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 ARCHS = {
     "gemma3-1b": dict(n_layers=6),
     "llama3.2-3b": dict(),
+    "olmoe-1b-7b": dict(),
 }
 
 
@@ -179,9 +184,33 @@ def test_bridge_raw_layout(arch):
         b = tparams["layers"]["attn"][name].numpy()
         want = np.swapaxes(a, -1, -2) if name in DENSE_LEAVES else a
         np.testing.assert_array_equal(b, want)
-    assert tparams["layers"]["mlp"]["w_down"].shape == (
-        s.n_layers, s.d_model, s.d_ff)
+    if s.n_experts:
+        moe = tparams["layers"]["moe"]
+        assert "mlp" not in tparams["layers"]
+        for name, a in raw["layers"]["moe"].items():
+            np.testing.assert_array_equal(moe[name].numpy(),
+                                          np.swapaxes(a, -1, -2))
+        assert moe["w_gate"].shape == (s.n_layers, s.n_experts,
+                                       s.d_ff_expert, s.d_model)
+        assert moe["w_down"].shape == (s.n_layers, s.n_experts, s.d_model,
+                                       s.d_ff_expert)
+        assert moe["router"].shape == (s.n_layers, s.n_experts, s.d_model)
+    else:
+        assert tparams["layers"]["mlp"]["w_down"].shape == (
+            s.n_layers, s.d_model, s.d_ff)
     np.testing.assert_array_equal(tparams["embed"].numpy(), raw["embed"])
+    _assert_stage_round_trip(tcfg, tparams, d_p=2)
+
+
+def _assert_stage_round_trip(tcfg, params, d_p, v=1):
+    """``to_stages`` then ``from_stages`` gives back every tensor."""
+    back = from_stages(tcfg, to_stages(tcfg, params, d_p, v))
+    want = unstack_layers(params)
+    assert sorted(back) == sorted(want)
+    flat_a, flat_b = jax.tree.leaves(back), jax.tree.leaves(want)
+    assert len(flat_a) == len(flat_b)
+    for a, b in zip(flat_a, flat_b):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("d_p,d_s", [(1, 1), (4, 3)])
@@ -196,6 +225,9 @@ def test_bridge_stage_layout(arch, d_p, d_s):
         "embed": np.asarray(_pad_vocab(jnp.asarray(raw["embed"]), d_s)),
         "final_norm": raw["final_norm"],
     }
+    if "unembed" in raw:
+        staged["unembed"] = np.asarray(_pad_vocab(jnp.asarray(
+            raw["unembed"]), d_s))
     lead = jax.tree.leaves(staged["stages"])[0].shape[:2]
     assert lead == (d_p, -(-jcfg.spec.n_layers // d_p))
     got = from_jax(tcfg, staged, device="cpu")
@@ -204,6 +236,7 @@ def test_bridge_stage_layout(arch, d_p, d_s):
     assert len(flat_a) == len(flat_b)
     for a, b in zip(flat_a, flat_b):
         assert torch.equal(a, b)
+    _assert_stage_round_trip(tcfg, got, d_p)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -236,3 +269,25 @@ def test_silu_gate_row_blocks_give_the_same_bits(monkeypatch, dtype):
         jg, ju = jax.grad(f, argnums=(0, 1))(jnp.asarray(g0), jnp.asarray(u0))
         _close(jg, whole[1])
         _close(ju, whole[2])
+
+
+def test_tree_unflatten_holds_no_reference_cycle():
+    """The tree ``tree_unflatten`` builds is freed as soon as its last
+    reference goes, without the garbage collector: a trainer's gradient
+    sums do not outlive its step (a cycle kept them a step longer)."""
+    import gc
+    import weakref
+
+    from repro_torch.models.model import tree_unflatten
+    template = {"b": [torch.zeros(2), {"c": torch.zeros(1)}],
+                "a": torch.zeros(3)}
+    leaves = [torch.ones(3), torch.ones(2), torch.ones(1)]
+    refs = [weakref.ref(t) for t in leaves]
+    gc.disable()
+    try:
+        tree = tree_unflatten(template, leaves)
+        assert tree["a"] is leaves[0] and tree["b"][1]["c"] is leaves[2]
+        del tree, leaves
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()

@@ -23,6 +23,11 @@ there too).
 * bit for bit: the split backward equals the fused one, the remat table
   equals a zeroed table, ``d_p = 1`` equals ``ChunkedTrainer``, the tied
   embedding's two copies after a step;
+* MoE layers (reduced olmoe-1b-7b, 4 experts, top-2): ``d_p = 2`` under
+  gpipe-1f1b and zero-bubble-h1 with the split equals ``ChunkedTrainer``
+  on the one-stage plan and the whole-sequence JAX gradients at the
+  limits above, and the split (whose weight-gradient store takes each
+  stacked expert leaf whole) equals the fused backward bit for bit;
 * three planted faults fall outside those limits;
 * the CLI runs ``--mesh 2x1`` and pins the schedule's ``v``; ``--mesh
   2x2`` raises.
@@ -415,6 +420,34 @@ def test_one_stage_is_the_chunked_trainer(arch, split):
         compute_dtype=torch.float32).loss_and_grads(plan, corpus)
     assert want.remat_layers == got.remat_layers > 0
     assert _bitwise(got, want)
+
+
+MOE = "olmoe-1b-7b"
+
+
+@pytest.mark.parametrize("sched,split", [("gpipe-1f1b", False),
+                                         ("zero-bubble-h1", True)])
+def test_moe_pipeline_equals_the_chunked_trainer(sched, split):
+    _, cfg, lens, corpus, raw = _case(MOE)
+    _, plan = _plan(cfg, lens, 2)
+    assert max(s.n_chunks for s in plan.sequences) >= 3
+    assert all(any(row) for row in plan.ckpt_table())
+    res = _run(MOE, 2, sched, split)
+    assert res.remat_layers > 0 and res.pipeline["handoffs"] > 0
+    want = ChunkedTrainer(cfg, from_jax(cfg, raw, device="cpu"),
+                          device="cpu", compute_dtype=torch.float32
+                          ).loss_and_grads(_plan(cfg, lens, 1)[1], corpus)
+    assert res.n_valid == want.n_valid
+    assert abs(res.loss - want.loss) <= 1e-5 * abs(want.loss)
+    worst = _worst(_jax_layout(res.grads), _jax_layout(want.grads))
+    assert worst <= GRAD_LIMIT, worst
+    rel, worst, ok = _within(res, MOE)
+    assert ok, (rel, worst)
+
+
+def test_moe_split_backward_is_the_fused_one():
+    assert _bitwise(_run(MOE, 2, "zero-bubble-h1", True),
+                    _run(MOE, 2, "zero-bubble-h1", False))
 
 
 def test_tied_copies_take_the_same_update():

@@ -4,7 +4,9 @@ The JAX ``ServeEngine`` runs on a ``(1, 1)`` ("data", "model") mesh on the
 CPU; its float32 stage-layout parameters are bridged into the port, and
 both engines serve the same trace. Output ids must be equal for every
 request, on reduced gemma3-1b (6 layers: window-8 locals and one global
-layer) and reduced llama3.2-3b. The port must also agree with itself
+layer), reduced llama3.2-3b and reduced olmoe-1b-7b (the MoE block on
+every row of a step, pad rows included, against the JAX engine's
+expert-parallel block at one shard). The port must also agree with itself
 across k=2 / k=1, prefix cache on / off, chunked / whole-prompt prefill,
 preemption under page pressure, and with its own ``one_shot_generate``;
 and its ``prompt_slices`` must equal the JAX package's.
@@ -28,7 +30,8 @@ from repro_torch.serve.engine import (EngineConfig, Request, ServeEngine,
                                       one_shot_generate)
 from repro_torch.weights import from_jax
 
-ARCHS = {"gemma3-1b": dict(n_layers=6), "llama3.2-3b": dict()}
+ARCHS = {"gemma3-1b": dict(n_layers=6), "llama3.2-3b": dict(),
+         "olmoe-1b-7b": dict()}
 GEOM = dict(n_items=4, cap_t=16, n_pages=48, page_sz=8, pages_per_seq=8)
 
 

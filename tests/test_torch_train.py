@@ -1,8 +1,9 @@
 """Port parity: the port's chunked training step and trainer against the
 JAX package's.
 
-On reduced gemma3-1b and llama3.2-3b in float32, with the JAX init bridged
-through ``repro_torch.weights``:
+On reduced gemma3-1b, llama3.2-3b and olmoe-1b-7b (4 experts, top-2: the
+port's dispatched MoE block against the reference's dense one) in
+float32, with the JAX init bridged through ``repro_torch.weights``:
 
 * one chunked step (a sequence split over 3 chunks with the KV carry and
   its dKV hand-off, packed hybrid chunks, two pipelines, the planner's own
@@ -19,7 +20,7 @@ through ``repro_torch.weights``:
 * two steps of the port's trainer equal two steps of the JAX trainer
   (``repro.launch.train.train`` on a 1x1 mesh, latency hiding off) from
   the same parameters: losses ``rtol 1e-5``, final parameters
-  ``atol 1e-6``.
+  ``atol 1e-6`` (gemma3-1b and olmoe-1b-7b).
 
 On reduced hymba-1.5b (the hybrid attention + mamba family), float32:
 
@@ -56,7 +57,7 @@ from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.runtime.train_step import ChunkedTrainer
 from repro_torch.weights import DENSE_LEAVES, from_jax
 
-ARCHS = ("gemma3-1b", "llama3.2-3b")
+ARCHS = ("gemma3-1b", "llama3.2-3b", "olmoe-1b-7b")
 SMALL = dict(n_layers=4, d_model=64, n_heads=4, head_dim=16, vocab=256)
 
 
@@ -207,10 +208,18 @@ def test_adamw_matches_reference():
 
 
 def test_two_steps_match_jax_trainer():
+    _two_steps_match_jax_trainer("gemma3-1b")
+
+
+def test_olmoe_two_steps_match_jax_trainer():
+    _two_steps_match_jax_trainer("olmoe-1b-7b")
+
+
+def _two_steps_match_jax_trainer(arch):
     from repro.launch.train import TrainLoopConfig
     from repro.launch.train import train as jtrain
     from repro_torch.launch.train import TrainConfig, train
-    arch, seed = "gemma3-1b", 0
+    seed = 0
     jcfg, cfg = jget(arch).reduced(), get_arch(arch).reduced()
     mesh = jax.make_mesh((1, 1), ("data", "model"))
     loop = dict(steps=2, global_batch=4, context=256, dataset="github",
