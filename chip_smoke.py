@@ -190,10 +190,46 @@ exit and no result line):
            that differ from the chunked step's and each run's smallest
            margin; a planted router fault (the (k+1)-th pick in place of
            the k-th) must fall outside the limit;
+  kernel_mla  kernels A and A′ at deepseek-v2-lite's MLA widths (16 query
+           heads, each its own KV head after the latent expansion; q/k 192,
+           v 128: ``flash_*_kernel<192, 128>``, nothing padded to a wider
+           head), as the attention backward cases above: bf16 on
+           train_mla's largest chunk of step 0, float32 on
+           train_verify_mla's largest chunk with its carry in front (each
+           held to its plain version at TOL, launched again for the same
+           bits, its planted faults outside; the bound counts 2·192 + 2·128
+           operations a live pair for the forward, 4·192 + 2·128 for dq,
+           4·192 + 4·128 for dk/dv; SDPA's EFFICIENT_ATTENTION backend as
+           the yardstick where it takes Dv != Dk); the forward with no
+           gradient at generate_mla's longest one-shot forward (515 rows:
+           split keys and the merge pass); B, C1, C2 at deepseek's head
+           (D 2048, V 102400) on both chunks' targets;
+  train_mla  deepseek-v2-lite at full width cut to 4 of 27 layers
+           (TRAIN_LAYERS), bf16 with a float32 AdamW master, 3 steps on the
+           train phase's batches: every loss finite, every step's peak at
+           or under the plan's estimate, launches as planned (A and A′ once
+           per layer per chunk, B, C1, C2 once per chunk), no plain call,
+           a "moe" line;
+  train_verify_mla  float32, the same 4 layers, the verify sequences (one
+           of 3,000 tokens over 3 chunks: the latent carry and its gradient
+           hand-off; table [2, 0, 4]), as train_verify_moe: the zeroed
+           table and one unchunked forward and backward per sequence within
+           1e-5, flipped picks and margins reported; two planted faults
+           (the latent carry's gradient dropped for one chunk, the scores
+           scaled by 1/sqrt(Dh) in place of 1/sqrt(Dh + rr)) must fall
+           outside;
+  generate_mla  deepseek-v2-lite at full width and depth (27 layers), bf16,
+           random weights from --seed made layer by layer in bf16:
+           ``one_shot_generate`` on the first 2 requests of serve's trace
+           (its vocabulary), prompts cut to 512 tokens, 4 new tokens each:
+           every id in the vocabulary, A's forward, its tile ranges (and
+           the merge pass, where the keys split) 27 times a forward, no
+           plain call;
   kernels  every kernel of the port with its launch counts in serve,
            train, train_hymba, the verify phases' chunked step (the
            float32 forward, B, C1 and C2 run only there), the two
-           pipeline phases and serve_moe, train_moe, train_verify_moe.
+           pipeline phases, serve_moe, train_moe, train_verify_moe and the
+           three MLA phases.
 
 The last two lines are the kernels JSON and the device JSON.
 """
@@ -262,9 +298,13 @@ def _ptxas_summary(log: str):
             kind = next((k for k in KERNEL_NAMES if k in ln), "?")
             # the tensor-core kernels take bf16 only
             dt = "bf16" if "bfloat16" in ln or "_mma_" in kind else "f32"
-            m = re.search(r"Li(\d+)E", ln)
-            var = m.group(1) if m else ("dw" if "Lb1E" in ln else
-                                        "dh" if "Lb0E" in ln else "")
+            # the attention kernels' (key, value) widths: one number where
+            # they are equal, "192,128" for MLA's
+            ints = re.findall(r"Li(\d+)E", ln)
+            if len(ints) == 2 and ints[0] == ints[1]:
+                ints = ints[:1]
+            var = ",".join(ints) if ints else (
+                "dw" if "Lb1E" in ln else "dh" if "Lb0E" in ln else "")
             if kind in SCAN_KERNELS and "Lb1E" in ln:
                 var += ",gated"
             # a template's mangled name goes on with "I" (its arguments)
@@ -297,12 +337,12 @@ def _cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 
 def _engine_like(rng, segments, n_items, cap_t, Hq, Hkv, D, dtype, dev,
-                 window=0):
+                 window=0, Dv=None):
     """Inputs shaped like one engine step: ``segments`` = [(ctx, n_tok)]
     placed first-fit into ``n_items`` items of ``cap_t`` tokens; the KV
     buffer holds every segment's context rows (with a window, only the
     last ``window - 1``, as the engine gathers them), then all chunk
-    rows."""
+    rows. q and k are ``D`` wide, v ``Dv`` (default ``D``)."""
     import numpy as np
     import torch
     T = n_items * cap_t
@@ -330,7 +370,7 @@ def _engine_like(rng, segments, n_items, cap_t, Hq, Hkv, D, dtype, dev,
         x = torch.randn(shape, generator=rng, device=dev, dtype=torch.float32)
         return x.to(dtype)
     meta = [torch.from_numpy(a).to(dev) for a in (seg, kseg, pos, kpos)]
-    return mk(T, Hq, D), mk(S, Hkv, D), mk(S, Hkv, D), meta
+    return mk(T, Hq, D), mk(S, Hkv, D), mk(S, Hkv, Dv or D), meta
 
 
 def _dtype_name(dtype) -> str:
@@ -367,15 +407,20 @@ def _mutants(window, seg_kv, pos_q):
     return out
 
 
-def _kernel_case(name, segments, Hq, Hkv, D, window, dtype, dev, seed):
+def _kernel_case(name, segments, Hq, Hkv, D, window, dtype, dev, seed,
+                 n_items=4, cap_t=512, Dv=None):
+    """The attention op with no gradient (the serving paths') on
+    :func:`_engine_like`'s inputs against the plain attention; ``Dv``: the
+    value width, if not ``D``."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import kv_splits
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v, meta = _engine_like(gen, segments, 4, 512, Hq, Hkv, D, dtype,
-                                 dev, window)
+    q, k, v, meta = _engine_like(gen, segments, n_items, cap_t, Hq, Hkv, D,
+                                 dtype, dev, window, Dv)
+    Dv = v.shape[2]
     seg_q, seg_kv, pos_q, pos_kv = meta
     args = dict(q=q, k=k, v=v, seg_q=seg_q, seg_kv=seg_kv, pos_q=pos_q,
                 pos_kv=pos_kv, window=window)
@@ -411,9 +456,10 @@ def _kernel_case(name, segments, Hq, Hkv, D, window, dtype, dev, seed):
     pairs = int(mask.sum()) * Hq
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got)) + \
         sum(t.numel() * 4 for t in meta)
-    bound_ms, bound_by = _bound(4.0 * D * pairs, nbytes, dtype)  # QK^T, PV
+    # Q K^T (2 D flops a live pair), P V (2 Dv)
+    bound_ms, bound_by = _bound((2.0 * D + 2.0 * Dv) * pairs, nbytes, dtype)
     rec = dict(case=name, dtype=_dtype_name(dtype), T=q.shape[0],
-               S=k.shape[0], Hq=Hq, Hkv=Hkv, D=D, window=window,
+               S=k.shape[0], Hq=Hq, Hkv=Hkv, D=D, Dv=Dv, window=window,
                live_pairs=pairs, n_split=n_split, max_abs_err=max_err,
                tol=TOL[_dtype_name(dtype)], within_tol=ok,
                masked_rows_zero=zeros_ok, bitwise_repeat=bitwise,
@@ -547,12 +593,14 @@ def _train_chunk(gen, C, pieces, Hq, Hkv, D, dtype, dev):
     return mk(T, Hq, D), mk(S, Hkv, D), mk(S, Hkv, D), mk(T, Hq, D), meta
 
 
-def _plan_chunk(gen, seg, pos, Hq, Hkv, D, dtype, dev, ctx_len=0, cap=0):
+def _plan_chunk(gen, seg, pos, Hq, Hkv, D, dtype, dev, ctx_len=0, cap=0,
+                Dv=None):
     """Inputs shaped like one of a plan's chunks: its own seg and pos rows
-    as queries and keys, random q, k, v and output gradient. With a carry
-    of ``cap`` rows its keys are laid out as the model's attention lays
-    them out: the carry in front (rows at positions 0..cap-1, the first
-    ``ctx_len`` of segment 0, the rest dead), then the chunk's rows."""
+    as queries and keys, random q, k (``D`` wide), v and output gradient
+    (``Dv`` wide, default ``D``). With a carry of ``cap`` rows its keys are
+    laid out as the model's attention lays them out: the carry in front
+    (rows at positions 0..cap-1, the first ``ctx_len`` of segment 0, the
+    rest dead), then the chunk's rows."""
     import numpy as np
     import torch
 
@@ -564,9 +612,19 @@ def _plan_chunk(gen, seg, pos, Hq, Hkv, D, dtype, dev, ctx_len=0, cap=0):
     kseg = np.concatenate([np.where(rows < ctx_len, 0, -1).astype(np.int32),
                            seg])
     kpos = np.concatenate([rows, pos])
-    S = len(kseg)
+    S, Dv = len(kseg), Dv or D
     meta = [torch.from_numpy(x).to(dev) for x in (seg, kseg, pos, kpos)]
-    return mk(T, Hq, D), mk(S, Hkv, D), mk(S, Hkv, D), mk(T, Hq, D), meta
+    return mk(T, Hq, D), mk(S, Hkv, D), mk(S, Hkv, Dv), mk(T, Hq, Dv), meta
+
+
+def _attn_widths(spec):
+    """``(Hq, Hkv, Dk, Dv)`` as a model's attention hands kernel A its
+    heads: MLA expands its latent rows to one KV head per query head, keys
+    ``Dh + rr`` wide and values ``Dh``."""
+    if spec.kv_lora_rank > 0:
+        return (spec.n_heads, spec.n_heads, spec.head_dim + spec.qk_rope_dim,
+                spec.head_dim)
+    return spec.n_heads, spec.n_kv_heads, spec.head_dim, spec.head_dim
 
 
 # the plain versions run over blocks of this many rows, so that their
@@ -622,7 +680,7 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
                                                      tile_counts)
     gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, dout, meta = inputs(gen, dtype)
-    (T, Hq, D), Hkv = q.shape, k.shape[1]
+    (T, Hq, Dk), (Hkv, Dv) = q.shape, v.shape[1:]
     seg_q, seg_kv, pos_q, pos_kv = meta
 
     def grads(seg_kv=seg_kv, pos_q=pos_q, window=window):
@@ -737,30 +795,33 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
         del mask
     tiles_walked = {p: dict(c, live=live_tiles) for p, c in
                     tile_counts(tiles, window=window).items()}
-    # per live (query, key, head), products of 2 D flops: the backward as a
-    # whole needs 5 (S = Q K^T recomputed, dP = dO V^T, dV = P^T dO,
-    # dQ = dS K, dK = dS^T Q); the dk/dv pass alone 4 (S, dP, dV, dK), the
-    # dq pass alone 3 (S, dP, dQ). Bytes: q, k, v, out, dout, lse and the
+    # per live (query, key, head), products of 2 Dk flops (S = Q K^T, dQ =
+    # dS K, dK = dS^T Q) or 2 Dv flops (dP = dO V^T, O = P V, dV = P^T dO):
+    # the backward as a whole needs S recomputed, dP, dV, dQ, dK (6 Dk +
+    # 4 Dv); the dk/dv pass alone S, dP, dV, dK (4 Dk + 4 Dv), the dq pass
+    # alone S, dP, dQ (4 Dk + 2 Dv). Bytes: q, k, v, out, dout, lse and the
     # metadata read once, the pass's gradients written once.
     size = {n: t.numel() * t.element_size() for n, t in
-            (("q", q), ("k", k), ("v", v))}
-    common = 3 * size["q"] + size["k"] + size["v"] + lse.numel() * 4 + \
-        sum(t.numel() * 4 for t in meta)
-    bounds = {"all": _bound(10.0 * D * pairs, common + size["q"] + size["k"]
-                            + size["v"], dtype),
-              "dkdv": _bound(8.0 * D * pairs, common + size["k"] + size["v"],
-                             dtype),
-              "dq": _bound(6.0 * D * pairs, common + size["q"], dtype)}
+            (("q", q), ("k", k), ("v", v), ("o", dout))}
+    common = size["q"] + 2 * size["o"] + size["k"] + size["v"] + \
+        lse.numel() * 4 + sum(t.numel() * 4 for t in meta)
+    bounds = {"all": _bound((6.0 * Dk + 4.0 * Dv) * pairs, common + size["q"]
+                            + size["k"] + size["v"], dtype),
+              "dkdv": _bound((4.0 * Dk + 4.0 * Dv) * pairs,
+                             common + size["k"] + size["v"], dtype),
+              "dq": _bound((4.0 * Dk + 2.0 * Dv) * pairs, common + size["q"],
+                           dtype)}
     # the ranges' kernel: the four metadata vectors read once, the ranges
     # and summaries written once (its pair tests are a few per tile)
     n_tiles = -(-T // block) + -(-S // block)
     bounds["tiles"] = _bound(0.0, sum(t.numel() * 4 for t in pm)
                              + 24 * n_tiles, dtype)
     # the forward as the train step runs it (split pass and merge pass,
-    # writing lse): 2 products of 2 D flops per live pair; q, k, v and the
-    # metadata read once, out and lse written once
-    bounds["fwd"] = _bound(4.0 * D * pairs, 2 * size["q"] + size["k"]
-                           + size["v"] + lse.numel() * 4
+    # writing lse): S = Q K^T (2 Dk flops per live pair) and O = P V (2
+    # Dv); q, k, v and the metadata read once, out and lse written once
+    bounds["fwd"] = _bound((2.0 * Dk + 2.0 * Dv) * pairs, size["q"]
+                           + size["o"] + size["k"] + size["v"]
+                           + lse.numel() * 4
                            + sum(t.numel() * 4 for t in meta), dtype)
     fwd_ms = _cuda_ms(forward, iters=3, warmup=1)
     fwd_plain_ms = _cuda_ms(lambda: [
@@ -801,7 +862,7 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
     del mask, qe, ke, ve, de
     torch.cuda.empty_cache()
     rec = dict(case=name, dtype=_dtype_name(dtype), T=q.shape[0],
-               S=k.shape[0], Hq=Hq, Hkv=Hkv, D=D, window=window,
+               S=k.shape[0], Hq=Hq, Hkv=Hkv, D=Dk, Dv=Dv, window=window,
                live_pairs=pairs, max_abs_err=max_err, lse_max_abs_err=lse_err,
                out_max_abs_err=out_err, tol=TOL[_dtype_name(dtype)],
                within_tol=ok and lse_ok and out_ok,
@@ -818,8 +879,9 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
                            "mask on the EFFICIENT_ATTENTION backend, forward "
                            "and backward under autograd (K, V repeated over "
                            "the GQA group)" if library_ms is not None else
-                           f"not timed: the EFFICIENT_ATTENTION backend "
-                           f"refused the case ({library_why})"),
+                           f"no single call: the EFFICIENT_ATTENTION "
+                           f"backend refused the case, nothing padded "
+                           f"({library_why})"),
                tiles_ms=tiles_ms, tiles_plain_ms=tiles_plain_ms,
                tiles_max_abs_err=tiles_err, tiles_bound_ms=bounds["tiles"][0],
                tiles_bound_by=bounds["tiles"][1],
@@ -841,7 +903,7 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
                          "lse over blocks of query rows; fwd_library_ms: "
                          "scaled_dot_product_attention forward on the "
                          "EFFICIENT_ATTENTION backend with the same boolean "
-                         "mask",
+                         "mask (null: no single call, library_is says why)",
                bound_ms=bound_ms, bound_by=bound_by)
     if not (ok and lse_ok and out_ok):
         raise PhaseError(f"attention backward disagrees with the plain "
@@ -861,7 +923,8 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
 
 
 CE_HEADS = {"gemma3-1b": (1152, 262144), "llama3.2-3b": (3072, 128256),
-            "hymba-1.5b": (1600, 32001), "olmoe-1b-7b": (2048, 50304)}
+            "hymba-1.5b": (1600, 32001), "olmoe-1b-7b": (2048, 50304),
+            "deepseek-v2-lite": (2048, 102400)}
 # the cross-entropy wrapper of each function (cross_entropy.KERNELS names
 # the kernel it launches by dtype)
 CE_WRAPPER = {"B": "fwd", "C1": "dh", "C2": "dw"}
@@ -869,8 +932,10 @@ CE_T = 8192
 # the train phases: github batches of 8 sequences of up to 16,384 tokens
 TRAIN_BATCH, TRAIN_CONTEXT, TRAIN_STEPS = 8, 16384, 3
 # the train phases cut olmoe-1b-7b to 4 of its 16 layers, every width
-# kept: 16 layers' states take 125 GB, 4 take 34 GB of the card's 80
-TRAIN_LAYERS = {"olmoe-1b-7b": 4}
+# kept: 16 layers' states take 125 GB, 4 take 34 GB of the card's 80;
+# deepseek-v2-lite to 4 of its 27 (states 49.7 GB; the plan's estimates for
+# train's batches 68.1 / 65.7 / 64.3 GB; 27 layers' states take 291 GB)
+TRAIN_LAYERS = {"olmoe-1b-7b": 4, "deepseek-v2-lite": 4}
 
 
 def _arch(name):
@@ -1065,9 +1130,10 @@ def _train_chunks(seed, arch="gemma3-1b"):
 
 # the verify phases' activation budget beside the model states: 2 GB,
 # under which the ILP checkpoints layers of some chunks (gemma3-1b: [23,
-# 0, 26]); olmoe-1b-7b's 4 layers hold the whole batch's activations in
-# 1.6 GB, so its budget is 0.7 GB (table [2, 0, 4])
-VERIFY_BUDGET = {"olmoe-1b-7b": 0.7e9}
+# 0, 26]); olmoe-1b-7b's and deepseek-v2-lite's 4 layers hold the whole
+# batch's activations in 1.6 and 1.8 GB, so their budget is 0.7 GB (table
+# [2, 0, 4] for both)
+VERIFY_BUDGET = {"olmoe-1b-7b": 0.7e9, "deepseek-v2-lite": 0.7e9}
 
 
 def _verify_plan(arch, seed):
@@ -1102,12 +1168,11 @@ def _verify_attn_case(arch, phase, seed, dev):
     chunk, _, seg, pos = _plan_chunks(corpus, plan)[0]
     if not chunk.context:
         raise PhaseError(f"{phase}'s largest chunk has no carry: {chunk}")
-    s = cfg.spec
+    Hq, Hkv, Dk, Dv = _attn_widths(cfg.spec)
 
     def inputs(gen, dtype):
-        return _plan_chunk(gen, seg, pos, s.n_heads, s.n_kv_heads,
-                           s.head_dim, dtype, dev, chunk.context,
-                           chunk.context)
+        return _plan_chunk(gen, seg, pos, Hq, Hkv, Dk, dtype, dev,
+                           chunk.context, chunk.context, Dv=Dv)
     name = f"{phase} chunk ({chunk.tokens} tokens, carry {chunk.context})"
     return name, inputs, slice(chunk.context - 32, chunk.context)
 
@@ -2607,22 +2672,75 @@ def _router_fault():
         moe.route = good
 
 
-def phase_train_verify_moe(dev, seed):
-    """olmoe-1b-7b in float32 at full width, 4 layers, on the verify
-    sequences (K = 3, VERIFY_BUDGET: a split over 3 chunks, a packed
-    chunk, a non-zero remat table): the chunked step launches the kernels
-    as its plan predicts; the same step with the table zeroed and one
-    unchunked forward and backward per sequence agree with it within
-    VERIFY_LIMIT (loss and each gradient leaf, relative); the router's
-    (k+1)-th pick in place of its k-th must fall outside it. Each run's
-    smallest top-k margin and the (token, layer) picks that differ from
-    the chunked step's are reported."""
+@contextlib.contextmanager
+def _latent_carry_fault(trainer):
+    """The trainer with the first latent carry it hands on detached (undone
+    on exit): that carry's gradient never reaches the chunk that wrote
+    it (``_carry_fault``'s pattern, for MLA's latent rows, one chunk)."""
+    fwd, done = trainer.model.forward_chunk, []
+
+    def faulty(*a, **kw):
+        hidden, out = fwd(*a, **kw)
+        if out is not None and out.k is not None and not done:
+            done.append(True)
+            out = out._replace(k=[t.detach().requires_grad_(True)
+                                  for t in out.k])
+        return hidden, out
+    trainer.model.forward_chunk = faulty
+    try:
+        yield
+    finally:
+        trainer.model.__dict__.pop("forward_chunk", None)
+    if not done:
+        raise PhaseError("no chunk handed on a latent carry")
+
+
+@contextlib.contextmanager
+def _mla_scale_fault(trainer):
+    """MLA's scores scaled by ``1/sqrt(Dh)``, the value width's, in place
+    of ``1/sqrt(Dh + rr)`` (undone on exit)."""
+    import math
+    policy = trainer.model.attn_fn
+    wrong = 1.0 / math.sqrt(trainer.model.cfg.spec.head_dim)
+
+    def faulty(*a, scale, **kw):
+        return policy(*a, scale=wrong, **kw)
+    trainer.model.attn_fn = faulty
+    try:
+        yield
+    finally:
+        trainer.model.attn_fn = policy
+
+
+# the planted faults of each routed arch's float32 verify phase: each must
+# take the chunked step outside VERIFY_LIMIT
+ROUTED_FAULTS = {
+    "olmoe-1b-7b": {"planted router fault": lambda tr: _router_fault()},
+    "deepseek-v2-lite": {
+        "planted latent carry fault": _latent_carry_fault,
+        "planted scale fault": _mla_scale_fault},
+}
+
+
+def phase_train_verify_moe(dev, seed, arch=MOE):
+    """``arch`` (olmoe-1b-7b; deepseek-v2-lite as train_verify_mla) in
+    float32 at full width, 4 layers, on the verify sequences (K = 3,
+    VERIFY_BUDGET: a split over 3 chunks, a packed chunk, a non-zero remat
+    table): the chunked step launches the kernels as its plan predicts;
+    the same step with the table zeroed and one unchunked forward and
+    backward per sequence agree with it within VERIFY_LIMIT (loss and each
+    gradient leaf, relative); each planted fault of ROUTED_FAULTS (olmoe:
+    the router's (k+1)-th pick in place of its k-th; deepseek: the latent
+    carry's gradient dropped for one chunk, the scores scaled by
+    ``1/sqrt(Dh)``) must fall outside it. Each run's smallest top-k margin
+    and the (token, layer) picks that differ from the chunked step's are
+    reported."""
     import torch
 
     from repro_torch.models import DecoderLM
     from repro_torch.models.model import tree_leaves
     from repro_torch.runtime.train_step import ChunkedTrainer, remat_depths
-    cfg, corpus, plan = _verify_plan(MOE, seed)
+    cfg, corpus, plan = _verify_plan(arch, seed)
     chunks = [c for p in plan.pipelines for c in p.chunks]
     if max(s.n_chunks for s in plan.sequences) < 3 or not any(
             c.kind.value == "hybrid" for c in chunks) or not any(
@@ -2638,22 +2756,8 @@ def phase_train_verify_moe(dev, seed):
     ctr = _train_counters()
     expected = _expected_launches(cfg, plan, remat_depths(plan, L),
                                   torch.float32)
-    _zero_counts(ctr)
-    runs, tables, watch, launches = {}, {}, {}, None
-    for name, fn in (("plan table", lambda: tr.loss_and_grads(plan, corpus)),
-                     ("table zeroed", lambda: tr.loss_and_grads(
-                         plan, corpus, remat_policy="none")),
-                     ("unchunked", lambda: tr.sequence_loss_and_grads(
-                         corpus))):
-        records = []
-        with _recorded_picks(corpus, layer_of, records) as w:
-            runs[name] = fn()
-        if launches is None:
-            launches = {k: v for k, v in _read_counts(ctr).items()
-                        if k in expected}
-        tables[name], watch[name] = _pick_table(records), w
     names = _leaf_names(tr.params)
-    base = runs["plan table"]
+    base = None
 
     def against_base(r):
         worst, leaf = 0.0, 0
@@ -2669,6 +2773,28 @@ def phase_train_verify_moe(dev, seed):
                 "grad_max_rel_diff_leaf": names[leaf],
                 "within": rel <= VERIFY_LIMIT and worst <= VERIFY_LIMIT
                 and r.n_valid == base.n_valid}
+    # each run is held to the chunked step as it ends and its gradients
+    # dropped: three runs' float32 gradients (11 GB each at deepseek's 4
+    # layers) do not fit beside the parameters and a fourth run
+    _zero_counts(ctr)
+    tables, watch, held, launches = {}, {}, {}, None
+    for name, fn in (("plan table", lambda: tr.loss_and_grads(plan, corpus)),
+                     ("table zeroed", lambda: tr.loss_and_grads(
+                         plan, corpus, remat_policy="none")),
+                     ("unchunked", lambda: tr.sequence_loss_and_grads(
+                         corpus))):
+        records = []
+        with _recorded_picks(corpus, layer_of, records) as w:
+            r = fn()
+        if launches is None:
+            launches = {k: v for k, v in _read_counts(ctr).items()
+                        if k in expected}
+        tables[name], watch[name] = _pick_table(records), w
+        if base is None:
+            base = r
+        else:
+            held[name] = against_base(r)
+        del r
     n_tokens = sum(len(t) for t in corpus.values())
     out = {"chunks": [(c.kind.value, c.context, c.tokens) for c in chunks],
            "remat_table": plan.ckpt_table()[0], "launches": launches,
@@ -2676,24 +2802,25 @@ def phase_train_verify_moe(dev, seed):
            "moe": watch["plan table"]}
     for name in ("table zeroed", "unchunked"):
         flips, pairs = _flips(tables["plan table"], tables[name])
-        out[name] = dict(against_base(runs[name]), flipped_picks=flips,
+        out[name] = dict(held[name], flipped_picks=flips,
                          token_layers=pairs,
                          min_topk_margin=watch[name]["min_topk_margin"])
         if pairs != n_tokens * L:
             raise PhaseError(f"{name}: picks recorded for {pairs} (token, "
                              f"layer) pairs of {n_tokens * L}: {out}")
-    del runs
-    with _router_fault():
-        out["planted router fault"] = against_base(
-            tr.loss_and_grads(plan, corpus))
+    faults = ROUTED_FAULTS[arch]
+    for name, fault in faults.items():
+        with fault(tr):
+            out[name] = against_base(tr.loss_and_grads(plan, corpus))
     if launches != expected:
         raise PhaseError(f"launch counts with remat (got, expected): "
                          f"{launches}, {expected}")
     bad = [n for n in ("table zeroed", "unchunked") if not out[n]["within"]]
     if bad:
         raise PhaseError(f"{bad} differ from the chunked step: {out}")
-    if out["planted router fault"]["within"]:
-        raise PhaseError(f"the limit does not catch the router fault: {out}")
+    missed = [n for n in faults if out[n]["within"]]
+    if missed:
+        raise PhaseError(f"the limit does not catch {missed}: {out}")
     del base, tr
     torch.cuda.empty_cache()
     return out
@@ -2709,6 +2836,134 @@ def _leaf_names(tree, prefix=""):
         return [n for i, v in enumerate(tree)
                 for n in _leaf_names(v, f"{prefix}[{i}]")]
     return [prefix]
+
+
+# ---------------------------------------------------------------------------
+# MLA: deepseek-v2-lite
+# ---------------------------------------------------------------------------
+
+MLA = "deepseek-v2-lite"
+
+
+def phase_kernel_mla(dev, seed):
+    """Kernels A and A′ at MLA's widths (16 query heads, each its own KV
+    head after the latent expansion; keys 192 wide, values 128:
+    ``flash_*_kernel<192, 128>``, nothing padded): the attention backward
+    and forward on train_mla's largest chunk of step 0 (bf16, its own
+    segments and positions) and on train_verify_mla's largest chunk
+    (float32, its carry in front); B, C1, C2 at deepseek's head (D 2,048,
+    V 102,400) on those two chunks' targets."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    Hq, Hkv, Dk, Dv = _attn_widths(_arch(MLA).spec)
+    chunk, tgt, seg, pos = _train_chunks(seed, MLA)[0]
+    name = f"{MLA} train chunk ({chunk.tokens} tokens)"
+    # the dropped tile: 32 rows inside segment 0, past its first 32
+    a0 = int((seg >= 0).argmax())
+    n0 = int((seg == seg[a0]).sum())
+    r = a0 + min(1024, n0 // 2 // 32 * 32)
+    if n0 < 128:
+        raise PhaseError(f"{name}: segment 0 has {n0} rows")
+
+    def from_plan(gen, dtype):
+        return _plan_chunk(gen, seg, pos, Hq, Hkv, Dk, dtype, dev, Dv=Dv)
+    bwd = []
+    for args in ((f"{name} global", from_plan, slice(r, r + 32), 0, bf16),
+                 (*_verify_attn_case(MLA, "train_verify_mla", seed, dev),
+                  0, f32)):
+        bwd.append(_attn_bwd_case(*args, dev, 41 + len(bwd),
+                                  row_block=MOE_ROW_BLOCK))
+        print(f"[kernel] attention backward {json.dumps(bwd[-1])}",
+              flush=True)
+        torch.cuda.empty_cache()
+    # generate_mla's longest forward: one sequence of the cut prompt and
+    # the new ids but the last, no gradient; its 9 query tiles x 16 heads
+    # do not fill the card, so the keys split and the merge pass runs
+    n = GEN_PROMPT + GEN_NEW - 1
+    fwd = _kernel_case(f"{MLA} one-shot forward ({n} rows)", [(0, n)], Hq,
+                       Hkv, Dk, 0, bf16, dev, 45, n_items=1, cap_t=n, Dv=Dv)
+    print(f"[kernel] {json.dumps(fwd)}", flush=True)
+    v_chunk, v_tgt = _plan_chunks(*_verify_plan(MLA, seed)[1:])[0][:2]
+    ce = []
+    for dtype, seed_, targets, case in (
+            (bf16, 43, torch.from_numpy(tgt), name),
+            (f32, 44, torch.from_numpy(v_tgt),
+             f"train_verify_mla chunk ({v_chunk.tokens} tokens)")):
+        ce.append(_ce_case(MLA, dtype, dev, seed_, targets=targets,
+                           case=case))
+        for rec in ce[-1].values():
+            print(f"[kernel] cross-entropy {json.dumps(rec)}", flush=True)
+        torch.cuda.empty_cache()
+    return bwd, fwd, ce
+
+
+# generate_mla: the first requests of serve's trace (deepseek's
+# vocabulary), their prompts cut to GEN_PROMPT tokens, GEN_NEW tokens each
+GEN_REQUESTS, GEN_PROMPT, GEN_NEW = 2, 512, 4
+
+
+def phase_generate_mla(dev, seed):
+    """deepseek-v2-lite at full width and depth (27 layers of MLA and a
+    64-expert top-6 MoE block with 2 shared experts), bf16, random weights
+    from ``seed`` made layer by layer in bf16 (31.6 GB; a float32 copy
+    beside them would not fit): ``one_shot_generate`` on GEN_REQUESTS
+    requests, GEN_NEW tokens each. Every id lies in the vocabulary; each
+    forward launches A's forward and its tile ranges 27 times (the merge
+    pass 27 times where the keys split), no backward, no plain call."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import sample_request_trace
+    from repro_torch.kernels.flash_attention import BLOCK_KV, BLOCK_Q, \
+        kv_splits
+    from repro_torch.models import DecoderLM
+    from repro_torch.serve.engine import one_shot_generate
+    cfg = get_arch(MLA)
+    s = cfg.spec
+    trace = sample_request_trace("github", 16, 4096, s.vocab, seed=0,
+                                 max_new_tokens=32)
+    prompts = [list(t["prompt"][:GEN_PROMPT]) for t in trace[:GEN_REQUESTS]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = DecoderLM(cfg).init(gen, device=dev, dtype=torch.bfloat16)
+    weights_gb = torch.cuda.memory_allocated(dev) / 1e9
+    ctr = _train_counters()
+    _zero_counts(ctr)
+    t0 = time.perf_counter()
+    ids = one_shot_generate(cfg, params, prompts, GEN_NEW,
+                            compute_dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts(ctr)
+    # one forward per new token over the prompt and the ids so far; its
+    # keys split (the merge pass) where its query tiles x heads do not
+    # fill the card
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = [len(p) + i for p in prompts for i in range(GEN_NEW)]
+    merges = sum(kv_splits(-(-n // BLOCK_Q) * BLOCK_Q,
+                           -(-n // BLOCK_KV) * BLOCK_KV, s.n_heads, n_sm) > 1
+                 for n in rows)
+    L = s.n_layers
+    expected = {k: 0 for k in counts}
+    expected.update({"flash_fwd_mma_kernel": L * len(rows),
+                     "flash_bwd_tiles_kernel": L * len(rows),
+                     "flash_combine_kernel": L * merges})
+    rec = dict(layers=L, requests=len(prompts),
+               prompt_tokens=[len(p) for p in prompts], new_tokens=GEN_NEW,
+               forwards=len(rows), ids=ids, wall_s=wall,
+               weights_gb=weights_gb,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               launches={k: v for k, v in counts.items() if v})
+    del params
+    torch.cuda.empty_cache()
+    if any(len(x) != GEN_NEW or not all(0 <= t < s.vocab for t in x)
+           for x in ids):
+        raise PhaseError(f"ids missing or outside the vocabulary: {rec}")
+    bad = {k: (counts[k], v) for k, v in expected.items() if counts[k] != v}
+    if bad:
+        raise PhaseError(f"launch counts (got, expected): {bad}; {rec}")
+    return rec, counts
 
 
 # ---------------------------------------------------------------------------
@@ -2875,6 +3130,35 @@ def main() -> int:
     print(f"[train_verify_moe] ok in {dt:.1f}s: {json.dumps(ver)}",
           flush=True)
     verify_moe_counts = ver["launches"]
+    torch.cuda.empty_cache()
+
+    # MLA: deepseek-v2-lite's attention kernels at q/k 192, v 128, the
+    # model trained at full width on TRAIN_LAYERS' depth and generated from
+    # at full width and depth
+    (mla_bwd, mla_fwd, mla_ce), dt = run("kernel_mla", lambda:
+                                         phase_kernel_mla(dev, args.seed))
+    print(f"[kernel_mla] ok in {dt:.1f}s", flush=True)
+    with _moe_watch() as watch:
+        trn_mla, dt = run("train_mla", lambda: phase_train(dev, args.seed,
+                                                           MLA))
+    for rec in trn_mla:
+        print(f"[train_mla] {json.dumps(rec)}", flush=True)
+    print(f"[train_mla] moe {json.dumps(watch)}", flush=True)
+    print(f"[train_mla] ok in {dt:.1f}s", flush=True)
+    train_mla_counts = {k: sum(r["launches"][k] for r in trn_mla)
+                        for k in ctr}
+
+    ver, dt = run("train_verify_mla", lambda: phase_train_verify_moe(
+        dev, args.seed, MLA))
+    print(f"[train_verify_mla] ok in {dt:.1f}s: {json.dumps(ver)}",
+          flush=True)
+    verify_mla_counts = ver["launches"]
+    torch.cuda.empty_cache()
+    with _moe_watch() as watch:
+        (gen_mla, gen_mla_counts), dt = run(
+            "generate_mla", lambda: phase_generate_mla(dev, args.seed))
+    print(f"[generate_mla] {json.dumps(gen_mla)} in {dt:.1f}s", flush=True)
+    print(f"[generate_mla] moe {json.dumps(watch)}", flush=True)
 
     # launches per path: serve, the bf16 train steps, and the float32
     # verify phases' chunked step (the float32 B and C1 run only there)
@@ -2884,7 +3168,10 @@ def main() -> int:
              "train_pipeline": pipe_counts,
              "train_pipeline_verify": pipe_verify_counts,
              "serve_moe": serve_moe_counts, "train_moe": train_moe_counts,
-             "train_verify_moe": verify_moe_counts}
+             "train_verify_moe": verify_moe_counts,
+             "train_mla": train_mla_counts,
+             "train_verify_mla": verify_mla_counts,
+             "generate_mla": gen_mla_counts}
     print(f"[kernels] serve: {json.dumps(serve_counts)}; train "
           f"({len(trn)} steps): {json.dumps(train_counts)}; train_hymba "
           f"({len(hym)} steps): {json.dumps(hymba_counts)}; train_verify: "
@@ -2894,7 +3181,10 @@ def main() -> int:
           f"train_pipeline_verify: {json.dumps(pipe_verify_counts)}; "
           f"serve_moe: {json.dumps(serve_moe_counts)}; train_moe "
           f"({len(trn_moe)} steps): {json.dumps(train_moe_counts)}; "
-          f"train_verify_moe: {json.dumps(verify_moe_counts)}; total "
+          f"train_verify_moe: {json.dumps(verify_moe_counts)}; train_mla "
+          f"({len(trn_mla)} steps): {json.dumps(train_mla_counts)}; "
+          f"train_verify_mla: {json.dumps(verify_mla_counts)}; "
+          f"generate_mla: {json.dumps(gen_mla_counts)}; total "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
     fa = "src/repro_torch/kernels/csrc/flash_attention.cu"
     cs = "src/repro_torch/kernels/csrc/cross_entropy.cu"
@@ -2926,15 +3216,18 @@ def main() -> int:
     def _bwd_also(rec, p):  # an attention backward pass of another case
         return {"case": rec["case"], "dtype": rec["dtype"], "T": rec["T"],
                 "S": rec["S"], "Hq": rec["Hq"], "D": rec["D"],
+                "Dv": rec["Dv"],
                 "ms": rec[f"kernel_ms_{p}"], "bound_ms": rec[f"bound_ms_{p}"],
                 "bound_by": rec[f"bound_by_{p}"],
                 "plain_ms": rec["plain_ms"], "library_ms": rec["library_ms"],
                 "max_abs_err": rec["max_abs_err"]}
     moe_gb, moe_vb = moe_bwd            # olmoe's train chunk, verify chunk
     moe_gce, moe_tce, moe_vce = moe_ce  # train chunk, CE_T, verify chunk
+    mla_gb, mla_vb = mla_bwd            # deepseek's (192, 128) cases
+    mla_gce, mla_vce = mla_ce           # its head: train chunk, verify chunk
 
     def _fwd(rec):          # the attention forward of one case
-        keys = ("case", "dtype", "T", "S", "Hq", "D", "window")
+        keys = ("case", "dtype", "T", "S", "Hq", "D", "Dv", "window")
         if "fwd_ms" not in rec:             # an engine-step case: the op
             return {**{k: rec[k] for k in keys}, "n_split": rec["n_split"],
                     "ms": rec["kernel_ms"], "ms_is": rec["kernel_ms_is"],
@@ -2998,14 +3291,15 @@ def main() -> int:
                         "tile ranges are flash_bwd_tiles_kernel's",
               library_is="scaled_dot_product_attention forward, "
                          "EFFICIENT_ATTENTION backend, the same boolean mask",
-              also=[_fwd(r) for r in (gb_local, h_attn, moe_gb, g, cases[1],
-                                      cases[2])]),
+              also=[_fwd(r) for r in (gb_local, h_attn, moe_gb, mla_gb,
+                                      mla_fwd, g, cases[1], cases[2])]),
         entry("flash_fwd_kernel", fa, tpu_fa, vb, **_fwd(vb),
               ms_covers="the forward as the train step runs it, with lse: "
                         "split pass and merge pass",
               library_is="scaled_dot_product_attention forward, "
                          "EFFICIENT_ATTENTION backend, the same boolean mask",
-              also=[_fwd(r) for r in (vb_h, moe_vb, g32, cases[4])]),
+              also=[_fwd(r) for r in (vb_h, moe_vb, mla_vb, g32,
+                                      cases[4])]),
         entry("flash_combine_kernel", fa, tpu_fa, m),
         entry("flash_bwd_dkdv_kernel", fa, tpu_fa + " (its gradient)", gb,
               ms=gb["kernel_ms_dkdv"], bound_ms=gb["bound_ms_dkdv"],
@@ -3014,7 +3308,8 @@ def main() -> int:
               library_case_ms=lib["kernel_ms"],
               library_is=lib["library_is"] + "; kernel and yardstick both "
               "on library_case (library_case_ms: both backward passes)",
-              also=[_bwd_also(r, "dkdv") for r in (moe_gb, moe_vb)]),
+              also=[_bwd_also(r, "dkdv") for r in (moe_gb, moe_vb, mla_gb,
+                                                   mla_vb)]),
         entry("flash_bwd_dq_kernel", fa, tpu_fa + " (its gradient)", gb,
               ms=gb["kernel_ms_dq"], bound_ms=gb["bound_ms_dq"],
               bound_by=gb["bound_by_dq"], plain_is=gb["plain_is"],
@@ -3022,7 +3317,8 @@ def main() -> int:
               library_case_ms=lib["kernel_ms"],
               library_is=lib["library_is"] + "; kernel and yardstick both "
               "on library_case (library_case_ms: both backward passes)",
-              also=[_bwd_also(r, "dq") for r in (moe_gb, moe_vb)]),
+              also=[_bwd_also(r, "dq") for r in (moe_gb, moe_vb, mla_gb,
+                                                 mla_vb)]),
         entry("flash_bwd_tiles_kernel", fa, tpu_fa + " (its gradient)", gb,
               max_abs_err=gb["tiles_max_abs_err"], ms=gb["tiles_ms"],
               plain_ms=gb["tiles_plain_ms"], bound_ms=gb["tiles_bound_ms"],
@@ -3033,19 +3329,24 @@ def main() -> int:
               library_is=gce["B"]["library_is"],
               library_bf16_ms=gce["B"]["library_bf16_ms"],
               library_bf16_is=gce["B"]["library_bf16_is"],
-              also=_also(moe_gce["B"]) + _also(moe_tce["B"])),
+              also=_also(moe_gce["B"]) + _also(moe_tce["B"])
+              + _also(mla_gce["B"])),
         entry("ce_bwd_dh_mma_kernel", cs, tpu_ce + ":159", gce["C1"],
-              also=_also(moe_gce["C1"]) + _also(moe_tce["C1"])),
+              also=_also(moe_gce["C1"]) + _also(moe_tce["C1"])
+              + _also(mla_gce["C1"])),
         entry("ce_fwd_kernel", cs, tpu_ce + ":79", vce["B"],
               library_is=vce["B"]["library_is"],
-              also=_also(vce_h["B"]) + _also(moe_vce["B"])),
+              also=_also(vce_h["B"]) + _also(moe_vce["B"])
+              + _also(mla_vce["B"])),
         entry("ce_bwd_kernel<dh>", cs, tpu_ce + ":159", vce["C1"],
-              also=_also(vce_h["C1"]) + _also(moe_vce["C1"])),
+              also=_also(vce_h["C1"]) + _also(moe_vce["C1"])
+              + _also(mla_vce["C1"])),
         entry("ce_bwd_dw_mma_kernel", cs, tpu_ce + ":222", gce["C2"],
               also=_also(h_ce["C2"]) + _also(moe_gce["C2"])
-              + _also(moe_tce["C2"])),
+              + _also(moe_tce["C2"]) + _also(mla_gce["C2"])),
         entry("ce_bwd_kernel<dw>", cs, tpu_ce + ":222", vce["C2"],
-              also=_also(vce_h["C2"]) + _also(moe_vce["C2"])),
+              also=_also(vce_h["C2"]) + _also(moe_vce["C2"])
+              + _also(mla_vce["C2"])),
         *[scan_entry(name, rec) for name in SCAN_KERNELS
           for rec in gated[:1]]]}
     print(smi)

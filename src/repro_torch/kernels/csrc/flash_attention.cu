@@ -2,12 +2,18 @@
 //
 // Replaces the Pallas TPU kernel kernels/flash_attention.py::
 // flash_attention_pallas (body ``_kernel``) of the JAX package. Same
-// function: q [T,Hq,D], k [S,Hkv,D], v [S,Hkv,D] token-major, int32
-// seg/pos per row; query head h reads kv head h / (Hq/Hkv);
+// function: q [T,Hq,DK], k [S,Hkv,DK], v [S,Hkv,DV] -> o [T,Hq,DV]
+// token-major, int32 seg/pos per row; query head h reads kv head
+// h / (Hq/Hkv);
 //   attend(i, j) iff seg_q[i] == seg_kv[j] && seg_q[i] >= 0
 //                 && (!causal || pos_kv[j] <= pos_q[i])
 //                 && (window <= 0 || pos_q[i] - pos_kv[j] < window)
 // online softmax in float32; a row with no attended key is written as 0.
+// Every kernel is a template on the key width DK (q and k) and the value
+// width DV (v, o and their gradients), instantiated at (64, 64), (128, 128),
+// (256, 256) and MLA's (192, 128) (deepseek-v2-lite: 128 nope + 64 rope
+// channels of q and k, 128 of v): Q K^T runs over DK columns, P V and the
+// output over DV, so nothing is padded to a wider head.
 // For training the forward can also write each row's log-sum-exp
 // lse [Hq, T] (float32; -inf for a row with no attended key), and two
 // backward kernels (below the forward) compute dq and dk/dv from it.
@@ -17,7 +23,7 @@
 // owns one (query tile, query head, KV split) triple and loops over its
 // share of the KV tiles itself, with the running state on chip.
 //
-// bf16 (the train and serving paths): flash_fwd_mma_kernel<D>.
+// bf16 (the train and serving paths): flash_fwd_mma_kernel<DK, DV>.
 // * What bounds it: operations on the train chunks (two products of 2 Dh
 //   flops per live (query, key, head): 0.84 ms at the H100's bf16 rate on
 //   a 28k-row gemma3-1b chunk against a few ms of bytes), bytes in serving
@@ -58,8 +64,8 @@
 //   atomics: two launches give the same bits.
 //
 // float32 (the float32 serving verify and the train_verify phases, held to
-// 1e-5): flash_fwd_kernel<float, D> keeps float32 FMAs from shared memory
-// on 32 x 32 tiles (register-blocked 4x2 score and 4x(D/16) output tiles
+// 1e-5): flash_fwd_kernel<float, DK, DV> keeps float32 FMAs from shared
+// memory on 32 x 32 tiles (register-blocked 4x2 score and 4x(DV/16) output tiles
 // per thread), one thread per row for the online softmax, every KV tile
 // tested pair by pair before it is loaded, and the KV tiles dealt
 // round-robin to up to MAX_SPLIT blocks per query tile (merged by
@@ -139,13 +145,13 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, size_t strid
   }
 }
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t smem_bytes() {
-  // sQ, sK, sV: [BQ|BK][D + 1] floats; sP: [BQ][BK + 1] floats
-  return sizeof(float) * (size_t)(3 * BQ * (D + 1) + BQ * (BK + 1));
+  // sQ, sK: [BQ|BK][DK + 1] floats; sV: [BK][DV + 1]; sP: [BQ][BK + 1]
+  return sizeof(float) * (size_t)(2 * BQ * (DK + 1) + BK * (DV + 1) + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ seg_q,
@@ -155,16 +161,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float* __restrict__ lse, int T_, int S, int Hq, int Hkv, int causal,
                  int window, float scale, int n_split) {
   static_assert(BQ == 32 && BK == 32 && NT == 128, "thread map assumes 32x32 tiles");
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int LD = D + 1;         // odd row stride: conflict-free column reads
+  static_assert(DK % 16 == 0 && DV % 16 == 0, "DK and DV must be multiples of 16");
+  constexpr int LDK = DK + 1;       // odd row strides: conflict-free column reads
+  constexpr int LDV = DV + 1;
   constexpr int LP = BK + 1;
-  constexpr int DJ = D / 16;        // output columns per thread
+  constexpr int DJ = DV / 16;       // output columns per thread
 
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sK = sQ + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sP = sV + BK * LD;
+  float* sK = sQ + BQ * LDK;
+  float* sV = sK + BK * LDK;
+  float* sP = sV + BK * LDV;
   __shared__ int s_segq[BQ], s_posq[BQ], s_segk[BK], s_posk[BK];
   __shared__ float s_m[BQ], s_l[BQ], s_alpha[BQ];
   __shared__ int s_rng[2];          // live query rows: segment min / max
@@ -174,9 +181,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y, z = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const size_t q0 = (size_t)blockIdx.x * BQ;
-  const size_t kv_stride = (size_t)Hkv * D;
+  const size_t k_stride = (size_t)Hkv * DK, v_stride = (size_t)Hkv * DV;
 
-  load_tile<T, D, LD>(sQ, q + (q0 * Hq + h) * D, (size_t)Hq * D, BQ, tid);
+  load_tile<T, DK, LDK>(sQ, q + (q0 * Hq + h) * DK, (size_t)Hq * DK, BQ, tid);
   if (tid < BQ) {
     const int sg = seg_q[q0 + tid];
     s_segq[tid] = sg;
@@ -227,8 +234,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (!__syncthreads_or(live)) continue;   // no live pair: skip the tile
 
       const size_t k0 = (size_t)kt * BK;
-      load_tile<T, D, LD>(sK, k + k0 * kv_stride + (size_t)hk * D, kv_stride, BK, tid);
-      load_tile<T, D, LD>(sV, v + k0 * kv_stride + (size_t)hk * D, kv_stride, BK, tid);
+      load_tile<T, DK, LDK>(sK, k + k0 * k_stride + (size_t)hk * DK, k_stride, BK, tid);
+      load_tile<T, DV, LDV>(sV, v + k0 * v_stride + (size_t)hk * DV, v_stride, BK, tid);
       __syncthreads();
 
       // scores: rows ty + 8i, columns tx + 16j
@@ -236,12 +243,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) sc[i][0] = sc[i][1] = 0.f;
 #pragma unroll 4
-      for (int d = 0; d < D; ++d) {
+      for (int d = 0; d < DK; ++d) {
         float qv[4], kv[2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 8 * i) * LD + d];
+        for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 8 * i) * LDK + d];
 #pragma unroll
-        for (int j = 0; j < 2; ++j) kv[j] = sK[(tx + 16 * j) * LD + d];
+        for (int j = 0; j < 2; ++j) kv[j] = sK[(tx + 16 * j) * LDK + d];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -296,7 +303,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int i = 0; i < 4; ++i) pv[i] = sP[(ty + 8 * i) * LP + c];
 #pragma unroll
         for (int j = 0; j < DJ; ++j) {
-          const float vv = sV[c * LD + tx + 16 * j];
+          const float vv = sV[c * LDV + tx + 16 * j];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
         }
@@ -314,7 +321,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
         const float o = l > 0.f ? acc[i][j] / l : 0.f;
-        out[((q0 + r) * Hq + h) * D + tx + 16 * j] = from_f<T>(o);
+        out[((q0 + r) * Hq + h) * DV + tx + 16 * j] = from_f<T>(o);
       }
     }
     if (lse != nullptr && tid < BQ)
@@ -328,7 +335,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 8 * i;
     if (s_l[r] > 0.f) {
-      float* dst = ws_acc + (z * TH + (q0 + r) * Hq + h) * D;
+      float* dst = ws_acc + (z * TH + (q0 + r) * Hq + h) * DV;
 #pragma unroll
       for (int j = 0; j < DJ; ++j) dst[tx + 16 * j] = acc[i][j];
     }
@@ -377,6 +384,8 @@ __global__ void flash_combine_kernel(const float2* __restrict__ ws_ml,
 // Two passes with no atomics: each output element is written by exactly one
 // block, in a fixed order, so two launches give the same bits.
 //
+// q, k are DK wide, v, o, dout DV wide (dq and dk DK, dv DV).
+//
 //   P = exp(S * scale - lse)   (the forward's per-row lse; P = 0 outside the
 //                               mask, so a row with lse = -inf adds nothing)
 //   Delta = rowsum(dO * O),  dP = dO V^T,  dS = P * (dP - Delta),
@@ -402,9 +411,10 @@ __global__ void flash_combine_kernel(const float2* __restrict__ ws_ml,
 // window).
 //
 // What bounds it: operations. Per live (query, key, head) the backward does
-// five products of 2 Dh flops (S recomputed, dP, dV, dK in the dk/dv pass;
-// S, dP, dQ in the dq pass), against bytes read about once, so at the
-// training shapes the bound is the bf16 tensor-core rate.
+// five products (S recomputed and dK of 2 DK flops, dP and dV of 2 DV in the
+// dk/dv pass; S and dQ of 2 DK, dP of 2 DV in the dq pass), against bytes
+// read about once, so at the training shapes the bound is the bf16
+// tensor-core rate.
 //
 // bf16 inputs (the train paths): 64-row tiles, 8 warps. Q, dO, K and V stay
 // bf16 in shared memory with rows padded by 8 elements (16 bytes), so the
@@ -416,7 +426,8 @@ __global__ void flash_combine_kernel(const float2* __restrict__ ws_ml,
 // x 32 columns of S and dP; P and dS are formed in float32 and rounded to
 // bf16 only into shared memory, as the operand of the next product; then a
 // warp takes 16 rows x Dh/2 columns of the accumulators (dK and dV, or dQ),
-// which stay float32 in registers (at Dh 256: 128 per thread for dK + dV).
+// which stay float32 in registers (at Dh 256: 128 per thread for dK + dV;
+// at (192, 128): 48 + 32).
 // Rows at or past T or S in the last 64-row tile are dead here (zero-filled
 // copies, masked pairs); nothing is padded again.
 //
@@ -428,7 +439,8 @@ constexpr int NTB = 256;    // threads of a backward block (8 warps)
 constexpr int BB = 64;      // bf16 backward: rows per tile, both sides
 
 struct BwdArgs {
-  const void *q, *k, *v, *o, *dout;  // q, o, dout [T, Hq, D]; k, v [S, Hkv, D]
+  const void *q, *k, *v, *o, *dout;  // q [T, Hq, DK]; o, dout [T, Hq, DV];
+                                     // k [S, Hkv, DK]; v [S, Hkv, DV]
   const float* lse;                  // [Hq, T] from the forward
   float* delta;                      // [Hq, T]: written by dq, read by dk/dv
   const int *seg_q, *pos_q, *seg_kv, *pos_kv;
@@ -449,9 +461,9 @@ __device__ __forceinline__ bool may_attend(int4 a, int4 b, int causal, int windo
 
 // --- float32: FMA bodies on 32-row tiles ------------------------------------
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t bwd_f32_smem_bytes() {
-  return sizeof(float) * (size_t)(4 * 32 * (D + 1) + 2 * 32 * 33);
+  return sizeof(float) * (size_t)(2 * 32 * (DK + 1) + 2 * 32 * (DV + 1) + 2 * 32 * 33);
 }
 
 // Delta_r = sum_d dO[r, d] * O[r, d] for the BQ rows of a query tile: warp w
@@ -473,16 +485,54 @@ __device__ __forceinline__ void row_delta(float* s_delta, const float* sdO, cons
   }
 }
 
-template <int D>
+// S^T and dP^T (dkdv_f32: key rows, query columns) or S and dP (dq_f32:
+// query rows, key columns) of a thread's 2 x 2 elements: s += a_i . b_j over
+// DK columns, p += c_i . e_j over DV (row strides DK + 1 and DV + 1), each sum
+// in column order.
+template <int DK, int DV>
+__device__ __forceinline__ void pair_products(float (&s)[2][2], float (&p)[2][2],
+                                              const float* a0, const float* a1,
+                                              const float* b0, const float* b1,
+                                              const float* c0, const float* c1,
+                                              const float* e0, const float* e1) {
+  constexpr int DC = DK < DV ? DK : DV;
+#pragma unroll 4
+  for (int d = 0; d < DC; ++d) {
+    s[0][0] = fmaf(a0[d], b0[d], s[0][0]);
+    s[0][1] = fmaf(a0[d], b1[d], s[0][1]);
+    s[1][0] = fmaf(a1[d], b0[d], s[1][0]);
+    s[1][1] = fmaf(a1[d], b1[d], s[1][1]);
+    p[0][0] = fmaf(c0[d], e0[d], p[0][0]);
+    p[0][1] = fmaf(c0[d], e1[d], p[0][1]);
+    p[1][0] = fmaf(c1[d], e0[d], p[1][0]);
+    p[1][1] = fmaf(c1[d], e1[d], p[1][1]);
+  }
+#pragma unroll 4
+  for (int d = DC; d < DK; ++d) {
+    s[0][0] = fmaf(a0[d], b0[d], s[0][0]);
+    s[0][1] = fmaf(a0[d], b1[d], s[0][1]);
+    s[1][0] = fmaf(a1[d], b0[d], s[1][0]);
+    s[1][1] = fmaf(a1[d], b1[d], s[1][1]);
+  }
+#pragma unroll 4
+  for (int d = DC; d < DV; ++d) {
+    p[0][0] = fmaf(c0[d], e0[d], p[0][0]);
+    p[0][1] = fmaf(c0[d], e1[d], p[0][1]);
+    p[1][0] = fmaf(c1[d], e0[d], p[1][0]);
+    p[1][1] = fmaf(c1[d], e1[d], p[1][1]);
+  }
+}
+
+template <int DK, int DV>
 __device__ void dkdv_f32(const BwdArgs& a) {
   using T = float;
-  constexpr int LD = D + 1, LP = BQ + 1, DJ = D / 16;
+  constexpr int LDK = DK + 1, LDV = DV + 1, LP = BQ + 1, DJK = DK / 16, DJV = DV / 16;
   extern __shared__ float smem[];
   float* sK = smem;
-  float* sV = sK + BK * LD;
-  float* sQ = sV + BK * LD;
-  float* sdO = sQ + BQ * LD;
-  float* sP = sdO + BQ * LD;        // [BK][BQ + 1]: P^T
+  float* sV = sK + BK * LDK;
+  float* sQ = sV + BK * LDV;
+  float* sdO = sQ + BQ * LDK;
+  float* sP = sdO + BQ * LDV;       // [BK][BQ + 1]: P^T
   float* sdS = sP + BK * LP;        // [BK][BQ + 1]: dS^T
   __shared__ int s_segq[BQ], s_posq[BQ], s_segk[BK], s_posk[BK];
   __shared__ float s_lse[BQ], s_delta[BQ];
@@ -492,21 +542,25 @@ __device__ void dkdv_f32(const BwdArgs& a) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int hk = blockIdx.y, G = a.Hq / a.Hkv, T_ = a.T;
   const size_t k0 = (size_t)blockIdx.x * BK;
-  const size_t kv_stride = (size_t)a.Hkv * D, q_stride = (size_t)a.Hq * D;
+  const size_t k_stride = (size_t)a.Hkv * DK, v_stride = (size_t)a.Hkv * DV;
+  const size_t q_stride = (size_t)a.Hq * DK, o_stride = (size_t)a.Hq * DV;
 
-  load_tile<T, D, LD, NTB>(sK, k + k0 * kv_stride + (size_t)hk * D, kv_stride, BK, tid);
-  load_tile<T, D, LD, NTB>(sV, v + k0 * kv_stride + (size_t)hk * D, kv_stride, BK, tid);
+  load_tile<T, DK, LDK, NTB>(sK, k + k0 * k_stride + (size_t)hk * DK, k_stride, BK, tid);
+  load_tile<T, DV, LDV, NTB>(sV, v + k0 * v_stride + (size_t)hk * DV, v_stride, BK, tid);
   if (tid < BK) {
     s_segk[tid] = a.seg_kv[k0 + tid];
     s_posk[tid] = a.pos_kv[k0 + tid];
   }
   __syncthreads();
 
-  float dK[2][DJ], dV[2][DJ];
+  float dK[2][DJK], dV[2][DJV];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) dK[i][j] = dV[i][j] = 0.f;
+    for (int j = 0; j < DJK; ++j) dK[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DJV; ++j) dV[i][j] = 0.f;
+  }
 
   const int2 rg = a.range[blockIdx.x];
   for (int qt = rg.x; qt <= rg.y; ++qt) {
@@ -522,8 +576,9 @@ __device__ void dkdv_f32(const BwdArgs& a) {
     const size_t q0 = (size_t)qt * BQ;
     for (int g = 0; g < G; ++g) {
       const int h = hk * G + g;
-      load_tile<T, D, LD, NTB>(sQ, q + q0 * q_stride + (size_t)h * D, q_stride, BQ, tid);
-      load_tile<T, D, LD, NTB>(sdO, dout + q0 * q_stride + (size_t)h * D, q_stride, BQ, tid);
+      load_tile<T, DK, LDK, NTB>(sQ, q + q0 * q_stride + (size_t)h * DK, q_stride, BQ, tid);
+      load_tile<T, DV, LDV, NTB>(sdO, dout + q0 * o_stride + (size_t)h * DV, o_stride, BQ,
+                                 tid);
       if (tid < BQ) {
         s_lse[tid] = a.lse[(size_t)h * T_ + q0 + tid];
         s_delta[tid] = a.delta[(size_t)h * T_ + q0 + tid];
@@ -531,21 +586,9 @@ __device__ void dkdv_f32(const BwdArgs& a) {
       __syncthreads();
       // S^T and dP^T: key rows ty + 16 i, query columns tx + 16 j
       float st[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dpt[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        const float ka = sK[ty * LD + d], kb = sK[(ty + 16) * LD + d];
-        const float va = sV[ty * LD + d], vb = sV[(ty + 16) * LD + d];
-        const float qa = sQ[tx * LD + d], qb = sQ[(tx + 16) * LD + d];
-        const float oa = sdO[tx * LD + d], ob = sdO[(tx + 16) * LD + d];
-        st[0][0] = fmaf(ka, qa, st[0][0]);
-        st[0][1] = fmaf(ka, qb, st[0][1]);
-        st[1][0] = fmaf(kb, qa, st[1][0]);
-        st[1][1] = fmaf(kb, qb, st[1][1]);
-        dpt[0][0] = fmaf(va, oa, dpt[0][0]);
-        dpt[0][1] = fmaf(va, ob, dpt[0][1]);
-        dpt[1][0] = fmaf(vb, oa, dpt[1][0]);
-        dpt[1][1] = fmaf(vb, ob, dpt[1][1]);
-      }
+      pair_products<DK, DV>(st, dpt, sK + ty * LDK, sK + (ty + 16) * LDK, sQ + tx * LDK,
+                            sQ + (tx + 16) * LDK, sV + ty * LDV, sV + (ty + 16) * LDV,
+                            sdO + tx * LDV, sdO + (tx + 16) * LDV);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -562,10 +605,14 @@ __device__ void dkdv_f32(const BwdArgs& a) {
         const float pa = sP[ty * LP + r], pb = sP[(ty + 16) * LP + r];
         const float ga = sdS[ty * LP + r], gb = sdS[(ty + 16) * LP + r];
 #pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          const float dov = sdO[r * LD + tx + 16 * j], qv = sQ[r * LD + tx + 16 * j];
+        for (int j = 0; j < DJV; ++j) {
+          const float dov = sdO[r * LDV + tx + 16 * j];
           dV[0][j] = fmaf(pa, dov, dV[0][j]);
           dV[1][j] = fmaf(pb, dov, dV[1][j]);
+        }
+#pragma unroll
+        for (int j = 0; j < DJK; ++j) {
+          const float qv = sQ[r * LDK + tx + 16 * j];
           dK[0][j] = fmaf(ga, qv, dK[0][j]);
           dK[1][j] = fmaf(gb, qv, dK[1][j]);
         }
@@ -576,25 +623,24 @@ __device__ void dkdv_f32(const BwdArgs& a) {
   T *dk = (T*)a.dk, *dv = (T*)a.dv;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const size_t base = ((k0 + ty + 16 * i) * a.Hkv + hk) * D + tx;
+    const size_t row = (k0 + ty + 16 * i) * a.Hkv + hk;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dk[base + 16 * j] = dK[i][j] * a.scale;
-      dv[base + 16 * j] = dV[i][j];
-    }
+    for (int j = 0; j < DJK; ++j) dk[row * DK + tx + 16 * j] = dK[i][j] * a.scale;
+#pragma unroll
+    for (int j = 0; j < DJV; ++j) dv[row * DV + tx + 16 * j] = dV[i][j];
   }
 }
 
-template <int D>
+template <int DK, int DV>
 __device__ void dq_f32(const BwdArgs& a) {
   using T = float;
-  constexpr int LD = D + 1, LP = BK + 1, DJ = D / 16;
+  constexpr int LDK = DK + 1, LDV = DV + 1, LP = BK + 1, DJ = DK / 16;
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sdO = sQ + BQ * LD;
-  float* sK = sdO + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sdS = sV + BK * LD;        // [BQ][BK + 1]
+  float* sdO = sQ + BQ * LDK;
+  float* sK = sdO + BQ * LDV;
+  float* sV = sK + BK * LDK;
+  float* sdS = sV + BK * LDV;       // [BQ][BK + 1]
   __shared__ int s_segq[BQ], s_posq[BQ], s_segk[BK], s_posk[BK];
   __shared__ float s_lse[BQ], s_delta[BQ];
 
@@ -603,17 +649,18 @@ __device__ void dq_f32(const BwdArgs& a) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, T_ = a.T;
   const int h = blockIdx.y, hk = h / (a.Hq / a.Hkv);
   const size_t q0 = (size_t)blockIdx.x * BQ;
-  const size_t kv_stride = (size_t)a.Hkv * D, q_stride = (size_t)a.Hq * D;
+  const size_t k_stride = (size_t)a.Hkv * DK, v_stride = (size_t)a.Hkv * DV;
+  const size_t q_stride = (size_t)a.Hq * DK, o_stride = (size_t)a.Hq * DV;
 
-  load_tile<T, D, LD, NTB>(sQ, q + q0 * q_stride + (size_t)h * D, q_stride, BQ, tid);
-  load_tile<T, D, LD, NTB>(sdO, dout + q0 * q_stride + (size_t)h * D, q_stride, BQ, tid);
+  load_tile<T, DK, LDK, NTB>(sQ, q + q0 * q_stride + (size_t)h * DK, q_stride, BQ, tid);
+  load_tile<T, DV, LDV, NTB>(sdO, dout + q0 * o_stride + (size_t)h * DV, o_stride, BQ, tid);
   if (tid < BQ) {
     s_segq[tid] = a.seg_q[q0 + tid];
     s_posq[tid] = a.pos_q[q0 + tid];
     s_lse[tid] = a.lse[(size_t)h * T_ + q0 + tid];
   }
   __syncthreads();
-  row_delta<D, LD>(s_delta, sdO, (const T*)a.o, q0, h, a.Hq, tid);
+  row_delta<DV, LDV>(s_delta, sdO, (const T*)a.o, q0, h, a.Hq, tid);
   __syncthreads();
   if (tid < BQ) a.delta[(size_t)h * T_ + q0 + tid] = s_delta[tid];
 
@@ -635,26 +682,14 @@ __device__ void dq_f32(const BwdArgs& a) {
     }
     if (!__syncthreads_or(live)) continue;   // no live pair: skip the tile
     const size_t k0 = (size_t)kt * BK;
-    load_tile<T, D, LD, NTB>(sK, k + k0 * kv_stride + (size_t)hk * D, kv_stride, BK, tid);
-    load_tile<T, D, LD, NTB>(sV, v + k0 * kv_stride + (size_t)hk * D, kv_stride, BK, tid);
+    load_tile<T, DK, LDK, NTB>(sK, k + k0 * k_stride + (size_t)hk * DK, k_stride, BK, tid);
+    load_tile<T, DV, LDV, NTB>(sV, v + k0 * v_stride + (size_t)hk * DV, v_stride, BK, tid);
     __syncthreads();
     // S and dP: query rows ty + 16 i, key columns tx + 16 j
     float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float qa = sQ[ty * LD + d], qb = sQ[(ty + 16) * LD + d];
-      const float oa = sdO[ty * LD + d], ob = sdO[(ty + 16) * LD + d];
-      const float ka = sK[tx * LD + d], kb = sK[(tx + 16) * LD + d];
-      const float va = sV[tx * LD + d], vb = sV[(tx + 16) * LD + d];
-      s[0][0] = fmaf(qa, ka, s[0][0]);
-      s[0][1] = fmaf(qa, kb, s[0][1]);
-      s[1][0] = fmaf(qb, ka, s[1][0]);
-      s[1][1] = fmaf(qb, kb, s[1][1]);
-      dp[0][0] = fmaf(oa, va, dp[0][0]);
-      dp[0][1] = fmaf(oa, vb, dp[0][1]);
-      dp[1][0] = fmaf(ob, va, dp[1][0]);
-      dp[1][1] = fmaf(ob, vb, dp[1][1]);
-    }
+    pair_products<DK, DV>(s, dp, sQ + ty * LDK, sQ + (ty + 16) * LDK, sK + tx * LDK,
+                          sK + (tx + 16) * LDK, sdO + ty * LDV, sdO + (ty + 16) * LDV,
+                          sV + tx * LDV, sV + (tx + 16) * LDV);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -670,7 +705,7 @@ __device__ void dq_f32(const BwdArgs& a) {
       const float ga = sdS[ty * LP + c], gb = sdS[(ty + 16) * LP + c];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
-        const float kv = sK[c * LD + tx + 16 * j];
+        const float kv = sK[c * LDK + tx + 16 * j];
         dQ[0][j] = fmaf(ga, kv, dQ[0][j]);
         dQ[1][j] = fmaf(gb, kv, dQ[1][j]);
       }
@@ -680,7 +715,7 @@ __device__ void dq_f32(const BwdArgs& a) {
   T* dq = (T*)a.dq;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const size_t base = ((q0 + ty + 16 * i) * a.Hq + h) * D + tx;
+    const size_t base = ((q0 + ty + 16 * i) * a.Hq + h) * DK + tx;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dq[base + 16 * j] = dQ[i][j] * a.scale;
   }
@@ -692,11 +727,13 @@ constexpr int LDB_PAD = 8;          // bf16 elements of padding per shared row
 constexpr int LDPS = BB + LDB_PAD;  // row stride of the P / dS tiles
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t bwd_bf16_smem_bytes() {
-  // six [BB][D + 8] tiles (two resident, two streamed and double-buffered)
-  // and two [BB][BB + 8] tiles (P^T and dS^T, or dS)
-  return sizeof(__nv_bfloat16) * (size_t)(6 * BB * (D + LDB_PAD) + 2 * BB * LDPS);
+  // three [BB][DK + 8] tiles and three [BB][DV + 8] ones (one of each
+  // resident, one of each streamed and double-buffered) and two
+  // [BB][BB + 8] tiles (P^T and dS^T, or dS)
+  return sizeof(__nv_bfloat16) *
+         (size_t)(3 * BB * (DK + LDB_PAD) + 3 * BB * (DV + LDB_PAD) + 2 * BB * LDPS);
 }
 
 // Issue the copy of BB rows (row0 .. row0 + BB - 1 of ``src``, row r at
@@ -714,38 +751,54 @@ __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-// Two products on one 16-row strip: acc0 += A0 B^T and acc1 += A1 C^T over
-// the full depth D, A0/A1 [16][D] (rows a0 / a1 of their tiles), B/C the 32
-// rows n0 .. n0 + 31 of [BB][D] tiles (the product's columns). This is
-// S = A0 B^T and dP = A1 C^T for a warp's 16 x 32 piece.
-template <int D>
+// acc += A B^T over k = k0 .. k1 (16 columns a step), A [16][.] (row stride
+// LA), B the 32 rows of the product's columns (row stride LB): one strip's
+// piece of one product; a_off / b_off are the lane's ldmatrix offsets.
+template <int LA, int LB>
+__device__ __forceinline__ void strip_step(float (&acc)[4][4], const __nv_bfloat16* A,
+                                           const __nv_bfloat16* B, int a_off, int b_off,
+                                           int kk) {
+  uint32_t a[4], b[4];
+  ldsm4(a, A + a_off + kk);
+#pragma unroll
+  for (int np = 0; np < 2; ++np) {
+    ldsm4(b, B + np * 16 * LB + b_off + kk);
+    mma16816(acc[2 * np], a, b[0], b[1]);
+    mma16816(acc[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// Two products on one 16-row strip: acc0 += A0 B^T over depth D0 and
+// acc1 += A1 C^T over depth D1, A0 [16][D0] and A1 [16][D1] (rows of their
+// tiles), B [BB][D0] / C [BB][D1] from their 32 rows n0 .. n0 + 31 (the
+// product's columns); rows are padded by 8 elements. This is S = Q K^T (over
+// DK) and dP = dO V^T (over DV) for a warp's 16 x 32 piece. Both run
+// interleaved over their common depth, then the deeper one alone; each sum is
+// in column order.
+template <int D0, int D1>
 __device__ __forceinline__ void strip_products(float (&acc0)[4][4], float (&acc1)[4][4],
                                                const __nv_bfloat16* A0,
                                                const __nv_bfloat16* A1,
                                                const __nv_bfloat16* B,
                                                const __nv_bfloat16* C, int lane) {
-  constexpr int LD = D + LDB_PAD;
-  const int a_off = (lane & 15) * LD + (lane >> 4) * 8;
-  const int b_off = (((lane >> 4) << 3) + (lane & 7)) * LD + ((lane >> 3) & 1) * 8;
+  constexpr int L0 = D0 + LDB_PAD, L1 = D1 + LDB_PAD, DC = D0 < D1 ? D0 : D1;
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int b_row = ((lane >> 4) << 3) + (lane & 7), b_col = ((lane >> 3) & 1) * 8;
+  const int a0_off = a_row * L0 + a_col, a1_off = a_row * L1 + a_col;
+  const int b_off = b_row * L0 + b_col, c_off = b_row * L1 + b_col;
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc0[j][e] = acc1[j][e] = 0.f;
 #pragma unroll 4
-  for (int kk = 0; kk < D; kk += 16) {
-    uint32_t a0[4], a1[4], b[4];
-    ldsm4(a0, A0 + a_off + kk);
-    ldsm4(a1, A1 + a_off + kk);
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      ldsm4(b, B + np * 16 * LD + b_off + kk);
-      mma16816(acc0[2 * np], a0, b[0], b[1]);
-      mma16816(acc0[2 * np + 1], a0, b[2], b[3]);
-      ldsm4(b, C + np * 16 * LD + b_off + kk);
-      mma16816(acc1[2 * np], a1, b[0], b[1]);
-      mma16816(acc1[2 * np + 1], a1, b[2], b[3]);
-    }
+  for (int kk = 0; kk < DC; kk += 16) {
+    strip_step<L0, L0>(acc0, A0, B, a0_off, b_off, kk);
+    strip_step<L1, L1>(acc1, A1, C, a1_off, c_off, kk);
   }
+#pragma unroll
+  for (int kk = DC; kk < D0; kk += 16) strip_step<L0, L0>(acc0, A0, B, a0_off, b_off, kk);
+#pragma unroll
+  for (int kk = DC; kk < D1; kk += 16) strip_step<L1, L1>(acc1, A1, C, a1_off, c_off, kk);
 }
 
 // acc += A X over k = 0 .. BB: A [16][BB] bf16 (a warp's rows of P^T, dS^T
@@ -783,16 +836,17 @@ __device__ __forceinline__ int next_live(int t, int hi, int4 own, const int4* ot
   return -1;
 }
 
-template <int D>
+template <int DK, int DV>
 __device__ void dkdv_bf16(const BwdArgs& a) {
   using bf = __nv_bfloat16;
-  constexpr int LD = D + LDB_PAD, NJ = D / 16;   // NJ: 8-column tiles of a warp's D / 2
+  // NJK, NJV: 8-column tiles of a warp's DK / 2 and DV / 2
+  constexpr int LDK = DK + LDB_PAD, LDV = DV + LDB_PAD, NJK = DK / 16, NJV = DV / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf* sK = reinterpret_cast<bf*>(smem_raw);
-  bf* sV = sK + BB * LD;
-  bf* sQ = sV + BB * LD;            // [2][BB][LD]
-  bf* sdO = sQ + 2 * BB * LD;       // [2][BB][LD]
-  bf* sP = sdO + 2 * BB * LD;       // [BB][LDPS]: P^T (key rows, query columns)
+  bf* sV = sK + BB * LDK;
+  bf* sQ = sV + BB * LDV;           // [2][BB][LDK]
+  bf* sdO = sQ + 2 * BB * LDK;      // [2][BB][LDV]
+  bf* sP = sdO + 2 * BB * LDV;      // [BB][LDPS]: P^T (key rows, query columns)
   bf* sdS = sP + BB * LDPS;         // [BB][LDPS]: dS^T
   __shared__ int s_segk[BB], s_posk[BB];
   __shared__ int s_segq[2][BB], s_posq[2][BB];
@@ -804,11 +858,12 @@ __device__ void dkdv_bf16(const BwdArgs& a) {
   const int hk = blockIdx.y, G = a.Hq / a.Hkv, T_ = a.T, S = a.S;
   const int k0 = blockIdx.x * BB;
   const int n_q = (T_ + BB - 1) / BB;
-  const size_t kv_stride = (size_t)a.Hkv * D, q_stride = (size_t)a.Hq * D;
+  const size_t k_stride = (size_t)a.Hkv * DK, v_stride = (size_t)a.Hkv * DV;
+  const size_t q_stride = (size_t)a.Hq * DK, o_stride = (size_t)a.Hq * DV;
   const bf *q = (const bf*)a.q, *dout = (const bf*)a.dout;
 
-  copy_rows<D>(sK, (const bf*)a.k + (size_t)hk * D, kv_stride, k0, S, tid);
-  copy_rows<D>(sV, (const bf*)a.v + (size_t)hk * D, kv_stride, k0, S, tid);
+  copy_rows<DK>(sK, (const bf*)a.k + (size_t)hk * DK, k_stride, k0, S, tid);
+  copy_rows<DV>(sV, (const bf*)a.v + (size_t)hk * DV, v_stride, k0, S, tid);
   cp_async_commit();
   if (tid < BB) {
     const bool ok = k0 + tid < S;
@@ -826,8 +881,8 @@ __device__ void dkdv_bf16(const BwdArgs& a) {
   // segments, positions, lse and Delta
   auto issue = [&](int buf, int step) {
     const int h = hk * G + step / n_q, q0 = (step % n_q) * BB;
-    copy_rows<D>(sQ + buf * BB * LD, q + (size_t)h * D, q_stride, q0, T_, tid);
-    copy_rows<D>(sdO + buf * BB * LD, dout + (size_t)h * D, q_stride, q0, T_, tid);
+    copy_rows<DK>(sQ + buf * BB * LDK, q + (size_t)h * DK, q_stride, q0, T_, tid);
+    copy_rows<DV>(sdO + buf * BB * LDV, dout + (size_t)h * DV, o_stride, q0, T_, tid);
     const int which = tid / BB, r = tid % BB;   // NTB == 4 * BB: one word each
     const bool ok = q0 + r < T_;
     const size_t row = ok ? (size_t)(q0 + r) : 0;
@@ -849,11 +904,14 @@ __device__ void dkdv_bf16(const BwdArgs& a) {
     return -1;
   };
 
-  float dK[NJ][4], dV[NJ][4];
+  float dK[NJK][4], dV[NJV][4];
 #pragma unroll
-  for (int j = 0; j < NJ; ++j)
+  for (int e = 0; e < 4; ++e) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dK[j][e] = dV[j][e] = 0.f;
+    for (int j = 0; j < NJK; ++j) dK[j][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJV; ++j) dV[j][e] = 0.f;
+  }
 
   int step = advance(-1), buf = 0;
   if (step >= 0) issue(0, step);
@@ -876,13 +934,13 @@ __device__ void dkdv_bf16(const BwdArgs& a) {
       }
     }
     const bool full = __syncthreads_and(k_full && pred);   // every pair live
-    const bf* Qb = sQ + buf * BB * LD;
-    const bf* dOb = sdO + buf * BB * LD;
+    const bf* Qb = sQ + buf * BB * LDK;
+    const bf* dOb = sdO + buf * BB * LDV;
     {
       // S^T = K Q^T and dP^T = V dO^T: key rows 16 wr .., query columns 32 wc ..
       float st[4][4], dpt[4][4];
-      strip_products<D>(st, dpt, sK + 16 * wr * LD, sV + 16 * wr * LD, Qb + 32 * wc * LD,
-                        dOb + 32 * wc * LD, lane);
+      strip_products<DK, DV>(st, dpt, sK + 16 * wr * LDK, sV + 16 * wr * LDV,
+                             Qb + 32 * wc * LDK, dOb + 32 * wc * LDV, lane);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -904,9 +962,10 @@ __device__ void dkdv_bf16(const BwdArgs& a) {
         }
     }
     __syncthreads();
-    // dV += P^T dO, dK += dS^T Q: key rows 16 wr .., columns wc * D / 2 ..
-    accumulate<D, NJ>(dV, sP + 16 * wr * LDPS, dOb, wc * (D / 2), lane);
-    accumulate<D, NJ>(dK, sdS + 16 * wr * LDPS, Qb, wc * (D / 2), lane);
+    // dV += P^T dO, dK += dS^T Q: key rows 16 wr .., columns wc * DV / 2 ..
+    // and wc * DK / 2 ..
+    accumulate<DV, NJV>(dV, sP + 16 * wr * LDPS, dOb, wc * (DV / 2), lane);
+    accumulate<DK, NJK>(dK, sdS + 16 * wr * LDPS, Qb, wc * (DK / 2), lane);
     __syncthreads();                // buf and sP / sdS are rewritten next
     buf ^= 1;
     step = nxt;
@@ -915,30 +974,31 @@ __device__ void dkdv_bf16(const BwdArgs& a) {
 
   bf *dk = (bf*)a.dk, *dv = (bf*)a.dv;
 #pragma unroll
-  for (int j = 0; j < NJ; ++j)
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = k0 + 16 * wr + g8 + 8 * hh;
+    if (row >= S) continue;
+    const size_t base = (size_t)row * a.Hkv + hk;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = k0 + 16 * wr + g8 + 8 * hh;
-      const int col = wc * (D / 2) + 8 * j + 2 * t4;
-      if (row < S) {
-        const size_t off = ((size_t)row * a.Hkv + hk) * D + col;
-        *reinterpret_cast<uint32_t*>(dk + off) =
-            pack_bf16(dK[j][2 * hh] * a.scale, dK[j][2 * hh + 1] * a.scale);
-        *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(dV[j][2 * hh], dV[j][2 * hh + 1]);
-      }
-    }
+    for (int j = 0; j < NJK; ++j)
+      *reinterpret_cast<uint32_t*>(dk + base * DK + wc * (DK / 2) + 8 * j + 2 * t4) =
+          pack_bf16(dK[j][2 * hh] * a.scale, dK[j][2 * hh + 1] * a.scale);
+#pragma unroll
+    for (int j = 0; j < NJV; ++j)
+      *reinterpret_cast<uint32_t*>(dv + base * DV + wc * (DV / 2) + 8 * j + 2 * t4) =
+          pack_bf16(dV[j][2 * hh], dV[j][2 * hh + 1]);
+  }
 }
 
-template <int D>
+template <int DK, int DV>
 __device__ void dq_bf16(const BwdArgs& a) {
   using bf = __nv_bfloat16;
-  constexpr int LD = D + LDB_PAD, NJ = D / 16;
+  constexpr int LDK = DK + LDB_PAD, LDV = DV + LDB_PAD, NJ = DK / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf* sQ = reinterpret_cast<bf*>(smem_raw);
-  bf* sdO = sQ + BB * LD;
-  bf* sK = sdO + BB * LD;           // [2][BB][LD]
-  bf* sV = sK + 2 * BB * LD;        // [2][BB][LD]
-  bf* sdS = sV + 2 * BB * LD;       // [BB][LDPS]: dS (query rows, key columns)
+  bf* sdO = sQ + BB * LDK;
+  bf* sK = sdO + BB * LDV;          // [2][BB][LDK]
+  bf* sV = sK + 2 * BB * LDK;       // [2][BB][LDV]
+  bf* sdS = sV + 2 * BB * LDV;      // [BB][LDPS]: dS (query rows, key columns)
   __shared__ int s_segq[BB], s_posq[BB];
   __shared__ float s_lse[BB], s_dlt[BB];
   __shared__ int s_segk[2][BB], s_posk[2][BB];
@@ -948,11 +1008,12 @@ __device__ void dq_bf16(const BwdArgs& a) {
   const int g8 = lane >> 2, t4 = lane & 3;
   const int h = blockIdx.y, hk = h / (a.Hq / a.Hkv), T_ = a.T, S = a.S;
   const int q0 = blockIdx.x * BB;
-  const size_t kv_stride = (size_t)a.Hkv * D, q_stride = (size_t)a.Hq * D;
-  const bf *k = (const bf*)a.k + (size_t)hk * D, *v = (const bf*)a.v + (size_t)hk * D;
+  const size_t k_stride = (size_t)a.Hkv * DK, v_stride = (size_t)a.Hkv * DV;
+  const size_t q_stride = (size_t)a.Hq * DK, o_stride = (size_t)a.Hq * DV;
+  const bf *k = (const bf*)a.k + (size_t)hk * DK, *v = (const bf*)a.v + (size_t)hk * DV;
 
-  copy_rows<D>(sQ, (const bf*)a.q + (size_t)h * D, q_stride, q0, T_, tid);
-  copy_rows<D>(sdO, (const bf*)a.dout + (size_t)h * D, q_stride, q0, T_, tid);
+  copy_rows<DK>(sQ, (const bf*)a.q + (size_t)h * DK, q_stride, q0, T_, tid);
+  copy_rows<DV>(sdO, (const bf*)a.dout + (size_t)h * DV, o_stride, q0, T_, tid);
   cp_async_commit();
   if (tid < BB) {
     const bool ok = q0 + tid < T_;
@@ -965,8 +1026,8 @@ __device__ void dq_bf16(const BwdArgs& a) {
 
   auto issue = [&](int buf, int kt) {
     const int r0 = kt * BB;
-    copy_rows<D>(sK + buf * BB * LD, k, kv_stride, r0, S, tid);
-    copy_rows<D>(sV + buf * BB * LD, v, kv_stride, r0, S, tid);
+    copy_rows<DK>(sK + buf * BB * LDK, k, k_stride, r0, S, tid);
+    copy_rows<DV>(sV + buf * BB * LDV, v, v_stride, r0, S, tid);
     if (tid < 2 * BB) {
       const int r = tid % BB;
       const bool ok = r0 + r < S;
@@ -989,10 +1050,10 @@ __device__ void dq_bf16(const BwdArgs& a) {
     const int r = warp * (BB / 8) + i;
     float acc = 0.f;
     if (q0 + r < T_) {
-      const bf* orow = (const bf*)a.o + ((size_t)(q0 + r) * a.Hq + h) * D;
-      for (int c = lane; c < D / 8; c += 32) {
+      const bf* orow = (const bf*)a.o + ((size_t)(q0 + r) * a.Hq + h) * DV;
+      for (int c = lane; c < DV / 8; c += 32) {
         const uint4 ov = __ldg(reinterpret_cast<const uint4*>(orow + c * 8));
-        const uint4 dv = *reinterpret_cast<const uint4*>(sdO + r * LD + c * 8);
+        const uint4 dv = *reinterpret_cast<const uint4*>(sdO + r * LDV + c * 8);
         const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w}, dw[4] = {dv.x, dv.y, dv.z, dv.w};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -1035,13 +1096,13 @@ __device__ void dq_bf16(const BwdArgs& a) {
     }
     // every pair live? (the first time, the barrier also publishes s_dlt)
     const bool full = __syncthreads_and(q_full && pred);
-    const bf* Kb = sK + buf * BB * LD;
-    const bf* Vb = sV + buf * BB * LD;
+    const bf* Kb = sK + buf * BB * LDK;
+    const bf* Vb = sV + buf * BB * LDV;
     {
       // S = Q K^T and dP = dO V^T: query rows 16 wr .., key columns 32 wc ..
       float s[4][4], dp[4][4];
-      strip_products<D>(s, dp, sQ + 16 * wr * LD, sdO + 16 * wr * LD, Kb + 32 * wc * LD,
-                        Vb + 32 * wc * LD, lane);
+      strip_products<DK, DV>(s, dp, sQ + 16 * wr * LDK, sdO + 16 * wr * LDV,
+                             Kb + 32 * wc * LDK, Vb + 32 * wc * LDV, lane);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -1062,8 +1123,8 @@ __device__ void dq_bf16(const BwdArgs& a) {
         }
     }
     __syncthreads();
-    // dQ += dS K: query rows 16 wr .., columns wc * D / 2 ..
-    accumulate<D, NJ>(dQ, sdS + 16 * wr * LDPS, Kb, wc * (D / 2), lane);
+    // dQ += dS K: query rows 16 wr .., columns wc * DK / 2 ..
+    accumulate<DK, NJ>(dQ, sdS + 16 * wr * LDPS, Kb, wc * (DK / 2), lane);
     __syncthreads();                // buf and sdS are rewritten next
     buf ^= 1;
     kt = nxt;
@@ -1076,9 +1137,9 @@ __device__ void dq_bf16(const BwdArgs& a) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = q0 + 16 * wr + g8 + 8 * hh;
-      const int col = wc * (D / 2) + 8 * j + 2 * t4;
+      const int col = wc * (DK / 2) + 8 * j + 2 * t4;
       if (row < T_)
-        *reinterpret_cast<uint32_t*>(dq + ((size_t)row * a.Hq + h) * D + col) =
+        *reinterpret_cast<uint32_t*>(dq + ((size_t)row * a.Hq + h) * DK + col) =
             pack_bf16(dQ[j][2 * hh] * a.scale, dQ[j][2 * hh + 1] * a.scale);
     }
 }
@@ -1196,45 +1257,48 @@ constexpr int NTF = 128;            // threads of a bf16 forward block: 4 warps
 constexpr float LN2 = 0.6931471805599453f;
 
 struct FwdArgs {
-  const __nv_bfloat16 *q, *k, *v;    // q [T, Hq, D]; k, v [S, Hkv, D]
+  const __nv_bfloat16 *q, *k, *v;    // q [T, Hq, DK]; k [S, Hkv, DK]; v [S, Hkv, DV]
   const int *seg_q, *pos_q, *seg_kv, *pos_kv;
   const int2* range;                 // per query tile: [lo, hi] of its KV tiles
   const int4* q_sum;                 // per query tile: seg min/max, pos min/max
   const int4* kv_sum;                // per KV tile: the same
-  __nv_bfloat16* out;                // [T, Hq, D] (n_split == 1)
+  __nv_bfloat16* out;                // [T, Hq, DV] (n_split == 1)
   float2* ws_ml;                     // [n_split, T, Hq] (m, l) (n_split > 1)
-  float* ws_acc;                     // [n_split, T, Hq, D] (n_split > 1)
+  float* ws_acc;                     // [n_split, T, Hq, DV] (n_split > 1)
   float* lse;                        // [Hq, T] or null (n_split == 1)
   int T, S, Hq, Hkv, causal, window, n_split;
   float scale;
 };
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t fwd_bf16_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (size_t)(3 * BB * (D + LDB_PAD));   // Q, K, V tiles
+  // Q, K tiles [BB][DK + 8], the V tile [BB][DV + 8]
+  return sizeof(__nv_bfloat16) * (size_t)(BB * (2 * (DK + LDB_PAD) + DV + LDB_PAD));
 }
 
 // Blocks per SM the registers must leave room for (the shared memory fits
-// them: 101 KB a block at Dh 256, 52 KB at 128, 28 KB at 64); four at Dh 64
-// would cap a thread at 128 registers, which spills.
-template <int D>
+// them: 101 KB a block at Dh 256, 67 KB at (192, 128), 52 KB at 128, 28 KB
+// at 64); four at Dh 64 would cap a thread at 128 registers, which spills.
+// The output accumulator (DV / 2 floats a thread) sets the registers.
+template <int DK, int DV>
 constexpr int fwd_min_blocks() {
-  return D == 256 ? 2 : 3;
+  return DV == 256 ? 2 : 3;
 }
 
 // One block per (64-row query tile, query head, KV split): 1-D grid, the
 // query head fastest, so that the heads of a GQA group (and of one query
 // tile) run side by side and read each K/V tile from L2. Warp w owns query
 // rows 16 w .. 16 w + 15 of the tile.
-template <int D>
-__global__ void __launch_bounds__(NTF, fwd_min_blocks<D>())
+template <int DK, int DV>
+__global__ void __launch_bounds__(NTF, fwd_min_blocks<DK, DV>())
     flash_fwd_mma_kernel(const FwdArgs a) {
   using bf = __nv_bfloat16;
-  constexpr int LD = D + LDB_PAD, NJ = D / 8;   // NJ: 8-column tiles of a warp's output
+  // NJ: 8-column tiles of a warp's output
+  constexpr int LDK = DK + LDB_PAD, LDV = DV + LDB_PAD, NJ = DV / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf* sQ = reinterpret_cast<bf*>(smem_raw);
-  bf* sK = sQ + BB * LD;
-  bf* sV = sK + BB * LD;
+  bf* sK = sQ + BB * LDK;
+  bf* sV = sK + BB * LDK;
   __shared__ int s_segk[2][BB], s_posk[2][BB];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1243,8 +1307,9 @@ __global__ void __launch_bounds__(NTF, fwd_min_blocks<D>())
   const int h = blockIdx.x % a.Hq, qt = (blockIdx.x / a.Hq) % n_q;
   const int z = blockIdx.x / (a.Hq * n_q);
   const int hk = h / (a.Hq / a.Hkv), q0 = qt * BB;
-  const size_t kv_stride = (size_t)a.Hkv * D, q_stride = (size_t)a.Hq * D;
-  const bf *k = a.k + (size_t)hk * D, *v = a.v + (size_t)hk * D;
+  const size_t k_stride = (size_t)a.Hkv * DK, v_stride = (size_t)a.Hkv * DV;
+  const size_t q_stride = (size_t)a.Hq * DK;
+  const bf *k = a.k + (size_t)hk * DK, *v = a.v + (size_t)hk * DV;
 
   // this thread's query rows 16 warp + g8 + 8 hh (dead at or past T)
   int sq[2], pq[2];
@@ -1268,12 +1333,12 @@ __global__ void __launch_bounds__(NTF, fwd_min_blocks<D>())
   // pos of row tid % BB)
   auto issue_k = [&](int buf, int kt) {
     const int r0 = kt * BB, r = tid % BB;
-    copy_rows<D, NTF>(sK, k, kv_stride, r0, S, tid);
+    copy_rows<DK, NTF>(sK, k, k_stride, r0, S, tid);
     const bool ok = r0 + r < S;
     const int* src = (tid < BB ? a.seg_kv : a.pos_kv) + (ok ? r0 + r : 0);
     cp_async4(tid < BB ? &s_segk[buf][r] : &s_posk[buf][r], src, ok);
   };
-  copy_rows<D, NTF>(sQ, a.q + (size_t)h * D, q_stride, q0, T_, tid);
+  copy_rows<DK, NTF>(sQ, a.q + (size_t)h * DK, q_stride, q0, T_, tid);
   int kt = next_live(lo, hi, own, a.kv_sum, true, a.causal, a.window), buf = 0;
   if (kt >= 0) issue_k(0, kt);
   cp_async_commit();
@@ -1290,9 +1355,9 @@ __global__ void __launch_bounds__(NTF, fwd_min_blocks<D>())
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};   // log2 units; l per thread
   const float sl2 = a.scale * LOG2E;
-  const int a_off = (16 * warp + (lane & 15)) * LD + (lane >> 4) * 8;
-  const int b_off = (((lane >> 4) << 3) + (lane & 7)) * LD + ((lane >> 3) & 1) * 8;
-  const int x_off = (((lane >> 3) & 1) * 8 + (lane & 7)) * LD + (lane >> 4) * 8;
+  const int a_off = (16 * warp + (lane & 15)) * LDK + (lane >> 4) * 8;
+  const int b_off = (((lane >> 4) << 3) + (lane & 7)) * LDK + ((lane >> 3) & 1) * 8;
+  const int x_off = (((lane >> 3) & 1) * 8 + (lane & 7)) * LDV + (lane >> 4) * 8;
 
   while (kt >= 0) {
     const int nxt = next_live(kt + 1, hi, own, a.kv_sum, true, a.causal, a.window);
@@ -1311,23 +1376,24 @@ __global__ void __launch_bounds__(NTF, fwd_min_blocks<D>())
     // every pair live? The barrier also publishes every thread's copies and
     // ends the last tile's P V (sV is free)
     const bool full = __syncthreads_and(q_full && pred);
-    copy_rows<D, NTF>(sV, v, kv_stride, kt * BB, S, tid);   // in flight during S
+    copy_rows<DV, NTF>(sV, v, v_stride, kt * BB, S, tid);   // in flight during S
     cp_async_commit();
 
-    // S = Q K^T: the warp's 16 rows x 64 keys, Q's fragments from shared memory
+    // S = Q K^T over DK: the warp's 16 rows x 64 keys, Q's fragments from
+    // shared memory
     float s[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll 4
-    for (int kk = 0; kk < D; kk += 16) {
+    for (int kk = 0; kk < DK; kk += 16) {
       uint32_t qa[4];
       ldsm4(qa, sQ + a_off + kk);
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t b[4];
-        ldsm4(b, sK + np * 16 * LD + b_off + kk);
+        ldsm4(b, sK + np * 16 * LDK + b_off + kk);
         mma16816(s[2 * np], qa, b[0], b[1]);
         mma16816(s[2 * np + 1], qa, b[2], b[3]);
       }
@@ -1378,8 +1444,9 @@ __global__ void __launch_bounds__(NTF, fwd_min_blocks<D>())
     }
     cp_async_wait<1>();             // this tile's V has landed (the next K may not)
     __syncthreads();
-    // O += P V: P rounded to bf16 as the A operand, straight from the S
-    // fragments (the m16n8 accumulator layout is the m16k16 A layout)
+    // O += P V over DV columns: P rounded to bf16 as the A operand, straight
+    // from the S fragments (the m16n8 accumulator layout is the m16k16 A
+    // layout)
 #pragma unroll
     for (int k2 = 0; k2 < 4; ++k2) {
       uint32_t pa[4] = {pack_bf16(s[2 * k2][0], s[2 * k2][1]),
@@ -1387,9 +1454,9 @@ __global__ void __launch_bounds__(NTF, fwd_min_blocks<D>())
                         pack_bf16(s[2 * k2 + 1][0], s[2 * k2 + 1][1]),
                         pack_bf16(s[2 * k2 + 1][2], s[2 * k2 + 1][3])};
 #pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
+      for (int np = 0; np < DV / 16; ++np) {
         uint32_t b[4];
-        ldsm4_t(b, sV + x_off + k2 * 16 * LD + np * 16);
+        ldsm4_t(b, sV + x_off + k2 * 16 * LDV + np * 16);
         mma16816(o[2 * np], pa, b[0], b[1]);
         mma16816(o[2 * np + 1], pa, b[2], b[3]);
       }
@@ -1412,7 +1479,7 @@ __global__ void __launch_bounds__(NTF, fwd_min_blocks<D>())
     const float lv = l[hh];
     if (a.n_split == 1) {
       const float inv = lv > 0.f ? 1.f / lv : 0.f;
-      bf* dst = a.out + ((size_t)row * a.Hq + h) * D + 2 * t4;
+      bf* dst = a.out + ((size_t)row * a.Hq + h) * DV + 2 * t4;
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
         *reinterpret_cast<uint32_t*>(dst + 8 * j) =
@@ -1424,7 +1491,7 @@ __global__ void __launch_bounds__(NTF, fwd_min_blocks<D>())
       const size_t idx = (size_t)z * T_ * a.Hq + (size_t)row * a.Hq + h;
       if (t4 == 0) a.ws_ml[idx] = make_float2(lv > 0.f ? m[hh] * LN2 : NEG, lv);
       if (lv > 0.f) {
-        float* dst = a.ws_acc + idx * D + 2 * t4;
+        float* dst = a.ws_acc + idx * DV + 2 * t4;
 #pragma unroll
         for (int j = 0; j < NJ; ++j)
           *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(o[j][2 * hh], o[j][2 * hh + 1]);
@@ -1435,59 +1502,59 @@ __global__ void __launch_bounds__(NTF, fwd_min_blocks<D>())
 
 // Blocks per SM the compiler must leave registers for: two at Dh 64 in
 // bf16 (the tiles take 75 KB of shared memory), else one.
-template <typename T, int D>
+template <typename T, int DK, int DV>
 constexpr int bwd_min_blocks() {
-  return std::is_same<T, __nv_bfloat16>::value && D == 64 ? 2 : 1;
+  return std::is_same<T, __nv_bfloat16>::value && DK == 64 && DV == 64 ? 2 : 1;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NTB, bwd_min_blocks<T, D>())
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(NTB, bwd_min_blocks<T, DK, DV>())
     flash_bwd_dkdv_kernel(const BwdArgs a) {
-  if constexpr (std::is_same<T, float>::value) dkdv_f32<D>(a);
-  else dkdv_bf16<D>(a);
+  if constexpr (std::is_same<T, float>::value) dkdv_f32<DK, DV>(a);
+  else dkdv_bf16<DK, DV>(a);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NTB, bwd_min_blocks<T, D>())
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(NTB, bwd_min_blocks<T, DK, DV>())
     flash_bwd_dq_kernel(const BwdArgs a) {
-  if constexpr (std::is_same<T, float>::value) dq_f32<D>(a);
-  else dq_bf16<D>(a);
+  if constexpr (std::is_same<T, float>::value) dq_f32<DK, DV>(a);
+  else dq_bf16<DK, DV>(a);
 }
-template <typename T, int D>
+template <typename T, int DK, int DV>
 int launch_fwd(const void* q, const void* k, const void* v, const void* seg_q,
                const void* pos_q, const void* seg_kv, const void* pos_kv, void* out,
                void* ws_ml, void* ws_acc, void* lse, int T_, int S, int Hq, int Hkv,
                int causal, int window, float scale, int n_split, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<DK, DV>();
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, DK, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   dim3 grid(T_ / BQ, Hq, n_split);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
+  flash_fwd_kernel<T, DK, DV><<<grid, NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int*)seg_q, (const int*)pos_q,
       (const int*)seg_kv, (const int*)pos_kv, (T*)out, (float2*)ws_ml,
       (float*)ws_acc, (float*)lse, T_, S, Hq, Hkv, causal, window, scale, n_split);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_fwd_mma(const FwdArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = fwd_bf16_smem_bytes<D>();
+  constexpr size_t smem = fwd_bf16_smem_bytes<DK, DV>();
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_mma_kernel<D>,
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_mma_kernel<DK, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const int n_q = (a.T + BB - 1) / BB;
-  flash_fwd_mma_kernel<D><<<n_q * a.Hq * a.n_split, NTF, smem, stream>>>(a);
+  flash_fwd_mma_kernel<DK, DV><<<n_q * a.Hq * a.n_split, NTF, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1500,14 +1567,14 @@ int launch_combine(const void* ws_ml, const void* ws_acc, void* out, void* lse, 
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 int launch_bwd(bool dq_pass, const BwdArgs& a, cudaStream_t stream) {
   constexpr bool f32 = std::is_same<T, float>::value;
-  constexpr size_t smem = f32 ? bwd_f32_smem_bytes<D>() : bwd_bf16_smem_bytes<D>();
+  constexpr size_t smem = f32 ? bwd_f32_smem_bytes<DK, DV>() : bwd_bf16_smem_bytes<DK, DV>();
   constexpr int B = f32 ? BQ : BB;
   static bool attr_set[2] = {false, false};
   void (*kernel)(const BwdArgs) =
-      dq_pass ? flash_bwd_dq_kernel<T, D> : flash_bwd_dkdv_kernel<T, D>;
+      dq_pass ? flash_bwd_dq_kernel<T, DK, DV> : flash_bwd_dkdv_kernel<T, DK, DV>;
   if (!attr_set[dq_pass]) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -1529,31 +1596,35 @@ int flash_attention_block_q() { return BQ; }
 int flash_attention_block_kv() { return BK; }
 int flash_attention_max_split() { return MAX_SPLIT; }
 
-#define FA_DISPATCH(CASE)                                  \
-  if (dtype == 0) {                                        \
-    if (D == 64) CASE(float, 64);                          \
-    if (D == 128) CASE(float, 128);                        \
-    if (D == 256) CASE(float, 256);                        \
-  } else if (dtype == 1) {                                 \
-    if (D == 64) CASE(__nv_bfloat16, 64);                  \
-    if (D == 128) CASE(__nv_bfloat16, 128);                \
-    if (D == 256) CASE(__nv_bfloat16, 256);                \
-  }                                                        \
+// The (key, value) widths the library is built for: (Dk, Dv) -> CASE(type,
+// DK, DV); the merge pass dispatches on the value width alone.
+#define FA_WIDTHS(CASE, TYPE)                                      \
+  if (Dk == 64 && Dv == 64) CASE(TYPE, 64, 64);                    \
+  if (Dk == 128 && Dv == 128) CASE(TYPE, 128, 128);                \
+  if (Dk == 256 && Dv == 256) CASE(TYPE, 256, 256);                \
+  if (Dk == 192 && Dv == 128) CASE(TYPE, 192, 128)
+#define FA_DISPATCH(CASE)                                          \
+  if (dtype == 0) {                                                \
+    FA_WIDTHS(CASE, float);                                        \
+  } else if (dtype == 1) {                                         \
+    FA_WIDTHS(CASE, __nv_bfloat16);                                \
+  }                                                                \
   return (int)cudaErrorInvalidValue
 
-// The float32 split pass (bf16 runs flash_attention_fwd_mma). dtype must be
-// 0 (float32), the one this entry takes. With n_split == 1 it
+// The float32 split pass (bf16 runs flash_attention_fwd_mma). q, k are Dk
+// wide, v and out Dv wide. dtype must be 0 (float32), the one this entry
+// takes. With n_split == 1 it
 // writes ``out`` (and, if ``lse`` is not null, the rows' log-sum-exp into
 // lse [Hq, T] float32); with n_split > 1 it writes only the partial states:
 // ws_ml must hold n_split * T * Hq float2 (m, l) and ws_acc n_split * T * Hq
-// * D floats (uninitialised is fine; acc is written only where l > 0), and
+// * Dv floats (uninitialised is fine; acc is written only where l > 0), and
 // flash_attention_combine merges them into ``out`` (and ``lse``). Returns a
 // cudaError_t code (0 = ok); cudaErrorInvalidValue for a shape or dtype
 // this library does not take.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* seg_q, const void* pos_q, const void* seg_kv,
                         const void* pos_kv, void* out, void* ws_ml, void* ws_acc,
-                        void* lse, int T, int S, int Hq, int Hkv, int D, int dtype,
+                        void* lse, int T, int S, int Hq, int Hkv, int Dk, int Dv, int dtype,
                         int causal, int window, float scale, int n_split,
                         void* stream) {
   if (T <= 0 || S <= 0 || T % BQ || S % BK || Hkv <= 0 || Hq % Hkv ||
@@ -1561,22 +1632,21 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
       (n_split > 1 && (ws_ml == nullptr || ws_acc == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define FA_CASE(DIM)                                                                  \
-  return launch_fwd<float, DIM>(q, k, v, seg_q, pos_q, seg_kv, pos_kv, out, ws_ml,     \
-                                ws_acc, lse, T, S, Hq, Hkv, causal, window, scale,     \
-                                n_split, st)
+#define FA_CASE(TYPE, DK, DV)                                                          \
+  return launch_fwd<TYPE, DK, DV>(q, k, v, seg_q, pos_q, seg_kv, pos_kv, out, ws_ml,   \
+                                  ws_acc, lse, T, S, Hq, Hkv, causal, window, scale,   \
+                                  n_split, st)
   if (dtype == 0) {
-    if (D == 64) FA_CASE(64);
-    if (D == 128) FA_CASE(128);
-    if (D == 256) FA_CASE(256);
+    FA_WIDTHS(FA_CASE, float);
   }
 #undef FA_CASE
   return (int)cudaErrorInvalidValue;
 }
 
 // The bf16 forward on the tensor cores (flash_fwd_mma_kernel). q, k, v
-// bfloat16 as for flash_attention_fwd; ``range``, ``q_sum`` and ``kv_sum``
-// are the metadata's tile ranges and summaries for tiles of BB = 64 rows
+// bfloat16 as for flash_attention_fwd (q, k Dk wide, v and out Dv);
+// ``range``, ``q_sum`` and ``kv_sum`` are the metadata's tile ranges and
+// summaries for tiles of BB = 64 rows
 // (flash_attention_bwd_tiles with R = 64; only ``range`` per query tile and
 // the summaries are read). n_split == 1 writes ``out`` (and ``lse`` if not
 // null); n_split > 1 writes the partial states for flash_attention_combine
@@ -1587,8 +1657,8 @@ int flash_attention_fwd_mma(const void* q, const void* k, const void* v, const v
                             const void* pos_q, const void* seg_kv, const void* pos_kv,
                             const void* range, const void* q_sum, const void* kv_sum,
                             void* out, void* ws_ml, void* ws_acc, void* lse, int T, int S,
-                            int Hq, int Hkv, int D, int causal, int window, float scale,
-                            int n_split, void* stream) {
+                            int Hq, int Hkv, int Dk, int Dv, int causal, int window,
+                            float scale, int n_split, void* stream) {
   if (T <= 0 || S <= 0 || T % BQ || S % BK || Hkv <= 0 || Hq % Hkv || n_split < 1 ||
       n_split > MAX_SPLIT || range == nullptr || q_sum == nullptr || kv_sum == nullptr ||
       (n_split == 1 && out == nullptr) ||
@@ -1600,24 +1670,34 @@ int flash_attention_fwd_mma(const void* q, const void* k, const void* v, const v
             (__nv_bfloat16*)out, (float2*)ws_ml, (float*)ws_acc, (float*)lse,
             T, S, Hq, Hkv, causal, window, n_split, scale};
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 64) return launch_fwd_mma<64>(a, st);
-  if (D == 128) return launch_fwd_mma<128>(a, st);
-  if (D == 256) return launch_fwd_mma<256>(a, st);
+#define FM_CASE(TYPE, DK, DV) return launch_fwd_mma<DK, DV>(a, st)
+  FA_WIDTHS(FM_CASE, __nv_bfloat16);
+#undef FM_CASE
   return (int)cudaErrorInvalidValue;
 }
 
-// The merge pass: out [T, Hq, D] (dtype as above) and, if ``lse`` is not
-// null, lse [Hq, T] from the n_split partial states that flash_attention_fwd
-// wrote. Returns a cudaError_t code.
+// The merge pass: out [T, Hq, D] (dtype as above; D the value width: 64,
+// 128 or 256) and, if ``lse`` is not null, lse [Hq, T] from the n_split
+// partial states that flash_attention_fwd wrote. Returns a cudaError_t code.
 int flash_attention_combine(const void* ws_ml, const void* ws_acc, void* out, void* lse,
                             int T, int Hq, int D, int dtype, int n_split, void* stream) {
   if (T <= 0 || Hq <= 0 || n_split < 2 || n_split > MAX_SPLIT)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define FC_CASE(TYPE, DIM) \
-  return launch_combine<TYPE, DIM>(ws_ml, ws_acc, out, lse, T, Hq, n_split, st)
-  FA_DISPATCH(FC_CASE);
+#define FC_ONE(TYPE, DIM) \
+  if (D == DIM) return launch_combine<TYPE, DIM>(ws_ml, ws_acc, out, lse, T, Hq, n_split, st)
+#define FC_CASE(TYPE) \
+  FC_ONE(TYPE, 64);   \
+  FC_ONE(TYPE, 128);  \
+  FC_ONE(TYPE, 256)
+  if (dtype == 0) {
+    FC_CASE(float);
+  } else if (dtype == 1) {
+    FC_CASE(__nv_bfloat16);
+  }
 #undef FC_CASE
+#undef FC_ONE
+  return (int)cudaErrorInvalidValue;
 }
 
 // Rows per tile of the backward passes for a dtype (0 = float32,
@@ -1640,9 +1720,10 @@ int flash_attention_bwd_tiles(const void* seg_q, const void* pos_q, const void* 
   return (int)cudaGetLastError();
 }
 
-// The two backward passes. Inputs: q, o, dout [T, Hq, D], k, v [S, Hkv, D],
-// the forward's lse [Hq, T] (all contiguous, T and S padded as for the
-// forward), the rows' int32 seg and pos; per tile of the tile size above,
+// The two backward passes. Inputs: q [T, Hq, Dk], o, dout [T, Hq, Dv],
+// k [S, Hkv, Dk], v [S, Hkv, Dv], the forward's lse [Hq, T] (all
+// contiguous, T and S padded as for the forward), the rows' int32 seg and
+// pos; per tile of the tile size above,
 // ``range`` (int32 [n, 2]: for the dq pass per query tile its KV tiles
 // [lo, hi], for the dk/dv pass per KV tile its query tiles) and the
 // summaries ``q_sum`` / ``kv_sum`` (int32 [n, 4]: segment min, max and
@@ -1663,12 +1744,12 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
                            const void* dout, const void* lse, void* delta, const void* seg_q,
                            const void* pos_q, const void* seg_kv, const void* pos_kv,
                            const void* range, const void* q_sum, const void* kv_sum, void* dq,
-                           int T, int S, int Hq, int Hkv, int D, int dtype, int causal,
-                           int window, float scale, void* stream) {
+                           int T, int S, int Hq, int Hkv, int Dk, int Dv, int dtype,
+                           int causal, int window, float scale, void* stream) {
   FB_CHECK;
   FB_ARGS(dq, nullptr, nullptr);
   cudaStream_t st = (cudaStream_t)stream;
-#define FQ_CASE(TYPE, DIM) return launch_bwd<TYPE, DIM>(true, a, st)
+#define FQ_CASE(TYPE, DK, DV) return launch_bwd<TYPE, DK, DV>(true, a, st)
   FA_DISPATCH(FQ_CASE);
 #undef FQ_CASE
 }
@@ -1678,12 +1759,12 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const 
                              const void* seg_q, const void* pos_q, const void* seg_kv,
                              const void* pos_kv, const void* range, const void* q_sum,
                              const void* kv_sum, void* dk, void* dv, int T, int S, int Hq,
-                             int Hkv, int D, int dtype, int causal, int window, float scale,
-                             void* stream) {
+                             int Hkv, int Dk, int Dv, int dtype, int causal, int window,
+                             float scale, void* stream) {
   FB_CHECK;
   FB_ARGS(nullptr, dk, dv);
   cudaStream_t st = (cudaStream_t)stream;
-#define FK_CASE(TYPE, DIM) return launch_bwd<TYPE, DIM>(false, a, st)
+#define FK_CASE(TYPE, DK, DV) return launch_bwd<TYPE, DK, DV>(false, a, st)
   FA_DISPATCH(FK_CASE);
 #undef FK_CASE
 }
@@ -1691,5 +1772,6 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const 
 #undef FB_ARGS
 #undef FB_CHECK
 #undef FA_DISPATCH
+#undef FA_WIDTHS
 
 }  // extern "C"

@@ -9,9 +9,12 @@ use into a shared library with a plain C interface under
 ``<repo>/build/kernels/`` (:mod:`.build`) and called through ``ctypes`` on
 PyTorch's current stream.
 
-What bounds it: operations on the train chunks (two products of 2 Dh
-flops per live (query, key, head)), bytes in serving (a mixed engine step
-reads a long packed KV buffer for a few queries each). bf16 inputs (the
+What bounds it: operations on the train chunks (two products per live
+(query, key, head): Q K^T of 2 Dk flops, P V of 2 Dv), bytes in serving
+(a mixed engine step reads a long packed KV buffer for a few queries
+each). The key width Dk (q, k) and the value width Dv (v, the output) are
+template parameters (:data:`HEAD_DIMS`: MLA's q/k 192, v 128 beside the
+equal pairs). bf16 inputs (the
 train and serving paths) run ``flash_fwd_mma_kernel``: both products on
 the tensor cores (``mma.sync`` on 64-row tiles, P rounded to bf16 as P V's
 operand), the online softmax in registers, and only the KV tiles of each
@@ -69,7 +72,9 @@ __all__ = ["BLOCK_Q", "BLOCK_KV", "HEAD_DIMS", "MAX_SPLIT", "BWD_BLOCK",
 
 BLOCK_Q = 32                  # query rows per block (csrc: BQ)
 BLOCK_KV = 32                 # KV rows per tile (csrc: BK)
-HEAD_DIMS = (64, 128, 256)    # template instantiations in the library
+# (key width of q and k, value width of v and the output): the template
+# instantiations in the library; (192, 128) is MLA's (deepseek-v2-lite)
+HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 MAX_SPLIT = 16                # KV splits per query tile (csrc: MAX_SPLIT)
 # rows per tile of the backward passes, both sides (csrc: BB for bf16; the
 # float32 passes keep BQ = BK)
@@ -117,11 +122,11 @@ def load_library() -> KernelLibrary:
                                f"{fn(*args)} but the wrapper expects {want}")
     fns = {}
     for name, argtypes in (
-            ("flash_attention_fwd", [_P] * 11 + [_I] * 8 + [_F, _I, _P]),
-            ("flash_attention_fwd_mma", [_P] * 14 + [_I] * 7 + [_F, _I, _P]),
+            ("flash_attention_fwd", [_P] * 11 + [_I] * 9 + [_F, _I, _P]),
+            ("flash_attention_fwd_mma", [_P] * 14 + [_I] * 8 + [_F, _I, _P]),
             ("flash_attention_combine", [_P] * 4 + [_I] * 5 + [_P]),
-            ("flash_attention_bwd_dkdv", [_P] * 16 + [_I] * 8 + [_F, _P]),
-            ("flash_attention_bwd_dq", [_P] * 15 + [_I] * 8 + [_F, _P]),
+            ("flash_attention_bwd_dkdv", [_P] * 16 + [_I] * 9 + [_F, _P]),
+            ("flash_attention_bwd_dq", [_P] * 15 + [_I] * 9 + [_F, _P]),
             ("flash_attention_bwd_tiles", [_P] * 8 + [_I] * 5 + [_P])):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, _I
@@ -152,7 +157,7 @@ class FlashAttentionKernel:
                  causal: bool = True, window: int = 0,
                  scale: Optional[float] = None, with_lse: bool = False,
                  tiles: Optional["BwdTiles"] = None):
-        """``out [T, Hq, D]``; with ``with_lse`` also each row's
+        """``out [T, Hq, Dv]``; with ``with_lse`` also each row's
         log-sum-exp ``lse [Hq, T]`` (float32, ``-inf`` on rows with no
         attended key), which the backward reads. bf16 takes ``tiles``, the
         metadata's :class:`BwdTiles` for tiles of :data:`FWD_BLOCK` rows
@@ -164,7 +169,7 @@ class FlashAttentionKernel:
         n_split = kv_splits(q.shape[0], k.shape[0], q.shape[1],
                             _sm_count(q.device), q.dtype)
         if n_split == 1:
-            out = torch.empty_like(q)
+            out = q.new_empty((*q.shape[:2], v.shape[2]))
             self._launch(q, k, v, seg_q, seg_kv, pos_q, pos_kv, out, None,
                          None, lse, 1, causal, window, scale, tiles)
         else:
@@ -182,11 +187,11 @@ class FlashAttentionKernel:
         """The split pass alone, over ``n_split >= 2`` blocks per query
         tile. Returns the float32 partial states ``ws_ml [n_split, T, Hq,
         2]`` (each split's running max and sum) and ``ws_acc [n_split, T,
-        Hq, D]`` (its unnormalised output, written only where the sum is
+        Hq, Dv]`` (its unnormalised output, written only where the sum is
         > 0 and uninitialised elsewhere)."""
         if not 2 <= n_split <= MAX_SPLIT:
             raise ValueError(f"n_split={n_split} not in [2, {MAX_SPLIT}]")
-        T, Hq, D = q.shape
+        (T, Hq), D = q.shape[:2], v.shape[2]
         ws_ml = torch.empty((n_split, T, Hq, 2), dtype=torch.float32,
                             device=q.device)
         ws_acc = torch.empty((n_split, T, Hq, D), dtype=torch.float32,
@@ -197,9 +202,9 @@ class FlashAttentionKernel:
 
     def _launch(self, q, k, v, seg_q, seg_kv, pos_q, pos_kv, out, ws_ml,
                 ws_acc, lse, n_split, causal, window, scale, tiles) -> None:
-        T, Hq, D = _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
+        T, Hq, Dk, Dv = _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
         S, Hkv = k.shape[0], k.shape[1]
-        scale = float(scale if scale is not None else D ** -0.5)
+        scale = float(scale if scale is not None else Dk ** -0.5)
         kernel = FWD_KERNELS[q.dtype]
         lib = load_library()
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -217,16 +222,17 @@ class FlashAttentionKernel:
                 rc = lib.fwd_mma(*head, tiles.kv_range.data_ptr(),
                                  tiles.q_summary.data_ptr(),
                                  tiles.kv_summary.data_ptr(), *outs, T, S,
-                                 Hq, Hkv, D, int(bool(causal)), int(window),
-                                 scale, n_split, stream)
+                                 Hq, Hkv, Dk, Dv, int(bool(causal)),
+                                 int(window), scale, n_split, stream)
             else:
-                rc = lib.fwd(*head, *outs, T, S, Hq, Hkv, D,
+                rc = lib.fwd(*head, *outs, T, S, Hq, Hkv, Dk, Dv,
                              _DTYPE_CODE[q.dtype], int(bool(causal)),
                              int(window), scale, n_split, stream)
         if rc != 0:
             raise RuntimeError(
                 f"{kernel} launch failed with cudaError {rc} (T={T}, S={S}, "
-                f"Hq={Hq}, Hkv={Hkv}, D={D}, {q.dtype}, n_split={n_split})")
+                f"Hq={Hq}, Hkv={Hkv}, Dk={Dk}, Dv={Dv}, {q.dtype}, "
+                f"n_split={n_split})")
         self.launches += 1
         self.by_kernel[kernel] += 1
 
@@ -261,8 +267,9 @@ class FlashCombineKernel:
             raise ValueError("flash_combine_cuda takes contiguous tensors")
         if not 2 <= n_split <= MAX_SPLIT:
             raise ValueError(f"n_split={n_split} not in [2, {MAX_SPLIT}]")
-        if D not in HEAD_DIMS or dtype not in _DTYPE_CODE or T == 0:
-            raise ValueError(f"head_dim {D}, dtype {dtype} or T={T} not "
+        if D not in {dv for _, dv in HEAD_DIMS} or dtype not in _DTYPE_CODE \
+                or T == 0:
+            raise ValueError(f"value width {D}, dtype {dtype} or T={T} not "
                              f"taken")
         if lse is not None and (lse.dtype != torch.float32
                                 or tuple(lse.shape) != (Hq, T)
@@ -290,8 +297,8 @@ class FlashBwdKernel:
     """Launch wrapper of one backward pass: ``flash_bwd_dq_kernel``
     (``which="dq"``, returns ``dq``) or ``flash_bwd_dkdv_kernel``
     (``which="dkdv"``, returns ``(dk, dv)``). Inputs: the forward's padded
-    ``q, k, v``, metadata, output ``out``, its ``lse [Hq, T]`` and the
-    output's gradient ``dout`` (same shape and dtype as ``out``).
+    ``q, k, v``, metadata, output ``out [T, Hq, Dv]``, its ``lse [Hq, T]``
+    and the output's gradient ``dout`` (same shape and dtype as ``out``).
 
     ``delta`` is a float32 ``[Hq, T]`` buffer of the rows' Delta =
     rowsum(dout * out): the dq pass, which runs first, writes it, the dk/dv
@@ -311,14 +318,15 @@ class FlashBwdKernel:
                  *, causal: bool = True, window: int = 0,
                  scale: Optional[float] = None, delta: torch.Tensor,
                  tiles: "BwdTiles"):
-        T, Hq, D = _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
+        T, Hq, Dk, Dv = _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
         S, Hkv = k.shape[0], k.shape[1]
         for name, t in (("out", out), ("dout", dout)):
             if (not isinstance(t, torch.Tensor) or not t.is_cuda
                     or t.device != q.device or t.dtype != q.dtype
-                    or t.shape != q.shape or not t.is_contiguous()):
-                raise ValueError(f"{name} must be a contiguous CUDA tensor "
-                                 f"like q {tuple(q.shape)} {q.dtype}")
+                    or tuple(t.shape) != (T, Hq, Dv)
+                    or not t.is_contiguous()):
+                raise ValueError(f"{name} must be a contiguous CUDA "
+                                 f"{q.dtype} tensor [{T}, {Hq}, {Dv}]")
         for name, t in (("lse", lse), ("delta", delta)):
             if (not isinstance(t, torch.Tensor) or t.device != q.device
                     or t.dtype != torch.float32
@@ -327,7 +335,7 @@ class FlashBwdKernel:
                                  f"[{Hq}, {T}] tensor on {q.device}")
         window = int(window)
         tiles.check(T, S, BWD_BLOCK[q.dtype], q.device)
-        scale = float(scale if scale is not None else D ** -0.5)
+        scale = float(scale if scale is not None else Dk ** -0.5)
         lib = load_library()
         stream = torch.cuda.current_stream(q.device).cuda_stream
         head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -335,8 +343,8 @@ class FlashBwdKernel:
                 seg_q.data_ptr(), pos_q.data_ptr(), seg_kv.data_ptr(),
                 pos_kv.data_ptr())
         summaries = (tiles.q_summary.data_ptr(), tiles.kv_summary.data_ptr())
-        tail = (T, S, Hq, Hkv, D, _DTYPE_CODE[q.dtype], int(bool(causal)),
-                window, scale, stream)
+        tail = (T, S, Hq, Hkv, Dk, Dv, _DTYPE_CODE[q.dtype],
+                int(bool(causal)), window, scale, stream)
         with torch.cuda.device(q.device):
             if self.which == "dkdv":
                 dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -351,7 +359,8 @@ class FlashBwdKernel:
         if rc != 0:
             raise RuntimeError(
                 f"flash_bwd_{self.which}_kernel launch failed with cudaError "
-                f"{rc} (T={T}, S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, {q.dtype})")
+                f"{rc} (T={T}, S={S}, Hq={Hq}, Hkv={Hkv}, Dk={Dk}, Dv={Dv}, "
+                f"{q.dtype})")
         self.launches += 1
         return res
 
@@ -508,13 +517,14 @@ def _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv):
                          f"{v.dtype}")
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("q, k, v must be [rows, heads, head_dim]")
-    T, Hq, D = q.shape
-    S, Hkv, Dk = k.shape
-    if Dk != D or tuple(v.shape) != (S, Hkv, D):
+    T, Hq, Dk = q.shape
+    S, Hkv, Dv = v.shape
+    if tuple(k.shape) != (S, Hkv, Dk):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if (Dk, Dv) not in HEAD_DIMS:
+        raise ValueError(f"(key, value) widths {(Dk, Dv)} not in "
+                         f"{HEAD_DIMS}")
     if Hkv < 1 or Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     if T % BLOCK_Q or S % BLOCK_KV or T == 0 or S == 0:
@@ -531,7 +541,7 @@ def _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv):
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k, v must start on a 16-byte boundary (the "
                          "kernel loads 16 bytes at a time)")
-    return T, Hq, D
+    return T, Hq, Dk, Dv
 
 
 flash_attention_cuda = FlashAttentionKernel()

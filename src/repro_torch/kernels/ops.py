@@ -45,7 +45,8 @@ from .flash_attention import (BLOCK_KV, BLOCK_Q, BWD_BLOCK,
                               flash_bwd_tiles_cuda)
 from .mamba_scan import Gate, mamba_scan_bwd_cuda, mamba_scan_fwd_cuda
 
-__all__ = ["flash_attention", "bwd_tiles", "fused_cross_entropy",
+__all__ = ["flash_attention", "attention_forward", "attention_backward",
+           "bwd_tiles", "fused_cross_entropy",
            "mamba_scan", "mamba_scan_fwd", "mamba_scan_bwd",
            "mamba_scan_gated_fwd", "mamba_scan_gated_bwd", "pad_rows",
            "pad_for_kernel"]
@@ -96,8 +97,62 @@ def _fwd_tiles(padded, causal, window) -> BwdTiles:
                      block=BWD_BLOCK[padded[0].dtype])
 
 
+def attention_forward(q, k, v, seg_q, seg_kv, pos_q, pos_kv, *,
+                      causal: bool = True, window: int = 0,
+                      scale: Optional[float] = None):
+    """The forward of :func:`flash_attention` as its autograd function
+    runs it: ``(out, saved, kv, tiles)``. CUDA: the tile ranges, then
+    kernel A with the rows' log-sum-exp; ``saved`` = the padded q and
+    metadata, the padded output and the lse, ``kv`` = the padded keys and
+    values, ``tiles`` = the tile ranges. CPU: the plain forward; ``saved``
+    = q and the metadata, ``kv`` = (k, v), ``tiles`` None.
+    :func:`attention_backward` takes ``saved`` and ``tiles`` with these
+    keys and values (or the same ones made again)."""
+    opts = dict(causal=causal, window=window, scale=scale)
+    if q.is_cuda:
+        padded = pad_for_kernel(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
+        tiles = _fwd_tiles(padded, causal, window)
+        out, lse = flash_attention_cuda(*padded, with_lse=True, tiles=tiles,
+                                        **opts)
+        return (out[:q.shape[0]], (padded[0], *padded[3:], out, lse),
+                padded[1:3], tiles)
+    flash_attention.plain_calls += 1
+    out = ref.blocked_flash_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv,
+                                      **opts)
+    return out, (q, seg_q, seg_kv, pos_q, pos_kv), (k, v), None
+
+
+def attention_backward(saved, tiles, k, v, dout, *, causal: bool = True,
+                       window: int = 0, scale: Optional[float] = None):
+    """``(dq, dk, dv)`` of an :func:`attention_forward` call from its
+    ``saved`` tensors and ``tiles``, the keys and values ``k``, ``v`` (its
+    own, or the same values made again; padded here as the forward padded
+    them) and the output's gradient ``dout``, shaped as the unpadded
+    inputs. CUDA: the dq pass, then the dk/dv pass (kernel A′); CPU: the
+    plain gradient."""
+    opts = dict(causal=causal, window=window, scale=scale)
+    if dout.is_cuda:
+        q, seg_q, seg_kv, pos_q, pos_kv, out, lse = saved
+        T, S = dout.shape[0], k.shape[0]
+        k, v = (_dense(pad_rows(t, BLOCK_KV)) for t in (k, v))
+        do = _dense(pad_rows(dout.to(q.dtype), BLOCK_Q))
+        meta = (seg_q, seg_kv, pos_q, pos_kv)
+        # the dq pass on the forward's tile ranges: it writes the rows'
+        # Delta for the dk/dv pass
+        delta = torch.empty_like(lse)
+        dq = flash_bwd_dq_cuda(q, k, v, out, do, lse, *meta, delta=delta,
+                               tiles=tiles, **opts)
+        dk, dv = flash_bwd_dkdv_cuda(q, k, v, out, do, lse, *meta,
+                                     delta=delta, tiles=tiles, **opts)
+        return dq[:T], dk[:S], dv[:S]
+    flash_attention.plain_calls += 1
+    q, *meta = saved
+    return ref.flash_attention_grad(q, k, v, *meta, dout, **opts)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Attention with a kernel backward. CUDA: the forward saves the padded
+    """Attention with a kernel backward (:func:`attention_forward`,
+    :func:`attention_backward`). CUDA: the forward saves the padded
     inputs, the output, the rows' log-sum-exp and the tile ranges for the
     two backward passes. CPU: plain forward, plain gradient."""
 
@@ -105,48 +160,27 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, seg_q, seg_kv, pos_q, pos_kv, causal, window,
                 scale):
         ctx.opts = dict(causal=causal, window=window, scale=scale)
-        ctx.rows = (q.shape[0], k.shape[0])
-        if q.is_cuda:
-            padded = pad_for_kernel(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
-            ctx.tiles = _fwd_tiles(padded, causal, window)
-            out, lse = flash_attention_cuda(*padded, with_lse=True,
-                                            tiles=ctx.tiles, **ctx.opts)
-            ctx.save_for_backward(*padded, out, lse)
-            return out[:q.shape[0]]
-        flash_attention.plain_calls += 1
-        ctx.save_for_backward(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
-        return ref.blocked_flash_attention(q, k, v, seg_q, seg_kv, pos_q,
-                                           pos_kv, **ctx.opts)
+        ctx.rows = k.shape[0]
+        out, saved, kv, ctx.tiles = attention_forward(
+            q, k, v, seg_q, seg_kv, pos_q, pos_kv, **ctx.opts)
+        ctx.save_for_backward(*saved, *kv)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        T, S = ctx.rows
-        if dout.is_cuda:
-            q, k, v, seg_q, seg_kv, pos_q, pos_kv, out, lse = \
-                ctx.saved_tensors
-            do = _dense(pad_rows(dout.to(q.dtype), BLOCK_Q))
-            meta = (seg_q, seg_kv, pos_q, pos_kv)
-            # the dq pass on the forward's tile ranges: it writes the rows'
-            # Delta for the dk/dv pass
-            delta = torch.empty_like(lse)
-            dq = flash_bwd_dq_cuda(q, k, v, out, do, lse, *meta, delta=delta,
-                                   tiles=ctx.tiles, **ctx.opts)
-            dk, dv = flash_bwd_dkdv_cuda(q, k, v, out, do, lse, *meta,
-                                         delta=delta, tiles=ctx.tiles,
-                                         **ctx.opts)
-            dq, dk, dv = dq[:T], dk[:S], dv[:S]
-        else:
-            flash_attention.plain_calls += 1
-            dq, dk, dv = ref.flash_attention_grad(*ctx.saved_tensors, dout,
-                                                  **ctx.opts)
-        return dq, dk, dv, None, None, None, None, None, None, None
+        *saved, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_backward(saved, ctx.tiles, k, v, dout,
+                                        **ctx.opts)
+        S = ctx.rows
+        return dq, dk[:S], dv[:S], None, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv, *,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Packed-varlen attention: q [T, Hq, D], k/v [S, Hkv, D] -> [T, Hq, D].
-    Differentiable in q, k and v.
+    """Packed-varlen attention: q [T, Hq, Dk], k [S, Hkv, Dk], v [S, Hkv,
+    Dv] -> [T, Hq, Dv] (the kernels take the (Dk, Dv) pairs of
+    :data:`~.flash_attention.HEAD_DIMS`). Differentiable in q, k and v.
 
     ``flash_attention.plain_calls`` counts the forward and backward calls
     served by the plain versions (CPU tensors)."""

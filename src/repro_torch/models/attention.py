@@ -1,25 +1,40 @@
-"""Attention: GQA projection (+RoPE, +qk-norm), the local attention policy
-and the attention block.
+"""Attention: GQA projection (+RoPE, +qk-norm), MLA (deepseek-v2's latent
+attention), the local attention policy and the attention block.
 
-Counterpart of the JAX package's ``models/attention.py`` (the GQA path;
-MLA and M-RoPE come with their families). Packed-varlen semantics: a chunk
+Counterpart of the JAX package's ``models/attention.py`` (GQA and MLA;
+M-RoPE comes with its family). Packed-varlen semantics: a chunk
 is a flat token buffer ``[T]`` with ``seg`` (segment id per token, -1 =
 padding) and ``pos`` (position within the owning sequence). Split-chunk
 context arrives as KV buffers whose first ``ctx_len`` entries are valid;
 context rows belong to segment 0 and carry positions ``0..ctx_len-1``.
+
+MLA (``kv_lora_rank > 0``): a token's KV state is one latent row ``[1, r +
+rr]`` (the compressed ``c_kv`` and the shared rope key ``k_r``); the
+policy expands the carry's and the chunk's latent rows into per-head keys
+``[S, Hq, Dh + rr]`` and values ``[S, Hq, Dh]`` just before kernel A
+(:func:`mla_expand_ctx`), whose key width is then ``Dh + rr`` (192 at
+deepseek-v2-lite) and value width ``Dh`` (128). The carry holds the latent
+rows only; its value field is None. Under autograd the expansion and the
+attention are one function (:func:`mla_attention`) that keeps the latent
+rows and makes the keys and values again in its backward, so a layer
+keeps ``r + rr`` values a key row rather than ``Hq (2 Dh + rr)``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .config import ArchConfig
-from .layers import apply_rope, dense_init, linear, rms_norm
+from .layers import apply_rope, dense_init, linear, rms_norm, \
+    weight_grad_store
 
-__all__ = ["init_attention", "project_qkv", "attention_block",
+__all__ = ["init_attention", "project_qkv", "mla_expand_ctx",
+           "mla_attention", "attention_block",
            "make_local_attention_policy"]
 
 
@@ -28,6 +43,14 @@ def init_attention(cfg: ArchConfig, gen: torch.Generator, *, device,
     s = cfg.spec
     D, Dh, Hq, Hkv = s.d_model, s.head_dim, s.n_heads, s.n_kv_heads
     kw = dict(dtype=dtype, device=device)
+    if s.kv_lora_rank > 0:  # MLA, the reference's leaves
+        r, rr = s.kv_lora_rank, s.qk_rope_dim
+        return {"wq": dense_init(gen, D, Hq * (Dh + rr), **kw),
+                "w_dkv": dense_init(gen, D, r, **kw),
+                "w_kr": dense_init(gen, D, rr, **kw),
+                "w_uk": dense_init(gen, r, Hq * Dh, **kw),
+                "w_uv": dense_init(gen, r, Hq * Dh, **kw),
+                "wo": dense_init(gen, Hq * Dh, D, **kw)}
     p = {"wq": dense_init(gen, D, Hq * Dh, **kw),
          "wk": dense_init(gen, D, Hkv * Dh, **kw),
          "wv": dense_init(gen, D, Hkv * Dh, **kw),
@@ -40,13 +63,28 @@ def init_attention(cfg: ArchConfig, gen: torch.Generator, *, device,
 
 def project_qkv(cfg: ArchConfig, p: Dict, x: torch.Tensor,
                 pos: torch.Tensor, rope: Optional[Tuple] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                ) -> Tuple[torch.Tensor, torch.Tensor,
+                           Optional[torch.Tensor]]:
     """x: [T, D] -> q [T, Hq, Dh], k [T, Hkv, Dh], v [T, Hkv, Dh].
-    ``rope``: precomputed ``layers.rope_tables(pos, ...)``, if any."""
+    ``rope``: precomputed ``layers.rope_tables(pos, ...)``, if any (for
+    MLA, tables of ``qk_rope_dim`` channels).
+
+    MLA: q ``[T, Hq, Dh + rr]`` (its last ``rr`` channels rotated), k the
+    latent row ``[T, 1, r + rr]`` (``c_kv`` and the rotated shared rope
+    key) and v None: the values live in the latent rows."""
     s = cfg.spec
-    if s.kv_lora_rank > 0 or cfg.rope_kind == "mrope":
-        raise NotImplementedError("MLA and M-RoPE are not ported yet")
+    if cfg.rope_kind == "mrope":
+        raise NotImplementedError("M-RoPE is not ported yet")
     Dh, Hq, Hkv = s.head_dim, s.n_heads, s.n_kv_heads
+    if s.kv_lora_rank > 0:
+        q = linear(x, p["wq"]).reshape(-1, Hq, Dh + s.qk_rope_dim)
+        q = torch.cat([q[..., :Dh], apply_rope(q[..., Dh:], pos,
+                                               cfg.rope_theta, rope)],
+                      dim=-1)
+        k_r = apply_rope(linear(x, p["w_kr"])[:, None, :], pos,
+                         cfg.rope_theta, rope)
+        rows = torch.cat([linear(x, p["w_dkv"])[:, None, :], k_r], dim=-1)
+        return q, rows, None
     q = linear(x, p["wq"]).reshape(-1, Hq, Dh)
     k = linear(x, p["wk"]).reshape(-1, Hkv, Dh)
     v = linear(x, p["wv"]).reshape(-1, Hkv, Dh)
@@ -57,6 +95,97 @@ def project_qkv(cfg: ArchConfig, p: Dict, x: torch.Tensor,
         q = apply_rope(q, pos, cfg.rope_theta, rope)
         k = apply_rope(k, pos, cfg.rope_theta, rope)
     return q, k, v
+
+
+def mla_expand_ctx(cfg: ArchConfig, p: Dict, rows: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expand MLA latent rows ``[S, 1, r + rr]`` into per-head keys ``[S,
+    Hq, Dh + rr]`` (the up-projected ``c_kv``, then the shared rope key on
+    every head) and values ``[S, Hq, Dh]``."""
+    k, v, _ = _expand(rows, p["w_uk"], p["w_uv"], cfg.spec.n_heads,
+                      cfg.spec.head_dim)
+    return k, v
+
+
+def _expand(rows, w_uk, w_uv, heads: int, Dh: int):
+    """The expansion of :func:`mla_expand_ctx`: ``(k, v, c)``, ``c`` the
+    latent part of ``rows`` (``[S, r]``)."""
+    r = w_uk.shape[1]
+    c, k_r = rows[:, 0, :r], rows[:, 0, r:]
+    k = torch.cat([F.linear(c, w_uk.to(c.dtype)).reshape(-1, heads, Dh),
+                   k_r[:, None, :].expand(-1, heads, -1)], dim=-1)
+    return k, F.linear(c, w_uv.to(c.dtype)).reshape(-1, heads, Dh), c
+
+
+class _MLAAttention(torch.autograd.Function):
+    """Attention over MLA latent rows: the expansion (:func:`_expand`),
+    then kernel A (``ops.attention_forward``). It keeps q, the latent rows,
+    the up-projections and what kernel A′ reads (the output, its lse, the
+    tile ranges), not the expanded keys and values: the backward makes
+    them again (two products of ``r`` columns), runs kernel A′
+    (``ops.attention_backward``) and takes their gradients back through
+    the expansion (the rope key's summed over the heads). The weight
+    gradients are the products autograd's linear backward computes
+    (``dy.T @ c``); under ``layers.deferred_weight_grads`` they go to the
+    store."""
+
+    @staticmethod
+    def forward(ctx, q, rows, w_uk, w_uv, seg_q, seg_kv, pos_q, pos_kv,
+                heads, Dh, causal, window, scale):
+        from repro_torch.kernels.ops import attention_forward
+        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        ctx.shape, ctx.store = (heads, Dh), weight_grad_store()
+        ctx.leaves = (w_uk, w_uv)
+        k, v, _ = _expand(rows, w_uk, w_uv, heads, Dh)
+        out, saved, _, ctx.tiles = attention_forward(
+            q, k, v, seg_q, seg_kv, pos_q, pos_kv, **ctx.opts)
+        ctx.save_for_backward(rows, w_uk, w_uv, *saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels.ops import attention_backward
+        rows, w_uk, w_uv, *saved = ctx.saved_tensors
+        heads, Dh = ctx.shape
+        k, v, c = _expand(rows, w_uk, w_uv, heads, Dh)
+        dq, dk, dv = attention_backward(saved, ctx.tiles, k, v, dout,
+                                        **ctx.opts)
+        del k, v
+        S = rows.shape[0]
+        dk_nope = dk[..., :Dh].reshape(S, heads * Dh)
+        dv = dv.reshape(S, heads * Dh)
+        dc = dk_nope.mm(w_uk.to(c.dtype)) + dv.mm(w_uv.to(c.dtype))
+        drows = torch.cat([dc, dk[..., Dh:].sum(1)], dim=-1)[:, None, :]
+        products = [lambda dy=dy, w=w: dy.t().mm(c).to(w.dtype)
+                    for dy, w in ((dk_nope, w_uk), (dv, w_uv))]
+        if ctx.store is not None:
+            ctx.store.extend(zip(ctx.leaves, products))
+            grads = (None, None)
+        else:
+            grads = tuple(p() if need else None for p, need in
+                          zip(products, ctx.needs_input_grad[2:4]))
+        return (dq, drows, *grads, None, None, None, None, None, None,
+                None, None, None)
+
+
+def mla_attention(cfg: ArchConfig, p: Dict, q, rows, seg_q, seg_kv, pos_q,
+                  pos_kv, *, causal: bool = True, window: int = 0,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """MLA's attention over latent rows ``[S, 1, r + rr]`` (the carry's
+    and the chunk's) for queries ``q [T, Hq, Dh + rr]``: the same as
+    ``flash_attention(q, *mla_expand_ctx(cfg, p, rows), ...)``, ``[T, Hq,
+    Dh]``; under autograd one function that keeps the latent rows, not the
+    expanded keys and values (:class:`_MLAAttention`)."""
+    from repro_torch.kernels.ops import flash_attention
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, rows, p["w_uk"], p["w_uv"])):
+        s = cfg.spec
+        return _MLAAttention.apply(q, rows, p["w_uk"], p["w_uv"], seg_q,
+                                   seg_kv, pos_q, pos_kv, s.n_heads,
+                                   s.head_dim, causal, int(window), scale)
+    k, v = mla_expand_ctx(cfg, p, rows)
+    return flash_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv,
+                           causal=causal, window=window, scale=scale)
 
 
 def _append(buf: torch.Tensor, rows: torch.Tensor, offset: int
@@ -77,17 +206,21 @@ def make_local_attention_policy() -> Callable:
     has room for them, else that very concatenation (a carry that grows
     with its sequence, as the training steps' do: they start each one
     empty, so each chunk keeps its context once, in the keys its
-    attention saves)."""
+    attention saves). MLA: the carry and the chunk's rows are latent rows
+    (``ctx_v`` and ``v_cur`` None), which ``mla_fn`` (:func:`mla_attention`
+    with the layer's weights) attends in place of the kernel dispatch."""
     from repro_torch.kernels.flash_attention import BLOCK_KV
     from repro_torch.kernels.ops import flash_attention
 
     def policy(q, k_cur, v_cur, *, seg, pos, ctx_k, ctx_v, ctx_len,
-               causal, window, scale):
+               causal, window, scale, mla_fn=None):
         if ctx_k is not None:
             C, T = int(ctx_len), k_cur.shape[0]
             pad = -(C + T) % BLOCK_KV
 
             def keys(ctx, cur):
+                if ctx is None:
+                    return None
                 return torch.cat([ctx[:C], cur.to(ctx.dtype),
                                   ctx.new_zeros((pad, *ctx.shape[1:]))])
             kk, vv = keys(ctx_k, k_cur), keys(ctx_v, v_cur)
@@ -100,12 +233,15 @@ def make_local_attention_policy() -> Callable:
                 new_k, new_v = kk, vv
             else:
                 new_k = _append(ctx_k, k_cur, C)
-                new_v = _append(ctx_v, v_cur, C)
+                new_v = None if ctx_v is None else _append(ctx_v, v_cur, C)
         else:
             kk, vv, kv_seg, kv_pos = k_cur, v_cur, seg, pos
             new_k = new_v = None
-        out = flash_attention(q, kk, vv, seg, kv_seg, pos, kv_pos,
-                              causal=causal, window=window, scale=scale)
+        opts = dict(causal=causal, window=window, scale=scale)
+        if mla_fn is None:
+            out = flash_attention(q, kk, vv, seg, kv_seg, pos, kv_pos, **opts)
+        else:
+            out = mla_fn(q, kk, seg, kv_seg, pos, kv_pos, **opts)
         return out, new_k, new_v
 
     return policy
@@ -120,12 +256,20 @@ def attention_block(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                Optional[torch.Tensor]]:
     """Returns (block_out [T, D], new_ctx_k, new_ctx_v). ``rope``: the
-    chunk's ``layers.rope_tables``, if the caller has them."""
+    chunk's ``layers.rope_tables``, if the caller has them. MLA scales the
+    scores by ``1/sqrt(Dh + rr)``, its keys' width; its output is the
+    values' ``Dh`` columns."""
+    s = cfg.spec
     T = x.shape[0]
     q, k_cur, v_cur = project_qkv(cfg, p, x, pos, rope)
-    scale = 1.0 / math.sqrt(cfg.spec.head_dim)
+    scale = 1.0 / math.sqrt(s.head_dim)
+    mla_fn = None
+    if s.kv_lora_rank > 0:
+        scale = 1.0 / math.sqrt(s.head_dim + s.qk_rope_dim)
+        mla_fn = functools.partial(mla_attention, cfg, p)
     out, new_k, new_v = attn_fn(
         q, k_cur, v_cur, seg=seg, pos=pos, ctx_k=ctx_k, ctx_v=ctx_v,
-        ctx_len=ctx_len, causal=causal, window=window, scale=scale)
+        ctx_len=ctx_len, causal=causal, window=window, scale=scale,
+        mla_fn=mla_fn)
     y = linear(out.reshape(T, -1), p["wo"])
     return y, new_k, new_v

@@ -17,8 +17,9 @@ Layer kinds (as the reference's ``layer_apply``): ``ATTN`` (attention,
 then the SwiGLU MLP), ``MOE`` (attention, then the MoE block of
 :mod:`.moe`; olmoe), ``MAMBA`` (the mamba mixer alone, falcon-mamba) and
 ``HYBRID`` (attention and the mamba mixer in parallel on the same normed
-input, averaged, then the MLP; hymba). MLA and encoder-decoder models are
-not ported.
+input, averaged, then the MLP; hymba). Attention is GQA or MLA
+(deepseek-v2-lite, whose carry holds latent rows). Encoder-decoder models
+are not ported.
 
 The loss head (:meth:`DecoderLM.chunk_loss`) runs the final norm and the
 fused streaming cross-entropy (kernels B, C1, C2 on the card).
@@ -49,7 +50,10 @@ class LayerCtx(NamedTuple):
     and the whole carry is None for a context-free run.
 
     * ``k``, ``v``: KV buffers ``[C_cap, Hkv, Dh]`` (attention layers), in
-      the compute dtype; a chunk appends its rows at its context length;
+      the compute dtype; a chunk appends its rows at its context length.
+      MLA: ``k`` holds the latent rows ``[C_cap, 1, r + rr]`` and ``v`` is
+      None (the reference's zero-width buffer: no values, and no leaf for
+      the carry's gradient hand-off);
     * ``ssm_h``: the mamba state ``[d_inner, d_state]``, float32;
     * ``ssm_tail``: the last ``d_conv - 1`` conv inputs ``[d_conv - 1,
       d_inner]``, in the compute dtype.
@@ -128,13 +132,13 @@ class DecoderLM:
         ssm = kind in (LayerKind.MAMBA, LayerKind.HYBRID)
         if (kind not in (LayerKind.ATTN, LayerKind.MOE, LayerKind.MAMBA,
                          LayerKind.HYBRID)
-                or s.kv_lora_rank or s.is_encoder_decoder
+                or s.is_encoder_decoder
                 or ssm != (s.ssm_state > 0)
                 or s.attn_free != (kind == LayerKind.MAMBA)
                 or (kind == LayerKind.MOE) != (s.n_experts > 0)):
             raise NotImplementedError(
-                f"{cfg.name}: only dense attention, MoE, mamba and hybrid "
-                f"decoders are ported (not MLA or encoder-decoder)")
+                f"{cfg.name}: only dense attention, MLA, MoE, mamba and "
+                f"hybrid decoders are ported (not encoder-decoder)")
         self.cfg = cfg
         self.has_attn = kind != LayerKind.MAMBA
         self.has_ssm = ssm
@@ -147,12 +151,15 @@ class DecoderLM:
         fan-in normal for dense weights, N(0, 0.02) embeddings, zero norm
         offsets), drawn from ``gen`` on ``device`` (which the caller names:
         there is no default) — the numbers differ from ``jax.random``'s;
-        :mod:`repro_torch.weights` imports the reference's own."""
+        :mod:`repro_torch.weights` imports the reference's own. Each
+        layer is drawn, then copied into the stacked ``[L, ...]`` leaves:
+        the model's weights are held once (deepseek-v2-lite's 27 layers
+        take 31.6 GB in bf16)."""
         s = self.cfg.spec
         kw = dict(dtype=dtype, device=device)
         embed = embed_init(gen, s.vocab, s.d_model, **kw)
-        layers = []
-        for _ in range(s.n_layers):
+        layers = None
+        for i in range(s.n_layers):
             lp = {"ln1": torch.zeros((s.d_model,), **kw)}
             if self.has_attn:
                 lp["attn"] = init_attention(self.cfg, gen, **kw)
@@ -164,8 +171,13 @@ class DecoderLM:
                     lp["moe"] = init_moe(self.cfg, gen, **kw)
                 else:
                     lp["mlp"] = swiglu_init(gen, s.d_model, s.d_ff, **kw)
-            layers.append(lp)
-        params = {"embed": embed, "layers": _stack(layers),
+            if layers is None:
+                layers = tree_map(lambda a: a.new_empty((s.n_layers,
+                                                         *a.shape)), lp)
+            for dst, src in zip(tree_leaves(layers), tree_leaves(lp)):
+                dst[i] = src
+            del lp
+        params = {"embed": embed, "layers": layers,
                   "final_norm": torch.zeros((s.d_model,), **kw)}
         if not self.cfg.tie_embeddings:
             params["unembed"] = embed_init(gen, s.vocab, s.d_model, **kw)
@@ -248,12 +260,16 @@ class DecoderLM:
     def init_ctx(self, cap: int, compute_dtype=torch.bfloat16,
                  n_layers: Optional[int] = None, *, device) -> LayerCtx:
         """Stacked context carry (zeros): KV ``[L, cap, Hkv, Dh]`` for
-        attention layers, ``ssm_h [L, d_inner, d_state]`` (float32) and
-        ``ssm_tail [L, d_conv - 1, d_inner]`` for mamba layers."""
+        attention layers (MLA: latent rows ``[L, cap, 1, r + rr]``, no
+        values), ``ssm_h [L, d_inner, d_state]`` (float32) and ``ssm_tail
+        [L, d_conv - 1, d_inner]`` for mamba layers."""
         s = self.cfg.spec
         L = n_layers if n_layers is not None else s.n_layers
         k = v = hh = tail = None
-        if self.has_attn:
+        if self.has_attn and s.kv_lora_rank > 0:
+            k = torch.zeros((L, cap, 1, s.kv_lora_rank + s.qk_rope_dim),
+                            dtype=compute_dtype, device=device)
+        elif self.has_attn:
             shape = (L, cap, s.n_kv_heads, s.head_dim)
             k = torch.zeros(shape, dtype=compute_dtype, device=device)
             v = torch.zeros(shape, dtype=compute_dtype, device=device)
@@ -283,10 +299,12 @@ class DecoderLM:
                                ctx_len=ctx_len, remat=remat)
 
     def rope_tables(self, pos: torch.Tensor) -> Optional[Tuple]:
-        """The rotation tables of a chunk's positions, None without rope."""
+        """The rotation tables of a chunk's positions, None without rope
+        (MLA rotates only its ``qk_rope_dim`` rope channels)."""
+        s = self.cfg.spec
         if self.has_attn and self.cfg.rope_kind == "rope":
-            return rope_tables(pos, self.cfg.spec.head_dim,
-                               self.cfg.rope_theta)
+            dim = s.qk_rope_dim if s.kv_lora_rank > 0 else s.head_dim
+            return rope_tables(pos, dim, self.cfg.rope_theta)
         return None
 
     def run_layers(self, layers, x: torch.Tensor, seg: torch.Tensor,
@@ -335,11 +353,3 @@ class DecoderLM:
                                   ctx=LayerCtx(ctx_k, ctx_v, ctx_h, ctx_tail),
                                   ctx_len=ctx_len, window=window, rope=rope)
         return (x, *out)
-
-
-def _stack(layers):
-    """List of per-layer trees -> one tree of ``[L, ...]`` leaves."""
-    first = layers[0]
-    if isinstance(first, dict):
-        return {k: _stack([lp[k] for lp in layers]) for k in first}
-    return torch.stack(layers)

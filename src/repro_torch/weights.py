@@ -31,9 +31,9 @@ __all__ = ["DENSE_LEAVES", "from_jax", "to_stages", "from_stages"]
 # leaves stored [d_in, d_out] by the reference (the mamba mixer's conv_w
 # [d_conv, d_inner] is not a dense weight and keeps its layout; stacked
 # experts [E, d_in, d_out] swap their last two axes as one weight does)
-DENSE_LEAVES = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up",
-                          "w_down", "router", "in_proj", "x_proj",
-                          "dt_proj", "out_proj"})
+DENSE_LEAVES = frozenset({"wq", "wk", "wv", "wo", "w_dkv", "w_kr", "w_uk",
+                          "w_uv", "w_gate", "w_up", "w_down", "router",
+                          "in_proj", "x_proj", "dt_proj", "out_proj"})
 
 
 def _convert(tree: Mapping[str, Any], fn, name: str = ""):

@@ -25,6 +25,7 @@ from repro.kernels.cross_entropy import (cross_entropy_bwd_dh_pallas,
 from repro.kernels.ops import fused_cross_entropy as jfused
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from test_torch_threads import torch_thread_share  # noqa: F401
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

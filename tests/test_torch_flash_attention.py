@@ -44,6 +44,7 @@ from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import FWD_BLOCK, tile_counts
+from test_torch_threads import torch_thread_share  # noqa: F401
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}

@@ -1,5 +1,6 @@
 """The port on the card: the CUDA kernels against their plain versions
-(flash attention forward, its log-sum-exp, backward and tile ranges;
+(flash attention forward, its log-sum-exp, backward and tile ranges, at
+equal key and value widths and at MLA's q/k 192, v 128;
 cross-entropy B, C1, C2; the selective scan D and its gradient D', ungated
 and with the mamba mixer's prologue and gate), the engine on CUDA against
 the engine on the CPU, and one reduced training step on CUDA against the
@@ -153,7 +154,8 @@ def _fwd_mma(q, k, v, meta, window, n_split, with_lse=True):
     tiles = ops._fwd_tiles(padded, True, window)
     if n_split == 1:
         T = padded[0].shape[0]
-        out = torch.empty_like(padded[0])
+        out = padded[0].new_empty((*padded[0].shape[:2],
+                                   padded[2].shape[2]))
         lse = torch.empty((q.shape[1], T), dtype=torch.float32,
                           device=q.device)
         flash_attention_cuda._launch(*padded, out, None, None, lse, 1, True,
@@ -276,11 +278,13 @@ def _close(got, want, dtype):
     return float(err.max())
 
 
-def _bwd_chunk(rng, dev, dtype, Hq, Hkv, Dh, C, T=333, stale=40):
+def _bwd_chunk(rng, dev, dtype, Hq, Hkv, Dh, C, T=333, stale=40, Dv=None):
     """A training chunk with context rows: ``C`` valid context rows of
     segment 0, ``stale`` carry rows beyond ``ctx_len`` (seg -1), then a
     packed chunk of ``T`` rows in 3 sequences whose last 5 rows are
-    padding. Returns q, k, v, dout and the metadata, on ``dev``."""
+    padding. Returns q, k, v, dout and the metadata, on ``dev``; q and k
+    are ``Dh`` wide, v and dout ``Dv`` (default ``Dh``)."""
+    Dv = Dv or Dh
     seg_q, pos_q = _packed(rng, T, 3, ctx=C)
     seg_q[-5:] = -1
     seg_kv = np.concatenate([np.zeros(C, np.int32),
@@ -291,10 +295,10 @@ def _bwd_chunk(rng, dev, dtype, Hq, Hkv, Dh, C, T=333, stale=40):
         return torch.from_numpy(rng.standard_normal(s).astype(
             np.float32)).to(dev, dtype)
     S = C + stale + T
-    q, k, v = mk(T, Hq, Dh), mk(S, Hkv, Dh), mk(S, Hkv, Dh)
+    q, k, v = mk(T, Hq, Dh), mk(S, Hkv, Dh), mk(S, Hkv, Dv)
     meta = [torch.from_numpy(a).to(dev) for a in
             (seg_q, seg_kv, pos_q, pos_kv)]
-    return q, k, v, mk(T, Hq, Dh), meta
+    return q, k, v, mk(T, Hq, Dv), meta
 
 
 # (Hq, Hkv, Dh, window, C): GQA groups 1, 3, 4 and 5 at Dh 64, 128 and 256;
@@ -391,6 +395,111 @@ def test_attention_backward_is_deterministic(dtype, Hq, Hkv, Dh, window, C):
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# deepseek-v2-lite's MLA attention as kernel A sees it: 16 query heads,
+# each its own KV head after the latent expansion, keys 192 wide (128 +
+# 64 rope channels), values 128; a carry of 720 rows in front
+MLA = dict(Hq=16, Hkv=16, Dh=192, Dv=128, window=0, C=720)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_attention_matches_plain(dtype):
+    """At key width 192 and value width 128 (``flash_*_kernel<192, 128>``,
+    nothing padded to a wider head): the op's forward, its lse and both
+    backward passes against the plain versions; stale and padding rows get
+    exact zero gradients; two more launches of each pass give the same
+    bits."""
+    dev = _cuda()
+    from repro_torch.kernels.flash_attention import (BWD_BLOCK,
+                                                     flash_attention_cuda,
+                                                     flash_bwd_dkdv_cuda,
+                                                     flash_bwd_dq_cuda)
+    m = MLA
+    rng = np.random.default_rng(192)
+    stale = 40
+    q, k, v, dout, meta = _bwd_chunk(rng, dev, dtype, m["Hq"], m["Hkv"],
+                                     m["Dh"], m["C"], stale=stale, Dv=m["Dv"])
+    qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    scale = m["Dh"] ** -0.5
+    out = ops.flash_attention(qq, kk, vv, *meta, scale=scale)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (q.shape[0], m["Hq"], m["Dv"])
+    _close(out, ref.flash_attention_reference(q, k, v, *meta, scale=scale),
+           dtype)
+    grads = ref.flash_attention_grad(q.float(), k.float(), v.float(), *meta,
+                                     dout.float(), scale=scale)
+    for got, w in zip((qq.grad, kk.grad, vv.grad), grads):
+        assert got.dtype == dtype and got.shape == w.shape
+        _close(got, w, dtype)
+    for g in (kk.grad, vv.grad):
+        assert torch.count_nonzero(g[m["C"]:m["C"] + stale]) == 0
+    assert torch.count_nonzero(qq.grad[-5:]) == 0
+    padded = ops.pad_for_kernel(q, k, v, *meta)
+    out, lse = flash_attention_cuda(*padded, scale=scale, with_lse=True,
+                                    tiles=ops._fwd_tiles(padded, True, 0))
+    want_lse = ref.flash_attention_lse(*padded[:2], *padded[3:], scale=scale)
+    live = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), live)
+    _close(lse[live], want_lse[live], torch.float32)
+    do = ops.pad_rows(dout, 32).contiguous()
+    pm = padded[3:]
+    tiles = ops.bwd_tiles(*pm, block=BWD_BLOCK[dtype])
+    runs = []
+    for _ in range(2):
+        delta = torch.empty_like(lse)
+        dq = flash_bwd_dq_cuda(*padded[:3], out, do, lse, *pm, scale=scale,
+                               delta=delta, tiles=tiles)
+        dk, dv = flash_bwd_dkdv_cuda(*padded[:3], out, do, lse, *pm,
+                                     scale=scale, delta=delta, tiles=tiles)
+        runs.append((dq, dk, dv, delta))
+    torch.cuda.synchronize()
+    assert runs[0][2].shape[-1] == m["Dv"] and runs[0][1].shape[-1] == m["Dh"]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_split", [1, 3, 16])
+def test_mla_fwd_mma_matches_plain(n_split):
+    """``flash_fwd_mma_kernel<192, 128>`` unsplit and split into 3 and 16
+    pieces of each query tile's range (the split workspace and the merge
+    pass 128 wide), against the plain output and lse; two more launches
+    give the same bits."""
+    dev = _cuda()
+    m = MLA
+    rng = np.random.default_rng(128 + n_split)
+    q, k, v, _, meta = _bwd_chunk(rng, dev, torch.bfloat16, m["Hq"],
+                                  m["Hkv"], m["Dh"], m["C"], Dv=m["Dv"])
+    padded, out, lse = _fwd_mma(q, k, v, meta, 0, n_split)
+    T = q.shape[0]
+    want = ref.flash_attention_reference(q, k, v, *meta)
+    _close(out[:T], want, torch.bfloat16)
+    assert torch.count_nonzero(out[T - 5:]) == 0
+    want_lse = ref.flash_attention_lse(*padded[:2], *padded[3:])
+    live = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), live)
+    _close(lse[live], want_lse[live], torch.float32)
+    again = [_fwd_mma(q, k, v, meta, 0, n_split)[1:] for _ in range(2)]
+    torch.cuda.synchronize()
+    for o2, l2 in again:
+        assert torch.equal(o2, out) and torch.equal(l2, lse)
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_width_pairs_it_lacks():
+    """Only the instantiated (key, value) widths launch: (192, 192),
+    (128, 192) and (192, 64) raise, with nothing padded."""
+    dev = _cuda()
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    seg = torch.zeros(32, dtype=torch.int32, device=dev)
+    for dk, dv in ((192, 192), (128, 192), (192, 64)):
+        q = torch.zeros((32, 2, dk), device=dev)
+        v = torch.zeros((32, 2, dv), device=dev)
+        with pytest.raises(ValueError, match="widths"):
+            flash_attention_cuda(q, q, v, seg, seg, seg, seg)
 
 
 @pytest.mark.gpu

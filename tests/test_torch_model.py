@@ -30,6 +30,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models.model import LayerCtx, unstack_layers
 from repro_torch.weights import DENSE_LEAVES, from_jax, from_stages, to_stages
+from test_torch_threads import torch_thread_share  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

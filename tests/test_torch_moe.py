@@ -38,25 +38,14 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models.layers import deferred_weight_grads
 from repro_torch.models.model import tree_leaves
 from repro_torch.weights import DENSE_LEAVES
+from test_torch_threads import torch_thread_share  # noqa: F401
 
 JAX_TOL = dict(rtol=1e-5, atol=1e-6)
 
 
-def _deepseek_moe_cfgs():
-    """deepseek-v2-lite reduced, its MoE fields only (the port's registry
-    has no MLA arch): 4 experts, top-2, 1 shared expert."""
-    jcfg = jax_get_arch("deepseek-v2-lite").reduced()
-    s = jcfg.spec
-    base = get_arch("olmoe-1b-7b").reduced()
-    spec = dataclasses.replace(
-        base.spec, n_experts=s.n_experts, top_k=s.top_k,
-        n_shared_experts=s.n_shared_experts, d_ff_expert=s.d_ff_expert)
-    return jcfg, dataclasses.replace(base, spec=spec)
-
-
 def _cfgs(name):
-    if name == "deepseek-v2-lite":
-        return _deepseek_moe_cfgs()
+    """The JAX and port configs of ``name`` reduced (deepseek-v2-lite: 4
+    experts, top-2, 1 shared expert)."""
     if name == "olmoe-wide":
         kw = dict(n_experts=16, top_k=4)
         j, t = (c.reduced() for c in (jax_get_arch("olmoe-1b-7b"),

@@ -31,6 +31,12 @@ there too).
 * three planted faults fall outside those limits;
 * the CLI runs ``--mesh 2x1`` and pins the schedule's ``v``; ``--mesh
   2x2`` raises.
+
+The per-arch gradient cases (against the whole sequences, the split's and
+the remat table's bits), the MoE cases and the planted faults run from
+``tests/test_torch_pipeline_{gemma,hymba,hymba4,moe}.py``, which import
+this file's cases and checks: each file computes its arch's whole-sequence
+oracle and runs once, and the files run side by side under ``pytest -n``.
 """
 
 import functools
@@ -60,6 +66,7 @@ from repro_torch.runtime.pipeline import PipelineGeometry, PipelineStage
 from repro_torch.runtime.program import Action, stage_programs
 from repro_torch.runtime.train_step import ChunkedTrainer, PipelineTrainer
 from repro_torch.weights import DENSE_LEAVES, from_jax
+from test_torch_threads import torch_thread_share  # noqa: F401
 
 SMALL = dict(d_model=64, n_heads=4, head_dim=16, vocab=256)
 ARCHS = ("gemma3-1b", "hymba-1.5b")
@@ -363,11 +370,9 @@ def test_reduced_plans_split_a_sequence_and_remat_every_stage():
             assert all(any(row) for row in plan.ckpt_table())
 
 
-@pytest.mark.parametrize("split", [False, True], ids=["fused", "split"])
-@pytest.mark.parametrize("sched", SCHEDULES)
-@pytest.mark.parametrize("d_p", [2, 4])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_pipeline_matches_whole_sequences(arch, d_p, sched, split):
+def check_whole_sequences(arch, d_p, sched, split):
+    """``test_pipeline_matches_whole_sequences`` (run from the per-arch
+    files)."""
     res = _run(arch, d_p, sched, split)
     assert res.remat_layers > 0
     assert res.pipeline["handoffs"] > 0
@@ -385,18 +390,14 @@ def test_pipeline_matches_whole_sequences(arch, d_p, sched, split):
 # ---------------------------------------------------------------------------
 # bit for bit
 
-@pytest.mark.parametrize("sched", SCHEDULES)
-@pytest.mark.parametrize("d_p", [2, 4])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_split_backward_is_the_fused_one(arch, d_p, sched):
+def check_split_is_fused(arch, d_p, sched):
+    """``test_split_backward_is_the_fused_one``."""
     assert _bitwise(_run(arch, d_p, sched, True),
                     _run(arch, d_p, sched, False))
 
 
-@pytest.mark.parametrize("sched", ["interleaved-1f1b", "zero-bubble-h1"])
-@pytest.mark.parametrize("d_p", [2, 4])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_remat_table_does_not_change_the_bits(arch, d_p, sched):
+def check_remat_table_bits(arch, d_p, sched):
+    """``test_remat_table_does_not_change_the_bits``."""
     base = _run(arch, d_p, sched, sched == "zero-bubble-h1")
     zeroed = _run(arch, d_p, sched, sched == "zero-bubble-h1", "none")
     # (the interleaved order still remats the forwards it takes past a
@@ -425,9 +426,8 @@ def test_one_stage_is_the_chunked_trainer(arch, split):
 MOE = "olmoe-1b-7b"
 
 
-@pytest.mark.parametrize("sched,split", [("gpipe-1f1b", False),
-                                         ("zero-bubble-h1", True)])
-def test_moe_pipeline_equals_the_chunked_trainer(sched, split):
+def check_moe_pipeline(sched, split):
+    """``test_moe_pipeline_equals_the_chunked_trainer``."""
     _, cfg, lens, corpus, raw = _case(MOE)
     _, plan = _plan(cfg, lens, 2)
     assert max(s.n_chunks for s in plan.sequences) >= 3
@@ -445,7 +445,8 @@ def test_moe_pipeline_equals_the_chunked_trainer(sched, split):
     assert ok, (rel, worst)
 
 
-def test_moe_split_backward_is_the_fused_one():
+def check_moe_split_is_fused():
+    """``test_moe_split_backward_is_the_fused_one``."""
     assert _bitwise(_run(MOE, 2, "zero-bubble-h1", True),
                     _run(MOE, 2, "zero-bubble-h1", False))
 
@@ -518,10 +519,12 @@ def _fault_run(fault):
             setattr(obj, name, old)
 
 
-@pytest.mark.parametrize("fault", ["stream gradient dropped",
-                                   "tied gradient dropped",
-                                   "wrong virtual stage"])
-def test_planted_faults_fall_outside_the_limits(fault):
+FAULTS = ("stream gradient dropped", "tied gradient dropped",
+          "wrong virtual stage")
+
+
+def check_fault_caught(fault):
+    """``test_planted_faults_fall_outside_the_limits``."""
     assert _within(_run("hymba-1.5b", 2, "zero-bubble-h1", True),
                    "hymba-1.5b")[2]
     rel, worst, ok = _within(_fault_run(fault), "hymba-1.5b")

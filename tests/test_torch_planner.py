@@ -25,6 +25,7 @@ from repro.data.synth import PRESETS
 from repro_torch.core import ClusterSpec, CostModel, ModelSpec, \
     PlannerConfig, plan_batch
 from repro_torch.data import materialize_plan, sample_corpus_batch
+from test_torch_threads import torch_thread_share  # noqa: F401
 
 # the hardware fields of the port's H100 default, given to both packages
 HW = dict(flops_per_chip=989e12, hbm_bytes=80e9, hbm_bw=3.35e12, mfu=0.5,

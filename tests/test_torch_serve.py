@@ -29,6 +29,7 @@ from repro_torch.core import ClusterSpec, CostModel, prompt_slices
 from repro_torch.serve.engine import (EngineConfig, Request, ServeEngine,
                                       one_shot_generate)
 from repro_torch.weights import from_jax
+from test_torch_threads import torch_thread_share  # noqa: F401
 
 ARCHS = {"gemma3-1b": dict(n_layers=6), "llama3.2-3b": dict(),
          "olmoe-1b-7b": dict()}

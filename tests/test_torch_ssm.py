@@ -42,6 +42,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import DecoderLM, layer_params
 from repro_torch.models import ssm as tssm
 from repro_torch.weights import DENSE_LEAVES, from_jax
+from test_torch_threads import torch_thread_share  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 GTOL = dict(rtol=1e-4, atol=1e-6)
