@@ -225,11 +225,64 @@ exit and no result line):
            every id in the vocabulary, A's forward, its tile ranges (and
            the merge pass, where the keys split) 27 times a forward, no
            plain call;
-  kernels  every kernel of the port with its launch counts in serve,
-           train, train_hymba, the verify phases' chunked step (the
-           float32 forward, B, C1 and C2 run only there), the two
-           pipeline phases, serve_moe, train_moe, train_verify_moe and the
-           three MLA phases.
+  kernel_dense  kernels A and A′ at the widths the remaining decoder
+           families and the reduced configs need, as the attention
+           backward cases above: (160, 160) on train_stablelm's largest
+           chunk of step 0 (bf16, 32 query and 8 KV heads) and on
+           train_verify_stablelm's largest chunk with its carry (float32);
+           (32, 32) on fig11's 1,024-token sequence and (16, 16) on fig13's
+           largest chunk (4 query, 2 KV heads; bf16 and float32; the keys
+           split and merged); bf16 A′ on random 1,024-row sequences at
+           widths 16 and 64 (RANDOM_BWD_CASES: the draws that a bf16
+           Delta took furthest out); the forward with no gradient and the merge
+           pass alone at (160, 160) on a 256-row step; B, C1, C2 at
+           qwen3-4b's, qwen2-vl-7b's and stablelm-12b's heads (D 2,560,
+           3,584, 5,120: C1 and C2 in clusters of 7, 8 and 14 CTAs) on
+           each train phase's largest chunk of step 0 (bf16), and float32
+           on train_verify_stablelm's chunk; C1's and C2's cluster
+           occupancy (``cudaOccupancyMaxActiveClusters``) at every hidden
+           width of the registry (the phase fails where it is 0);
+  train_qwen3, train_stablelm, train_vl  qwen3-4b (qk-norm), stablelm-12b
+           (heads of 160, untied head) and qwen2-vl-7b (M-RoPE at text
+           positions, untied head) at full width, cut to the most layers
+           whose plans for train's batches the planner estimates under 72
+           GB (TRAIN_LAYERS: 15 of 36, 4 of 40, 5 of 28), bf16 with a
+           float32 AdamW master, 3 steps on the train phase's batches:
+           every loss finite, every step's peak at or under the plan's
+           estimate, launches as planned, no plain call;
+  train_verify_qwen3, train_verify_stablelm, train_verify_vl  float32 at
+           the same depths on the verify sequences (one of 3,000 tokens
+           over 3 chunks, a packed chunk, a non-zero remat table): launches
+           as planned; the step with the table zeroed bitwise equal; one
+           unchunked forward and backward per sequence: the loss within
+           1e-5 relative, each gradient leaf within 3e-5 of its largest
+           value (DENSE_GRAD_LIMIT: the float32 floor, which the same
+           corpus packed with no split also reads, sits at 1e-5 at these
+           widths), the no-split run held to the same; the chunked and the
+           unchunked run each within the same limits of a float64 witness
+           (plain float64 attention and cross-entropy, no kernel); a
+           planted fault outside them
+           (qwen3-4b: the k-norm dropped; stablelm-12b: the KV carry's
+           gradient dropped at the hand-off; qwen2-vl-7b: the M-RoPE table
+           built from each chunk's row index);
+  split_vl  qwen2-vl-7b at full width, float32, train_vl's depth: one
+           sequence of 256 patch embeddings from the vision stub (a 16 x 16
+           grid) in place of token embeddings at ``mrope_positions_stub``'s
+           3-D positions, then 1,792 text tokens, as two chunks with the KV
+           carry (cut inside the image span) against the unchunked forward,
+           within 1e-5 relative; at text positions on the image span, and
+           with its h and w position rows swapped, outside it;
+  serve_qwen3  qwen3-4b at full width and depth (36 layers), bf16, served
+           as serve serves gemma3-1b: every request completes, A's forward
+           and its tile ranges 36 times per engine step;
+  generate_dense  stablelm-12b (40 layers) and qwen2-vl-7b (28) at full
+           width and depth, bf16, made layer by layer, as generate_mla:
+           ``one_shot_generate`` on serve's first 2 requests cut to 512
+           prompt tokens, 4 new tokens each; ids in the vocabulary,
+           launches as predicted, no plain call;
+  kernels  every kernel of the port with its launch counts on every path
+           above (the verify phases' chunked step: the float32 forward, B,
+           C1 and C2 run only there).
 
 The last two lines are the kernels JSON and the device JSON.
 """
@@ -479,7 +532,8 @@ def _kernel_case(name, segments, Hq, Hkv, D, window, dtype, dev, seed,
     return rec
 
 
-def _combine_case(name, segments, Hq, Hkv, D, window, dtype, dev, seed):
+def _combine_case(name, segments, Hq, Hkv, D, window, dtype, dev, seed,
+                  n_items=4, cap_t=512):
     """The merge pass alone, on the split pass's partial states of one
     engine-step case, against :func:`ref.combine_partials`."""
     import torch
@@ -490,8 +544,8 @@ def _combine_case(name, segments, Hq, Hkv, D, window, dtype, dev, seed):
                                                      flash_combine_cuda,
                                                      kv_splits)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v, meta = _engine_like(gen, segments, 4, 512, Hq, Hkv, D, dtype,
-                                 dev, window)
+    q, k, v, meta = _engine_like(gen, segments, n_items, cap_t, Hq, Hkv, D,
+                                 dtype, dev, window)
     padded = ops.pad_for_kernel(q, k, v, *meta)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     n_split = kv_splits(padded[0].shape[0], padded[1].shape[0], Hq, n_sm,
@@ -748,9 +802,11 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
     # writes Delta), then the dk/dv pass; each timed alone, then both passes
     # launched twice more for the bitwise repeat check. The ranges and
     # summaries must equal their plain version's.
+    # (every timed function below has run on these inputs already, the
+    # library's backward excepted: no warm-up launch)
     block = BWD_BLOCK[dtype]
     tiles_ms = _cuda_ms(lambda: flash_bwd_tiles_cuda(
-        *pm, window=window, block=block), iters=5, warmup=1)
+        *pm, window=window, block=block), iters=5, warmup=0)
     tiles = flash_bwd_tiles_cuda(*pm, window=window, block=block)
     plain_tiles, tiles_plain_ms = _timed(lambda: ref.flash_attention_tiles(
         *pm, window=window, block=block))
@@ -761,9 +817,9 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
     bwd_args = (*padded[:3], out, do, lse, *pm)
     bwd_kw = dict(window=window, delta=torch.empty_like(lse), tiles=tiles)
     ms = {"dq": _cuda_ms(lambda: flash_bwd_dq_cuda(*bwd_args, **bwd_kw),
-                         iters=3, warmup=1),
+                         iters=3, warmup=0),
           "dkdv": _cuda_ms(lambda: flash_bwd_dkdv_cuda(*bwd_args, **bwd_kw),
-                           iters=3, warmup=1)}
+                           iters=3, warmup=0)}
     runs = []
     for _ in range(2):
         kw = dict(bwd_kw, delta=torch.empty_like(lse))
@@ -776,7 +832,7 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
         q[b], k, v, seg_q[b], seg_kv, pos_q[b], pos_kv, dout[b],
         window=window) for b in (slice(a, a + row_block) for a in
                                  range(0, T, row_block))],
-        iters=2, warmup=1)
+        iters=2, warmup=0)
     # live pairs, and the tile pairs (per head) that hold one at the passes'
     # tile size, over blocks of query rows
     S = k.shape[0]
@@ -823,14 +879,14 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
                            + size["o"] + size["k"] + size["v"]
                            + lse.numel() * 4
                            + sum(t.numel() * 4 for t in meta), dtype)
-    fwd_ms = _cuda_ms(forward, iters=3, warmup=1)
+    fwd_ms = _cuda_ms(forward, iters=3, warmup=0)
     fwd_plain_ms = _cuda_ms(lambda: [
         (ref.flash_attention_reference(q[b], k, v, seg_q[b], seg_kv,
                                        pos_q[b], pos_kv, window=window),
          ref.flash_attention_lse(q[b], k, seg_q[b], seg_kv, pos_q[b],
                                  pos_kv, window=window))
         for b in (slice(a, a + row_block) for a in range(0, T, row_block))],
-        iters=1, warmup=1)
+        iters=1, warmup=0)
     bound_ms, bound_by = bounds["all"]
     kernel_ms = ms["dkdv"] + ms["dq"]
     # the library yardstick: scaled_dot_product_attention with the boolean
@@ -858,7 +914,7 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
         library_why = f"{type(e).__name__}: {str(e).splitlines()[0][:240]}"
     library_fwd_ms = None
     if library_why is None:
-        library_fwd_ms = _cuda_ms(library_fwd, iters=3, warmup=1)
+        library_fwd_ms = _cuda_ms(library_fwd, iters=3, warmup=0)
     del mask, qe, ke, ve, de
     torch.cuda.empty_cache()
     rec = dict(case=name, dtype=_dtype_name(dtype), T=q.shape[0],
@@ -924,7 +980,9 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
 
 CE_HEADS = {"gemma3-1b": (1152, 262144), "llama3.2-3b": (3072, 128256),
             "hymba-1.5b": (1600, 32001), "olmoe-1b-7b": (2048, 50304),
-            "deepseek-v2-lite": (2048, 102400)}
+            "deepseek-v2-lite": (2048, 102400),
+            "qwen3-4b": (2560, 151936), "qwen2-vl-7b": (3584, 152064),
+            "stablelm-12b": (5120, 100352)}
 # the cross-entropy wrapper of each function (cross_entropy.KERNELS names
 # the kernel it launches by dtype)
 CE_WRAPPER = {"B": "fwd", "C1": "dh", "C2": "dw"}
@@ -934,8 +992,15 @@ TRAIN_BATCH, TRAIN_CONTEXT, TRAIN_STEPS = 8, 16384, 3
 # the train phases cut olmoe-1b-7b to 4 of its 16 layers, every width
 # kept: 16 layers' states take 125 GB, 4 take 34 GB of the card's 80;
 # deepseek-v2-lite to 4 of its 27 (states 49.7 GB; the plan's estimates for
-# train's batches 68.1 / 65.7 / 64.3 GB; 27 layers' states take 291 GB)
-TRAIN_LAYERS = {"olmoe-1b-7b": 4, "deepseek-v2-lite": 4}
+# train's batches 68.1 / 65.7 / 64.3 GB; 27 layers' states take 291 GB).
+# The dense families: each at the most layers whose plans for train's
+# three batches the planner estimates under 72 GB (of the card's 80): qwen3-
+# 4b 15 of 36 (41.3 GB of states; 70.7 / 72.0 / 71.0 GB; at 16 step 0's is
+# 72.5; 36 layers' states take 79.4), stablelm-12b 4 of 40 (38.5 GB; 68.7 /
+# 64.9 / 62.5; at 5 step 2's is 72.6), qwen2-vl-7b 5 of 28 (40.6 GB; 69.8 /
+# 71.1 / 71.7; at 6 step 0's is 72.7)
+TRAIN_LAYERS = {"olmoe-1b-7b": 4, "deepseek-v2-lite": 4, "qwen3-4b": 15,
+                "stablelm-12b": 4, "qwen2-vl-7b": 5}
 
 
 def _arch(name):
@@ -1048,8 +1113,9 @@ def _ce_case(arch, dtype, dev, seed, targets=None, case=None):
             caught[fault], inside = check(out)
             if inside:
                 missed.append(fault)
-        kernel_ms = _cuda_ms(kern[key], iters=2, warmup=1)
-        plain_ms = _cuda_ms(plain[key], iters=1, warmup=1)
+        # both have run on these inputs already: no warm-up launch
+        kernel_ms = _cuda_ms(kern[key], iters=2, warmup=0)
+        plain_ms = _cuda_ms(plain[key], iters=1, warmup=0)
         library_ms = library_bf16_ms = library_bf16_why = None
         if key == "B":      # the materialised-logits yardsticks
             library_ms = _cuda_ms(lambda: torch.logsumexp(
@@ -2902,14 +2968,16 @@ def phase_kernel_mla(dev, seed):
 GEN_REQUESTS, GEN_PROMPT, GEN_NEW = 2, 512, 4
 
 
-def phase_generate_mla(dev, seed):
-    """deepseek-v2-lite at full width and depth (27 layers of MLA and a
-    64-expert top-6 MoE block with 2 shared experts), bf16, random weights
-    from ``seed`` made layer by layer in bf16 (31.6 GB; a float32 copy
-    beside them would not fit): ``one_shot_generate`` on GEN_REQUESTS
-    requests, GEN_NEW tokens each. Every id lies in the vocabulary; each
-    forward launches A's forward and its tile ranges 27 times (the merge
-    pass 27 times where the keys split), no backward, no plain call."""
+def phase_generate(dev, seed, arch=MLA):
+    """``arch`` at full width and depth (deepseek-v2-lite: 27 layers of MLA
+    and a 64-expert top-6 MoE block with 2 shared experts; stablelm-12b:
+    40 dense layers with heads of 160; qwen2-vl-7b: 28 with M-RoPE at text
+    positions), bf16, random weights from ``seed`` made layer by layer in
+    bf16 (31.6, ~24 and ~15 GB; a float32 copy beside them would not
+    fit): ``one_shot_generate`` on GEN_REQUESTS requests, GEN_NEW tokens
+    each. Every id lies in the vocabulary; each forward launches A's
+    forward and its tile ranges once a layer (the merge pass once a layer
+    where the keys split), no backward, no plain call."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -2918,7 +2986,7 @@ def phase_generate_mla(dev, seed):
         kv_splits
     from repro_torch.models import DecoderLM
     from repro_torch.serve.engine import one_shot_generate
-    cfg = get_arch(MLA)
+    cfg = get_arch(arch)
     s = cfg.spec
     trace = sample_request_trace("github", 16, 4096, s.vocab, seed=0,
                                  max_new_tokens=32)
@@ -2967,6 +3035,540 @@ def phase_generate_mla(dev, seed):
 
 
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# the remaining decoder families: qwen3-4b (qk-norm), stablelm-12b (heads of
+# 160), qwen2-vl-7b (M-RoPE, the vision stub)
+# ---------------------------------------------------------------------------
+
+QWEN3, STABLELM, VL = "qwen3-4b", "stablelm-12b", "qwen2-vl-7b"
+# the plain attention's query rows per block at stablelm's 32 heads: its
+# [32, rows, S] float32 scores on a 47k-row train chunk take 3 GB a tensor
+DENSE_ROW_BLOCK = 512
+
+
+def _figure_chunks():
+    """The reduced widths' attention shapes (4 query heads, 2 KV heads):
+    fig11's longest measured sequence (1,024 tokens, one segment; llama3.2-3b
+    reduced to heads of 32) and the largest chunk of fig13's step-0 plan
+    (llama3.2-3b reduced to heads of 16: github batches of 6 x 512 at
+    vocabulary 256, K = 2 on a 2 x 2 cluster; its own segments and
+    positions, no carry, as fig13 runs its chunks). ``[(name, seg, pos, Dh,
+    drop)]``, ``drop`` 32 rows of a live tile inside segment 0."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
+                                  plan_batch)
+    from repro_torch.data import sample_corpus_batch
+    n = 1024
+    out = [("fig11 sequence (1024 tokens)", np.zeros(n, np.int32),
+            np.arange(n, dtype=np.int32), 32, slice(512, 544))]
+    cfg = get_arch("llama3.2-3b").reduced(n_layers=2, d_model=64, n_heads=4,
+                                          head_dim=16, vocab=256)
+    corpus = sample_corpus_batch("github", 6, 512, cfg.spec.vocab, seed=0)
+    plan = plan_batch(CostModel(cfg.spec, ClusterSpec(d_p=2, d_s=2)),
+                      [len(v) for v in corpus.values()],
+                      PlannerConfig(fixed_k=2, bucket_rounding=16))
+    chunk, _, seg, pos = _plan_chunks(corpus, plan)[0]
+    a0 = int((seg >= 0).argmax())
+    n0 = int((seg == seg[a0]).sum())
+    if n0 < 96:
+        raise PhaseError(f"fig13's largest chunk: segment 0 has {n0} rows")
+    r = a0 + n0 // 2 // 32 * 32
+    out.append((f"fig13 chunk ({chunk.tokens} tokens)", seg, pos, 16,
+                slice(r, r + 32)))
+    return out
+
+
+def _random_sequence(seed, Dh, dev, T=1024, Hq=4, Hkv=2):
+    """``inputs(gen, dtype)`` of one ``T``-row sequence (one segment,
+    positions 0..T-1): q, k, v and the output gradient drawn in that order
+    by ``torch.randn`` from a CPU generator seeded with ``seed`` (the
+    case's own generator is not used), cast to ``dtype``."""
+    import torch
+
+    def inputs(gen, dtype):
+        g = torch.Generator().manual_seed(seed)
+        shapes = ((T, Hq, Dh), (T, Hkv, Dh), (T, Hkv, Dh), (T, Hq, Dh))
+        q, k, v, do = (torch.randn(sh, generator=g).to(dtype).to(dev)
+                       for sh in shapes)
+        seg = torch.zeros(T, dtype=torch.int32, device=dev)
+        pos = torch.arange(T, dtype=torch.int32, device=dev)
+        return q, k, v, do, [seg, seg, pos, pos]
+    return inputs
+
+
+# bf16 A′ on random 1,024-row sequences, (width, seed): the draws on which
+# Delta taken from the bf16 output read 1.26x and 0.94x the bf16 TOL in a
+# CPU emulation of the kernel's roundings (the exact Delta: 0.66x, 0.41x)
+RANDOM_BWD_CASES = ((16, 4), (64, 1))
+
+
+def phase_kernel_dense(dev, seed):
+    """Kernels A and A′ at the widths this slice instantiated, as the
+    attention backward cases above: (160, 160) on train_stablelm's largest
+    chunk of step 0 (bf16; 32 query heads, 8 KV heads) and on
+    train_verify_stablelm's largest chunk with its carry in front
+    (float32); (32, 32) and (16, 16) at fig11's and fig13's reduced shapes
+    (:func:`_figure_chunks`; bf16 and float32, the keys split and merged).
+    The forward with no gradient at (160, 160) on a short step (256 query
+    rows: split keys, the merge pass at value width 160) and the merge pass
+    alone there. B, C1, C2 at the three heads (D 2,560 / V 151,936; 3,584 /
+    152,064; 5,120 / 100,352) on each train phase's largest chunk of step
+    0 (bf16; C1 and C2 in clusters of 7, 8 and 14 CTAs), and float32 on
+    train_verify_stablelm's chunk; C1's and C2's cluster occupancy
+    (``cudaOccupancyMaxActiveClusters``) at every head width of the
+    registry."""
+    import torch
+
+    from repro_torch.configs import arch_names, get_arch
+    from repro_torch.kernels.cross_entropy import (d_slice_width,
+                                                   max_active_clusters)
+    bf16, f32 = torch.bfloat16, torch.float32
+    s = _arch(STABLELM).spec
+    chunk, _, seg, pos = _train_chunks(seed, STABLELM)[0]
+    name = f"{STABLELM} train chunk ({chunk.tokens} tokens)"
+    a0 = int((seg >= 0).argmax())
+    n0 = int((seg == seg[a0]).sum())
+    r = a0 + min(1024, n0 // 2 // 32 * 32)
+    if n0 < 128:
+        raise PhaseError(f"{name}: segment 0 has {n0} rows")
+
+    def from_plan(gen, dtype):
+        return _plan_chunk(gen, seg, pos, s.n_heads, s.n_kv_heads,
+                           s.head_dim, dtype, dev)
+    cases = [(f"{name} global", from_plan, slice(r, r + 32), 0, bf16,
+              DENSE_ROW_BLOCK),
+             (*_verify_attn_case(STABLELM, "train_verify_stablelm", seed,
+                                 dev), 0, f32, DENSE_ROW_BLOCK)]
+    for tag, fseg, fpos, dh, drop in _figure_chunks():
+        for dtype in (bf16, f32):
+            cases.append((tag, lambda gen, dtype, fseg=fseg, fpos=fpos,
+                          dh=dh: _plan_chunk(gen, fseg, fpos, 4, 2, dh, dtype,
+                                             dev),
+                          drop, 0, dtype, ATTN_ROW_BLOCK))
+    for dh, s_ in RANDOM_BWD_CASES:
+        cases.append((f"random 1024-row sequence (width {dh}, seed {s_})",
+                      _random_sequence(s_, dh, dev), slice(512, 544), 0,
+                      bf16, ATTN_ROW_BLOCK))
+    bwd = []
+    for *args, rows in cases:
+        bwd.append(_attn_bwd_case(*args, dev, 51 + len(bwd), row_block=rows))
+        print(f"[kernel] attention backward {json.dumps(bwd[-1])}",
+              flush=True)
+        torch.cuda.empty_cache()
+    # a short step of stablelm's heads: 4 query tiles x 32 heads do not
+    # fill the card, so the keys split and the merge pass runs at 160
+    step = [(1536, 128), (0, 100)] + [(400 + 200 * i, 1) for i in range(8)]
+    fwd = _kernel_case(f"{STABLELM} short step (256 rows)", step, s.n_heads,
+                       s.n_kv_heads, s.head_dim, 0, bf16, dev, 61,
+                       n_items=1, cap_t=256)
+    print(f"[kernel] {json.dumps(fwd)}", flush=True)
+    merge = _combine_case(f"{STABLELM} short step (256 rows)", step,
+                          s.n_heads, s.n_kv_heads, s.head_dim, 0, bf16, dev,
+                          61, n_items=1, cap_t=256)
+    print(f"[kernel] merge pass {json.dumps(merge)}", flush=True)
+    ce = []
+    for i, arch in enumerate((QWEN3, VL, STABLELM)):
+        c, tgt = _train_chunks(seed, arch)[0][:2]
+        ce.append(_ce_case(arch, bf16, dev, 62 + i,
+                           targets=torch.from_numpy(tgt),
+                           case=f"{arch} train chunk ({c.tokens} tokens)"))
+        for rec in ce[-1].values():
+            print(f"[kernel] cross-entropy {json.dumps(rec)}", flush=True)
+        torch.cuda.empty_cache()
+    v_chunk, v_tgt = _plan_chunks(*_verify_plan(STABLELM, seed)[1:])[0][:2]
+    ce.append(_ce_case(STABLELM, f32, dev, 65,
+                       targets=torch.from_numpy(v_tgt),
+                       case=f"train_verify_stablelm chunk ({v_chunk.tokens} "
+                            f"tokens)"))
+    for rec in ce[-1].values():
+        print(f"[kernel] cross-entropy {json.dumps(rec)}", flush=True)
+    torch.cuda.empty_cache()
+    occupancy = {}
+    for D in sorted({get_arch(a).spec.d_model for a in arch_names()}):
+        width = d_slice_width(D)
+        occupancy[str(D)] = {"slices": -(-D // width), "slice_width": width,
+                             **{k: max_active_clusters(k, D, dev)
+                                for k in ("dh", "dw")}}
+    if not all(o[k] >= 1 for o in occupancy.values() for k in ("dh", "dw")):
+        raise PhaseError(f"a C1 / C2 cluster cannot launch: {occupancy}")
+    return bwd, fwd, merge, ce, occupancy
+
+
+@contextlib.contextmanager
+def _dense_fault(trainer, fault):
+    """The trainer with one planted fault (undone on exit): ``"k-norm
+    dropped"`` (qwen3-4b) skips the k-norm of every layer; ``"dKV dropped
+    at the hand-off"`` detaches the KV carry each chunk hands on, so its
+    gradient never reaches the chunk that produced it; ``"M-RoPE at
+    chunk-local rows"`` (qwen2-vl-7b) builds each chunk's M-RoPE table from
+    its row index in place of its tokens' positions."""
+    import torch
+
+    from repro_torch.models import attention as attn_mod
+    model = trainer.model
+    if fault == "k-norm dropped":
+        norm = attn_mod.rms_norm
+        k_norms = {id(lp["attn"]["k_norm"]) for lp in trainer.params["layers"]}
+
+        def faulty(x, gamma, eps=1e-6):
+            return x if id(gamma) in k_norms else norm(x, gamma, eps)
+        attn_mod.rms_norm = faulty
+    elif fault == "dKV dropped at the hand-off":
+        fwd = model.forward_chunk
+
+        def faulty(*a, **kw):
+            hidden, out = fwd(*a, **kw)
+            if out is not None:
+                out = out._replace(**{f: [t.detach().requires_grad_(True)
+                                          for t in getattr(out, f)]
+                                      for f in ("k", "v")})
+            return hidden, out
+        model.forward_chunk = faulty
+    elif fault == "M-RoPE at chunk-local rows":
+        tables = model.rope_tables
+
+        def faulty(pos, positions3=None):
+            return tables(torch.arange(pos.shape[0], dtype=pos.dtype,
+                                       device=pos.device))
+        model.rope_tables = faulty
+    else:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        if fault == "k-norm dropped":
+            attn_mod.rms_norm = norm
+        for attr in ("forward_chunk", "rope_tables"):
+            model.__dict__.pop(attr, None)
+
+
+@contextlib.contextmanager
+def _plain_float64():
+    """The attention and cross-entropy dispatch of a model made inside it
+    replaced by plain float64 versions (undone on exit): for the float64
+    witness only, which no kernel takes. Attention: softmax over the
+    packed-varlen mask (``ref.attention_mask``), a row with no live key
+    0; cross-entropy: the full ``[T, V]`` logits, ``logsumexp`` minus the
+    target's."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    def attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv, *, causal=True,
+                  window=0, scale=None):
+        T, Hq, Dh = q.shape
+        Hkv = k.shape[1]
+        scale = scale if scale is not None else Dh ** -0.5
+        qg = q.reshape(T, Hkv, Hq // Hkv, Dh)
+        s = torch.einsum("tkgd,skd->kgts", qg, k) * scale
+        m = ref.attention_mask(seg_q, seg_kv, pos_q, pos_kv, causal,
+                               int(window))
+        s = torch.where(m, s, torch.full_like(s, ref.NEG_INF))
+        p = torch.where(m.any(dim=-1)[:, None], torch.softmax(s, dim=-1),
+                        torch.zeros_like(s))
+        return torch.einsum("kgts,skd->tkgd", p, v).reshape(T, Hq, -1)
+
+    def cross_entropy(hidden, w, targets, valid):
+        logits = hidden @ w.T
+        tl = logits.gather(1, targets[:, None].long())[:, 0]
+        vf = valid.to(hidden.dtype)
+        return ((torch.logsumexp(logits, dim=-1) - tl) * vf).sum(), vf.sum()
+    saved = ops.flash_attention, ops.fused_cross_entropy
+    ops.flash_attention, ops.fused_cross_entropy = attention, cross_entropy
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.fused_cross_entropy = saved
+
+
+def _float64_witness(cfg, params, corpus, dev):
+    """The verify step's loss and gradients in float64, independent of the
+    kernels: one forward and backward per sequence (as
+    ``ChunkedTrainer.sequence_loss_and_grads``, every layer under
+    checkpoint) through :func:`_plain_float64`'s attention and
+    cross-entropy, float64 products and sums throughout (the port's norms,
+    SwiGLU and rotary take their elementwise steps in float32: ~6e-8
+    each). ``(loss, gradient leaves on the host)``, in the leaf order of
+    ``ChunkedTrainer(cfg, params).params``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.model import (tree_leaves, tree_map,
+                                          unstack_layers)
+    from repro_torch.runtime.train_step import ROW_MULTIPLE
+    p64 = tree_map(lambda a: a.detach().to(dev, torch.float64, copy=True)
+                   .requires_grad_(True), unstack_layers(params))
+    n_valid = sum(max(len(t) - 1, 0) for t in corpus.values())
+    total = 0.0
+    with _plain_float64():
+        model = DecoderLM(cfg)
+        for sid in sorted(corpus):
+            toks = np.asarray(corpus[sid], np.int64)
+            n = len(toks)
+            rows = -(-n // ROW_MULTIPLE) * ROW_MULTIPLE
+            tgt = np.full(rows, -1, np.int64)
+            tgt[:n - 1] = toks[1:]
+            seg = np.full(rows, -1, np.int32)
+            seg[:n] = 0
+            pos = np.zeros(rows, np.int32)
+            pos[:n] = np.arange(n)
+            seg_t = torch.from_numpy(seg).to(dev)
+            hidden, _ = model.forward_chunk(
+                p64, torch.from_numpy(np.pad(toks, (0, rows - n))).to(dev),
+                seg_t, torch.from_numpy(pos).to(dev),
+                compute_dtype=torch.float64, remat=cfg.spec.n_layers)
+            loss, _ = model.chunk_loss(p64, hidden,
+                                       torch.from_numpy(tgt).to(dev), seg_t)
+            (loss / n_valid).backward()
+            total += float(loss.detach())
+    grads = [p.grad.cpu() for p in tree_leaves(p64)]
+    del p64
+    return total / n_valid, grads
+
+
+def _against_float64(run, witness, names):
+    """The largest relative difference of ``run``'s loss and of any of its
+    gradient leaves (max |diff| over the leaf's largest float64 value)
+    from :func:`_float64_witness`'s, and that leaf's name."""
+    loss64, grads64 = witness
+    from repro_torch.models.model import tree_leaves
+    worst, leaf = 0.0, 0
+    for i, (a, w) in enumerate(zip(tree_leaves(run.grads), grads64)):
+        w = w.to(a.device)
+        r = float((a.double() - w).abs().max()) / max(float(w.abs().max()),
+                                                      1e-300)
+        if r > worst:
+            worst, leaf = r, i
+    return {"loss_rel_diff": abs(run.loss - loss64) / abs(loss64),
+            "grad_max_rel_diff": worst, "grad_max_rel_diff_leaf": names[leaf]}
+
+
+# the dense verify phases' limit on each gradient leaf's relative
+# difference from one unchunked run per sequence. Set from the float32
+# floor at these widths (the weight gradients' sums over 4,700 rows, taken
+# per sequence or per chunk), read on the H100 three ways: the chunked
+# step against the unchunked run 1.06e-5 to 1.14e-5; the same corpus
+# packed into one chunk with no split (K = 1: no carry, no hand-off)
+# 9.5e-6 to 1.09e-5; and each float32 run against the float64 witness
+# (:func:`_float64_witness`, no kernel), which the phase reads and holds
+# to the same limit (PERF.md §6). Two float32 runs each that far from
+# the exact gradient can differ by the sum of the two. The faults read
+# 0.80 and above. The loss keeps VERIFY_LIMIT (readings 7e-8).
+DENSE_GRAD_LIMIT = 3e-5
+DENSE_FAULTS = {QWEN3: "k-norm dropped",
+                STABLELM: "dKV dropped at the hand-off",
+                VL: "M-RoPE at chunk-local rows"}
+
+
+def phase_train_verify_dense(dev, seed, arch):
+    """``arch`` in float32 at full width and the train phases' depth, on
+    the verify sequences (one of 3,000 tokens over 3 chunks; a packed
+    chunk; a non-zero remat table under the 2 GB budget):
+
+    * the chunked step launches the kernels as its plan predicts;
+    * the step with the table zeroed equals it bit for bit;
+    * one unchunked forward and backward per sequence agrees with it: the
+      loss within VERIFY_LIMIT, each gradient leaf within DENSE_GRAD_LIMIT
+      relative to its largest value; the same corpus planned with no split
+      (K = 1) is held to the same limits, and its reading shows the float32
+      floor of the comparison;
+    * the chunked step and the unchunked run each agree with the float64
+      witness (:func:`_float64_witness`, no kernel) within the same limits:
+      the floor read against an exact reference, not the program itself;
+    * the planted fault of DENSE_FAULTS falls outside those limits."""
+    import torch
+
+    from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
+                                  plan_batch)
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.runtime.train_step import ChunkedTrainer, remat_depths
+    cfg, corpus, plan = _verify_plan(arch, seed)
+    chunks = [c for p in plan.pipelines for c in p.chunks]
+    if max(s.n_chunks for s in plan.sequences) < 3 or not any(
+            c.kind.value == "hybrid" for c in chunks) or not any(
+            plan.ckpt_table()[0]):
+        raise PhaseError(f"the verify plan lacks a 3-chunk split, a packed "
+                         f"chunk or remat: {plan.ckpt_table()}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = DecoderLM(cfg).init(gen, device=dev)
+    t0 = time.perf_counter()
+    witness = _float64_witness(cfg, params, corpus, dev)
+    witness_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    tr = ChunkedTrainer(cfg, params, device=dev, compute_dtype=torch.float32)
+    del params
+    ctr = _train_counters()
+    expected = _expected_launches(cfg, plan, remat_depths(
+        plan, cfg.spec.n_layers), torch.float32)
+    _zero_counts(ctr)
+    base = tr.loss_and_grads(plan, corpus)
+    launches = {k: v for k, v in _read_counts(ctr).items() if k in expected}
+    out = {"layers": cfg.spec.n_layers,
+           "chunks": [(c.kind.value, c.context, c.tokens) for c in chunks],
+           "remat_table": plan.ckpt_table()[0], "launches": launches,
+           "loss": base.loss, "limit": VERIFY_LIMIT}
+    if launches != expected:
+        raise PhaseError(f"launch counts with remat (got, expected): "
+                         f"{launches}, {expected}")
+    zeroed = tr.loss_and_grads(plan, corpus, remat_policy="none")
+    same = zeroed.loss == base.loss and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(zeroed.grads),
+                                          tree_leaves(base.grads)))
+    out["table zeroed"] = {"loss": zeroed.loss, "bitwise_equal": same}
+    del zeroed
+    if not same:
+        raise PhaseError(f"the remat-zeroed step is not bitwise equal: {out}")
+    whole = tr.sequence_loss_and_grads(corpus)
+    names = _leaf_names(tr.params)
+
+    def against_whole(run):
+        worst, leaf = 0.0, 0
+        for i, (a, b) in enumerate(zip(tree_leaves(run.grads),
+                                       tree_leaves(whole.grads))):
+            r = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                 1e-30)
+            if r > worst:
+                worst, leaf = r, i
+        rel = abs(run.loss - whole.loss) / abs(whole.loss)
+        return {"loss": run.loss, "loss_rel_diff": rel,
+                "grad_max_rel_diff": worst,
+                "grad_max_rel_diff_leaf": names[leaf],
+                "within": rel <= VERIFY_LIMIT and worst <= DENSE_GRAD_LIMIT
+                and run.n_valid == whole.n_valid}
+    out["unchunked"] = dict(against_whole(base), loss_unchunked=whole.loss,
+                            grad_limit=DENSE_GRAD_LIMIT)
+    out["float64 witness"] = {
+        "seconds": witness_s, "loss": witness[0],
+        "chunked step": _against_float64(base, witness, names),
+        "unchunked": _against_float64(whole, witness, names)}
+    del base
+    # the float32 floor of the comparison: the same corpus planned with no
+    # split (K = 1: no carry, no hand-off) against the same unchunked run
+    packed = plan_batch(CostModel(cfg.spec, ClusterSpec()),
+                        [len(v) for v in corpus.values()], PlannerConfig(
+                            fixed_k=1, bucket_rounding=64,
+                            remat_mode="stage_aware"))
+    if any(c.has_dependents or c.context
+           for p in packed.pipelines for c in p.chunks):
+        raise PhaseError("the K = 1 plan splits a sequence")
+    out["unchunked"]["K = 1, no split"] = dict(
+        against_whole(tr.loss_and_grads(packed, corpus)),
+        plan=[[c.tokens for c in p.chunks] for p in packed.pipelines])
+    fault = DENSE_FAULTS[arch]
+    with _dense_fault(tr, fault):
+        out[fault] = against_whole(tr.loss_and_grads(plan, corpus))
+    del whole, tr, witness
+    torch.cuda.empty_cache()
+    if not (out["unchunked"]["within"]
+            and out["unchunked"]["K = 1, no split"]["within"]):
+        raise PhaseError(f"the unchunked step differs from the chunked "
+                         f"step: {out}")
+    if any(r["loss_rel_diff"] > VERIFY_LIMIT
+           or r["grad_max_rel_diff"] > DENSE_GRAD_LIMIT
+           for k, r in out["float64 witness"].items() if k in (
+               "chunked step", "unchunked")):
+        raise PhaseError(f"a float32 run differs from the float64 "
+                         f"witness: {out}")
+    if out[fault]["within"]:
+        raise PhaseError(f"the limit does not catch {fault!r}: {out}")
+    return out
+
+
+# split_vl: one sequence of an image span of SPLIT_GRID patches and
+# SPLIT_TEXT text tokens, split at SPLIT_CUT (inside the image span)
+SPLIT_GRID, SPLIT_TEXT, SPLIT_CUT = (16, 16), 1792, 200
+
+
+def phase_split_vl(dev, seed):
+    """qwen2-vl-7b at full width, float32, at the train phases' depth: one
+    sequence whose first 256 rows are the vision stub's patch embeddings
+    (a 16 x 16 grid, in place of the token embeddings) at
+    ``mrope_positions_stub``'s 3-D positions, then 1,792 text tokens. Its
+    forward as two chunks (the cut inside the image span) with the KV
+    carry agrees with the unchunked forward within VERIFY_LIMIT (max |diff|
+    over max |unchunked|); the same split at text positions on the image
+    span, and with the h and w position rows swapped, falls outside it.
+    No gradient: kernel A's float32 forward a layer a chunk, no plain
+    call."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import BLOCK_KV, kv_splits
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.frontends import (mrope_positions_stub,
+                                              vision_patch_stub)
+    from repro_torch.models.model import layer_params
+    cfg = _arch(VL)
+    L = cfg.spec.n_layers
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = DecoderLM(cfg)
+    params = model.init(gen, device=dev)
+    n_patch = SPLIT_GRID[0] * SPLIT_GRID[1]
+    T = n_patch + SPLIT_TEXT
+    cuts = ((0, SPLIT_CUT), (SPLIT_CUT, T))
+    pos3 = mrope_positions_stub(SPLIT_TEXT, n_patch, SPLIT_GRID, device=dev)
+    seg = torch.zeros(T, dtype=torch.int32, device=dev)
+    pos = torch.arange(T, dtype=torch.int32, device=dev)
+    tok = torch.randint(0, cfg.spec.vocab, (T,), generator=gen, device=dev)
+    with torch.no_grad():
+        x = model.embed(params, tok, torch.float32)
+        x[:n_patch] = vision_patch_stub(cfg, gen, n_patch, device=dev,
+                                        dtype=torch.float32)
+    layers = [(layer_params(params, i), w)
+              for i, w in enumerate(cfg.layer_windows())]
+    ctr = _train_counters()
+    _zero_counts(ctr)
+
+    @torch.no_grad()
+    def split(rows3):
+        ctx = model.init_ctx(T, torch.float32, device=dev)
+        outs = []
+        for a, b in cuts:
+            h, ctx = model.run_layers(
+                layers, x[a:b], seg[a:b], pos[a:b], ctx=ctx, ctx_len=a,
+                rope=model.rope_tables(pos[a:b], None if rows3 is None
+                                       else rows3[:, a:b]))
+            outs.append(h)
+        return torch.cat(outs)
+    with torch.no_grad():
+        whole, _ = model.run_layers(layers, x, seg, pos,
+                                    rope=model.rope_tables(pos, pos3))
+    runs = {"chunked": split(pos3), "text positions": split(None),
+            "h and w rows swapped": split(pos3[[0, 2, 1]])}
+    counts = _read_counts(ctr)
+    scale = float(whole.abs().max())
+    rel = {k: float((h - whole).abs().max()) / scale for k, h in runs.items()}
+    rec = dict(layers=L, tokens=T, image_patches=n_patch, cut=SPLIT_CUT,
+               rel_diff=rel, limit=VERIFY_LIMIT,
+               launches={k: v for k, v in counts.items() if v})
+    del params, runs, whole, x
+    torch.cuda.empty_cache()
+    # the float32 forward runs its merge pass where its keys split: the
+    # chunk's rows after C context rows, padded to BLOCK_KV
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def merges(C, rows):
+        S = -(-(C + rows) // BLOCK_KV) * BLOCK_KV
+        return int(kv_splits(rows, S, cfg.spec.n_heads, n_sm,
+                             torch.float32) > 1)
+    want = {k: 0 for k in counts}
+    want.update({"flash_fwd_kernel": 7 * L,
+                 "flash_combine_kernel": L * (merges(0, T) + 3 * sum(
+                     merges(a, b - a) for a, b in cuts))})
+    if counts != want:
+        raise PhaseError(f"launch counts (got, expected): {counts}, {want}")
+    if rel["chunked"] > VERIFY_LIMIT:
+        raise PhaseError(f"the split forward differs from the whole: {rec}")
+    missed = [k for k in ("text positions", "h and w rows swapped")
+              if rel[k] <= VERIFY_LIMIT]
+    if missed:
+        raise PhaseError(f"the limit does not catch {missed}: {rec}")
+    return rec
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -3156,12 +3758,63 @@ def main() -> int:
     torch.cuda.empty_cache()
     with _moe_watch() as watch:
         (gen_mla, gen_mla_counts), dt = run(
-            "generate_mla", lambda: phase_generate_mla(dev, args.seed))
+            "generate_mla", lambda: phase_generate(dev, args.seed))
     print(f"[generate_mla] {json.dumps(gen_mla)} in {dt:.1f}s", flush=True)
     print(f"[generate_mla] moe {json.dumps(watch)}", flush=True)
+    torch.cuda.empty_cache()
 
-    # launches per path: serve, the bf16 train steps, and the float32
-    # verify phases' chunked step (the float32 B and C1 run only there)
+    # the remaining decoder families: A and A′ at (160, 160), (32, 32) and
+    # (16, 16), B / C1 / C2 at their heads; each family trained at full
+    # width on TRAIN_LAYERS' depth and verified in float32; qwen2-vl-7b's
+    # vision path split over two chunks; qwen3-4b served and stablelm-12b
+    # and qwen2-vl-7b generated from at full width and depth
+    (d_bwd, d_fwd, d_merge, d_ce, d_occ), dt = run(
+        "kernel_dense", lambda: phase_kernel_dense(dev, args.seed))
+    print(f"[kernel_dense] cluster occupancy of C1 (dh) and C2 (dw) by D: "
+          f"{json.dumps(d_occ)}", flush=True)
+    print(f"[kernel_dense] ok in {dt:.1f}s", flush=True)
+    dense_counts = {}
+    for tag, arch in (("qwen3", QWEN3), ("stablelm", STABLELM), ("vl", VL)):
+        trn_d, dt = run(f"train_{tag}", lambda a=arch: phase_train(
+            dev, args.seed, a))
+        for rec in trn_d:
+            print(f"[train_{tag}] {json.dumps(rec)}", flush=True)
+        print(f"[train_{tag}] ok in {dt:.1f}s", flush=True)
+        dense_counts[f"train_{tag}"] = {
+            k: sum(r["launches"][k] for r in trn_d) for k in ctr}
+        torch.cuda.empty_cache()
+        ver, dt = run(f"train_verify_{tag}", lambda a=arch:
+                      phase_train_verify_dense(dev, args.seed, a))
+        print(f"[train_verify_{tag}] ok in {dt:.1f}s: {json.dumps(ver)}",
+              flush=True)
+        dense_counts[f"train_verify_{tag}"] = ver["launches"]
+        torch.cuda.empty_cache()
+    spl, dt = run("split_vl", lambda: phase_split_vl(dev, args.seed))
+    print(f"[split_vl] ok in {dt:.1f}s: {json.dumps(spl)}", flush=True)
+    torch.cuda.empty_cache()
+    q_cfg = get_arch(QWEN3)
+    q_trace = sample_request_trace("github", 16, 4096, q_cfg.spec.vocab,
+                                   seed=0, max_new_tokens=32)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    q_params = DecoderLM(q_cfg).init(gen, dtype=torch.bfloat16, device=dev)
+    _zero_counts(ctr)
+    srv, dt = run("serve_qwen3", lambda: phase_serve(dev, q_cfg, q_params,
+                                                     q_trace))
+    dense_counts["serve_qwen3"] = _read_counts(ctr)
+    print(f"[serve_qwen3] {json.dumps(srv)} in {dt:.1f}s", flush=True)
+    del q_params
+    torch.cuda.empty_cache()
+    for tag, arch in (("stablelm", STABLELM), ("vl", VL)):
+        (gen_d, counts), dt = run("generate_dense", lambda a=arch:
+                                  phase_generate(dev, args.seed, a))
+        dense_counts[f"generate_{tag}"] = counts
+        print(f"[generate_dense] {arch} {json.dumps(gen_d)} in {dt:.1f}s",
+              flush=True)
+        torch.cuda.empty_cache()
+
+    # launches per path: the serving engines, the bf16 train steps, the
+    # float32 verify phases' chunked step (the float32 B and C1 run only
+    # there), the pipelines, the one-shot generators
     paths = {"serve": serve_counts, "train": train_counts,
              "train_hymba": hymba_counts, "train_verify": verify_counts,
              "train_verify_hymba": verify_hymba_counts,
@@ -3171,21 +3824,10 @@ def main() -> int:
              "train_verify_moe": verify_moe_counts,
              "train_mla": train_mla_counts,
              "train_verify_mla": verify_mla_counts,
-             "generate_mla": gen_mla_counts}
-    print(f"[kernels] serve: {json.dumps(serve_counts)}; train "
-          f"({len(trn)} steps): {json.dumps(train_counts)}; train_hymba "
-          f"({len(hym)} steps): {json.dumps(hymba_counts)}; train_verify: "
-          f"{json.dumps(verify_counts)}; train_verify_hymba: "
-          f"{json.dumps(verify_hymba_counts)}; train_pipeline "
-          f"({len(pip)} steps): {json.dumps(pipe_counts)}; "
-          f"train_pipeline_verify: {json.dumps(pipe_verify_counts)}; "
-          f"serve_moe: {json.dumps(serve_moe_counts)}; train_moe "
-          f"({len(trn_moe)} steps): {json.dumps(train_moe_counts)}; "
-          f"train_verify_moe: {json.dumps(verify_moe_counts)}; train_mla "
-          f"({len(trn_mla)} steps): {json.dumps(train_mla_counts)}; "
-          f"train_verify_mla: {json.dumps(verify_mla_counts)}; "
-          f"generate_mla: {json.dumps(gen_mla_counts)}; total "
-          f"{time.perf_counter() - t_start:.1f}s", flush=True)
+             "generate_mla": gen_mla_counts, **dense_counts}
+    print("[kernels] " + "; ".join(f"{p}: {json.dumps(c)}"
+                                   for p, c in paths.items())
+          + f"; total {time.perf_counter() - t_start:.1f}s", flush=True)
     fa = "src/repro_torch/kernels/csrc/flash_attention.cu"
     cs = "src/repro_torch/kernels/csrc/cross_entropy.cu"
     ms_src = "src/repro_torch/kernels/csrc/mamba_scan.cu"
@@ -3225,6 +3867,12 @@ def main() -> int:
     moe_gce, moe_tce, moe_vce = moe_ce  # train chunk, CE_T, verify chunk
     mla_gb, mla_vb = mla_bwd            # deepseek's (192, 128) cases
     mla_gce, mla_vce = mla_ce           # its head: train chunk, verify chunk
+    # the dense families: (160, 160) train and verify chunks, then fig11's
+    # and fig13's (32, 32) and (16, 16) cases, bf16 and float32 each
+    st_gb, st_vb, *fig = d_bwd
+    fig_bf16 = [r for r in fig if r["dtype"] == "bfloat16"]
+    fig_f32 = [r for r in fig if r["dtype"] == "float32"]
+    dense_gce, dense_vce = d_ce[:3], d_ce[3]    # bf16 at 3 heads, float32
 
     def _fwd(rec):          # the attention forward of one case
         keys = ("case", "dtype", "T", "S", "Hq", "D", "Dv", "window")
@@ -3292,15 +3940,19 @@ def main() -> int:
               library_is="scaled_dot_product_attention forward, "
                          "EFFICIENT_ATTENTION backend, the same boolean mask",
               also=[_fwd(r) for r in (gb_local, h_attn, moe_gb, mla_gb,
-                                      mla_fwd, g, cases[1], cases[2])]),
+                                      mla_fwd, g, cases[1], cases[2], st_gb,
+                                      d_fwd, *fig_bf16)]),
         entry("flash_fwd_kernel", fa, tpu_fa, vb, **_fwd(vb),
               ms_covers="the forward as the train step runs it, with lse: "
                         "split pass and merge pass",
               library_is="scaled_dot_product_attention forward, "
                          "EFFICIENT_ATTENTION backend, the same boolean mask",
               also=[_fwd(r) for r in (vb_h, moe_vb, mla_vb, g32,
-                                      cases[4])]),
-        entry("flash_combine_kernel", fa, tpu_fa, m),
+                                      cases[4], st_vb, *fig_f32)]),
+        entry("flash_combine_kernel", fa, tpu_fa, m,
+              also=[{k: d_merge[k] for k in ("case", "dtype", "T", "n_split",
+                                             "kernel_ms", "bound_ms",
+                                             "plain_ms", "max_abs_err")}]),
         entry("flash_bwd_dkdv_kernel", fa, tpu_fa + " (its gradient)", gb,
               ms=gb["kernel_ms_dkdv"], bound_ms=gb["bound_ms_dkdv"],
               bound_by=gb["bound_by_dkdv"], plain_is=gb["plain_is"],
@@ -3309,7 +3961,8 @@ def main() -> int:
               library_is=lib["library_is"] + "; kernel and yardstick both "
               "on library_case (library_case_ms: both backward passes)",
               also=[_bwd_also(r, "dkdv") for r in (moe_gb, moe_vb, mla_gb,
-                                                   mla_vb)]),
+                                                   mla_vb, st_gb, st_vb,
+                                                   *fig)]),
         entry("flash_bwd_dq_kernel", fa, tpu_fa + " (its gradient)", gb,
               ms=gb["kernel_ms_dq"], bound_ms=gb["bound_ms_dq"],
               bound_by=gb["bound_by_dq"], plain_is=gb["plain_is"],
@@ -3318,7 +3971,8 @@ def main() -> int:
               library_is=lib["library_is"] + "; kernel and yardstick both "
               "on library_case (library_case_ms: both backward passes)",
               also=[_bwd_also(r, "dq") for r in (moe_gb, moe_vb, mla_gb,
-                                                 mla_vb)]),
+                                                 mla_vb, st_gb, st_vb,
+                                                 *fig)]),
         entry("flash_bwd_tiles_kernel", fa, tpu_fa + " (its gradient)", gb,
               max_abs_err=gb["tiles_max_abs_err"], ms=gb["tiles_ms"],
               plain_ms=gb["tiles_plain_ms"], bound_ms=gb["tiles_bound_ms"],
@@ -3330,23 +3984,30 @@ def main() -> int:
               library_bf16_ms=gce["B"]["library_bf16_ms"],
               library_bf16_is=gce["B"]["library_bf16_is"],
               also=_also(moe_gce["B"]) + _also(moe_tce["B"])
-              + _also(mla_gce["B"])),
+              + _also(mla_gce["B"])
+              + [x for r in dense_gce for x in _also(r["B"])]),
         entry("ce_bwd_dh_mma_kernel", cs, tpu_ce + ":159", gce["C1"],
+              max_active_clusters={D: o["dh"] for D, o in d_occ.items()},
+              cluster_slices={D: o["slices"] for D, o in d_occ.items()},
               also=_also(moe_gce["C1"]) + _also(moe_tce["C1"])
-              + _also(mla_gce["C1"])),
+              + _also(mla_gce["C1"])
+              + [x for r in dense_gce for x in _also(r["C1"])]),
         entry("ce_fwd_kernel", cs, tpu_ce + ":79", vce["B"],
               library_is=vce["B"]["library_is"],
               also=_also(vce_h["B"]) + _also(moe_vce["B"])
-              + _also(mla_vce["B"])),
+              + _also(mla_vce["B"]) + _also(dense_vce["B"])),
         entry("ce_bwd_kernel<dh>", cs, tpu_ce + ":159", vce["C1"],
               also=_also(vce_h["C1"]) + _also(moe_vce["C1"])
-              + _also(mla_vce["C1"])),
+              + _also(mla_vce["C1"]) + _also(dense_vce["C1"])),
         entry("ce_bwd_dw_mma_kernel", cs, tpu_ce + ":222", gce["C2"],
+              max_active_clusters={D: o["dw"] for D, o in d_occ.items()},
+              cluster_slices={D: o["slices"] for D, o in d_occ.items()},
               also=_also(h_ce["C2"]) + _also(moe_gce["C2"])
-              + _also(moe_tce["C2"]) + _also(mla_gce["C2"])),
+              + _also(moe_tce["C2"]) + _also(mla_gce["C2"])
+              + [x for r in dense_gce for x in _also(r["C2"])]),
         entry("ce_bwd_kernel<dw>", cs, tpu_ce + ":222", vce["C2"],
               also=_also(vce_h["C2"]) + _also(moe_vce["C2"])
-              + _also(mla_vce["C2"])),
+              + _also(mla_vce["C2"]) + _also(dense_vce["C2"])),
         *[scan_entry(name, rec) for name in SCAN_KERNELS
           for rec in gated[:1]]]}
     print(smi)

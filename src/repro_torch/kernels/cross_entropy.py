@@ -46,10 +46,10 @@ from .build import load_libraries
 
 __all__ = ["TOKEN_MULTIPLE", "VOCAB_TILE", "MAX_VSPLIT", "DS_MAX",
            "FWD_TOKEN_TILE", "MMA_VOCAB_TILE", "DH_SLICE_MULTIPLE",
-           "DH_SLICE_MAX", "DH_MAX_SLICES",
+           "DH_SLICE_MAX", "DH_SLICE_WIDE", "DH_MAX_SLICES", "DH_PORTABLE",
            "CrossEntropyKernel", "ce_fwd_cuda", "ce_bwd_dh_cuda",
            "ce_bwd_dw_cuda", "KERNELS", "load_library", "vocab_splits",
-           "d_slice_width"]
+           "d_slice_width", "max_active_clusters"]
 
 TOKEN_MULTIPLE = 64     # tokens are padded to this (csrc: 2 * R)
 VOCAB_TILE = 64         # vocab entries per logits tile, float32 (csrc: C)
@@ -60,8 +60,10 @@ FWD_TOKEN_TILE = {torch.float32: 32, torch.bfloat16: 128}
 MMA_VOCAB_TILE = 128    # vocab entries per tile of the bf16 B
 # bf16 C1 and C2: one CTA of a cluster per D slice of at most DH_SLICE_MAX
 # columns (a multiple of DH_SLICE_MULTIPLE), at most DH_MAX_SLICES a
-# cluster: D <= 6,144
+# cluster: D <= 6,144. Slices of up to DH_SLICE_WIDE columns where 384
+# would need more than DH_PORTABLE CTAs and DH_SLICE_WIDE needs no more.
 DH_SLICE_MULTIPLE, DH_SLICE_MAX, DH_MAX_SLICES = 64, 384, 16
+DH_SLICE_WIDE, DH_PORTABLE = 448, 8
 # the ``__global__`` kernel each wrapper launches, by the inputs' dtype
 KERNELS = {"fwd": {torch.float32: "ce_fwd_kernel",
                    torch.bfloat16: "ce_fwd_mma_kernel"},
@@ -79,6 +81,7 @@ class CrossEntropyLibrary:
     build_log: str
     fwd: ctypes._CFuncPtr
     bwd: ctypes._CFuncPtr
+    occupancy: ctypes._CFuncPtr
 
 
 @functools.lru_cache(maxsize=None)
@@ -96,6 +99,7 @@ def load_library() -> CrossEntropyLibrary:
                        ("cross_entropy_dh_mma_slice_multiple",
                         DH_SLICE_MULTIPLE),
                        ("cross_entropy_dh_mma_slice_max", DH_SLICE_MAX),
+                       ("cross_entropy_dh_mma_slice_wide", DH_SLICE_WIDE),
                        ("cross_entropy_dh_mma_max_slices", DH_MAX_SLICES)):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = [], _I
@@ -106,8 +110,10 @@ def load_library() -> CrossEntropyLibrary:
     fwd.argtypes, fwd.restype = [_P] * 7 + [_I] * 5 + [_P], _I
     bwd = lib.cross_entropy_bwd
     bwd.argtypes, bwd.restype = [_P] * 6 + [_I] * 6 + [_P], _I
+    occ = lib.cross_entropy_bwd_max_active_clusters
+    occ.argtypes, occ.restype = [_I] * 3 + [ctypes.POINTER(_I)], _I
     return CrossEntropyLibrary(path=built.path, build_log=built.build_log,
-                               fwd=fwd, bwd=bwd)
+                               fwd=fwd, bwd=bwd, occupancy=occ)
 
 
 def _vocab_tile(dtype) -> int:
@@ -141,14 +147,38 @@ def d_slice_width(D: int, dtype=torch.bfloat16) -> int:
     the number of slices). bf16 C1 and C2: slices of at most DH_SLICE_MAX
     columns, equal widths rounded up to DH_SLICE_MULTIPLE; the slices of a
     token tile (C1) or of a tile of 64 vocabulary entries (C2) are the CTAs
-    of one cluster, each computing the logits over its own columns only."""
+    of one cluster, each computing the logits over its own columns only.
+    Where that takes more than DH_PORTABLE slices and DH_SLICE_WIDE columns
+    take no more (3,072 < D <= 3,584), slices of up to DH_SLICE_WIDE: the
+    H100 holds 7 clusters of 10 CTAs at once (70 of 132 SMs), 15 of 7."""
     if dtype == torch.bfloat16:
         n = -(-D // DH_SLICE_MAX)
+        if n > DH_PORTABLE >= -(-D // DH_SLICE_WIDE):
+            n = -(-D // DH_SLICE_WIDE)
         mult = DH_SLICE_MULTIPLE
     else:
         n = -(-D // DS_MAX)
         mult = 32
     return -(-(-(-D // n)) // mult) * mult
+
+
+def max_active_clusters(which: str, D: int, device=None) -> int:
+    """How many clusters of bf16 C1 (``which="dh"``) or C2 (``"dw"``) at
+    width ``D`` the card holds at once (``cudaOccupancyMaxActiveClusters``
+    for the cluster of ``ceil(D / d_slice_width(D))`` CTAs the wrapper
+    launches); 0: such a cluster cannot launch."""
+    if which not in ("dh", "dw"):
+        raise ValueError(f"which must be 'dh' or 'dw', not {which!r}")
+    lib = load_library()
+    n = _I(-1)
+    with torch.cuda.device(device if device is not None else
+                           torch.cuda.current_device()):
+        rc = lib.occupancy(D, d_slice_width(D, torch.bfloat16),
+                           int(which == "dw"), ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with "
+                           f"cudaError {rc} (D={D}, {which})")
+    return n.value
 
 
 def _check(hidden, w, targets, *extra) -> Tuple[int, int, int]:

@@ -47,9 +47,12 @@
 // * C1, ce_bwd_dh_mma_kernel<NP>: a thread-block cluster owns 64 tokens; its
 //   G CTAs (one per SM) split D into slices of 64 NP <= 384 columns (G = 3
 //   at gemma3-1b's D 1,152, 5 at hymba's 1,600, 8 at llama3.2-3b's 3,072;
-//   at most 16). A CTA keeps its h slice [64, slice] resident and walks
-//   all vocab tiles of 64, the next W tile [64, slice] loading (cp.async,
-//   double buffer) while this one serves both products:
+//   at most 16), or of 448 (NP 7) where that brings G from above 8 to 8
+//   (qwen2-vl-7b's D 3,584): on the H100 7 clusters of 10 or 14 CTAs are
+//   resident at once (70 or 98 of 132 SMs), 15 of 7 (PERF.md). A CTA
+//   keeps its h slice [64, slice] resident and walks all vocab tiles of
+//   64, the next W tile [64, slice] loading (cp.async, double buffer)
+//   while this one serves both products:
 //   - P1: partial logits [64, 64] over its columns (16 x 32 a warp, two
 //     sets of sums for independent MMAs);
 //   - the partials, stored in fragment order, summed over the cluster
@@ -62,9 +65,9 @@
 //     all 64 rows of it;
 //   - P2: dh[64, slice] += coef [64, 64] @ W[64, slice], 32 rows x a
 //     quarter of the slice a warp, the float32 accumulator in registers
-//     (16 NP a thread; 119-205 registers with the logits and addressing,
-//     one CTA per SM, 188 KB of shared memory). NP is a template parameter
-//     so that no MMA is guarded at run time.
+//     (16 NP a thread; 119-205 registers with the logits and addressing
+//     up to NP 6, one CTA per SM, 188 KB of shared memory at NP 6). NP is
+//     a template parameter so that no MMA is guarded at run time.
 //   The cluster is what keeps the accumulator in registers without a
 //   recompute: one CTA's registers hold [32, 1152] at most, and a token
 //   tile of 32 reads all of W from L2 twice (once per product) for every
@@ -459,12 +462,19 @@ constexpr size_t FB_SMEM = sizeof(bf16) * FB_STAGES * FB_STAGE;
 constexpr int DH_T = 64;            // tokens per cluster
 constexpr int DH_V = 64;            // vocab entries per tile
 constexpr int DG_MAX = 384;         // D columns per CTA of the cluster
+constexpr int DG_WIDE = 448;        // ... where 384 would need more than 8 CTAs
 constexpr int DH_GRAN = 64;         // their multiple: 4 column quarters x 16
 constexpr int DH_MAX_CLUSTER = 16;  // CTAs per cluster (non-portable above 8)
-constexpr int DH_LDG = DG_MAX + PADK;   // row stride of h and W tiles
 constexpr int DH_LDC = DH_V + PADK; // coefficient tile [DH_T][DH_LDC]
-constexpr size_t DH_SMEM = sizeof(bf16) * (size_t)((DH_T + 2 * DH_V) * DH_LDG + DH_T * DH_LDC) +
-                           sizeof(float) * 2 * DH_T * DH_V;
+// row stride of the h and W tiles of a CTA of 64 NP columns, and its shared
+// memory (188 KB at NP 6, 212 KB at 7)
+template <int NP>
+__host__ __device__ constexpr int dh_ldg() { return 64 * NP + PADK; }
+template <int NP>
+constexpr size_t dh_smem() {
+  return sizeof(bf16) * (size_t)((DH_T + 2 * DH_V) * dh_ldg<NP>() + DH_T * DH_LDC) +
+         sizeof(float) * 2 * DH_T * DH_V;
+}
 
 // Issue the copy of ROWS rows (row0 .. of src [n_rows, D]; rows at or past
 // n_rows zero-filled) x KC columns (k0 ..; columns at or past D zero-filled)
@@ -740,6 +750,7 @@ __device__ __forceinline__ void ce_bwd_mma_body(const bf16* __restrict__ h,
   static_assert(DH_T == DH_V, "resident and streamed tiles share one size");
   constexpr int R64 = DH_T;
   constexpr int DG = 64 * NP, QW = 16 * NP;   // columns of the CTA, of a warp in P2
+  constexpr int DH_LDG = dh_ldg<NP>();
   constexpr int CHR = DG / 8;                 // 16-byte chunks of a row
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -967,35 +978,56 @@ ce_bwd_dw_mma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
   ce_bwd_mma_body<NP, true>(h, w, tgt, lse, g, dw, Tp, V, D);
 }
 
-// C1 (DW false) or C2 (DW true) on the tensor cores, as a cluster launch.
+using BwdMmaKernel = void (*)(const bf16*, const bf16*, const int*, const float*, const float*,
+                             bf16*, int, int, int);
+
+// C1 (DW false) or C2 (DW true) on the tensor cores with its attributes set
+// (its shared memory, clusters above 8 CTAs allowed), or null on an error
+// (its code in ``err``).
 template <int NP, bool DW>
-int launch_bwd_mma(const void* h, const void* w, const void* tgt, const void* lse,
-                   const void* g, void* out, int Tp, int V, int D, cudaStream_t st) {
-  void (*kernel)(const bf16*, const bf16*, const int*, const float*, const float*, bf16*, int,
-                 int, int) = DW ? ce_bwd_dw_mma_kernel<NP> : ce_bwd_dh_mma_kernel<NP>;
+BwdMmaKernel bwd_mma_kernel(int& err) {
+  BwdMmaKernel kernel = DW ? ce_bwd_dw_mma_kernel<NP> : ce_bwd_dh_mma_kernel<NP>;
   static bool attr = false;
+  err = 0;
   if (!attr) {
     bool smem_set = false;
-    int e = allow_smem(kernel, DH_SMEM, smem_set);
-    if (e) return e;
-    e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e) return e;
+    err = allow_smem(kernel, dh_smem<NP>(), smem_set);
+    if (!err)
+      err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err) return nullptr;
     attr = true;
   }
+  return kernel;
+}
+
+// The launch configuration of C1 / C2 over n_res resident rows: one cluster
+// of G CTAs per 64 rows (``cl`` holds its cluster attribute).
+template <int NP>
+cudaLaunchConfig_t bwd_mma_config(int n_res, int D, cudaStream_t st, cudaLaunchAttribute* cl) {
   const int G = (D + 64 * NP - 1) / (64 * NP);
-  const int n_res = DW ? V : Tp;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(((n_res + DH_T - 1) / DH_T) * G);
   cfg.blockDim = dim3(NTM);
-  cfg.dynamicSmemBytes = DH_SMEM;
+  cfg.dynamicSmemBytes = dh_smem<NP>();
   cfg.stream = st;
-  cudaLaunchAttribute cl[1];
   cl[0].id = cudaLaunchAttributeClusterDimension;
   cl[0].val.clusterDim.x = G;
   cl[0].val.clusterDim.y = 1;
   cl[0].val.clusterDim.z = 1;
   cfg.attrs = cl;
   cfg.numAttrs = 1;
+  return cfg;
+}
+
+// C1 (DW false) or C2 (DW true) on the tensor cores, as a cluster launch.
+template <int NP, bool DW>
+int launch_bwd_mma(const void* h, const void* w, const void* tgt, const void* lse,
+                   const void* g, void* out, int Tp, int V, int D, cudaStream_t st) {
+  int err;
+  const BwdMmaKernel kernel = bwd_mma_kernel<NP, DW>(err);
+  if (err) return err;
+  cudaLaunchAttribute cl[1];
+  cudaLaunchConfig_t cfg = bwd_mma_config<NP>(DW ? V : Tp, D, st, cl);
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, (const bf16*)h, (const bf16*)w,
                                            (const int*)tgt, (const float*)lse,
                                            (const float*)g, (bf16*)out, Tp, V, D);
@@ -1017,6 +1049,7 @@ int cross_entropy_fwd_mma_token_tile() { return FB_T; }
 int cross_entropy_mma_vocab_tile() { return FB_V; }
 int cross_entropy_dh_mma_slice_multiple() { return DH_GRAN; }
 int cross_entropy_dh_mma_slice_max() { return DG_MAX; }
+int cross_entropy_dh_mma_slice_wide() { return DG_WIDE; }
 int cross_entropy_dh_mma_max_slices() { return DH_MAX_CLUSTER; }
 
 // B. h [Tp, D], w [V, D] (dtype 0 = float32, 1 = bfloat16), tgt [Tp] int32
@@ -1053,7 +1086,7 @@ int cross_entropy_fwd(const void* h, const void* w, const void* tgt, void* lse, 
 // [V, D] in w's dtype. lse and g [Tp] float32 (g = 0 on rows that carry no
 // loss). ds = width of a D slice (ceil(D / ds) slices): for float32 a
 // multiple of 32, at most DS_MAX; for bf16 C1 and C2 the columns of one CTA
-// of the cluster, a multiple of 64, at most DG_MAX, at most 16 slices.
+// of the cluster, a multiple of 64, at most DG_WIDE, at most 16 slices.
 // Returns a cudaError_t code.
 int cross_entropy_bwd(const void* h, const void* w, const void* tgt, const void* lse,
                       const void* g, void* out, int Tp, int V, int D, int dtype,
@@ -1067,7 +1100,7 @@ int cross_entropy_bwd(const void* h, const void* w, const void* tgt, const void*
   if (dtype == 0 && which == 1)
     return launch_bwd<float, true>(h, w, tgt, lse, g, out, Tp, V, D, ds, st);
   if (dtype == 1) {
-    if (Tp % DH_T || ds % DH_GRAN || ds > DG_MAX || (D + ds - 1) / ds > DH_MAX_CLUSTER)
+    if (Tp % DH_T || ds % DH_GRAN || ds > DG_WIDE || (D + ds - 1) / ds > DH_MAX_CLUSTER)
       return (int)cudaErrorInvalidValue;
 #define CE_MMA(NP)                                                                      \
   return which ? launch_bwd_mma<NP, true>(h, w, tgt, lse, g, out, Tp, V, D, st)          \
@@ -1079,9 +1112,41 @@ int cross_entropy_bwd(const void* h, const void* w, const void* tgt, const void*
       case 4: CE_MMA(4);
       case 5: CE_MMA(5);
       case 6: CE_MMA(6);
+      case 7: CE_MMA(7);
     }
 #undef CE_MMA
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// How many clusters of bf16 C1 (which == 0) or C2 (which == 1) at D columns
+// in slices of ds (as for cross_entropy_bwd) the card holds at once
+// (cudaOccupancyMaxActiveClusters) into ``*n``; 0 means such a cluster
+// cannot launch. Returns a cudaError_t code.
+int cross_entropy_bwd_max_active_clusters(int D, int ds, int which, int* n) {
+  if (D <= 0 || D % KC || ds <= 0 || ds % DH_GRAN || ds > DG_WIDE ||
+      (D + ds - 1) / ds > DH_MAX_CLUSTER || n == nullptr)
+    return (int)cudaErrorInvalidValue;
+#define CE_OCC(NP)                                                                     \
+  {                                                                                    \
+    int err;                                                                           \
+    const BwdMmaKernel kernel =                                                        \
+        which ? bwd_mma_kernel<NP, true>(err) : bwd_mma_kernel<NP, false>(err);        \
+    if (err) return err;                                                               \
+    cudaLaunchAttribute cl[1];                                                         \
+    cudaLaunchConfig_t cfg = bwd_mma_config<NP>(DH_T, D, 0, cl);                       \
+    return (int)cudaOccupancyMaxActiveClusters(n, (const void*)kernel, &cfg);          \
+  }
+  switch (ds / DH_GRAN) {
+    case 1: CE_OCC(1);
+    case 2: CE_OCC(2);
+    case 3: CE_OCC(3);
+    case 4: CE_OCC(4);
+    case 5: CE_OCC(5);
+    case 6: CE_OCC(6);
+    case 7: CE_OCC(7);
+  }
+#undef CE_OCC
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,10 +10,13 @@
 //                 && (window <= 0 || pos_q[i] - pos_kv[j] < window)
 // online softmax in float32; a row with no attended key is written as 0.
 // Every kernel is a template on the key width DK (q and k) and the value
-// width DV (v, o and their gradients), instantiated at (64, 64), (128, 128),
+// width DV (v, o and their gradients), instantiated at (16, 16), (32, 32)
+// (the reduced configs), (64, 64), (128, 128), (160, 160) (stablelm-12b),
 // (256, 256) and MLA's (192, 128) (deepseek-v2-lite: 128 nope + 64 rope
 // channels of q and k, 128 of v): Q K^T runs over DK columns, P V and the
-// output over DV, so nothing is padded to a wider head.
+// output over DV, so nothing is padded to a wider head. Any multiple of 16
+// instantiates: a warp's half of a 16-wide accumulator is one 8-column
+// tile, which the backward's products load with ldmatrix .x2.
 // For training the forward can also write each row's log-sum-exp
 // lse [Hq, T] (float32; -inf for a row with no attended key), and two
 // backward kernels (below the forward) compute dq and dk/dv from it.
@@ -392,9 +395,15 @@ __global__ void flash_combine_kernel(const float2* __restrict__ ws_ml,
 //   dV = P^T dO,  dQ = scale * dS K,  dK = scale * dS^T Q.
 //
 // * flash_bwd_dq_kernel runs first: one block per (query tile, query head).
-//   It computes Delta of its rows once, writes it to a float32 [Hq, T]
-//   buffer, and walks the KV tiles that can hold a live pair, accumulating
-//   dQ.
+//   It walks the KV tiles that can hold a live pair, accumulating dQ, and
+//   writes its rows' Delta to a float32 [Hq, T] buffer. float32: Delta
+//   from the float32 output, before the walk. bf16: the output is rounded
+//   to bf16, and Delta0 = rowsum(dO * O) from it is off by dO . (O -
+//   bf16(O)), which moves dQ and dK by that error times sum_j P K and
+//   sum_i P Q: past the bf16 tolerance on short rows. So the walk uses
+//   Delta0 in dS and also sums the exact Delta = sum_j P dP (= dO . P V) and
+//   PK = sum_j P K; at its end dQ = dQ0 - (Delta - Delta0) PK, one more
+//   product a tile, and the exact Delta is what it writes.
 // * flash_bwd_dkdv_kernel: one block per (KV tile, KV head). For each query
 //   head of its GQA group it walks the query tiles that can hold a live
 //   pair, reading lse and Delta of their rows, accumulating dK and dV.
@@ -414,18 +423,18 @@ __global__ void flash_combine_kernel(const float2* __restrict__ ws_ml,
 // five products (S recomputed and dK of 2 DK flops, dP and dV of 2 DV in the
 // dk/dv pass; S and dQ of 2 DK, dP of 2 DV in the dq pass), against bytes
 // read about once, so at the training shapes the bound is the bf16
-// tensor-core rate.
+// tensor-core rate. (The bf16 dq pass adds a sixth, PK of 2 DK, above.)
 //
 // bf16 inputs (the train paths): 64-row tiles, 8 warps. Q, dO, K and V stay
 // bf16 in shared memory with rows padded by 8 elements (16 bytes), so the
 // eight row addresses of every ldmatrix fall in distinct bank groups. All
-// five products are mma.sync m16n8k16 bf16 -> float32. The streamed tiles
+// six products are mma.sync m16n8k16 bf16 -> float32. The streamed tiles
 // (Q, dO and their rows' lse and Delta in the dk/dv pass; K, V in the dq
 // pass) come in by cp.async into a double buffer, the next tile's copy in
 // flight while the current one computes. In each tile a warp takes 16 rows
 // x 32 columns of S and dP; P and dS are formed in float32 and rounded to
 // bf16 only into shared memory, as the operand of the next product; then a
-// warp takes 16 rows x Dh/2 columns of the accumulators (dK and dV, or dQ),
+// warp takes 16 rows x Dh/2 columns of the accumulators (dK and dV, or dQ and PK),
 // which stay float32 in registers (at Dh 256: 128 per thread for dK + dV;
 // at (192, 128): 48 + 32).
 // Rows at or past T or S in the last 64-row tile are dead here (zero-filled
@@ -731,7 +740,7 @@ template <int DK, int DV>
 constexpr size_t bwd_bf16_smem_bytes() {
   // three [BB][DK + 8] tiles and three [BB][DV + 8] ones (one of each
   // resident, one of each streamed and double-buffered) and two
-  // [BB][BB + 8] tiles (P^T and dS^T, or dS)
+  // [BB][BB + 8] tiles (P^T and dS^T, or P and dS)
   return sizeof(__nv_bfloat16) *
          (size_t)(3 * BB * (DK + LDB_PAD) + 3 * BB * (DV + LDB_PAD) + 2 * BB * LDPS);
 }
@@ -801,9 +810,29 @@ __device__ __forceinline__ void strip_products(float (&acc0)[4][4], float (&acc1
   for (int kk = DC; kk < D1; kk += 16) strip_step<L1, L1>(acc1, A1, C, a1_off, c_off, kk);
 }
 
+// acc = A B^T over depth D, A [16][D] (a strip's rows), B the 32 rows of
+// the product's columns (row stride D + 8): one product of strip_products
+// alone, in the same column order (so the same bits), holding one set of
+// fragments and unrolled by 2 (the dq pass, which also holds PK: at Dk 256
+// two products' fragments in flight spilled).
+template <int D>
+__device__ __forceinline__ void strip_product(float (&acc)[4][4], const __nv_bfloat16* A,
+                                              const __nv_bfloat16* B, int lane) {
+  constexpr int L = D + LDB_PAD;
+  const int a_off = (lane & 15) * L + (lane >> 4) * 8;
+  const int b_off = (((lane >> 4) << 3) + (lane & 7)) * L + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < D; kk += 16) strip_step<L, L>(acc, A, B, a_off, b_off, kk);
+}
+
 // acc += A X over k = 0 .. BB: A [16][BB] bf16 (a warp's rows of P^T, dS^T
 // or dS, row stride LDPS), X [BB][D] (row stride D + 8), the warp's NJ x 8
-// columns from column n0.
+// columns from column n0: pairs of 8-column tiles by ldmatrix .x4, an odd
+// last one (D = 16: NJ = 1) by .x2.
 template <int D, int NJ>
 __device__ __forceinline__ void accumulate(float (&acc)[NJ][4], const __nv_bfloat16* A,
                                            const __nv_bfloat16* X, int n0, int lane) {
@@ -820,6 +849,11 @@ __device__ __forceinline__ void accumulate(float (&acc)[NJ][4], const __nv_bfloa
       ldsm4_t(b, X + x_off + kk * LD + np * 16);
       mma16816(acc[2 * np], a, b[0], b[1]);
       mma16816(acc[2 * np + 1], a, b[2], b[3]);
+    }
+    if constexpr (NJ % 2 == 1) {
+      uint32_t b[2];
+      ldsm2_t(b, X + x_off + kk * LD + (NJ / 2) * 16);
+      mma16816(acc[NJ - 1], a, b[0], b[1]);
     }
   }
 }
@@ -999,8 +1033,9 @@ __device__ void dq_bf16(const BwdArgs& a) {
   bf* sK = sdO + BB * LDV;          // [2][BB][LDK]
   bf* sV = sK + 2 * BB * LDK;       // [2][BB][LDV]
   bf* sdS = sV + 2 * BB * LDV;      // [BB][LDPS]: dS (query rows, key columns)
+  bf* sP = sdS + BB * LDPS;         // [BB][LDPS]: P (query rows, key columns)
   __shared__ int s_segq[BB], s_posq[BB];
-  __shared__ float s_lse[BB], s_dlt[BB];
+  __shared__ float s_lse[BB], s_dlt[BB], s_dsum[2][BB];
   __shared__ int s_segk[2][BB], s_posk[2][BB];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1040,9 +1075,10 @@ __device__ void dq_bf16(const BwdArgs& a) {
   if (kt >= 0) issue(0, kt);
   cp_async_commit();
 
-  // Delta = rowsum(dO * O) of this tile's rows, once: warp w takes rows
-  // 8w .. 8w + 7, dO from shared memory, O from global memory. And: every
-  // query row live and of one segment? (as k_full in the dk/dv pass)
+  // Delta0 = rowsum(dO * O) of this tile's rows from the bf16 output, once:
+  // warp w takes rows 8w .. 8w + 7, dO from shared memory, O from global
+  // memory. And: every query row live and of one segment? (as k_full in
+  // the dk/dv pass)
   cp_async_wait<1>();
   const bool q_full = __syncthreads_and(tid >= BB || s_segq[tid] >= 0) && own.x == own.y;
 #pragma unroll
@@ -1065,17 +1101,18 @@ __device__ void dq_bf16(const BwdArgs& a) {
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      s_dlt[r] = acc;
-      if (q0 + r < T_) a.delta[(size_t)h * T_ + q0 + r] = acc;
-    }
+    if (lane == 0) s_dlt[r] = acc;
   }
 
-  float dQ[NJ][4];
+  // dQ0 = sum_j P (dP - Delta0) K and PK = sum_j P K in registers; the
+  // exact Delta = sum_j P dP of row r, column half c in s_dsum[c][r] (each
+  // tile's part added by the one thread that owns (c, r))
+  float dQ[NJ][4], PK[NJ][4];
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dQ[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dQ[j][e] = PK[j][e] = 0.f;
+  if (tid < 2 * BB) s_dsum[tid / BB][tid % BB] = 0.f;
 
   const float sl2 = a.scale * LOG2E;
   while (kt >= 0) {
@@ -1099,49 +1136,68 @@ __device__ void dq_bf16(const BwdArgs& a) {
     const bf* Kb = sK + buf * BB * LDK;
     const bf* Vb = sV + buf * BB * LDV;
     {
-      // S = Q K^T and dP = dO V^T: query rows 16 wr .., key columns 32 wc ..
-      float s[4][4], dp[4][4];
-      strip_products<DK, DV>(s, dp, sQ + 16 * wr * LDK, sdO + 16 * wr * LDV,
-                             Kb + 32 * wc * LDK, Vb + 32 * wc * LDV, lane);
+      // S = Q K^T, then dP = dO V^T: query rows 16 wr .., key columns 32 wc ..
+      float s[4][4], dp[4][4], dsum[2] = {0.f, 0.f};
+      strip_product<DK>(s, sQ + 16 * wr * LDK, Kb + 32 * wc * LDK, lane);
+      strip_product<DV>(dp, sdO + 16 * wr * LDV, Vb + 32 * wc * LDV, lane);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int qr = 16 * wr + g8 + 8 * hh;
           const int kc = 32 * wc + 8 * j + 2 * t4;
-          float ds[2];
+          float p[2], ds[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int c = kc + e;
             const bool ok = full || (c < n_valid && attends(s_segq[qr], s_posq[qr],
                                                             s_segk[buf][c], s_posk[buf][c],
                                                             a.causal, a.window));
-            const float p = ok ? exp2f(s[j][2 * hh + e] * sl2 - s_lse[qr] * LOG2E) : 0.f;
-            ds[e] = p * (dp[j][2 * hh + e] - s_dlt[qr]);
+            p[e] = ok ? exp2f(s[j][2 * hh + e] * sl2 - s_lse[qr] * LOG2E) : 0.f;
+            dsum[hh] = fmaf(p[e], dp[j][2 * hh + e], dsum[hh]);
+            ds[e] = p[e] * (dp[j][2 * hh + e] - s_dlt[qr]);
           }
+          *reinterpret_cast<uint32_t*>(sP + qr * LDPS + kc) = pack_bf16(p[0], p[1]);
           *reinterpret_cast<uint32_t*>(sdS + qr * LDPS + kc) = pack_bf16(ds[0], ds[1]);
         }
+      // this tile's part of Delta: the four lanes of a row, then its owner
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        dsum[hh] += __shfl_xor_sync(0xffffffffu, dsum[hh], 1);
+        dsum[hh] += __shfl_xor_sync(0xffffffffu, dsum[hh], 2);
+        if (t4 == 0) s_dsum[wc][16 * wr + g8 + 8 * hh] += dsum[hh];
+      }
     }
     __syncthreads();
-    // dQ += dS K: query rows 16 wr .., columns wc * DK / 2 ..
+    // dQ += dS K and PK += P K: query rows 16 wr .., columns wc * DK / 2 ..
     accumulate<DK, NJ>(dQ, sdS + 16 * wr * LDPS, Kb, wc * (DK / 2), lane);
-    __syncthreads();                // buf and sdS are rewritten next
+    accumulate<DK, NJ>(PK, sP + 16 * wr * LDPS, Kb, wc * (DK / 2), lane);
+    __syncthreads();                // buf, sP and sdS are rewritten next
     buf ^= 1;
     kt = nxt;
   }
   cp_async_wait<0>();
 
+  // The exact Delta: the two column halves in order. dQ = dQ0 - (Delta -
+  // Delta0) PK; the dk/dv pass reads Delta.
+  __syncthreads();
+  if (tid < BB && q0 + tid < T_)
+    a.delta[(size_t)h * T_ + q0 + tid] = s_dsum[0][tid] + s_dsum[1][tid];
+
   bf* dq = (bf*)a.dq;
 #pragma unroll
-  for (int j = 0; j < NJ; ++j)
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 16 * wr + g8 + 8 * hh, row = q0 + r;
+    const float corr = s_dsum[0][r] + s_dsum[1][r] - s_dlt[r];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = q0 + 16 * wr + g8 + 8 * hh;
+    for (int j = 0; j < NJ; ++j) {
       const int col = wc * (DK / 2) + 8 * j + 2 * t4;
       if (row < T_)
         *reinterpret_cast<uint32_t*>(dq + ((size_t)row * a.Hq + h) * DK + col) =
-            pack_bf16(dQ[j][2 * hh] * a.scale, dQ[j][2 * hh + 1] * a.scale);
+            pack_bf16(fmaf(-corr, PK[j][2 * hh], dQ[j][2 * hh]) * a.scale,
+                      fmaf(-corr, PK[j][2 * hh + 1], dQ[j][2 * hh + 1]) * a.scale);
     }
+  }
 }
 
 // The tile ranges and summaries both passes walk, for tiles of R <= 64
@@ -1277,12 +1333,13 @@ constexpr size_t fwd_bf16_smem_bytes() {
 }
 
 // Blocks per SM the registers must leave room for (the shared memory fits
-// them: 101 KB a block at Dh 256, 67 KB at (192, 128), 52 KB at 128, 28 KB
-// at 64); four at Dh 64 would cap a thread at 128 registers, which spills.
-// The output accumulator (DV / 2 floats a thread) sets the registers.
+// them: 101 KB a block at Dh 256, 67 KB at (192, 128), 63 KB at 160, 52 KB
+// at 128, 28 KB at 64); four at Dh 64 would cap a thread at 128 registers,
+// which spills, and three at Dh 160 (168 registers) spill too. The output
+// accumulator (DV / 2 floats a thread) sets the registers.
 template <int DK, int DV>
 constexpr int fwd_min_blocks() {
-  return DV == 256 ? 2 : 3;
+  return DV > 128 ? 2 : 3;
 }
 
 // One block per (64-row query tile, query head, KV split): 1-D grid, the
@@ -1500,11 +1557,11 @@ __global__ void __launch_bounds__(NTF, fwd_min_blocks<DK, DV>())
   }
 }
 
-// Blocks per SM the compiler must leave registers for: two at Dh 64 in
-// bf16 (the tiles take 75 KB of shared memory), else one.
+// Blocks per SM the compiler must leave registers for: two at Dh <= 64 in
+// bf16 (the tiles take 75 KB of shared memory at 64), else one.
 template <typename T, int DK, int DV>
 constexpr int bwd_min_blocks() {
-  return std::is_same<T, __nv_bfloat16>::value && DK == 64 && DV == 64 ? 2 : 1;
+  return std::is_same<T, __nv_bfloat16>::value && DK <= 64 && DV <= 64 ? 2 : 1;
 }
 
 template <typename T, int DK, int DV>
@@ -1599,8 +1656,11 @@ int flash_attention_max_split() { return MAX_SPLIT; }
 // The (key, value) widths the library is built for: (Dk, Dv) -> CASE(type,
 // DK, DV); the merge pass dispatches on the value width alone.
 #define FA_WIDTHS(CASE, TYPE)                                      \
+  if (Dk == 16 && Dv == 16) CASE(TYPE, 16, 16);                    \
+  if (Dk == 32 && Dv == 32) CASE(TYPE, 32, 32);                    \
   if (Dk == 64 && Dv == 64) CASE(TYPE, 64, 64);                    \
   if (Dk == 128 && Dv == 128) CASE(TYPE, 128, 128);                \
+  if (Dk == 160 && Dv == 160) CASE(TYPE, 160, 160);                \
   if (Dk == 256 && Dv == 256) CASE(TYPE, 256, 256);                \
   if (Dk == 192 && Dv == 128) CASE(TYPE, 192, 128)
 #define FA_DISPATCH(CASE)                                          \
@@ -1676,9 +1736,10 @@ int flash_attention_fwd_mma(const void* q, const void* k, const void* v, const v
   return (int)cudaErrorInvalidValue;
 }
 
-// The merge pass: out [T, Hq, D] (dtype as above; D the value width: 64,
-// 128 or 256) and, if ``lse`` is not null, lse [Hq, T] from the n_split
-// partial states that flash_attention_fwd wrote. Returns a cudaError_t code.
+// The merge pass: out [T, Hq, D] (dtype as above; D a value width of
+// FA_WIDTHS: 16, 32, 64, 128, 160 or 256) and, if ``lse`` is not null,
+// lse [Hq, T] from the n_split partial states that flash_attention_fwd
+// wrote. Returns a cudaError_t code.
 int flash_attention_combine(const void* ws_ml, const void* ws_acc, void* out, void* lse,
                             int T, int Hq, int D, int dtype, int n_split, void* stream) {
   if (T <= 0 || Hq <= 0 || n_split < 2 || n_split > MAX_SPLIT)
@@ -1687,8 +1748,11 @@ int flash_attention_combine(const void* ws_ml, const void* ws_acc, void* out, vo
 #define FC_ONE(TYPE, DIM) \
   if (D == DIM) return launch_combine<TYPE, DIM>(ws_ml, ws_acc, out, lse, T, Hq, n_split, st)
 #define FC_CASE(TYPE) \
+  FC_ONE(TYPE, 16);   \
+  FC_ONE(TYPE, 32);   \
   FC_ONE(TYPE, 64);   \
   FC_ONE(TYPE, 128);  \
+  FC_ONE(TYPE, 160);  \
   FC_ONE(TYPE, 256)
   if (dtype == 0) {
     FC_CASE(float);

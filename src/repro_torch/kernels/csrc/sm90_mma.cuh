@@ -14,7 +14,8 @@
 // 8 (l / 16) + l % 8, column 8 ((l / 8) % 2) of a [n][k] tile, it returns
 // the B fragments of two 8-column tiles ({r[0], r[1]}, {r[2], r[3]});
 // ldsm4_t with lane l pointing at row 8 ((l / 8) % 2) + l % 8, column
-// 8 (l / 16) of a row-major [k][n] tile returns the same two B fragments.
+// 8 (l / 16) of a row-major [k][n] tile returns the same two B fragments;
+// ldsm2_t reads the addresses of lanes 0-15 only and returns the first.
 
 #pragma once
 
@@ -57,6 +58,14 @@ __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const __nv_bfloat16* p) 
 __device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// two 8x8 bf16 matrices, transposed (the addresses of lanes 0-15)
+__device__ __forceinline__ void ldsm2_t(uint32_t (&r)[2], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_u32(p))
                : "memory");
 }

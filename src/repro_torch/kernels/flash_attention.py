@@ -14,7 +14,7 @@ What bounds it: operations on the train chunks (two products per live
 (a mixed engine step reads a long packed KV buffer for a few queries
 each). The key width Dk (q, k) and the value width Dv (v, the output) are
 template parameters (:data:`HEAD_DIMS`: MLA's q/k 192, v 128 beside the
-equal pairs). bf16 inputs (the
+equal pairs from the reduced configs' 16 to gemma3-1b's 256). bf16 inputs (the
 train and serving paths) run ``flash_fwd_mma_kernel``: both products on
 the tensor cores (``mma.sync`` on 64-row tiles, P rounded to bf16 as P V's
 operand), the online softmax in registers, and only the KV tiles of each
@@ -73,8 +73,11 @@ __all__ = ["BLOCK_Q", "BLOCK_KV", "HEAD_DIMS", "MAX_SPLIT", "BWD_BLOCK",
 BLOCK_Q = 32                  # query rows per block (csrc: BQ)
 BLOCK_KV = 32                 # KV rows per tile (csrc: BK)
 # (key width of q and k, value width of v and the output): the template
-# instantiations in the library; (192, 128) is MLA's (deepseek-v2-lite)
-HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
+# instantiations in the library. (16, 16) and (32, 32) are the reduced
+# configs' and the paper figures' (``ArchConfig.reduced``, fig11 and
+# fig13), (160, 160) stablelm-12b's, (192, 128) MLA's (deepseek-v2-lite)
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (160, 160),
+             (256, 256), (192, 128))
 MAX_SPLIT = 16                # KV splits per query tile (csrc: MAX_SPLIT)
 # rows per tile of the backward passes, both sides (csrc: BB for bf16; the
 # float32 passes keep BQ = BK)
@@ -301,7 +304,8 @@ class FlashBwdKernel:
     and the output's gradient ``dout`` (same shape and dtype as ``out``).
 
     ``delta`` is a float32 ``[Hq, T]`` buffer of the rows' Delta =
-    rowsum(dout * out): the dq pass, which runs first, writes it, the dk/dv
+    rowsum(dout * out) (in bf16, the exact sum_j P dP, not the one from the
+    rounded ``out``): the dq pass, which runs first, writes it, the dk/dv
     pass reads it and so needs the one the dq pass wrote. ``tiles``: the
     metadata's :class:`BwdTiles` (:data:`flash_bwd_tiles_cuda`) for tiles
     of ``BWD_BLOCK[dtype]`` rows. The plain version is

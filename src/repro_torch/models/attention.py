@@ -1,8 +1,8 @@
 """Attention: GQA projection (+RoPE, +qk-norm), MLA (deepseek-v2's latent
 attention), the local attention policy and the attention block.
 
-Counterpart of the JAX package's ``models/attention.py`` (GQA and MLA;
-M-RoPE comes with its family). Packed-varlen semantics: a chunk
+Counterpart of the JAX package's ``models/attention.py`` (GQA with RoPE
+or qwen2-vl's M-RoPE, qk-norm, and MLA). Packed-varlen semantics: a chunk
 is a flat token buffer ``[T]`` with ``seg`` (segment id per token, -1 =
 padding) and ``pos`` (position within the owning sequence). Split-chunk
 context arrives as KV buffers whose first ``ctx_len`` entries are valid;
@@ -67,14 +67,15 @@ def project_qkv(cfg: ArchConfig, p: Dict, x: torch.Tensor,
                            Optional[torch.Tensor]]:
     """x: [T, D] -> q [T, Hq, Dh], k [T, Hkv, Dh], v [T, Hkv, Dh].
     ``rope``: precomputed ``layers.rope_tables(pos, ...)``, if any (for
-    MLA, tables of ``qk_rope_dim`` channels).
+    MLA, tables of ``qk_rope_dim`` channels; for M-RoPE,
+    ``layers.mrope_tables``). M-RoPE without tables rotates at ``pos``
+    on all three position rows (text tokens, the reference's default),
+    whose tables are RoPE's to the bit.
 
     MLA: q ``[T, Hq, Dh + rr]`` (its last ``rr`` channels rotated), k the
     latent row ``[T, 1, r + rr]`` (``c_kv`` and the rotated shared rope
     key) and v None: the values live in the latent rows."""
     s = cfg.spec
-    if cfg.rope_kind == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet")
     Dh, Hq, Hkv = s.head_dim, s.n_heads, s.n_kv_heads
     if s.kv_lora_rank > 0:
         q = linear(x, p["wq"]).reshape(-1, Hq, Dh + s.qk_rope_dim)
@@ -91,7 +92,7 @@ def project_qkv(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     if s.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.rms_eps)
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
-    if cfg.rope_kind == "rope":
+    if cfg.rope_kind in ("rope", "mrope"):
         q = apply_rope(q, pos, cfg.rope_theta, rope)
         k = apply_rope(k, pos, cfg.rope_theta, rope)
     return q, k, v
@@ -256,7 +257,8 @@ def attention_block(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                Optional[torch.Tensor]]:
     """Returns (block_out [T, D], new_ctx_k, new_ctx_v). ``rope``: the
-    chunk's ``layers.rope_tables``, if the caller has them. MLA scales the
+    chunk's ``layers.rope_tables`` (or ``mrope_tables``), if the caller has
+    them (M-RoPE at 3-D positions needs them). MLA scales the
     scores by ``1/sqrt(Dh + rr)``, its keys' width; its output is the
     values' ``Dh`` columns."""
     s = cfg.spec

@@ -18,8 +18,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["dense_init", "embed_init", "rms_norm", "swiglu_init",
-           "swiglu_apply", "rope_freqs", "rope_tables", "apply_rope",
-           "linear", "deferred_weight_grads", "weight_grad_store"]
+           "swiglu_apply", "rope_freqs", "rope_tables", "mrope_tables",
+           "apply_rope", "apply_mrope", "linear", "deferred_weight_grads", "weight_grad_store"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -170,13 +170,21 @@ class _SwiGLUDown(torch.autograd.Function):
     charges 3. silu in float32 and rounded to g's dtype, as the reference
     rounds; both directions run over blocks of rows whose float32
     temporaries take SILU_BLOCK_BYTES each (elementwise: the same bits).
-    The products are autograd's for ``h @ w.T`` (``dy @ w``, ``dy.T @
-    h``); under :func:`deferred_weight_grads` the weight's goes to the
-    store."""
+    The products are autograd's for ``h @ w.T`` (``dy @ w``, taken a block
+    of rows at a time, and ``dy.T @ h``); under
+    :func:`deferred_weight_grads` the weight's goes to the store. Where
+    ``g`` and ``u`` are intermediates (not leaves: :func:`swiglu_apply`'s
+    own projections, which nothing else keeps), the backward writes ``dg``
+    and ``du`` over their rows, each block read first, so beside the saved
+    tensors it holds ``h`` and one block's temporaries, not four ``[T,
+    d_ff]`` tensors: the planner charges none of them, and stablelm-12b's
+    four (5.2 GB on a 47k-row chunk) took its step over the plan's
+    estimate."""
 
     @staticmethod
     def forward(ctx, g, u, w):
         ctx.save_for_backward(g, u, w)
+        ctx.reuse = not (g.is_leaf or u.is_leaf)
         ctx.store, ctx.weight = _WEIGHT_GRADS, w
         h, n = torch.empty_like(u), _silu_rows(g)
         for a in range(0, g.shape[0], n):
@@ -188,17 +196,22 @@ class _SwiGLUDown(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         g, u, w = ctx.saved_tensors
-        dh = dy.mm(w.to(g.dtype))
-        h, dg, du = (torch.empty_like(u) for _ in range(3))
+        wt = w.to(g.dtype)
+        h = torch.empty_like(u)
+        # detached aliases: a gradient that carried g's own grad_fn held
+        # its graph (a stage's parameters outlived their trainer)
+        dg, du = (g.detach(), u.detach()) if ctx.reuse else \
+            (torch.empty_like(g), torch.empty_like(u))
         n = _silu_rows(g)
         for a in range(0, g.shape[0], n):
             b = slice(a, a + n)
+            dh = dy[b].mm(wt)
             g32 = g[b].float()
             sig = torch.sigmoid(g32)
             s = (g32 * sig).to(g.dtype)
             h[b] = s * u[b]
-            du[b] = dh[b] * s
-            da = (dh[b] * u[b]).float()
+            da = (dh * u[b]).float()
+            du[b] = dh * s
             dg[b] = da * sig * (1.0 + g32 * (1.0 - sig))
         if ctx.store is not None:
             ctx.store.append((ctx.weight,
@@ -236,6 +249,27 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
     return torch.cos(angles)[:, None, :], torch.sin(angles)[:, None, :]
 
 
+def mrope_tables(positions3: torch.Tensor, head_dim: int, theta: float,
+                 sections: Tuple[int, int, int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """qwen2-vl's M-RoPE as :func:`rope_tables`: ``positions3`` ``[3, T]``
+    (temporal, height and width ids, all equal for text tokens), and
+    ``sections`` split the ``head_dim/2`` frequencies among the three rows
+    in that order. With three equal rows the tables are
+    :func:`rope_tables`' to the bit; :func:`apply_rope` takes either."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"head_dim/2 = {half}")
+    freqs = rope_freqs(head_dim, theta, device=positions3.device)
+    parts, off = [], 0
+    for row, sec in zip(positions3, sections):
+        parts.append(row.float()[:, None] * freqs[None, off:off + sec])
+        off += sec
+    angles = torch.cat(parts, dim=-1)
+    return torch.cos(angles)[:, None, :], torch.sin(angles)[:, None, :]
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                ) -> torch.Tensor:
@@ -248,3 +282,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """x: [T, H, Dh] rotated by M-RoPE (:func:`mrope_tables`) at
+    ``positions3`` ``[3, T]``."""
+    return apply_rope(x, positions3[0], theta,
+                      mrope_tables(positions3, x.shape[-1], theta, sections))

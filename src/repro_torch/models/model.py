@@ -17,9 +17,10 @@ Layer kinds (as the reference's ``layer_apply``): ``ATTN`` (attention,
 then the SwiGLU MLP), ``MOE`` (attention, then the MoE block of
 :mod:`.moe`; olmoe), ``MAMBA`` (the mamba mixer alone, falcon-mamba) and
 ``HYBRID`` (attention and the mamba mixer in parallel on the same normed
-input, averaged, then the MLP; hymba). Attention is GQA or MLA
-(deepseek-v2-lite, whose carry holds latent rows). Encoder-decoder models
-are not ported.
+input, averaged, then the MLP; hymba). Attention is GQA (RoPE, or
+qwen2-vl's M-RoPE at ``positions3`` ``[3, T]``: text positions on all
+three rows unless the caller gives them) or MLA (deepseek-v2-lite, whose
+carry holds latent rows). Encoder-decoder models are not ported.
 
 The loss head (:meth:`DecoderLM.chunk_loss`) runs the final norm and the
 fused streaming cross-entropy (kernels B, C1, C2 on the card).
@@ -35,8 +36,8 @@ from torch.utils.checkpoint import checkpoint
 from .attention import (attention_block, init_attention,
                         make_local_attention_policy)
 from .config import ArchConfig, LayerKind
-from .layers import (embed_init, rms_norm, rope_tables, swiglu_apply,
-                     swiglu_init)
+from .layers import (embed_init, mrope_tables, rms_norm, rope_tables,
+                     swiglu_apply, swiglu_init)
 from .moe import init_moe, moe_apply
 from .ssm import init_mamba, mamba_apply, ssm_state_shape
 
@@ -201,10 +202,12 @@ class DecoderLM:
                                    targets.clamp(min=0), valid)
 
     def loss(self, params: Dict, tokens, targets, seg, pos, *,
+             positions3: Optional[torch.Tensor] = None,
              compute_dtype=torch.bfloat16
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(sum_loss, n_valid) of one context-free chunk."""
         hidden, _ = self.forward_chunk(params, tokens, seg, pos,
+                                       positions3=positions3,
                                        compute_dtype=compute_dtype)
         return self.chunk_loss(params, hidden, targets, seg)
 
@@ -226,8 +229,8 @@ class DecoderLM:
                     ) -> Tuple[torch.Tensor, LayerCtx]:
         """x: [T, D] -> (x', updated context carry): the KV rows appended
         at ``ctx_len``, the SSM state advanced to the chunk's last live
-        row. ``rope``: the chunk's ``layers.rope_tables`` (computed here if
-        None)."""
+        row. ``rope``: the chunk's :meth:`rope_tables` (computed here from
+        ``pos`` if None; M-RoPE at 3-D positions needs them)."""
         cfg = self.cfg
         kind = cfg.layer_kind
         h = rms_norm(x, lparams["ln1"], cfg.rms_eps)
@@ -282,6 +285,7 @@ class DecoderLM:
     def forward_chunk(self, params: Dict, tokens: torch.Tensor,
                       seg: torch.Tensor, pos: torch.Tensor, *,
                       ctx: Optional[LayerCtx] = None, ctx_len: int = 0,
+                      positions3: Optional[torch.Tensor] = None,
                       compute_dtype=torch.bfloat16, remat: int = 0
                       ) -> Tuple[torch.Tensor, Optional[LayerCtx]]:
         """Run all layers over one packed chunk. Returns (hidden, new ctx);
@@ -291,20 +295,34 @@ class DecoderLM:
         ``remat``: the leading ``remat`` layers run under non-reentrant
         ``torch.utils.checkpoint`` (their activations are recomputed in the
         backward), as the reference executor remats the leading
-        ``l_ckpt`` layers of a stage; remat never changes the math."""
+        ``l_ckpt`` layers of a stage; remat never changes the math.
+        ``positions3``: M-RoPE's ``[3, T]`` position rows (default: ``pos``
+        on each)."""
         x = self.embed(params, tokens, compute_dtype)
         layers = [(layer_params(params, i), w)
                   for i, w in enumerate(self.cfg.layer_windows())]
         return self.run_layers(layers, x, seg, pos, ctx=ctx,
-                               ctx_len=ctx_len, remat=remat)
+                               ctx_len=ctx_len, remat=remat,
+                               rope=self.rope_tables(pos, positions3))
 
-    def rope_tables(self, pos: torch.Tensor) -> Optional[Tuple]:
+    def rope_tables(self, pos: torch.Tensor,
+                    positions3: Optional[torch.Tensor] = None
+                    ) -> Optional[Tuple]:
         """The rotation tables of a chunk's positions, None without rope
-        (MLA rotates only its ``qk_rope_dim`` rope channels)."""
-        s = self.cfg.spec
-        if self.has_attn and self.cfg.rope_kind == "rope":
+        (MLA rotates only its ``qk_rope_dim`` rope channels). M-RoPE's
+        come from ``positions3`` ``[3, T]``, or from ``pos`` on all three
+        rows (text tokens: then they are RoPE's, bit for bit)."""
+        s, cfg = self.cfg.spec, self.cfg
+        if not self.has_attn:
+            return None
+        if cfg.rope_kind == "mrope":
+            rows = torch.stack([pos, pos, pos]) if positions3 is None \
+                else positions3
+            return mrope_tables(rows, s.head_dim, cfg.rope_theta,
+                                cfg.mrope_sections)
+        if cfg.rope_kind == "rope":
             dim = s.qk_rope_dim if s.kv_lora_rank > 0 else s.head_dim
-            return rope_tables(pos, dim, self.cfg.rope_theta)
+            return rope_tables(pos, dim, cfg.rope_theta)
         return None
 
     def run_layers(self, layers, x: torch.Tensor, seg: torch.Tensor,
@@ -317,7 +335,7 @@ class DecoderLM:
         pipeline stage, which runs its own layers. ``ctx`` holds one carry
         entry per layer of ``layers``; the leading ``remat`` layers run
         under checkpoint; ``rope``: the chunk's :meth:`rope_tables`
-        (computed here if None)."""
+        (computed here from ``pos`` if None)."""
         # one pair of rotation tables for every layer, so that the layers'
         # saved activations share it (16 MB a table on a 31k-row gemma3-1b
         # chunk)

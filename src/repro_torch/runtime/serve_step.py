@@ -52,7 +52,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import BLOCK_KV
 from repro_torch.models.attention import project_qkv
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import linear, rms_norm, rope_tables
+from repro_torch.models.layers import linear, rms_norm
 from repro_torch.models.model import DecoderLM, layer_params
 
 __all__ = ["EngineGeometry", "make_engine_geometry", "init_pool",
@@ -239,7 +239,7 @@ def engine_step(model: DecoderLM, geom: EngineGeometry, params: Dict,
     scale = 1.0 / math.sqrt(s.head_dim)
     x = model.embed(params, batch.tokens, dt)
     T = x.shape[0]
-    rope = rope_tables(batch.pos, s.head_dim, cfg.rope_theta)
+    rope = model.rope_tables(batch.pos)
     for i, w in enumerate(cfg.layer_windows()):
         lp = layer_params(params, i)
         h = rms_norm(x, lp["ln1"], cfg.rms_eps)

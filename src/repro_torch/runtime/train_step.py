@@ -50,6 +50,7 @@ gradients are :class:`ChunkedTrainer`'s, bit for bit.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -165,6 +166,16 @@ def chunk_arrays(batch: ChunkBatch, k: int, tokens: int):
             seg, np.where(live, row(batch.pos, 0), 0).astype(np.int32))
 
 
+def _take_grad(sink: List, i: int, p: torch.Tensor) -> None:
+    """A parameter's post-accumulate hook: its gradient added into
+    ``sink[0][i]`` and dropped (left on the parameter when no backward of
+    the trainer set ``sink[0]``)."""
+    if sink[0] is not None:
+        with torch.no_grad():
+            sink[0][i].add_(p.grad)
+        p.grad = None
+
+
 class ChunkedTrainer:
     """Parameters, optimizer state and the chunked step of one model.
 
@@ -187,6 +198,15 @@ class ChunkedTrainer:
                                     copy=True).requires_grad_(True),
             unstack_layers(params))
         self.opt = init_opt_state(self.params)
+        # the float32 sums a backward adds each parameter's gradient into
+        # (set by _backward), through each leaf's post-accumulate hook; the
+        # hooks hold this one-element list, not the trainer (a parameter's
+        # hook holding the trainer that holds the parameter is a cycle,
+        # which kept a trainer's states on the card after its last use)
+        self._sink: List[Optional[List[torch.Tensor]]] = [None]
+        for i, p in enumerate(tree_leaves(self.params)):
+            p.register_post_accumulate_grad_hook(
+                functools.partial(_take_grad, self._sink, i))
 
     # ------------------------------------------------------------------
     def _chunk(self, batch: ChunkBatch, k: int, tokens: int):
@@ -200,13 +220,16 @@ class ChunkedTrainer:
     def _backward(self, outs, grads, acc: List[torch.Tensor]) -> None:
         """Backward from ``outs`` seeded with ``grads``; the parameters'
         gradients are added into the float32 sums ``acc`` (so a bf16
-        parameter's gradient is summed over chunks in float32)."""
-        torch.autograd.backward(outs, grads)
-        with torch.no_grad():
-            for a, p in zip(acc, tree_leaves(self.params)):
-                if p.grad is not None:
-                    a.add_(p.grad)
-                    p.grad = None
+        parameter's gradient is summed over chunks in float32), each as
+        soon as autograd has it, and dropped: the backward holds no
+        compute-dtype gradient beyond the one being added (the planner's
+        memory model charges the float32 sums, not those; the untied
+        heads alone take 1 GB each at stablelm-12b's 100,352 x 5,120)."""
+        self._sink[0] = acc
+        try:
+            torch.autograd.backward(outs, grads)
+        finally:
+            self._sink[0] = None
 
     def _zero_carry(self) -> LayerCtx:
         """Empty carry as per-layer lists (None for fields the family

@@ -338,8 +338,12 @@ def test_launch_geometry_covers_each_entry_once(name, D, V, dtype):
     assert all(d1 - d0 <= width for d0, d1 in slices)
     if dtype == torch.bfloat16:
         assert width % ce.DH_SLICE_MULTIPLE == 0
-        assert width <= ce.DH_SLICE_MAX
         assert len(slices) <= ce.DH_MAX_SLICES
+        # slices wider than DH_SLICE_MAX only where they bring a cluster
+        # that would take more than DH_PORTABLE CTAs down to DH_PORTABLE
+        assert width <= ce.DH_SLICE_MAX or (
+            width <= ce.DH_SLICE_WIDE and len(slices) <= ce.DH_PORTABLE
+            < -(-D // ce.DH_SLICE_MAX))
         # C2's clusters: cluster c owns the 64 vocabulary entries [64 c,
         # min(64 c + 64, V)) (the last ragged), one CTA per D slice above;
         # each (entry, column) has one owner, which writes it once
@@ -353,3 +357,28 @@ def test_launch_geometry_covers_each_entry_once(name, D, V, dtype):
     else:
         assert width % 32 == 0 and width <= ce.DS_MAX
         assert len(slices) == -(-D // ce.DS_MAX)
+
+
+@pytest.mark.parametrize("D,width,slices", [(2560, 384, 7), (3584, 448, 8),
+                                            (5120, 384, 14)])
+def test_bf16_slice_plan_of_the_new_heads(D, width, slices):
+    """qwen3-4b's, qwen2-vl-7b's and stablelm-12b's hidden widths: bf16 C1
+    and C2 take 7 slices of 384 columns at 2,560 and 14 at 5,120 (a
+    cluster above the portable 8); at 3,584, 384 columns would take 10,
+    so the slices widen to 448 and take 8. The last one is narrower at
+    2,560 and 5,120 (256 and 128 columns); every column lies in exactly
+    one slice; float32 slices of at most DS_MAX columns cover D too."""
+    from repro_torch.kernels import cross_entropy as ce
+    assert ce.d_slice_width(D, torch.bfloat16) == width
+    assert width in (ce.DH_SLICE_MAX, ce.DH_SLICE_WIDE)
+    assert width % ce.DH_SLICE_MULTIPLE == 0
+    pieces = _d_slices(D, width)
+    assert len(pieces) == slices <= ce.DH_MAX_SLICES
+    assert pieces[-1][1] - pieces[-1][0] == D - (slices - 1) * width
+    cols = np.zeros(D, np.int32)
+    for d0, d1 in pieces:
+        cols[d0:d1] += 1
+    assert (cols == 1).all()
+    w32 = ce.d_slice_width(D, torch.float32)
+    assert w32 <= ce.DS_MAX and w32 % 32 == 0
+    assert sum(d1 - d0 for d0, d1 in _d_slices(D, w32)) == D

@@ -26,6 +26,11 @@ limit. Its split pieces over each query tile's range (the kernel's
 formula, ``_fwd_pieces``) visit every live tile exactly once, on random
 and planner-made metadata.
 
+At the head widths the kernels gained for stablelm-12b (160) and the
+reduced configs (32, 16), the plain attention and its gradient are held
+against the Pallas kernel (interpret mode) and ``jax.grad`` of the JAX
+reference attention, with context rows, GQA and a window.
+
 The CUDA kernel itself is held against the plain version on the card in
 ``tests/test_torch_gpu.py``.
 """
@@ -38,6 +43,8 @@ import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
+
+import jax
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
@@ -623,3 +630,39 @@ def test_fwd_pieces_visit_each_live_tile_once_on_planner_chunks(
     """On the port's planner-made chunks, with and without the carry."""
     for _, meta in _planner_chunks(with_context):
         _assert_pieces_visit_live_tiles_once(meta, True, window)
+
+
+@pytest.mark.parametrize("Hq,Hkv,Dh,window", [(8, 2, 160, 0),
+                                              (4, 2, 32, 24),
+                                              (4, 2, 16, 0)])
+def test_plain_attention_at_the_new_widths(Hq, Hkv, Dh, window):
+    """stablelm-12b's 160 and the reduced configs' 32 and 16 (kernel A and
+    A′ instantiated there): the plain forward against the Pallas kernel in
+    interpret mode, and ``ref.flash_attention_grad`` against ``jax.grad``
+    of the JAX reference attention (float32, ``2e-5``), on a packed chunk
+    with a context of segment 0 in front."""
+    rng = np.random.default_rng(Dh + window)
+    T, C = 96, 32                   # the Pallas kernel's 32-row tiles
+    seg_q, pos_q = _varlen_meta(rng, T, 3, ctx=C)
+    seg_kv = np.concatenate([np.zeros(C, np.int32), seg_q])
+    pos_kv = np.concatenate([np.arange(C, dtype=np.int32), pos_q])
+    q = rng.standard_normal((T, Hq, Dh)).astype(np.float32)
+    k = rng.standard_normal((C + T, Hkv, Dh)).astype(np.float32)
+    v = rng.standard_normal((C + T, Hkv, Dh)).astype(np.float32)
+    dout = rng.standard_normal((T, Hq, Dh)).astype(np.float32)
+    meta = (seg_q, seg_kv, pos_q, pos_kv)
+    jargs, targs = _both((q, k, v, *meta), "float32")
+    _check_all(jargs, targs, "float32", window=window,
+               pallas_kw=dict(block_q=32, block_kv=32))
+
+    def f(qq, kk, vv):
+        o = jref.flash_attention_reference(qq, kk, vv,
+                                           *map(jnp.asarray, meta),
+                                           window=window)
+        return (o * dout).sum()
+    want = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    got = tref.flash_attention_grad(*targs, torch.from_numpy(dout),
+                                    window=window)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL["float32"])

@@ -1,6 +1,6 @@
 """The port on the card: the CUDA kernels against their plain versions
 (flash attention forward, its log-sum-exp, backward and tile ranges, at
-equal key and value widths and at MLA's q/k 192, v 128;
+equal key and value widths from 16 to 256 and at MLA's q/k 192, v 128;
 cross-entropy B, C1, C2; the selective scan D and its gradient D', ungated
 and with the mamba mixer's prologue and gate), the engine on CUDA against
 the engine on the CPU, and one reduced training step on CUDA against the
@@ -56,6 +56,9 @@ def _packed(rng, T, n_seq, ctx):
     (4, 1, 256, 0),         # gemma3-1b global layer
     (24, 8, 128, 0),        # llama3.2-3b
     (8, 2, 64, 16),
+    (32, 8, 160, 0),        # stablelm-12b
+    (4, 2, 32, 8),          # fig11's reduced heads, a window
+    (4, 2, 16, 0),          # fig13's and --reduced's
 ])
 def test_kernel_matches_plain(dtype, Hq, Hkv, Dh, window, C):
     """``C`` context rows of segment 0, then a 300-row chunk: float32 at
@@ -133,8 +136,9 @@ def test_combine_matches_plain(dtype, n_split):
     assert torch.count_nonzero(got[T - 5:]) == 0
 
 
-# (Hq, Hkv, Dh, window, C): the bf16 forward at Dh 64, 128 and 256, GQA
-# groups 1, 4 and 5, windows 0 and 512, with and without context rows
+# (Hq, Hkv, Dh, window, C): the bf16 forward at Dh 16 to 256, GQA groups
+# 1, 2, 4 and 5, windows 0, 8 and 512, with and without context rows; split
+# (n_split 3, 16), the merge pass runs at each value width
 FWD_CASES = [
     (4, 1, 256, 512, 720),      # gemma3-1b local layer
     (4, 1, 256, 0, 720),        # gemma3-1b global layer
@@ -142,6 +146,9 @@ FWD_CASES = [
     (24, 8, 128, 0, 150),       # llama3.2-3b
     (4, 4, 128, 512, 0),        # group 1, a window, no context
     (8, 2, 64, 16, 24),
+    (32, 8, 160, 0, 720),       # stablelm-12b
+    (4, 2, 32, 8, 150),         # fig11's reduced heads, a window
+    (4, 2, 16, 0, 0),           # fig13's and --reduced's, no context
 ]
 
 
@@ -311,6 +318,9 @@ BWD_CASES = [
     (25, 5, 64, 0, 720),        # hymba-1.5b
     (8, 2, 64, 16, 24),
     (4, 4, 128, 37, 24),        # group 1, a window
+    (32, 8, 160, 0, 720),       # stablelm-12b
+    (4, 2, 32, 0, 150),         # fig11's reduced heads
+    (4, 2, 16, 12, 150),        # fig13's and --reduced's, a window
 ]
 
 
@@ -506,12 +516,16 @@ def test_kernel_rejects_width_pairs_it_lacks():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,D,V", [(64, 64, 1000), (256, 128, 517),
                                    (640, 1152, 4099), (128, 3072, 1000),
-                                   (192, 1600, 32001), (320, 1152, 262144)])
+                                   (192, 1600, 32001), (320, 1152, 262144),
+                                   (128, 2560, 1000), (192, 3584, 1000),
+                                   (64, 5120, 1100)])
 def test_cross_entropy_kernels_match_plain(dtype, T, D, V):
     """B (lse, target logit), C1 (dh) and C2 (dW) against their plain
     versions: short chunks (vocab split over blocks and merged), a vocab
     that is not a multiple of the tile, D sliced (3072 -> 3 slices; bf16 C1:
-    a cluster of 8), hymba-1.5b's head (D 1600, V 32001), T not a multiple
+    a cluster of 8; qwen3-4b's 2,560, qwen2-vl-7b's 3,584 and stablelm-12b's
+    5,120: clusters of 7, 10 and 14, a last slice of 256, 128 and 128
+    columns), hymba-1.5b's head (D 1600, V 32001), T not a multiple
     of bf16 B's 128-token tile (64, 192, 320), targets outside the
     vocabulary and rows with g = 0; then all-zero g (dh and dW exactly 0)
     and a second launch of each kernel (the same bits)."""
@@ -578,6 +592,22 @@ def test_cross_entropy_bf16_backward_takes_d_up_to_6144(which):
             continue
         _close(kern(h, w, tgt, lse, g), plain(h, w, tgt, lse, g),
                torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_cross_entropy_clusters_fit_the_card():
+    """bf16 C1's and C2's clusters launch at every head of the registry (a
+    cluster of up to 16 CTAs, one an SM): the card holds at least one at
+    once (``cudaOccupancyMaxActiveClusters``), and more of narrower ones."""
+    _cuda()
+    from repro_torch.configs import arch_names, get_arch
+    from repro_torch.kernels.cross_entropy import max_active_clusters
+    for which in ("dh", "dw"):
+        n = {D: max_active_clusters(which, D) for D in
+             sorted({get_arch(a).spec.d_model for a in arch_names()}
+                    | {6144})}
+        assert all(v >= 1 for v in n.values()), (which, n)
+        assert n[1152] >= n[3072] >= n[5120] >= n[6144], (which, n)
 
 
 @pytest.mark.gpu
@@ -968,8 +998,8 @@ def test_train_memory_snapshot_on_card(tmp_path, capsys):
     the replayed peak lies above the recording's baseline and within 5% of
     the step's ``max_memory_allocated`` (the replay frees a block when its
     free completes), and blocks of the window are live there. The CLI's
-    reduced falcon-mamba-7b: its reduced attention archs have a head dim of
-    16, which kernel A does not take."""
+    reduced falcon-mamba-7b (no attention: the snapshot holds the scan's
+    and the head's blocks)."""
     import json
     import pickle
 
@@ -987,6 +1017,37 @@ def test_train_memory_snapshot_on_card(tmp_path, capsys):
     assert summary["events"] > 0 and summary["live_at_peak"]
     assert summary["baseline_gb"] < summary["peak_gb"] \
         <= 1.05 * summary["step_peak_gb"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "qwen2-vl-7b"])
+def test_reduced_config_trains_on_card(arch, dtype):
+    """``launch/train.py --reduced`` on the card (4 layers, d_model 64, 4
+    query heads of 16): kernel A and A′ launch at width (16, 16) with B,
+    C1, C2 at D 64, through the dtype's kernels, and no plain version
+    runs."""
+    _cuda()
+    from repro_torch.kernels.cross_entropy import ce_bwd_dh_cuda
+    from repro_torch.kernels.flash_attention import (FWD_KERNELS,
+                                                     flash_attention_cuda,
+                                                     flash_bwd_dkdv_cuda,
+                                                     flash_bwd_dq_cuda)
+    from repro_torch.launch.train import main
+    wrappers = (flash_attention_cuda, flash_bwd_dq_cuda, flash_bwd_dkdv_cuda,
+                ce_bwd_dh_cuda)
+    before = [w.launches for w in wrappers]
+    kernel = FWD_KERNELS[getattr(torch, dtype)]
+    fwd = flash_attention_cuda.by_kernel[kernel]
+    plain = (ops.flash_attention.plain_calls,
+             ops.fused_cross_entropy.plain_calls)
+    assert main(["--arch", arch, "--reduced", "--steps", "2", "--batch", "4",
+                 "--context", "256", "--dtype", dtype]) == 0
+    torch.cuda.synchronize()
+    assert all(w.launches > b for w, b in zip(wrappers, before))
+    assert flash_attention_cuda.by_kernel[kernel] > fwd
+    assert (ops.flash_attention.plain_calls,
+            ops.fused_cross_entropy.plain_calls) == plain
 
 
 @pytest.mark.gpu

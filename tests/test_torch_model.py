@@ -272,6 +272,45 @@ def test_silu_gate_row_blocks_give_the_same_bits(monkeypatch, dtype):
         _close(ju, whole[2])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swiglu_backward_over_its_own_projections(monkeypatch, dtype):
+    """Through ``swiglu_apply`` (g and u its own projections, which the
+    backward overwrites with dg and du): the same bits as the backward
+    that allocates them (the projections' outputs passed on as leaves),
+    blocked or whole, and the leaves it was handed keep their values."""
+    rng = np.random.default_rng(11)
+    x0 = rng.standard_normal((37, 32)).astype(np.float32)
+    p0 = {n: rng.standard_normal(s).astype(np.float32) * 0.2 for n, s in
+          (("w_gate", (64, 32)), ("w_up", (64, 32)), ("w_down", (32, 64)))}
+    dy = torch.from_numpy(rng.standard_normal((37, 32)).astype(
+        np.float32)).to(dtype)
+
+    def run(rows, own):
+        monkeypatch.setattr(tlayers, "SILU_BLOCK_BYTES", rows * 64 * 4)
+        x = torch.from_numpy(x0).to(dtype).requires_grad_(True)
+        p = {n: torch.from_numpy(w).to(dtype).requires_grad_(True)
+             for n, w in p0.items()}
+        if own:
+            out = tlayers.swiglu_apply(p, x)
+        else:
+            g, u = (tlayers.linear(x, p[n]).detach().requires_grad_(True)
+                    for n in ("w_gate", "w_up"))
+            keep = (g.clone(), u.clone())
+            out = tlayers._SwiGLUDown.apply(g, u, p["w_down"])
+        out.backward(dy)
+        if own:
+            return out.detach(), p["w_down"].grad, p["w_gate"].grad, \
+                p["w_up"].grad, x.grad
+        assert torch.equal(g, keep[0]) and torch.equal(u, keep[1])
+        dx = g.grad.mm(p["w_gate"].detach()) + u.grad.mm(p["w_up"].detach())
+        return out.detach(), p["w_down"].grad, g.grad.t().mm(x.detach()), \
+            u.grad.t().mm(x.detach()), dx
+    want = run(10 ** 6, False)
+    for rows in (10 ** 6, 5):
+        for a, b in zip(want, run(rows, True)):
+            assert a.dtype == dtype and torch.equal(a, b)
+
+
 def test_tree_unflatten_holds_no_reference_cycle():
     """The tree ``tree_unflatten`` builds is freed as soon as its last
     reference goes, without the garbage collector: a trainer's gradient

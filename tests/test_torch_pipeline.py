@@ -559,3 +559,29 @@ def test_cli_refuses_a_sequence_parallel_axis():
         main(["--device", "cpu", "--reduced", "--mesh", "2x2"])
     with pytest.raises(NotImplementedError, match="item 4"):
         PipelineGeometry(d_p=2, d_s=2)
+
+
+@pytest.mark.parametrize("d_p", [1, 2])
+def test_trainers_free_their_parameters_without_the_collector(d_p):
+    """After ``launch/train.train`` (two float32 steps of reduced gemma3-1b
+    on one stage or two), dropping the trainer frees its parameters at
+    once, with the garbage collector off: no reference cycle (the trainer's
+    gradient hooks, a SwiGLU gradient carrying its projection's graph)
+    keeps a trainer's states on the card into the next phase."""
+    import gc
+    import weakref
+
+    from repro_torch.launch.train import TrainConfig, train
+    cfg = get_arch("gemma3-1b").reduced(n_layers=4)
+    loop = TrainConfig(steps=2, global_batch=4, context=256, seed=0,
+                       compute_dtype="float32", d_p=d_p)
+    gc.collect()
+    gc.disable()
+    try:
+        trainer, _ = train(cfg, loop, device="cpu", log=lambda s: None)
+        params = trainer.params[0] if d_p > 1 else trainer.params
+        refs = [weakref.ref(trainer), weakref.ref(params["embed"])]
+        del trainer, params
+        assert [r() is None for r in refs] == [True, True]
+    finally:
+        gc.enable()
