@@ -280,6 +280,39 @@ exit and no result line):
            ``one_shot_generate`` on serve's first 2 requests cut to 512
            prompt tokens, 4 new tokens each; ids in the vocabulary,
            launches as predicted, no plain call;
+  kernel_encdec  kernels A and A′ in the encoder-decoder's modes at
+           seamless-m4t-v2's heads (16 query and 16 KV heads of 64), as the
+           attention backward cases above with causal = 0: non-causal on
+           train_encdec's largest chunk of step 0 (the encoder: the frames'
+           own segments and positions; bf16) and on train_verify_encdec's
+           largest chunk (float32); cross-attention from that train chunk's
+           tokens to memory rows of the same segments at zero positions,
+           S < T, S = T and S > T (half, as many and 1.5 times each
+           segment's rows; bf16); the faults a causal limit (the encoder's)
+           and a dropped KV tile; every pass visits exactly the tile pairs
+           that hold a live pair; B, C1, C2 at (D 1,024, V 256,206) on both
+           chunks' targets;
+  train_encdec  seamless-m4t-v2 at full width and depth (24 encoder + 24
+           decoder layers) through the stage-split pipeline, bf16 with a
+           float32 AdamW master, every stage on this card, each sequence
+           with as many frames as tokens from the audio stub: 3 steps at
+           2x1 under gpipe-1f1b on train's batches, then one step at 4x1
+           under zero-bubble-h1 (the split backward) on 7 sequences (8 are
+           estimated over 72 GB at 4x1): per step tokens/s, frames, each
+           stage's estimate and the card's peak, launches per stage,
+           solve_s; every loss finite, every peak at or under its plan's
+           estimate, every stage's launches as its plan predicts (A and A′
+           once per encoder layer, twice per decoder layer, per chunk; B,
+           C1, C2 once per chunk on the last stage), no plain call;
+  train_verify_encdec  float32 at full width, 2 + 2 layers, 4 sequences
+           (2,550 tokens) at d_p 2 (gpipe-1f1b) and 4 (zero-bubble-h1), a
+           remat table whose encoder and decoder rows differ: launches as
+           planned; the pipelined step and the whole-batch step (one
+           unchunked ``EncDecLM.loss`` a sequence) within 1e-5 (loss and
+           each gradient leaf), each within 1e-5 of a float64 witness (plain
+           float64 attention and cross-entropy, no kernel); at d_p 4 a
+           causal encoder and the memory's gradient dropped at the last
+           decoder stage fall outside;
   kernels  every kernel of the port with its launch counts on every path
            above (the verify phases' chunked step: the float32 forward, B,
            C1 and C2 run only there).
@@ -689,7 +722,7 @@ CE_ROW_BLOCK = 8192
 
 
 def _plain_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv, dout, window,
-                     row_block=ATTN_ROW_BLOCK):
+                     row_block=ATTN_ROW_BLOCK, causal=True):
     """(out, lse, dq, dk, dv) of the plain attention, over blocks of query
     rows: ``ref.flash_attention_reference``, ``ref.flash_attention_lse``
     and ``ref.flash_attention_grad`` of each block (rows are independent;
@@ -701,11 +734,11 @@ def _plain_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv, dout, window,
     for a in range(0, q.shape[0], row_block):
         b = slice(a, a + row_block)
         rows = (seg_q[b], seg_kv, pos_q[b], pos_kv)
-        outs.append(ref.flash_attention_reference(q[b], k, v, *rows,
-                                                  window=window))
-        lses.append(ref.flash_attention_lse(q[b], k, *rows, window=window))
+        kw = dict(window=window, causal=causal)
+        outs.append(ref.flash_attention_reference(q[b], k, v, *rows, **kw))
+        lses.append(ref.flash_attention_lse(q[b], k, *rows, **kw))
         gq, gk, gv = ref.flash_attention_grad(q[b], k, v, *rows, dout[b],
-                                              window=window)
+                                              **kw)
         dqs.append(gq)
         dk, dv = dk + gk.float(), dv + gv.float()
     return (torch.cat(outs), torch.cat(lses, dim=1), torch.cat(dqs),
@@ -713,12 +746,16 @@ def _plain_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv, dout, window,
 
 
 def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
-                   row_block=ATTN_ROW_BLOCK):
+                   row_block=ATTN_ROW_BLOCK, causal=True):
     """The attention backward (both passes), the forward's output and its
     lse on one training chunk made by ``inputs(gen, dtype)``, against
     autograd of the plain attention in float32 (over blocks of
     ``row_block`` query rows). ``drop``: the KV rows of one live tile, for
-    the dropped-tile fault."""
+    the dropped-tile fault. ``causal=False`` (the encoder-decoder's
+    encoder and cross-attention): the faults are a causal limit where the
+    positions are not all zero (the encoder's; at cross-attention's zero
+    positions it changes nothing) and the dropped tile, and each pass
+    must visit exactly the tile pairs that hold a live pair."""
     import torch
 
     from repro_torch.kernels import ops
@@ -737,10 +774,10 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
     (T, Hq, Dk), (Hkv, Dv) = q.shape, v.shape[1:]
     seg_q, seg_kv, pos_q, pos_kv = meta
 
-    def grads(seg_kv=seg_kv, pos_q=pos_q, window=window):
+    def grads(seg_kv=seg_kv, pos_q=pos_q, window=window, causal=causal):
         qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
         out = ops.flash_attention(qq, kk, vv, seg_q, seg_kv, pos_q, pos_kv,
-                                  window=window)
+                                  window=window, causal=causal)
         out.backward(dout)
         return qq.grad, kk.grad, vv.grad
 
@@ -749,19 +786,19 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
         return max(e for e, _ in errs), all(ok for _, ok in errs)
     want_out, want_lse, *want = _plain_attention(
         q.float(), k.float(), v.float(), *meta, dout.float(), window,
-        row_block)
+        row_block, causal)
     max_err, ok = err_of(grads())
     padded = ops.pad_for_kernel(q, k, v, *meta)
     # the forward as the train step runs it: the tile ranges (bf16), then
     # the forward kernel with lse (and the merge pass where the keys split)
-    fwd_tiles = ops._fwd_tiles(padded, True, window)
+    fwd_tiles = ops._fwd_tiles(padded, causal, window)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     fwd_split = kv_splits(padded[0].shape[0], padded[1].shape[0], Hq, n_sm,
                           dtype)
 
     def forward():
         return flash_attention_cuda(*padded, window=window, with_lse=True,
-                                    tiles=fwd_tiles)
+                                    tiles=fwd_tiles, causal=causal)
     out, lse = forward()
     out_err, out_ok = _within(out[:T], want_out, dtype)
     live, got_lse = torch.isfinite(want_lse), lse[:, :T]
@@ -781,18 +818,22 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
     # the tolerance
     seg_drop = seg_kv.clone()
     seg_drop[drop] = -2
-    faults = {"causal off by one": dict(pos_q=pos_q - 1),
-              "one KV tile dropped": dict(seg_kv=seg_drop)}
+    faults = {"one KV tile dropped": dict(seg_kv=seg_drop)}
+    if causal:
+        faults["causal off by one"] = dict(pos_q=pos_q - 1)
+    elif bool((pos_q != 0).any()):
+        faults["causal limit"] = dict(causal=True)
     if window > 0:
         faults["window + 1"] = dict(window=window + 1)
         faults["window - 1"] = dict(window=window - 1)
     caught, missed, fwd_caught = {}, [], {}
     for fault, change in faults.items():
         caught[fault], inside = err_of(grads(**change))
-        fargs = dict(seg_kv=seg_kv, pos_q=pos_q, window=window) | change
+        fargs = dict(seg_kv=seg_kv, pos_q=pos_q, window=window,
+                     causal=causal) | change
         fwd_caught[fault], fwd_inside = _within(ops.flash_attention(
             q, k, v, seg_q, fargs["seg_kv"], fargs["pos_q"], pos_kv,
-            window=fargs["window"]), want_out, dtype)
+            window=fargs["window"], causal=fargs["causal"]), want_out, dtype)
         if inside or fwd_inside:
             missed.append(fault)
     del want_out, want_lse
@@ -806,16 +847,18 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
     # library's backward excepted: no warm-up launch)
     block = BWD_BLOCK[dtype]
     tiles_ms = _cuda_ms(lambda: flash_bwd_tiles_cuda(
-        *pm, window=window, block=block), iters=5, warmup=0)
-    tiles = flash_bwd_tiles_cuda(*pm, window=window, block=block)
+        *pm, window=window, block=block, causal=causal), iters=5, warmup=0)
+    tiles = flash_bwd_tiles_cuda(*pm, window=window, block=block,
+                                 causal=causal)
     plain_tiles, tiles_plain_ms = _timed(lambda: ref.flash_attention_tiles(
-        *pm, window=window, block=block))
+        *pm, window=window, block=block, causal=causal))
     tiles_err = max(int((getattr(tiles, n).long() - w.long()).abs().max())
                     for n, w in zip(("kv_range", "q_range", "q_summary",
                                      "kv_summary"), plain_tiles))
     del plain_tiles
     bwd_args = (*padded[:3], out, do, lse, *pm)
-    bwd_kw = dict(window=window, delta=torch.empty_like(lse), tiles=tiles)
+    bwd_kw = dict(window=window, delta=torch.empty_like(lse), tiles=tiles,
+                  causal=causal)
     ms = {"dq": _cuda_ms(lambda: flash_bwd_dq_cuda(*bwd_args, **bwd_kw),
                          iters=3, warmup=0),
           "dkdv": _cuda_ms(lambda: flash_bwd_dkdv_cuda(*bwd_args, **bwd_kw),
@@ -830,8 +873,9 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
     del runs
     plain_ms = _cuda_ms(lambda: [ref.flash_attention_grad(
         q[b], k, v, seg_q[b], seg_kv, pos_q[b], pos_kv, dout[b],
-        window=window) for b in (slice(a, a + row_block) for a in
-                                 range(0, T, row_block))],
+        window=window, causal=causal) for b in (slice(a, a + row_block)
+                                                for a in range(0, T,
+                                                               row_block))],
         iters=2, warmup=0)
     # live pairs, and the tile pairs (per head) that hold one at the passes'
     # tile size, over blocks of query rows
@@ -840,7 +884,7 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
     pairs, live_tiles = 0, 0
     for a in range(0, T, 64 * block):
         b = slice(a, a + 64 * block)
-        mask = ref.attention_mask(seg_q[b], seg_kv, pos_q[b], pos_kv, True,
+        mask = ref.attention_mask(seg_q[b], seg_kv, pos_q[b], pos_kv, causal,
                                   window)
         pairs += int(mask.sum()) * Hq
         rows = mask.shape[0]
@@ -850,7 +894,12 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
                           .sum())
         del mask
     tiles_walked = {p: dict(c, live=live_tiles) for p, c in
-                    tile_counts(tiles, window=window).items()}
+                    tile_counts(tiles, window=window, causal=causal).items()}
+    # without a causal limit or a window a tile pair whose summaries meet
+    # holds a live pair (a packed tile's segments are a run of ids): each
+    # pass visits exactly the live tile pairs
+    untight = {p: c for p, c in tiles_walked.items()
+               if not causal and window == 0 and c["visited"] != live_tiles}
     # per live (query, key, head), products of 2 Dk flops (S = Q K^T, dQ =
     # dS K, dK = dS^T Q) or 2 Dv flops (dP = dO V^T, O = P V, dV = P^T dO):
     # the backward as a whole needs S recomputed, dP, dV, dQ, dK (6 Dk +
@@ -882,9 +931,10 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
     fwd_ms = _cuda_ms(forward, iters=3, warmup=0)
     fwd_plain_ms = _cuda_ms(lambda: [
         (ref.flash_attention_reference(q[b], k, v, seg_q[b], seg_kv,
-                                       pos_q[b], pos_kv, window=window),
+                                       pos_q[b], pos_kv, window=window,
+                                       causal=causal),
          ref.flash_attention_lse(q[b], k, seg_q[b], seg_kv, pos_q[b],
-                                 pos_kv, window=window))
+                                 pos_kv, window=window, causal=causal))
         for b in (slice(a, a + row_block) for a in range(0, T, row_block))],
         iters=1, warmup=0)
     bound_ms, bound_by = bounds["all"]
@@ -894,7 +944,7 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
     # and backward, K and V repeated over the GQA group
     library_ms, library_why = None, None
     G = Hq // Hkv
-    mask = ref.attention_mask(seg_q, seg_kv, pos_q, pos_kv, True, window)
+    mask = ref.attention_mask(seg_q, seg_kv, pos_q, pos_kv, causal, window)
     qe = q.transpose(0, 1)[None].detach().requires_grad_(True)
     ke, ve = (t.repeat_interleave(G, dim=1).transpose(0, 1)[None]
               .detach().requires_grad_(True) for t in (k, v))
@@ -919,6 +969,7 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
     torch.cuda.empty_cache()
     rec = dict(case=name, dtype=_dtype_name(dtype), T=q.shape[0],
                S=k.shape[0], Hq=Hq, Hkv=Hkv, D=Dk, Dv=Dv, window=window,
+               causal=causal,
                live_pairs=pairs, max_abs_err=max_err, lse_max_abs_err=lse_err,
                out_max_abs_err=out_err, tol=TOL[_dtype_name(dtype)],
                within_tol=ok and lse_ok and out_ok,
@@ -970,6 +1021,9 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
     if tiles_err:
         raise PhaseError(f"flash_bwd_tiles_kernel disagrees with its plain "
                          f"version: {rec}")
+    if untight:
+        raise PhaseError(f"a backward pass visits tile pairs that hold no "
+                         f"live pair: {untight}; {rec}")
     if missed:
         raise PhaseError(f"the tolerance does not catch {missed}: {rec}")
     if "train chunk" in name and dtype == torch.bfloat16 and fwd_split != 1:
@@ -982,7 +1036,8 @@ CE_HEADS = {"gemma3-1b": (1152, 262144), "llama3.2-3b": (3072, 128256),
             "hymba-1.5b": (1600, 32001), "olmoe-1b-7b": (2048, 50304),
             "deepseek-v2-lite": (2048, 102400),
             "qwen3-4b": (2560, 151936), "qwen2-vl-7b": (3584, 152064),
-            "stablelm-12b": (5120, 100352)}
+            "stablelm-12b": (5120, 100352),
+            "seamless-m4t-v2": (1024, 256206)}
 # the cross-entropy wrapper of each function (cross_entropy.KERNELS names
 # the kernel it launches by dtype)
 CE_WRAPPER = {"B": "fwd", "C1": "dh", "C2": "dw"}
@@ -3570,6 +3625,506 @@ def phase_split_vl(dev, seed):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the encoder-decoder: seamless-m4t-v2 at full width and depth through the
+# stage-split pipeline (24 encoder + 24 decoder layers, 16 heads of 64,
+# D 1,024, V 256,206, the tied head)
+
+SEAMLESS = "seamless-m4t-v2"
+# train_encdec's runs: (mesh, schedule, steps, sequences a batch). 4x1 on
+# github batches of 8 is estimated at 80.2 GB on this card (24.4 + 20.3 +
+# 17.3 + 18.2 GB), over the 72 GB the train phases hold their plans to:
+# it takes 7 sequences (65.2 GB estimated)
+ENCDEC_RUNS = ((2, "gpipe-1f1b", 3, 8), (4, "zero-bubble-h1", 1, 7))
+# train_verify_encdec: 2 encoder and 2 decoder layers at full width, four
+# sequences in chunks of at most 1,280 tokens, and an activation budget
+# per stage beside the model states under which the ILP remats a layer of
+# some chunks on encoder and on decoder stages (tables [[1, 0, 0], [0, 1,
+# 0]] at d_p 2 and [[1, 0, 0], [0, 1, 0], [0, 0, 1], [0, 0, 0]] at 4)
+ENCDEC_VERIFY_LENS = (1200, 700, 400, 250)
+ENCDEC_VERIFY_RUNS = ((2, "gpipe-1f1b", 0.1e9), (4, "zero-bubble-h1",
+                                                 0.05e9))
+
+
+def _encdec_cm(d_p, spec):
+    """The cost model ``launch/train.train`` plans ``d_p`` stages of this
+    card with (:func:`trainer_cm`), for ``spec``."""
+    from repro_torch.core import ClusterSpec, CostModel
+    cl = ClusterSpec()
+    return CostModel(spec, cl.with_(d_p=d_p, hbm_bytes=cl.hbm_bytes / d_p))
+
+
+def _encdec_chunks(seed):
+    """train_encdec's step-0 chunks at 2x1 (:func:`_plan_chunks`: the
+    largest first); a chunk's frames sit at its tokens' rows, so the
+    encoder's seg and pos are its tokens'."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import plan_step
+    cfg = get_arch(SEAMLESS)
+    return _plan_chunks(*plan_step(_encdec_cm(2, cfg.spec), _train_loop(seed),
+                                   0, schedule="gpipe-1f1b", v_stages=1))
+
+
+def _encdec_verify_plan(seed, d_p, schedule, budget, dev):
+    """train_verify_encdec's batch: ``(cfg, corpus, frames, cm, plan)`` at
+    2 + 2 layers, float32 frames from the stub (``sequence_frames``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import PlannerConfig, plan_batch
+    from repro_torch.data.batching import sequence_frames
+    cfg = get_arch(SEAMLESS)
+    cfg = dataclasses.replace(cfg, spec=dataclasses.replace(
+        cfg.spec, n_layers=2, n_encoder_layers=2))
+    rng = np.random.default_rng(seed)
+    corpus = {i: rng.integers(0, cfg.spec.vocab, n).astype(np.int32)
+              for i, n in enumerate(ENCDEC_VERIFY_LENS)}
+    cm = _encdec_cm(d_p, cfg.spec)
+    plan = plan_batch(cm, list(ENCDEC_VERIFY_LENS), PlannerConfig(
+        fixed_k=1, bucket_rounding=64, remat_mode="stage_aware", v_stages=1,
+        sp_degree=1, schedule=schedule, token_capacity=1280,
+        capacity_bytes=max(cm.m_model_states(p) for p in range(1, d_p + 1))
+        + budget))
+    frames = sequence_frames(cfg, corpus, seed, device=dev,
+                             dtype=torch.float32)
+    return cfg, corpus, frames, cm, plan
+
+
+def _cross_meta(seg, frac):
+    """Cross-attention's key side for the query rows ``seg``: each segment
+    of the chunk ``round(frac * L)`` memory rows (at least 1), packed in
+    segment order, padding to a multiple of 64; both sides at position
+    0."""
+    import numpy as np
+    ids, counts = np.unique(seg[seg >= 0], return_counts=True)
+    kseg = np.concatenate([np.full(max(1, round(frac * n)), g, np.int32)
+                           for g, n in zip(ids, counts)])
+    kseg = np.concatenate([kseg, np.full(-len(kseg) % 64, -1, np.int32)])
+    return kseg, np.zeros(len(seg), np.int32), np.zeros(len(kseg), np.int32)
+
+
+def phase_kernel_encdec(dev, seed):
+    """Kernel A and A′ in the encoder-decoder's modes, at its heads (16
+    query and 16 KV heads of 64): non-causal on train_encdec's most packed
+    chunk of step 0 (the encoder: the frames' segments and positions,
+    bf16) and on train_verify_encdec's largest chunk (float32);
+    cross-attention from that train chunk's tokens to memory rows of the
+    same segments, ``S < T``, ``S = T`` and ``S > T`` (half, as many and
+    1.5 times each segment's rows; zero positions, bf16); B, C1, C2 at
+    (D 1,024, V 256,206) on the two chunks' targets. Each attention case
+    visits exactly its live tile pairs (``_attn_bwd_case``)."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    Hq, Hkv, D = 16, 16, 64
+    # the most packed chunk: the encoder's segments and cross-attention's
+    # pairing by segment id both show there
+    chunk, tgt, seg, pos = max(_encdec_chunks(seed), key=lambda c: (
+        len(c[0].slices), c[0].tokens))
+    name = (f"{SEAMLESS} train chunk ({chunk.tokens} tokens, "
+            f"{len(chunk.slices)} sequences)")
+    a0 = int((seg >= 0).argmax())
+    n0 = int((seg == seg[a0]).sum())
+    r = a0 + min(1024, n0 // 2 // 32 * 32)
+
+    def encoder(gen, dtype):
+        return _plan_chunk(gen, seg, pos, Hq, Hkv, D, dtype, dev)
+
+    def cross(frac):
+        kseg, zq, zk = _cross_meta(seg, frac)
+
+        def inputs(gen, dtype):
+            def mk(*shape):
+                return torch.randn(shape, generator=gen, device=dev,
+                                   dtype=torch.float32).to(dtype)
+            meta = [torch.from_numpy(x).to(dev) for x in (seg, kseg, zq, zk)]
+            T, S = len(seg), len(kseg)
+            return mk(T, Hq, D), mk(S, Hkv, D), mk(S, Hkv, D), mk(T, Hq, D), \
+                meta
+        return inputs, len(kseg)
+    _, v_corpus, _, _, v_plan = _encdec_verify_plan(
+        seed, *ENCDEC_VERIFY_RUNS[0], dev)
+    v_chunk, v_tgt, v_seg, v_pos = _plan_chunks(v_corpus, v_plan)[0]
+
+    def verify(gen, dtype):
+        return _plan_chunk(gen, v_seg, v_pos, Hq, Hkv, D, dtype, dev)
+    cases = [(f"{name} encoder", encoder, slice(r, r + 32), bf16)]
+    for frac, tag in ((0.5, "S < T"), (1.0, "S = T"), (1.5, "S > T")):
+        inputs, S = cross(frac)
+        cases.append((f"{name} cross-attention to {S} memory rows ({tag})",
+                      inputs, slice(32, 64), bf16))
+    cases.append((f"train_verify_encdec chunk ({v_chunk.tokens} tokens) "
+                  f"encoder", verify, slice(32, 64), f32))
+    bwd = []
+    for case, inputs, drop, dtype in cases:
+        bwd.append(_attn_bwd_case(case, inputs, drop, 0, dtype, dev,
+                                  61 + len(bwd), causal=False))
+        print(f"[kernel] attention backward {json.dumps(bwd[-1])}",
+              flush=True)
+        torch.cuda.empty_cache()
+    ce = []
+    for dtype, seed_, targets, case in (
+            (bf16, 66, torch.from_numpy(tgt), name),
+            (f32, 67, torch.from_numpy(v_tgt),
+             f"train_verify_encdec chunk ({v_chunk.tokens} tokens)")):
+        ce.append(_ce_case(SEAMLESS, dtype, dev, seed_, targets=targets,
+                           case=case))
+        for rec in ce[-1].values():
+            print(f"[kernel] cross-entropy {json.dumps(rec)}", flush=True)
+        torch.cuda.empty_cache()
+    return bwd, ce
+
+
+def _expected_encdec_launches(cfg, plan, d_p, dtype, n_sm,
+                              policy="stage-aware"):
+    """Each stage's launches in one encoder-decoder step of ``plan``: per
+    chunk and layer an encoder stage runs one attention op (non-causal),
+    a decoder stage two (causal self-attention and cross-attention), each
+    a forward with its tile ranges, once more per remat'd layer (the
+    stage's row of the plan's table, at most its layers), and one of each
+    backward pass; a merge pass where the bf16 forward splits the keys
+    (``kv_splits``; the frames are the tokens' rows, so every op of a
+    chunk has its shape); B, C1, C2 once per chunk on the last stage; the
+    split's W runs cuBLAS products only; no plain call."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import BLOCK_KV, kv_splits
+    from repro_torch.runtime.sharding import encdec_stage_layers
+    from repro_torch.runtime.train_step import _rows, _table
+    s = cfg.spec
+    layout = encdec_stage_layers(s.n_encoder_layers, s.n_layers, d_p)
+    table = _table(plan, d_p, policy)
+    chunks = [c for p in plan.pipelines for c in p.chunks]
+    split = [dtype == torch.bfloat16 and kv_splits(
+        _rows(c.tokens), -(-_rows(c.tokens) // BLOCK_KV) * BLOCK_KV,
+        s.n_heads, n_sm) > 1 for c in chunks]
+    out = []
+    for p, (role, ids) in enumerate(layout):
+        ops_ = 1 if role == "encoder" else 2
+        fwd = ops_ * sum(len(ids) + min(table[p][k], len(ids))
+                         for k in range(len(chunks)))
+        bwd = ops_ * len(ids) * len(chunks)
+        exp = _expected_launches(cfg, plan, [0] * len(chunks), dtype)
+        for k in exp:
+            if k.startswith("plain"):
+                continue
+            if k.startswith("ce_"):
+                exp[k] = exp[k] if p == d_p - 1 else 0
+            elif k in ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"):
+                exp[k] = bwd
+            elif k == "flash_combine_kernel":
+                exp[k] = ops_ * sum(
+                    len(ids) + min(table[p][k2], len(ids))
+                    for k2 in range(len(chunks)) if split[k2])
+            elif exp[k]:                    # the forward and its ranges
+                exp[k] = fwd
+        out.append(exp)
+    return out
+
+
+class _StageTimes:
+    """Each stage's device time by action (``F``, ``B``, ``W``): CUDA
+    events recorded on the current stream before and after every action
+    the executor runs (every stage here is on one card and one stream, so
+    an action's span holds its kernels and any idle time between them);
+    :meth:`drain` sums the finished spans in ms, by stage."""
+
+    def __init__(self):
+        self.pending = []
+
+    @contextlib.contextmanager
+    def patched(self):
+        import torch
+
+        from repro_torch.runtime.executor import PipelineExecutor
+        run = PipelineExecutor._run
+
+        def timed(ex, p, a):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            run(ex, p, a)
+            ev[1].record()
+            self.pending.append((p, a.op, *ev))
+        PipelineExecutor._run = timed
+        try:
+            yield self
+        finally:
+            PipelineExecutor._run = run
+
+    def drain(self):
+        import torch
+        torch.cuda.synchronize()
+        out = {}
+        for p, op, a, b in self.pending:
+            d = out.setdefault(p, {})
+            d[op] = d.get(op, 0.0) + a.elapsed_time(b)
+        self.pending = []
+        return out
+
+
+def phase_train_encdec(dev, seed):
+    """seamless-m4t-v2 at full width and depth, bf16 with a float32 AdamW
+    master, through ``launch/train.train`` (:data:`ENCDEC_RUNS`: 3 steps at
+    2x1 under gpipe-1f1b, then one step at 4x1 under zero-bubble-h1 with
+    the split backward, every stage on this card), each sequence with as
+    many frames as tokens from the stub: per step the tokens/s (valid
+    decoder tokens over the step's wall time), the frames, each stage's
+    estimate and the card's peak beside their sum, the launches per stage,
+    each stage's device time by action (:class:`_StageTimes`) and
+    ``solve_s``; every loss finite, every peak at or under the plan's
+    estimate, every stage's launches as its plan predicts and no plain
+    call."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    cfg = get_arch(SEAMLESS)
+    recs, totals = [], {}
+    for d_p, sched, steps, batch in ENCDEC_RUNS:
+        loop = _train_loop(seed)
+        loop.steps, loop.d_p, loop.schedule = steps, d_p, sched
+        loop.global_batch = batch
+        ctr = _train_counters()
+        tally, expected, lines, times = {}, [], [], _StageTimes()
+        stage_ms = []
+
+        def on_step(step, plan, corpus):
+            if expected:
+                _check_stage_launches(tally, expected[-1],
+                                      f"({d_p}x1) step {step - 1}")
+                stage_ms.append(times.drain())
+            expected.append(_expected_encdec_launches(
+                cfg, plan, d_p, torch.bfloat16, n_sm))
+            for t in tally.values():
+                for k, n in t.items():
+                    totals[k] = totals.get(k, 0) + n
+            tally.clear()
+            _zero_counts(ctr)
+        with _per_stage(ctr, tally), times.patched():
+            trainer, hist = train(cfg, loop, device=dev, on_step=on_step,
+                                  log=lines.append)
+        stage_ms.append(times.drain())
+        _check_stage_launches(tally, expected[-1], f"({d_p}x1) last step")
+        got = [dict(tally.get(p, {})) for p in range(d_p)]
+        for t in tally.values():
+            for k, n in t.items():
+                totals[k] = totals.get(k, 0) + n
+        for ln in lines:
+            print(f"[train_encdec] ({d_p}x1) {ln}", flush=True)
+        for i, (h, exp, ms) in enumerate(zip(hist, expected, stage_ms)):
+            rec = dict(h, mesh=f"{d_p}x1", batch=batch, stage_launches=exp,
+                       stage_device_ms={p: ms[p] for p in sorted(ms)})
+            if i == len(hist) - 1:
+                rec["stage_launches_got"] = got
+            recs.append(rec)
+            if not math.isfinite(h["loss"]):
+                raise PhaseError(f"non-finite loss: {rec}")
+            if h["card_peak_mem_gb"][0] > h["card_plan_mem_gb"][0]:
+                raise PhaseError(
+                    f"the card's peak {h['card_peak_mem_gb'][0]} GB is above "
+                    f"the sum of its stages' estimates "
+                    f"{h['card_plan_mem_gb'][0]} GB: {rec}")
+        del trainer
+        torch.cuda.empty_cache()
+    return recs, totals
+
+
+@contextlib.contextmanager
+def _plain_float64_encdec():
+    """:func:`_plain_float64` with the decoder's cross-attention made of
+    its projections and that plain attention (its own autograd function
+    takes the kernels)."""
+    import torch
+
+    import repro_torch.models.encdec as encdec
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import _cross_kv
+    saved = encdec.cross_attention
+
+    def cross(q, memory, wk, wv, seg_q, seg_kv, *, heads, scale):
+        k, v = _cross_kv(memory, wk, wv, heads, q.shape[-1])
+        zq, zk = (torch.zeros_like(t) for t in (seg_q, seg_kv))
+        return ops.flash_attention(q, k, v, seg_q, seg_kv, zq, zk,
+                                   causal=False, scale=scale)
+    encdec.cross_attention = cross
+    try:
+        with _plain_float64():
+            yield
+    finally:
+        encdec.cross_attention = saved
+
+
+def _encdec_witness(cfg, params, corpus, frames, dev):
+    """The encoder-decoder verify step's loss and gradients in float64,
+    independent of the kernels: one ``EncDecLM.loss`` per sequence through
+    :func:`_plain_float64_encdec`; the gradients in ``from_stages``' leaf
+    order."""
+    import torch
+
+    from repro_torch.models import EncDecLM
+    from repro_torch.models.model import tree_leaves, tree_map
+    from repro_torch.runtime.train_step import sequence_rows
+    p64 = tree_map(lambda a: a.detach().to(dev, torch.float64, copy=True)
+                   .requires_grad_(True), params)
+    n_valid = sum(max(len(t) - 1, 0) for t in corpus.values())
+    total = 0.0
+    with _plain_float64_encdec():
+        model = EncDecLM(cfg)
+        for sid in sorted(corpus):
+            toks, tgt, seg, pos = (torch.from_numpy(a).to(dev)
+                                   for a in sequence_rows(corpus[sid]))
+            fr = frames[sid].to(dev, torch.float64)
+            fr = torch.cat([fr, fr.new_zeros((len(seg) - len(fr),
+                                              fr.shape[1]))])
+            loss, _ = model.loss(p64, fr, seg, pos, toks, tgt, seg, pos,
+                                 compute_dtype=torch.float64)
+            (loss / n_valid).backward()
+            total += float(loss.detach())
+    grads = [p.grad.cpu() for p in tree_leaves(p64)]
+    del p64
+    return total / n_valid, grads
+
+
+@contextlib.contextmanager
+def _encdec_fault(fault):
+    """A planted encoder-decoder fault (undone on exit): ``"causal
+    encoder"`` runs the encoder's self-attention with a causal limit;
+    ``"memory gradient dropped"`` zeroes the memory's gradient that the
+    last (decoder) stage hands back, so the stage before it passes on
+    only its own layers' part."""
+    import torch
+
+    import repro_torch.models.encdec as encdec
+    from repro_torch.runtime.executor import PipelineExecutor
+    if fault == "causal encoder":
+        obj, name, orig = encdec, "attention_block", encdec.attention_block
+
+        def faulty(*a, **kw):
+            return orig(*a, **dict(kw, causal=True))
+    elif fault == "memory gradient dropped":
+        obj, name = PipelineExecutor, "_send_grad"
+        orig = PipelineExecutor._send_grad
+
+        def faulty(self, s, k, g):
+            if s == self.d_p - 1:
+                g = (torch.zeros_like(g[0]), *g[1:])
+            orig(self, s, k, g)
+    else:
+        raise ValueError(fault)
+    setattr(obj, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+ENCDEC_FAULTS = ("causal encoder", "memory gradient dropped")
+
+
+def phase_train_verify_encdec(dev, seed):
+    """seamless-m4t-v2 in float32 at full width on 2 + 2 layers, the
+    verify sequences (:data:`ENCDEC_VERIFY_LENS`) at d_p 2 (gpipe-1f1b)
+    and 4 (zero-bubble-h1, the split backward), each under a remat table
+    whose encoder and decoder rows differ: the pipelined step launches
+    the kernels as its plan predicts; it and the whole-batch step
+    (``EncDecTrainer.sequence_loss_and_grads``: one unchunked
+    ``EncDecLM.loss`` a sequence) agree within VERIFY_LIMIT (the loss and
+    each gradient leaf relative to its largest value), and each agrees
+    with the float64 witness (:func:`_encdec_witness`, no kernel); at d_p
+    4 both :data:`ENCDEC_FAULTS` fall outside the limit."""
+    import torch
+
+    from repro_torch.core.schedule import get_schedule
+    from repro_torch.models import EncDecLM
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.runtime.encdec_pipeline import EncDecGeometry
+    from repro_torch.runtime.train_step import EncDecTrainer
+    from repro_torch.weights import from_stages
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    out, totals = {}, {}
+    for d_p, sched, budget in ENCDEC_VERIFY_RUNS:
+        cfg, corpus, frames, cm, plan = _encdec_verify_plan(seed, d_p, sched,
+                                                            budget, dev)
+        table = plan.ckpt_table()
+        if table[0] == table[-1] or not any(map(any, table)):
+            raise PhaseError(f"the verify plan's remat table lacks rows that "
+                             f"differ: {table}")
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = EncDecLM(cfg).init(gen, device=dev)
+        t0 = time.perf_counter()
+        witness = _encdec_witness(cfg, params, corpus, frames, dev)
+        witness_s = time.perf_counter() - t0
+        geom = EncDecGeometry(d_p=d_p, schedule=sched,
+                              split_bwd=get_schedule(sched, 1).split_bwd)
+        tr = EncDecTrainer(cfg, params, geometry=geom, cards=[dev],
+                           compute_dtype=torch.float32, cost_model=cm)
+        del params
+        ctr = _train_counters()
+        tally = {}
+        expected = _expected_encdec_launches(cfg, plan, d_p, torch.float32,
+                                             n_sm)
+        _zero_counts(ctr)
+        with _per_stage(ctr, tally):
+            run = tr.loss_and_grads(plan, corpus, frames)
+        _check_stage_launches(tally, expected, f"verify {d_p}x1")
+        for t in tally.values():
+            for k, n in t.items():
+                totals[k] = totals.get(k, 0) + n
+        whole = tr.sequence_loss_and_grads(corpus, frames)
+        names = _leaf_names(from_stages(cfg, tr.params))
+
+        def against_whole(r):
+            worst, leaf = 0.0, 0
+            for i, (a, b) in enumerate(zip(tree_leaves(r.grads),
+                                           tree_leaves(whole.grads))):
+                x = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                     1e-30)
+                if x > worst:
+                    worst, leaf = x, i
+            rel = abs(r.loss - whole.loss) / abs(whole.loss)
+            return {"loss": r.loss, "loss_rel_diff": rel,
+                    "grad_max_rel_diff": worst,
+                    "grad_max_rel_diff_leaf": names[leaf],
+                    "within": rel <= VERIFY_LIMIT and worst <= VERIFY_LIMIT
+                    and r.n_valid == whole.n_valid}
+        rec = {"mesh": f"{d_p}x1", "schedule": sched, "remat_table": table,
+               "chunks": [c.tokens for p in plan.pipelines for c in p.chunks],
+               "limit": VERIFY_LIMIT, "pipelined": against_whole(run),
+               "loss_whole_batch": whole.loss,
+               "float64 witness": {
+                   "seconds": witness_s, "loss": witness[0],
+                   "pipelined": _against_float64(run, witness, names),
+                   "whole batch": _against_float64(whole, witness, names)},
+               "stage_launches": expected}
+        del run
+        bad = [k for k in ("pipelined", "whole batch")
+               if max(rec["float64 witness"][k]["loss_rel_diff"],
+                      rec["float64 witness"][k]["grad_max_rel_diff"])
+               > VERIFY_LIMIT]
+        if d_p == 4:
+            for fault in ENCDEC_FAULTS:
+                with _encdec_fault(fault):
+                    rec[fault] = against_whole(tr.loss_and_grads(
+                        plan, corpus, frames))
+        out[f"{d_p}x1"] = rec
+        del whole, tr, witness
+        torch.cuda.empty_cache()
+        if not rec["pipelined"]["within"] or bad:
+            raise PhaseError(f"the pipelined step, the whole-batch step and "
+                             f"the float64 witness differ: {rec}")
+        caught = [f for f in ENCDEC_FAULTS if f in rec and
+                  rec[f]["within"]]
+        if caught:
+            raise PhaseError(f"the limit does not catch {caught}: {rec}")
+    out["launches"] = totals
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3812,6 +4367,24 @@ def main() -> int:
               flush=True)
         torch.cuda.empty_cache()
 
+    # the encoder-decoder: A and A′ non-causal and across two streams, B /
+    # C1 / C2 at its head; seamless-m4t-v2 trained at full width and depth
+    # through the stage-split pipeline and verified in float32
+    (e_bwd, e_ce), dt = run("kernel_encdec", lambda: phase_kernel_encdec(
+        dev, args.seed))
+    print(f"[kernel_encdec] ok in {dt:.1f}s", flush=True)
+    (e_trn, encdec_counts), dt = run("train_encdec", lambda:
+                                     phase_train_encdec(dev, args.seed))
+    for rec in e_trn:
+        print(f"[train_encdec] {json.dumps(rec)}", flush=True)
+    print(f"[train_encdec] ok in {dt:.1f}s", flush=True)
+    ver, dt = run("train_verify_encdec", lambda: phase_train_verify_encdec(
+        dev, args.seed))
+    print(f"[train_verify_encdec] ok in {dt:.1f}s: {json.dumps(ver)}",
+          flush=True)
+    encdec_verify_counts = ver["launches"]
+    torch.cuda.empty_cache()
+
     # launches per path: the serving engines, the bf16 train steps, the
     # float32 verify phases' chunked step (the float32 B and C1 run only
     # there), the pipelines, the one-shot generators
@@ -3824,7 +4397,9 @@ def main() -> int:
              "train_verify_moe": verify_moe_counts,
              "train_mla": train_mla_counts,
              "train_verify_mla": verify_mla_counts,
-             "generate_mla": gen_mla_counts, **dense_counts}
+             "generate_mla": gen_mla_counts, **dense_counts,
+             "train_encdec": encdec_counts,
+             "train_verify_encdec": encdec_verify_counts}
     print("[kernels] " + "; ".join(f"{p}: {json.dumps(c)}"
                                    for p, c in paths.items())
           + f"; total {time.perf_counter() - t_start:.1f}s", flush=True)
@@ -3858,7 +4433,7 @@ def main() -> int:
     def _bwd_also(rec, p):  # an attention backward pass of another case
         return {"case": rec["case"], "dtype": rec["dtype"], "T": rec["T"],
                 "S": rec["S"], "Hq": rec["Hq"], "D": rec["D"],
-                "Dv": rec["Dv"],
+                "Dv": rec["Dv"], "causal": rec.get("causal", True),
                 "ms": rec[f"kernel_ms_{p}"], "bound_ms": rec[f"bound_ms_{p}"],
                 "bound_by": rec[f"bound_by_{p}"],
                 "plain_ms": rec["plain_ms"], "library_ms": rec["library_ms"],
@@ -3873,17 +4448,25 @@ def main() -> int:
     fig_bf16 = [r for r in fig if r["dtype"] == "bfloat16"]
     fig_f32 = [r for r in fig if r["dtype"] == "float32"]
     dense_gce, dense_vce = d_ce[:3], d_ce[3]    # bf16 at 3 heads, float32
+    # the encoder-decoder: the encoder (non-causal) and the three cross
+    # cases on the train chunk, bf16; the encoder on the verify chunk,
+    # float32; its head on both chunks
+    enc_bf16, enc_f32 = e_bwd[:4], e_bwd[4]
+    enc_gce, enc_vce = e_ce
 
     def _fwd(rec):          # the attention forward of one case
         keys = ("case", "dtype", "T", "S", "Hq", "D", "Dv", "window")
         if "fwd_ms" not in rec:             # an engine-step case: the op
-            return {**{k: rec[k] for k in keys}, "n_split": rec["n_split"],
+            return {**{k: rec[k] for k in keys}, "causal": True,
+                    "n_split": rec["n_split"],
                     "ms": rec["kernel_ms"], "ms_is": rec["kernel_ms_is"],
                     "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                     "plain_ms": rec["plain_ms"],
                     "library_ms": rec["library_ms"],
                     "max_abs_err": rec["max_abs_err"]}
-        return {**{k: rec[k] for k in keys}, "n_split": rec["fwd_n_split"],
+        return {**{k: rec[k] for k in keys},
+                "causal": rec.get("causal", True),
+                "n_split": rec["fwd_n_split"],
                 "ms": rec["fwd_ms"], "bound_ms": rec["fwd_bound_ms"],
                 "bound_by": rec["fwd_bound_by"],
                 "plain_ms": rec["fwd_plain_ms"],
@@ -3941,14 +4524,14 @@ def main() -> int:
                          "EFFICIENT_ATTENTION backend, the same boolean mask",
               also=[_fwd(r) for r in (gb_local, h_attn, moe_gb, mla_gb,
                                       mla_fwd, g, cases[1], cases[2], st_gb,
-                                      d_fwd, *fig_bf16)]),
+                                      d_fwd, *fig_bf16, *enc_bf16)]),
         entry("flash_fwd_kernel", fa, tpu_fa, vb, **_fwd(vb),
               ms_covers="the forward as the train step runs it, with lse: "
                         "split pass and merge pass",
               library_is="scaled_dot_product_attention forward, "
                          "EFFICIENT_ATTENTION backend, the same boolean mask",
               also=[_fwd(r) for r in (vb_h, moe_vb, mla_vb, g32,
-                                      cases[4], st_vb, *fig_f32)]),
+                                      cases[4], st_vb, *fig_f32, enc_f32)]),
         entry("flash_combine_kernel", fa, tpu_fa, m,
               also=[{k: d_merge[k] for k in ("case", "dtype", "T", "n_split",
                                              "kernel_ms", "bound_ms",
@@ -3962,7 +4545,7 @@ def main() -> int:
               "on library_case (library_case_ms: both backward passes)",
               also=[_bwd_also(r, "dkdv") for r in (moe_gb, moe_vb, mla_gb,
                                                    mla_vb, st_gb, st_vb,
-                                                   *fig)]),
+                                                   *fig, *e_bwd)]),
         entry("flash_bwd_dq_kernel", fa, tpu_fa + " (its gradient)", gb,
               ms=gb["kernel_ms_dq"], bound_ms=gb["bound_ms_dq"],
               bound_by=gb["bound_by_dq"], plain_is=gb["plain_is"],
@@ -3972,42 +4555,53 @@ def main() -> int:
               "on library_case (library_case_ms: both backward passes)",
               also=[_bwd_also(r, "dq") for r in (moe_gb, moe_vb, mla_gb,
                                                  mla_vb, st_gb, st_vb,
-                                                 *fig)]),
+                                                 *fig, *e_bwd)]),
         entry("flash_bwd_tiles_kernel", fa, tpu_fa + " (its gradient)", gb,
               max_abs_err=gb["tiles_max_abs_err"], ms=gb["tiles_ms"],
               plain_ms=gb["tiles_plain_ms"], bound_ms=gb["tiles_bound_ms"],
               bound_by=gb["tiles_bound_by"], library_ms=None,
               ms_covers="the backward passes' tile ranges and summaries",
-              plain_is="ref.flash_attention_tiles (from the mask)"),
+              plain_is="ref.flash_attention_tiles (from the mask)",
+              also=[{"case": r["case"], "causal": r["causal"],
+                     "ms": r["tiles_ms"], "bound_ms": r["tiles_bound_ms"],
+                     "plain_ms": r["tiles_plain_ms"], "tiles": r["tiles"],
+                     "max_abs_err": r["tiles_max_abs_err"]}
+                    for r in e_bwd]),
         entry("ce_fwd_mma_kernel", cs, tpu_ce + ":79", gce["B"],
               library_is=gce["B"]["library_is"],
               library_bf16_ms=gce["B"]["library_bf16_ms"],
               library_bf16_is=gce["B"]["library_bf16_is"],
               also=_also(moe_gce["B"]) + _also(moe_tce["B"])
               + _also(mla_gce["B"])
-              + [x for r in dense_gce for x in _also(r["B"])]),
+              + [x for r in dense_gce for x in _also(r["B"])]
+              + _also(enc_gce["B"])),
         entry("ce_bwd_dh_mma_kernel", cs, tpu_ce + ":159", gce["C1"],
               max_active_clusters={D: o["dh"] for D, o in d_occ.items()},
               cluster_slices={D: o["slices"] for D, o in d_occ.items()},
               also=_also(moe_gce["C1"]) + _also(moe_tce["C1"])
               + _also(mla_gce["C1"])
-              + [x for r in dense_gce for x in _also(r["C1"])]),
+              + [x for r in dense_gce for x in _also(r["C1"])]
+              + _also(enc_gce["C1"])),
         entry("ce_fwd_kernel", cs, tpu_ce + ":79", vce["B"],
               library_is=vce["B"]["library_is"],
               also=_also(vce_h["B"]) + _also(moe_vce["B"])
-              + _also(mla_vce["B"]) + _also(dense_vce["B"])),
+              + _also(mla_vce["B"]) + _also(dense_vce["B"])
+              + _also(enc_vce["B"])),
         entry("ce_bwd_kernel<dh>", cs, tpu_ce + ":159", vce["C1"],
               also=_also(vce_h["C1"]) + _also(moe_vce["C1"])
-              + _also(mla_vce["C1"]) + _also(dense_vce["C1"])),
+              + _also(mla_vce["C1"]) + _also(dense_vce["C1"])
+              + _also(enc_vce["C1"])),
         entry("ce_bwd_dw_mma_kernel", cs, tpu_ce + ":222", gce["C2"],
               max_active_clusters={D: o["dw"] for D, o in d_occ.items()},
               cluster_slices={D: o["slices"] for D, o in d_occ.items()},
               also=_also(h_ce["C2"]) + _also(moe_gce["C2"])
               + _also(moe_tce["C2"]) + _also(mla_gce["C2"])
-              + [x for r in dense_gce for x in _also(r["C2"])]),
+              + [x for r in dense_gce for x in _also(r["C2"])]
+              + _also(enc_gce["C2"])),
         entry("ce_bwd_kernel<dw>", cs, tpu_ce + ":222", vce["C2"],
               also=_also(vce_h["C2"]) + _also(moe_vce["C2"])
-              + _also(mla_vce["C2"]) + _also(dense_vce["C2"])),
+              + _also(mla_vce["C2"]) + _also(dense_vce["C2"])
+              + _also(enc_vce["C2"])),
         *[scan_entry(name, rec) for name in SCAN_KERNELS
           for rec in gated[:1]]]}
     print(smi)

@@ -14,6 +14,15 @@ Conventions the executor depends on:
 * padding positions carry seg = -1, target = -1;
 * ``ctx_len[k]`` = the chunk's context length C_k (0 => the context buffer
   and SSM state implicitly reset).
+
+The encoder-decoder's chunks (:func:`materialize_encdec_plan`) carry
+frames beside the tokens: each sequence brings as many frames as tokens
+(the reference's ``cap_enc = cap``), laid out as its tokens are, so a
+sequence's frames carry its tokens' segment id (cross-attention pairs
+rows by it) and its positions. The frames themselves are the frontend
+stub's embeddings (:func:`sequence_frames`, a generator seeded per
+sequence), gathered into a chunk's ``[cap_enc, D]`` rows by
+``frame_idx`` (row 0 of :func:`frame_table` is the pad rows' zeros).
 """
 
 from __future__ import annotations
@@ -25,7 +34,9 @@ import numpy as np
 
 from repro_torch.core.plan import Chunk, ExecutionPlan
 
-__all__ = ["ChunkBatch", "materialize_plan", "materialize_chunks"]
+__all__ = ["ChunkBatch", "EncDecChunkBatch", "materialize_plan",
+           "materialize_chunks", "materialize_encdec_plan",
+           "sequence_frames", "frame_table"]
 
 
 @dataclass
@@ -82,3 +93,60 @@ def materialize_plan(plan: ExecutionPlan, corpus: Dict[int, np.ndarray]
     for p in plan.pipelines:
         chunks.extend(p.chunks)
     return materialize_chunks(chunks, corpus, plan.chunk_capacity)
+
+
+@dataclass
+class EncDecChunkBatch(ChunkBatch):
+    seg_enc: np.ndarray     # [n_chunks, cap_enc] int32 (-1: pad frame)
+    pos_enc: np.ndarray
+    frame_idx: np.ndarray   # [n_chunks, cap_enc] int64 rows of frame_table
+
+
+def materialize_encdec_plan(plan: ExecutionPlan,
+                            corpus: Dict[int, np.ndarray]) -> EncDecChunkBatch:
+    """:func:`materialize_plan` with each chunk's frames: ``cap_enc = cap``,
+    a slice's frames at its tokens' rows with their segment id and
+    positions, ``frame_idx`` the rows of :func:`frame_table` (sequences in
+    sorted id order) that fill them."""
+    b = materialize_plan(plan, corpus)
+    start, off = {}, 1
+    for sid in sorted(corpus):
+        start[sid] = off
+        off += len(corpus[sid])
+    idx = np.zeros(b.seg.shape, np.int64)
+    chunks = [c for p in plan.pipelines for c in p.chunks]
+    for k, ch in enumerate(chunks):
+        row = 0
+        for sl in ch.slices:
+            idx[k, row:row + sl.length] = start[sl.seq_id] + sl.start + \
+                np.arange(sl.length)
+            row += sl.length
+    return EncDecChunkBatch(b.tokens, b.targets, b.seg, b.pos, b.ctx_len,
+                            seg_enc=b.seg.copy(), pos_enc=b.pos.copy(),
+                            frame_idx=idx)
+
+
+def sequence_frames(cfg, corpus: Dict[int, np.ndarray], seed: int, *,
+                    device, dtype=None) -> Dict:
+    """Each sequence's frames ``[L, D]`` (``L`` its token count) from
+    ``models/frontends.audio_frame_stub``, drawn from a generator on
+    ``device`` seeded with ``(seed, sequence id)``."""
+    import torch
+
+    from repro_torch.models.frontends import audio_frame_stub
+    out = {}
+    for sid in sorted(corpus):
+        gen = torch.Generator(device=device).manual_seed(
+            seed * 1_000_003 + int(sid))
+        out[sid] = audio_frame_stub(cfg, gen, len(corpus[sid]),
+                                    device=device,
+                                    dtype=dtype or torch.bfloat16)
+    return out
+
+
+def frame_table(frames: Dict):
+    """The sequences' frames (sorted by id) in one ``[1 + sum L, D]``
+    table behind a zero row, the rows ``frame_idx`` indexes."""
+    import torch
+    rows = [frames[sid] for sid in sorted(frames)]
+    return torch.cat([rows[0].new_zeros((1, rows[0].shape[1])), *rows])

@@ -43,6 +43,17 @@ stages of one H100:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \
       --steps 2 --batch 8 --context 16384 --mesh 2x1
 
+The encoder-decoder seamless-m4t-v2 trains only pipelined (``--mesh Px1``
+with ``P >= 2``: ``core.checkpointing.encoder_stage_split`` gives the
+leading stages the encoder and the rest the decoder; ``--mesh 1x1`` exits
+with its message), planned as the reference's train step plans it (``K =
+1``: the encoder is pack-only; one virtual stage), each sequence with as
+many frames as tokens from the audio-frame stub. At full width and depth
+on two stages of one H100:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch seamless-m4t-v2 \
+      --steps 3 --batch 8 --context 16384 --mesh 2x1 --schedule gpipe-1f1b
+
 Each step prints one line: loss, valid tokens, wall time, tokens per
 second, the card's peak allocated memory and the plan's own peak-memory
 estimate; pipelined, also each stage's estimate (and the planner's memory
@@ -127,9 +138,15 @@ def plan_step(cm, loop: TrainConfig, step: int, *,
                                  seed=loop.seed + step)
     remat_mode = ("stage_aware" if loop.ckpt_policy == "stage-aware"
                   else "uniform")
+    pinned = {}
+    if cm.model.is_encoder_decoder:
+        # the reference's encoder-decoder cell: K = 1 (the encoder is
+        # pack-only), one virtual stage, the whole (unported) SP axis
+        pinned = dict(fixed_k=1, sp_degree=cm.cluster.d_s)
+        v_stages = 1
     pconf = PlannerConfig(bucket_rounding=BUCKET_ROUNDING,
                           remat_mode=remat_mode, schedule=schedule,
-                          v_stages=v_stages)
+                          v_stages=v_stages, **pinned)
     return corpus, plan_batch(cm, [len(v) for v in corpus.values()], pconf)
 
 
@@ -150,7 +167,8 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
 
     from repro_torch.core import ClusterSpec, CostModel
     from repro_torch.device import dtype_of
-    from repro_torch.models import DecoderLM
+    from repro_torch.data.batching import sequence_frames
+    from repro_torch.models import DecoderLM, EncDecLM
     from repro_torch.runtime.train_step import ChunkedTrainer
 
     device = torch.device(device)
@@ -167,9 +185,11 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
         cm.token_capacity()
     except ValueError as e:
         raise PlanError(f"{cfg.name}: no plan for this cluster: {e}") from e
+    encdec = cfg.spec.is_encoder_decoder
     if params is None:
         gen = torch.Generator(device=device).manual_seed(loop.seed)
-        params = DecoderLM(cfg).init(gen, device=device)
+        params = (EncDecLM if encdec else DecoderLM)(cfg).init(
+            gen, device=device)
     trainer = None
     if d_p == 1:
         trainer = ChunkedTrainer(cfg, params, device=device,
@@ -197,8 +217,14 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
             if c.type == "cuda":
                 torch.cuda.synchronize(c)
                 torch.cuda.reset_peak_memory_stats(c)
+        # the encoder-decoder's frames: each sequence's from the frontend
+        # stub (set-up, outside the step's time)
+        data = (sequence_frames(cfg, corpus, loop.seed + step,
+                                device=cards[0], dtype=dtype),) \
+            if encdec else ()
         t0 = time.perf_counter()
-        res = trainer.step(plan, corpus, remat_policy=loop.ckpt_policy)
+        res = trainer.step(plan, corpus, *data,
+                           remat_policy=loop.ckpt_policy)
         for c in cards:
             if c.type == "cuda":
                 torch.cuda.synchronize(c)
@@ -209,6 +235,8 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
                "remat_layers": res.remat_layers,
                "grad_norm": res.grad_norm,
                "solve_s": plan.solve_time,
+               "frames": (sum(len(t) for t in corpus.values()) if encdec
+                          else 0),
                "plan_peak_mem_gb": max((m for p in plan.pipelines
                                         for m in p.est_peak_mem),
                                        default=0.0) / 1e9,
@@ -242,6 +270,13 @@ def _pipeline_trainer(cfg, loop: TrainConfig, plan, params, cards, dtype,
     from repro_torch.runtime.train_step import PipelineTrainer
     split = {"auto": get_schedule(plan.schedule, plan.v_stages).split_bwd,
              "on": True, "off": False}[loop.split_bwd]
+    if cfg.spec.is_encoder_decoder:
+        from repro_torch.runtime.encdec_pipeline import EncDecGeometry
+        from repro_torch.runtime.train_step import EncDecTrainer
+        geom = EncDecGeometry(d_p=loop.d_p, schedule=plan.schedule,
+                              v_stages=plan.v_stages, split_bwd=split)
+        return EncDecTrainer(cfg, params, geometry=geom, cards=cards,
+                             compute_dtype=dtype, cost_model=cm)
     geom = PipelineGeometry(d_p=loop.d_p, schedule=plan.schedule,
                             v_stages=plan.v_stages, split_bwd=split)
     return PipelineTrainer(cfg, params, geometry=geom, cards=cards,
@@ -344,6 +379,13 @@ def main(argv=None) -> int:
         return 2
     d_p, _ = parse_mesh(args.mesh)
     cfg = get_arch(args.arch)
+    if cfg.spec.is_encoder_decoder and d_p < 2:
+        print(f"error: {cfg.name} is an encoder-decoder: its pipeline needs "
+              f"an encoder and a decoder stage, and encoder_stage_split("
+              f"{cfg.spec.n_encoder_layers}, {cfg.spec.n_layers}, {d_p}) "
+              f"leaves no encoder stage: use --mesh 2x1 or more",
+              file=sys.stderr)
+        return 2
     if args.reduced:
         cfg = cfg.reduced()
     if args.layers:

@@ -1,5 +1,6 @@
 from .config import ArchConfig, LayerKind
+from .encdec import EncDecLM
 from .model import DecoderLM, LayerCtx, layer_params, unstack_layers
 
-__all__ = ["ArchConfig", "DecoderLM", "LayerCtx", "LayerKind",
+__all__ = ["ArchConfig", "DecoderLM", "EncDecLM", "LayerCtx", "LayerKind",
            "layer_params", "unstack_layers"]

@@ -1,5 +1,6 @@
 """Attention: GQA projection (+RoPE, +qk-norm), MLA (deepseek-v2's latent
-attention), the local attention policy and the attention block.
+attention), the encoder-decoder's cross-attention, the local attention
+policy and the attention block.
 
 Counterpart of the JAX package's ``models/attention.py`` (GQA with RoPE
 or qwen2-vl's M-RoPE, qk-norm, and MLA). Packed-varlen semantics: a chunk
@@ -18,6 +19,13 @@ rows only; its value field is None. Under autograd the expansion and the
 attention are one function (:func:`mla_attention`) that keeps the latent
 rows and makes the keys and values again in its backward, so a layer
 keeps ``r + rr`` values a key row rather than ``Hq (2 Dh + rr)``.
+
+Cross-attention (:func:`cross_attention`, seamless-m4t-v2's decoder)
+attends a chunk's token rows to the encoder's memory rows, non-causal at
+zero positions; under autograd it keeps the memory rows, which every
+decoder layer shares, and makes each layer's keys and values again in its
+backward. The encoder's self-attention is the attention block with
+``causal=False``.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from .layers import apply_rope, dense_init, linear, rms_norm, \
     weight_grad_store
 
 __all__ = ["init_attention", "project_qkv", "mla_expand_ctx",
-           "mla_attention", "attention_block",
+           "mla_attention", "cross_attention", "attention_block",
            "make_local_attention_policy"]
 
 
@@ -187,6 +195,87 @@ def mla_attention(cfg: ArchConfig, p: Dict, q, rows, seg_q, seg_kv, pos_q,
     k, v = mla_expand_ctx(cfg, p, rows)
     return flash_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv,
                            causal=causal, window=window, scale=scale)
+
+
+def _cross_kv(memory, wk, wv, heads: int, Dh: int):
+    """The keys and values ``[S, heads, Dh]`` of the memory rows."""
+    return (F.linear(memory, wk.to(memory.dtype)).reshape(-1, heads, Dh),
+            F.linear(memory, wv.to(memory.dtype)).reshape(-1, heads, Dh))
+
+
+class _CrossAttention(torch.autograd.Function):
+    """Cross-attention over the memory rows (the encoder's output, ``[S,
+    D]``): the key and value projections, then kernel A, non-causal at
+    zero positions, queries paired with memory rows by segment id. It
+    keeps q, the memory (which every decoder layer of a stage shares), the
+    two projections and what kernel A′ reads (the output, its lse, the
+    tile ranges), not the layer's keys and values: the backward makes them
+    again (two products), runs kernel A′ and takes their gradients back
+    through the projections (the memory's summed over both). The weight
+    gradients are the products autograd's linear backward computes (``dy.T
+    @ memory``); under ``layers.deferred_weight_grads`` they go to the
+    store."""
+
+    @staticmethod
+    def forward(ctx, q, memory, wk, wv, seg_q, seg_kv, heads, Dh, scale):
+        from repro_torch.kernels.ops import attention_forward
+        ctx.opts = dict(causal=False, window=0, scale=scale)
+        ctx.shape, ctx.store = (heads, Dh), weight_grad_store()
+        ctx.leaves = (wk, wv)
+        k, v = _cross_kv(memory, wk, wv, heads, Dh)
+        out, saved, _, ctx.tiles = attention_forward(
+            q, k, v, seg_q, seg_kv, *_zero_pos(seg_q, seg_kv), **ctx.opts)
+        ctx.save_for_backward(memory, wk, wv, *saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels.ops import attention_backward
+        memory, wk, wv, *saved = ctx.saved_tensors
+        heads, Dh = ctx.shape
+        k, v = _cross_kv(memory, wk, wv, heads, Dh)
+        dq, dk, dv = attention_backward(saved, ctx.tiles, k, v, dout,
+                                        **ctx.opts)
+        del k, v
+        S, dt = memory.shape[0], memory.dtype
+        dk, dv = dk.reshape(S, -1), dv.reshape(S, -1)
+        dmem = dk.mm(wk.to(dt)) + dv.mm(wv.to(dt))
+        mem = memory.detach()
+        products = [lambda dy=dy, w=w: dy.t().mm(mem).to(w.dtype)
+                    for dy, w in ((dk, wk), (dv, wv))]
+        if ctx.store is not None:
+            ctx.store.extend(zip(ctx.leaves, products))
+            grads = (None, None)
+        else:
+            grads = tuple(p() if need else None for p, need in
+                          zip(products, ctx.needs_input_grad[2:4]))
+        return (dq, dmem, *grads, None, None, None, None, None)
+
+
+def _zero_pos(seg_q, seg_kv):
+    return (torch.zeros_like(seg_q, dtype=torch.int32),
+            torch.zeros_like(seg_kv, dtype=torch.int32))
+
+
+def cross_attention(q, memory, wk, wv, seg_q, seg_kv, *, heads: int,
+                    scale: float) -> torch.Tensor:
+    """Encoder-decoder cross-attention: queries ``q [T, Hq, Dh]`` over
+    the memory rows ``memory [S, D]`` (``S`` unrelated to ``T``), through
+    the memory's keys and values ``memory @ wk.T``, ``memory @ wv.T``
+    (``heads`` KV heads of ``Dh``), non-causal at zero positions, a query
+    row attending to the memory rows of its own segment (``seg_q``,
+    ``seg_kv``; -1 = padding): ``[T, Hq, Dh]``. Under autograd one
+    function that keeps the memory, not the keys and values
+    (:class:`_CrossAttention`)."""
+    from repro_torch.kernels.ops import flash_attention
+    Dh = q.shape[-1]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, memory, wk, wv)):
+        return _CrossAttention.apply(q, memory, wk, wv, seg_q, seg_kv,
+                                     heads, Dh, scale)
+    k, v = _cross_kv(memory, wk, wv, heads, Dh)
+    return flash_attention(q, k, v, seg_q, seg_kv, *_zero_pos(seg_q, seg_kv),
+                           causal=False, scale=scale)
 
 
 def _append(buf: torch.Tensor, rows: torch.Tensor, offset: int

@@ -186,33 +186,15 @@ class _SwiGLUDown(torch.autograd.Function):
         ctx.save_for_backward(g, u, w)
         ctx.reuse = not (g.is_leaf or u.is_leaf)
         ctx.store, ctx.weight = _WEIGHT_GRADS, w
-        h, n = torch.empty_like(u), _silu_rows(g)
-        for a in range(0, g.shape[0], n):
-            b = slice(a, a + n)
-            g32 = g[b].float()
-            h[b] = (g32 * torch.sigmoid(g32)).to(g.dtype) * u[b]
-        return F.linear(h, w.to(g.dtype))
+        return F.linear(_silu_gate(g, u), w.to(g.dtype))
 
     @staticmethod
     def backward(ctx, dy):
         g, u, w = ctx.saved_tensors
-        wt = w.to(g.dtype)
-        h = torch.empty_like(u)
         # detached aliases: a gradient that carried g's own grad_fn held
         # its graph (a stage's parameters outlived their trainer)
-        dg, du = (g.detach(), u.detach()) if ctx.reuse else \
-            (torch.empty_like(g), torch.empty_like(u))
-        n = _silu_rows(g)
-        for a in range(0, g.shape[0], n):
-            b = slice(a, a + n)
-            dh = dy[b].mm(wt)
-            g32 = g[b].float()
-            sig = torch.sigmoid(g32)
-            s = (g32 * sig).to(g.dtype)
-            h[b] = s * u[b]
-            da = (dh * u[b]).float()
-            du[b] = dh * s
-            dg[b] = da * sig * (1.0 + g32 * (1.0 - sig))
+        h, dg, du = _silu_gate_backward(
+            g, u, w, dy, (g.detach(), u.detach()) if ctx.reuse else None)
         if ctx.store is not None:
             ctx.store.append((ctx.weight,
                               lambda: dy.t().mm(h).to(w.dtype)))
@@ -220,7 +202,113 @@ class _SwiGLUDown(torch.autograd.Function):
         return dg, du, dy.t().mm(h).to(w.dtype)
 
 
-def swiglu_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+def _silu_gate(g, u):
+    """``silu(g) * u`` (silu in float32, rounded to g's dtype), over blocks
+    of rows (SILU_BLOCK_BYTES)."""
+    h, n = torch.empty_like(u), _silu_rows(g)
+    for a in range(0, g.shape[0], n):
+        b = slice(a, a + n)
+        g32 = g[b].float()
+        h[b] = (g32 * torch.sigmoid(g32)).to(g.dtype) * u[b]
+    return h
+
+
+def _silu_gate_backward(g, u, w, dy, out=None):
+    """``(h, dg, du)`` of ``(silu(g) * u) @ w.T`` for the output gradient
+    ``dy``, over blocks of rows (SILU_BLOCK_BYTES): ``h`` the gated
+    activation made again; ``dg``, ``du`` written into ``out`` (a pair of
+    tensors shaped as g and u, each block read before it is written) or
+    new tensors."""
+    wt = w.to(g.dtype)
+    h = torch.empty_like(u)
+    dg, du = out if out is not None else \
+        (torch.empty_like(g), torch.empty_like(u))
+    n = _silu_rows(g)
+    for a in range(0, g.shape[0], n):
+        b = slice(a, a + n)
+        dh = dy[b].mm(wt)
+        g32 = g[b].float()
+        sig = torch.sigmoid(g32)
+        s = (g32 * sig).to(g.dtype)
+        h[b] = s * u[b]
+        da = (dh * u[b]).float()
+        du[b] = dh * s
+        dg[b] = da * sig * (1.0 + g32 * (1.0 - sig))
+    return h, dg, du
+
+
+class _SwiGLURecompute(torch.autograd.Function):
+    """The whole SwiGLU MLP keeping only its input ``x`` (a row of D a
+    token) and the weights: the backward makes the gate and up
+    projections ``g``, ``u`` again (two products), then runs
+    :class:`_SwiGLUDown`'s backward over them (``dg``, ``du`` written over
+    g and u) and the two projections' backward (``dx = dg @ w_gate + du @
+    w_up``, their weights' ``dg.T @ x``, ``du.T @ x``): the same products
+    as autograd's, so the same bits as :func:`swiglu_apply` without it.
+    Under :func:`deferred_weight_grads` the three weight gradients go to
+    the store, which keeps ``x`` and ``dy`` (what the residuals held) and
+    makes ``g``, ``u``, ``h``, ``dg`` and ``du`` again when the first of
+    them is taken (the same bits): keeping those five would hold five
+    ``d_ff`` rows a token from each chunk's backward to its ``W``."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down):
+        ctx.save_for_backward(x, w_gate, w_up, w_down)
+        # the leaves themselves: under remat the saved weights come back
+        # as aliases of them, which the store cannot key on
+        ctx.store, ctx.leaves = _WEIGHT_GRADS, (w_gate, w_up, w_down)
+        h = _silu_gate(F.linear(x, w_gate.to(x.dtype)),
+                       F.linear(x, w_up.to(x.dtype)))
+        return F.linear(h, w_down.to(x.dtype))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, wg, wu, wd = ctx.saved_tensors
+        h, dg, du = _swiglu_grads(x, wg, wu, wd, dy)
+        dx = dg.mm(wg.to(x.dtype)) + du.mm(wu.to(x.dtype))
+        if ctx.store is not None:
+            del h, dg, du
+            xd, dyd, made = x.detach(), dy.detach(), []
+
+            def weight_grad(i):
+                if not made:
+                    made.append(_swiglu_weight_grads(
+                        xd, dyd, wg, wu, wd, *_swiglu_grads(xd, wg, wu, wd,
+                                                            dyd)))
+                return made[0][i]
+            ctx.store.extend((w, functools.partial(weight_grad, i))
+                             for i, w in enumerate(ctx.leaves))
+            return dx, None, None, None
+        grads = _swiglu_weight_grads(x, dy, wg, wu, wd, h, dg, du)
+        return (dx, *(g if need else None for g, need in
+                      zip(grads, ctx.needs_input_grad[1:])))
+
+
+def _swiglu_grads(x, wg, wu, wd, dy):
+    """``(h, dg, du)`` of the SwiGLU MLP at its input ``x`` for the output
+    gradient ``dy``: the gate and up projections made again, then
+    :func:`_silu_gate_backward` (``dg``, ``du`` over them)."""
+    g, u = F.linear(x, wg.to(x.dtype)), F.linear(x, wu.to(x.dtype))
+    return _silu_gate_backward(g, u, wd, dy, (g, u))
+
+
+def _swiglu_weight_grads(x, dy, wg, wu, wd, h, dg, du):
+    """The gradients of ``w_gate``, ``w_up`` and ``w_down``: autograd's
+    products for the three linear layers."""
+    return (dg.t().mm(x).to(wg.dtype), du.t().mm(x).to(wu.dtype),
+            dy.t().mm(h).to(wd.dtype))
+
+
+def swiglu_apply(p: Params, x: torch.Tensor, *,
+                 recompute: bool = False) -> torch.Tensor:
+    """The SwiGLU MLP ``(silu(x @ w_gate.T) * (x @ w_up.T)) @ w_down.T``.
+    ``recompute``: under autograd keep only ``x``, and make the gate and
+    up projections again in the backward (:class:`_SwiGLURecompute`: one
+    row of D a token kept, not two of d_ff)."""
+    if recompute and torch.is_grad_enabled() and (
+            x.requires_grad or p["w_gate"].requires_grad):
+        return _SwiGLURecompute.apply(x, p["w_gate"], p["w_up"],
+                                      p["w_down"])
     g = linear(x, p["w_gate"])
     u = linear(x, p["w_up"])
     return _SwiGLUDown.apply(g, u, p["w_down"])

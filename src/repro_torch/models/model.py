@@ -20,7 +20,8 @@ then the SwiGLU MLP), ``MOE`` (attention, then the MoE block of
 input, averaged, then the MLP; hymba). Attention is GQA (RoPE, or
 qwen2-vl's M-RoPE at ``positions3`` ``[3, T]``: text positions on all
 three rows unless the caller gives them) or MLA (deepseek-v2-lite, whose
-carry holds latent rows). Encoder-decoder models are not ported.
+carry holds latent rows). Encoder-decoder models are
+:class:`~.encdec.EncDecLM`'s.
 
 The loss head (:meth:`DecoderLM.chunk_loss`) runs the final norm and the
 fused streaming cross-entropy (kernels B, C1, C2 on the card).
@@ -138,8 +139,10 @@ class DecoderLM:
                 or s.attn_free != (kind == LayerKind.MAMBA)
                 or (kind == LayerKind.MOE) != (s.n_experts > 0)):
             raise NotImplementedError(
-                f"{cfg.name}: only dense attention, MLA, MoE, mamba and "
-                f"hybrid decoders are ported (not encoder-decoder)")
+                f"{cfg.name}: DecoderLM runs dense attention, MLA, MoE, "
+                f"mamba and hybrid decoders"
+                + ("; encoder-decoders run in models/encdec.EncDecLM"
+                   if s.is_encoder_decoder else ""))
         self.cfg = cfg
         self.has_attn = kind != LayerKind.MAMBA
         self.has_ssm = ssm

@@ -1,0 +1,174 @@
+"""The stage body of the encoder-decoder pipeline (seamless-m4t-v2).
+
+Counterpart of the JAX package's ``runtime/encdec_pipeline.py``
+(``EncDecGeometry``, ``encdec_pipeline_loss_fn``'s ``tick``). The stages
+split between the encoder and the decoder
+(``runtime/sharding.encdec_stage_layers``), and a chunk's stream is the
+pair ``(h_enc, h_dec)``:
+
+* encoder stages advance ``h_enc`` over the chunk's frames (the first
+  stage starts from the frontend stub's frames), non-causal, with no
+  context carry; ``h_dec`` does not exist yet (None);
+* the first decoder stage norms the finished ``h_enc`` once with
+  ``enc_norm``: that is the memory; it embeds the chunk's tokens into
+  ``h_dec``;
+* decoder stages run their layers (causal self-attention, cross-attention
+  to the memory, the MLP) over ``h_dec`` and hand the memory on unchanged;
+* the last stage applies ``final_norm`` and the loss against the tied
+  embedding (kernels B, C1, C2).
+
+In the backward each decoder stage adds its layers' cross-attention
+gradients into the memory's and hands the sum back with ``h_dec``'s; the
+first decoder stage takes it through ``enc_norm`` to the last encoder
+stage. Under the split backward a stage's linear layers (the
+cross-attention's key and value projections included) leave their weight
+products to its ``W`` action, as the decoder pipeline's do.
+
+The encoder is pack-only (splitting a bidirectional encoder's input would
+change the math): the plan is made with ``fixed_k=1``, as the reference's
+train step makes it, and a chunk that continues a sequence raises. So no
+stage carries context. ``v_stages`` is pinned to 1 (the reference's
+grouped encoder + decoder stacking has no interleaved placement): the
+three single-virtual-stage backends run, gpipe-1f1b, interleaved-1f1b at
+``v = 1`` and zero-bubble-h1.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core.schedule import get_schedule
+from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.layers import deferred_weight_grads
+
+from .pipeline import PipelineStage
+
+__all__ = ["EncDecGeometry", "EncDecStage"]
+
+
+@dataclass(frozen=True)
+class EncDecGeometry:
+    """The run's encoder-decoder pipeline: ``d_p >= 2`` stages, the
+    schedule backend, whether the backward is split; ``v_stages`` must be
+    1."""
+    d_p: int
+    schedule: str = "gpipe-1f1b"
+    v_stages: int = 1
+    split_bwd: bool = False
+
+    def __post_init__(self) -> None:
+        if self.v_stages != 1:
+            raise ValueError(
+                "encoder-decoder pipelines support v_stages=1 only (the "
+                "grouped encoder + decoder layer stacking has no "
+                f"interleaved placement); got {self.v_stages}")
+        if self.d_p < 2:
+            raise ValueError(
+                f"an encoder-decoder pipeline needs d_p >= 2 (an encoder "
+                f"and a decoder stage: core.checkpointing."
+                f"encoder_stage_split); got {self.d_p}")
+        get_schedule(self.schedule, self.v_stages)      # validates
+
+    @property
+    def n_vstages(self) -> int:
+        return self.d_p
+
+
+def _leaf(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.detach().requires_grad_(True)
+
+
+class EncDecStage(PipelineStage):
+    """Stage ``p`` of ``role`` (``"encoder"`` or ``"decoder"``) running the
+    layers ``ids`` of its stack; ``params`` as ``weights.to_stages`` lays
+    them out (``enc_layers`` or ``dec_layers``: id -> parameters, and
+    ``embed``, ``enc_norm``, ``final_norm`` where they live);
+    ``first_dec``: the first decoder stage (it norms the memory and embeds
+    the tokens). ``inputs(k)`` (:meth:`begin`) gives chunk ``k``'s
+    ``(frames, seg_enc, pos_enc, tokens, targets, seg, pos)`` on this
+    device."""
+
+    def __init__(self, model: EncDecLM, p: int, geom: EncDecGeometry,
+                 role: str, ids: Sequence[int], params: Dict, device,
+                 dtype: torch.dtype, first_dec: bool):
+        super().__init__(model, p, geom, [ids], params, device, dtype)
+        self.role, self.first_dec = role, first_dec
+        key = "enc_layers" if role == "encoder" else "dec_layers"
+        self.layer_params = [params[key][i] for i in ids]
+
+    def carry_grad_ready(self, k: int, j: int) -> bool:
+        return True
+
+    # ------------------------------------------------------------------
+    def forward(self, k: int, j: int, x_in: Optional[Tuple]
+                ) -> Optional[Tuple]:
+        if self.chunks[k].context > 0:
+            raise RuntimeError(
+                f"chunk {k} continues a sequence: the encoder-decoder runs "
+                f"packed chunks only (plan with fixed_k=1)")
+        frames, seg_e, pos_e, tokens, targets, seg, pos = self.inputs(k)
+        last = self.p == self.geom.d_p - 1
+        rec = {"x_in": None, "store": [] if self.geom.split_bwd else None}
+        if x_in is not None:
+            rec["x_in"] = tuple(_leaf(t) for t in x_in)
+        remat, model = self.depths[0][k], self.model
+        with deferred_weight_grads(rec["store"]):
+            if self.role == "encoder":
+                h = frames if x_in is None else rec["x_in"][0]
+                out = (model.run_enc_layers(self.layer_params, h, seg_e,
+                                            pos_e, remat=remat), None)
+            else:
+                if self.first_dec:
+                    memory = model.enc_norm(self.params, rec["x_in"][0])
+                    h = model.embed(self.params, tokens, self.dtype)
+                else:
+                    memory, h = rec["x_in"]
+                out = (memory, model.run_dec_layers(
+                    self.layer_params, h, seg, pos, memory, seg_e,
+                    remat=remat))
+        self.live[0][k] = rec
+        if not last:
+            rec["out"] = out
+            return tuple(None if t is None else t.detach() for t in out)
+        loss, _ = model.chunk_loss(self.params, out[1], targets, seg)
+        rec["out"] = (loss,)
+        self.loss = self.loss + loss.detach()
+        return None
+
+    def backward(self, k: int, j: int, g: Optional[Tuple]
+                 ) -> Optional[Tuple]:
+        rec = self.live[0].pop(k)
+        pairs = zip(rec["out"], (self.scale,) if g is None else g)
+        outs, grads = zip(*[(t, gt) for t, gt in pairs
+                            if t is not None and gt is not None])
+        self._backward(k, j, rec, list(outs), list(grads))
+        if rec["x_in"] is None:
+            return None
+        return tuple(None if t is None else t.grad for t in rec["x_in"])
+
+
+def stage_inputs(batch, k: int, tokens: int, table: torch.Tensor,
+                 device) -> Tuple[torch.Tensor, ...]:
+    """Chunk ``k``'s ``(frames, seg_enc, pos_enc, tokens, targets, seg,
+    pos)`` on ``device``: rows cut as ``train_step.chunk_arrays`` cuts
+    them, the frames gathered from ``table``
+    (``data/batching.frame_table``; pad rows zero)."""
+    import numpy as np
+
+    from .train_step import _rows, chunk_arrays
+    n = _rows(tokens)
+    tok, tgt, seg, pos = chunk_arrays(batch, k, tokens)
+
+    def row(a, fill):
+        r = a[k, :n]
+        return np.pad(r, (0, n - len(r)), constant_values=fill)
+    seg_e = row(batch.seg_enc, -1)
+    pos_e = np.where(seg_e >= 0, row(batch.pos_enc, 0), 0).astype(np.int32)
+    idx = np.where(seg_e >= 0, row(batch.frame_idx, 0), 0)
+    frames = table[torch.from_numpy(idx).to(table.device)].to(device)
+    return (frames, *(torch.from_numpy(a).to(device) for a in
+                      (seg_e, pos_e, tok, tgt, seg, pos)))
+

@@ -16,7 +16,9 @@ transpose. Here :class:`PipelineExecutor` runs the lists of
 * when none can run, it raises, naming each stage's stuck action.
 
 Streams move along ``core/schedule.stream_perm`` (a ring when ``v > 1``),
-gradients the other way. A hand-off between stages on one card passes the
+gradients the other way; a stream is a tensor, or a tuple of them (the
+encoder-decoder hands on the pair ``(h_enc, h_dec)``, and the gradients
+of both back). A hand-off between stages on one card passes the
 tensor itself; between cards it is a ``.to(card, non_blocking=True)``
 after the receiving card's stream waits on an event recorded on the
 sender's. The stages only talk through these hand-offs, so a driver with
@@ -135,14 +137,21 @@ class PipelineExecutor:
         """The gradient of virtual stage ``s``'s input to ``s - 1``."""
         self._bwd[(s - 1, k)] = self._move(s, s - 1, g)
 
-    def _move(self, s: int, t: int, x: torch.Tensor) -> torch.Tensor:
+    def _move(self, s: int, t: int, x):
+        """One hand-off: a tensor, or a tuple of streams (None where a
+        stage hands on no such stream: the encoder-decoder's pair)."""
         p, q = s % self.d_p, t % self.d_p
         if self.d_p > 1 and ((p, q) if t > s else (q, p)) not in self.links:
             raise RuntimeError(f"no hand-off from stage {p} to {q}")
         dst = self.stages[q].device
-        nbytes = x.numel() * x.element_size()
         self.stats["handoffs"] += 1
-        self.stats["handoff_bytes"] += nbytes
-        if x.device != dst:
-            self.stats["copied_bytes"] += nbytes
-        return handoff(x, dst)
+        parts = x if isinstance(x, tuple) else (x,)
+        for e in parts:
+            if e is None:
+                continue
+            nbytes = e.numel() * e.element_size()
+            self.stats["handoff_bytes"] += nbytes
+            if e.device != dst:
+                self.stats["copied_bytes"] += nbytes
+        moved = tuple(None if e is None else handoff(e, dst) for e in parts)
+        return moved if isinstance(x, tuple) else moved[0]

@@ -199,6 +199,17 @@ class PipelineStage:
                     if gt is not None:
                         outs.append(t)
                         grads.append(gt)
+        self._backward(k, j, rec, outs, grads)
+        if rec["ctx_in"] is not None:
+            self.dkv[j][rec["prev"]] = LayerCtx(*[
+                None if f is None else [a.grad for a in f]
+                for f in rec["ctx_in"]])
+        return None if rec["x_in"] is None else rec["x_in"].grad
+
+    def _backward(self, k: int, j: int, rec: Dict, outs, grads) -> None:
+        """Backward from ``outs`` seeded with ``grads`` (the chunk's weight
+        products deferred to its store under the split); the parameters'
+        gradients added into the float32 sums."""
         with deferred_weight_grads(rec["store"]):
             torch.autograd.backward(outs, grads)
         with torch.no_grad():
@@ -206,13 +217,8 @@ class PipelineStage:
                 if p.grad is not None:
                     a.add_(p.grad)
                     p.grad = None
-        if rec["ctx_in"] is not None:
-            self.dkv[j][rec["prev"]] = LayerCtx(*[
-                None if f is None else [a.grad for a in f]
-                for f in rec["ctx_in"]])
         if rec["store"] is not None:
             self.wstore[(k, j)] = rec["store"]
-        return None if rec["x_in"] is None else rec["x_in"].grad
 
     @torch.no_grad()
     def weight_grads(self, k: int, j: int) -> None:

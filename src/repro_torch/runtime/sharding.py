@@ -9,17 +9,28 @@ Counterpart of the placement half of the JAX package's
 as identity; here a stage keeps a map from its (virtual stage, slot) to the
 global layer ids and skips the padded slots. ZeRO-3's gather functions are
 not ported (``ROADMAP.md``, queue 1, item 3).
+
+The encoder-decoder's layout (:func:`encdec_stage_layers`) splits the
+stages between the encoder and the decoder
+(``core.checkpointing.encoder_stage_split``, the split the checkpointing
+ILP's stage roles use): encoder stages hold encoder layers only, decoder
+stages decoder layers only. The reference lifts encoder layers into the
+decoder's structure (zero ``cross`` and ``ln_x`` slots) so that JAX can
+stack one pytree; here each stage holds its own layers' parameters.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.checkpointing import encoder_stage_split
+
 __all__ = ["layers_per_stage", "interleaved_layer_order", "stage_layers",
-           "stage_active_mask", "stage_blocks", "stage_devices"]
+           "stage_active_mask", "stage_blocks", "stage_devices",
+           "encdec_stage_layers"]
 
 
 def layers_per_stage(n_layers: int, d_p: int) -> int:
@@ -77,3 +88,26 @@ def stage_devices(d_p: int, cards: Sequence) -> List[torch.device]:
     if not cards:
         raise ValueError("stage_devices needs at least one card")
     return [torch.device(cards[p % len(cards)]) for p in range(d_p)]
+
+
+def encdec_stage_layers(n_enc: int, n_dec: int, d_p: int
+                        ) -> List[Tuple[str, List[int]]]:
+    """Each stage's role (``"encoder"`` or ``"decoder"``) and the layer ids
+    of that stack it runs: the leading ``encoder_stage_split`` stages take
+    the encoder, the rest the decoder, each stage ``L_ps = max(ceil(n_enc /
+    enc_stages), ceil(n_dec / dec_stages))`` layer slots of its stack (the
+    reference's ``stack_grouped_stages``; ids past a stack's end are
+    padded slots, skipped). ``d_p < 2`` raises: the split leaves no
+    encoder stage (``encoder_stage_split(n_enc, n_dec, 1) == (0, 1)``)."""
+    enc_st, dec_st = encoder_stage_split(n_enc, n_dec, d_p)
+    if enc_st < 1 or dec_st < 1:
+        raise ValueError(
+            f"an encoder-decoder pipeline needs an encoder and a decoder "
+            f"stage: encoder_stage_split({n_enc}, {n_dec}, {d_p}) = "
+            f"{(enc_st, dec_st)}; use d_p >= 2")
+    L_ps = max(-(-n_enc // enc_st), -(-n_dec // dec_st))
+
+    def ids(q: int, n: int) -> List[int]:
+        return [i for i in range(q * L_ps, (q + 1) * L_ps) if i < n]
+    return ([("encoder", ids(q, n_enc)) for q in range(enc_st)]
+            + [("decoder", ids(q, n_dec)) for q in range(dec_st)])

@@ -72,8 +72,9 @@ from .pipeline import PipelineGeometry, PipelineStage
 from .program import residual_peaks, stage_programs
 from .sharding import layers_per_stage, stage_blocks, stage_devices
 
-__all__ = ["ChunkedTrainer", "PipelineTrainer", "StepResult",
-           "remat_depths", "stage_remat", "chunk_arrays", "ROW_MULTIPLE"]
+__all__ = ["ChunkedTrainer", "PipelineTrainer", "EncDecTrainer",
+           "StepResult", "remat_depths", "stage_remat", "chunk_arrays",
+           "sequence_rows", "ROW_MULTIPLE"]
 
 ROW_MULTIPLE = 64      # chunk rows are cut to a multiple of this
 
@@ -164,6 +165,22 @@ def chunk_arrays(batch: ChunkBatch, k: int, tokens: int):
     return (np.where(live, row(batch.tokens, 0), 0).astype(np.int64),
             row(batch.targets, -1).astype(np.int64),
             seg, np.where(live, row(batch.pos, 0), 0).astype(np.int32))
+
+
+def sequence_rows(toks: np.ndarray):
+    """One whole sequence as the unchunked reference steps feed it:
+    ``(tokens, targets, seg, pos)`` over its rows cut to a multiple of
+    ROW_MULTIPLE (int64 tokens and next-token targets, -1 past the last;
+    seg 0 on its rows, -1 on the padding; int32 seg and pos)."""
+    toks = np.asarray(toks, np.int64)
+    n, rows = len(toks), _rows(len(toks))
+    tgt = np.full(rows, -1, np.int64)
+    tgt[:n - 1] = toks[1:]
+    seg = np.full(rows, -1, np.int32)
+    seg[:n] = 0
+    pos = np.zeros(rows, np.int32)
+    pos[:n] = np.arange(n)
+    return np.pad(toks, (0, rows - n)), tgt, seg, pos
 
 
 def _take_grad(sink: List, i: int, p: torch.Tensor) -> None:
@@ -355,23 +372,11 @@ class ChunkedTrainer:
         acc = self._zero_grads()
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for sid in sorted(corpus):
-            toks = np.asarray(corpus[sid], np.int64)
-            n, rows = len(toks), _rows(len(toks))
-            tgt = np.full(rows, -1, np.int64)
-            tgt[:n - 1] = toks[1:]
-            seg = np.full(rows, -1, np.int32)
-            seg[:n] = 0
-            pos = np.zeros(rows, np.int32)
-            pos[:n] = np.arange(n)
-            dev = self.device
+            toks, tgt, seg, pos = (torch.from_numpy(a).to(self.device)
+                                   for a in sequence_rows(corpus[sid]))
             hidden, _ = self.model.forward_chunk(
-                self.params,
-                torch.from_numpy(np.pad(toks, (0, rows - n))).to(dev),
-                torch.from_numpy(seg).to(dev), torch.from_numpy(pos).to(dev),
-                compute_dtype=self.dtype)
-            loss, _ = self.model.chunk_loss(
-                self.params, hidden, torch.from_numpy(tgt).to(dev),
-                torch.from_numpy(seg).to(dev))
+                self.params, toks, seg, pos, compute_dtype=self.dtype)
+            loss, _ = self.model.chunk_loss(self.params, hidden, tgt, seg)
             self._backward([loss], [scale], acc)
             total = total + loss.detach()
         return StepResult(loss=float(total) / max(n_valid, 1),
@@ -421,12 +426,18 @@ class PipelineTrainer:
                                      self.params[p], self.devices[p],
                                      compute_dtype)
                        for p in range(g.d_p)]
-        # the tied embedding's copies, as leaf indices of stage 0 and d_p-1
-        self.tied = None
-        if "embed" in self.params[-1] and g.d_p > 1:
-            self.tied = (self._leaf_index(0, "embed"),
-                         self._leaf_index(g.d_p - 1, "embed"))
+        self._tie(0)
         self.opt = None
+
+    def _tie(self, first: int) -> None:
+        """The tied embedding's copies, on stage ``first`` and the last:
+        ``tied_stages`` and ``tied``, their leaf indices (None when one
+        stage holds both uses)."""
+        last = self.geom.d_p - 1
+        self.tied_stages, self.tied = (first, last), None
+        if "embed" in self.params[last] and first != last:
+            self.tied = (self._leaf_index(first, "embed"),
+                         self._leaf_index(last, "embed"))
 
     def _leaf_index(self, p: int, key: str) -> int:
         target = self.params[p][key]
@@ -439,8 +450,8 @@ class PipelineTrainer:
         the bits do not depend on how the stages interleave)."""
         if self.tied is None:
             return
-        i0, i1 = self.tied
-        first, last = accs[0][i0], accs[-1][i1]
+        (p0, p1), (i0, i1) = self.tied_stages, self.tied
+        first, last = accs[p0][i0], accs[p1][i1]
         first.add_(last.to(first.device))
         last.copy_(first)
 
@@ -453,11 +464,10 @@ class PipelineTrainer:
         stages' devices), the plan's pipelines one after another, each
         through the executor."""
         g = self.geom
-        batch = materialize_plan(plan, corpus)
+        batch = self._materialize(plan, corpus)
         n_valid = int(((batch.seg >= 0) & (batch.targets >= 0)).sum())
         table = _table(plan, g.d_p, remat_policy)
-        depths = stage_remat(plan, self.cfg.spec.n_layers, g.d_p,
-                             g.v_stages, remat_policy)
+        depths = self._stage_depths(plan, remat_policy)
         accs = [[torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                  for p in tree_leaves(sp)] for sp in self.params]
         scales = [torch.tensor(1.0 / max(n_valid, 1), dtype=torch.float32,
@@ -508,6 +518,15 @@ class PipelineTrainer:
                           order_peak_mem=order_peaks,
                           split_bwd=g.split_bwd))
 
+    def _materialize(self, plan: ExecutionPlan,
+                     corpus: Dict[int, np.ndarray]) -> ChunkBatch:
+        return materialize_plan(plan, corpus)
+
+    def _stage_depths(self, plan: ExecutionPlan, policy: str
+                      ) -> List[List[List[int]]]:
+        return stage_remat(plan, self.cfg.spec.n_layers, self.geom.d_p,
+                           self.geom.v_stages, policy)
+
     def _inputs(self, batch: ChunkBatch, pipe: PipelinePlan, base: int,
                 device):
         """``inputs(k)``: chunk ``k``'s rows on ``device`` and its rotation
@@ -522,19 +541,22 @@ class PipelineTrainer:
             return cache[k]
         return inputs
 
-    def step(self, plan: ExecutionPlan, corpus: Dict[int, np.ndarray], *,
-             remat_policy: str = "stage-aware") -> StepResult:
-        """One training step: :meth:`loss_and_grads`, then AdamW on every
-        stage with the global norm of all stages' gradients (the tied
-        weight once); raises if the tied copies differ after it."""
-        res = self.loss_and_grads(plan, corpus, remat_policy=remat_policy)
+    def step(self, plan: ExecutionPlan, corpus: Dict[int, np.ndarray],
+             *data, remat_policy: str = "stage-aware") -> StepResult:
+        """One training step: :meth:`loss_and_grads` (``data``: what it
+        takes beside the corpus), then AdamW on every stage with the
+        global norm of all stages' gradients (the tied weight once);
+        raises if the tied copies differ after it."""
+        res = self.loss_and_grads(plan, corpus, *data,
+                                  remat_policy=remat_policy)
         accs, self._accs = self._accs, None
         if self.opt is None:
             self.opt = [init_opt_state(sp) for sp in self.params]
         dev0 = self.devices[0]
         sq = torch.zeros((), dtype=torch.float32, device=dev0)
         for p, acc in enumerate(accs):
-            skip = self.tied[1] if self.tied and p == len(accs) - 1 else -1
+            skip = self.tied[1] if self.tied and p == self.tied_stages[1] \
+                else -1
             part = torch.zeros((), dtype=torch.float32, device=acc[0].device)
             for i, a in enumerate(acc):
                 if i != skip:
@@ -545,11 +567,134 @@ class PipelineTrainer:
             adamw_update(self.adamw, sp, tree_unflatten(sp, acc), st,
                          gnorm=gnorm.to(self.devices[p]))
         if self.tied is not None:
-            a = self.params[0]["embed"]
-            b = self.params[-1]["embed"].to(a.device)
+            p0, p1 = self.tied_stages
+            a = self.params[p0]["embed"]
+            b = self.params[p1]["embed"].to(a.device)
             if not torch.equal(a, b):
                 raise RuntimeError("the tied embedding's copies differ "
                                    "after the update")
         res.grads = None
         res.grad_norm = float(gnorm)
         return res
+
+
+class EncDecTrainer(PipelineTrainer):
+    """The encoder-decoder's pipelined step (seamless-m4t-v2) on
+    ``geometry.d_p >= 2`` stages (:mod:`.encdec_pipeline`): the leading
+    ``encoder_stage_split`` stages run the encoder, the rest the decoder,
+    stage ``p`` on card ``p mod len(cards)``; each stage's remat depth on a
+    chunk is its row of the plan's stage-aware table (the encoder rows
+    carry the ILP's encoder-role depths, ``core/checkpointing.
+    stage_roles``), at most its layers. The tied embedding's two uses sit
+    on the first decoder stage (the tokens' embedding) and on the last (the
+    head): one leaf when they are one stage, else two copies whose
+    gradients are summed as :class:`PipelineTrainer` sums them. AdamW as
+    there. ``params``: ``EncDecLM``'s dict (any dtype); each step takes
+    the corpus and its sequences' frames (``data/batching.
+    sequence_frames``)."""
+
+    def __init__(self, cfg: ArchConfig, params: Dict, *,
+                 geometry, cards: Sequence,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 cost_model=None):
+        from repro_torch.models.encdec import EncDecLM
+
+        from .encdec_pipeline import EncDecStage
+        from .sharding import encdec_stage_layers
+        g, s = geometry, cfg.spec
+        self.cfg, self.geom, self.dtype, self.cm = cfg, g, compute_dtype, \
+            cost_model
+        self.model = EncDecLM(cfg)
+        self.adamw = AdamWConfig()
+        self.devices = stage_devices(g.d_p, cards)
+        layout = encdec_stage_layers(s.n_encoder_layers, s.n_layers, g.d_p)
+        self.blocks = [[ids] for _, ids in layout]
+        self.params = [
+            tree_map(lambda a, d=dev: a.detach().to(
+                d, compute_dtype, copy=True).requires_grad_(True), sp)
+            for dev, sp in zip(self.devices, to_stages(cfg, params, g.d_p))]
+        first = [role for role, _ in layout].index("decoder")
+        self.stages = [EncDecStage(self.model, p, g, role, ids,
+                                   self.params[p], self.devices[p],
+                                   compute_dtype, p == first)
+                       for p, (role, ids) in enumerate(layout)]
+        self._tie(first)
+        self.opt = None
+        self._frames = None
+
+    def loss_and_grads(self, plan: ExecutionPlan,
+                       corpus: Dict[int, np.ndarray], frames: Dict, *,
+                       remat_policy: str = "stage-aware") -> StepResult:
+        """:meth:`PipelineTrainer.loss_and_grads` with each sequence's
+        frames ``frames[sid]`` (``[L, D]``, ``L`` its token count)."""
+        if plan.k_split != 1:
+            raise ValueError(f"the encoder-decoder runs packed chunks only: "
+                             f"plan with fixed_k=1 (got K={plan.k_split})")
+        from repro_torch.data.batching import frame_table
+        self._frames = frame_table(frames)
+        try:
+            return super().loss_and_grads(plan, corpus,
+                                          remat_policy=remat_policy)
+        finally:
+            self._frames = None
+
+    def _materialize(self, plan, corpus):
+        from repro_torch.data.batching import materialize_encdec_plan
+        return materialize_encdec_plan(plan, corpus)
+
+    def _stage_depths(self, plan, policy):
+        table = _table(plan, self.geom.d_p, policy)
+        return [[[min(int(d), len(b[0])) for d in row]]
+                for row, b in zip(table, self.blocks)]
+
+    def _inputs(self, batch, pipe, base, device):
+        from .encdec_pipeline import stage_inputs
+        cache: Dict[int, tuple] = {}
+        table = self._frames
+
+        def inputs(k: int):
+            if k not in cache:
+                cache[k] = stage_inputs(batch, base + k,
+                                        pipe.chunks[k].tokens, table, device)
+            return cache[k]
+        return inputs
+
+    def sequence_loss_and_grads(self, corpus: Dict[int, np.ndarray],
+                                frames: Dict) -> StepResult:
+        """The pipelined step's reference on the same kernels and the same
+        parameters (every stage on one device): one unchunked
+        ``EncDecLM.loss`` per sequence (its frames encoded whole, no remat),
+        seeded with the same ``1 / n_valid``; gradients in
+        ``from_stages``' structure (the tied embedding's one leaf holds
+        both uses')."""
+        dev = self.devices[0]
+        if any(d != dev for d in self.devices):
+            raise ValueError("sequence_loss_and_grads runs every stage's "
+                             "parameters on one device")
+        tree = from_stages(self.cfg, self.params)
+        leaves = tree_leaves(tree)
+        n_valid = sum(max(len(t) - 1, 0) for t in corpus.values())
+        scale = torch.tensor(1.0 / max(n_valid, 1), dtype=torch.float32,
+                             device=dev)
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
+               for p in leaves]
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for sid in sorted(corpus):
+            toks, tgt, seg, pos = (torch.from_numpy(a).to(dev)
+                                   for a in sequence_rows(corpus[sid]))
+            fr = frames[sid].to(dev, self.dtype)
+            fr = torch.cat([fr, fr.new_zeros((len(seg) - len(fr),
+                                              fr.shape[1]))])
+            loss, _ = self.model.loss(tree, fr, seg, pos, toks, tgt, seg,
+                                      pos, compute_dtype=self.dtype)
+            torch.autograd.backward([loss], [scale])
+            with torch.no_grad():
+                for a, p in zip(acc, leaves):
+                    if p.grad is not None:
+                        a.add_(p.grad)
+                        p.grad = None
+            total = total + loss.detach()
+        return StepResult(loss=float(total) / max(n_valid, 1),
+                          n_valid=n_valid, chunks=len(corpus),
+                          remat_layers=0,
+                          grads=tree_unflatten(tree, acc))

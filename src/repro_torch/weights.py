@@ -8,7 +8,11 @@ Two source layouts are accepted:
 * the serving engine's stage layout (``prepare_params``): ``{"stages",
   "embed", "final_norm" [, "unembed"]}`` with stage leaves
   ``[d_p, L_s, ...]`` (inert padding layer slots at the end) and the
-  vocabulary padded to a multiple of ``d_s``.
+  vocabulary padded to a multiple of ``d_s``;
+* the encoder-decoder's ``EncDecLM.init`` layout: ``{"embed",
+  "enc_layers", "enc_norm", "dec_layers", "final_norm"}`` with layer
+  leaves ``[L, ...]``, which become per-layer lists
+  (``models/encdec.EncDecLM``).
 
 The reference stores dense weights ``[d_in, d_out]``; the port stores
 ``[d_out, d_in]`` (``F.linear``). This module is the only place that
@@ -24,7 +28,7 @@ import torch
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import unstack_layers
-from repro_torch.runtime.sharding import stage_blocks
+from repro_torch.runtime.sharding import encdec_stage_layers, stage_blocks
 
 __all__ = ["DENSE_LEAVES", "from_jax", "to_stages", "from_stages"]
 
@@ -48,6 +52,8 @@ def from_jax(cfg: ArchConfig, params: Mapping[str, Any], *, device,
     ``np.asarray`` takes) in either layout into the port's layout, on
     ``device`` (which the caller names: there is no default)."""
     s = cfg.spec
+    if "enc_layers" in params:
+        return _encdec_from_jax(params, dtype, device)
     if "layers" in params:
         layers = params["layers"]
         lead = 1
@@ -79,6 +85,28 @@ def from_jax(cfg: ArchConfig, params: Mapping[str, Any], *, device,
     return out
 
 
+def _encdec_from_jax(params, dtype, device) -> Dict[str, Any]:
+    """``EncDecLM.init``'s tree -> the port's, layers as per-layer lists."""
+    def layers(tree) -> List[Dict[str, Any]]:
+        n = len(np.asarray(next(iter(_flat(tree)))))
+        return [_convert(tree, lambda name, a, i=i: _tensor(
+            np.swapaxes(a[i], -1, -2) if name in DENSE_LEAVES else a[i],
+            dtype, device)) for i in range(n)]
+    out = {k: _tensor(np.asarray(params[k]), dtype, device)
+           for k in ("embed", "enc_norm", "final_norm")}
+    out["enc_layers"] = layers(params["enc_layers"])
+    out["dec_layers"] = layers(params["dec_layers"])
+    return out
+
+
+def _flat(tree):
+    if isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from _flat(v)
+    else:
+        yield tree
+
+
 def _tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
     # a fresh writable float32 copy: jax hands out read-only buffers
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C")).to(
@@ -92,7 +120,17 @@ def to_stages(cfg: ArchConfig, params: Mapping[str, Any], d_p: int,
     stage runs (``runtime/sharding.stage_blocks``) to its parameters; the
     first stage holds ``embed``, the last ``final_norm`` and the head:
     ``unembed``, or with tied embeddings ``embed`` again (the trainer
-    keeps a copy on each of the two stages' devices)."""
+    keeps a copy on each of the two stages' devices).
+
+    An encoder-decoder (``v`` 1) takes the encoder/decoder split
+    (``runtime/sharding.encdec_stage_layers``): an encoder stage holds
+    ``enc_layers`` (id -> parameters), a decoder stage ``dec_layers``;
+    the first decoder stage also ``embed`` (the token embedding) and
+    ``enc_norm`` (it norms the finished encoder rows), the last
+    ``final_norm`` and ``embed`` (the tied head; one copy when the two
+    stages are one)."""
+    if cfg.spec.is_encoder_decoder:
+        return _encdec_to_stages(cfg, params, d_p)
     layers = unstack_layers(dict(params))["layers"]
     out = []
     for p, blocks in enumerate(stage_blocks(d_p, cfg.spec.n_layers, v)):
@@ -108,11 +146,46 @@ def to_stages(cfg: ArchConfig, params: Mapping[str, Any], d_p: int,
     return out
 
 
+def _encdec_to_stages(cfg: ArchConfig, params: Mapping[str, Any],
+                      d_p: int) -> List[Dict[str, Any]]:
+    s = cfg.spec
+    layout = encdec_stage_layers(s.n_encoder_layers, s.n_layers, d_p)
+    first_dec = next(p for p, (role, _) in enumerate(layout)
+                     if role == "decoder")
+    out = []
+    for p, (role, ids) in enumerate(layout):
+        key = "enc_layers" if role == "encoder" else "dec_layers"
+        sp: Dict[str, Any] = {key: {i: params[key][i] for i in ids}}
+        if p == first_dec:
+            sp["embed"], sp["enc_norm"] = params["embed"], params["enc_norm"]
+        if p == d_p - 1:
+            sp["final_norm"], sp["embed"] = params["final_norm"], \
+                params["embed"]
+        out.append(sp)
+    return out
+
+
 def from_stages(cfg: ArchConfig, stages: Sequence[Mapping[str, Any]]
                 ) -> Dict[str, Any]:
     """Per-stage dicts (parameters, or gradients in their structure) ->
     the model's structure, ``layers`` a per-layer list; a tied embedding
-    is the first stage's."""
+    is the first stage's (an encoder-decoder's: the first decoder
+    stage's)."""
+    if cfg.spec.is_encoder_decoder:
+        s = cfg.spec
+        merged: Dict[str, Dict[int, Any]] = {"enc_layers": {},
+                                             "dec_layers": {}}
+        for sp in stages:
+            for key in merged:
+                merged[key].update(sp.get(key, {}))
+        first_dec = next(sp for sp in stages if "enc_norm" in sp)
+        return {"embed": first_dec["embed"],
+                "enc_layers": [merged["enc_layers"][i]
+                               for i in range(s.n_encoder_layers)],
+                "enc_norm": first_dec["enc_norm"],
+                "dec_layers": [merged["dec_layers"][i]
+                               for i in range(s.n_layers)],
+                "final_norm": stages[-1]["final_norm"]}
     layers: Dict[int, Any] = {}
     for sp in stages:
         layers.update(sp["layers"])

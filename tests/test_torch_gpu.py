@@ -4,7 +4,9 @@ equal key and value widths from 16 to 256 and at MLA's q/k 192, v 128;
 cross-entropy B, C1, C2; the selective scan D and its gradient D', ungated
 and with the mamba mixer's prologue and gate), the engine on CUDA against
 the engine on the CPU, and one reduced training step on CUDA against the
-same step on the CPU (dense, hybrid and mamba families).
+same step on the CPU (dense, hybrid and mamba families, and the
+encoder-decoder's pipelined step after its non-causal and cross
+attention).
 
 Every test here is marked ``gpu`` and skips without a CUDA card. This
 file imports torch only (no jax), so it runs where the card is:
@@ -1161,3 +1163,103 @@ def test_pipeline_on_card_matches_whole_sequences(sched):
     for x, y in zip(tree_leaves(res.grads), tree_leaves(whole.grads)):
         y = y.to(x.device)
         assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
+
+
+@pytest.mark.gpu
+def test_encdec_attention_and_step_on_card():
+    """The encoder-decoder's modes of kernel A and A′ against the plain
+    versions, float32 and bf16: non-causal self-attention over packed
+    frames at their own positions (3 segments, 5 pad rows), and
+    cross-attention of 333 token rows to 200 and to 500 memory rows at
+    zero positions (the same 3 segments on both sides); then one reduced
+    seamless-m4t-v2 step (2 + 2 layers, d_model 128, heads of 64) at
+    ``d_p = 2``, float32, on the card against the same step on the CPU:
+    loss ``rtol 1e-5``, each gradient leaf within ``2e-5`` of its largest
+    value, the kernels launched and no plain version."""
+    dev = _cuda()
+    from repro_torch.configs import get_arch
+    from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
+                                  plan_batch)
+    from repro_torch.data.batching import sequence_frames
+    from repro_torch.kernels.flash_attention import flash_bwd_dq_cuda
+    from repro_torch.models import EncDecLM
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.runtime.encdec_pipeline import EncDecGeometry
+    from repro_torch.runtime.train_step import EncDecTrainer
+    rng = np.random.default_rng(22)
+    T = 333
+    seg_q, pos_q = _packed(rng, T, 3, ctx=0)
+    seg_q[-5:] = -1
+    for dtype in (torch.float32, torch.bfloat16):
+        for S in (T, 200, 500):
+            if S == T:
+                seg_kv, pos_kv, pq = seg_q, pos_q, pos_q
+            else:
+                seg_kv, _ = _packed(rng, S, 3, ctx=0)
+                pq, pos_kv = np.zeros(T, np.int32), np.zeros(S, np.int32)
+
+            def mk(*s):
+                return torch.from_numpy(rng.standard_normal(s).astype(
+                    np.float32)).to(dev, dtype)
+            q, k, v, dout = mk(T, 8, 64), mk(S, 4, 64), mk(S, 4, 64), \
+                mk(T, 8, 64)
+            meta = [torch.from_numpy(a).to(dev) for a in
+                    (seg_q, seg_kv, pq, pos_kv)]
+            qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+            dq0 = flash_bwd_dq_cuda.launches
+            out = ops.flash_attention(qq, kk, vv, *meta, causal=False)
+            out.backward(dout)
+            torch.cuda.synchronize()
+            assert flash_bwd_dq_cuda.launches == dq0 + 1
+            _close(out, ref.flash_attention_reference(q, k, v, *meta,
+                                                      causal=False), dtype)
+            grads = ref.flash_attention_grad(q.float(), k.float(),
+                                             v.float(), *meta, dout.float(),
+                                             causal=False)
+            for got, w in zip((qq.grad, kk.grad, vv.grad), grads):
+                _close(got, w, dtype)
+            if S == T:      # a causal limit would change the live rows
+                causal = ref.flash_attention_reference(q, k, v, *meta)
+                live = torch.from_numpy(seg_q >= 0).to(dev)
+                diff = (causal - out.detach()).float()[live]
+                assert float(diff.abs().max()) > 0.1
+
+    cfg = get_arch("seamless-m4t-v2").reduced(n_layers=2, d_model=128,
+                                              n_heads=4, head_dim=64,
+                                              vocab=512)
+    lens = [300, 120, 77, 150, 64]
+    corpus = {i: rng.integers(0, 512, n).astype(np.int32)
+              for i, n in enumerate(lens)}
+    cm = CostModel(cfg.spec, ClusterSpec(d_p=2))
+    plan = plan_batch(cm, lens, PlannerConfig(
+        fixed_k=1, bucket_rounding=16, remat_mode="stage_aware", v_stages=1,
+        sp_degree=1, schedule="gpipe-1f1b", token_capacity=320))
+    for pipe in plan.pipelines:     # remat on both roles, rows that differ
+        pipe.ckpt = [[1, 0] * pipe.n_chunks, [0, 2] * pipe.n_chunks]
+        pipe.ckpt = [row[:pipe.n_chunks] for row in pipe.ckpt]
+    assert plan.n_chunks >= 2
+    params = EncDecLM(cfg).init(torch.Generator().manual_seed(0),
+                                device="cpu")
+    frames = sequence_frames(cfg, corpus, 0, device="cpu",
+                             dtype=torch.float32)
+    res = {}
+    for d in ("cpu", dev):
+        tr = EncDecTrainer(cfg, params, geometry=EncDecGeometry(d_p=2),
+                           cards=[d], compute_dtype=torch.float32,
+                           cost_model=cm)
+        plain = (ops.flash_attention.plain_calls,
+                 ops.fused_cross_entropy.plain_calls)
+        dq0 = flash_bwd_dq_cuda.launches
+        res[str(d)] = tr.loss_and_grads(
+            plan, corpus, {s: f.to(d) for s, f in frames.items()})
+        if d is dev:
+            torch.cuda.synchronize()
+            assert flash_bwd_dq_cuda.launches > dq0
+            assert (ops.flash_attention.plain_calls,
+                    ops.fused_cross_entropy.plain_calls) == plain
+    a, b = res["cpu"], res[str(dev)]
+    assert a.n_valid == b.n_valid and b.remat_layers > 0
+    assert abs(a.loss - b.loss) <= 1e-5 * abs(a.loss)
+    for x, y in zip(tree_leaves(b.grads), tree_leaves(a.grads)):
+        y = y.to(x.device)
+        assert float((x - y).abs().max()) <= 2e-5 * float(y.abs().max())
