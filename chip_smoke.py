@@ -313,6 +313,38 @@ exit and no result line):
            float64 attention and cross-entropy, no kernel); at d_p 4 a
            causal encoder and the memory's gradient dropped at the last
            decoder stage fall outside;
+  train_restart  gemma3-1b at full width and depth, bf16, 1x1, the
+           train phase's batches: steps 0-3 with a checkpoint after steps
+           1 and 3 (``ckpt/checkpoint.py`` under ``build/``, which needs
+           twice the state free; step 1's is written while steps 2-3
+           update the state in place), then a new trainer restored from
+           step 1's checkpoint runs steps 2-3: the restored parameters,
+           master, moments and step equal the state step 2 started from
+           bit for bit, steps 2-3 give the uninterrupted losses and final
+           state bit for bit, and a restore keeping the new trainer's own
+           master and zero moments (the planted fault) fails the first
+           gate; the checkpoint's bytes, the seconds each ``save`` blocks
+           the loop (the second reuses the pinned buffers), each write's
+           seconds and GB/s, the restore's seconds; launches as planned;
+  train_elastic  ``launch/elastic.run``: gemma3-1b at full width and
+           depth, 2x1 -> 1x1 -> 2x1 on this card, 2 steps a phase, the
+           2x1 phases under zero-bubble-h1 (one virtual stage at both
+           depths: a checkpoint moves only between runs of one v), one
+           checkpoint and telemetry directory, ``--replan observe``: each
+           re-staged restore equals the state saved bit for bit, the loss
+           continues, the shrink phase has the ``elastic`` trigger and the
+           grow phase none with a calibration of version >= 1, peaks under
+           the plans, launches as planned;
+  train_replan  gemma3-1b at full width on 2 layers, 2x1, batches of 8 x
+           4096, 12 steps, four runs: ``--replan off``, ``observe``,
+           ``auto`` (inline jobs, a probe every step, stage 2 reported
+           2.5x slow from step 3, cooldown 4) and a replay of the auto
+           run's plan journal: observe equals off and the replay the auto
+           run, losses and plans bit for bit; no re-plan job failed; the
+           triggers, swaps, hysteresis rejects and the adopted
+           calibration's deltas from the copied cost model; each run's
+           largest step peak over its plan's estimate (printed, not gated
+           at this cut: ``phase_train_replan``);
   kernels  every kernel of the port with its launch counts on every path
            above (the verify phases' chunked step: the float32 forward, B,
            C1 and C2 run only there).
@@ -1995,7 +2027,7 @@ def phase_train(dev, seed, arch="gemma3-1b"):
     ctr = _train_counters()
     steps_out, expected = [], {}
 
-    def on_step(step, plan, corpus):
+    def on_step(step, plan, corpus, trainer):
         if expected:
             steps_out[-1]["launches"] = _read_counts(ctr)
         n = plan.n_chunks
@@ -2393,7 +2425,7 @@ def phase_train_pipeline(dev, seed):
         ctr = _train_counters()
         tally, expected, lines = {}, [], []
 
-        def on_step(step, plan, corpus):
+        def on_step(step, plan, corpus, trainer):
             if expected:
                 _check_stage_launches(tally, expected[-1],
                                       f"({tag}) step {step - 1}")
@@ -3893,7 +3925,7 @@ def phase_train_encdec(dev, seed):
         tally, expected, lines, times = {}, [], [], _StageTimes()
         stage_ms = []
 
-        def on_step(step, plan, corpus):
+        def on_step(step, plan, corpus, trainer):
             if expected:
                 _check_stage_launches(tally, expected[-1],
                                       f"({d_p}x1) step {step - 1}")
@@ -4123,6 +4155,403 @@ def phase_train_verify_encdec(dev, seed):
             raise PhaseError(f"the limit does not catch {caught}: {rec}")
     out["launches"] = totals
     return out
+
+
+# ---------------------------------------------------------------------------
+# the trainer's control plane: checkpoint and resume, elastic re-staging,
+# online re-planning with the plan journal (gemma3-1b at full width, bf16)
+
+RESTART_STEPS = 4       # 0-3 saving after 1 and 3; restore 1, run 2-3
+# elastic: gemma3-1b at full width and depth, 2 steps a phase; its 2x1
+# phases pin a one-virtual-stage backend (the planner picks interleaved v
+# = 13 there, and a checkpoint moves only between runs of one v: the
+# reference's guard)
+ELASTIC_STEPS, ELASTIC_SCHEDULE = 2, "zero-bubble-h1"
+# re-planning: 2x1, gemma3-1b cut to 2 of 26 layers (every width kept) and
+# batches of 8 x 4096 tokens so that four runs of 12 steps fit the time
+# budget; the auto run's controller with a cooldown of 4 steps (default
+# 8), so that a drift trigger can follow the bootstrap fit within the run
+REPLAN_LAYERS, REPLAN_CONTEXT, REPLAN_STEPS, REPLAN_COOLDOWN = 2, 4096, 12, 4
+REPLAN_STRAGGLER = "2:2.5@3"
+
+
+def _scratch_dir(need_bytes, what):
+    """A temporary directory under ``build/`` (ignored by git) with room for
+    ``need_bytes``; the caller removes it."""
+    import shutil
+    import tempfile
+    base = ROOT / "build"
+    base.mkdir(exist_ok=True)
+    free = shutil.disk_usage(base).free
+    if free < need_bytes:
+        raise PhaseError(f"{what}: {free / 1e9:.1f} GB free under {base}, "
+                         f"{need_bytes / 1e9:.1f} GB needed (twice the "
+                         f"checkpointed state)")
+    return Path(tempfile.mkdtemp(prefix="ckpt-", dir=base))
+
+
+def _snapshot(trainer):
+    """The trainer's checkpoint tree copied to the host (pinned buffers,
+    as ``CheckpointManager.save`` copies it), named."""
+    from repro_torch.ckpt import host_copies, named_leaves
+    named = named_leaves(trainer.state_tree())
+    return list(zip([n for n, _ in named],
+                    host_copies(x for _, x in named)))
+
+
+def _state_diff(tree, snap, first_per_key=False):
+    """Names of the leaves of the state ``tree`` whose bits differ from
+    the snapshot ``snap``'s, each compared on its own device
+    (``first_per_key``: at most one per top-level key: a planted fault
+    needs no full read)."""
+    import torch
+
+    from repro_torch.ckpt import named_leaves
+    named = named_leaves(tree)
+    if [n for n, _ in named] != [n for n, _ in snap]:
+        raise PhaseError("the state's leaves are not the snapshot's")
+    bad, seen = [], set()
+    for (n, x), (_, y) in zip(named, snap):
+        key = n.split("/")[0]
+        if first_per_key and key in seen:
+            continue
+        same = (torch.equal(x.detach(), y.to(x.device, non_blocking=True))
+                if isinstance(y, torch.Tensor) else x == y)
+        if not same:
+            bad.append(n)
+            seen.add(key)
+    return bad
+
+
+class _PathLaunches:
+    """A control-plane phase's launches: the counts zeroed when it starts,
+    each step's plan's expectation (all stages summed) added before the
+    step; :meth:`check` reads the counts once the phase's runs ended."""
+
+    def __init__(self, dev):
+        import torch
+        self.ctr = _train_counters()
+        self.n_sm = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+        self.expected = {}
+        _zero_counts(self.ctr)
+
+    def step(self, cfg, plan, d_p):
+        import torch
+
+        from repro_torch.runtime.train_step import remat_depths
+        if d_p == 1:
+            per = [_expected_launches(cfg, plan,
+                                      remat_depths(plan, cfg.spec.n_layers))]
+        else:
+            per = _expected_stage_launches(cfg, plan, d_p, torch.bfloat16,
+                                           self.n_sm, trainer_cm(d_p, cfg))
+        for exp in per:
+            for k, n in exp.items():
+                self.expected[k] = self.expected.get(k, 0) + n
+
+    def check(self, what):
+        got = _read_counts(self.ctr)
+        bad = {k: (got[k], n) for k, n in self.expected.items()
+               if got[k] != n}
+        if bad:
+            raise PhaseError(f"{what}: launch counts differ from the plans' "
+                             f"(got, expected): {bad}")
+        idle = [k for k in ("flash_fwd_mma_kernel", "flash_bwd_tiles_kernel",
+                            "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
+                            "ce_fwd_mma_kernel", "ce_bwd_dh_mma_kernel",
+                            "ce_bwd_dw_mma_kernel") if not got[k]]
+        if idle:
+            raise PhaseError(f"{what}: kernels of the path never launched: "
+                             f"{idle}")
+        return got
+
+
+def _peak_over_plan(h):
+    """A step's card peak minus its plan's estimate (GB)."""
+    if "card_peak_mem_gb" in h:
+        return h["card_peak_mem_gb"][0] - h["card_plan_mem_gb"][0]
+    return h["peak_mem_gb"] - h["plan_peak_mem_gb"]
+
+
+def _check_peaks(hist, what):
+    for h in hist:
+        if _peak_over_plan(h) > 0:
+            raise PhaseError(f"{what}: step {h['step']}'s peak is "
+                             f"{_peak_over_plan(h):.2f} GB above its plan's "
+                             f"estimate: {_step_summary(h)}")
+
+
+def _step_summary(h):
+    keys = ("step", "loss", "tokens", "wall_s", "tokens_per_s",
+            "peak_mem_gb", "plan_peak_mem_gb", "card_peak_mem_gb",
+            "card_plan_mem_gb", "chunks", "solve_s")
+    return {k: h[k] for k in keys if k in h}
+
+
+def phase_train_restart(dev, seed):
+    """gemma3-1b at full width and depth, bf16, ``--mesh 1x1`` on the train
+    phase's batches: steps 0-3 uninterrupted with a checkpoint after step 1
+    and one after step 3 (step 1's is written while steps 2-3 update the
+    state in place; step 3's save reuses the pinned buffers); then a new
+    trainer restored from step 1's checkpoint runs steps 2-3. Gates: step
+    1's checkpoint, restored, equals the state step 2 started from bit for
+    bit (parameters, master, m, v, step: a host copy still in flight when
+    step 2 ran would hold its bits); steps 2-3 after the restore give the
+    uninterrupted losses and final state bit for bit; a restore that keeps
+    the new trainer's own master (from its bf16 parameters) and zero
+    moments — the planted fault — fails the first gate."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch.train import train
+    from repro_torch.optim import init_opt_state
+    from repro_torch.weights import OPT_KEYS
+    cfg = _arch("gemma3-1b")
+    launches = _PathLaunches(dev)
+    lines, found = [], {}
+
+    def on_step(step, plan, corpus, trainer):
+        launches.step(cfg, plan, 1)
+        if step == 2 and "saved" not in found:
+            found["saved"] = _snapshot(trainer)
+
+    def on_resume(tr, step):
+        found["step"] = step
+        found["restore"] = _state_diff(tr.state_tree(), found["saved"])
+        # the planted fault: the new trainer's own AdamW state (master
+        # from its bf16 parameters, zero moments) kept over the saved
+        opt = init_opt_state(tr.params)
+        fault = {"params": tr.params, "step": tr.opt["step"],
+                 **{k: opt[k] for k in OPT_KEYS}}
+        found["fault"] = _state_diff(fault, found["saved"], first_per_key=True)
+
+    def run(**kw):
+        loop = _train_loop(seed)
+        loop.steps = RESTART_STEPS
+        for k, v in kw.items():
+            setattr(loop, k, v)
+        trainer, hist = train(cfg, loop, device=dev, log=lines.append,
+                              on_step=on_step, on_resume=on_resume)
+        return trainer, hist
+
+    # twice a checkpoint: bf16 parameters, float32 master, m and v
+    tmp = _scratch_dir(2 * 14 * cfg.spec.param_count(), "train_restart")
+    try:
+        trainer, hist_a = run(ckpt_dir=str(tmp), ckpt_every=2)
+        want = _snapshot(trainer)
+        del trainer
+        torch.cuda.empty_cache()
+        # resume from step 1's checkpoint
+        shutil.rmtree(tmp / f"step_{RESTART_STEPS - 1:08d}")
+        trainer, hist_b = run(ckpt_dir=str(tmp), ckpt_every=RESTART_STEPS + 1,
+                              resume=True)
+        final = _state_diff(trainer.state_tree(), want)
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = launches.check("train_restart")
+    for ln in lines:
+        print(f"[train_restart] {ln}", flush=True)
+    saves = [h["save"] for h in hist_a if "save" in h]
+    losses_a = [h["loss"] for h in hist_a]
+    losses_b = [h["loss"] for h in hist_a[:2] + hist_b]
+    rec = {"checkpoint_gb": saves[0]["bytes"] / 1e9,
+           "saves": [{"after_step": x["step"],
+                      "blocking_s": x["blocking_s"], "write_s": x["write_s"],
+                      "write_gb_per_s": x["bytes"] / 1e9 / x["write_s"]}
+                     for x in saves],
+           "restore_s": hist_b[-1]["checkpoint"]["restore_s"],
+           "resumed_at": found.get("step"),
+           "losses_uninterrupted": losses_a, "losses_resumed": losses_b,
+           "restore_bitwise": found.get("restore") == [],
+           "final_bitwise": final == [],
+           "fault_leaves_differing": found.get("fault"),
+           "steps": [_step_summary(h) for h in hist_a + hist_b]}
+    if [x["step"] for x in saves] != [1, RESTART_STEPS - 1]:
+        raise PhaseError(f"the uninterrupted run saved after steps "
+                         f"{[x['step'] for x in saves]}: {rec}")
+    if found.get("step") != 2:
+        raise PhaseError(f"the resumed run started at {found.get('step')}, "
+                         f"not step 2: {rec}")
+    if found["restore"]:
+        raise PhaseError(f"step 1's checkpoint differs from the state step 2 "
+                         f"started from in {len(found['restore'])} leaves "
+                         f"({found['restore'][:4]}): {rec}")
+    keys = {n.split("/")[0] for n in found["fault"]}
+    if not {"master", "m", "v"} <= keys:
+        raise PhaseError(f"the planted fault (fresh master and moments) "
+                         f"passed the restore gate: {rec}")
+    if losses_b != losses_a or final:
+        raise PhaseError(f"steps 2-3 after the restore are not the "
+                         f"uninterrupted run's: losses {losses_b} against "
+                         f"{losses_a}, {len(final)} leaves differ "
+                         f"({final[:4]})")
+    _check_peaks(hist_a + hist_b, "train_restart")
+    return rec, counts
+
+
+def phase_train_elastic(dev, seed):
+    """``launch/elastic.run`` on one card: gemma3-1b at full width and
+    depth, bf16, the train phase's batches, 2x1 -> 1x1 -> 2x1 (2x1 under
+    :data:`ELASTIC_SCHEDULE`) with a shared checkpoint and telemetry
+    directory,
+    ``--replan observe`` with inline jobs. Gates: each restore, re-staged,
+    equals the state saved bit for bit; the loss continues (the
+    reference's check); the shrink phase has the ``elastic`` trigger, the
+    grow phase none and a calibration of version >= 1; every peak at or
+    under its plan's estimate; launches as the plans predict."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch import elastic
+    cfg = _arch("gemma3-1b")
+    launches = _PathLaunches(dev)
+    d_p = {name: n for name, n, _ in elastic.PHASES}
+    prev = {"shrink": "phase 1", "grow": "shrink"}
+    done, restored, lines = {}, {}, []
+
+    def on_done(phase, tr):
+        if phase in prev.values():      # the next phase compares with it
+            done[phase] = _snapshot(tr)
+
+    def on_resume(phase, tr, step):
+        restored[phase] = (step, _state_diff(tr.state_tree(),
+                                             done[prev[phase]]))
+    # twice a checkpoint: bf16 parameters, float32 master, m and v
+    tmp = _scratch_dir(2 * 14 * cfg.spec.param_count(), "train_elastic")
+    try:
+        hists = elastic.run(
+            cfg, tmp, device=dev, steps=ELASTIC_STEPS, replan="observe",
+            global_batch=TRAIN_BATCH, context=TRAIN_CONTEXT, seed=seed,
+            compute_dtype="bfloat16", schedule=ELASTIC_SCHEDULE,
+            log=lines.append, on_resume=on_resume, on_done=on_done,
+            on_step=lambda ph, s, p, c, tr: launches.step(cfg, p, d_p[ph]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = launches.check("train_elastic")
+    for ln in lines:
+        print(f"[train_elastic] {ln}", flush=True)
+    rec = {"layers": cfg.spec.n_layers, "schedule": ELASTIC_SCHEDULE,
+           "restored": {ph: {"at_step": s, "leaves_differing": len(bad)}
+                        for ph, (s, bad) in restored.items()},
+           "replan": {ph: {k: h[-1]["replan"][k] for k in (
+               "calibration_version", "triggers", "counters",
+               "calibration_deltas")} for ph, h in hists.items()},
+           "checkpoints": {ph: h[-1]["checkpoint"] for ph, h in
+                           hists.items()},
+           "steps": {ph: [_step_summary(x) for x in h]
+                     for ph, h in hists.items()}}
+    if sorted(restored) != ["grow", "shrink"] or any(
+            bad for _, bad in restored.values()):
+        raise PhaseError(f"a re-staged restore differs from the state "
+                         f"saved: {rec['restored']}")
+    for ph, h in hists.items():
+        _check_peaks(h, f"train_elastic {ph}")
+    torch.cuda.empty_cache()
+    return rec, counts
+
+
+def phase_train_replan(dev, seed):
+    """gemma3-1b at full width on :data:`REPLAN_LAYERS` layers, 2x1 on one
+    card, bf16, batches of 8 x :data:`REPLAN_CONTEXT`: four runs of
+    :data:`REPLAN_STEPS` steps — ``--replan off``; ``--replan observe``;
+    ``--replan auto --replan-sync --probe-every 1 --inject-straggler
+    2:2.5@3 --telemetry-dir``; a ``--plan-journal`` replay of the auto
+    run's ``plans.jsonl``. Gates: observe's losses and plans are off's
+    bit for bit, the replay's the auto run's; no re-plan job failed;
+    launches as the plans predict. Printed: trigger counts, swaps,
+    hysteresis rejects, the adopted calibration's deltas from the copied
+    cost model, and each run's largest step peak over its plan's estimate
+    (not gated here: at 2 of 26 layers the planner's model charges about
+    0.6 GB of activations where the step also holds the tied head's bf16
+    weight gradient, 0.6 GB, which it does not charge; the full-depth
+    phases gate their peaks)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train
+    from repro_torch.telemetry import read_jsonl
+    cfg = get_arch("gemma3-1b").with_layers(REPLAN_LAYERS)
+    launches = _PathLaunches(dev)
+    tmp = _scratch_dir(0, "train_replan")
+    runs, lines = {}, []
+    modes = {
+        "off": {},
+        "observe": dict(replan="observe", replan_background=False,
+                        telemetry_dir=str(tmp / "observe")),
+        "auto": dict(replan="auto", replan_background=False, probe_every=1,
+                     inject_straggler=REPLAN_STRAGGLER,
+                     replan_cooldown=REPLAN_COOLDOWN,
+                     telemetry_dir=str(tmp / "auto")),
+        "replay": dict(plan_journal=str(tmp / "auto" / "plans.jsonl"))}
+    try:
+        for name, kw in modes.items():
+            loop = _train_loop(seed)
+            loop.steps, loop.d_p, loop.context = (REPLAN_STEPS, 2,
+                                                  REPLAN_CONTEXT)
+            for k, v in kw.items():
+                setattr(loop, k, v)
+            plans = []
+
+            def on_step(step, plan, corpus, trainer):
+                plans.append(plan.to_json())
+                launches.step(cfg, plan, 2)
+            trainer, hist = train(cfg, loop, device=dev, on_step=on_step,
+                                  log=lambda s, n=name: lines.append(
+                                      f"({n}) {s}"))
+            del trainer
+            torch.cuda.empty_cache()
+            errors = [e for d in (tmp / name,) if d.exists()
+                      for e in read_jsonl(d / "timeline-train.jsonl")
+                      if e["kind"] == "replan" and e.get("phase") == "error"]
+            runs[name] = {"losses": [h["loss"] for h in hist],
+                          "plans": plans, "hist": hist, "errors": errors}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = launches.check("train_replan")
+    for ln in lines:
+        print(f"[train_replan] {ln}", flush=True)
+
+    def same_plans(a, b):           # solve_time: the solver's own clock
+        return [dict(p, solve_time=0) for p in a] == \
+            [dict(p, solve_time=0) for p in b]
+    rep = {n: runs[n]["hist"][-1].get("replan") for n in ("observe", "auto")}
+    rec = {"layers": REPLAN_LAYERS, "context": REPLAN_CONTEXT,
+           "steps": REPLAN_STEPS, "straggler": REPLAN_STRAGGLER,
+           "cooldown": REPLAN_COOLDOWN,
+           "observe_is_off": runs["observe"]["losses"] == runs["off"][
+               "losses"] and same_plans(runs["observe"]["plans"],
+                                        runs["off"]["plans"]),
+           "replay_is_auto": runs["replay"]["losses"] == runs["auto"][
+               "losses"] and runs["replay"]["plans"] == runs["auto"]["plans"],
+           "replan_errors": {n: r["errors"] for n, r in runs.items()},
+           **{f"{n}_{k}": r[k] for n, r in rep.items() for k in (
+               "triggers", "counters", "swap_steps", "calibration_version",
+               "calibration_deltas")},
+           "auto_calibration": rep["auto"]["calibration"],
+           "losses": {n: r["losses"] for n, r in runs.items()},
+           "buckets": {n: sorted(r["hist"][-1]["telemetry"]["per_bucket"])
+                       for n, r in runs.items()},
+           "tokens_per_s": {n: [h["tokens_per_s"] for h in r["hist"]]
+                            for n, r in runs.items()},
+           "peak_over_plan_gb": {n: max(_peak_over_plan(h)
+                                        for h in r["hist"])
+                                 for n, r in runs.items()}}
+    if not rec["observe_is_off"]:
+        raise PhaseError(f"--replan observe changed the losses or plans: "
+                         f"{rec}")
+    if not rec["replay_is_auto"]:
+        raise PhaseError(f"the journal replay is not the auto run: {rec}")
+    if any(rec["replan_errors"].values()):
+        raise PhaseError(f"a re-plan job failed: {rec['replan_errors']}")
+    return rec, counts
+
 
 
 def main() -> int:
@@ -4385,6 +4814,19 @@ def main() -> int:
     encdec_verify_counts = ver["launches"]
     torch.cuda.empty_cache()
 
+    # the trainer's control plane: checkpoint and resume at full depth,
+    # elastic re-staging between pipeline depths, online re-planning with
+    # an injected straggler and the plan journal's replay
+    (rst, restart_counts), dt = run("train_restart", lambda:
+                                    phase_train_restart(dev, args.seed))
+    print(f"[train_restart] ok in {dt:.1f}s: {json.dumps(rst)}", flush=True)
+    (ela, elastic_counts), dt = run("train_elastic", lambda:
+                                    phase_train_elastic(dev, args.seed))
+    print(f"[train_elastic] ok in {dt:.1f}s: {json.dumps(ela)}", flush=True)
+    (rpl, replan_counts), dt = run("train_replan", lambda:
+                                   phase_train_replan(dev, args.seed))
+    print(f"[train_replan] ok in {dt:.1f}s: {json.dumps(rpl)}", flush=True)
+
     # launches per path: the serving engines, the bf16 train steps, the
     # float32 verify phases' chunked step (the float32 B and C1 run only
     # there), the pipelines, the one-shot generators
@@ -4399,7 +4841,10 @@ def main() -> int:
              "train_verify_mla": verify_mla_counts,
              "generate_mla": gen_mla_counts, **dense_counts,
              "train_encdec": encdec_counts,
-             "train_verify_encdec": encdec_verify_counts}
+             "train_verify_encdec": encdec_verify_counts,
+             "train_restart": restart_counts,
+             "train_elastic": elastic_counts,
+             "train_replan": replan_counts}
     print("[kernels] " + "; ".join(f"{p}: {json.dumps(c)}"
                                    for p, c in paths.items())
           + f"; total {time.perf_counter() - t_start:.1f}s", flush=True)

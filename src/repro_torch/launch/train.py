@@ -67,6 +67,27 @@ device's busy share of the step). ``--memory-snapshot PATH`` records the
 last step's allocation history, writes the snapshot (a pickle that
 PyTorch's memory viz reads) and prints what is live at the step's peak
 (:func:`repro_torch.runtime.profile.memory_peak_summary`).
+
+The control plane is the JAX trainer's. ``--ckpt-dir D`` saves the
+parameters, the AdamW master, moments and step every ``--ckpt-every``
+steps (``ckpt/checkpoint.py``: host copy before the next step, files
+written in the background, the manifest last); ``--resume`` restores the
+latest into the trainer, re-staged for this run's ``--mesh`` (the
+checkpoint holds the model's layout: ``weights.state_from_stages``).
+``--replan observe|auto`` feeds each step's time (and, every
+``--probe-every`` steps, a per-stage vector) to the re-planning
+controller (``telemetry/replan.py``), which fits the cost model to the
+card; ``--telemetry-dir`` keeps the timeline, the plan journal
+``plans.jsonl`` (``--plan-journal`` replays one) and ``calibration.json``;
+``--inject-straggler 2:2.5@3`` scales the reported times of stage 2 from
+step 3 on; ``--lint`` audits each new bucket's plan (``lint/``). Elastic
+shrink and grow through a shared checkpoint: ``launch/elastic.py``.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \
+      --steps 4 --batch 8 --context 16384 --ckpt-dir ckpts/g --ckpt-every 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \
+      --steps 6 --batch 8 --context 16384 --ckpt-dir ckpts/g --resume \
+      --mesh 2x1 --replan auto --probe-every 1 --telemetry-dir runs/g
 """
 
 from __future__ import annotations
@@ -77,10 +98,12 @@ import math
 import sys
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["TrainConfig", "train", "plan_step", "main", "BUCKET_ROUNDING",
-           "PlanError", "parse_mesh"]
+__all__ = ["TrainConfig", "train", "plan_step", "plan_lengths", "mix_for",
+           "corpus_for",
+           "main", "BUCKET_ROUNDING", "PlanError", "parse_mesh"]
 
 
 class PlanError(RuntimeError):
@@ -106,6 +129,42 @@ class TrainConfig:
     schedule: Optional[str] = None
     v_stages: int = 0
     split_bwd: str = "auto"
+    # checkpoints (ckpt/checkpoint.py): saved after every ckpt_every-th
+    # step; resume continues from the latest one in ckpt_dir (at any
+    # pipeline depth: the saved tree is the model's layout)
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 20
+    resume: bool = False
+    # plan lint (lint/): "warn" logs the findings of every new bucket's
+    # plan and of each re-plan candidate, "error" raises on any, "off"
+    lint: str = "warn"
+    # online re-planning (telemetry/): "off" = the static cost model;
+    # "observe" = telemetry, fits and would-be swaps, plans untouched;
+    # "auto" = per-step solves under the adopted calibration, swaps at
+    # step boundaries (hysteresis, cooldown, lint gate)
+    replan: str = "off"
+    telemetry_dir: Optional[str] = None  # timeline spill, plans.jsonl,
+    #                                      calibration.json
+    # every Nth step carries a per-stage vector (wall / d_p each, as the
+    # JAX trainer's probes); 0 = none. Every step is timed: the port's
+    # step ends in a synchronize
+    probe_every: int = 0
+    replan_min_win: float = 0.05
+    replan_cooldown: int = 8
+    replan_min_samples: int = 4
+    # re-plan jobs on a background thread; False runs them inline (the
+    # swap timing is then deterministic)
+    replan_background: bool = True
+    # telemetry-only straggler injection "STAGE:FACTOR[,...][@START]"
+    # (ft.StragglerInjector): scales the reported times, never the math
+    inject_straggler: str = ""
+    # from step drift_at on (0 = never), batches come from dataset2 at
+    # context2 (0 = context)
+    dataset2: Optional[str] = None
+    context2: int = 0
+    drift_at: int = 0
+    # replay the per-step plans of this plans.jsonl instead of solving
+    plan_journal: Optional[str] = None
 
 
 BUCKET_ROUNDING = 256     # chunk-capacity granularity, as the JAX trainer
@@ -126,50 +185,93 @@ def parse_mesh(text: str) -> Tuple[int, int]:
     return p, s
 
 
+def mix_for(loop: TrainConfig, step: int) -> Tuple[str, int]:
+    """The length preset and context of step ``step``'s batch (the second
+    phase's from ``loop.drift_at`` on)."""
+    if loop.drift_at and step >= loop.drift_at and (loop.dataset2
+                                                    or loop.context2):
+        return loop.dataset2 or loop.dataset, loop.context2 or loop.context
+    return loop.dataset, loop.context
+
+
+def corpus_for(loop: TrainConfig, step: int, vocab: int) -> Dict:
+    """Step ``step``'s global batch, as :func:`train` runs it."""
+    from repro_torch.data import sample_corpus_batch
+    ds, ctx = mix_for(loop, step)
+    return sample_corpus_batch(ds, loop.global_batch, ctx, vocab,
+                               seed=loop.seed + step)
+
+
+def plan_lengths(cm, loop: TrainConfig, lengths: Sequence[int], *,
+                 schedule: Optional[str] = None, v_stages: int = 0, **pins):
+    """The plan of a batch of ``lengths`` under the cost model ``cm``: the
+    one solve of the training loop, its re-planning controller and the
+    controller's incumbent what-if (``pins``: ``token_capacity``,
+    ``sp_policy``, ``sp_degree``); ``schedule`` and ``v_stages`` pin the
+    planner's schedule backend."""
+    from repro_torch.core import PlannerConfig, plan_batch
+    remat_mode = ("stage_aware" if loop.ckpt_policy == "stage-aware"
+                  else "uniform")
+    if cm.model.is_encoder_decoder:
+        # the reference's encoder-decoder cell: K = 1 (the encoder is
+        # pack-only), one virtual stage, the whole (unported) SP axis
+        pins = dict(pins, fixed_k=1, sp_degree=cm.cluster.d_s)
+        v_stages = 1
+    pconf = PlannerConfig(bucket_rounding=BUCKET_ROUNDING,
+                          remat_mode=remat_mode, schedule=schedule,
+                          v_stages=v_stages, **pins)
+    return plan_batch(cm, list(lengths), pconf)
+
+
 def plan_step(cm, loop: TrainConfig, step: int, *,
               schedule: Optional[str] = None, v_stages: int = 0):
     """Step ``step``'s batch and its plan under the cost model ``cm``, as
     :func:`train` runs them: ``(corpus, plan)``; ``schedule`` and
     ``v_stages`` pin the planner's schedule backend."""
-    from repro_torch.core import PlannerConfig, plan_batch
-    from repro_torch.data import sample_corpus_batch
-    corpus = sample_corpus_batch(loop.dataset, loop.global_batch,
-                                 loop.context, cm.model.vocab,
-                                 seed=loop.seed + step)
-    remat_mode = ("stage_aware" if loop.ckpt_policy == "stage-aware"
-                  else "uniform")
-    pinned = {}
-    if cm.model.is_encoder_decoder:
-        # the reference's encoder-decoder cell: K = 1 (the encoder is
-        # pack-only), one virtual stage, the whole (unported) SP axis
-        pinned = dict(fixed_k=1, sp_degree=cm.cluster.d_s)
-        v_stages = 1
-    pconf = PlannerConfig(bucket_rounding=BUCKET_ROUNDING,
-                          remat_mode=remat_mode, schedule=schedule,
-                          v_stages=v_stages, **pinned)
-    return corpus, plan_batch(cm, [len(v) for v in corpus.values()], pconf)
+    corpus = corpus_for(loop, step, cm.model.vocab)
+    return corpus, plan_lengths(cm, loop, [len(v) for v in corpus.values()],
+                                schedule=schedule, v_stages=v_stages)
 
 
 def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
           cluster=None, log: Callable = print,
           on_step: Optional[Callable] = None,
+          on_resume: Optional[Callable] = None,
           cards: Optional[Sequence] = None) -> Tuple[object, List[Dict]]:
-    """Run ``loop.steps`` steps; returns ``(trainer, history)``.
+    """Run ``loop.steps`` steps (from the checkpoint's next step under
+    ``loop.resume``); returns ``(trainer, history)``.
 
     ``params``: starting parameters in the port's layout (default: random
     from ``loop.seed``). ``cluster``: the planner's hardware (default: one
     H100; with ``loop.d_p > 1`` its ``d_p`` is set and each stage gets its
     card's memory divided by the stages on that card). ``cards``: the
     pipeline's cards (default: ``device``). ``on_step(step, plan,
-    corpus)`` is called before each step (the caller may reset counters
-    there)."""
+    corpus, trainer)`` is called before each step (the caller may reset
+    counters or read the state there); ``on_resume(trainer, step)`` right after a checkpoint was
+    restored into the trainer (``step``: the first step the run will
+    take).
+
+    As the JAX trainer's loop: step 0's plan is solved first and pins the
+    schedule and ``v``; a resumed run restores after its trainer is built
+    (overwriting parameters, master, moments and step) and refuses a
+    checkpoint written at another ``v``; each step's plan is solved after
+    the previous step ran and before its telemetry reaches the re-planning
+    controller, and solved again when an ``auto`` swap is adopted; plans
+    are journaled, never checkpointed. One difference: a resumed run's
+    first step runs its own step's batch, where the JAX loop runs step 0's
+    again (``ROADMAP.md`` §3, reference caveats)."""
     import torch
 
-    from repro_torch.core import ClusterSpec, CostModel
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core import ClusterSpec, CostModel, ExecutionPlan
     from repro_torch.device import dtype_of
-    from repro_torch.data.batching import sequence_frames
+    from repro_torch.ft import (StragglerInjector, StragglerMonitor,
+                                replan_costmodel)
+    from repro_torch.lint import run_plan_checks
     from repro_torch.models import DecoderLM, EncDecLM
     from repro_torch.runtime.train_step import ChunkedTrainer
+    from repro_torch.telemetry import (ReplanConfig, ReplanController,
+                                       StepTimeline, read_jsonl)
 
     device = torch.device(device)
     dtype = dtype_of(loop.compute_dtype)
@@ -181,85 +283,289 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
         cluster = cluster.with_(d_p=d_p,
                                 hbm_bytes=cluster.hbm_bytes / per_card)
     cm = CostModel(cfg.spec, cluster)
+    d_s = cluster.d_s
     try:
         cm.token_capacity()
     except ValueError as e:
         raise PlanError(f"{cfg.name}: no plan for this cluster: {e}") from e
     encdec = cfg.spec.is_encoder_decoder
-    if params is None:
-        gen = torch.Generator(device=device).manual_seed(loop.seed)
-        params = (EncDecLM if encdec else DecoderLM)(cfg).init(
-            gen, device=device)
-    trainer = None
-    if d_p == 1:
-        trainer = ChunkedTrainer(cfg, params, device=device,
-                                 compute_dtype=dtype)
-        del params
-    pinned = (loop.schedule, loop.v_stages)
-    history = []
-    for step in range(loop.steps):
-        corpus, plan = plan_step(cm, loop, step, schedule=pinned[0],
-                                 v_stages=pinned[1])
-        if trainer is None:
-            # the schedule and v place the layers: pinned for the run
-            pinned = (plan.schedule, plan.v_stages)
+    # the JAX loop never feeds the monitor (replan_costmodel returns cm)
+    monitor = StragglerMonitor(d_p=d_p)
+    mgr = CheckpointManager(loop.ckpt_dir) if loop.ckpt_dir else None
+    timeline = StepTimeline(spill_dir=loop.telemetry_dir, name="train")
+    injector = (StragglerInjector.parse(loop.inject_straggler, d_p,
+                                        seed=loop.seed)
+                if loop.inject_straggler else None)
+    journal_in = {}
+    if loop.plan_journal:
+        for rec in read_jsonl(loop.plan_journal):
+            journal_in[int(rec["step"])] = ExecutionPlan.loads(rec["plan"])
+        if not journal_in:
+            raise ValueError(f"--plan-journal {loop.plan_journal} holds no "
+                             f"replayable plans")
+        log(f"[journal] replaying {len(journal_in)} plans from "
+            f"{loop.plan_journal}")
+    # the schedule and v place the layers: pinned after step 0's plan
+    pinned = {"schedule": loop.schedule, "v_stages": loop.v_stages}
+    key_kwargs = {"split_bwd": loop.split_bwd, "dtype": loop.compute_dtype}
+
+    def solve(cm_, lengths):
+        plan = plan_lengths(cm_, loop, lengths, **pinned)
+        pinned["schedule"], pinned["v_stages"] = plan.schedule, plan.v_stages
+        return plan
+
+    def resolve_incumbent(cm_, lengths, inc):
+        """This batch re-planned under the incumbent's bucket (capacity and
+        SP point pinned): the hysteresis strawman, never run."""
+        key = inc.bucket_key(d_s, **key_kwargs)
+        return plan_lengths(cm_, loop, lengths, **pinned,
+                            token_capacity=key.cap,
+                            sp_policy=key.sp_policy, sp_degree=key.d_s_eff)
+
+    def bucket_of(plan):
+        return str(plan.bucket_key(d_s, **key_kwargs))
+
+    def lint_report(plan):
+        return run_plan_checks(plan, d_s, d_p, model=cfg.spec,
+                               key_kwargs=key_kwargs)
+
+    def plan_lint(plan):
+        """A re-plan candidate's lint errors: a hazardous candidate is
+        rejected before the swap."""
+        if loop.lint == "off":
+            return []
+        return [str(e) for e in lint_report(plan).errors]
+
+    controller = None
+    if loop.replan in ("observe", "auto") and not journal_in:
+        # no precompile: the port builds nothing per bucket
+        controller = ReplanController(
+            cm, ReplanConfig(mode=loop.replan, min_win=loop.replan_min_win,
+                             cooldown_steps=loop.replan_cooldown,
+                             min_samples=loop.replan_min_samples,
+                             background=loop.replan_background),
+            solve, bucket_of, lint=plan_lint,
+            resolve_incumbent=resolve_incumbent, timeline=timeline,
+            telemetry_dir=loop.telemetry_dir,
+            fingerprint=f"{d_p}x{d_s}:{cfg.spec.name}", log=log)
+
+    resuming = (mgr is not None and loop.resume
+                and mgr.latest_step() is not None)
+
+    def plan_for(step: int, *, layout_only: bool = False):
+        """Step ``step``'s plan and batch; ``layout_only``: the plan only
+        places the layers (a resumed run's bootstrap), so a replay of a
+        resumed run's journal, which lacks step 0, takes its first plan."""
+        corpus = corpus_for(loop, step, cfg.spec.vocab)
+        if journal_in:
+            plan = journal_in.get(step)
+            if plan is None and not layout_only:
+                raise ValueError(
+                    f"--plan-journal {loop.plan_journal} holds no plan for "
+                    f"step {step} (it holds steps {min(journal_in)}-"
+                    f"{max(journal_in)})")
+            plan = plan or journal_in[min(journal_in)]
+            pinned["schedule"], pinned["v_stages"] = (plan.schedule,
+                                                      plan.v_stages)
+            return plan, corpus
+        cm_ = controller.cost_model() if controller is not None else cm
+        cm_ = replan_costmodel(cm_, monitor)
+        return solve(cm_, [len(v) for v in corpus.values()]), corpus
+
+    journal_out = None
+    history: List[Dict] = []
+    lint_stats = {"buckets": 0, "findings": 0, "errors": 0}
+    linted = set()
+    try:
+        if loop.telemetry_dir:
+            jp = Path(loop.telemetry_dir) / "plans.jsonl"
+            jp.parent.mkdir(parents=True, exist_ok=True)
+            journal_out = open(jp, "w", buffering=1)
+        # bootstrap: step 0's plan pins the schedule and v
+        plan, corpus = plan_for(0, layout_only=resuming)
+        if params is None:
+            gen = torch.Generator(device=device).manual_seed(loop.seed)
+            params = (EncDecLM if encdec else DecoderLM)(cfg).init(
+                gen, device=device)
+        if d_p == 1:
+            trainer = ChunkedTrainer(cfg, params, device=device,
+                                     compute_dtype=dtype)
+        else:
             trainer = _pipeline_trainer(cfg, loop, plan, params, cards,
                                         dtype, cm)
-            del params
             g = trainer.geom
             log(f"[pipeline] d_p={d_p} schedule={g.schedule} "
                 f"v={g.v_stages} split_bwd={g.split_bwd} cards="
                 f"{[str(c) for c in cards]} stage_devices="
                 f"{[str(d) for d in trainer.devices]}")
-        if on_step is not None:
-            on_step(step, plan, corpus)
-        for c in cards:
-            if c.type == "cuda":
-                torch.cuda.synchronize(c)
-                torch.cuda.reset_peak_memory_stats(c)
-        # the encoder-decoder's frames: each sequence's from the frontend
-        # stub (set-up, outside the step's time)
-        data = (sequence_frames(cfg, corpus, loop.seed + step,
-                                device=cards[0], dtype=dtype),) \
-            if encdec else ()
-        t0 = time.perf_counter()
-        res = trainer.step(plan, corpus, *data,
-                           remat_policy=loop.ckpt_policy)
-        for c in cards:
-            if c.type == "cuda":
-                torch.cuda.synchronize(c)
-        wall = time.perf_counter() - t0
-        rec = {"step": step, "loss": res.loss, "tokens": res.n_valid,
-               "wall_s": wall, "tokens_per_s": res.n_valid / wall,
-               "chunks": res.chunks, "pipelines": len(plan.pipelines),
-               "remat_layers": res.remat_layers,
-               "grad_norm": res.grad_norm,
-               "solve_s": plan.solve_time,
-               "frames": (sum(len(t) for t in corpus.values()) if encdec
-                          else 0),
-               "plan_peak_mem_gb": max((m for p in plan.pipelines
-                                        for m in p.est_peak_mem),
-                                       default=0.0) / 1e9,
-               "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
-                               if device.type == "cuda" else None)}
-        extra = ""
-        if d_p > 1:
-            rec.update(_pipeline_record(cm, plan, trainer, cards, res))
-            extra = (f" stages_est {rec['stage_plan_mem_gb']} GB (in the"
-                     f" order run {rec['stage_order_mem_gb']})"
-                     f" card_peak {rec['card_peak_mem_gb']} GB (est "
-                     f"{rec['card_plan_mem_gb']}) handoffs "
-                     f"{rec['handoffs']} ({rec['handoff_bytes'] / 1e6:.1f} "
-                     f"MB) bubble {rec['bubble_share']:.4f}")
-        history.append(rec)
-        mem = (f"{rec['peak_mem_gb']:.2f} GB" if rec["peak_mem_gb"]
-               is not None else "n/a (cpu)")
-        log(f"step {step:4d} loss {res.loss:.4f} tokens {res.n_valid} "
-            f"wall {wall:.2f}s tok/s {rec['tokens_per_s']:.1f} "
-            f"peak_mem {mem} (plan estimate "
-            f"{rec['plan_peak_mem_gb']:.2f} GB) chunks {res.chunks} "
-            f"remat_layers {res.remat_layers}" + extra)
+        del params
+        start_step, restore_s = 0, None
+        if resuming:
+            t0 = time.perf_counter()
+            start_step = _resume(mgr, trainer, plan, log)
+            restore_s = time.perf_counter() - t0
+            if on_resume is not None:
+                on_resume(trainer, start_step)
+            if start_step < loop.steps:
+                plan, corpus = plan_for(start_step)
+        for step in range(start_step, loop.steps):
+            if journal_out is not None:
+                journal_out.write(json.dumps({"step": step,
+                                              "plan": plan.dumps()}) + "\n")
+            bucket = bucket_of(plan)
+            if loop.lint != "off" and bucket not in linted:
+                # a new bucket stands in for the JAX trainer's cold compile
+                linted.add(bucket)
+                rep = lint_report(plan)
+                for f in rep.findings:
+                    log(f"[lint] {f}")
+                lint_stats["buckets"] += 1
+                lint_stats["findings"] += len(rep.findings)
+                lint_stats["errors"] += len(rep.errors)
+                if rep.findings:
+                    timeline.record("lint", step, bucket=bucket,
+                                    findings=len(rep.findings),
+                                    errors=len(rep.errors))
+                if loop.lint == "error":
+                    rep.raise_if_findings()
+            if on_step is not None:
+                on_step(step, plan, corpus, trainer)
+            rec, res = _run_step(trainer, cfg, loop, plan, corpus, step,
+                                 cards, device, dtype, encdec)
+            if d_p > 1:
+                rec.update(_pipeline_record(cm, plan, trainer, cards, res))
+            del res
+            lengths = [len(v) for v in corpus.values()]
+            executed = plan
+            if step + 1 < loop.steps:
+                plan, corpus = plan_for(step + 1)
+            wall = rec["wall_s"]
+            probed = bool(loop.probe_every) and step % loop.probe_every == 0
+            per_stage = None
+            if probed:
+                per_stage = [wall / d_p] * d_p
+                if injector is not None:
+                    per_stage = injector.per_stage(per_stage, step)
+            wall_rep = (injector.wall(wall, step) if injector is not None
+                        else wall)
+            timeline.record_step(step, bucket, wall_rep,
+                                 tokens=float(rec["tokens"]),
+                                 loss=rec["loss"], per_stage_s=per_stage,
+                                 probed=probed)
+            history.append(rec)
+            log(_step_line(rec))
+            if controller is not None:
+                controller.observe_step(step, executed, wall_rep, lengths,
+                                        per_stage_s=per_stage, bucket=bucket)
+                swap = controller.poll()
+                if (swap is not None and loop.replan == "auto"
+                        and step + 1 < loop.steps):
+                    # the swap at the step boundary: the next step is solved
+                    # again under the newly adopted calibration
+                    plan, corpus = plan_for(step + 1)
+            if mgr is not None and (step + 1) % loop.ckpt_every == 0:
+                mgr.save(step, trainer.state_tree(),
+                         extra={"step": step, "schedule": executed.schedule,
+                                "v_stages": executed.v_stages})
+                # the save's bytes and blocking seconds; its write's
+                # seconds once on disk
+                rec["save"] = mgr.stats
+        if mgr is not None:
+            mgr.wait()
+        if controller is not None:
+            controller.drain()
+            controller.poll()       # a job that outlived the loop
+            log(f"[replan] version={controller.version} "
+                f"counters={controller.counters} "
+                f"triggers={controller.trigger_reasons}")
+        if history:
+            history[-1]["telemetry"] = timeline.snapshot()
+            history[-1]["lint"] = dict(lint_stats)
+            if controller is not None:
+                history[-1]["replan"] = controller.snapshot()
+            if mgr is not None:
+                history[-1]["checkpoint"] = dict(mgr.stats,
+                                                 restore_s=restore_s)
+    finally:
+        if journal_out is not None:
+            journal_out.close()
+        timeline.close()
     return trainer, history
+
+
+def _resume(mgr, trainer, plan, log) -> int:
+    """Restore the latest checkpoint into ``trainer`` (built for ``plan``'s
+    schedule and v); returns the first step to run."""
+    state, extra = mgr.restore(trainer.state_tree())
+    # the port could re-stage across v (its checkpoint is the model's
+    # layout); the reference's guard stays, so a run keeps its v
+    saved_v = int(extra.get("v_stages", 1))
+    if saved_v != plan.v_stages:
+        raise ValueError(
+            f"checkpoint was written with v_stages={saved_v} but "
+            f"this run pinned {plan.schedule} v={plan.v_stages}; "
+            f"pass --schedule/--v-stages matching the checkpoint "
+            f"(layer stacking is v-dependent and cannot be "
+            f"restacked across v)")
+    trainer.load_state(state)
+    del state
+    start = int(extra.get("step", mgr.latest_step())) + 1
+    log(f"[resume] from step {start - 1}")
+    return start
+
+
+def _run_step(trainer, cfg, loop, plan, corpus, step, cards, device, dtype,
+              encdec):
+    """One step, bracketed by synchronizes: ``(record, result)``, its
+    history record and the trainer's ``StepResult``."""
+    import torch
+
+    from repro_torch.data.batching import sequence_frames
+    for c in cards:
+        if c.type == "cuda":
+            torch.cuda.synchronize(c)
+            torch.cuda.reset_peak_memory_stats(c)
+    # the encoder-decoder's frames: each sequence's from the frontend stub
+    # (set-up, outside the step's time)
+    data = (sequence_frames(cfg, corpus, loop.seed + step, device=cards[0],
+                            dtype=dtype),) if encdec else ()
+    t0 = time.perf_counter()
+    res = trainer.step(plan, corpus, *data, remat_policy=loop.ckpt_policy)
+    for c in cards:
+        if c.type == "cuda":
+            torch.cuda.synchronize(c)
+    wall = time.perf_counter() - t0
+    rec = {"step": step, "loss": res.loss, "tokens": res.n_valid,
+           "wall_s": wall, "tokens_per_s": res.n_valid / wall,
+           "chunks": res.chunks, "pipelines": len(plan.pipelines),
+           "remat_layers": res.remat_layers, "grad_norm": res.grad_norm,
+           "solve_s": plan.solve_time,
+           "frames": (sum(len(t) for t in corpus.values()) if encdec
+                      else 0),
+           "plan_peak_mem_gb": max((m for p in plan.pipelines
+                                    for m in p.est_peak_mem),
+                                   default=0.0) / 1e9,
+           "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                           if device.type == "cuda" else None)}
+    return rec, res
+
+
+def _step_line(rec: Dict) -> str:
+    mem = (f"{rec['peak_mem_gb']:.2f} GB" if rec["peak_mem_gb"] is not None
+           else "n/a (cpu)")
+    extra = ""
+    if "card_peak_mem_gb" in rec:
+        extra = (f" stages_est {rec['stage_plan_mem_gb']} GB (in the"
+                 f" order run {rec['stage_order_mem_gb']})"
+                 f" card_peak {rec['card_peak_mem_gb']} GB (est "
+                 f"{rec['card_plan_mem_gb']}) handoffs "
+                 f"{rec['handoffs']} ({rec['handoff_bytes'] / 1e6:.1f} "
+                 f"MB) bubble {rec['bubble_share']:.4f}")
+    return (f"step {rec['step']:4d} loss {rec['loss']:.4f} tokens "
+            f"{rec['tokens']} wall {rec['wall_s']:.2f}s tok/s "
+            f"{rec['tokens_per_s']:.1f} peak_mem {mem} (plan estimate "
+            f"{rec['plan_peak_mem_gb']:.2f} GB) chunks {rec['chunks']} "
+            f"remat_layers {rec['remat_layers']}" + extra)
 
 
 def _pipeline_trainer(cfg, loop: TrainConfig, plan, params, cards, dtype,
@@ -361,6 +667,54 @@ def main(argv=None) -> int:
                     help="record the last step's allocation history, write "
                          "the snapshot (pickle) here and print what is "
                          "live at its peak")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="save a checkpoint here every --ckpt-every steps")
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in --ckpt-dir "
+                         "(at any --mesh: the checkpoint is re-staged)")
+    ap.add_argument("--lint", default="warn", choices=["off", "warn", "error"],
+                    help="plan lint on each new bucket and each re-plan "
+                         "candidate: 'warn' logs findings, 'error' aborts")
+    ap.add_argument("--replan", default="off",
+                    choices=["off", "observe", "auto"],
+                    help="online re-planning: 'observe' fits calibrations "
+                         "and logs would-be swaps without touching plans; "
+                         "'auto' plans under the adopted calibration and "
+                         "swaps at step boundaries")
+    ap.add_argument("--telemetry-dir", default="",
+                    help="the timeline's JSONL spill, the plan journal "
+                         "(plans.jsonl) and calibration.json")
+    ap.add_argument("--probe-every", type=int, default=0,
+                    help="every Nth step carries a per-stage time vector "
+                         "(0: none)")
+    ap.add_argument("--replan-min-win", type=float, default=0.05,
+                    help="hysteresis: a bucket-changing swap needs this "
+                         "predicted relative win")
+    ap.add_argument("--replan-cooldown", type=int, default=8,
+                    help="minimum steps between re-plan jobs")
+    ap.add_argument("--replan-min-samples", type=int, default=4,
+                    help="telemetry samples before the first fit")
+    ap.add_argument("--replan-sync", action="store_true",
+                    help="run re-plan jobs inline, not on a background "
+                         "thread (deterministic swap timing)")
+    ap.add_argument("--inject-straggler", default="",
+                    help="telemetry-only straggler 'STAGE:FACTOR[,...]"
+                         "[@START]' (e.g. '2:2.5@3'): scales the reported "
+                         "times, never the math")
+    ap.add_argument("--dataset2", default="",
+                    help="the length preset from --drift-at on")
+    ap.add_argument("--context2", type=int, default=0,
+                    help="the context from --drift-at on (0: --context)")
+    ap.add_argument("--drift-at", type=int, default=0,
+                    help="step at which --dataset2/--context2 take over "
+                         "(0: never)")
+    ap.add_argument("--plan-journal", default="",
+                    help="replay the per-step plans of this plans.jsonl "
+                         "instead of solving")
+    ap.add_argument("--stats-json", default="",
+                    help="write the run's history, telemetry, re-planning "
+                         "and lint counters to this JSON file")
     args = ap.parse_args(argv)
 
     import torch
@@ -396,7 +750,20 @@ def main(argv=None) -> int:
                        compute_dtype=args.dtype or (
                            "float32" if args.reduced else "bfloat16"),
                        d_p=d_p, schedule=args.schedule,
-                       v_stages=args.v_stages, split_bwd=args.split_bwd)
+                       v_stages=args.v_stages, split_bwd=args.split_bwd,
+                       ckpt_dir=args.ckpt_dir or None,
+                       ckpt_every=args.ckpt_every, resume=args.resume,
+                       lint=args.lint, replan=args.replan,
+                       telemetry_dir=args.telemetry_dir or None,
+                       probe_every=args.probe_every,
+                       replan_min_win=args.replan_min_win,
+                       replan_cooldown=args.replan_cooldown,
+                       replan_min_samples=args.replan_min_samples,
+                       replan_background=not args.replan_sync,
+                       inject_straggler=args.inject_straggler,
+                       dataset2=args.dataset2 or None,
+                       context2=args.context2, drift_at=args.drift_at,
+                       plan_journal=args.plan_journal or None)
     cards = ([torch.device(device.type, i) for i in range(args.cards)]
              if device.type == "cuda" else [device] * args.cards)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -406,7 +773,7 @@ def main(argv=None) -> int:
     prof = None
     mem_base = None
 
-    def on_step(step, plan, corpus):
+    def on_step(step, plan, corpus, trainer):
         nonlocal prof, mem_base
         if args.memory_snapshot and step == loop.steps - 1:
             torch.cuda.synchronize(device)
@@ -446,6 +813,12 @@ def main(argv=None) -> int:
         with open(args.profile, "w") as f:
             json.dump(summary, f, indent=1)
         print(f"[profile] {json.dumps(summary)}")
+    if args.stats_json:
+        from repro_torch.telemetry import atomic_write_json
+        last = history[-1] if history else {}
+        atomic_write_json(args.stats_json, {
+            "history": history, **{k: last.get(k, {}) for k in (
+                "telemetry", "replan", "lint", "checkpoint")}})
     bad = [h["step"] for h in history if not math.isfinite(h["loss"])]
     if bad:
         print(f"error: non-finite loss at steps {bad}", file=sys.stderr)

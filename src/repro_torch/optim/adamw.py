@@ -7,7 +7,7 @@ float32, gradients are clipped to ``grad_clip`` by their global norm, and
 the learning rate follows linear warm-up then cosine decay. Unlike the
 functional reference, the update runs in place on the state tensors and
 the live parameters (under ``torch.no_grad``), which keeps one copy of
-each on the card.
+each on the card, a block of rows at a time (:data:`UPDATE_BLOCK`).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 from repro_torch.models.model import tree_leaves, tree_map
 
 __all__ = ["AdamWConfig", "init_opt_state", "lr_schedule", "global_norm",
-           "adamw_update"]
+           "square_sum", "adamw_update", "UPDATE_BLOCK"]
 
 
 @dataclass(frozen=True)
@@ -56,12 +56,42 @@ def lr_schedule(cfg: AdamWConfig, step: int) -> float:
     return cfg.lr * warm * frac
 
 
+# AdamW's update and the gradients' norm walk each leaf in blocks of at
+# most this many elements (slices of its rows), so their float32
+# temporaries stay a block's: the planner charges the model states (bf16,
+# master, m, v, gradient sum) and nothing for either, and whole-leaf
+# temporaries of gemma3-1b's 262,144 x 1,152 tied embedding (1.2 GB in
+# float32, a copy on each end stage of a pipeline) put a 2x1 step of 2
+# layers 4.3 GB over its plan on the H100. Elementwise on slices, the
+# update's bits are the whole leaf's; the norm's sum runs in blocks.
+UPDATE_BLOCK = 1 << 24
+
+
+def _blocks(a: torch.Tensor):
+    """Indices of ``a``'s blocks: slices of its leading axis of at most
+    :data:`UPDATE_BLOCK` elements each (the whole of a 0-d or small
+    leaf)."""
+    if a.dim() == 0 or a.numel() <= UPDATE_BLOCK:
+        return [...]
+    rows = max(1, UPDATE_BLOCK // max(1, a[0].numel()))
+    return [slice(i, i + rows) for i in range(0, a.shape[0], rows)]
+
+
+def square_sum(a: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of ``a``'s squares, a block of rows at a time
+    (:func:`_blocks`: no temporary larger than a block)."""
+    out = torch.zeros((), dtype=torch.float32, device=a.device)
+    for sl in _blocks(a):
+        out = out + a[sl].float().square().sum()
+    return out
+
+
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient (float32 scalar)."""
     leaves = tree_leaves(grads)
     sq = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for g in leaves:
-        sq = sq + g.float().square().sum()
+        sq = sq + square_sum(g)
     return sq.sqrt()
 
 
@@ -85,15 +115,17 @@ def adamw_update(cfg: AdamWConfig, params, grads, state, *,
     b1, b2 = cfg.beta1, cfg.beta2
     c1 = 1.0 - b1 ** step
     c2 = 1.0 - b2 ** step
-    for p, g, mast, m, v in zip(tree_leaves(params), g_leaves,
-                                tree_leaves(state["master"]),
-                                tree_leaves(state["m"]),
-                                tree_leaves(state["v"])):
-        g = g * clip
-        m.mul_(b1).add_(g, alpha=1 - b1)
-        v.mul_(b2).addcmul_(g, g, value=1 - b2)
-        upd = (m / c1) / ((v / c2).sqrt() + cfg.eps) + cfg.weight_decay * mast
-        mast.sub_(lr * upd)
-        p.copy_(mast)
+    for leaves in zip(tree_leaves(params), g_leaves,
+                      tree_leaves(state["master"]), tree_leaves(state["m"]),
+                      tree_leaves(state["v"])):
+        for sl in _blocks(leaves[0]):
+            p, g, mast, m, v = (a[sl] for a in leaves)
+            g = g * clip
+            m.mul_(b1).add_(g, alpha=1 - b1)
+            v.mul_(b2).addcmul_(g, g, value=1 - b2)
+            upd = ((m / c1) / ((v / c2).sqrt() + cfg.eps)
+                   + cfg.weight_decay * mast)
+            mast.sub_(lr * upd)
+            p.copy_(mast)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

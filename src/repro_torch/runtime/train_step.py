@@ -64,8 +64,10 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import (DecoderLM, LayerCtx, tree_leaves,
                                       tree_map, tree_unflatten,
                                       unstack_layers)
-from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
-from repro_torch.weights import from_stages, to_stages
+from repro_torch.optim import (AdamWConfig, adamw_update, init_opt_state,
+                               square_sum)
+from repro_torch.weights import (OPT_KEYS, from_stages, state_from_stages,
+                                 state_to_stages, to_stages)
 
 from .executor import PipelineExecutor, remat_tick_count
 from .pipeline import PipelineGeometry, PipelineStage
@@ -181,6 +183,22 @@ def sequence_rows(toks: np.ndarray):
     pos = np.zeros(rows, np.int32)
     pos[:n] = np.arange(n)
     return np.pad(toks, (0, rows - n)), tgt, seg, pos
+
+
+@torch.no_grad()
+def _copy_into(dst, src) -> None:
+    """Copy the tensors of tree ``src`` into tree ``dst``'s, leaf by leaf in
+    :func:`tree_leaves`' order (a restore that changes no tensor's
+    identity: parameters stay the same autograd leaves, with their
+    hooks)."""
+    d, s = tree_leaves(dst), tree_leaves(src)
+    if len(d) != len(s):
+        raise ValueError(f"{len(s)} leaves for a state of {len(d)}")
+    for a, b in zip(d, s):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise ValueError(f"a {b.dtype} {tuple(b.shape)} leaf for a "
+                             f"{a.dtype} {tuple(a.shape)} one")
+        a.copy_(b)
 
 
 def _take_grad(sink: List, i: int, p: torch.Tensor) -> None:
@@ -394,6 +412,21 @@ class ChunkedTrainer:
         res.grad_norm = float(m["grad_norm"])
         return res
 
+    def state_tree(self) -> Dict:
+        """The trainer's state as a checkpoint tree (``weights.
+        state_from_stages``' layout): the live parameters, AdamW's master,
+        m and v (the tensors themselves, not copies) and its step."""
+        return {"params": self.params, "step": int(self.opt["step"]),
+                **{k: self.opt[k] for k in OPT_KEYS}}
+
+    def load_state(self, state: Dict) -> None:
+        """Overwrite the parameters, AdamW's master, m, v and step with
+        those of the checkpoint tree ``state``, in place."""
+        _copy_into(self.params, state["params"])
+        for k in OPT_KEYS:
+            _copy_into(self.opt[k], state[k])
+        self.opt["step"] = int(state["step"])
+
 
 class PipelineTrainer:
     """Parameters, optimizer state and the pipelined step of one model on
@@ -404,7 +437,7 @@ class PipelineTrainer:
     ``cost_model``, if given, lets interleaved schedules keep each
     stage's residuals within the plan's estimate
     (``program.stage_programs``). The AdamW state is made at the first
-    :meth:`step`."""
+    :meth:`step` (or :meth:`load_state`, which then overwrites it)."""
 
     def __init__(self, cfg: ArchConfig, params: Dict, *,
                  geometry: PipelineGeometry, cards: Sequence,
@@ -550,8 +583,7 @@ class PipelineTrainer:
         res = self.loss_and_grads(plan, corpus, *data,
                                   remat_policy=remat_policy)
         accs, self._accs = self._accs, None
-        if self.opt is None:
-            self.opt = [init_opt_state(sp) for sp in self.params]
+        self._opt_state()
         dev0 = self.devices[0]
         sq = torch.zeros((), dtype=torch.float32, device=dev0)
         for p, acc in enumerate(accs):
@@ -560,7 +592,7 @@ class PipelineTrainer:
             part = torch.zeros((), dtype=torch.float32, device=acc[0].device)
             for i, a in enumerate(acc):
                 if i != skip:
-                    part = part + a.square().sum()
+                    part = part + square_sum(a)
             sq = sq + part.to(dev0)
         gnorm = sq.sqrt()
         for p, (sp, acc, st) in enumerate(zip(self.params, accs, self.opt)):
@@ -576,6 +608,32 @@ class PipelineTrainer:
         res.grads = None
         res.grad_norm = float(gnorm)
         return res
+
+    def _opt_state(self) -> List[Dict]:
+        """Each stage's AdamW state, made (master from the live parameters,
+        zero moments) the first time it is asked for."""
+        if self.opt is None:
+            self.opt = [init_opt_state(sp) for sp in self.params]
+        return self.opt
+
+    def state_tree(self) -> Dict:
+        """The trainer's state as a checkpoint tree in the model's layout
+        (``weights.state_from_stages``), which no pipeline depth shapes."""
+        return state_from_stages(self.cfg, self.params, self._opt_state())
+
+    def load_state(self, state: Dict) -> None:
+        """Overwrite every stage's parameters, AdamW master, m, v and step
+        with the checkpoint tree ``state``'s, re-staged for this trainer's
+        ``d_p`` and ``v`` (``weights.state_to_stages``; a tied embedding
+        into both of its copies), in place."""
+        g = self.geom
+        params, opts = state_to_stages(self.cfg, state, g.d_p, g.v_stages)
+        for sp, st, src_p, src_o in zip(self.params, self._opt_state(),
+                                        params, opts):
+            _copy_into(sp, src_p)
+            for k in OPT_KEYS:
+                _copy_into(st[k], src_o[k])
+            st["step"] = src_o["step"]
 
 
 class EncDecTrainer(PipelineTrainer):

@@ -17,11 +17,18 @@ Two source layouts are accepted:
 The reference stores dense weights ``[d_in, d_out]``; the port stores
 ``[d_out, d_in]`` (``F.linear``). This module is the only place that
 transposes.
+
+Between the model's layout and a pipeline's stages: :func:`to_stages` /
+:func:`from_stages` for parameters, :func:`state_to_stages` /
+:func:`state_from_stages` for a trainer's whole state (parameters and
+AdamW's master, moments and step: the checkpoint tree, which no depth or
+``v`` shapes; the port's counterpart of the reference's
+``runtime/sharding.restack_elastic``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Sequence
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +37,8 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import unstack_layers
 from repro_torch.runtime.sharding import encdec_stage_layers, stage_blocks
 
-__all__ = ["DENSE_LEAVES", "from_jax", "to_stages", "from_stages"]
+__all__ = ["DENSE_LEAVES", "from_jax", "to_stages", "from_stages",
+           "OPT_KEYS", "state_from_stages", "state_to_stages"]
 
 # leaves stored [d_in, d_out] by the reference (the mamba mixer's conv_w
 # [d_conv, d_inner] is not a dense weight and keeps its layout; stacked
@@ -195,3 +203,37 @@ def from_stages(cfg: ArchConfig, stages: Sequence[Mapping[str, Any]]
     if "unembed" in stages[-1]:
         out["unembed"] = stages[-1]["unembed"]
     return out
+
+
+OPT_KEYS = ("master", "m", "v")      # AdamW's per-parameter state
+
+
+def state_from_stages(cfg: ArchConfig, params: Sequence[Mapping[str, Any]],
+                      opts: Sequence[Mapping[str, Any]]) -> Dict[str, Any]:
+    """A trainer's state on any number of stages -> the checkpoint tree,
+    which no pipeline depth shapes: ``params`` and each of
+    :data:`OPT_KEYS` in the model's layout (:func:`from_stages`: layers by
+    global id, a tied embedding once, as the first stage's copy), and the
+    AdamW ``step``. ``params`` and ``opts``: one entry per stage."""
+    steps = {int(o["step"]) for o in opts}
+    if len(steps) != 1:
+        raise ValueError(f"the stages' AdamW steps differ: {sorted(steps)}")
+    out = {"params": from_stages(cfg, params), "step": steps.pop()}
+    for key in OPT_KEYS:
+        out[key] = from_stages(cfg, [o[key] for o in opts])
+    return out
+
+
+def state_to_stages(cfg: ArchConfig, state: Mapping[str, Any], d_p: int,
+                    v: int = 1) -> Tuple[List[Dict[str, Any]],
+                                         List[Dict[str, Any]]]:
+    """The checkpoint tree -> ``(params, opts)`` per stage for ``d_p``
+    stages of ``v`` virtual stages each (:func:`to_stages`; a tied
+    embedding's saved copy goes to both of its stages). The tensors are
+    the state's own: a caller copies them into its stages'."""
+    params = to_stages(cfg, state["params"], d_p, v)
+    opts = [{"step": int(state["step"])} for _ in range(d_p)]
+    for key in OPT_KEYS:
+        for o, sp in zip(opts, to_stages(cfg, state[key], d_p, v)):
+            o[key] = sp
+    return params, opts

@@ -545,7 +545,7 @@ def test_cli_runs_two_stages_and_pins_v():
                          compute_dtype="float32", d_p=2,
                          schedule="interleaved-1f1b"),
         device="cpu", log=lambda *a: None,
-        on_step=lambda step, plan, corpus: seen.append(
+        on_step=lambda step, plan, corpus, trainer: seen.append(
             (plan.schedule, plan.v_stages)))
     assert trainer.geom.v_stages > 1
     assert seen == [("interleaved-1f1b", trainer.geom.v_stages)] * 2

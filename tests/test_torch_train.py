@@ -196,6 +196,37 @@ def test_adamw_matches_reference():
                 np.testing.assert_allclose(a.numpy(), np.asarray(b), **tol)
 
 
+@pytest.mark.parametrize("block", [7, 12, 1 << 30])
+def test_adamw_blocks_keep_the_bits(monkeypatch, block):
+    """The update walks each leaf in blocks of rows (``UPDATE_BLOCK``
+    elements; its temporaries stay a block's) and gives the whole leaf's
+    bits: blocks of 7 and 12 elements over leaves of 3 x 4, 5 x 3, 2 x 2 x
+    3 and a 0-d one against one block a leaf."""
+    import repro_torch.optim.adamw as adamw
+    rng = np.random.default_rng(1)
+    shapes = {"a": (3, 4), "b": (5, 3), "c": (2, 2, 3), "d": ()}
+    runs = []
+    for size in (block, 1 << 30):
+        monkeypatch.setattr(adamw, "UPDATE_BLOCK", size)
+        n = len(adamw._blocks(torch.zeros(5, 3)))
+        assert n == (1 if size > 15 else -(-5 // max(1, size // 3)))
+        params = {k: torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)) for k, s in shapes.items()}
+        params = {k: v.clone() for k, v in sorted(params.items())}
+        state = init_opt_state(params)
+        g = torch.Generator().manual_seed(2)
+        for step in range(3):
+            grads = {k: torch.randn(s, generator=g) for k, s in
+                     shapes.items()}
+            adamw.adamw_update(AdamWConfig(warmup_steps=1), params, grads,
+                               state)
+        runs.append([params, state["master"], state["m"], state["v"]])
+        rng = np.random.default_rng(1)
+    for a, b in zip(*runs):
+        for k in shapes:
+            assert torch.equal(a[k], b[k]), k
+
+
 def test_model_loss_matches_jax(case):
     """``DecoderLM.loss`` (one context-free packed chunk: forward, final
     norm, fused cross-entropy) equals the JAX model's, float32 ``1e-5``."""
