@@ -100,7 +100,7 @@ exit and no result line):
            and the plain attention never;
   verify   the same engine in float32 on the first 2 requests (8 new
            tokens) against the port's one_shot_generate;
-  train    gemma3-1b at full width, bf16 with a float32 AdamW master, 3
+  train    gemma3-1b at full width, bf16 with a float32 AdamW master, 2
            steps of ``launch/train.train`` on github batches of 8 x 16384
            tokens planned for one H100: per step
            loss, tokens, wall time, tokens/s, peak device memory and the
@@ -118,7 +118,7 @@ exit and no result line):
            forward and backward per sequence agree (loss and gradients
            within 1e-5 relative);
   train_hymba  hymba-1.5b at full width (32 hybrid layers: attention and a
-           mamba mixer side by side), bf16 with a float32 AdamW master, 3
+           mamba mixer side by side), bf16 with a float32 AdamW master, 2
            steps of the same github batches of 8 x 16384 planned for one
            H100 (one chunk per sequence group, stage-aware remat): per step
            loss, tokens, wall time, tokens/s, peak memory beside the plan's
@@ -178,7 +178,7 @@ exit and no result line):
            one_shot_generate;
   train_moe  olmoe-1b-7b at full width cut to 4 layers (TRAIN_LAYERS: 16
            layers' states take 125 GB), bf16 with a float32 AdamW master,
-           3 steps on the train phase's batches: every loss finite, every
+           2 steps on the train phase's batches: every loss finite, every
            step's peak at or under the plan's estimate, every kernel
            launched as the plan predicts, no plain call;
   train_verify_moe  float32, the same 4 layers, the verify sequences (K =
@@ -205,7 +205,7 @@ exit and no result line):
            split keys and the merge pass); B, C1, C2 at deepseek's head
            (D 2048, V 102400) on both chunks' targets;
   train_mla  deepseek-v2-lite at full width cut to 4 of 27 layers
-           (TRAIN_LAYERS), bf16 with a float32 AdamW master, 3 steps on the
+           (TRAIN_LAYERS), bf16 with a float32 AdamW master, 2 steps on the
            train phase's batches: every loss finite, every step's peak at
            or under the plan's estimate, launches as planned (A and A′ once
            per layer per chunk, B, C1, C2 once per chunk), no plain call,
@@ -247,7 +247,7 @@ exit and no result line):
            positions, untied head) at full width, cut to the most layers
            whose plans for train's batches the planner estimates under 72
            GB (TRAIN_LAYERS: 15 of 36, 4 of 40, 5 of 28), bf16 with a
-           float32 AdamW master, 3 steps on the train phase's batches:
+           float32 AdamW master, 2 steps on the train phase's batches:
            every loss finite, every step's peak at or under the plan's
            estimate, launches as planned, no plain call;
   train_verify_qwen3, train_verify_stablelm, train_verify_vl  float32 at
@@ -295,7 +295,7 @@ exit and no result line):
   train_encdec  seamless-m4t-v2 at full width and depth (24 encoder + 24
            decoder layers) through the stage-split pipeline, bf16 with a
            float32 AdamW master, every stage on this card, each sequence
-           with as many frames as tokens from the audio stub: 3 steps at
+           with as many frames as tokens from the audio stub: 2 steps at
            2x1 under gpipe-1f1b on train's batches, then one step at 4x1
            under zero-bubble-h1 (the split backward) on 7 sequences (8 are
            estimated over 72 GB at 4x1): per step tokens/s, frames, each
@@ -345,6 +345,46 @@ exit and no result line):
            calibration's deltas from the copied cost model; each run's
            largest step peak over its plan's estimate (printed, not gated
            at this cut: ``phase_train_replan``);
+  kernel_sp  the kernels at the shapes a sequence-parallel rank gives
+           them, as the cases above (tolerance, faults, bitwise repeat,
+           times and bounds), bf16: A and A′ as rank 1 of train_sp's
+           step-0 chunk with the most context (allgather_kv: half the
+           chunk's query rows at their own positions against the carry and
+           every rank's keys; gemma3-1b global layer) and as a ulysses rank
+           of train_sp_ulysses (every row of step 0's largest chunk, 8 of
+           qwen3-4b's 32 query heads, 2 of its 8 KV heads); B, C1, C2 on
+           hymba-1.5b's second vocabulary block (16,000 of 32,001 rows,
+           offset 16,001) on train_sp_hymba's largest chunk's targets, most
+           of them outside the block; gated D and D′ on rank 1's half of
+           that chunk (a non-zero h0, dh0 checked);
+  train_sp, train_sp_ulysses, train_sp_hymba  the sequence-parallel axis
+           through ``launch/train.train`` (``--mesh PxS --sp-policy
+           --sp-degree``), bf16 with a float32 AdamW master, 2 steps on the
+           train phase's batches, every stage and rank on this card, each
+           rank planned with the card's memory over the stages and ranks:
+           gemma3-1b at full depth 2x2 (allgather_kv, the only policy at 2
+           with one KV head), qwen3-4b at TRAIN_LAYERS' 15 at 1x4 (ulysses:
+           8 query and 2 KV heads a rank), hymba-1.5b at full depth 1x2
+           (allgather_kv, the SSM prefix scan and conv halo). Gates: finite
+           losses, each stage's launches as the plan predicts
+           (``_expected_sp_launches``), no plain call, the card's peak at
+           or under the sum of its ranks' estimates. Per step: tokens/s,
+           the plan's SP point, the rows a rank gives A (queries, keys,
+           heads) and B (tokens, vocabulary rows), the collectives' count
+           and bytes;
+  train_sp_verify  float32, full width, 2 layers, the verify sequences
+           (one over 3 chunks, a remat table from a tight budget): the SP
+           step against the whole-batch 1x1 step on the same plan's chunks
+           within 1e-5 (loss and each gradient leaf, relative) for
+           gemma3-1b 1x2 (allgather_kv), gemma3-1b 1x4 at degree 2 (replica
+           groups), qwen3-4b 1x2 (ulysses), hymba-1.5b 1x2, olmoe-1b-7b 1x2
+           (ulysses and expert parallelism), deepseek-v2-lite 1x2
+           (allgather_kv over latent rows); two runs bit for bit; launches
+           as planned; planted faults outside the limit (the CE's lse
+           summed, the conv halo from the rank's own rows, the fold
+           skipping a rank's a_prod: ``_sp_fault``); hymba's mixer on a
+           chunk whose pad rows fill its last rank against the unsharded
+           mixer;
   kernels  every kernel of the port with its launch counts on every path
            above (the verify phases' chunked step: the float32 forward, B,
            C1 and C2 run only there).
@@ -1075,7 +1115,9 @@ CE_HEADS = {"gemma3-1b": (1152, 262144), "llama3.2-3b": (3072, 128256),
 CE_WRAPPER = {"B": "fwd", "C1": "dh", "C2": "dw"}
 CE_T = 8192
 # the train phases: github batches of 8 sequences of up to 16,384 tokens
-TRAIN_BATCH, TRAIN_CONTEXT, TRAIN_STEPS = 8, 16384, 3
+# (2 steps: room for the sequence-parallel phases in the script's time;
+# every gate still runs on each step)
+TRAIN_BATCH, TRAIN_CONTEXT, TRAIN_STEPS = 8, 16384, 2
 # the train phases cut olmoe-1b-7b to 4 of its 16 layers, every width
 # kept: 16 layers' states take 125 GB, 4 take 34 GB of the card's 80;
 # deepseek-v2-lite to 4 of its 27 (states 49.7 GB; the plan's estimates for
@@ -1122,12 +1164,16 @@ def _plain_ce(key, h, w, tgt, lse, g):
                for b in blocks).to(w.dtype)
 
 
-def _ce_case(arch, dtype, dev, seed, targets=None, case=None):
+def _ce_case(arch, dtype, dev, seed, targets=None, case=None, shard=None):
     """Kernels B, C1 and C2 on one chunk against their plain versions
     (materialised logits in float32): ``targets`` (int32, -1 on rows
     without a target) as the train step feeds them, each valid row's loss
     weighted 1 / n_valid, named ``case``; else CE_T random targets
-    weighted 1 / CE_T. Two targets are moved into the last vocab tile."""
+    weighted 1 / CE_T. Two targets are moved into the last vocab tile.
+    ``shard = (offset, rows)``: the head's vocabulary block of a
+    sequence-parallel rank (``runtime/sp.row_blocks``), the targets
+    shifted by its offset as ``sp.sharded_ce`` shifts them (most then fall
+    outside the block and must match none of its rows)."""
     import torch
 
     from repro_torch.kernels.cross_entropy import (KERNELS, VOCAB_TILE,
@@ -1145,11 +1191,15 @@ def _ce_case(arch, dtype, dev, seed, targets=None, case=None):
         tgt = targets.to(dev, torch.int32).clone()
     T = tgt.shape[0]
     case = case or f"{arch} head, {T} random targets"
+    valid = (tgt >= 0).float()
+    if shard is not None:
+        off, V = shard
+        tgt = torch.where(tgt >= 0, tgt - off, tgt)
     h = torch.randn((T, D), generator=gen, device=dev).to(dtype)
     w = (torch.randn((V, D), generator=gen, device=dev) * 0.02).to(dtype)
     tgt[0], tgt[1] = V - 1, V - 2        # targets in the last vocab tile
     #                                      (V - 1 alone there at V = 32001)
-    valid = (tgt >= 0).float()
+    valid[:2] = 1.0
     g = valid / valid.sum()
     lse_p, tl_p = _plain_ce("B", h, w, tgt, None, None)
     f32 = torch.float32
@@ -2398,13 +2448,14 @@ def _check_stage_launches(tally, expected, what):
                              f"the plan's (got, expected): {bad}")
 
 
-def trainer_cm(d_p, cfg):
-    """The cost model ``launch/train.train`` plans ``d_p`` stages on this
-    card with (the card's memory over the stages)."""
+def trainer_cm(d_p, cfg, d_s=1):
+    """The cost model ``launch/train.train`` plans ``d_p`` stages of
+    ``d_s`` sequence-parallel ranks on this card with (the card's memory
+    over the stages and their ranks)."""
     from repro_torch.core import ClusterSpec, CostModel
     cl = ClusterSpec()
-    return CostModel(cfg.spec, cl.with_(d_p=d_p, hbm_bytes=cl.hbm_bytes /
-                                        d_p))
+    return CostModel(cfg.spec, cl.with_(d_p=d_p, d_s=d_s,
+                                        hbm_bytes=cl.hbm_bytes / (d_p * d_s)))
 
 
 def phase_train_pipeline(dev, seed):
@@ -3667,7 +3718,7 @@ SEAMLESS = "seamless-m4t-v2"
 # github batches of 8 is estimated at 80.2 GB on this card (24.4 + 20.3 +
 # 17.3 + 18.2 GB), over the 72 GB the train phases hold their plans to:
 # it takes 7 sequences (65.2 GB estimated)
-ENCDEC_RUNS = ((2, "gpipe-1f1b", 3, 8), (4, "zero-bubble-h1", 1, 7))
+ENCDEC_RUNS = ((2, "gpipe-1f1b", 2, 8), (4, "zero-bubble-h1", 1, 7))
 # train_verify_encdec: 2 encoder and 2 decoder layers at full width, four
 # sequences in chunks of at most 1,280 tokens, and an activation budget
 # per stage beside the model states under which the ILP remats a layer of
@@ -3898,7 +3949,7 @@ class _StageTimes:
 
 def phase_train_encdec(dev, seed):
     """seamless-m4t-v2 at full width and depth, bf16 with a float32 AdamW
-    master, through ``launch/train.train`` (:data:`ENCDEC_RUNS`: 3 steps at
+    master, through ``launch/train.train`` (:data:`ENCDEC_RUNS`: 2 steps at
     2x1 under gpipe-1f1b, then one step at 4x1 under zero-bubble-h1 with
     the split backward, every stage on this card), each sequence with as
     many frames as tokens from the stub: per step the tokens/s (valid
@@ -4554,6 +4605,519 @@ def phase_train_replan(dev, seed):
 
 
 
+# ---------------------------------------------------------------------------
+# the sequence-parallel axis (runtime/sp.py, runtime/ep.py): kernel cases at
+# a rank's shapes, train_sp, train_sp_ulysses, train_sp_hymba (bf16, the
+# card's memory over the stages and their ranks) and train_sp_verify
+
+# (arch, d_p, d_s, SP policy pin, SP degree pin); the depth: TRAIN_LAYERS
+SP_RUNS = {"train_sp": ("gemma3-1b", 2, 2, "auto", 2),
+           "train_sp_ulysses": ("qwen3-4b", 1, 4, "ulysses", 4),
+           "train_sp_hymba": ("hymba-1.5b", 1, 2, "auto", 2)}
+SP_STEPS = 2
+
+
+def _expected_sp_launches(cfg, plan, d_p, d_s, dtype, n_sm, cm,
+                          policy="stage-aware"):
+    """Each stage's launches in one step of ``plan`` on ``d_p`` stages of
+    ``d_s`` SP ranks (``plan.sp``: the policy and ``d_eff`` ranks a replica
+    group, ``r = d_s / d_eff`` groups): per layer, chunk and group
+    ``d_eff`` attention forwards with their tile ranges (one a rank: the
+    group's policy runs one op a rank), again per remat'd layer on group
+    0; per layer and chunk ``d_eff`` of each backward pass, group 0 only
+    (the replica groups feed no loss: autograd runs no backward for them);
+    a merge pass where the bf16 forward splits a rank's keys
+    (``flash_attention.kv_splits`` at the rank's query rows and heads);
+    the selective scan ``2 d_eff - 1`` times a layer and group (a summary
+    from a zero state on each rank but the last, then each rank from its
+    folded state), its backward as the attention's; B, C1, C2 once per
+    vocabulary block (``d_s``) and chunk on the last stage; no plain
+    call."""
+    import torch
+
+    from repro_torch.core.schedule import get_schedule
+    from repro_torch.kernels.flash_attention import BLOCK_KV, kv_splits
+    from repro_torch.models.config import LayerKind
+    from repro_torch.runtime.program import stage_programs
+    from repro_torch.runtime.sharding import stage_blocks
+    from repro_torch.runtime.sp import row_blocks
+    from repro_torch.runtime.train_step import (ROW_MULTIPLE, _table,
+                                                stage_remat)
+    pol, d_eff = plan.sp.policy, plan.sp.d_s_eff
+    rep = d_s // d_eff
+    v = plan.v_stages
+    blocks = stage_blocks(d_p, cfg.spec.n_layers, v)
+    depths = stage_remat(plan, cfg.spec.n_layers, d_p, v, policy)
+    table, base = _table(plan, d_p, policy), 0
+    cm = cm.with_sp(pol, d_eff)
+    for pipe in plan.pipelines:
+        n = pipe.n_chunks
+        programs = stage_programs(
+            pipe, d_p, v=v, cm=cm, depths=[r[base:base + n] for r in table],
+            split=get_schedule(plan.schedule, v).split_bwd)
+        for p, prog in enumerate(programs):
+            for a in prog:
+                if a.remat:
+                    depths[p][a.vstage][base + a.chunk] = \
+                        len(blocks[p][a.vstage])
+        base += n
+    spec = cfg.spec
+    heads = spec.n_heads // d_eff if pol == "ulysses" else spec.n_heads
+    split = []
+    for c in (c for pipe in plan.pipelines for c in pipe.chunks):
+        q = ROW_MULTIPLE * d_eff
+        rows = -(-c.tokens // q) * q
+        T = rows if pol == "ulysses" else rows // d_eff
+        S = -(-(c.context + rows) // BLOCK_KV) * BLOCK_KV
+        split.append(dtype == torch.bfloat16 and
+                     kv_splits(T, S, heads, n_sm) > 1)
+    attn = cfg.layer_kind != LayerKind.MAMBA
+    ssm = spec.ssm_state > 0
+    n_ce = sum(1 for _, r in row_blocks(spec.vocab, d_s) if r)
+    n_scan = 2 * d_eff - 1
+    out = []
+    for p in range(d_p):
+        f = b = comb = 0
+        for j in range(v):
+            nl = len(blocks[p][j])
+            for k in range(plan.n_chunks):
+                fk = nl * rep + depths[p][j][k]
+                f += fk
+                b += nl
+                comb += fk if split[k] else 0
+        exp = _expected_launches(cfg, plan, [0] * plan.n_chunks, dtype)
+        for k in exp:
+            if k.startswith("plain"):
+                continue
+            if k.startswith("ce_"):
+                exp[k] = n_ce * plan.n_chunks if exp[k] and p == d_p - 1 \
+                    else 0
+            elif k.startswith("mamba_scan"):
+                bwd = k.startswith("mamba_scan_bwd") or \
+                    k == "mamba_scan_reduce_kernel"
+                exp[k] = n_scan * (b if bwd else f) if ssm else 0
+            elif k in ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"):
+                exp[k] = d_eff * b if attn else 0
+            elif k == "flash_combine_kernel":
+                exp[k] = d_eff * comb if attn else 0
+            elif exp[k]:                    # the forward and its ranges
+                exp[k] = d_eff * f if attn else 0
+        out.append(exp)
+    return out
+
+
+def _sp_loop(seed, tag):
+    arch, d_p, d_s, pol, deg = SP_RUNS[tag]
+    loop = _train_loop(seed)
+    loop.steps, loop.d_p, loop.d_s = SP_STEPS, d_p, d_s
+    loop.sp_policy, loop.sp_degree = pol, deg
+    return _arch(arch), loop
+
+
+def _sp_step0(seed, tag):
+    """Step 0's plan of ``tag``'s run and its chunks as the step feeds
+    them (:func:`_plan_chunks`), largest first."""
+    from repro_torch.launch.train import plan_step
+    cfg, loop = _sp_loop(seed, tag)
+    cm = trainer_cm(loop.d_p, cfg, loop.d_s)
+    corpus, plan = plan_step(cm, loop, 0)
+    return cfg, plan, _plan_chunks(corpus, plan)
+
+
+def phase_train_sp(dev, seed, tag):
+    """``tag``'s run of :data:`SP_RUNS` through ``launch/train.train``
+    (``--mesh PxS``, ``--sp-policy``, ``--sp-degree``): bf16, every stage and
+    rank on this card, each rank planned with the card's memory over the
+    stages and ranks. Gates: finite losses; each stage's launches as the
+    plan predicts (:func:`_expected_sp_launches`), no plain call; the
+    card's peak at or under the sum of its ranks' estimates. Per step:
+    tokens/s, the plan's SP point, the rows a rank gives kernel A and B,
+    the collectives' bytes."""
+    import math
+
+    import torch
+
+    from repro_torch.launch.train import train
+    cfg, loop = _sp_loop(seed, tag)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    cm = trainer_cm(loop.d_p, cfg, loop.d_s)
+    ctr = _train_counters()
+    tally, expected, lines, totals = {}, [], [], {}
+
+    def fold():
+        for t in tally.values():
+            for k, n in t.items():
+                totals[k] = totals.get(k, 0) + n
+
+    def on_step(step, plan, corpus, trainer):
+        if expected:
+            _check_stage_launches(tally, expected[-1], f"{tag} step "
+                                                       f"{step - 1}")
+        expected.append(_expected_sp_launches(
+            cfg, plan, loop.d_p, loop.d_s, torch.bfloat16, n_sm, cm))
+        fold()
+        tally.clear()
+        _zero_counts(ctr)
+    with _per_stage(ctr, tally):
+        trainer, hist = train(cfg, loop, device=dev, on_step=on_step,
+                              log=lines.append)
+    _check_stage_launches(tally, expected[-1], f"{tag} last step")
+    fold()
+    for ln in lines:
+        print(f"[{tag}] {ln}", flush=True)
+    recs = []
+    for h in hist:
+        rec = {k: h[k] for k in (
+            "step", "loss", "tokens", "wall_s", "tokens_per_s", "chunks",
+            "remat_layers", "sp_policy", "d_s_eff", "d_s",
+            "attn_rows_per_rank", "ce_rows_per_rank", "collectives",
+            "collective_bytes", "card_peak_mem_gb", "card_plan_mem_gb",
+            "stage_plan_mem_gb", "solve_s")}
+        rec.update(arch=cfg.name, layers=cfg.spec.n_layers,
+                   mesh=f"{loop.d_p}x{loop.d_s}")
+        recs.append(rec)
+        if not math.isfinite(h["loss"]):
+            raise PhaseError(f"{tag}: non-finite loss: {rec}")
+        if h["card_peak_mem_gb"][0] > h["card_plan_mem_gb"][0]:
+            raise PhaseError(
+                f"{tag}: the card's peak {h['card_peak_mem_gb'][0]} GB is "
+                f"above the sum of its ranks' estimates "
+                f"{h['card_plan_mem_gb'][0]} GB: {rec}")
+    del trainer
+    torch.cuda.empty_cache()
+    return recs, totals
+
+
+def _sp_rank_inputs(seg, pos, ctx_len, r, d, Hq, Hkv, D, dev):
+    """``inputs(gen, dtype)`` for kernel A and A′ as rank ``r`` of ``d``
+    gives them under allgather_kv: its block of the chunk's rows as
+    queries (its own positions), against the carry's ``ctx_len`` live
+    rows and every rank's rows as keys."""
+    import numpy as np
+    import torch
+    b = len(seg) // d
+    q_seg, q_pos = seg[r * b:(r + 1) * b], pos[r * b:(r + 1) * b]
+    kseg = np.concatenate([np.zeros(ctx_len, np.int32), seg])
+    kpos = np.concatenate([np.arange(ctx_len, dtype=np.int32), pos])
+
+    def inputs(gen, dtype):
+        def mk(*shape):
+            return torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.float32).to(dtype)
+        meta = [torch.from_numpy(x).to(dev) for x in (q_seg, kseg, q_pos,
+                                                       kpos)]
+        S = len(kseg)
+        return mk(b, Hq, D), mk(S, Hkv, D), mk(S, Hkv, D), mk(b, Hq, D), meta
+    return inputs
+
+
+def phase_kernel_sp(dev, seed):
+    """The kernels at the shapes a rank gives them, each against its plain
+    version (the cases' own tolerances, faults and bitwise repeats), bf16:
+    kernel A and A′ as rank 1 of train_sp's step-0 chunk with the most
+    context gives them under allgather_kv (its 1/2 of the chunk's rows at
+    their positions, against the carry and the gathered rows; gemma3-1b
+    global layer, 4 query heads, 1 KV head of 256), and as a rank of
+    train_sp_ulysses gives them (every row of step 0's largest chunk, 8 of
+    qwen3-4b's 32 query heads and 2 of its 8 KV heads, 128 wide); B, C1
+    and C2 on hymba-1.5b's second vocabulary block (16,000 of 32,001 rows,
+    offset 16,001) on train_sp_hymba's largest step-0 chunk's targets,
+    most outside the block; the gated D and D′ on rank 1's block of that
+    chunk (its first row continuing a sequence: a non-zero h0, dh0
+    checked)."""
+    import torch
+    bf16 = torch.bfloat16
+    recs = {}
+    cfg, plan, chunks = _sp_step0(seed, "train_sp")
+    chunk, _, seg, pos = max((c for c in chunks if c[0].context),
+                             key=lambda c: c[0].context, default=chunks[0])
+    d = plan.sp.d_s_eff
+    b = len(seg) // d
+    live = seg[b:] >= 0
+    a0 = b + int(live.argmax())
+    recs["allgather_kv"] = _attn_bwd_case(
+        f"train_sp rank 1 of {d}: {b} of chunk ({chunk.tokens} tokens, carry "
+        f"{chunk.context}) rows, global layer",
+        _sp_rank_inputs(seg, pos, chunk.context, 1, d, 4, 1, 256, dev),
+        slice(chunk.context + a0 - b, chunk.context + a0 - b + 32), 0, bf16,
+        dev, 71, row_block=1024)
+    print(f"[kernel_sp] attention backward "
+          f"{json.dumps(recs['allgather_kv'])}", flush=True)
+    torch.cuda.empty_cache()
+    qcfg, qplan, qchunks = _sp_step0(seed, "train_sp_ulysses")
+    qd = qplan.sp.d_s_eff
+    qchunk, _, qseg, qpos = qchunks[0]
+    s = qcfg.spec
+
+    def ulysses_inputs(gen, dtype):
+        return _plan_chunk(gen, qseg, qpos, s.n_heads // qd,
+                           s.n_kv_heads // qd, s.head_dim, dtype, dev,
+                           qchunk.context, qchunk.context)
+    q0 = qchunk.context + int((qseg >= 0).argmax())
+    recs["ulysses"] = _attn_bwd_case(
+        f"train_sp_ulysses rank of {qd}: chunk ({qchunk.tokens} tokens), "
+        f"{s.n_heads // qd} query / {s.n_kv_heads // qd} KV heads",
+        ulysses_inputs, slice(q0 + 1024, q0 + 1056), 0, bf16, dev, 72,
+        row_block=1024)
+    print(f"[kernel_sp] attention backward {json.dumps(recs['ulysses'])}",
+          flush=True)
+    torch.cuda.empty_cache()
+    hcfg, hplan, hchunks = _sp_step0(seed, "train_sp_hymba")
+    hchunk, htgt, hseg, hpos = hchunks[0]
+    from repro_torch.runtime.sp import row_blocks
+    shard = row_blocks(hcfg.spec.vocab, hplan.sp.d_s_eff)[1]
+    recs["ce"] = _ce_case(
+        "hymba-1.5b", bf16, dev, 73, targets=torch.from_numpy(htgt),
+        case=f"train_sp_hymba chunk ({hchunk.tokens} tokens), vocabulary "
+             f"block {shard[1]} rows at {shard[0]}", shard=shard)
+    for rec in recs["ce"].values():
+        print(f"[kernel_sp] cross-entropy {json.dumps(rec)}", flush=True)
+    torch.cuda.empty_cache()
+    hb = len(hseg) // hplan.sp.d_s_eff
+    recs["scan"] = _gated_scan_case(
+        f"train_sp_hymba rank 1: rows {hb}-{len(hseg)} of chunk "
+        f"({hchunk.tokens} tokens), gated, from a folded h0",
+        hseg[hb:], hpos[hb:], 3200, 16, bf16, dev, 74)
+    print(f"[kernel_sp] selective scan {json.dumps(recs['scan'])}",
+          flush=True)
+    torch.cuda.empty_cache()
+    return recs
+
+
+# train_sp_verify: (arch, d_s, policy, degree); each at full width and 2
+# layers, in float32, the SP step against the whole-batch 1x1 step on the
+# same plan's chunks; SP_VERIFY_FAULTS must each fall outside the limit
+SP_VERIFY = (("gemma3-1b", 2, "allgather_kv", 2),
+             ("gemma3-1b", 4, "allgather_kv", 2),
+             ("qwen3-4b", 2, "ulysses", 2),
+             ("hymba-1.5b", 2, "allgather_kv", 2),
+             ("olmoe-1b-7b", 2, "ulysses", 2),
+             ("deepseek-v2-lite", 2, "allgather_kv", 2))
+SP_VERIFY_FAULTS = {"gemma3-1b": ("lse summed",),
+                    "hymba-1.5b": ("halo from own rows",
+                                   "fold skips a_prod")}
+SP_VERIFY_LAYERS = 2
+
+
+@contextlib.contextmanager
+def _sp_fault(fault):
+    """A planted sequence-parallel fault (undone on exit): "lse summed"
+    adds the vocabulary blocks' log-sum-exps (``sp.merge_lse``); "fold
+    skips a_prod" makes each rank's decay product 1 in the SSM fold
+    (``ssm.shard_decay``); "halo from own rows" hands each rank its own
+    last rows as its conv halo (``sp.make_sp_conv_tail_exchange``; a model
+    made inside the block takes it)."""
+    import torch
+
+    from repro_torch.models import ssm
+    from repro_torch.runtime import sp
+    if fault == "lse summed":
+        obj, name, new = sp, "merge_lse", lambda lses: lses.sum(0)
+    elif fault == "fold skips a_prod":
+        obj, name = ssm, "shard_decay"
+
+        def new(p, dt_in, live, reset):
+            return torch.ones_like(p["a_log"], dtype=torch.float32)
+    elif fault == "halo from own rows":
+        obj, name, real = sp, "make_sp_conv_tail_exchange", \
+            sp.make_sp_conv_tail_exchange
+
+        def new():
+            exchange = real()
+
+            def own_rows(xs, lives, resets, carried):
+                _, tail = exchange(xs, lives, resets, carried)
+                return [x[-carried.shape[0]:].to(carried.dtype)
+                        for x in xs], tail
+            return own_rows
+    else:
+        raise ValueError(f"unknown SP fault {fault!r}")
+    old = getattr(obj, name)
+    setattr(obj, name, new)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def _sp_pad_rank_mixer(dev, seed):
+    """hymba-1.5b's mixer at full width in float32 on a chunk of 2 ranks
+    whose pad rows fill the last rank (and part of the first): the SP
+    mixer (the prefix scan from a folded state, the conv halo) against
+    the unsharded one, both on the card, on the live rows' outputs, the
+    state and tail handed on and every gradient; each SSM fault must fall
+    outside the limit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import DecoderLM, layer_params
+    from repro_torch.models import ssm
+    from repro_torch.runtime import sp
+    cfg = get_arch("hymba-1.5b").with_layers(1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p0 = layer_params(DecoderLM(cfg).init(gen, device=dev), 0)["mamba"]
+    s, T = cfg.spec, 1024
+    seg = np.full(T, -1, np.int32)
+    pos = np.zeros(T, np.int32)
+    seg[:300], pos[:300] = 0, np.arange(300) + 700     # continues a carry
+    seg[300:450], pos[300:450] = 1, np.arange(150)
+    x = torch.randn((T, s.d_model), generator=gen, device=dev)
+    h0 = torch.randn((s.inner, s.ssm_state), generator=gen, device=dev)
+    tail = torch.randn((s.ssm_conv - 1, s.inner), generator=gen, device=dev)
+    w = torch.randn((T, s.d_model), generator=gen, device=dev)
+    w[torch.from_numpy(seg < 0).to(dev)] = 0.0
+    segt, post = torch.from_numpy(seg).to(dev), torch.from_numpy(pos).to(dev)
+
+    def run(d):
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in p0.items()}
+        xx, hh, tt = (t.clone().requires_grad_(True) for t in (x, h0, tail))
+        if d is None:
+            out, h, t = ssm.mamba_apply(cfg, p, xx, pos=post, seg=segt,
+                                        state=hh, conv_tail=tt)
+        else:
+            outs, h, t = ssm.mamba_apply_sp(
+                cfg, p, list(xx.split(T // d)), poss=list(post.split(T // d)),
+                segs=list(segt.split(T // d)), state=hh, conv_tail=tt,
+                scan_fn=sp.make_sp_ssm_scan(),
+                tail_exchange=sp.make_sp_conv_tail_exchange())
+            out = torch.cat(outs)
+        ((out * w).sum() + h.sum() + t.sum()).backward()
+        return [out[segt >= 0], h, t, xx.grad, hh.grad, tt.grad,
+                *[p[k].grad for k in sorted(p)]]
+
+    def worst(a, b):
+        return max(float((x - y).detach().abs().max()) /
+                   max(float(y.detach().abs().max()), 1e-30)
+                   for x, y in zip(a, b))
+    want = run(None)
+    got = run(2)
+    faults = {}
+    for f in ("halo from own rows", "fold skips a_prod"):
+        with _sp_fault(f):
+            faults[f] = worst(run(2), want)
+    rec = {"T": T, "live_rows": int((seg >= 0).sum()),
+           "rank1_live_rows": int((seg[T // 2:] >= 0).sum()),
+           "max_rel_diff": worst(got, want), "faults": faults}
+    if rec["rank1_live_rows"] or rec["max_rel_diff"] > VERIFY_LIMIT:
+        raise PhaseError(f"the SP mixer differs from the unsharded one on "
+                         f"a chunk whose last rank is pad rows: {rec}")
+    missed = [f for f, e in rec["faults"].items() if e <= VERIFY_LIMIT]
+    if missed:
+        raise PhaseError(f"the limit does not catch {missed}: {rec}")
+    return rec
+
+
+def phase_train_sp_verify(dev, seed):
+    """float32, full width, :data:`SP_VERIFY_LAYERS` layers: for each case
+    of :data:`SP_VERIFY`, the SP step (``PipelineTrainer`` at ``1 x d_s``,
+    the plan's SP point pinned; the verify phases' four sequences, one
+    split over 3 chunks, a remat table from a tight budget) against the
+    whole-batch 1x1 step (``ChunkedTrainer``) on the same plan's chunks:
+    loss and every gradient leaf within VERIFY_LIMIT relative (each leaf
+    to its largest value); two SP runs bit for bit; launches as the plan
+    predicts; the planted faults of SP_VERIFY_FAULTS outside the limit;
+    hymba's case also runs :func:`_sp_pad_rank_mixer`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
+                                  plan_batch)
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.model import tree_leaves, unstack_layers
+    from repro_torch.runtime.pipeline import PipelineGeometry
+    from repro_torch.runtime.train_step import ChunkedTrainer, PipelineTrainer
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    ctr = _train_counters()
+    out, launches = {}, {}
+    for arch, d_s, pol, deg in SP_VERIFY:
+        cfg = get_arch(arch).with_layers(SP_VERIFY_LAYERS)
+        rng = np.random.default_rng(seed)
+        lens = [3000, 900, 500, 300]
+        corpus = {i: rng.integers(0, cfg.spec.vocab, n).astype(np.int32)
+                  for i, n in enumerate(lens)}
+        cm = CostModel(cfg.spec, ClusterSpec(d_s=d_s))
+        budget = cm.with_sp(pol, deg).m_model_states(1) + 0.08e9
+        plan = plan_batch(cm, lens, PlannerConfig(
+            fixed_k=3, bucket_rounding=64, remat_mode="stage_aware",
+            capacity_bytes=budget, sp_policy=pol, sp_degree=deg))
+        if max(sq.n_chunks for sq in plan.sequences) < 3:
+            raise PhaseError(f"{arch}: the verify plan splits no sequence "
+                             f"over 3 chunks")
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = DecoderLM(cfg).init(gen, device=dev)
+        names = _leaf_names(unstack_layers(params))
+        base = ChunkedTrainer(cfg, params, device=dev,
+                              compute_dtype=torch.float32
+                              ).loss_and_grads(plan, corpus)
+        geom = PipelineGeometry(d_p=1, d_s=d_s, policy=pol, d_s_eff=deg)
+
+        def sp_run(count=False):
+            tr = PipelineTrainer(cfg, params, geometry=geom, cards=[dev],
+                                 compute_dtype=torch.float32, cost_model=cm)
+            tally = {}
+            _zero_counts(ctr)
+            with _per_stage(ctr, tally):
+                res = tr.loss_and_grads(plan, corpus)
+            if count:
+                _check_stage_launches(tally, _expected_sp_launches(
+                    cfg, plan, 1, d_s, torch.float32, n_sm, cm),
+                    f"train_sp_verify {arch} 1x{d_s}")
+                for t in tally.values():
+                    for k, n in t.items():
+                        launches[k] = launches.get(k, 0) + n
+            del tr
+            return res
+
+        def against_base(run):
+            worst, leaf = 0.0, 0
+            for i, (a, b) in enumerate(zip(tree_leaves(run.grads),
+                                           tree_leaves(base.grads))):
+                r = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                     1e-30)
+                if r > worst:
+                    worst, leaf = r, i
+            rel = abs(run.loss - base.loss) / abs(base.loss)
+            return {"loss_rel_diff": rel, "grad_max_rel_diff": worst,
+                    "grad_max_rel_diff_leaf": names[leaf],
+                    "within": rel <= VERIFY_LIMIT and worst <= VERIFY_LIMIT
+                    and run.n_valid == base.n_valid}
+        first = sp_run(count=True)
+        rec = {"mesh": f"1x{d_s}", "sp": [plan.sp.policy, plan.sp.d_s_eff],
+               "chunks": [(c.context, c.tokens) for p in plan.pipelines
+                          for c in p.chunks],
+               "remat_table": plan.ckpt_table(), "loss": base.loss,
+               **against_base(first),
+               "collective_bytes": first.pipeline["collective_bytes"]}
+        again = sp_run()
+        rec["bitwise_repeat"] = first.loss == again.loss and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(first.grads),
+                                              tree_leaves(again.grads)))
+        del first, again
+        rec["faults"] = {}
+        for f in SP_VERIFY_FAULTS.get(arch, ()):
+            with _sp_fault(f):
+                bad = sp_run()
+            rec["faults"][f] = against_base(bad)
+            del bad
+        if arch == "hymba-1.5b":
+            rec["pad_rank_mixer"] = _sp_pad_rank_mixer(dev, seed)
+        key = f"{arch} 1x{d_s}" + (f" at {deg}" if deg != d_s else "")
+        out[key] = rec
+        print(f"[train_sp_verify] {key} {json.dumps(rec)}", flush=True)
+        if not rec["within"] or not rec["bitwise_repeat"]:
+            raise PhaseError(f"{key}: the SP step differs from the 1x1 "
+                             f"step: {rec}")
+        missed = [f for f, r in rec["faults"].items() if r["within"]]
+        if missed:
+            raise PhaseError(f"{key}: the limit does not catch {missed}")
+        del base, params
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4827,6 +5391,24 @@ def main() -> int:
                                    phase_train_replan(dev, args.seed))
     print(f"[train_replan] ok in {dt:.1f}s: {json.dumps(rpl)}", flush=True)
 
+    # the sequence-parallel axis: the kernels at a rank's shapes; gemma3-1b
+    # at 2x2 (allgather_kv), qwen3-4b at 1x4 (ulysses), hymba-1.5b at 1x2
+    # (allgather_kv, the SSM prefix scan and conv halo), bf16; the float32
+    # verify of six families against the 1x1 step
+    sp_k, dt = run("kernel_sp", lambda: phase_kernel_sp(dev, args.seed))
+    print(f"[kernel_sp] ok in {dt:.1f}s", flush=True)
+    sp_counts = {}
+    for tag in SP_RUNS:
+        (recs, sp_counts[tag]), dt = run(tag, lambda t=tag: phase_train_sp(
+            dev, args.seed, t))
+        for rec in recs:
+            print(f"[{tag}] {json.dumps(rec)}", flush=True)
+        print(f"[{tag}] ok in {dt:.1f}s", flush=True)
+    ver, dt = run("train_sp_verify", lambda: phase_train_sp_verify(
+        dev, args.seed))
+    print(f"[train_sp_verify] ok in {dt:.1f}s", flush=True)
+    sp_counts["train_sp_verify"] = ver["launches"]
+
     # launches per path: the serving engines, the bf16 train steps, the
     # float32 verify phases' chunked step (the float32 B and C1 run only
     # there), the pipelines, the one-shot generators
@@ -4844,7 +5426,7 @@ def main() -> int:
              "train_verify_encdec": encdec_verify_counts,
              "train_restart": restart_counts,
              "train_elastic": elastic_counts,
-             "train_replan": replan_counts}
+             "train_replan": replan_counts, **sp_counts}
     print("[kernels] " + "; ".join(f"{p}: {json.dumps(c)}"
                                    for p, c in paths.items())
           + f"; total {time.perf_counter() - t_start:.1f}s", flush=True)
@@ -4865,7 +5447,7 @@ def main() -> int:
     # chunk (the train step's), then the float32 gated case (the verify
     # phase's) and the ungated cases with bf16 xs at hymba's and
     # falcon-mamba-7b's widths
-    scan_also = [gated[1], scan[0], scan[3]]
+    scan_also = [gated[1], sp_k["scan"], scan[0], scan[3]]
     # the attention backward's library yardstick on the kernel's own case
     # (step 0's largest train chunk), else on the first case it takes
     lib = next((r for r in [gb] + bwd if r["library_ms"] is not None), gb)
@@ -4969,7 +5551,9 @@ def main() -> int:
                          "EFFICIENT_ATTENTION backend, the same boolean mask",
               also=[_fwd(r) for r in (gb_local, h_attn, moe_gb, mla_gb,
                                       mla_fwd, g, cases[1], cases[2], st_gb,
-                                      d_fwd, *fig_bf16, *enc_bf16)]),
+                                      d_fwd, *fig_bf16, *enc_bf16,
+                                      sp_k["allgather_kv"],
+                                      sp_k["ulysses"])]),
         entry("flash_fwd_kernel", fa, tpu_fa, vb, **_fwd(vb),
               ms_covers="the forward as the train step runs it, with lse: "
                         "split pass and merge pass",
@@ -4990,7 +5574,9 @@ def main() -> int:
               "on library_case (library_case_ms: both backward passes)",
               also=[_bwd_also(r, "dkdv") for r in (moe_gb, moe_vb, mla_gb,
                                                    mla_vb, st_gb, st_vb,
-                                                   *fig, *e_bwd)]),
+                                                   *fig, *e_bwd,
+                                                   sp_k["allgather_kv"],
+                                                   sp_k["ulysses"])]),
         entry("flash_bwd_dq_kernel", fa, tpu_fa + " (its gradient)", gb,
               ms=gb["kernel_ms_dq"], bound_ms=gb["bound_ms_dq"],
               bound_by=gb["bound_by_dq"], plain_is=gb["plain_is"],
@@ -5000,7 +5586,9 @@ def main() -> int:
               "on library_case (library_case_ms: both backward passes)",
               also=[_bwd_also(r, "dq") for r in (moe_gb, moe_vb, mla_gb,
                                                  mla_vb, st_gb, st_vb,
-                                                 *fig, *e_bwd)]),
+                                                 *fig, *e_bwd,
+                                                 sp_k["allgather_kv"],
+                                                 sp_k["ulysses"])]),
         entry("flash_bwd_tiles_kernel", fa, tpu_fa + " (its gradient)", gb,
               max_abs_err=gb["tiles_max_abs_err"], ms=gb["tiles_ms"],
               plain_ms=gb["tiles_plain_ms"], bound_ms=gb["tiles_bound_ms"],
@@ -5011,7 +5599,8 @@ def main() -> int:
                      "ms": r["tiles_ms"], "bound_ms": r["tiles_bound_ms"],
                      "plain_ms": r["tiles_plain_ms"], "tiles": r["tiles"],
                      "max_abs_err": r["tiles_max_abs_err"]}
-                    for r in e_bwd]),
+                    for r in (*e_bwd, sp_k["allgather_kv"],
+                              sp_k["ulysses"])]),
         entry("ce_fwd_mma_kernel", cs, tpu_ce + ":79", gce["B"],
               library_is=gce["B"]["library_is"],
               library_bf16_ms=gce["B"]["library_bf16_ms"],
@@ -5019,14 +5608,14 @@ def main() -> int:
               also=_also(moe_gce["B"]) + _also(moe_tce["B"])
               + _also(mla_gce["B"])
               + [x for r in dense_gce for x in _also(r["B"])]
-              + _also(enc_gce["B"])),
+              + _also(enc_gce["B"]) + _also(sp_k["ce"]["B"])),
         entry("ce_bwd_dh_mma_kernel", cs, tpu_ce + ":159", gce["C1"],
               max_active_clusters={D: o["dh"] for D, o in d_occ.items()},
               cluster_slices={D: o["slices"] for D, o in d_occ.items()},
               also=_also(moe_gce["C1"]) + _also(moe_tce["C1"])
               + _also(mla_gce["C1"])
               + [x for r in dense_gce for x in _also(r["C1"])]
-              + _also(enc_gce["C1"])),
+              + _also(enc_gce["C1"]) + _also(sp_k["ce"]["C1"])),
         entry("ce_fwd_kernel", cs, tpu_ce + ":79", vce["B"],
               library_is=vce["B"]["library_is"],
               also=_also(vce_h["B"]) + _also(moe_vce["B"])
@@ -5042,7 +5631,7 @@ def main() -> int:
               also=_also(h_ce["C2"]) + _also(moe_gce["C2"])
               + _also(moe_tce["C2"]) + _also(mla_gce["C2"])
               + [x for r in dense_gce for x in _also(r["C2"])]
-              + _also(enc_gce["C2"])),
+              + _also(enc_gce["C2"]) + _also(sp_k["ce"]["C2"])),
         entry("ce_bwd_kernel<dw>", cs, tpu_ce + ":222", vce["C2"],
               also=_also(vce_h["C2"]) + _also(moe_vce["C2"])
               + _also(mla_vce["C2"]) + _also(dense_vce["C2"])

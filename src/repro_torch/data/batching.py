@@ -23,6 +23,10 @@ rows by it) and its positions. The frames themselves are the frontend
 stub's embeddings (:func:`sequence_frames`, a generator seeded per
 sequence), gathered into a chunk's ``[cap_enc, D]`` rows by
 ``frame_idx`` (row 0 of :func:`frame_table` is the pad rows' zeros).
+
+A sequence-parallel group takes a chunk's rows in contiguous blocks, one
+a rank (:func:`rank_blocks`), as the reference shards a chunk's buffers
+over its model axis.
 """
 
 from __future__ import annotations
@@ -34,9 +38,9 @@ import numpy as np
 
 from repro_torch.core.plan import Chunk, ExecutionPlan
 
-__all__ = ["ChunkBatch", "EncDecChunkBatch", "materialize_plan",
-           "materialize_chunks", "materialize_encdec_plan",
-           "sequence_frames", "frame_table"]
+__all__ = ["ChunkBatch", "EncDecChunkBatch", "frame_table",
+           "materialize_chunks", "materialize_encdec_plan", "materialize_plan",
+           "rank_blocks", "sequence_frames"]
 
 
 @dataclass
@@ -150,3 +154,18 @@ def frame_table(frames: Dict):
     import torch
     rows = [frames[sid] for sid in sorted(frames)]
     return torch.cat([rows[0].new_zeros((1, rows[0].shape[1])), *rows])
+
+
+def rank_blocks(arrays: Sequence[np.ndarray], d: int
+                ) -> List[List[np.ndarray]]:
+    """Each of a chunk's row arrays (``[..., T]``: tokens, targets, seg,
+    pos; M-RoPE's ``[3, T]`` positions) as its ``d`` contiguous blocks of
+    ``T / d`` rows along the last axis, rank order (``T % d`` must be 0)."""
+    out = []
+    for a in arrays:
+        T = a.shape[-1]
+        if T % d:
+            raise ValueError(f"{T} rows do not split into {d} blocks")
+        b = T // d
+        out.append([a[..., r * b:(r + 1) * b] for r in range(d)])
+    return out

@@ -1,5 +1,5 @@
 """Training driver of the port: the planner's chunked step, on one card
-or pipelined over ``--mesh Px1`` stages.
+or pipelined over ``--mesh PxS`` stages of ``S`` sequence-parallel ranks.
 
 Each step samples a global batch (``data/synth.sample_corpus_batch``),
 plans it with the host planner (Alg. 1 chunking, the grouping DP, the
@@ -31,17 +31,23 @@ On the CPU, at a reduced size (float32):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch gemma3-1b --reduced --steps 2 --batch 4 --context 256
 
-``--mesh PxS`` with ``P > 1`` plans for ``P`` pipeline stages (each
-planned with the memory of its card divided by the stages on that card)
-and runs :class:`repro_torch.runtime.train_step.PipelineTrainer`: stage
-``p`` on card ``p mod --cards``, the schedule backend the planner picks for
-step 0 (or ``--schedule``, ``--v-stages``) pinned for the run, the
-zero-bubble split backward as ``--split-bwd`` says. ``S`` must be 1 (the
-sequence-parallel axis is not ported). On the card, gemma3-1b on two
-stages of one H100:
+``--mesh PxS`` other than ``1x1`` plans for ``P`` pipeline stages of
+``S`` sequence-parallel ranks (each rank planned with the memory of its
+card divided by the stages on that card and by ``S``) and runs
+:class:`repro_torch.runtime.train_step.PipelineTrainer`: stage ``p`` and
+its ``S`` ranks on card ``p mod --cards``, the schedule backend the
+planner picks for step 0 (or ``--schedule``, ``--v-stages``) pinned for
+the run, the zero-bubble split backward as ``--split-bwd`` says. Each
+plan carries its SP point ``(policy, d_s_eff)``: the planner's choice, or
+``--sp-policy`` / ``--sp-degree`` pinned (the step logs ``[sp]``). Still
+refused: the encoder-decoder at ``S > 1`` (its frame-sharded memory) and
+more cards than stages at ``S > 1`` (SP ranks across cards). On the card,
+gemma3-1b on two stages of one H100, and on two stages of two ranks:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \
       --steps 2 --batch 8 --context 16384 --mesh 2x1
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \
+      --steps 2 --batch 8 --context 16384 --mesh 2x2
 
 The encoder-decoder seamless-m4t-v2 trains only pipelined (``--mesh Px1``
 with ``P >= 2``: ``core.checkpointing.encoder_stage_split`` gives the
@@ -126,6 +132,11 @@ class TrainConfig:
     # and 0: the planner's pick for step 0, then pinned); the zero-bubble
     # split backward: "auto" (the backend's), "on" or "off"
     d_p: int = 1
+    # sequence-parallel ranks a stage, and the planner's SP pins: "auto"
+    # and 0 let it choose (policy, d_s_eff) per plan
+    d_s: int = 1
+    sp_policy: str = "auto"
+    sp_degree: int = 0
     schedule: Optional[str] = None
     v_stages: int = 0
     split_bwd: str = "auto"
@@ -171,17 +182,14 @@ BUCKET_ROUNDING = 256     # chunk-capacity granularity, as the JAX trainer
 
 
 def parse_mesh(text: str) -> Tuple[int, int]:
-    """``"PxS"`` -> ``(P, S)``; ``S`` must be 1."""
+    """``"PxS"`` -> ``(P, S)``: ``P`` pipeline stages of ``S``
+    sequence-parallel ranks."""
     try:
         p, s = (int(x) for x in text.lower().split("x"))
     except ValueError:
         raise ValueError(f"--mesh takes PxS, got {text!r}") from None
     if p < 1 or s < 1:
         raise ValueError(f"--mesh {text}: sizes must be >= 1")
-    if s != 1:
-        raise NotImplementedError(
-            f"--mesh {text}: the sequence-parallel axis (S > 1) is not "
-            f"ported (ROADMAP.md queue 1, item 4; ZeRO-3 over it: item 3)")
     return p, s
 
 
@@ -212,6 +220,8 @@ def plan_lengths(cm, loop: TrainConfig, lengths: Sequence[int], *,
     from repro_torch.core import PlannerConfig, plan_batch
     remat_mode = ("stage_aware" if loop.ckpt_policy == "stage-aware"
                   else "uniform")
+    pins = {"sp_policy": loop.sp_policy, "sp_degree": loop.sp_degree,
+            **pins}
     if cm.model.is_encoder_decoder:
         # the reference's encoder-decoder cell: K = 1 (the encoder is
         # pack-only), one virtual stage, the whole (unported) SP axis
@@ -275,15 +285,20 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
 
     device = torch.device(device)
     dtype = dtype_of(loop.compute_dtype)
-    d_p = loop.d_p
+    d_p, d_s = loop.d_p, loop.d_s
+    if d_s > 1 and cfg.spec.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder on a sequence-parallel axis "
+            f"(its frame-sharded memory) is not ported: ROADMAP.md queue 1, "
+            f"item 4")
     cards = [torch.device(c) for c in (cards or [device])]
     cluster = cluster or ClusterSpec()
-    if d_p > 1:
+    if d_p > 1 or d_s > 1:
+        # each SP rank is planned with its share of its card
         per_card = -(-d_p // len(cards))
-        cluster = cluster.with_(d_p=d_p,
-                                hbm_bytes=cluster.hbm_bytes / per_card)
+        cluster = cluster.with_(d_p=d_p, d_s=d_s,
+                                hbm_bytes=cluster.hbm_bytes / (per_card * d_s))
     cm = CostModel(cfg.spec, cluster)
-    d_s = cluster.d_s
     try:
         cm.token_capacity()
     except ValueError as e:
@@ -387,14 +402,18 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
             gen = torch.Generator(device=device).manual_seed(loop.seed)
             params = (EncDecLM if encdec else DecoderLM)(cfg).init(
                 gen, device=device)
-        if d_p == 1:
+        if plan.sp is not None and d_s > 1:
+            log(f"[sp] policy={plan.sp.policy} d_s_eff={plan.sp.d_s_eff}/"
+                f"{d_s}" + (" (planner-chosen)" if loop.sp_policy == "auto"
+                            and not loop.sp_degree else " (pinned)"))
+        if d_p == 1 and d_s == 1:
             trainer = ChunkedTrainer(cfg, params, device=device,
                                      compute_dtype=dtype)
         else:
             trainer = _pipeline_trainer(cfg, loop, plan, params, cards,
                                         dtype, cm)
             g = trainer.geom
-            log(f"[pipeline] d_p={d_p} schedule={g.schedule} "
+            log(f"[pipeline] d_p={d_p} d_s={d_s} schedule={g.schedule} "
                 f"v={g.v_stages} split_bwd={g.split_bwd} cards="
                 f"{[str(c) for c in cards]} stage_devices="
                 f"{[str(d) for d in trainer.devices]}")
@@ -432,7 +451,7 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
                 on_step(step, plan, corpus, trainer)
             rec, res = _run_step(trainer, cfg, loop, plan, corpus, step,
                                  cards, device, dtype, encdec)
-            if d_p > 1:
+            if d_p > 1 or d_s > 1:
                 rec.update(_pipeline_record(cm, plan, trainer, cards, res))
             del res
             lengths = [len(v) for v in corpus.values()]
@@ -561,6 +580,10 @@ def _step_line(rec: Dict) -> str:
                  f"{rec['card_plan_mem_gb']}) handoffs "
                  f"{rec['handoffs']} ({rec['handoff_bytes'] / 1e6:.1f} "
                  f"MB) bubble {rec['bubble_share']:.4f}")
+    if "sp_policy" in rec:
+        extra += (f" sp {rec['sp_policy']} d_s_eff {rec['d_s_eff']}/"
+                  f"{rec['d_s']} collectives {rec['collectives']} "
+                  f"({rec['collective_bytes'] / 1e6:.1f} MB)")
     return (f"step {rec['step']:4d} loss {rec['loss']:.4f} tokens "
             f"{rec['tokens']} wall {rec['wall_s']:.2f}s tok/s "
             f"{rec['tokens_per_s']:.1f} peak_mem {mem} (plan estimate "
@@ -584,22 +607,31 @@ def _pipeline_trainer(cfg, loop: TrainConfig, plan, params, cards, dtype,
         return EncDecTrainer(cfg, params, geometry=geom, cards=cards,
                              compute_dtype=dtype, cost_model=cm)
     geom = PipelineGeometry(d_p=loop.d_p, schedule=plan.schedule,
-                            v_stages=plan.v_stages, split_bwd=split)
+                            v_stages=plan.v_stages, split_bwd=split,
+                            d_s=loop.d_s, **(
+                                {"policy": plan.sp.policy,
+                                 "d_s_eff": plan.sp.d_s_eff}
+                                if plan.sp is not None and loop.d_s > 1
+                                else {}))
     return PipelineTrainer(cfg, params, geometry=geom, cards=cards,
                            compute_dtype=dtype, cost_model=cm)
 
 
 def _pipeline_record(cm, plan, trainer, cards, res) -> Dict:
-    """A pipelined step's line: each stage's estimate, each card's peak
-    beside the sum of its stages' estimates, the hand-offs, and the
-    schedule's bubble share on the plan's mean stage times."""
+    """A pipelined step's line: each stage's estimate (a rank's, with a
+    sequence-parallel axis), each card's peak beside the sum of its
+    stages' ranks' estimates, the hand-offs, the schedule's bubble share
+    on the plan's mean stage times; with ``d_s > 1`` the step's SP point,
+    the bytes its collectives moved and the rows a rank gives kernel A
+    (queries, keys) and kernel B (tokens, vocabulary rows) on the
+    step's largest chunk."""
     import torch
 
     from repro_torch.core.schedule import get_schedule
     g = trainer.geom
     est = [max(p.est_peak_mem[s] for p in plan.pipelines)
            for s in range(g.d_p)]
-    card_est = [sum(est[c::len(cards)]) for c in range(len(cards))]
+    card_est = [g.d_s * sum(est[c::len(cards)]) for c in range(len(cards))]
     spec = get_schedule(g.schedule, g.v_stages)
     bub = work = 0.0
     for pipe in plan.pipelines:
@@ -619,7 +651,34 @@ def _pipeline_record(cm, plan, trainer, cards, res) -> Dict:
             "plan_peak_mem_gb": max(card_est) / 1e9,
             "bubble_share": bub / (bub + work) if work else 0.0,
             **{k: res.pipeline[k] for k in ("handoffs", "handoff_bytes",
-                                            "copied_bytes")}}
+                                            "copied_bytes")},
+            **(_sp_record(cm, plan, res.pipeline) if g.d_s > 1 else {})}
+
+
+def _sp_record(cm, plan, pipe: Dict) -> Dict:
+    """The SP fields of a step's line (see :func:`_pipeline_record`)."""
+    from repro_torch.runtime.sp import row_blocks
+    from repro_torch.runtime.train_step import ROW_MULTIPLE
+    d_s, d_eff, policy = pipe["d_s"], pipe["d_s_eff"], pipe["sp_policy"]
+    quantum = ROW_MULTIPLE * d_eff
+    big = max((c for p in plan.pipelines for c in p.chunks),
+              key=lambda c: c.tokens)
+    rows = -(-big.tokens // quantum) * quantum
+    spec = cm.model
+    if policy == "ulysses":
+        attn = {"queries": rows, "keys": big.context + rows,
+                "q_heads": spec.n_heads // d_eff,
+                "kv_heads": spec.n_kv_heads // d_eff}
+    else:
+        attn = {"queries": rows // d_eff, "keys": big.context + rows,
+                "q_heads": spec.n_heads, "kv_heads": spec.n_kv_heads}
+    return {"sp_policy": policy, "d_s_eff": d_eff, "d_s": d_s,
+            "collective_bytes": pipe["collective_bytes"],
+            "collectives": pipe["collectives"],
+            "attn_rows_per_rank": attn,
+            "ce_rows_per_rank": {"tokens": rows,
+                                 "vocab_rows": row_blocks(spec.vocab,
+                                                          d_s)[0][1]}}
 
 
 def main(argv=None) -> int:
@@ -638,7 +697,16 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-policy", default="stage-aware",
                     choices=["stage-aware", "uniform"])
     ap.add_argument("--mesh", default="1x1",
-                    help="PxS: P pipeline stages (S must be 1)")
+                    help="PxS: P pipeline stages of S sequence-parallel "
+                         "ranks")
+    ap.add_argument("--sp-policy", default="auto",
+                    choices=["auto", "none", "ulysses", "allgather_kv"],
+                    help="sequence-parallel policy pin: 'auto' lets the "
+                         "planner choose (policy, degree) jointly with "
+                         "chunking; a name pins the policy")
+    ap.add_argument("--sp-degree", type=int, default=0,
+                    help="effective SP degree pin (must divide S); 0 = "
+                         "planner-chosen")
     ap.add_argument("--cards", type=int, default=1,
                     help="cards the stages are placed on (stage p on "
                          "card p mod cards)")
@@ -731,8 +799,13 @@ def main(argv=None) -> int:
         print("error: --memory-snapshot records the CUDA allocator's "
               "history: it needs --device cuda", file=sys.stderr)
         return 2
-    d_p, _ = parse_mesh(args.mesh)
+    d_p, d_s = parse_mesh(args.mesh)
     cfg = get_arch(args.arch)
+    if cfg.spec.is_encoder_decoder and d_s > 1:
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: the encoder-decoder on a sequence-parallel "
+            f"axis (its frame-sharded memory) is not ported: ROADMAP.md "
+            f"queue 1, item 4")
     if cfg.spec.is_encoder_decoder and d_p < 2:
         print(f"error: {cfg.name} is an encoder-decoder: its pipeline needs "
               f"an encoder and a decoder stage, and encoder_stage_split("
@@ -749,7 +822,8 @@ def main(argv=None) -> int:
                        seed=args.seed, ckpt_policy=args.ckpt_policy,
                        compute_dtype=args.dtype or (
                            "float32" if args.reduced else "bfloat16"),
-                       d_p=d_p, schedule=args.schedule,
+                       d_p=d_p, d_s=d_s, sp_policy=args.sp_policy,
+                       sp_degree=args.sp_degree, schedule=args.schedule,
                        v_stages=args.v_stages, split_bwd=args.split_bwd,
                        ckpt_dir=args.ckpt_dir or None,
                        ckpt_every=args.ckpt_every, resume=args.resume,

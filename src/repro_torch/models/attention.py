@@ -43,6 +43,7 @@ from .layers import apply_rope, dense_init, linear, rms_norm, \
 
 __all__ = ["init_attention", "project_qkv", "mla_expand_ctx",
            "mla_attention", "cross_attention", "attention_block",
+           "attention_block_sp", "context_keys",
            "make_local_attention_policy"]
 
 
@@ -287,43 +288,54 @@ def _append(buf: torch.Tensor, rows: torch.Tensor, offset: int
     return out
 
 
-def make_local_attention_policy() -> Callable:
-    """Single-device attention policy: the carry's ``ctx_len`` live rows in
-    front of the chunk's KV rows (dead rows after them up to a multiple of
-    the kernel's KV tile), attended through the kernel dispatch
-    :func:`repro_torch.kernels.ops.flash_attention`. The new carry is the
-    old one with the chunk's rows at ``ctx_len``: a copy when the old one
-    has room for them, else that very concatenation (a carry that grows
-    with its sequence, as the training steps' do: they start each one
-    empty, so each chunk keeps its context once, in the keys its
-    attention saves). MLA: the carry and the chunk's rows are latent rows
-    (``ctx_v`` and ``v_cur`` None), which ``mla_fn`` (:func:`mla_attention`
-    with the layer's weights) attends in place of the kernel dispatch."""
+def context_keys(ctx_k, ctx_v, k_cur, v_cur, seg_kv, pos_kv, ctx_len: int):
+    """The keys a chunk attends to behind a context carry: the carry's
+    ``ctx_len`` live rows (segment 0, positions ``0..ctx_len-1``) in front
+    of the chunk's KV rows ``k_cur``, ``v_cur`` (segments ``seg_kv``,
+    positions ``pos_kv``), dead rows after them up to a multiple of the
+    kernel's KV tile: ``(kk, vv, kv_seg, kv_pos, new_k, new_v)``. The new
+    carry is the old one with the chunk's rows at ``ctx_len``: a copy when
+    the old one has room for them, else that very concatenation (a carry
+    that grows with its sequence, as the training steps' do: they start
+    each one empty, so each chunk keeps its context once, in the keys its
+    attention saves). MLA: ``ctx_v`` and ``v_cur`` are None."""
     from repro_torch.kernels.flash_attention import BLOCK_KV
+    C, T = int(ctx_len), k_cur.shape[0]
+    pad = -(C + T) % BLOCK_KV
+
+    def keys(ctx, cur):
+        if ctx is None:
+            return None
+        return torch.cat([ctx[:C], cur.to(ctx.dtype),
+                          ctx.new_zeros((pad, *ctx.shape[1:]))])
+    kk, vv = keys(ctx_k, k_cur), keys(ctx_v, v_cur)
+    kv_seg = torch.cat([seg_kv.new_zeros(C), seg_kv,
+                        seg_kv.new_full((pad,), -1)])
+    kv_pos = torch.cat([torch.arange(C, dtype=pos_kv.dtype,
+                                     device=pos_kv.device), pos_kv,
+                        pos_kv.new_zeros(pad)])
+    if C + T > ctx_k.shape[0]:
+        new_k, new_v = kk, vv
+    else:
+        new_k = _append(ctx_k, k_cur, C)
+        new_v = None if ctx_v is None else _append(ctx_v, v_cur, C)
+    return kk, vv, kv_seg, kv_pos, new_k, new_v
+
+
+def make_local_attention_policy() -> Callable:
+    """Single-device attention policy: the chunk's KV rows behind the
+    carry's live rows (:func:`context_keys`), attended through the kernel
+    dispatch :func:`repro_torch.kernels.ops.flash_attention`. MLA: the
+    carry and the chunk's rows are latent rows (``ctx_v`` and ``v_cur``
+    None), which ``mla_fn`` (:func:`mla_attention` with the layer's
+    weights) attends in place of the kernel dispatch."""
     from repro_torch.kernels.ops import flash_attention
 
     def policy(q, k_cur, v_cur, *, seg, pos, ctx_k, ctx_v, ctx_len,
                causal, window, scale, mla_fn=None):
         if ctx_k is not None:
-            C, T = int(ctx_len), k_cur.shape[0]
-            pad = -(C + T) % BLOCK_KV
-
-            def keys(ctx, cur):
-                if ctx is None:
-                    return None
-                return torch.cat([ctx[:C], cur.to(ctx.dtype),
-                                  ctx.new_zeros((pad, *ctx.shape[1:]))])
-            kk, vv = keys(ctx_k, k_cur), keys(ctx_v, v_cur)
-            kv_seg = torch.cat([seg.new_zeros(C), seg, seg.new_full((pad,),
-                                                                    -1)])
-            kv_pos = torch.cat([torch.arange(C, dtype=pos.dtype,
-                                             device=pos.device), pos,
-                                pos.new_zeros(pad)])
-            if C + T > ctx_k.shape[0]:
-                new_k, new_v = kk, vv
-            else:
-                new_k = _append(ctx_k, k_cur, C)
-                new_v = None if ctx_v is None else _append(ctx_v, v_cur, C)
+            kk, vv, kv_seg, kv_pos, new_k, new_v = context_keys(
+                ctx_k, ctx_v, k_cur, v_cur, seg, pos, ctx_len)
         else:
             kk, vv, kv_seg, kv_pos = k_cur, v_cur, seg, pos
             new_k = new_v = None
@@ -350,17 +362,42 @@ def attention_block(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
     them (M-RoPE at 3-D positions needs them). MLA scales the
     scores by ``1/sqrt(Dh + rr)``, its keys' width; its output is the
     values' ``Dh`` columns."""
-    s = cfg.spec
     T = x.shape[0]
     q, k_cur, v_cur = project_qkv(cfg, p, x, pos, rope)
-    scale = 1.0 / math.sqrt(s.head_dim)
-    mla_fn = None
-    if s.kv_lora_rank > 0:
-        scale = 1.0 / math.sqrt(s.head_dim + s.qk_rope_dim)
-        mla_fn = functools.partial(mla_attention, cfg, p)
+    scale, mla_fn = _scale_and_mla(cfg, p)
     out, new_k, new_v = attn_fn(
         q, k_cur, v_cur, seg=seg, pos=pos, ctx_k=ctx_k, ctx_v=ctx_v,
         ctx_len=ctx_len, causal=causal, window=window, scale=scale,
         mla_fn=mla_fn)
     y = linear(out.reshape(T, -1), p["wo"])
     return y, new_k, new_v
+
+
+def _scale_and_mla(cfg: ArchConfig, p: Dict):
+    """The scores' scale and, for MLA, the attention over latent rows
+    (scaled by ``1/sqrt(Dh + rr)``, its keys' width)."""
+    s = cfg.spec
+    if s.kv_lora_rank > 0:
+        return (1.0 / math.sqrt(s.head_dim + s.qk_rope_dim),
+                functools.partial(mla_attention, cfg, p))
+    return 1.0 / math.sqrt(s.head_dim), None
+
+
+def attention_block_sp(cfg: ArchConfig, p: Dict, xs, *, poss, segs,
+                       ctx_k, ctx_v, ctx_len: int, window: int,
+                       attn_fn: Callable, ropes) -> Tuple[list, object,
+                                                          object]:
+    """:func:`attention_block` over an SP group's token blocks ``xs`` (a
+    list, rank order): the projections per rank (each at its own positions
+    and rotation tables ``ropes``), the group's attention policy
+    (``runtime/sp``) on the lists, the output projection per rank. The
+    carries ``ctx_k``, ``ctx_v`` are lists in the policy's layout."""
+    qs, ks, vs = zip(*[project_qkv(cfg, p, x, pos, rope)
+                       for x, pos, rope in zip(xs, poss, ropes)])
+    scale, mla_fn = _scale_and_mla(cfg, p)
+    outs, new_k, new_v = attn_fn(
+        qs, ks, vs, segs=segs, poss=poss, ctx_k=ctx_k, ctx_v=ctx_v,
+        ctx_len=ctx_len, causal=True, window=window, scale=scale,
+        mla_fn=mla_fn)
+    ys = [linear(o.reshape(o.shape[0], -1), p["wo"]) for o in outs]
+    return ys, new_k, new_v

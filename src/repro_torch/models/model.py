@@ -34,13 +34,13 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .attention import (attention_block, init_attention,
-                        make_local_attention_policy)
+from .attention import (attention_block, attention_block_sp,
+                        init_attention, make_local_attention_policy)
 from .config import ArchConfig, LayerKind
 from .layers import (embed_init, mrope_tables, rms_norm, rope_tables,
                      swiglu_apply, swiglu_init)
 from .moe import init_moe, moe_apply
-from .ssm import init_mamba, mamba_apply, ssm_state_shape
+from .ssm import init_mamba, mamba_apply, mamba_apply_sp, ssm_state_shape
 
 __all__ = ["DecoderLM", "LayerCtx", "layer_params", "tree_map",
            "tree_leaves", "tree_unflatten", "unstack_layers"]
@@ -126,9 +126,18 @@ def unstack_layers(params: Dict) -> Dict:
 
 
 class DecoderLM:
-    """init/apply-style decoder LM parameterized by ArchConfig."""
+    """init/apply-style decoder LM parameterized by ArchConfig.
 
-    def __init__(self, cfg: ArchConfig):
+    The sequence-parallel hooks (the reference's ``attn_fn``, ``moe_fn``,
+    ``ssm_scan_fn``, ``ssm_tail_exchange``; built by ``runtime/sp.
+    make_model``) serve :meth:`run_layers_sp`, which runs one SP group's
+    token blocks; without them (the one-rank path, :meth:`run_layers`) the
+    attention policy is the local one."""
+
+    def __init__(self, cfg: ArchConfig, *, attn_fn: Optional[Callable] = None,
+                 moe_fn: Optional[Callable] = None,
+                 ssm_scan_fn: Optional[Callable] = None,
+                 ssm_tail_exchange: Optional[Callable] = None):
         s = cfg.spec
         kind = cfg.layer_kind
         ssm = kind in (LayerKind.MAMBA, LayerKind.HYBRID)
@@ -146,7 +155,10 @@ class DecoderLM:
         self.cfg = cfg
         self.has_attn = kind != LayerKind.MAMBA
         self.has_ssm = ssm
-        self.attn_fn = make_local_attention_policy()
+        self.attn_fn = attn_fn or make_local_attention_policy()
+        self.moe_fn = moe_fn
+        self.ssm_scan_fn, self.ssm_tail_exchange = ssm_scan_fn, \
+            ssm_tail_exchange
 
     # ------------------------------------------------------------------
     def init(self, gen: torch.Generator, *, device,
@@ -203,6 +215,34 @@ class DecoderLM:
         valid = (seg >= 0) & (targets >= 0)
         return fused_cross_entropy(h, self.head_weights(params).to(h.dtype),
                                    targets.clamp(min=0), valid)
+
+    def chunk_loss_sp(self, params: Dict, hidden: List[torch.Tensor],
+                      targets: List[torch.Tensor], segs: List[torch.Tensor],
+                      d_s: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`chunk_loss` over an SP group's token blocks: the final
+        norm per rank, then the vocabulary-parallel CE over ``d_s`` row
+        blocks of the head (``runtime/sp.sharded_ce``: kernel B per block,
+        the log-sum-exps merged, C1 and C2 per block)."""
+        from repro_torch.runtime.sp import sharded_ce
+        hs = [rms_norm(h, params["final_norm"], self.cfg.rms_eps)
+              for h in hidden]
+        w = self.head_weights(params)
+        return sharded_ce(hs, w.to(hs[0].dtype),
+                          [t.clamp(min=0) for t in targets],
+                          [(s >= 0) & (t >= 0) for s, t in zip(segs, targets)],
+                          d_s)
+
+    def embed_sp(self, params: Dict, tokens: List[torch.Tensor], d_s: int,
+                 compute_dtype=torch.bfloat16) -> List[torch.Tensor]:
+        """:meth:`embed` of an SP group's token blocks, vocabulary-parallel
+        over ``d_s`` row blocks (``runtime/sp.sharded_embed``)."""
+        from repro_torch.runtime.sp import sharded_embed
+        xs = sharded_embed(params["embed"], tokens, d_s, compute_dtype)
+        if self.cfg.embed_scale:
+            scale = torch.tensor(self.cfg.spec.d_model ** 0.5,
+                                 dtype=compute_dtype).item()
+            xs = [x * scale for x in xs]
+        return xs
 
     def loss(self, params: Dict, tokens, targets, seg, pos, *,
              positions3: Optional[torch.Tensor] = None,
@@ -367,6 +407,88 @@ class DecoderLM:
             else:
                 fields.append(torch.stack(vals))
         return x, LayerCtx(*fields)
+
+    # ------------------------------------------------------------------
+    def layer_apply_sp(self, lparams: Dict, xs: List[torch.Tensor], *,
+                       poss, segs, ctx: LayerCtx, ctx_len: int, window: int,
+                       ropes) -> Tuple[List[torch.Tensor], LayerCtx]:
+        """:meth:`layer_apply` over one SP group's token blocks ``xs`` (rank
+        order; ``poss``, ``segs``, ``ropes`` per rank): norms, projections
+        and MLPs per rank, attention through the group's policy, the mamba
+        mixer through the prefix scan and conv halo, MoE through expert
+        parallelism (one rank: the routed block). ``ctx`` fields: the
+        policy's KV carry lists, ``[h]`` and ``[tail]`` (None: none)."""
+        cfg = self.cfg
+        hs = [rms_norm(x, lparams["ln1"], cfg.rms_eps) for x in xs]
+        nk, nv, nh, ntail = ctx
+        mixer = None
+        if self.has_attn:
+            mixer, nk, nv = attention_block_sp(
+                cfg, lparams["attn"], hs, poss=poss, segs=segs, ctx_k=ctx.k,
+                ctx_v=ctx.v, ctx_len=ctx_len, window=window,
+                attn_fn=self.attn_fn, ropes=ropes)
+        if self.has_ssm:
+            m_out, h, tail = mamba_apply_sp(
+                cfg, lparams["mamba"], hs, poss=poss, segs=segs,
+                state=None if ctx.ssm_h is None else ctx.ssm_h[0],
+                conv_tail=None if ctx.ssm_tail is None else ctx.ssm_tail[0],
+                scan_fn=self.ssm_scan_fn,
+                tail_exchange=self.ssm_tail_exchange)
+            nh, ntail = [h], [tail]
+            mixer = m_out if mixer is None else [
+                0.5 * (a + b) for a, b in zip(mixer, m_out)]
+        xs = [x + m for x, m in zip(xs, mixer)]
+        if cfg.layer_kind != LayerKind.MAMBA:
+            h2 = [rms_norm(x, lparams["ln2"], cfg.rms_eps) for x in xs]
+            if "moe" in lparams and self.moe_fn is not None:
+                ys = self.moe_fn(cfg, lparams["moe"], h2)
+            else:
+                ys = [self.ffn(lparams, h) for h in h2]
+            xs = [x + y for x, y in zip(xs, ys)]
+        return xs, LayerCtx(nk, nv, nh, ntail)
+
+    def run_layers_sp(self, layers, xs: List[torch.Tensor], segs, poss, *,
+                      ctx: Optional[LayerCtx] = None, ctx_len: int = 0,
+                      remat: int = 0, ropes=None
+                      ) -> Tuple[List[torch.Tensor], Optional[LayerCtx]]:
+        """:meth:`run_layers` over one SP group's token blocks: ``ctx``
+        fields are lists over ``layers`` of each layer's carry list (the
+        policy's layout, ``[h]``, ``[tail]``); the leading ``remat`` layers
+        run under checkpoint, the rank blocks and carries passed as
+        separate tensor arguments."""
+        if ropes is None:
+            ropes = [self.rope_tables(p) for p in poss]
+        n = len(xs)
+        new = [[], [], [], []]
+        for i, (lp, w) in enumerate(layers):
+            lctx = [None if f is None else f[i]
+                    for f in (ctx if ctx is not None else (None,) * 4)]
+            counts = tuple(-1 if f is None else len(f) for f in lctx)
+            flat = [t for f in lctx if f is not None for t in f]
+            args = (lp, int(w), int(ctx_len), segs, poss, ropes, n, counts,
+                    *xs, *flat)
+            if i < remat:
+                out = checkpoint(self._layer_sp, *args, use_reentrant=False)
+            else:
+                out = self._layer_sp(*args)
+            xs, lctx_out = out
+            for acc, o in zip(new, lctx_out):
+                acc.append(o)
+        if ctx is None:
+            return xs, None
+        return xs, LayerCtx(*[None if f is None else vals
+                              for f, vals in zip(ctx, new)])
+
+    def _layer_sp(self, lparams, window, ctx_len, segs, poss, ropes, n,
+                  counts, *tensors):
+        xs, rest = list(tensors[:n]), list(tensors[n:])
+        fields = []
+        for c in counts:
+            fields.append(None if c < 0 else rest[:c])
+            rest = rest[max(c, 0):]
+        return self.layer_apply_sp(lparams, xs, poss=poss, segs=segs,
+                                   ctx=LayerCtx(*fields), ctx_len=ctx_len,
+                                   window=window, ropes=ropes)
 
     def _layer(self, lparams, x, pos, seg, ctx_k, ctx_v, ctx_h, ctx_tail,
                ctx_len, window, rope):

@@ -48,7 +48,8 @@ from .config import ArchConfig
 from .layers import dense_init, swiglu_apply, swiglu_init, weight_grad_store
 
 __all__ = ["init_moe", "router_logits", "route", "router_weights",
-           "moe_apply", "moe_apply_dense", "observe_router", "COUNTS"]
+           "moe_apply", "routed_experts", "moe_apply_dense", "observe_router",
+           "COUNTS"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -132,14 +133,17 @@ def _gated(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return (g32 * torch.sigmoid(g32)).to(g.dtype) * u
 
 
-def _blocks(sizes: List[int], width: int):
-    """``(expert, [(first pair, end), ...])`` of every non-empty expert, in
-    ascending expert id, its pairs in blocks whose float32 ``[rows,
-    width]`` temporaries take EXPERT_BLOCK_BYTES."""
+def _blocks(sizes: List[int], width: int,
+            experts: Optional[Tuple[int, int]] = None):
+    """``(expert, [(first pair, end), ...])`` of every non-empty expert (of
+    the range ``experts``, if given), in ascending expert id, its pairs in
+    blocks whose float32 ``[rows, width]`` temporaries take
+    EXPERT_BLOCK_BYTES."""
     rows = max(1, EXPERT_BLOCK_BYTES // (4 * width))
+    lo, hi = experts or (0, len(sizes))
     a = 0
     for e, n in enumerate(sizes):
-        if n:
+        if n and lo <= e < hi:
             yield e, [(c, min(c + rows, a + n))
                       for c in range(a, a + n, rows)]
         a += n
@@ -167,10 +171,12 @@ def _add_wgrads(parts: List, want, x: torch.Tensor, te: torch.Tensor,
 
 class _RoutedExperts(torch.autograd.Function):
     """The routed experts' output ``[T, D]`` in x's dtype (see the module
-    docstring)."""
+    docstring); with ``experts = (lo, hi)``, the float32 sum of the experts
+    ``[lo, hi)`` alone (expert parallelism, ``runtime/ep.py``)."""
 
     @staticmethod
-    def forward(ctx, x, router, w_gate, w_up, w_down, k, store):
+    def forward(ctx, x, router, w_gate, w_up, w_down, k, store,
+                experts=None):
         dt = x.dtype
         T, D = x.shape
         E, Fe = w_gate.shape[:2]
@@ -188,7 +194,7 @@ class _RoutedExperts(torch.autograd.Function):
         g_all = x.new_empty((T * k, Fe)) if keep else None
         u_all = x.new_empty((T * k, Fe)) if keep else None
         acc = torch.zeros((T, D), dtype=torch.float32, device=x.device)
-        for e, blocks in _blocks(sizes, max(D, Fe)):
+        for e, blocks in _blocks(sizes, max(D, Fe), experts):
             wg, wu, wd = (t[e].to(dt) for t in (w_gate, w_up, w_down))
             for a, b in blocks:
                 te = tok[a:b]
@@ -206,7 +212,8 @@ class _RoutedExperts(torch.autograd.Function):
             # as aliases
             ctx.sizes, ctx.store = sizes, store
             ctx.leaves = (router, w_gate, w_up, w_down)
-        return acc.to(dt)
+            ctx.experts = experts
+        return acc if experts is not None else acc.to(dt)
 
     @staticmethod
     def backward(ctx, dout):
@@ -226,10 +233,12 @@ class _RoutedExperts(torch.autograd.Function):
                  for t, n in zip(leaves, need[1:])]
         want = [t is not None for t in grads]
         deferred = []   # (expert, first pair, end, dg, du) for the store
-        dw_pairs = torch.empty((T * k,), dtype=torch.float32,
-                               device=x.device)
+        # (pairs of experts outside the range keep a zero weight gradient)
+        dw_pairs = (torch.empty if ctx.experts is None else torch.zeros)(
+            (T * k,), dtype=torch.float32, device=x.device)
         acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-        for e, blocks in _blocks(sizes, max(x.shape[1], g_all.shape[1])):
+        for e, blocks in _blocks(sizes, max(x.shape[1], g_all.shape[1]),
+                                 ctx.experts):
             wg, wu, wd = (t[e].to(dt) for t in leaves)
             parts = [None] * 3
             for a, b in blocks:
@@ -271,7 +280,8 @@ class _RoutedExperts(torch.autograd.Function):
         def d_router():
             return dlogits.t().mm(x.float()).to(router.dtype)
         if store is None:
-            return (dx, d_router() if need[0] else None, *grads, None, None)
+            return (dx, d_router() if need[0] else None, *grads, None, None,
+                    None)
 
         def d_experts(i):
             # the fused backward's products on the same operands: h and dy
@@ -292,7 +302,18 @@ class _RoutedExperts(torch.autograd.Function):
             return product
         store.extend(zip(ctx.leaves, (d_router, d_experts(0), d_experts(1),
                                       d_experts(2))))
-        return dx, None, None, None, None, None, None
+        return dx, None, None, None, None, None, None, None
+
+
+def routed_experts(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
+                   experts: Tuple[int, int]) -> torch.Tensor:
+    """The float32 sum ``[T, D]`` of the routed experts ``[lo, hi)`` over
+    the normed rows ``x``, each token's picks in that range weighted by its
+    softmax over all ``top_k`` picks (expert parallelism's share of one
+    rank: ``runtime/ep.py``)."""
+    return _RoutedExperts.apply(x, p["router"], p["w_gate"], p["w_up"],
+                                p["w_down"], cfg.spec.top_k,
+                                weight_grad_store(), experts)
 
 
 def moe_apply(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -300,7 +321,8 @@ def moe_apply(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     routed experts by dispatch, then the shared experts."""
     s = cfg.spec
     out = _RoutedExperts.apply(x, p["router"], p["w_gate"], p["w_up"],
-                               p["w_down"], s.top_k, weight_grad_store())
+                               p["w_down"], s.top_k, weight_grad_store(),
+                               None)
     if s.n_shared_experts > 0:
         out = out + swiglu_apply(p["shared"], x)
     return out

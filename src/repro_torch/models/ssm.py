@@ -20,6 +20,13 @@ port) and the same casts. Two differences:
   after the pad rows: its carry out of a padded split chunk is wrong
   (``ROADMAP.md``, reference caveats).
 
+On a sequence-parallel axis :func:`mamba_apply_sp` runs the mixer over a
+group's token blocks (the reference's ``scan_fn`` and ``tail_exchange``
+hooks, ``runtime/sp``): the conv halo is the last ``K-1`` live rows before
+a block, none of them from before a sequence start (:func:`live_tail`),
+and the scan folds each block's summary (:func:`gated_scan` from a zero
+state, :func:`shard_decay`) into the state entering the next.
+
 Memory. The mixer keeps what the planner's per-token model charges it and
 no float32 ``[T, d_inner]`` tensor: the conv (with its SiLU) and the scan
 with its gating are autograd functions that keep their inputs (bf16 in
@@ -40,7 +47,8 @@ import torch.nn.functional as F
 from .config import ArchConfig
 from .layers import dense_init, linear, weight_grad_store
 
-__all__ = ["init_mamba", "mamba_apply", "ssm_state_shape", "dt_rank_of"]
+__all__ = ["init_mamba", "mamba_apply", "mamba_apply_sp", "gated_scan",
+           "shard_decay", "live_tail", "ssm_state_shape", "dt_rank_of"]
 
 
 def ssm_state_shape(cfg: ArchConfig) -> Tuple[Tuple[int, int],
@@ -176,17 +184,25 @@ class _ScanGate(torch.autograd.Function):
                 None, dh0.to(h0.dtype))
 
 
-def _conv_tail(conv_tail, xs, live):
-    """The ``K-1`` conv inputs ending at the chunk's last live row (the
-    incoming tail's rows where the chunk has fewer live rows), gathered
-    without a host sync."""
+def live_tail(conv_tail, xs, live, reset):
+    """The ``K-1`` conv inputs ending at the last live row of ``xs`` (the
+    incoming tail's rows where ``xs`` has fewer live rows; the tail itself
+    where it has none), gathered without a host sync; rows before the last
+    live reset of ``xs`` are zeroed: they belong to an earlier sequence,
+    which a later conv window must not read (between SP ranks,
+    ``runtime/sp``; a chunk that hands its tail on holds one sequence from
+    row 0, so there they are the incoming tail's zeros)."""
     K1, T = conv_tail.shape[0], xs.shape[0]
     rows = torch.arange(T, device=xs.device)
     last = (torch.where(live, rows, -1)).max() if T else rows.new_tensor(-1)
     p = last + 1 + torch.arange(K1, device=xs.device)   # in [tail; xs] rows
     from_tail = conv_tail.to(xs.dtype)[p.clamp(max=K1 - 1)]
     from_xs = xs[(p - K1).clamp(min=0)]
-    return torch.where((p < K1)[:, None], from_tail, from_xs)
+    out = torch.where((p < K1)[:, None], from_tail, from_xs)
+    start = (torch.where(reset & live, rows, -1)).max() if T \
+        else rows.new_tensor(-1)
+    keep = (start < 0) | (p - K1 >= start)
+    return torch.where(keep[:, None], out, 0)
 
 
 def mamba_apply(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
@@ -219,4 +235,64 @@ def mamba_apply(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
         p["dt_proj"], p["dt_bias"], p["a_log"], p["d_skip"], live, reset,
         state)
     out = linear(y, p["out_proj"])
-    return out, h_last, _conv_tail(conv_tail, xs, live)
+    return out, h_last, live_tail(conv_tail, xs, live, reset)
+
+
+def gated_scan(p: Dict, xc, dt_in, B, C, z, live, reset, h0):
+    """The mixer's gated scan (kernels D and D′ on the card) of one token
+    block from the state ``h0``: ``(out [T, di], h_last [di, ds])``,
+    differentiable in ``h0``."""
+    return _ScanGate.apply(xc, dt_in, B, C, z, p["dt_proj"], p["dt_bias"],
+                           p["a_log"], p["d_skip"], live, reset, h0)
+
+
+def shard_decay(p: Dict, dt_in, live, reset) -> torch.Tensor:
+    """``a_prod [di, ds]``: the product over a token block's rows of the
+    scan's decays ``exp(delta A)`` (float32), the factor by which the state
+    entering the block reaches its end: ``exp(A sum(delta))``, pad rows
+    contributing ``delta = 0``, and 0 where a sequence starts inside the
+    block (its reset drops the state)."""
+    delta = torch.where(live[:, None], F.softplus(
+        linear(dt_in, p["dt_proj"]).float() + p["dt_bias"].float()), 0.0)
+    A = -torch.exp(p["a_log"].float())
+    keep = (~(reset & live).any()).float()
+    return torch.exp(delta.sum(0)[:, None] * A) * keep
+
+
+def mamba_apply_sp(cfg: ArchConfig, p: Dict, xs, *, poss, segs,
+                   state: Optional[torch.Tensor] = None,
+                   conv_tail: Optional[torch.Tensor] = None,
+                   scan_fn, tail_exchange):
+    """:func:`mamba_apply` over an SP group's token blocks ``xs`` (a list,
+    rank order): the projections per rank, the conv over each block with
+    its halo (``tail_exchange(conv inputs, lives, resets, carried tail) ->
+    (tails, new tail)``) and the scan across the blocks (``scan_fn(p,
+    shards, h0) -> (outs, h_last)``: ``runtime/sp.make_sp_ssm_scan``). Returns ``(outs,
+    h_last, conv_tail)``: the group's final state and the chunk's last
+    ``K-1`` live conv inputs."""
+    from repro_torch.runtime.sp import ScanShard
+    s = cfg.spec
+    di, ds = s.inner, s.ssm_state
+    R = dt_rank_of(cfg)
+    dt = xs[0].dtype
+    dev = xs[0].device
+    if state is None:
+        state = torch.zeros((di, ds), dtype=torch.float32, device=dev)
+    if conv_tail is None:
+        conv_tail = torch.zeros((s.ssm_conv - 1, di), dtype=dt, device=dev)
+    lives = [seg >= 0 for seg in segs]
+    resets = [(pos == 0) & live for pos, live in zip(poss, lives)]
+    xz = [linear(x, p["in_proj"]) for x in xs]
+    x_in = [a[:, :di] for a in xz]
+    tails, new_tail = tail_exchange(x_in, lives, resets, conv_tail)
+    shards = []
+    for a, tail, live, reset in zip(xz, tails, lives, resets):
+        xc = _ConvSilu.apply(a[:, :di], p["conv_w"], p["conv_b"], tail,
+                             reset)
+        proj = linear(xc, p["x_proj"])
+        shards.append(ScanShard(xc, proj[:, :R], proj[:, R:R + ds],
+                                proj[:, R + ds:R + 2 * ds], a[:, di:], live,
+                                reset))
+    ys, h_last = scan_fn(p, shards, state)
+    return ([linear(y, p["out_proj"]) for y in ys], h_last,
+            new_tail.to(dt))

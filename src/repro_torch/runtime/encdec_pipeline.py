@@ -58,6 +58,9 @@ class EncDecGeometry:
     schedule: str = "gpipe-1f1b"
     v_stages: int = 1
     split_bwd: bool = False
+    # no sequence-parallel axis: its frame-sharded memory is not ported
+    # (ROADMAP.md queue 1, item 4)
+    d_s = 1
 
     def __post_init__(self) -> None:
         if self.v_stages != 1:

@@ -28,43 +28,72 @@ hands it:
 The carries stay on their stage; only streams move. The parameters'
 gradients are summed in float32 per stage, in the order of the stage's
 backwards.
+
+With a sequence-parallel axis (``d_s > 1``) a stage is an :class:`SPStage`:
+its ``d_s`` ranks live on its card and share its one copy of the
+parameters; each chunk's rows split into ``d_s_eff`` contiguous blocks,
+one a rank of each of the ``d_s / d_s_eff`` replica groups
+(``runtime/sp.subgroup_info``); the stream is the tuple of the ranks'
+blocks (rank ``m`` holds block ``m // r`` of group ``m % r``); the embedding
+and the loss are vocabulary-parallel over the full ``d_s`` (the loss on
+group 0's blocks only); each ``F``, ``B`` and ``W`` is one forward and one
+backward over every rank; the carries follow the reference's
+``init_stage_ctx`` (ulysses: head-sharded, one per rank; allgather_kv and
+MLA: one replicated per group; the SSM state and conv tail: one per
+group).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from repro_torch.core.schedule import get_schedule
+from repro_torch.core.sp import SP_POLICIES
 from repro_torch.models.layers import deferred_weight_grads
 from repro_torch.models.model import DecoderLM, LayerCtx, tree_leaves
 
-__all__ = ["PipelineGeometry", "PipelineStage"]
+__all__ = ["PipelineGeometry", "PipelineStage", "SPStage", "carry_leaves",
+           "carry_map"]
 
 
 @dataclass(frozen=True)
 class PipelineGeometry:
     """The run's pipeline: ``d_p`` stages, the schedule backend and its
     ``v`` virtual stages per stage (fixed for a run: they place the
-    layers), and whether the backward is split. The reference's fields
-    for the sequence-parallel axis and ZeRO-3 stay at their ``d_s = 1``
-    values; others raise."""
+    layers), whether the backward is split, and the sequence-parallel
+    axis: ``d_s`` ranks a stage, the policy and effective degree
+    ``d_s_eff`` (0: ``d_s``) that a plan without its own SP point runs
+    (a plan's ``sp`` overrides them: :meth:`for_plan`), with the
+    reference's checks. ZeRO-3 and the double-buffered hand-off raise."""
     d_p: int
     schedule: str = "gpipe-1f1b"
     v_stages: int = 1
     split_bwd: bool = False
     d_s: int = 1
     policy: str = "none"
+    d_s_eff: int = 0
     zero3_mode: Optional[str] = None
     overlap_handoff: bool = False
 
     def __post_init__(self) -> None:
-        if self.d_s != 1 or self.policy != "none":
-            raise NotImplementedError(
-                "the sequence-parallel axis (d_s > 1, an SP policy) is not "
-                "ported: ROADMAP.md queue 1, item 4")
+        if self.d_s < 1:
+            raise ValueError(f"d_s must be >= 1, got {self.d_s}")
+        if self.d_s_eff == 0:
+            object.__setattr__(self, "d_s_eff", self.d_s)
+        if self.d_s_eff < 1 or self.d_s % self.d_s_eff:
+            raise ValueError(
+                f"d_s_eff={self.d_s_eff} must divide d_s={self.d_s}")
+        if self.policy not in SP_POLICIES:
+            raise ValueError(f"unknown SP policy {self.policy!r}")
+        if self.policy == "ulysses" and self.d_s_eff == 1:
+            raise ValueError("ulysses at d_s_eff=1 is meaningless; the "
+                             "planner emits policy 'none' there")
+        if self.d_s == 1 and self.policy != "none":
+            raise ValueError(f"policy {self.policy!r} needs d_s > 1")
         if self.zero3_mode is not None:
             raise NotImplementedError(
                 "ZeRO-3 gathers are not ported: ROADMAP.md queue 1, item 3")
@@ -79,6 +108,40 @@ class PipelineGeometry:
     @property
     def n_vstages(self) -> int:
         return self.d_p * self.v_stages
+
+    @property
+    def sp_rep(self) -> int:
+        """Chunk-compute replication factor of the SP sub-grouping."""
+        return self.d_s // self.d_s_eff
+
+    def for_plan(self, plan) -> "PipelineGeometry":
+        """This geometry at ``plan.sp``'s policy and degree (itself when
+        the plan has none)."""
+        if plan.sp is None or (plan.sp.policy, plan.sp.d_s_eff) == (
+                self.policy, self.d_s_eff):
+            return self
+        return dataclasses.replace(self, policy=plan.sp.policy,
+                                   d_s_eff=plan.sp.d_s_eff)
+
+
+def carry_map(fn: Callable, tree):
+    """``fn`` over the tensors of a carry tree (lists, tuples and
+    :class:`LayerCtx` nest; None stays None)."""
+    if tree is None:
+        return None
+    if isinstance(tree, LayerCtx):
+        return LayerCtx(*[carry_map(fn, f) for f in tree])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(carry_map(fn, t) for t in tree)
+    return fn(tree)
+
+
+def carry_leaves(tree) -> List:
+    """The tensors of a carry tree in a fixed order (Nones kept, so two
+    trees of one shape pair up)."""
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in carry_leaves(t)]
+    return [tree]
 
 
 class PipelineStage:
@@ -225,3 +288,134 @@ class PipelineStage:
         """The ``W`` action: the weight products ``B(k, j)`` deferred."""
         for w, product in self.wstore.pop((k, j)):
             self.acc_of[id(w)].add_(product())
+
+
+class SPStage(PipelineStage):
+    """Stage ``p`` with ``geom.d_s`` sequence-parallel ranks on its card
+    (see the module docstring): :meth:`configure` sets the step's SP model
+    (``runtime/sp.make_model`` at the plan's policy and degree);
+    ``inputs(k)`` gives chunk ``k``'s ``(tokens, targets, seg, pos, rope
+    tables)`` as lists over its ``d_s_eff`` row blocks."""
+
+    def configure(self, model: DecoderLM, policy: str, d_s_eff: int) -> None:
+        self.model, self.policy, self.d_s_eff = model, policy, d_s_eff
+        self.rep = self.geom.d_s // d_s_eff
+
+    def _groups(self, flat: Sequence) -> List[List]:
+        """Rank-ordered stream -> replica groups' block lists."""
+        r = self.rep
+        return [[flat[k * r + j] for k in range(self.d_s_eff)]
+                for j in range(r)]
+
+    def _flat(self, groups: Sequence[Sequence]) -> List:
+        r = self.rep
+        return [groups[m % r][m // r] for m in range(self.geom.d_s)]
+
+    def _zero_layer(self) -> LayerCtx:
+        """One layer's empty carry in the policy's layout."""
+        s, dev, dt = self.model.cfg.spec, self.device, self.dtype
+        k = v = h = tail = None
+        if self.model.has_attn:
+            if s.kv_lora_rank > 0:
+                k = [torch.zeros((0, 1, s.kv_lora_rank + s.qk_rope_dim),
+                                 dtype=dt, device=dev)]
+            elif self.policy == "ulysses":
+                shape = (0, s.n_kv_heads // self.d_s_eff, s.head_dim)
+                k = [torch.zeros(shape, dtype=dt, device=dev)
+                     for _ in range(self.d_s_eff)]
+                v = [torch.zeros(shape, dtype=dt, device=dev)
+                     for _ in range(self.d_s_eff)]
+            else:
+                shape = (0, s.n_kv_heads, s.head_dim)
+                k = [torch.zeros(shape, dtype=dt, device=dev)]
+                v = [torch.zeros(shape, dtype=dt, device=dev)]
+        if self.model.has_ssm:
+            h = [torch.zeros((s.inner, s.ssm_state), dtype=torch.float32,
+                             device=dev)]
+            tail = [torch.zeros((s.ssm_conv - 1, s.inner), dtype=dt,
+                                device=dev)]
+        return LayerCtx(k, v, h, tail)
+
+    def _zero_carry(self, n_layers: int):
+        one = self._zero_layer()
+        return [LayerCtx(*[None if f is None else
+                           [[t.clone() for t in f] for _ in range(n_layers)]
+                           for f in one]) for _ in range(self.rep)]
+
+    def forward(self, k: int, j: int, x_in) -> Optional[tuple]:
+        s, S = j * self.geom.d_p + self.p, self.geom.n_vstages
+        ch = self.chunks[k]
+        tokens, targets, segs, poss, ropes = self.inputs(k)
+        rec = {"prev": None, "ctx_in": None, "ctx_out": None, "x_in": None,
+               "store": [] if self.geom.split_bwd else None}
+        if s == 0:
+            xs = self.model.embed_sp(self.params, tokens, self.geom.d_s,
+                                     self.dtype)
+            groups = [xs] * self.rep
+        else:
+            rec["x_in"] = tuple(x.detach().requires_grad_(True)
+                                for x in x_in)
+            groups = self._groups(rec["x_in"])
+        carries = self.carries[j]
+        if ch.context > 0:
+            if ch.seq_id not in carries:
+                raise RuntimeError(
+                    f"chunk {k} continues sequence {ch.seq_id}, whose "
+                    f"previous chunk is not in this pipeline")
+            rec["prev"], out = carries.pop(ch.seq_id)
+            ctx = rec["ctx_in"] = carry_map(
+                lambda a: a.detach().requires_grad_(True), out)
+        elif ch.has_dependents:
+            ctx = self._zero_carry(len(self.blocks[j]))
+        else:
+            ctx = [None] * self.rep
+        if ch.has_dependents and len(ch.slices) != 1:
+            raise RuntimeError(f"chunk {k} has dependents but holds "
+                               f"{len(ch.slices)} slices: the carry it "
+                               f"hands on must be its sequence's alone")
+        hidden, ctx_out = [], []
+        with deferred_weight_grads(rec["store"]):
+            for g, xs in enumerate(groups):
+                h, c = self.model.run_layers_sp(
+                    self._layers(j), xs, segs, poss, ctx=ctx[g],
+                    ctx_len=ch.context, remat=self.depths[j][k],
+                    ropes=ropes)
+                hidden.append(h)
+                ctx_out.append(c)
+        if ch.has_dependents:
+            rec["ctx_out"] = ctx_out
+            carries[ch.seq_id] = (k, ctx_out)
+        self.live[j][k] = rec
+        if s < S - 1:
+            rec["out"] = self._flat(hidden)
+            return tuple(h.detach() for h in rec["out"])
+        # the loss on replica group 0's blocks (every token once)
+        loss, _ = self.model.chunk_loss_sp(self.params, hidden[0], targets,
+                                           segs, self.geom.d_s)
+        rec["out"] = [loss]
+        self.loss = self.loss + loss.detach()
+        return None
+
+    def backward(self, k: int, j: int, g) -> Optional[tuple]:
+        rec = self.live[j].pop(k)
+        outs, grads = [], []
+        for t, gt in zip(rec["out"], [self.scale] if g is None else g):
+            if gt is not None:          # (a replica's stream: no gradient)
+                outs.append(t)
+                grads.append(gt)
+        if rec["ctx_out"] is not None:
+            if k not in self.dkv[j]:
+                raise RuntimeError(f"backward of chunk {k} before the "
+                                   f"backward of the chunk that continues it")
+            for t, gt in zip(carry_leaves(rec["ctx_out"]),
+                             carry_leaves(self.dkv[j].pop(k))):
+                if gt is not None:
+                    outs.append(t)
+                    grads.append(gt)
+        self._backward(k, j, rec, outs, grads)
+        if rec["ctx_in"] is not None:
+            self.dkv[j][rec["prev"]] = carry_map(lambda a: a.grad,
+                                                 rec["ctx_in"])
+        if rec["x_in"] is None:
+            return None
+        return tuple(x.grad for x in rec["x_in"])

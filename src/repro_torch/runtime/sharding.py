@@ -7,8 +7,11 @@ Counterpart of the placement half of the JAX package's
 ``runtime/train_step.py``. The reference stacks every stage's layers into
 ``[d_p, L_s, ...]`` arrays with inert padded slots, which its executor runs
 as identity; here a stage keeps a map from its (virtual stage, slot) to the
-global layer ids and skips the padded slots. ZeRO-3's gather functions are
-not ported (``ROADMAP.md``, queue 1, item 3).
+global layer ids and skips the padded slots. A stage's sequence-parallel
+ranks share its card and its parameters: the vocabulary's and the
+experts' row blocks (``runtime/sp.row_blocks``, ``runtime/ep.py``) are
+row views of them. ZeRO-3's gather functions and SP ranks across cards
+are not ported (``ROADMAP.md``, queue 1, items 3 and 2).
 
 The encoder-decoder's layout (:func:`encdec_stage_layers`) splits the
 stages between the encoder and the decoder
@@ -82,11 +85,21 @@ def stage_blocks(d_p: int, n_layers: int, v: int = 1
              for j in range(v)] for p in range(d_p)]
 
 
-def stage_devices(d_p: int, cards: Sequence) -> List[torch.device]:
+def stage_devices(d_p: int, cards: Sequence, d_s: int = 1
+                  ) -> List[torch.device]:
     """Stage ``p`` lives on card ``p mod len(cards)``: every stage on one
-    card when one is given, one stage per card when there are ``d_p``."""
+    card when one is given, one stage per card when there are ``d_p``. A
+    stage's ``d_s`` sequence-parallel ranks live on its card and share its
+    one copy of the parameters (the ``d_s`` ZeRO-3 shards of the planner's
+    model, whole); more cards than stages would put a stage's ranks on
+    several cards, each then needing a copy: that raises."""
     if not cards:
         raise ValueError("stage_devices needs at least one card")
+    if d_s > 1 and len(cards) > d_p:
+        raise NotImplementedError(
+            f"{len(cards)} cards for {d_p} stages of {d_s} SP ranks: SP "
+            f"ranks across cards (a parameter shard per card, ZeRO-3 over "
+            f"d_s) are not ported: ROADMAP.md queue 1, items 3 and 2")
     return [torch.device(cards[p % len(cards)]) for p in range(d_p)]
 
 

@@ -45,7 +45,12 @@ a copy on the first stage's device and one on the last's: their
 gradients are summed, both copies take the same update, and the step
 checks they hold the same bits after it. The gradients' global norm spans
 every stage and counts the tied weight once. On one stage its loss and
-gradients are :class:`ChunkedTrainer`'s, bit for bit.
+gradients are :class:`ChunkedTrainer`'s, bit for bit. With ``d_s > 1``
+(the sequence-parallel axis) a stage is a ``pipeline.SPStage`` of ``d_s``
+ranks sharing its parameters; each step runs at its plan's SP point
+(``PipelineGeometry.for_plan``, the decoder of :meth:`PipelineTrainer.
+sp_model`) and each chunk's rows go to the ranks in row blocks
+(:func:`chunk_arrays` with ``blocks``).
 """
 
 from __future__ import annotations
@@ -70,7 +75,7 @@ from repro_torch.weights import (OPT_KEYS, from_stages, state_from_stages,
                                  state_to_stages, to_stages)
 
 from .executor import PipelineExecutor, remat_tick_count
-from .pipeline import PipelineGeometry, PipelineStage
+from .pipeline import PipelineGeometry, PipelineStage, SPStage
 from .program import residual_peaks, stage_programs
 from .sharding import layers_per_stage, stage_blocks, stage_devices
 
@@ -151,12 +156,19 @@ def _rows(n: int) -> int:
 
 
 
-def chunk_arrays(batch: ChunkBatch, k: int, tokens: int):
+def chunk_arrays(batch: ChunkBatch, k: int, tokens: int,
+                 blocks: Optional[int] = None):
     """What the step feeds the model for chunk ``k`` of ``tokens`` used
-    tokens: its rows cut to a multiple of ROW_MULTIPLE (padded past the
-    buffer's width with seg = -1, target = -1) as int64 tokens and
-    targets, int32 seg and pos. Padding rows read token 0 at position 0,
-    as the reference's step feeds them."""
+    tokens: its rows cut to a multiple of ``ROW_MULTIPLE * blocks`` (padded
+    past the buffer's width with seg = -1, target = -1) as int64 tokens
+    and targets, int32 seg and pos. Padding rows read token 0 at position
+    0, as the reference's step feeds them. ``blocks`` (a sequence-parallel
+    group's ranks): each array as a list of its ``blocks`` contiguous row
+    blocks, rank order (``data/batching.rank_blocks``)."""
+    if blocks is not None:
+        from repro_torch.data.batching import rank_blocks
+        return rank_blocks(chunk_arrays(batch, k, -(-max(tokens, 1) // (
+            ROW_MULTIPLE * blocks)) * ROW_MULTIPLE * blocks), blocks)
     n = _rows(tokens)
 
     def row(a, fill):
@@ -448,17 +460,19 @@ class PipelineTrainer:
             cost_model
         self.model = DecoderLM(cfg)
         self.adamw = AdamWConfig()
-        self.devices = stage_devices(g.d_p, cards)
+        self.devices = stage_devices(g.d_p, cards, g.d_s)
         self.blocks = stage_blocks(g.d_p, cfg.spec.n_layers, g.v_stages)
         self.params = [
             tree_map(lambda a, d=dev: a.detach().to(
                 d, compute_dtype, copy=True).requires_grad_(True), sp)
             for dev, sp in zip(self.devices,
                                to_stages(cfg, params, g.d_p, g.v_stages))]
-        self.stages = [PipelineStage(self.model, p, g, self.blocks[p],
-                                     self.params[p], self.devices[p],
-                                     compute_dtype)
+        stage_cls = SPStage if g.d_s > 1 else PipelineStage
+        self.stages = [stage_cls(self.model, p, g, self.blocks[p],
+                                 self.params[p], self.devices[p],
+                                 compute_dtype)
                        for p in range(g.d_p)]
+        self._sp_models: Dict = {}
         self._tie(0)
         self.opt = None
 
@@ -496,7 +510,7 @@ class PipelineTrainer:
         model's structure (``weights.from_stages``; tensors on their
         stages' devices), the plan's pipelines one after another, each
         through the executor."""
-        g = self.geom
+        g = self.geom.for_plan(plan) if self.geom.d_s > 1 else self.geom
         batch = self._materialize(plan, corpus)
         n_valid = int(((batch.seg >= 0) & (batch.targets >= 0)).sum())
         table = _table(plan, g.d_p, remat_policy)
@@ -506,19 +520,24 @@ class PipelineTrainer:
         scales = [torch.tensor(1.0 / max(n_valid, 1), dtype=torch.float32,
                                device=d) for d in self.devices]
         stats = {"handoffs": 0, "handoff_bytes": 0, "copied_bytes": 0}
+        from . import sp
+        sp_before = dict(sp.STATS)
         order_peaks = [0.0] * g.d_p
         total = torch.zeros((), dtype=torch.float32,
                             device=self.devices[-1])
         base = 0
+        cm = self.cm
+        if cm is not None and g.d_s > 1:
+            cm = cm.with_sp(g.policy, g.d_s_eff)    # a rank's model
         for pipe in plan.pipelines:
             n = pipe.n_chunks
             programs = stage_programs(
-                pipe, g.d_p, v=g.v_stages, split=g.split_bwd, cm=self.cm,
+                pipe, g.d_p, v=g.v_stages, split=g.split_bwd, cm=cm,
                 depths=[row[base:base + n] for row in table])
-            if self.cm is not None and pipe.est_peak_mem:
+            if cm is not None and pipe.est_peak_mem:
                 order_peaks = [max(a, b) for a, b in zip(
                     order_peaks, residual_peaks(
-                        self.cm, pipe, programs,
+                        cm, pipe, programs,
                         [row[base:base + n] for row in table], g.v_stages))]
             for p, prog in enumerate(programs):     # forwards the order
                 for a in prog:                      # remats past budget
@@ -526,8 +545,14 @@ class PipelineTrainer:
                         depths[p][a.vstage][base + a.chunk] = \
                             len(self.blocks[p][a.vstage])
             for p, st in enumerate(self.stages):
-                st.begin(pipe.chunks, self._inputs(batch, pipe, base,
-                                                   st.device),
+                if g.d_s > 1:
+                    st.configure(self.sp_model(g.policy, g.d_s_eff),
+                                 g.policy, g.d_s_eff)
+                    inputs = self._inputs(batch, pipe, base, st.device,
+                                          g.d_s_eff)
+                else:
+                    inputs = self._inputs(batch, pipe, base, st.device)
+                st.begin(pipe.chunks, inputs,
                          [[row[base + k] for k in range(n)]
                           for row in depths[p]], scales[p], accs[p])
             ex = PipelineExecutor(self.stages, programs, v=g.v_stages)
@@ -539,7 +564,9 @@ class PipelineTrainer:
             total = total + loss        # the last stage's
             base += n
         self._sum_tied(accs)
-        grads = from_stages(self.cfg, [tree_unflatten(sp, a) for sp, a in
+        stats.update({f"collective_{k}" if k == "bytes" else k:
+                      sp.STATS[k] - sp_before[k] for k in sp.STATS})
+        grads = from_stages(self.cfg, [tree_unflatten(t, a) for t, a in
                                        zip(self.params, accs)])
         self._accs = accs
         return StepResult(
@@ -549,7 +576,18 @@ class PipelineTrainer:
             grads=grads,
             pipeline=dict(stats, schedule=g.schedule, v=g.v_stages,
                           order_peak_mem=order_peaks,
-                          split_bwd=g.split_bwd))
+                          split_bwd=g.split_bwd,
+                          **({"sp_policy": g.policy, "d_s_eff": g.d_s_eff,
+                              "d_s": g.d_s} if g.d_s > 1 else {})))
+
+    def sp_model(self, policy: str, d_s_eff: int) -> DecoderLM:
+        """The decoder of one SP group at ``(policy, d_s_eff)``
+        (``runtime/sp.make_model``, made once)."""
+        from . import sp
+        key = (policy, d_s_eff)
+        if key not in self._sp_models:
+            self._sp_models[key] = sp.make_model(self.cfg, policy, d_s_eff)
+        return self._sp_models[key]
 
     def _materialize(self, plan: ExecutionPlan,
                      corpus: Dict[int, np.ndarray]) -> ChunkBatch:
@@ -561,16 +599,24 @@ class PipelineTrainer:
                            self.geom.v_stages, policy)
 
     def _inputs(self, batch: ChunkBatch, pipe: PipelinePlan, base: int,
-                device):
+                device, blocks: Optional[int] = None):
         """``inputs(k)``: chunk ``k``'s rows on ``device`` and its rotation
-        tables, made once per stage (its virtual stages share them)."""
+        tables, made once per stage (its virtual stages share them);
+        ``blocks``: each as a list over the SP group's row blocks."""
         cache: Dict[int, tuple] = {}
 
         def inputs(k: int):
             if k not in cache:
-                rows = [torch.from_numpy(a).to(device) for a in chunk_arrays(
-                    batch, base + k, pipe.chunks[k].tokens)]
-                cache[k] = (*rows, self.model.rope_tables(rows[3]))
+                arrays = chunk_arrays(batch, base + k,
+                                      pipe.chunks[k].tokens, blocks)
+                if blocks is None:
+                    rows = [torch.from_numpy(a).to(device) for a in arrays]
+                    cache[k] = (*rows, self.model.rope_tables(rows[3]))
+                else:
+                    rows = [[torch.from_numpy(a).to(device) for a in arr]
+                            for arr in arrays]
+                    cache[k] = (*rows, [self.model.rope_tables(p)
+                                        for p in rows[3]])
             return cache[k]
         return inputs
 

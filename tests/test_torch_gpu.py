@@ -1263,3 +1263,235 @@ def test_encdec_attention_and_step_on_card():
     for x, y in zip(tree_leaves(b.grads), tree_leaves(a.grads)):
         y = y.to(x.device)
         assert float((x - y).abs().max()) <= 2e-5 * float(y.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the sequence-parallel axis (runtime/sp.py): the kernels at the shapes a
+# rank gives them, and a reduced SP step on the card against the CPU
+
+def _sp_blocks(t, d):
+    return list(t.split(t.shape[0] // d))
+
+
+def _sp_policy_run(policy, d, dev, dtype, q, k, v, seg, pos, ctx, C):
+    """One SP attention policy over ``d`` ranks on ``dev`` (outputs and
+    the gradients in q, k, v and the carry of ``sum(out * w)``)."""
+    from repro_torch.runtime import sp
+    leaves = [t.detach().to(dev, dtype).clone().requires_grad_(True)
+              for t in (q, k, v)]
+    cks = None if ctx is None else [
+        [c.detach().to(dev, dtype).clone().requires_grad_(True) for c in f]
+        for f in ctx]
+    outs, _, _ = policy(
+        _sp_blocks(leaves[0], d), _sp_blocks(leaves[1], d),
+        _sp_blocks(leaves[2], d), segs=_sp_blocks(seg.to(dev), d),
+        poss=_sp_blocks(pos.to(dev), d),
+        ctx_k=None if cks is None else cks[0],
+        ctx_v=None if cks is None else cks[1], ctx_len=C, causal=True,
+        window=0, scale=0.125)
+    out = torch.cat(outs)
+    w = torch.linspace(-1, 1, out.numel(), device=dev).reshape(out.shape)
+    (out.float() * w).sum().backward()
+    grads = [t.grad for t in leaves] + (
+        [] if cks is None else [c.grad for f in cks for c in f])
+    return out, grads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["allgather_kv", "ulysses"])
+def test_sp_attention_on_card_matches_plain(which, dtype):
+    """Kernel A and A′ at a rank's shapes: allgather_kv, 2 ranks of 320
+    query rows at their offset positions against 600 context rows and the
+    640 gathered ones (Hkv 1), the last rank's block all pad rows but 40;
+    ulysses, 4 ranks (8 query and 4 KV heads: 2 and 1 a rank) over all
+    rows, against a head-sharded context. Outputs and gradients against
+    the same policy on the CPU's plain versions; the kernels launch, no
+    plain call on the card."""
+    dev = _cuda()
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_bwd_dq_cuda)
+    from repro_torch.runtime import sp
+    rng = np.random.default_rng(7)
+    d, T, C, Dh = (2, 640, 600, 128) if which == "allgather_kv" \
+        else (4, 512, 300, 64)
+    Hq, Hkv = (8, 1) if which == "allgather_kv" else (8, 4)
+    seg, pos = _packed(rng, T, 3, ctx=C)
+    if which == "allgather_kv":
+        seg[360:] = -1                  # rank 1: 40 live rows, then pads
+        pos[360:] = 0
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((T, Hq, Dh), generator=g)
+    k = torch.randn((T, Hkv, Dh), generator=g)
+    v = torch.randn((T, Hkv, Dh), generator=g)
+    ck = torch.randn((C + 64, Hkv, Dh), generator=g)
+    cv = torch.randn((C + 64, Hkv, Dh), generator=g)
+    if which == "ulysses":
+        ctx = [list(ck.chunk(d, dim=1)), list(cv.chunk(d, dim=1))]
+        policy = sp.make_ulysses_policy(d)
+    else:
+        ctx = [[ck], [cv]]
+        policy = sp.make_allgather_kv_policy()
+    seg_t, pos_t = torch.from_numpy(seg), torch.from_numpy(pos)
+    want = _sp_policy_run(policy, d, torch.device("cpu"), torch.float32, q,
+                          k, v, seg_t, pos_t, ctx, C)
+    before = (flash_attention_cuda.launches, flash_bwd_dq_cuda.launches,
+              ops.flash_attention.plain_calls)
+    got = _sp_policy_run(policy, d, dev, dtype, q, k, v, seg_t, pos_t, ctx,
+                         C)
+    torch.cuda.synchronize()
+    after = (flash_attention_cuda.launches, flash_bwd_dq_cuda.launches,
+             ops.flash_attention.plain_calls)
+    assert after[0] - before[0] == d and after[1] - before[1] == d
+    assert after[2] == before[2]
+    live = seg_t >= 0
+    _close(got[0][live.to(dev)], want[0][live], dtype)
+    for a, b in zip(got[1], want[1]):
+        _close(a, b, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sharded_ce_on_card_matches_plain(dtype):
+    """B, C1 and C2 on unequal vocabulary blocks (V 32,001 over 2 ranks:
+    16,001 and 16,000 rows, D 512), most targets outside each block: B's
+    target logit is exactly 0 where the target is outside the block, C1
+    and C2 add no one-hot there; the merged loss and its gradients against
+    the plain versions on the CPU."""
+    dev = _cuda()
+    from repro_torch.kernels.cross_entropy import (ce_bwd_dh_cuda,
+                                                   ce_fwd_cuda)
+    from repro_torch.runtime import sp
+    T, D, V = 1024, 512, 32001
+    g = torch.Generator().manual_seed(5)
+    h = torch.randn((T, D), generator=g) * 0.5
+    w = torch.randn((V, D), generator=g) * 0.05
+    tgt = torch.randint(0, V, (T,), generator=g)
+    valid = torch.rand((T,), generator=g) > 0.2
+    # a block's targets outside it: B's target logit is 0, C1's one-hot 0
+    hp, wp = h.to(dev, dtype), w[16001:].to(dev, dtype).contiguous()
+    far = (tgt - 16001).to(torch.int32)
+    out = far.clone()
+    out[(far >= 0) & (far < 16000)] = -1
+    out = out.to(dev)
+    _, tl = ce_fwd_cuda(hp, wp, out)
+    assert bool((tl[(out < 0) | (out >= 16000)] == 0).all())
+    lse, _ = ref.cross_entropy_fwd_plain(hp.float().cpu(), wp.float().cpu(),
+                                         out.cpu())
+    gr = torch.ones(T, device=dev)
+    dh = ce_bwd_dh_cuda(hp, wp, out, lse.to(dev), gr)
+    _close(dh, ref.cross_entropy_bwd_dh_plain(
+        hp.float().cpu(), wp.float().cpu(), out.cpu(), lse,
+        gr.cpu()), dtype)
+    res = {}
+    for dv, dt in (("cpu", torch.float32), (dev, dtype)):
+        hh = h.to(dv, dt).clone().requires_grad_(True)
+        ww = w.to(dv, dt).clone().requires_grad_(True)
+        loss, n = sp.sharded_ce(_sp_blocks(hh, 2), ww,
+                                _sp_blocks(tgt.to(dv), 2),
+                                _sp_blocks(valid.to(dv), 2), 2)
+        loss.backward()
+        res[str(dv)] = (loss.detach(), hh.grad, ww.grad)
+    a, b = res["cpu"], res[str(dev)]
+    _close(b[0].reshape(1), a[0].reshape(1), dtype)
+    _close(b[1], a[1], dtype)
+    _close(b[2], a[2], dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sp_ssm_scan_on_card_matches_plain(dtype):
+    """Gated D and D′ over 2 ranks from a non-zero ``h0`` (a summary scan
+    from zero on rank 0, the fold, each rank's scan from its folded
+    state), ``dh0`` flowing back: outputs, the final state and every
+    gradient against the same fold on the CPU's plain versions."""
+    dev = _cuda()
+    from repro_torch.configs import get_arch
+    from repro_torch.models import DecoderLM, layer_params
+    from repro_torch.models.ssm import dt_rank_of
+    from repro_torch.runtime import sp
+    cfg = get_arch("hymba-1.5b").reduced(n_layers=1, d_model=256,
+                                         n_heads=4, head_dim=64)
+    p0 = layer_params(DecoderLM(cfg).init(torch.Generator().manual_seed(1),
+                                          device="cpu"), 0)["mamba"]
+    s = cfg.spec
+    T, di, ds, R = 640, s.inner, s.ssm_state, dt_rank_of(cfg)
+    rng = np.random.default_rng(4)
+    seg, pos = _packed(rng, T, 3, ctx=50)
+    seg[600:] = -1
+    pos[600:] = 0
+    g = torch.Generator().manual_seed(2)
+    base = [torch.randn(sh, generator=g) * sc for sh, sc in (
+        ((T, di), 1.0), ((T, R), 0.3), ((T, ds), 1.0), ((T, ds), 1.0),
+        ((T, di), 1.0), ((di, ds), 0.5))]
+    live = torch.from_numpy(seg) >= 0
+    reset = (torch.from_numpy(pos) == 0) & live
+    res = {}
+    for dv, dt in (("cpu", torch.float32), (dev, dtype)):
+        p = {k: v.to(dv, dt if v.dim() > 1 else torch.float32)
+             for k, v in p0.items()}
+        ins = [t.to(dv, dt if i < 5 else torch.float32).clone()
+               .requires_grad_(True) for i, t in enumerate(base)]
+        shards = [sp.ScanShard(*[t[r * 320:(r + 1) * 320] for t in ins[:5]],
+                               live[r * 320:(r + 1) * 320].to(dv),
+                               reset[r * 320:(r + 1) * 320].to(dv))
+                  for r in range(2)]
+        outs, h = sp.make_sp_ssm_scan()(p, shards, ins[5])
+        out = torch.cat(outs)
+        (out.float().sum() + h.sum()).backward()
+        res[str(dv)] = [out, h] + [t.grad for t in ins]
+    for a, b in zip(res[str(dev)], res["cpu"]):
+        _close(a, b, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,policy", [("gemma3-1b", "allgather_kv"),
+                                         ("llama3.2-3b", "ulysses"),
+                                         ("hymba-1.5b", "allgather_kv")])
+def test_sp_train_step_on_card_matches_cpu(arch, policy):
+    """A reduced float32 step at ``--mesh 1x2`` (a sequence split over 3
+    chunks, the planner's remat table) on the card, through the kernels,
+    against the same step on the CPU: loss ``rtol 1e-5``, gradients within
+    ``2e-5`` scaled by each leaf's largest value; no plain call on the
+    card."""
+    dev = _cuda()
+    from repro_torch.configs import get_arch
+    from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
+                                  plan_batch)
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.runtime.pipeline import PipelineGeometry
+    from repro_torch.runtime.train_step import PipelineTrainer
+    cfg = get_arch(arch).reduced(n_layers=4, d_model=128, n_heads=4,
+                                 head_dim=64, vocab=512)
+    rng = np.random.default_rng(2)
+    lens = [400] + [int(x) for x in rng.integers(30, 150, 5)]
+    corpus = {i: rng.integers(0, 512, n).astype(np.int32)
+              for i, n in enumerate(lens)}
+    cm = CostModel(cfg.spec, ClusterSpec(d_s=2))
+    plan = plan_batch(cm, lens, PlannerConfig(
+        fixed_k=3, bucket_rounding=16, remat_mode="stage_aware",
+        sp_policy=policy, sp_degree=2,
+        capacity_bytes=cm.with_sp(policy, 2).m_model_states(1) + 2e6))
+    assert max(s.n_chunks for s in plan.sequences) >= 3
+    params = DecoderLM(cfg).init(torch.Generator().manual_seed(0),
+                                 device="cpu")
+    geom = PipelineGeometry(d_p=1, d_s=2, policy=policy, d_s_eff=2)
+    res = {}
+    for d in ("cpu", dev):
+        plain = (ops.flash_attention.plain_calls,
+                 ops.fused_cross_entropy.plain_calls,
+                 ops.mamba_scan.plain_calls)
+        tr = PipelineTrainer(cfg, params, geometry=geom, cards=[d],
+                             compute_dtype=torch.float32, cost_model=cm)
+        res[str(d)] = tr.loss_and_grads(plan, corpus)
+        if d is dev:
+            torch.cuda.synchronize()
+            assert plain == (ops.flash_attention.plain_calls,
+                             ops.fused_cross_entropy.plain_calls,
+                             ops.mamba_scan.plain_calls)
+    a, b = res["cpu"], res[str(dev)]
+    assert a.n_valid == b.n_valid
+    assert abs(a.loss - b.loss) <= 1e-5 * abs(a.loss)
+    for x, y in zip(tree_leaves(b.grads), tree_leaves(a.grads)):
+        _close(x, y, torch.float32)

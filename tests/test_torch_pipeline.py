@@ -29,8 +29,8 @@ there too).
   limits above, and the split (whose weight-gradient store takes each
   stacked expert leaf whole) equals the fused backward bit for bit;
 * three planted faults fall outside those limits;
-* the CLI runs ``--mesh 2x1`` and pins the schedule's ``v``; ``--mesh
-  2x2`` raises.
+* the CLI runs ``--mesh 2x1`` and pins the schedule's ``v``; what the
+  sequence-parallel axis still refuses raises.
 
 The per-arch gradient cases (against the whole sequences, the split's and
 the remat table's bits), the MoE cases and the planted faults run from
@@ -554,11 +554,20 @@ def test_cli_runs_two_stages_and_pins_v():
 
 
 def test_cli_refuses_a_sequence_parallel_axis():
+    """What the SP axis still refuses: the encoder-decoder at ``S > 1``
+    (its frame-sharded memory, item 4) and a stage's SP ranks across
+    cards (items 3 and 2); the geometry takes ``d_s > 1`` with the
+    reference's checks."""
     from repro_torch.launch.train import main
     with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        main(["--device", "cpu", "--reduced", "--mesh", "2x2"])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        PipelineGeometry(d_p=2, d_s=2)
+        main(["--device", "cpu", "--reduced", "--arch", "seamless-m4t-v2",
+              "--mesh", "2x2"])
+    with pytest.raises(NotImplementedError, match="items 3 and 2"):
+        main(["--device", "cpu", "--reduced", "--mesh", "1x2", "--cards",
+              "2", "--steps", "1", "--batch", "2", "--context", "128"])
+    assert PipelineGeometry(d_p=2, d_s=2, policy="allgather_kv").d_s_eff == 2
+    with pytest.raises(ValueError, match="needs d_s > 1"):
+        PipelineGeometry(d_p=2, policy="allgather_kv")
 
 
 @pytest.mark.parametrize("d_p", [1, 2])
