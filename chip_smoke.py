@@ -251,7 +251,9 @@ exit and no result line):
            every loss finite, every step's peak at or under the plan's
            estimate, launches as planned, no plain call;
   train_verify_qwen3, train_verify_stablelm, train_verify_vl  float32 at
-           the same depths on the verify sequences (one of 3,000 tokens
+           5, 3 and 3 layers (VERIFY_LAYERS: cut from the train phases' 15,
+           4 and 5 to keep the script in its time) on
+           the verify sequences (one of 3,000 tokens
            over 3 chunks, a packed chunk, a non-zero remat table): launches
            as planned; the step with the table zeroed bitwise equal; one
            unchunked forward and backward per sequence: the loss within
@@ -313,7 +315,9 @@ exit and no result line):
            float64 attention and cross-entropy, no kernel); at d_p 4 a
            causal encoder and the memory's gradient dropped at the last
            decoder stage fall outside;
-  train_restart  gemma3-1b at full width and depth, bf16, 1x1, the
+  train_restart  gemma3-1b at full width on 13 of 26 layers
+           (RESTART_LAYERS: cut to keep the script in its time), bf16,
+           1x1, the
            train phase's batches: steps 0-3 with a checkpoint after steps
            1 and 3 (``ckpt/checkpoint.py`` under ``build/``, which needs
            twice the state free; step 1's is written while steps 2-3
@@ -357,21 +361,33 @@ exit and no result line):
            offset 16,001) on train_sp_hymba's largest chunk's targets, most
            of them outside the block; gated D and D′ on rank 1's half of
            that chunk (a non-zero h0, dh0 checked);
-  train_sp, train_sp_ulysses, train_sp_hymba  the sequence-parallel axis
-           through ``launch/train.train`` (``--mesh PxS --sp-policy
-           --sp-degree``), bf16 with a float32 AdamW master, 2 steps on the
-           train phase's batches, every stage and rank on this card, each
-           rank planned with the card's memory over the stages and ranks:
-           gemma3-1b at full depth 2x2 (allgather_kv, the only policy at 2
-           with one KV head), qwen3-4b at TRAIN_LAYERS' 15 at 1x4 (ulysses:
-           8 query and 2 KV heads a rank), hymba-1.5b at full depth 1x2
-           (allgather_kv, the SSM prefix scan and conv halo). Gates: finite
-           losses, each stage's launches as the plan predicts
-           (``_expected_sp_launches``), no plain call, the card's peak at
-           or under the sum of its ranks' estimates. Per step: tokens/s,
-           the plan's SP point, the rows a rank gives A (queries, keys,
-           heads) and B (tokens, vocabulary rows), the collectives' count
-           and bytes;
+  train_sp, train_sp_ulysses, train_sp_hymba, train_sp_per_step,
+  train_pods  the sequence-parallel axis through ``launch/train.train``
+           (``--mesh PxS --sp-policy --sp-degree``), bf16 with a float32
+           AdamW master, 2 steps on the train phase's batches, every stage
+           and rank on this card, each rank owning its ZeRO-3 shards of
+           its stage's parameters, gradient sums and AdamW state (gathered
+           per layer and chunk: ``per_tick``), each rank planned with the
+           card's memory over the pods, stages and ranks: gemma3-1b at
+           full depth 2x2 (allgather_kv, the only policy at 2 with one KV
+           head), qwen3-4b at TRAIN_LAYERS' 15 at 1x4 (ulysses: 8 query and
+           2 KV heads a rank), hymba-1.5b at full depth 1x2 (allgather_kv,
+           the SSM prefix scan and conv halo), gemma3-1b 2x2 gathering once
+           a step (``per_step``), gemma3-1b at full depth on 2 pods of a
+           1x2 pipeline (each planned with half the card), 2 steps with the
+           plain all-reduce over the pods, then 2 through the int8 one.
+           Gates: finite losses, each stage's launches as the plan predicts
+           (``_expected_sp_launches``, summed over the pods), no plain
+           call, the card's peak at or under the sum of its ranks'
+           estimates, each rank's owned state at or under the planner's
+           charge (``m_model_states``) plus its leaves kept whole on every
+           rank and its share of what the planner's parameter count omits,
+           the pods' parameters equal. Per step: tokens/s, the plan's SP
+           point, the rows a rank gives A (queries, keys, heads) and B
+           (tokens, vocabulary rows), the collectives' count and bytes,
+           each rank's owned GB beside its charge, the gathers' and
+           reduce-scatters' GB and the most gathered GB alive at once
+           beside the largest layer's and stage's;
   train_sp_verify  float32, full width, 2 layers, the verify sequences
            (one over 3 chunks, a remat table from a tight budget): the SP
            step against the whole-batch 1x1 step on the same plan's chunks
@@ -384,7 +400,18 @@ exit and no result line):
            summed, the conv halo from the rank's own rows, the fold
            skipping a rank's a_prod: ``_sp_fault``); hymba's mixer on a
            chunk whose pad rows fill its last rank against the unsharded
-           mixer;
+           mixer; ZeRO-3 (``_zero3_verify``): gemma3-1b, hymba-1.5b,
+           olmoe-1b-7b (ulysses) and deepseek-v2-lite at 1x2, 2x2
+           (zero-bubble-h1) and 1x4, ``per_tick`` and ``per_step``, each
+           within 1e-5 of the 1x1 step, each arch's 1x2 repeat bit for bit,
+           and hymba at 1x3 (most leaves whole on every rank) with its
+           gradient norm against the 1x1 step's; 2 pods plain within 1e-5,
+           2 pods through the int8 all-reduce within the quantisation bound
+           ``n_pods * scale / 2``, also summed over 8 rounds with the error
+           fed back; planted faults outside (a gather in the wrong rank
+           order, a reduce-scatter keeping each rank's own product, whole
+           leaves counted d_s times in the norm, the error feedback
+           dropped: ``_zero3_fault``);
   kernels  every kernel of the port with its launch counts on every path
            above (the verify phases' chunked step: the float32 forward, B,
            C1 and C2 run only there).
@@ -1337,6 +1364,10 @@ def _train_chunks(seed, arch="gemma3-1b"):
 # batch's activations in 1.6 and 1.8 GB, so their budget is 0.7 GB (table
 # [2, 0, 4] for both)
 VERIFY_BUDGET = {"olmoe-1b-7b": 0.7e9, "deepseek-v2-lite": 0.7e9}
+# the float32 verify phases' depth where it is cut below TRAIN_LAYERS' (so
+# that the script fits its time with the ZeRO-3 phases): each plan keeps a
+# 3-chunk split, a packed chunk and a non-zero remat table
+VERIFY_LAYERS = {"qwen3-4b": 5, "stablelm-12b": 3, "qwen2-vl-7b": 3}
 
 
 def _verify_plan(arch, seed):
@@ -1349,6 +1380,8 @@ def _verify_plan(arch, seed):
     from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
                                   plan_batch)
     cfg = _arch(arch)
+    if arch in VERIFY_LAYERS:
+        cfg = cfg.with_layers(VERIFY_LAYERS[arch])
     rng = np.random.default_rng(seed)
     lens = [3000, 900, 500, 300]
     corpus = {i: rng.integers(0, cfg.spec.vocab, n).astype(np.int32)
@@ -2448,14 +2481,14 @@ def _check_stage_launches(tally, expected, what):
                              f"the plan's (got, expected): {bad}")
 
 
-def trainer_cm(d_p, cfg, d_s=1):
+def trainer_cm(d_p, cfg, d_s=1, n_pods=1):
     """The cost model ``launch/train.train`` plans ``d_p`` stages of
-    ``d_s`` sequence-parallel ranks on this card with (the card's memory
-    over the stages and their ranks)."""
+    ``d_s`` sequence-parallel ranks (of each of ``n_pods`` pods) on this
+    card with (the card's memory over the pods, stages and ranks)."""
     from repro_torch.core import ClusterSpec, CostModel
     cl = ClusterSpec()
-    return CostModel(cfg.spec, cl.with_(d_p=d_p, d_s=d_s,
-                                        hbm_bytes=cl.hbm_bytes / (d_p * d_s)))
+    return CostModel(cfg.spec, cl.with_(
+        d_p=d_p, d_s=d_s, hbm_bytes=cl.hbm_bytes / (d_p * d_s * n_pods)))
 
 
 def phase_train_pipeline(dev, seed):
@@ -3503,8 +3536,8 @@ DENSE_FAULTS = {QWEN3: "k-norm dropped",
 
 
 def phase_train_verify_dense(dev, seed, arch):
-    """``arch`` in float32 at full width and the train phases' depth, on
-    the verify sequences (one of 3,000 tokens over 3 chunks; a packed
+    """``arch`` in float32 at full width and :data:`VERIFY_LAYERS`' depth
+    (else the train phases'), on the verify sequences (one of 3,000 tokens over 3 chunks; a packed
     chunk; a non-zero remat table under the 2 GB budget):
 
     * the chunked step launches the kernels as its plan predicts;
@@ -4213,6 +4246,10 @@ def phase_train_verify_encdec(dev, seed):
 # online re-planning with the plan journal (gemma3-1b at full width, bf16)
 
 RESTART_STEPS = 4       # 0-3 saving after 1 and 3; restore 1, run 2-3
+# restart: gemma3-1b cut to 13 of its 26 layers (every width kept), so
+# that the script fits its time with the ZeRO-3 phases (at 1x1 the plan's
+# estimate charges the tied head's states twice: no shallow-cut peak)
+RESTART_LAYERS = 13
 # elastic: gemma3-1b at full width and depth, 2 steps a phase; its 2x1
 # phases pin a one-virtual-stage backend (the planner picks interleaved v
 # = 13 there, and a checkpoint moves only between runs of one v: the
@@ -4359,7 +4396,7 @@ def phase_train_restart(dev, seed):
     from repro_torch.launch.train import train
     from repro_torch.optim import init_opt_state
     from repro_torch.weights import OPT_KEYS
-    cfg = _arch("gemma3-1b")
+    cfg = _arch("gemma3-1b").with_layers(RESTART_LAYERS)
     launches = _PathLaunches(dev)
     lines, found = [], {}
 
@@ -4610,10 +4647,18 @@ def phase_train_replan(dev, seed):
 # a rank's shapes, train_sp, train_sp_ulysses, train_sp_hymba (bf16, the
 # card's memory over the stages and their ranks) and train_sp_verify
 
-# (arch, d_p, d_s, SP policy pin, SP degree pin); the depth: TRAIN_LAYERS
+# (arch, d_p, d_s, SP policy pin, SP degree pin); the depth: TRAIN_LAYERS;
+# every stage's ranks own ZeRO-3 shards (per_tick, the CLI's, unless
+# SP_LOOP says otherwise)
 SP_RUNS = {"train_sp": ("gemma3-1b", 2, 2, "auto", 2),
            "train_sp_ulysses": ("qwen3-4b", 1, 4, "ulysses", 4),
-           "train_sp_hymba": ("hymba-1.5b", 1, 2, "auto", 2)}
+           "train_sp_hymba": ("hymba-1.5b", 1, 2, "auto", 2),
+           "train_sp_per_step": ("gemma3-1b", 2, 2, "auto", 2),
+           "train_pods": ("gemma3-1b", 1, 2, "auto", 2)}
+# a run's trainer settings beyond its mesh (launch/train.TrainConfig): the
+# ZeRO-3 cadence, the pods (each planned with its share of the card)
+SP_LOOP = {"train_sp_per_step": {"zero3_mode": "per_step"},
+           "train_pods": {"n_pods": 2}}
 SP_STEPS = 2
 
 
@@ -4706,11 +4751,13 @@ def _expected_sp_launches(cfg, plan, d_p, d_s, dtype, n_sm, cm,
     return out
 
 
-def _sp_loop(seed, tag):
+def _sp_loop(seed, tag, **extra):
     arch, d_p, d_s, pol, deg = SP_RUNS[tag]
     loop = _train_loop(seed)
     loop.steps, loop.d_p, loop.d_s = SP_STEPS, d_p, d_s
     loop.sp_policy, loop.sp_degree = pol, deg
+    for k, v in dict(SP_LOOP.get(tag, {}), **extra).items():
+        setattr(loop, k, v)
     return _arch(arch), loop
 
 
@@ -4724,23 +4771,34 @@ def _sp_step0(seed, tag):
     return cfg, plan, _plan_chunks(corpus, plan)
 
 
-def phase_train_sp(dev, seed, tag):
+def phase_train_sp(dev, seed, tag, **extra):
     """``tag``'s run of :data:`SP_RUNS` through ``launch/train.train``
-    (``--mesh PxS``, ``--sp-policy``, ``--sp-degree``): bf16, every stage and
-    rank on this card, each rank planned with the card's memory over the
-    stages and ranks. Gates: finite losses; each stage's launches as the
-    plan predicts (:func:`_expected_sp_launches`), no plain call; the
-    card's peak at or under the sum of its ranks' estimates. Per step:
-    tokens/s, the plan's SP point, the rows a rank gives kernel A and B,
-    the collectives' bytes."""
+    (``--mesh PxS``, ``--sp-policy``, ``--sp-degree``; :data:`SP_LOOP`'s
+    and ``extra``'s trainer settings): bf16, every stage and rank (and
+    pod) on this card, each rank planned with the card's memory over the
+    pods, stages and ranks, each rank owning its ZeRO-3 shards. Gates:
+    finite losses; each stage's launches as the plan predicts
+    (:func:`_expected_sp_launches`, summed over the pods' shares), no
+    plain call; the card's peak at or under the sum of its ranks'
+    estimates; each rank's owned state (its live parameters, float32
+    gradient sums, AdamW master, m and v) at or under the planner's
+    charge (``m_model_states``) plus its leaves kept whole on every rank
+    and its share of the parameters the planner's count leaves out; the
+    pods' parameters equal after the last step. Per step: tokens/s, the
+    plan's SP point, the rows a rank gives kernel A and B, the
+    collectives' bytes, the ZeRO-3 gathers and reduce-scatters and the
+    most gathered bytes alive at once beside the largest layer's and the
+    largest stage's gathered bytes."""
     import math
 
     import torch
 
     from repro_torch.launch.train import train
-    cfg, loop = _sp_loop(seed, tag)
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.runtime.train_step import pod_plans
+    cfg, loop = _sp_loop(seed, tag, **extra)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    cm = trainer_cm(loop.d_p, cfg, loop.d_s)
+    cm = trainer_cm(loop.d_p, cfg, loop.d_s, loop.n_pods)
     ctr = _train_counters()
     tally, expected, lines, totals = {}, [], [], {}
 
@@ -4753,8 +4811,11 @@ def phase_train_sp(dev, seed, tag):
         if expected:
             _check_stage_launches(tally, expected[-1], f"{tag} step "
                                                        f"{step - 1}")
-        expected.append(_expected_sp_launches(
-            cfg, plan, loop.d_p, loop.d_s, torch.bfloat16, n_sm, cm))
+        per_pod = [_expected_sp_launches(cfg, sub, loop.d_p, loop.d_s,
+                                         torch.bfloat16, n_sm, cm)
+                   for sub in pod_plans(plan, loop.n_pods) if sub.pipelines]
+        expected.append([{k: sum(e[p][k] for e in per_pod) for k in
+                          per_pod[0][p]} for p in range(loop.d_p)])
         fold()
         tally.clear()
         _zero_counts(ctr)
@@ -4765,6 +4826,12 @@ def phase_train_sp(dev, seed, tag):
     fold()
     for ln in lines:
         print(f"[{tag}] {ln}", flush=True)
+    el = torch.tensor([], dtype=trainer.dtype).element_size()
+    gathered = [[sum(sum(t.numel() for t in leaf.shards) * el
+                     for leaf in tree_leaves(lp)
+                     if leaf.spec.gathered and not leaf.spec.whole)
+                 for lp in st.zero3.leaves.values()]
+                for st in trainer.stages]
     recs = []
     for h in hist:
         rec = {k: h[k] for k in (
@@ -4772,9 +4839,27 @@ def phase_train_sp(dev, seed, tag):
             "remat_layers", "sp_policy", "d_s_eff", "d_s",
             "attn_rows_per_rank", "ce_rows_per_rank", "collectives",
             "collective_bytes", "card_peak_mem_gb", "card_plan_mem_gb",
-            "stage_plan_mem_gb", "solve_s")}
-        rec.update(arch=cfg.name, layers=cfg.spec.n_layers,
-                   mesh=f"{loop.d_p}x{loop.d_s}")
+            "stage_plan_mem_gb", "solve_s", "zero3_mode", "gathers",
+            "regathers")}
+        gb = lambda b: b / 1e9  # noqa: E731
+        rec.update(
+            rank_state_gb=[[gb(b) for b in st]
+                           for st in h["rank_state_bytes"]],
+            rank_charge_gb=[gb(b) for b in h["rank_charge_bytes"]],
+            whole_state_gb=[[gb(b) for b in st]
+                            for st in h["whole_state_bytes"]],
+            uncounted_state_gb=gb(h["uncounted_state_bytes"]),
+            gather_gb=gb(h["gather_bytes"]),
+            scatter_gb=gb(h["scatter_bytes"]),
+            gathered_peak_gb=gb(h["gathered_peak_bytes"]),
+            largest_layer_gathered_gb=gb(max(max(g) for g in gathered)),
+            largest_stage_gathered_gb=gb(max(sum(g) for g in gathered)),
+            arch=cfg.name, layers=cfg.spec.n_layers,
+            mesh=f"{loop.d_p}x{loop.d_s}")
+        for k in ("n_pods", "compress_pod_grads", "pod_chunks",
+                  "pod_n_valid"):
+            if k in h:
+                rec[k] = h[k]
         recs.append(rec)
         if not math.isfinite(h["loss"]):
             raise PhaseError(f"{tag}: non-finite loss: {rec}")
@@ -4783,8 +4868,38 @@ def phase_train_sp(dev, seed, tag):
                 f"{tag}: the card's peak {h['card_peak_mem_gb'][0]} GB is "
                 f"above the sum of its ranks' estimates "
                 f"{h['card_plan_mem_gb'][0]} GB: {rec}")
+        for p, (own, whole) in enumerate(zip(h["rank_state_bytes"],
+                                             h["whole_state_bytes"])):
+            for r, (o, w) in enumerate(zip(own, whole)):
+                limit = h["rank_charge_bytes"][p] + w + \
+                    h["uncounted_state_bytes"]
+                if o > limit:
+                    raise PhaseError(
+                        f"{tag}: stage {p} rank {r} owns {o} bytes, over "
+                        f"the planner's charge, its whole leaves and its "
+                        f"share of the uncounted parameters ({limit}): "
+                        f"{rec}")
+    for pod in trainer.replicas:
+        if not all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(trainer.params), tree_leaves(pod.params))):
+            raise PhaseError(f"{tag}: the pods' parameters differ after "
+                             f"the last step")
     del trainer
     torch.cuda.empty_cache()
+    return recs, totals
+
+
+def phase_train_pods(dev, seed):
+    """``train_pods``: :func:`phase_train_sp` on 2 pods, :data:`SP_STEPS`
+    steps with the plain all-reduce over the pods, then as many through
+    the int8 one with error feedback (``compress_pod_grads``)."""
+    recs, totals = [], {}
+    for compress in (False, True):
+        r, t = phase_train_sp(dev, seed, "train_pods",
+                              compress_pod_grads=compress)
+        recs += r
+        for k, n in t.items():
+            totals[k] = totals.get(k, 0) + n
     return recs, totals
 
 
@@ -4897,6 +5012,8 @@ SP_VERIFY_FAULTS = {"gemma3-1b": ("lse summed",),
                     "hymba-1.5b": ("halo from own rows",
                                    "fold skips a_prod")}
 SP_VERIFY_LAYERS = 2
+# the verify plans' memory budget: a rank's states and this (a remat table)
+SP_VERIFY_MARGIN = 0.08e9
 
 
 @contextlib.contextmanager
@@ -5008,6 +5125,385 @@ def _sp_pad_rank_mixer(dev, seed):
     return rec
 
 
+# ZeRO-3 in train_sp_verify: (arch, policy) over ZERO3_VERIFY_MESHES'
+# (d_p, d_s, schedule), each in both modes, against the 1x1 step on the
+# same chunks (2x2 under zero-bubble-h1: the split backward's W pass
+# reduce-scatters each rank's product); ZERO3_NORM_CASE at d_s = 3, where
+# hymba's widths (1,600, 6,400) divide by no dim of most leaves: they stay
+# whole on every rank, and the step's norm must count each once
+ZERO3_VERIFY = (("gemma3-1b", "allgather_kv"), ("hymba-1.5b", "allgather_kv"),
+                ("olmoe-1b-7b", "ulysses"), ("deepseek-v2-lite",
+                                             "allgather_kv"))
+ZERO3_VERIFY_MESHES = ((1, 2, "gpipe-1f1b"), (2, 2, "zero-bubble-h1"),
+                       (1, 4, "gpipe-1f1b"))
+ZERO3_NORM_CASE = ("hymba-1.5b", 1, 3, "allgather_kv", "gpipe-1f1b")
+ZERO3_FAULTS = ("gather in the wrong rank order", "reduce-scatter keeps own")
+# the pods' cases: gemma3-1b 1x2 per_tick on 2 pods, on eight verify
+# sequences (two pipelines: the pods take one each); the compressed sums'
+# error feedback over POD_ROUNDS rounds of the same gradients
+POD_VERIFY_LENS = [3000, 900, 500, 300, 2500, 1200, 800, 400]
+POD_ROUNDS = 8
+
+
+@contextlib.contextmanager
+def _zero3_fault(fault):
+    """A planted ZeRO-3 or pod fault (undone on exit), as
+    ``tests/test_torch_zero3.zero3_fault``: "gather in the wrong rank
+    order" concatenates a leaf's shards backwards
+    (``sharding.gather_shards``); "reduce-scatter keeps own" gives each
+    rank its block of its own product alone in the split backward's W pass
+    (``pipeline.reduce_scatter_grads``); "norm counts whole leaves d_s
+    times" gives every leaf the norm factor 1
+    (``PipelineTrainer.norm_factors``); "error feedback dropped" quantises
+    each round from a zero error (``compression.q8_psum``)."""
+    import torch
+
+    from repro_torch.optim import compression
+    from repro_torch.runtime import pipeline, sharding
+    from repro_torch.runtime.train_step import PipelineTrainer
+    if fault == "gather in the wrong rank order":
+        obj, name, real = sharding, "gather_shards", sharding.gather_shards
+
+        def new(shards, dim):
+            return real(list(shards)[::-1], dim)
+    elif fault == "reduce-scatter keeps own":
+        obj, name = pipeline, "reduce_scatter_grads"
+
+        def new(contribs, leaf):
+            if leaf.spec.whole:
+                return sharding.reduce_scatter_grads(contribs, leaf)
+            for r, acc in enumerate(leaf.accs):
+                c = contribs[min(r, len(contribs) - 1)]
+                acc.add_(c.split(list(leaf.spec.sizes), dim=leaf.spec.dim)[r])
+    elif fault == "norm counts whole leaves d_s times":
+        obj, name = PipelineTrainer, "norm_factors"
+
+        def new(self, p):
+            return [1.0] * len(self._leaf_specs(p))
+    elif fault == "error feedback dropped":
+        obj, name, real = compression, "q8_psum", compression.q8_psum
+
+        def new(gs, errs):
+            return real(gs, [torch.zeros_like(e) for e in errs])
+    else:
+        raise ValueError(f"unknown ZeRO-3 fault {fault!r}")
+    old = getattr(obj, name)
+    setattr(obj, name, new)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def _zero3_verify(dev, seed, ctr, n_sm, launches):
+    """The ZeRO-3 and pod cases of ``train_sp_verify`` (float32, full
+    width, :data:`SP_VERIFY_LAYERS` layers): :data:`ZERO3_VERIFY` over
+    :data:`ZERO3_VERIFY_MESHES` in ``per_tick`` and ``per_step`` against
+    the whole-batch 1x1 step on the same chunks (loss and every leaf within
+    VERIFY_LIMIT), a repeat of each arch's 1x2 run in each mode bit for
+    bit, launches as planned; :data:`ZERO3_FAULTS` on gemma3-1b's 2x2
+    ``per_tick`` run and the whole-leaf norm fault on
+    :data:`ZERO3_NORM_CASE` (its norm against the 1x1 gradients') outside
+    the limit; 2 pods, plain, within the limit of the 1x1 step; 2 pods
+    through the int8 all-reduce: every element within the quantisation
+    bound ``n_pods * scale / 2`` of the plain sum, and over
+    :data:`POD_ROUNDS` rounds of the same gradients with the errors fed
+    back the cumulative sum within that bound of the plain one ("error
+    feedback dropped" far outside)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
+                                  plan_batch)
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.model import tree_leaves, unstack_layers
+    from repro_torch.optim import global_norm
+    from repro_torch.runtime.pipeline import PipelineGeometry
+    from repro_torch.runtime.train_step import ChunkedTrainer, PipelineTrainer
+    out = {}
+
+    def plan_for(cfg, lens, d_p, d_s, pol, deg, sched):
+        cm = CostModel(cfg.spec, ClusterSpec(d_p=d_p, d_s=d_s))
+        budget = max(cm.with_sp(pol, deg).m_model_states(p)
+                     for p in range(1, d_p + 1)) + SP_VERIFY_MARGIN
+        plan = plan_batch(cm, lens, PlannerConfig(
+            fixed_k=3, bucket_rounding=64, remat_mode="stage_aware",
+            capacity_bytes=budget, sp_policy=pol, sp_degree=deg,
+            schedule=sched))
+        if max(sq.n_chunks for sq in plan.sequences) < 3:
+            raise PhaseError(f"{cfg.name} {d_p}x{d_s}: the verify plan "
+                             f"splits no sequence over 3 chunks")
+        return cm, plan
+
+    def compare(run, base, names):
+        worst, leaf = 0.0, 0
+        for i, (a, b) in enumerate(zip(tree_leaves(run.grads),
+                                       tree_leaves(base.grads))):
+            r = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            if r > worst:
+                worst, leaf = r, i
+        rel = abs(run.loss - base.loss) / abs(base.loss)
+        return {"loss_rel_diff": rel, "grad_max_rel_diff": worst,
+                "grad_max_rel_diff_leaf": names[leaf],
+                "within": rel <= VERIFY_LIMIT and worst <= VERIFY_LIMIT
+                and run.n_valid == base.n_valid}
+
+    def count(tally):
+        for t in tally.values():
+            for k, n in t.items():
+                launches[k] = launches.get(k, 0) + n
+
+    n_arch, n_dp, n_ds, n_pol, n_sched = ZERO3_NORM_CASE
+    cases = [(arch, pol, ZERO3_VERIFY_MESHES, False)
+             for arch, pol in ZERO3_VERIFY]
+    cases.append((n_arch, n_pol, ((n_dp, n_ds, n_sched),), True))
+    for arch, pol, meshes, norm_case in cases:
+        cfg = get_arch(arch).with_layers(SP_VERIFY_LAYERS)
+        rng = np.random.default_rng(seed)
+        lens = [3000, 900, 500, 300]
+        corpus = {i: rng.integers(0, cfg.spec.vocab, n).astype(np.int32)
+                  for i, n in enumerate(lens)}
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = DecoderLM(cfg).init(gen, device=dev)
+        names = _leaf_names(unstack_layers(params))
+        bases, recs = {}, {}
+        for d_p, d_s, sched in meshes:
+            deg = d_s
+            cm, plan = plan_for(cfg, lens, d_p, d_s, pol, deg, sched)
+            key = repr([(c.context, c.tokens, c.slices)
+                        for pp in plan.pipelines for c in pp.chunks])
+            if key not in bases:
+                bases[key] = ChunkedTrainer(cfg, params, device=dev,
+                                            compute_dtype=torch.float32
+                                            ).loss_and_grads(plan, corpus)
+            base = bases[key]
+            for mode in ("per_tick", "per_step"):
+                if norm_case and mode == "per_step":
+                    continue
+                geom = PipelineGeometry(
+                    d_p=d_p, d_s=d_s, policy=pol, d_s_eff=deg,
+                    schedule=sched, split_bwd=sched == "zero-bubble-h1",
+                    zero3_mode=mode)
+
+                def sp_run(count_it=False, norm=False):
+                    tr = PipelineTrainer(cfg, params, geometry=geom,
+                                         cards=[dev],
+                                         compute_dtype=torch.float32,
+                                         cost_model=cm)
+                    tally = {}
+                    _zero_counts(ctr)
+                    with _per_stage(ctr, tally):
+                        if norm:
+                            res, accs = tr._step_grads(plan, corpus)
+                            res.grad_norm = float(tr.grad_norm(accs))
+                            res.grads = tr._model_layout(accs)
+                            del accs
+                        else:
+                            res = tr.loss_and_grads(plan, corpus)
+                    if count_it:
+                        _check_stage_launches(tally, _expected_sp_launches(
+                            cfg, plan, d_p, d_s, torch.float32, n_sm, cm),
+                            f"train_sp_verify zero3 {arch} {d_p}x{d_s} "
+                            f"{mode}")
+                        count(tally)
+                    del tr
+                    return res
+                first = sp_run(count_it=True, norm=norm_case)
+                z = first.pipeline["zero3"]
+                rec = {"sp": [plan.sp.policy, plan.sp.d_s_eff],
+                       "schedule": plan.schedule,
+                       "chunks": [(c.context, c.tokens)
+                                  for pp in plan.pipelines
+                                  for c in pp.chunks],
+                       "remat_table": plan.ckpt_table(),
+                       **compare(first, base, names),
+                       "gather_gb": z["gather_bytes"] / 1e9,
+                       "scatter_gb": z["scatter_bytes"] / 1e9,
+                       "gathered_peak_gb": z["peak_live_bytes"] / 1e9,
+                       "whole_leaves_gb": [[b / 20e9 for b in st] for st in
+                                           z["whole_state_bytes"]]}
+                if (d_p, d_s, mode) == (1, 2, "per_tick"):
+                    again = sp_run()
+                    rec["bitwise_repeat"] = first.loss == again.loss and all(
+                        torch.equal(a, b) for a, b in zip(
+                            tree_leaves(first.grads),
+                            tree_leaves(again.grads)))
+                    del again
+                rec["faults"] = {}
+                if norm_case:
+                    want = float(global_norm(base.grads))
+                    rec["grad_norm_rel_diff"] = abs(
+                        first.grad_norm - want) / want
+                    with _zero3_fault("norm counts whole leaves d_s times"):
+                        bad = sp_run(norm=True)
+                    rec["faults"]["norm counts whole leaves d_s times"] = {
+                        "grad_norm_rel_diff": abs(bad.grad_norm - want) / want,
+                        "within": abs(bad.grad_norm - want) / want
+                        <= VERIFY_LIMIT}
+                    rec["within"] = rec["within"] and \
+                        rec["grad_norm_rel_diff"] <= VERIFY_LIMIT
+                    del bad
+                if (arch, d_p, d_s, mode) == ("gemma3-1b", 2, 2, "per_tick"):
+                    for f in ZERO3_FAULTS:
+                        with _zero3_fault(f):
+                            bad = sp_run()
+                        rec["faults"][f] = compare(bad, base, names)
+                        del bad
+                del first
+                k = f"{arch} {d_p}x{d_s} {mode}"
+                recs[k] = rec
+                print(f"[train_sp_verify] zero3 {k} {json.dumps(rec)}",
+                      flush=True)
+                if not rec["within"] or not rec.get("bitwise_repeat", True):
+                    raise PhaseError(f"zero3 {k}: the step differs from the "
+                                     f"1x1 step: {rec}")
+                missed = [f for f, r in rec["faults"].items() if r["within"]]
+                if missed:
+                    raise PhaseError(f"zero3 {k}: the limit does not catch "
+                                     f"{missed}")
+                torch.cuda.empty_cache()
+        out.update(recs)
+        del bases, params
+        torch.cuda.empty_cache()
+    out["pods"] = _pods_verify(dev, seed, ctr, n_sm, launches, compare)
+    return out
+
+
+def _pods_verify(dev, seed, ctr, n_sm, launches, compare):
+    """The pods' cases of :func:`_zero3_verify`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
+                                  plan_batch)
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.model import unstack_layers
+    from repro_torch.optim.compression import q8_scale
+    from repro_torch.runtime.pipeline import PipelineGeometry
+    from repro_torch.runtime.train_step import (ChunkedTrainer,
+                                                PipelineTrainer, pod_plans)
+    cfg = get_arch("gemma3-1b").with_layers(SP_VERIFY_LAYERS)
+    rng = np.random.default_rng(seed)
+    corpus = {i: rng.integers(0, cfg.spec.vocab, n).astype(np.int32)
+              for i, n in enumerate(POD_VERIFY_LENS)}
+    cm = CostModel(cfg.spec, ClusterSpec(d_s=2))
+    plan = plan_batch(cm, POD_VERIFY_LENS, PlannerConfig(
+        fixed_k=3, bucket_rounding=64, remat_mode="stage_aware",
+        capacity_bytes=cm.with_sp("allgather_kv", 2).m_model_states(1)
+        + SP_VERIFY_MARGIN, sp_policy="allgather_kv", sp_degree=2))
+    subs = pod_plans(plan, 2)
+    if not all(s.pipelines for s in subs):
+        raise PhaseError(f"the pods' verify plan gives a pod no pipeline: "
+                         f"{[p.n_chunks for p in plan.pipelines]}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = DecoderLM(cfg).init(gen, device=dev)
+    names = _leaf_names(unstack_layers(params))
+    base = ChunkedTrainer(cfg, params, device=dev,
+                          compute_dtype=torch.float32
+                          ).loss_and_grads(plan, corpus)
+    geom = PipelineGeometry(d_p=1, d_s=2, policy="allgather_kv", d_s_eff=2)
+
+    def trainer(compress):
+        return PipelineTrainer(cfg, params, geometry=geom, cards=[dev],
+                               compute_dtype=torch.float32, cost_model=cm,
+                               n_pods=2, compress_pod_grads=compress)
+    tr = trainer(False)
+    tally = {}
+    _zero_counts(ctr)
+    with _per_stage(ctr, tally):
+        plain = tr.loss_and_grads(plan, corpus)
+    per_pod = [_expected_sp_launches(cfg, sub, 1, 2, torch.float32, n_sm,
+                                     cm) for sub in subs]
+    _check_stage_launches(tally, [{k: sum(e[0][k] for e in per_pod)
+                                   for k in per_pod[0][0]}],
+                          "train_sp_verify 2 pods")
+    for t in tally.values():
+        for k, n in t.items():
+            launches[k] = launches.get(k, 0) + n
+    rec = {"pod_chunks": plain.pipeline["pod_chunks"],
+           "pipelines": [p.n_chunks for p in plan.pipelines],
+           "plain": compare(plain, base, names)}
+    del plain, tr
+    # the compressed sums of the pods' gradient sums against their plain
+    # sum, scaled as the step scales them (1 / n_valid)
+    tr = trainer(True)
+    runs = tr.pod_runs(plan, corpus)
+    n_valid = sum(r.n_valid for r, _ in runs)
+    accs = [a for _, a in runs]
+    del runs
+
+    def ratio(got, want, scales, rounds=1):
+        worst = 0.0
+        for gp, wp, sp in zip(got, want, scales):
+            for g, w, s in zip(gp, wp, sp):
+                if s > 1e-30:
+                    worst = max(worst, float((g - rounds * w).abs().max())
+                                / (2 * s / 2 / n_valid))
+        return worst
+
+    with torch.no_grad():
+        want = [[(a0 + a1) / n_valid for a0, a1 in zip(p0, p1)]
+                for p0, p1 in zip(*accs)]
+
+        def rounds(n):
+            """``n`` rounds of the same pods' sums through the trainer's
+            compressed reduction (from a zero error state), summed; the
+            last round's scales."""
+            tr.err = None
+            total, scales = None, None
+            for _ in range(n):
+                copy = [[[a.clone() for a in p] for p in pod]
+                        for pod in accs]
+                scales = [[float(q8_scale([c[p][i] for c in copy],
+                                          [e[p][i] for e in tr.err]
+                                          if tr.err else
+                                          [torch.zeros_like(copy[0][p][i])]
+                                          * 2))
+                           for i in range(len(copy[0][p]))]
+                          for p in range(len(copy[0]))]
+                got = tr.reduce_pods(copy, n_valid)
+                total = got if total is None else [
+                    [t + g for t, g in zip(tp, gp)]
+                    for tp, gp in zip(total, got)]
+                del copy, got
+            return total, scales
+        one, s1 = rounds(1)
+        rec["compressed_over_bound"] = ratio(one, want, s1)
+        # the quantisation error itself: the largest element's, and the
+        # largest leaf's relative to its largest plain value
+        rec["compressed_max_abs_err"] = max(
+            float((g - w).abs().max()) for gp, wp in zip(one, want)
+            for g, w in zip(gp, wp))
+        rec["compressed_max_rel_err"] = max(
+            float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for gp, wp in zip(one, want) for g, w in zip(gp, wp))
+        rec["bound_max"] = max(2 * s / 2 / n_valid for sp in s1 for s in sp)
+        del one
+        many, sn = rounds(POD_ROUNDS)
+        rec["error_feedback_over_bound"] = ratio(many, want, sn, POD_ROUNDS)
+        del many
+        with _zero3_fault("error feedback dropped"):
+            bad, sb = rounds(POD_ROUNDS)
+        rec["faults"] = {"error feedback dropped": {
+            "over_bound": ratio(bad, want, sb, POD_ROUNDS)}}
+        del bad
+    rec["n_pods"], rec["rounds"] = 2, POD_ROUNDS
+    print(f"[train_sp_verify] pods {json.dumps(rec)}", flush=True)
+    # (1e-4 of the bound: the float32 rounding of the scale and of 1 / n)
+    if not rec["plain"]["within"] or rec["compressed_over_bound"] > 1.0001 \
+            or rec["error_feedback_over_bound"] > 1.0001:
+        raise PhaseError(f"the pods' sums differ from the 1x1 step or "
+                         f"leave the quantisation bound: {rec}")
+    if rec["faults"]["error feedback dropped"]["over_bound"] <= 2:
+        raise PhaseError(f"the bound does not catch a dropped error "
+                         f"feedback: {rec}")
+    del tr, accs, base, params
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_train_sp_verify(dev, seed):
     """float32, full width, :data:`SP_VERIFY_LAYERS` layers: for each case
     of :data:`SP_VERIFY`, the SP step (``PipelineTrainer`` at ``1 x d_s``,
@@ -5038,7 +5534,7 @@ def phase_train_sp_verify(dev, seed):
         corpus = {i: rng.integers(0, cfg.spec.vocab, n).astype(np.int32)
                   for i, n in enumerate(lens)}
         cm = CostModel(cfg.spec, ClusterSpec(d_s=d_s))
-        budget = cm.with_sp(pol, deg).m_model_states(1) + 0.08e9
+        budget = cm.with_sp(pol, deg).m_model_states(1) + SP_VERIFY_MARGIN
         plan = plan_batch(cm, lens, PlannerConfig(
             fixed_k=3, bucket_rounding=64, remat_mode="stage_aware",
             capacity_bytes=budget, sp_policy=pol, sp_degree=deg))
@@ -5114,6 +5610,7 @@ def phase_train_sp_verify(dev, seed):
             raise PhaseError(f"{key}: the limit does not catch {missed}")
         del base, params
         torch.cuda.empty_cache()
+    out["zero3"] = _zero3_verify(dev, seed, ctr, n_sm, launches)
     out["launches"] = launches
     return out
 
@@ -5399,8 +5896,9 @@ def main() -> int:
     print(f"[kernel_sp] ok in {dt:.1f}s", flush=True)
     sp_counts = {}
     for tag in SP_RUNS:
-        (recs, sp_counts[tag]), dt = run(tag, lambda t=tag: phase_train_sp(
-            dev, args.seed, t))
+        (recs, sp_counts[tag]), dt = run(tag, lambda t=tag: (
+            phase_train_pods(dev, args.seed) if t == "train_pods" else
+            phase_train_sp(dev, args.seed, t)))
         for rec in recs:
             print(f"[{tag}] {json.dumps(rec)}", flush=True)
         print(f"[{tag}] ok in {dt:.1f}s", flush=True)

@@ -39,7 +39,12 @@ its ``S`` ranks on card ``p mod --cards``, the schedule backend the
 planner picks for step 0 (or ``--schedule``, ``--v-stages``) pinned for
 the run, the zero-bubble split backward as ``--split-bwd`` says. Each
 plan carries its SP point ``(policy, d_s_eff)``: the planner's choice, or
-``--sp-policy`` / ``--sp-degree`` pinned (the step logs ``[sp]``). Still
+``--sp-policy`` / ``--sp-degree`` pinned (the step logs ``[sp]``). At
+``S > 1`` each rank owns its ZeRO-3 shards of its stage's parameters,
+gradient sums and AdamW state, gathered per layer and chunk (the
+reference's default ``per_tick``; ``per_step`` and the pod axis are the
+trainer's, as the reference reaches them through ``make_geometry`` and
+``TrainStepBuilder``: its CLI has no flag for either). Still
 refused: the encoder-decoder at ``S > 1`` (its frame-sharded memory) and
 more cards than stages at ``S > 1`` (SP ranks across cards). On the card,
 gemma3-1b on two stages of one H100, and on two stages of two ranks:
@@ -137,6 +142,15 @@ class TrainConfig:
     d_s: int = 1
     sp_policy: str = "auto"
     sp_degree: int = 0
+    # ZeRO-3's gather cadence at d_s > 1 ("per_tick", the reference's
+    # default, or "per_step"), and data-parallel pods of the pipeline (the
+    # plan's pipelines split over them, each pod planned with its share of
+    # the card, the gradients summed over them, through the int8 all-reduce
+    # with compress_pod_grads): the trainer's API, as the reference reaches
+    # them through make_geometry and TrainStepBuilder (no CLI flag)
+    zero3_mode: str = "per_tick"
+    n_pods: int = 1
+    compress_pod_grads: bool = False
     schedule: Optional[str] = None
     v_stages: int = 0
     split_bwd: str = "auto"
@@ -293,9 +307,10 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
             f"item 4")
     cards = [torch.device(c) for c in (cards or [device])]
     cluster = cluster or ClusterSpec()
-    if d_p > 1 or d_s > 1:
-        # each SP rank is planned with its share of its card
-        per_card = -(-d_p // len(cards))
+    piped = d_p > 1 or d_s > 1 or loop.n_pods > 1
+    if piped:
+        # each SP rank (of each pod) is planned with its share of its card
+        per_card = -(-d_p // len(cards)) * loop.n_pods
         cluster = cluster.with_(d_p=d_p, d_s=d_s,
                                 hbm_bytes=cluster.hbm_bytes / (per_card * d_s))
     cm = CostModel(cfg.spec, cluster)
@@ -406,7 +421,7 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
             log(f"[sp] policy={plan.sp.policy} d_s_eff={plan.sp.d_s_eff}/"
                 f"{d_s}" + (" (planner-chosen)" if loop.sp_policy == "auto"
                             and not loop.sp_degree else " (pinned)"))
-        if d_p == 1 and d_s == 1:
+        if not piped:
             trainer = ChunkedTrainer(cfg, params, device=device,
                                      compute_dtype=dtype)
         else:
@@ -451,7 +466,7 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
                 on_step(step, plan, corpus, trainer)
             rec, res = _run_step(trainer, cfg, loop, plan, corpus, step,
                                  cards, device, dtype, encdec)
-            if d_p > 1 or d_s > 1:
+            if piped:
                 rec.update(_pipeline_record(cm, plan, trainer, cards, res))
             del res
             lengths = [len(v) for v in corpus.values()]
@@ -583,7 +598,12 @@ def _step_line(rec: Dict) -> str:
     if "sp_policy" in rec:
         extra += (f" sp {rec['sp_policy']} d_s_eff {rec['d_s_eff']}/"
                   f"{rec['d_s']} collectives {rec['collectives']} "
-                  f"({rec['collective_bytes'] / 1e6:.1f} MB)")
+                  f"({rec['collective_bytes'] / 1e6:.1f} MB) zero3 "
+                  f"{rec['zero3_mode']} rank_state "
+                  f"{[[round(b / 1e9, 3) for b in st] for st in rec['rank_state_bytes']]}"
+                  f" GB (charge "
+                  f"{[round(b / 1e9, 3) for b in rec['rank_charge_bytes']]})"
+                  f" gathered_peak {rec['gathered_peak_bytes'] / 1e9:.3f} GB")
     return (f"step {rec['step']:4d} loss {rec['loss']:.4f} tokens "
             f"{rec['tokens']} wall {rec['wall_s']:.2f}s tok/s "
             f"{rec['tokens_per_s']:.1f} peak_mem {mem} (plan estimate "
@@ -602,6 +622,9 @@ def _pipeline_trainer(cfg, loop: TrainConfig, plan, params, cards, dtype,
     if cfg.spec.is_encoder_decoder:
         from repro_torch.runtime.encdec_pipeline import EncDecGeometry
         from repro_torch.runtime.train_step import EncDecTrainer
+        if loop.n_pods > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: the encoder-decoder's pod axis is not ported")
         geom = EncDecGeometry(d_p=loop.d_p, schedule=plan.schedule,
                               v_stages=plan.v_stages, split_bwd=split)
         return EncDecTrainer(cfg, params, geometry=geom, cards=cards,
@@ -610,11 +633,14 @@ def _pipeline_trainer(cfg, loop: TrainConfig, plan, params, cards, dtype,
                             v_stages=plan.v_stages, split_bwd=split,
                             d_s=loop.d_s, **(
                                 {"policy": plan.sp.policy,
-                                 "d_s_eff": plan.sp.d_s_eff}
+                                 "d_s_eff": plan.sp.d_s_eff,
+                                 "zero3_mode": loop.zero3_mode}
                                 if plan.sp is not None and loop.d_s > 1
                                 else {}))
     return PipelineTrainer(cfg, params, geometry=geom, cards=cards,
-                           compute_dtype=dtype, cost_model=cm)
+                           compute_dtype=dtype, cost_model=cm,
+                           n_pods=loop.n_pods,
+                           compress_pod_grads=loop.compress_pod_grads)
 
 
 def _pipeline_record(cm, plan, trainer, cards, res) -> Dict:
@@ -631,7 +657,8 @@ def _pipeline_record(cm, plan, trainer, cards, res) -> Dict:
     g = trainer.geom
     est = [max(p.est_peak_mem[s] for p in plan.pipelines)
            for s in range(g.d_p)]
-    card_est = [g.d_s * sum(est[c::len(cards)]) for c in range(len(cards))]
+    card_est = [len(trainer.pods) * g.d_s * sum(est[c::len(cards)])
+                for c in range(len(cards))]
     spec = get_schedule(g.schedule, g.v_stages)
     bub = work = 0.0
     for pipe in plan.pipelines:
@@ -652,6 +679,9 @@ def _pipeline_record(cm, plan, trainer, cards, res) -> Dict:
             "bubble_share": bub / (bub + work) if work else 0.0,
             **{k: res.pipeline[k] for k in ("handoffs", "handoff_bytes",
                                             "copied_bytes")},
+            **{k: res.pipeline[k] for k in ("n_pods", "compress_pod_grads",
+                                            "pod_chunks", "pod_n_valid")
+               if k in res.pipeline},
             **(_sp_record(cm, plan, res.pipeline) if g.d_s > 1 else {})}
 
 
@@ -672,13 +702,29 @@ def _sp_record(cm, plan, pipe: Dict) -> Dict:
     else:
         attn = {"queries": rows // d_eff, "keys": big.context + rows,
                 "q_heads": spec.n_heads, "kv_heads": spec.n_kv_heads}
+    z = pipe["zero3"]
     return {"sp_policy": policy, "d_s_eff": d_eff, "d_s": d_s,
             "collective_bytes": pipe["collective_bytes"],
             "collectives": pipe["collectives"],
             "attn_rows_per_rank": attn,
             "ce_rows_per_rank": {"tokens": rows,
                                  "vocab_rows": row_blocks(spec.vocab,
-                                                          d_s)[0][1]}}
+                                                          d_s)[0][1]},
+            # ZeRO-3: what each rank owns beside the planner's charge
+            # (m_model_states: a rank's 1/d_s of its stage's states), the
+            # leaves it keeps whole, its share of what the planner's count
+            # leaves out; the gathers and reduce-scatters of the step and
+            # the most gathered bytes alive at once
+            "zero3_mode": z["mode"],
+            "rank_state_bytes": z["rank_state_bytes"],
+            "rank_charge_bytes": [cm.m_model_states(p + 1) for p in
+                                  range(len(z["rank_state_bytes"]))],
+            "whole_state_bytes": z["whole_state_bytes"],
+            "uncounted_state_bytes": z["uncounted_state_bytes"],
+            "gathers": z["gathers"], "regathers": z["regathers"],
+            "gather_bytes": z["gather_bytes"],
+            "scatter_bytes": z["scatter_bytes"],
+            "gathered_peak_bytes": z["peak_live_bytes"]}
 
 
 def main(argv=None) -> int:

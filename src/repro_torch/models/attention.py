@@ -39,7 +39,7 @@ import torch.nn.functional as F
 
 from .config import ArchConfig
 from .layers import apply_rope, dense_init, linear, rms_norm, \
-    weight_grad_store
+    weight_grad_store, weight_key
 
 __all__ = ["init_attention", "project_qkv", "mla_expand_ctx",
            "mla_attention", "cross_attention", "attention_block",
@@ -145,7 +145,7 @@ class _MLAAttention(torch.autograd.Function):
         from repro_torch.kernels.ops import attention_forward
         ctx.opts = dict(causal=causal, window=window, scale=scale)
         ctx.shape, ctx.store = (heads, Dh), weight_grad_store()
-        ctx.leaves = (w_uk, w_uv)
+        ctx.leaves = (weight_key(w_uk), weight_key(w_uv))
         k, v, _ = _expand(rows, w_uk, w_uv, heads, Dh)
         out, saved, _, ctx.tiles = attention_forward(
             q, k, v, seg_q, seg_kv, pos_q, pos_kv, **ctx.opts)
@@ -166,7 +166,9 @@ class _MLAAttention(torch.autograd.Function):
         dv = dv.reshape(S, heads * Dh)
         dc = dk_nope.mm(w_uk.to(c.dtype)) + dv.mm(w_uv.to(c.dtype))
         drows = torch.cat([dc, dk[..., Dh:].sum(1)], dim=-1)[:, None, :]
-        products = [lambda dy=dy, w=w: dy.t().mm(c).to(w.dtype)
+        # (the products keep the weights' dtype, not the weights: a
+        # ZeRO-3 gathered copy must not live on in the W store)
+        products = [lambda dy=dy, dt=w.dtype: dy.t().mm(c).to(dt)
                     for dy, w in ((dk_nope, w_uk), (dv, w_uv))]
         if ctx.store is not None:
             ctx.store.extend(zip(ctx.leaves, products))
@@ -222,7 +224,7 @@ class _CrossAttention(torch.autograd.Function):
         from repro_torch.kernels.ops import attention_forward
         ctx.opts = dict(causal=False, window=0, scale=scale)
         ctx.shape, ctx.store = (heads, Dh), weight_grad_store()
-        ctx.leaves = (wk, wv)
+        ctx.leaves = (weight_key(wk), weight_key(wv))
         k, v = _cross_kv(memory, wk, wv, heads, Dh)
         out, saved, _, ctx.tiles = attention_forward(
             q, k, v, seg_q, seg_kv, *_zero_pos(seg_q, seg_kv), **ctx.opts)

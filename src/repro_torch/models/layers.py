@@ -19,7 +19,8 @@ import torch.nn.functional as F
 
 __all__ = ["dense_init", "embed_init", "rms_norm", "swiglu_init",
            "swiglu_apply", "rope_freqs", "rope_tables", "mrope_tables",
-           "apply_rope", "apply_mrope", "linear", "deferred_weight_grads", "weight_grad_store"]
+           "apply_rope", "apply_mrope", "linear", "deferred_weight_grads",
+           "weight_grad_store", "weight_key"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -66,6 +67,15 @@ def weight_grad_store() -> Optional[List]:
     return _WEIGHT_GRADS
 
 
+def weight_key(w: torch.Tensor):
+    """What a deferred weight gradient is filed under, and what an autograd
+    node may keep of its weight beside the saved tensors: the weight
+    itself, or for a ZeRO-3 gathered copy its shards'
+    ``runtime/sharding.ShardedLeaf`` (holding the copy would keep it alive
+    from the forward to the backward)."""
+    return getattr(w, "zero3_key", w)
+
+
 class _DeferredLinear(torch.autograd.Function):
     """``F.linear(x, w)`` whose backward computes only ``dx`` and appends
     ``(w, product)`` to its store. Both products are the ones autograd's
@@ -81,7 +91,7 @@ class _DeferredLinear(torch.autograd.Function):
         ctx.save_for_backward(x, w)
         # the leaf itself: under remat the saved ``w`` comes back as an
         # alias of it
-        ctx.store, ctx.weight = store, w
+        ctx.store, ctx.weight = store, weight_key(w)
         return F.linear(x, w)
 
     @staticmethod
@@ -185,7 +195,7 @@ class _SwiGLUDown(torch.autograd.Function):
     def forward(ctx, g, u, w):
         ctx.save_for_backward(g, u, w)
         ctx.reuse = not (g.is_leaf or u.is_leaf)
-        ctx.store, ctx.weight = _WEIGHT_GRADS, w
+        ctx.store, ctx.weight = _WEIGHT_GRADS, weight_key(w)
         return F.linear(_silu_gate(g, u), w.to(g.dtype))
 
     @staticmethod
@@ -196,8 +206,8 @@ class _SwiGLUDown(torch.autograd.Function):
         h, dg, du = _silu_gate_backward(
             g, u, w, dy, (g.detach(), u.detach()) if ctx.reuse else None)
         if ctx.store is not None:
-            ctx.store.append((ctx.weight,
-                              lambda: dy.t().mm(h).to(w.dtype)))
+            wdt = w.dtype               # (the dtype, not the weight)
+            ctx.store.append((ctx.weight, lambda: dy.t().mm(h).to(wdt)))
             return dg, du, None
         return dg, du, dy.t().mm(h).to(w.dtype)
 
@@ -256,7 +266,8 @@ class _SwiGLURecompute(torch.autograd.Function):
         ctx.save_for_backward(x, w_gate, w_up, w_down)
         # the leaves themselves: under remat the saved weights come back
         # as aliases of them, which the store cannot key on
-        ctx.store, ctx.leaves = _WEIGHT_GRADS, (w_gate, w_up, w_down)
+        ctx.store = _WEIGHT_GRADS
+        ctx.leaves = tuple(weight_key(w) for w in (w_gate, w_up, w_down))
         h = _silu_gate(F.linear(x, w_gate.to(x.dtype)),
                        F.linear(x, w_up.to(x.dtype)))
         return F.linear(h, w_down.to(x.dtype))

@@ -227,7 +227,9 @@ class DecoderLM:
         hs = [rms_norm(h, params["final_norm"], self.cfg.rms_eps)
               for h in hidden]
         w = self.head_weights(params)
-        return sharded_ce(hs, w.to(hs[0].dtype),
+        w = [b.to(hs[0].dtype) for b in w] if isinstance(w, (list, tuple)) \
+            else w.to(hs[0].dtype)
+        return sharded_ce(hs, w,
                           [t.clamp(min=0) for t in targets],
                           [(s >= 0) & (t >= 0) for s, t in zip(segs, targets)],
                           d_s)
@@ -449,13 +451,16 @@ class DecoderLM:
 
     def run_layers_sp(self, layers, xs: List[torch.Tensor], segs, poss, *,
                       ctx: Optional[LayerCtx] = None, ctx_len: int = 0,
-                      remat: int = 0, ropes=None
+                      remat: int = 0, ropes=None, zero3=None
                       ) -> Tuple[List[torch.Tensor], Optional[LayerCtx]]:
         """:meth:`run_layers` over one SP group's token blocks: ``ctx``
         fields are lists over ``layers`` of each layer's carry list (the
         policy's layout, ``[h]``, ``[tail]``); the leading ``remat`` layers
         run under checkpoint, the rank blocks and carries passed as
-        separate tensor arguments."""
+        separate tensor arguments. ``zero3`` (``runtime/sharding.Zero3``):
+        each layer's parameters are its key, gathered inside the layer's
+        run (so a remat'd layer gathers them again in its backward), and a
+        layer without remat runs under ``zero3.keep_shards()``."""
         if ropes is None:
             ropes = [self.rope_tables(p) for p in poss]
         n = len(xs)
@@ -466,9 +471,12 @@ class DecoderLM:
             counts = tuple(-1 if f is None else len(f) for f in lctx)
             flat = [t for f in lctx if f is not None for t in f]
             args = (lp, int(w), int(ctx_len), segs, poss, ropes, n, counts,
-                    *xs, *flat)
+                    zero3, *xs, *flat)
             if i < remat:
                 out = checkpoint(self._layer_sp, *args, use_reentrant=False)
+            elif zero3 is not None:
+                with zero3.keep_shards():
+                    out = self._layer_sp(*args)
             else:
                 out = self._layer_sp(*args)
             xs, lctx_out = out
@@ -480,7 +488,9 @@ class DecoderLM:
                               for f, vals in zip(ctx, new)])
 
     def _layer_sp(self, lparams, window, ctx_len, segs, poss, ropes, n,
-                  counts, *tensors):
+                  counts, zero3, *tensors):
+        if zero3 is not None:
+            lparams = zero3.layer(lparams)
         xs, rest = list(tensors[:n]), list(tensors[n:])
         fields = []
         for c in counts:

@@ -45,7 +45,8 @@ import torch
 import torch.nn.functional as F
 
 from .config import ArchConfig
-from .layers import dense_init, swiglu_apply, swiglu_init, weight_grad_store
+from .layers import (dense_init, swiglu_apply, swiglu_init, weight_grad_store,
+                     weight_key)
 
 __all__ = ["init_moe", "router_logits", "route", "router_weights",
            "moe_apply", "routed_experts", "moe_apply_dense", "observe_router",
@@ -179,7 +180,10 @@ class _RoutedExperts(torch.autograd.Function):
                 experts=None):
         dt = x.dtype
         T, D = x.shape
-        E, Fe = w_gate.shape[:2]
+        E, Fe = router.shape[0], w_gate.shape[1]
+        # a rank's shard of the experts (ZeRO-3's expert dim): its first
+        # expert is the range's
+        off = 0 if w_gate.shape[0] == E else experts[0]
         logits = router_logits(router, x)
         w, ids = route(logits, k)
         flat = ids.reshape(-1)
@@ -195,7 +199,7 @@ class _RoutedExperts(torch.autograd.Function):
         u_all = x.new_empty((T * k, Fe)) if keep else None
         acc = torch.zeros((T, D), dtype=torch.float32, device=x.device)
         for e, blocks in _blocks(sizes, max(D, Fe), experts):
-            wg, wu, wd = (t[e].to(dt) for t in (w_gate, w_up, w_down))
+            wg, wu, wd = (t[e - off].to(dt) for t in (w_gate, w_up, w_down))
             for a, b in blocks:
                 te = tok[a:b]
                 xe = x.index_select(0, te)
@@ -211,15 +215,16 @@ class _RoutedExperts(torch.autograd.Function):
             # the leaves themselves: under remat the saved ones come back
             # as aliases
             ctx.sizes, ctx.store = sizes, store
-            ctx.leaves = (router, w_gate, w_up, w_down)
-            ctx.experts = experts
+            ctx.leaves = tuple(weight_key(t) for t in (router, w_gate, w_up,
+                                                        w_down))
+            ctx.experts, ctx.off = experts, off
         return acc if experts is not None else acc.to(dt)
 
     @staticmethod
     def backward(ctx, dout):
         (x, router, w_gate, w_up, w_down, g_all, u_all, w, ids,
          order) = ctx.saved_tensors
-        sizes, store = ctx.sizes, ctx.store
+        sizes, store, off = ctx.sizes, ctx.store, ctx.off
         dt = x.dtype
         T, k = w.shape
         # detached: a closure over a tensor with a graph would hold this
@@ -239,7 +244,7 @@ class _RoutedExperts(torch.autograd.Function):
         acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
         for e, blocks in _blocks(sizes, max(x.shape[1], g_all.shape[1]),
                                  ctx.experts):
-            wg, wu, wd = (t[e].to(dt) for t in leaves)
+            wg, wu, wd = (t[e - off].to(dt) for t in leaves)
             parts = [None] * 3
             for a, b in blocks:
                 te = tok[a:b]
@@ -266,7 +271,7 @@ class _RoutedExperts(torch.autograd.Function):
                     deferred.append((e, a, b, dg, du))
             for out, part in zip(grads, parts):
                 if out is not None:
-                    out[e] = part.to(out.dtype)
+                    out[e - off] = part.to(out.dtype)
         # the router: the softmax over the picks, then the logits' product
         dw = torch.empty_like(dw_pairs).index_copy_(0, order, dw_pairs)
         dw = dw.view(T, k)
@@ -277,8 +282,10 @@ class _RoutedExperts(torch.autograd.Function):
         dx = acc.to(dt)
         del acc
 
+        rdt = router.dtype              # (the dtype, not the weight)
+
         def d_router():
-            return dlogits.t().mm(x.float()).to(router.dtype)
+            return dlogits.t().mm(x.float()).to(rdt)
         if store is None:
             return (dx, d_router() if need[0] else None, *grads, None, None,
                     None)
@@ -297,7 +304,7 @@ class _RoutedExperts(torch.autograd.Function):
                         dy = (dout.index_select(0, te).float() *
                               wp[a:b, None]).to(dt)
                         _add_wgrads(parts, want, x, te, dg, du, dy, h)
-                    out[e] = parts[i].to(out.dtype)
+                    out[e - off] = parts[i].to(out.dtype)
                 return out
             return product
         store.extend(zip(ctx.leaves, (d_router, d_experts(0), d_experts(1),

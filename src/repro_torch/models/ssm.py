@@ -45,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ArchConfig
-from .layers import dense_init, linear, weight_grad_store
+from .layers import dense_init, linear, weight_grad_store, weight_key
 
 __all__ = ["init_mamba", "mamba_apply", "mamba_apply_sp", "gated_scan",
            "shard_decay", "live_tail", "ssm_state_shape", "dt_rank_of"]
@@ -156,7 +156,7 @@ class _ScanGate(torch.autograd.Function):
         ctx.save_for_backward(xc, dt_in, B, C, z, dt_proj, dt_bias, a_log,
                               d_skip, live, reset, h0,
                               *([] if ckpt is None else [ckpt]))
-        ctx.store, ctx.dt_proj = weight_grad_store(), dt_proj
+        ctx.store, ctx.dt_proj = weight_grad_store(), weight_key(dt_proj)
         return out, h_last
 
     @staticmethod
@@ -173,8 +173,8 @@ class _ScanGate(torch.autograd.Function):
         d_dt_in = d_pre @ dt_proj.to(dt)
         if ctx.store is not None:       # dt_proj's product deferred to W
             x = dt_in.detach()          # no reference back to the graph
-            ctx.store.append((ctx.dt_proj, lambda: (d_pre.T @ x).to(
-                dt_proj.dtype)))
+            wdt = dt_proj.dtype         # (the dtype, not the weight)
+            ctx.store.append((ctx.dt_proj, lambda: (d_pre.T @ x).to(wdt)))
             d_dt_proj = None
         else:
             d_dt_proj = (d_pre.T @ dt_in).to(dt_proj.dtype)

@@ -1,15 +1,20 @@
-"""Expert parallelism over an SP group's ranks.
+"""Expert parallelism over a stage's sequence-parallel ranks.
 
 Counterpart of the JAX package's ``runtime/ep.py`` (``make_moe_ep``, the
 "gather" dispatch; its all-to-all dispatch is not implemented there
-either). The group's token blocks are gathered; rank ``r`` routes every
-token (the router is replicated) and runs its ``E / d`` experts
-``[r E / d, (r + 1) E / d)`` over every token routed to them, through the
-MoE block's dispatch (``models/moe.routed_experts``: one product per
-non-empty expert, the experts' rows views of the stage's one copy of the
-stacked weights); the float32 partial sums are reduce-scattered back to
-the token blocks, cast to the compute dtype, and each rank adds its shared
-experts on its own rows. Exact: no capacity, no dropped tokens.
+either). The group's token blocks are gathered; the router (a ZeRO-3
+gathered weight) routes every token, and each rank that owns experts runs
+its own block of them over every token routed to them, through the MoE
+block's dispatch (``models/moe.routed_experts``: one product per
+non-empty expert). Under ZeRO-3 the expert weights arrive as the tuple of
+the ranks' shards along the expert dim (``runtime/sharding.EP_PATH_RE``,
+never gathered): rank ``m`` of the full ``d_s`` runs experts ``[m E /
+d_s, (m + 1) E / d_s)``, as the reference's EP spans the full model axis
+at any ``d_s_eff``; a whole stacked weight (no ZeRO-3) splits into the
+group's ``d`` ranks' blocks of views. The float32 partial sums are
+reduce-scattered back to the group's token blocks, cast to the compute
+dtype, and each rank adds its shared experts on its own rows. Exact: no
+capacity, no dropped tokens.
 """
 
 from __future__ import annotations
@@ -25,21 +30,27 @@ __all__ = ["make_moe_ep"]
 
 def make_moe_ep(d: int) -> Callable:
     """``moe_fn(cfg, p, xs) -> ys`` over a group of ``d`` ranks' normed rows
-    ``xs`` (``d`` must divide the expert count)."""
+    ``xs`` (the owners of the experts: the shards' count, else ``d``, must
+    divide the expert count)."""
 
     def moe_fn(cfg, p: Dict, xs: Sequence[torch.Tensor]
                ) -> List[torch.Tensor]:
         from repro_torch.models.layers import swiglu_apply
         from repro_torch.models.moe import routed_experts
         s = cfg.spec
-        if s.n_experts % d:
-            raise ValueError(f"expert parallelism over {d} ranks needs "
-                             f"n_experts % {d} == 0, got {s.n_experts}")
-        e_loc = s.n_experts // d
+        sharded = isinstance(p["w_gate"], (list, tuple))
+        n = len(p["w_gate"]) if sharded else d
+        if s.n_experts % n:
+            raise ValueError(f"expert parallelism over {n} ranks needs "
+                             f"n_experts % {n} == 0, got {s.n_experts}")
+        e_loc = s.n_experts // n
         x_full = sp.all_gather(xs)
-        parts = [routed_experts(cfg, p, x_full,
-                                experts=(r * e_loc, (r + 1) * e_loc))
-                 for r in range(d)]
+        parts = []
+        for r in range(n):
+            pr = p if not sharded else dict(
+                p, **{k: p[k][r] for k in ("w_gate", "w_up", "w_down")})
+            parts.append(routed_experts(cfg, pr, x_full,
+                                        experts=(r * e_loc, (r + 1) * e_loc)))
         ys = [y.to(x.dtype) for y, x in zip(
             sp.reduce_scatter(parts, [x.shape[0] for x in xs]), xs)]
         if s.n_shared_experts > 0:

@@ -30,8 +30,10 @@ gradients are summed in float32 per stage, in the order of the stage's
 backwards.
 
 With a sequence-parallel axis (``d_s > 1``) a stage is an :class:`SPStage`:
-its ``d_s`` ranks live on its card and share its one copy of the
-parameters; each chunk's rows split into ``d_s_eff`` contiguous blocks,
+its ``d_s`` ranks live on its card, each owning its ZeRO-3 shards of the
+stage's parameters (``runtime/sharding``), which the forward gathers per
+layer and chunk (``per_tick``, the default) or once a step (``per_step``);
+each chunk's rows split into ``d_s_eff`` contiguous blocks,
 one a rank of each of the ``d_s / d_s_eff`` replica groups
 (``runtime/sp.subgroup_info``); the stream is the tuple of the ranks'
 blocks (rank ``m`` holds block ``m // r`` of group ``m % r``); the embedding
@@ -56,6 +58,9 @@ from repro_torch.core.sp import SP_POLICIES
 from repro_torch.models.layers import deferred_weight_grads
 from repro_torch.models.model import DecoderLM, LayerCtx, tree_leaves
 
+from .sharding import (ZERO3_MODES, ShardedLeaf, Zero3, map_layout,
+                       reduce_scatter_grads)
+
 __all__ = ["PipelineGeometry", "PipelineStage", "SPStage", "carry_leaves",
            "carry_map"]
 
@@ -68,7 +73,10 @@ class PipelineGeometry:
     axis: ``d_s`` ranks a stage, the policy and effective degree
     ``d_s_eff`` (0: ``d_s``) that a plan without its own SP point runs
     (a plan's ``sp`` overrides them: :meth:`for_plan`), with the
-    reference's checks. ZeRO-3 and the double-buffered hand-off raise."""
+    reference's checks; ``zero3_mode`` (:data:`~.sharding.ZERO3_MODES`,
+    ``"per_tick"`` at ``d_s > 1`` when None, as the reference's
+    ``make_geometry``) sets the ZeRO-3 gather cadence, which changes
+    nothing at ``d_s = 1``. The double-buffered hand-off raises."""
     d_p: int
     schedule: str = "gpipe-1f1b"
     v_stages: int = 1
@@ -94,9 +102,12 @@ class PipelineGeometry:
                              "planner emits policy 'none' there")
         if self.d_s == 1 and self.policy != "none":
             raise ValueError(f"policy {self.policy!r} needs d_s > 1")
-        if self.zero3_mode is not None:
-            raise NotImplementedError(
-                "ZeRO-3 gathers are not ported: ROADMAP.md queue 1, item 3")
+        if self.zero3_mode is None and self.d_s > 1:
+            object.__setattr__(self, "zero3_mode", "per_tick")
+        if self.zero3_mode is not None and \
+                self.zero3_mode not in ZERO3_MODES:
+            raise ValueError(f"zero3_mode {self.zero3_mode!r}: one of "
+                             f"{ZERO3_MODES}")
         if self.overlap_handoff:
             raise NotImplementedError(
                 "the double-buffered hand-off is not ported: ROADMAP.md "
@@ -285,17 +296,73 @@ class PipelineStage:
 
     @torch.no_grad()
     def weight_grads(self, k: int, j: int) -> None:
-        """The ``W`` action: the weight products ``B(k, j)`` deferred."""
-        for w, product in self.wstore.pop((k, j)):
-            self.acc_of[id(w)].add_(product())
+        """The ``W`` action: the weight products ``B(k, j)`` deferred. A
+        ZeRO-3 leaf's products (one a rank that used it) are
+        reduce-scattered into the ranks' sums once its last one is made
+        (``sharding.reduce_scatter_grads``)."""
+        store = self.wstore.pop((k, j))
+        left: Dict[int, int] = {}
+        for w, _ in store:
+            left[id(w)] = left.get(id(w), 0) + 1
+        held: Dict[int, List] = {}
+        for w, product in store:
+            tgt = self.acc_of[id(w)]
+            if not isinstance(tgt, ShardedLeaf):
+                tgt.add_(product())
+                continue
+            held.setdefault(id(w), []).append(product())
+            left[id(w)] -= 1
+            if not left[id(w)]:
+                reduce_scatter_grads(held.pop(id(w)), tgt)
 
 
 class SPStage(PipelineStage):
     """Stage ``p`` with ``geom.d_s`` sequence-parallel ranks on its card
-    (see the module docstring): :meth:`configure` sets the step's SP model
-    (``runtime/sp.make_model`` at the plan's policy and degree);
+    (see the module docstring): ``params`` the list of the ranks' trees
+    (each its own shards, ``sharding.shard_leaf``) and ``layout`` their
+    :class:`~.sharding.LeafShard` tree; :meth:`configure` sets the step's
+    SP model (``runtime/sp.make_model`` at the plan's policy and degree);
     ``inputs(k)`` gives chunk ``k``'s ``(tokens, targets, seg, pos, rope
     tables)`` as lists over its ``d_s_eff`` row blocks."""
+
+    def __init__(self, model: DecoderLM, p: int, geom: PipelineGeometry,
+                 blocks: Sequence[Sequence[int]], params: List[Dict],
+                 device, dtype: torch.dtype, layout: Dict):
+        super().__init__(model, p, geom, blocks, params, device, dtype)
+        self.layout = layout
+        self.sharded = map_layout(lambda spec, *sh: ShardedLeaf(sh, spec),
+                                  layout, *params)
+        keys = dict(self.sharded["layers"])
+        if "final_norm" in self.sharded:
+            keys["final_norm"] = self.sharded["final_norm"]
+        self.zero3 = Zero3(geom.zero3_mode, keys)
+
+    def _rank_rows(self, key: str) -> List[torch.Tensor]:
+        """The ranks' shards of a vocabulary table (never gathered)."""
+        return [t[key] for t in self.params]
+
+    def begin(self, chunks, inputs, depths, scale, acc) -> None:
+        super().begin(chunks, inputs, depths, scale, acc)
+        n = len(acc) // self.geom.d_s
+        for i, leaf in enumerate(tree_leaves(self.sharded)):
+            leaf.accs = [acc[r * n + i] for r in range(self.geom.d_s)]
+            self.acc_of[id(leaf)] = leaf
+
+    def finish(self) -> torch.Tensor:
+        for leaf in tree_leaves(self.sharded):
+            leaf.accs = None
+        return super().finish()
+
+    def _layers(self, j: int):
+        return [(i, self.windows[i]) for i in self.blocks[j]]
+
+    def _backward(self, k: int, j: int, rec: Dict, outs, grads) -> None:
+        super()._backward(k, j, rec, outs, grads)
+        with torch.no_grad():               # per_step: the resident copies'
+            for full, leaf in self.zero3.resident_leaves():   # gradients
+                if full.grad is not None:
+                    reduce_scatter_grads([full.grad], leaf)
+                    full.grad = None
 
     def configure(self, model: DecoderLM, policy: str, d_s_eff: int) -> None:
         self.model, self.policy, self.d_s_eff = model, policy, d_s_eff
@@ -349,8 +416,8 @@ class SPStage(PipelineStage):
         rec = {"prev": None, "ctx_in": None, "ctx_out": None, "x_in": None,
                "store": [] if self.geom.split_bwd else None}
         if s == 0:
-            xs = self.model.embed_sp(self.params, tokens, self.geom.d_s,
-                                     self.dtype)
+            xs = self.model.embed_sp({"embed": self._rank_rows("embed")},
+                                     tokens, self.geom.d_s, self.dtype)
             groups = [xs] * self.rep
         else:
             rec["x_in"] = tuple(x.detach().requires_grad_(True)
@@ -379,7 +446,7 @@ class SPStage(PipelineStage):
                 h, c = self.model.run_layers_sp(
                     self._layers(j), xs, segs, poss, ctx=ctx[g],
                     ctx_len=ch.context, remat=self.depths[j][k],
-                    ropes=ropes)
+                    ropes=ropes, zero3=self.zero3)
                 hidden.append(h)
                 ctx_out.append(c)
         if ch.has_dependents:
@@ -390,8 +457,12 @@ class SPStage(PipelineStage):
             rec["out"] = self._flat(hidden)
             return tuple(h.detach() for h in rec["out"])
         # the loss on replica group 0's blocks (every token once)
-        loss, _ = self.model.chunk_loss_sp(self.params, hidden[0], targets,
-                                           segs, self.geom.d_s)
+        head = "unembed" if "unembed" in self.params[0] else "embed"
+        with self.zero3.keep_shards():
+            loss, _ = self.model.chunk_loss_sp(
+                {"final_norm": self.zero3.layer("final_norm"),
+                 head: self._rank_rows(head)}, hidden[0], targets, segs,
+                self.geom.d_s)
         rec["out"] = [loss]
         self.loss = self.loss + loss.detach()
         return None

@@ -56,7 +56,8 @@ import torch
 
 from repro_torch.core.sp import choose_sp_policy
 
-__all__ = ["choose_policy", "subgroup_info", "row_blocks", "STATS",
+__all__ = ["choose_policy", "subgroup_info", "row_blocks", "row_views",
+           "STATS",
            "all_gather", "reduce_scatter", "all_to_all",
            "make_none_policy", "make_allgather_kv_policy",
            "make_ulysses_policy", "sharded_embed", "sharded_ce", "merge_lse",
@@ -109,24 +110,25 @@ def row_blocks(n: int, d: int) -> List[Tuple[int, int]]:
 # ---------------------------------------------------------------------------
 # collectives over a list of per-rank tensors (the ranks share one card)
 
-def all_gather(xs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The rank blocks concatenated along dim 0: every rank's view (its
-    transpose sums the ranks' gradients and splits them: a
-    reduce-scatter)."""
-    full = torch.cat(list(xs))
+def all_gather(xs: Sequence[torch.Tensor], dim: int = 0) -> torch.Tensor:
+    """The rank blocks concatenated along ``dim``: every rank's view (its
+    transpose splits the summed gradient of every rank's use back into the
+    blocks: a reduce-scatter). A ZeRO-3 leaf gathers along its shard dim
+    (``runtime/sharding.zero3_dim``)."""
+    full = torch.cat(list(xs), dim=dim)
     _count((len(xs) - 1) * _nbytes(full))
     return full
 
 
-def reduce_scatter(xs: Sequence[torch.Tensor], sizes: Sequence[int]
-                   ) -> List[torch.Tensor]:
-    """The ranks' tensors summed in rank order, split into blocks of
-    ``sizes`` rows (rank ``r`` keeps block ``r``)."""
+def reduce_scatter(xs: Sequence[torch.Tensor], sizes: Sequence[int],
+                   dim: int = 0) -> List[torch.Tensor]:
+    """The ranks' tensors summed in rank order, split along ``dim`` into
+    blocks of ``sizes`` (rank ``r`` keeps block ``r``)."""
     total = xs[0]
     for x in xs[1:]:
         total = total + x
     _count((len(xs) - 1) * _nbytes(total))
-    return list(total.split(list(sizes)))
+    return list(total.split(list(sizes), dim=dim))
 
 
 def all_to_all(xs: Sequence[torch.Tensor], split_dim: int, concat_dim: int
@@ -247,20 +249,37 @@ def make_ulysses_policy(d: int) -> Callable:
 # ---------------------------------------------------------------------------
 # vocabulary-parallel embedding and cross-entropy
 
-def sharded_embed(embed: torch.Tensor, tokens: Sequence[torch.Tensor],
-                  d_s: int, compute_dtype=torch.bfloat16
-                  ) -> List[torch.Tensor]:
+def row_views(w, d_s: int) -> List[torch.Tensor]:
+    """The vocabulary's row blocks over ``d_s`` ranks: ``w`` itself when it
+    is a list (each rank's own shard, ``runtime/sharding``), else row views
+    of the whole table over :func:`row_blocks`."""
+    if isinstance(w, (list, tuple)):
+        return list(w)
+    return [w[off:off + rows] for off, rows in row_blocks(w.shape[0], d_s)]
+
+
+def _offsets(blocks: Sequence[torch.Tensor]) -> List[int]:
+    out, off = [], 0
+    for b in blocks:
+        out.append(off)
+        off += b.shape[0]
+    return out
+
+
+def sharded_embed(embed, tokens: Sequence[torch.Tensor], d_s: int,
+                  compute_dtype=torch.bfloat16) -> List[torch.Tensor]:
     """Each rank's rows of the embedding ``[V, D]`` (rank ``r``'s block of
-    :func:`row_blocks` over ``d_s`` ranks, a row view of the stage's one
-    copy) looked up for the gathered ids of the blocks ``tokens`` (zero
-    where an id is not in its block), then reduce-scattered back to the
-    token blocks: exactly ``embed[tokens]``."""
+    :func:`row_blocks` over ``d_s`` ranks: :func:`row_views`, a list of the
+    ranks' shards or one table) looked up for the gathered ids of the
+    blocks ``tokens`` (zero where an id is not in its block), then
+    reduce-scattered back to the token blocks: exactly ``embed[tokens]``."""
     ids = all_gather(tokens)
     parts = []
-    for off, rows in row_blocks(embed.shape[0], d_s):
+    blocks = row_views(embed, d_s)
+    for off, shard in zip(_offsets(blocks), blocks):
+        rows = shard.shape[0]
         loc = ids - off
         ok = (loc >= 0) & (loc < rows)
-        shard = embed[off:off + rows]
         got = shard[loc.clamp(0, max(rows - 1, 0))].to(compute_dtype)
         parts.append(torch.where(ok[:, None], got, 0))
     return reduce_scatter(parts, [t.shape[0] for t in tokens])
@@ -268,15 +287,16 @@ def sharded_embed(embed: torch.Tensor, tokens: Sequence[torch.Tensor],
 
 class _ShardedCE(torch.autograd.Function):
     """(sum of the valid rows' losses, n_valid) over the gathered hidden
-    rows against the vocabulary's row blocks: kernel B per block with the
-    targets shifted by the block's offset (a target outside a block
-    matches none of its rows), the blocks' log-sum-exps merged (their max
-    as a constant shift, the sum of exponentials, the target logits
-    summed); backward: C1 and C2 per block with the merged log-sum-exp,
-    the hidden rows' gradient summed over the blocks."""
+    rows against the vocabulary's row blocks ``ws`` (each rank's shard):
+    kernel B per block with the targets shifted by the block's offset (a
+    target outside a block matches none of its rows), the blocks'
+    log-sum-exps merged (their max as a constant shift, the sum of
+    exponentials, the target logits summed); backward: C1 and C2 per block
+    with the merged log-sum-exp, the hidden rows' gradient summed over the
+    blocks, each block's weight gradient its own shard's."""
 
     @staticmethod
-    def forward(ctx, hidden, w, targets, valid, d_s):
+    def forward(ctx, hidden, targets, valid, *ws):
         from repro_torch.kernels import ops, ref
         from repro_torch.kernels.cross_entropy import TOKEN_MULTIPLE
         T = hidden.shape[0]
@@ -284,10 +304,11 @@ class _ShardedCE(torch.autograd.Function):
         tp = ops.pad_rows(targets.to(torch.int32), TOKEN_MULTIPLE,
                           -1).contiguous()
         vf = ops.pad_rows(valid, TOKEN_MULTIPLE, False).float()
-        blocks = [b for b in row_blocks(w.shape[0], d_s) if b[1]]
+        live = [(i, off) for i, (off, w) in enumerate(zip(_offsets(ws), ws))
+                if w.shape[0]]
         lses, tls = [], []
-        for off, rows in blocks:
-            wr, tr = w[off:off + rows], (tp - off).contiguous()
+        for i, off in live:
+            wr, tr = ws[i], (tp - off).contiguous()
             if hidden.is_cuda:
                 from repro_torch.kernels.cross_entropy import ce_fwd_cuda
                 lse, tl = ce_fwd_cuda(hp, ops._dense(wr), tr)
@@ -297,45 +318,46 @@ class _ShardedCE(torch.autograd.Function):
             lses.append(lse)
             tls.append(tl)
         stack = torch.stack(lses)
-        _count(2 * (len(blocks) - 1) * _nbytes(stack))      # lse and tl
+        _count(2 * (len(live) - 1) * _nbytes(stack))      # lse and tl
         lse = merge_lse(stack)
         tl = torch.stack(tls).sum(0)
-        ctx.save_for_backward(hp, w, tp, lse, vf)
-        ctx.T, ctx.blocks = T, blocks
+        ctx.save_for_backward(hp, tp, lse, vf, *ws)
+        ctx.T, ctx.live = T, live
         return ((lse - tl) * vf).sum(), vf.sum()
 
     @staticmethod
     def backward(ctx, g_loss, _g_count):
         from repro_torch.kernels import ops, ref
-        hp, w, tp, lse, vf = ctx.saved_tensors
+        hp, tp, lse, vf, *ws = ctx.saved_tensors
         g_rows = (vf * g_loss.float()).contiguous()
-        dh = dw = None
-        if ctx.needs_input_grad[1]:
-            dw = torch.zeros_like(w)
-        for off, rows in ctx.blocks:
-            wr, tr = w[off:off + rows], (tp - off).contiguous()
+        dh = None
+        # (a block of no rows takes a zero gradient of no rows)
+        dws = [torch.zeros_like(w) if ctx.needs_input_grad[3 + i]
+               and not w.shape[0] else None for i, w in enumerate(ws)]
+        for i, off in ctx.live:
+            wr, tr = ws[i], (tp - off).contiguous()
+            want_dw = ctx.needs_input_grad[3 + i]
             if hp.is_cuda:
                 from repro_torch.kernels.cross_entropy import (
                     ce_bwd_dh_cuda, ce_bwd_dw_cuda)
                 wd = ops._dense(wr)
                 part = ce_bwd_dh_cuda(hp, wd, tr, lse, g_rows) \
                     if ctx.needs_input_grad[0] else None
-                if dw is not None:
-                    dw[off:off + rows] = ce_bwd_dw_cuda(hp, wd, tr, lse,
-                                                        g_rows)
+                if want_dw:
+                    dws[i] = ce_bwd_dw_cuda(hp, wd, tr, lse, g_rows)
             else:
                 ops.fused_cross_entropy.plain_calls += 1
                 part = ref.cross_entropy_bwd_dh_plain(hp, wr, tr, lse,
                                                       g_rows) \
                     if ctx.needs_input_grad[0] else None
-                if dw is not None:
-                    dw[off:off + rows] = ref.cross_entropy_bwd_dw_plain(
+                if want_dw:
+                    dws[i] = ref.cross_entropy_bwd_dw_plain(
                         hp, wr, tr, lse, g_rows)
             if part is not None:
                 dh = part if dh is None else dh + part
         if dh is not None:
             dh = dh[:ctx.T]
-        return dh, dw, None, None, None
+        return (dh, None, None, *dws)
 
 
 def merge_lse(lses: torch.Tensor) -> torch.Tensor:
@@ -346,20 +368,20 @@ def merge_lse(lses: torch.Tensor) -> torch.Tensor:
     return m + torch.log(torch.exp(lses - m).sum(0).clamp_min(1e-30))
 
 
-def sharded_ce(hidden: Sequence[torch.Tensor], w: torch.Tensor,
+def sharded_ce(hidden: Sequence[torch.Tensor], w,
                targets: Sequence[torch.Tensor], valid: Sequence[torch.Tensor],
                d_s: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Vocabulary-parallel streaming CE over the token blocks ``hidden``
     (the final-normed rows), their ``targets`` and ``valid`` masks, the
-    head ``w [V, D]`` in :func:`row_blocks` over ``d_s`` ranks (logits
-    never made): ``(sum_loss, n_valid)``, as the reference's
-    ``sharded_ce``."""
+    head ``w [V, D]`` in :func:`row_blocks` over ``d_s`` ranks (a list of
+    the ranks' shards, or one table: :func:`row_views`; logits never
+    made): ``(sum_loss, n_valid)``, as the reference's ``sharded_ce``."""
     from repro_torch.kernels.ops import _known_device
     h_g = all_gather(hidden)
     _known_device(h_g, "sharded_ce")
     t_g = all_gather(targets)
     v_g = all_gather(valid)
-    return _ShardedCE.apply(h_g, w, t_g, v_g, d_s)
+    return _ShardedCE.apply(h_g, t_g, v_g, *row_views(w, d_s))
 
 
 def sharded_greedy(*args, **kwargs):
@@ -445,8 +467,7 @@ def make_sp_conv_tail_exchange() -> Callable:
 def make_model(cfg, policy: str, d_s_eff: int):
     """The decoder of one SP group of ``d_s_eff`` ranks under ``policy``
     (the reference's ``_make_model``): the attention policy, expert
-    parallelism over the group (one rank: the routed block itself), the
-    SSM prefix scan and conv halo."""
+    parallelism (``runtime/ep.py``), the SSM prefix scan and conv halo."""
     from repro_torch.models.model import DecoderLM
     if policy == "ulysses":
         if d_s_eff < 2:
@@ -460,9 +481,9 @@ def make_model(cfg, policy: str, d_s_eff: int):
     else:
         raise ValueError(f"unknown SP policy {policy!r}")
     moe_fn = None
-    if cfg.spec.n_experts > 0 and d_s_eff > 1:
-        from .ep import make_moe_ep
-        moe_fn = make_moe_ep(d_s_eff)
+    if cfg.spec.n_experts > 0:      # (one rank holding whole experts: the
+        from .ep import make_moe_ep     # routed block itself, ZeRO-3's
+        moe_fn = make_moe_ep(d_s_eff)   # expert shards: each its own)
     scan = tail = None
     if cfg.spec.ssm_state > 0:
         scan, tail = make_sp_ssm_scan(), make_sp_conv_tail_exchange()

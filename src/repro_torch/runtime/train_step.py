@@ -47,7 +47,8 @@ checks they hold the same bits after it. The gradients' global norm spans
 every stage and counts the tied weight once. On one stage its loss and
 gradients are :class:`ChunkedTrainer`'s, bit for bit. With ``d_s > 1``
 (the sequence-parallel axis) a stage is a ``pipeline.SPStage`` of ``d_s``
-ranks sharing its parameters; each step runs at its plan's SP point
+ranks, each owning its ZeRO-3 shards of the stage's parameters, gradient
+sums and AdamW state; each step runs at its plan's SP point
 (``PipelineGeometry.for_plan``, the decoder of :meth:`PipelineTrainer.
 sp_model`) and each chunk's rows go to the ranks in row blocks
 (:func:`chunk_arrays` with ``blocks``).
@@ -55,7 +56,9 @@ sp_model`) and each chunk's rows go to the ranks in row blocks
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import gc
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -77,11 +80,12 @@ from repro_torch.weights import (OPT_KEYS, from_stages, state_from_stages,
 from .executor import PipelineExecutor, remat_tick_count
 from .pipeline import PipelineGeometry, PipelineStage, SPStage
 from .program import residual_peaks, stage_programs
-from .sharding import layers_per_stage, stage_blocks, stage_devices
+from .sharding import (layers_per_stage, map_layout, shard_layout,
+                       shard_leaf, stage_blocks, stage_devices, unshard_leaf)
 
 __all__ = ["ChunkedTrainer", "PipelineTrainer", "EncDecTrainer",
            "StepResult", "remat_depths", "stage_remat", "chunk_arrays",
-           "sequence_rows", "ROW_MULTIPLE"]
+           "sequence_rows", "pod_plans", "ROW_MULTIPLE"]
 
 ROW_MULTIPLE = 64      # chunk rows are cut to a multiple of this
 
@@ -449,12 +453,27 @@ class PipelineTrainer:
     ``cost_model``, if given, lets interleaved schedules keep each
     stage's residuals within the plan's estimate
     (``program.stage_programs``). The AdamW state is made at the first
-    :meth:`step` (or :meth:`load_state`, which then overwrites it)."""
+    :meth:`step` (or :meth:`load_state`, which then overwrites it).
+
+    At ``d_s > 1`` each of a stage's ranks owns its ZeRO-3 shards
+    (``runtime/sharding``): ``params[p]`` is the list of the ranks' trees,
+    and the float32 gradient sums and AdamW's master, m and v follow them;
+    the global norm counts a shard once and a leaf kept whole on every
+    rank once (the reference's ``_norm_factors``).
+
+    ``n_pods`` data-parallel replicas of the pipeline (the reference's pod
+    axis, one process): a plan's pipelines split over them in order
+    (:func:`pod_plans`), each pod's step from its summed loss, the
+    gradients summed over the pods (through ``optim/compression`` with
+    ``compress_pod_grads``, each pod keeping its error state) and scaled
+    by ``1 / n_valid`` of all pods, then AdamW on every pod's shards with
+    the same norm."""
 
     def __init__(self, cfg: ArchConfig, params: Dict, *,
                  geometry: PipelineGeometry, cards: Sequence,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 cost_model=None):
+                 cost_model=None, n_pods: int = 1,
+                 compress_pod_grads: bool = False):
         g = geometry
         self.cfg, self.geom, self.dtype, self.cm = cfg, g, compute_dtype, \
             cost_model
@@ -462,54 +481,191 @@ class PipelineTrainer:
         self.adamw = AdamWConfig()
         self.devices = stage_devices(g.d_p, cards, g.d_s)
         self.blocks = stage_blocks(g.d_p, cfg.spec.n_layers, g.v_stages)
-        self.params = [
-            tree_map(lambda a, d=dev: a.detach().to(
-                d, compute_dtype, copy=True).requires_grad_(True), sp)
-            for dev, sp in zip(self.devices,
-                               to_stages(cfg, params, g.d_p, g.v_stages))]
-        stage_cls = SPStage if g.d_s > 1 else PipelineStage
-        self.stages = [stage_cls(self.model, p, g, self.blocks[p],
-                                 self.params[p], self.devices[p],
-                                 compute_dtype)
-                       for p in range(g.d_p)]
+        stages = to_stages(cfg, params, g.d_p, g.v_stages)
+        self.n_params = sum(a.numel() for a in tree_leaves(params))
+        if g.d_s > 1:
+            self.layouts = [shard_layout(sp, g.d_s) for sp in stages]
+            self.params = [self._shard(sp, lay, dev) for sp, lay, dev in
+                           zip(stages, self.layouts, self.devices)]
+            self.stages = [SPStage(self.model, p, g, self.blocks[p],
+                                   self.params[p], self.devices[p],
+                                   compute_dtype, self.layouts[p])
+                           for p in range(g.d_p)]
+        else:
+            self.layouts = None
+            self.params = [
+                tree_map(lambda a, d=dev: a.detach().to(
+                    d, compute_dtype, copy=True).requires_grad_(True), sp)
+                for dev, sp in zip(self.devices, stages)]
+            self.stages = [PipelineStage(self.model, p, g, self.blocks[p],
+                                         self.params[p], self.devices[p],
+                                         compute_dtype)
+                           for p in range(g.d_p)]
+        del stages
         self._sp_models: Dict = {}
         self._tie(0)
         self.opt = None
+        if n_pods < 1:
+            raise ValueError(f"n_pods must be >= 1, got {n_pods}")
+        self.compress = compress_pod_grads
+        self.replicas = [
+            PipelineTrainer(cfg, params, geometry=g, cards=cards,
+                            compute_dtype=compute_dtype, cost_model=cost_model)
+            for _ in range(n_pods - 1)]
+        self.err = None         # per pod: each stage's flat error sums
+
+    @property
+    def pods(self) -> List["PipelineTrainer"]:
+        """The pods' trainers, this one first (the others: ``replicas``;
+        a list holding the trainer itself would be a reference cycle)."""
+        return [self, *self.replicas]
+
+    def _shard(self, tree: Dict, layout: Dict, dev) -> List[Dict]:
+        """A stage's tree -> the ranks' trees of their own shards (live
+        parameters of the compute dtype on ``dev``)."""
+        d_s = self.geom.d_s
+        cut = map_layout(lambda spec, a: shard_leaf(
+            a.detach().to(dev, self.dtype), spec, d_s), layout, tree)
+        return [map_layout(lambda spec, sh, r=r: sh[r].requires_grad_(True),
+                           layout, cut) for r in range(d_s)]
+
+    def _leaf_specs(self, p: int) -> List:
+        """Stage ``p``'s flat leaves' :class:`~.sharding.LeafShard` (rank
+        major, as ``tree_leaves(params[p])``); None entries at ``d_s = 1``."""
+        n = len(tree_leaves(self.params[p]))
+        if self.layouts is None:
+            return [None] * n
+        return tree_leaves(self.layouts[p]) * self.geom.d_s
 
     def _tie(self, first: int) -> None:
         """The tied embedding's copies, on stage ``first`` and the last:
-        ``tied_stages`` and ``tied``, their leaf indices (None when one
-        stage holds both uses)."""
+        ``tied_stages``; ``tied_pairs``, their flat leaf indices, a pair a
+        rank, and ``tied``, rank 0's (None when one stage holds both
+        uses)."""
         last = self.geom.d_p - 1
-        self.tied_stages, self.tied = (first, last), None
-        if "embed" in self.params[last] and first != last:
-            self.tied = (self._leaf_index(first, "embed"),
-                         self._leaf_index(last, "embed"))
+        self.tied_stages, self.tied, self.tied_pairs = (first, last), None, []
+        if "embed" in self._tree(last) and first != last:
+            self.tied_pairs = list(zip(self._leaf_index(first, "embed"),
+                                       self._leaf_index(last, "embed")))
+            self.tied = self.tied_pairs[0]
 
-    def _leaf_index(self, p: int, key: str) -> int:
-        target = self.params[p][key]
-        return next(i for i, a in enumerate(tree_leaves(self.params[p]))
-                    if a is target)
+    def _tree(self, p: int) -> Dict:
+        """Stage ``p``'s tree (rank 0's at ``d_s > 1``)."""
+        return self.params[p][0] if self.layouts else self.params[p]
+
+    def _leaf_index(self, p: int, key: str) -> List[int]:
+        """The flat indices of stage ``p``'s leaf ``key`` (one a rank)."""
+        trees = self.params[p] if self.layouts else [self.params[p]]
+        leaves = tree_leaves(self.params[p])
+        return [next(i for i, a in enumerate(leaves) if a is t[key])
+                for t in trees]
 
     def _sum_tied(self, accs: List[List[torch.Tensor]]) -> None:
         """The tied embedding's gradient, the sum of its two copies', in
-        both stages' sums (each copy's summed in its own stage's order, so
-        the bits do not depend on how the stages interleave)."""
-        if self.tied is None:
-            return
-        (p0, p1), (i0, i1) = self.tied_stages, self.tied
-        first, last = accs[p0][i0], accs[p1][i1]
-        first.add_(last.to(first.device))
-        last.copy_(first)
+        both stages' sums, block by block (each copy's summed in its own
+        stage's order, so the bits do not depend on how the stages
+        interleave)."""
+        p0, p1 = self.tied_stages
+        for i0, i1 in self.tied_pairs:
+            first, last = accs[p0][i0], accs[p1][i1]
+            first.add_(last.to(first.device))
+            last.copy_(first)
 
     # ------------------------------------------------------------------
     def loss_and_grads(self, plan: ExecutionPlan,
-                       corpus: Dict[int, np.ndarray], *,
+                       corpus: Dict[int, np.ndarray], *data,
                        remat_policy: str = "stage-aware") -> StepResult:
         """Loss of the mean over valid tokens and float32 gradients in the
         model's structure (``weights.from_stages``; tensors on their
-        stages' devices), the plan's pipelines one after another, each
-        through the executor."""
+        stages' devices; at ``d_s > 1`` gathered from the ranks' shard
+        sums), the plan's pipelines one after another, each through the
+        executor (with pods: the pods' summed gradients); ``data``: what
+        the step takes beside the corpus."""
+        res, accs = self._step_grads(plan, corpus, *data,
+                                     remat_policy=remat_policy)
+        res.grads = self._model_layout(accs)
+        return res
+
+    def _model_layout(self, accs: List[List[torch.Tensor]]) -> Dict:
+        return from_stages(self.cfg, [
+            self._full(p, tree_unflatten(self.params[p], a))
+            for p, a in enumerate(accs)])
+
+    def _step_grads(self, plan, corpus, *data, remat_policy="stage-aware"):
+        """``(result, the float32 gradient sums of the mean loss)``: one
+        pod's run, or every pod's runs and their sum."""
+        if len(self.pods) == 1:
+            return self._run(plan, corpus, *data, remat_policy=remat_policy)
+        runs = self.pod_runs(plan, corpus, *data, remat_policy=remat_policy)
+        n_valid = sum(r.n_valid for r, _ in runs)
+        accs = self.reduce_pods([a for _, a in runs], n_valid)
+        res = dataclasses.replace(
+            runs[0][0], loss=sum(r.loss for r, _ in runs) / max(n_valid, 1),
+            n_valid=n_valid, chunks=plan.n_chunks,
+            remat_layers=sum(r.remat_layers for r, _ in runs))
+        pipes = [r.pipeline for r, _ in runs]
+        res.pipeline = dict(
+            res.pipeline, n_pods=len(self.pods),
+            compress_pod_grads=self.compress,
+            pod_chunks=[r.chunks for r, _ in runs],
+            pod_n_valid=[r.n_valid for r, _ in runs],
+            order_peak_mem=[max(x) for x in zip(*(p["order_peak_mem"]
+                                                  for p in pipes))],
+            **{k: sum(p[k] for p in pipes) for k in (
+                "handoffs", "handoff_bytes", "copied_bytes", "collectives",
+                "collective_bytes")})
+        if "zero3" in res.pipeline:     # (the pods run one after another)
+            zs = [p["zero3"] for p in pipes]
+            res.pipeline["zero3"] = dict(
+                zs[0], peak_live_bytes=max(z["peak_live_bytes"] for z in zs),
+                **{k: sum(z[k] for z in zs) for k in (
+                    "gathers", "gather_bytes", "regathers",
+                    "scatter_bytes")})
+        return res, accs
+
+    def pod_runs(self, plan, corpus, *data, remat_policy="stage-aware"):
+        """Each pod's ``(result, gradient sums)`` on its share of ``plan``
+        (:func:`pod_plans`), from its summed loss (the reference's pods
+        differentiate their summed loss; the loss is its sum)."""
+        out = []
+        for pod, sub in zip(self.pods, pod_plans(plan, len(self.pods))):
+            res, accs = pod._run(sub, corpus, *data,
+                                 remat_policy=remat_policy, seed=1.0)
+            res.loss *= max(res.n_valid, 1)          # the pod's summed loss
+            out.append((res, accs))
+        return out
+
+    @torch.no_grad()
+    def reduce_pods(self, pod_accs: List[List[List[torch.Tensor]]],
+                    n_valid: int) -> List[List[torch.Tensor]]:
+        """The pods' gradient sums summed in pod order (in place into pod
+        0's), through int8 with error feedback when compressing, then
+        scaled by ``1 / n_valid``: every pod's gradient for AdamW."""
+        from repro_torch.optim.compression import init_error_state, q8_psum
+        scale = 1.0 / max(n_valid, 1)
+        if self.compress and self.err is None:
+            self.err = [init_error_state(a) for a in pod_accs]
+        total = pod_accs[0]
+        for p in range(len(total)):
+            for i, t in enumerate(total[p]):
+                if self.compress:
+                    errs = [e[p][i] for e in self.err]
+                    summed, new = q8_psum([a[p][i] for a in pod_accs], errs)
+                    for e, n in zip(errs, new):
+                        e.copy_(n)
+                    t.copy_(summed)
+                    del summed, new
+                else:
+                    for a in pod_accs[1:]:
+                        t.add_(a[p][i])
+                t.mul_(scale)
+        return total
+
+    def _run(self, plan: ExecutionPlan, corpus: Dict[int, np.ndarray],
+             *data, remat_policy: str = "stage-aware",
+             seed: Optional[float] = None):
+        """One pod's step: ``(result, the float32 gradient sums)``, each
+        chunk's loss seeded with ``seed`` (default ``1 / n_valid``)."""
         g = self.geom.for_plan(plan) if self.geom.d_s > 1 else self.geom
         batch = self._materialize(plan, corpus)
         n_valid = int(((batch.seg >= 0) & (batch.targets >= 0)).sum())
@@ -517,11 +673,19 @@ class PipelineTrainer:
         depths = self._stage_depths(plan, remat_policy)
         accs = [[torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                  for p in tree_leaves(sp)] for sp in self.params]
-        scales = [torch.tensor(1.0 / max(n_valid, 1), dtype=torch.float32,
-                               device=d) for d in self.devices]
+        s = 1.0 / max(n_valid, 1) if seed is None else seed
+        scales = [torch.tensor(s, dtype=torch.float32, device=d)
+                  for d in self.devices]
         stats = {"handoffs": 0, "handoff_bytes": 0, "copied_bytes": 0}
         from . import sp
+        from .sharding import ZSTATS, zstats_reset
         sp_before = dict(sp.STATS)
+        if ZSTATS["live_bytes"]:
+            # gathered copies of an earlier step that only a reference
+            # cycle still holds (the first step's lazy imports leave one):
+            # collected, so they neither take memory nor count as gathered
+            gc.collect()
+        zstats_reset()
         order_peaks = [0.0] * g.d_p
         total = torch.zeros((), dtype=torch.float32,
                             device=self.devices[-1])
@@ -529,6 +693,9 @@ class PipelineTrainer:
         cm = self.cm
         if cm is not None and g.d_s > 1:
             cm = cm.with_sp(g.policy, g.d_s_eff)    # a rank's model
+        if g.d_s > 1:
+            for st in self.stages:
+                st.zero3.gather_step()              # (per_step only)
         for pipe in plan.pipelines:
             n = pipe.n_chunks
             programs = stage_programs(
@@ -563,22 +730,47 @@ class PipelineTrainer:
                 loss = st.finish()
             total = total + loss        # the last stage's
             base += n
+        if g.d_s > 1:
+            for st in self.stages:
+                st.zero3.release()
         self._sum_tied(accs)
         stats.update({f"collective_{k}" if k == "bytes" else k:
                       sp.STATS[k] - sp_before[k] for k in sp.STATS})
-        grads = from_stages(self.cfg, [tree_unflatten(t, a) for t, a in
-                                       zip(self.params, accs)])
-        self._accs = accs
+        if g.d_s > 1:
+            stats["zero3"] = dict(
+                {k: v for k, v in ZSTATS.items() if k != "live_bytes"},
+                mode=g.zero3_mode, **self.state_bytes())
         return StepResult(
             loss=float(total) / max(n_valid, 1), n_valid=n_valid,
             chunks=plan.n_chunks,
             remat_layers=int(sum(d for p in depths for j in p for d in j)),
-            grads=grads,
             pipeline=dict(stats, schedule=g.schedule, v=g.v_stages,
                           order_peak_mem=order_peaks,
                           split_bwd=g.split_bwd,
                           **({"sp_policy": g.policy, "d_s_eff": g.d_s_eff,
-                              "d_s": g.d_s} if g.d_s > 1 else {})))
+                              "d_s": g.d_s} if g.d_s > 1 else {}))), accs
+
+    def state_bytes(self) -> Dict:
+        """What each rank of each stage owns (``rank_state_bytes[p][r]``:
+        its live parameters, float32 gradient sums, AdamW master, m and v)
+        and, of that, the bytes of leaves kept whole on every rank
+        (``whole_state_bytes[p][r]``); ``uncounted_state_bytes``: a rank's
+        share of the parameters the planner's count
+        (``ModelSpec.param_count``, the reference's) leaves out (the final
+        norm, and norms and biases beside the projections), which its
+        ``m_model_states`` cannot charge."""
+        per = torch.tensor([], dtype=self.dtype).element_size() + 4 * 4
+        uncounted = max(0, self.n_params - self.cfg.spec.param_count())
+        own, whole = [], []
+        for p, trees in enumerate(self.params):
+            specs = tree_leaves(self.layouts[p])
+            own.append([sum(a.numel() for a in tree_leaves(t)) * per
+                        for t in trees])
+            whole.append([sum(a.numel() for a, sp in zip(tree_leaves(t),
+                                                         specs)
+                              if sp.whole) * per for t in trees])
+        return {"rank_state_bytes": own, "whole_state_bytes": whole,
+                "uncounted_state_bytes": uncounted * per / self.geom.d_s}
 
     def sp_model(self, policy: str, d_s_eff: int) -> DecoderLM:
         """The decoder of one SP group at ``(policy, d_s_eff)``
@@ -620,66 +812,134 @@ class PipelineTrainer:
             return cache[k]
         return inputs
 
-    def step(self, plan: ExecutionPlan, corpus: Dict[int, np.ndarray],
-             *data, remat_policy: str = "stage-aware") -> StepResult:
-        """One training step: :meth:`loss_and_grads` (``data``: what it
-        takes beside the corpus), then AdamW on every stage with the
-        global norm of all stages' gradients (the tied weight once);
-        raises if the tied copies differ after it."""
-        res = self.loss_and_grads(plan, corpus, *data,
-                                  remat_policy=remat_policy)
-        accs, self._accs = self._accs, None
-        self._opt_state()
+    def norm_factors(self, p: int) -> List[float]:
+        """Stage ``p``'s flat leaves' replication over the ranks (the
+        reference's ``_norm_factors``): ``d_s`` for a leaf kept whole on
+        every rank, 1 for a shard."""
+        return [self.geom.d_s if sp is not None and sp.whole else 1.0
+                for sp in self._leaf_specs(p)]
+
+    def grad_norm(self, accs: List[List[torch.Tensor]]) -> torch.Tensor:
+        """The global norm of the gradient sums: every stage's, the tied
+        weight once, each leaf's squares over its :meth:`norm_factors`."""
         dev0 = self.devices[0]
+        skip = {i1 for _, i1 in self.tied_pairs}
         sq = torch.zeros((), dtype=torch.float32, device=dev0)
         for p, acc in enumerate(accs):
-            skip = self.tied[1] if self.tied and p == self.tied_stages[1] \
-                else -1
             part = torch.zeros((), dtype=torch.float32, device=acc[0].device)
-            for i, a in enumerate(acc):
-                if i != skip:
-                    part = part + square_sum(a)
+            for i, (a, f) in enumerate(zip(acc, self.norm_factors(p))):
+                if p == self.tied_stages[1] and i in skip:
+                    continue
+                sq_i = square_sum(a)
+                part = part + (sq_i if f == 1.0 else sq_i / f)
             sq = sq + part.to(dev0)
-        gnorm = sq.sqrt()
-        for p, (sp, acc, st) in enumerate(zip(self.params, accs, self.opt)):
-            adamw_update(self.adamw, sp, tree_unflatten(sp, acc), st,
-                         gnorm=gnorm.to(self.devices[p]))
-        if self.tied is not None:
-            p0, p1 = self.tied_stages
-            a = self.params[p0]["embed"]
-            b = self.params[p1]["embed"].to(a.device)
-            if not torch.equal(a, b):
-                raise RuntimeError("the tied embedding's copies differ "
-                                   "after the update")
-        res.grads = None
+        return sq.sqrt()
+
+    def step(self, plan: ExecutionPlan, corpus: Dict[int, np.ndarray],
+             *data, remat_policy: str = "stage-aware") -> StepResult:
+        """One training step: the gradient sums (``data``: what the step
+        takes beside the corpus; with pods, summed over them), then AdamW
+        on every stage's (every rank's shards; every pod's) state with the
+        global norm of all stages' gradients (the tied weight once);
+        raises if the tied copies differ after it."""
+        res, accs = self._step_grads(plan, corpus, *data,
+                                     remat_policy=remat_policy)
+        gnorm = self.grad_norm(accs)
+        for pod in self.pods:
+            pod._opt_state()
+            for p, (sp, acc, st) in enumerate(zip(pod.params, accs,
+                                                  pod.opt)):
+                adamw_update(pod.adamw, sp, tree_unflatten(sp, acc), st,
+                             gnorm=gnorm.to(pod.devices[p]))
+            pod._check_tied()
         res.grad_norm = float(gnorm)
         return res
 
+    def _check_tied(self) -> None:
+        p0, p1 = self.tied_stages
+        a, b = tree_leaves(self.params[p0]), tree_leaves(self.params[p1])
+        for i0, i1 in self.tied_pairs:
+            if not torch.equal(a[i0], b[i1].to(a[i0].device)):
+                raise RuntimeError("the tied embedding's copies differ "
+                                   "after the update")
+
     def _opt_state(self) -> List[Dict]:
-        """Each stage's AdamW state, made (master from the live parameters,
-        zero moments) the first time it is asked for."""
+        """Each stage's AdamW state (each rank's, over its shards), made
+        (master from the live parameters, zero moments) the first time it
+        is asked for."""
         if self.opt is None:
             self.opt = [init_opt_state(sp) for sp in self.params]
         return self.opt
 
+    def _full(self, p: int, tree):
+        """A stage's tree (parameters or AdamW state) whole: at ``d_s > 1``
+        gathered from the ranks' shards (copies)."""
+        if self.layouts is None:
+            return tree
+        return map_layout(lambda spec, *sh: unshard_leaf(sh, spec),
+                          self.layouts[p], *tree)
+
     def state_tree(self) -> Dict:
         """The trainer's state as a checkpoint tree in the model's layout
-        (``weights.state_from_stages``), which no pipeline depth shapes."""
-        return state_from_stages(self.cfg, self.params, self._opt_state())
+        (``weights.state_from_stages``), which no pipeline depth, ``v``,
+        ``d_s`` or ZeRO-3 mode shapes (at ``d_s > 1`` gathered from the
+        ranks' shards)."""
+        opts = self._opt_state()
+        params = [self._full(p, t) for p, t in enumerate(self.params)]
+        full = [dict({k: self._full(p, o[k]) for k in OPT_KEYS},
+                     step=o["step"]) for p, o in enumerate(opts)]
+        return state_from_stages(self.cfg, params, full)
 
     def load_state(self, state: Dict) -> None:
-        """Overwrite every stage's parameters, AdamW master, m, v and step
-        with the checkpoint tree ``state``'s, re-staged for this trainer's
-        ``d_p`` and ``v`` (``weights.state_to_stages``; a tied embedding
-        into both of its copies), in place."""
+        """Overwrite every stage's (every rank's, every pod's) parameters,
+        AdamW master, m, v and step with the checkpoint tree ``state``'s,
+        re-staged for this trainer's ``d_p`` and ``v`` and cut into its
+        ranks' shards (``weights.state_to_stages``; a tied embedding into
+        both of its copies), in place."""
         g = self.geom
         params, opts = state_to_stages(self.cfg, state, g.d_p, g.v_stages)
-        for sp, st, src_p, src_o in zip(self.params, self._opt_state(),
-                                        params, opts):
-            _copy_into(sp, src_p)
-            for k in OPT_KEYS:
-                _copy_into(st[k], src_o[k])
-            st["step"] = src_o["step"]
+        for pod in self.pods:
+            for p, (sp, st, src_p, src_o) in enumerate(zip(
+                    pod.params, pod._opt_state(), params, opts)):
+                _copy_into(sp, self._cut(p, src_p))
+                for k in OPT_KEYS:
+                    _copy_into(st[k], self._cut(p, src_o[k]))
+                st["step"] = src_o["step"]
+
+    def _cut(self, p: int, tree):
+        """A stage's whole tree as the ranks' trees of shards (itself at
+        ``d_s = 1``)."""
+        if self.layouts is None:
+            return tree
+        d_s = self.geom.d_s
+        cut = map_layout(lambda spec, a: shard_leaf(a, spec, d_s),
+                         self.layouts[p], tree)
+        return [map_layout(lambda spec, sh, r=r: sh[r], self.layouts[p], cut)
+                for r in range(d_s)]
+
+
+def pod_plans(plan: ExecutionPlan, n_pods: int) -> List[ExecutionPlan]:
+    """``plan`` split over ``n_pods`` pods: the reference splits its chunk
+    list into ``n_pods`` equal runs (``launch/train.py``, a reshape of the
+    chunk dim), which can cut a sequence whose carry then crosses pods
+    (``ROADMAP.md`` §3); here each pod takes whole pipelines (a sequence's
+    chunks share one), the cuts at the pipeline boundaries nearest to the
+    reference's. A pod past the last pipeline runs none."""
+    if n_pods == 1:
+        return [plan]
+    ends, n = [], 0
+    for pipe in plan.pipelines:
+        n += pipe.n_chunks
+        ends.append(n)
+    cuts = [0]
+    for q in range(1, n_pods):
+        want = q * n / n_pods
+        best = min(range(cuts[-1], len(ends) + 1),       # (ties: later)
+                   key=lambda i: (abs((ends[i - 1] if i else 0) - want), -i))
+        cuts.append(best)
+    cuts.append(len(plan.pipelines))
+    return [dataclasses.replace(plan, pipelines=plan.pipelines[a:b])
+            for a, b in zip(cuts, cuts[1:])]
 
 
 class EncDecTrainer(PipelineTrainer):
@@ -722,23 +982,25 @@ class EncDecTrainer(PipelineTrainer):
                                    self.params[p], self.devices[p],
                                    compute_dtype, p == first)
                        for p, (role, ids) in enumerate(layout)]
+        self.layouts, self.replicas, self.compress, self.err = None, [], \
+            False, None
         self._tie(first)
         self.opt = None
         self._frames = None
 
-    def loss_and_grads(self, plan: ExecutionPlan,
-                       corpus: Dict[int, np.ndarray], frames: Dict, *,
-                       remat_policy: str = "stage-aware") -> StepResult:
-        """:meth:`PipelineTrainer.loss_and_grads` with each sequence's
-        frames ``frames[sid]`` (``[L, D]``, ``L`` its token count)."""
+    def _run(self, plan: ExecutionPlan, corpus: Dict[int, np.ndarray],
+             frames: Dict, *, remat_policy: str = "stage-aware",
+             seed: Optional[float] = None):
+        """:meth:`PipelineTrainer._run` with each sequence's frames
+        ``frames[sid]`` (``[L, D]``, ``L`` its token count)."""
         if plan.k_split != 1:
             raise ValueError(f"the encoder-decoder runs packed chunks only: "
                              f"plan with fixed_k=1 (got K={plan.k_split})")
         from repro_torch.data.batching import frame_table
         self._frames = frame_table(frames)
         try:
-            return super().loss_and_grads(plan, corpus,
-                                          remat_policy=remat_policy)
+            return super()._run(plan, corpus, remat_policy=remat_policy,
+                                seed=seed)
         finally:
             self._frames = None
 

@@ -1445,21 +1445,71 @@ def test_sp_ssm_scan_on_card_matches_plain(dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["per_tick", "per_step"])
 @pytest.mark.parametrize("arch,policy", [("gemma3-1b", "allgather_kv"),
                                          ("llama3.2-3b", "ulysses"),
                                          ("hymba-1.5b", "allgather_kv")])
-def test_sp_train_step_on_card_matches_cpu(arch, policy):
+def test_sp_train_step_on_card_matches_cpu(arch, policy, mode):
     """A reduced float32 step at ``--mesh 1x2`` (a sequence split over 3
-    chunks, the planner's remat table) on the card, through the kernels,
-    against the same step on the CPU: loss ``rtol 1e-5``, gradients within
-    ``2e-5`` scaled by each leaf's largest value; no plain call on the
-    card."""
+    chunks, the planner's remat table) under ZeRO-3's ``mode`` on the
+    card, through the kernels, against the same step on the CPU: loss
+    ``rtol 1e-5``, gradients within ``2e-5`` scaled by each leaf's largest
+    value; no plain call on the card."""
+    _sp_step_on_card(arch, policy, mode=mode)
+
+
+@pytest.mark.gpu
+def test_pods_train_step_on_card_matches_cpu():
+    """The same step on 2 pods of a ``1 x 2`` ZeRO-3 pipeline (the plan's
+    pipelines split over them, the plain all-reduce) on the card against
+    the CPU."""
+    _sp_step_on_card("gemma3-1b", "allgather_kv", n_pods=2)
+
+
+@pytest.mark.gpu
+def test_compressed_pods_on_card_stay_within_the_bound():
+    """The pods' int8 all-reduce on the card (``optim/compression``, the
+    trainer's ``reduce_pods``): each pod's gradient sums as on the CPU,
+    and every element of their compressed sum within ``n_pods * scale /
+    2`` (over ``n_valid``, as the step scales it) of their plain sum on the
+    card (the card's and the CPU's sums may round an element to
+    neighbouring int8 steps, so the bound, not the CPU's sum, is the
+    check)."""
     dev = _cuda()
+    from repro_torch.optim.compression import q8_scale
+    runs = {}
+    for d in ("cpu", dev):
+        tr, plan, corpus = _sp_trainer("gemma3-1b", "allgather_kv", d,
+                                       n_pods=2, compress=True)
+        runs[str(d)] = (tr, tr.pod_runs(plan, corpus))
+    (_, cpu), (tr, card) = runs["cpu"], runs[str(dev)]
+    for (_, a), (_, b) in zip(cpu, card):
+        for pa, pb in zip(a, b):
+            for x, y in zip(pb, pa):
+                _close(x.cpu(), y, torch.float32)
+    n_valid = sum(r.n_valid for r, _ in card)
+    accs = [a for _, a in card]
+    plain = [[sum(a[p][i] for a in accs) / n_valid
+              for i in range(len(accs[0][p]))] for p in range(len(accs[0]))]
+    scales = [[float(q8_scale([a[p][i] for a in accs],
+                              [torch.zeros_like(accs[0][p][i])] * 2))
+               for i in range(len(accs[0][p]))] for p in range(len(accs[0]))]
+    got = tr.reduce_pods(accs, n_valid)
+    for gp, wp, sp in zip(got, plain, scales):
+        for g, w, s in zip(gp, wp, sp):
+            assert float((g - w).abs().max()) <= 2 * s / 2 / n_valid * \
+                1.0001
+
+
+def _sp_trainer(arch, policy, device, mode="per_tick", n_pods=1,
+                compress=False):
+    """A reduced float32 ``1 x 2`` trainer on ``device``, a plan (a
+    sequence split over 3 chunks, the planner's remat table) and its
+    corpus."""
     from repro_torch.configs import get_arch
     from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
                                   plan_batch)
     from repro_torch.models import DecoderLM
-    from repro_torch.models.model import tree_leaves
     from repro_torch.runtime.pipeline import PipelineGeometry
     from repro_torch.runtime.train_step import PipelineTrainer
     cfg = get_arch(arch).reduced(n_layers=4, d_model=128, n_heads=4,
@@ -1476,14 +1526,23 @@ def test_sp_train_step_on_card_matches_cpu(arch, policy):
     assert max(s.n_chunks for s in plan.sequences) >= 3
     params = DecoderLM(cfg).init(torch.Generator().manual_seed(0),
                                  device="cpu")
-    geom = PipelineGeometry(d_p=1, d_s=2, policy=policy, d_s_eff=2)
+    geom = PipelineGeometry(d_p=1, d_s=2, policy=policy, d_s_eff=2,
+                            zero3_mode=mode)
+    tr = PipelineTrainer(cfg, params, geometry=geom, cards=[device],
+                         compute_dtype=torch.float32, cost_model=cm,
+                         n_pods=n_pods, compress_pod_grads=compress)
+    return tr, plan, corpus
+
+
+def _sp_step_on_card(arch, policy, mode="per_tick", n_pods=1):
+    dev = _cuda()
+    from repro_torch.models.model import tree_leaves
     res = {}
     for d in ("cpu", dev):
         plain = (ops.flash_attention.plain_calls,
                  ops.fused_cross_entropy.plain_calls,
                  ops.mamba_scan.plain_calls)
-        tr = PipelineTrainer(cfg, params, geometry=geom, cards=[d],
-                             compute_dtype=torch.float32, cost_model=cm)
+        tr, plan, corpus = _sp_trainer(arch, policy, d, mode, n_pods)
         res[str(d)] = tr.loss_and_grads(plan, corpus)
         if d is dev:
             torch.cuda.synchronize()

@@ -253,11 +253,23 @@ def test_geometry_checks_and_remaining_refusals():
         PipelineGeometry(d_p=1, d_s=2, policy="ulysses", d_s_eff=1)
     g = PipelineGeometry(d_p=2, d_s=4, policy="allgather_kv", d_s_eff=2)
     assert g.sp_rep == 2
+    # ZeRO-3: per_tick by default at d_s > 1, per_step on request, nothing
+    # at d_s = 1; any other mode refused; the hand-off stays refused
+    assert g.zero3_mode == "per_tick"
+    assert PipelineGeometry(d_p=1, d_s=2, policy="allgather_kv",
+                            zero3_mode="per_step").zero3_mode == "per_step"
+    assert PipelineGeometry(d_p=2).zero3_mode is None
+    assert PipelineGeometry(d_p=2, zero3_mode="per_step").d_s == 1
+    with pytest.raises(ValueError, match="zero3_mode"):
+        PipelineGeometry(d_p=1, d_s=2, policy="allgather_kv",
+                         zero3_mode="per_layer")
+    with pytest.raises(NotImplementedError, match="item 2"):
+        PipelineGeometry(d_p=1, overlap_handoff=True)
     from repro_torch.runtime import sp
     with pytest.raises(NotImplementedError, match="item 7"):
         sp.sharded_greedy()
     _, cfg, _, _, raw = case("gemma3-1b")
-    with pytest.raises(NotImplementedError, match="items 3 and 2"):
+    with pytest.raises(NotImplementedError, match="item 2"):
         PipelineTrainer(cfg, from_jax(cfg, raw, device="cpu"), geometry=g,
                         cards=["cpu", "cpu", "cpu"],
                         compute_dtype=torch.float32)
