@@ -143,8 +143,9 @@ exit and no result line):
            phase's github batches: (a) gemma3-1b at 2x1 under the planner's
            own schedule (interleaved-1f1b, v pinned from step 0), 2 steps;
            (b) gemma3-1b at 4x1 (zero-bubble-h1, split backward), 1 step;
-           (c) hymba-1.5b at 2x1, 1 step under its own schedule and 1 with
-           gpipe-1f1b forced. Per step: loss, tokens, wall time, tokens/s,
+           (c) hymba-1.5b at 2x1 on 16 of its 32 layers (PIPE_LAYERS:
+           cut to keep the script in its time), 1 step under its own
+           schedule and 1 with gpipe-1f1b forced. Per step: loss, tokens, wall time, tokens/s,
            each stage's estimate, the card's peak, the hand-offs and their
            bytes, the bubble share; every loss finite, the card's peak at
            or under the sum of its stages' estimates, each stage's kernel
@@ -224,7 +225,10 @@ exit and no result line):
            (its vocabulary), prompts cut to 512 tokens, 4 new tokens each:
            every id in the vocabulary, A's forward, its tile ranges (and
            the merge pass, where the keys split) 27 times a forward, no
-           plain call;
+           plain call; then the pipelined prefill and decode
+           (``DecodeStepBuilder``, 1x1) on the same prompts and weights,
+           its ids held to those one-shot ids under the near-tie rule (the
+           bf16 one-shot's margins), its launches as ``_decode_expected``;
   kernel_dense  kernels A and A′ at the widths the remaining decoder
            families and the reduced configs need, as the attention
            backward cases above: (160, 160) on train_stablelm's largest
@@ -330,8 +334,9 @@ exit and no result line):
            gate; the checkpoint's bytes, the seconds each ``save`` blocks
            the loop (the second reuses the pinned buffers), each write's
            seconds and GB/s, the restore's seconds; launches as planned;
-  train_elastic  ``launch/elastic.run``: gemma3-1b at full width and
-           depth, 2x1 -> 1x1 -> 2x1 on this card, 2 steps a phase, the
+  train_elastic  ``launch/elastic.run``: gemma3-1b at full width on 13
+           of its 26 layers (ELASTIC_LAYERS: cut to keep the script in its
+           time), 2x1 -> 1x1 -> 2x1 on this card, 2 steps a phase, the
            2x1 phases under zero-bubble-h1 (one virtual stage at both
            depths: a checkpoint moves only between runs of one v), one
            checkpoint and telemetry directory, ``--replan observe``: each
@@ -412,6 +417,43 @@ exit and no result line):
            order, a reduce-scatter keeping each rank's own product, whole
            leaves counted d_s times in the norm, the error feedback
            dropped: ``_zero3_fault``);
+  kernel_decode  kernel A as a rank of a decode step runs it (the op with
+           its log-sum-exp, ``ops.attention_with_lse``): 8 queries, one a
+           sequence, against a rank's 8 x 576 cache rows of hymba-1.5b's
+           2x2 decode (25 / 5 heads of 64, bf16), mid-decode and with no
+           live row (exact zeros, lse -inf), 16 x 1,088 rows (its 1x1),
+           deepseek-v2-lite's (192, 128) over 2 x 576 expanded latent rows,
+           hymba's 1x1 in float32; against the plain attention and lse,
+           bitwise repeat, faults (the causal limit one off), the op's time
+           beside the bytes bound (the cache read once), the plain version
+           and SDPA's;
+  decode_hymba, decode_falcon_mamba  the pipelined prefill and
+           fixed-batch decode (``runtime/serve_step.DecodeStepBuilder``) at
+           full width and depth in bf16, random weights from --seed:
+           hymba-1.5b (32 layers) on 16 prompts of 1,024 tokens of the
+           "github" trace (seed 0), 32 new tokens each, at 1x1 and 2x2 on
+           this card (2 stages, 2 SP ranks, n_micro 2, bm 8);
+           falcon-mamba-7b (64 layers) on 8 such prompts at 1x1. Per run:
+           the prefill's seconds (the batch's TTFT), decode tokens/s and
+           TPOT, the peak memory, the state's bytes beside
+           ``decode_state_bytes`` (a gate), the launches of the prefill and
+           of the decode against ``_decode_expected`` (a gate: A's forward
+           and tile ranges, the merge pass, D's passes); every id in the
+           vocabulary, no plain call;
+  decode_verify  float32 at full width and depth, 2 prompts of 1,024
+           tokens, 8 new tokens: hymba-1.5b at 1x1 and 2x2, falcon-mamba-7b
+           at 1x1, the ids held to ``one_shot_generate`` under
+           ``verify_against_one_shot``'s near-tie rule and the state after
+           the last step to ``forward_chunk``'s carry over the same
+           sequences (``DECODE_STATE_LIMIT``); planted faults caught: the
+           reference's residual (attention term dropped) on hymba, two
+           sequences' SSM states swapped on falcon-mamba;
+  decode_encdec  seamless-m4t-v2 in float32 at full width and depth (24 +
+           24 layers), 2 requests of 256 tokens with 512 frames each from
+           the audio stub (--seed), 8 new tokens, at 1x1 and 2x2 (the
+           frames in blocks over the ranks): the ids held to the
+           teacher-forced ``EncDecLM.encode`` and ``decode`` greedy under
+           the near-tie rule; launches and the state's bytes as above;
   kernels  every kernel of the port with its launch counts on every path
            above (the verify phases' chunked step: the float32 forward, B,
            C1 and C2 run only there).
@@ -502,7 +544,14 @@ def _ptxas_summary(log: str):
     return out
 
 
+# a call that takes this long is timed once after its warm-up: its launch
+# jitter is small beside it (a cut to keep the script in its time)
+ENOUGH_MS = 100.0
+
+
 def _cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds of ``fn`` over ``iters`` calls after ``warmup``
+    (CUDA events); one call when the first takes ENOUGH_MS or more."""
     import torch
     for _ in range(warmup):
         fn()
@@ -510,11 +559,18 @@ def _cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    for _ in range(iters):
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    first = a.elapsed_time(b)
+    if iters <= 1 or first >= ENOUGH_MS:
+        return first
+    a.record()
+    for _ in range(iters - 1):
         fn()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
+    return (first + a.elapsed_time(b)) / iters
 
 
 # ---------------------------------------------------------------------------
@@ -2373,6 +2429,9 @@ PIPE_RUNS = (("a", "gemma3-1b", 2, None, 2),
              ("b", "gemma3-1b", 4, None, 1),
              ("c", "hymba-1.5b", 2, None, 1),
              ("c", "hymba-1.5b", 2, "gpipe-1f1b", 1))
+# hymba-1.5b's layers in train_pipeline's runs: 16 of 32, to keep the
+# script in its time
+PIPE_LAYERS = {"hymba-1.5b": 16}
 
 
 @contextlib.contextmanager
@@ -2504,6 +2563,8 @@ def phase_train_pipeline(dev, seed):
     recs, totals = [], {}
     for tag, arch, d_p, sched, steps in PIPE_RUNS:
         cfg = get_arch(arch)
+        if arch in PIPE_LAYERS:
+            cfg = cfg.with_layers(PIPE_LAYERS[arch])
         loop = _train_loop(seed)
         loop.steps, loop.d_p, loop.schedule = steps, d_p, sched
         ctr = _train_counters()
@@ -3194,6 +3255,25 @@ def phase_generate(dev, seed, arch=MLA):
                weights_gb=weights_gb,
                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
                launches={k: v for k, v in counts.items() if v})
+    decode_counts = None
+    if arch == MLA:
+        # the pipelined prefill and decode on the same weights and prompts,
+        # held to these one-shot ids under the near-tie rule (the margins
+        # of the bf16 one-shot forward)
+        from repro_torch.serve.engine import verify_against_one_shot
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        dec_ids, drec = _decode_run(dev, cfg, params, prompts, GEN_NEW,
+                                    (1, 1), torch.bfloat16, ctr, n_sm)
+        ok, lines = verify_against_one_shot(
+            cfg, params, prompts, dec_ids, GEN_NEW,
+            compute_dtype=torch.bfloat16, device=dev, reference=ids)
+        drec.update(ids=dec_ids, ok=ok, lines=lines)
+        rec["decode"] = drec
+        decode_counts = {k: drec["launches_prefill"].get(k, 0)
+                         + drec["launches_decode"].get(k, 0) for k in ctr}
+        if not ok:
+            raise PhaseError(f"the pipelined decode differs from the "
+                             f"one-shot ids: {rec}")
     del params
     torch.cuda.empty_cache()
     if any(len(x) != GEN_NEW or not all(0 <= t < s.vocab for t in x)
@@ -3202,7 +3282,7 @@ def phase_generate(dev, seed, arch=MLA):
     bad = {k: (counts[k], v) for k, v in expected.items() if counts[k] != v}
     if bad:
         raise PhaseError(f"launch counts (got, expected): {bad}; {rec}")
-    return rec, counts
+    return rec, counts, decode_counts
 
 
 # ---------------------------------------------------------------------------
@@ -4255,6 +4335,9 @@ RESTART_LAYERS = 13
 # = 13 there, and a checkpoint moves only between runs of one v: the
 # reference's guard)
 ELASTIC_STEPS, ELASTIC_SCHEDULE = 2, "zero-bubble-h1"
+# gemma3-1b's layers in train_elastic: 13 of 26, as train_restart's, to
+# keep the script in its time
+ELASTIC_LAYERS = 13
 # re-planning: 2x1, gemma3-1b cut to 2 of 26 layers (every width kept) and
 # batches of 8 x 4096 tokens so that four runs of 12 steps fit the time
 # budget; the auto run's controller with a cooldown of 4 steps (default
@@ -4482,8 +4565,9 @@ def phase_train_restart(dev, seed):
 
 
 def phase_train_elastic(dev, seed):
-    """``launch/elastic.run`` on one card: gemma3-1b at full width and
-    depth, bf16, the train phase's batches, 2x1 -> 1x1 -> 2x1 (2x1 under
+    """``launch/elastic.run`` on one card: gemma3-1b at full width on
+    :data:`ELASTIC_LAYERS` of its layers, bf16, the train phase's batches,
+    2x1 -> 1x1 -> 2x1 (2x1 under
     :data:`ELASTIC_SCHEDULE`) with a shared checkpoint and telemetry
     directory,
     ``--replan observe`` with inline jobs. Gates: each restore, re-staged,
@@ -4496,7 +4580,7 @@ def phase_train_elastic(dev, seed):
     import torch
 
     from repro_torch.launch import elastic
-    cfg = _arch("gemma3-1b")
+    cfg = _arch("gemma3-1b").with_layers(ELASTIC_LAYERS)
     launches = _PathLaunches(dev)
     d_p = {name: n for name, n, _ in elastic.PHASES}
     prev = {"shrink": "phase 1", "grow": "shrink"}
@@ -5615,6 +5699,556 @@ def phase_train_sp_verify(dev, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the pipelined prefill and fixed-batch decode: hymba-1.5b and
+# falcon-mamba-7b at full width and depth, their float32 verify against the
+# one-shot oracle, seamless-m4t-v2, and kernel A at a decode step's shapes
+# ---------------------------------------------------------------------------
+
+HYMBA, FALCON = "hymba-1.5b", "falcon-mamba-7b"
+# bf16 decode: (prompts, prompt tokens, new tokens, meshes on the one card)
+DECODE_RUNS = {HYMBA: (16, 1024, 32, ((1, 1), (2, 2))),
+               FALCON: (8, 1024, 32, ((1, 1),))}
+# the float32 verify: (prompts, new tokens, meshes); prompts of 1,024
+DECODE_VERIFY = {HYMBA: (2, 8, ((1, 1), (2, 2))), FALCON: (2, 8, ((1, 1),))}
+# seamless-m4t-v2: requests, prompt tokens, frames, new tokens, meshes
+ENCDEC_DECODE = (2, 256, 512, 8, ((1, 1), (2, 2)))
+
+
+def _decode_prompts(vocab, n, length):
+    """``n`` prompts of ``length`` tokens: the first ``n`` prompts of the
+    "github" request trace (seed 0) at least that long, cut to it."""
+    from repro_torch.data import sample_request_trace
+    trace = sample_request_trace("github", 8 * n, 4096, vocab, seed=0,
+                                 max_new_tokens=32)
+    out = [[int(t) for t in r["prompt"][:length]] for r in trace
+           if len(r["prompt"]) >= length][:n]
+    if len(out) < n:
+        raise PhaseError(f"the trace has {len(out)} prompts of {length} "
+                         f"tokens, not {n}")
+    return out
+
+
+def _decode_expected(cfg, geom, dtype, prompt, steps, n_sm, sp_prefill,
+                     frames=0):
+    """Launches of one ``DecodeStepBuilder``'s prefill (every prompt of
+    ``prompt`` tokens in one chunk) and of its ``steps`` decode
+    steps, as the code's shapes give them: per attention op the forward
+    (and its tile ranges where the op computes them: always in decode,
+    which keeps the lse; bf16 only in the prefill), the merge pass where
+    ``kv_splits`` splits the keys; per mamba layer and chunk kernel D's
+    three passes (on SP ranks ``2 d_s - 1`` scans: each rank's, and a
+    summary from zero for every rank but the last); the encoder-decoder's
+    encoder (non-causal over the frames) and cross-attention; no
+    backward, no plain call."""
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import FWD_KERNELS, kv_splits
+    from repro_torch.kernels.mamba_scan import mamba_scan_fwd_cuda
+    s = cfg.spec
+    L, d, B = s.n_layers, geom.d_s, geom.batch_per_pod
+    bf16 = dtype == torch.bfloat16
+    pad = lambda n: -(-n // 32) * 32  # noqa: E731
+    pre, dec = Counter(), Counter()
+
+    def att(c, T, S, n, tiles):
+        c[FWD_KERNELS[dtype]] += n
+        c["flash_bwd_tiles_kernel"] += n if tiles else 0
+        c["flash_combine_kernel"] += n * (kv_splits(
+            pad(T), pad(S), s.n_heads, n_sm, dtype) > 1)
+    if s.is_encoder_decoder:
+        att(pre, frames, frames, B * s.n_encoder_layers, bf16)
+    T = prompt
+    if not s.attn_free:
+        if sp_prefill:
+            b = -(-T // d)
+            att(pre, b, d * b, B * L * d, bf16)
+        else:
+            att(pre, T, T, B * L, bf16)
+    if s.is_encoder_decoder:
+        att(pre, T, frames, B * L, bf16)
+    if s.ssm_state > 0:
+        for k in mamba_scan_fwd_cuda.KERNELS:
+            pre[k] += B * L * ((2 * d - 1) if sp_prefill else 1)
+    n = steps * geom.n_micro * L * d
+    if not s.attn_free:
+        att(dec, geom.bm, geom.bm * geom.s_loc, n, True)
+    if s.is_encoder_decoder:
+        s_mem_loc = -(-frames // d)
+        att(dec, geom.bm, geom.bm * s_mem_loc, n, True)
+    return pre, dec
+
+
+def _check_launches(counts, expected, what):
+    bad = {k: (counts.get(k, 0), expected.get(k, 0))
+           for k in set(counts) | set(expected)
+           if counts.get(k, 0) != expected.get(k, 0)}
+    if bad:
+        raise PhaseError(f"{what}: launch counts (got, expected): {bad}")
+
+
+def _state_bytes(state):
+    """Bytes the decode state's tensors hold (each storage once)."""
+    import torch
+    seen, total = set(), 0
+
+    def walk(x):
+        nonlocal total
+        if isinstance(x, torch.Tensor):
+            key = x.untyped_storage().data_ptr()
+            if key not in seen:
+                seen.add(key)
+                total += x.untyped_storage().nbytes()
+        elif isinstance(x, (list, tuple)):
+            for y in x:
+                walk(y)
+    for v in state.values():
+        walk(v)
+    return total
+
+
+def _decode_run(dev, cfg, params, prompts, new, mesh, dtype, ctr, n_sm,
+                frames=None, fault=None, keep=None):
+    """One ``DecodeStepBuilder`` at ``mesh`` over ``prompts``: prefill,
+    then ``new - 1`` steps, each bracketed by ``torch.cuda.synchronize``.
+    Returns the ids and the record (TTFT = the batch's prefill seconds,
+    decode tokens/s and TPOT, peak memory, the state's bytes beside
+    ``decode_state_bytes``, launches of each part against
+    :func:`_decode_expected`, plain calls). ``fault(state)`` is applied
+    after the prefill; ``keep(geom, state)`` sees the state after the last
+    step."""
+    import torch
+
+    from repro_torch.runtime.serve_step import (DecodeStepBuilder,
+                                                decode_state_bytes)
+    d_p, d_s = mesh
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    b = DecodeStepBuilder(cfg, params, d_p=d_p, d_s=d_s, compute_dtype=dtype,
+                          device=dev)
+    _zero_counts(ctr)
+    t0 = time.perf_counter()
+    first, state = b.prefill(prompts, frames, max_new=new)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    pre = _read_counts(ctr)
+    if fault is not None:
+        fault(state)
+    _zero_counts(ctr)
+    ids = [[t] for t in first]
+    t0 = time.perf_counter()
+    for _ in range(new - 1):
+        for o, t in zip(ids, b.step(state)):
+            o.append(t)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    dec = _read_counts(ctr)
+    steps = new - 1
+    s_mem = None if frames is None else -(-frames[0].shape[0] // d_s) * d_s
+    want_pre, want_dec = _decode_expected(
+        cfg, b.geom, dtype, len(prompts[0]), steps, n_sm, b.sp_prefill,
+        0 if frames is None else frames[0].shape[0])
+    rec = dict(mesh=f"{d_p}x{d_s}", dtype=_dtype_name(dtype),
+               prompts=len(prompts), prompt_tokens=len(prompts[0]),
+               new_tokens=new, n_micro=b.geom.n_micro, bm=b.geom.bm,
+               s_loc=b.geom.s_loc, ttft_s=ttft, decode_s=dec_s,
+               decode_tokens_per_s=len(prompts) * steps / dec_s,
+               tpot_ms=1e3 * dec_s / steps,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               allocated_before_gb=before / 1e9,
+               state_bytes=_state_bytes(state),
+               decode_state_bytes=decode_state_bytes(b.geom, cfg,
+                                                     s_mem=s_mem),
+               launches_prefill={k: v for k, v in pre.items() if v},
+               launches_decode={k: v for k, v in dec.items() if v})
+    if keep is not None:
+        keep(b.geom, state)
+    del b, state
+    if any(not 0 <= t < cfg.spec.vocab for x in ids for t in x):
+        raise PhaseError(f"ids outside the vocabulary: {rec}")
+    plain = {k: pre[k] + dec[k] for k in pre if k.startswith("plain")}
+    if any(plain.values()):
+        raise PhaseError(f"plain calls on the card: {plain}; {rec}")
+    if rec["state_bytes"] != rec["decode_state_bytes"]:
+        raise PhaseError(f"the state holds {rec['state_bytes']} bytes, "
+                         f"decode_state_bytes says "
+                         f"{rec['decode_state_bytes']}: {rec}")
+    _check_launches(pre, want_pre, f"prefill {rec}")
+    _check_launches(dec, want_dec, f"decode {rec}")
+    return ids, rec
+
+
+def phase_decode(dev, arch, params):
+    """``arch`` in bf16 at full width and depth (``params``: its weights in
+    bf16) through the pipelined prefill and decode at each of its
+    ``DECODE_RUNS`` meshes on the one card. Gates: every id in the
+    vocabulary, no plain call, the state's bytes as ``decode_state_bytes``,
+    launches as :func:`_decode_expected`. Returns the records and each
+    mesh's launches (prefill and decode together)."""
+    import torch
+    cfg = _arch(arch)
+    n, length, new, meshes = DECODE_RUNS[arch]
+    prompts = _decode_prompts(cfg.spec.vocab, n, length)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    ctr = _train_counters()
+    recs, counts = [], {}
+    for mesh in meshes:
+        _, rec = _decode_run(dev, cfg, params, prompts, new, mesh,
+                             torch.bfloat16, ctr, n_sm)
+        rec["layers"] = cfg.spec.n_layers
+        recs.append(rec)
+        counts[rec["mesh"]] = {k: rec["launches_prefill"].get(k, 0)
+                               + rec["launches_decode"].get(k, 0)
+                               for k in ctr}
+        torch.cuda.empty_cache()
+    return recs, counts
+
+
+def _attention_dropped():
+    """The reference's residual (``decode_step_fn`` never adds its
+    attention output): the attention runs and writes its cache row, and
+    the layer gets zeros from it."""
+    import contextlib
+
+    from repro_torch.runtime import serve_step
+    orig = serve_step.decode_attention
+
+    @contextlib.contextmanager
+    def patched():
+        serve_step.decode_attention = \
+            lambda *a, **k: orig(*a, **k).mul_(0)
+        try:
+            yield
+        finally:
+            serve_step.decode_attention = orig
+    return patched()
+
+
+def _swap_ssm_states(state):
+    """Sequences 0 and 1 of microbatch 0 exchange their SSM states in
+    every layer (the tokens stay)."""
+    for stage in state["ssm_h"]:
+        for blk in stage:
+            blk[0, :, [0, 1]] = blk[0, :, [1, 0]]
+
+
+# the decode state after the last step against ``forward_chunk``'s carry
+# over each sequence: the largest difference over the largest magnitude of
+# each field and layer (float32)
+DECODE_STATE_LIMIT = 1e-3
+
+
+def _state_error(cfg, params32, prompts, ids, geom, state, dev):
+    """The largest error of the decode state (KV rows, SSM state and conv
+    tail of every layer and sequence) against the carry of
+    ``DecoderLM.forward_chunk`` over the sequence it holds (the prompt and
+    every id but the last, teacher-forced), each field's difference over
+    its largest magnitude."""
+    import torch
+
+    from repro_torch.models import DecoderLM
+    model, L_s, worst = DecoderLM(cfg), geom.layers_per_stage, 0.0
+    for i, (prompt, got) in enumerate(zip(prompts, ids)):
+        seq = list(prompt) + list(got[:-1])
+        n = len(seq)
+        with torch.no_grad():
+            _, ctx = model.forward_chunk(
+                params32, torch.tensor(seq, device=dev),
+                torch.zeros(n, dtype=torch.int32, device=dev),
+                torch.arange(n, dtype=torch.int32, device=dev),
+                ctx=model.init_ctx(n, torch.float32, device=dev),
+                compute_dtype=torch.float32)
+        m, b = divmod(i, geom.bm)
+        for layer in range(cfg.spec.n_layers):
+            p, l = divmod(layer, L_s)
+            for key, want, dim in (("cache_k", ctx.k, 0),
+                                   ("cache_v", ctx.v, 0),
+                                   ("ssm_h", ctx.ssm_h, 0),
+                                   ("conv_tail", ctx.ssm_tail, 1)):
+                if key not in state:
+                    continue
+                got_f = torch.cat([r[m, l, b] for r in state[key][p]],
+                                  dim=dim)
+                w = want[layer]
+                if key.startswith("cache"):
+                    got_f = got_f[:n]
+                err = float((got_f.float() - w.float()).abs().max())
+                worst = max(worst, err / max(float(w.abs().max()), 1e-30))
+    return worst
+
+
+def phase_decode_verify(dev, arch, params32):
+    """float32 at full width and depth: ``DECODE_VERIFY[arch]`` prompts of
+    1,024 tokens at each mesh, held to the port's ``one_shot_generate``
+    (``DecoderLM.forward_chunk`` over prompt and ids, a whole forward a
+    token) under ``verify_against_one_shot``'s near-tie rule, and the
+    state after the last step to ``forward_chunk``'s carry over the same
+    sequences within ``DECODE_STATE_LIMIT`` (:func:`_state_error`; the
+    ids alone barely see a mamba state: at these random weights its share
+    of a layer's output is small beside the skip's); a planted fault
+    (hymba: the reference's residual, the attention term dropped;
+    falcon-mamba: two sequences' SSM states swapped) must fail them."""
+    import torch
+
+    from repro_torch.serve.engine import (one_shot_generate,
+                                          verify_against_one_shot)
+    cfg = _arch(arch)
+    n, new, meshes = DECODE_VERIFY[arch]
+    prompts = _decode_prompts(cfg.spec.vocab, n, 1024)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    ctr = _train_counters()
+    t0 = time.perf_counter()
+    ref_ids = one_shot_generate(cfg, params32, prompts, new,
+                                compute_dtype=torch.float32, device=dev)
+    out = dict(arch=arch, layers=cfg.spec.n_layers, prompts=n,
+               new_tokens=new, one_shot_s=time.perf_counter() - t0,
+               runs=[])
+
+    def check(ids):
+        return verify_against_one_shot(cfg, params32, prompts, ids, new,
+                                       compute_dtype=torch.float32,
+                                       device=dev, reference=ref_ids)
+    counts, held = {}, {}
+
+    def keep(geom, state):
+        held["geom"], held["state"] = geom, state
+
+    def state_err(ids):
+        err = _state_error(cfg, params32, prompts, ids, held["geom"],
+                           held.pop("state"), dev)
+        return err, err <= DECODE_STATE_LIMIT
+    for mesh in meshes:
+        ids, rec = _decode_run(dev, cfg, params32, prompts, new, mesh,
+                               torch.float32, ctr, n_sm, keep=keep)
+        ok, lines = check(ids)
+        err, state_ok = state_err(ids)
+        rec.update(ok=ok, lines=lines, state_rel_err=err,
+                   state_limit=DECODE_STATE_LIMIT)
+        out["runs"].append(rec)
+        counts[rec["mesh"]] = {k: rec["launches_prefill"].get(k, 0)
+                               + rec["launches_decode"].get(k, 0)
+                               for k in ctr}
+        if not (ok and state_ok):
+            raise PhaseError(f"decode differs from the one-shot oracle: "
+                             f"{rec}")
+    if arch == HYMBA:
+        fault, ctx, hook = "attention term dropped", _attention_dropped(), \
+            None
+    else:
+        import contextlib
+        fault, ctx, hook = "SSM states swapped", contextlib.nullcontext(), \
+            _swap_ssm_states
+    with ctx:
+        ids, _ = _decode_run(dev, cfg, params32, prompts, new, (1, 1),
+                             torch.float32, ctr, n_sm, fault=hook, keep=keep)
+    ok, lines = check(ids)
+    err, state_ok = state_err(ids)
+    out["fault"] = dict(fault=fault, ids_caught=not ok,
+                        state_rel_err=err, state_caught=not state_ok,
+                        lines=lines)
+    if ok and state_ok:
+        raise PhaseError(f"the verify does not catch {fault!r}: {out}")
+    return out, counts
+
+
+def _encdec_one_shot(model, params, prompt, frames, new, dev):
+    """The teacher-forced oracle of the encoder-decoder: its memory from
+    ``EncDecLM.encode``, then per token ``EncDecLM.decode`` over the
+    prompt and the ids so far, the final norm and the greedy head. Returns
+    the ids and, per step, (top-1 minus top-2 logit, max |logit|)."""
+    import torch
+
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.runtime.serve_step import greedy_ids
+    n = frames.shape[0]
+    z = lambda k: torch.zeros(k, dtype=torch.int32, device=dev)  # noqa
+    ar = lambda k: torch.arange(k, dtype=torch.int32, device=dev)  # noqa
+    with torch.no_grad():
+        mem = model.encode(params, frames.to(dev), z(n), ar(n))
+        seq, ids, margins = list(prompt), [], []
+        for _ in range(new):
+            h = model.decode(params, torch.tensor(seq, device=dev),
+                             z(len(seq)), ar(len(seq)), mem, z(n),
+                             compute_dtype=torch.float32)
+            h = rms_norm(h[-1:], params["final_norm"], model.cfg.rms_eps)
+            logits = (h.float() @ params["embed"].float().T)[0]
+            top = torch.topk(logits, 2).values
+            margins.append((float(top[0] - top[1]),
+                            float(logits.abs().max())))
+            t = int(greedy_ids(h, params["embed"])[0])
+            ids.append(t)
+            seq.append(t)
+    return ids, margins
+
+
+def phase_decode_encdec(dev, seed):
+    """seamless-m4t-v2 in float32 at full width and depth (24 + 24 layers):
+    ``ENCDEC_DECODE`` requests with frames from the audio stub (a
+    generator seeded with ``seed``), through the pipelined prefill (the
+    encoder, then the decoder behind its KV carry) and decode (the
+    cross-attention over the ranks' frame blocks) at each mesh, held to the
+    teacher-forced encode and decode greedy under the near-tie rule."""
+    import torch
+
+    from repro_torch.models import EncDecLM
+    from repro_torch.models.frontends import audio_frame_stub
+    from repro_torch.serve.engine import NEAR_TIE
+    cfg = _arch(SEAMLESS)
+    n, length, n_frames, new, meshes = ENCDEC_DECODE
+    prompts = _decode_prompts(cfg.spec.vocab, n, length)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = EncDecLM(cfg)
+    params = model.init(gen, device=dev, dtype=torch.float32)
+    frames = [audio_frame_stub(cfg, gen, n_frames, device=dev,
+                               dtype=torch.float32) for _ in range(n)]
+    oracle = [_encdec_one_shot(model, params, p, f, new, dev)
+              for p, f in zip(prompts, frames)]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    ctr = _train_counters()
+    recs, counts = [], {}
+    for mesh in meshes:
+        ids, rec = _decode_run(dev, cfg, params, prompts, new, mesh,
+                               torch.float32, ctr, n_sm, frames=frames)
+        ok, lines = True, []
+        for i, (got, (want, margins)) in enumerate(zip(ids, oracle)):
+            j = next((t for t in range(new) if got[t] != want[t]), None)
+            if j is None:
+                lines.append(f"request {i}: {new} ids match")
+                continue
+            margin, scale = margins[j]
+            tolerated = margin < NEAR_TIE * scale
+            ok &= tolerated
+            lines.append(f"request {i}: ids differ at {j} ({got[j]} vs "
+                         f"{want[j]}); margin {margin:.3e} vs {NEAR_TIE:g}"
+                         f" * {scale:.3e}: "
+                         f"{'near-tie' if tolerated else 'MISMATCH'}")
+        rec.update(frames=n_frames, layers=cfg.spec.n_layers
+                   + cfg.spec.n_encoder_layers, ok=ok, lines=lines)
+        recs.append(rec)
+        counts[rec["mesh"]] = {k: rec["launches_prefill"].get(k, 0)
+                               + rec["launches_decode"].get(k, 0)
+                               for k in ctr}
+        if not ok:
+            raise PhaseError(f"decode differs from the oracle: {rec}")
+    del params
+    return recs, counts
+
+
+def _decode_attn_case(name, Hq, Hkv, Dk, Dv, bm, s_loc, offset, length,
+                      window, dtype, dev, seed):
+    """Kernel A as one rank of a decode step runs it
+    (``ops.attention_with_lse``): ``bm`` queries at position ``length``,
+    one a sequence, against the rank's ``bm x s_loc`` cache rows whose
+    global rows start at ``offset``, against the plain attention and its
+    lse; a rank with no live row must give zeros and ``-inf``. Faults: the
+    causal limit one off, a window one off. Times: the op (tile ranges,
+    forward, merge pass), the plain version, SDPA with the boolean mask;
+    the bound: the cache read once."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import kv_splits
+    from repro_torch.models.attention import decode_meta
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def mk(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    q, k, v = mk(bm, Hq, Dk), mk(bm * s_loc, Hkv, Dk), mk(bm * s_loc, Hkv,
+                                                          Dv)
+    seg_q, seg_kv, row = decode_meta(bm, s_loc, offset, dev)
+    pos = torch.full((bm,), length, dtype=torch.int32, device=dev)
+    args = dict(q=q, k=k, v=v, seg_q=seg_q, seg_kv=seg_kv, pos_q=pos,
+                pos_kv=row, window=window)
+    out, lse = ops.attention_with_lse(**args)
+    want = ref.flash_attention_reference(**args)
+    want_lse = ref.flash_attention_lse(q, k, seg_q, seg_kv, pos, row,
+                                       window=window)
+    max_err, ok = _within(out, want, dtype)
+    live = torch.isfinite(want_lse)
+    lse_err, lse_ok = _within(lse[live], want_lse[live], torch.float32) \
+        if bool(live.any()) else (0.0, True)
+    lse_ok &= bool(torch.equal(torch.isfinite(lse), live))
+    again = [ops.attention_with_lse(**args) for _ in range(2)]
+    bitwise = all(torch.equal(a, out) and torch.equal(b, lse)
+                  for a, b in again)
+    faults = {"causal off by one": dict(pos_q=pos - 1)}
+    if window > 0:
+        faults["window - 1"] = dict(window=window - 1)
+    caught, missed = {}, []
+    for fault, change in faults.items():
+        caught[fault], inside = _within(
+            ops.attention_with_lse(**{**args, **change})[0], want, dtype)
+        if inside:
+            missed.append(fault)
+    if not bool(live.any()):        # a rank with no live row: no fault
+        caught, missed = {}, []     # moves its (zero) output
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    kernel_ms = _cuda_ms(lambda: ops.attention_with_lse(**args))
+    plain_ms = _cuda_ms(lambda: (ref.flash_attention_reference(**args),
+                                 ref.flash_attention_lse(
+                                     q, k, seg_q, seg_kv, pos, row,
+                                     window=window)), iters=5, warmup=1)
+    mask = ref.attention_mask(seg_q, seg_kv, pos, row, True, window)
+    G = Hq // Hkv
+    ke = k.repeat_interleave(G, dim=1).transpose(0, 1)[None]
+    ve = v.repeat_interleave(G, dim=1).transpose(0, 1)[None]
+    qe = q.transpose(0, 1)[None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = _cuda_ms(lambda: sdpa(qe, ke, ve, attn_mask=mask),
+                          iters=5, warmup=1)
+    pairs = int(mask.sum()) * Hq
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out, lse))
+    nbytes += sum(t.numel() * 4 for t in (seg_q, seg_kv, pos, row))
+    bound_ms, bound_by = _bound((2.0 * Dk + 2.0 * Dv) * pairs, nbytes, dtype)
+    rec = dict(case=name, dtype=_dtype_name(dtype), T=bm, S=bm * s_loc,
+               Hq=Hq, Hkv=Hkv, D=Dk, Dv=Dv, window=window, length=length,
+               rows_offset=offset, live_pairs=pairs,
+               n_split=kv_splits(32, bm * s_loc, Hq, n_sm, dtype),
+               max_abs_err=max_err, lse_max_abs_err=lse_err,
+               tol=TOL[_dtype_name(dtype)], within_tol=ok and lse_ok,
+               bitwise_repeat=bitwise, faults_max_abs_err=caught,
+               faults_within_tol=missed, kernel_ms=kernel_ms,
+               kernel_ms_is="the op: pad, tile ranges, forward with lse, "
+                            "merge pass where n_split > 1",
+               plain_ms=plain_ms, library_ms=library_ms,
+               library_is="scaled_dot_product_attention forward, the same "
+                          "boolean mask (GQA heads expanded beforehand)",
+               bound_ms=bound_ms, bound_by=bound_by)
+    del ke, ve, mask
+    if not (ok and lse_ok):
+        raise PhaseError(f"kernel disagrees with the plain version: {rec}")
+    if not bitwise:
+        raise PhaseError(f"two launches of the forward differ: {rec}")
+    if missed:
+        raise PhaseError(f"the tolerance does not catch {missed}: {rec}")
+    return rec
+
+
+def phase_kernel_decode(dev, seed):
+    """Kernel A at a decode step's shapes: hymba-1.5b's 2x2 rank (8
+    sequences x 576 rows, 25 / 5 heads of 64) in bf16, a rank with live
+    rows and one without; deepseek-v2-lite's (192, 128) over generate's
+    expanded latent rows (2 sequences x 576 rows, 16 heads); hymba's 1x1
+    rank in float32 (the verify's)."""
+    import torch
+    bf, f32 = torch.bfloat16, torch.float32
+    return [
+        _decode_attn_case("hymba 2x2 rank 1 mid-decode", 25, 5, 64, 64, 8,
+                          576, 576, 1040, 0, bf, dev, seed),
+        _decode_attn_case("hymba 2x2 rank 1 no live row", 25, 5, 64, 64, 8,
+                          576, 576, 1024 - 500, 0, bf, dev, seed + 1),
+        _decode_attn_case("hymba 1x1 bm 16", 25, 5, 64, 64, 16, 1088, 0,
+                          1040, 0, bf, dev, seed + 2),
+        _decode_attn_case("deepseek (192, 128) bm 2", 16, 16, 192, 128, 2,
+                          576, 0, 514, 0, bf, dev, seed + 3),
+        _decode_attn_case("hymba 1x1 float32 bm 2", 25, 5, 64, 64, 2, 1088,
+                          0, 1030, 0, f32, dev, seed + 4),
+    ]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -5802,7 +6436,7 @@ def main() -> int:
     verify_mla_counts = ver["launches"]
     torch.cuda.empty_cache()
     with _moe_watch() as watch:
-        (gen_mla, gen_mla_counts), dt = run(
+        (gen_mla, gen_mla_counts, gen_mla_decode), dt = run(
             "generate_mla", lambda: phase_generate(dev, args.seed))
     print(f"[generate_mla] {json.dumps(gen_mla)} in {dt:.1f}s", flush=True)
     print(f"[generate_mla] moe {json.dumps(watch)}", flush=True)
@@ -5850,8 +6484,8 @@ def main() -> int:
     del q_params
     torch.cuda.empty_cache()
     for tag, arch in (("stablelm", STABLELM), ("vl", VL)):
-        (gen_d, counts), dt = run("generate_dense", lambda a=arch:
-                                  phase_generate(dev, args.seed, a))
+        (gen_d, counts, _), dt = run("generate_dense", lambda a=arch:
+                                     phase_generate(dev, args.seed, a))
         dense_counts[f"generate_{tag}"] = counts
         print(f"[generate_dense] {arch} {json.dumps(gen_d)} in {dt:.1f}s",
               flush=True)
@@ -5906,6 +6540,49 @@ def main() -> int:
         dev, args.seed))
     print(f"[train_sp_verify] ok in {dt:.1f}s", flush=True)
     sp_counts["train_sp_verify"] = ver["launches"]
+    torch.cuda.empty_cache()
+
+    # the pipelined prefill and fixed-batch decode: kernel A at a decode
+    # step's shapes; hymba-1.5b and falcon-mamba-7b at full width and depth
+    # in bf16 (one float32 copy of the weights made from the seed, its bf16
+    # copy beside it), then in float32 against the one-shot oracle;
+    # seamless-m4t-v2 in float32 against its teacher-forced greedy
+    from repro_torch.models.model import tree_map
+    dk, dt = run("kernel_decode", lambda: phase_kernel_decode(dev,
+                                                              args.seed))
+    for rec in dk:
+        print(f"[kernel_decode] {json.dumps(rec)}", flush=True)
+    print(f"[kernel_decode] ok in {dt:.1f}s", flush=True)
+    decode_counts = {"generate_mla_decode": gen_mla_decode}
+    for arch, tag in ((HYMBA, "decode_hymba"), (FALCON,
+                                               "decode_falcon_mamba")):
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        p32 = DecoderLM(_arch(arch)).init(gen, dtype=torch.float32,
+                                          device=dev)
+        p16 = tree_map(lambda a: a.to(torch.bfloat16), p32)
+        (recs, counts), dt = run(tag, lambda a=arch, p=p16: phase_decode(
+            dev, a, p))
+        for rec in recs:
+            print(f"[{tag}] {json.dumps(rec)}", flush=True)
+            decode_counts[f"{tag}_{rec['mesh']}"] = counts[rec["mesh"]]
+        print(f"[{tag}] ok in {dt:.1f}s", flush=True)
+        del p16
+        torch.cuda.empty_cache()
+        (ver, counts), dt = run("decode_verify", lambda a=arch, p=p32:
+                                phase_decode_verify(dev, a, p))
+        print(f"[decode_verify] {json.dumps(ver)}", flush=True)
+        print(f"[decode_verify] {arch} ok in {dt:.1f}s", flush=True)
+        for mesh, c in counts.items():
+            decode_counts[f"decode_verify_{arch}_{mesh}"] = c
+        del p32
+        torch.cuda.empty_cache()
+    (recs, counts), dt = run("decode_encdec", lambda: phase_decode_encdec(
+        dev, args.seed))
+    for rec in recs:
+        print(f"[decode_encdec] {json.dumps(rec)}", flush=True)
+        decode_counts[f"decode_encdec_{rec['mesh']}"] = counts[rec["mesh"]]
+    print(f"[decode_encdec] ok in {dt:.1f}s", flush=True)
+    torch.cuda.empty_cache()
 
     # launches per path: the serving engines, the bf16 train steps, the
     # float32 verify phases' chunked step (the float32 B and C1 run only
@@ -5924,7 +6601,7 @@ def main() -> int:
              "train_verify_encdec": encdec_verify_counts,
              "train_restart": restart_counts,
              "train_elastic": elastic_counts,
-             "train_replan": replan_counts, **sp_counts}
+             "train_replan": replan_counts, **sp_counts, **decode_counts}
     print("[kernels] " + "; ".join(f"{p}: {json.dumps(c)}"
                                    for p, c in paths.items())
           + f"; total {time.perf_counter() - t_start:.1f}s", flush=True)
@@ -6051,14 +6728,18 @@ def main() -> int:
                                       mla_fwd, g, cases[1], cases[2], st_gb,
                                       d_fwd, *fig_bf16, *enc_bf16,
                                       sp_k["allgather_kv"],
-                                      sp_k["ulysses"])]),
+                                      sp_k["ulysses"],
+                                      *[r for r in dk
+                                        if r["dtype"] == "bfloat16"])]),
         entry("flash_fwd_kernel", fa, tpu_fa, vb, **_fwd(vb),
               ms_covers="the forward as the train step runs it, with lse: "
                         "split pass and merge pass",
               library_is="scaled_dot_product_attention forward, "
                          "EFFICIENT_ATTENTION backend, the same boolean mask",
               also=[_fwd(r) for r in (vb_h, moe_vb, mla_vb, g32,
-                                      cases[4], st_vb, *fig_f32, enc_f32)]),
+                                      cases[4], st_vb, *fig_f32, enc_f32,
+                                      *[r for r in dk
+                                        if r["dtype"] == "float32"])]),
         entry("flash_combine_kernel", fa, tpu_fa, m,
               also=[{k: d_merge[k] for k in ("case", "dtype", "T", "n_split",
                                              "kernel_ms", "bound_ms",

@@ -46,7 +46,7 @@ from .flash_attention import (BLOCK_KV, BLOCK_Q, BWD_BLOCK,
 from .mamba_scan import Gate, mamba_scan_bwd_cuda, mamba_scan_fwd_cuda
 
 __all__ = ["flash_attention", "attention_forward", "attention_backward",
-           "bwd_tiles", "fused_cross_entropy",
+           "attention_with_lse", "bwd_tiles", "fused_cross_entropy",
            "mamba_scan", "mamba_scan_fwd", "mamba_scan_bwd",
            "mamba_scan_gated_fwd", "mamba_scan_gated_bwd", "pad_rows",
            "pad_for_kernel"]
@@ -120,6 +120,24 @@ def attention_forward(q, k, v, seg_q, seg_kv, pos_q, pos_kv, *,
     out = ref.blocked_flash_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv,
                                       **opts)
     return out, (q, seg_q, seg_kv, pos_q, pos_kv), (k, v), None
+
+
+def attention_with_lse(q, k, v, seg_q, seg_kv, pos_q, pos_kv, *,
+                       causal: bool = True, window: int = 0,
+                       scale: Optional[float] = None):
+    """``(out [T, Hq, Dv], lse [Hq, T])``: :func:`attention_forward`'s
+    output and its rows' log-sum-exp (float32, ``-inf`` on a row with no
+    live key), what a rank of a sequence-sharded cache hands to the merge
+    (``runtime/sp.merge_partials``). CUDA: kernel A with its lse (the tile
+    ranges, the forward, the merge pass where the keys split); CPU: the
+    plain forward and ``ref.flash_attention_lse``."""
+    opts = dict(causal=causal, window=int(window), scale=scale)
+    out, saved, _, _ = attention_forward(q, k, v, seg_q, seg_kv, pos_q,
+                                         pos_kv, **opts)
+    if q.is_cuda:
+        return out, saved[-1][:, :q.shape[0]]
+    return out, ref.flash_attention_lse(q, k, seg_q, seg_kv, pos_q, pos_kv,
+                                        **opts)
 
 
 def attention_backward(saved, tiles, k, v, dout, *, causal: bool = True,

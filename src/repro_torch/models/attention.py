@@ -26,6 +26,14 @@ zero positions; under autograd it keeps the memory rows, which every
 decoder layer shares, and makes each layer's keys and values again in its
 backward. The encoder's self-attention is the attention block with
 ``causal=False``.
+
+Decode (:func:`decode_attention`, the reference's ``_attn_decode``): one
+new row for each of ``bm`` sequences against a cache sharded over the
+sequence-parallel ranks in contiguous row blocks; the new key and value
+(MLA: the latent row) go into the rank that owns their row, each rank
+runs kernel A with its log-sum-exp over its own rows (each sequence its
+own segment), and the ranks' partials merge by their log-sum-exps
+(``runtime/sp.merge_partials``).
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ from .layers import apply_rope, dense_init, linear, rms_norm, \
 __all__ = ["init_attention", "project_qkv", "mla_expand_ctx",
            "mla_attention", "cross_attention", "attention_block",
            "attention_block_sp", "context_keys",
-           "make_local_attention_policy"]
+           "make_local_attention_policy", "decode_attention", "decode_meta"]
 
 
 def init_attention(cfg: ArchConfig, gen: torch.Generator, *, device,
@@ -403,3 +411,59 @@ def attention_block_sp(cfg: ArchConfig, p: Dict, xs, *, poss, segs,
         mla_fn=mla_fn)
     ys = [linear(o.reshape(o.shape[0], -1), p["wo"]) for o in outs]
     return ys, new_k, new_v
+
+
+@functools.lru_cache(maxsize=64)
+def decode_meta(bm: int, rows: int, offset: int, device):
+    """The key metadata of one rank's cache block for :func:`decode_attention`
+    and the encoder-decoder's cross-attention: ``(seg_q [bm], seg_kv
+    [bm * rows], row [bm * rows])``, int32: query ``b`` is segment ``b``,
+    and so are sequence ``b``'s ``rows`` key rows, whose global row ids
+    start at ``offset``. Made once per shape and device (read-only)."""
+    seq = torch.arange(bm, dtype=torch.int32, device=device)
+    row = offset + torch.arange(rows, dtype=torch.int32, device=device)
+    return seq, seq.repeat_interleave(rows), row.repeat(bm)
+
+
+def decode_attention(cfg: ArchConfig, p: Dict, x: torch.Tensor, cache_k,
+                     cache_v, *, length: int, window: int,
+                     rope: Optional[Tuple] = None) -> torch.Tensor:
+    """One decode step of attention: ``x [bm, D]`` (the normed rows of
+    ``bm`` sequences' new tokens, all at position ``length``) -> ``[bm,
+    D]``. ``cache_k`` / ``cache_v``: the ranks' cache blocks, a list of
+    ``[bm, s_loc, Hkv, Dh]`` (rank ``r`` holds rows ``r * s_loc`` to ``(r
+    + 1) * s_loc - 1`` of every sequence; MLA: latent rows ``[bm, s_loc,
+    1, r + rr]`` and ``cache_v`` None). The new key and value are written
+    IN PLACE at row ``length`` of the rank that owns it; every rank then
+    attends its rows ``<= length`` inside the ``window`` (kernel A with
+    the rows' log-sum-exp, ``ops.attention_with_lse``; MLA expands its
+    latent rows first, ``mla_expand_ctx``, and runs A at (Dh + rr, Dh)),
+    a rank without a live row adding nothing to the merge
+    (``runtime/sp.merge_partials``); the output projection."""
+    from repro_torch.kernels.ops import attention_with_lse
+    from repro_torch.runtime.sp import merge_partials
+    bm, dev = x.shape[0], x.device
+    s_loc = cache_k[0].shape[1]
+    pos = torch.full((bm,), int(length), dtype=torch.int32, device=dev)
+    q, k_new, v_new = project_qkv(cfg, p, x, pos, rope)
+    own, loc = divmod(int(length), s_loc)
+    if own >= len(cache_k):
+        raise ValueError(f"row {length} is past the cache's "
+                         f"{len(cache_k) * s_loc} rows")
+    cache_k[own][:, loc] = k_new.to(cache_k[own].dtype)
+    if cache_v is not None:
+        cache_v[own][:, loc] = v_new.to(cache_v[own].dtype)
+    scale, mla_fn = _scale_and_mla(cfg, p)
+    outs, lses = [], []
+    for r, ck in enumerate(cache_k):
+        seg_q, seg_kv, row = decode_meta(bm, s_loc, r * s_loc, dev)
+        rows = ck.reshape(bm * s_loc, *ck.shape[2:])
+        if mla_fn is not None:
+            kk, vv = mla_expand_ctx(cfg, p, rows)
+        else:
+            kk, vv = rows, cache_v[r].reshape(rows.shape)
+        out, lse = attention_with_lse(q, kk, vv, seg_q, seg_kv, pos, row,
+                                      window=window, scale=scale)
+        outs.append(out)
+        lses.append(lse)
+    return linear(merge_partials(outs, lses).reshape(bm, -1), p["wo"])

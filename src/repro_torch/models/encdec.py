@@ -141,16 +141,59 @@ class EncDecLM:
                         ) -> torch.Tensor:
         """One decoder layer over token rows ``x [T, D]``: causal
         self-attention, cross-attention to ``memory``, the MLP."""
+        return self.dec_layer_carry(lp, x, pos=pos, seg=seg, memory=memory,
+                                    seg_mem=seg_mem)[0]
+
+    def dec_layer_carry(self, lp: Dict, x: torch.Tensor, *,
+                        pos: torch.Tensor, seg: torch.Tensor,
+                        memory: torch.Tensor, seg_mem: torch.Tensor,
+                        ctx_k=None, ctx_v=None, ctx_len: int = 0):
+        """:meth:`dec_layer_apply` behind the self-attention's KV carry
+        (``ctx_k``, ``ctx_v``: ``[C_cap, Hkv, Dh]``, ``ctx_len`` rows live;
+        the reference's ``dec_layer_apply`` with ``ctx``): ``(x, new_k,
+        new_v)``, the carry None without one (the prefill's chunks of a
+        prompt hand it on)."""
         eps = self.cfg.rms_eps
-        out, _, _ = attention_block(
+        out, nk, nv = attention_block(
             self.cfg, lp["attn"], rms_norm(x, lp["ln1"], eps), pos=pos,
-            seg=seg, ctx_k=None, ctx_v=None, ctx_len=0, window=0,
+            seg=seg, ctx_k=ctx_k, ctx_v=ctx_v, ctx_len=ctx_len, window=0,
             attn_fn=self.attn_fn, causal=True)
         x = x + out
         x = x + self.cross_attend(lp["cross"], rms_norm(x, lp["ln_x"], eps),
                                   memory, seg_q=seg, seg_mem=seg_mem)
-        return x + swiglu_apply(lp["mlp"], rms_norm(x, lp["ln2"], eps),
-                                recompute=True)
+        return (x + swiglu_apply(lp["mlp"], rms_norm(x, lp["ln2"], eps),
+                                 recompute=True), nk, nv)
+
+    def cross_decode(self, lp: Dict, h: torch.Tensor, memory,
+                     mem_len: int) -> torch.Tensor:
+        """Cross-attention of one decode step (the reference's
+        ``_cross_decode``): ``h [bm, D]`` (``bm`` sequences' normed rows)
+        over ``memory``, the ranks' blocks of each sequence's frames
+        (a list of ``[bm, s_mem_loc, D]``; frames at or past ``mem_len``
+        are padding): per rank the keys and values of its frames and
+        kernel A, non-causal at zero positions, with the rows'
+        log-sum-exp (``ops.attention_with_lse``); the ranks' partials
+        merged (``runtime/sp.merge_partials``); the output projection."""
+        from repro_torch.kernels.ops import attention_with_lse
+        from repro_torch.runtime.sp import merge_partials
+
+        from .attention import _cross_kv, _zero_pos, decode_meta
+        s = self.cfg.spec
+        bm = h.shape[0]
+        q = linear(h, lp["wq"]).reshape(bm, s.n_heads, s.head_dim)
+        outs, lses = [], []
+        for r, mem in enumerate(memory):
+            n = mem.shape[1]
+            seg_q, seg_kv, row = decode_meta(bm, n, r * n, h.device)
+            seg_kv = torch.where(row < mem_len, seg_kv, -1)
+            k, v = _cross_kv(mem.reshape(bm * n, -1), lp["wk"], lp["wv"],
+                             s.n_kv_heads, s.head_dim)
+            out, lse = attention_with_lse(
+                q, k, v, seg_q, seg_kv, *_zero_pos(seg_q, seg_kv),
+                causal=False, scale=1.0 / math.sqrt(s.head_dim))
+            outs.append(out)
+            lses.append(lse)
+        return linear(merge_partials(outs, lses).reshape(bm, -1), lp["wo"])
 
     # ------------------------------------------------------------------
     def run_enc_layers(self, layers: Sequence[Dict], x: torch.Tensor,

@@ -27,6 +27,12 @@ a block, none of them from before a sequence start (:func:`live_tail`),
 and the scan folds each block's summary (:func:`gated_scan` from a zero
 state, :func:`shard_decay`) into the state entering the next.
 
+Decode (:func:`mamba_decode`, the reference's ``_mamba_decode``): the
+one-step update of ``bm`` sequences' states, each sequence-parallel rank
+owning a contiguous block of the channels, in plain PyTorch (the
+reference computes this step outside its Pallas kernel, and kernel D's
+single-sequence ``h0`` cannot batch sequences).
+
 Memory. The mixer keeps what the planner's per-token model charges it and
 no float32 ``[T, d_inner]`` tensor: the conv (with its SiLU) and the scan
 with its gating are autograd functions that keep their inputs (bf16 in
@@ -48,7 +54,8 @@ from .config import ArchConfig
 from .layers import dense_init, linear, weight_grad_store, weight_key
 
 __all__ = ["init_mamba", "mamba_apply", "mamba_apply_sp", "gated_scan",
-           "shard_decay", "live_tail", "ssm_state_shape", "dt_rank_of"]
+           "shard_decay", "live_tail", "ssm_state_shape", "dt_rank_of",
+           "mamba_decode"]
 
 
 def ssm_state_shape(cfg: ArchConfig) -> Tuple[Tuple[int, int],
@@ -296,3 +303,53 @@ def mamba_apply_sp(cfg: ArchConfig, p: Dict, xs, *, poss, segs,
     ys, h_last = scan_fn(p, shards, state)
     return ([linear(y, p["out_proj"]) for y in ys], h_last,
             new_tail.to(dt))
+
+
+@torch.no_grad()
+def mamba_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor, states,
+                 tails) -> torch.Tensor:
+    """One decode step of the mixer: ``x [bm, D]`` (the normed rows of
+    ``bm`` sequences' new tokens) -> ``[bm, D]``. ``states`` / ``tails``:
+    the ranks' blocks of the channels, ``[bm, d_inner / d_s, d_state]``
+    float32 and ``[bm, d_conv - 1, d_inner / d_s]``, updated IN PLACE.
+    Per rank: the conv window (its tail, then the new input) with the
+    mixer's roundings (the pre-activation rounded to x's dtype, then
+    SiLU), the channels gathered for ``x_proj``, ``delta = softplus(dt_in
+    dt_proj^T + dt_bias)`` in float32, ``h = exp(delta A) h + delta x B``,
+    ``y = h C + D x``, gated by ``silu(z)``; the outputs gathered for
+    ``out_proj``; each tail shifted by one row."""
+    from repro_torch.runtime.sp import all_gather
+    s = cfg.spec
+    di, ds, K = s.inner, s.ssm_state, s.ssm_conv
+    R = dt_rank_of(cfg)
+    dt = x.dtype
+    d = len(states)
+    dl = di // d
+    xz = linear(x, p["in_proj"])
+    xcs = []
+    for r, tail in enumerate(tails):
+        c = slice(r * dl, (r + 1) * dl)
+        win = torch.cat([tail.to(dt), xz[:, None, c]], dim=1)  # [bm, K, dl]
+        acc = torch.zeros((x.shape[0], dl), dtype=torch.float32,
+                          device=x.device)
+        for j in range(K):
+            acc += win[:, j].float() * p["conv_w"][j, c].float()
+        pre = (acc + p["conv_b"][c].float()).to(dt)
+        xcs.append(F.silu(pre.float()).to(dt))
+        tail.copy_(win[:, 1:])
+    proj = linear(all_gather(xcs, dim=1), p["x_proj"])
+    B = proj[:, R:R + ds].float()
+    C = proj[:, R + ds:R + 2 * ds].float()
+    delta = F.softplus(linear(proj[:, :R], p["dt_proj"]).float()
+                       + p["dt_bias"].float())
+    A = -torch.exp(p["a_log"].float())
+    z = xz[:, di:]
+    ys = []
+    for r, (h, xc) in enumerate(zip(states, xcs)):
+        c = slice(r * dl, (r + 1) * dl)
+        dlt, xf = delta[:, c], xc.float()
+        h.copy_(torch.exp(dlt[..., None] * A[c]) * h
+                + (dlt * xf)[..., None] * B[:, None, :])
+        y = (h * C[:, None, :]).sum(-1) + p["d_skip"][c].float() * xf
+        ys.append((y * F.silu(z[:, c].float())).to(dt))
+    return linear(all_gather(ys, dim=1), p["out_proj"])

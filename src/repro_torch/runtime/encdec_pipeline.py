@@ -31,6 +31,13 @@ stage carries context. ``v_stages`` is pinned to 1 (the reference's
 grouped encoder + decoder stacking has no interleaved placement): the
 three single-virtual-stage backends run, gpipe-1f1b, interleaved-1f1b at
 ``v = 1`` and zero-bubble-h1.
+
+Serving takes another layout (:func:`prepare_encdec_decode_params`, the
+reference's): the decoder layers over all ``d_p`` stages, the encoder kept
+on the first for the prefill. An :class:`EncDecDecodeStage` encodes a
+request's frames into its memory (the decode state's) and runs the prefill
+of its prompt through its decoder layers behind the self-attention's KV
+carry, which becomes the sequence's cache.
 """
 
 from __future__ import annotations
@@ -43,10 +50,12 @@ import torch
 from repro_torch.core.schedule import get_schedule
 from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.layers import deferred_weight_grads
+from repro_torch.models.model import LayerCtx
 
-from .pipeline import PipelineStage
+from .pipeline import PipelineGeometry, PipelineStage
 
-__all__ = ["EncDecGeometry", "EncDecStage"]
+__all__ = ["EncDecGeometry", "EncDecStage", "EncDecDecodeStage",
+           "prepare_encdec_decode_params"]
 
 
 @dataclass(frozen=True)
@@ -151,6 +160,55 @@ class EncDecStage(PipelineStage):
         if rec["x_in"] is None:
             return None
         return tuple(None if t is None else t.grad for t in rec["x_in"])
+
+
+def prepare_encdec_decode_params(cfg, params: Dict, d_p: int) -> list:
+    """The decode layout (the reference's ``prepare_encdec_decode_params``):
+    ``weights.to_stages(..., decode=True)``: stage ``p`` holds its decoder
+    layers as ``layers``; the first also ``embed``, the encoder's
+    ``enc_layers`` and ``enc_norm``; the last ``final_norm`` and the tied
+    ``embed``."""
+    from repro_torch.weights import to_stages
+    return to_stages(cfg, params, d_p, decode=True)
+
+
+class EncDecDecodeStage(PipelineStage):
+    """Stage ``p`` of the decode layout (:func:`prepare_encdec_decode_params`)
+    on ``device``: :meth:`encode` (the first stage) and :meth:`prefill`."""
+
+    def __init__(self, model: EncDecLM, p: int, d_p: int,
+                 blocks: Sequence[Sequence[int]], params: Dict, device,
+                 dtype: torch.dtype):
+        super().__init__(model, p, PipelineGeometry(d_p), blocks, params,
+                         device, dtype)
+
+    @torch.no_grad()
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """One request's frames ``[S, D]`` -> its memory ``[S, D]``: the
+        encoder and ``enc_norm`` (``EncDecLM.encode``)."""
+        n = frames.shape[0]
+        seg = torch.zeros(n, dtype=torch.int32, device=self.device)
+        pos = torch.arange(n, dtype=torch.int32, device=self.device)
+        return self.model.encode(self.params, frames.to(self.device,
+                                                        self.dtype), seg, pos)
+
+    @torch.no_grad()
+    def prefill(self, x_in, tokens, seg, pos, ctx, ctx_len: int, *,
+                memory=None, seg_mem=None):
+        """:meth:`PipelineStage.prefill` of the decoder layers: causal
+        self-attention behind the carry ``ctx`` (``LayerCtx`` of lists of
+        ``[C_cap, Hkv, Dh]``), cross-attention to ``memory`` (``seg_mem``
+        its frames' segments), the MLP (``EncDecLM.dec_layer_carry``)."""
+        x = self.model.embed(self.params, tokens, self.dtype) \
+            if self.p == 0 else x_in
+        nk, nv = [], []
+        for l, (lp, _) in enumerate(PipelineStage._layers(self, 0)):
+            x, k, v = self.model.dec_layer_carry(
+                lp, x, pos=pos, seg=seg, memory=memory, seg_mem=seg_mem,
+                ctx_k=ctx.k[l], ctx_v=ctx.v[l], ctx_len=ctx_len)
+            nk.append(k)
+            nv.append(v)
+        return x, LayerCtx(nk, nv)
 
 
 def stage_inputs(batch, k: int, tokens: int, table: torch.Tensor,

@@ -25,7 +25,7 @@ import torch
 
 from . import sp
 
-__all__ = ["make_moe_ep"]
+__all__ = ["make_moe_ep", "moe_decode"]
 
 
 def make_moe_ep(d: int) -> Callable:
@@ -58,3 +58,15 @@ def make_moe_ep(d: int) -> Callable:
         return ys
 
     return moe_fn
+
+
+def moe_decode(cfg, p: Dict, x: torch.Tensor, d: int) -> torch.Tensor:
+    """The MoE block on a decode step's rows ``x [bm, D]`` over ``d`` ranks,
+    as the reference's ``make_moe_ep`` serves its ``decode_step_fn``: every
+    rank holds the same rows, so each rank's block of experts runs over
+    the ``d`` gathered copies and the reduce-scatter hands each rank its
+    copy's sums; rank 0's is returned (one rank: the routed block)."""
+    if d == 1:
+        from repro_torch.models.moe import moe_apply
+        return moe_apply(cfg, p, x)
+    return make_moe_ep(d)(cfg, p, [x] * d)[0]

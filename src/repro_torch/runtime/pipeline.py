@@ -29,6 +29,12 @@ The carries stay on their stage; only streams move. The parameters'
 gradients are summed in float32 per stage, in the order of the stage's
 backwards.
 
+* ``prefill(x, tokens, seg, pos, ctx, ctx_len)``: the pipelined prefill
+  (the reference's ``pipeline_loss_fn`` in mode ``"prefill"``): one chunk
+  of one sequence forward through the stage's layers behind the
+  sequence's carry, no residuals kept and no loss; the carry it returns
+  is the sequence's cache (``runtime/serve_step.DecodeStepBuilder``).
+
 With a sequence-parallel axis (``d_s > 1``) a stage is an :class:`SPStage`:
 its ``d_s`` ranks live on its card, each owning its ZeRO-3 shards of the
 stage's parameters (``runtime/sharding``), which the forward gathers per
@@ -258,6 +264,28 @@ class PipelineStage:
         rec["out"] = loss
         self.loss = self.loss + loss.detach()
         return None
+
+    @torch.no_grad()
+    def prefill(self, x_in, tokens, seg, pos, ctx, ctx_len: int):
+        """Prefill mode: one chunk of one sequence forward through this
+        stage's layers (virtual stage 0) behind the sequence's carry
+        ``ctx`` (``ctx_len`` live rows), keeping nothing for a backward
+        and applying no loss: ``(hidden, new carry)``. The first stage
+        embeds ``tokens``. With the sequence-parallel model
+        (``runtime/sp.make_model``), ``tokens``, ``seg``, ``pos`` and the
+        stream are lists over the ranks' row blocks and ``ctx`` is in the
+        policy's layout (:meth:`DecoderLM.run_layers_sp`)."""
+        ranks = isinstance(seg, (list, tuple))
+        if self.p == 0:
+            x_in = (self.model.embed_sp(self.params, tokens, len(seg),
+                                        self.dtype) if ranks else
+                    self.model.embed(self.params, tokens, self.dtype))
+        layers = PipelineStage._layers(self, 0)
+        if ranks:
+            return self.model.run_layers_sp(layers, list(x_in), seg, pos,
+                                            ctx=ctx, ctx_len=ctx_len)
+        return self.model.run_layers(layers, x_in, seg, pos, ctx=ctx,
+                                     ctx_len=ctx_len)
 
     def backward(self, k: int, j: int, g: Optional[torch.Tensor]
                  ) -> Optional[torch.Tensor]:

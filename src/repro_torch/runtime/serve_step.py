@@ -37,6 +37,40 @@ The greedy head runs only on the rows whose ids the host reads (the last
 row of each prefill chunk and every decode row), vocabulary-tiled with a
 running max in float32: the first index within a tile and strict ``>``
 across tiles, so ties resolve to the lowest id as in the reference.
+
+The engine serves dense and MoE decoders. Every family of the registry
+(SSM, hybrid, MLA, the encoder-decoder too) is served by the pipelined
+prefill and fixed-batch decode, the counterpart of the reference's
+``decode_step_fn`` and its ``pipeline_loss_fn(mode="prefill")``:
+:class:`DecodeStepBuilder` (``prefill``, ``step``, ``generate``) over
+:class:`DecodeGeometry` and the decode state (:func:`init_decode_state`):
+
+* the batch splits into ``n_micro`` microbatches of ``bm`` sequences,
+  which go through the ``d_p`` stages in the reference's tick order
+  (microbatch ``m`` on stage ``p`` at tick ``m + p``);
+* the state holds, per stage (on its device) and per sequence-parallel
+  rank (a list, as ``SPStage`` holds its ranks): the KV cache (MLA: latent
+  rows) in contiguous blocks of ``s_loc`` rows, the SSM state and conv
+  tail in blocks of ``d_inner / d_s`` channels, the encoder's memory in
+  blocks of frames; the cache is made once for the longest context the
+  batch reaches, and the state's ``length`` is the current one (one
+  length per batch);
+* a decode step per layer: attention over the ranks' shards merged by
+  their log-sum-exps (``attention.decode_attention``), the mamba step per
+  channel block (``ssm.mamba_decode``), hybrid layers averaging the two,
+  the encoder-decoder's cross-attention over the ranks' frames
+  (``EncDecLM.cross_decode``), the MLP or the MoE block (over the ranks:
+  ``ep.moe_decode``); then the final norm and the vocabulary-parallel
+  argmax (``sp.sharded_greedy``). Only active layer slots run and update
+  the state, in place;
+* the prefill runs one sequence per chunk forward through the stages
+  (``PipelineStage.prefill``; on ``d_s`` ranks the allgather_kv model of
+  ``runtime/sp``), a prompt longer than the chunk cap continuing through
+  the split-chunk carry; the greedy id at its last row is its first
+  generated token, and its carry is copied into its slot of the state.
+
+The residual adds the attention term, as the port's one-shot forward
+does: the reference's ``decode_step_fn`` drops it (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -50,14 +84,19 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import BLOCK_KV
-from repro_torch.models.attention import project_qkv
-from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import linear, rms_norm
-from repro_torch.models.model import DecoderLM, layer_params
+from repro_torch.models.attention import decode_attention, project_qkv
+from repro_torch.models.config import ArchConfig, LayerKind
+from repro_torch.models.layers import linear, rms_norm, swiglu_apply
+from repro_torch.models.model import DecoderLM, LayerCtx, layer_params
+from repro_torch.models.ssm import mamba_decode
+
+from . import sp
 
 __all__ = ["EngineGeometry", "make_engine_geometry", "init_pool",
            "PackedSegment", "KVRows", "EngineBatch", "pack_step",
-           "engine_step", "copy_pages", "greedy_ids"]
+           "engine_step", "copy_pages", "greedy_ids",
+           "DecodeGeometry", "make_decode_geometry", "init_decode_state",
+           "decode_state_bytes", "decode_step", "DecodeStepBuilder"]
 
 
 @dataclass(frozen=True)
@@ -280,12 +319,13 @@ HEAD_BLOCK_V = 16384     # vocabulary rows per greedy-head tile
 
 @torch.no_grad()
 def greedy_ids(hidden: torch.Tensor, w: torch.Tensor, *,
-               vocab_true: Optional[int] = None) -> torch.Tensor:
+               vocab_true: Optional[int] = None, with_max: bool = False):
     """Argmax of ``hidden @ w.T`` over the vocabulary without holding the
     ``[N, V]`` logits: float32 logits per ``HEAD_BLOCK_V``-row tile of
     ``w``, a running (max, index) with strict ``>`` across tiles and the
     first index within a tile. The result is the lowest index of the
-    global maximum for any tile size."""
+    global maximum for any tile size; ``with_max``: ``(ids, max logits)``
+    (what ``runtime/sp.sharded_greedy`` merges over vocabulary blocks)."""
     N = hidden.shape[0]
     V = w.shape[0] if vocab_true is None else min(vocab_true, w.shape[0])
     best_v = torch.full((N,), -math.inf, dtype=torch.float32,
@@ -298,4 +338,490 @@ def greedy_ids(hidden: torch.Tensor, w: torch.Tensor, *,
         take = m > best_v
         best_v = torch.where(take, m, best_v)
         best_i = torch.where(take, am + v0, best_i)
-    return best_i
+    return (best_i, best_v) if with_max else best_i
+
+
+# ===========================================================================
+# Pipelined prefill and fixed-batch decode (every family of the registry).
+# ===========================================================================
+
+@dataclass(frozen=True)
+class DecodeGeometry:
+    """Static geometry of the pipelined decode (the reference's, without its
+    mesh): ``batch_per_pod`` sequences in ``n_micro`` microbatches of
+    ``bm``, ``d_p`` stages of ``layers_per_stage`` layer slots (inert
+    padded slots at the end), the cache's ``s_cap`` rows in ``d_s``
+    blocks of ``s_loc``. ``cache_len``: the rows the cache is made for
+    (the longest context the batch reaches; the reference's is one
+    bucket's current length), ``s_cap = cache_len + d_s`` as the
+    reference's."""
+    batch_per_pod: int
+    cache_len: int
+    d_p: int
+    d_s: int
+    layers_per_stage: int
+    n_micro: int
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def bm(self) -> int:
+        return max(1, self.batch_per_pod // self.n_micro)
+
+    @property
+    def s_cap(self) -> int:
+        return self.cache_len + self.d_s
+
+    @property
+    def s_loc(self) -> int:
+        return self.s_cap // self.d_s
+
+
+def make_decode_geometry(cfg: ArchConfig, *, d_p: int, d_s: int,
+                         batch_per_pod: int, cache_len: int,
+                         compute_dtype=torch.bfloat16) -> DecodeGeometry:
+    """The reference's ``make_decode_geometry`` at a ``(d_p, d_s)`` mesh
+    (no mesh object, as :func:`make_engine_geometry` takes none):
+    ``n_micro = min(d_p, batch_per_pod)``, ``ceil(n_layers / d_p)`` slots
+    a stage."""
+    s = cfg.spec
+    if min(d_p, d_s, batch_per_pod) < 1 or cache_len < 0:
+        raise ValueError(f"d_p={d_p}, d_s={d_s}, batch_per_pod="
+                         f"{batch_per_pod} must be >= 1 and cache_len="
+                         f"{cache_len} >= 0")
+    if cache_len % d_s:
+        raise ValueError(f"cache_len={cache_len} must be a multiple of "
+                         f"d_s={d_s}: the cache's cache_len + d_s rows "
+                         f"split into d_s equal blocks")
+    if s.ssm_state > 0 and s.inner % d_s:
+        raise ValueError(f"d_inner={s.inner} must be a multiple of "
+                         f"d_s={d_s}: each rank owns a block of channels")
+    return DecodeGeometry(
+        batch_per_pod=batch_per_pod, cache_len=cache_len, d_p=d_p, d_s=d_s,
+        layers_per_stage=-(-s.n_layers // d_p),
+        n_micro=min(d_p, batch_per_pod), compute_dtype=compute_dtype)
+
+
+def _layer_tables(cfg: ArchConfig, d_p: int, L_s: int
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-stage ``[d_p, L_s]`` sliding windows (0: none) and active slots
+    (padded slots inactive), the reference's."""
+    L = cfg.spec.n_layers
+    win = list(cfg.layer_windows()) + [0] * (d_p * L_s - L)
+    active = np.arange(d_p * L_s) < L
+    return (np.asarray(win, np.int64).reshape(d_p, L_s),
+            active.reshape(d_p, L_s))
+
+
+def _state_shapes(cfg: ArchConfig, geom: DecodeGeometry,
+                  s_mem: Optional[int]) -> Dict[str, Tuple[tuple, object]]:
+    """Each entry's per-stage, per-rank shape and dtype (``memory``: per
+    rank, no stage), the reference's ``decode_state_struct`` less the pod
+    dim, the stage dim and the sharded dim's other blocks."""
+    s = cfg.spec
+    nm, L_s, bm, d = geom.n_micro, geom.layers_per_stage, geom.bm, geom.d_s
+    dt = geom.compute_dtype
+    out: Dict[str, Tuple[tuple, object]] = {"tokens": ((nm, bm),
+                                                       torch.int32)}
+    if s.is_encoder_decoder:
+        if s_mem is None:       # the reference's stub: a quarter of the
+            s_mem = max(d, (geom.cache_len // 4) // d * d)   # context
+        if s_mem % d:
+            raise ValueError(f"s_mem={s_mem} frames must be a multiple of "
+                             f"d_s={d}")
+        out["memory"] = ((nm, bm, s_mem // d, s.d_model), dt)
+    if not s.attn_free:
+        row = (1, s.kv_lora_rank + s.qk_rope_dim) if s.kv_lora_rank > 0 \
+            else (s.n_kv_heads, s.head_dim)
+        out["cache_k"] = ((nm, L_s, bm, geom.s_loc, *row), dt)
+        if s.kv_lora_rank == 0:
+            out["cache_v"] = out["cache_k"]
+    if s.ssm_state > 0:
+        out["ssm_h"] = ((nm, L_s, bm, s.inner // d, s.ssm_state),
+                        torch.float32)
+        out["conv_tail"] = ((nm, L_s, bm, s.ssm_conv - 1, s.inner // d), dt)
+    return out
+
+
+def init_decode_state(cfg: ArchConfig, geom: DecodeGeometry, devices, *,
+                      s_mem: Optional[int] = None) -> Dict:
+    """The decode state, zeros (the reference's ``decode_state_struct`` less
+    the pod dim): ``tokens [n_micro, bm]`` int32 (each sequence's token to
+    run next) and ``length`` (the rows its cache holds) on the first stage;
+    per stage ``p`` (on ``devices[p]``) the list of the ranks' blocks of
+    ``cache_k`` / ``cache_v`` ``[n_micro, L_s, bm, s_loc, Hkv, Dh]`` (MLA:
+    ``cache_k`` latent rows ``[.., s_loc, 1, r + rr]``), ``ssm_h [n_micro,
+    L_s, bm, d_inner / d_s, d_state]`` float32 and ``conv_tail [.., d_conv
+    - 1, d_inner / d_s]``; the encoder-decoder's ``memory``, the ranks'
+    blocks of ``s_mem`` frames ``[n_micro, bm, s_mem / d_s, D]`` on the
+    first stage (default: the reference's stub size), and ``mem_len``."""
+    devs = list(devices)
+    if len(devs) != geom.d_p:
+        raise ValueError(f"{len(devs)} devices for {geom.d_p} stages")
+    state: Dict = {"length": 0}
+    for name, (shape, dt) in _state_shapes(cfg, geom, s_mem).items():
+        if name == "tokens":
+            state[name] = torch.zeros(shape, dtype=dt, device=devs[0])
+        elif name == "memory":
+            state[name] = [torch.zeros(shape, dtype=dt, device=devs[0])
+                           for _ in range(geom.d_s)]
+            state["mem_len"] = shape[2] * geom.d_s
+        else:
+            state[name] = [[torch.zeros(shape, dtype=dt, device=dev)
+                            for _ in range(geom.d_s)] for dev in devs]
+    return state
+
+
+def decode_state_bytes(geom: DecodeGeometry, cfg: ArchConfig, *,
+                       s_mem: Optional[int] = None) -> int:
+    """Bytes of the decode state (:func:`init_decode_state`): the
+    reference's ``decode_state_struct`` less the pod dim, every stage and
+    rank counted once."""
+    total = 0
+    for name, (shape, dt) in _state_shapes(cfg, geom, s_mem).items():
+        n = int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+        if name == "memory":
+            n *= geom.d_s
+        elif name != "tokens":
+            n *= geom.d_p * geom.d_s
+        total += n
+    return total
+
+
+def _decode_ffn(model, lp: Dict, h: torch.Tensor, d_s: int) -> torch.Tensor:
+    if "moe" in lp:
+        from .ep import moe_decode
+        return moe_decode(model.cfg, lp["moe"], h, d_s)
+    return swiglu_apply(lp["mlp"], h)
+
+
+def _decode_layers(model, geom: DecodeGeometry, stage: Dict, state: Dict,
+                   p: int, m: int, x: torch.Tensor, rope, memory):
+    """Microbatch ``m``'s hidden rows ``x [bm, D]`` through stage ``p``'s
+    active layer slots, the state's slots updated in place."""
+    cfg, s = model.cfg, model.cfg.spec
+    eps = cfg.rms_eps
+    L_s = geom.layers_per_stage
+    windows, active = _layer_tables(cfg, geom.d_p, L_s)
+    length = state["length"]
+
+    def slot(name, l):
+        return None if name not in state else \
+            [c[m, l] for c in state[name][p]]
+    for l in range(L_s):
+        if not active[p, l]:
+            continue
+        lp = stage["layers"][p * L_s + l]
+        h = rms_norm(x, lp["ln1"], eps)
+        mix = None
+        if not s.attn_free:
+            y = decode_attention(cfg, lp["attn"], h, slot("cache_k", l),
+                                 slot("cache_v", l), length=length,
+                                 window=int(windows[p, l]), rope=rope)
+            if s.is_encoder_decoder:
+                hx = rms_norm(x + y, lp["ln_x"], eps)
+                y = y + model.cross_decode(lp["cross"], hx,
+                                           [c[m] for c in memory],
+                                           state["mem_len"])
+            mix = y
+        if s.ssm_state > 0:
+            y2 = mamba_decode(cfg, lp["mamba"], h, slot("ssm_h", l),
+                              slot("conv_tail", l))
+            mix = y2 if mix is None else 0.5 * (mix + y2)
+        # the attention term enters the residual, as in the port's one-shot
+        # forward; the reference's decode_step_fn never assigns it to its
+        # ``mix`` and drops it (src/repro/runtime/serve_step.py:358-385)
+        x = x + mix
+        if cfg.layer_kind != LayerKind.MAMBA:
+            x = x + _decode_ffn(model, lp, rms_norm(x, lp["ln2"], eps),
+                                geom.d_s)
+    return x
+
+
+@torch.no_grad()
+def decode_step(model, geom: DecodeGeometry, stages: Sequence[Dict],
+                state: Dict, devices) -> torch.Tensor:
+    """One decode step of every sequence (the counterpart of the reference's
+    ``decode_step_fn``'s ``step_local``, its dropped attention term
+    restored): each sequence's ``tokens`` at position ``length``; the
+    microbatches through the stages in tick order; per layer the decode
+    attention, the mamba step (hybrid: their mean), the encoder-decoder's
+    cross-attention, the MLP or MoE block; then the final norm and the
+    vocabulary-parallel argmax. Updates ``state`` in place (the cache rows
+    at ``length``, the SSM state and tails, ``tokens`` the new ids,
+    ``length + 1``) and returns the ids ``[n_micro, bm]`` (int64, on the
+    last stage's device). ``stages``: the decode layout's parameters
+    (``weights.to_stages(..., decode=True)``), stage ``p`` on
+    ``devices[p]``."""
+    s = model.cfg.spec
+    d_p, nm = geom.d_p, geom.n_micro
+    length = state["length"]
+    if length >= geom.s_cap:
+        raise ValueError(f"the cache's {geom.s_cap} rows are full")
+    if s.is_encoder_decoder:
+        rope = None
+    else:
+        rope = {dev: model.rope_tables(torch.full(
+            (geom.bm,), length, dtype=torch.int32, device=dev))
+            for dev in set(devices)}
+    memory = {dev: [t.to(dev) for t in state["memory"]]
+              for dev in set(devices)} if "memory" in state else {}
+    ids = torch.empty((nm, geom.bm), dtype=torch.int64, device=devices[-1])
+    streams = {}
+    for t in range(nm + d_p - 1):
+        for p in reversed(range(d_p)):      # stage p runs microbatch t - p
+            m, dev = t - p, devices[p]
+            if not 0 <= m < nm:
+                continue
+            if p == 0:
+                x = model.embed(stages[0], state["tokens"][m].long(),
+                                geom.compute_dtype)
+            else:
+                x = streams.pop((p - 1, m)).to(dev)
+            x = _decode_layers(model, geom, stages[p], state, p, m, x,
+                               None if rope is None else rope[dev],
+                               memory.get(dev))
+            if p < d_p - 1:
+                streams[(p, m)] = x
+                continue
+            last = stages[-1]
+            h = rms_norm(x, last["final_norm"], model.cfg.rms_eps)
+            ids[m] = sp.sharded_greedy(
+                h, last["unembed"] if "unembed" in last else last["embed"],
+                geom.d_s, vocab_true=s.vocab)
+    state["tokens"].copy_(ids.to(state["tokens"].device))
+    state["length"] = length + 1
+    return ids
+
+
+class DecodeStepBuilder:
+    """The pipelined prefill and fixed-batch decode of one model (any family
+    of the registry; the reference names ``DecodeStepBuilder`` but never
+    defines it): the decode layout's parameters on ``d_p`` stage devices
+    (``weights.to_stages(..., decode=True)``: views of the caller's
+    tensors, moved only if on another device), ``d_s`` sequence-parallel
+    ranks a stage, the compute dtype; per batch the geometry
+    (:attr:`geom`, set by :meth:`prefill`).
+
+    * :meth:`prefill` ``(prompts, frames=None, max_new=1) -> (first ids,
+      state)``: every prompt the same length (one length per batch);
+      the cache made for ``max_new`` tokens more; a batch that does not
+      fill ``n_micro`` microbatches evenly is padded with copies of its
+      last prompt, whose ids are dropped;
+    * :meth:`step` ``(state) -> ids``: one decode step of every sequence;
+    * :meth:`generate` ``(prompts, max_new, frames=None)``: ``max_new``
+      ids a prompt.
+
+    ``frames``: the encoder-decoder's requests' frame embeddings (each
+    ``[S, D]``, one ``S`` a batch). ``chunk_cap``: the prefill's rows a
+    chunk (a longer prompt continues through the carry; None: whole
+    prompts). Entry point: every stage on ``cuda`` unless ``device`` says
+    otherwise."""
+
+    def __init__(self, cfg: ArchConfig, params: Dict, *, d_p: int = 1,
+                 d_s: int = 1, compute_dtype=torch.bfloat16, device=None,
+                 chunk_cap: Optional[int] = None):
+        from repro_torch.device import resolve_device
+        from repro_torch.models.encdec import EncDecLM
+        from repro_torch.models.model import tree_map
+        from repro_torch.weights import to_stages
+
+        from .encdec_pipeline import EncDecDecodeStage
+        from .pipeline import PipelineGeometry, PipelineStage
+        from .sharding import stage_blocks
+        s = cfg.spec
+        self.cfg, self.d_p, self.d_s = cfg, d_p, d_s
+        self.dtype = compute_dtype
+        self.devices = [resolve_device(device)] * d_p
+        if chunk_cap is not None and chunk_cap < 1:
+            raise ValueError(f"chunk_cap={chunk_cap} must be >= 1")
+        self.chunk_cap = chunk_cap
+        self.encdec = s.is_encoder_decoder
+        self.model = EncDecLM(cfg) if self.encdec else DecoderLM(cfg)
+        self.stages = [tree_map(lambda t, dev=dev: t.to(dev), st)
+                       for st, dev in zip(to_stages(cfg, params, d_p,
+                                                    decode=True),
+                                          self.devices)]
+        blocks = stage_blocks(d_p, s.n_layers)
+        # the prefill's stages: on d_s > 1 ranks the decoder runs the
+        # allgather_kv model (the encoder-decoder's prefill runs on one)
+        self.sp_prefill = d_s > 1 and not self.encdec
+        pmodel = sp.make_model(cfg, "allgather_kv", d_s) \
+            if self.sp_prefill else self.model
+        if self.encdec:
+            self.pstages = [EncDecDecodeStage(self.model, p, d_p, blocks[p],
+                                              st, dev, compute_dtype)
+                            for p, (st, dev) in enumerate(zip(
+                                self.stages, self.devices))]
+        else:
+            self.pstages = [PipelineStage(pmodel, p, PipelineGeometry(d_p),
+                                          blocks[p], st, dev, compute_dtype)
+                            for p, (st, dev) in enumerate(zip(
+                                self.stages, self.devices))]
+        self.geom: Optional[DecodeGeometry] = None
+        self.batch = 0
+
+    # ------------------------------------------------------------------
+    def _zero_carry(self, p: int):
+        """Stage ``p``'s empty carry: a ``LayerCtx`` of per-layer lists (on
+        SP ranks, the allgather_kv layout: a list of one per layer)."""
+        st = self.pstages[p]
+        n = len(st.blocks[0])
+        if self.encdec:
+            s = self.cfg.spec
+            z = [torch.zeros((0, s.n_kv_heads, s.head_dim), dtype=self.dtype,
+                             device=st.device) for _ in range(n)]
+            return LayerCtx(z, [t.clone() for t in z])
+        ctx = st._zero_carry(n)
+        if self.sp_prefill:
+            ctx = LayerCtx(*[None if f is None else [[t] for t in f]
+                             for f in ctx])
+        return ctx
+
+    def _chunk(self, p: int, tokens, lo: int, hi: int):
+        """Rows ``lo..hi-1`` of one prompt on stage ``p``'s device:
+        ``(tokens, seg, pos)``; on SP ranks lists over ``d_s`` contiguous
+        blocks, the last ones padded (segment -1)."""
+        dev = self.pstages[p].device
+        n = hi - lo
+        tok = torch.as_tensor(tokens[lo:hi], dtype=torch.int64, device=dev)
+        pos = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+        seg = torch.zeros(n, dtype=torch.int32, device=dev)
+        if not self.sp_prefill:
+            return tok, seg, pos
+        b = -(-n // self.d_s)
+        pad = b * self.d_s - n
+        tok = torch.cat([tok, tok.new_zeros(pad)])
+        pos = torch.cat([pos, pos.new_zeros(pad)])
+        seg = torch.cat([seg, seg.new_full((pad,), -1)])
+        return tuple(list(t.split(b)) for t in (tok, seg, pos))
+
+    def _store(self, state: Dict, p: int, ctx, m: int, b: int, n: int):
+        """Stage ``p``'s carry of one sequence (``n`` rows) into its slot
+        ``(m, b)`` of the state: KV rows into the ranks' blocks, the SSM
+        state and tail into their channel blocks."""
+        geom = self.geom
+        s_loc, d = geom.s_loc, geom.d_s
+
+        def one(f):
+            return f[0] if self.sp_prefill else f
+        for l in range(len(self.pstages[p].blocks[0])):
+            for name, f in (("cache_k", ctx.k), ("cache_v", ctx.v)):
+                if name not in state:
+                    continue
+                rows = one(f[l])
+                for r, blk in enumerate(state[name][p]):
+                    lo = r * s_loc
+                    cnt = max(0, min(n - lo, s_loc))
+                    if cnt:
+                        blk[m, l, b, :cnt] = rows[lo:lo + cnt]
+            if "ssm_h" in state:
+                h, tail = one(ctx.ssm_h[l]), one(ctx.ssm_tail[l])
+                dl = h.shape[0] // d
+                for r in range(d):
+                    c = slice(r * dl, (r + 1) * dl)
+                    state["ssm_h"][p][r][m, l, b] = h[c]
+                    state["conv_tail"][p][r][m, l, b] = tail[:, c]
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, prompts: Sequence[Sequence[int]], frames=None, *,
+                max_new: int = 1) -> Tuple[List[int], Dict]:
+        """Each prompt's cache and its first generated id (the greedy id at
+        its last row): one sequence a chunk through the stages
+        (``PipelineStage.prefill``), chunks of ``chunk_cap`` rows, the
+        carry copied into the sequence's slot at its end. Returns the
+        first ids (one a prompt) and the decode state, ``length`` the
+        prompts' length and ``tokens`` those ids."""
+        s = self.cfg.spec
+        lens = {len(p) for p in prompts}
+        if len(lens) != 1 or 0 in lens:
+            raise ValueError(f"one prompt length a batch, not {sorted(lens)}"
+                             f": per-sequence lengths are ROADMAP.md queue "
+                             f"1, item 7")
+        if self.encdec != (frames is not None):
+            raise ValueError("frames are the encoder-decoder's input, and "
+                             "it needs them")
+        n, B = lens.pop(), len(prompts)
+        nm = min(self.d_p, B)
+        B_pad = -(-B // nm) * nm
+        prompts = list(prompts) + [prompts[-1]] * (B_pad - B)
+        if frames is not None:
+            frames = list(frames) + [frames[-1]] * (B_pad - B)
+        # rows 0 .. n + max_new - 2 are written; s_loc a multiple of 64
+        rows = n + max(0, max_new - 1)
+        s_loc = -(-rows // (64 * self.d_s)) * 64
+        self.geom = geom = make_decode_geometry(
+            self.cfg, d_p=self.d_p, d_s=self.d_s, batch_per_pod=B_pad,
+            cache_len=s_loc * self.d_s - self.d_s,
+            compute_dtype=self.dtype)
+        self.batch = B
+        s_mem = None
+        if frames is not None:
+            s_mem = -(-frames[0].shape[0] // self.d_s) * self.d_s
+        state = init_decode_state(self.cfg, geom, self.devices, s_mem=s_mem)
+        if frames is not None:
+            state["mem_len"] = frames[0].shape[0]
+        cap = self.chunk_cap or n
+        first = []
+        for i, prompt in enumerate(prompts):
+            m, b = divmod(i, geom.bm)
+            extra = {}
+            if self.encdec:
+                mem = self.pstages[0].encode(frames[i])
+                ml = mem.shape[0]
+                for r, blk in enumerate(state["memory"]):
+                    lo = r * blk.shape[2]
+                    cnt = max(0, min(ml - lo, blk.shape[2]))
+                    if cnt:
+                        blk[m, b, :cnt] = mem[lo:lo + cnt]
+            ctxs = [self._zero_carry(p) for p in range(self.d_p)]
+            for lo in range(0, n, cap):
+                hi = min(n, lo + cap)
+                x = None
+                for p, st in enumerate(self.pstages):
+                    tok, seg, pos = self._chunk(p, prompt, lo, hi)
+                    if self.encdec:
+                        mm = mem.to(st.device)
+                        extra = dict(memory=mm, seg_mem=torch.zeros(
+                            mm.shape[0], dtype=torch.int32,
+                            device=st.device))
+                    if x is not None:
+                        x = [t.to(st.device) for t in x] \
+                            if isinstance(x, list) else x.to(st.device)
+                    x, ctxs[p] = st.prefill(x, tok, seg, pos, ctxs[p], lo,
+                                            **extra)
+            last = self.stages[-1]
+            head = last["unembed"] if "unembed" in last else last["embed"]
+            eps = self.cfg.rms_eps
+            row = torch.tensor([hi - lo - 1], device=self.devices[-1])
+            if isinstance(x, list):
+                h = [rms_norm(t, last["final_norm"], eps) for t in x]
+            else:
+                h = rms_norm(x, last["final_norm"], eps)
+            first.append(int(sp.sharded_greedy(h, head, self.d_s,
+                                               vocab_true=s.vocab,
+                                               rows=row)[0]))
+            for p in range(self.d_p):
+                self._store(state, p, ctxs[p], m, b, n)
+        state["tokens"].copy_(torch.as_tensor(first, dtype=torch.int32)
+                              .reshape(geom.n_micro, geom.bm))
+        state["length"] = n
+        return first[:B], state
+
+    def step(self, state: Dict) -> List[int]:
+        """One decode step of every sequence: the next id of each (the
+        batch's, its padding dropped)."""
+        ids = decode_step(self.model, self.geom, self.stages, state,
+                          self.devices)
+        return ids.reshape(-1)[:self.batch].tolist()
+
+    def generate(self, prompts: Sequence[Sequence[int]], max_new: int,
+                 frames=None) -> List[List[int]]:
+        """``max_new`` greedy ids for each prompt: :meth:`prefill`, then
+        ``max_new - 1`` steps."""
+        first, state = self.prefill(prompts, frames, max_new=max_new)
+        out = [[t] for t in first]
+        for _ in range(max_new - 1):
+            for o, t in zip(out, self.step(state)):
+                o.append(t)
+        return out

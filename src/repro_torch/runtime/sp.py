@@ -44,8 +44,12 @@ counts once. The vocabulary stays sharded over the full ``d_s``.
 
 :data:`STATS` counts the collectives and the bytes they would move
 between ranks (forward only: the backward's transposes move the same).
-:func:`sharded_greedy` (the reference's pipelined prefill and decode)
-raises.
+
+The pipelined prefill and decode (``runtime/serve_step``) add two
+functions: :func:`sharded_greedy`, the vocabulary-parallel argmax over the
+head's row blocks, and :func:`merge_partials`, the log-sum-exp merge of
+the ranks' attention over their shards of a sequence-sharded cache (the
+reference's flash-decode ``pmax`` / ``psum``).
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ __all__ = ["choose_policy", "subgroup_info", "row_blocks", "row_views",
            "all_gather", "reduce_scatter", "all_to_all",
            "make_none_policy", "make_allgather_kv_policy",
            "make_ulysses_policy", "sharded_embed", "sharded_ce", "merge_lse",
-           "sharded_greedy",
+           "sharded_greedy", "merge_partials",
            "make_sp_ssm_scan", "make_sp_conv_tail_exchange", "make_model"]
 
 # collectives run and the bytes they would move between ranks
@@ -384,12 +388,69 @@ def sharded_ce(hidden: Sequence[torch.Tensor], w,
     return _ShardedCE.apply(h_g, t_g, v_g, *row_views(w, d_s))
 
 
-def sharded_greedy(*args, **kwargs):
-    """The reference's vocabulary-parallel argmax serves its pipelined
-    prefill and decode, which the port does not have: refused."""
-    raise NotImplementedError(
-        "sharded_greedy serves the pipelined prefill and decode, which are "
-        "not ported: ROADMAP.md queue 1, item 7")
+@torch.no_grad()
+def sharded_greedy(hidden, w, d_s: int, *, vocab_true=None, rows=None
+                   ) -> torch.Tensor:
+    """Vocabulary-parallel greedy ids, the reference's ``sharded_greedy``
+    as ``executor.fold_greedy_ids`` calls it: the argmax of ``hidden @
+    w.T`` over the vocabulary without the ``[T, V]`` logits. Each rank's
+    row block of the head (:func:`row_views` over ``d_s`` ranks; a block's
+    rows at or past ``vocab_true`` never win) gives its best id and logit
+    (``serve_step.greedy_ids``); the ranks' bests merge as the reference's
+    ``pmax`` then ``pmin``: the largest logit, ties to the lowest id.
+
+    ``hidden``: one ``[T, D]`` tensor, the same rows on every rank (the
+    decode case), or a list of the ranks' token blocks (the prefill case:
+    gathered first); ``rows`` (an index tensor) picks the gathered rows to
+    score, all of them if None. Returns int64 ids on ``hidden``'s
+    device."""
+    from .serve_step import greedy_ids
+    if isinstance(hidden, (list, tuple)):
+        hidden = all_gather(hidden)
+    if rows is not None:
+        hidden = hidden.index_select(0, rows)
+    blocks = row_views(w, d_s)
+    V = sum(b.shape[0] for b in blocks)
+    V = V if vocab_true is None else min(V, int(vocab_true))
+    best_i = best_v = None
+    for off, block in zip(_offsets(blocks), blocks):
+        n = min(block.shape[0], V - off)
+        if n <= 0:
+            continue
+        ids, vals = greedy_ids(hidden, block[:n], with_max=True)
+        ids = ids + off
+        if best_v is None:
+            best_i, best_v = ids, vals
+        else:               # blocks in id order: strict > keeps the lowest
+            take = vals > best_v
+            best_i = torch.where(take, ids, best_i)
+            best_v = torch.where(take, vals, best_v)
+    _count(2 * (len(blocks) - 1) * 8 * hidden.shape[0])    # pmax, pmin
+    return best_i
+
+
+def merge_partials(outs: Sequence[torch.Tensor],
+                   lses: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The ranks' attention over their own key rows merged into attention
+    over all of them (the reference's flash-decode ``pmax`` / ``psum``
+    merge): ``outs[r]`` ``[T, H, Dv]``, rank ``r``'s output normalised over
+    its keys, ``lses[r]`` ``[H, T]`` its rows' log-sum-exps (``-inf`` where
+    the rank holds no live key for a row, whose output adds nothing). A
+    row with no live key on any rank is zero, as the port's kernel gives
+    it (ROADMAP.md §3). One rank: its output unchanged. In float32, cast
+    to the outputs' dtype."""
+    if len(outs) == 1:
+        return outs[0]
+    lse = torch.stack([x.float() for x in lses])            # [d, H, T]
+    m = lse.max(0).values
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m).transpose(1, 2)[..., None]       # [d, T, H, 1]
+    den = w.sum(0)
+    num = (w * torch.stack([o.float() for o in outs])).sum(0)
+    out = torch.where(den > 0, num / den.clamp_min(1e-30),
+                      torch.zeros_like(num))
+    _count((len(outs) - 1) * (_nbytes(num) + 2 * _nbytes(m)))
+    return out.to(outs[0].dtype)
 
 
 # ---------------------------------------------------------------------------

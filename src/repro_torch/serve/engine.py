@@ -548,15 +548,17 @@ def top2_margin(cfg_arch, params: Dict, seq: Sequence[int], *,
 def verify_against_one_shot(cfg_arch, params: Dict,
                             prompts: Sequence[Sequence[int]],
                             outputs: Sequence[Sequence[int]], max_new: int,
-                            *, compute_dtype=torch.float32, device=None
-                            ) -> Tuple[bool, List[str]]:
+                            *, compute_dtype=torch.float32, device=None,
+                            reference=None) -> Tuple[bool, List[str]]:
     """Compare engine output ids with :func:`one_shot_generate`. A mismatch
     is tolerated only where the one-shot's top-1/top-2 logit margin is
     below ``NEAR_TIE * max|logit|`` (random weights at a 262,144-entry
     vocabulary give near-ties that summation order may flip); comparison of
-    that request stops there. Returns (ok, report lines)."""
-    ref = one_shot_generate(cfg_arch, params, prompts, max_new,
-                            compute_dtype=compute_dtype, device=device)
+    that request stops there. ``reference``: the one-shot ids, if the
+    caller has them. Returns (ok, report lines)."""
+    ref = reference if reference is not None else one_shot_generate(
+        cfg_arch, params, prompts, max_new, compute_dtype=compute_dtype,
+        device=device)
     ok, lines = True, []
     for i, (got, want) in enumerate(zip(outputs, ref)):
         got = list(got)

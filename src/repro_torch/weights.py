@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.model import unstack_layers
+from repro_torch.models.model import layer_params, unstack_layers
 from repro_torch.runtime.sharding import encdec_stage_layers, stage_blocks
 
 __all__ = ["DENSE_LEAVES", "from_jax", "to_stages", "from_stages",
@@ -122,7 +122,7 @@ def _tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
 
 
 def to_stages(cfg: ArchConfig, params: Mapping[str, Any], d_p: int,
-              v: int = 1) -> List[Dict[str, Any]]:
+              v: int = 1, *, decode: bool = False) -> List[Dict[str, Any]]:
     """The port's parameter dict -> one dict per pipeline stage (the same
     tensors, layers unstacked): ``layers`` maps each global layer id the
     stage runs (``runtime/sharding.stage_blocks``) to its parameters; the
@@ -136,10 +136,30 @@ def to_stages(cfg: ArchConfig, params: Mapping[str, Any], d_p: int,
     the first decoder stage also ``embed`` (the token embedding) and
     ``enc_norm`` (it norms the finished encoder rows), the last
     ``final_norm`` and ``embed`` (the tied head; one copy when the two
-    stages are one)."""
+    stages are one).
+
+    ``decode``: the pipelined decode's layout (``runtime/serve_step``), the
+    counterpart of the reference's ``prepare_encdec_decode_params``. A
+    decoder-only model's is the layout above at ``v`` 1. An
+    encoder-decoder's decoder layers spread over all ``d_p`` stages as
+    ``layers`` (``stage_blocks``), and the first stage also keeps the
+    encoder for the prefill (``enc_layers``, a list, and ``enc_norm``)
+    with ``embed``; the last holds ``final_norm`` and ``embed`` (the tied
+    head)."""
+    if decode and v != 1:
+        raise ValueError(f"the decode layout has one virtual stage, got "
+                         f"v={v}")
+    if cfg.spec.is_encoder_decoder and decode:
+        return _encdec_decode_stages(cfg, params, d_p)
     if cfg.spec.is_encoder_decoder:
         return _encdec_to_stages(cfg, params, d_p)
-    layers = unstack_layers(dict(params))["layers"]
+    # (the decode layout takes views of stacked layers: no second copy of
+    # the weights beside the caller's)
+    layers = params["layers"] if not decode or isinstance(
+        params["layers"], list) else [layer_params(params, i) for i in
+                                      range(cfg.spec.n_layers)]
+    if not decode:
+        layers = unstack_layers(dict(params))["layers"]
     out = []
     for p, blocks in enumerate(stage_blocks(d_p, cfg.spec.n_layers, v)):
         sp: Dict[str, Any] = {"layers": {i: layers[i] for b in blocks
@@ -169,6 +189,22 @@ def _encdec_to_stages(cfg: ArchConfig, params: Mapping[str, Any],
         if p == d_p - 1:
             sp["final_norm"], sp["embed"] = params["final_norm"], \
                 params["embed"]
+        out.append(sp)
+    return out
+
+
+def _encdec_decode_stages(cfg: ArchConfig, params: Mapping[str, Any],
+                          d_p: int) -> List[Dict[str, Any]]:
+    out = []
+    for p, blocks in enumerate(stage_blocks(d_p, cfg.spec.n_layers)):
+        sp: Dict[str, Any] = {"layers": {i: params["dec_layers"][i]
+                                         for b in blocks for i in b}}
+        if p == 0:
+            sp.update(embed=params["embed"],
+                      enc_layers=list(params["enc_layers"]),
+                      enc_norm=params["enc_norm"])
+        if p == d_p - 1:
+            sp.update(final_norm=params["final_norm"], embed=params["embed"])
         out.append(sp)
     return out
 

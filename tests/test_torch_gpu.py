@@ -1554,3 +1554,82 @@ def _sp_step_on_card(arch, policy, mode="per_tick", n_pods=1):
     assert abs(a.loss - b.loss) <= 1e-5 * abs(a.loss)
     for x, y in zip(tree_leaves(b.grads), tree_leaves(a.grads)):
         _close(x, y, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the pipelined decode's layers on the card
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch,d,window", [("hymba-1.5b", 2, 0),
+                                           ("gemma3-1b", 3, 512),
+                                           ("deepseek-v2-lite", 2, 0)])
+def test_decode_attention_on_card_matches_cpu(arch, d, window, dtype):
+    """``decode_attention`` at full width (hymba's 25 / 5 heads of 64,
+    gemma3-1b's window, deepseek's latent rows at (192, 128)): 8
+    sequences' new rows against ``d`` ranks of 128 rows, the last rank
+    holding no live row; kernel A with its lse per rank and the merge on
+    the card against the plain versions on the CPU in the same dtype; the
+    new row written into the same place."""
+    dev = _cuda()
+    from repro_torch.configs import get_arch
+    from repro_torch.models.attention import decode_attention, init_attention
+    cfg = get_arch(arch)
+    s = cfg.spec
+    p = init_attention(cfg, torch.Generator().manual_seed(1), device="cpu")
+    bm, s_loc, length = 8, 128, 128 * (d - 1) - 5
+    row = (1, s.kv_lora_rank + s.qk_rope_dim) if s.kv_lora_rank else \
+        (s.n_kv_heads, s.head_dim)
+    g = torch.Generator().manual_seed(2)
+    ck = [torch.randn((bm, s_loc, *row), generator=g) for _ in range(d)]
+    cv = None if s.kv_lora_rank else \
+        [torch.randn((bm, s_loc, *row), generator=g) for _ in range(d)]
+    x = torch.randn((bm, s.d_model), generator=g).to(dtype)
+    p = {k: v.to(dtype) for k, v in p.items()}
+    ck = [t.to(dtype) for t in ck]
+    cv = None if cv is None else [t.to(dtype) for t in cv]
+    on = {k: v.to(dev) for k, v in p.items()}
+    ck_d = [t.to(dev) for t in ck]
+    cv_d = None if cv is None else [t.to(dev) for t in cv]
+    plain = ops.flash_attention.plain_calls
+    want = decode_attention(cfg, p, x, ck, cv, length=length, window=window)
+    assert ops.flash_attention.plain_calls == plain + d
+    got = decode_attention(cfg, on, x.to(dev), ck_d, cv_d, length=length,
+                           window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.plain_calls == plain + d
+    _close(got, want, dtype)
+    for a, b in zip(ck_d, ck):
+        _close(a, b, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch,d", [("hymba-1.5b", 2),
+                                    ("falcon-mamba-7b", 1)])
+def test_mamba_decode_on_card_matches_cpu(arch, d, dtype):
+    """``mamba_decode`` at full width over ``d`` channel blocks, 8
+    sequences from a random state: the output, the new state and tail, on
+    the card against the CPU in the same dtype."""
+    dev = _cuda()
+    from repro_torch.configs import get_arch
+    from repro_torch.models.ssm import init_mamba, mamba_decode
+    cfg = get_arch(arch)
+    s = cfg.spec
+    p = init_mamba(cfg, torch.Generator().manual_seed(1), device="cpu")
+    g = torch.Generator().manual_seed(3)
+    bm, dl = 8, s.inner // d
+    h = [torch.randn((bm, dl, s.ssm_state), generator=g) for _ in range(d)]
+    t = [torch.randn((bm, s.ssm_conv - 1, dl), generator=g)
+         for _ in range(d)]
+    x = torch.randn((bm, s.d_model), generator=g).to(dtype)
+    p = {k: v.to(dtype) for k, v in p.items()}
+    t = [a.to(dtype) for a in t]
+    h_d, t_d = [a.to(dev) for a in h], [a.to(dev) for a in t]
+    got = mamba_decode(cfg, {k: v.to(dev) for k, v in p.items()},
+                       x.to(dev), h_d, t_d)
+    want = mamba_decode(cfg, p, x, h, t)
+    torch.cuda.synchronize()
+    _close(got, want, dtype)
+    for a, b in zip(h_d + t_d, h + t):
+        _close(a, b, dtype)

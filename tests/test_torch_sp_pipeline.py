@@ -266,8 +266,6 @@ def test_geometry_checks_and_remaining_refusals():
     with pytest.raises(NotImplementedError, match="item 2"):
         PipelineGeometry(d_p=1, overlap_handoff=True)
     from repro_torch.runtime import sp
-    with pytest.raises(NotImplementedError, match="item 7"):
-        sp.sharded_greedy()
     _, cfg, _, _, raw = case("gemma3-1b")
     with pytest.raises(NotImplementedError, match="item 2"):
         PipelineTrainer(cfg, from_jax(cfg, raw, device="cpu"), geometry=g,
