@@ -100,6 +100,25 @@ exit and no result line):
            and the plain attention never;
   verify   the same engine in float32 on the first 2 requests (8 new
            tokens) against the port's one_shot_generate;
+  serve_mesh  the engine on a 2x2 mesh of this card (2 pipeline stages of
+           2 sequence-parallel ranks, the pool's pages split over the
+           ranks), gemma3-1b at full width and depth in bf16 on serve's
+           trace: every request completes, A's forward and its tile ranges
+           launch 26 x 2 times per engine step (every rank, a rank with no
+           live row too), no plain call, the pool's bytes per rank equal
+           the reference's ``engine_pool_struct`` share, every rank holds
+           pages; tokens/s, TTFT and TPOT p50/p95, peak memory, collective
+           bytes a step; then kernel A with its lse against its plain
+           version at each (rank, window)'s largest call of the run (all
+           the step's queries against the rank's resident rows), with its
+           faults (a live key tile dropped, the causal limit or window one
+           off), times and bound;
+  verify_mesh  the engine in float32 at 2x2 on serve's first 2 requests
+           (8 new tokens; the pool cut to their pages, so both ranks hold
+           some) against one_shot_generate under the near-tie rule, and
+           the float32 kernel cases at the run's calls; planted faults
+           must fail the gate: the last rank's partial dropped from the
+           log-sum-exp merge, each rank reading the next rank's pages;
   train    gemma3-1b at full width, bf16 with a float32 AdamW master, 2
            steps of ``launch/train.train`` on github batches of 8 x 16384
            tokens planned for one H100: per step
@@ -175,6 +194,11 @@ exit and no result line):
            issued, the host syncs that read the group sizes, the non-empty
            experts of each layer (fewest, most), the smallest top-k margin
            (the k-th router logit less the (k+1)-th) over every routed row;
+  serve_mesh_moe  olmoe-1b-7b at full width and depth at 1x2 (expert
+           parallelism inside the engine: each rank routes every row to
+           its 32 experts), bf16, serve's first 8 requests with 16 new
+           tokens, gated as serve_mesh; verify_mesh at 1x2 in float32 as
+           above;
   verify_moe  that engine in float32 on the first 2 requests against
            one_shot_generate;
   train_moe  olmoe-1b-7b at full width cut to 4 layers (TRAIN_LAYERS: 16
@@ -319,7 +343,7 @@ exit and no result line):
            float64 attention and cross-entropy, no kernel); at d_p 4 a
            causal encoder and the memory's gradient dropped at the last
            decoder stage fall outside;
-  train_restart  gemma3-1b at full width on 13 of 26 layers
+  train_restart  gemma3-1b at full width on 8 of 26 layers
            (RESTART_LAYERS: cut to keep the script in its time), bf16,
            1x1, the
            train phase's batches: steps 0-3 with a checkpoint after steps
@@ -4326,17 +4350,19 @@ def phase_train_verify_encdec(dev, seed):
 # online re-planning with the plan journal (gemma3-1b at full width, bf16)
 
 RESTART_STEPS = 4       # 0-3 saving after 1 and 3; restore 1, run 2-3
-# restart: gemma3-1b cut to 13 of its 26 layers (every width kept), so
-# that the script fits its time with the ZeRO-3 phases (at 1x1 the plan's
-# estimate charges the tied head's states twice: no shallow-cut peak)
-RESTART_LAYERS = 13
+# restart: gemma3-1b cut to 8 of its 26 layers (every width kept), so
+# that the script fits its time with the ZeRO-3 and mesh-engine phases (at
+# 1x1 the plan's estimate charges the tied head's states twice: no
+# shallow-cut peak)
+RESTART_LAYERS = 8
 # elastic: gemma3-1b at full width and depth, 2 steps a phase; its 2x1
 # phases pin a one-virtual-stage backend (the planner picks interleaved v
 # = 13 there, and a checkpoint moves only between runs of one v: the
 # reference's guard)
 ELASTIC_STEPS, ELASTIC_SCHEDULE = 2, "zero-bubble-h1"
-# gemma3-1b's layers in train_elastic: 13 of 26, as train_restart's, to
-# keep the script in its time
+# gemma3-1b's layers in train_elastic: 13 of 26, to keep the script in
+# its time (not fewer: its 2x1 steps' peaks are gated, and shallow 2x1
+# cuts peak over the plan)
 ELASTIC_LAYERS = 13
 # re-planning: 2x1, gemma3-1b cut to 2 of 26 layers (every width kept) and
 # batches of 8 x 4096 tokens so that four runs of 12 steps fit the time
@@ -6142,15 +6168,10 @@ def _decode_attn_case(name, Hq, Hkv, Dk, Dv, bm, s_loc, offset, length,
     """Kernel A as one rank of a decode step runs it
     (``ops.attention_with_lse``): ``bm`` queries at position ``length``,
     one a sequence, against the rank's ``bm x s_loc`` cache rows whose
-    global rows start at ``offset``, against the plain attention and its
-    lse; a rank with no live row must give zeros and ``-inf``. Faults: the
-    causal limit one off, a window one off. Times: the op (tile ranges,
-    forward, merge pass), the plain version, SDPA with the boolean mask;
-    the bound: the cache read once."""
+    global rows start at ``offset`` (:func:`_lse_case`). Faults: the
+    causal limit one off, a window one off."""
     import torch
 
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import kv_splits
     from repro_torch.models.attention import decode_meta
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -6162,10 +6183,35 @@ def _decode_attn_case(name, Hq, Hkv, Dk, Dv, bm, s_loc, offset, length,
     pos = torch.full((bm,), length, dtype=torch.int32, device=dev)
     args = dict(q=q, k=k, v=v, seg_q=seg_q, seg_kv=seg_kv, pos_q=pos,
                 pos_kv=row, window=window)
+    faults = {"causal off by one": dict(pos_q=pos - 1)}
+    if window > 0:
+        faults["window - 1"] = dict(window=window - 1)
+    return _lse_case(name, args, faults, dtype, dev,
+                     length=length, rows_offset=offset)
+
+
+def _lse_case(name, args, faults, dtype, dev, **extra):
+    """Kernel A with its log-sum-exp (``ops.attention_with_lse``, as a rank
+    of a sequence-sharded cache runs it) on ``args`` against the plain
+    attention and its lse; a query with no live key must give zeros and
+    ``-inf``. ``faults``: changed arguments each of which must fall outside
+    the tolerance (none where no key is live: nothing moves a zero
+    output). Times: the op (tile ranges, forward, merge pass), the plain
+    version, SDPA with the boolean mask; the bound: each input read once,
+    the output and lse written once, against the live pairs' operations."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import kv_splits
+    q, k, v = args["q"], args["k"], args["v"]
+    seg_q, seg_kv = args["seg_q"], args["seg_kv"]
+    pos, row, window = args["pos_q"], args["pos_kv"], args["window"]
+    lse_args = {n: args[n] for n in ("q", "k", "seg_q", "seg_kv", "pos_q",
+                                      "pos_kv", "window", "scale")
+                if n in args}
     out, lse = ops.attention_with_lse(**args)
     want = ref.flash_attention_reference(**args)
-    want_lse = ref.flash_attention_lse(q, k, seg_q, seg_kv, pos, row,
-                                       window=window)
+    want_lse = ref.flash_attention_lse(**lse_args)
     max_err, ok = _within(out, want, dtype)
     live = torch.isfinite(want_lse)
     lse_err, lse_ok = _within(lse[live], want_lse[live], torch.float32) \
@@ -6174,39 +6220,38 @@ def _decode_attn_case(name, Hq, Hkv, Dk, Dv, bm, s_loc, offset, length,
     again = [ops.attention_with_lse(**args) for _ in range(2)]
     bitwise = all(torch.equal(a, out) and torch.equal(b, lse)
                   for a, b in again)
-    faults = {"causal off by one": dict(pos_q=pos - 1)}
-    if window > 0:
-        faults["window - 1"] = dict(window=window - 1)
     caught, missed = {}, []
-    for fault, change in faults.items():
-        caught[fault], inside = _within(
-            ops.attention_with_lse(**{**args, **change})[0], want, dtype)
-        if inside:
-            missed.append(fault)
-    if not bool(live.any()):        # a rank with no live row: no fault
-        caught, missed = {}, []     # moves its (zero) output
+    if bool(live.any()):
+        for fault, change in faults.items():
+            caught[fault], inside = _within(
+                ops.attention_with_lse(**{**args, **change})[0], want, dtype)
+            if inside:
+                missed.append(fault)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     kernel_ms = _cuda_ms(lambda: ops.attention_with_lse(**args))
     plain_ms = _cuda_ms(lambda: (ref.flash_attention_reference(**args),
-                                 ref.flash_attention_lse(
-                                     q, k, seg_q, seg_kv, pos, row,
-                                     window=window)), iters=5, warmup=1)
+                                 ref.flash_attention_lse(**lse_args)),
+                        iters=5, warmup=1)
     mask = ref.attention_mask(seg_q, seg_kv, pos, row, True, window)
+    T, Hq, Dk = q.shape
+    Hkv, Dv = k.shape[1], v.shape[2]
     G = Hq // Hkv
     ke = k.repeat_interleave(G, dim=1).transpose(0, 1)[None]
     ve = v.repeat_interleave(G, dim=1).transpose(0, 1)[None]
     qe = q.transpose(0, 1)[None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = _cuda_ms(lambda: sdpa(qe, ke, ve, attn_mask=mask),
+    library_ms = _cuda_ms(lambda: sdpa(qe, ke, ve, attn_mask=mask,
+                                       scale=args.get("scale")),
                           iters=5, warmup=1)
     pairs = int(mask.sum()) * Hq
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out, lse))
     nbytes += sum(t.numel() * 4 for t in (seg_q, seg_kv, pos, row))
     bound_ms, bound_by = _bound((2.0 * Dk + 2.0 * Dv) * pairs, nbytes, dtype)
-    rec = dict(case=name, dtype=_dtype_name(dtype), T=bm, S=bm * s_loc,
-               Hq=Hq, Hkv=Hkv, D=Dk, Dv=Dv, window=window, length=length,
-               rows_offset=offset, live_pairs=pairs,
-               n_split=kv_splits(32, bm * s_loc, Hq, n_sm, dtype),
+    rec = dict(case=name, dtype=_dtype_name(dtype), T=T, S=k.shape[0],
+               Hq=Hq, Hkv=Hkv, D=Dk, Dv=Dv, window=window, **extra,
+               live_keys=int((seg_kv >= 0).sum()), live_pairs=pairs,
+               n_split=kv_splits(-(-T // 32) * 32, k.shape[0], Hq, n_sm,
+                                 dtype),
                max_abs_err=max_err, lse_max_abs_err=lse_err,
                tol=TOL[_dtype_name(dtype)], within_tol=ok and lse_ok,
                bitwise_repeat=bitwise, faults_max_abs_err=caught,
@@ -6247,6 +6292,317 @@ def phase_kernel_decode(dev, seed):
         _decode_attn_case("hymba 1x1 float32 bm 2", 25, 5, 64, 64, 2, 1088,
                           0, 1030, 0, f32, dev, seed + 4),
     ]
+
+
+# ---------------------------------------------------------------------------
+# serve_mesh / verify_mesh phases: the engine on the (d_p, d_s) mesh
+# ---------------------------------------------------------------------------
+
+# (d_p, d_s, requests of the serve trace, new tokens each): gemma3-1b and
+# olmoe-1b-7b at full width and depth
+MESH_SERVE = {"serve_mesh": (2, 2, 16, 32), "serve_mesh_moe": (1, 2, 8, 16)}
+MESH_VERIFY = {"gemma3-1b": (2, 2), MOE: (1, 2)}
+MESH_FAULTS = ("rank partial dropped", "page owner shifted by one rank")
+
+
+def _reference_pool_share(cfg, geom):
+    """One rank's bytes of the reference's ``engine_pool_struct``: K and V
+    ``[d_p, L_s, n_pages + d_s, page_sz, Hkv, Dh]`` over ``d_p x d_s``
+    ranks."""
+    import torch
+    s = cfg.spec
+    el = torch.empty((), dtype=geom.compute_dtype).element_size()
+    total = 2 * geom.d_p * geom.layers_per_stage * (geom.n_pages + geom.d_s) \
+        * geom.page_sz * s.n_kv_heads * s.head_dim * el
+    return total // (geom.d_p * geom.d_s)
+
+
+@contextlib.contextmanager
+def _watch_engine(d_s, calls, ranks):
+    """While the engine runs: for each (rank, window), the arguments of its
+    attention call with the most key rows (references only: the engine
+    makes them anew for every call, rank by rank), and the ranks that
+    hold a page of a request packed into a step (from the host's page
+    tables)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine as E
+    real_attn, real_pack, n = ops.attention_with_lse, E.pack_step, [0]
+
+    def attn(q, k, v, seg_q, seg_kv, pos_q, pos_kv, **kw):
+        key = (n[0] % d_s, kw["window"])
+        n[0] += 1
+        if key not in calls or k.shape[0] > calls[key]["k"].shape[0]:
+            calls[key] = dict(q=q, k=k, v=v, seg_q=seg_q, seg_kv=seg_kv,
+                              pos_q=pos_q, pos_kv=pos_kv, **kw)
+        return real_attn(q, k, v, seg_q, seg_kv, pos_q, pos_kv, **kw)
+
+    def pack(geom, segs, device):
+        ranks.update(p // geom.n_pages_loc for sg in segs for p in sg.table)
+        return real_pack(geom, segs, device)
+    ops.attention_with_lse, E.pack_step = attn, pack
+    try:
+        yield
+    finally:
+        ops.attention_with_lse, E.pack_step = real_attn, real_pack
+
+
+def phase_serve_mesh(dev, cfg, params, trace, d_p, d_s, new):
+    """The engine on a ``d_p x d_s`` mesh of this card in bf16: the serve
+    phase's trace (its first requests, ``new`` tokens each); every request
+    completes; A's forward and its tile ranges launch once per rank, layer
+    and step; no plain call; the pool's bytes per rank equal the
+    reference's ``engine_pool_struct`` share, and every rank holds pages.
+    Returns the record and the largest attention call of each (rank,
+    window)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (FWD_KERNELS,
+                                                     flash_attention_cuda,
+                                                     flash_bwd_tiles_cuda,
+                                                     flash_combine_cuda)
+    from repro_torch.serve.engine import ServeEngine
+    econf = _econf(trace, new)
+    mesh = dict(d_p=d_p, d_s=d_s)
+    warm = ServeEngine(cfg, econf, params=params, param_dtype=torch.bfloat16,
+                       device=dev, **mesh)
+    warm.run(_requests(trace[:1], max_new=2))
+    del warm
+    eng = ServeEngine(cfg, econf, params=params, param_dtype=torch.bfloat16,
+                      device=dev, **mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mma = FWD_KERNELS[torch.bfloat16]
+    flash_attention_cuda.launches = 0
+    flash_attention_cuda.by_kernel[mma] = 0
+    flash_combine_cuda.launches = 0
+    flash_bwd_tiles_cuda.launches = 0
+    ops.flash_attention.plain_calls = 0
+    calls, ranks = {}, set()
+    with _watch_engine(d_s, calls, ranks):
+        results = eng.run(_requests(trace, max_new=new))
+    st = eng.stats()
+    pool = sum(t.numel() * t.element_size() for stages in
+               eng.pool_state.values() for rk in stages for t in rk)
+    want = cfg.spec.n_layers * d_s * st["steps"]
+    rec = dict(arch=cfg.spec.name, mesh=st["mesh"],
+               completed=st["completed"],
+               requests=len(trace), steps=st["steps"],
+               tokens_per_s=st["tokens_per_s"], wall_s=st["wall_s"],
+               ttft_s_p50=st["ttft_s_p50"], ttft_s_p95=st["ttft_s_p95"],
+               tpot_s_p50=st["tpot_s_p50"], tpot_s_p95=st["tpot_s_p95"],
+               prefill_tokens_fed=st["prefill_tokens_fed"],
+               emitted_tokens=st["emitted_tokens"],
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               n_pages=eng.geom.n_pages, n_pages_loc=eng.geom.n_pages_loc,
+               pool_bytes_per_rank=st["pool_bytes_per_rank"],
+               pool_bytes_allocated_per_rank=pool // (d_p * d_s),
+               reference_pool_share=_reference_pool_share(cfg, eng.geom),
+               ranks_with_pages=sorted(ranks),
+               collective_bytes_per_step=st["collective_bytes_per_step"],
+               kv_pool=st["kv_pool"],
+               flash_launches=flash_attention_cuda.launches,
+               flash_mma_launches=flash_attention_cuda.by_kernel[mma],
+               flash_launches_expected=want,
+               tile_range_launches=flash_bwd_tiles_cuda.launches,
+               combine_launches=flash_combine_cuda.launches,
+               plain_attention_calls=ops.flash_attention.plain_calls)
+    bad = [r for r in results.values() if len(r.output_ids) != new]
+    if st["completed"] != len(trace) or bad:
+        raise PhaseError(f"not every request completed: {rec}")
+    if not (rec["flash_launches"] == rec["flash_mma_launches"] == want
+            == rec["tile_range_launches"]) or rec["plain_attention_calls"]:
+        raise PhaseError(f"the mesh engine did not run on the kernel on "
+                         f"every rank: {rec}")
+    if not (rec["pool_bytes_per_rank"] == rec["pool_bytes_allocated_per_rank"]
+            == rec["reference_pool_share"]):
+        raise PhaseError(f"the pool is not the reference's layout: {rec}")
+    if ranks != set(range(d_s)):
+        raise PhaseError(f"not every rank held pages: {rec}")
+    return rec, calls
+
+
+def _engine_rank_cases(tag, calls, dtype, dev):
+    """Kernel A with its lse at each (rank, window)'s largest call of a
+    mesh engine run (:func:`_lse_case`): all the step's queries against
+    the rank's resident rows (rank 0: and the step's own). Faults: the
+    rank's first live key tile dropped; rank 0 (the step's rows) the
+    causal limit one off; a windowed layer its window one off."""
+    out = []
+    for (r, w), args in sorted(calls.items()):
+        seg_kv = args["seg_kv"]
+        live = (seg_kv >= 0).nonzero()
+        faults = {}
+        if len(live):
+            t0 = int(live[0]) // 32 * 32
+            drop = seg_kv.clone()
+            drop[t0:t0 + 32] = -2
+            faults["one live key tile dropped"] = dict(seg_kv=drop)
+        if r == 0:
+            faults["causal off by one"] = dict(pos_q=args["pos_q"] - 1)
+        if w > 0:
+            faults["window - 1"] = dict(window=w - 1)
+        out.append(_lse_case(f"{tag} rank {r} window {w}", args, faults,
+                             dtype, dev, rank=r))
+    return out
+
+
+@contextlib.contextmanager
+def _mesh_fault(fault):
+    """A planted fault of the mesh engine: ``rank partial dropped`` (the
+    last rank's partial left out of the log-sum-exp merge), ``page owner
+    shifted by one rank`` (every rank reads its pool rows for the pages of
+    the next rank, at the same local index; the writes stay right)."""
+    import dataclasses
+
+    from repro_torch.runtime import sp
+    from repro_torch.serve import engine as E
+    real_merge, real_pack = sp.merge_partials, E.pack_step
+
+    def merge(outs, lses):
+        return real_merge(outs[:-1], lses[:-1])
+
+    def pack(geom, segs, device):
+        b = real_pack(geom, segs, device)
+        shift = [dataclasses.replace(sg, table=[
+            (p + geom.n_pages_loc) % geom.n_pages for p in sg.table])
+            for sg in segs]
+        for rr, rs in zip(b.ranks, real_pack(geom, shift, device).ranks):
+            rr.kv = rs.kv
+        return b
+    if fault == "rank partial dropped":
+        sp.merge_partials = merge
+    elif fault == "page owner shifted by one rank":
+        E.pack_step = pack
+    else:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        sp.merge_partials, E.pack_step = real_merge, real_pack
+
+
+MESH_ROW_LIMIT = 1e-4     # the mesh engine's pool rows against 1x1's
+# a routed model's: a router pick whose top-k margin is under float32
+# rounding (olmoe's smallest ~1e-7) flips between the 1x1 block and
+# the ranks' (the flipped rows are counted) and moves its row's output;
+# olmoe at 1x2 read 1.14e-2 with its ids equal, the faults ~1
+MESH_ROW_LIMIT_MOE = 5e-2
+
+
+def _serve_rows(eng, reqs, stop=None):
+    """Serve ``reqs`` (all submitted at once) to the end; returns the ids,
+    the step and each running request's committed K and V rows of every
+    layer (``serve_step.read_rows``) after step ``stop``, or, without
+    ``stop``, after the last step before any request finished."""
+    import torch
+
+    from repro_torch.runtime.serve_step import read_rows
+    for r in reqs:
+        eng.submit(r)
+    snap = None
+    while eng.n_active:
+        eng.step()
+        if eng.step_count == stop or (stop is None and not eng.results):
+            snap = (eng.step_count, {
+                st.req.req_id: torch.cat([read_rows(
+                    eng.cfg_arch, eng.geom, eng.pool_state,
+                    eng.pool.table_of(st.req.req_id), st.committed, name)
+                    for name in ("cache_k", "cache_v")])
+                for st in eng._running if st.committed})
+    ids = [eng.results[r.req_id].output_ids for r in reqs]
+    return ids, snap
+
+
+def _rows_error(got, want):
+    """The largest row difference over the largest magnitude, over the
+    requests the two snapshots hold (the same ones, or inf)."""
+    if got is None or got[0] != want[0] or got[1].keys() != want[1].keys():
+        return float("inf")
+    return max(float((got[1][r] - want[1][r]).abs().max()
+                     / want[1][r].abs().max()) for r in want[1])
+
+
+def phase_verify_mesh(dev, cfg, params32, trace, d_p, d_s):
+    """The float32 engine at ``d_p x d_s`` on the first 2 requests of the
+    serve trace (8 new tokens; the pool cut to the two requests' pages, so
+    they spread over the ranks), gated twice: its ids against
+    ``one_shot_generate`` under the near-tie rule, and its pool, every
+    layer's committed rows of each running request after the last step
+    before a request finishes, against the 1x1 engine's (within
+    :data:`MESH_ROW_LIMIT` of their largest magnitude, a routed model's
+    :data:`MESH_ROW_LIMIT_MOE`: at random weights attention over thousands
+    of keys moves the ids little). Each planted
+    fault of :data:`MESH_FAULTS` must fail the gate. Returns the report
+    and the largest attention call of each (rank, window)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.serve.engine import (ServeEngine, one_shot_generate,
+                                          verify_against_one_shot)
+    sub = trace[:2]
+    econf = _econf(sub, 8)
+    econf = dataclasses.replace(econf, n_pages=2 * econf.pages_per_seq)
+    prompts = [t["prompt"] for t in sub]
+    want = one_shot_generate(cfg, params32, prompts, 8,
+                             compute_dtype=torch.float32, device=dev)
+
+    def engine(dp, ds):
+        return ServeEngine(cfg, econf, params=params32,
+                           param_dtype=torch.float32, device=dev, d_p=dp,
+                           d_s=ds)
+    routed = cfg.spec.n_experts > 0
+    limit = MESH_ROW_LIMIT_MOE if routed else MESH_ROW_LIMIT
+
+    @contextlib.contextmanager
+    def picks(out, every):
+        """Each routed call's expert sets (every ``every``-th: the ranks
+        route the same gathered rows)."""
+        from repro_torch.models import moe
+        n = [0]
+
+        def observe(router, logits, ids, sizes):
+            if n[0] % every == 0:
+                out.append(ids.sort(dim=1).values)
+            n[0] += 1
+        with moe.observe_router(observe if routed else None):
+            yield
+    picks_one, picks_mesh = [], []
+    with picks(picks_one, 1):
+        _, one = _serve_rows(engine(1, 1), _requests(sub, max_new=8))
+
+    def serve(seen=None):
+        with picks(seen if seen is not None else [], d_s):
+            ids, rows = _serve_rows(engine(d_p, d_s),
+                                    _requests(sub, max_new=8), stop=one[0])
+        ok, lines = verify_against_one_shot(
+            cfg, params32, prompts, ids, 8, compute_dtype=torch.float32,
+            device=dev, reference=want)
+        err = _rows_error(rows, one)
+        return ok and err <= limit, lines, err
+    calls, ranks = {}, set()
+    with _watch_engine(d_s, calls, ranks):
+        ok, lines, err = serve(picks_mesh)
+    flips = sum(int((a != b).any(1).sum())
+                for a, b in zip(picks_one, picks_mesh))
+    if not ok:
+        raise PhaseError(f"rows {err:.3e} (limit {limit:g}, flipped "
+                         f"router rows {flips}); " + "; ".join(lines))
+    if ranks != set(range(d_s)):
+        raise PhaseError(f"the requests' pages sit on ranks {ranks} only")
+    faults = {}
+    for fault in MESH_FAULTS:
+        with _mesh_fault(fault):
+            passed, flines, ferr = serve()
+        faults[fault] = {"rows_error": ferr, "ids": flines}
+        if passed:
+            raise PhaseError(f"planted fault {fault!r} passes the gate: "
+                             f"rows {ferr:.3e}; " + "; ".join(flines))
+    return {"arch": cfg.spec.name, "mesh": f"{d_p}x{d_s}", "lines": lines,
+            "rows_step": one[0], "rows_error": err, "rows_limit": limit,
+            "router_flipped_rows": flips if routed else None,
+            "faults": faults}, calls
 
 
 def main() -> int:
@@ -6333,7 +6689,39 @@ def main() -> int:
     lines, dt = run("verify", lambda: phase_verify(dev, cfg, params32,
                                                    trace))
     print(f"[verify] ok in {dt:.1f}s: " + "; ".join(lines), flush=True)
-    del params32
+
+    # the engine on the (d_p, d_s) mesh: gemma3-1b at 2x2 on this card in
+    # bf16, kernel A at each rank's largest call, the float32 engine
+    # against the one-shot oracle with planted faults
+    from repro_torch.models.model import tree_map
+    d_p, d_s, n_req, new = MESH_SERVE["serve_mesh"]
+    p16 = tree_map(lambda a: a.to(torch.bfloat16), params32)
+    _zero_counts(ctr)
+    (srv, calls), dt = run("serve_mesh", lambda: phase_serve_mesh(
+        dev, cfg, p16, trace[:n_req], d_p, d_s, new))
+    mesh_counts = {"serve_mesh": _read_counts(ctr)}
+    print(f"[serve_mesh] {json.dumps(srv)} in {dt:.1f}s", flush=True)
+    del p16
+    mesh_k, dt = run("serve_mesh", lambda: _engine_rank_cases(
+        f"gemma3-1b {d_p}x{d_s} engine", calls, torch.bfloat16, dev))
+    for rec in mesh_k:
+        print(f"[serve_mesh] kernel {json.dumps(rec)}", flush=True)
+    print(f"[serve_mesh] kernel cases ok in {dt:.1f}s", flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    _zero_counts(ctr)
+    d_p, d_s = MESH_VERIFY["gemma3-1b"]
+    (ver, calls), dt = run("verify_mesh", lambda: phase_verify_mesh(
+        dev, cfg, params32, trace, d_p, d_s))
+    mesh_counts["verify_mesh"] = _read_counts(ctr)
+    print(f"[verify_mesh] ok in {dt:.1f}s: {json.dumps(ver)}", flush=True)
+    mesh_k32, dt = run("verify_mesh", lambda: _engine_rank_cases(
+        f"gemma3-1b {d_p}x{d_s} engine float32", calls, torch.float32,
+        dev))
+    for rec in mesh_k32:
+        print(f"[verify_mesh] kernel {json.dumps(rec)}", flush=True)
+    print(f"[verify_mesh] kernel cases ok in {dt:.1f}s", flush=True)
+    del params32, calls
     torch.cuda.empty_cache()
 
     trn, dt = run("train", lambda: phase_train(dev, args.seed))
@@ -6393,6 +6781,28 @@ def main() -> int:
             dev, moe_cfg, moe32, moe_trace))
     print(f"[verify_moe] ok in {dt:.1f}s: " + "; ".join(lines), flush=True)
     print(f"[verify_moe] moe {json.dumps(watch)}", flush=True)
+    # the MoE block's expert parallelism inside the mesh engine: olmoe at
+    # 1x2, bf16 on a shorter trace, then float32 against the oracle
+    d_p, d_s, n_req, new = MESH_SERVE["serve_mesh_moe"]
+    moe16 = tree_map(lambda a: a.to(torch.bfloat16), moe32)
+    _zero_counts(ctr)
+    (srv, calls), dt = run("serve_mesh_moe", lambda: phase_serve_mesh(
+        dev, moe_cfg, moe16, moe_trace[:n_req], d_p, d_s, new))
+    mesh_counts["serve_mesh_moe"] = _read_counts(ctr)
+    print(f"[serve_mesh_moe] {json.dumps(srv)} in {dt:.1f}s", flush=True)
+    del moe16
+    mesh_k_moe, dt = run("serve_mesh_moe", lambda: _engine_rank_cases(
+        f"{MOE} {d_p}x{d_s} engine", calls, torch.bfloat16, dev))
+    for rec in mesh_k_moe:
+        print(f"[serve_mesh_moe] kernel {json.dumps(rec)}", flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    _zero_counts(ctr)
+    d_p, d_s = MESH_VERIFY[MOE]
+    (ver, _), dt = run("verify_mesh", lambda: phase_verify_mesh(
+        dev, moe_cfg, moe32, moe_trace, d_p, d_s))
+    mesh_counts["verify_mesh_moe"] = _read_counts(ctr)
+    print(f"[verify_mesh] ok in {dt:.1f}s: {json.dumps(ver)}", flush=True)
     del moe32
     torch.cuda.empty_cache()
 
@@ -6601,7 +7011,8 @@ def main() -> int:
              "train_verify_encdec": encdec_verify_counts,
              "train_restart": restart_counts,
              "train_elastic": elastic_counts,
-             "train_replan": replan_counts, **sp_counts, **decode_counts}
+             "train_replan": replan_counts, **sp_counts, **decode_counts,
+             **mesh_counts}
     print("[kernels] " + "; ".join(f"{p}: {json.dumps(c)}"
                                    for p, c in paths.items())
           + f"; total {time.perf_counter() - t_start:.1f}s", flush=True)
@@ -6730,7 +7141,8 @@ def main() -> int:
                                       sp_k["allgather_kv"],
                                       sp_k["ulysses"],
                                       *[r for r in dk
-                                        if r["dtype"] == "bfloat16"])]),
+                                        if r["dtype"] == "bfloat16"],
+                                      *mesh_k, *mesh_k_moe)]),
         entry("flash_fwd_kernel", fa, tpu_fa, vb, **_fwd(vb),
               ms_covers="the forward as the train step runs it, with lse: "
                         "split pass and merge pass",
@@ -6739,7 +7151,8 @@ def main() -> int:
               also=[_fwd(r) for r in (vb_h, moe_vb, mla_vb, g32,
                                       cases[4], st_vb, *fig_f32, enc_f32,
                                       *[r for r in dk
-                                        if r["dtype"] == "float32"])]),
+                                        if r["dtype"] == "float32"],
+                                      *mesh_k32)]),
         entry("flash_combine_kernel", fa, tpu_fa, m,
               also=[{k: d_merge[k] for k in ("case", "dtype", "T", "n_split",
                                              "kernel_ms", "bound_ms",

@@ -12,6 +12,19 @@ On the CPU, at a reduced size:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch gemma3-1b --reduced --requests 6 --verify 2
 
+``--mesh PxS`` (default ``1x1``, the one-card layout; the reference's
+default is ``2x2`` on four fake devices) serves on ``P`` pipeline stages of
+``S`` sequence-parallel ranks, stage ``p`` on card ``p mod --cards``, a
+stage's ranks on its card (``runtime/sharding.stage_devices``; SP ranks
+across cards are refused: they need the per-rank driver):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch gemma3-1b --reduced --mesh 2x2 --verify 2
+
+``--telemetry-dir DIR`` spills the engine's timeline (one ``engine`` event
+per drained trace: TTFT and TPOT percentiles, occupancy) to
+``DIR/timeline-serve.jsonl``.
+
 ``--profile PATH`` serves the trace under ``torch.profiler`` (after a
 one-request warm-up) and writes a JSON summary: device time by kernel and
 kernel group per engine step, kernel launches per step, the host's
@@ -30,6 +43,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma3-1b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--mesh", default="1x1",
+                    help="PxS: P pipeline stages of S sequence-parallel "
+                         "ranks (default 1x1)")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="cards the stages are placed on (stage p on "
+                         "card p mod cards)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; never falls back")
     ap.add_argument("--dtype", default=None,
@@ -76,6 +95,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", default="",
                     help="serve under torch.profiler and write its summary "
                          "here as JSON")
+    ap.add_argument("--telemetry-dir", default="",
+                    help="spill the telemetry timeline (the engine's "
+                         "TTFT/TPOT/occupancy event) to this directory as "
+                         "JSONL")
     args = ap.parse_args(argv)
 
     import torch
@@ -84,13 +107,20 @@ def main(argv=None) -> int:
     from repro_torch.data import sample_request_trace
     from repro_torch.device import (DeviceUnavailableError, dtype_of,
                                     resolve_device)
+    from repro_torch.launch.train import parse_mesh
+    from repro_torch.runtime.sharding import stage_devices
     from repro_torch.serve.engine import (EngineConfig, Request,
                                           ServeEngine,
                                           verify_against_one_shot)
+    from repro_torch.telemetry import StepTimeline
 
     try:
         device = resolve_device(args.device)
-    except DeviceUnavailableError as e:
+        dp, ds = parse_mesh(args.mesh)
+        cards = ([torch.device(device.type, i) for i in range(args.cards)]
+                 if device.type == "cuda" else [device] * args.cards)
+        stage_devices(dp, cards, ds)
+    except (DeviceUnavailableError, ValueError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     dtype = dtype_of(args.dtype or ("bfloat16" if device.type == "cuda"
@@ -101,7 +131,9 @@ def main(argv=None) -> int:
 
     page_sz = args.page_sz
     pages_per_seq = -(-(args.context_limit + args.max_new) // page_sz)
-    n_pages = args.pages or 6 * pages_per_seq
+    # auto: room for 6 concurrent max-context requests, rounded up to a
+    # multiple of the ranks (the pool is sharded page-blockwise)
+    n_pages = args.pages or -(-(6 * pages_per_seq) // ds) * ds
     trace = sample_request_trace(args.trace, args.requests,
                                  args.context_limit, cfg.spec.vocab,
                                  seed=args.seed,
@@ -121,21 +153,27 @@ def main(argv=None) -> int:
         decode_token_budget=args.decode_budget or None,
         prefill_token_budget=args.prefill_budget or None,
         prefill_mode=args.prefill_mode)
+    timeline = StepTimeline(spill_dir=args.telemetry_dir or None,
+                            name="serve")
+    mesh = dict(d_p=dp, d_s=ds, cards=cards)
     try:
         engine = ServeEngine(cfg, econf, param_dtype=dtype,
                              compute_dtype=dtype, device=device,
-                             seed=args.seed)
+                             seed=args.seed, timeline=timeline, **mesh)
     except NotImplementedError as e:
         print(f"error: arch {args.arch!r} is not servable: {e}",
               file=sys.stderr)
         return 5
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     requests = [Request(req_id=i, prompt=t["prompt"],
                         max_new_tokens=t["max_new_tokens"],
                         arrival=t["arrival"]) for i, t in enumerate(trace)]
     if args.profile:
         # first launches (kernel build, cuBLAS handles) stay out of the trace
         warm = ServeEngine(cfg, econf, params=engine.params,
-                           compute_dtype=dtype, device=device)
+                           compute_dtype=dtype, device=device, **mesh)
         warm.run([Request(req_id=0, prompt=trace[0]["prompt"],
                           max_new_tokens=2)])
         del warm
@@ -156,10 +194,14 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
     print(f"[serve] device={name} dtype={args.dtype or dtype} "
-          f"completed={st['completed']}/{len(trace)} steps={st['steps']} "
-          f"tok/s={st['tokens_per_s']} ttft_p95={st['ttft_s_p95']}s "
+          f"mesh={st['mesh']} completed={st['completed']}/{len(trace)} "
+          f"steps={st['steps']} tok/s={st['tokens_per_s']} "
+          f"ttft_p95={st['ttft_s_p95']}s "
           f"prefill_fed={st['prefill_tokens_fed']} "
-          f"accept={st['speculative']['acceptance_rate']}")
+          f"accept={st['speculative']['acceptance_rate']} "
+          f"pool_bytes_per_rank={st['pool_bytes_per_rank']} "
+          f"collective_bytes_per_step={st['collective_bytes_per_step']:.0f}")
+    timeline.close()
     rc, error = 0, None
     if args.verify:
         n_v = min(args.verify, len(trace))

@@ -1,42 +1,83 @@
-"""The serving engine's device step on one GPU: chunked prefill and
-(speculative) decode over a paged KV pool.
+"""The serving engine's device step: chunked prefill and (speculative)
+decode over a paged KV pool, on a ``(d_p, d_s)`` mesh of pipeline stages
+and sequence-parallel ranks.
 
 Counterpart of the JAX package's ``runtime/serve_step.py`` engine step
-(``engine_step_fn``, ``engine_copy_fn``) at ``d_p = d_s = 1``: no
-``shard_map``, no pipeline ticks, one step over all ``n_items`` items.
+(``engine_step_fn``, ``engine_copy_fn``, ``engine_pool_struct``). The port
+is one process: stage ``p`` lives on ``sharding.stage_devices(d_p,
+cards)[p]`` and holds its ``d_s`` ranks as lists (as ``SPStage`` and the
+decode state hold theirs); the collectives are ``runtime/sp``'s functions
+over those lists, their bytes counted in ``sp.STATS``.
 
 Each step packs ``n_items`` items of ``cap_t`` tokens; a token carries its
 id, its position in its request and the step's segment id of its request.
-The pool is ``[L, n_pages + 1, page_sz, Hkv, Dh]`` for K and for V; page
-``n_pages`` is the trash page that padding and unmapped writes land in.
 
-Attention: per layer the step builds ONE packed KV buffer —
+The pool (:func:`init_pool`) is page-granular and sharded page-blockwise
+over the ranks, as the reference's: global page ``g`` lives on rank ``g //
+n_pages_loc`` at local index ``g % n_pages_loc``, and each rank keeps one
+trash page of its own at local index ``n_pages_loc``; ``pool[name][p][r]``
+is stage ``p``'s rank ``r`` block of K or V, ``[L_s, n_pages_loc + 1,
+page_sz, Hkv, Dh]``: ``n_pages + d_s`` pages a layer slot, the bytes of
+the reference's ``engine_pool_struct``. At ``d_p = d_s = 1`` that is one
+``[L, n_pages + 1, ...]`` block, page ``n_pages`` the trash page.
+
+Attention: per layer and rank the step builds ONE packed KV buffer —
 
 * for every request in the step, its committed cache rows the layer can
-  see, gathered once per request from its page table, with the request's
-  segment id and their positions: rows ``0..base-1`` (``base`` = its
-  committed length at step start) on a global layer, and only the last
-  ``window - 1`` of them on a layer with a sliding window (the step's
-  queries of the request sit at positions ``>= base``, so older rows are
-  masked for all of them);
-* then the step's own rows, all ``n_items * cap_t`` of them;
+  see and that live on the rank's pages, gathered once per request from
+  its page table, with the request's segment id and their positions: rows
+  ``0..base-1`` (``base`` = its committed length at step start) on a
+  global layer, and only the last ``window - 1`` of them on a layer with a
+  sliding window (the step's queries of the request sit at positions
+  ``>= base``, so older rows are masked for all of them);
+* on rank 0, then the step's own rows, all ``n_items * cap_t`` of them
+  (the reference computes its intra-chunk rows on every rank and adds
+  them once; here one rank holds them);
 
-— and calls :func:`repro_torch.kernels.ops.flash_attention` once over all
-queries. The host builds the gather list once per step for each distinct
-window of the model's layers (:attr:`EngineGeometry.windows`). Several
-chunks of one request in one step (later items) share the
-request's segment id, so a later chunk sees the earlier one's rows exactly
-as the reference's item-by-item pipeline order does. The packed-varlen
-mask (same segment, causal, window) then selects, for each token, the
-same keys the reference's ``_paged_attention`` selects: cache rows
-``r < ctx_base`` within the window plus same-segment causal chunk rows.
-After attention the chunk's K/V rows are scattered into
-``(page, pos % page_sz)`` in place.
+— and runs kernel A over all the step's queries: at one rank
+:func:`repro_torch.kernels.ops.flash_attention`, at ``d_s > 1``
+``ops.attention_with_lse`` on every rank (a rank with no live row for a
+query gives zeros and ``-inf``, and still launches), the partials merged
+by their log-sum-exps (``sp.merge_partials``, the reference's ``pmax`` /
+``psum``). The host builds the gather lists once per step for each rank
+and each distinct window of the model's layers
+(:attr:`EngineGeometry.windows`). The packed-varlen mask (same segment,
+causal, window) then selects, for each token, the same keys the
+reference's ``_paged_attention`` selects: cache rows ``r < ctx_base``
+within the window plus same-segment causal chunk rows.
 
-The greedy head runs only on the rows whose ids the host reads (the last
-row of each prefill chunk and every decode row), vocabulary-tiled with a
-running max in float32: the first index within a tile and strict ``>``
-across tiles, so ties resolve to the lowest id as in the reference.
+Item order: the reference runs item ``i`` on stage ``p`` at tick ``i + p``
+(``StageProgram(n_items, d_p)``), so a later item of a request reads, from
+the pool, the rows an earlier item wrote in the same step. The port runs
+each stage over all its items in one packed call, as the one-rank step
+does: the chunks of one request in one step share the request's segment
+id, so a later chunk sees the earlier one's rows among the step's own rows
+under the same causal and window mask, the same keys in the same order of
+positions.
+
+Per layer on the mesh (the reference's ``step_local``): each rank takes
+its block of the step's rows (``sp.row_blocks``; the reference shards each
+item's ``cap_t`` tokens over the model axis) and projects it; q, k and v
+are all-gathered; attention as above; each rank keeps its block for ``wo``
+and for the MLP, or the MoE block over the ranks (``ep.make_moe_ep(d_s)``,
+the reference's ``make_moe_ep(model_axis, d_s)``). The rank owning a row's
+page scatters its K/V into ``(page, pos % page_sz)`` in place; rows whose
+page is unmapped or on another rank, rows past ``max_ctx`` and padding go
+to the rank's trash page. The activation moves to the next stage's device
+between stages; only a stage's active layer slots run
+(:func:`_layer_tables`). The last stage applies the final norm to the rows
+whose ids the host reads (the last row of each prefill chunk and every
+decode row) and the vocabulary-parallel argmax (``sp.sharded_greedy``:
+float32 logits per vocabulary tile and row block, ties to the lowest id).
+
+Parameters: each stage's come from ``weights.to_stages(cfg, params, d_p,
+decode=True)`` (views of the caller's tensors); a stage's ranks share its
+parameters on its card, as the port's decode does. The reference's engine
+instead keeps ZeRO-3 shards and gathers each layer inside its step
+(``gather_layer_params``); the sharded engine parameters wait for the
+per-rank driver (ROADMAP.md queue 1, item 2). The embedding's and head's
+row blocks are the reference's blocks of a vocabulary padded to a multiple
+of ``d_s``, the padding dropped (``sp.row_blocks``).
 
 The engine serves dense and MoE decoders. Every family of the registry
 (SSM, hybrid, MLA, the encoder-decoder too) is served by the pipelined
@@ -87,27 +128,31 @@ from repro_torch.kernels.flash_attention import BLOCK_KV
 from repro_torch.models.attention import decode_attention, project_qkv
 from repro_torch.models.config import ArchConfig, LayerKind
 from repro_torch.models.layers import linear, rms_norm, swiglu_apply
-from repro_torch.models.model import DecoderLM, LayerCtx, layer_params
+from repro_torch.models.model import DecoderLM, LayerCtx
 from repro_torch.models.ssm import mamba_decode
 
 from . import sp
 
 __all__ = ["EngineGeometry", "make_engine_geometry", "init_pool",
-           "PackedSegment", "KVRows", "EngineBatch", "pack_step",
-           "engine_step", "copy_pages", "greedy_ids",
-           "DecodeGeometry", "make_decode_geometry", "init_decode_state",
-           "decode_state_bytes", "decode_step", "DecodeStepBuilder"]
+           "pool_bytes", "read_rows", "PackedSegment", "KVRows", "RankRows",
+           "EngineBatch", "pack_step", "engine_step", "copy_pages",
+           "greedy_ids", "DecodeGeometry", "make_decode_geometry",
+           "init_decode_state", "decode_state_bytes", "decode_step",
+           "DecodeStepBuilder"]
 
 
 @dataclass(frozen=True)
 class EngineGeometry:
     """Static geometry of the engine step."""
     n_items: int             # packed chunk items per engine step
-    cap_t: int               # tokens per item
-    n_pages: int             # user KV pages
+    cap_t: int               # tokens per item (d_s divides it)
+    n_pages: int             # user KV pages pool-wide (d_s divides it)
     page_sz: int             # cache rows per page
     pages_per_seq: int       # page-table entries per request (max context)
     k: int                   # decode tokens per stream per step (1 = greedy)
+    d_p: int                 # pipeline stages
+    d_s: int                 # sequence-parallel ranks a stage
+    layers_per_stage: int    # layer slots a stage (padded ones at the end)
     compute_dtype: torch.dtype = torch.bfloat16
     windows: Tuple[int, ...] = (0,)   # the layers' distinct windows, 0 = none
 
@@ -117,15 +162,29 @@ class EngineGeometry:
         return self.n_pages
 
     @property
+    def n_pages_loc(self) -> int:
+        """User pages resident on each rank (+1 local trash page)."""
+        return self.n_pages // self.d_s
+
+    @property
     def max_ctx(self) -> int:
         """Rows a full page table can address (max prompt + generated)."""
         return self.pages_per_seq * self.page_sz
+
+    def owner(self, page: int) -> Tuple[int, int]:
+        """``(rank, local index)`` of global page ``page``."""
+        return divmod(int(page), self.n_pages_loc)
 
 
 def make_engine_geometry(cfg: ArchConfig, *, n_items: int, cap_t: int,
                          n_pages: int, page_sz: int,
                          pages_per_seq: Optional[int] = None, k: int = 1,
+                         d_p: int = 1, d_s: int = 1,
                          compute_dtype=torch.bfloat16) -> EngineGeometry:
+    """The reference's ``make_engine_geometry`` at a ``(d_p, d_s)`` mesh
+    (no mesh object, as :func:`make_decode_geometry` takes none): its
+    refusals and its ``ValueError``\\ s on the same conditions, in its
+    order; ``ceil(n_layers / d_p)`` layer slots a stage."""
     s = cfg.spec
     if s.attn_free or s.ssm_state > 0:
         raise NotImplementedError("serving engine supports attention archs "
@@ -135,8 +194,17 @@ def make_engine_geometry(cfg: ArchConfig, *, n_items: int, cap_t: int,
     if s.kv_lora_rank > 0:
         raise NotImplementedError("MLA latent cache rows are not wired "
                                   "into the page pool")
+    if min(d_p, d_s) < 1:
+        raise ValueError(f"d_p={d_p} and d_s={d_s} must be >= 1")
+    if cap_t % d_s:
+        raise ValueError(f"cap_t={cap_t} must be divisible by the model "
+                         f"axis d_s={d_s}")
     if min(n_items, cap_t, n_pages, page_sz, k) < 1:
         raise ValueError("n_items/cap_t/n_pages/page_sz/k must all be >= 1")
+    if n_pages % d_s:
+        raise ValueError(f"n_pages={n_pages} must be divisible by the model "
+                         f"axis d_s={d_s} (the pool is sequence-sharded "
+                         f"page-blockwise)")
     pp = n_pages if pages_per_seq is None else pages_per_seq
     if not (1 <= pp <= n_pages):
         raise ValueError(f"pages_per_seq={pp} must be in [1, n_pages="
@@ -144,18 +212,66 @@ def make_engine_geometry(cfg: ArchConfig, *, n_items: int, cap_t: int,
     if k > cap_t:
         raise ValueError(f"k={k} cannot exceed cap_t={cap_t}")
     return EngineGeometry(n_items=n_items, cap_t=cap_t, n_pages=n_pages,
-                          page_sz=page_sz, pages_per_seq=pp, k=k,
+                          page_sz=page_sz, pages_per_seq=pp, k=k, d_p=d_p,
+                          d_s=d_s, layers_per_stage=-(-s.n_layers // d_p),
                           compute_dtype=compute_dtype,
                           windows=tuple(sorted(set(cfg.layer_windows()))))
 
 
-def init_pool(cfg: ArchConfig, geom: EngineGeometry,
-              device) -> Dict[str, torch.Tensor]:
+def _rank_shape(cfg: ArchConfig, geom: EngineGeometry) -> tuple:
     s = cfg.spec
-    shape = (s.n_layers, geom.n_pages + 1, geom.page_sz, s.n_kv_heads,
-             s.head_dim)
-    return {name: torch.zeros(shape, dtype=geom.compute_dtype, device=device)
+    return (geom.layers_per_stage, geom.n_pages_loc + 1, geom.page_sz,
+            s.n_kv_heads, s.head_dim)
+
+
+def init_pool(cfg: ArchConfig, geom: EngineGeometry, devices
+              ) -> Dict[str, List[List[torch.Tensor]]]:
+    """The paged pool, zeros: ``pool[name][p][r]`` (``name`` ``cache_k`` or
+    ``cache_v``) is stage ``p``'s rank ``r`` block ``[L_s, n_pages_loc + 1,
+    page_sz, Hkv, Dh]`` on ``devices[p]`` (one device: every stage on it).
+    """
+    devs = [devices] * geom.d_p if isinstance(devices, (str, torch.device)) \
+        else list(devices)
+    if len(devs) != geom.d_p:
+        raise ValueError(f"{len(devs)} devices for {geom.d_p} stages")
+    shape = _rank_shape(cfg, geom)
+    return {name: [[torch.zeros(shape, dtype=geom.compute_dtype, device=dev)
+                    for _ in range(geom.d_s)] for dev in devs]
             for name in ("cache_k", "cache_v")}
+
+
+def pool_bytes(cfg: ArchConfig, geom: EngineGeometry) -> Dict[str, int]:
+    """Bytes of the pool: ``per_rank`` (one rank of one stage, K and V)
+    and ``total``, which equals the reference's ``engine_pool_struct``
+    (``[d_p, L_s, n_pages + d_s, page_sz, Hkv, Dh]`` for K and for V)."""
+    per = 2 * int(np.prod(_rank_shape(cfg, geom))) * \
+        torch.empty((), dtype=geom.compute_dtype).element_size()
+    return {"per_rank": per, "total": per * geom.d_p * geom.d_s}
+
+
+def read_rows(cfg: ArchConfig, geom: EngineGeometry, pool: Dict,
+              table: Sequence[int], n: int, name: str = "cache_k"
+              ) -> torch.Tensor:
+    """A request's committed rows ``0..n-1`` of every layer, read through
+    its page table from the ranks that own its pages: ``[n_layers, n, Hkv,
+    Dh]`` on the first stage's device."""
+    ps, L_s = geom.page_sz, geom.layers_per_stage
+    rows = np.arange(n)
+    rank, loc = np.divmod(np.asarray(table, np.int64)[rows // ps],
+                          geom.n_pages_loc)
+    flat = loc * ps + rows % ps
+    out = []
+    for p, stage in enumerate(pool[name]):
+        blk = stage[0].new_empty((L_s, n, *stage[0].shape[3:]))
+        for r, buf in enumerate(stage):
+            sel = np.nonzero(rank == r)[0]
+            if len(sel):
+                idx = torch.as_tensor(flat[sel], device=buf.device)
+                blk[:, torch.as_tensor(sel, device=buf.device)] = \
+                    buf.flatten(1, 2).index_select(1, idx)
+        n_act = max(0, min(L_s, cfg.spec.n_layers - p * L_s))
+        out.append(blk[:n_act].to(pool[name][0][0].device))
+    return torch.cat(out)
 
 
 # ---------------------------------------------------------------------------
@@ -177,11 +293,22 @@ class PackedSegment:
 
 @dataclass
 class KVRows:
-    """The key rows of one window's layers: ``S - T`` gathered pool rows
-    (padded to the kernel's KV tile), then the step's own ``T`` rows."""
-    ctx_rows: torch.Tensor   # [S - T] int64 flat pool rows to gather
-    seg: torch.Tensor        # [S] int32: gathered rows' segments, then seg
-    pos: torch.Tensor        # [S] int32
+    """The key rows of one window's layers on one rank: its gathered pool
+    rows (padded to the kernel's KV tile; at least one tile), then on rank
+    0 the step's own ``T`` rows."""
+    ctx_rows: torch.Tensor   # int64 flat rows of the rank's block to gather
+    seg: torch.Tensor        # int32: gathered rows' segments, then seg
+    pos: torch.Tensor        # int32
+
+
+@dataclass
+class RankRows:
+    """One rank's part of a step: its key rows per window of
+    ``geom.windows`` and, for each of the step's ``T`` rows, the flat row
+    of its block the row's K/V is written to (its trash page where another
+    rank owns the row's page)."""
+    kv: Dict[int, KVRows]
+    write_rows: torch.Tensor  # [T] int64
 
 
 @dataclass
@@ -190,21 +317,39 @@ class EngineBatch:
     tokens: torch.Tensor     # [T] int64
     pos: torch.Tensor        # [T] int32
     seg: torch.Tensor        # [T] int32, request's step segment id, -1 pad
-    kv: Dict[int, KVRows]    # key rows per window of geom.windows
-    write_rows: torch.Tensor  # [T] int64 flat pool rows to write
+    ranks: List[RankRows]    # one a sequence-parallel rank
     head_rows: torch.Tensor  # [N] int64 rows whose greedy id is read
+
+    @property
+    def kv(self) -> Dict[int, KVRows]:
+        """Rank 0's key rows (the whole pool's at ``d_s = 1``)."""
+        return self.ranks[0].kv
+
+    def to(self, device) -> "EngineBatch":
+        def mv(t):
+            return t.to(device)
+        return EngineBatch(
+            tokens=mv(self.tokens), pos=mv(self.pos), seg=mv(self.seg),
+            ranks=[RankRows({w: KVRows(mv(kv.ctx_rows), mv(kv.seg),
+                                       mv(kv.pos))
+                             for w, kv in rr.kv.items()},
+                            mv(rr.write_rows)) for rr in self.ranks],
+            head_rows=mv(self.head_rows))
 
 
 def pack_step(geom: EngineGeometry, segments: Sequence[PackedSegment],
               device) -> EngineBatch:
+    """The step's device batch from its segments: any page table on any
+    ranks (a request's pages fall wherever the allocator put them)."""
     n, c, ps, pp = geom.n_items, geom.cap_t, geom.page_sz, geom.pages_per_seq
+    d, n_loc = geom.d_s, geom.n_pages_loc
     T = n * c
-    trash0 = geom.trash_page * ps
+    trash0 = n_loc * ps           # each rank's own trash page
     tokens = np.zeros(T, np.int64)
     pos = np.zeros(T, np.int32)
     seg = np.full(T, -1, np.int32)
     # padding writes spread over the trash page's rows
-    write = trash0 + (np.arange(T) % ps)
+    write = np.tile(trash0 + (np.arange(T) % ps), (d, 1))
     sid: Dict[int, int] = {}
     firsts: List[PackedSegment] = []
     head: List[int] = []
@@ -226,39 +371,49 @@ def pack_step(geom: EngineGeometry, segments: Sequence[PackedSegment],
         seg[a:a + ln] = sid[sg.req_id]
         entry = p // ps
         mapped = (p < pp * ps) & (entry < len(table))
-        page = table[np.minimum(entry, len(table) - 1)]
-        write[a:a + ln] = np.where(mapped, page * ps + p % ps,
-                                   trash0 + p % ps)
+        rank, loc = np.divmod(table[np.minimum(entry, len(table) - 1)],
+                              n_loc)
+        for r in range(d):
+            write[r, a:a + ln] = np.where(mapped & (rank == r),
+                                          loc * ps + p % ps, trash0 + p % ps)
         head.extend(range(a, a + ln) if sg.read_all else [a + ln - 1])
 
     def dev(a, dt):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
                                                             dtype=dt)
     i32, i64 = torch.int32, torch.int64
-    kv = {}
+    kv: List[Dict[int, KVRows]] = [{} for _ in range(d)]
     for w in geom.windows:
-        rows, kseg, kpos = [np.zeros(0, np.int64)], [], []
+        parts = [([np.zeros(0, np.int64)], [], []) for _ in range(d)]
         for sg in firsts:
             # a query at position >= base sees rows > base - w
             lo = max(0, sg.base - w + 1) if w > 0 else 0
             r = np.arange(lo, sg.base)
-            table = np.asarray(sg.table, np.int64)
-            rows.append(table[r // ps] * ps + r % ps)
-            kseg.append(np.full(len(r), sid[sg.req_id], np.int32))
-            kpos.append(r.astype(np.int32))
-        # pad the gathered part to the kernel's KV tile (seg -2 rows read
-        # the trash page) so the concatenated buffer needs no second
-        # padding copy
-        pad = (-sum(map(len, rows))) % BLOCK_KV
-        rows.append(np.full(pad, trash0, np.int64))
-        kseg += [np.full(pad, ops.PAD_SEG, np.int32), seg]
-        kpos += [np.zeros(pad, np.int32), pos]
-        kv[w] = KVRows(ctx_rows=dev(np.concatenate(rows), i64),
-                       seg=dev(np.concatenate(kseg), i32),
-                       pos=dev(np.concatenate(kpos), i32))
+            rank, loc = np.divmod(np.asarray(sg.table, np.int64)[r // ps],
+                                  n_loc)
+            for q, (rows, kseg, kpos) in enumerate(parts):
+                mine = rank == q
+                rows.append(loc[mine] * ps + r[mine] % ps)
+                kseg.append(np.full(int(mine.sum()), sid[sg.req_id],
+                                    np.int32))
+                kpos.append(r[mine].astype(np.int32))
+        for q, (rows, kseg, kpos) in enumerate(parts):
+            # pad the gathered part to the kernel's KV tile (seg -2 rows
+            # read the trash page) so the concatenated buffer needs no
+            # second padding copy; a rank with no row still gets a tile,
+            # and rank 0 takes the step's own rows
+            live = sum(map(len, rows))
+            pad = (-live) % BLOCK_KV or (BLOCK_KV if q and not live else 0)
+            rows.append(np.full(pad, trash0, np.int64))
+            kseg += [np.full(pad, ops.PAD_SEG, np.int32)] + \
+                ([seg] if q == 0 else [])
+            kpos += [np.zeros(pad, np.int32)] + ([pos] if q == 0 else [])
+            kv[q][w] = KVRows(ctx_rows=dev(np.concatenate(rows), i64),
+                              seg=dev(np.concatenate(kseg), i32),
+                              pos=dev(np.concatenate(kpos), i32))
     return EngineBatch(
-        tokens=dev(tokens, i64), pos=dev(pos, i32), seg=dev(seg, i32), kv=kv,
-        write_rows=dev(write, i64),
+        tokens=dev(tokens, i64), pos=dev(pos, i32), seg=dev(seg, i32),
+        ranks=[RankRows(kv[q], dev(write[q], i64)) for q in range(d)],
         head_rows=dev(np.asarray(head, np.int64), i64))
 
 
@@ -266,52 +421,125 @@ def pack_step(geom: EngineGeometry, segments: Sequence[PackedSegment],
 # The step.
 # ---------------------------------------------------------------------------
 
+def _gather(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The ranks' row blocks as one tensor (one rank: its own)."""
+    return xs[0] if len(xs) == 1 else sp.all_gather(xs)
+
+
+def _engine_layer(model, lp: Dict, window: int, xs: List[torch.Tensor],
+                  b: EngineBatch, pos_blocks, ropes, ck, cv, moe_fn
+                  ) -> List[torch.Tensor]:
+    """One layer slot over the ranks' row blocks ``xs``; ``ck`` / ``cv``:
+    the ranks' K / V rows of the slot, ``[rows, Hkv, Dh]`` views of the
+    pool, written in place."""
+    cfg, eps = model.cfg, model.cfg.rms_eps
+    scale = 1.0 / math.sqrt(cfg.spec.head_dim)
+    qkv = [project_qkv(cfg, lp["attn"], rms_norm(x, lp["ln1"], eps), ps, rp)
+           for x, ps, rp in zip(xs, pos_blocks, ropes)]
+    q, k, v = (_gather([t[j] for t in qkv]) for j in range(3))
+    k, v = k.to(ck[0].dtype), v.to(cv[0].dtype)
+    T = q.shape[0]
+    if len(xs) == 1:
+        kv = b.ranks[0].kv[window]
+        out = ops.flash_attention(
+            q, torch.cat([ck[0].index_select(0, kv.ctx_rows), k]),
+            torch.cat([cv[0].index_select(0, kv.ctx_rows), v]), b.seg,
+            kv.seg, b.pos, kv.pos, window=window, scale=scale)
+    else:
+        outs, lses = [], []
+        for r, rr in enumerate(b.ranks):
+            kv = rr.kv[window]
+            kk = ck[r].index_select(0, kv.ctx_rows)
+            vv = cv[r].index_select(0, kv.ctx_rows)
+            if r == 0:
+                kk, vv = torch.cat([kk, k]), torch.cat([vv, v])
+            o, lse = ops.attention_with_lse(q, kk, vv, b.seg, kv.seg, b.pos,
+                                            kv.pos, window=window,
+                                            scale=scale)
+            outs.append(o)
+            lses.append(lse)
+        out = sp.merge_partials(outs, lses)
+    out = out.reshape(T, -1)
+    ys, off = [], 0
+    for x in xs:
+        ys.append(linear(out[off:off + x.shape[0]], lp["attn"]["wo"]))
+        off += x.shape[0]
+    for r, rr in enumerate(b.ranks):
+        ck[r].index_copy_(0, rr.write_rows, k)
+        cv[r].index_copy_(0, rr.write_rows, v)
+    xs = [x + y for x, y in zip(xs, ys)]
+    h2 = [rms_norm(x, lp["ln2"], eps) for x in xs]
+    fs = moe_fn(cfg, lp["moe"], h2) if moe_fn is not None \
+        else [model.ffn(lp, h) for h in h2]
+    return [x + f for x, f in zip(xs, fs)]
+
+
 @torch.no_grad()
-def engine_step(model: DecoderLM, geom: EngineGeometry, params: Dict,
-                pool: Dict[str, torch.Tensor], batch: EngineBatch
+def engine_step(model: DecoderLM, geom: EngineGeometry,
+                stages: Sequence[Dict], pool: Dict, batch: EngineBatch
                 ) -> np.ndarray:
-    """Run all layers over the packed batch, updating ``pool`` IN PLACE.
-    Returns ids ``[n_items, cap_t]`` (int64): the greedy next-token id
-    after each row in ``batch.head_rows``, -1 elsewhere."""
+    """Run every stage's active layer slots over the packed batch, updating
+    ``pool`` IN PLACE. ``stages``: the parameters of each stage
+    (``weights.to_stages(..., decode=True)``), on the devices of the
+    pool's stages. Returns ids ``[n_items, cap_t]`` (int64): the greedy
+    next-token id after each row in ``batch.head_rows``, -1 elsewhere."""
     cfg, s = model.cfg, model.cfg.spec
-    dt = geom.compute_dtype
-    scale = 1.0 / math.sqrt(s.head_dim)
-    x = model.embed(params, batch.tokens, dt)
-    T = x.shape[0]
-    rope = model.rope_tables(batch.pos)
-    for i, w in enumerate(cfg.layer_windows()):
-        lp = layer_params(params, i)
-        h = rms_norm(x, lp["ln1"], cfg.rms_eps)
-        q, k, v = project_qkv(cfg, lp["attn"], h, batch.pos, rope)
-        ck = pool["cache_k"][i].view(-1, s.n_kv_heads, s.head_dim)
-        cv = pool["cache_v"][i].view(-1, s.n_kv_heads, s.head_dim)
-        k, v = k.to(ck.dtype), v.to(cv.dtype)
-        kv = batch.kv[w]
-        kk = torch.cat([ck.index_select(0, kv.ctx_rows), k])
-        vv = torch.cat([cv.index_select(0, kv.ctx_rows), v])
-        out = ops.flash_attention(q, kk, vv, batch.seg, kv.seg, batch.pos,
-                                  kv.pos, window=w, scale=scale)
-        y = linear(out.reshape(T, -1), lp["attn"]["wo"])
-        ck.index_copy_(0, batch.write_rows, k)
-        cv.index_copy_(0, batch.write_rows, v)
-        x = x + y
-        h2 = rms_norm(x, lp["ln2"], cfg.rms_eps)
-        x = x + model.ffn(lp, h2)
-    h_last = rms_norm(x.index_select(0, batch.head_rows),
-                      params["final_norm"], cfg.rms_eps)
-    ids = greedy_ids(h_last, model.head_weights(params), vocab_true=s.vocab)
+    d, L_s, dt = geom.d_s, geom.layers_per_stage, geom.compute_dtype
+    windows, active = _layer_tables(cfg, geom.d_p, L_s)
+    blocks = sp.row_blocks(geom.n_items * geom.cap_t, d)
+    moe_fn = None
+    if s.n_experts > 0 and d > 1:
+        from .ep import make_moe_ep
+        moe_fn = make_moe_ep(d)
+    xs: List[torch.Tensor] = []
+    for p, stage in enumerate(stages):
+        ks, vs = pool["cache_k"][p], pool["cache_v"][p]
+        b = batch.to(ks[0].device)
+        pos_blocks = [b.pos[a:a + n] for a, n in blocks]
+        if p == 0:
+            xs = [model.embed(stage, b.tokens, dt)] if d == 1 else \
+                model.embed_sp(stage, [b.tokens[a:a + n] for a, n in blocks],
+                               d, dt)
+        else:
+            xs = [x.to(ks[0].device) for x in xs]
+        ropes = [model.rope_tables(pb) for pb in pos_blocks]
+        for l in range(L_s):
+            if not active[p, l]:
+                continue
+
+            def rows(bufs):
+                return [t[l].view(-1, *t.shape[3:]) for t in bufs]
+            xs = _engine_layer(model, stage["layers"][p * L_s + l],
+                               int(windows[p, l]), xs, b, pos_blocks, ropes,
+                               rows(ks), rows(vs), moe_fn)
+    last = stages[-1]
+    head_rows = batch.head_rows.to(xs[0].device)
+    h = rms_norm(_gather(xs).index_select(0, head_rows), last["final_norm"],
+                 cfg.rms_eps)
+    ids = sp.sharded_greedy(h, model.head_weights(last), d,
+                            vocab_true=s.vocab)
     out_ids = np.full(geom.n_items * geom.cap_t, -1, np.int64)
     out_ids[batch.head_rows.cpu().numpy()] = ids.cpu().numpy()
     return out_ids.reshape(geom.n_items, geom.cap_t)
 
 
 @torch.no_grad()
-def copy_pages(pool: Dict[str, torch.Tensor], pairs) -> None:
-    """Copy-on-write page copies, in order, in place: page ``dst`` of every
-    layer becomes a copy of page ``src``."""
+def copy_pages(geom: EngineGeometry, pool: Dict, pairs) -> None:
+    """Copy-on-write page copies, in order, in place: global page ``dst``
+    of every layer slot of every stage becomes a copy of page ``src``; the
+    two may live on different ranks (the reference's ``engine_copy_fn``:
+    the source's owner broadcasts, the destination's writes; those bytes
+    count as a collective). The sentinel ``n_pages`` is a no-op."""
     for src, dst in pairs:
-        for buf in pool.values():
-            buf[:, dst].copy_(buf[:, src])
+        if geom.trash_page in (src, dst):
+            continue
+        (rs, ls), (rd, ld) = geom.owner(src), geom.owner(dst)
+        for stages in pool.values():
+            for ranks in stages:
+                page = ranks[rs][:, ls]
+                if rs != rd:
+                    sp.count_bytes(page.numel() * page.element_size())
+                ranks[rd][:, ld].copy_(page)
 
 
 HEAD_BLOCK_V = 16384     # vocabulary rows per greedy-head tile

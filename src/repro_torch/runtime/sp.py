@@ -61,7 +61,7 @@ import torch
 from repro_torch.core.sp import choose_sp_policy
 
 __all__ = ["choose_policy", "subgroup_info", "row_blocks", "row_views",
-           "STATS",
+           "STATS", "count_bytes",
            "all_gather", "reduce_scatter", "all_to_all",
            "make_none_policy", "make_allgather_kv_policy",
            "make_ulysses_policy", "sharded_embed", "sharded_ce", "merge_lse",
@@ -75,6 +75,12 @@ STATS = {"collectives": 0, "bytes": 0}
 def _count(nbytes: float) -> None:
     STATS["collectives"] += 1
     STATS["bytes"] += int(nbytes)
+
+
+def count_bytes(nbytes: float) -> None:
+    """Count one collective of ``nbytes`` that its caller moves itself
+    (the serving engine's page copies between ranks)."""
+    _count(nbytes)
 
 
 def _nbytes(t: torch.Tensor) -> int:

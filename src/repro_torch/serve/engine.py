@@ -1,4 +1,5 @@
-"""Continuous-batching serving engine on one GPU.
+"""Continuous-batching serving engine on a ``(d_p, d_s)`` mesh of pipeline
+stages and sequence-parallel ranks (one GPU by default, ``1x1``).
 
 Counterpart of the JAX package's ``serve/engine.py`` with the same request
 lifecycle::
@@ -13,11 +14,17 @@ running stream — speculative drafts verified on the host) with
 chunked-prefill segments (prompts sliced by ``core.chunking.
 prompt_slices``) into one batch for :func:`repro_torch.runtime.serve_step.
 engine_step`. KV rows live in a paged pool (``kv_manager.PagedKVPool`` on
-the host, the device buffer in ``runtime.serve_step``): pages are
-allocated on write, chunked prefill skips pages whose chain hash is
-already resident (prefix cache), shared pages are refcounted and
-copy-on-write protected. The JAX engine's compile cache, lint hook and
-telemetry timeline have no counterpart here: PyTorch runs eagerly.
+the host with global page ids, the device buffer in ``runtime.serve_step``,
+its pages sharded page-blockwise over the ranks): pages are allocated on
+write, chunked prefill skips pages whose chain hash is already resident
+(prefix cache), shared pages are refcounted and copy-on-write protected
+(a copy may cross ranks). Prompt slices come from the cost model of the
+engine's mesh (``ClusterSpec(d_p, d_s)``), as the reference's. The JAX
+engine's compile cache and lint hook have no counterpart here: PyTorch
+runs eagerly. Its telemetry does: with a ``timeline``
+(``telemetry.StepTimeline``), :meth:`ServeEngine.run` records one
+``engine`` event per drained trace (TTFT and TPOT percentiles,
+occupancy), its ``bucket`` the engine geometry as a string.
 
 :func:`one_shot_generate` is the parity oracle: a full teacher-forced
 recompute of (prompt + generated-so-far) through ``DecoderLM.
@@ -37,11 +44,14 @@ import torch
 from repro_torch.core import ClusterSpec, CostModel, prompt_slices
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.model import DecoderLM
+from repro_torch.models.model import DecoderLM, tree_map
+from repro_torch.runtime import sp
 from repro_torch.runtime.serve_step import (PackedSegment, copy_pages,
                                             engine_step, greedy_ids,
                                             init_pool, make_engine_geometry,
-                                            pack_step)
+                                            pack_step, pool_bytes)
+from repro_torch.runtime.sharding import stage_devices
+from repro_torch.weights import to_stages
 
 from .kv_manager import PagedKVPool
 from .scheduler import SchedulerConfig, Segment, StepPlan, TickScheduler
@@ -122,30 +132,46 @@ class _ReqState:
 
 
 class ServeEngine:
-    """Continuous-batching engine over :func:`engine_step`."""
+    """Continuous-batching engine over :func:`engine_step` on ``d_p``
+    stages of ``d_s`` sequence-parallel ranks: stage ``p`` on card ``p mod
+    len(cards)`` (``sharding.stage_devices``; ``cards`` default: the
+    device), its ranks on its card. ``params``: the model's layout (kept
+    as :attr:`params`; each stage's are views of it, :attr:`stages`).
+    ``timeline``: a ``telemetry.StepTimeline`` that :meth:`run` records
+    its ``engine`` event in."""
 
     def __init__(self, cfg_arch, config: EngineConfig, *,
                  params: Optional[Dict] = None,
                  param_dtype: Optional[torch.dtype] = None,
                  compute_dtype: Optional[torch.dtype] = None,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, d_p: int = 1, d_s: int = 1,
+                 cards: Optional[Sequence] = None, timeline=None):
         self.device = resolve_device(device)
         self.cfg_arch = cfg_arch
         self.config = config
+        self.timeline = timeline
         param_dtype = param_dtype or torch.float32
         compute_dtype = compute_dtype or param_dtype
         self.geom = make_engine_geometry(
             cfg_arch, n_items=config.n_items, cap_t=config.cap_t,
             n_pages=config.n_pages, page_sz=config.page_sz,
-            pages_per_seq=config.pages_per_seq, k=config.k,
-            compute_dtype=compute_dtype)
+            pages_per_seq=config.pages_per_seq, k=config.k, d_p=d_p,
+            d_s=d_s, compute_dtype=compute_dtype)
+        self.devices = stage_devices(
+            d_p, [resolve_device(c) for c in cards] if cards
+            else [self.device], d_s)
+        self.device = self.devices[0]
         self.model = DecoderLM(cfg_arch)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init(gen, dtype=param_dtype,
                                      device=self.device)
         self.params = params
-        self.pool_state = init_pool(cfg_arch, self.geom, self.device)
+        self.stages = [tree_map(lambda t, dev=dev: t.to(dev), st)
+                       for st, dev in zip(to_stages(cfg_arch, params, d_p,
+                                                    decode=True),
+                                          self.devices)]
+        self.pool_state = init_pool(cfg_arch, self.geom, self.devices)
         self.pool = PagedKVPool(config.n_pages, config.page_sz,
                                 prefix_cache=config.prefix_cache)
         self.scheduler = TickScheduler(SchedulerConfig(
@@ -154,8 +180,8 @@ class ServeEngine:
             prefill_token_budget=config.prefill_token_budget,
             prefill_mode=config.prefill_mode))
         # prompt slicing reuses the trainer's workload-balanced capacity
-        # logic (Alg. 1 line 1) on one device
-        self._cm = CostModel(cfg_arch.spec, ClusterSpec())
+        # logic (Alg. 1 line 1) at the engine's mesh
+        self._cm = CostModel(cfg_arch.spec, ClusterSpec(d_p=d_p, d_s=d_s))
         self.spec_stats = SpecStats()
         self._waiting: "deque[_ReqState]" = deque()
         self._running: List[_ReqState] = []
@@ -167,6 +193,7 @@ class ServeEngine:
         self._emitted_total = 0
         self._prefill_fed = 0
         self._run_wall = 0.0
+        self._collective_bytes = 0
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -381,11 +408,12 @@ class ServeEngine:
     def step(self) -> List[Tuple[int, int]]:
         """Run one engine step; returns the (req_id, token) events."""
         self._admit()
+        moved = sp.STATS["bytes"]
         guard = 4 * (len(self._running) + len(self._waiting) + 1)
         while True:
             dec_c, pre_c = self._candidates()
             plan = self.scheduler.plan(dec_c, pre_c)
-            copy_pages(self.pool_state, self._secure_pages(plan))
+            copy_pages(self.geom, self.pool_state, self._secure_pages(plan))
             guard -= 1
             if plan.n_segments or not self._running or guard <= 0:
                 break
@@ -396,8 +424,9 @@ class ServeEngine:
             self._preempt_stream(victims[-1])
             self._admit()
         batch, placements = self._pack(plan)
-        ids = engine_step(self.model, self.geom, self.params,
+        ids = engine_step(self.model, self.geom, self.stages,
                           self.pool_state, batch)
+        self._collective_bytes += sp.STATS["bytes"] - moved
 
         events: List[Tuple[int, int]] = []
         for sg, item, off in placements:
@@ -453,6 +482,15 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._run_wall += time.perf_counter() - t0
+        if self.timeline is not None:
+            st = self.stats()
+            self.timeline.record(
+                "engine", self.step_count, bucket=str(self.geom),
+                completed=st["completed"], steps=st["steps"],
+                wall_s=st["wall_s"], tokens_per_s=st["tokens_per_s"],
+                ttft_s_p50=st["ttft_s_p50"], ttft_s_p95=st["ttft_s_p95"],
+                tpot_s_p50=st["tpot_s_p50"], tpot_s_p95=st["tpot_s_p95"],
+                occupancy=st["kv_pool"].get("mean_occupancy"))
         if self.n_active:
             raise RuntimeError(
                 f"trace did not drain in {max_steps} steps: "
@@ -487,6 +525,12 @@ class ServeEngine:
             "tpot_measured": len(tpot),
             "kv_pool": self.pool.stats.as_dict(),
             "speculative": self.spec_stats.as_dict(),
+            "mesh": f"{self.geom.d_p}x{self.geom.d_s}",
+            "pool_bytes_per_rank": pool_bytes(self.cfg_arch,
+                                              self.geom)["per_rank"],
+            "collective_bytes": self._collective_bytes,
+            "collective_bytes_per_step":
+                self._collective_bytes / max(self.step_count, 1),
         }
 
 

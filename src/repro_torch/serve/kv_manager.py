@@ -2,9 +2,11 @@
 prefix caching.
 
 The device-side pool (``runtime.serve_step.init_pool``) is a fixed buffer
-of ``page_sz``-row pages — ``[L, n_pages + 1, page_sz, Hkv, Dh]`` on one
-device, the last page being the trash page (host sentinel page id
-``n_pages``) so padding writes always have a home. This module is a copy
+of ``page_sz``-row pages, sharded page-blockwise over the sequence-parallel
+ranks (global page ``g`` on rank ``g // (n_pages / d_s)``), each rank with
+a trash page of its own (host sentinel page id ``n_pages``) so padding
+writes always have a home; at one rank ``[L, n_pages + 1, page_sz, Hkv,
+Dh]``. The host keeps global page ids. This module is a copy
 of the JAX package's host-side pool and owns the *host* view:
 
 * **per-request page tables** — request ``r`` holds an ordered list of

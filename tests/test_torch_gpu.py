@@ -276,6 +276,41 @@ def test_engine_on_card_matches_cpu(arch):
     assert ids["cpu"] == ids[str(dev)]
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh", [(2, 2), (1, 4)])
+def test_mesh_engine_on_card_matches_cpu(mesh):
+    """The engine on a ``(d_p, d_s)`` mesh of the card: every rank of every
+    layer slot launches kernel A once a step, and the ids equal the CPU
+    mesh engine's (the plain versions)."""
+    dev = _cuda()
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.model import tree_map
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    cfg = get_arch("gemma3-1b").reduced(n_layers=6, head_dim=64)
+    params = DecoderLM(cfg).init(torch.Generator().manual_seed(1),
+                                 device="cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.spec.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(3, 60, 6)]
+    econf = EngineConfig(n_items=4, cap_t=16, n_pages=64, page_sz=8,
+                         pages_per_seq=10, k=1)
+    ids = {}
+    for d in ("cpu", dev):
+        eng = ServeEngine(cfg, econf, device=d, d_p=mesh[0], d_s=mesh[1],
+                          params=tree_map(lambda a: a.to(d), params))
+        before = flash_attention_cuda.launches
+        res = eng.run([Request(req_id=i, prompt=p, max_new_tokens=6,
+                               arrival=0.5 * i)
+                       for i, p in enumerate(prompts)])
+        ids[str(d)] = {r: res[r].output_ids for r in res}
+        if d is dev:
+            assert flash_attention_cuda.launches - before == \
+                cfg.spec.n_layers * mesh[1] * eng.step_count
+    assert ids["cpu"] == ids[str(dev)]
+
+
 def _close(got, want, dtype):
     """Within TOL[dtype], atol scaled by max |want|; returns the error."""
     got, want = got.detach().float().cpu(), want.detach().float().cpu()
