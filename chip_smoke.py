@@ -321,11 +321,18 @@ exit and no result line):
            segment's rows; bf16); the faults a causal limit (the encoder's)
            and a dropped KV tile; every pass visits exactly the tile pairs
            that hold a live pair; B, C1, C2 at (D 1,024, V 256,206) on both
-           chunks' targets;
+           chunks' targets; then at a rank's shapes, as train_encdec_sp's
+           largest step-0 chunk gives them to the rank of 2 with the most
+           live rows: A and A′ for the encoder (its frame block against
+           every rank's frames, non-causal), the decoder's self-attention
+           (its token block against every rank's tokens, causal) and
+           cross-attention (against the gathered memory, zero positions),
+           and B, C1, C2 on the second vocabulary block (128,103 rows at
+           offset 128,103) on that chunk's targets;
   train_encdec  seamless-m4t-v2 at full width and depth (24 encoder + 24
            decoder layers) through the stage-split pipeline, bf16 with a
            float32 AdamW master, every stage on this card, each sequence
-           with as many frames as tokens from the audio stub: 2 steps at
+           with as many frames as tokens from the audio stub: a step at
            2x1 under gpipe-1f1b on train's batches, then one step at 4x1
            under zero-bubble-h1 (the split backward) on 7 sequences (8 are
            estimated over 72 GB at 4x1): per step tokens/s, frames, each
@@ -342,7 +349,27 @@ exit and no result line):
            each gradient leaf), each within 1e-5 of a float64 witness (plain
            float64 attention and cross-entropy, no kernel); at d_p 4 a
            causal encoder and the memory's gradient dropped at the last
-           decoder stage fall outside;
+           decoder stage fall outside; then the sequence-parallel and
+           pod axes: 2x2 under gpipe-1f1b (ZeRO-3 per_tick), 2x2 under
+           zero-bubble-h1 (per_step), 4x2 under gpipe-1f1b, 2 pods of 2x1
+           and 2 pods of 2x2 (the plan's pipeline cut in two, one a pod),
+           each within 1e-5 of the 2x1 step and of the float64 witness,
+           launches as planned; the 2x2 step twice, the same bits; at 2x2
+           each rank's cross-attention over its own rank's frames only,
+           and a rank's memory gradient dropped on its way back to the
+           encoder, fall outside;
+  train_encdec_sp  seamless-m4t-v2 at full width and depth at 2x2
+           (allgather_kv over both ranks of each stage, ZeRO-3 per_tick),
+           bf16 with a float32 AdamW master, 2 steps under gpipe-1f1b on
+           train's batches, each sequence with as many frames as tokens:
+           per step tokens/s, the collectives' and the memory gathers'
+           bytes, each rank's rows for A (queries, keys; frames) and B
+           (tokens, vocabulary rows); every loss finite, each stage's
+           launches as its plan predicts (per rank), no plain call, the
+           card's peak at or under the sum of its ranks' estimates, each
+           rank's owned state at or under the charge of the parameters its
+           stage holds plus its whole leaves and its share of the
+           parameters the planner's count leaves out;
   train_restart  gemma3-1b at full width on 8 of 26 layers
            (RESTART_LAYERS: cut to keep the script in its time), bf16,
            1x1, the
@@ -455,7 +482,7 @@ exit and no result line):
            fixed-batch decode (``runtime/serve_step.DecodeStepBuilder``) at
            full width and depth in bf16, random weights from --seed:
            hymba-1.5b (32 layers) on 16 prompts of 1,024 tokens of the
-           "github" trace (seed 0), 32 new tokens each, at 1x1 and 2x2 on
+           "github" trace (seed 0), 16 new tokens each, at 1x1 and 2x2 on
            this card (2 stages, 2 SP ranks, n_micro 2, bm 8);
            falcon-mamba-7b (64 layers) on 8 such prompts at 1x1. Per run:
            the prefill's seconds (the batch's TTFT), decode tokens/s and
@@ -1334,7 +1361,9 @@ def _ce_case(arch, dtype, dev, seed, targets=None, case=None, shard=None):
     eb = 2 if dtype == torch.bfloat16 else 4
     in_bytes = (T * D + V * D) * eb + T * 4
     for key in ("B", "C1", "C2"):
-        want = plain[key]()
+        # the plain version timed on the run that gives the reference (it
+        # takes 0.1-2 s; timing a second run cost the script ~20 s)
+        want, plain_ms = _timed(plain[key])
 
         def check(out, want=want, key=key):
             if key == "B":
@@ -1359,7 +1388,6 @@ def _ce_case(arch, dtype, dev, seed, targets=None, case=None, shard=None):
                 missed.append(fault)
         # both have run on these inputs already: no warm-up launch
         kernel_ms = _cuda_ms(kern[key], iters=2, warmup=0)
-        plain_ms = _cuda_ms(plain[key], iters=1, warmup=0)
         library_ms = library_bf16_ms = library_bf16_why = None
         if key == "B":      # the materialised-logits yardsticks
             library_ms = _cuda_ms(lambda: torch.logsumexp(
@@ -1390,7 +1418,8 @@ def _ce_case(arch, dtype, dev, seed, targets=None, case=None, shard=None):
                    faults_within_tol=missed, bitwise_repeat=bitwise,
                    kernel_ms=kernel_ms, plain_ms=plain_ms,
                    plain_is=f"ref's plain version over blocks of "
-                            f"{CE_ROW_BLOCK} tokens",
+                            f"{CE_ROW_BLOCK} tokens, the run that gives "
+                            f"the reference",
                    library_ms=library_ms,
                    library_is=("h.float() @ W.float().T + logsumexp, "
                                "logits materialised" if key == "B" else None),
@@ -3854,8 +3883,10 @@ SEAMLESS = "seamless-m4t-v2"
 # train_encdec's runs: (mesh, schedule, steps, sequences a batch). 4x1 on
 # github batches of 8 is estimated at 80.2 GB on this card (24.4 + 20.3 +
 # 17.3 + 18.2 GB), over the 72 GB the train phases hold their plans to:
-# it takes 7 sequences (65.2 GB estimated)
-ENCDEC_RUNS = ((2, "gpipe-1f1b", 2, 8), (4, "zero-bubble-h1", 1, 7))
+# it takes 7 sequences (65.2 GB estimated). 2x1 runs one step since
+# train_encdec_sp joined (2 before), to keep the script in its time;
+# train_encdec_sp trains the same batches' steps 0 and 1 at 2x2
+ENCDEC_RUNS = ((2, "gpipe-1f1b", 1, 8), (4, "zero-bubble-h1", 1, 7))
 # train_verify_encdec: 2 encoder and 2 decoder layers at full width, four
 # sequences in chunks of at most 1,280 tokens, and an activation budget
 # per stage beside the model states under which the ILP remats a layer of
@@ -3864,6 +3895,77 @@ ENCDEC_RUNS = ((2, "gpipe-1f1b", 2, 8), (4, "zero-bubble-h1", 1, 7))
 ENCDEC_VERIFY_LENS = (1200, 700, 400, 250)
 ENCDEC_VERIFY_RUNS = ((2, "gpipe-1f1b", 0.1e9), (4, "zero-bubble-h1",
                                                  0.05e9))
+
+
+# train_encdec_sp: (d_p, d_s, schedule) at full width and depth, ZeRO-3
+# per_tick (the reference's default), ENCDEC_SP_STEPS steps on train's
+# batches
+ENCDEC_SP = (2, 2, "gpipe-1f1b")
+ENCDEC_SP_STEPS = 2
+# train_verify_encdec's cases on the sequence-parallel and pod axes: (name,
+# d_p, d_s, schedule, ZeRO-3 mode, pods), each planned with the 2x1 case's
+# activation budget over its ranks
+ENCDEC_VERIFY_SP = (("2x2", 2, 2, "gpipe-1f1b", "per_tick", 1),
+                    ("2x2 zero-bubble-h1", 2, 2, "zero-bubble-h1",
+                     "per_step", 1),
+                    ("4x2", 4, 2, "gpipe-1f1b", "per_tick", 1),
+                    ("2 pods of 2x1", 2, 1, "gpipe-1f1b", None, 2),
+                    ("2 pods of 2x2", 2, 2, "gpipe-1f1b", "per_tick", 2))
+ENCDEC_SP_FAULTS = ("cross-attention over its own rank's frames",
+                    "a rank's memory gradient dropped")
+
+
+def _encdec_sp_loop(seed):
+    """train_encdec_sp's trainer settings (``launch/train.TrainConfig``)."""
+    d_p, d_s, sched = ENCDEC_SP
+    loop = _train_loop(seed)
+    loop.steps, loop.d_p, loop.d_s, loop.schedule = ENCDEC_SP_STEPS, d_p, \
+        d_s, sched
+    return loop
+
+
+def _encdec_sp_chunks(seed):
+    """train_encdec_sp's step-0 chunks as the step cuts them for its ranks
+    (rows a multiple of 64 d_s; the frames at the tokens' rows):
+    ``[(chunk, targets, seg, pos)]`` over the whole chunk, the largest
+    first."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.batching import materialize_plan
+    from repro_torch.launch.train import plan_step
+    from repro_torch.runtime.train_step import chunk_arrays
+    loop = _encdec_sp_loop(seed)
+    cfg = get_arch(SEAMLESS)
+    corpus, plan = plan_step(trainer_cm(loop.d_p, cfg, loop.d_s), loop, 0,
+                             schedule=loop.schedule, v_stages=1)
+    chunks = [c for p in plan.pipelines for c in p.chunks]
+    batch = materialize_plan(plan, corpus)
+    out = []
+    for k in sorted(range(len(chunks)), key=lambda i: -chunks[i].tokens):
+        _, tgt, seg, pos = (np.concatenate(a) for a in chunk_arrays(
+            batch, k, chunks[k].tokens, loop.d_s))
+        out.append((chunks[k], tgt, seg, pos))
+    return out
+
+
+def _split_pipelines(plan, n):
+    """``plan``'s one pipeline cut into ``n`` pipelines of consecutive
+    chunks (each its own backward order, its schedule made again), so that
+    each of ``n`` pods takes one (the verify batch is one pipeline)."""
+    import dataclasses
+
+    import numpy as np
+    (pipe,) = plan.pipelines
+    subs = []
+    for idx in np.array_split(np.arange(pipe.n_chunks), n):
+        a, b = int(idx[0]), int(idx[-1]) + 1
+        order = sorted(range(a, b), key=lambda i: pipe.f2b[i])
+        subs.append(dataclasses.replace(
+            pipe, chunks=pipe.chunks[a:b],
+            f2b=[order.index(i) for i in range(a, b)], schedule=[],
+            ckpt=[row[a:b] for row in pipe.ckpt], ckpt_diag=[]))
+    return dataclasses.replace(plan, pipelines=subs)
 
 
 def _encdec_cm(d_p, spec):
@@ -3885,9 +3987,11 @@ def _encdec_chunks(seed):
                                    0, schedule="gpipe-1f1b", v_stages=1))
 
 
-def _encdec_verify_plan(seed, d_p, schedule, budget, dev):
+def _encdec_verify_plan(seed, d_p, schedule, budget, dev, d_s=1):
     """train_verify_encdec's batch: ``(cfg, corpus, frames, cm, plan)`` at
-    2 + 2 layers, float32 frames from the stub (``sequence_frames``)."""
+    2 + 2 layers, float32 frames from the stub (``sequence_frames``); at
+    ``d_s > 1`` planned at the reference's SP point (allgather_kv over
+    every rank, a rank's share of the card and of ``budget``)."""
     import dataclasses
 
     import numpy as np
@@ -3902,12 +4006,14 @@ def _encdec_verify_plan(seed, d_p, schedule, budget, dev):
     rng = np.random.default_rng(seed)
     corpus = {i: rng.integers(0, cfg.spec.vocab, n).astype(np.int32)
               for i, n in enumerate(ENCDEC_VERIFY_LENS)}
-    cm = _encdec_cm(d_p, cfg.spec)
+    cm = _encdec_cm(d_p, cfg.spec) if d_s == 1 else \
+        trainer_cm(d_p, cfg, d_s)
     plan = plan_batch(cm, list(ENCDEC_VERIFY_LENS), PlannerConfig(
         fixed_k=1, bucket_rounding=64, remat_mode="stage_aware", v_stages=1,
-        sp_degree=1, schedule=schedule, token_capacity=1280,
+        sp_policy="allgather_kv" if d_s > 1 else "auto", sp_degree=d_s,
+        schedule=schedule, token_capacity=1280,
         capacity_bytes=max(cm.m_model_states(p) for p in range(1, d_p + 1))
-        + budget))
+        + budget / d_s))
     frames = sequence_frames(cfg, corpus, seed, device=dev,
                              dtype=torch.float32)
     return cfg, corpus, frames, cm, plan
@@ -3994,35 +4100,104 @@ def phase_kernel_encdec(dev, seed):
         for rec in ce[-1].values():
             print(f"[kernel] cross-entropy {json.dumps(rec)}", flush=True)
         torch.cuda.empty_cache()
-    return bwd, ce
+    return bwd, ce, _encdec_rank_cases(dev, seed)
+
+
+def _encdec_rank_cases(dev, seed):
+    """Kernel A and A′ and kernels B, C1, C2 at the shapes a rank of
+    train_encdec_sp gives them on its largest step-0 chunk (the rank of
+    ``d_s`` with the most live rows; bf16): ``{"encoder", "self",
+    "cross": attention backward cases, "ce": the vocabulary block's}``.
+    Every rank's rows are the keys (allgather_kv; cross-attention's are
+    the gathered memory's, whose frames sit at the tokens' rows), the
+    rank's block the queries."""
+    import numpy as np
+    import torch
+
+    from repro_torch.runtime.sp import row_blocks
+    bf16, Hq, Hkv, D = torch.bfloat16, 16, 16, 64
+    d = ENCDEC_SP[1]
+    chunk, tgt, seg, pos = _encdec_sp_chunks(seed)[0]
+    b = len(seg) // d
+    r = max(range(d), key=lambda i: int((seg[i * b:(i + 1) * b] >= 0).sum()))
+    q_seg = seg[r * b:(r + 1) * b]
+    zeros = np.zeros(len(seg), np.int32)
+    name = (f"train_encdec_sp step-0 chunk ({chunk.tokens} tokens, "
+            f"{len(chunk.slices)} sequences) rank {r} of {d}: {b} of "
+            f"{len(seg)} rows")
+
+    def rank_inputs(zero_pos):
+        q_pos = (zeros if zero_pos else pos)[r * b:(r + 1) * b]
+        k_pos = zeros if zero_pos else pos
+
+        def inputs(gen, dtype):
+            def mk(*shape):
+                return torch.randn(shape, generator=gen, device=dev,
+                                   dtype=torch.float32).to(dtype)
+            meta = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                    for x in (q_seg, seg, q_pos, k_pos)]
+            S = len(seg)
+            return mk(b, Hq, D), mk(S, Hkv, D), mk(S, Hkv, D), \
+                mk(b, Hq, D), meta
+        return inputs
+    # a live KV tile the rank's queries read: its own first live rows
+    a0 = r * b + int((q_seg >= 0).argmax())
+    drop = slice(a0, a0 + 32)
+    out = {}
+    for key, what, zero_pos, causal in (
+            ("encoder", "encoder (frames, non-causal)", False, False),
+            ("self", "decoder self-attention (causal)", False, True),
+            ("cross", "cross-attention to the gathered memory (zero "
+                      "positions)", True, False)):
+        out[key] = _attn_bwd_case(f"{name}, {what}", rank_inputs(zero_pos),
+                                  drop, 0, bf16, dev, 81 + len(out),
+                                  causal=causal)
+        print(f"[kernel] attention backward {json.dumps(out[key])}",
+              flush=True)
+        torch.cuda.empty_cache()
+    shard = row_blocks(CE_HEADS[SEAMLESS][1], d)[1]
+    out["ce"] = _ce_case(
+        SEAMLESS, bf16, dev, 84, targets=torch.from_numpy(tgt),
+        case=f"train_encdec_sp step-0 chunk ({chunk.tokens} tokens), "
+             f"vocabulary block {shard[1]} rows at {shard[0]}", shard=shard)
+    for rec in out["ce"].values():
+        print(f"[kernel] cross-entropy {json.dumps(rec)}", flush=True)
+    torch.cuda.empty_cache()
+    return out
 
 
 def _expected_encdec_launches(cfg, plan, d_p, dtype, n_sm,
-                              policy="stage-aware"):
+                              policy="stage-aware", d_s=1):
     """Each stage's launches in one encoder-decoder step of ``plan``: per
     chunk and layer an encoder stage runs one attention op (non-causal),
     a decoder stage two (causal self-attention and cross-attention), each
     a forward with its tile ranges, once more per remat'd layer (the
     stage's row of the plan's table, at most its layers), and one of each
-    backward pass; a merge pass where the bf16 forward splits the keys
-    (``kv_splits``; the frames are the tokens' rows, so every op of a
-    chunk has its shape); B, C1, C2 once per chunk on the last stage; the
-    split's W runs cuBLAS products only; no plain call."""
+    backward pass; with ``d_s`` ranks, each op once a rank (its block of
+    the chunk's rows against every rank's); a merge pass where the bf16
+    forward splits the keys (``kv_splits`` at a rank's queries; the frames
+    are the tokens' rows, so every op of a chunk has its shape); B, C1, C2
+    once per vocabulary block and chunk on the last stage; the split's W
+    runs cuBLAS products only; no plain call."""
     import torch
 
     from repro_torch.kernels.flash_attention import BLOCK_KV, kv_splits
     from repro_torch.runtime.sharding import encdec_stage_layers
-    from repro_torch.runtime.train_step import _rows, _table
+    from repro_torch.runtime.sp import row_blocks
+    from repro_torch.runtime.train_step import ROW_MULTIPLE, _table
     s = cfg.spec
     layout = encdec_stage_layers(s.n_encoder_layers, s.n_layers, d_p)
     table = _table(plan, d_p, policy)
     chunks = [c for p in plan.pipelines for c in p.chunks]
+    q = ROW_MULTIPLE * d_s
+    rows = [-(-max(c.tokens, 1) // q) * q for c in chunks]
     split = [dtype == torch.bfloat16 and kv_splits(
-        _rows(c.tokens), -(-_rows(c.tokens) // BLOCK_KV) * BLOCK_KV,
-        s.n_heads, n_sm) > 1 for c in chunks]
+        n // d_s, -(-n // BLOCK_KV) * BLOCK_KV, s.n_heads, n_sm) > 1
+        for n in rows]
+    n_ce = sum(1 for _, n in row_blocks(s.vocab, d_s) if n)
     out = []
     for p, (role, ids) in enumerate(layout):
-        ops_ = 1 if role == "encoder" else 2
+        ops_ = (1 if role == "encoder" else 2) * d_s
         fwd = ops_ * sum(len(ids) + min(table[p][k], len(ids))
                          for k in range(len(chunks)))
         bwd = ops_ * len(ids) * len(chunks)
@@ -4031,7 +4206,7 @@ def _expected_encdec_launches(cfg, plan, d_p, dtype, n_sm,
             if k.startswith("plain"):
                 continue
             if k.startswith("ce_"):
-                exp[k] = exp[k] if p == d_p - 1 else 0
+                exp[k] = n_ce * exp[k] if p == d_p - 1 else 0
             elif k in ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"):
                 exp[k] = bwd
             elif k == "flash_combine_kernel":
@@ -4086,7 +4261,7 @@ class _StageTimes:
 
 def phase_train_encdec(dev, seed):
     """seamless-m4t-v2 at full width and depth, bf16 with a float32 AdamW
-    master, through ``launch/train.train`` (:data:`ENCDEC_RUNS`: 2 steps at
+    master, through ``launch/train.train`` (:data:`ENCDEC_RUNS`: a step at
     2x1 under gpipe-1f1b, then one step at 4x1 under zero-bubble-h1 with
     the split backward, every stage on this card), each sequence with as
     many frames as tokens from the stub: per step the tokens/s (valid
@@ -4151,6 +4326,105 @@ def phase_train_encdec(dev, seed):
                     f"{h['card_plan_mem_gb'][0]} GB: {rec}")
         del trainer
         torch.cuda.empty_cache()
+    return recs, totals
+
+
+def phase_train_encdec_sp(dev, seed):
+    """seamless-m4t-v2 at full width and depth on :data:`ENCDEC_SP`'s
+    stages of sequence-parallel ranks through ``launch/train.train``
+    (``--mesh 2x2``; allgather_kv over each stage's ranks, the reference's
+    pin; ZeRO-3 ``per_tick``), bf16 with a float32 AdamW master, every
+    stage and rank on this card, each rank planned with the card's memory
+    over the stages and ranks, each sequence with as many frames as tokens
+    from the stub. Gates: finite losses; each stage's launches as the plan
+    predicts (:func:`_expected_encdec_launches` at ``d_s``), no plain
+    call; the card's peak at or under the sum of its ranks' estimates;
+    each rank's owned state at or under the charge of the parameters its
+    stage holds (``EncDecTrainer.rank_charges``) plus its leaves kept
+    whole and its share of the parameters the planner's count leaves out.
+    Per step: tokens/s, the collectives' bytes and the memory gathers', A's
+    and B's rows a rank, each rank's frame rows, the ZeRO-3 gathers and
+    the planner's own charge (``m_model_states``) beside the stage's."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train
+    cfg = get_arch(SEAMLESS)
+    loop = _encdec_sp_loop(seed)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    ctr = _train_counters()
+    tally, expected, lines, totals = {}, [], [], {}
+    tag = "train_encdec_sp"
+
+    def fold():
+        for t in tally.values():
+            for k, n in t.items():
+                totals[k] = totals.get(k, 0) + n
+
+    def on_step(step, plan, corpus, trainer):
+        if expected:
+            _check_stage_launches(tally, expected[-1],
+                                  f"{tag} step {step - 1}")
+        expected.append(_expected_encdec_launches(
+            cfg, plan, loop.d_p, torch.bfloat16, n_sm, d_s=loop.d_s))
+        fold()
+        tally.clear()
+        _zero_counts(ctr)
+    with _per_stage(ctr, tally):
+        trainer, hist = train(cfg, loop, device=dev, on_step=on_step,
+                              log=lines.append)
+    _check_stage_launches(tally, expected[-1], f"{tag} last step")
+    fold()
+    for ln in lines:
+        print(f"[{tag}] {ln}", flush=True)
+    gb = lambda b: b / 1e9  # noqa: E731
+    recs = []
+    for h, exp in zip(hist, expected):
+        rec = {k: h[k] for k in (
+            "step", "loss", "tokens", "frames", "wall_s", "tokens_per_s",
+            "chunks", "remat_layers", "sp_policy", "d_s_eff", "d_s",
+            "attn_rows_per_rank", "ce_rows_per_rank", "frame_rows_per_rank",
+            "collectives", "collective_bytes", "memory_gathers",
+            "memory_gather_bytes", "card_peak_mem_gb", "card_plan_mem_gb",
+            "stage_plan_mem_gb", "solve_s", "zero3_mode", "gathers",
+            "regathers")}
+        rec.update(
+            rank_state_gb=[[gb(b) for b in st]
+                           for st in h["rank_state_bytes"]],
+            rank_charge_gb=[gb(b) for b in h["rank_charge_bytes"]],
+            planner_charge_gb=[gb(b) for b in h["planner_charge_bytes"]],
+            whole_state_gb=[[gb(b) for b in st]
+                            for st in h["whole_state_bytes"]],
+            uncounted_state_gb=gb(h["uncounted_state_bytes"]),
+            gather_gb=gb(h["gather_bytes"]),
+            scatter_gb=gb(h["scatter_bytes"]),
+            gathered_peak_gb=gb(h["gathered_peak_bytes"]),
+            arch=cfg.name, layers=[cfg.spec.n_encoder_layers,
+                                   cfg.spec.n_layers],
+            mesh=f"{loop.d_p}x{loop.d_s}", stage_launches=exp)
+        recs.append(rec)
+        if not math.isfinite(h["loss"]):
+            raise PhaseError(f"{tag}: non-finite loss: {rec}")
+        if h["card_peak_mem_gb"][0] > h["card_plan_mem_gb"][0]:
+            raise PhaseError(
+                f"{tag}: the card's peak {h['card_peak_mem_gb'][0]} GB is "
+                f"above the sum of its ranks' estimates "
+                f"{h['card_plan_mem_gb'][0]} GB: {rec}")
+        for p, (own, whole) in enumerate(zip(h["rank_state_bytes"],
+                                             h["whole_state_bytes"])):
+            for r, (o, w) in enumerate(zip(own, whole)):
+                limit = h["rank_charge_bytes"][p] + w + \
+                    h["uncounted_state_bytes"]
+                if o > limit:
+                    raise PhaseError(
+                        f"{tag}: stage {p} rank {r} owns {o} bytes, over "
+                        f"the charge of its stage's parameters, its whole "
+                        f"leaves and its share of the uncounted parameters "
+                        f"({limit}): {rec}")
+    del trainer
+    torch.cuda.empty_cache()
     return recs, totals
 
 
@@ -4266,7 +4540,7 @@ def phase_train_verify_encdec(dev, seed):
     from repro_torch.runtime.train_step import EncDecTrainer
     from repro_torch.weights import from_stages
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    out, totals = {}, {}
+    out, totals, base = {}, {}, None
     for d_p, sched, budget in ENCDEC_VERIFY_RUNS:
         cfg, corpus, frames, cm, plan = _encdec_verify_plan(seed, d_p, sched,
                                                             budget, dev)
@@ -4321,6 +4595,8 @@ def phase_train_verify_encdec(dev, seed):
                    "pipelined": _against_float64(run, witness, names),
                    "whole batch": _against_float64(whole, witness, names)},
                "stage_launches": expected}
+        if base is None:            # the 2x1 step: the SP cases' reference
+            base = (run, witness, names, cfg, corpus, frames, budget)
         del run
         bad = [k for k in ("pipelined", "whole batch")
                if max(rec["float64 witness"][k]["loss_rel_diff"],
@@ -4341,7 +4617,144 @@ def phase_train_verify_encdec(dev, seed):
                   rec[f]["within"]]
         if caught:
             raise PhaseError(f"the limit does not catch {caught}: {rec}")
+    out.update(_encdec_verify_sp(dev, seed, base, n_sm, totals))
     out["launches"] = totals
+    return out
+
+
+@contextlib.contextmanager
+def _encdec_sp_fault(fault):
+    """A planted fault on the encoder-decoder's SP axis (undone on exit),
+    as ``tests/test_torch_encdec_sp.encdec_sp_fault``: ``"cross-attention
+    over its own rank's frames"`` gives each rank's cross-attention its own
+    memory block in place of the gathered one; ``"a rank's memory gradient
+    dropped"`` zeroes rank 1's block of the memory gradient the last stage
+    hands back."""
+    import torch
+
+    from repro_torch.runtime import sp
+    from repro_torch.runtime.executor import PipelineExecutor
+    if fault == ENCDEC_SP_FAULTS[0]:
+        obj, name = sp, "gather_memory"
+
+        def faulty(memory, seg_mem):
+            return list(zip(memory, seg_mem))
+    elif fault == ENCDEC_SP_FAULTS[1]:
+        obj, name = PipelineExecutor, "_send_grad"
+        orig = PipelineExecutor._send_grad
+
+        def faulty(self, s, k, g):
+            if s == self.d_p - 1:
+                g = (g[0], torch.zeros_like(g[1]), *g[2:])
+            orig(self, s, k, g)
+    else:
+        raise ValueError(fault)
+    saved = getattr(obj, name)
+    setattr(obj, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+def _encdec_verify_sp(dev, seed, base, n_sm, totals):
+    """train_verify_encdec's cases on the sequence-parallel and pod axes
+    (:data:`ENCDEC_VERIFY_SP`), float32, the same parameters and batch as
+    the 2x1 case (``base``: its step, float64 witness, leaf names, config,
+    corpus, frames and activation budget): each case's loss and every
+    gradient leaf within VERIFY_LIMIT of the 2x1 step's and of the
+    witness's; launches as each case's plan predicts (summed over the
+    pods' shares); the first case run twice, the same bits; at it, both
+    :data:`ENCDEC_SP_FAULTS` outside the limit. Each case's plan is made
+    at its SP point; a pods case cuts the plan's pipeline in two
+    (:func:`_split_pipelines`)."""
+    import torch
+
+    from repro_torch.core.schedule import get_schedule
+    from repro_torch.models import EncDecLM
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.runtime.encdec_pipeline import EncDecGeometry
+    from repro_torch.runtime.train_step import EncDecTrainer, pod_plans
+    ref, witness, names, cfg, corpus, frames, budget = base
+
+    def against(r, want):
+        worst, leaf = 0.0, 0
+        for i, (a, b) in enumerate(zip(tree_leaves(r.grads),
+                                       tree_leaves(want.grads))):
+            x = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                 1e-30)
+            if x > worst:
+                worst, leaf = x, i
+        rel = abs(r.loss - want.loss) / abs(want.loss)
+        return {"loss": r.loss, "loss_rel_diff": rel,
+                "grad_max_rel_diff": worst,
+                "grad_max_rel_diff_leaf": names[leaf],
+                "within": rel <= VERIFY_LIMIT and worst <= VERIFY_LIMIT
+                and r.n_valid == want.n_valid}
+    out = {}
+    for name, d_p, d_s, sched, mode, pods in ENCDEC_VERIFY_SP:
+        _, _, _, cm, plan = _encdec_verify_plan(seed, d_p, sched, budget,
+                                                dev, d_s)
+        if pods > 1:
+            plan = _split_pipelines(plan, pods)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = EncDecLM(cfg).init(gen, device=dev)
+        geom = EncDecGeometry(d_p=d_p, schedule=sched,
+                              split_bwd=get_schedule(sched, 1).split_bwd,
+                              d_s=d_s, zero3_mode=mode)
+        tr = EncDecTrainer(cfg, params, geometry=geom, cards=[dev],
+                           compute_dtype=torch.float32, cost_model=cm,
+                           n_pods=pods)
+        del params
+        subs = [sub for sub in pod_plans(plan, pods) if sub.pipelines]
+        per_pod = [_expected_encdec_launches(cfg, sub, d_p, torch.float32,
+                                             n_sm, d_s=d_s) for sub in subs]
+        expected = [{k: sum(e[p][k] for e in per_pod) for k in per_pod[0][p]}
+                    for p in range(d_p)]
+        ctr = _train_counters()
+        tally = {}
+        _zero_counts(ctr)
+        with _per_stage(ctr, tally):
+            run = tr.loss_and_grads(plan, corpus, frames)
+        _check_stage_launches(tally, expected, f"verify {name}")
+        for t in tally.values():
+            for k, n in t.items():
+                totals[k] = totals.get(k, 0) + n
+        rec = {"mesh": f"{d_p}x{d_s}", "schedule": sched, "zero3": mode,
+               "pods": pods, "limit": VERIFY_LIMIT,
+               "chunks": [[c.tokens for c in p.chunks]
+                          for p in plan.pipelines],
+               "remat_table": plan.ckpt_table(),
+               "collective_bytes": run.pipeline["collective_bytes"],
+               "memory_bytes": run.pipeline["memory_bytes"],
+               "against 2x1": against(run, ref),
+               "float64 witness": _against_float64(run, witness, names),
+               "stage_launches": expected}
+        w = rec["float64 witness"]
+        if not rec["against 2x1"]["within"] or max(
+                w["loss_rel_diff"], w["grad_max_rel_diff"]) > VERIFY_LIMIT:
+            raise PhaseError(f"verify {name}: the step differs from the 2x1 "
+                             f"step or the float64 witness: {rec}")
+        if name == ENCDEC_VERIFY_SP[0][0]:
+            again = tr.loss_and_grads(plan, corpus, frames)
+            rec["bitwise_repeat"] = again.loss == run.loss and all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(again.grads),
+                                                  tree_leaves(run.grads)))
+            del again
+            if not rec["bitwise_repeat"]:
+                raise PhaseError(f"verify {name}: two runs differ: {rec}")
+            for fault in ENCDEC_SP_FAULTS:
+                with _encdec_sp_fault(fault):
+                    rec[fault] = against(tr.loss_and_grads(
+                        plan, corpus, frames), ref)
+            caught = [f for f in ENCDEC_SP_FAULTS if rec[f]["within"]]
+            if caught:
+                raise PhaseError(f"verify {name}: the limit does not catch "
+                                 f"{caught}: {rec}")
+        out[name] = rec
+        print(f"[train_verify_encdec] {name} {json.dumps(rec)}", flush=True)
+        del run, tr
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5732,9 +6145,10 @@ def phase_train_sp_verify(dev, seed):
 # ---------------------------------------------------------------------------
 
 HYMBA, FALCON = "hymba-1.5b", "falcon-mamba-7b"
-# bf16 decode: (prompts, prompt tokens, new tokens, meshes on the one card)
-DECODE_RUNS = {HYMBA: (16, 1024, 32, ((1, 1), (2, 2))),
-               FALCON: (8, 1024, 32, ((1, 1),))}
+# bf16 decode: (prompts, prompt tokens, new tokens, meshes on the one card);
+# 16 new tokens since PR 28 (32 before), to keep the script in its time
+DECODE_RUNS = {HYMBA: (16, 1024, 16, ((1, 1), (2, 2))),
+               FALCON: (8, 1024, 16, ((1, 1),))}
 # the float32 verify: (prompts, new tokens, meshes); prompts of 1,024
 DECODE_VERIFY = {HYMBA: (2, 8, ((1, 1), (2, 2))), FALCON: (2, 8, ((1, 1),))}
 # seamless-m4t-v2: requests, prompt tokens, frames, new tokens, meshes
@@ -6904,14 +7318,21 @@ def main() -> int:
     # the encoder-decoder: A and A′ non-causal and across two streams, B /
     # C1 / C2 at its head; seamless-m4t-v2 trained at full width and depth
     # through the stage-split pipeline and verified in float32
-    (e_bwd, e_ce), dt = run("kernel_encdec", lambda: phase_kernel_encdec(
-        dev, args.seed))
+    (e_bwd, e_ce, e_sp), dt = run("kernel_encdec", lambda:
+                                  phase_kernel_encdec(dev, args.seed))
     print(f"[kernel_encdec] ok in {dt:.1f}s", flush=True)
     (e_trn, encdec_counts), dt = run("train_encdec", lambda:
                                      phase_train_encdec(dev, args.seed))
     for rec in e_trn:
         print(f"[train_encdec] {json.dumps(rec)}", flush=True)
     print(f"[train_encdec] ok in {dt:.1f}s", flush=True)
+    # the encoder-decoder on the sequence-parallel axis: 2x2 at full width
+    # and depth, allgather_kv, ZeRO-3 per_tick
+    (e_sp_trn, encdec_sp_counts), dt = run(
+        "train_encdec_sp", lambda: phase_train_encdec_sp(dev, args.seed))
+    for rec in e_sp_trn:
+        print(f"[train_encdec_sp] {json.dumps(rec)}", flush=True)
+    print(f"[train_encdec_sp] ok in {dt:.1f}s", flush=True)
     ver, dt = run("train_verify_encdec", lambda: phase_train_verify_encdec(
         dev, args.seed))
     print(f"[train_verify_encdec] ok in {dt:.1f}s: {json.dumps(ver)}",
@@ -7008,6 +7429,7 @@ def main() -> int:
              "train_verify_mla": verify_mla_counts,
              "generate_mla": gen_mla_counts, **dense_counts,
              "train_encdec": encdec_counts,
+             "train_encdec_sp": encdec_sp_counts,
              "train_verify_encdec": encdec_verify_counts,
              "train_restart": restart_counts,
              "train_elastic": elastic_counts,
@@ -7066,6 +7488,10 @@ def main() -> int:
     # float32; its head on both chunks
     enc_bf16, enc_f32 = e_bwd[:4], e_bwd[4]
     enc_gce, enc_vce = e_ce
+    # and at a rank's shapes on train_encdec_sp's step-0 chunk: the
+    # encoder, the decoder's self-attention and cross-attention (bf16),
+    # the head's second vocabulary block
+    enc_rank = [e_sp[k] for k in ("encoder", "self", "cross")]
 
     def _fwd(rec):          # the attention forward of one case
         keys = ("case", "dtype", "T", "S", "Hq", "D", "Dv", "window")
@@ -7138,7 +7564,7 @@ def main() -> int:
               also=[_fwd(r) for r in (gb_local, h_attn, moe_gb, mla_gb,
                                       mla_fwd, g, cases[1], cases[2], st_gb,
                                       d_fwd, *fig_bf16, *enc_bf16,
-                                      sp_k["allgather_kv"],
+                                      *enc_rank, sp_k["allgather_kv"],
                                       sp_k["ulysses"],
                                       *[r for r in dk
                                         if r["dtype"] == "bfloat16"],
@@ -7166,7 +7592,7 @@ def main() -> int:
               "on library_case (library_case_ms: both backward passes)",
               also=[_bwd_also(r, "dkdv") for r in (moe_gb, moe_vb, mla_gb,
                                                    mla_vb, st_gb, st_vb,
-                                                   *fig, *e_bwd,
+                                                   *fig, *e_bwd, *enc_rank,
                                                    sp_k["allgather_kv"],
                                                    sp_k["ulysses"])]),
         entry("flash_bwd_dq_kernel", fa, tpu_fa + " (its gradient)", gb,
@@ -7178,7 +7604,7 @@ def main() -> int:
               "on library_case (library_case_ms: both backward passes)",
               also=[_bwd_also(r, "dq") for r in (moe_gb, moe_vb, mla_gb,
                                                  mla_vb, st_gb, st_vb,
-                                                 *fig, *e_bwd,
+                                                 *fig, *e_bwd, *enc_rank,
                                                  sp_k["allgather_kv"],
                                                  sp_k["ulysses"])]),
         entry("flash_bwd_tiles_kernel", fa, tpu_fa + " (its gradient)", gb,
@@ -7191,7 +7617,7 @@ def main() -> int:
                      "ms": r["tiles_ms"], "bound_ms": r["tiles_bound_ms"],
                      "plain_ms": r["tiles_plain_ms"], "tiles": r["tiles"],
                      "max_abs_err": r["tiles_max_abs_err"]}
-                    for r in (*e_bwd, sp_k["allgather_kv"],
+                    for r in (*e_bwd, *enc_rank, sp_k["allgather_kv"],
                               sp_k["ulysses"])]),
         entry("ce_fwd_mma_kernel", cs, tpu_ce + ":79", gce["B"],
               library_is=gce["B"]["library_is"],
@@ -7200,14 +7626,16 @@ def main() -> int:
               also=_also(moe_gce["B"]) + _also(moe_tce["B"])
               + _also(mla_gce["B"])
               + [x for r in dense_gce for x in _also(r["B"])]
-              + _also(enc_gce["B"]) + _also(sp_k["ce"]["B"])),
+              + _also(enc_gce["B"]) + _also(sp_k["ce"]["B"])
+              + _also(e_sp["ce"]["B"])),
         entry("ce_bwd_dh_mma_kernel", cs, tpu_ce + ":159", gce["C1"],
               max_active_clusters={D: o["dh"] for D, o in d_occ.items()},
               cluster_slices={D: o["slices"] for D, o in d_occ.items()},
               also=_also(moe_gce["C1"]) + _also(moe_tce["C1"])
               + _also(mla_gce["C1"])
               + [x for r in dense_gce for x in _also(r["C1"])]
-              + _also(enc_gce["C1"]) + _also(sp_k["ce"]["C1"])),
+              + _also(enc_gce["C1"]) + _also(sp_k["ce"]["C1"])
+              + _also(e_sp["ce"]["C1"])),
         entry("ce_fwd_kernel", cs, tpu_ce + ":79", vce["B"],
               library_is=vce["B"]["library_is"],
               also=_also(vce_h["B"]) + _also(moe_vce["B"])
@@ -7223,7 +7651,8 @@ def main() -> int:
               also=_also(h_ce["C2"]) + _also(moe_gce["C2"])
               + _also(moe_tce["C2"]) + _also(mla_gce["C2"])
               + [x for r in dense_gce for x in _also(r["C2"])]
-              + _also(enc_gce["C2"]) + _also(sp_k["ce"]["C2"])),
+              + _also(enc_gce["C2"]) + _also(sp_k["ce"]["C2"])
+              + _also(e_sp["ce"]["C2"])),
         entry("ce_bwd_kernel<dw>", cs, tpu_ce + ":222", vce["C2"],
               also=_also(vce_h["C2"]) + _also(moe_vce["C2"])
               + _also(mla_vce["C2"]) + _also(dense_vce["C2"])

@@ -45,8 +45,8 @@ gradient sums and AdamW state, gathered per layer and chunk (the
 reference's default ``per_tick``; ``per_step`` and the pod axis are the
 trainer's, as the reference reaches them through ``make_geometry`` and
 ``TrainStepBuilder``: its CLI has no flag for either). Still
-refused: the encoder-decoder at ``S > 1`` (its frame-sharded memory) and
-more cards than stages at ``S > 1`` (SP ranks across cards). On the card,
+refused: more cards than stages at ``S > 1`` (SP ranks across cards). On
+the card,
 gemma3-1b on two stages of one H100, and on two stages of two ranks:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \
@@ -54,16 +54,21 @@ gemma3-1b on two stages of one H100, and on two stages of two ranks:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \
       --steps 2 --batch 8 --context 16384 --mesh 2x2
 
-The encoder-decoder seamless-m4t-v2 trains only pipelined (``--mesh Px1``
+The encoder-decoder seamless-m4t-v2 trains only pipelined (``--mesh PxS``
 with ``P >= 2``: ``core.checkpointing.encoder_stage_split`` gives the
 leading stages the encoder and the rest the decoder; ``--mesh 1x1`` exits
 with its message), planned as the reference's train step plans it (``K =
-1``: the encoder is pack-only; one virtual stage), each sequence with as
-many frames as tokens from the audio-frame stub. At full width and depth
-on two stages of one H100:
+1``: the encoder is pack-only; one virtual stage; at ``S > 1``
+allgather_kv over all ``S`` ranks, each rank a block of a chunk's frames
+and tokens: ``runtime/encdec_pipeline.py``), each sequence with as many
+frames as tokens from the audio-frame stub; pods through
+``TrainConfig(n_pods=N)``. At full width and depth on two stages of one
+H100, and on two stages of two ranks:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch seamless-m4t-v2 \
       --steps 3 --batch 8 --context 16384 --mesh 2x1 --schedule gpipe-1f1b
+  PYTHONPATH=src python -m repro_torch.launch.train --arch seamless-m4t-v2 \
+      --steps 2 --batch 8 --context 16384 --mesh 2x2 --schedule gpipe-1f1b
 
 Each step prints one line: loss, valid tokens, wall time, tokens per
 second, the card's peak allocated memory and the plan's own peak-memory
@@ -238,8 +243,13 @@ def plan_lengths(cm, loop: TrainConfig, lengths: Sequence[int], *,
             **pins}
     if cm.model.is_encoder_decoder:
         # the reference's encoder-decoder cell: K = 1 (the encoder is
-        # pack-only), one virtual stage, the whole (unported) SP axis
-        pins = dict(pins, fixed_k=1, sp_degree=cm.cluster.d_s)
+        # pack-only), one virtual stage, allgather_kv over the whole SP
+        # axis (runtime/encdec_pipeline.encdec_sp_pin: another pin raises)
+        from repro_torch.runtime.encdec_pipeline import encdec_sp_pin
+        d_s = cm.cluster.d_s
+        pol = encdec_sp_pin(pins["sp_policy"], pins["sp_degree"], d_s)
+        pins = dict(pins, fixed_k=1, sp_degree=d_s,
+                    **({"sp_policy": pol} if d_s > 1 else {}))
         v_stages = 1
     pconf = PlannerConfig(bucket_rounding=BUCKET_ROUNDING,
                           remat_mode=remat_mode, schedule=schedule,
@@ -300,11 +310,6 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
     device = torch.device(device)
     dtype = dtype_of(loop.compute_dtype)
     d_p, d_s = loop.d_p, loop.d_s
-    if d_s > 1 and cfg.spec.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder on a sequence-parallel axis "
-            f"(its frame-sharded memory) is not ported: ROADMAP.md queue 1, "
-            f"item 4")
     cards = [torch.device(c) for c in (cards or [device])]
     cluster = cluster or ClusterSpec()
     piped = d_p > 1 or d_s > 1 or loop.n_pods > 1
@@ -420,7 +425,8 @@ def train(cfg, loop: TrainConfig, *, device, params: Optional[Dict] = None,
         if plan.sp is not None and d_s > 1:
             log(f"[sp] policy={plan.sp.policy} d_s_eff={plan.sp.d_s_eff}/"
                 f"{d_s}" + (" (planner-chosen)" if loop.sp_policy == "auto"
-                            and not loop.sp_degree else " (pinned)"))
+                            and not loop.sp_degree and not encdec
+                            else " (pinned)"))
         if not piped:
             trainer = ChunkedTrainer(cfg, params, device=device,
                                      compute_dtype=dtype)
@@ -604,6 +610,10 @@ def _step_line(rec: Dict) -> str:
                   f" GB (charge "
                   f"{[round(b / 1e9, 3) for b in rec['rank_charge_bytes']]})"
                   f" gathered_peak {rec['gathered_peak_bytes'] / 1e9:.3f} GB")
+    if "frame_rows_per_rank" in rec:
+        extra += (f" frames/rank {rec['frame_rows_per_rank']} memory_gathers "
+                  f"{rec['memory_gathers']} "
+                  f"({rec['memory_gather_bytes'] / 1e6:.1f} MB)")
     return (f"step {rec['step']:4d} loss {rec['loss']:.4f} tokens "
             f"{rec['tokens']} wall {rec['wall_s']:.2f}s tok/s "
             f"{rec['tokens_per_s']:.1f} peak_mem {mem} (plan estimate "
@@ -622,13 +632,15 @@ def _pipeline_trainer(cfg, loop: TrainConfig, plan, params, cards, dtype,
     if cfg.spec.is_encoder_decoder:
         from repro_torch.runtime.encdec_pipeline import EncDecGeometry
         from repro_torch.runtime.train_step import EncDecTrainer
-        if loop.n_pods > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: the encoder-decoder's pod axis is not ported")
         geom = EncDecGeometry(d_p=loop.d_p, schedule=plan.schedule,
-                              v_stages=plan.v_stages, split_bwd=split)
+                              v_stages=plan.v_stages, split_bwd=split,
+                              d_s=loop.d_s, **(
+                                  {"zero3_mode": loop.zero3_mode}
+                                  if loop.d_s > 1 else {}))
         return EncDecTrainer(cfg, params, geometry=geom, cards=cards,
-                             compute_dtype=dtype, cost_model=cm)
+                             compute_dtype=dtype, cost_model=cm,
+                             n_pods=loop.n_pods,
+                             compress_pod_grads=loop.compress_pod_grads)
     geom = PipelineGeometry(d_p=loop.d_p, schedule=plan.schedule,
                             v_stages=plan.v_stages, split_bwd=split,
                             d_s=loop.d_s, **(
@@ -682,11 +694,15 @@ def _pipeline_record(cm, plan, trainer, cards, res) -> Dict:
             **{k: res.pipeline[k] for k in ("n_pods", "compress_pod_grads",
                                             "pod_chunks", "pod_n_valid")
                if k in res.pipeline},
-            **(_sp_record(cm, plan, res.pipeline) if g.d_s > 1 else {})}
+            **(_sp_record(cm, plan, res.pipeline, trainer)
+               if g.d_s > 1 else {})}
 
 
-def _sp_record(cm, plan, pipe: Dict) -> Dict:
-    """The SP fields of a step's line (see :func:`_pipeline_record`)."""
+def _sp_record(cm, plan, pipe: Dict, trainer) -> Dict:
+    """The SP fields of a step's line (see :func:`_pipeline_record`); an
+    encoder-decoder's also each rank's frame rows (its queries of the
+    encoder's attention; cross-attention's keys are every rank's) and the
+    memory's gathers and bytes."""
     from repro_torch.runtime.sp import row_blocks
     from repro_torch.runtime.train_step import ROW_MULTIPLE
     d_s, d_eff, policy = pipe["d_s"], pipe["d_s_eff"], pipe["sp_policy"]
@@ -717,14 +733,19 @@ def _sp_record(cm, plan, pipe: Dict) -> Dict:
             # the most gathered bytes alive at once
             "zero3_mode": z["mode"],
             "rank_state_bytes": z["rank_state_bytes"],
-            "rank_charge_bytes": [cm.m_model_states(p + 1) for p in
-                                  range(len(z["rank_state_bytes"]))],
+            "rank_charge_bytes": trainer.rank_charges(cm),
+            "planner_charge_bytes": [cm.m_model_states(p + 1) for p in
+                                     range(len(z["rank_state_bytes"]))],
             "whole_state_bytes": z["whole_state_bytes"],
             "uncounted_state_bytes": z["uncounted_state_bytes"],
             "gathers": z["gathers"], "regathers": z["regathers"],
             "gather_bytes": z["gather_bytes"],
             "scatter_bytes": z["scatter_bytes"],
-            "gathered_peak_bytes": z["peak_live_bytes"]}
+            "gathered_peak_bytes": z["peak_live_bytes"],
+            **({"frame_rows_per_rank": rows // d_eff,
+                "memory_gathers": pipe["memory_gathers"],
+                "memory_gather_bytes": pipe["memory_bytes"]}
+               if spec.is_encoder_decoder else {})}
 
 
 def main(argv=None) -> int:
@@ -847,11 +868,6 @@ def main(argv=None) -> int:
         return 2
     d_p, d_s = parse_mesh(args.mesh)
     cfg = get_arch(args.arch)
-    if cfg.spec.is_encoder_decoder and d_s > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the encoder-decoder on a sequence-parallel "
-            f"axis (its frame-sharded memory) is not ported: ROADMAP.md "
-            f"queue 1, item 4")
     if cfg.spec.is_encoder_decoder and d_p < 2:
         print(f"error: {cfg.name} is an encoder-decoder: its pipeline needs "
               f"an encoder and a decoder stage, and encoder_stage_split("

@@ -395,19 +395,20 @@ def _scale_and_mla(cfg: ArchConfig, p: Dict):
 
 def attention_block_sp(cfg: ArchConfig, p: Dict, xs, *, poss, segs,
                        ctx_k, ctx_v, ctx_len: int, window: int,
-                       attn_fn: Callable, ropes) -> Tuple[list, object,
-                                                          object]:
+                       attn_fn: Callable, ropes, causal: bool = True
+                       ) -> Tuple[list, object, object]:
     """:func:`attention_block` over an SP group's token blocks ``xs`` (a
     list, rank order): the projections per rank (each at its own positions
     and rotation tables ``ropes``), the group's attention policy
     (``runtime/sp``) on the lists, the output projection per rank. The
-    carries ``ctx_k``, ``ctx_v`` are lists in the policy's layout."""
+    carries ``ctx_k``, ``ctx_v`` are lists in the policy's layout;
+    ``causal=False``: the encoder's self-attention over frame blocks."""
     qs, ks, vs = zip(*[project_qkv(cfg, p, x, pos, rope)
                        for x, pos, rope in zip(xs, poss, ropes)])
     scale, mla_fn = _scale_and_mla(cfg, p)
     outs, new_k, new_v = attn_fn(
         qs, ks, vs, segs=segs, poss=poss, ctx_k=ctx_k, ctx_v=ctx_v,
-        ctx_len=ctx_len, causal=True, window=window, scale=scale,
+        ctx_len=ctx_len, causal=causal, window=window, scale=scale,
         mla_fn=mla_fn)
     ys = [linear(o.reshape(o.shape[0], -1), p["wo"]) for o in outs]
     return ys, new_k, new_v

@@ -39,17 +39,37 @@ causal for the decoder's self-attention; under autograd A′ runs for all
 three. The encoder is pack-only: splitting a bidirectional encoder's input
 would change the math, so no chunk carries context (the planner is pinned
 to ``fixed_k=1``, as the reference's train step pins it).
+
+On the sequence-parallel axis (the reference's ``encdec_pipeline_loss_fn``
+over its model axis) the ``*_sp`` methods take a stage's ``d_s`` row
+blocks, rank order, and optionally a ``runtime/sharding.Zero3`` view whose
+keys name the layers (gathered inside each layer's run, as
+``DecoderLM.run_layers_sp`` gathers them): the encoder's and the
+decoder's self-attention run the allgather_kv policy
+(``runtime/sp.make_allgather_kv_policy``: a rank's frame or token block
+against the gathered rows; the encoder non-causal), the token embedding
+and the loss are vocabulary-parallel (``sp.sharded_embed``,
+``sp.sharded_ce``: B, C1, C2 on each vocabulary block), and the decoder's
+cross-attention reads the memory of every rank: the ranks' memory blocks
+gathered once per decoder stage and chunk (``sp.gather_memory``), each
+rank's token block then attending to those rows through
+:func:`~.attention.cross_attention`, which keeps the memory and not a
+layer's keys and values. The reference gathers each layer's keys and
+values instead (``encdec_pipeline.py:223-225``): the same attention, and at
+seamless-m4t-v2's widths (``2 Hkv Dh = 2 D``) twice the bytes a layer
+where this gathers once a stage.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .attention import (attention_block, cross_attention, init_attention,
+from .attention import (attention_block, attention_block_sp,
+                        cross_attention, init_attention,
                         make_local_attention_policy)
 from .config import ArchConfig, LayerKind
 from .layers import (dense_init, embed_init, linear, rms_norm, swiglu_apply,
@@ -70,7 +90,10 @@ def _init_cross(cfg: ArchConfig, gen: torch.Generator, **kw) -> Dict:
 class EncDecLM:
     """init/apply-style encoder-decoder parameterized by ArchConfig."""
 
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, attn_fn=None):
+        """``attn_fn``: the self-attention policy (default: the local one;
+        the ``*_sp`` methods take an SP policy over lists,
+        ``runtime/sp.make_allgather_kv_policy``)."""
         s = cfg.spec
         if (not s.is_encoder_decoder or cfg.layer_kind != LayerKind.ATTN
                 or s.n_experts or s.ssm_state or s.kv_lora_rank
@@ -79,7 +102,7 @@ class EncDecLM:
                 f"{cfg.name}: EncDecLM runs encoder-decoders of dense "
                 f"global attention layers without rope (seamless-m4t-v2)")
         self.cfg = cfg
-        self.attn_fn = make_local_attention_policy()
+        self.attn_fn = attn_fn or make_local_attention_policy()
 
     # ------------------------------------------------------------------
     def init(self, gen: torch.Generator, *, device,
@@ -229,6 +252,123 @@ class EncDecLM:
     def _dec_layer(self, lp, x, seg, pos, memory, seg_mem):
         return self.dec_layer_apply(lp, x, pos=pos, seg=seg, memory=memory,
                                     seg_mem=seg_mem)
+
+    # ------------------------------------------------------------------
+    # the sequence-parallel axis: lists of the ranks' row blocks
+
+    def enc_layer_apply_sp(self, lp: Dict, xs: List[torch.Tensor], *,
+                           segs, poss) -> List[torch.Tensor]:
+        """:meth:`enc_layer_apply` over the ranks' frame blocks ``xs``: the
+        norms, projections and MLP per rank, the self-attention non-causal
+        through the SP policy (a rank's frames against every rank's)."""
+        eps = self.cfg.rms_eps
+        outs, _, _ = attention_block_sp(
+            self.cfg, lp["attn"], [rms_norm(x, lp["ln1"], eps) for x in xs],
+            poss=poss, segs=segs, ctx_k=None, ctx_v=None, ctx_len=0,
+            window=0, attn_fn=self.attn_fn, ropes=[None] * len(xs),
+            causal=False)
+        xs = [x + o for x, o in zip(xs, outs)]
+        return [x + swiglu_apply(lp["mlp"], rms_norm(x, lp["ln2"], eps),
+                                 recompute=True) for x in xs]
+
+    def dec_layer_apply_sp(self, lp: Dict, xs: List[torch.Tensor], *,
+                           segs, poss, memory: Sequence[Tuple]
+                           ) -> List[torch.Tensor]:
+        """:meth:`dec_layer_apply` over the ranks' token blocks ``xs``:
+        causal self-attention through the SP policy, then each rank's
+        cross-attention to ``memory[r]`` (``(rows, segments)``:
+        ``sp.gather_memory``'s), the MLP per rank."""
+        eps = self.cfg.rms_eps
+        outs, _, _ = attention_block_sp(
+            self.cfg, lp["attn"], [rms_norm(x, lp["ln1"], eps) for x in xs],
+            poss=poss, segs=segs, ctx_k=None, ctx_v=None, ctx_len=0,
+            window=0, attn_fn=self.attn_fn, ropes=[None] * len(xs),
+            causal=True)
+        xs = [x + o for x, o in zip(xs, outs)]
+        xs = [x + self.cross_attend(lp["cross"], rms_norm(x, lp["ln_x"], eps),
+                                    rows, seg_q=seg, seg_mem=seg_mem)
+              for x, seg, (rows, seg_mem) in zip(xs, segs, memory)]
+        return [x + swiglu_apply(lp["mlp"], rms_norm(x, lp["ln2"], eps),
+                                 recompute=True) for x in xs]
+
+    def run_enc_layers_sp(self, layers: Sequence, xs: List[torch.Tensor],
+                          segs, poss, *, remat: int = 0, zero3=None
+                          ) -> List[torch.Tensor]:
+        """:meth:`run_enc_layers` over the ranks' frame blocks; ``layers``
+        the layers' parameters, or their keys in ``zero3`` (each layer
+        gathered inside its run, so a remat'd layer gathers again in its
+        backward; a layer without remat runs under
+        ``zero3.keep_shards()``)."""
+        for i, lp in enumerate(layers):
+            xs = self._run_sp(self._enc_layer_sp, i < remat, zero3,
+                              (lp, segs, poss, len(xs), zero3, *xs))
+        return xs
+
+    def run_dec_layers_sp(self, layers: Sequence, xs: List[torch.Tensor],
+                          segs, poss, memory: List[torch.Tensor],
+                          seg_mem: List[torch.Tensor], *, remat: int = 0,
+                          zero3=None) -> List[torch.Tensor]:
+        """:meth:`run_dec_layers` over the ranks' token blocks, the ranks'
+        memory blocks ``memory`` (their frames' segments ``seg_mem``)
+        gathered once for every layer (``sp.gather_memory``); ``layers``,
+        ``remat`` and ``zero3`` as :meth:`run_enc_layers_sp`."""
+        from repro_torch.runtime import sp
+        rows = sp.gather_memory(memory, seg_mem)
+        for i, lp in enumerate(layers):
+            xs = self._run_sp(self._dec_layer_sp, i < remat, zero3,
+                              (lp, segs, poss, rows, len(xs), zero3, *xs))
+        return xs
+
+    @staticmethod
+    def _run_sp(fn, remat: bool, zero3, args) -> List[torch.Tensor]:
+        if remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        if zero3 is not None:
+            with zero3.keep_shards():
+                return fn(*args)
+        return fn(*args)
+
+    def _enc_layer_sp(self, lp, segs, poss, n, zero3, *xs):
+        if zero3 is not None:
+            lp = zero3.layer(lp)
+        return self.enc_layer_apply_sp(lp, list(xs[:n]), segs=segs,
+                                       poss=poss)
+
+    def _dec_layer_sp(self, lp, segs, poss, memory, n, zero3, *xs):
+        if zero3 is not None:
+            lp = zero3.layer(lp)
+        return self.dec_layer_apply_sp(lp, list(xs[:n]), segs=segs,
+                                       poss=poss, memory=memory)
+
+    def enc_norm_sp(self, params: Dict, xs: List[torch.Tensor]
+                    ) -> List[torch.Tensor]:
+        """:meth:`enc_norm` per rank block: the memory's blocks."""
+        return [self.enc_norm(params, x) for x in xs]
+
+    def embed_sp(self, params: Dict, tokens: List[torch.Tensor], d_s: int,
+                 compute_dtype=torch.bfloat16) -> List[torch.Tensor]:
+        """:meth:`embed` of the ranks' token blocks, vocabulary-parallel
+        over ``d_s`` row blocks of ``params["embed"]`` (the ranks' shards,
+        or one table: ``runtime/sp.sharded_embed``)."""
+        from repro_torch.runtime.sp import sharded_embed
+        return sharded_embed(params["embed"], tokens, d_s, compute_dtype)
+
+    def chunk_loss_sp(self, params: Dict, hidden: List[torch.Tensor],
+                      targets: List[torch.Tensor], segs: List[torch.Tensor],
+                      d_s: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`chunk_loss` over the ranks' token blocks: the final norm
+        per rank, then the vocabulary-parallel CE against ``d_s`` row
+        blocks of the tied embedding (``runtime/sp.sharded_ce``: B per
+        block, the log-sum-exps merged, C1 and C2 per block)."""
+        from repro_torch.runtime.sp import sharded_ce
+        hs = [rms_norm(h, params["final_norm"], self.cfg.rms_eps)
+              for h in hidden]
+        w = params["embed"]
+        w = [b.to(hs[0].dtype) for b in w] if isinstance(w, (list, tuple)) \
+            else w.to(hs[0].dtype)
+        return sharded_ce(hs, w, [t.clamp(min=0) for t in targets],
+                          [(s >= 0) & (t >= 0) for s, t in zip(segs, targets)],
+                          d_s)
 
     # ------------------------------------------------------------------
     def enc_norm(self, params: Dict, x: torch.Tensor) -> torch.Tensor:

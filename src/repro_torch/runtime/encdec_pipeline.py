@@ -32,6 +32,25 @@ grouped encoder + decoder stacking has no interleaved placement): the
 three single-virtual-stage backends run, gpipe-1f1b, interleaved-1f1b at
 ``v = 1`` and zero-bubble-h1.
 
+With a sequence-parallel axis (``d_s > 1``, the reference's
+``encdec_pipeline_loss_fn`` over its model axis) a stage is an
+:class:`EncDecSPStage`: its ``d_s`` ranks live on its card, each owning
+its ZeRO-3 shards of the stage's layers, ``enc_norm`` and ``final_norm``
+(``runtime/sharding``; ``per_tick`` or ``per_step`` gathers) and its
+vocabulary block of the tied embedding; a chunk's frames and tokens split
+into ``d_s`` row blocks, one a rank (:func:`stage_inputs`), and the
+streams are the ranks' blocks: ``(memory_0 .. memory_{d-1}, h_dec_0 ..
+h_dec_{d-1})``. The SP point is the reference's pin
+(:func:`encdec_sp_pin`): allgather_kv over the whole ``d_s``, no replica
+groups. The encoder and the decoder's self-attention run the allgather_kv
+policy; a decoder stage gathers the ranks' memory blocks once a chunk
+for its cross-attention (``sp.gather_memory``; the reference gathers each
+layer's keys and values) and, in the backward, hands each rank's memory
+gradient back summed over every rank's use; the embedding and the loss are
+vocabulary-parallel. Under the split backward the ``W`` action
+reduce-scatters each weight's products (the cross-attention's key and
+value projections included) into the ranks' sums.
+
 Serving takes another layout (:func:`prepare_encdec_decode_params`, the
 reference's): the decoder layers over all ``d_p`` stages, the encoder kept
 on the first for the prefill. An :class:`EncDecDecodeStage` encodes a
@@ -43,7 +62,7 @@ carry, which becomes the sequence's cache.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -52,24 +71,48 @@ from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.layers import deferred_weight_grads
 from repro_torch.models.model import LayerCtx
 
-from .pipeline import PipelineGeometry, PipelineStage
+from .pipeline import PipelineGeometry, PipelineStage, SPStage
+from .sharding import ZERO3_MODES
 
-__all__ = ["EncDecGeometry", "EncDecStage", "EncDecDecodeStage",
+__all__ = ["EncDecGeometry", "EncDecStage", "EncDecSPStage",
+           "EncDecDecodeStage", "encdec_sp_pin",
            "prepare_encdec_decode_params"]
+
+
+def encdec_sp_pin(policy: str, degree: int, d_s: int) -> str:
+    """The SP policy of an encoder-decoder on ``d_s`` ranks, from a
+    requested ``policy`` (``"auto"`` or a name) and ``degree`` (0: any):
+    the reference's pin, allgather_kv over the whole ``d_s``
+    (``EncDecGeometry.policy`` in its ``runtime/encdec_pipeline.py``, and
+    ``sp_degree=d_s`` in ``launch/dryrun.py``'s cell), or ``"none"`` at
+    ``d_s = 1``; any other point raises."""
+    want = "none" if d_s == 1 else "allgather_kv"
+    if policy not in ("auto", want) or degree not in (0, d_s):
+        raise ValueError(
+            f"the encoder-decoder runs the reference's SP point: policy "
+            f"{want!r} over the whole d_s={d_s} (its EncDecGeometry.policy "
+            f"and the dry-run cell's sp_degree=d_s); got policy {policy!r} "
+            f"at degree {degree}")
+    return want
 
 
 @dataclass(frozen=True)
 class EncDecGeometry:
     """The run's encoder-decoder pipeline: ``d_p >= 2`` stages, the
     schedule backend, whether the backward is split; ``v_stages`` must be
-    1."""
+    1. ``d_s`` sequence-parallel ranks a stage at the reference's SP
+    point (:func:`encdec_sp_pin`: ``policy`` allgather_kv and ``d_s_eff =
+    d_s`` at ``d_s > 1``; another request raises); ``zero3_mode`` as
+    :class:`~.pipeline.PipelineGeometry`'s (``"per_tick"`` at ``d_s > 1``
+    when None)."""
     d_p: int
     schedule: str = "gpipe-1f1b"
     v_stages: int = 1
     split_bwd: bool = False
-    # no sequence-parallel axis: its frame-sharded memory is not ported
-    # (ROADMAP.md queue 1, item 4)
-    d_s = 1
+    d_s: int = 1
+    policy: str = "auto"
+    d_s_eff: int = 0
+    zero3_mode: Optional[str] = None
 
     def __post_init__(self) -> None:
         if self.v_stages != 1:
@@ -82,11 +125,28 @@ class EncDecGeometry:
                 f"an encoder-decoder pipeline needs d_p >= 2 (an encoder "
                 f"and a decoder stage: core.checkpointing."
                 f"encoder_stage_split); got {self.d_p}")
+        if self.d_s < 1:
+            raise ValueError(f"d_s must be >= 1, got {self.d_s}")
+        object.__setattr__(self, "policy", encdec_sp_pin(
+            self.policy, self.d_s_eff, self.d_s))
+        object.__setattr__(self, "d_s_eff", self.d_s)
+        if self.zero3_mode is None and self.d_s > 1:
+            object.__setattr__(self, "zero3_mode", "per_tick")
+        if self.zero3_mode is not None and \
+                self.zero3_mode not in ZERO3_MODES:
+            raise ValueError(f"zero3_mode {self.zero3_mode!r}: one of "
+                             f"{ZERO3_MODES}")
         get_schedule(self.schedule, self.v_stages)      # validates
 
     @property
     def n_vstages(self) -> int:
         return self.d_p
+
+    def for_plan(self, plan) -> "EncDecGeometry":
+        """Itself: a plan's SP point must be the pinned one."""
+        if plan.sp is not None:
+            encdec_sp_pin(plan.sp.policy, plan.sp.d_s_eff, self.d_s)
+        return self
 
 
 def _leaf(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -162,6 +222,82 @@ class EncDecStage(PipelineStage):
         return tuple(None if t is None else t.grad for t in rec["x_in"])
 
 
+class EncDecSPStage(SPStage):
+    """:class:`EncDecStage` with ``geom.d_s`` sequence-parallel ranks on its
+    card (see the module docstring): ``params`` the list of the ranks'
+    trees (each its own shards) and ``layout`` their
+    :class:`~.sharding.LeafShard` tree; ``inputs(k)`` gives chunk ``k``'s
+    ``(frames, seg_enc, pos_enc, tokens, targets, seg, pos)``, each a list
+    of the ranks' row blocks; the stream is the flat tuple of the ranks'
+    memory (or ``h_enc``) blocks, then their ``h_dec`` blocks (None on an
+    encoder stage)."""
+
+    def __init__(self, model: EncDecLM, p: int, geom: EncDecGeometry,
+                 role: str, ids: Sequence[int], params: List[Dict], device,
+                 dtype: torch.dtype, first_dec: bool, layout: Dict):
+        self.role, self.first_dec, self.ids = role, first_dec, list(ids)
+        self.key = "enc_layers" if role == "encoder" else "dec_layers"
+        super().__init__(model, p, geom, [ids], params, device, dtype,
+                         layout)
+
+    def _zero3_keys(self) -> Dict:
+        keys = dict(self.sharded[self.key])
+        for name in ("enc_norm", "final_norm"):
+            if name in self.sharded:
+                keys[name] = self.sharded[name]
+        return keys
+
+    def carry_grad_ready(self, k: int, j: int) -> bool:
+        return True
+
+    def forward(self, k: int, j: int, x_in: Optional[Tuple]
+                ) -> Optional[Tuple]:
+        if self.chunks[k].context > 0:
+            raise RuntimeError(
+                f"chunk {k} continues a sequence: the encoder-decoder runs "
+                f"packed chunks only (plan with fixed_k=1)")
+        frames, seg_e, pos_e, tokens, targets, seg, pos = self.inputs(k)
+        d, last = self.geom.d_s, self.p == self.geom.d_p - 1
+        rec = {"x_in": None, "store": [] if self.geom.split_bwd else None}
+        if x_in is not None:
+            rec["x_in"] = tuple(_leaf(t) for t in x_in)
+        remat, model, z = self.depths[0][k], self.model, self.zero3
+        with deferred_weight_grads(rec["store"]):
+            if self.role == "encoder":
+                hs = list(frames) if x_in is None else list(rec["x_in"][:d])
+                out = (*model.run_enc_layers_sp(self.ids, hs, seg_e, pos_e,
+                                                remat=remat, zero3=z),
+                       *[None] * d)
+            else:
+                if self.first_dec:
+                    with z.keep_shards():
+                        memory = model.enc_norm_sp(
+                            {"enc_norm": z.layer("enc_norm")},
+                            list(rec["x_in"][:d]))
+                    hs = model.embed_sp({"embed": self._rank_rows("embed")},
+                                        tokens, d, self.dtype)
+                else:
+                    memory = list(rec["x_in"][:d])
+                    hs = list(rec["x_in"][d:])
+                out = (*memory, *model.run_dec_layers_sp(
+                    self.ids, hs, seg, pos, memory, seg_e, remat=remat,
+                    zero3=z))
+        self.live[0][k] = rec
+        if not last:
+            rec["out"] = out
+            return tuple(None if t is None else t.detach() for t in out)
+        with z.keep_shards():
+            loss, _ = model.chunk_loss_sp(
+                {"final_norm": z.layer("final_norm"),
+                 "embed": self._rank_rows("embed")}, list(out[d:]), targets,
+                seg, d)
+        rec["out"] = (loss,)
+        self.loss = self.loss + loss.detach()
+        return None
+
+    backward = EncDecStage.backward
+
+
 def prepare_encdec_decode_params(cfg, params: Dict, d_p: int) -> list:
     """The decode layout (the reference's ``prepare_encdec_decode_params``):
     ``weights.to_stages(..., decode=True)``: stage ``p`` holds its decoder
@@ -212,14 +348,22 @@ class EncDecDecodeStage(PipelineStage):
 
 
 def stage_inputs(batch, k: int, tokens: int, table: torch.Tensor,
-                 device) -> Tuple[torch.Tensor, ...]:
+                 device, blocks: Optional[int] = None):
     """Chunk ``k``'s ``(frames, seg_enc, pos_enc, tokens, targets, seg,
     pos)`` on ``device``: rows cut as ``train_step.chunk_arrays`` cuts
     them, the frames gathered from ``table``
-    (``data/batching.frame_table``; pad rows zero)."""
+    (``data/batching.frame_table``; pad rows zero). ``blocks`` (the
+    sequence-parallel ranks): the rows cut to a multiple of ``ROW_MULTIPLE
+    * blocks`` and each array a list of its ``blocks`` contiguous row
+    blocks, rank order (the frames' blocks sit at their tokens' rows)."""
     import numpy as np
 
-    from .train_step import _rows, chunk_arrays
+    from .train_step import ROW_MULTIPLE, _rows, chunk_arrays
+    if blocks is not None:
+        q = ROW_MULTIPLE * blocks
+        whole = stage_inputs(batch, k, -(-max(tokens, 1) // q) * q, table,
+                             device)
+        return tuple(list(a.chunk(blocks)) for a in whole)
     n = _rows(tokens)
     tok, tgt, seg, pos = chunk_arrays(batch, k, tokens)
 

@@ -360,10 +360,15 @@ class SPStage(PipelineStage):
         self.layout = layout
         self.sharded = map_layout(lambda spec, *sh: ShardedLeaf(sh, spec),
                                   layout, *params)
+        self.zero3 = Zero3(geom.zero3_mode, self._zero3_keys())
+
+    def _zero3_keys(self) -> Dict:
+        """What :class:`~.sharding.Zero3` gathers: each layer id's
+        :class:`~.sharding.ShardedLeaf` tree, and ``"final_norm"``'s."""
         keys = dict(self.sharded["layers"])
         if "final_norm" in self.sharded:
             keys["final_norm"] = self.sharded["final_norm"]
-        self.zero3 = Zero3(geom.zero3_mode, keys)
+        return keys
 
     def _rank_rows(self, key: str) -> List[torch.Tensor]:
         """The ranks' shards of a vocabulary table (never gathered)."""

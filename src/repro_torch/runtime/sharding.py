@@ -166,7 +166,9 @@ EP_PATH_RE = re.compile(r"moe/(w_gate|w_up|w_down)$")
 # minus these (through the dense leaves' transpose: :func:`ref_axis`)
 STACK_DIMS = 2
 ZERO3_MODES = ("per_tick", "per_step")
-HEAD_LEAVES = ("embed", "unembed", "final_norm")
+HEAD_LEAVES = ("embed", "unembed", "final_norm", "enc_norm")
+# a stage's stacks of layers (by id): the decoder's, the encoder-decoder's
+LAYER_STACKS = ("layers", "enc_layers", "dec_layers")
 
 
 def _dense(path: str, ndim: int) -> bool:
@@ -247,13 +249,16 @@ def _leaf_shard(path: str, shape: Sequence[int], d_s: int) -> LeafShard:
 
 def shard_layout(tree, d_s: int, path: str = ""):
     """A stage's tree (``weights.to_stages``' layout: ``layers`` by id,
-    ``embed``, ``final_norm``, ``unembed``) with a :class:`LeafShard` for
-    each leaf (the layer leaves' paths drop the ``layers/<id>`` prefix, as
-    the reference's stacked tree has none)."""
+    ``embed``, ``final_norm``, ``unembed``; an encoder-decoder's
+    ``enc_layers`` or ``dec_layers`` by id and ``enc_norm``) with a
+    :class:`LeafShard` for each leaf (the layer leaves' paths drop the
+    ``layers/<id>`` prefix, as the reference's stacked tree has none;
+    ``enc_norm`` takes the final norm's rule, as the reference's cell
+    shards it)."""
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
-            if path == "" and k == "layers":
+            if path == "" and k in LAYER_STACKS:
                 out[k] = {i: shard_layout(lp, d_s, "") for i, lp in v.items()}
             else:
                 out[k] = shard_layout(v, d_s, f"{path}/{k}" if path else

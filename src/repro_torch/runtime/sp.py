@@ -45,6 +45,12 @@ counts once. The vocabulary stays sharded over the full ``d_s``.
 :data:`STATS` counts the collectives and the bytes they would move
 between ranks (forward only: the backward's transposes move the same).
 
+The encoder-decoder's cross-attention reads the memory of every rank:
+:func:`gather_memory` gathers the ranks' memory blocks once per decoder
+stage and chunk (the reference gathers each layer's keys and values,
+twice the bytes a layer; :data:`STATS` counts the memory's gathers and
+bytes apart, as ``memory_gathers`` and ``memory_bytes``).
+
 The pipelined prefill and decode (``runtime/serve_step``) add two
 functions: :func:`sharded_greedy`, the vocabulary-parallel argmax over the
 head's row blocks, and :func:`merge_partials`, the log-sum-exp merge of
@@ -65,11 +71,13 @@ __all__ = ["choose_policy", "subgroup_info", "row_blocks", "row_views",
            "all_gather", "reduce_scatter", "all_to_all",
            "make_none_policy", "make_allgather_kv_policy",
            "make_ulysses_policy", "sharded_embed", "sharded_ce", "merge_lse",
-           "sharded_greedy", "merge_partials",
+           "sharded_greedy", "merge_partials", "gather_memory",
            "make_sp_ssm_scan", "make_sp_conv_tail_exchange", "make_model"]
 
-# collectives run and the bytes they would move between ranks
-STATS = {"collectives": 0, "bytes": 0}
+# collectives run and the bytes they would move between ranks; of them,
+# the encoder-decoder's memory gathers (:func:`gather_memory`)
+STATS = {"collectives": 0, "bytes": 0, "memory_gathers": 0,
+         "memory_bytes": 0}
 
 
 def _count(nbytes: float) -> None:
@@ -150,6 +158,23 @@ def all_to_all(xs: Sequence[torch.Tensor], split_dim: int, concat_dim: int
     _count(sum(_nbytes(x) for x in xs) * (S - 1) / S)
     return [torch.cat([p[r] for p in parts], dim=concat_dim)
             for r in range(S)]
+
+
+def gather_memory(memory: Sequence[torch.Tensor],
+                  seg_mem: Sequence[torch.Tensor]) -> List[Tuple]:
+    """The memory rows each rank's cross-attention reads: the ranks' memory
+    blocks ``memory`` (the normed encoder rows, ``[S / d, D]`` each) and
+    their frames' segments ``seg_mem`` gathered once (:func:`all_gather`;
+    its transpose sums every rank's gradient of the memory into the
+    blocks), ``(rows, segments)`` for every rank. The reference gathers
+    each layer's keys and values instead (``encdec_pipeline.py:223-225``):
+    the same attention, ``2 Hkv Dh`` values a frame and layer gathered
+    where this gathers ``D`` a frame once a stage."""
+    before = STATS["bytes"]
+    rows, segs = all_gather(memory), all_gather(seg_mem)
+    STATS["memory_gathers"] += 1
+    STATS["memory_bytes"] += STATS["bytes"] - before
+    return [(rows, segs)] * len(memory)
 
 
 # ---------------------------------------------------------------------------

@@ -613,7 +613,7 @@ class PipelineTrainer:
                                                   for p in pipes))],
             **{k: sum(p[k] for p in pipes) for k in (
                 "handoffs", "handoff_bytes", "copied_bytes", "collectives",
-                "collective_bytes")})
+                "collective_bytes", "memory_gathers", "memory_bytes")})
         if "zero3" in res.pipeline:     # (the pods run one after another)
             zs = [p["zero3"] for p in pipes]
             res.pipeline["zero3"] = dict(
@@ -771,6 +771,11 @@ class PipelineTrainer:
                               if sp.whole) * per for t in trees])
         return {"rank_state_bytes": own, "whole_state_bytes": whole,
                 "uncounted_state_bytes": uncounted * per / self.geom.d_s}
+
+    def rank_charges(self, cm) -> List[float]:
+        """The planner's charge of a rank of each stage for its states
+        (``cm.m_model_states``, a rank's ``1 / d_s``)."""
+        return [cm.m_model_states(p + 1) for p in range(self.geom.d_p)]
 
     def sp_model(self, policy: str, d_s_eff: int) -> DecoderLM:
         """The decoder of one SP group at ``(policy, d_s_eff)``
@@ -955,38 +960,113 @@ class EncDecTrainer(PipelineTrainer):
     gradients are summed as :class:`PipelineTrainer` sums them. AdamW as
     there. ``params``: ``EncDecLM``'s dict (any dtype); each step takes
     the corpus and its sequences' frames (``data/batching.
-    sequence_frames``)."""
+    sequence_frames``).
+
+    At ``geometry.d_s > 1`` (the reference's SP point, allgather_kv over
+    every rank) a stage is an ``encdec_pipeline.EncDecSPStage``: each rank
+    owns its ZeRO-3 shards of the stage's layers, ``enc_norm`` and
+    ``final_norm`` and its vocabulary block of each embedding copy (the
+    tied pair summed rank by rank), with its float32 gradient sums and
+    AdamW state, as :class:`PipelineTrainer` lays a decoder's out.
+    ``n_pods`` replicas of the pipeline split a plan's pipelines
+    (:func:`pod_plans`), their gradients summed plainly, as the
+    reference's encoder-decoder cell sums them (``psum`` over its pod
+    axis); it has no compressed pod sum, so ``compress_pod_grads``
+    raises."""
 
     def __init__(self, cfg: ArchConfig, params: Dict, *,
                  geometry, cards: Sequence,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 cost_model=None):
+                 cost_model=None, n_pods: int = 1,
+                 compress_pod_grads: bool = False):
         from repro_torch.models.encdec import EncDecLM
 
-        from .encdec_pipeline import EncDecStage
+        from .encdec_pipeline import EncDecSPStage, EncDecStage
         from .sharding import encdec_stage_layers
         g, s = geometry, cfg.spec
+        if n_pods < 1:
+            raise ValueError(f"n_pods must be >= 1, got {n_pods}")
+        if compress_pod_grads:
+            raise NotImplementedError(
+                f"{cfg.name}: the reference's encoder-decoder cell sums its "
+                f"pods' gradients with a plain psum (launch/dryrun.py); it "
+                f"has no compressed pod sum for an encoder-decoder")
         self.cfg, self.geom, self.dtype, self.cm = cfg, g, compute_dtype, \
             cost_model
         self.model = EncDecLM(cfg)
         self.adamw = AdamWConfig()
-        self.devices = stage_devices(g.d_p, cards)
+        self.devices = stage_devices(g.d_p, cards, g.d_s)
         layout = encdec_stage_layers(s.n_encoder_layers, s.n_layers, g.d_p)
         self.blocks = [[ids] for _, ids in layout]
-        self.params = [
-            tree_map(lambda a, d=dev: a.detach().to(
-                d, compute_dtype, copy=True).requires_grad_(True), sp)
-            for dev, sp in zip(self.devices, to_stages(cfg, params, g.d_p))]
+        stages = to_stages(cfg, params, g.d_p)
+        self.n_params = sum(a.numel() for a in tree_leaves(params))
         first = [role for role, _ in layout].index("decoder")
-        self.stages = [EncDecStage(self.model, p, g, role, ids,
-                                   self.params[p], self.devices[p],
-                                   compute_dtype, p == first)
-                       for p, (role, ids) in enumerate(layout)]
-        self.layouts, self.replicas, self.compress, self.err = None, [], \
-            False, None
+        if g.d_s > 1:
+            self.layouts = [shard_layout(sp, g.d_s) for sp in stages]
+            self.params = [self._shard(sp, lay, dev) for sp, lay, dev in
+                           zip(stages, self.layouts, self.devices)]
+            self.stages = [EncDecSPStage(self.model, p, g, role, ids,
+                                         self.params[p], self.devices[p],
+                                         compute_dtype, p == first,
+                                         self.layouts[p])
+                           for p, (role, ids) in enumerate(layout)]
+        else:
+            self.layouts = None
+            self.params = [
+                tree_map(lambda a, d=dev: a.detach().to(
+                    d, compute_dtype, copy=True).requires_grad_(True), sp)
+                for dev, sp in zip(self.devices, stages)]
+            self.stages = [EncDecStage(self.model, p, g, role, ids,
+                                       self.params[p], self.devices[p],
+                                       compute_dtype, p == first)
+                           for p, (role, ids) in enumerate(layout)]
+        del stages
+        self._sp_models: Dict = {}
+        self.compress, self.err = False, None
         self._tie(first)
         self.opt = None
         self._frames = None
+        self.replicas = [
+            EncDecTrainer(cfg, params, geometry=g, cards=cards,
+                          compute_dtype=compute_dtype, cost_model=cost_model)
+            for _ in range(n_pods - 1)]
+
+    def sp_model(self, policy: str, d_s_eff: int):
+        """The encoder-decoder of a stage's ranks: its self-attention
+        through the allgather_kv policy over the lists of their blocks
+        (made once)."""
+        from repro_torch.models.encdec import EncDecLM
+
+        from . import sp
+        key = (policy, d_s_eff)
+        if key not in self._sp_models:
+            self._sp_models[key] = EncDecLM(
+                self.cfg, attn_fn=sp.make_allgather_kv_policy())
+        return self._sp_models[key]
+
+    def rank_charges(self, cm) -> List[float]:
+        """What the planner's count charges a rank of each stage for the
+        parameters that stage holds, in ``cm.m_model_states``' bytes a
+        parameter over ``d_s``: ``ModelSpec.param_count``'s terms placed
+        where the layers live (an encoder layer's attention, MLP and norms;
+        a decoder layer's with its cross-attention; the embedding on each
+        stage holding a copy). ``m_model_states`` (the reference's) splits
+        the whole count evenly over the stages and adds the embedding to
+        stage 1: it charges the encoder stages the decoder's
+        cross-attention and the first stage an embedding it does not hold
+        (the encoder-decoder's first stage holds none)."""
+        m = cm.model
+        D, Dh, Hq, Hkv = m.d_model, m.head_dim, m.n_heads, m.n_kv_heads
+        attn = D * Hq * Dh + 2 * D * Hkv * Dh + Hq * Dh * D
+        enc = attn + 3 * D * m.d_ff + 2 * D
+        per = {"encoder": enc, "decoder": enc + attn}
+        out = []
+        for p, st in enumerate(self.stages):
+            n = len(st.blocks[0]) * per[st.role]
+            if "embed" in self._tree(p):
+                n += m.vocab * D
+            out.append(n * (2 + 4 + 4 + 4 + 4) / cm.cluster.d_s)
+        return out
 
     def _run(self, plan: ExecutionPlan, corpus: Dict[int, np.ndarray],
              frames: Dict, *, remat_policy: str = "stage-aware",
@@ -1013,7 +1093,7 @@ class EncDecTrainer(PipelineTrainer):
         return [[[min(int(d), len(b[0])) for d in row]]
                 for row, b in zip(table, self.blocks)]
 
-    def _inputs(self, batch, pipe, base, device):
+    def _inputs(self, batch, pipe, base, device, blocks=None):
         from .encdec_pipeline import stage_inputs
         cache: Dict[int, tuple] = {}
         table = self._frames
@@ -1021,7 +1101,8 @@ class EncDecTrainer(PipelineTrainer):
         def inputs(k: int):
             if k not in cache:
                 cache[k] = stage_inputs(batch, base + k,
-                                        pipe.chunks[k].tokens, table, device)
+                                        pipe.chunks[k].tokens, table, device,
+                                        blocks)
             return cache[k]
         return inputs
 

@@ -1300,6 +1300,72 @@ def test_encdec_attention_and_step_on_card():
         assert float((x - y).abs().max()) <= 2e-5 * float(y.abs().max())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["per_tick", "per_step"])
+def test_encdec_sp_step_on_card(mode):
+    """The reduced seamless-m4t-v2 step (2 + 2 layers, d_model 128, heads
+    of 64) at ``(d_p, d_s) = (2, 2)``, allgather_kv, ZeRO-3 in ``mode``,
+    zero-bubble-h1 (the split backward), float32, on the card against the
+    same step on the CPU: loss ``rtol 1e-5``, each gradient leaf within
+    ``2e-5`` of its largest value; the kernels launched (B once a
+    vocabulary block and chunk), no plain version, the memory gathered
+    once a chunk."""
+    dev = _cuda()
+    from repro_torch.configs import get_arch
+    from repro_torch.core import (ClusterSpec, CostModel, PlannerConfig,
+                                  plan_batch)
+    from repro_torch.data.batching import sequence_frames
+    from repro_torch.kernels.cross_entropy import ce_fwd_cuda
+    from repro_torch.kernels.flash_attention import flash_bwd_dq_cuda
+    from repro_torch.models import EncDecLM
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.runtime.encdec_pipeline import EncDecGeometry
+    from repro_torch.runtime.train_step import EncDecTrainer
+    rng = np.random.default_rng(23)
+    cfg = get_arch("seamless-m4t-v2").reduced(n_layers=2, d_model=128,
+                                              n_heads=4, head_dim=64,
+                                              vocab=512)
+    lens = [300, 120, 77, 150, 64]
+    corpus = {i: rng.integers(0, 512, n).astype(np.int32)
+              for i, n in enumerate(lens)}
+    cm = CostModel(cfg.spec, ClusterSpec(d_p=2, d_s=2))
+    plan = plan_batch(cm, lens, PlannerConfig(
+        fixed_k=1, bucket_rounding=16, remat_mode="stage_aware", v_stages=1,
+        sp_policy="allgather_kv", sp_degree=2, schedule="zero-bubble-h1",
+        token_capacity=320))
+    for pipe in plan.pipelines:     # remat on both roles, rows that differ
+        pipe.ckpt = [([1, 0] * pipe.n_chunks)[:pipe.n_chunks],
+                     ([0, 2] * pipe.n_chunks)[:pipe.n_chunks]]
+    params = EncDecLM(cfg).init(torch.Generator().manual_seed(0),
+                                device="cpu")
+    frames = sequence_frames(cfg, corpus, 0, device="cpu",
+                             dtype=torch.float32)
+    geom = EncDecGeometry(d_p=2, d_s=2, schedule="zero-bubble-h1",
+                          split_bwd=True, zero3_mode=mode)
+    res = {}
+    for d in ("cpu", dev):
+        tr = EncDecTrainer(cfg, params, geometry=geom, cards=[d],
+                           compute_dtype=torch.float32, cost_model=cm)
+        plain = (ops.flash_attention.plain_calls,
+                 ops.fused_cross_entropy.plain_calls)
+        dq0, b0 = flash_bwd_dq_cuda.launches, ce_fwd_cuda.launches
+        res[str(d)] = tr.loss_and_grads(
+            plan, corpus, {s: f.to(d) for s, f in frames.items()})
+        if d is dev:
+            torch.cuda.synchronize()
+            assert flash_bwd_dq_cuda.launches > dq0
+            assert ce_fwd_cuda.launches - b0 == 2 * plan.n_chunks
+            assert (ops.flash_attention.plain_calls,
+                    ops.fused_cross_entropy.plain_calls) == plain
+    a, b = res["cpu"], res[str(dev)]
+    assert a.n_valid == b.n_valid and b.remat_layers > 0
+    assert b.pipeline["memory_gathers"] == plan.n_chunks
+    assert abs(a.loss - b.loss) <= 1e-5 * abs(a.loss)
+    for x, y in zip(tree_leaves(b.grads), tree_leaves(a.grads)):
+        y = y.to(x.device)
+        assert float((x - y).abs().max()) <= 2e-5 * float(y.abs().max())
+
+
 # ---------------------------------------------------------------------------
 # the sequence-parallel axis (runtime/sp.py): the kernels at the shapes a
 # rank gives them, and a reduced SP step on the card against the CPU

@@ -554,14 +554,14 @@ def test_cli_runs_two_stages_and_pins_v():
 
 
 def test_cli_refuses_a_sequence_parallel_axis():
-    """What the SP axis still refuses: the encoder-decoder at ``S > 1``
-    (its frame-sharded memory, item 4) and a stage's SP ranks across
-    cards (the per-rank driver, item 2: ZeRO-3 gave each rank its own
-    shards); the geometry takes ``d_s > 1`` with the reference's checks."""
+    """What the SP axis still refuses: a stage's SP ranks across cards
+    (the per-rank driver, item 2: ZeRO-3 gave each rank its own shards);
+    the encoder-decoder at ``S > 1`` trains (its frame-sharded memory);
+    the geometry takes ``d_s > 1`` with the reference's checks."""
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        main(["--device", "cpu", "--reduced", "--arch", "seamless-m4t-v2",
-              "--mesh", "2x2"])
+    assert main(["--device", "cpu", "--reduced", "--arch",
+                 "seamless-m4t-v2", "--mesh", "2x2", "--steps", "1",
+                 "--batch", "2", "--context", "128"]) == 0
     with pytest.raises(NotImplementedError, match="queue 1, item 2"):
         main(["--device", "cpu", "--reduced", "--mesh", "1x2", "--cards",
               "2", "--steps", "1", "--batch", "2", "--context", "128"])

@@ -121,12 +121,12 @@ def _attn_inputs(d, T, Hq, Hkv, Dh, C, C_cap, seed, Dv=None):
 
 
 def _jax_policy(policy, d, q, k, v, seg, pos, ck, cv, C, *, ctx_axes,
-                window, expand_fn=None):
+                window, expand_fn=None, causal=True):
     def f(qq, kk, vv, ss, pp, ckk, cvv):
         return policy(qq, kk, vv, seg=ss, pos=pp,
                       ctx_k=None if ckk is None else ckk,
                       ctx_v=None if cvv is None else cvv,
-                      ctx_len=jnp.int32(C), causal=True, window=window,
+                      ctx_len=jnp.int32(C), causal=causal, window=window,
                       scale=0.25, expand_fn=expand_fn)
     shard = lambda a: jnp.asarray(a).reshape(d, -1, *a.shape[1:])  # noqa
     args = [shard(a) for a in (q, k, v, seg, pos)]
@@ -141,13 +141,13 @@ def _jax_policy(policy, d, q, k, v, seg, pos, ck, cv, C, *, ctx_axes,
 
 
 def _port_policy(policy, d, q, k, v, seg, pos, ctx_k, ctx_v, C, window,
-                 mla_fn=None, scale=0.25):
+                 mla_fn=None, scale=0.25, causal=True):
     return policy([_t(a) for a in _split(q, d)],
                   [_t(a) for a in _split(k, d)],
                   None if v is None else [_t(a) for a in _split(v, d)],
                   segs=[_t(a) for a in _split(seg, d)],
                   poss=[_t(a) for a in _split(pos, d)],
-                  ctx_k=ctx_k, ctx_v=ctx_v, ctx_len=C, causal=True,
+                  ctx_k=ctx_k, ctx_v=ctx_v, ctx_len=C, causal=causal,
                   window=window, scale=scale, mla_fn=mla_fn)
 
 
@@ -173,6 +173,29 @@ def test_allgather_kv_policy_matches_jax(d, window, C):
             np.testing.assert_allclose(_np(nv[0]), np.asarray(jv[r]), **TOL)
     else:
         assert nk is None and nv is None
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_allgather_kv_non_causal_matches_jax(d):
+    """The encoder's self-attention on the SP axis (the reference's
+    ``nc_policy``, ``encdec_pipeline.py:199-200``): each rank's frame
+    block against every rank's frames of its segments, both ways in
+    position; the same policy as the decoder's, ``causal=False``."""
+    T = 128
+    q, k, v, seg, pos, _, _ = _attn_inputs(d, T, 4, 2, 16, 0, 0, 10 + d)
+    jo, _, _ = _jax_policy(jsp.make_allgather_kv_policy("x"), d, q, k, v,
+                           seg, pos, None, None, 0, ctx_axes=None, window=0,
+                           causal=False)
+    outs, nk, nv = _port_policy(sp.make_allgather_kv_policy(), d, q, k, v,
+                                seg, pos, None, None, 0, 0, causal=False)
+    assert nk is None and nv is None
+    causal, _, _ = _port_policy(sp.make_allgather_kv_policy(), d, q, k, v,
+                                seg, pos, None, None, 0, 0)
+    for r, sr in enumerate(_split(seg, d)):
+        _live_close(outs[r], jo[r], sr)
+    # a rank's early rows see later rows of their segment: not causal
+    assert not all(np.allclose(_np(a), _np(b), **TOL)
+                   for a, b in zip(outs, causal))
 
 
 @pytest.mark.parametrize("C", [0, 40])
