@@ -505,6 +505,25 @@ exit and no result line):
            frames in blocks over the ranks): the ids held to the
            teacher-forced ``EncDecLM.encode`` and ``decode`` greedy under
            the near-tie rule; launches and the state's bytes as above;
+  dryrun   (run right after build, while nothing else holds the card's
+           memory) the port's dry-run (``launch/dryrun``, the H100's
+           ``ClusterSpec``) on three production cells: hymba-1.5b
+           train_4k at 16x16, gemma3-1b decode_32k on two pods of 16x16,
+           seamless-m4t-v2 train_4k at 16x16. On the meta device each cell
+           is planned, each rank's holding sized through the port's own
+           constructors and each unit traced (train: the plan's largest
+           chunk through the last stage, and through the stage with the
+           largest estimate; decode: one tick of the first stage); then
+           each unit is built on this card from random bf16 weights
+           (--seed), all its ranks on the card, its stage's tensors only
+           (the others stay on meta), and run once. Gates per unit: each
+           rank's holding equals the dry-run's to the byte; each kernel's
+           launches equal the trace's calls and no plain call; the
+           counted collectives equal the trace's (count and bytes); the
+           outputs, carries and gradients the trace's shapes and dtypes;
+           the card's peak (``max_memory_allocated`` after a reset, less
+           what was allocated before) within DRYRUN_PEAK_TOL of the
+           trace's;
   kernels  every kernel of the port with its launch counts on every path
            above (the verify phases' chunked step: the float32 forward, B,
            C1 and C2 run only there).
@@ -598,17 +617,30 @@ def _ptxas_summary(log: str):
 # a call that takes this long is timed once after its warm-up: its launch
 # jitter is small beside it (a cut to keep the script in its time)
 ENOUGH_MS = 100.0
+# a warm-up call that takes this long is the timing itself: its one-time
+# costs (the first call's allocations and heuristics) are small beside it
+# (a cut to keep the script in its time)
+LONG_MS = 1000.0
 
 
 def _cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean milliseconds of ``fn`` over ``iters`` calls after ``warmup``
-    (CUDA events); one call when the first takes ENOUGH_MS or more."""
+    (CUDA events); one call when the first takes ENOUGH_MS or more; the
+    first warm-up call alone when it takes LONG_MS or more."""
     import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    for i in range(warmup):
+        if i == 0:
+            torch.cuda.synchronize()
+            a.record()
+        fn()
+        if i == 0:
+            b.record()
+            torch.cuda.synchronize()
+            if a.elapsed_time(b) >= LONG_MS:
+                return a.elapsed_time(b)
+    torch.cuda.synchronize()
     a.record()
     fn()
     b.record()
@@ -928,25 +960,43 @@ CE_ROW_BLOCK = 8192
 
 
 def _plain_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv, dout, window,
-                     row_block=ATTN_ROW_BLOCK, causal=True):
+                     row_block=ATTN_ROW_BLOCK, causal=True, ms=None):
     """(out, lse, dq, dk, dv) of the plain attention, over blocks of query
     rows: ``ref.flash_attention_reference``, ``ref.flash_attention_lse``
     and ``ref.flash_attention_grad`` of each block (rows are independent;
-    dk and dv are the blocks' sum, in float32)."""
+    dk and dv are the blocks' sum, in float32). ``ms``: a dict that takes
+    the CUDA-event milliseconds of the forward and lse (``"fwd"``) and of
+    the gradient (``"grad"``), summed over the blocks (the plain versions'
+    times, from this run: a cut, no second run to time them; the ``ref``
+    functions compute in float32 whatever their inputs' dtype)."""
     import torch
 
     from repro_torch.kernels import ref
     outs, lses, dqs, dk, dv = [], [], [], 0.0, 0.0
+    events = []
     for a in range(0, q.shape[0], row_block):
         b = slice(a, a + row_block)
         rows = (seg_q[b], seg_kv, pos_q[b], pos_kv)
         kw = dict(window=window, causal=causal)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] \
+            if ms is not None else None
+        if ev:
+            ev[0].record()
         outs.append(ref.flash_attention_reference(q[b], k, v, *rows, **kw))
         lses.append(ref.flash_attention_lse(q[b], k, *rows, **kw))
+        if ev:
+            ev[1].record()
         gq, gk, gv = ref.flash_attention_grad(q[b], k, v, *rows, dout[b],
                                               **kw)
+        if ev:
+            ev[2].record()
+            events.append(ev)
         dqs.append(gq)
         dk, dv = dk + gk.float(), dv + gv.float()
+    if ms is not None:
+        torch.cuda.synchronize()
+        ms["fwd"] = sum(e[0].elapsed_time(e[1]) for e in events)
+        ms["grad"] = sum(e[1].elapsed_time(e[2]) for e in events)
     return (torch.cat(outs), torch.cat(lses, dim=1), torch.cat(dqs),
             dk.to(k.dtype), dv.to(v.dtype))
 
@@ -990,9 +1040,10 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
     def err_of(got):
         errs = [_close_scaled(g, w, dtype) for g, w in zip(got, want)]
         return max(e for e, _ in errs), all(ok for _, ok in errs)
+    plain_t = {}
     want_out, want_lse, *want = _plain_attention(
         q.float(), k.float(), v.float(), *meta, dout.float(), window,
-        row_block, causal)
+        row_block, causal, ms=plain_t)
     max_err, ok = err_of(grads())
     padded = ops.pad_for_kernel(q, k, v, *meta)
     # the forward as the train step runs it: the tile ranges (bf16), then
@@ -1077,12 +1128,8 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
     torch.cuda.synchronize()
     bitwise = all(torch.equal(a, b) for a, b in zip(*runs))
     del runs
-    plain_ms = _cuda_ms(lambda: [ref.flash_attention_grad(
-        q[b], k, v, seg_q[b], seg_kv, pos_q[b], pos_kv, dout[b],
-        window=window, causal=causal) for b in (slice(a, a + row_block)
-                                                for a in range(0, T,
-                                                               row_block))],
-        iters=2, warmup=0)
+    # the plain versions' times: their run for the tolerance above
+    plain_ms, fwd_plain_ms = plain_t["grad"], plain_t["fwd"]
     # live pairs, and the tile pairs (per head) that hold one at the passes'
     # tile size, over blocks of query rows
     S = k.shape[0]
@@ -1135,14 +1182,6 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
                            + lse.numel() * 4
                            + sum(t.numel() * 4 for t in meta), dtype)
     fwd_ms = _cuda_ms(forward, iters=3, warmup=0)
-    fwd_plain_ms = _cuda_ms(lambda: [
-        (ref.flash_attention_reference(q[b], k, v, seg_q[b], seg_kv,
-                                       pos_q[b], pos_kv, window=window,
-                                       causal=causal),
-         ref.flash_attention_lse(q[b], k, seg_q[b], seg_kv, pos_q[b],
-                                 pos_kv, window=window, causal=causal))
-        for b in (slice(a, a + row_block) for a in range(0, T, row_block))],
-        iters=1, warmup=0)
     bound_ms, bound_by = bounds["all"]
     kernel_ms = ms["dkdv"] + ms["dq"]
     # the library yardstick: scaled_dot_product_attention with the boolean
@@ -1186,7 +1225,9 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
                bound_by_dkdv=bounds["dkdv"][1], bound_ms_dq=bounds["dq"][0],
                bound_by_dq=bounds["dq"][1], plain_ms=plain_ms,
                plain_is=f"autograd of the plain attention: dq, dk, dv at "
-                        f"once, over blocks of {row_block} query rows",
+                        f"once, over blocks of {row_block} query rows (its "
+                        f"run for the tolerance, on the inputs in float32, "
+                        f"as ref computes)",
                library_ms=library_ms,
                library_is=("scaled_dot_product_attention with the boolean "
                            "mask on the EFFICIENT_ATTENTION backend, forward "
@@ -1213,7 +1254,8 @@ def _attn_bwd_case(name, inputs, drop, window, dtype, dev, seed,
                          "kernel is tiles_ms): the forward kernel, and "
                          "flash_combine_kernel where the keys are split "
                          "(fwd_n_split > 1); fwd_plain_ms: ref's output and "
-                         "lse over blocks of query rows; fwd_library_ms: "
+                         "lse over blocks of query rows (its run for the "
+                         "tolerance); fwd_library_ms: "
                          "scaled_dot_product_attention forward on the "
                          "EFFICIENT_ATTENTION backend with the same boolean "
                          "mask (null: no single call, library_is says why)",
@@ -7019,6 +7061,120 @@ def phase_verify_mesh(dev, cfg, params32, trace, d_p, d_s):
             "faults": faults}, calls
 
 
+# ---------------------------------------------------------------------------
+# the dry-run at production meshes, held against the card
+# ---------------------------------------------------------------------------
+
+# (arch, shape, two pods): each cell's units run on this card
+DRYRUN_CELLS = (("hymba-1.5b", "train_4k", False),
+                ("gemma3-1b", "decode_32k", True),
+                ("seamless-m4t-v2", "train_4k", False))
+# the card's peak against the trace's: the caching allocator's blocks
+# beside the trace's 512-byte rounding
+DRYRUN_PEAK_TOL = 0.10
+
+
+def _unit_on_card(cell, unit) -> bool:
+    """Every parameter of the unit's stage lies on the card."""
+    from repro_torch.models.model import tree_leaves
+    h = cell.holder
+    trees = h.params[unit.stage] if hasattr(h, "params") else \
+        h.stages[unit.stage]
+    return all(t.is_cuda for t in tree_leaves(trees))
+
+
+def phase_dryrun(dev, seed):
+    """Each cell of DRYRUN_CELLS through the dry-run on meta, then each of
+    its units built and run on this card against its trace (the five
+    gates of the module docstring). Returns one record a unit and each
+    unit's launch counts."""
+    import gc
+
+    import torch
+    out, counts = [], {}
+    for arch, shape, mp in DRYRUN_CELLS:
+        out += _dryrun_cell(dev, seed, arch, shape, mp, counts)
+        # (the cell's card tensors died with _dryrun_cell's frame)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, counts
+
+
+def _dryrun_cell(dev, seed, arch, shape, mp, counts):
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.models.encdec import EncDecLM
+    from repro_torch.models.model import DecoderLM
+    ctr = _train_counters()
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape, mp)
+    dry_s = time.perf_counter() - t0
+    mem = rec["memory"]
+    print(f"[dryrun] {dryrun.cell_tag(arch, shape, mp)} "
+          + json.dumps({"plan": rec["plan"], "build_s": rec["build_s"],
+                        "trace_s": rec["trace_s"], "dryrun_s": dry_s,
+                        "memory": {k: mem[k] for k in mem
+                                   if k != "plan_estimate_bytes"},
+                        "flops": rec["flops"]}), flush=True)
+    cfg = get_arch(arch)
+    model = EncDecLM(cfg) if cfg.spec.is_encoder_decoder else DecoderLM(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init(gen, device=dev, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    cell = dryrun.build_cell(arch, shape, mp, device=dev, params=params,
+                             seed=seed)
+    build_s = time.perf_counter() - t0
+    del params
+    if len(cell.units) != len(rec["units"]):
+        raise PhaseError(f"{arch} {shape}: {len(cell.units)} units on the "
+                         f"card, {len(rec['units'])} traced")
+    out = []
+    for unit, tr in zip(cell.units, rec["units"]):
+        key = f"dryrun_{arch}_{shape}_{rec['mesh']}_stage{unit.stage}"
+        _zero_counts(ctr)
+        m = dryrun.measure_unit(unit)
+        counts[key] = _read_counts(ctr)
+        calls = {k: v["calls"] for k, v in tr["kernel_ops"].items()}
+        peak, traced = m["peak_bytes"], tr["trace_peak_bytes"]
+        gates = {
+            "holding": unit.rank_bytes == tr["rank_bytes"]
+            and _unit_on_card(cell, unit),
+            "launches": m["launches"] == calls and not any(
+                counts[key][k] for k in counts[key] if k.startswith("plain")),
+            "collectives": m["collectives"] == tr["collectives"],
+            "signature": m["signature"] == tr["signature"],
+            "peak": abs(peak - traced) <= DRYRUN_PEAK_TOL * traced}
+        r = {"cell": dryrun.cell_tag(arch, shape, mp), "unit": unit.name,
+             "ranks": unit.ranks, "info": unit.info,
+             "rank_bytes": sorted(set(unit.rank_bytes)),
+             "peak_bytes": peak, "trace_peak_bytes": traced,
+             "peak_over_trace": peak / traced,
+             "allocated_before_bytes": m["base_bytes"],
+             "requested_peak_bytes": m["requested_peak_bytes"],
+             "launches": m["launches"], "trace_calls": calls,
+             "kernel_ops": {k: v["ops"] for k, v in tr["kernel_ops"].items()},
+             "flops": tr["flops"],
+             "collectives": {k: v for k, v in m["collectives"].items()
+                             if k != "zero3"},
+             "zero3": m["collectives"].get("zero3"),
+             "outputs": len(m["signature"]), "run_s": m["run_s"],
+             "trace_s": tr["trace_s"], "build_s": build_s, "gates": gates}
+        print(f"[dryrun] {json.dumps(r)}", flush=True)
+        out.append(r)
+        if not all(gates.values()):
+            bad = [g for g, ok in gates.items() if not ok]
+            diff = {"launches": (m["launches"], calls),
+                    "collectives": (m["collectives"], tr["collectives"]),
+                    "holding": (unit.rank_bytes[:2], tr["rank_bytes"][:2]),
+                    "signature": [(a, b) for a, b in zip(
+                        m["signature"], tr["signature"]) if a != b][:4]}
+            raise PhaseError(f"{r['cell']} {unit.name}: gates {bad} failed: "
+                             f"{json.dumps(diff)[:3000]}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -7075,6 +7231,13 @@ def main() -> int:
         return 1
     print(f"[build] ok sm_90a {', '.join(b.path.name for b in libs.values())}"
           f" in {dt:.1f}s; card: {smi}", flush=True)
+
+    # the dry-run at production meshes: each traced unit run on this card,
+    # first, while nothing else holds memory (seamless-m4t-v2's decoder
+    # stage peaks at 66 GB with its 16 ranks on the card)
+    (dry, dryrun_counts), dt = run("dryrun", lambda: phase_dryrun(
+        dev, args.seed))
+    print(f"[dryrun] ok in {dt:.1f}s: {len(dry)} units", flush=True)
 
     (cases, merges), dt = run("kernel", lambda: phase_kernel(dev))
     for rec in cases:
@@ -7415,6 +7578,7 @@ def main() -> int:
     print(f"[decode_encdec] ok in {dt:.1f}s", flush=True)
     torch.cuda.empty_cache()
 
+
     # launches per path: the serving engines, the bf16 train steps, the
     # float32 verify phases' chunked step (the float32 B and C1 run only
     # there), the pipelines, the one-shot generators
@@ -7434,7 +7598,7 @@ def main() -> int:
              "train_restart": restart_counts,
              "train_elastic": elastic_counts,
              "train_replan": replan_counts, **sp_counts, **decode_counts,
-             **mesh_counts}
+             **mesh_counts, **dryrun_counts}
     print("[kernels] " + "; ".join(f"{p}: {json.dumps(c)}"
                                    for p, c in paths.items())
           + f"; total {time.perf_counter() - t_start:.1f}s", flush=True)

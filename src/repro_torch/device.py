@@ -3,7 +3,9 @@
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"``, as the tests do). A CUDA request on a machine without a
 usable card raises :class:`DeviceUnavailableError`; nothing falls back to
-the CPU silently.
+the CPU silently. ``meta`` (shapes without memory) is the dry-run's
+device (``launch/dryrun``): the kernels' wrappers take their meta route
+there.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             f"device {str(dev)!r} requested but torch.cuda.is_available() "
             f"is False (torch {torch.__version__}); pass device='cpu' to "
             f"run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise DeviceUnavailableError(f"unsupported device {str(dev)!r}")
     return dev
 

@@ -42,6 +42,7 @@ from typing import Tuple
 
 import torch
 
+from . import meta
 from .build import load_libraries
 
 __all__ = ["TOKEN_MULTIPLE", "VOCAB_TILE", "MAX_VSPLIT", "DS_MAX",
@@ -183,7 +184,7 @@ def max_active_clusters(which: str, D: int, device=None) -> int:
 
 def _check(hidden, w, targets, *extra) -> Tuple[int, int, int]:
     ts = (hidden, w, targets, *extra)
-    if not all(isinstance(t, torch.Tensor) and t.is_cuda for t in ts):
+    if not all(isinstance(t, torch.Tensor) and meta.on_card(t) for t in ts):
         raise ValueError("the cross-entropy kernels take CUDA tensors only")
     if len({t.device for t in ts}) != 1:
         raise ValueError("cross-entropy kernel: tensors on different devices")
@@ -244,7 +245,8 @@ class CrossEntropyKernel:
     def _fwd(self, hidden, w, targets):
         T, V, D = _check(hidden, w, targets)
         dev = hidden.device
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        n_sm = meta.H100_SMS if meta.is_meta(hidden) else \
+            torch.cuda.get_device_properties(dev).multi_processor_count
         n_split = vocab_splits(T, V, n_sm, hidden.dtype)
         lse = torch.empty(T, dtype=torch.float32, device=dev)
         tl = torch.empty(T, dtype=torch.float32, device=dev)
@@ -253,6 +255,10 @@ class CrossEntropyKernel:
             ws = torch.empty((n_split, T, 3), dtype=torch.float32, device=dev)
             arrivals = torch.zeros(-(-T // FWD_TOKEN_TILE[hidden.dtype]),
                                    dtype=torch.int32, device=dev)
+        kernel = KERNELS[self.which][hidden.dtype]
+        if meta.is_meta(hidden):
+            meta.tally(kernel, 2 * T * V * D)
+            return lse, tl
         lib = load_library()
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
@@ -261,7 +267,6 @@ class CrossEntropyKernel:
                          ws.data_ptr() if ws is not None else None,
                          arrivals.data_ptr() if arrivals is not None else None,
                          T, V, D, _DTYPE_CODE[hidden.dtype], n_split, stream)
-        kernel = KERNELS[self.which][hidden.dtype]
         if rc != 0:
             raise RuntimeError(f"{kernel} launch failed with cudaError {rc} "
                                f"(T={T}, V={V}, D={D}, {hidden.dtype}, "
@@ -278,13 +283,16 @@ class CrossEntropyKernel:
                              f"{ds} columns in one cluster (bf16 C1 and C2 "
                              f"take D <= {DH_SLICE_MAX * DH_MAX_SLICES})")
         out = torch.empty_like(w if dw else hidden)
+        kernel = KERNELS[self.which][hidden.dtype]
+        if meta.is_meta(hidden):
+            meta.tally(kernel, 4 * T * V * D)
+            return out
         lib = load_library()
         stream = torch.cuda.current_stream(hidden.device).cuda_stream
         with torch.cuda.device(hidden.device):
             rc = lib.bwd(hidden.data_ptr(), w.data_ptr(), targets.data_ptr(),
                          lse.data_ptr(), g.data_ptr(), out.data_ptr(), T, V, D,
                          _DTYPE_CODE[hidden.dtype], int(dw), ds, stream)
-        kernel = KERNELS[self.which][hidden.dtype]
         if rc != 0:
             raise RuntimeError(f"{kernel} launch failed with cudaError {rc} "
                                f"(T={T}, V={V}, D={D}, {hidden.dtype}, "

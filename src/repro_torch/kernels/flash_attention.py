@@ -46,7 +46,8 @@ attention op in a backward (the dq pass first: it writes the rows' Delta
 that the dk/dv pass reads). They only launch: they take CUDA tensors,
 check them and raise on anything the kernel does not take. Padding to the
 tile sizes, the autograd function and the CPU dispatch live in
-:mod:`repro_torch.kernels.ops`.
+:mod:`repro_torch.kernels.ops`. On meta tensors each wrapper takes the
+same path but books the call in :mod:`.meta` where it would launch.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ from typing import Optional
 
 import torch
 
+from . import meta
 from .build import load_libraries
 
 __all__ = ["BLOCK_Q", "BLOCK_KV", "HEAD_DIMS", "MAX_SPLIT", "BWD_BLOCK",
@@ -209,6 +211,16 @@ class FlashAttentionKernel:
         S, Hkv = k.shape[0], k.shape[1]
         scale = float(scale if scale is not None else Dk ** -0.5)
         kernel = FWD_KERNELS[q.dtype]
+        if q.dtype == torch.bfloat16:
+            if tiles is None:
+                raise ValueError(f"{kernel} walks the metadata's tile "
+                                 f"ranges: pass tiles (ops.bwd_tiles, "
+                                 f"block={FWD_BLOCK})")
+            tiles.check(T, S, FWD_BLOCK, q.device)
+        if meta.is_meta(q):
+            meta.tally(kernel, Hq * (2 * Dk + 2 * Dv) * meta.attention_pairs(
+                T, S, causal=causal, window=int(window)))
+            return
         lib = load_library()
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
@@ -217,11 +229,6 @@ class FlashAttentionKernel:
         outs = (ptr(out), ptr(ws_ml), ptr(ws_acc), ptr(lse))
         with torch.cuda.device(q.device):
             if q.dtype == torch.bfloat16:
-                if tiles is None:
-                    raise ValueError(f"{kernel} walks the metadata's tile "
-                                     f"ranges: pass tiles (ops.bwd_tiles, "
-                                     f"block={FWD_BLOCK})")
-                tiles.check(T, S, FWD_BLOCK, q.device)
                 rc = lib.fwd_mma(*head, tiles.kv_range.data_ptr(),
                                  tiles.q_summary.data_ptr(),
                                  tiles.kv_summary.data_ptr(), *outs, T, S,
@@ -254,7 +261,7 @@ class FlashCombineKernel:
                  lse: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``lse``, if given, a float32 ``[Hq, T]`` tensor the merge pass
         fills with each row's log-sum-exp."""
-        if not all(isinstance(t, torch.Tensor) and t.is_cuda
+        if not all(isinstance(t, torch.Tensor) and meta.on_card(t)
                    for t in (ws_ml, ws_acc)) or ws_ml.device != ws_acc.device:
             raise ValueError("flash_combine_cuda takes CUDA tensors on one "
                              "device")
@@ -281,6 +288,9 @@ class FlashCombineKernel:
             raise ValueError("lse must be a contiguous float32 [Hq, T] "
                              "tensor on the partial states' device")
         out = torch.empty((T, Hq, D), dtype=dtype, device=ws_acc.device)
+        if meta.is_meta(out):
+            meta.tally("flash_combine_kernel", 2 * n_split * T * Hq * D)
+            return out
         lib = load_library()
         stream = torch.cuda.current_stream(out.device).cuda_stream
         with torch.cuda.device(out.device):
@@ -325,7 +335,7 @@ class FlashBwdKernel:
         T, Hq, Dk, Dv = _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
         S, Hkv = k.shape[0], k.shape[1]
         for name, t in (("out", out), ("dout", dout)):
-            if (not isinstance(t, torch.Tensor) or not t.is_cuda
+            if (not isinstance(t, torch.Tensor) or not meta.on_card(t)
                     or t.device != q.device or t.dtype != q.dtype
                     or tuple(t.shape) != (T, Hq, Dv)
                     or not t.is_contiguous()):
@@ -340,6 +350,13 @@ class FlashBwdKernel:
         window = int(window)
         tiles.check(T, S, BWD_BLOCK[q.dtype], q.device)
         scale = float(scale if scale is not None else Dk ** -0.5)
+        if meta.is_meta(q):
+            per = 4 * Dk + (4 if self.which == "dkdv" else 2) * Dv
+            meta.tally(f"flash_bwd_{self.which}_kernel",
+                       Hq * per * meta.attention_pairs(
+                           T, S, causal=causal, window=window))
+            return (torch.empty_like(k), torch.empty_like(v)) \
+                if self.which == "dkdv" else torch.empty_like(q)
         lib = load_library()
         stream = torch.cuda.current_stream(q.device).cuda_stream
         head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -417,7 +434,7 @@ class FlashBwdTilesKernel:
     def __call__(self, seg_q, seg_kv, pos_q, pos_kv, *, causal: bool = True,
                  window: int = 0, block: int = 64) -> BwdTiles:
         ts = (seg_q, seg_kv, pos_q, pos_kv)
-        if not all(isinstance(t, torch.Tensor) and t.is_cuda
+        if not all(isinstance(t, torch.Tensor) and meta.on_card(t)
                    and t.dtype == torch.int32 and t.dim() == 1
                    and t.is_contiguous() for t in ts) \
                 or len({t.device for t in ts}) != 1:
@@ -435,6 +452,10 @@ class FlashBwdTilesKernel:
         q_sum, kv_sum, kv_range, q_range = (
             t.view(-1, w) for t, w in zip(buf.split(
                 [4 * n_q, 4 * n_kv, 2 * n_q, 2 * n_kv]), (4, 4, 2, 2)))
+        if meta.is_meta(buf):
+            meta.tally("flash_bwd_tiles_kernel", 0)
+            return BwdTiles(block=block, kv_range=kv_range, q_range=q_range,
+                            q_summary=q_sum, kv_summary=kv_sum)
         lib = load_library()
         stream = torch.cuda.current_stream(seg_q.device).cuda_stream
         with torch.cuda.device(seg_q.device):
@@ -482,6 +503,8 @@ def tile_counts(tiles: BwdTiles, *, causal: bool = True,
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(device) -> int:
+    if torch.device(device).type == "meta":
+        return meta.H100_SMS
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -511,7 +534,7 @@ def kv_splits(T: int, S: int, Hq: int, n_sm: int,
 
 def _check(q, k, v, seg_q, seg_kv, pos_q, pos_kv):
     ts = (q, k, v, seg_q, seg_kv, pos_q, pos_kv)
-    if not all(isinstance(t, torch.Tensor) and t.is_cuda for t in ts):
+    if not all(isinstance(t, torch.Tensor) and meta.on_card(t) for t in ts):
         raise ValueError("flash_attention_cuda takes CUDA tensors only")
     if len({t.device for t in ts}) != 1:
         raise ValueError("flash_attention_cuda: tensors on different devices")

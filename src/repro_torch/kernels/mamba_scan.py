@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import meta
 from .build import load_libraries
 
 __all__ = ["SCAN_TILE", "CHANNEL_GROUP", "STATE_SIZES", "Gate",
@@ -138,7 +139,7 @@ def _args(pre, xs, B, C, A, reset, gate, h0=None, dout=None):
     ts = [t for t in (pre, xs, B, C, A, reset, h0, dout) if t is not None]
     if gate is not None:
         ts += list(gate)
-    if not all(isinstance(t, torch.Tensor) and t.is_cuda for t in ts):
+    if not all(isinstance(t, torch.Tensor) and meta.on_card(t) for t in ts):
         raise ValueError("the selective-scan kernels take CUDA tensors only")
     if len({t.device for t in ts}) != 1:
         raise ValueError("selective-scan kernel: tensors on different "
@@ -182,6 +183,11 @@ def _args(pre, xs, B, C, A, reset, gate, h0=None, dout=None):
     return a, (T, DI, DS, tx if gate is not None else f32)
 
 
+# operations per (row, channel, state) of D and D′ (PERF.md §6), booked on
+# each function's main pass
+_META_OPS = {"mamba_scan_fwd_emit_kernel": 8, "mamba_scan_bwd_tile_kernel": 16}
+
+
 class _Call:
     """One call's argument block, the tensors it points into (kept alive)
     and the launch of each of its kernels."""
@@ -192,7 +198,13 @@ class _Call:
 
     def launch(self, kernel: str) -> None:
         """Launch ``kernel`` (one of the owner's ``KERNELS``) on the current
-        stream; its launch count goes up by one."""
+        stream; its launch count goes up by one. On meta (:mod:`.meta`) it
+        books the call instead: D's operations on its emit pass, D′'s on
+        its per-tile pass."""
+        if self.device.type == "meta":
+            a = self.args
+            meta.tally(kernel, _META_OPS.get(kernel, 0) * a.T * a.DI * a.DS)
+            return
         lib = load_library()
         stream = torch.cuda.current_stream(self.device).cuda_stream
         with torch.cuda.device(self.device):

@@ -10,7 +10,8 @@ is never a live query) and cross-entropy tokens to
 sliced back. The scan kernels mask their ragged last time tile
 themselves: their inputs go unpadded. CPU tensors go to the plain versions
 (:mod:`.ref`). There is no fallback: a CUDA tensor launches the kernels
-or raises.
+or raises. Meta tensors take the CUDA route and stop where it would
+launch (:mod:`.meta`, the dry-run's trace): never the plain version.
 
 The ops are ``torch.autograd.Function``\\ s when a gradient is wanted:
 
@@ -44,9 +45,11 @@ from .flash_attention import (BLOCK_KV, BLOCK_Q, BWD_BLOCK,
                               flash_bwd_dkdv_cuda, flash_bwd_dq_cuda,
                               flash_bwd_tiles_cuda)
 from .mamba_scan import Gate, mamba_scan_bwd_cuda, mamba_scan_fwd_cuda
+from .meta import on_card
 
-__all__ = ["flash_attention", "attention_forward", "attention_backward",
-           "attention_with_lse", "bwd_tiles", "fused_cross_entropy",
+__all__ = ["on_card", "flash_attention", "attention_forward",
+           "attention_backward", "attention_with_lse", "bwd_tiles",
+           "fused_cross_entropy",
            "mamba_scan", "mamba_scan_fwd", "mamba_scan_bwd",
            "mamba_scan_gated_fwd", "mamba_scan_gated_bwd", "pad_rows",
            "pad_for_kernel"]
@@ -84,7 +87,7 @@ def pad_for_kernel(q, k, v, seg_q, seg_kv, pos_q, pos_kv):
 
 
 def _known_device(t: torch.Tensor, op: str):
-    if t.device.type not in ("cpu", "cuda"):
+    if t.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{op}: no kernel for device {t.device}")
 
 
@@ -109,7 +112,7 @@ def attention_forward(q, k, v, seg_q, seg_kv, pos_q, pos_kv, *,
     :func:`attention_backward` takes ``saved`` and ``tiles`` with these
     keys and values (or the same ones made again)."""
     opts = dict(causal=causal, window=window, scale=scale)
-    if q.is_cuda:
+    if on_card(q):
         padded = pad_for_kernel(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
         tiles = _fwd_tiles(padded, causal, window)
         out, lse = flash_attention_cuda(*padded, with_lse=True, tiles=tiles,
@@ -134,7 +137,7 @@ def attention_with_lse(q, k, v, seg_q, seg_kv, pos_q, pos_kv, *,
     opts = dict(causal=causal, window=int(window), scale=scale)
     out, saved, _, _ = attention_forward(q, k, v, seg_q, seg_kv, pos_q,
                                          pos_kv, **opts)
-    if q.is_cuda:
+    if on_card(q):
         return out, saved[-1][:, :q.shape[0]]
     return out, ref.flash_attention_lse(q, k, seg_q, seg_kv, pos_q, pos_kv,
                                         **opts)
@@ -149,7 +152,7 @@ def attention_backward(saved, tiles, k, v, dout, *, causal: bool = True,
     inputs. CUDA: the dq pass, then the dk/dv pass (kernel A′); CPU: the
     plain gradient."""
     opts = dict(causal=causal, window=window, scale=scale)
-    if dout.is_cuda:
+    if on_card(dout):
         q, seg_q, seg_kv, pos_q, pos_kv, out, lse = saved
         T, S = dout.shape[0], k.shape[0]
         k, v = (_dense(pad_rows(t, BLOCK_KV)) for t in (k, v))
@@ -208,7 +211,7 @@ def flash_attention(q, k, v, seg_q, seg_kv, pos_q, pos_kv, *,
         _known_device(q, "flash_attention")
         return _FlashAttention.apply(q, k, v, seg_q, seg_kv, pos_q, pos_kv,
                                      causal, window, scale)
-    if q.is_cuda:
+    if on_card(q):
         T = q.shape[0]
         padded = pad_for_kernel(q, k, v, seg_q, seg_kv, pos_q, pos_kv)
         tiles = (_fwd_tiles(padded, causal, window)
@@ -232,7 +235,7 @@ def bwd_tiles(seg_q, seg_kv, pos_q, pos_kv, *, causal: bool = True,
     (:class:`~.flash_attention.BwdTiles`) for tiles of ``block`` rows:
     ``flash_bwd_tiles_kernel`` on CUDA metadata (int32, contiguous, padded
     as the kernels take it), its plain version on the CPU."""
-    if seg_q.is_cuda:
+    if on_card(seg_q):
         return flash_bwd_tiles_cuda(seg_q, seg_kv, pos_q, pos_kv,
                                     causal=causal, window=int(window),
                                     block=block)
@@ -255,7 +258,7 @@ class _FusedCrossEntropy(torch.autograd.Function):
         tp = pad_rows(targets.to(torch.int32), TOKEN_MULTIPLE,
                       -1).contiguous()
         vf = pad_rows(valid, TOKEN_MULTIPLE, False).float()
-        if hidden.is_cuda:
+        if on_card(hidden):
             lse, tl = ce_fwd_cuda(hp, _dense(w), tp)
         else:
             fused_cross_entropy.plain_calls += 1
@@ -269,7 +272,7 @@ class _FusedCrossEntropy(torch.autograd.Function):
         hp, w, tp, lse, vf = ctx.saved_tensors
         g_rows = (vf * g_loss.float()).contiguous()
         dh = dw = None
-        if hp.is_cuda:
+        if on_card(hp):
             wd = _dense(w)
             if ctx.needs_input_grad[0]:
                 dh = ce_bwd_dh_cuda(hp, wd, tp, lse, g_rows)[:ctx.T]
@@ -321,7 +324,7 @@ def mamba_scan_fwd(delta, xs, B, C, A, reset, h0):
     [DI, DS], ckpt)``, y and h_last float32; ``ckpt`` is what
     :func:`mamba_scan_bwd` needs besides the inputs (the state entering
     every time tile on the card, None on the CPU)."""
-    if delta.is_cuda:
+    if on_card(delta):
         return mamba_scan_fwd_cuda(_rows(delta.float()), _rows(xs),
                                    _rows(B.float()), _rows(C.float()),
                                    _f32(A), _flags(reset), _f32(h0))
@@ -336,7 +339,7 @@ def mamba_scan_bwd(delta, xs, B, C, A, reset, h0, ckpt, dy, dh_last=None):
     inputs and ``ckpt``, the output gradient ``dy [T, DI]`` and ``dh_last
     [DI, DS]`` (None: zero). Returns ``(d_delta, d_xs, dB, dC, dA, dh0)``,
     float32."""
-    if delta.is_cuda:
+    if on_card(delta):
         return mamba_scan_bwd_cuda(
             _rows(delta.float()), _rows(xs), _rows(B.float()),
             _rows(C.float()), _f32(A), _flags(reset), ckpt,
@@ -362,7 +365,7 @@ def mamba_scan_gated_fwd(dt_pre, xc, B, C, z, dt_bias, A, d_skip, live,
     DS]`` all in one dtype (row slices are fine), ``A``, ``h0`` ``[DI, DS]``,
     ``live``, ``reset`` ``[T]``. Returns ``(out, h_last, ckpt)``: h_last
     float32, ckpt for :func:`mamba_scan_gated_bwd` (None on the CPU)."""
-    if dt_pre.is_cuda:
+    if on_card(dt_pre):
         return mamba_scan_fwd_cuda(
             _rows(dt_pre), _rows(xc), _rows(B), _rows(C), _f32(A),
             _flags(reset), _f32(h0), gate=_gate(z, dt_bias, d_skip, live))
@@ -380,7 +383,7 @@ def mamba_scan_gated_bwd(dt_pre, xc, B, C, z, dt_bias, A, d_skip, live,
     DI]`` and ``dh_last [DI, DS]`` (None: zero): ``(d_pre, d_xc, dz, dB,
     dC, dA, d_bias, d_dskip, dh0)``, the first three in xc's dtype (d_pre
     0 on pad rows), the rest float32."""
-    if dt_pre.is_cuda:
+    if on_card(dt_pre):
         return mamba_scan_bwd_cuda(
             _rows(dt_pre), _rows(xc), _rows(B), _rows(C), _f32(A),
             _flags(reset), ckpt, _rows(dout),

@@ -224,8 +224,9 @@ class _CrossAttention(torch.autograd.Function):
     again (two products), runs kernel A′ and takes their gradients back
     through the projections (the memory's summed over both). The weight
     gradients are the products autograd's linear backward computes (``dy.T
-    @ memory``); under ``layers.deferred_weight_grads`` they go to the
-    store."""
+    @ memory``); under ``layers.deferred_weight_grads`` they are made in
+    the backward and the store hands them to the W pass (so no ``[S,
+    Hkv Dh]`` gradient waits for it)."""
 
     @staticmethod
     def forward(ctx, q, memory, wk, wv, seg_q, seg_kv, heads, Dh, scale):
@@ -252,14 +253,20 @@ class _CrossAttention(torch.autograd.Function):
         dk, dv = dk.reshape(S, -1), dv.reshape(S, -1)
         dmem = dk.mm(wk.to(dt)) + dv.mm(wv.to(dt))
         mem = memory.detach()
-        products = [lambda dy=dy, w=w: dy.t().mm(mem).to(w.dtype)
-                    for dy, w in ((dk, wk), (dv, wv))]
         if ctx.store is not None:
-            ctx.store.extend(zip(ctx.leaves, products))
+            # the split backward's W pass takes the two products made
+            # here: deferred, they would keep this rank's dK and dV of the
+            # whole memory (2 S Hkv Dh values a layer) until the W pass
+            # (the dry-run's seamless-m4t-v2 train_4k cell: 8.4 GB a rank)
+            made = [dy.t().mm(mem).to(w.dtype)
+                    for dy, w in ((dk, wk), (dv, wv))]
+            ctx.store.extend((leaf, lambda g=g: g)
+                             for leaf, g in zip(ctx.leaves, made))
             grads = (None, None)
         else:
-            grads = tuple(p() if need else None for p, need in
-                          zip(products, ctx.needs_input_grad[2:4]))
+            grads = tuple(dy.t().mm(mem).to(w.dtype) if need else None
+                          for dy, w, need in zip((dk, dv), (wk, wv),
+                                                 ctx.needs_input_grad[2:4]))
         return (dq, dmem, *grads, None, None, None, None, None)
 
 

@@ -170,6 +170,17 @@ def _add_wgrads(parts: List, want, x: torch.Tensor, te: torch.Tensor,
             COUNTS["expert_matmuls"] += 1
 
 
+def group_sizes(flat: torch.Tensor, E: int) -> List[int]:
+    """The rows routed to each of ``E`` experts from the flat expert ids
+    (one host sync). Meta tensors carry no ids: the dry-run takes the
+    balanced split, the ``T·k`` rows spread over the experts as evenly as
+    they go (the largest group ``ceil(T·k / E)``)."""
+    if flat.device.type == "meta":
+        q, r = divmod(flat.numel(), E)
+        return [q + (e < r) for e in range(E)]
+    return torch.bincount(flat, minlength=E).tolist()
+
+
 class _RoutedExperts(torch.autograd.Function):
     """The routed experts' output ``[T, D]`` in x's dtype (see the module
     docstring); with ``experts = (lo, hi)``, the float32 sum of the experts
@@ -188,7 +199,7 @@ class _RoutedExperts(torch.autograd.Function):
         w, ids = route(logits, k)
         flat = ids.reshape(-1)
         order = torch.argsort(flat, stable=True)
-        sizes = torch.bincount(flat, minlength=E).tolist()
+        sizes = group_sizes(flat, E)
         COUNTS["host_syncs"] += 1
         if _OBSERVER is not None:
             _OBSERVER(router, logits, ids, sizes)

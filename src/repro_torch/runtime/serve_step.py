@@ -641,13 +641,17 @@ def _layer_tables(cfg: ArchConfig, d_p: int, L_s: int
 
 
 def _state_shapes(cfg: ArchConfig, geom: DecodeGeometry,
-                  s_mem: Optional[int]) -> Dict[str, Tuple[tuple, object]]:
+                  s_mem: Optional[int], n_pods: int = 1
+                  ) -> Dict[str, Tuple[tuple, object]]:
     """Each entry's per-stage, per-rank shape and dtype (``memory``: per
-    rank, no stage), the reference's ``decode_state_struct`` less the pod
-    dim, the stage dim and the sharded dim's other blocks."""
+    rank, no stage), the reference's ``decode_state_struct`` less the stage
+    dim and the sharded dim's other blocks; its lead pod dim where
+    ``n_pods > 1``, as the reference's."""
     s = cfg.spec
     nm, L_s, bm, d = geom.n_micro, geom.layers_per_stage, geom.bm, geom.d_s
     dt = geom.compute_dtype
+    if n_pods < 1:
+        raise ValueError(f"n_pods must be >= 1, got {n_pods}")
     out: Dict[str, Tuple[tuple, object]] = {"tokens": ((nm, bm),
                                                        torch.int32)}
     if s.is_encoder_decoder:
@@ -667,13 +671,14 @@ def _state_shapes(cfg: ArchConfig, geom: DecodeGeometry,
         out["ssm_h"] = ((nm, L_s, bm, s.inner // d, s.ssm_state),
                         torch.float32)
         out["conv_tail"] = ((nm, L_s, bm, s.ssm_conv - 1, s.inner // d), dt)
-    return out
+    lead = (n_pods,) if n_pods > 1 else ()
+    return {k: ((*lead, *shape), dt) for k, (shape, dt) in out.items()}
 
 
 def init_decode_state(cfg: ArchConfig, geom: DecodeGeometry, devices, *,
-                      s_mem: Optional[int] = None) -> Dict:
-    """The decode state, zeros (the reference's ``decode_state_struct`` less
-    the pod dim): ``tokens [n_micro, bm]`` int32 (each sequence's token to
+                      s_mem: Optional[int] = None, n_pods: int = 1) -> Dict:
+    """The decode state, zeros (the reference's ``decode_state_struct``):
+    ``tokens [n_micro, bm]`` int32 (each sequence's token to
     run next) and ``length`` (the rows its cache holds) on the first stage;
     per stage ``p`` (on ``devices[p]``) the list of the ranks' blocks of
     ``cache_k`` / ``cache_v`` ``[n_micro, L_s, bm, s_loc, Hkv, Dh]`` (MLA:
@@ -681,18 +686,26 @@ def init_decode_state(cfg: ArchConfig, geom: DecodeGeometry, devices, *,
     L_s, bm, d_inner / d_s, d_state]`` float32 and ``conv_tail [.., d_conv
     - 1, d_inner / d_s]``; the encoder-decoder's ``memory``, the ranks'
     blocks of ``s_mem`` frames ``[n_micro, bm, s_mem / d_s, D]`` on the
-    first stage (default: the reference's stub size), and ``mem_len``."""
+    first stage (default: the reference's stub size), and ``mem_len``.
+
+    ``n_pods > 1``: every tensor leads with the reference's pod dim (each
+    pod's ``batch_per_pod`` sequences; ``n_pods`` in the state), which the
+    dry-run sizes; :func:`decode_step` runs one pod's state (the reference
+    only lowers its decode over pods)."""
     devs = list(devices)
     if len(devs) != geom.d_p:
         raise ValueError(f"{len(devs)} devices for {geom.d_p} stages")
     state: Dict = {"length": 0}
-    for name, (shape, dt) in _state_shapes(cfg, geom, s_mem).items():
+    if n_pods > 1:
+        state["n_pods"] = n_pods
+    for name, (shape, dt) in _state_shapes(cfg, geom, s_mem,
+                                           n_pods).items():
         if name == "tokens":
             state[name] = torch.zeros(shape, dtype=dt, device=devs[0])
         elif name == "memory":
             state[name] = [torch.zeros(shape, dtype=dt, device=devs[0])
                            for _ in range(geom.d_s)]
-            state["mem_len"] = shape[2] * geom.d_s
+            state["mem_len"] = shape[-2] * geom.d_s
         else:
             state[name] = [[torch.zeros(shape, dtype=dt, device=dev)
                             for _ in range(geom.d_s)] for dev in devs]
@@ -700,12 +713,13 @@ def init_decode_state(cfg: ArchConfig, geom: DecodeGeometry, devices, *,
 
 
 def decode_state_bytes(geom: DecodeGeometry, cfg: ArchConfig, *,
-                       s_mem: Optional[int] = None) -> int:
+                       s_mem: Optional[int] = None, n_pods: int = 1) -> int:
     """Bytes of the decode state (:func:`init_decode_state`): the
-    reference's ``decode_state_struct`` less the pod dim, every stage and
-    rank counted once."""
+    reference's ``decode_state_struct`` (its pod dim where ``n_pods > 1``),
+    every stage and rank counted once."""
     total = 0
-    for name, (shape, dt) in _state_shapes(cfg, geom, s_mem).items():
+    for name, (shape, dt) in _state_shapes(cfg, geom, s_mem,
+                                           n_pods).items():
         n = int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
         if name == "memory":
             n *= geom.d_s
@@ -780,6 +794,10 @@ def decode_step(model, geom: DecodeGeometry, stages: Sequence[Dict],
     last stage's device). ``stages``: the decode layout's parameters
     (``weights.to_stages(..., decode=True)``), stage ``p`` on
     ``devices[p]``."""
+    if state.get("n_pods", 1) > 1:
+        raise NotImplementedError(
+            "decode over pods: the reference only lowers it (its dry-run); "
+            "run one pod's state (init_decode_state with n_pods=1)")
     s = model.cfg.spec
     d_p, nm = geom.d_p, geom.n_micro
     length = state["length"]

@@ -374,7 +374,7 @@ def _gathered(full: torch.Tensor, leaf: ShardedLeaf) -> None:
     full.zero3_key = leaf
     _track(full)
     if _LIVE is not None:
-        _LIVE[full.untyped_storage().data_ptr()] = _Regather(leaf)
+        _LIVE[_storage_key(full)] = _Regather(leaf)
 
 
 class _Gather(torch.autograd.Function):
@@ -392,7 +392,7 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, g):
         from . import sp
         n = (len(ctx.sizes) - 1) * g.numel() * g.element_size()
-        sp._count(n)
+        sp._count(n, "reduce-scatter")
         ZSTATS["scatter_bytes"] += n
         return (None, None, *g.split(list(ctx.sizes), dim=ctx.dim))
 
@@ -425,15 +425,15 @@ def reduce_scatter_grads(contribs: Sequence[torch.Tensor], leaf: ShardedLeaf
                 a.add_(c)
             continue
         n = (len(leaf.accs) - 1) * c.numel() * c.element_size()
-        sp._count(n)
+        sp._count(n, "reduce-scatter")
         ZSTATS["scatter_bytes"] += n
         for a, b in zip(leaf.accs, c.split(list(leaf.spec.sizes),
                                            dim=leaf.spec.dim)):
             a.add_(b)
 
 
-# ``per_tick``: the gathered storages of the layer being run (data pointer
-# -> :class:`_Regather`), while :meth:`Zero3.keep_shards` is active
+# ``per_tick``: the gathered storages of the layer being run (storage
+# identity, :func:`_storage_key` -> :class:`_Regather`), while :meth:`Zero3.keep_shards` is active
 _LIVE: Optional[Dict[int, "_Regather"]] = None
 
 
@@ -458,8 +458,14 @@ class _Regather:
         return self.full
 
 
+def _storage_key(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage (its data pointer would do on a
+    card, but every meta storage has pointer 0)."""
+    return t.untyped_storage()._cdata
+
+
 def _pack(t: torch.Tensor):
-    g = _LIVE.get(t.untyped_storage().data_ptr()) if _LIVE else None
+    g = _LIVE.get(_storage_key(t)) if _LIVE else None
     if g is None:
         return t
     return (g, t.storage_offset(), tuple(t.shape), tuple(t.stride()))

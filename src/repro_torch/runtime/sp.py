@@ -43,7 +43,9 @@ compute the same chunk and only group 0 feeds the loss, so every token
 counts once. The vocabulary stays sharded over the full ``d_s``.
 
 :data:`STATS` counts the collectives and the bytes they would move
-between ranks (forward only: the backward's transposes move the same).
+between ranks (forward only: the backward's transposes move the same),
+and :data:`KINDS` the same by kind; ``launch/analysis.collective_counts``
+reads them.
 
 The encoder-decoder's cross-attention reads the memory of every rank:
 :func:`gather_memory` gathers the ranks' memory blocks once per decoder
@@ -67,7 +69,7 @@ import torch
 from repro_torch.core.sp import choose_sp_policy
 
 __all__ = ["choose_policy", "subgroup_info", "row_blocks", "row_views",
-           "STATS", "count_bytes",
+           "STATS", "KINDS", "COLLECTIVE_KINDS", "count_bytes",
            "all_gather", "reduce_scatter", "all_to_all",
            "make_none_policy", "make_allgather_kv_policy",
            "make_ulysses_policy", "sharded_embed", "sharded_ce", "merge_lse",
@@ -78,17 +80,24 @@ __all__ = ["choose_policy", "subgroup_info", "row_blocks", "row_views",
 # the encoder-decoder's memory gathers (:func:`gather_memory`)
 STATS = {"collectives": 0, "bytes": 0, "memory_gathers": 0,
          "memory_bytes": 0}
+# the same collectives by kind (:data:`COLLECTIVE_KINDS`): count and bytes
+KINDS = {}
+COLLECTIVE_KINDS = ("all-gather", "reduce-scatter", "all-to-all",
+                    "all-reduce", "send-recv")
 
 
-def _count(nbytes: float) -> None:
+def _count(nbytes: float, kind: str) -> None:
     STATS["collectives"] += 1
     STATS["bytes"] += int(nbytes)
+    rec = KINDS.setdefault(kind, {"count": 0, "bytes": 0})
+    rec["count"] += 1
+    rec["bytes"] += int(nbytes)
 
 
 def count_bytes(nbytes: float) -> None:
     """Count one collective of ``nbytes`` that its caller moves itself
-    (the serving engine's page copies between ranks)."""
-    _count(nbytes)
+    (the serving engine's page copies between ranks: a send-recv)."""
+    _count(nbytes, "send-recv")
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -134,7 +143,7 @@ def all_gather(xs: Sequence[torch.Tensor], dim: int = 0) -> torch.Tensor:
     blocks: a reduce-scatter). A ZeRO-3 leaf gathers along its shard dim
     (``runtime/sharding.zero3_dim``)."""
     full = torch.cat(list(xs), dim=dim)
-    _count((len(xs) - 1) * _nbytes(full))
+    _count((len(xs) - 1) * _nbytes(full), "all-gather")
     return full
 
 
@@ -145,7 +154,7 @@ def reduce_scatter(xs: Sequence[torch.Tensor], sizes: Sequence[int],
     total = xs[0]
     for x in xs[1:]:
         total = total + x
-    _count((len(xs) - 1) * _nbytes(total))
+    _count((len(xs) - 1) * _nbytes(total), "reduce-scatter")
     return list(total.split(list(sizes), dim=dim))
 
 
@@ -155,7 +164,7 @@ def all_to_all(xs: Sequence[torch.Tensor], split_dim: int, concat_dim: int
     rank's tensor, concatenated along ``concat_dim`` in rank order."""
     S = len(xs)
     parts = [x.chunk(S, dim=split_dim) for x in xs]
-    _count(sum(_nbytes(x) for x in xs) * (S - 1) / S)
+    _count(sum(_nbytes(x) for x in xs) * (S - 1) / S, "all-to-all")
     return [torch.cat([p[r] for p in parts], dim=concat_dim)
             for r in range(S)]
 
@@ -344,7 +353,7 @@ class _ShardedCE(torch.autograd.Function):
         lses, tls = [], []
         for i, off in live:
             wr, tr = ws[i], (tp - off).contiguous()
-            if hidden.is_cuda:
+            if ops.on_card(hidden):
                 from repro_torch.kernels.cross_entropy import ce_fwd_cuda
                 lse, tl = ce_fwd_cuda(hp, ops._dense(wr), tr)
             else:
@@ -353,7 +362,8 @@ class _ShardedCE(torch.autograd.Function):
             lses.append(lse)
             tls.append(tl)
         stack = torch.stack(lses)
-        _count(2 * (len(live) - 1) * _nbytes(stack))      # lse and tl
+        _count(2 * (len(live) - 1) * _nbytes(stack),      # lse and tl
+               "all-reduce")
         lse = merge_lse(stack)
         tl = torch.stack(tls).sum(0)
         ctx.save_for_backward(hp, tp, lse, vf, *ws)
@@ -372,7 +382,7 @@ class _ShardedCE(torch.autograd.Function):
         for i, off in ctx.live:
             wr, tr = ws[i], (tp - off).contiguous()
             want_dw = ctx.needs_input_grad[3 + i]
-            if hp.is_cuda:
+            if ops.on_card(hp):
                 from repro_torch.kernels.cross_entropy import (
                     ce_bwd_dh_cuda, ce_bwd_dw_cuda)
                 wd = ops._dense(wr)
@@ -456,7 +466,8 @@ def sharded_greedy(hidden, w, d_s: int, *, vocab_true=None, rows=None
             take = vals > best_v
             best_i = torch.where(take, ids, best_i)
             best_v = torch.where(take, vals, best_v)
-    _count(2 * (len(blocks) - 1) * 8 * hidden.shape[0])    # pmax, pmin
+    _count(2 * (len(blocks) - 1) * 8 * hidden.shape[0],    # pmax, pmin
+           "all-reduce")
     return best_i
 
 
@@ -480,7 +491,7 @@ def merge_partials(outs: Sequence[torch.Tensor],
     num = (w * torch.stack([o.float() for o in outs])).sum(0)
     out = torch.where(den > 0, num / den.clamp_min(1e-30),
                       torch.zeros_like(num))
-    _count((len(outs) - 1) * (_nbytes(num) + 2 * _nbytes(m)))
+    _count((len(outs) - 1) * (_nbytes(num) + 2 * _nbytes(m)), "all-reduce")
     return out.to(outs[0].dtype)
 
 
@@ -517,7 +528,8 @@ def make_sp_ssm_scan() -> Callable:
             _, h_last0 = gated_scan(p, *a, zero)
             summ.append((shard_decay(p, a.dt_in, a.live, a.reset), h_last0))
         if summ:
-            _count(2 * (len(shards) - 1) * len(shards) * _nbytes(h0))
+            _count(2 * (len(shards) - 1) * len(shards) * _nbytes(h0),
+                   "all-gather")
         entering = [h0]
         for a_prod, h_last0 in summ:
             entering.append(a_prod * entering[-1] + h_last0)
@@ -544,7 +556,7 @@ def make_sp_conv_tail_exchange() -> Callable:
 
     def exchange(xs: Sequence[torch.Tensor], lives, resets, carried):
         from repro_torch.models.ssm import live_tail
-        _count(len(xs) * (len(xs) - 1) * _nbytes(carried))
+        _count(len(xs) * (len(xs) - 1) * _nbytes(carried), "all-gather")
         tails, t = [], carried
         for x, live, reset in zip(xs, lives, resets):
             tails.append(t)

@@ -1734,3 +1734,41 @@ def test_mamba_decode_on_card_matches_cpu(arch, d, dtype):
     _close(got, want, dtype)
     for a, b in zip(h_d + t_d, h + t):
         _close(a, b, dtype)
+
+
+@pytest.mark.gpu
+def test_dryrun_unit_on_card_matches_its_trace():
+    """Reduced hymba-1.5b's train unit at 2x2 (the dry-run's largest chunk
+    through the last stage, both ranks; and through the stage with the
+    largest estimate), built on the card from random bf16 weights and run
+    once: each rank holds the bytes the dry-run sized, each kernel
+    launches as often as the meta trace booked it and no plain version
+    runs, the collectives are the trace's, the outputs, carries and
+    gradients have the trace's shapes and dtypes, and the peak is within
+    10% of the trace's."""
+    dev = _cuda()
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import DecoderLM
+    cfg = get_arch("hymba-1.5b").reduced()
+    shape = ShapeSpec("train_small", 2048, 8, "train")
+    mesh = make_mesh((2, 2), ("data", "model"))
+    traces = [dr.trace_unit(u)
+              for u in dr.build_cell(cfg, shape, mesh=mesh).units]
+    params = DecoderLM(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                 device=dev, dtype=torch.bfloat16)
+    card = dr.build_cell(cfg, shape, mesh=mesh, device=dev, params=params)
+    del params
+    assert len(card.units) == len(traces) >= 1
+    for unit, tr in zip(card.units, traces):
+        assert unit.rank_bytes == tr["rank_bytes"]
+        got = dr.measure_unit(unit)
+        assert got["launches"] == {k: v["calls"]
+                                   for k, v in tr["kernel_ops"].items()}
+        assert got["collectives"] == tr["collectives"]
+        assert got["signature"] == tr["signature"]
+        assert abs(got["peak_bytes"] - tr["trace_peak_bytes"]) <= \
+            0.10 * tr["trace_peak_bytes"], (got["peak_bytes"],
+                                            tr["trace_peak_bytes"])

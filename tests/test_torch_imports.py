@@ -39,6 +39,10 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "repro_torch.serve.engine" in mods and len(mods) > 20
+    assert {"repro_torch.launch.dryrun", "repro_torch.launch.analysis",
+            "repro_torch.launch.mesh", "repro_torch.configs.shapes",
+            "repro_torch.configs.llama_paper",
+            "repro_torch.kernels.meta"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None          # any `import jax` now fails
